@@ -1,0 +1,42 @@
+"""Move the JAX package's state into the port.
+
+Both functions take numpy-convertible arrays (a JAX-built SVO, a loaded
+npz, plain numpy), so the port and the reference can run on identical
+state. Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracingtest_tpu_torch.ops.octree import SVO
+
+_INT_FIELDS = ("masks", "child_base", "leaf_base")
+_FLOAT_FIELDS = ("leaf_albedo", "leaf_normal", "leaf_density")
+
+
+def _tensor(a, dtype, device):
+    # np.array copies: JAX hands out read-only buffers
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
+
+
+def svo_from_numpy(obj, device="cpu") -> SVO:
+    """The port's SVO on `device` from any object with the JAX SVO's fields
+    (masks, child_base, leaf_base, leaf_albedo, leaf_normal, leaf_density,
+    depth, level_start, optional parent_ptr) as numpy-convertible arrays."""
+    fields = {name: _tensor(getattr(obj, name), np.int32, device)
+              for name in _INT_FIELDS}
+    fields.update({name: _tensor(getattr(obj, name), np.float32, device)
+                   for name in _FLOAT_FIELDS})
+    pptr = getattr(obj, "parent_ptr", None)
+    return SVO(**fields, depth=int(obj.depth),
+               level_start=tuple(int(v) for v in obj.level_start),
+               parent_ptr=None if pptr is None else _tensor(pptr, np.int32, device))
+
+
+def params_from_numpy(albedo, normal, density, device="cpu"):
+    """Voxel parameters (albedo (n,3), normal (n,3), density (n,)) as
+    float32 tensors on `device`."""
+    return tuple(_tensor(a, np.float32, device)
+                 for a in (albedo, normal, density))

@@ -1,0 +1,241 @@
+"""ESVO traversal, plain PyTorch: masked PUSH/ADVANCE/POP over all rays.
+
+Port of ``raytracingtest_tpu/ops/traverse.py`` (``init_state``, ``step``,
+``trace_numpy``). Every lane runs every iteration; PUSH/ADVANCE/POP are
+``torch.where`` selects and the per-ray stack is a (depth, N) pair of
+tensors addressed by gather/scatter. Rays are in octree-local coordinates,
+mapped to the mirrored [1,2]^3 traversal cube.
+
+This is the CUDA kernel's plain version (``traverse_cuda``): the CPU tests
+hold it to the numpy oracle bit for bit and to the Pallas kernel's hits, and
+``chip_smoke.py`` holds the kernel to it on the card. POP follows the Pallas
+kernel where the oracle differs from it (see ``step``). Integer state stays int32 throughout (torch
+promotes to int64 readily); float steps are separate ops, so ``a*b - c``
+rounds twice, as in the oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+S_MAX = 23
+
+_F32, _I32 = torch.float32, torch.int32
+
+
+def popc8(v):
+    """8-bit popcount (bit tricks, int32 in, int32 out)."""
+    v = v & 0xFF
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    return (v + (v >> 4)) & 0x0F
+
+
+def _f2i(x):
+    return x.contiguous().view(_I32)
+
+
+def _i2f(x):
+    return x.contiguous().view(_F32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceResult:
+    hit_leaf: torch.Tensor    # int32 (N,) leaf row, -1 on miss
+    hit_t: torch.Tensor       # float32 (N,) entry t (octree-local units)
+    hit_parent: torch.Tensor  # int32 (N,) node row holding the hit leaf, -1
+    hit_child: torch.Tensor   # int32 (N,) unmirrored child slot
+    iters: torch.Tensor       # int32 (N,) traversal steps taken
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceState:
+    # per-ray traversal registers; shapes (N,) or (N, 3)
+    pos: torch.Tensor          # f32 (N,3) mirrored lower corner of the child
+    idx: torch.Tensor          # i32 mirrored child index bits
+    parent: torch.Tensor       # i32 current node row
+    scale: torch.Tensor        # i32
+    scale_exp2: torch.Tensor   # f32
+    t_min: torch.Tensor        # f32
+    t_max: torch.Tensor        # f32
+    h: torch.Tensor            # f32 last pushed tc_max (stack-write filter)
+    octant_mask: torch.Tensor  # i32
+    t_coef: torch.Tensor       # f32 (N,3)
+    t_bias: torch.Tensor       # f32 (N,3)
+    done: torch.Tensor         # bool
+    hit_leaf: torch.Tensor     # i32
+    hit_t: torch.Tensor        # f32
+    hit_parent: torch.Tensor   # i32
+    hit_child: torch.Tensor    # i32
+    stack_node: torch.Tensor   # i32 (S, N)
+    stack_tmax: torch.Tensor   # f32 (S, N)
+    iters: torch.Tensor        # i32
+
+
+def max_iters_for_depth(depth: int) -> int:
+    # explicit trip bound so the masked loop always terminates
+    return 24 * depth + 48
+
+
+def _bits(mask3):
+    """(N, 3) bool -> int32 (N,) with bit i set where column i is."""
+    bit = torch.tensor([1, 2, 4], dtype=_I32, device=mask3.device)
+    return torch.sum(torch.where(mask3, bit, 0), dim=1, dtype=_I32)
+
+
+def init_state(origin, direction, depth) -> TraceState:
+    """Mirroring and cube entry for (N, 3) float32 rays."""
+    o = origin.to(_F32) + 1.0
+    d = direction.to(_F32)
+    n = o.shape[0]
+
+    eps = 2.0 ** -S_MAX
+    d = torch.where(d.abs() < eps, torch.where(d >= 0, eps, -eps), d)
+
+    t_coef = -1.0 / d.abs()
+    t_bias = t_coef * o
+
+    pos_dir = d > 0.0
+    octant_mask = 7 ^ _bits(pos_dir)
+    t_bias = torch.where(pos_dir, 3.0 * t_coef - t_bias, t_bias)
+
+    t_min = torch.amax(2.0 * t_coef - t_bias, dim=1)
+    t_max = torch.amin(t_coef - t_bias, dim=1)
+    t_min = torch.clamp(t_min, min=0.0)
+
+    # first child of the root
+    upper = 1.5 * t_coef - t_bias > t_min[:, None]
+    idx = _bits(upper)
+    pos = torch.where(upper, 1.5, 1.0)
+
+    zi = torch.zeros(n, dtype=_I32, device=o.device)
+    zf = torch.zeros(n, dtype=_F32, device=o.device)
+    return TraceState(
+        pos=pos, idx=idx, parent=zi, scale=zi + (S_MAX - 1),
+        scale_exp2=zf + 0.5, t_min=t_min, t_max=t_max, h=t_max,
+        octant_mask=octant_mask, t_coef=t_coef, t_bias=t_bias,
+        done=t_min >= t_max, hit_leaf=zi - 1, hit_t=zf, hit_parent=zi - 1,
+        hit_child=zi,
+        stack_node=torch.zeros((depth, n), dtype=_I32, device=o.device),
+        stack_tmax=torch.zeros((depth, n), dtype=_F32, device=o.device),
+        iters=zi,
+    )
+
+
+def step(s: TraceState, masks, child_base, leaf_base, depth) -> TraceState:
+    """One masked PUSH/ADVANCE/POP iteration over all rays."""
+    s0 = S_MAX - depth  # lowest scale in use; stack slot = scale - s0
+    active = ~s.done
+
+    desc = masks[s.parent.long()]
+    vm = (desc >> 8) & 0xFF
+    lm = desc & 0xFF
+
+    t_corner = s.pos * s.t_coef - s.t_bias            # (N,3)
+    tc_max = torch.amin(t_corner, dim=1)
+
+    # true child slot = mirrored idx flipped on the mirrored axes
+    child_shift = s.idx ^ s.octant_mask ^ 7
+    child_valid = ((vm >> child_shift) & 1) != 0
+    can = child_valid & (s.t_min <= s.t_max) & active
+
+    tv_max = torch.minimum(s.t_max, tc_max)
+    half = s.scale_exp2 * 0.5
+    t_center = half[:, None] * s.t_coef + t_corner
+
+    enter = can & (s.t_min <= tv_max)
+    below = (torch.ones_like(child_shift) << child_shift) - 1
+    leaf_bit = ((lm >> child_shift) & 1) != 0
+
+    # ---- leaf hit ----
+    hit_now = enter & leaf_bit
+    leaf_rank = popc8(vm & lm & below)
+    hit_leaf = torch.where(hit_now, leaf_base[s.parent.long()] + leaf_rank,
+                           s.hit_leaf)
+    hit_t = torch.where(hit_now, s.t_min, s.hit_t)
+    hit_parent = torch.where(hit_now, s.parent, s.hit_parent)
+    hit_child = torch.where(hit_now, child_shift, s.hit_child)
+    done = s.done | hit_now
+
+    # ---- PUSH ----
+    push = enter & ~leaf_bit
+    slot = torch.clamp(s.scale - s0, 0, depth - 1).long()[None]
+    write = push & (tc_max < s.h)
+    stack_node = s.stack_node.scatter(
+        0, slot, torch.where(write, s.parent, s.stack_node.gather(0, slot)[0])[None])
+    stack_tmax = s.stack_tmax.scatter(
+        0, slot, torch.where(write, s.t_max, s.stack_tmax.gather(0, slot)[0])[None])
+    h = torch.where(push, tc_max, s.h)
+
+    node_rank = popc8(vm & ~lm & below)
+    parent = torch.where(push, child_base[s.parent.long()] + node_rank, s.parent)
+
+    upper = t_center > s.t_min[:, None]
+    idx_descend = _bits(upper)
+    pos_descend = s.pos + torch.where(upper, half[:, None], 0.0)
+
+    idx = torch.where(push, idx_descend, s.idx)
+    pos = torch.where(push[:, None], pos_descend, s.pos)
+    scale = torch.where(push, s.scale - 1, s.scale)
+    scale_exp2 = torch.where(push, half, s.scale_exp2)
+    t_max = torch.where(push, tv_max, s.t_max)
+
+    # ---- ADVANCE ----
+    adv = active & ~push & ~hit_now
+    step_bits = t_corner <= tc_max[:, None]
+    step_mask = _bits(step_bits)
+    pos_adv = pos - torch.where(step_bits & adv[:, None], scale_exp2[:, None], 0.0)
+    t_min = torch.where(adv, torch.maximum(s.t_min, tc_max), s.t_min)
+    idx_adv = torch.where(adv, idx ^ step_mask, idx)
+    pos = torch.where(adv[:, None], pos_adv, pos)
+
+    # ---- POP ----
+    pop = adv & ((idx_adv & step_mask) != 0)
+    xor_bits = torch.where(step_bits, _f2i(pos) ^ _f2i(pos + scale_exp2[:, None]), 0)
+    # the stepped axes' bits are ORed, as ESVO and the Pallas kernel do (the
+    # numpy oracle sums them, which carries when two axes step at once with
+    # equal bits and pops too far); |1 keeps the f32 cast well-defined
+    differing = xor_bits[:, 0] | xor_bits[:, 1] | xor_bits[:, 2] | 1
+    new_scale = (_f2i(differing.to(_F32)) >> 23) - 127
+    oob = pop & ((new_scale >= S_MAX) | (new_scale < s0))
+    pop_ok = pop & ~oob
+    done = done | oob
+
+    scale = torch.where(pop_ok, new_scale, scale)
+    scale_exp2 = torch.where(
+        pop_ok, _i2f((torch.clamp(new_scale, s0, S_MAX - 1) - S_MAX + 127) << 23),
+        scale_exp2)
+    slot = torch.clamp(scale - s0, 0, depth - 1).long()[None]
+    parent = torch.where(pop_ok, stack_node.gather(0, slot)[0], parent)
+    t_max = torch.where(pop_ok, stack_tmax.gather(0, slot)[0], t_max)
+
+    shift = torch.clamp(scale, 0, 31)[:, None]
+    sh = _f2i(pos) >> shift
+    pos = torch.where(pop_ok[:, None], _i2f(sh << shift), pos)
+    idx = torch.where(
+        pop_ok, (sh[:, 0] & 1) | ((sh[:, 1] & 1) << 1) | ((sh[:, 2] & 1) << 2),
+        idx_adv)
+    h = torch.where(pop_ok, 0.0, h)
+
+    return TraceState(
+        pos=pos, idx=idx, parent=parent, scale=scale, scale_exp2=scale_exp2,
+        t_min=t_min, t_max=t_max, h=h, octant_mask=s.octant_mask,
+        t_coef=s.t_coef, t_bias=s.t_bias, done=done, hit_leaf=hit_leaf,
+        hit_t=hit_t, hit_parent=hit_parent, hit_child=hit_child,
+        stack_node=stack_node, stack_tmax=stack_tmax,
+        iters=s.iters + active.to(_I32),
+    )
+
+
+def trace(svo, origin, direction) -> TraceResult:
+    """Trace (N, 3) float32 rays through `svo` (tensors on one device);
+    loops until every ray is done or the trip bound is reached."""
+    st = init_state(origin, direction, svo.depth)
+    for _ in range(max_iters_for_depth(svo.depth)):
+        if bool(torch.all(st.done)):
+            break
+        st = step(st, svo.masks, svo.child_base, svo.leaf_base, svo.depth)
+    return TraceResult(st.hit_leaf, st.hit_t, st.hit_parent, st.hit_child,
+                       st.iters)

@@ -1,0 +1,170 @@
+"""The port's host side against the JAX package: noise, SVO build,
+checkpoints, camera rays, and the package's independence from JAX.
+
+Inputs come from numpy seeds; both packages see identical arrays."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from raytracingtest_tpu.io import checkpoint as jax_ckpt
+from raytracingtest_tpu.ops import camera as jax_camera
+from raytracingtest_tpu.ops import octree as jax_octree
+from raytracingtest_tpu.scenes import get_scene as jax_get_scene
+from raytracingtest_tpu.utils import noise as jax_noise
+
+from raytracingtest_tpu_torch import convert
+from raytracingtest_tpu_torch.io import checkpoint as ckpt
+from raytracingtest_tpu_torch.ops import camera
+from raytracingtest_tpu_torch.ops import octree
+from raytracingtest_tpu_torch.scenes import get_scene
+from raytracingtest_tpu_torch.utils import noise
+
+SVO_ARRAYS = ("masks", "child_base", "leaf_base", "leaf_albedo",
+              "leaf_normal", "leaf_density", "parent_ptr")
+
+
+def assert_svo_identical(ours, ref):
+    """Every array byte-identical (dtype included), same depth and layout;
+    parent_ptr only where both carry it."""
+    for name in SVO_ARRAYS:
+        a, b = getattr(ours, name), getattr(ref, name)
+        if name == "parent_ptr" and (a is None or b is None):
+            continue
+        a = a.cpu().numpy()
+        b = np.asarray(b)
+        assert a.dtype == b.dtype, name
+        assert a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+    assert ours.depth == ref.depth
+    assert tuple(ours.level_start) == tuple(ref.level_start)
+
+
+@pytest.mark.parametrize("fn", ["noise3", "fbm3"])
+def test_noise_matches_jax_bitwise(fn):
+    # 20,000 points: both packages take their native (C++) path
+    rng = np.random.default_rng(11)
+    p = rng.random((20000, 3), dtype=np.float32) * 16.0 - 4.0
+    ours = getattr(noise, fn)(p[:, 0], p[:, 1], p[:, 2], seed=3)
+    ref = getattr(jax_noise, fn)(p[:, 0], p[:, 1], p[:, 2], xp=np, seed=3)
+    assert ours.dtype == np.float32 and ours.shape == (20000,)
+    assert ours.tobytes() == np.asarray(ref, np.float32).tobytes()
+
+
+def test_noise_numpy_path_matches_jax_bitwise():
+    # below the native threshold both run the numpy path
+    rng = np.random.default_rng(12)
+    p = rng.random((3000, 3), dtype=np.float32) * 8.0
+    ours = noise.fbm3(p[:, 0], p[:, 1], p[:, 2], seed=1, octaves=3)
+    ref = jax_noise.fbm3(p[:, 0], p[:, 1], p[:, 2], xp=np, seed=1, octaves=3)
+    assert ours.tobytes() == np.asarray(ref, np.float32).tobytes()
+
+
+@pytest.mark.parametrize("name,depth", [
+    ("sphere", 5), ("terrain", 5), ("terrain", 6), ("flat_ground", 4),
+    ("rotated_cuboid", 5), ("dense_cube", 4), ("simplex", 5),
+])
+def test_build_svo_matches_jax(name, depth):
+    ours = octree.build_svo(get_scene(name), depth)
+    ref = jax_octree.build_svo(jax_get_scene(name), depth).svo
+    assert ours.n_leaves > 0
+    assert_svo_identical(ours, ref)
+
+
+def test_build_svo_rejects_depth_zero():
+    with pytest.raises(ValueError):
+        octree.build_svo(get_scene("sphere"), 0)
+
+
+def test_scene_lipschitz_matches_jax():
+    from raytracingtest_tpu_torch.scenes import SCENES
+    for name, scene in SCENES.items():
+        assert scene.lipschitz == jax_get_scene(name).lipschitz, name
+
+
+def test_load_jax_checkpoint(tmp_path):
+    ref = jax_octree.build_svo(jax_get_scene("terrain"), 5).svo
+    path = str(tmp_path / "svo.npz")
+    jax_ckpt.save_svo(ref, path)
+    ours = ckpt.load_svo(path)
+    assert ours.parent_ptr is None  # the npz does not store it
+    assert_svo_identical(ours, ref)
+
+
+def test_jax_loads_port_checkpoint(tmp_path):
+    ours = octree.build_svo(get_scene("sphere"), 4)
+    path = str(tmp_path / "svo.npz")
+    ckpt.save_svo(ours, path)
+    assert_svo_identical(ours, jax_ckpt.load_svo(path))
+
+
+def test_svo_from_numpy_and_to():
+    ref = jax_octree.build_svo(jax_get_scene("sphere"), 4).svo
+    ours = convert.svo_from_numpy(ref.device(), "cpu")
+    assert_svo_identical(ours, ref)
+    moved = ours.to("cpu")
+    assert moved.n_nodes == ref.n_nodes and moved.n_leaves == ref.n_leaves
+    alb, nrm, den = convert.params_from_numpy(
+        ref.leaf_albedo, ref.leaf_normal, ref.leaf_density)
+    assert alb.dtype == torch.float32 and den.shape == (ref.n_leaves,)
+    np.testing.assert_array_equal(nrm.numpy(), ref.leaf_normal)
+
+
+CAMERAS = [
+    dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5), fov_y_deg=50.0,
+         width=64, height=32),
+    dict(position=(1.7, 1.2, 1.9), look_at=(0.4, 0.5, 0.45), fov_y_deg=35.0,
+         width=40, height=24),
+    dict(position=(0.5, 0.5, -1.0), look_at=(0.5, 0.5, 0.5), ortho_height=1.2,
+         width=16, height=16),
+]
+
+
+@pytest.mark.parametrize("cam_args", CAMERAS)
+def test_camera_rays_match_numpy(cam_args):
+    o_ref, d_ref = jax_camera.Camera(**cam_args).rays(np)
+    o, d = camera.Camera(**cam_args).rays("cpu")
+    assert o.shape == d.shape == (cam_args["width"] * cam_args["height"], 3)
+    assert o.dtype == d.dtype == torch.float32
+    np.testing.assert_array_equal(o.numpy(), o_ref)
+    np.testing.assert_array_equal(d.numpy(), d_ref)
+
+
+def test_octree_frame_matches_numpy():
+    frame = camera.OctreeFrame(origin=(-1.0, 0.25, 3.0), size=2.5)
+    ref = jax_camera.OctreeFrame(origin=(-1.0, 0.25, 3.0), size=2.5)
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(50, 3)).astype(np.float32)
+    d = rng.normal(size=(50, 3)).astype(np.float32)
+    o_l, d_l = frame.world_to_local(torch.from_numpy(o), torch.from_numpy(d))
+    o_r, d_r = ref.world_to_local(o, d, np)
+    np.testing.assert_array_equal(o_l.numpy(), o_r)
+    np.testing.assert_array_equal(d_l.numpy(), d_r)
+    t = rng.random(50).astype(np.float32)
+    np.testing.assert_array_equal(frame.t_world(torch.from_numpy(t)).numpy(),
+                                  ref.t_world(t, np))
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import raytracingtest_tpu_torch\n"
+        "from raytracingtest_tpu_torch import _build, convert, diff, render, scenes\n"
+        "from raytracingtest_tpu_torch.io import checkpoint\n"
+        "from raytracingtest_tpu_torch.ops import camera, octree, traverse, traverse_cuda\n"
+        "from raytracingtest_tpu_torch.utils import noise\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'raytracingtest_tpu.')))\n"
+        "assert not bad, bad\n"
+        "assert 'raytracingtest_tpu' not in sys.modules\n"
+        "assert not _build._libs  # importing built nothing\n"
+        "print('ok')\n")
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
