@@ -1,14 +1,18 @@
 """Build and load the port's native libraries (ctypes, plain C interfaces).
 
-Two libraries, each built on first use into ``build/raytracingtest_tpu_torch/``
-at the root of the checkout:
+Three libraries, each built on first use into
+``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
                      SVO builder samples (same source and flags as the JAX
                      package's ``csrc/Makefile``, so its SVOs come out
                      byte-identical);
   * ``esvo_trace`` — ``csrc/esvo_trace.cu`` with nvcc for ``sm_90a``, the
-                     per-ray ESVO traversal kernel.
+                     per-ray ESVO traversal kernel;
+  * ``tile_walk``  — ``csrc/tile_walk.cu`` with nvcc for ``sm_90a``: the tile
+                     walker, the brick DDA and the row read.
+
+``build_all`` builds them side by side, one compiler process each.
 
 The file name of each library carries a hash of its source and flags, so a
 stale build is never loaded. Each compiles to a temporary name and is moved
@@ -36,7 +40,8 @@ NOISE_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()      # guards the two tables below
+_build_locks: dict = {}       # one lock a library, so builds run side by side
 _libs: dict = {}
 
 
@@ -84,6 +89,8 @@ def _build(name: str, compiler: str, flags: list, source: str) -> str:
 
 def _load(name: str, compiler_fn, flags: list, source: str, declare):
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_build(name, compiler_fn(), flags, source))
@@ -108,6 +115,16 @@ def _declare_trace(lib):
     lib.esvo_trace.restype = ctypes.c_int
 
 
+def _declare_tile(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tile_walk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.tile_walk.restype = i
+    lib.brick_dda16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p]
+    lib.brick_dda16.restype = i
+    lib.rowread.argtypes = [p, i, i, i, i, p, i, p, i, p]
+    lib.rowread.restype = i
+
+
 def noise_lib():
     """The host noise library (built with g++ on first call)."""
     return _load("noise", lambda: "g++", NOISE_FLAGS,
@@ -118,3 +135,28 @@ def trace_lib():
     """The ESVO traversal kernel library (built with nvcc on first call)."""
     return _load("esvo_trace", _nvcc, NVCC_FLAGS,
                  os.path.join(_CSRC, "esvo_trace.cu"), _declare_trace)
+
+
+def tile_lib():
+    """The tile walker, brick DDA and row-read kernels (built with nvcc on
+    first call)."""
+    return _load("tile_walk", _nvcc, NVCC_FLAGS,
+                 os.path.join(_CSRC, "tile_walk.cu"), _declare_tile)
+
+
+def build_all() -> dict:
+    """Build and load every library at once, one thread (and so one
+    compiler process) each; returns seconds by library name. The first
+    failure raises."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib, "noise": noise_lib}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -1,6 +1,6 @@
 """Move the JAX package's state into the port.
 
-Both functions take numpy-convertible arrays (a JAX-built SVO, a loaded
+The functions take numpy-convertible arrays (a JAX-built SVO, a loaded
 npz, plain numpy), so the port and the reference can run on identical
 state. Nothing here imports the JAX package.
 """
@@ -10,7 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracingtest_tpu_torch._device import resolve
+from raytracingtest_tpu_torch.ops.brick import BrickSVO, _words
 from raytracingtest_tpu_torch.ops.octree import SVO
+from raytracingtest_tpu_torch.ops.tile import TileSVO
 
 _INT_FIELDS = ("masks", "child_base", "leaf_base")
 _FLOAT_FIELDS = ("leaf_albedo", "leaf_normal", "leaf_density")
@@ -21,10 +24,11 @@ def _tensor(a, dtype, device):
     return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
 
 
-def svo_from_numpy(obj, device="cpu") -> SVO:
-    """The port's SVO on `device` from any object with the JAX SVO's fields
+def svo_from_numpy(obj, device=None) -> SVO:
+    """The port's SVO on `device` (None: the default device) from any object with the JAX SVO's fields
     (masks, child_base, leaf_base, leaf_albedo, leaf_normal, leaf_density,
     depth, level_start, optional parent_ptr) as numpy-convertible arrays."""
+    device = resolve(device)
     fields = {name: _tensor(getattr(obj, name), np.int32, device)
               for name in _INT_FIELDS}
     fields.update({name: _tensor(getattr(obj, name), np.float32, device)
@@ -35,8 +39,31 @@ def svo_from_numpy(obj, device="cpu") -> SVO:
                parent_ptr=None if pptr is None else _tensor(pptr, np.int32, device))
 
 
-def params_from_numpy(albedo, normal, density, device="cpu"):
+def params_from_numpy(albedo, normal, density, device=None):
     """Voxel parameters (albedo (n,3), normal (n,3), density (n,)) as
-    float32 tensors on `device`."""
+    float32 tensors on `device` (None: the default device)."""
+    device = resolve(device)
     return tuple(_tensor(a, np.float32, device)
                  for a in (albedo, normal, density))
+
+
+def brick_svo_from_numpy(obj, device=None) -> BrickSVO:
+    """The port's BrickSVO on `device` (None: the default device) from any
+    object with the JAX BrickSVO's fields; the uint32 brick words are
+    carried as int32 bit patterns."""
+    device = resolve(device)
+    return BrickSVO(
+        top_masks=_tensor(obj.top_masks, np.int32, device),
+        top_child=_tensor(obj.top_child, np.int32, device),
+        top_parent=_tensor(obj.top_parent, np.int32, device),
+        bricks=_words(np.asarray(obj.bricks)).to(device),
+        depth=int(obj.depth), top_depth=int(obj.top_depth))
+
+
+def tile_svo_from_numpy(obj, device=None) -> TileSVO:
+    """The port's TileSVO on `device` (None: the default device) from any
+    object with the JAX TileSVO's fields (bsvo, pyr, cellmap)."""
+    device = resolve(device)
+    return TileSVO(bsvo=brick_svo_from_numpy(obj.bsvo, device),
+                   pyr=_words(np.asarray(obj.pyr)).to(device),
+                   cellmap=_tensor(obj.cellmap, np.int32, device))

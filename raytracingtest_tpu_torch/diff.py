@@ -2,7 +2,8 @@
 
 Port of the forward half of ``raytracingtest_tpu/diff.py``: the traversal
 gives each ray a hit leaf (discrete structure, no gradient), and shading is
-a function of the voxel parameters (albedo, normal, density). The
+a function of the voxel parameters (albedo, normal, density). Two frames: ``render_diff_cuda``
+traces ray by ray, ``render_diff_tile`` through the tile traversal. The
 deterministic segment-sum backward belongs to the training slice.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracingtest_tpu_torch.ops import traverse_cuda
+from raytracingtest_tpu_torch.ops import tile, traverse_cuda
 from raytracingtest_tpu_torch.render import sky_color
 
 
@@ -51,3 +52,21 @@ def render_diff_cuda(albedo, normal, density, svo, o, d, light_dir,
         res = traverse_cuda.trace_cuda(svo, o, d)
     return shade_diff(res.hit_leaf, d, albedo, normal, density,
                       light_dir, light_intensity, light_ambient)
+
+
+def render_diff_tile(albedo, normal, density, tsvo, o, d, corners, light_dir,
+                     light_intensity=1.3, light_ambient=0.08, k_max=64,
+                     fb_tiles=128, fb_k=256, fb2_tiles=0, fb2_split=2):
+    """Render through the tile traversal (``ops/tile.py``). o/d: (T, P, 3)
+    tile-major rays and corners (T, 4, 3) from ``tile.tile_rays``, on the
+    device of `tsvo`. Returns ((T*P, 3) radiance in tile-major order, the
+    count of residual rays: those whose hit the tile passes could not
+    certify, a 0-dim tensor). The count is returned, not acted on; a caller
+    that needs every ray exact uses ``tile.trace_tile_exact``."""
+    with torch.no_grad():
+        res, residual = tile.trace_tile_fb(
+            tsvo, o, d, corners, k_max=k_max, fb_tiles=fb_tiles, fb_k=fb_k,
+            fb2_tiles=fb2_tiles, fb2_split=fb2_split)
+    img = shade_diff(res.hit_leaf, d.reshape(-1, 3), albedo, normal, density,
+                     light_dir, light_intensity, light_ambient)
+    return img, torch.sum(residual)

@@ -25,8 +25,9 @@ def save_svo(svo: SVO, path: str) -> None:
     )
 
 
-def load_svo(path: str, device="cpu") -> SVO:
-    """Load an npz checkpoint onto `device` (parent_ptr is not stored)."""
+def load_svo(path: str, device=None) -> SVO:
+    """Load an npz checkpoint onto `device` (None: the default device);
+    parent_ptr is not stored."""
     with np.load(path) as z:
         fields = {k: z[k] for k in z.files}
     return svo_from_numpy(types.SimpleNamespace(**fields), device)

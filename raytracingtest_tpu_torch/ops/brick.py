@@ -1,0 +1,190 @@
+"""Brick decomposition of an SVO: bottom octree levels as 512-bit bricks.
+
+Port of the host part of ``raytracingtest_tpu/ops/brick.py``: the
+``BrickSVO`` container, ``make_brick_svo`` (numpy, operation for operation
+the reference's, so its arrays come out byte-identical) and the bit helpers
+the tile walker shares. The deepest BRICK_LEVELS = 3 levels collapse into one
+8x8x8 occupancy bitmask per level-(depth-3) node: 16 words in hierarchical
+Morton bit order ((slot_l1 << 6) | (slot_l2 << 3) | slot_l3), which is the
+leaf attribute order, so a hit's global leaf id is the brick's first leaf
+id plus a prefix popcount.
+
+The reference's words are uint32. torch has no uint32 arithmetic, so every
+word here is carried as its int32 bit pattern: mask after each right shift,
+and count bits with ``_popcount32``, which is right on negative words.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raytracingtest_tpu_torch._device import resolve
+from raytracingtest_tpu_torch.ops.octree import compute_parent_ptr
+
+BRICK_LEVELS = 3  # bottom levels folded into 8^3 bit bricks
+
+_I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickSVO:
+    """Brick-decomposed SVO (derived from ops.octree.SVO, same world frame).
+
+    Top tree = original levels 0..top_depth-1 with the level-(top_depth-1)
+    nodes' children re-marked as leaves; their child_base column holds the
+    first child's brick id instead of a node row. bricks[:, :16] are the
+    512 occupancy bits (uint32 words as int32 bit patterns,
+    hierarchical-Morton bit order); bricks[:, 16] is the brick's first
+    global leaf id.
+    """
+
+    top_masks: torch.Tensor    # int32 [n_top]  (valid<<8)|leaf
+    top_child: torch.Tensor    # int32 [n_top]  child node row / first brick id at the cut
+    top_parent: torch.Tensor   # int32 [n_top]  parent row
+    bricks: torch.Tensor       # int32 [n_bricks, 17]
+    depth: int
+    top_depth: int
+
+    @property
+    def n_top(self) -> int:
+        return self.top_masks.shape[0]
+
+    @property
+    def n_bricks(self) -> int:
+        return self.bricks.shape[0]
+
+    def to(self, device=None) -> "BrickSVO":
+        """Copy with every tensor on `device` (None: the default device)."""
+        device = resolve(device)
+        return BrickSVO(
+            top_masks=self.top_masks.to(device),
+            top_child=self.top_child.to(device),
+            top_parent=self.top_parent.to(device),
+            bricks=self.bricks.to(device),
+            depth=self.depth, top_depth=self.top_depth)
+
+
+def _expand_children(masks, child_base, rows):
+    """Vectorized one-level expansion of non-leaf children (numpy).
+
+    Returns (child_rows, parent_pos, slots) sorted by (parent position in
+    `rows`, slot), the canonical contiguous-child order."""
+    m = masks[rows]
+    nl = ((m >> 8) & 0xFF) & ~(m & 0xFF)
+    hit = ((nl[:, None] >> np.arange(8)) & 1).astype(bool)  # (m, 8)
+    ranks = np.cumsum(hit, axis=1) - 1
+    pidx, slots = np.nonzero(hit)
+    crows = child_base[rows][pidx] + ranks[pidx, slots]
+    return crows.astype(np.int64), pidx.astype(np.int64), slots.astype(np.int32)
+
+
+def _host(t):
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _words(a):
+    """uint32 numpy words as an int32 tensor of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+
+
+def make_brick_svo(svo) -> BrickSVO:
+    """Host-side brick decomposition of a packed SVO (leaves at the finest
+    level only, as ``build_svo`` makes them). Runs in numpy; the result's
+    tensors lie on the CPU (move them with ``.to()``)."""
+    depth = svo.depth
+    if depth < BRICK_LEVELS + 1:
+        raise ValueError(f"depth must be >= {BRICK_LEVELS + 1} for bricks")
+    top_depth = depth - BRICK_LEVELS
+    ls = svo.level_start
+    masks = _host(svo.masks)
+    child_base = _host(svo.child_base)
+    leaf_base = _host(svo.leaf_base)
+    if svo.parent_ptr is not None:
+        parent_ptr = _host(svo.parent_ptr)
+    else:
+        parent_ptr = compute_parent_ptr(masks, child_base)
+
+    nb_start, nb_end = int(ls[top_depth]), int(ls[top_depth + 1])
+    n_bricks = nb_end - nb_start
+    n_top = nb_start
+
+    top_masks = masks[:n_top].copy()
+    top_child = child_base[:n_top].copy()
+    top_parent = parent_ptr[:n_top].copy()
+    # cut level: children become (brick) leaves; child_base column -> brick id
+    lo, hi = int(ls[top_depth - 1]), n_top
+    vm_cut = (top_masks[lo:hi] >> 8) & 0xFF
+    top_masks[lo:hi] = (vm_cut << 8) | vm_cut
+    top_child[lo:hi] = child_base[lo:hi] - nb_start
+
+    # ---- brick bits: expand the 3 levels under each brick node ----------
+    brick_rows = np.arange(nb_start, nb_end, dtype=np.int64)
+    r1, p1, s1 = _expand_children(masks, child_base, brick_rows)
+    r2, p2, s2 = _expand_children(masks, child_base, r1)
+    # leaves of level depth-1 nodes (valid == leaf there)
+    lm2 = masks[r2] & 0xFF
+    hit3 = ((lm2[:, None] >> np.arange(8)) & 1).astype(bool)
+    pidx3, s3 = np.nonzero(hit3)
+    s3 = s3.astype(np.int32)
+
+    brick_of = p1[p2[pidx3]]
+    bitidx = (s1[p2[pidx3]].astype(np.int64) << 6) | (s2[pidx3] << 3) | s3
+    flat = brick_of * 16 + (bitidx >> 5)           # sorted non-decreasing
+    bit = np.uint32(1) << (bitidx & 31).astype(np.uint32)
+
+    words = np.zeros(n_bricks * 16, np.uint32)
+    if flat.size:
+        starts = np.concatenate(
+            [np.zeros(1, np.int64), np.flatnonzero(flat[1:] != flat[:-1]) + 1])
+        words[flat[starts]] = np.bitwise_or.reduceat(bit, starts)
+
+    # first global leaf id per brick = leaf_base of its first depth-1 node
+    bleaf = np.zeros(n_bricks, np.uint32)
+    if r2.size:
+        b_of_r2 = p1[p2]  # brick of each depth-1 node, sorted non-decreasing
+        starts2 = np.concatenate(
+            [np.zeros(1, np.int64),
+             np.flatnonzero(b_of_r2[1:] != b_of_r2[:-1]) + 1])
+        bleaf[b_of_r2[starts2]] = leaf_base[r2[starts2]].astype(np.uint32)
+
+    bricks = np.concatenate(
+        [words.reshape(n_bricks, 16), bleaf[:, None]], axis=1)
+    if n_bricks == 0:
+        # empty scene: keep one zero row so a masked row read is always
+        # well-formed
+        bricks = np.zeros((1, 17), np.uint32)
+    as_i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return BrickSVO(
+        top_masks=as_i32(top_masks), top_child=as_i32(top_child),
+        top_parent=as_i32(top_parent), bricks=_words(bricks),
+        depth=depth, top_depth=top_depth)
+
+
+# ---------------------------------------------------------------------------
+# bit helpers on int32 tensors
+# ---------------------------------------------------------------------------
+
+def _popcount32(v):
+    """Set bits of each 32-bit word of an int32 tensor (any sign), int32.
+    The count runs on the zero-extended word in int64, where no step can
+    overflow."""
+    x = v.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(_I32)
+
+
+def _spread3(x):
+    """Interleave the low 3 bits of x to positions 0, 3, 6."""
+    return (x & 1) | ((x & 2) << 2) | ((x & 4) << 4)
+
+
+def _sel16(words, w):
+    """words[n, w[n]] for words (N, 16) and a word index w (N,) in 0..15.
+    (The reference selects with a mux tree, its machine having no per-lane
+    gather; here it is a gather.)"""
+    return torch.gather(words, 1, w.long()[:, None])[:, 0]

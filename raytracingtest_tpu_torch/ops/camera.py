@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytracingtest_tpu_torch._device import resolve
+
 _F32 = torch.float32
 
 
@@ -54,8 +56,10 @@ class Camera:
     width: int = 256
     height: int = 256
 
-    def basis(self, device="cpu"):
-        """(position, forward, right, up) float32 (3,) tensors."""
+    def basis(self, device=None):
+        """(position, forward, right, up) float32 (3,) tensors on `device`
+        (None: the default device)."""
+        device = resolve(device)
         pos = torch.tensor(self.position, dtype=_F32, device=device)
         fwd = _normalize(torch.tensor(self.look_at, dtype=_F32, device=device) - pos)
         up0 = torch.tensor(self.up, dtype=_F32, device=device)
@@ -63,15 +67,23 @@ class Camera:
         up = torch.linalg.cross(right, fwd)
         return pos, fwd, right, up
 
-    def rays(self, device="cpu"):
-        """Per-pixel rays through pixel centers: (H*W, 3) origins and
-        directions, row-major (H, W) with row 0 at the top."""
+    def rays(self, device=None, jitter=None):
+        """Per-pixel rays: (H*W, 3) origins and directions on `device`
+        (None: the default device), row-major (H, W) with row 0 at the top.
+
+        jitter: optional (2,) or (H, W, 2) pixel offsets in [0, 1); the
+        default is 0.5, the pixel centers."""
+        device = resolve(device)
         H, W = self.height, self.width
         pos, fwd, right, up = self.basis(device)
+        jx = jy = 0.5
+        if jitter is not None:
+            j = torch.as_tensor(np.asarray(jitter, np.float32), device=device)
+            jx, jy = j[..., 0], j[..., 1]
         ii = torch.arange(H, dtype=_F32, device=device)[:, None]
         jj = torch.arange(W, dtype=_F32, device=device)[None, :]
-        u = ((jj + 0.5) / W * 2.0 - 1.0).expand(H, W)
-        v = (1.0 - (ii + 0.5) / H * 2.0).expand(H, W)  # +v is up
+        u = ((jj + jx) / W * 2.0 - 1.0).expand(H, W)
+        v = (1.0 - (ii + jy) / H * 2.0).expand(H, W)  # +v is up
         aspect = W / H
 
         if self.ortho_height > 0.0:

@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raytracingtest_tpu_torch._device import resolve
+
 _SQRT3 = float(np.sqrt(3.0))
 
 # Morton child order: slot k -> offset ((k>>0)&1, (k>>1)&1, (k>>2)&1).
@@ -57,8 +59,10 @@ class SVO:
     def n_leaves(self) -> int:
         return self.leaf_albedo.shape[0]
 
-    def to(self, device) -> "SVO":
-        """Copy of this SVO with every tensor on `device`."""
+    def to(self, device=None) -> "SVO":
+        """Copy of this SVO with every tensor on `device` (None: the
+        default device)."""
+        device = resolve(device)
         moved = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         for name, value in moved.items():
             if isinstance(value, torch.Tensor):

@@ -85,11 +85,12 @@ def _bits(mask3):
     return torch.sum(torch.where(mask3, bit, 0), dim=1, dtype=_I32)
 
 
-def init_state(origin, direction, depth) -> TraceState:
-    """Mirroring and cube entry for (N, 3) float32 rays."""
+def ray_setup(origin, direction):
+    """Mirroring and root-cube entry for (N, 3) float32 rays: (t_coef (N,3),
+    t_bias (N,3), octant_mask (N,), t_min (N,), t_max (N,)). A ray with
+    t_min >= t_max never enters the cube."""
     o = origin.to(_F32) + 1.0
     d = direction.to(_F32)
-    n = o.shape[0]
 
     eps = 2.0 ** -S_MAX
     d = torch.where(d.abs() < eps, torch.where(d >= 0, eps, -eps), d)
@@ -104,22 +105,30 @@ def init_state(origin, direction, depth) -> TraceState:
     t_min = torch.amax(2.0 * t_coef - t_bias, dim=1)
     t_max = torch.amin(t_coef - t_bias, dim=1)
     t_min = torch.clamp(t_min, min=0.0)
+    return t_coef, t_bias, octant_mask, t_min, t_max
+
+
+def init_state(origin, direction, depth) -> TraceState:
+    """Mirroring and cube entry for (N, 3) float32 rays."""
+    t_coef, t_bias, octant_mask, t_min, t_max = ray_setup(origin, direction)
+    n = t_min.shape[0]
+    device = t_min.device
 
     # first child of the root
     upper = 1.5 * t_coef - t_bias > t_min[:, None]
     idx = _bits(upper)
     pos = torch.where(upper, 1.5, 1.0)
 
-    zi = torch.zeros(n, dtype=_I32, device=o.device)
-    zf = torch.zeros(n, dtype=_F32, device=o.device)
+    zi = torch.zeros(n, dtype=_I32, device=device)
+    zf = torch.zeros(n, dtype=_F32, device=device)
     return TraceState(
         pos=pos, idx=idx, parent=zi, scale=zi + (S_MAX - 1),
         scale_exp2=zf + 0.5, t_min=t_min, t_max=t_max, h=t_max,
         octant_mask=octant_mask, t_coef=t_coef, t_bias=t_bias,
         done=t_min >= t_max, hit_leaf=zi - 1, hit_t=zf, hit_parent=zi - 1,
         hit_child=zi,
-        stack_node=torch.zeros((depth, n), dtype=_I32, device=o.device),
-        stack_tmax=torch.zeros((depth, n), dtype=_F32, device=o.device),
+        stack_node=torch.zeros((depth, n), dtype=_I32, device=device),
+        stack_tmax=torch.zeros((depth, n), dtype=_F32, device=device),
         iters=zi,
     )
 

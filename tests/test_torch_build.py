@@ -89,7 +89,7 @@ def test_load_jax_checkpoint(tmp_path):
     ref = jax_octree.build_svo(jax_get_scene("terrain"), 5).svo
     path = str(tmp_path / "svo.npz")
     jax_ckpt.save_svo(ref, path)
-    ours = ckpt.load_svo(path)
+    ours = ckpt.load_svo(path, "cpu")
     assert ours.parent_ptr is None  # the npz does not store it
     assert_svo_identical(ours, ref)
 
@@ -108,7 +108,7 @@ def test_svo_from_numpy_and_to():
     moved = ours.to("cpu")
     assert moved.n_nodes == ref.n_nodes and moved.n_leaves == ref.n_leaves
     alb, nrm, den = convert.params_from_numpy(
-        ref.leaf_albedo, ref.leaf_normal, ref.leaf_density)
+        ref.leaf_albedo, ref.leaf_normal, ref.leaf_density, "cpu")
     assert alb.dtype == torch.float32 and den.shape == (ref.n_leaves,)
     np.testing.assert_array_equal(nrm.numpy(), ref.leaf_normal)
 
@@ -148,23 +148,82 @@ def test_octree_frame_matches_numpy():
                                   ref.t_world(t, np))
 
 
+PORT_MODULES = (
+    "raytracingtest_tpu_torch", "raytracingtest_tpu_torch._build",
+    "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch.convert",
+    "raytracingtest_tpu_torch.diff", "raytracingtest_tpu_torch.render",
+    "raytracingtest_tpu_torch.scenes",
+    "raytracingtest_tpu_torch.io.checkpoint",
+    "raytracingtest_tpu_torch.ops.brick",
+    "raytracingtest_tpu_torch.ops.brick_dda",
+    "raytracingtest_tpu_torch.ops.camera",
+    "raytracingtest_tpu_torch.ops.octree",
+    "raytracingtest_tpu_torch.ops.rowread",
+    "raytracingtest_tpu_torch.ops.tile",
+    "raytracingtest_tpu_torch.ops.tile_cuda",
+    "raytracingtest_tpu_torch.ops.traverse",
+    "raytracingtest_tpu_torch.ops.traverse_cuda",
+    "raytracingtest_tpu_torch.utils.noise",
+)
+
+
+def _port_root():
+    import os
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_modules_list_is_complete():
+    """PORT_MODULES names every module of the package, so the import check
+    below covers the new ones too."""
+    import os
+    pkg = os.path.join(_port_root(), "raytracingtest_tpu_torch")
+    found = set()
+    for base, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(base, f), _port_root())
+                mod = rel[:-3].replace(os.sep, ".")
+                found.add(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
+    found -= {"raytracingtest_tpu_torch.io", "raytracingtest_tpu_torch.ops",
+              "raytracingtest_tpu_torch.utils"}  # empty package markers
+    assert found == set(PORT_MODULES)
+
+
 def test_port_never_imports_jax():
+    """Every module of the port imports with no CUDA device and no nvcc on
+    the PATH, pulls in neither jax nor the JAX package, and builds nothing
+    while it is imported."""
     code = (
-        "import sys\n"
-        "import raytracingtest_tpu_torch\n"
-        "from raytracingtest_tpu_torch import _build, convert, diff, render, scenes\n"
-        "from raytracingtest_tpu_torch.io import checkpoint\n"
-        "from raytracingtest_tpu_torch.ops import camera, octree, traverse, traverse_cuda\n"
-        "from raytracingtest_tpu_torch.utils import noise\n"
+        "import importlib, shutil, sys\n"
+        f"mods = {PORT_MODULES!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'raytracingtest_tpu.')))\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'raytracingtest_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'raytracingtest_tpu' not in sys.modules\n"
+        "import torch\n"
+        "from raytracingtest_tpu_torch import _build\n"
+        "assert not torch.cuda.is_available()\n"
+        "assert shutil.which('nvcc') is None\n"
         "assert not _build._libs  # importing built nothing\n"
         "print('ok')\n")
     import os
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=120)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PATH="/usr/bin:/bin")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_port_root(),
+                         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_load_svo_without_device_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    ours = octree.build_svo(get_scene("sphere"), 4)
+    path = str(tmp_path / "svo.npz")
+    ckpt.save_svo(ours, path)
+    with pytest.raises(RuntimeError):
+        ckpt.load_svo(path)
+    with pytest.raises(RuntimeError):
+        ours.to()
+    assert ckpt.load_svo(path, "cpu").masks.device.type == "cpu"

@@ -49,7 +49,7 @@ def test_render_diff_cuda_matches_pallas_frame(name, depth, cam_args):
         jnp.asarray(d), ref.depth, jnp.asarray(LIGHT), interpret=True))
 
     svo = convert.svo_from_numpy(ref, "cpu")
-    alb, nrm, den = convert.params_from_numpy(albedo, normal, density)
+    alb, nrm, den = convert.params_from_numpy(albedo, normal, density, "cpu")
     o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
     img = diff.render_diff_cuda(alb, nrm, den, svo, o_t, d_t,
                                 torch.from_numpy(LIGHT))
@@ -116,9 +116,9 @@ def test_gather_voxel_params_rows():
 
 def test_render_diff_cuda_rejects_unaligned_count():
     ref = jax_octree.build_svo(jax_get_scene("sphere"), 3).svo
-    svo = convert.svo_from_numpy(ref)
+    svo = convert.svo_from_numpy(ref, "cpu")
     alb, nrm, den = convert.params_from_numpy(ref.leaf_albedo, ref.leaf_normal,
-                                              ref.leaf_density)
+                                              ref.leaf_density, "cpu")
     with pytest.raises(ValueError):
         diff.render_diff_cuda(alb, nrm, den, svo, torch.zeros((100, 3)),
                               torch.ones((100, 3)), torch.from_numpy(LIGHT))
