@@ -4,18 +4,23 @@
 
 Builds the port's native libraries from this checkout (into
 build/raytracingtest_tpu_torch/, all at once), checks every hand-written
-kernel against its plain PyTorch version on the card, then renders the
-benchmark frame two ways: the depth-10 `terrain` SVO seen by bench.py's
-camera at 1024x1024,
+kernel against its plain PyTorch version on the card, then drives the
+benchmark frame, the depth-10 `terrain` SVO seen by bench.py's camera at
+1024x1024, forward two ways:
 
-  * ray by ray, through `diff.render_diff_cuda` (kernel `esvo_trace`), and
+  * ray by ray, through `diff.render_diff_cuda` (kernels `esvo_trace` and
+    `shade_fwd`), and
   * tile by tile, through `diff.render_diff_tile` with bench.py's budgets
-    (kernel `tile_walk`, three launches a frame),
+    (kernel `tile_walk`, three launches a frame, and `shade_fwd`),
 
-and runs the two probe kernels (`brick_dda16`, `rowread`) at the sizes of
-the probes they replace. One line per phase; any failure raises and the exit
-code is non-zero. The last two lines are a JSON record of the kernels and the
-device. Without a CUDA device it fails before printing any result.
+and as a training step on both traversals (`diff.loss_and_grads_cuda`,
+`diff.loss_and_grads_tile`: the forward frame, then `shade_bwd`, a stable
+sort and `segment_sum`), and takes three `InverseRenderer.step_view` steps
+on that view. It runs the probe kernels (`brick_dda16`, `rowread`, `take`,
+`loop_probe`) at the sizes of the probes they replace. One line per phase;
+any failure raises and the exit code is non-zero. The last two lines are a
+JSON record of the kernels and the device. Without a CUDA device it fails
+before printing any result.
 """
 
 import json
@@ -28,10 +33,13 @@ import numpy as np
 import torch
 
 from raytracingtest_tpu_torch import _build, diff
+from raytracingtest_tpu_torch.config import CameraConfig
 from raytracingtest_tpu_torch.io import checkpoint
+from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.ops import (
-    brick_dda, camera, octree, rowread, tile, tile_cuda, traverse,
-    traverse_cuda)
+    brick_dda, camera, gather, octree, rowread, shade_cuda, tile, tile_cuda,
+    traverse, traverse_cuda)
+from raytracingtest_tpu_torch.render import make_gradient_skybox, sky_texture
 from raytracingtest_tpu_torch.scenes import get_scene
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
@@ -50,6 +58,11 @@ PEAK_OPS_PER_S = 67e12
 OPS_ESVO_STEP = 40
 OPS_DDA_STEP = 32
 OPS_RAY_SETUP = 40
+# shading one hit ray forward, and its backward (which repeats the forward);
+# one trip of the loop probe's body (multiply, add, floor, subtract)
+OPS_SHADE_FWD = 45
+OPS_SHADE_BWD = 100
+OPS_LOOP_ELEM = 4
 
 
 def say(*parts):
@@ -141,6 +154,85 @@ def bound(n_bytes, n_ops):
 def reset_counts():
     for mod in (traverse_cuda, tile_cuda, brick_dda, rowread):
         mod.launches = 0
+    for mod in (gather, shade_cuda):
+        for name in mod.launches:
+            mod.launches[name] = 0
+
+
+def probe_idx(shape, rows, dev):
+    """The probes' index pattern: (arange * 7919) mod rows, int32."""
+    n = shape[0] * shape[1]
+    idx = (torch.arange(n, dtype=torch.int64) * 7919) % rows
+    return idx.to(torch.int32).reshape(shape).to(dev)
+
+
+def gather_cases(dev):
+    """(what, kernel call, plain call) for every shape of the S3 and S4
+    gather probes (scratch/probe_kernel.py p2a-p2d, scratch/probe2.py
+    gather_axis0)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    t1 = torch.arange(16384, **i32)
+    i1 = probe_idx((8, 128), 16384, dev)
+    t4 = torch.arange(4096, dtype=torch.float32, device=dev).reshape(4096, 1)
+    i4 = probe_idx((8, 128), 4096, dev)
+    x = torch.arange(8 * 128, **i32).reshape(8, 128)
+    lane = (x * 13) % 128
+    cases = [
+        ("take_1d int32 table[16384], idx (8,128)",
+         lambda: gather.take_1d(t1, i1), lambda: t1[i1.long()]),
+        ("take_1d float32 table[16384], idx (8,128)",
+         lambda: gather.take_1d(t1.float(), i1), lambda: t1.float()[i1.long()]),
+        ("take_onehot float32 table[4096,1], idx (8,128)",
+         lambda: gather.take_onehot(t4, i4),
+         lambda: gather.onehot_take_plain(t4, i4)),
+        ("take_along_lane int32 x (8,128)",
+         lambda: gather.take_along_lane(x, lane),
+         lambda: torch.gather(x, 1, lane.long())),
+    ]
+    for rows, n_idx in ((16384, 8), (8, 8), (16, 16), (32, 32), (64, 64),
+                        (256, 256), (1024, 1024)):
+        table = torch.arange(rows * 128, **i32).reshape(rows, 128)
+        idx = probe_idx((n_idx, 128), rows, dev)
+        cases.append((f"take_along0 int32 table ({rows},128), idx ({n_idx},128)",
+                      lambda t=table, i=idx: gather.take_along0(t, i),
+                      lambda t=table, i=idx: torch.gather(t, 0, i.long())))
+    tf = torch.from_numpy(np.random.default_rng(7).random(
+        (256, 128), dtype=np.float32)).to(dev)
+    idx = probe_idx((256, 128), 256, dev)
+    cases.append(("take_along0 float32 table (256,128), idx (256,128)",
+                  lambda: gather.take_along0(tf, idx),
+                  lambda: torch.gather(tf, 0, idx.long())))
+    return cases, (t1, i1)
+
+
+def check_grads(got, want, what, rtol=1e-5, atol=1e-7):
+    """The three gradients within rtol/atol of the wanted ones; returns the
+    largest absolute difference and the largest wanted magnitude."""
+    worst = scale = 0.0
+    for name, a, b in zip(("albedo", "normal", "density"), got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: d_{name} has a bad shape or value")
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"{what}: d_{name} differs by up to {float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+    return worst, scale
+
+
+def serial_scatter_add(hit_leaf, cot, n_leaves):
+    """The float32 scatter-add of the hit rays' rows in ray order, one after
+    another, on the host (numpy's unbuffered add.at)."""
+    leaf = hit_leaf.cpu().numpy()
+    hit = leaf >= 0
+    out = np.zeros((n_leaves, 7), np.float32)
+    np.add.at(out, leaf[hit], cot.cpu().numpy()[hit])
+    return out
+
+
+def join7(grads):
+    """(g_albedo, g_normal, g_density) as one (n_leaves, 7) tensor."""
+    return torch.cat([grads[0], grads[1], grads[2][:, None]], dim=1)
 
 
 def dda_inputs(n, seed, dev):
@@ -258,11 +350,14 @@ def main():
     secs = _build.build_all()
     say(f"[build] esvo_trace (nvcc sm_90a) {secs['esvo_trace']:.2f} s, "
         f"tile_walk (nvcc sm_90a) {secs['tile_walk']:.2f} s, "
+        f"shade (nvcc sm_90a) {secs['shade']:.2f} s, "
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
-    err = dict(esvo_trace=0.0, tile_walk=0.0, brick_dda16=0.0, rowread=0.0)
+    err = dict(esvo_trace=0.0, tile_walk=0.0, brick_dda16=0.0, rowread=0.0,
+               take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
+               segment_sum=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -323,6 +418,43 @@ def main():
     say("[parity] rowread (64,128) int32: kernel == table[idx] in the scalar, "
         "min-of-cursors and eight-rows modes")
 
+    cases, (take_table, take_idx) = gather_cases(dev)
+    for what, kernel_call, plain_call in cases:
+        got, want = kernel_call(), plain_call()
+        torch.cuda.synchronize()
+        err["take"] = max(err["take"], compare_tensors((got,), (want,), (what,), what))
+    say(f"[parity] take: kernel == plain bitwise on {len(cases)} gathers (1-D "
+        f"int32 and float32 of 16,384 rows; the one-hot product of 4,096 rows; "
+        f"along rows for 8 to 16,384 rows; along lanes)")
+
+    loop_x = torch.linspace(0, 1, 512 * 128, device=dev).reshape(512, 128)
+    loop_table = torch.from_numpy(np.random.default_rng(8).random(
+        (512, 128), dtype=np.float32)).to(dev)
+    loop_plain_ms = {}
+    for iters, rows in ((64, 0), (2048, 0), (64, 512), (2048, 512)):
+        got = gather.loop_probe(loop_x, loop_table, iters, 8, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = gather.loop_probe_plain(loop_x, loop_table, iters, 8, rows,
+                                       gather.LOOP_FLOAT)
+        torch.cuda.synchronize()
+        loop_plain_ms[(iters, rows)] = (time.perf_counter() - t0) * 1e3
+        what = f"loop_probe float (512,128), {iters} trips, gather rows {rows}"
+        err["loop_probe"] = max(err["loop_probe"], compare_tensors(
+            (got,), (want,), ("x",), what))
+    int_table = torch.arange(16384 * 128, dtype=torch.int32,
+                             device=dev).reshape(16384, 128)
+    int_idx = probe_idx((8, 128), 16384, dev)
+    got = gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
+    want = gather.loop_probe_plain(int_idx, int_table, 256, 0, 16384,
+                                   gather.LOOP_INT)
+    torch.cuda.synchronize()
+    compare_tensors((got,), (want,), ("acc",), "loop_probe int")
+    say("[parity] loop_probe: kernel == plain bitwise, float mode (512,128) at "
+        "64 and 2048 trips of 8 steps, without and with a 512-row gather each "
+        "trip; integer mode (8,128) summing 256 gathered rows of a "
+        "(16384,128) table")
+
     # ---- 4. the depth-10 SVO -------------------------------------------------
     depth, res = 10, 1024
     cache = os.path.join(_build.BUILD_DIR, f"terrain_d{depth}.npz")
@@ -353,8 +485,9 @@ def main():
     img = diff.render_diff_cuda(*params, svo, o, d, light)
     torch.cuda.synchronize()
     esvo_launches = traverse_cuda.launches
-    if esvo_launches < 1:
-        raise AssertionError("the frame did not launch the traversal kernel")
+    if esvo_launches != 1 or shade_cuda.launches["shade_fwd"] != 1:
+        raise AssertionError("the frame did not launch the traversal and the "
+                             "shading kernel once each")
     if img.shape != (n_rays, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"bad image: shape {tuple(img.shape)} or non-finite")
 
@@ -366,7 +499,7 @@ def main():
     kern = traverse_cuda.trace_cuda(svo, o, d)
     err["esvo_trace"] = max(err["esvo_trace"],
                             compare(kern, plain, "terrain d10 frame"))
-    img_plain = diff.shade_diff(plain.hit_leaf, d, *params, light, 1.3, 0.08)
+    img_plain = diff.shade_diff_plain(plain.hit_leaf, d, *params, light, 1.3, 0.08)
     img_err = float((img - img_plain).abs().max())
     if img_err > 1e-6:
         raise AssertionError(f"frame differs from the plain path by {img_err}")
@@ -375,6 +508,79 @@ def main():
     say(f"[frame] {res}x{res}: {esvo_launches} kernel launch(es) in the frame, "
         f"{hits} hits, {esvo_steps / n_rays:.2f} steps a ray, hits == plain "
         f"trace, image == plain path (max abs {img_err}), finite")
+
+    # ---- 5b. the shading kernels on that frame vs their plain versions ----------
+    hit_leaf = kern.hit_leaf
+    n_leaves = svo.n_leaves
+    rng = np.random.default_rng(10)
+    as_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    density = rng.uniform(-0.2, 1.3, n_leaves)
+    density[::7], density[3::7] = 1.0, 0.0     # ties of the clip
+    perturbed = (
+        params[0] * as_dev(rng.uniform(0.5, 1.0, (n_leaves, 1))),
+        params[1] * as_dev(rng.uniform(0.5, 2.0, (n_leaves, 1))),
+        as_dev(density))
+    sky_tex = sky_texture(d, as_dev(make_gradient_skybox()
+                                    * rng.uniform(0.5, 1.0, (64, 128, 3))))
+    g_unit = as_dev(rng.uniform(-0.5, 0.5, (n_rays, 3)))
+    fwd_bits = 0
+    for what, pset, sky in (("the scene's parameters", params, None),
+                            ("perturbed parameters", perturbed, None),
+                            ("perturbed parameters, textured sky", perturbed,
+                             sky_tex)):
+        got = shade_cuda.shade_fwd(hit_leaf, d, *pset, light, 1.3, 0.08, sky)
+        want = diff.shade_diff_plain(hit_leaf, d, *pset, light, 1.3, 0.08, sky)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if got.shape != want.shape or not e <= 1e-6:
+            raise AssertionError(f"shade_fwd, {what}: max abs {e} against the "
+                                 f"plain version")
+        err["shade_fwd"] = max(err["shade_fwd"], e)
+        fwd_bits += int((bits(got) != bits(want)).any(dim=1).sum())
+        got = shade_cuda.shade_bwd(g_unit, hit_leaf, d, *pset, light, 1.3, 0.08, sky)
+        want = shade_cuda.shade_bwd_plain(g_unit, hit_leaf, d, *pset, light,
+                                          1.3, 0.08, sky)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"shade_bwd, {what}: max abs {e} against "
+                                 f"autograd through the plain version")
+        if bool(got[hit_leaf < 0].any()):
+            raise AssertionError("shade_bwd: a miss has a cotangent")
+        err["shade_bwd"] = max(err["shade_bwd"], e)
+    say(f"[parity] shade_fwd on the {res}x{res} frame, three parameter sets: "
+        f"max abs {err['shade_fwd']} against the plain version (limit 1e-6), "
+        f"{fwd_bits} of {3 * n_rays} pixels differ in bits; shade_bwd with a "
+        f"cotangent in [-0.5, 0.5): max abs {err['shade_bwd']} against "
+        f"autograd through the plain version (rtol 1e-5, atol 1e-6), rows of "
+        f"misses zero")
+
+    keys, order = shade_cuda.sort_by_leaf(hit_leaf, n_leaves)
+    safe_leaf = torch.where(hit_leaf >= 0, hit_leaf, 0)
+    seg_plain_err = 0.0
+    for what, g in (("a unit cotangent", g_unit),
+                    ("the step's cotangent", 2.0 * img / img.numel())):
+        cot = shade_cuda.shade_bwd(g, hit_leaf, d, *perturbed, light, 1.3, 0.08)
+        sums = join7(shade_cuda.segment_sum(cot, keys, order, n_leaves))
+        again = join7(shade_cuda.segment_sum(cot, keys, order, n_leaves))
+        torch.cuda.synchronize()
+        serial = torch.from_numpy(serial_scatter_add(hit_leaf, cot, n_leaves)).to(dev)
+        err["segment_sum"] = max(err["segment_sum"], compare_tensors(
+            (sums,), (serial,), ("sums",), f"segment_sum, {what}, against the "
+            f"serial scatter-add"))
+        compare_tensors((again,), (sums,), ("sums",),
+                        f"segment_sum, {what}, run twice")
+        plain_sums = diff._segment_reduce_cols(safe_leaf, cot, n_leaves)
+        e = float((sums - plain_sums).abs().max())
+        if not e <= 1e-4:
+            raise AssertionError(f"segment_sum, {what}: {e} off the plain sort "
+                                 f"+ running-sum form")
+        seg_plain_err = max(seg_plain_err, e)
+    seg_cot = cot
+    say(f"[parity] segment_sum, {n_rays} rows into {n_leaves} leaves, two "
+        f"cotangents: kernel == serial float32 scatter-add in ray order "
+        f"bitwise; two runs bitwise equal; max abs {seg_plain_err} off the "
+        f"plain sort + running-sum form (limit 1e-4)")
 
     # ---- 6. main path, tile by tile ----------------------------------------------
     o_t, d_t, corners, grid = tile.tile_rays(cam, dev)
@@ -386,8 +592,10 @@ def main():
     if tile_launches != 3:
         raise AssertionError(f"the tile frame launched the walker "
                              f"{tile_launches} times, expected 3")
-    if traverse_cuda.launches or brick_dda.launches or rowread.launches:
-        raise AssertionError("the tile frame launched a kernel it has no use for")
+    if (traverse_cuda.launches or brick_dda.launches or rowread.launches
+            or shade_cuda.launches["shade_fwd"] != 1):
+        raise AssertionError("the tile frame launched a kernel it has no use "
+                             "for, or not the shading kernel once")
     if img_t.shape != (n_rays, 3) or not bool(torch.isfinite(img_t).all()):
         raise AssertionError("bad tile image: shape or non-finite")
     n_residual = int(residual)
@@ -481,10 +689,20 @@ def main():
     rowread.rowread_scalar(table, 17)
     rowread.rowread_min(table, cursors)
     rowread.rowread_rows(table, rows8)
+    for _what, kernel_call, _plain in cases:
+        kernel_call()
+    loop_out = [gather.loop_probe(loop_x, loop_table, iters, 8, rows)
+                for iters, rows in loop_plain_ms]
+    gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
-    if dda_launches != 1 or row_launches != 3:
+    take_launches = gather.launches["take"]
+    loop_launches = gather.launches["loop_probe"]
+    if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
+            or loop_launches != 5):
         raise AssertionError("the probes did not launch their kernels")
+    if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
+        raise AssertionError("loop_probe: a fraction left [0, 1)")
     if not bool(torch.isfinite(dda_out[2]).all()):
         raise AssertionError("brick_dda16: non-finite t_cur")
     # the DDA steps this data takes: walking rays, step by step
@@ -500,7 +718,116 @@ def main():
         hit_t = torch.where(hit_now, t_cur, hit_t)
     say(f"[probes] brick_dda16 N={n_dda}: {dda_launches} launch, "
         f"{dda_walked / n_dda:.2f} steps a ray; rowread: {row_launches} "
-        f"launches (scalar, min, rows)")
+        f"launches (scalar, min, rows); take: {take_launches} launches; "
+        f"loop_probe: {loop_launches} launches")
+
+    # ---- 7b. the training step, on both traversals ----------------------------
+    hit_tile = res_fb.hit_leaf
+    d_flat = d_t.reshape(-1, 3)
+    target_rand = torch.from_numpy(np.random.default_rng(11).random(
+        (n_rays, 3), dtype=np.float32)).to(dev)
+    touched = torch.bincount(hit_leaf[hit_leaf >= 0].long(), minlength=n_leaves) > 0
+    grads_by_path = {}
+    train_launches = {}
+    for what, target in (("target 0", torch.zeros_like(target_rand)),
+                         ("a seeded random target", target_rand)):
+        steps = (
+            ("per-ray", lambda: diff.loss_and_grads_cuda(
+                *params, svo, o, d, light, target), hit_leaf, d, target),
+            ("tile", lambda: diff.loss_and_grads_tile(
+                *params, ts, o_t, d_t, corners, light,
+                tile.tile_pixels(target, grid), **TILE_BUDGETS),
+             hit_tile, d_flat, tile.tile_pixels(target, grid)))
+        for path, step, leafs, dirs, tgt in steps:
+            reset_counts()
+            out, grads = step()
+            torch.cuda.synchronize()
+            counts = dict(esvo_trace=traverse_cuda.launches,
+                          tile_walk=tile_cuda.launches, **shade_cuda.launches)
+            want = dict(esvo_trace=1 if path == "per-ray" else 0,
+                        tile_walk=0 if path == "per-ray" else 3,
+                        shade_fwd=1, shade_bwd=1, segment_sum=1)
+            if counts != want:
+                raise AssertionError(f"{path} step, {what}: launches {counts}, "
+                                     f"expected {want}")
+            train_launches[path] = counts
+            loss, n_res = (out, 0) if path == "per-ray" else (out[0], int(out[1]))
+            if not bool(torch.isfinite(loss)) or n_res != 0:
+                raise AssertionError(f"{path} step, {what}: loss {float(loss)}, "
+                                     f"{n_res} residual rays")
+            # the same loss through the plain autograd path on the card
+            loss_plain, grads_plain = diff._value_and_grads(
+                lambda a, n, s: torch.mean((diff.shade_diff_plain(
+                    leafs, dirs, a, n, s, light, 1.3, 0.08) - tgt) ** 2), *params)
+            worst, scale = check_grads(grads, grads_plain, f"{path} step, {what}")
+            if not torch.allclose(loss, loss_plain, rtol=1e-5):
+                raise AssertionError(f"{path} step, {what}: loss {float(loss)} "
+                                     f"against plain {float(loss_plain)}")
+            if path == "per-ray" and bool(join7(grads)[~touched].any()):
+                raise AssertionError(f"{path} step, {what}: a leaf no ray hit "
+                                     f"has a gradient")
+            grads_by_path[(path, what)] = grads
+            say(f"[train] {path} step, {what}: launches {counts}; loss "
+                f"{float(loss):.6f}; gradients within rtol 1e-5 / atol 1e-7 of "
+                f"the plain autograd path on the card (max abs {worst:.3e} at "
+                f"a largest gradient of {scale:.3e}); "
+                + (f"{int(touched.sum())} of {n_leaves} leaves touched, the "
+                   f"others exactly zero" if path == "per-ray" else
+                   f"{n_res} residual rays"))
+        # the two traversals give the same gradients, off the leaves of the
+        # rays the referee judged (their rows differ by those rays' terms);
+        # the rays of a leaf add in another order (row-major, tile-major)
+        refereed = torch.cat([res_fb.hit_leaf[mask | differ],
+                              golden.hit_leaf[mask | differ]])
+        keep = torch.ones(n_leaves, dtype=torch.bool, device=dev)
+        keep[refereed[refereed >= 0].long()] = False
+        a = join7(grads_by_path[("per-ray", what)])[keep]
+        b = join7(grads_by_path[("tile", what)])[keep]
+        paths_err = float((a - b).abs().max())
+        if not paths_err <= 1e-5 * float(a.abs().max()):
+            raise AssertionError(f"{what}: the two traversals' gradients differ "
+                                 f"by {paths_err}")
+        say(f"[train] {what}: per-ray and tile gradients agree on the "
+            f"{int(keep.sum())} leaves off the refereed rays (max abs "
+            f"{paths_err:.3e}, limit 1e-5 of the largest gradient "
+            f"{float(a.abs().max()):.3e})")
+
+    # three Adam steps on the view, from random albedo towards the scene's own
+    model = InverseRenderer(host_svo, device=dev)
+    train_params, opt_state = model.init_params(seed=0)
+    view = CameraConfig(**bench_cam, width=res, height=res)
+    frozen = train_params["normal"].clone()
+    losses, residuals = [], []
+    reset_counts()
+    for _ in range(3):
+        train_params, opt_state, loss, n_res = model.step_view(
+            train_params, opt_state, view, (-0.5, -1.0, -0.3), img)
+        losses.append(float(loss))
+        residuals.append(int(n_res))
+    torch.cuda.synchronize()
+    # two walks a step: the trainer's budgets have no sub-tile pass
+    if tile_cuda.launches != 6 or shade_cuda.launches != dict(
+            shade_fwd=3, shade_bwd=3, segment_sum=3):
+        raise AssertionError("step_view did not take the tile step's kernels")
+    # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
+    # fb_k=256, no sub-tile pass), which leave a few rays of this view
+    # cap-limited where bench.py's budgets leave none. The step returns
+    # their count; it must be the tile frame's own at those budgets, the same
+    # every step, and under a ten-thousandth of the rays.
+    _img, want_res = diff.render_diff_tile(
+        *params, ts, o_t, d_t, corners, light, k_max=96, fb_tiles=128, fb_k=256)
+    if residuals != [int(want_res)] * 3 or residuals[0] * 10000 > n_rays:
+        raise AssertionError(f"step_view: residual rays {residuals}, the tile "
+                             f"frame at the trainer's budgets has {int(want_res)}")
+    if not (losses[0] > losses[1] > losses[2] > 0.0):
+        raise AssertionError(f"step_view: the loss does not fall: {losses}")
+    if not torch.equal(train_params["normal"], frozen):
+        raise AssertionError("step_view changed a frozen parameter")
+    say(f"[train] InverseRenderer.step_view, 3 Adam steps on the {res}x{res} "
+        f"view from random albedo: loss {losses[0]:.6f} -> {losses[1]:.6f} -> "
+        f"{losses[2]:.6f}, {residuals[0]} residual rays a step at the "
+        f"trainer's budgets (the tile frame's own count there; 0 at bench.py's "
+        f"budgets above), 6 walker launches, frozen parameters unchanged")
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -526,7 +853,40 @@ def main():
     t["row_library"] = cuda_ms(lambda: torch.index_select(table, 0, rows8), 50, 3)
     t["row_scalar"] = cuda_ms(lambda: rowread.rowread_scalar(table, 17), 50, 3)
     t["row_min"] = cuda_ms(lambda: rowread.rowread_min(table, cursors), 50, 3)
+    target0 = torch.zeros_like(target_rand)
+    t["step"] = cuda_ms(lambda: diff.loss_and_grads_cuda(
+        *params, svo, o, d, light, target0), 50, 3)
+    t["step_tile"] = cuda_ms(lambda: diff.loss_and_grads_tile(
+        *params, ts, o_t, d_t, corners, light, target0, **TILE_BUDGETS), 50, 3)
+    t["frame_last"] = cuda_ms(lambda: diff.render_diff_cuda(*params, svo, o, d, light), 50, 3)
+    t["tile_frame_last"] = cuda_ms(lambda: diff.render_diff_tile(
+        *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), 20, 2)
+    g_step = 2.0 * img / img.numel()
+    shade_args = (hit_leaf, d, *params, light, 1.3, 0.08)
+    t["shade_fwd"] = cuda_ms(lambda: shade_cuda.shade_fwd(*shade_args), 50, 3)
+    t["shade_fwd_plain"] = cuda_ms(lambda: diff.shade_diff_plain(*shade_args), 20, 2)
+    t["shade_bwd"] = cuda_ms(lambda: shade_cuda.shade_bwd(g_step, *shade_args), 50, 3)
+    t["shade_bwd_plain"] = cuda_ms(lambda: shade_cuda.shade_bwd_plain(
+        g_step, *shade_args), 20, 2)
+    t["sort"] = cuda_ms(lambda: shade_cuda.sort_by_leaf(hit_leaf, n_leaves), 50, 3)
+    t["segment_sum"] = cuda_ms(lambda: shade_cuda.segment_sum(
+        seg_cot, keys, order, n_leaves), 50, 3)
+    t["segment_plain"] = cuda_ms(lambda: diff._segment_reduce_cols(
+        safe_leaf, seg_cot, n_leaves), 20, 2)
+    safe_long = safe_leaf.long()
+    t["segment_library"] = cuda_ms(lambda: torch.zeros(
+        (n_leaves, 7), device=dev).index_add_(0, safe_long, seg_cot), 20, 2)
+    take_idx_long, take_idx_flat = take_idx.long(), take_idx.reshape(-1)
+    t["take"] = cuda_ms(lambda: gather.take_1d(take_table, take_idx), 50, 3)
+    t["take_plain"] = cuda_ms(lambda: take_table[take_idx_long], 50, 3)
+    t["take_library"] = cuda_ms(lambda: torch.index_select(
+        take_table, 0, take_idx_flat), 50, 3)
+    for iters, rows in loop_plain_ms:
+        t[f"loop_{iters}_{rows}"] = cuda_ms(lambda: gather.loop_probe(
+            loop_x, loop_table, iters, 8, rows), 20, 2)
     m = {k: med_p80(v) for k, v in t.items()}
+    slope = {rows: (m[f"loop_2048_{rows}"][0] - m[f"loop_64_{rows}"][0]) / 1984 * 1e3
+             for rows in (0, 512)}
     say(f"[timing] {card}: per-ray frame median {m['frame'][0]:.4f} ms (p80 "
         f"{m['frame'][1]:.4f}, n=50; again after the tile frame "
         f"{m['frame_again'][0]:.4f}, p80 {m['frame_again'][1]:.4f}) = "
@@ -546,21 +906,76 @@ def main():
         f"min {m['row_min'][0]:.4f}, table[idx] {m['row_plain'][0]:.4f}, "
         f"index_select {m['row_library'][0]:.4f} (n=50 each)")
 
-    # one profiler pass over 20 tile frames: device time by kernel
+    say(f"[timing] {card}: per-ray fwd+bwd step median {m['step'][0]:.4f} ms "
+        f"(p80 {m['step'][1]:.4f}, n=50) = "
+        f"{n_rays / m['step'][0] / 1e3:.2f} Mrays/s, fwdbwd_over_fwd "
+        f"{m['step'][0] / m['frame_last'][0]:.2f} (forward frame beside it "
+        f"{m['frame_last'][0]:.4f} ms); tile fwd+bwd step median "
+        f"{m['step_tile'][0]:.4f} ms (p80 {m['step_tile'][1]:.4f}, n=50) = "
+        f"{n_rays / m['step_tile'][0] / 1e3:.2f} Mrays/s, fwdbwd_over_fwd "
+        f"{m['step_tile'][0] / m['tile_frame_last'][0]:.2f} (forward frame "
+        f"beside it {m['tile_frame_last'][0]:.4f} ms, n=20)")
+    say(f"[timing] {card}: shade_fwd median {m['shade_fwd'][0]:.4f} ms (p80 "
+        f"{m['shade_fwd'][1]:.4f}), plain {m['shade_fwd_plain'][0]:.4f}; "
+        f"shade_bwd {m['shade_bwd'][0]:.4f} (p80 {m['shade_bwd'][1]:.4f}), "
+        f"plain {m['shade_bwd_plain'][0]:.4f}; stable sort of {n_rays} keys "
+        f"{m['sort'][0]:.4f} (p80 {m['sort'][1]:.4f}); segment_sum "
+        f"{m['segment_sum'][0]:.4f} (p80 {m['segment_sum'][1]:.4f}), plain "
+        f"sort + running sums {m['segment_plain'][0]:.4f}, index_add_ "
+        f"{m['segment_library'][0]:.4f} (kernels n=50, others n=20)")
+    say(f"[timing] {card}: take_1d (8,128) of 16,384 rows {m['take'][0]:.4f} "
+        f"ms, table[idx] {m['take_plain'][0]:.4f}, index_select "
+        f"{m['take_library'][0]:.4f} (n=50); loop_probe (512,128), 8 steps a "
+        f"trip: 64 trips {m['loop_64_0'][0]:.4f} ms, 2048 trips "
+        f"{m['loop_2048_0'][0]:.4f}, slope {slope[0]:.4f} us a trip; with a "
+        f"512-row gather a trip: {m['loop_64_512'][0]:.4f} and "
+        f"{m['loop_2048_512'][0]:.4f}, slope {slope[512]:.4f} us a trip "
+        f"(n=20); plain loop of 2048 trips {loop_plain_ms[(2048, 0)]:.1f} ms, "
+        f"with the gather {loop_plain_ms[(2048, 512)]:.1f} (n=1)")
+
+    # profiler passes of 20 runs each: device time by kernel. Only the
+    # kernels' own events are summed; an operator's row repeats the time of
+    # the kernels it launched.
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            diff.render_diff_tile(*params, ts, o_t, d_t, corners, light,
-                                  **TILE_BUDGETS)
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    total_us = sum(dev_us(e) for e in rows)
-    say(f"[profile] tile frame, 20 frames: {total_us / 20:.1f} us of device "
-        f"time a frame; the ten largest, us a frame (launches a frame):")
-    for e in rows[:10]:
-        say(f"[profile]   {dev_us(e) / 20:9.1f}  ({e.count / 20:6.1f})  {e.key[:90]}")
+
+    def profile_kernels(what, fn, unit, top):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
+        total_us = sum(dev_us(e) for e in rows) / 20
+        if not total_us > 0.0:
+            raise AssertionError(f"the profiler saw no kernel in {what}")
+        say(f"[profile] {what}, 20 {unit}s: {total_us:.1f} us of kernel time a "
+            f"{unit} in {sum(e.count for e in rows) / 20:.1f} launches; the "
+            f"{min(top, len(rows))} largest, us a {unit} (launches a {unit}):")
+        for e in rows[:top]:
+            say(f"[profile]   {dev_us(e) / 20:9.1f}  ({e.count / 20:6.1f})  {e.key[:90]}")
+        return total_us
+
+    tile_us = profile_kernels("tile frame", lambda: diff.render_diff_tile(
+        *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), "frame", 10)
+    step_us = profile_kernels("per-ray fwd+bwd step", lambda: diff.loss_and_grads_cuda(
+        *params, svo, o, d, light, target0), "step", 10)
+    say(f"[profile] idle share of the card: tile frame "
+        f"{1 - tile_us / 1e3 / m['tile_frame'][0]:.2f} (of its median "
+        f"{m['tile_frame'][0]:.4f} ms), per-ray fwd+bwd step "
+        f"{1 - step_us / 1e3 / m['step'][0]:.2f} (of {m['step'][0]:.4f} ms)")
+
+    # the probe kernels without their wrappers: one call of each a round
+    def probe_round():
+        brick_dda.brick_dda16(dda_args[0], dda_args[1], dda_args[2],
+                              *dda_args[3:], depth=10, steps=16)
+        rowread.rowread_rows(table, rows8)
+        gather.take_1d(take_table, take_idx)
+        torch.index_select(table, 0, rows8)
+    profile_kernels("probe kernels alone (brick_dda16, rowread, take_1d, and "
+                    "index_select beside them)", probe_round, "round", 4)
 
     # ---- 9. the record --------------------------------------------------------
     # bounds: every input read once and every output written once, against
@@ -575,6 +990,17 @@ def main():
         dda_steps_main * OPS_DDA_STEP + n_rays * OPS_RAY_SETUP)
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
+    n_hits = int((hit_leaf >= 0).sum())
+    table_bytes = nbytes(*params, light)
+    fwd_bound = bound(nbytes(hit_leaf, d) + n_rays * 12 + table_bytes,
+                      n_hits * OPS_SHADE_FWD)
+    bwd_bound = bound(nbytes(hit_leaf, d, g_step) + n_rays * 28 + table_bytes,
+                      n_hits * OPS_SHADE_BWD)
+    seg_bound = bound(nbytes(keys, order) + n_hits * 28 + n_leaves * 28,
+                      n_hits * 7)
+    take_bound = bound(nbytes(take_table, take_idx) + take_idx.numel() * 4, 0)
+    loop_bound = bound(2 * nbytes(loop_x),
+                       loop_x.numel() * 2048 * 8 * OPS_LOOP_ELEM)
     src = "raytracingtest_tpu_torch/csrc/"
     kernels = [
         dict(name="esvo_trace", route="cuda", source=src + "esvo_trace.cu",
@@ -601,7 +1027,41 @@ def main():
              max_abs_err=err["rowread"], ms=m["row"][0],
              plain_ms=m["row_plain"][0], bound_ms=row_bound[0],
              bound_by=row_bound[1], library_ms=m["row_library"][0]),
+        dict(name="take", route="cuda", source=src + "shade.cu",
+             replaces="scratch/probe_kernel.py:85",
+             path="gather.take_1d/_onehot/_along0/_along_lane",
+             launches=take_launches, max_abs_err=err["take"], ms=m["take"][0],
+             plain_ms=m["take_plain"][0], bound_ms=take_bound[0],
+             bound_by=take_bound[1], library_ms=m["take_library"][0]),
+        dict(name="loop_probe", route="cuda", source=src + "shade.cu",
+             replaces="scratch/probe2.py:80", path="gather.loop_probe",
+             launches=loop_launches, max_abs_err=err["loop_probe"],
+             ms=m["loop_2048_0"][0], plain_ms=loop_plain_ms[(2048, 0)],
+             bound_ms=loop_bound[0], bound_by=loop_bound[1], library_ms=None),
+        dict(name="shade_fwd", route="cuda", source=src + "shade.cu",
+             replaces="raytracingtest_tpu/diff.py:35",
+             path="diff.loss_and_grads_cuda",
+             launches=train_launches["per-ray"]["shade_fwd"],
+             max_abs_err=err["shade_fwd"], ms=m["shade_fwd"][0],
+             plain_ms=m["shade_fwd_plain"][0], bound_ms=fwd_bound[0],
+             bound_by=fwd_bound[1], library_ms=None),
+        dict(name="shade_bwd", route="cuda", source=src + "shade.cu",
+             replaces="raytracingtest_tpu/diff.py:132",
+             path="diff.loss_and_grads_cuda",
+             launches=train_launches["per-ray"]["shade_bwd"],
+             max_abs_err=err["shade_bwd"], ms=m["shade_bwd"][0],
+             plain_ms=m["shade_bwd_plain"][0], bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], library_ms=None),
+        dict(name="segment_sum", route="cuda", source=src + "shade.cu",
+             replaces="raytracingtest_tpu/diff.py:72",
+             path="diff.loss_and_grads_cuda",
+             launches=train_launches["per-ray"]["segment_sum"],
+             max_abs_err=err["segment_sum"], ms=m["segment_sum"][0],
+             plain_ms=m["segment_plain"][0], bound_ms=seg_bound[0],
+             bound_by=seg_bound[1], library_ms=m["segment_library"][0]),
     ]
+    kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
+    kernels[1]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (ctypes, plain C interfaces).
 
-Three libraries, each built on first use into
+Four libraries, each built on first use into
 ``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
@@ -10,7 +10,10 @@ Three libraries, each built on first use into
   * ``esvo_trace`` — ``csrc/esvo_trace.cu`` with nvcc for ``sm_90a``, the
                      per-ray ESVO traversal kernel;
   * ``tile_walk``  — ``csrc/tile_walk.cu`` with nvcc for ``sm_90a``: the tile
-                     walker, the brick DDA and the row read.
+                     walker, the brick DDA and the row read;
+  * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
+                     the loop probe, fused shading, its backward and the
+                     deterministic segment sum.
 
 ``build_all`` builds them side by side, one compiler process each.
 
@@ -125,6 +128,18 @@ def _declare_tile(lib):
     lib.rowread.restype = i
 
 
+def _declare_shade(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.take.argtypes = [p, p, p, i, i, i, i, p]
+    lib.loop_probe.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.shade_fwd.argtypes = [p, p, p, p, p, i, p, f, f, p, p, i, p]
+    lib.shade_bwd.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
+    lib.segment_sum.argtypes = [p, p, p, i, i, p, p, p, p]
+    for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,
+               lib.segment_sum):
+        fn.restype = i
+
+
 def noise_lib():
     """The host noise library (built with g++ on first call)."""
     return _load("noise", lambda: "g++", NOISE_FLAGS,
@@ -144,6 +159,13 @@ def tile_lib():
                  os.path.join(_CSRC, "tile_walk.cu"), _declare_tile)
 
 
+def shade_lib():
+    """The gather, loop-probe, shading and segment-sum kernels (built with
+    nvcc on first call)."""
+    return _load("shade", _nvcc, NVCC_FLAGS,
+                 os.path.join(_CSRC, "shade.cu"), _declare_shade)
+
+
 def build_all() -> dict:
     """Build and load every library at once, one thread (and so one
     compiler process) each; returns seconds by library name. The first
@@ -156,7 +178,8 @@ def build_all() -> dict:
         fn()
         return time.perf_counter() - t0
 
-    libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib, "noise": noise_lib}
+    libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib,
+            "shade": shade_lib, "noise": noise_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -47,6 +47,15 @@ def params_from_numpy(albedo, normal, density, device=None):
                  for a in (albedo, normal, density))
 
 
+def train_params_from_numpy(params, device=None):
+    """The reference's parameter pytree ({"albedo", "normal", "density"} of
+    numpy-convertible arrays) as the port's parameter dictionary on
+    `device` (None: the default device)."""
+    albedo, normal, density = params_from_numpy(
+        params["albedo"], params["normal"], params["density"], device)
+    return {"albedo": albedo, "normal": normal, "density": density}
+
+
 def brick_svo_from_numpy(obj, device=None) -> BrickSVO:
     """The port's BrickSVO on `device` (None: the default device) from any
     object with the JAX BrickSVO's fields; the uint32 brick words are

@@ -1,72 +1,213 @@
-"""Shading of traced rays from per-voxel parameters: the forward frame.
+"""Differentiable rendering: pixel gradients to per-voxel parameters.
 
-Port of the forward half of ``raytracingtest_tpu/diff.py``: the traversal
-gives each ray a hit leaf (discrete structure, no gradient), and shading is
-a function of the voxel parameters (albedo, normal, density). Two frames: ``render_diff_cuda``
-traces ray by ray, ``render_diff_tile`` through the tile traversal. The
-deterministic segment-sum backward belongs to the training slice.
+Port of ``raytracingtest_tpu/diff.py``: the traversal gives each ray a hit
+leaf (discrete structure, no gradient), and shading is a differentiable
+function of the voxel parameters (albedo, normal, density). Two frames:
+``render_diff_cuda`` traces ray by ray, ``render_diff_tile`` through the tile
+traversal; ``loss_and_grads_cuda`` and ``loss_and_grads_tile`` are their L2
+training steps.
+
+The backward routes a million pixel cotangents to far fewer voxel rows
+without atomics, so gradients are the same bits in every run. On the card
+that is ``ops/shade_cuda.py``: fused shading forward, its per-ray backward,
+a stable sort by leaf id and a segment sum, all but the sort hand-written
+kernels. On the CPU it is the reference's two forms in tensor operations
+(``gather_voxel_params``): seven rank-1 scatter-adds below ``SEG_MIN_ROWS``
+rows, and sort + running sums + one boundary gather at or above it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracingtest_tpu_torch.ops import tile, traverse_cuda
-from raytracingtest_tpu_torch.render import sky_color
+from raytracingtest_tpu_torch.ops import shade_cuda, tile, traverse_cuda
+from raytracingtest_tpu_torch.render import sky_color, sky_texture
+
+# below this row count the plain backward adds with seven rank-1
+# scatter-adds (the order of builtin autograd's, bit for bit on the CPU); at
+# or above it, with the sort + running-sum form. The two differ by float32
+# reassociation in the running sums.
+SEG_MIN_ROWS = 1 << 16
+
+
+def _segment_reduce_cols(leaf_id, cols, n_out):
+    """Per-leaf column sums without a row scatter: stable sort of the rows
+    by leaf id, running float32 column sums, per-leaf boundaries from a
+    count histogram, one gather of the running sums at the n_out + 1
+    boundaries, adjacent difference. `leaf_id` (n,) in [0, n_out), `cols`
+    (n, C); returns (n_out, C)."""
+    leaf_id = leaf_id.long()
+    order = torch.argsort(leaf_id, stable=True)
+    S = torch.cumsum(cols[order], dim=0)
+    S = torch.cat([S.new_zeros((1, cols.shape[1])), S], dim=0)
+    cnt = torch.bincount(leaf_id, minlength=n_out)
+    start = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, dim=0)])
+    G = S[start]
+    return G[1:] - G[:-1]
+
+
+def _gather_bwd(leaf_id, n_leaves, g_alb, g_nrm, g_den):
+    """Cotangents of gathered rows summed back onto their leaves; returns
+    (d_albedo, d_normal, d_density)."""
+    if leaf_id.shape[0] >= SEG_MIN_ROWS:
+        cols7 = torch.cat([g_alb, g_nrm, g_den[:, None]], dim=1)
+        out = _segment_reduce_cols(leaf_id, cols7, n_leaves)
+        return out[:, 0:3], out[:, 3:6], out[:, 6]
+    ids = leaf_id.long()
+    cols = (g_alb[:, 0], g_alb[:, 1], g_alb[:, 2],
+            g_nrm[:, 0], g_nrm[:, 1], g_nrm[:, 2], g_den)
+    outs = [c.new_zeros(n_leaves).index_add_(0, ids, c) for c in cols]
+    return (torch.stack(outs[0:3], dim=1), torch.stack(outs[3:6], dim=1),
+            outs[6])
+
+
+class GatherVoxelParams(torch.autograd.Function):
+    """Per-ray parameter rows for leaf ids in [0, n_leaves), with the
+    deterministic backward of ``_gather_bwd``. The three arrays are packed
+    into one (n_leaves, 7) table so the forward makes one row gather."""
+
+    @staticmethod
+    def forward(ctx, albedo, normal, density, leaf_id):
+        ctx.save_for_backward(leaf_id)
+        ctx.n_leaves = albedo.shape[0]
+        packed = torch.cat([albedo, normal, density[:, None]], dim=1)
+        rows = packed[leaf_id.long()]
+        return rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+
+    @staticmethod
+    def backward(ctx, g_alb, g_nrm, g_den):
+        (leaf_id,) = ctx.saved_tensors
+        return (*_gather_bwd(leaf_id, ctx.n_leaves, g_alb, g_nrm, g_den), None)
 
 
 def gather_voxel_params(albedo, normal, density, leaf_id):
-    """Per-ray parameter rows for leaf ids in [0, n_leaves): the three
-    arrays are packed into one (n_leaves, 7) table so the frame makes one
-    row gather instead of three."""
-    packed = torch.cat([albedo, normal, density[:, None]], dim=1)
-    rows = packed[leaf_id.long()]
-    return rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+    """(alb (N, 3), nrm (N, 3), den (N,)) rows of each ray's leaf; leaf ids
+    must already lie in [0, n_leaves). Masking of misses happens in the
+    shading (their cotangents are zero)."""
+    return GatherVoxelParams.apply(albedo, normal, density, leaf_id)
 
 
-def shade_diff(hit_leaf, direction, albedo, normal, density,
-               light_dir, light_intensity, light_ambient):
-    """Lambert shading of traced rays, (N, 3) radiance. Misses shade to the
-    sky; density sets the hit's opacity over the sky."""
-    sky = sky_color(direction)
-    if albedo.shape[0] == 0:
-        return sky  # empty scene: every ray misses
+def shade_diff_plain(hit_leaf, direction, albedo, normal, density, light_dir,
+                     light_intensity, light_ambient, sky=None):
+    """``shade_diff`` in tensor operations, on any device: the plain version
+    of the shading kernels, forward and (through ``gather_voxel_params``)
+    backward. `sky` (N, 3) is the miss colour, None the procedural sky."""
+    if sky is None:
+        sky = sky_color(direction)
     hit = hit_leaf >= 0
     safe_leaf = torch.where(hit, hit_leaf, 0)
     alb, nrm, den = gather_voxel_params(albedo, normal, density, safe_leaf)
-    ldir = light_dir / torch.sqrt(torch.sum(light_dir * light_dir))
-    nn = nrm / torch.sqrt(torch.clamp(
-        torch.sum(nrm * nrm, -1, keepdim=True), min=1e-12))
-    ndotl = torch.clamp(torch.sum(nn * (-ldir)[None, :], dim=-1), min=0.0)
-    lit = alb * (ndotl * light_intensity + light_ambient)[:, None]
-    alpha = torch.clamp(den, 0.0, 1.0)[:, None] * hit[:, None]
-    return alpha * lit + (1.0 - alpha) * sky
+    return shade_cuda.shade_rows(alb, nrm, den, hit, sky, light_dir,
+                                 light_intensity, light_ambient)
+
+
+def shade_diff(hit_leaf, direction, albedo, normal, density,
+               light_dir, light_intensity, light_ambient, skybox=None):
+    """Differentiable Lambert shading of traced rays, (N, 3) radiance.
+    Misses shade to the sky: the procedural gradient, or the (H, W, 3)
+    equirect texture `skybox`, which gets no gradient. Density sets the
+    hit's opacity over the sky. CUDA tensors go through the kernels of
+    ``ops/shade_cuda.py``, CPU tensors through ``shade_diff_plain``."""
+    sky = None
+    if skybox is not None:
+        sky = sky_texture(direction, skybox.detach())
+    if albedo.shape[0] == 0:
+        # empty scene: every ray misses, and there is no row to gather
+        return sky_color(direction) if sky is None else sky
+    if albedo.device.type == "cuda":
+        return shade_cuda.ShadeCuda.apply(
+            albedo, normal, density, hit_leaf, direction, light_dir,
+            light_intensity, light_ambient, sky)
+    return shade_diff_plain(hit_leaf, direction, albedo, normal, density,
+                            light_dir, light_intensity, light_ambient, sky)
 
 
 def render_diff_cuda(albedo, normal, density, svo, o, d, light_dir,
                      light_intensity=1.3, light_ambient=0.08):
     """Render a flat batch of (N, 3) rays, N a multiple of 1024: trace
     (the CUDA kernel for CUDA tensors), then shade. Returns (N, 3)
-    radiance."""
+    radiance, differentiable in the three parameter tensors."""
     with torch.no_grad():
         res = traverse_cuda.trace_cuda(svo, o, d)
     return shade_diff(res.hit_leaf, d, albedo, normal, density,
                       light_dir, light_intensity, light_ambient)
 
 
+def _value_and_grads(loss_fn, albedo, normal, density):
+    """(what loss_fn returns, detached; the loss's gradients in the three
+    parameter tensors). loss_fn gets fresh leaves and returns the loss, or a
+    tuple that starts with it. A parameter the loss does not reach (an empty
+    scene) gets zeros."""
+    params = [p.detach().requires_grad_(True)
+              for p in (albedo, normal, density)]
+    with torch.enable_grad():
+        out = loss_fn(*params)
+        loss = out[0] if isinstance(out, tuple) else out
+        grads = (torch.autograd.grad(loss, params, allow_unused=True)
+                 if loss.requires_grad else (None, None, None))
+    grads = tuple(torch.zeros_like(p) if g is None else g
+                  for p, g in zip(params, grads))
+    if isinstance(out, tuple):
+        return tuple(t.detach() for t in out), grads
+    return out.detach(), grads
+
+
+def l2_loss_cuda(albedo, normal, density, svo, o, d, light_dir, target):
+    """Mean squared error of the per-ray frame against `target` (N, 3)."""
+    img = render_diff_cuda(albedo, normal, density, svo, o, d, light_dir)
+    return torch.mean((img - target) ** 2)
+
+
+def loss_and_grads_cuda(albedo, normal, density, svo, o, d, light_dir,
+                        target):
+    """One forward + backward step of the per-ray frame: (loss, (g_albedo,
+    g_normal, g_density))."""
+    return _value_and_grads(
+        lambda a, n, s: l2_loss_cuda(a, n, s, svo, o, d, light_dir, target),
+        albedo, normal, density)
+
+
 def render_diff_tile(albedo, normal, density, tsvo, o, d, corners, light_dir,
                      light_intensity=1.3, light_ambient=0.08, k_max=64,
-                     fb_tiles=128, fb_k=256, fb2_tiles=0, fb2_split=2):
+                     fb_tiles=128, fb_k=256, fb2_tiles=0, fb2_split=2,
+                     skybox=None):
     """Render through the tile traversal (``ops/tile.py``). o/d: (T, P, 3)
     tile-major rays and corners (T, 4, 3) from ``tile.tile_rays``, on the
     device of `tsvo`. Returns ((T*P, 3) radiance in tile-major order, the
     count of residual rays: those whose hit the tile passes could not
     certify, a 0-dim tensor). The count is returned, not acted on; a caller
-    that needs every ray exact uses ``tile.trace_tile_exact``."""
+    that needs every ray exact uses ``tile.trace_tile_exact``. `skybox`: an
+    optional (H, W, 3) equirect texture sampled on a miss."""
     with torch.no_grad():
         res, residual = tile.trace_tile_fb(
             tsvo, o, d, corners, k_max=k_max, fb_tiles=fb_tiles, fb_k=fb_k,
             fb2_tiles=fb2_tiles, fb2_split=fb2_split)
     img = shade_diff(res.hit_leaf, d.reshape(-1, 3), albedo, normal, density,
-                     light_dir, light_intensity, light_ambient)
+                     light_dir, light_intensity, light_ambient, skybox=skybox)
     return img, torch.sum(residual)
+
+
+def l2_loss_tile(albedo, normal, density, tsvo, o, d, corners, light_dir,
+                 target, k_max=64, fb_tiles=128, fb_k=256, fb2_tiles=0,
+                 fb2_split=2):
+    """Tile-path training loss against `target` (T*P, 3), tile-major.
+    Returns (loss, residual count): the number of rays whose hits are still
+    cap-limited after every re-walk, so that loss and gradients over them
+    use inexact hits. Callers must surface it."""
+    img, residual = render_diff_tile(
+        albedo, normal, density, tsvo, o, d, corners, light_dir, k_max=k_max,
+        fb_tiles=fb_tiles, fb_k=fb_k, fb2_tiles=fb2_tiles, fb2_split=fb2_split)
+    return torch.mean((img - target) ** 2), residual
+
+
+def loss_and_grads_tile(albedo, normal, density, tsvo, o, d, corners,
+                        light_dir, target, k_max=64, fb_tiles=128, fb_k=256,
+                        fb2_tiles=0, fb2_split=2):
+    """One forward + backward step of the tile frame: ((loss, residual
+    count), (g_albedo, g_normal, g_density))."""
+    return _value_and_grads(
+        lambda a, n, s: l2_loss_tile(
+            a, n, s, tsvo, o, d, corners, light_dir, target, k_max=k_max,
+            fb_tiles=fb_tiles, fb_k=fb_k, fb2_tiles=fb2_tiles,
+            fb2_split=fb2_split),
+        albedo, normal, density)

@@ -1,0 +1,154 @@
+"""Model-level API over the functional ops (port of
+``raytracingtest_tpu/models/renderers.py``).
+
+Ported so far: ``InverseRenderer``, the trainable model: a dictionary of
+voxel parameters, an Adam optimizer over the trained ones, and a train step
+on one device. ``SurfaceRenderer``, ``VolumetricRenderer`` and the sharded
+(multi-device) step are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from raytracingtest_tpu_torch import diff
+from raytracingtest_tpu_torch._device import resolve
+from raytracingtest_tpu_torch.config import CameraConfig
+from raytracingtest_tpu_torch.ops import brick, tile
+from raytracingtest_tpu_torch.ops.camera import Camera
+from raytracingtest_tpu_torch.ops.octree import SVO
+
+PARAM_NAMES = ("albedo", "normal", "density")
+
+# the tile train step's budgets (the reference's make_train_step_tile)
+TILE_STEP_BUDGETS = dict(k_max=96, fb_tiles=128, fb_k=256)
+
+
+def _camera(cfg: CameraConfig) -> Camera:
+    return Camera(position=cfg.position, look_at=cfg.look_at, up=cfg.up,
+                  fov_y_deg=cfg.fov_y_deg, ortho_height=cfg.ortho_height,
+                  width=cfg.width, height=cfg.height)
+
+
+def _accel_of(obj):
+    """The acceleration structures of a model's SVO, built on first use and
+    kept: (BrickSVO, TileSVO) on the SVO's device. Either can be None:
+    bricks need depth >= BRICK_LEVELS + 1, and the tile pyramid also needs
+    top_depth <= 10. The cache holds the SVO object itself and compares with
+    `is`, so assigning another SVO to `obj.svo` always rebuilds. The host
+    brick decomposition is built once and shared by both structures."""
+    cache = getattr(obj, "_accel_cache", None)
+    if cache is None or cache[0] is not obj.svo:
+        bsvo_dev = tsvo_dev = None
+        if obj.svo.depth >= brick.BRICK_LEVELS + 1:
+            device = obj.svo.masks.device
+            bsvo_host = brick.make_brick_svo(obj.svo)
+            bsvo_dev = bsvo_host.to(device)
+            if bsvo_host.top_depth <= 10:
+                tsvo_host = tile.make_tile_svo(obj.svo, bsvo=bsvo_host)
+                tsvo_dev = tile.TileSVO(bsvo=bsvo_dev,
+                                        pyr=tsvo_host.pyr.to(device),
+                                        cellmap=tsvo_host.cellmap.to(device))
+        cache = (obj.svo, bsvo_dev, tsvo_dev)
+        obj._accel_cache = cache
+    return cache[1], cache[2]
+
+
+@dataclasses.dataclass
+class InverseRenderer:
+    """Trainable voxel-parameter model with a train step on one device.
+
+    `device` None means the default device (the card); the SVO is moved
+    there. `optimize` names the trained parameters; the others are frozen
+    and never change. `n_devices` other than None or 1 raises: the sharded
+    step is not ported.
+
+    The parameters are a dictionary of tensors and the optimizer state is a
+    ``torch.optim.Adam`` over the trained ones. A step updates both IN
+    PLACE and hands the same objects back, where the reference returns new
+    pytrees."""
+
+    svo: SVO
+    optimize: tuple = ("albedo",)
+    learning_rate: float = 5e-2
+    n_devices: Optional[int] = None
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        if self.n_devices not in (None, 1):
+            raise NotImplementedError(
+                f"n_devices={self.n_devices}: the port trains on one device")
+        unknown = set(self.optimize) - set(PARAM_NAMES)
+        if unknown or not self.optimize:
+            raise ValueError(f"optimize={self.optimize!r}: expected a "
+                             f"non-empty subset of {PARAM_NAMES}")
+        self.device = resolve(self.device)
+        self.svo = self.svo.to(self.device)
+        _bsvo, self._tsvo = _accel_of(self)
+
+    def init_params(self, seed: int = 0, randomize=("albedo",)):
+        """(params, opt_state): the SVO's parameters, those named in
+        `randomize` replaced by uniform [0, 1) numbers from numpy's
+        generator (the reference's stream), and Adam over the trained
+        ones."""
+        rng = np.random.default_rng(seed)
+        params = {"albedo": self.svo.leaf_albedo.clone(),
+                  "normal": self.svo.leaf_normal.clone(),
+                  "density": self.svo.leaf_density.clone()}
+        for name in randomize:
+            params[name] = torch.from_numpy(rng.random(
+                tuple(params[name].shape), dtype=np.float32)).to(self.device)
+        opt_state = torch.optim.Adam(
+            [params[name] for name in PARAM_NAMES if name in self.optimize],
+            lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        return params, opt_state
+
+    def _light(self, light):
+        return torch.as_tensor(light, dtype=torch.float32, device=self.device)
+
+    def _update(self, params, opt_state, grads):
+        for name, g in zip(PARAM_NAMES, grads):
+            if name in self.optimize:
+                params[name].grad = g
+        opt_state.step()
+
+    def step(self, params, opt_state, o, d, light, target):
+        """One train step on a flat batch of (N, 3) rays against `target`
+        (N, 3), through the per-ray frame (``diff.loss_and_grads_cuda``; N a
+        multiple of 1024). Returns (params, opt_state, loss)."""
+        loss, grads = diff.loss_and_grads_cuda(
+            *(params[name] for name in PARAM_NAMES), self.svo, o, d,
+            self._light(light), target)
+        self._update(params, opt_state, grads)
+        return params, opt_state, loss
+
+    def step_view(self, params, opt_state, camera_cfg, light, target_img):
+        """One train step against a posed target image, `target_img`
+        (H*W, 3) row-major pixels: through the tile frame when the camera is
+        pinhole, both sizes are multiples of 16 and the tree supports the
+        pyramid, else through ``step``.
+
+        Returns (params, opt_state, loss, residual). residual > 0 means some
+        rays' loss terms used cap-limited (inexact) hits. It is 0 in normal
+        operation and training loops must surface it."""
+        cam = _camera(camera_cfg)
+        target_img = torch.as_tensor(target_img, dtype=torch.float32,
+                                     device=self.device)
+        if (self._tsvo is not None and cam.ortho_height <= 0.0
+                and camera_cfg.width % 16 == 0 and camera_cfg.height % 16 == 0):
+            o_t, d_t, corners, grid = tile.tile_rays(cam, self.device)
+            target = tile.tile_pixels(target_img, grid)
+            (loss, residual), grads = diff.loss_and_grads_tile(
+                *(params[name] for name in PARAM_NAMES), self._tsvo, o_t, d_t,
+                corners, self._light(light), target, **TILE_STEP_BUDGETS)
+            self._update(params, opt_state, grads)
+            return params, opt_state, loss, residual
+        o, d = cam.rays(self.device)
+        params, opt_state, loss = self.step(params, opt_state, o, d, light,
+                                            target_img)
+        return params, opt_state, loss, torch.zeros(
+            (), dtype=torch.int64, device=self.device)

@@ -150,15 +150,20 @@ def test_octree_frame_matches_numpy():
 
 PORT_MODULES = (
     "raytracingtest_tpu_torch", "raytracingtest_tpu_torch._build",
-    "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch.convert",
+    "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch.config",
+    "raytracingtest_tpu_torch.convert",
     "raytracingtest_tpu_torch.diff", "raytracingtest_tpu_torch.render",
     "raytracingtest_tpu_torch.scenes",
     "raytracingtest_tpu_torch.io.checkpoint",
+    "raytracingtest_tpu_torch.models",
+    "raytracingtest_tpu_torch.models.renderers",
     "raytracingtest_tpu_torch.ops.brick",
     "raytracingtest_tpu_torch.ops.brick_dda",
     "raytracingtest_tpu_torch.ops.camera",
+    "raytracingtest_tpu_torch.ops.gather",
     "raytracingtest_tpu_torch.ops.octree",
     "raytracingtest_tpu_torch.ops.rowread",
+    "raytracingtest_tpu_torch.ops.shade_cuda",
     "raytracingtest_tpu_torch.ops.tile",
     "raytracingtest_tpu_torch.ops.tile_cuda",
     "raytracingtest_tpu_torch.ops.traverse",
