@@ -39,7 +39,8 @@ from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.ops import (
     brick_dda, camera, gather, octree, rowread, shade_cuda, tile, tile_cuda,
     traverse, traverse_cuda)
-from raytracingtest_tpu_torch.render import make_gradient_skybox, sky_texture
+from raytracingtest_tpu_torch.render import (
+    make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import get_scene
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
@@ -173,7 +174,8 @@ def gather_cases(dev):
     i32 = dict(dtype=torch.int32, device=dev)
     t1 = torch.arange(16384, **i32)
     i1 = probe_idx((8, 128), 16384, dev)
-    t4 = torch.arange(4096, dtype=torch.float32, device=dev).reshape(4096, 1)
+    t4 = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4096, 1)).astype(np.float32)).to(dev)
     i4 = probe_idx((8, 128), 4096, dev)
     x = torch.arange(8 * 128, **i32).reshape(8, 128)
     lane = (x * 13) % 128
@@ -185,6 +187,9 @@ def gather_cases(dev):
         ("take_onehot float32 table[4096,1], idx (8,128)",
          lambda: gather.take_onehot(t4, i4),
          lambda: gather.onehot_take_plain(t4, i4)),
+        ("take_onehot against the gather table[idx]",
+         lambda: gather.take_onehot(t4, i4),
+         lambda: t4.reshape(-1)[i4.long()]),
         ("take_along_lane int32 x (8,128)",
          lambda: gather.take_along_lane(x, lane),
          lambda: torch.gather(x, 1, lane.long())),
@@ -202,7 +207,7 @@ def gather_cases(dev):
     cases.append(("take_along0 float32 table (256,128), idx (256,128)",
                   lambda: gather.take_along0(tf, idx),
                   lambda: torch.gather(tf, 0, idx.long())))
-    return cases, (t1, i1)
+    return cases, (t1, i1), (t4, i4)
 
 
 def check_grads(got, want, what, rtol=1e-5, atol=1e-7):
@@ -218,6 +223,22 @@ def check_grads(got, want, what, rtol=1e-5, atol=1e-7):
         worst = max(worst, float((a - b).abs().max()))
         scale = max(scale, float(b.abs().max()))
     return worst, scale
+
+
+def builtin_grads(hit_leaf, d, target, params, light):
+    """The L2 step's gradients by builtin autograd through plain indexing of
+    the hit rays' rows alone: no kernel of the port, no custom backward, no
+    running sum. A miss's pixel is the sky whatever the parameters are, so it
+    adds a constant to the loss and nothing to a gradient."""
+    hit = hit_leaf >= 0
+    leaf, sky = hit_leaf[hit].long(), sky_color(d[hit])
+    every = torch.ones_like(leaf, dtype=torch.bool)
+
+    def loss(a, n, s):
+        img = shade_cuda.shade_rows(a[leaf], n[leaf], s[leaf], every, sky,
+                                    light, 1.3, 0.08)
+        return torch.sum((img - target[hit]) ** 2) / target.numel()
+    return diff._value_and_grads(loss, *params)[1]
 
 
 def serial_scatter_add(hit_leaf, cot, n_leaves):
@@ -418,7 +439,7 @@ def main():
     say("[parity] rowread (64,128) int32: kernel == table[idx] in the scalar, "
         "min-of-cursors and eight-rows modes")
 
-    cases, (take_table, take_idx) = gather_cases(dev)
+    cases, (take_table, take_idx), (hot_table, hot_idx) = gather_cases(dev)
     for what, kernel_call, plain_call in cases:
         got, want = kernel_call(), plain_call()
         torch.cuda.synchronize()
@@ -760,6 +781,13 @@ def main():
                 lambda a, n, s: torch.mean((diff.shade_diff_plain(
                     leafs, dirs, a, n, s, light, 1.3, 0.08) - tgt) ** 2), *params)
             worst, scale = check_grads(grads, grads_plain, f"{path} step, {what}")
+            # the tight check: builtin autograd over the hit rows. A leaf one
+            # ray hits has a gradient some hundredth of the largest, so the
+            # absolute tolerance is scaled to the run.
+            tight_atol = 1e-6 * scale
+            worst_tight, _ = check_grads(
+                grads, builtin_grads(leafs, dirs, tgt, params, light),
+                f"{path} step, {what}, against builtin autograd", atol=tight_atol)
             if not torch.allclose(loss, loss_plain, rtol=1e-5):
                 raise AssertionError(f"{path} step, {what}: loss {float(loss)} "
                                      f"against plain {float(loss_plain)}")
@@ -768,9 +796,12 @@ def main():
                                      f"has a gradient")
             grads_by_path[(path, what)] = grads
             say(f"[train] {path} step, {what}: launches {counts}; loss "
-                f"{float(loss):.6f}; gradients within rtol 1e-5 / atol 1e-7 of "
-                f"the plain autograd path on the card (max abs {worst:.3e} at "
-                f"a largest gradient of {scale:.3e}); "
+                f"{float(loss):.6f}; gradients within rtol 1e-5 / atol "
+                f"{tight_atol:.1e} (1e-6 of the largest gradient, {scale:.3e}) "
+                f"of builtin autograd through plain indexing of the hit rows "
+                f"(max abs {worst_tight:.3e}), and within rtol 1e-5 / atol 1e-7 "
+                f"of the plain sort + running-sum backward on the card (max "
+                f"abs {worst:.3e}); "
                 + (f"{int(touched.sum())} of {n_leaves} leaves touched, the "
                    f"others exactly zero" if path == "per-ray" else
                    f"{n_res} residual rays"))
@@ -873,14 +904,19 @@ def main():
         seg_cot, keys, order, n_leaves), 50, 3)
     t["segment_plain"] = cuda_ms(lambda: diff._segment_reduce_cols(
         safe_leaf, seg_cot, n_leaves), 20, 2)
-    safe_long = safe_leaf.long()
+    # the library call on the work the kernel does: the hit rows alone
+    was_hit = hit_leaf >= 0
+    hit_long, hit_cot = hit_leaf[was_hit].long(), seg_cot[was_hit]
     t["segment_library"] = cuda_ms(lambda: torch.zeros(
-        (n_leaves, 7), device=dev).index_add_(0, safe_long, seg_cot), 20, 2)
+        (n_leaves, 7), device=dev).index_add_(0, hit_long, hit_cot), 20, 2)
     take_idx_long, take_idx_flat = take_idx.long(), take_idx.reshape(-1)
     t["take"] = cuda_ms(lambda: gather.take_1d(take_table, take_idx), 50, 3)
     t["take_plain"] = cuda_ms(lambda: take_table[take_idx_long], 50, 3)
     t["take_library"] = cuda_ms(lambda: torch.index_select(
         take_table, 0, take_idx_flat), 50, 3)
+    t["take_onehot"] = cuda_ms(lambda: gather.take_onehot(hot_table, hot_idx), 50, 3)
+    t["take_onehot_plain"] = cuda_ms(lambda: gather.onehot_take_plain(
+        hot_table, hot_idx), 20, 2)
     for iters, rows in loop_plain_ms:
         t[f"loop_{iters}_{rows}"] = cuda_ms(lambda: gather.loop_probe(
             loop_x, loop_table, iters, 8, rows), 20, 2)
@@ -921,11 +957,13 @@ def main():
         f"plain {m['shade_bwd_plain'][0]:.4f}; stable sort of {n_rays} keys "
         f"{m['sort'][0]:.4f} (p80 {m['sort'][1]:.4f}); segment_sum "
         f"{m['segment_sum'][0]:.4f} (p80 {m['segment_sum'][1]:.4f}), plain "
-        f"sort + running sums {m['segment_plain'][0]:.4f}, index_add_ "
-        f"{m['segment_library'][0]:.4f} (kernels n=50, others n=20)")
+        f"sort + running sums {m['segment_plain'][0]:.4f}, index_add_ of the "
+        f"hit rows {m['segment_library'][0]:.4f} (kernels n=50, others n=20)")
     say(f"[timing] {card}: take_1d (8,128) of 16,384 rows {m['take'][0]:.4f} "
         f"ms, table[idx] {m['take_plain'][0]:.4f}, index_select "
-        f"{m['take_library'][0]:.4f} (n=50); loop_probe (512,128), 8 steps a "
+        f"{m['take_library'][0]:.4f} (n=50); take_onehot (8,128) of 4,096 rows "
+        f"{m['take_onehot'][0]:.4f}, one_hot @ table "
+        f"{m['take_onehot_plain'][0]:.4f} (n=20); loop_probe (512,128), 8 steps a "
         f"trip: 64 trips {m['loop_64_0'][0]:.4f} ms, 2048 trips "
         f"{m['loop_2048_0'][0]:.4f}, slope {slope[0]:.4f} us a trip; with a "
         f"512-row gather a trip: {m['loop_64_512'][0]:.4f} and "
@@ -976,6 +1014,9 @@ def main():
         torch.index_select(table, 0, rows8)
     profile_kernels("probe kernels alone (brick_dda16, rowread, take_1d, and "
                     "index_select beside them)", probe_round, "round", 4)
+    # the same kernel in its one-hot mode, on its own so the two do not merge
+    profile_kernels("take in its one-hot mode alone", lambda: gather.take_onehot(
+        hot_table, hot_idx), "call", 1)
 
     # ---- 9. the record --------------------------------------------------------
     # bounds: every input read once and every output written once, against
@@ -991,13 +1032,25 @@ def main():
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
     n_hits = int((hit_leaf >= 0).sum())
-    table_bytes = nbytes(*params, light)
-    fwd_bound = bound(nbytes(hit_leaf, d) + n_rays * 12 + table_bytes,
+    # a parameter row is read only for a hit: count each touched leaf's
+    # 28 B once, not the whole table
+    row_bytes = int(touched.sum()) * 28 + nbytes(light)
+    fwd_bound = bound(nbytes(hit_leaf, d) + n_rays * 12 + row_bytes,
                       n_hits * OPS_SHADE_FWD)
-    bwd_bound = bound(nbytes(hit_leaf, d, g_step) + n_rays * 28 + table_bytes,
+    bwd_bound = bound(nbytes(hit_leaf, d, g_step) + n_rays * 28 + row_bytes,
                       n_hits * OPS_SHADE_BWD)
-    seg_bound = bound(nbytes(keys, order) + n_hits * 28 + n_leaves * 28,
-                      n_hits * 7)
+    # segment_sum reads every key, and the permutation and the cotangent row
+    # of each hit. The wrapper's time holds the zero-fill of the three
+    # outputs, so its bound counts them whole; the kernel alone writes the
+    # touched leaves only, and that bound stands beside its profiled time.
+    seg_reads = nbytes(keys) + n_hits * (8 + 28)
+    seg_bound = bound(seg_reads + n_leaves * 28, n_hits * 7)
+    seg_kernel_bound = bound(seg_reads + int(touched.sum()) * 28, n_hits * 7)
+    say(f"[bound] {n_hits} hits on {int(touched.sum())} leaves: shade_fwd "
+        f"{fwd_bound[0]:.4f} ms, shade_bwd {bwd_bound[0]:.4f}, segment_sum with "
+        f"its zero-filled outputs {seg_bound[0]:.4f} (against the wrapper's "
+        f"{m['segment_sum'][0]:.4f}), the segment_sum kernel alone "
+        f"{seg_kernel_bound[0]:.4f} (against its time in the step's profile)")
     take_bound = bound(nbytes(take_table, take_idx) + take_idx.numel() * 4, 0)
     loop_bound = bound(2 * nbytes(loop_x),
                        loop_x.numel() * 2048 * 8 * OPS_LOOP_ELEM)

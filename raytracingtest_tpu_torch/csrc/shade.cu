@@ -7,9 +7,11 @@
 //                 scratch/probe2.py::gather_axis0 (:49): one 32-bit word per
 //                 output element, fetched at an index learned at run time,
 //                 from a 1-D table, along the rows of a 2-D table, or along
-//                 the lanes of the element's own row. The one-hot product of
-//                 p2d computes the 1-D gather, so it is the 1-D mode on
-//                 float32 words.
+//                 the lanes of the element's own row. p2d's one-hot product
+//                 is a mode of its own: the thread compares its index with
+//                 every row, multiplies the row's word by the 0 or 1 and
+//                 accumulates, as a row of one_hot(idx) @ table does; it
+//                 reads the whole table where the gather reads one word.
 //   loop_probe    replaces p1_kernel_loop (:58) and p2e_take_2d_big (:175) of
 //                 scratch/probe_kernel.py and scratch/probe2.py::
 //                 pallas_loop_slope (:80): a loop of `iters` trips inside one
@@ -73,12 +75,14 @@ __device__ __forceinline__ T take_row(const T* __restrict__ table, int rows,
   return __ldg(table + (size_t)row * stride + c);
 }
 
-constexpr int TAKE_1D = 0, TAKE_ALONG0 = 1, TAKE_ALONG_LANE = 2;
+constexpr int TAKE_1D = 0, TAKE_ALONG0 = 1, TAKE_ALONG_LANE = 2,
+              TAKE_ONEHOT = 3;
 
 // out has n words in rows of `cols`. TAKE_1D: out[i] = table[idx[i]], table
 // of `rows` words. TAKE_ALONG0: out[s,l] = table[idx[s,l], l], table
 // (rows, cols). TAKE_ALONG_LANE: out[s,l] = table[s, idx[s,l]], table of
-// out's shape.
+// out's shape. TAKE_ONEHOT: out[i] = sum over r of (r == idx[i]) * table[r],
+// table of `rows` float32 words.
 __global__ void __launch_bounds__(BLOCK)
 take_kernel(const uint32_t* __restrict__ table, const int* __restrict__ idx,
             uint32_t* __restrict__ out, int n, int rows, int cols, int mode) {
@@ -89,6 +93,13 @@ take_kernel(const uint32_t* __restrict__ table, const int* __restrict__ idx,
     out[i] = take_row(table, rows, 1, j, 0);
   } else if (mode == TAKE_ALONG0) {
     out[i] = take_row(table, rows, cols, j, i % cols);
+  } else if (mode == TAKE_ONEHOT) {
+    const float* t = (const float*)table;
+    const int hot = max(0, min(j, rows - 1));
+    float acc = 0.0f;
+    for (int r = 0; r < rows; ++r)
+      acc = acc + (r == hot ? 1.0f : 0.0f) * __ldg(t + r);
+    out[i] = __float_as_uint(acc);
   } else {
     out[i] = take_row(table + (size_t)(i / cols) * cols, cols, 1, j, 0);
   }
@@ -305,7 +316,7 @@ inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 extern "C" int take(const void* table, const void* idx, void* out, int n,
                     int rows, int cols, int mode, void* stream) {
-  if (mode < TAKE_1D || mode > TAKE_ALONG_LANE || rows < 1 || cols < 1)
+  if (mode < TAKE_1D || mode > TAKE_ONEHOT || rows < 1 || cols < 1)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     take_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(

@@ -49,30 +49,22 @@ def _segment_reduce_cols(leaf_id, cols, n_out):
 def _gather_bwd(leaf_id, n_leaves, g_alb, g_nrm, g_den):
     """Cotangents of gathered rows summed back onto their leaves; returns
     (d_albedo, d_normal, d_density)."""
+    cols7 = torch.cat([g_alb, g_nrm, g_den[:, None]], dim=1)
     if leaf_id.shape[0] >= SEG_MIN_ROWS:
-        cols7 = torch.cat([g_alb, g_nrm, g_den[:, None]], dim=1)
         out = _segment_reduce_cols(leaf_id, cols7, n_leaves)
         return out[:, 0:3], out[:, 3:6], out[:, 6]
-    ids = leaf_id.long()
-    cols = (g_alb[:, 0], g_alb[:, 1], g_alb[:, 2],
-            g_nrm[:, 0], g_nrm[:, 1], g_nrm[:, 2], g_den)
-    outs = [c.new_zeros(n_leaves).index_add_(0, ids, c) for c in cols]
-    return (torch.stack(outs[0:3], dim=1), torch.stack(outs[3:6], dim=1),
-            outs[6])
+    return shade_cuda.scatter_add_rows(leaf_id, cols7, n_leaves)
 
 
 class GatherVoxelParams(torch.autograd.Function):
     """Per-ray parameter rows for leaf ids in [0, n_leaves), with the
-    deterministic backward of ``_gather_bwd``. The three arrays are packed
-    into one (n_leaves, 7) table so the forward makes one row gather."""
+    deterministic backward of ``_gather_bwd``."""
 
     @staticmethod
     def forward(ctx, albedo, normal, density, leaf_id):
         ctx.save_for_backward(leaf_id)
         ctx.n_leaves = albedo.shape[0]
-        packed = torch.cat([albedo, normal, density[:, None]], dim=1)
-        rows = packed[leaf_id.long()]
-        return rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+        return shade_cuda.index_rows(leaf_id, albedo, normal, density)
 
     @staticmethod
     def backward(ctx, g_alb, g_nrm, g_den):
@@ -94,9 +86,8 @@ def shade_diff_plain(hit_leaf, direction, albedo, normal, density, light_dir,
     backward. `sky` (N, 3) is the miss colour, None the procedural sky."""
     if sky is None:
         sky = sky_color(direction)
-    hit = hit_leaf >= 0
-    safe_leaf = torch.where(hit, hit_leaf, 0)
-    alb, nrm, den = gather_voxel_params(albedo, normal, density, safe_leaf)
+    hit, leaf = shade_cuda.safe_leaf(hit_leaf, albedo.shape[0])
+    alb, nrm, den = gather_voxel_params(albedo, normal, density, leaf)
     return shade_cuda.shade_rows(alb, nrm, den, hit, sky, light_dir,
                                  light_intensity, light_ambient)
 

@@ -6,8 +6,8 @@ a trip of a loop inside a kernel costs:
 
   * ``take_1d``          ``p2a_take_1d``: ``out[s,l] = table[idx[s,l]]``;
   * ``take_onehot``      ``p2d_onehot``: the same gather of a ``(rows, 1)``
-                         float32 table, which the probe wrote as a one-hot
-                         matrix product;
+                         float32 table as a one-hot matrix product
+                         (compare with every row, multiply, accumulate);
   * ``take_along0``      ``p2b_take_2d_axis0`` and ``probe2.gather_axis0``:
                          ``out[s,l] = table[idx[s,l], l]``;
   * ``take_along_lane``  ``p2c_take_along_lane``: ``out[s,l] = x[s, idx[s,l]]``;
@@ -15,8 +15,9 @@ a trip of a loop inside a kernel costs:
                          (float mode, without and with a gather each trip)
                          and ``p2e_take_2d_big`` (integer mode).
 
-Two kernels of ``csrc/shade.cu`` serve them, ``take`` (three index modes,
-any 32-bit element) and ``loop_probe``; both read through the row load that
+Two kernels of ``csrc/shade.cu`` serve them, ``take`` (three index modes
+on any 32-bit element, and the one-hot product on float32) and
+``loop_probe``; both read through the row load that
 the shading kernels fetch their parameter rows with. CUDA tensors launch the
 kernel, CPU tensors take the plain version beside it. Indices are clipped to
 the table, in both.
@@ -31,7 +32,7 @@ from raytracingtest_tpu_torch._device import check_tensor
 
 _F32, _I32 = torch.float32, torch.int32
 
-TAKE_1D, TAKE_ALONG0, TAKE_ALONG_LANE = 0, 1, 2
+TAKE_1D, TAKE_ALONG0, TAKE_ALONG_LANE, TAKE_ONEHOT = 0, 1, 2, 3
 LOOP_FLOAT, LOOP_INT = 0, 1
 
 # kernel launches made by this process, by kernel
@@ -47,7 +48,7 @@ def _take_kernel(table, idx, mode):
                          f"tensor, got {table.dtype} {tuple(table.shape)}")
     check_tensor("table", table, table.dtype, table.shape, device)
     check_tensor("indices", idx, _I32, idx.shape, device)
-    if mode == TAKE_1D:
+    if mode in (TAKE_1D, TAKE_ONEHOT):
         if table.dim() != 1:
             raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows,)")
         rows, cols = table.shape[0], 1
@@ -88,7 +89,7 @@ def take_1d(table, idx):
 def onehot_take_plain(table, idx):
     """``one_hot(idx, rows) @ table`` for a ``(rows, 1)`` float32 table: a
     row of the one-hot matrix holds a single 1, so the product is exact and
-    equals the gather bit for bit."""
+    equals the gather bit for bit (of finite values; a -0.0 comes out +0.0)."""
     rows = table.shape[0]
     onehot = F.one_hot(_clipped(idx, rows).reshape(-1), rows).to(_F32)
     return (onehot @ table).reshape(idx.shape)
@@ -96,13 +97,14 @@ def onehot_take_plain(table, idx):
 
 def take_onehot(table, idx):
     """The gather ``table[idx, 0]`` of a ``(rows, 1)`` float32 table, shaped
-    as `idx`. The kernel gathers; the plain version is the one-hot product."""
+    as `idx`, computed as the one-hot product by kernel and plain version
+    alike: every output reads every row."""
     if table.dim() != 2 or table.shape[1] != 1 or table.dtype != _F32:
         raise ValueError(f"table: expected float32 (rows, 1), got "
                          f"{table.dtype} {tuple(table.shape)}")
     if table.device.type == "cpu":
         return onehot_take_plain(table, idx)
-    return _take_kernel(table.reshape(-1), idx, TAKE_1D)
+    return _take_kernel(table.reshape(-1), idx, TAKE_ONEHOT)
 
 
 def take_along0(table, idx):

@@ -13,8 +13,10 @@ one ``torch.autograd.Function``.
 
 CUDA tensors launch the kernels; CPU tensors take the plain versions beside
 them (``shade_rows`` on rows gathered by plain indexing, autograd through
-it, and a serial scatter-add). Nothing else picks the path: a build or
-launch failure raises.
+it, and a serial scatter-add), built from the helpers the plain path of
+``diff.py`` is built from (``safe_leaf``, ``index_rows``,
+``scatter_add_rows``). Nothing else picks the path: a build or launch
+failure raises.
 """
 
 from __future__ import annotations
@@ -56,12 +58,29 @@ def shade_rows(alb, nrm, den, hit, sky, light_dir, light_intensity,
     return alpha * lit + (1.0 - alpha) * sky
 
 
-def _gather_rows(hit_leaf, albedo, normal, density):
-    """(hit, alb, nrm, den): each ray's parameter row by plain indexing,
-    misses reading leaf 0."""
+def safe_leaf(hit_leaf, n_leaves):
+    """(hit (N,) bool, leaf (N,) int64 in [0, n_leaves)): a miss reads leaf
+    0; its `hit` of False zeroes what it reads."""
     hit = hit_leaf >= 0
-    safe = torch.where(hit, hit_leaf, 0).long().clamp(max=albedo.shape[0] - 1)
-    return hit, albedo[safe], normal[safe], density[safe]
+    return hit, torch.where(hit, hit_leaf, 0).long().clamp(max=n_leaves - 1)
+
+
+def index_rows(leaf_id, albedo, normal, density):
+    """(alb (N, 3), nrm (N, 3), den (N,)): the parameter rows of the leaf
+    ids, which lie in [0, n_leaves), by plain indexing."""
+    leaf_id = leaf_id.long()
+    return albedo[leaf_id], normal[leaf_id], density[leaf_id]
+
+
+def scatter_add_rows(leaf_id, cols7, n_leaves):
+    """The (n, 7) rows summed onto their leaves by seven rank-1
+    scatter-adds; returns ((n_leaves, 3), (n_leaves, 3), (n_leaves,)). On
+    the CPU a 1-D ``index_add_`` adds one row after another in index order:
+    a serial scatter-add, and the order of builtin autograd's."""
+    leaf_id = leaf_id.long()
+    out = [cols7.new_zeros(n_leaves).index_add_(0, leaf_id, cols7[:, c])
+           for c in range(7)]
+    return torch.stack(out[0:3], dim=1), torch.stack(out[3:6], dim=1), out[6]
 
 
 def _check_shade_args(hit_leaf, d, albedo, normal, density, light_dir, sky):
@@ -93,8 +112,8 @@ def shade_fwd(hit_leaf, d, albedo, normal, density, light_dir,
     miss colour; None means the procedural gradient, which the kernel
     computes itself."""
     if hit_leaf.device.type == "cpu":
-        hit, alb, nrm, den = _gather_rows(hit_leaf, albedo, normal, density)
-        return shade_rows(alb, nrm, den, hit,
+        hit, leaf = safe_leaf(hit_leaf, albedo.shape[0])
+        return shade_rows(*index_rows(leaf, albedo, normal, density), hit,
                           sky_color(d) if sky is None else sky, light_dir,
                           light_intensity, light_ambient)
     n, n_leaves = _check_shade_args(hit_leaf, d, albedo, normal, density,
@@ -121,9 +140,9 @@ def shade_bwd_plain(g, hit_leaf, d, albedo, normal, density, light_dir,
                     light_intensity, light_ambient, sky=None):
     """The row cotangents by ``torch.autograd`` through ``shade_rows``, on
     any device."""
-    hit, alb, nrm, den = (t.detach() for t in _gather_rows(
-        hit_leaf, albedo, normal, density))
-    rows = [t.requires_grad_(True) for t in (alb, nrm, den)]
+    hit, leaf = safe_leaf(hit_leaf, albedo.shape[0])
+    rows = [t.detach().requires_grad_(True)
+            for t in index_rows(leaf, albedo, normal, density)]
     with torch.enable_grad():
         img = shade_rows(*rows, hit, sky_color(d) if sky is None else sky,
                          light_dir, light_intensity, light_ambient)
@@ -169,17 +188,6 @@ def sort_by_leaf(hit_leaf, n_leaves):
     return keys, order
 
 
-def segment_sum_plain(cot, keys, order, n_leaves):
-    """A serial scatter-add of the sorted rows, column by column (on the CPU
-    a 1-D ``index_add_`` adds in index order)."""
-    valid = (keys >= 0) & (keys < n_leaves)
-    ids = keys[valid].long()
-    rows = cot[order[valid]]
-    out = [cot.new_zeros(n_leaves).index_add_(0, ids, rows[:, c])
-           for c in range(7)]
-    return torch.stack(out[0:3], dim=1), torch.stack(out[3:6], dim=1), out[6]
-
-
 def segment_sum(cot, keys, order, n_leaves):
     """Per-leaf sums of the (N, 7) cotangent rows: `keys` (N,) int32 ascending
     leaf ids and `order` (N,) int64, as ``sort_by_leaf`` returns them. Each
@@ -188,7 +196,8 @@ def segment_sum(cot, keys, order, n_leaves):
     Returns (g_albedo (n_leaves, 3), g_normal (n_leaves, 3), g_density
     (n_leaves,)); leaves that no ray hit stay zero."""
     if cot.device.type == "cpu":
-        return segment_sum_plain(cot, keys, order, n_leaves)
+        valid = (keys >= 0) & (keys < n_leaves)
+        return scatter_add_rows(keys[valid], cot[order[valid]], n_leaves)
     device, n = cot.device, cot.shape[0]
     if n_leaves < 1 or n >= 2 ** 31 // 7:
         raise ValueError(f"{n_leaves} leaves or {n} rows out of range")

@@ -72,8 +72,8 @@ def test_take_along_lane_matches_probe():
 
 def test_onehot_product_is_the_gather_bitwise():
     """p2d_onehot: one_hot(idx, rows) @ table. The plain version is that
-    product; the kernel behind ``take_onehot`` gathers, so the two must be
-    the same bits."""
+    product, as the kernel's one-hot mode is on the card; a one-hot row holds
+    a single 1, so the product must be the bits of the gather."""
     rows = 4096
     rng = np.random.default_rng(0)
     table = rng.normal(size=(rows, 1)).astype(np.float32)
