@@ -14,11 +14,12 @@ benchmark frame, the depth-10 `terrain` SVO seen by bench.py's camera at
     (kernel `tile_walk`, three launches a frame, and `shade_fwd`),
 
 and as a training step on both traversals (`diff.loss_and_grads_cuda`,
-`diff.loss_and_grads_tile`: the forward frame, then `shade_bwd`, a stable
-sort and `segment_sum`), and takes three `InverseRenderer.step_view` steps
+`diff.loss_and_grads_tile`: the forward frame, then `shade_bwd` and the
+sort-free `segment_sum`), and takes three `InverseRenderer.step_view` steps
 on that view. It runs the probe kernels (`brick_dda16`, `rowread`, `take`,
-`loop_probe`) at the sizes of the probes they replace. One line per phase;
-any failure raises and the exit code is non-zero. The last two lines are a
+`loop_probe`, and the sorted form of the segment sum) at the sizes of the
+probes they replace, and times the parts of one wrapper's launch path on the
+host. One line per phase; any failure raises and the exit code is non-zero. The last two lines are a
 JSON record of the kernels and the device. Without a CUDA device it fails
 before printing any result.
 """
@@ -136,6 +137,17 @@ def cuda_ms(fn, reps, warmup):
     return np.asarray(times)
 
 
+def in_turns(variants, rounds=3, reps=50):
+    """name -> the milliseconds of rounds * reps calls of each of `variants`
+    (name -> fn), every round timing each variant in turn: a host's mood
+    lasts longer than one variant's 50 calls, and would favour one of them."""
+    samples = {name: [] for name in variants}
+    for _ in range(rounds):
+        for name, fn in variants.items():
+            samples[name].append(cuda_ms(fn, reps, 3))
+    return {name: np.concatenate(v) for name, v in samples.items()}
+
+
 def med_p80(times):
     return float(np.median(times)), float(np.percentile(times, 80))
 
@@ -247,13 +259,83 @@ def serial_scatter_add(hit_leaf, cot, n_leaves):
     leaf = hit_leaf.cpu().numpy()
     hit = leaf >= 0
     out = np.zeros((n_leaves, 7), np.float32)
-    np.add.at(out, leaf[hit], cot.cpu().numpy()[hit])
+    np.add.at(out, np.minimum(leaf[hit], n_leaves - 1), cot.cpu().numpy()[hit])
     return out
 
 
 def join7(grads):
     """(g_albedo, g_normal, g_density) as one (n_leaves, 7) tensor."""
     return torch.cat([grads[0], grads[1], grads[2][:, None]], dim=1)
+
+
+def check_segment_sum(what, cot, hit_leaf, n_leaves):
+    """The sort-free segment sum held bitwise, the sign of zero included,
+    against the serial float32 scatter-add in ray order on the host, against
+    the sorted form, and against itself over two runs. Returns the sums as
+    one (n_leaves, 7) tensor, and the largest absolute difference from the
+    serial sums of the sort-free and of the sorted form (0.0 when exact)."""
+    sums = join7(shade_cuda.segment_sum(cot, hit_leaf, n_leaves))
+    again = join7(shade_cuda.segment_sum(cot, hit_leaf, n_leaves))
+    by_sort = join7(shade_cuda.segment_sum_sorted(
+        cot, *shade_cuda.sort_by_leaf(hit_leaf, n_leaves), n_leaves))
+    torch.cuda.synchronize()
+    serial = torch.from_numpy(
+        serial_scatter_add(hit_leaf, cot, n_leaves)).to(cot.device)
+    e_new = compare_tensors((sums,), (serial,), ("sums",),
+                            f"segment_sum, {what}, against the serial scatter-add")
+    e_sorted = compare_tensors(
+        (by_sort,), (serial,), ("sums",),
+        f"segment_sum_sorted, {what}, against the serial scatter-add")
+    compare_tensors((sums,), (by_sort,), ("sums",),
+                    f"segment_sum, {what}, against the sorted form")
+    compare_tensors((again,), (sums,), ("sums",), f"segment_sum, {what}, run twice")
+    return sums, e_new, e_sorted
+
+
+def host_us(fn, calls=3000):
+    """Microseconds of the host's clock for one call of fn(), over `calls`
+    calls issued back to back without waiting for the card."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def rowread_rows_old_path(table, idx):
+    """``rowread.rowread_rows`` as every wrapper's launch path stood before
+    ``_launch.py``, kept here only to time the two paths side by side in one
+    run: a check a tensor, the library looked up on every call, a device
+    context around the call, a ``torch.cuda.Stream`` object built to read
+    its handle."""
+    def check(name, t, dtype, shape, device):
+        if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(name)
+    device = table.device
+    if device.type != "cuda" or table.dim() != 2 or table.numel() == 0:
+        raise ValueError("table")
+    check("table", table, torch.int32, table.shape, device)
+    rows, cols = table.shape
+    n_idx = idx.numel()
+    check("indices", idx, torch.int32, (n_idx,), device)
+
+    from raytracingtest_tpu_torch._build import tile_lib
+
+    lib = tile_lib()
+    out = torch.empty((n_idx, cols), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rowread(
+            table.data_ptr(), rows, cols, rowread.MODE_ROWS, None, 0,
+            idx.data_ptr(), n_idx, out.data_ptr(), n_idx,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rowread launch failed: cudaError {err}")
+    return out
 
 
 def dda_inputs(n, seed, dev):
@@ -378,7 +460,7 @@ def main():
     # ---- 3. kernels vs plain versions on the card ---------------------------
     err = dict(esvo_trace=0.0, tile_walk=0.0, brick_dda16=0.0, rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
-               segment_sum=0.0)
+               segment_sum=0.0, segment_sum_sorted=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -427,17 +509,36 @@ def main():
     cursors = torch.from_numpy(np.random.default_rng(1).integers(
         9, 64, (8, 128)).astype(np.int32)).to(dev)
     rows8 = torch.arange(8, dtype=torch.int32, device=dev) * 3
-    row_checks = (
+    # rows that allow 16-byte loads (the probes' table), rows that do not
+    # (130 words a row), and rows of 128 words that start 4 bytes off
+    narrow = torch.arange(64 * 130, dtype=torch.int32, device=dev).reshape(64, 130)
+    shifted = torch.arange(64 * 128 + 1, dtype=torch.int32,
+                           device=dev)[1:].view(64, 128)
+    cursors3 = cursors.reshape(4, 256)
+    row_checks = [
         ("scalar", rowread.rowread_scalar(table, 17), table[17:18]),
+        ("scalars", rowread.rowread_scalar(table, [17, 99, -3, 0, 63, 5, 5, 40]),
+         table[[17, 63, 0, 0, 63, 5, 5, 40]]),
         ("min", rowread.rowread_min(table, cursors), table[cursors.min().long()][None]),
+        ("min batch", rowread.rowread_min_batch(table, cursors3),
+         table[cursors3.amin(dim=1).long()]),
         ("rows", rowread.rowread_rows(table, rows8), table[rows8.long()]),
-    )
+    ]
+    for what, other in (("130-word rows", narrow), ("rows 4 bytes off", shifted)):
+        row_checks += [
+            (f"rows, {what}", rowread.rowread_rows(other, rows8), other[rows8.long()]),
+            (f"scalar, {what}", rowread.rowread_scalar(other, 17), other[17:18]),
+            (f"min batch, {what}", rowread.rowread_min_batch(other, cursors3),
+             other[cursors3.amin(dim=1).long()])]
     torch.cuda.synchronize()
     for mode, got, want in row_checks:
         err["rowread"] = max(err["rowread"], compare_tensors(
             (got,), (want,), (mode,), f"rowread {mode}"))
-    say("[parity] rowread (64,128) int32: kernel == table[idx] in the scalar, "
-        "min-of-cursors and eight-rows modes")
+    say(f"[parity] rowread (64,128) int32: kernel == table[idx] in the scalar, "
+        f"min-of-cursors and eight-rows modes and in their batch forms (eight "
+        f"scalars a launch, four cursor blocks a launch), with 16-byte loads, "
+        f"and with word loads on 130-word rows and on rows 4 bytes off "
+        f"({len(row_checks)} checks)")
 
     cases, (take_table, take_idx), (hot_table, hot_idx) = gather_cases(dev)
     for what, kernel_call, plain_call in cases:
@@ -582,15 +683,9 @@ def main():
     for what, g in (("a unit cotangent", g_unit),
                     ("the step's cotangent", 2.0 * img / img.numel())):
         cot = shade_cuda.shade_bwd(g, hit_leaf, d, *perturbed, light, 1.3, 0.08)
-        sums = join7(shade_cuda.segment_sum(cot, keys, order, n_leaves))
-        again = join7(shade_cuda.segment_sum(cot, keys, order, n_leaves))
-        torch.cuda.synchronize()
-        serial = torch.from_numpy(serial_scatter_add(hit_leaf, cot, n_leaves)).to(dev)
-        err["segment_sum"] = max(err["segment_sum"], compare_tensors(
-            (sums,), (serial,), ("sums",), f"segment_sum, {what}, against the "
-            f"serial scatter-add"))
-        compare_tensors((again,), (sums,), ("sums",),
-                        f"segment_sum, {what}, run twice")
+        sums, e_new, e_sorted = check_segment_sum(what, cot, hit_leaf, n_leaves)
+        err["segment_sum"] = max(err["segment_sum"], e_new)
+        err["segment_sum_sorted"] = max(err["segment_sum_sorted"], e_sorted)
         plain_sums = diff._segment_reduce_cols(safe_leaf, cot, n_leaves)
         e = float((sums - plain_sums).abs().max())
         if not e <= 1e-4:
@@ -599,9 +694,51 @@ def main():
         seg_plain_err = max(seg_plain_err, e)
     seg_cot = cot
     say(f"[parity] segment_sum, {n_rays} rows into {n_leaves} leaves, two "
-        f"cotangents: kernel == serial float32 scatter-add in ray order "
-        f"bitwise; two runs bitwise equal; max abs {seg_plain_err} off the "
-        f"plain sort + running-sum form (limit 1e-4)")
+        f"cotangents: the sort-free kernels == serial float32 scatter-add in "
+        f"ray order == the sorted form, bitwise with the sign of zero; two "
+        f"runs bitwise equal; max abs {seg_plain_err} off the plain sort + "
+        f"running-sum form (limit 1e-4)")
+
+    # long runs, which take the block-a-leaf route: one leaf hit by 70,000
+    # more rays (sorted in place in the ray list), a few hundred leaves with
+    # 17 to 2,048 rays (sorted in shared memory), and every hit on one leaf.
+    # The rows are random with -0.0 among them, the misses' rows too: a miss
+    # adds nothing whatever its row holds.
+    wild = rng.uniform(-0.5, 0.5, (n_rays, 7)).astype(np.float32)
+    wild[rng.random((n_rays, 7)) < 0.2] = np.float32(-0.0)
+    wild = torch.from_numpy(wild).to(dev)
+    long_leaf = hit_leaf.clone()
+    pick = torch.from_numpy(rng.permutation(n_rays)).to(dev)
+    long_leaf[pick[:70000]] = 12345
+    at = 70000
+    for k, run in enumerate((17, 18, 31, 33, 100, 511, 512, 513, 1000, 2047,
+                             2048, 2049, 4097) * 20):
+        long_leaf[pick[at:at + run]] = 20000 + 7 * k
+        at += run
+    long_leaf[pick[at:at + 50000]] = n_leaves + 5          # clamps to the last
+    longest = int(torch.bincount(long_leaf[long_leaf >= 0].long().clamp(
+        max=n_leaves - 1)).max())
+    if longest < 65536:
+        raise AssertionError(f"the long-run case's longest run is {longest}")
+    seg_case_ms = {}
+    for what, leafs, leaves in (
+            (f"one leaf hit by {longest} rays and 260 leaves given 17 to 4,097 "
+             f"more",
+             long_leaf, n_leaves),
+            (f"one leaf in all, hit by {hits} rays", hit_leaf, 1)):
+        _sums, e_new, e_sorted = check_segment_sum(what, wild, leafs, leaves)
+        err["segment_sum"] = max(err["segment_sum"], e_new)
+        err["segment_sum_sorted"] = max(err["segment_sum_sorted"], e_sorted)
+        seg_case_ms[what] = (
+            float(np.median(cuda_ms(lambda: shade_cuda.segment_sum(
+                wild, leafs, leaves), 3, 1))),
+            float(np.median(cuda_ms(lambda: shade_cuda.segment_sum_sorted(
+                wild, *shade_cuda.sort_by_leaf(leafs, leaves), leaves), 3, 1))))
+    say("[parity] segment_sum on long runs, random rows with -0.0 and with "
+        "rows on the misses: == serial scatter-add == the sorted form, "
+        "bitwise, two runs equal; " + "; ".join(
+            f"{what}: {new:.4f} ms (the sorted form with its sort {old:.4f})"
+            for what, (new, old) in seg_case_ms.items()) + " (medians of 3)")
 
     # ---- 6. main path, tile by tile ----------------------------------------------
     o_t, d_t, corners, grid = tile.tile_rays(cam, dev)
@@ -715,12 +852,14 @@ def main():
     loop_out = [gather.loop_probe(loop_x, loop_table, iters, 8, rows)
                 for iters, rows in loop_plain_ms]
     gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
+    shade_cuda.segment_sum_sorted(seg_cot, keys, order, n_leaves)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
+    sorted_launches = shade_cuda.launches["segment_sum_sorted"]
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
-            or loop_launches != 5):
+            or loop_launches != 5 or sorted_launches != 1):
         raise AssertionError("the probes did not launch their kernels")
     if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
@@ -740,7 +879,8 @@ def main():
     say(f"[probes] brick_dda16 N={n_dda}: {dda_launches} launch, "
         f"{dda_walked / n_dda:.2f} steps a ray; rowread: {row_launches} "
         f"launches (scalar, min, rows); take: {take_launches} launches; "
-        f"loop_probe: {loop_launches} launches")
+        f"loop_probe: {loop_launches} launches; segment_sum_sorted (the "
+        f"sorted form, off the training path): {sorted_launches} launch")
 
     # ---- 7b. the training step, on both traversals ----------------------------
     hit_tile = res_fb.hit_leaf
@@ -767,7 +907,8 @@ def main():
                           tile_walk=tile_cuda.launches, **shade_cuda.launches)
             want = dict(esvo_trace=1 if path == "per-ray" else 0,
                         tile_walk=0 if path == "per-ray" else 3,
-                        shade_fwd=1, shade_bwd=1, segment_sum=1)
+                        shade_fwd=1, shade_bwd=1, segment_sum=1,
+                        segment_sum_sorted=0)
             if counts != want:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
                                      f"expected {want}")
@@ -838,7 +979,7 @@ def main():
     torch.cuda.synchronize()
     # two walks a step: the trainer's budgets have no sub-tile pass
     if tile_cuda.launches != 6 or shade_cuda.launches != dict(
-            shade_fwd=3, shade_bwd=3, segment_sum=3):
+            shade_fwd=3, shade_bwd=3, segment_sum=3, segment_sum_sorted=0):
         raise AssertionError("step_view did not take the tile step's kernels")
     # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
     # fb_k=256, no sub-tile pass), which leave a few rays of this view
@@ -884,6 +1025,15 @@ def main():
     t["row_library"] = cuda_ms(lambda: torch.index_select(table, 0, rows8), 50, 3)
     t["row_scalar"] = cuda_ms(lambda: rowread.rowread_scalar(table, 17), 50, 3)
     t["row_min"] = cuda_ms(lambda: rowread.rowread_min(table, cursors), 50, 3)
+    take_idx_flat = take_idx.reshape(-1)
+    turns = in_turns({
+        "nothing": lambda: None,
+        "row_old_path": lambda: rowread_rows_old_path(table, rows8),
+        "row": lambda: rowread.rowread_rows(table, rows8),
+        "row_library": lambda: torch.index_select(table, 0, rows8),
+        "take": lambda: gather.take_1d(take_table, take_idx),
+        "take_library": lambda: torch.index_select(take_table, 0, take_idx_flat)})
+    t.update({f"{name}_turns": v for name, v in turns.items()})
     target0 = torch.zeros_like(target_rand)
     t["step"] = cuda_ms(lambda: diff.loss_and_grads_cuda(
         *params, svo, o, d, light, target0), 50, 3)
@@ -899,17 +1049,25 @@ def main():
     t["shade_bwd"] = cuda_ms(lambda: shade_cuda.shade_bwd(g_step, *shade_args), 50, 3)
     t["shade_bwd_plain"] = cuda_ms(lambda: shade_cuda.shade_bwd_plain(
         g_step, *shade_args), 20, 2)
-    t["sort"] = cuda_ms(lambda: shade_cuda.sort_by_leaf(hit_leaf, n_leaves), 50, 3)
+    # the whole function each time, from (cot, hit_leaf) to the three
+    # tensors: scratch, fills and, for the sorted form, its sort included
     t["segment_sum"] = cuda_ms(lambda: shade_cuda.segment_sum(
+        seg_cot, hit_leaf, n_leaves), 50, 3)
+    t["segment_sorted_whole"] = cuda_ms(lambda: shade_cuda.segment_sum_sorted(
+        seg_cot, *shade_cuda.sort_by_leaf(hit_leaf, n_leaves), n_leaves), 50, 3)
+    t["sort"] = cuda_ms(lambda: shade_cuda.sort_by_leaf(hit_leaf, n_leaves), 50, 3)
+    t["segment_sorted"] = cuda_ms(lambda: shade_cuda.segment_sum_sorted(
         seg_cot, keys, order, n_leaves), 50, 3)
+    t["segment_sum_again"] = cuda_ms(lambda: shade_cuda.segment_sum(
+        seg_cot, hit_leaf, n_leaves), 50, 3)
     t["segment_plain"] = cuda_ms(lambda: diff._segment_reduce_cols(
         safe_leaf, seg_cot, n_leaves), 20, 2)
     # the library call on the work the kernel does: the hit rows alone
     was_hit = hit_leaf >= 0
     hit_long, hit_cot = hit_leaf[was_hit].long(), seg_cot[was_hit]
     t["segment_library"] = cuda_ms(lambda: torch.zeros(
-        (n_leaves, 7), device=dev).index_add_(0, hit_long, hit_cot), 20, 2)
-    take_idx_long, take_idx_flat = take_idx.long(), take_idx.reshape(-1)
+        (n_leaves, 7), device=dev).index_add_(0, hit_long, hit_cot), 50, 3)
+    take_idx_long = take_idx.long()
     t["take"] = cuda_ms(lambda: gather.take_1d(take_table, take_idx), 50, 3)
     t["take_plain"] = cuda_ms(lambda: take_table[take_idx_long], 50, 3)
     t["take_library"] = cuda_ms(lambda: torch.index_select(
@@ -940,7 +1098,13 @@ def main():
         f"(p80 {m['dda'][1]:.4f}), plain {m['dda_plain'][0]:.4f} ms (n=5); "
         f"rowread rows {m['row'][0]:.4f} ms, scalar {m['row_scalar'][0]:.4f}, "
         f"min {m['row_min'][0]:.4f}, table[idx] {m['row_plain'][0]:.4f}, "
-        f"index_select {m['row_library'][0]:.4f} (n=50 each)")
+        f"index_select {m['row_library'][0]:.4f} (n=50 each); in turns, three "
+        f"rounds of 50 each: two events around nothing "
+        f"{m['nothing_turns'][0]:.4f}, rowread rows through the launch path as "
+        f"it stood before {m['row_old_path_turns'][0]:.4f}, through the launcher "
+        f"{m['row_turns'][0]:.4f}, index_select {m['row_library_turns'][0]:.4f}; "
+        f"take_1d {m['take_turns'][0]:.4f}, its index_select "
+        f"{m['take_library_turns'][0]:.4f}")
 
     say(f"[timing] {card}: per-ray fwd+bwd step median {m['step'][0]:.4f} ms "
         f"(p80 {m['step'][1]:.4f}, n=50) = "
@@ -954,11 +1118,16 @@ def main():
     say(f"[timing] {card}: shade_fwd median {m['shade_fwd'][0]:.4f} ms (p80 "
         f"{m['shade_fwd'][1]:.4f}), plain {m['shade_fwd_plain'][0]:.4f}; "
         f"shade_bwd {m['shade_bwd'][0]:.4f} (p80 {m['shade_bwd'][1]:.4f}), "
-        f"plain {m['shade_bwd_plain'][0]:.4f}; stable sort of {n_rays} keys "
-        f"{m['sort'][0]:.4f} (p80 {m['sort'][1]:.4f}); segment_sum "
-        f"{m['segment_sum'][0]:.4f} (p80 {m['segment_sum'][1]:.4f}), plain "
-        f"sort + running sums {m['segment_plain'][0]:.4f}, index_add_ of the "
-        f"hit rows {m['segment_library'][0]:.4f} (kernels n=50, others n=20)")
+        f"plain {m['shade_bwd_plain'][0]:.4f} (kernels n=50, plain n=20)")
+    say(f"[timing] {card}: segment_sum, (cot, hit_leaf) to the three gradients, "
+        f"scratch included: median {m['segment_sum'][0]:.4f} ms (p80 "
+        f"{m['segment_sum'][1]:.4f}; again {m['segment_sum_again'][0]:.4f}); "
+        f"the sorted form with its sort {m['segment_sorted_whole'][0]:.4f} (p80 "
+        f"{m['segment_sorted_whole'][1]:.4f}): the stable sort of {n_rays} keys "
+        f"{m['sort'][0]:.4f}, segment_sum_sorted after it "
+        f"{m['segment_sorted'][0]:.4f}; index_add_ of the hit rows onto zeros "
+        f"{m['segment_library'][0]:.4f} (n=50 each); plain sort + running "
+        f"sums {m['segment_plain'][0]:.4f} (n=20)")
     say(f"[timing] {card}: take_1d (8,128) of 16,384 rows {m['take'][0]:.4f} "
         f"ms, table[idx] {m['take_plain'][0]:.4f}, index_select "
         f"{m['take_library'][0]:.4f} (n=50); take_onehot (8,128) of 4,096 rows "
@@ -970,6 +1139,43 @@ def main():
         f"{m['loop_2048_512'][0]:.4f}, slope {slope[512]:.4f} us a trip "
         f"(n=20); plain loop of 2048 trips {loop_plain_ms[(2048, 0)]:.1f} ms, "
         f"with the gather {loop_plain_ms[(2048, 512)]:.1f} (n=1)")
+
+    # ---- 8b. the launch path, part by part, on the host's clock -------------
+    # Each part of one rowread_rows call alone, a few thousand calls back to
+    # back without waiting for the card (its kernel is shorter than any of
+    # them, so the queue never fills), beside the parts the path had before
+    # _launch.py and beside index_select, which does the same in C++.
+    kern = rowread._ROWREAD
+    specs = (("table", table, torch.int32, (64, 128)),
+             ("indices", rows8, torch.int32, (8,)))
+    row_out = torch.empty((8, 128), dtype=torch.int32, device=dev)
+    row_fn, raw_stream = kern._fn, torch._C._cuda_getCurrentRawStream
+    row_args = (table.data_ptr(), 64, 128, rowread.MODE_ROWS, None, 0,
+                rows8.data_ptr(), 8, row_out.data_ptr(), 8)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+    w = {
+        "an empty call": host_us(lambda: None),
+        "checks": host_us(lambda: kern.check(dev, specs)),
+        "library lookup (before)": host_us(_build.tile_lib),
+        "torch.empty": host_us(lambda: torch.empty(
+            (8, 128), dtype=torch.int32, device=dev)),
+        "device context (before)": host_us(device_context),
+        "current_device (now)": host_us(torch.cuda.current_device),
+        "Stream object (before)": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw stream (now)": host_us(lambda: raw_stream(0)),
+        "bare ctypes call": host_us(lambda: row_fn(*row_args, raw_stream(0))),
+        "launcher call": host_us(lambda: kern(dev, *row_args)),
+        "rowread_rows (before)": host_us(lambda: rowread_rows_old_path(table, rows8)),
+        "rowread_rows (now)": host_us(lambda: rowread.rowread_rows(table, rows8)),
+        "index_select": host_us(lambda: torch.index_select(table, 0, rows8)),
+        "take_1d (now)": host_us(lambda: gather.take_1d(take_table, take_idx)),
+    }
+    say(f"[wrapper] {card}: host us a call, 3000 calls each, not waiting for "
+        f"the card: " + ", ".join(f"{k} {v:.2f}" for k, v in w.items()))
 
     # profiler passes of 20 runs each: device time by kernel. Only the
     # kernels' own events are summed; an operator's row repeats the time of
@@ -1010,18 +1216,37 @@ def main():
         else:
             say(f"[profile] {what}: the profiler saw no kernel in 20, 80 or 320 "
                 f"{unit}s; not measured here")
-            return None
+            return None, {}
         say(f"[profile] {what}, {runs} {unit}s: {total_us:.1f} us of kernel time a "
             f"{unit} in {sum(e.count for e in rows) / runs:.1f} launches; the "
             f"{min(top, len(rows))} largest, us a {unit} (launches a {unit}):")
         for e in rows[:top]:
             say(f"[profile]   {dev_us(e) / runs:9.1f}  ({e.count / runs:6.1f})  {e.key[:90]}")
-        return total_us
+        # by kernel, us a launch: the tracer may still drop a few launches
+        # of a short pass, which lowers a sum over the pass but not this
+        return total_us, {e.key: dev_us(e) / e.count for e in rows if e.count}
 
-    tile_us = profile_kernels("tile frame", lambda: diff.render_diff_tile(
+    tile_us, _ = profile_kernels("tile frame", lambda: diff.render_diff_tile(
         *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), "frame", 10)
-    step_us = profile_kernels("per-ray fwd+bwd step", lambda: diff.loss_and_grads_cuda(
-        *params, svo, o, d, light, target0), "step", 10)
+    step_us, step_rows = profile_kernels(
+        "per-ray fwd+bwd step", lambda: diff.loss_and_grads_cuda(
+            *params, svo, o, d, light, target0), "step", 14)
+    sorts = [k for k in step_rows if "sort" in k.lower() and "seg_" not in k]
+    if sorts:
+        raise AssertionError(f"the per-ray step launched a sort: {sorts}")
+    # the sort-free segment sum's kernels alone (each is launched once a
+    # call, so us a launch is us a call), and the sorted form's
+    _, seg_rows = profile_kernels(
+        "segment_sum alone (the memset and its five kernels)",
+        lambda: shade_cuda.segment_sum(seg_cot, hit_leaf, n_leaves), "call", 6)
+    seg_kernel_us = {
+        k.replace("(anonymous namespace)::", "").split("(")[0].strip(): round(v, 2)
+        for k, v in seg_rows.items()}
+    profile_kernels(
+        "the sorted form alone (where, clamp, the radix sort, three fills, "
+        "segment_sum_sorted)", lambda: shade_cuda.segment_sum_sorted(
+            seg_cot, *shade_cuda.sort_by_leaf(hit_leaf, n_leaves), n_leaves),
+        "call", 8)
     idle = lambda us, ms: "not measured" if us is None else f"{1 - us / 1e3 / ms:.2f}"
     say(f"[profile] idle share of the card: tile frame "
         f"{idle(tile_us, m['tile_frame'][0])} (of its median "
@@ -1062,18 +1287,17 @@ def main():
                       n_hits * OPS_SHADE_FWD)
     bwd_bound = bound(nbytes(hit_leaf, d, g_step) + n_rays * 28 + row_bytes,
                       n_hits * OPS_SHADE_BWD)
-    # segment_sum reads every key, and the permutation and the cotangent row
-    # of each hit. The wrapper's time holds the zero-fill of the three
-    # outputs, so its bound counts them whole; the kernel alone writes the
-    # touched leaves only, and that bound stands beside its profiled time.
-    seg_reads = nbytes(keys) + n_hits * (8 + 28)
-    seg_bound = bound(seg_reads + n_leaves * 28, n_hits * 7)
-    seg_kernel_bound = bound(seg_reads + int(touched.sum()) * 28, n_hits * 7)
+    # segment_sum's bound reads the function, not an implementation: every
+    # ray's hit_leaf once, each hit's 28 B cotangent row once, each output
+    # once (28 B a leaf). The sorted form computes the same function, so the
+    # same bound stands beside it; its keys and permutation do not count.
+    seg_bound = bound(nbytes(hit_leaf) + n_hits * 28 + n_leaves * 28, n_hits * 7)
     say(f"[bound] {n_hits} hits on {int(touched.sum())} leaves: shade_fwd "
-        f"{fwd_bound[0]:.4f} ms, shade_bwd {bwd_bound[0]:.4f}, segment_sum with "
-        f"its zero-filled outputs {seg_bound[0]:.4f} (against the wrapper's "
-        f"{m['segment_sum'][0]:.4f}), the segment_sum kernel alone "
-        f"{seg_kernel_bound[0]:.4f} (against its time in the step's profile)")
+        f"{fwd_bound[0]:.4f} ms, shade_bwd {bwd_bound[0]:.4f}, segment_sum "
+        f"{seg_bound[0]:.4f} ({(nbytes(hit_leaf) + n_hits * 28 + n_leaves * 28) / 1e6:.1f} "
+        f"MB: hit_leaf, the hits' rows, every output) against "
+        f"{m['segment_sum'][0]:.4f} for the sort-free form and "
+        f"{m['segment_sorted_whole'][0]:.4f} for the sorted form with its sort")
     take_bound = bound(nbytes(take_table, take_idx) + take_idx.numel() * 4, 0)
     loop_bound = bound(2 * nbytes(loop_x),
                        loop_x.numel() * 2048 * 8 * OPS_LOOP_ELEM)
@@ -1134,7 +1358,16 @@ def main():
              launches=train_launches["per-ray"]["segment_sum"],
              max_abs_err=err["segment_sum"], ms=m["segment_sum"][0],
              plain_ms=m["segment_plain"][0], bound_ms=seg_bound[0],
-             bound_by=seg_bound[1], library_ms=m["segment_library"][0]),
+             bound_by=seg_bound[1], library_ms=m["segment_library"][0],
+             kernels_us=seg_kernel_us),
+        dict(name="segment_sum_sorted", route="cuda", source=src + "shade.cu",
+             replaces="raytracingtest_tpu/diff.py:72",
+             path="shade_cuda.sort_by_leaf + segment_sum_sorted (the sorted "
+                  "form, off the training path)",
+             launches=sorted_launches, max_abs_err=err["segment_sum_sorted"],
+             ms=m["segment_sorted_whole"][0], plain_ms=m["segment_plain"][0],
+             bound_ms=seg_bound[0], bound_by=seg_bound[1],
+             library_ms=m["segment_library"][0]),
     ]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[1]["launches_train_step"] = train_launches["tile"]["tile_walk"]

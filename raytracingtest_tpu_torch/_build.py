@@ -13,7 +13,8 @@ Four libraries, each built on first use into
                      walker, the brick DDA and the row read;
   * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
                      the loop probe, fused shading, its backward and the
-                     deterministic segment sum.
+                     deterministic segment sum (sort-free, and its earlier
+                     sorted form).
 
 ``build_all`` builds them side by side, one compiler process each.
 
@@ -124,7 +125,7 @@ def _declare_tile(lib):
     lib.tile_walk.restype = i
     lib.brick_dda16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p]
     lib.brick_dda16.restype = i
-    lib.rowread.argtypes = [p, i, i, i, i, p, i, p, i, p]
+    lib.rowread.argtypes = [p, i, i, i, p, i, p, i, p, i, p]
     lib.rowread.restype = i
 
 
@@ -134,9 +135,10 @@ def _declare_shade(lib):
     lib.loop_probe.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.shade_fwd.argtypes = [p, p, p, p, p, i, p, f, f, p, p, i, p]
     lib.shade_bwd.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
-    lib.segment_sum.argtypes = [p, p, p, i, i, p, p, p, p]
+    lib.segment_sum.argtypes = [p, p, i, i, p, ctypes.c_longlong, p, p, p, p]
+    lib.segment_sum_sorted.argtypes = [p, p, p, i, i, p, p, p, p]
     for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,
-               lib.segment_sum):
+               lib.segment_sum, lib.segment_sum_sorted):
         fn.restype = i
 
 

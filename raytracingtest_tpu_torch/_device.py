@@ -19,13 +19,3 @@ def default_device() -> torch.device:
 def resolve(device) -> torch.device:
     """`device` as a torch.device; None means default_device()."""
     return default_device() if device is None else torch.device(device)
-
-
-def check_tensor(name, t, dtype, shape, device):
-    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
-    `device`: what a kernel's wrapper demands before it hands out pointers."""
-    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}")

@@ -1,5 +1,5 @@
-// Gathers, shading and its backward for Hopper, sm_90a: five kernels that
-// share one row load.
+// Gathers, shading and its backward for Hopper, sm_90a: kernels that share
+// one row load.
 //
 //   take          replaces the gather probes of scratch/probe_kernel.py
 //                 (p2a_take_1d :85, p2b_take_2d_axis0 :106,
@@ -25,12 +25,18 @@
 //                 cotangents of the ray's parameter row from the image
 //                 cotangent.
 //   segment_sum   replaces _gather_bwd/_segment_reduce_cols (diff.py:72-122):
-//                 per-leaf sums of the cotangent rows, without atomics.
+//                 per-leaf sums of the cotangent rows, the same bits in every
+//                 run, without a sort of the rays and without float atomics.
+//                 Five small kernels behind one entry point (below).
+//   segment_sum_sorted  the earlier form of the same sum, over rays that a
+//                 stable sort outside the kernel has ordered by leaf id. Kept
+//                 as a second, independent implementation to hold the new
+//                 one against; nothing on the training path calls it.
 //
 // One thread an output element (take, loop_probe), a ray (shade_fwd,
-// shade_bwd) or a sorted position (segment_sum). `take_row` is the row load
-// all five share: the row index clipped to the table, then one read through
-// the read-only path.
+// shade_bwd) or a leaf (segment_sum). `take_row` is the row load they share:
+// the row index clipped to the table, then one read through the read-only
+// path.
 //
 // What bounds them on this card. take: the launch; its probes move 4 KB.
 // loop_probe: a chain of dependent float32 operations, 4*elem a trip, that
@@ -40,25 +46,46 @@
 // reads 28 B + 12 B and writes 28 B (backward), against some 40 float
 // operations; reading the three parameter tensors in place saves writing and
 // re-reading a packed (n_leaves, 7) table every frame, and a miss reads no
-// row. segment_sum: bytes and imbalance; it reads each hit's 28 B cotangent
-// row once through the sort's permutation (a scattered read), and a thread's
-// work is the length of its leaf's run.
+// row. segment_sum: bytes, 28 B written for every leaf and a scattered 28 B
+// row read for every hit, and launches, since its passes are short.
 //
-// segment_sum is deterministic by construction: the rays are ordered by leaf
-// id with a stable sort outside the kernel, the thread at the head of each
-// leaf's run adds the run's rows one after another in that (= ray) order,
-// starting from 0, and writes the leaf's seven sums; every other thread
-// returns. That is the order of a serial scatter-add, so the result equals
-// one bit for bit. Keys outside [0, n_leaves) mark misses, sort to the ends
-// and are never read: a miss's cotangents are exactly +0 and adding +0
-// changes no sum. The cumulative-sum form of the reference exists because
-// its machine has no cheap scatter; none of it is here.
+// segment_sum. The function: each leaf's rows are added one after another in
+// ascending ray index, starting from +0; a miss (hit_leaf < 0) adds nothing;
+// ids above n_leaves - 1 clamp to it; a leaf no ray hit is +0. That is a
+// serial scatter-add in ray order, bit for bit. Order matters only inside a
+// leaf, and integer atomics give the same integers in any order, so:
+//   seg_count  a thread a ray: atomicAdd(&count[leaf], 1).
+//   seg_base   a thread a leaf: a touched leaf reserves count[leaf] slots of
+//              the ray list (one atomicAdd on a running total a block, after
+//              a scan inside the block). Where a leaf's segment lies changes
+//              no result.
+//   seg_place  a thread a hit: rays[atomicAdd(&cursor[leaf], 1)] = ray. The
+//              order inside a segment is whatever the hardware gave.
+//   seg_sum    a thread a leaf, every leaf: no ray, seven zeros (so the
+//              outputs need no zero-fill); up to SEG_SHORT rays, the thread
+//              takes them in ascending ray index (repeated selection of the
+//              next larger id: the runs are short and the segment is one or
+//              two cache lines) and adds their rows from +0; a longer run is
+//              appended to a list of long leaves.
+//   seg_long   a block a long leaf: sorts the leaf's ray ids ascending (a
+//              bitonic network whose comparators all put the smaller id
+//              first, so it takes any length; in shared memory up to
+//              SEG_STAGE ids, in place in the ray list above that), then
+//              stages the rows in shared memory SEG_ROWS at a time and seven
+//              threads, one a column, add them in order from +0.
+// Taking the ids in ascending order erases the placement order, so every run
+// gives the serial sum's bits. The integer scratch (count, cursor, ray list,
+// long-leaf list; 13 MB for 2^20 rays into 1,062,524 leaves) comes from the
+// wrapper; one memset clears the counts and the two counters. The
+// cumulative-sum form of the reference exists because its machine has no
+// cheap scatter; none of it is here.
 //
 // Rounding: built with --fmad=false; sums of three run (x + y) + z as the
 // plain versions write them; sqrtf and / are IEEE. Ties in max, min and clip
 // pass half the cotangent, as the reference's autodiff does.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -287,12 +314,15 @@ shade_bwd_kernel(const float* __restrict__ g, const int* __restrict__ hit_leaf,
 
 // keys (n,): leaf ids in ascending order, misses marked by a key outside
 // [0, n_leaves); order (n,): the ray each sorted position came from. The
-// outputs come zero-filled.
+// outputs come zero-filled. The thread at the head of each leaf's run adds
+// the run's rows one after another in that (= ray) order, from +0.
 __global__ void __launch_bounds__(BLOCK)
-segment_sum_kernel(const float* __restrict__ cot, const int* __restrict__ keys,
-                   const int64_t* __restrict__ order, int n, int n_leaves,
-                   float* __restrict__ g_alb, float* __restrict__ g_nrm,
-                   float* __restrict__ g_den) {
+segment_sum_sorted_kernel(const float* __restrict__ cot,
+                          const int* __restrict__ keys,
+                          const int64_t* __restrict__ order, int n,
+                          int n_leaves, float* __restrict__ g_alb,
+                          float* __restrict__ g_nrm,
+                          float* __restrict__ g_den) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int key = keys[i];
@@ -308,6 +338,170 @@ segment_sum_kernel(const float* __restrict__ cot, const int* __restrict__ keys,
     g_nrm[(size_t)key * 3 + c] = s[3 + c];
   }
   g_den[key] = s[6];
+}
+
+constexpr int SEG_SHORT = 16;    // the longest run a leaf's own thread takes
+constexpr int SEG_BLOCK = 512;   // threads of a block that takes a long run
+constexpr int SEG_STAGE = 2048;  // ray ids a block sorts in shared memory
+constexpr int SEG_ROWS = 512;    // cotangent rows a block stages at a time
+constexpr int SEG_GRID = 264;    // blocks of seg_long: two an SM
+
+// The leaf ray i adds to: -1 for a miss, else its id clamped to the table.
+__device__ __forceinline__ int seg_leaf(const int* __restrict__ hit_leaf, int i,
+                                        int n_leaves) {
+  const int leaf = hit_leaf[i];
+  return leaf < 0 ? -1 : min(leaf, n_leaves - 1);
+}
+
+__device__ __forceinline__ void seg_write(int leaf, const float s[7],
+                                          float* __restrict__ g_alb,
+                                          float* __restrict__ g_nrm,
+                                          float* __restrict__ g_den) {
+  for (int c = 0; c < 3; ++c) {
+    g_alb[(size_t)leaf * 3 + c] = s[c];
+    g_nrm[(size_t)leaf * 3 + c] = s[3 + c];
+  }
+  g_den[leaf] = s[6];
+}
+
+__global__ void __launch_bounds__(BLOCK)
+seg_count_kernel(const int* __restrict__ hit_leaf, int n, int n_leaves,
+                 int* __restrict__ count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int leaf = seg_leaf(hit_leaf, i, n_leaves);
+  if (leaf >= 0) atomicAdd(count + leaf, 1);
+}
+
+// cursor[leaf] = the first slot of the leaf's segment of the ray list. The
+// block scans its leaves' counts and reserves their slots with one atomicAdd
+// on the running total.
+__global__ void __launch_bounds__(BLOCK)
+seg_base_kernel(const int* __restrict__ count, int n_leaves,
+                int* __restrict__ total, int* __restrict__ cursor) {
+  __shared__ int s_warp[BLOCK / 32];
+  __shared__ int s_base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int leaf = blockIdx.x * blockDim.x + tid;
+  const int c = leaf < n_leaves ? count[leaf] : 0;
+  int incl = c;  // inclusive scan over the warp
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (tid == 0) {
+    int sum = 0;
+    for (int w = 0; w < BLOCK / 32; ++w) {
+      const int t = s_warp[w];
+      s_warp[w] = sum;
+      sum += t;
+    }
+    s_base = sum > 0 ? atomicAdd(total, sum) : 0;
+  }
+  __syncthreads();
+  if (c > 0) cursor[leaf] = s_base + s_warp[warp] + (incl - c);
+}
+
+// After this pass cursor[leaf] is the end of the leaf's segment.
+__global__ void __launch_bounds__(BLOCK)
+seg_place_kernel(const int* __restrict__ hit_leaf, int n, int n_leaves,
+                 int* __restrict__ cursor, int* __restrict__ rays) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int leaf = seg_leaf(hit_leaf, i, n_leaves);
+  if (leaf >= 0) rays[atomicAdd(cursor + leaf, 1)] = i;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+seg_sum_kernel(const float* __restrict__ cot, const int* __restrict__ count,
+               const int* __restrict__ cursor, const int* __restrict__ rays,
+               int n_leaves, int* __restrict__ n_long,
+               int* __restrict__ long_leaves, float* __restrict__ g_alb,
+               float* __restrict__ g_nrm, float* __restrict__ g_den) {
+  const int leaf = blockIdx.x * blockDim.x + threadIdx.x;
+  if (leaf >= n_leaves) return;
+  const int c = count[leaf];
+  if (c > SEG_SHORT) {  // seg_long writes this leaf
+    long_leaves[atomicAdd(n_long, 1)] = leaf;
+    return;
+  }
+  float s[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (c > 0) {
+    const int* seg = rays + (cursor[leaf] - c);
+    int prev = -1;
+    for (int k = 0; k < c; ++k) {
+      int next = INT_MAX;  // the smallest id above prev
+      for (int j = 0; j < c; ++j) {
+        const int r = seg[j];
+        if (r > prev && r < next) next = r;
+      }
+      const float* row = cot + (size_t)next * 7;
+      for (int col = 0; col < 7; ++col) s[col] = s[col] + row[col];
+      prev = next;
+    }
+  }
+  seg_write(leaf, s, g_alb, g_nrm, g_den);
+}
+
+// ids[0, c) ascending, by the threads of one block. A bitonic network in
+// which every comparator puts the smaller id at the lower index: positions
+// from c up to the next power of two count as +infinity, stay where they
+// are, and are never touched, so c need not be a power of two. Each pass
+// pairs every position with one other, so no two threads share an id.
+__device__ void seg_sort(int* ids, int c) {
+  for (int k = 2; k < 2 * c; k <<= 1) {
+    for (int mask = k - 1; mask > 0; mask = mask == k - 1 ? k >> 2 : mask >> 1) {
+      for (int i = threadIdx.x; i < c; i += blockDim.x) {
+        const int l = i ^ mask;
+        if (l > i && l < c) {
+          const int a = ids[i], b = ids[l];
+          if (b < a) {
+            ids[i] = b;
+            ids[l] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SEG_BLOCK)
+seg_long_kernel(const float* __restrict__ cot, const int* __restrict__ count,
+                const int* __restrict__ cursor, int* rays,
+                const int* __restrict__ n_long,
+                const int* __restrict__ long_leaves, float* __restrict__ g_alb,
+                float* __restrict__ g_nrm, float* __restrict__ g_den) {
+  __shared__ int s_ids[SEG_STAGE];
+  __shared__ float s_rows[SEG_ROWS * 7];
+  const int tid = threadIdx.x;
+  const int n = *n_long;
+  for (int b = blockIdx.x; b < n; b += gridDim.x) {
+    const int leaf = long_leaves[b];
+    const int c = count[leaf];
+    int* ids = rays + (cursor[leaf] - c);
+    if (c <= SEG_STAGE) {
+      for (int j = tid; j < c; j += blockDim.x) s_ids[j] = ids[j];
+      ids = s_ids;
+    }
+    __syncthreads();
+    seg_sort(ids, c);
+    float acc = 0.0f;  // thread `tid` < 7 holds column `tid`
+    for (int done = 0; done < c; done += SEG_ROWS) {
+      const int m = min(SEG_ROWS, c - done);
+      for (int j = tid; j < m * 7; j += blockDim.x)
+        s_rows[j] = __ldg(cot + (size_t)ids[done + j / 7] * 7 + j % 7);
+      __syncthreads();
+      if (tid < 7)
+        for (int j = 0; j < m; ++j) acc = acc + s_rows[j * 7 + tid];
+      __syncthreads();
+    }
+    if (tid < 3) g_alb[(size_t)leaf * 3 + tid] = acc;
+    else if (tid < 6) g_nrm[(size_t)leaf * 3 + (tid - 3)] = acc;
+    else if (tid == 6) g_den[leaf] = acc;
+  }
 }
 
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
@@ -374,14 +568,59 @@ extern "C" int shade_bwd(const void* g, const void* hit_leaf, const void* d,
   return (int)cudaGetLastError();
 }
 
-extern "C" int segment_sum(const void* cot, const void* keys,
-                           const void* order, int n, int n_leaves, void* g_alb,
-                           void* g_nrm, void* g_den, void* stream) {
+extern "C" int segment_sum_sorted(const void* cot, const void* keys,
+                                  const void* order, int n, int n_leaves,
+                                  void* g_alb, void* g_nrm, void* g_den,
+                                  void* stream) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    segment_sum_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+    segment_sum_sorted_kernel<<<blocks_for(n), BLOCK, 0,
+                                (cudaStream_t)stream>>>(
         (const float*)cot, (const int*)keys, (const int64_t*)order, n,
         n_leaves, (float*)g_alb, (float*)g_nrm, (float*)g_den);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The int32 words of scratch segment_sum needs for n rays and n_leaves
+// leaves: count, the two counters, cursor, the ray list, the long leaves.
+// ops/shade_cuda.py::segment_scratch_words is the wrapper's copy.
+static long long segment_sum_scratch(int n, int n_leaves) {
+  return 2LL * n_leaves + 2 + n + n / (SEG_SHORT + 1) + 1;
+}
+
+extern "C" int segment_sum(const void* hit_leaf, const void* cot, int n,
+                           int n_leaves, void* scratch, long long scratch_words,
+                           void* g_alb, void* g_nrm, void* g_den,
+                           void* stream) {
+  if (n_leaves < 1 || n < 0 ||
+      scratch_words < segment_sum_scratch(n, n_leaves))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* count = (int*)scratch;      // n_leaves, cleared
+  int* total = count + n_leaves;   // slots reserved so far, cleared
+  int* n_long = total + 1;         // long leaves listed so far, cleared
+  int* cursor = n_long + 1;        // n_leaves, written where count > 0
+  int* rays = cursor + n_leaves;   // n, the first `total` written
+  int* long_leaves = rays + n;     // n / (SEG_SHORT + 1) + 1
+  const cudaError_t cleared =
+      cudaMemsetAsync(count, 0, ((size_t)n_leaves + 2) * sizeof(int), st);
+  if (cleared != cudaSuccess) return (int)cleared;
+  const int* leaf = (const int*)hit_leaf;
+  if (n > 0) {
+    seg_count_kernel<<<blocks_for(n), BLOCK, 0, st>>>(leaf, n, n_leaves, count);
+    seg_base_kernel<<<blocks_for(n_leaves), BLOCK, 0, st>>>(count, n_leaves,
+                                                            total, cursor);
+    seg_place_kernel<<<blocks_for(n), BLOCK, 0, st>>>(leaf, n, n_leaves, cursor,
+                                                      rays);
+  }
+  seg_sum_kernel<<<blocks_for(n_leaves), BLOCK, 0, st>>>(
+      (const float*)cot, count, cursor, rays, n_leaves, n_long, long_leaves,
+      (float*)g_alb, (float*)g_nrm, (float*)g_den);
+  if (n > SEG_SHORT) {
+    seg_long_kernel<<<SEG_GRID, SEG_BLOCK, 0, st>>>(
+        (const float*)cot, count, cursor, rays, n_long, long_leaves,
+        (float*)g_alb, (float*)g_nrm, (float*)g_den);
   }
   return (int)cudaGetLastError();
 }

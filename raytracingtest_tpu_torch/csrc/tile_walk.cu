@@ -12,8 +12,9 @@
 //   rowread      replaces scratch/r4_pallas.py::dynrow, dynrow2, dynrow3 and
 //                dynrow8 (:38-:103): one row of a resident int32 table at an
 //                index learned at run time (a scalar argument; the minimum
-//                of a block of cursors; one index per block). It is the read
-//                tile_walk stages its candidates with.
+//                of a block of cursors; one index per block), a batch of
+//                such requests a launch. It is the read tile_walk stages its
+//                candidates with.
 //
 // Semantics follow the plain PyTorch versions bit for bit
 // (raytracingtest_tpu_torch/ops/tile.py::walk_plain,
@@ -281,25 +282,39 @@ brick_dda16_kernel(const float* __restrict__ bpos_in,
 
 constexpr int MODE_SCALAR = 0, MODE_MIN = 1, MODE_ROWS = 2;
 constexpr int ROWREAD_BLOCK = 128;
+constexpr int ROW_SCALARS = 8;  // row indices one launch takes as arguments
 
-// One block an output row. The block learns its row index (a launch
-// argument; the minimum of n_idx cursors, reduced by warp shuffles and
-// shared memory; or its own entry of idx), clips it to the table and copies
-// the row, neighbouring threads on neighbouring words.
+struct RowScalars {
+  int v[ROW_SCALARS];
+};
+
+// Four words of a row at once, for rows that start on 16 bytes.
+__device__ __forceinline__ int4 row_quad(const int* __restrict__ table,
+                                         int stride, int row, int q) {
+  return __ldg((const int4*)(table + (size_t)row * stride) + q);
+}
+
+// One block an output row, and one launch a batch of requests. The block
+// learns its row index (its entry of the launch's scalar arguments; the
+// minimum of its own `per` cursors, reduced by warp shuffles and shared
+// memory; or its own entry of idx), clips it to the table and copies the
+// row, neighbouring threads on neighbouring words, 16 bytes a thread where
+// `quads` says the rows allow it.
 __global__ void __launch_bounds__(ROWREAD_BLOCK)
 rowread_kernel(const int* __restrict__ table, int rows, int cols, int mode,
-               int scalar, const int* __restrict__ idx, int n_idx,
-               int* __restrict__ out) {
+               RowScalars scalars, const int* __restrict__ idx, int per,
+               int* __restrict__ out, int quads) {
   __shared__ int s_min[ROWREAD_BLOCK / 32];
   const int tid = threadIdx.x;
   int row;
   if (mode == MODE_SCALAR) {
-    row = scalar;
+    row = scalars.v[blockIdx.x];
   } else if (mode == MODE_ROWS) {
     row = idx[blockIdx.x];
   } else {
+    const int* mine = idx + (size_t)blockIdx.x * per;
     int m = INT_MAX;
-    for (int j = tid; j < n_idx; j += blockDim.x) m = min(m, idx[j]);
+    for (int j = tid; j < per; j += blockDim.x) m = min(m, mine[j]);
     for (int off = 16; off > 0; off >>= 1)
       m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
     if ((tid & 31) == 0) s_min[tid >> 5] = m;
@@ -308,8 +323,14 @@ rowread_kernel(const int* __restrict__ table, int rows, int cols, int mode,
     for (int w = 1; w < ROWREAD_BLOCK / 32; ++w) row = min(row, s_min[w]);
   }
   row = max(0, min(row, rows - 1));
-  for (int c = tid; c < cols; c += blockDim.x)
-    out[(size_t)blockIdx.x * cols + c] = row_word(table, cols, row, c);
+  if (quads) {
+    int4* dst = (int4*)(out + (size_t)blockIdx.x * cols);
+    for (int q = tid; q < cols / 4; q += blockDim.x)
+      dst[q] = row_quad(table, cols, row, q);
+  } else {
+    for (int c = tid; c < cols; c += blockDim.x)
+      out[(size_t)blockIdx.x * cols + c] = row_word(table, cols, row, c);
+  }
 }
 
 }  // namespace
@@ -345,15 +366,32 @@ extern "C" int brick_dda16(const void* bpos, const void* t_cur,
   return (int)cudaGetLastError();
 }
 
+// `scalars`: n_scalars row indices in host memory (MODE_SCALAR, one a
+// request). `idx`: n_idx indices on the card: n_out of them (MODE_ROWS), or
+// n_idx / n_out cursors a request (MODE_MIN).
 extern "C" int rowread(const void* table, int rows, int cols, int mode,
-                       int scalar, const void* idx, int n_idx, void* out,
-                       int n_out, void* stream) {
+                       const int* scalars, int n_scalars, const void* idx,
+                       int n_idx, void* out, int n_out, void* stream) {
   if (mode < MODE_SCALAR || mode > MODE_ROWS || rows < 1 || cols < 1)
     return (int)cudaErrorInvalidValue;
+  RowScalars by_value = {};
+  int per = 0;
+  if (mode == MODE_SCALAR) {
+    if (scalars == nullptr || n_scalars != n_out || n_out > ROW_SCALARS)
+      return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < n_scalars; ++k) by_value.v[k] = scalars[k];
+  } else {
+    if (idx == nullptr || n_out < 0 || (n_out > 0 && n_idx % n_out != 0) ||
+        (mode == MODE_ROWS && n_idx != n_out) || (n_out > 0 && n_idx < n_out))
+      return (int)cudaErrorInvalidValue;
+    per = n_out > 0 ? n_idx / n_out : 0;
+  }
+  const int quads = cols % 4 == 0 && (uintptr_t)table % 16 == 0 &&
+                    (uintptr_t)out % 16 == 0;
   if (n_out > 0) {
     rowread_kernel<<<n_out, ROWREAD_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int*)table, rows, cols, mode, scalar, (const int*)idx, n_idx,
-        (int*)out);
+        (const int*)table, rows, cols, mode, by_value, (const int*)idx, per,
+        (int*)out, quads);
   }
   return (int)cudaGetLastError();
 }

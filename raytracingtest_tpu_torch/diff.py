@@ -8,12 +8,13 @@ traversal; ``loss_and_grads_cuda`` and ``loss_and_grads_tile`` are their L2
 training steps.
 
 The backward routes a million pixel cotangents to far fewer voxel rows
-without atomics, so gradients are the same bits in every run. On the card
-that is ``ops/shade_cuda.py``: fused shading forward, its per-ray backward,
-a stable sort by leaf id and a segment sum, all but the sort hand-written
-kernels. On the CPU it is the reference's two forms in tensor operations
-(``gather_voxel_params``): seven rank-1 scatter-adds below ``SEG_MIN_ROWS``
-rows, and sort + running sums + one boundary gather at or above it.
+without float atomics, so gradients are the same bits in every run. On the
+card that is ``ops/shade_cuda.py``: fused shading forward, its per-ray
+backward and a segment sum that adds each leaf's rows in ascending ray index,
+all hand-written kernels. On the CPU it is the reference's two forms in
+tensor operations (``gather_voxel_params``): seven rank-1 scatter-adds below
+``SEG_MIN_ROWS`` rows, and sort + running sums + one boundary gather at or
+above it.
 """
 
 from __future__ import annotations

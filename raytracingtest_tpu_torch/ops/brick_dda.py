@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from raytracingtest_tpu_torch._device import check_tensor
+from raytracingtest_tpu_torch._build import tile_lib
+from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.ops.brick import _spread3
 from raytracingtest_tpu_torch.ops.traverse import S_MAX, _f2i
 
@@ -25,6 +26,8 @@ _F32, _I32 = torch.float32, torch.int32
 
 # kernel launches made by this process
 launches = 0
+
+_BRICK_DDA16 = Kernel("brick_dda16", tile_lib)
 
 
 def dda_step(bpos, t_cur, walking, hit_t, t_coef, t_bias, flip, word_of,
@@ -77,34 +80,22 @@ def dda_steps(bpos, t_cur, walking, rw, tc, tb, flip, hit_t, depth=10,
 def _dda_kernel(bpos, t_cur, walking, rw, tc, tb, flip, hit_t, depth, steps):
     global launches
     device = bpos.device
-    if device.type != "cuda":
-        raise ValueError(f"the brick-DDA kernel takes CUDA tensors, got {device}")
     n = t_cur.shape[0]
     walking = walking.to(_I32)
-    for name, t, dtype, shape in (
-            ("bpos", bpos, _F32, (n, 3)), ("t_cur", t_cur, _F32, (n,)),
-            ("walking", walking, _I32, (n,)), ("rw", rw, _I32, (16, n)),
-            ("tc", tc, _F32, (n, 3)), ("tb", tb, _F32, (n, 3)),
-            ("flip", flip, _I32, (n, 3)), ("hit_t", hit_t, _F32, (n,))):
-        check_tensor(name, t, dtype, shape, device)
+    _BRICK_DDA16.check(device, (
+        ("bpos", bpos, _F32, (n, 3)), ("t_cur", t_cur, _F32, (n,)),
+        ("walking", walking, _I32, (n,)), ("rw", rw, _I32, (16, n)),
+        ("tc", tc, _F32, (n, 3)), ("tb", tb, _F32, (n, 3)),
+        ("flip", flip, _I32, (n, 3)), ("hit_t", hit_t, _F32, (n,))))
     if not 4 <= depth <= S_MAX or steps < 0 or n >= 2 ** 31:
         raise ValueError(f"depth {depth}, steps {steps} or ray count {n} out of range")
-
-    from raytracingtest_tpu_torch._build import tile_lib
-
-    lib = tile_lib()
     out_t = torch.empty(n, dtype=_F32, device=device)
     out_idx = torch.empty(n, dtype=_I32, device=device)
     out_tc = torch.empty(n, dtype=_F32, device=device)
-    with torch.cuda.device(device):
-        err = lib.brick_dda16(
-            bpos.data_ptr(), t_cur.data_ptr(), walking.data_ptr(),
-            rw.data_ptr(), tc.data_ptr(), tb.data_ptr(), flip.data_ptr(),
-            hit_t.data_ptr(), n, depth, steps, out_t.data_ptr(),
-            out_idx.data_ptr(), out_tc.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"brick_dda16 launch failed: cudaError {err}")
+    _BRICK_DDA16(device, bpos.data_ptr(), t_cur.data_ptr(), walking.data_ptr(),
+                 rw.data_ptr(), tc.data_ptr(), tb.data_ptr(), flip.data_ptr(),
+                 hit_t.data_ptr(), n, depth, steps, out_t.data_ptr(),
+                 out_idx.data_ptr(), out_tc.data_ptr())
     launches += 1
     return out_t, out_idx, out_tc
 

@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from raytracingtest_tpu_torch._device import check_tensor
+from raytracingtest_tpu_torch._build import shade_lib
+from raytracingtest_tpu_torch._launch import Kernel
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -38,16 +39,17 @@ LOOP_FLOAT, LOOP_INT = 0, 1
 # kernel launches made by this process, by kernel
 launches = {"take": 0, "loop_probe": 0}
 
+_TAKE = Kernel("take", shade_lib)
+_LOOP_PROBE = Kernel("loop_probe", shade_lib)
+
 
 def _take_kernel(table, idx, mode):
     device = table.device
-    if device.type != "cuda":
-        raise ValueError(f"the take kernel takes CUDA tensors, got {device}")
     if table.dtype not in (_F32, _I32) or table.numel() == 0:
         raise ValueError(f"table: expected a non-empty float32 or int32 "
                          f"tensor, got {table.dtype} {tuple(table.shape)}")
-    check_tensor("table", table, table.dtype, table.shape, device)
-    check_tensor("indices", idx, _I32, idx.shape, device)
+    _TAKE.check(device, (("table", table, table.dtype, table.shape),
+                         ("indices", idx, _I32, idx.shape)))
     if mode in (TAKE_1D, TAKE_ONEHOT):
         if table.dim() != 1:
             raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows,)")
@@ -59,17 +61,9 @@ def _take_kernel(table, idx, mode):
         if mode == TAKE_ALONG_LANE and idx.shape != table.shape:
             raise ValueError("a lane gather takes indices of the table's shape")
         rows, cols = table.shape
-
-    from raytracingtest_tpu_torch._build import shade_lib
-
-    lib = shade_lib()
     out = torch.empty(idx.shape, dtype=table.dtype, device=device)
-    with torch.cuda.device(device):
-        err = lib.take(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                       idx.numel(), rows, cols, mode,
-                       torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"take launch failed: cudaError {err}")
+    _TAKE(device, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+          idx.numel(), rows, cols, mode)
     launches["take"] += 1
     return out
 
@@ -147,24 +141,15 @@ def loop_probe_plain(x, table, iters, elem, gather_rows, mode):
 
 def _loop_kernel(x, table, iters, elem, gather_rows, mode):
     device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"the loop kernel takes CUDA tensors, got {device}")
-    check_tensor("x", x, _I32 if mode == LOOP_INT else _F32, x.shape, device)
+    specs = [("x", x, _I32 if mode == LOOP_INT else _F32, x.shape)]
     if table is not None:
-        check_tensor("table", table, x.dtype, (table.shape[0], x.shape[1]), device)
-
-    from raytracingtest_tpu_torch._build import shade_lib
-
-    lib = shade_lib()
+        specs.append(("table", table, x.dtype, (table.shape[0], x.shape[1])))
+    _LOOP_PROBE.check(device, specs)
     out = torch.empty_like(x)
-    with torch.cuda.device(device):
-        err = lib.loop_probe(
-            x.data_ptr(), 0 if table is None else table.data_ptr(),
-            out.data_ptr(), x.numel(), x.shape[1],
-            0 if table is None else table.shape[0], iters, elem, gather_rows,
-            mode, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"loop_probe launch failed: cudaError {err}")
+    _LOOP_PROBE(device, x.data_ptr(), 0 if table is None else table.data_ptr(),
+                out.data_ptr(), x.numel(), x.shape[1],
+                0 if table is None else table.shape[0], iters, elem,
+                gather_rows, mode)
     launches["loop_probe"] += 1
     return out
 

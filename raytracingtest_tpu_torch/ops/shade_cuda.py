@@ -4,12 +4,16 @@
 Counterpart of ``gather_voxel_params`` with ``shade_diff`` in
 ``raytracingtest_tpu/diff.py`` and of the backward XLA derives for them.
 ``shade_fwd`` gathers a ray's parameter row from the three parameter tensors
-and shades it in one kernel. The backward is two kernels around a sort:
-``shade_bwd`` turns the image cotangent into the seven cotangents of each
-ray's row, ``torch.sort(stable=True)`` orders the rays by leaf id, and
-``segment_sum`` adds each leaf's rows in that order, without atomics, so the
-gradients are the same bits in every run. ``ShadeCuda`` ties the three into
-one ``torch.autograd.Function``.
+and shades it in one kernel. The backward is two calls: ``shade_bwd`` turns
+the image cotangent into the seven cotangents of each ray's row, and
+``segment_sum`` adds each leaf's rows in ascending ray index from +0, the
+order of a serial scatter-add, so the gradients are the same bits in every
+run. It sorts nothing but the ray ids inside a leaf and uses integer atomics
+only, on counts and cursors. ``ShadeCuda`` ties the three into one
+``torch.autograd.Function``. ``sort_by_leaf`` with ``segment_sum_sorted`` is
+the earlier form of the same sum (a stable sort of every ray by leaf id,
+then one thread a run), kept as an independent implementation to hold the
+new one against.
 
 CUDA tensors launch the kernels; CPU tensors take the plain versions beside
 them (``shade_rows`` on rows gathered by plain indexing, autograd through
@@ -23,13 +27,25 @@ from __future__ import annotations
 
 import torch
 
-from raytracingtest_tpu_torch._device import check_tensor
+from raytracingtest_tpu_torch._build import shade_lib
+from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.render import sky_color
 
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 
-# kernel launches made by this process, by kernel
-launches = {"shade_fwd": 0, "shade_bwd": 0, "segment_sum": 0}
+# kernel launches made by this process, by kernel (a call of segment_sum
+# counts once: its passes go out together)
+launches = {"shade_fwd": 0, "shade_bwd": 0, "segment_sum": 0,
+            "segment_sum_sorted": 0}
+
+_SHADE_FWD = Kernel("shade_fwd", shade_lib)
+_SHADE_BWD = Kernel("shade_bwd", shade_lib)
+_SEGMENT_SUM = Kernel("segment_sum", shade_lib)
+_SEGMENT_SUM_SORTED = Kernel("segment_sum_sorted", shade_lib)
+
+# csrc/shade.cu's SEG_SHORT: the longest run a leaf's own thread adds; longer
+# ones go to a block each
+SEG_SHORT = 16
 
 
 def _sum3(x):
@@ -83,25 +99,20 @@ def scatter_add_rows(leaf_id, cols7, n_leaves):
     return torch.stack(out[0:3], dim=1), torch.stack(out[3:6], dim=1), out[6]
 
 
-def _check_shade_args(hit_leaf, d, albedo, normal, density, light_dir, sky):
-    """Device, type, shape and contiguity of a shading kernel's arguments;
-    returns (n rays, n leaves)."""
-    device = hit_leaf.device
-    if device.type != "cuda":
-        raise ValueError(f"the shading kernels take CUDA tensors, got {device}")
+def _shade_specs(hit_leaf, d, albedo, normal, density, light_dir, sky):
+    """(n rays, n leaves, what a shading kernel's launcher checks of its
+    arguments)."""
     n, n_leaves = hit_leaf.shape[0], albedo.shape[0]
     if n_leaves < 1 or n >= 2 ** 31 // 7:
         raise ValueError(f"{n_leaves} leaves or {n} rays out of range")
-    for name, t, dtype, shape in (
-            ("hit_leaf", hit_leaf, _I32, (n,)), ("d", d, _F32, (n, 3)),
-            ("albedo", albedo, _F32, (n_leaves, 3)),
-            ("normal", normal, _F32, (n_leaves, 3)),
-            ("density", density, _F32, (n_leaves,)),
-            ("light_dir", light_dir, _F32, (3,))):
-        check_tensor(name, t, dtype, shape, device)
+    specs = [("hit_leaf", hit_leaf, _I32, (n,)), ("d", d, _F32, (n, 3)),
+             ("albedo", albedo, _F32, (n_leaves, 3)),
+             ("normal", normal, _F32, (n_leaves, 3)),
+             ("density", density, _F32, (n_leaves,)),
+             ("light_dir", light_dir, _F32, (3,))]
     if sky is not None:
-        check_tensor("sky", sky, _F32, (n, 3), device)
-    return n, n_leaves
+        specs.append(("sky", sky, _F32, (n, 3)))
+    return n, n_leaves, specs
 
 
 def shade_fwd(hit_leaf, d, albedo, normal, density, light_dir,
@@ -116,22 +127,16 @@ def shade_fwd(hit_leaf, d, albedo, normal, density, light_dir,
         return shade_rows(*index_rows(leaf, albedo, normal, density), hit,
                           sky_color(d) if sky is None else sky, light_dir,
                           light_intensity, light_ambient)
-    n, n_leaves = _check_shade_args(hit_leaf, d, albedo, normal, density,
-                                    light_dir, sky)
-
-    from raytracingtest_tpu_torch._build import shade_lib
-
-    lib = shade_lib()
-    out = torch.empty((n, 3), dtype=_F32, device=hit_leaf.device)
-    with torch.cuda.device(hit_leaf.device):
-        err = lib.shade_fwd(
-            hit_leaf.data_ptr(), d.data_ptr(), albedo.data_ptr(),
-            normal.data_ptr(), density.data_ptr(), n_leaves,
-            light_dir.data_ptr(), float(light_intensity), float(light_ambient),
-            0 if sky is None else sky.data_ptr(), out.data_ptr(), n,
-            torch.cuda.current_stream(hit_leaf.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade_fwd launch failed: cudaError {err}")
+    device = hit_leaf.device
+    n, n_leaves, specs = _shade_specs(hit_leaf, d, albedo, normal, density,
+                                      light_dir, sky)
+    _SHADE_FWD.check(device, specs)
+    out = torch.empty((n, 3), dtype=_F32, device=device)
+    _SHADE_FWD(device, hit_leaf.data_ptr(), d.data_ptr(), albedo.data_ptr(),
+               normal.data_ptr(), density.data_ptr(), n_leaves,
+               light_dir.data_ptr(), float(light_intensity),
+               float(light_ambient), 0 if sky is None else sky.data_ptr(),
+               out.data_ptr(), n)
     launches["shade_fwd"] += 1
     return out
 
@@ -158,75 +163,94 @@ def shade_bwd(g, hit_leaf, d, albedo, normal, density, light_dir,
     if hit_leaf.device.type == "cpu":
         return shade_bwd_plain(g, hit_leaf, d, albedo, normal, density,
                                light_dir, light_intensity, light_ambient, sky)
-    n, n_leaves = _check_shade_args(hit_leaf, d, albedo, normal, density,
-                                    light_dir, sky)
-    check_tensor("g", g, _F32, (n, 3), hit_leaf.device)
-
-    from raytracingtest_tpu_torch._build import shade_lib
-
-    lib = shade_lib()
-    cot = torch.empty((n, 7), dtype=_F32, device=hit_leaf.device)
-    with torch.cuda.device(hit_leaf.device):
-        err = lib.shade_bwd(
-            g.data_ptr(), hit_leaf.data_ptr(), d.data_ptr(), albedo.data_ptr(),
-            normal.data_ptr(), density.data_ptr(), n_leaves,
-            light_dir.data_ptr(), float(light_intensity), float(light_ambient),
-            0 if sky is None else sky.data_ptr(), cot.data_ptr(), n,
-            torch.cuda.current_stream(hit_leaf.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade_bwd launch failed: cudaError {err}")
+    device = hit_leaf.device
+    n, n_leaves, specs = _shade_specs(hit_leaf, d, albedo, normal, density,
+                                      light_dir, sky)
+    specs.append(("g", g, _F32, (n, 3)))
+    _SHADE_BWD.check(device, specs)
+    cot = torch.empty((n, 7), dtype=_F32, device=device)
+    _SHADE_BWD(device, g.data_ptr(), hit_leaf.data_ptr(), d.data_ptr(),
+               albedo.data_ptr(), normal.data_ptr(), density.data_ptr(),
+               n_leaves, light_dir.data_ptr(), float(light_intensity),
+               float(light_ambient), 0 if sky is None else sky.data_ptr(),
+               cot.data_ptr(), n)
     launches["shade_bwd"] += 1
     return cot
+
+
+def segment_scratch_words(n, n_leaves):
+    """The int32 words of scratch ``segment_sum``'s kernels use for `n` rays
+    and `n_leaves` leaves: a count and a cursor a leaf, two counters, a slot a
+    ray, and the list of leaves with runs above ``SEG_SHORT``."""
+    return 2 * n_leaves + 2 + n + n // (SEG_SHORT + 1) + 1
+
+
+def segment_sum(cot, hit_leaf, n_leaves):
+    """Per-leaf sums of the (N, 7) cotangent rows `cot` onto the leaves
+    `hit_leaf` (N,) int32 names: each leaf's rows are added one after another
+    in ascending ray index, starting from +0, so the result is that of a
+    serial scatter-add in ray order, bit for bit and in every run. A miss
+    (`hit_leaf` < 0) adds nothing; an id above ``n_leaves - 1`` counts as
+    that. Returns (g_albedo (n_leaves, 3), g_normal (n_leaves, 3), g_density
+    (n_leaves,)); leaves that no ray hit are +0."""
+    if cot.device.type == "cpu":
+        hit = hit_leaf >= 0
+        return scatter_add_rows(hit_leaf[hit].clamp(max=n_leaves - 1),
+                                cot[hit], n_leaves)
+    device, n = cot.device, cot.shape[0]
+    if n_leaves < 1 or n >= 2 ** 31 // 7 or n_leaves >= 2 ** 31 // 7:
+        raise ValueError(f"{n_leaves} leaves or {n} rows out of range")
+    _SEGMENT_SUM.check(device, (("cot", cot, _F32, (n, 7)),
+                                ("hit_leaf", hit_leaf, _I32, (n,))))
+    words = segment_scratch_words(n, n_leaves)
+    scratch = torch.empty(words, dtype=_I32, device=device)
+    g_alb = torch.empty((n_leaves, 3), dtype=_F32, device=device)
+    g_nrm = torch.empty((n_leaves, 3), dtype=_F32, device=device)
+    g_den = torch.empty(n_leaves, dtype=_F32, device=device)
+    _SEGMENT_SUM(device, hit_leaf.data_ptr(), cot.data_ptr(), n, n_leaves,
+                 scratch.data_ptr(), words, g_alb.data_ptr(),
+                 g_nrm.data_ptr(), g_den.data_ptr())
+    launches["segment_sum"] += 1
+    return g_alb, g_nrm, g_den
 
 
 def sort_by_leaf(hit_leaf, n_leaves):
     """(keys, order): the rays in ascending leaf id, rays of one leaf in ray
     order (a stable sort). A miss gets the key `n_leaves`, which sorts behind
-    every leaf and which ``segment_sum`` never reads."""
+    every leaf and which ``segment_sum_sorted`` never reads."""
     keys = torch.where(hit_leaf >= 0, hit_leaf.clamp(max=n_leaves - 1), n_leaves)
     keys, order = torch.sort(keys, stable=True)
     return keys, order
 
 
-def segment_sum(cot, keys, order, n_leaves):
-    """Per-leaf sums of the (N, 7) cotangent rows: `keys` (N,) int32 ascending
-    leaf ids and `order` (N,) int64, as ``sort_by_leaf`` returns them. Each
-    leaf's rows are added one after another in sorted order, from 0, so the
-    result is that of a serial scatter-add, bit for bit and in every run.
-    Returns (g_albedo (n_leaves, 3), g_normal (n_leaves, 3), g_density
-    (n_leaves,)); leaves that no ray hit stay zero."""
+def segment_sum_sorted(cot, keys, order, n_leaves):
+    """The sorted form of ``segment_sum``: `keys` (N,) int32 ascending leaf
+    ids and `order` (N,) int64, as ``sort_by_leaf`` returns them. The thread
+    at the head of each leaf's run adds the run's rows one after another in
+    sorted (= ray) order, from +0: the same sums, bit for bit."""
     if cot.device.type == "cpu":
         valid = (keys >= 0) & (keys < n_leaves)
         return scatter_add_rows(keys[valid], cot[order[valid]], n_leaves)
     device, n = cot.device, cot.shape[0]
     if n_leaves < 1 or n >= 2 ** 31 // 7:
         raise ValueError(f"{n_leaves} leaves or {n} rows out of range")
-    check_tensor("cot", cot, _F32, (n, 7), device)
-    check_tensor("keys", keys, _I32, (n,), device)
-    check_tensor("order", order, _I64, (n,), device)
-
-    from raytracingtest_tpu_torch._build import shade_lib
-
-    lib = shade_lib()
+    _SEGMENT_SUM_SORTED.check(device, (("cot", cot, _F32, (n, 7)),
+                                       ("keys", keys, _I32, (n,)),
+                                       ("order", order, _I64, (n,))))
     g_alb = torch.zeros((n_leaves, 3), dtype=_F32, device=device)
     g_nrm = torch.zeros((n_leaves, 3), dtype=_F32, device=device)
     g_den = torch.zeros(n_leaves, dtype=_F32, device=device)
-    with torch.cuda.device(device):
-        err = lib.segment_sum(
-            cot.data_ptr(), keys.data_ptr(), order.data_ptr(), n, n_leaves,
-            g_alb.data_ptr(), g_nrm.data_ptr(), g_den.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
-    launches["segment_sum"] += 1
+    _SEGMENT_SUM_SORTED(device, cot.data_ptr(), keys.data_ptr(),
+                        order.data_ptr(), n, n_leaves, g_alb.data_ptr(),
+                        g_nrm.data_ptr(), g_den.data_ptr())
+    launches["segment_sum_sorted"] += 1
     return g_alb, g_nrm, g_den
 
 
 class ShadeCuda(torch.autograd.Function):
     """Shading as one differentiable function of the three parameter
-    tensors: ``shade_fwd`` forward; ``shade_bwd``, a stable sort by leaf id
-    and ``segment_sum`` backward. The hits, the rays, the light and the sky
-    get no gradient."""
+    tensors: ``shade_fwd`` forward; ``shade_bwd`` and ``segment_sum``
+    backward. The hits, the rays, the light and the sky get no gradient."""
 
     @staticmethod
     def forward(ctx, albedo, normal, density, hit_leaf, d, light_dir,
@@ -245,6 +269,5 @@ class ShadeCuda(torch.autograd.Function):
         albedo, normal, density, hit_leaf, d, light_dir, sky = ctx.saved_tensors
         cot = shade_bwd(g.contiguous(), hit_leaf, d, albedo, normal, density,
                         light_dir, *ctx.light, sky)
-        keys, order = sort_by_leaf(hit_leaf, albedo.shape[0])
-        return (*segment_sum(cot, keys, order, albedo.shape[0]),
+        return (*segment_sum(cot, hit_leaf, albedo.shape[0]),
                 None, None, None, None, None, None)

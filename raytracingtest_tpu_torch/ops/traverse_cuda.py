@@ -10,8 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from raytracingtest_tpu_torch._build import trace_lib
+from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.ops import traverse
 from raytracingtest_tpu_torch.ops.traverse import S_MAX, TraceResult
+
+_F32, _I32 = torch.float32, torch.int32
 
 # trace_cuda keeps trace_pallas's contract: a multiple of one (8, 128) tile
 TILE_N = 1024
@@ -20,52 +24,33 @@ TILE_N = 1024
 # path a run took)
 launches = 0
 
-
-def _check(t, name, dtype, ndim, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim or (ndim == 2 and t.shape[1] != 3):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+_ESVO_TRACE = Kernel("esvo_trace", trace_lib)
 
 
 def _trace_kernel(svo, origin, direction) -> TraceResult:
     """Launch the traversal kernel on (N, 3) float32 CUDA rays, any N."""
     global launches
     device = origin.device
-    if device.type != "cuda":
-        raise ValueError(f"the traversal kernel takes CUDA tensors, got {device}")
-    _check(origin, "origin", torch.float32, 2, device)
-    _check(direction, "direction", torch.float32, 2, device)
-    for name in ("masks", "child_base", "leaf_base"):
-        _check(getattr(svo, name), name, torch.int32, 1, device)
+    if origin.dim() != 2:
+        raise ValueError(f"origin has shape {tuple(origin.shape)}, expected (N, 3)")
     n = origin.shape[0]
-    if direction.shape[0] != n:
-        raise ValueError("origin and direction differ in length")
+    _ESVO_TRACE.check(device, (
+        ("origin", origin, _F32, (n, 3)), ("direction", direction, _F32, (n, 3)),
+        ("masks", svo.masks, _I32, (svo.masks.shape[0],)),
+        ("child_base", svo.child_base, _I32, (svo.child_base.shape[0],)),
+        ("leaf_base", svo.leaf_base, _I32, (svo.leaf_base.shape[0],))))
     if not 1 <= svo.depth <= S_MAX or n >= 2 ** 31:
         raise ValueError(f"depth {svo.depth} or ray count {n} out of range")
-
-    from raytracingtest_tpu_torch._build import trace_lib
-
-    lib = trace_lib()
-    i32 = dict(dtype=torch.int32, device=device)
-    hit_leaf = torch.empty(n, **i32)
-    hit_t = torch.empty(n, dtype=torch.float32, device=device)
-    hit_parent = torch.empty(n, **i32)
-    hit_child = torch.empty(n, **i32)
-    iters = torch.empty(n, **i32)
-    with torch.cuda.device(device):
-        err = lib.esvo_trace(
-            svo.masks.data_ptr(), svo.child_base.data_ptr(),
-            svo.leaf_base.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            n, svo.depth, hit_leaf.data_ptr(), hit_t.data_ptr(),
-            hit_parent.data_ptr(), hit_child.data_ptr(), iters.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"esvo_trace launch failed: cudaError {err}")
+    hit_leaf = torch.empty(n, dtype=_I32, device=device)
+    hit_t = torch.empty(n, dtype=_F32, device=device)
+    hit_parent = torch.empty(n, dtype=_I32, device=device)
+    hit_child = torch.empty(n, dtype=_I32, device=device)
+    iters = torch.empty(n, dtype=_I32, device=device)
+    _ESVO_TRACE(device, svo.masks.data_ptr(), svo.child_base.data_ptr(),
+                svo.leaf_base.data_ptr(), origin.data_ptr(),
+                direction.data_ptr(), n, svo.depth, hit_leaf.data_ptr(),
+                hit_t.data_ptr(), hit_parent.data_ptr(), hit_child.data_ptr(),
+                iters.data_ptr())
     launches += 1
     return TraceResult(hit_leaf, hit_t, hit_parent, hit_child, iters)
 

@@ -150,7 +150,8 @@ def test_octree_frame_matches_numpy():
 
 PORT_MODULES = (
     "raytracingtest_tpu_torch", "raytracingtest_tpu_torch._build",
-    "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch.config",
+    "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch._launch",
+    "raytracingtest_tpu_torch.config",
     "raytracingtest_tpu_torch.convert",
     "raytracingtest_tpu_torch.diff", "raytracingtest_tpu_torch.render",
     "raytracingtest_tpu_torch.scenes",

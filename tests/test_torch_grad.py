@@ -10,7 +10,7 @@ CPU the port runs the plain versions of its shading kernels. Tolerances:
     autograd: rtol 1e-5, atol 1e-7, the tolerance of the reference's own
     ``test_grads_match_builtin_autodiff``. Shading normalises and sums in
     another order than XLA, which contracts multiply-adds.
-  * the rank-1 backward and the kernels' plain segment sum against builtin
+  * the rank-1 backward and the kernels' plain segment sums against builtin
     autograd's scatter-add: equal, since all three add a leaf's rows in ray
     order.
   * the sort + running-sum form at 65,536 rows against JAX's and against
@@ -126,7 +126,7 @@ def test_grads_match_builtin_autograd(setup):
 
 def test_shade_function_on_cpu_equals_the_plain_backward(setup):
     """``ShadeCuda`` on CPU tensors runs the plain versions of its three
-    kernels (per-ray cotangents, stable sort, serial segment sum): its
+    kernels (shading, per-ray cotangents, serial segment sum): its
     gradients equal the gather function's rank-1 scatter-adds, which add
     each leaf's rows in the same (ray) order."""
     from raytracingtest_tpu_torch.ops import traverse_cuda
@@ -256,10 +256,14 @@ def test_segment_reduce_matches_reference_and_rank1_at_scale(monkeypatch):
     out = torch.cat([x.reshape(m, -1) for x in diff._gather_bwd(*args)], dim=1)
     np.testing.assert_array_equal(out.numpy(), rank1)
 
-    # the kernels' plain segment sum: the same serial order after the sort
+    # the sorted form's plain segment sum: the same serial order after the
+    # sort; and the sort-free form's, which takes the hits as they come
     keys, order = shade_cuda.sort_by_leaf(t(ids), m)
     out = torch.cat([x.reshape(m, -1) for x in
-                     shade_cuda.segment_sum(t(cols), keys, order, m)], dim=1)
+                     shade_cuda.segment_sum_sorted(t(cols), keys, order, m)], dim=1)
+    np.testing.assert_array_equal(out.numpy(), rank1)
+    out = torch.cat([x.reshape(m, -1) for x in
+                     shade_cuda.segment_sum(t(cols), t(ids), m)], dim=1)
     np.testing.assert_array_equal(out.numpy(), rank1)
 
 

@@ -1,0 +1,146 @@
+"""The launch path every kernel's wrapper goes through
+(``raytracingtest_tpu_torch/_launch.py``), as far as it runs without a card:
+its checks, that they come before the library is asked for, and what a call
+does with the stream, the device and the error code (against a stand-in for
+the C function)."""
+
+import pytest
+import torch
+
+from raytracingtest_tpu_torch import _build, _launch
+from raytracingtest_tpu_torch.ops import (
+    brick_dda, gather, rowread, shade_cuda, tile_cuda, traverse_cuda)
+
+CPU = torch.device("cpu")
+
+KERNELS = {
+    "esvo_trace": traverse_cuda._ESVO_TRACE,
+    "tile_walk": tile_cuda._TILE_WALK,
+    "brick_dda16": brick_dda._BRICK_DDA16,
+    "rowread": rowread._ROWREAD,
+    "take": gather._TAKE,
+    "loop_probe": gather._LOOP_PROBE,
+    "shade_fwd": shade_cuda._SHADE_FWD,
+    "shade_bwd": shade_cuda._SHADE_BWD,
+    "segment_sum": shade_cuda._SEGMENT_SUM,
+    "segment_sum_sorted": shade_cuda._SEGMENT_SUM_SORTED,
+}
+
+
+def good():
+    return torch.zeros((4, 3), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("what,tensor,dtype,shape,says", [
+    ("device", torch.zeros((4, 3), device="meta"), torch.float32, (4, 3), "on meta"),
+    ("dtype", good().to(torch.float64), torch.float32, (4, 3), "torch.float64"),
+    ("shape", good(), torch.float32, (3, 4), "(4, 3)"),
+    ("rank", good(), torch.float32, (12,), "(4, 3)"),
+    ("contiguity", torch.zeros((3, 4)).t(), torch.float32, (4, 3), "non-contiguous"),
+])
+def test_check_tensors_names_the_argument(what, tensor, dtype, shape, says):
+    _launch.check_tensors(CPU, (("fine", good(), torch.float32, (4, 3)),))
+    with pytest.raises(ValueError) as err:
+        _launch.check_tensors(CPU, (("fine", good(), torch.float32, (4, 3)),
+                                    ("the_bad_one", tensor, dtype, shape)))
+    assert "the_bad_one" in str(err.value) and says in str(err.value)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_refuses_cpu_before_any_library(name):
+    """A CPU device is refused by name, and neither making the launcher nor
+    refusing asks ``_build`` for a library."""
+    kernel = KERNELS[name]
+    resolved, loaded = kernel._fn, set(_build._libs)
+    assert kernel.name == name
+    with pytest.raises(ValueError, match=f"the {name} kernel takes CUDA tensors"):
+        kernel.check(CPU, (("x", good(), torch.float32, (4, 3)),))
+    assert kernel._fn is resolved and set(_build._libs) == loaded
+
+
+def test_check_comes_before_the_library():
+    def no_library():
+        raise AssertionError("the library was asked for")
+    kernel = _launch.Kernel("probe", no_library)
+    cuda0 = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="x: expected contiguous"):
+        kernel.check(cuda0, (("x", good(), torch.float32, (4, 3)),))   # on the CPU
+    with pytest.raises(AssertionError):
+        kernel(cuda0, 1, 2)            # only a launch asks for it
+
+
+class FakeFn:
+    """Stands in for a ctypes function: records its arguments."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+def wired(err, current=0):
+    kernel = _launch.Kernel("probe", lambda: None)
+    kernel._fn = FakeFn(err)
+    kernel._raw_stream = lambda index: 1000 + index
+    kernel._current_device = lambda: current
+    return kernel
+
+
+def test_call_appends_the_raw_stream_of_the_tensors_device():
+    kernel = wired(0)
+    assert kernel(torch.device("cuda", 0), 11, 2.5) is None
+    assert kernel._fn.calls == [(11, 2.5, 1000)]
+
+
+def test_call_raises_on_the_error_code():
+    kernel = wired(700)
+    with pytest.raises(RuntimeError, match="probe launch failed: cudaError 700"):
+        kernel(torch.device("cuda", 0), 1)
+
+
+def test_call_switches_device_only_for_another_one(monkeypatch):
+    entered = []
+
+    class Guard:
+        def __init__(self, index):
+            entered.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    kernel = wired(0, current=0)
+    kernel(torch.device("cuda", 0), 5)
+    assert entered == []
+    kernel(torch.device("cuda", 1), 5)
+    assert entered == [1] and kernel._fn.calls[-1] == (5, 1001)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: rowread._launch(torch.zeros((4, 8), dtype=torch.int32),
+                            rowread.MODE_ROWS, 0,
+                            torch.zeros(2, dtype=torch.int32), 2),
+    lambda: gather._take_kernel(torch.zeros(8), torch.zeros(4, dtype=torch.int32),
+                                gather.TAKE_1D),
+    lambda: gather._loop_kernel(torch.zeros((2, 8)), None, 1, 1, 0, gather.LOOP_FLOAT),
+], ids=["rowread", "take", "loop_probe"])
+def test_kernel_level_calls_refuse_cpu_tensors(call):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        call()
+
+
+def test_rowread_batch_forms_on_the_cpu():
+    table = torch.arange(64 * 128, dtype=torch.int32).reshape(64, 128)
+    rows = rowread.rowread_scalar(table, [3, 99, -2, 17])
+    assert torch.equal(rows, table[[3, 63, 0, 17]])
+    with pytest.raises(ValueError):
+        rowread.rowread_scalar(table, list(range(rowread.SCALAR_BATCH + 1)))
+    cursors = torch.tensor([[9, 70, 12], [5, 6, 7], [-4, 3, 2]], dtype=torch.int32)
+    assert torch.equal(rowread.rowread_min_batch(table, cursors), table[[9, 5, 0]])
+    singles = [rowread.rowread_min(table, c) for c in cursors]
+    assert torch.equal(rowread.rowread_min_batch(table, cursors), torch.cat(singles))
