@@ -16,12 +16,17 @@ benchmark frame, the depth-10 `terrain` SVO seen by bench.py's camera at
 and as a training step on both traversals (`diff.loss_and_grads_cuda`,
 `diff.loss_and_grads_tile`: the forward frame, then `shade_bwd` and the
 sort-free `segment_sum`), and takes three `InverseRenderer.step_view` steps
-on that view. It runs the probe kernels (`brick_dda16`, `rowread`, `take`,
-`loop_probe`, and the sorted form of the segment sum) at the sizes of the
-probes they replace, and times the parts of one wrapper's launch path on the
-host. One line per phase; any failure raises and the exit code is non-zero. The last two lines are a
-JSON record of the kernels and the device. Without a CUDA device it fails
-before printing any result.
+on that view. The two traversal kernels keep their first forms beside them,
+`esvo_trace_serial` and `tile_walk_serial` (one thread a ray, off the main
+path): each kernel is held bitwise against its plain version and its first
+form, the walker on each of the frame's three launches and at every number
+of lanes a ray, and each pair is timed in turns. It runs the probe kernels
+(`brick_dda16`, `rowread`, `take`, `loop_probe`, and the sorted form of the
+segment sum) at the sizes of the probes they replace, `take` also at the
+main path's size, and times the parts of one wrapper's launch path on the
+host. One line per phase; any failure raises and the exit code is non-zero.
+The last two lines are a JSON record of the kernels and the device. Without
+a CUDA device it fails before printing any result.
 """
 
 import json
@@ -167,6 +172,7 @@ def bound(n_bytes, n_ops):
 def reset_counts():
     for mod in (traverse_cuda, tile_cuda, brick_dda, rowread):
         mod.launches = 0
+    traverse_cuda.serial_launches = tile_cuda.serial_launches = 0
     for mod in (gather, shade_cuda):
         for name in mod.launches:
             mod.launches[name] = 0
@@ -292,6 +298,14 @@ def check_segment_sum(what, cot, hit_leaf, n_leaves):
     return sums, e_new, e_sorted
 
 
+def kernel_us(rows, new, first):
+    """(us a launch of the kernel whose name holds `new`, of the one whose
+    name holds `first`) from a profile pass's rows; None where the tracer
+    saw none."""
+    pick = lambda part: next((v for k, v in rows.items() if part in k), None)
+    return pick(new), pick(first)
+
+
 def host_us(fn, calls=3000):
     """Microseconds of the host's clock for one call of fn(), over `calls`
     calls issued back to back without waiting for the card."""
@@ -376,6 +390,45 @@ def walk_inputs(ts, o, d, corners, mode):
 
 WALK_NAMES = ("hit_leaf", "hit_t", "iters")
 
+
+def check_walk(args, what):
+    """tile_walk at the rule's G and at every G, and its first form, each
+    bitwise against the plain walk. Returns the largest float differences
+    of the new and of the first form (0.0 when exact), the rule's G, and the
+    hit count."""
+    plain = tile.walk_plain(*args)
+    first = tile_cuda._walk_serial_kernel(*args)
+    kern = tile_cuda._walk_kernel(*args)
+    every = [tile_cuda._walk_kernel(*args, lanes=g) for g in tile_cuda.LANES]
+    torch.cuda.synchronize()
+    e_new = compare_tensors(kern, plain, WALK_NAMES, what)
+    e_first = compare_tensors(first, plain, WALK_NAMES, f"{what}, first form")
+    for g, got in zip(tile_cuda.LANES, every):
+        e_new = max(e_new, compare_tensors(got, plain, WALK_NAMES, f"{what}, G={g}"))
+    T, P = args[1].shape[0], args[1].shape[1]
+    g = tile_cuda.lanes_per_ray(T, P, tile_cuda.thread_slots(args[1].device))
+    return e_new, e_first, g, int((kern[0] >= 0).sum())
+
+
+def walk_shape(args):
+    """(G, blocks, threads a block) of a tile_walk launch at the rule's G,
+    as the C launcher computes them."""
+    T, P = args[1].shape[0], args[1].shape[1]
+    g = tile_cuda.lanes_per_ray(T, P, tile_cuda.thread_slots(args[1].device))
+    per_block = min(P, 256 // g)
+    return g, T * -(-P // per_block), per_block * g
+
+
+def walk_bound(args, iters):
+    """A walk launch's own bound: its rays' bytes (24 B in, 12 B out a ray),
+    its lists (12 B a candidate slot) and its valid candidates' 17-word rows
+    read once, against the DDA steps its rays took and their set-up."""
+    o, d, codes, ids, t_codes = args[1], args[2], args[3], args[4], args[5]
+    n_rays = o.shape[0] * o.shape[1]
+    n_bytes = (nbytes(o, d, codes, ids, t_codes) + int((ids >= 0).sum()) * 68
+               + n_rays * 12)
+    return bound(n_bytes, int(iters.sum()) * OPS_DDA_STEP + n_rays * OPS_RAY_SETUP)
+
 # The referee's tolerances, in units of t (a depth-10 voxel is 9.8e-4 wide):
 # a chord shorter than GRAZE is a graze of a corner or an edge, which float32
 # paths may count or not; more rays than MAX_DIFFER apart is a fault outright.
@@ -458,7 +511,8 @@ def main():
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
-    err = dict(esvo_trace=0.0, tile_walk=0.0, brick_dda16=0.0, rowread=0.0,
+    err = dict(esvo_trace=0.0, esvo_trace_serial=0.0, tile_walk=0.0,
+               tile_walk_serial=0.0, brick_dda16=0.0, rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
                segment_sum=0.0, segment_sum_sorted=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
@@ -467,13 +521,17 @@ def main():
             o, d = (torch.from_numpy(a).to(dev)
                     for a in random_rays(n, seed=depth + n))
             kern = traverse_cuda._trace_kernel(svo, o, d)
+            first = traverse_cuda._trace_serial_kernel(svo, o, d)
             plain = traverse.trace(svo, o, d)
             torch.cuda.synchronize()
             err["esvo_trace"] = max(err["esvo_trace"],
                                     compare(kern, plain, f"{name} d{depth} N={n}"))
+            err["esvo_trace_serial"] = max(err["esvo_trace_serial"], compare(
+                first, plain, f"first form, {name} d{depth} N={n}"))
+            compare(kern, first, f"{name} d{depth} N={n}, against the first form")
             hits = int((kern.hit_leaf >= 0).sum())
             say(f"[parity] esvo_trace {name} depth {depth} N={n}: kernel == plain "
-                f"(hit ids, iters, hit_t bitwise), {hits} hits")
+                f"== first form (hit ids, iters, hit_t bitwise), {hits} hits")
 
     bench_cam = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
                      fov_y_deg=50.0)
@@ -483,15 +541,13 @@ def main():
         o, d, corners, _grid = tile.tile_rays(small_cam, dev)
         for mode in ("main", "enlarged-K", "sub-tile"):
             args = walk_inputs(ts, o, d, corners, mode)
-            kern = tile_cuda._walk_kernel(*args)
-            plain = tile.walk_plain(*args)
-            torch.cuda.synchronize()
-            what = f"tile_walk {name} d{depth} {mode}"
-            err["tile_walk"] = max(err["tile_walk"],
-                                   compare_tensors(kern, plain, WALK_NAMES, what))
-            say(f"[parity] {what}: kernel == plain (hit_leaf, iters, hit_t "
-                f"bitwise), T={args[1].shape[0]} P={args[1].shape[1]} "
-                f"K={args[4].shape[1]}, {int((kern[0] >= 0).sum())} hits")
+            e_new, e_first, g, hits = check_walk(args, f"tile_walk {name} d{depth} {mode}")
+            err["tile_walk"] = max(err["tile_walk"], e_new)
+            err["tile_walk_serial"] = max(err["tile_walk_serial"], e_first)
+            say(f"[parity] tile_walk {name} d{depth} {mode}: kernel (G={g} by "
+                f"the rule, and every G of {tile_cuda.LANES}) == plain == first "
+                f"form (hit_leaf, iters, hit_t bitwise), T={args[1].shape[0]} "
+                f"P={args[1].shape[1]} K={args[4].shape[1]}, {hits} hits")
 
     n_dda = 65536
     dda_args = dda_inputs(n_dda, 0, dev)
@@ -607,7 +663,8 @@ def main():
     img = diff.render_diff_cuda(*params, svo, o, d, light)
     torch.cuda.synchronize()
     esvo_launches = traverse_cuda.launches
-    if esvo_launches != 1 or shade_cuda.launches["shade_fwd"] != 1:
+    if (esvo_launches != 1 or shade_cuda.launches["shade_fwd"] != 1
+            or traverse_cuda.serial_launches):
         raise AssertionError("the frame did not launch the traversal and the "
                              "shading kernel once each")
     if img.shape != (n_rays, 3) or not bool(torch.isfinite(img).all()):
@@ -619,8 +676,12 @@ def main():
     torch.cuda.synchronize()
     esvo_plain_ms = (time.perf_counter() - t0) * 1e3
     kern = traverse_cuda.trace_cuda(svo, o, d)
+    first = traverse_cuda.trace_cuda_serial(svo, o, d)
     err["esvo_trace"] = max(err["esvo_trace"],
                             compare(kern, plain, "terrain d10 frame"))
+    err["esvo_trace_serial"] = max(err["esvo_trace_serial"], compare(
+        first, plain, "terrain d10 frame, first form"))
+    compare(kern, first, "terrain d10 frame, against the first form")
     img_plain = diff.shade_diff_plain(plain.hit_leaf, d, *params, light, 1.3, 0.08)
     img_err = float((img - img_plain).abs().max())
     if img_err > 1e-6:
@@ -629,7 +690,8 @@ def main():
     esvo_steps = int(kern.iters.sum())
     say(f"[frame] {res}x{res}: {esvo_launches} kernel launch(es) in the frame, "
         f"{hits} hits, {esvo_steps / n_rays:.2f} steps a ray, hits == plain "
-        f"trace, image == plain path (max abs {img_err}), finite")
+        f"trace == esvo_trace_serial (bitwise: hit_leaf, hit_t, hit_parent, "
+        f"hit_child, iters), image == plain path (max abs {img_err}), finite")
 
     # ---- 5b. the shading kernels on that frame vs their plain versions ----------
     hit_leaf = kern.hit_leaf
@@ -751,7 +813,7 @@ def main():
         raise AssertionError(f"the tile frame launched the walker "
                              f"{tile_launches} times, expected 3")
     if (traverse_cuda.launches or brick_dda.launches or rowread.launches
-            or shade_cuda.launches["shade_fwd"] != 1):
+            or tile_cuda.serial_launches or shade_cuda.launches["shade_fwd"] != 1):
         raise AssertionError("the tile frame launched a kernel it has no use "
                              "for, or not the shading kernel once")
     if img_t.shape != (n_rays, 3) or not bool(torch.isfinite(img_t).all()):
@@ -813,18 +875,44 @@ def main():
         raise AssertionError(f"tile image differs from the per-ray frame's by "
                              f"{img_tile_err}")
 
-    # the walker against its plain version on the whole frame (main walk)
-    main_args = walk_inputs(ts, o_t, d_t, corners, "main")
-    kern_w = tile_cuda._walk_kernel(*main_args)
+    # the frame's three walks (main, enlarged-K, sub-tile) with the very
+    # arguments the frame gives them, each held bitwise against the plain
+    # walk and the first form, at the rule's G and at every G
+    walks = []
+    walk_kernel = tile_cuda.tile_walk
+    tile_cuda.tile_walk = lambda *args: walks.append(args) or walk_kernel(*args)
+    try:
+        tile.trace_tile_fb(ts, o_t, d_t, corners, **TILE_BUDGETS)
+    finally:
+        tile_cuda.tile_walk = walk_kernel
+    if len(walks) != 3:
+        raise AssertionError(f"the tile frame made {len(walks)} walks, expected 3")
+    WALKS = ("main", "enlarged-K", "sub-tile")
+    walk_rows = {}
+    for wname, args in zip(WALKS, walks):
+        e_new, e_first, g, _hits = check_walk(args, f"tile_walk d10 frame, {wname}")
+        err["tile_walk"] = max(err["tile_walk"], e_new)
+        err["tile_walk_serial"] = max(err["tile_walk_serial"], e_first)
+        iters_w = tile_cuda._walk_kernel(*args)[2]
+        g, blocks, threads = walk_shape(args)
+        b = walk_bound(args, iters_w)
+        walk_rows[wname] = dict(
+            T=args[1].shape[0], P=args[1].shape[1], K=args[4].shape[1], G=g,
+            blocks=blocks, threads=threads, bound_ms=b[0], bound_by=b[1],
+            dda_steps_a_ray=float(iters_w.float().mean()))
+        say(f"[frame-tile] walk {wname}: T={args[1].shape[0]} P={args[1].shape[1]} "
+            f"K={args[4].shape[1]}, G={g} lanes a ray, {blocks} blocks of "
+            f"{threads} threads, {float(iters_w.float().mean()):.2f} DDA steps a "
+            f"ray, bound {b[0]:.5f} ms ({b[1]}); kernel at every G == plain == "
+            f"first form, bitwise")
+    main_args = walks[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain_w = tile.walk_plain(*main_args)
     torch.cuda.synchronize()
     walk_plain_ms = (time.perf_counter() - t0) * 1e3
-    err["tile_walk"] = max(err["tile_walk"], compare_tensors(
-        kern_w, plain_w, WALK_NAMES, "tile_walk terrain d10 frame"))
     ids_main = main_args[4]
-    dda_steps_main = int(kern_w[2].sum())
+    dda_steps_main = int(plain_w[2].sum())
     say(f"[frame-tile] {res}x{res} in {o_t.shape[0]} tiles: {tile_launches} "
         f"walker launches in the frame, {n_residual} residual rays, "
         f"{int((res_fb.hit_leaf >= 0).sum())} hits; resolved hits == per-ray "
@@ -853,13 +941,19 @@ def main():
                 for iters, rows in loop_plain_ms]
     gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
     shade_cuda.segment_sum_sorted(seg_cot, keys, order, n_leaves)
+    traverse_cuda.trace_cuda_serial(svo, o, d)
+    tile_cuda.tile_walk_serial(*main_args)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
+    first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
+                          tile_walk_serial=tile_cuda.serial_launches)
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
     sorted_launches = shade_cuda.launches["segment_sum_sorted"]
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
-            or loop_launches != 5 or sorted_launches != 1):
+            or loop_launches != 5 or sorted_launches != 1
+            or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1)
+            or traverse_cuda.launches or tile_cuda.launches):
         raise AssertionError("the probes did not launch their kernels")
     if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
@@ -880,7 +974,9 @@ def main():
         f"{dda_walked / n_dda:.2f} steps a ray; rowread: {row_launches} "
         f"launches (scalar, min, rows); take: {take_launches} launches; "
         f"loop_probe: {loop_launches} launches; segment_sum_sorted (the "
-        f"sorted form, off the training path): {sorted_launches} launch")
+        f"sorted form, off the training path): {sorted_launches} launch; the "
+        f"first forms of the two traversals, off the main path: "
+        f"{first_launches}")
 
     # ---- 7b. the training step, on both traversals ----------------------------
     hit_tile = res_fb.hit_leaf
@@ -1034,6 +1130,29 @@ def main():
         "take": lambda: gather.take_1d(take_table, take_idx),
         "take_library": lambda: torch.index_select(take_table, 0, take_idx_flat)})
     t.update({f"{name}_turns": v for name, v in turns.items()})
+    # take at the main path's size: the gather take_row makes in shade_fwd,
+    # one leaf's value for each of the frame's rays (misses read leaf 0)
+    big_table, big_idx = svo.leaf_density, safe_leaf
+    got = gather.take_1d(big_table, big_idx)
+    torch.cuda.synchronize()
+    err["take"] = max(err["take"], compare_tensors(
+        (got,), (big_table[big_idx.long()],), ("take_1d",), "take_1d, full size"))
+    turns = in_turns({
+        "take_full": lambda: gather.take_1d(big_table, big_idx),
+        "take_full_library": lambda: torch.index_select(big_table, 0, big_idx)})
+    t.update({f"{name}_turns": v for name, v in turns.items()})
+    # the two traversals' kernels against their first forms, in turns, and
+    # the frame's three walks at every G
+    turns = in_turns({
+        "esvo": lambda: traverse_cuda.trace_cuda(svo, o, d),
+        "esvo_first": lambda: traverse_cuda.trace_cuda_serial(svo, o, d)})
+    t.update({f"{name}_turns": v for name, v in turns.items()})
+    for wname, args in zip(WALKS, walks):
+        variants = {"first": lambda a=args: tile_cuda._walk_serial_kernel(*a)}
+        variants.update({f"G={g}": lambda a=args, g=g: tile_cuda._walk_kernel(*a, lanes=g)
+                         for g in tile_cuda.LANES})
+        for name, v in in_turns(variants, rounds=2, reps=30).items():
+            t[f"walk {wname} {name}"] = v
     target0 = torch.zeros_like(target_rand)
     t["step"] = cuda_ms(lambda: diff.loss_and_grads_cuda(
         *params, svo, o, d, light, target0), 50, 3)
@@ -1140,6 +1259,18 @@ def main():
         f"(n=20); plain loop of 2048 trips {loop_plain_ms[(2048, 0)]:.1f} ms, "
         f"with the gather {loop_plain_ms[(2048, 512)]:.1f} (n=1)")
 
+    say(f"[timing] {card}: esvo_trace {m['esvo_turns'][0]:.4f} ms against its "
+        f"first form {m['esvo_first_turns'][0]:.4f} (in turns, three rounds of "
+        f"50); take_1d at the main path's size ({big_table.shape[0]} float32 "
+        f"entries, {big_idx.shape[0]} int32 indices) {m['take_full_turns'][0]:.4f} "
+        f"ms against index_select {m['take_full_library_turns'][0]:.4f} (in turns)")
+    for wname in WALKS:
+        row = walk_rows[wname]
+        say(f"[lanes] {card}: walk {wname} (T={row['T']}, P={row['P']}, "
+            f"K={row['K']}; the rule's G={row['G']}), ms in turns (two rounds of "
+            f"30): first form {m[f'walk {wname} first'][0]:.4f}, " + ", ".join(
+                f"G={g} {m[f'walk {wname} G={g}'][0]:.4f}" for g in tile_cuda.LANES))
+
     # ---- 8b. the launch path, part by part, on the host's clock -------------
     # Each part of one rowread_rows call alone, a few thousand calls back to
     # back without waiting for the card (its kernel is shorter than any of
@@ -1226,8 +1357,11 @@ def main():
         # of a short pass, which lowers a sum over the pass but not this
         return total_us, {e.key: dev_us(e) / e.count for e in rows if e.count}
 
-    tile_us, _ = profile_kernels("tile frame", lambda: diff.render_diff_tile(
+    tile_us, tile_rows = profile_kernels("tile frame", lambda: diff.render_diff_tile(
         *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), "frame", 10)
+    say("[profile] the tile frame's walks, us a launch: " + ", ".join(
+        f"{k.split('(')[-2].split('::')[-1]} {v:.1f}" for k, v in tile_rows.items()
+        if "tile_walk" in k))
     step_us, step_rows = profile_kernels(
         "per-ray fwd+bwd step", lambda: diff.loss_and_grads_cuda(
             *params, svo, o, d, light, target0), "step", 14)
@@ -1247,6 +1381,27 @@ def main():
         "segment_sum_sorted)", lambda: shade_cuda.segment_sum_sorted(
             seg_cot, *shade_cuda.sort_by_leaf(hit_leaf, n_leaves), n_leaves),
         "call", 8)
+    # the two forms of each traversal kernel side by side, one call of each a
+    # round: us a launch of each, the frame's three walks one by one
+    alone = {}
+    for wname, args in zip(WALKS, walks):
+        _, rows = profile_kernels(
+            f"walk {wname} alone: tile_walk at G={walk_rows[wname]['G']} and its "
+            f"first form", lambda a=args: (tile_cuda._walk_kernel(*a),
+                                            tile_cuda._walk_serial_kernel(*a)),
+            "round", 2)
+        alone[wname] = kernel_us(rows, "tile_walk_kernel", "tile_walk_serial_kernel")
+    _, rows = profile_kernels(
+        "esvo_trace alone, and its first form", lambda: (
+            traverse_cuda.trace_cuda(svo, o, d),
+            traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
+    alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
+    _, rows = profile_kernels(
+        "take_1d at the main path's size alone, and index_select", lambda: (
+            gather.take_1d(big_table, big_idx),
+            torch.index_select(big_table, 0, big_idx)), "round", 2)
+    # index_select of a 1-D table runs PyTorch's gather kernel
+    alone["take"] = kernel_us(rows, "take_kernel", "gather")
     idle = lambda us, ms: "not measured" if us is None else f"{1 - us / 1e3 / ms:.2f}"
     say(f"[profile] idle share of the card: tile frame "
         f"{idle(tile_us, m['tile_frame'][0])} (of its median "
@@ -1272,11 +1427,27 @@ def main():
     esvo_bound = bound(
         nbytes(o, d, svo.masks, svo.child_base, svo.leaf_base) + n_rays * 5 * 4,
         esvo_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)
-    n_cand = int((ids_main >= 0).sum())
-    walk_bound = bound(
-        nbytes(o_t, d_t, main_args[3], main_args[4], main_args[5])
-        + n_cand * 64 + n_rays * 3 * 4,
-        dda_steps_main * OPS_DDA_STEP + n_rays * OPS_RAY_SETUP)
+    # take at full size reads each index once and at most each touched entry
+    # once, and writes one value a ray
+    take_full_bound = bound(nbytes(big_idx) + int(touched.sum()) * 4
+                            + big_idx.numel() * 4, 0)
+    us = lambda v: "not measured" if v is None else f"{v:.2f}"
+    main_walk = walk_rows["main"]
+    for wname in WALKS:
+        walk_rows[wname].update(
+            ms=m[f"walk {wname} G={walk_rows[wname]['G']}"][0],
+            ms_first_form=m[f"walk {wname} first"][0],
+            us_alone=alone[wname][0], us_alone_first_form=alone[wname][1])
+    say(f"[bound] the frame's walks, each launch's own (its rays, lists and "
+        f"rows at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, its DDA steps at "
+        f"{PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s): " + "; ".join(
+            f"{w} {r['bound_ms']:.5f} ms ({r['bound_by']}), tile_walk "
+            f"{us(r['us_alone'])} us alone at G={r['G']}, first form "
+            f"{us(r['us_alone_first_form'])} us" for w, r in walk_rows.items())
+        + f"; esvo_trace {us(alone['esvo'][0])} us alone, first form "
+        f"{us(alone['esvo'][1])} us, bound {esvo_bound[0]:.5f} ms; take_1d at "
+        f"full size {us(alone['take'][0])} us alone, index_select "
+        f"{us(alone['take'][1])} us, bound {take_full_bound[0]:.5f} ms")
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
     n_hits = int((hit_leaf >= 0).sum())
@@ -1306,15 +1477,33 @@ def main():
         dict(name="esvo_trace", route="cuda", source=src + "esvo_trace.cu",
              replaces="raytracingtest_tpu/ops/traverse_pallas.py:55",
              path="diff.render_diff_cuda", launches=esvo_launches,
-             max_abs_err=err["esvo_trace"], ms=m["esvo"][0],
+             max_abs_err=err["esvo_trace"], ms=m["esvo_turns"][0],
+             plain_ms=esvo_plain_ms, bound_ms=esvo_bound[0],
+             bound_by=esvo_bound[1], library_ms=None,
+             ms_first_form=m["esvo_first_turns"][0], us_alone=alone["esvo"][0],
+             us_alone_first_form=alone["esvo"][1]),
+        dict(name="esvo_trace_serial", route="cuda",
+             source=src + "esvo_trace.cu",
+             replaces="raytracingtest_tpu/ops/traverse_pallas.py:55",
+             path="traverse_cuda.trace_cuda_serial (the first form, off the "
+                  "main path)", launches=first_launches["esvo_trace_serial"],
+             max_abs_err=err["esvo_trace_serial"], ms=m["esvo_first_turns"][0],
              plain_ms=esvo_plain_ms, bound_ms=esvo_bound[0],
              bound_by=esvo_bound[1], library_ms=None),
         dict(name="tile_walk", route="cuda", source=src + "tile_walk.cu",
              replaces="raytracingtest_tpu/ops/tile.py:432",
              path="diff.render_diff_tile", launches=tile_launches,
-             max_abs_err=err["tile_walk"], ms=m["walk"][0],
-             plain_ms=walk_plain_ms, bound_ms=walk_bound[0],
-             bound_by=walk_bound[1], library_ms=None),
+             max_abs_err=err["tile_walk"], ms=main_walk["ms"],
+             plain_ms=walk_plain_ms, bound_ms=main_walk["bound_ms"],
+             bound_by=main_walk["bound_by"], library_ms=None, walks=walk_rows),
+        dict(name="tile_walk_serial", route="cuda", source=src + "tile_walk.cu",
+             replaces="raytracingtest_tpu/ops/tile.py:432",
+             path="tile_cuda.tile_walk_serial (the first form, off the main "
+                  "path)", launches=first_launches["tile_walk_serial"],
+             max_abs_err=err["tile_walk_serial"],
+             ms=main_walk["ms_first_form"], plain_ms=walk_plain_ms,
+             bound_ms=main_walk["bound_ms"], bound_by=main_walk["bound_by"],
+             library_ms=None),
         dict(name="brick_dda16", route="cuda", source=src + "tile_walk.cu",
              replaces="scratch/r4_pallas2.py:115",
              path="brick_dda.brick_dda16", launches=dda_launches,
@@ -1332,7 +1521,12 @@ def main():
              path="gather.take_1d/_onehot/_along0/_along_lane",
              launches=take_launches, max_abs_err=err["take"], ms=m["take"][0],
              plain_ms=m["take_plain"][0], bound_ms=take_bound[0],
-             bound_by=take_bound[1], library_ms=m["take_library"][0]),
+             bound_by=take_bound[1], library_ms=m["take_library"][0],
+             ms_full_size=m["take_full_turns"][0],
+             library_ms_full_size=m["take_full_library_turns"][0],
+             us_alone_full_size=alone["take"][0],
+             library_us_alone_full_size=alone["take"][1],
+             bound_ms_full_size=take_full_bound[0]),
         dict(name="loop_probe", route="cuda", source=src + "shade.cu",
              replaces="scratch/probe2.py:80", path="gather.loop_probe",
              launches=loop_launches, max_abs_err=err["loop_probe"],
@@ -1370,7 +1564,7 @@ def main():
              library_ms=m["segment_library"][0]),
     ]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
-    kernels[1]["launches_train_step"] = train_launches["tile"]["tile_walk"]
+    kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ Four libraries, each built on first use into
                      package's ``csrc/Makefile``, so its SVOs come out
                      byte-identical);
   * ``esvo_trace`` — ``csrc/esvo_trace.cu`` with nvcc for ``sm_90a``, the
-                     per-ray ESVO traversal kernel;
+                     per-ray ESVO traversal kernel and its first form;
   * ``tile_walk``  — ``csrc/tile_walk.cu`` with nvcc for ``sm_90a``: the tile
-                     walker, the brick DDA and the row read;
+                     walker and its first form, the brick DDA and the row
+                     read;
   * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
                      the loop probe, fused shading, its backward and the
                      deterministic segment sum (sort-free, and its earlier
@@ -114,19 +115,22 @@ def _declare_noise(lib):
 
 def _declare_trace(lib):
     p = ctypes.c_void_p
-    lib.esvo_trace.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                               p, p, p, p, p, p]
-    lib.esvo_trace.restype = ctypes.c_int
+    i = ctypes.c_int
+    for fn in (lib.esvo_trace, lib.esvo_trace_serial):
+        fn.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p, p]
+        fn.restype = i
 
 
 def _declare_tile(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tile_walk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.tile_walk.restype = i
+    lib.tile_walk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.tile_walk_serial.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p,
+                                     p]
     lib.brick_dda16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p]
-    lib.brick_dda16.restype = i
     lib.rowread.argtypes = [p, i, i, i, p, i, p, i, p, i, p]
-    lib.rowread.restype = i
+    for fn in (lib.tile_walk, lib.tile_walk_serial, lib.brick_dda16,
+               lib.rowread):
+        fn.restype = i
 
 
 def _declare_shade(lib):

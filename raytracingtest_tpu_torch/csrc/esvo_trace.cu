@@ -7,13 +7,37 @@
 // by corner-plane t, POP with the scale recovered from the float exponent of
 // an XOR of positions, all in mirrored [1,2]^3 space.
 //
-// What bounds it on this card: not FLOPs. Each step makes a dependent gather
-// into `masks` (and on PUSH into `child_base`), and the 32 rays of a warp take
-// different numbers of steps and different PUSH/ADVANCE/POP branches, so warps
-// wait on memory latency and on their slowest ray. This first version is
-// simple and right: one thread per ray, 1-D blocks of 256, the tables read
-// through the read-only path (__ldg), the stack in two local arrays. Making it
-// fast (ray ordering, shared-memory top levels, a short stack) is later work.
+// What bounds it on this card: not FLOPs and not bytes (52 MB for the
+// depth-10 1024^2 frame, 0.016 ms at 3.35 TB/s). A ray makes about 22
+// steps, each behind a read of its node's row; the rows of the top of the
+// tree stay in L1 and the rest in L2. The 32 rays of a warp take different
+// numbers of steps and different PUSH/ADVANCE/POP branches, and a warp
+// issues every branch that one of its rays takes: divergence, more than the
+// reads' latency, sets the time (reading a row only on a change of node
+// takes the ADVANCE steps' reads away, and no measurable time).
+//
+// One kernel template, two forms that compute the same bits.
+// esvo_trace_serial (esvo_kernel<true>) is the first form: one thread a
+// ray, 1-D blocks of 256, masks[parent] read through the read-only path at
+// every step and child_base[parent] again on PUSH, the stack in two local
+// arrays of S_MAX entries that every ray zeroes first. Nothing on the main
+// path launches it; it is the check and the yardstick. esvo_trace
+// (esvo_kernel<false>) changes where a ray's reads come from and what it
+// writes before its walk, never what it computes:
+//   * masks[parent] is read when the ray's node changes (PUSH, POP) and kept
+//     in a register, so an ADVANCE step reads nothing;
+//   * the stack stays two local arrays, and a bit mask says which slots
+//     this ray has written: an unwritten slot reads as node 0, t 0, as in
+//     the plain version, with no zeroing pass over 2 * S_MAX words a ray.
+// Measured on the card against other forms of the same kernel, and not
+// kept: the stack in shared memory (depth slots a thread) was slower than
+// the local stack without its zeroing pass; the top rows of the node arrays
+// staged in shared memory (they are the top of the tree, the arrays being
+// in level order) changed nothing measurable, since those rows stay in L1;
+// persistent blocks with a fixed stride of chunks were slower than the
+// block scheduler's own balance. What did gain was warps of compact pixel
+// patches instead of strips of one image row, which needs the image's width
+// at the entry point (ROADMAP, Queue 4).
 //
 // Rounding: built with --fmad=false, so pos*t_coef - t_bias and the other
 // a*b+c forms round in two steps, as the plain version's separate tensor ops
@@ -33,15 +57,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// One thread a ray. FIRST selects the first form (esvo_trace_serial):
+// masks[parent] read at every step, the stack zeroed before the walk.
+// Otherwise masks[parent] is read on a change of node and a bit mask stands
+// in for the zeroing (see the header). Both give the same bits.
+template <bool FIRST>
 __global__ void __launch_bounds__(BLOCK)
-esvo_trace_kernel(const int* __restrict__ masks,
-                  const int* __restrict__ child_base,
-                  const int* __restrict__ leaf_base,
-                  const float* __restrict__ origin,
-                  const float* __restrict__ direction, int n, int depth,
-                  int* __restrict__ hit_leaf, float* __restrict__ hit_t,
-                  int* __restrict__ hit_parent, int* __restrict__ hit_child,
-                  int* __restrict__ iters) {
+esvo_kernel(const int* __restrict__ masks, const int* __restrict__ child_base,
+            const int* __restrict__ leaf_base,
+            const float* __restrict__ origin,
+            const float* __restrict__ direction, int n, int depth,
+            int* __restrict__ hit_leaf, float* __restrict__ hit_t,
+            int* __restrict__ hit_parent, int* __restrict__ hit_child,
+            int* __restrict__ iters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int s0 = S_MAX - depth;
@@ -85,19 +113,24 @@ esvo_trace_kernel(const int* __restrict__ masks,
   float scale_exp2 = 0.5f;
   int hp = -1, hc = 0;
   float ht = 0.0f;
-  // an unwritten slot reads as node 0, t 0 (the plain version's zeros)
+  // an unwritten slot reads as node 0, t 0 (the plain version's zeros): the
+  // first form zeroes the stack, the other keeps the written slots' bits
   int stack_node[S_MAX];
   float stack_tmax[S_MAX];
-  for (int k = 0; k < S_MAX; ++k) {
-    stack_node[k] = 0;
-    stack_tmax[k] = 0.0f;
+  unsigned written = 0u;
+  if constexpr (FIRST) {
+    for (int k = 0; k < S_MAX; ++k) {
+      stack_node[k] = 0;
+      stack_tmax[k] = 0.0f;
+    }
   }
+  int desc = FIRST ? 0 : __ldg(masks + parent);  // masks[parent]
 
   // one trip per step while the ray is active: `it` is the ray's step count
   int it = 0;
   while (!done && it < n_max) {
     ++it;
-    const int desc = __ldg(masks + parent);
+    if constexpr (FIRST) desc = __ldg(masks + parent);
     const int vm = (desc >> 8) & 0xFF;
     const int lm = desc & 0xFF;
 
@@ -124,10 +157,12 @@ esvo_trace_kernel(const int* __restrict__ masks,
         const int slot = clampi(scale - s0, 0, depth - 1);
         stack_node[slot] = parent;
         stack_tmax[slot] = t_max;
+        written |= 1u << slot;
       }
       h = tc_max;
       const int below = (1 << child_shift) - 1;
       parent = __ldg(child_base + parent) + __popc(vm & ~lm & below);
+      if constexpr (!FIRST) desc = __ldg(masks + parent);
       int idx_descend = 0;
       for (int c = 0; c < 3; ++c) {
         const float t_center = half * t_coef[c] + tc[c];
@@ -171,8 +206,15 @@ esvo_trace_kernel(const int* __restrict__ masks,
     scale = new_scale;
     scale_exp2 = __int_as_float((new_scale - S_MAX + 127) << 23);
     const int slot = clampi(scale - s0, 0, depth - 1);
-    parent = stack_node[slot];
-    t_max = stack_tmax[slot];
+    if constexpr (FIRST) {
+      parent = stack_node[slot];
+      t_max = stack_tmax[slot];
+    } else {
+      const bool was_written = (written >> slot) & 1u;
+      parent = was_written ? stack_node[slot] : 0;
+      t_max = was_written ? stack_tmax[slot] : 0.0f;
+      desc = __ldg(masks + parent);
+    }
     const int shift = clampi(scale, 0, 31);
     int sh[3];
     for (int c = 0; c < 3; ++c) {
@@ -183,10 +225,10 @@ esvo_trace_kernel(const int* __restrict__ masks,
     h = 0.0f;
   }
 
-  // epilogue: leaf row = leaf_base[parent] + rank among the leaf children
+  // epilogue: leaf row = leaf_base[parent] + rank among the leaf children;
+  // at a hit `desc` is the hit parent's masks row
   int leaf = -1;
   if (hp >= 0) {
-    const int desc = __ldg(masks + hp);
     const int vm = (desc >> 8) & 0xFF;
     const int lm = desc & 0xFF;
     leaf = __ldg(leaf_base + hp) + __popc(vm & lm & ((1 << hc) - 1));
@@ -198,6 +240,23 @@ esvo_trace_kernel(const int* __restrict__ masks,
   iters[i] = it;
 }
 
+template <bool FIRST>
+int launch(const void* masks, const void* child_base, const void* leaf_base,
+           const void* origin, const void* direction, int n, int depth,
+           void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
+           void* iters, void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int blocks = (n + BLOCK - 1) / BLOCK;
+    esvo_kernel<FIRST><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int*)masks, (const int*)child_base, (const int*)leaf_base,
+        (const float*)origin, (const float*)direction, n, depth,
+        (int*)hit_leaf, (float*)hit_t, (int*)hit_parent, (int*)hit_child,
+        (int*)iters);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int esvo_trace(const void* masks, const void* child_base,
@@ -205,13 +264,18 @@ extern "C" int esvo_trace(const void* masks, const void* child_base,
                           const void* direction, int n, int depth,
                           void* hit_leaf, void* hit_t, void* hit_parent,
                           void* hit_child, void* iters, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + BLOCK - 1) / BLOCK;
-    esvo_trace_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int*)masks, (const int*)child_base, (const int*)leaf_base,
-        (const float*)origin, (const float*)direction, n, depth,
-        (int*)hit_leaf, (float*)hit_t, (int*)hit_parent, (int*)hit_child,
-        (int*)iters);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(masks, child_base, leaf_base, origin, direction, n,
+                       depth, hit_leaf, hit_t, hit_parent, hit_child, iters,
+                       stream);
+}
+
+extern "C" int esvo_trace_serial(const void* masks, const void* child_base,
+                                 const void* leaf_base, const void* origin,
+                                 const void* direction, int n, int depth,
+                                 void* hit_leaf, void* hit_t,
+                                 void* hit_parent, void* hit_child,
+                                 void* iters, void* stream) {
+  return launch<true>(masks, child_base, leaf_base, origin, direction, n,
+                      depth, hit_leaf, hit_t, hit_parent, hit_child, iters,
+                      stream);
 }

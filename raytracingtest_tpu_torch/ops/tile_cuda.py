@@ -1,12 +1,16 @@
-"""The tile walker on the card: the wrapper of ``tile_walk`` in
-``csrc/tile_walk.cu``.
+"""The tile walker on the card: the wrappers of ``tile_walk`` and
+``tile_walk_serial`` in ``csrc/tile_walk.cu``.
 
-The kernel replaces what the reference's ``_walk_chunk_window`` and
-``_resolve_hits`` compute (``raytracingtest_tpu/ops/tile.py``): one block
-per tile, one thread per ray, the tile's candidate list and those bricks'
-occupancy words staged in shared memory. CUDA tensors go to the kernel;
-CPU tensors go to the plain version, ``tile.walk_plain``. Nothing else
-picks the path: a build or launch failure raises.
+Both kernels replace what the reference's ``_walk_chunk_window`` and
+``_resolve_hits`` compute (``raytracingtest_tpu/ops/tile.py``) and give the
+same bits. ``tile_walk`` gives each ray G lanes of one warp, which walk its
+tile's candidate list G candidates at a time and rebuild the serial walk's
+result from a prefix minimum of their hits; G comes from the launch's shape
+(``lanes_per_ray``). ``tile_walk_serial`` is the first form, one thread a
+ray: the check of the other and its yardstick, which nothing on the main
+path launches. CUDA tensors go to a kernel; CPU tensors go to the plain
+version, ``tile.walk_plain``. Nothing else picks the path: a build or launch
+failure raises.
 """
 
 from __future__ import annotations
@@ -21,20 +25,58 @@ from raytracingtest_tpu_torch.ops.traverse import S_MAX
 
 _F32, _I32 = torch.float32, torch.int32
 
-# the kernel's shared-memory arrays hold this many candidates, and a block
-# this many rays
+# the kernels stage this many candidates a tile; the serial form's block
+# holds this many rays (one thread each)
 K_LIMIT = 256
 P_LIMIT = 256
+# lanes a ray: powers of two up to a warp
+LANES = (1, 2, 4, 8, 16, 32)
+# lanes_per_ray fills the card's thread slots this many times over
+FILLS = 2
 
-# kernel launches made by this process
+# kernel launches made by this process: tile_walk, and its serial form
 launches = 0
+serial_launches = 0
 
 _TILE_WALK = Kernel("tile_walk", tile_lib)
+_TILE_WALK_SERIAL = Kernel("tile_walk_serial", tile_lib)
+
+_slots: dict = {}
 
 
-def _walk_kernel(bricks, o, d, codes, ids, t_codes, depth, top_depth):
-    """Launch the walker on (T,P,3) CUDA rays and (T,K) candidate lists."""
-    global launches
+def lanes_per_ray(tiles: int, rays: int, slots: int) -> int:
+    """G for a walk of `tiles` tiles of `rays` rays on a card with `slots`
+    resident thread slots (SMs times threads an SM): the largest power of
+    two up to 32 for which the launch's tiles * rays * G threads fill the
+    slots at most FILLS times, and 1 when the rays alone fill them that
+    often (the frame's main walk). A walk with fewer rays has the idle slots walk its
+    rays' candidates side by side. Two fills and not one: at G > 1 the
+    kernel's registers hold a block of 256 threads to half an SM's slots,
+    and a second fill shortens each ray's chain of rounds by more than it
+    waits (measured on an H100 by chip_smoke.py's lanes sweep)."""
+    if tiles < 1 or rays < 1 or slots < 1:
+        raise ValueError(f"tiles {tiles}, rays {rays}, slots {slots}: each "
+                         f"must be at least 1")
+    g = 1
+    while g < LANES[-1] and tiles * rays * (2 * g) <= FILLS * slots:
+        g *= 2
+    return g
+
+
+def thread_slots(device) -> int:
+    """The resident thread slots of the CUDA `device`: SMs times the threads
+    an SM holds (2,048 on an H100's 132 SMs)."""
+    index = torch.device(device).index or 0
+    if index not in _slots:
+        props = torch.cuda.get_device_properties(index)
+        _slots[index] = props.multi_processor_count * getattr(
+            props, "max_threads_per_multi_processor", 2048)
+    return _slots[index]
+
+
+def _check(kernel, bricks, o, d, codes, ids, t_codes, depth, top_depth,
+           p_limit):
+    """The one check of both kernels' arguments; returns (T, P, K)."""
     device = o.device
     if o.dim() != 3 or o.shape[2] != 3:
         raise ValueError(f"o has shape {tuple(o.shape)}, expected (T, P, 3)")
@@ -42,25 +84,59 @@ def _walk_kernel(bricks, o, d, codes, ids, t_codes, depth, top_depth):
     if ids.dim() != 2 or ids.shape[0] != T:
         raise ValueError(f"ids has shape {tuple(ids.shape)}, expected ({T}, K)")
     K = ids.shape[1]
-    _TILE_WALK.check(device, (
+    kernel.check(device, (
         ("o", o, _F32, (T, P, 3)), ("d", d, _F32, (T, P, 3)),
         ("codes", codes, _I32, (T, K)), ("ids", ids, _I32, (T, K)),
         ("t_codes", t_codes, _F32, (T, K)),
         ("bricks", bricks, _I32, (bricks.shape[0], 17))))
-    if not (1 <= K <= K_LIMIT and 1 <= P <= P_LIMIT and T >= 1):
+    if not (1 <= K <= K_LIMIT and 1 <= P <= p_limit and T >= 1):
         raise ValueError(f"T={T}, P={P}, K={K}: the kernel takes K <= {K_LIMIT} "
-                         f"and P <= {P_LIMIT}")
+                         f"and P <= {p_limit}")
+    if T * P >= 2 ** 31:
+        raise ValueError(f"{T} tiles of {P} rays: too many rays for one launch")
     if not (1 <= top_depth <= 10 and depth == top_depth + BRICK_LEVELS
             and depth <= S_MAX):
         raise ValueError(f"depth {depth} / top_depth {top_depth} out of range")
-    hit_leaf = torch.empty((T, P), dtype=_I32, device=device)
-    hit_t = torch.empty((T, P), dtype=_F32, device=device)
-    iters = torch.empty((T, P), dtype=_I32, device=device)
-    _TILE_WALK(device, bricks.data_ptr(), o.data_ptr(), d.data_ptr(),
+    return T, P, K
+
+
+def _outputs(T, P, device):
+    return (torch.empty((T, P), dtype=_I32, device=device),
+            torch.empty((T, P), dtype=_F32, device=device),
+            torch.empty((T, P), dtype=_I32, device=device))
+
+
+def _walk_kernel(bricks, o, d, codes, ids, t_codes, depth, top_depth,
+                 lanes=None):
+    """Launch ``tile_walk`` on (T,P,3) CUDA rays and (T,K) candidate lists
+    with `lanes` lanes a ray (None: ``lanes_per_ray`` of the shape)."""
+    global launches
+    T, P, K = _check(_TILE_WALK, bricks, o, d, codes, ids, t_codes, depth,
+                     top_depth, 2 ** 31 - 1)
+    if lanes is None:
+        lanes = lanes_per_ray(T, P, thread_slots(o.device))
+    if lanes not in LANES:
+        raise ValueError(f"{lanes} lanes a ray: the kernel takes one of {LANES}")
+    hit_leaf, hit_t, iters = _outputs(T, P, o.device)
+    _TILE_WALK(o.device, bricks.data_ptr(), o.data_ptr(), d.data_ptr(),
                codes.data_ptr(), ids.data_ptr(), t_codes.data_ptr(), T, P, K,
-               depth, top_depth, hit_leaf.data_ptr(), hit_t.data_ptr(),
+               depth, top_depth, lanes, hit_leaf.data_ptr(), hit_t.data_ptr(),
                iters.data_ptr())
     launches += 1
+    return hit_leaf, hit_t, iters
+
+
+def _walk_serial_kernel(bricks, o, d, codes, ids, t_codes, depth, top_depth):
+    """Launch ``tile_walk_serial``, one thread a ray (P <= 256)."""
+    global serial_launches
+    T, P, K = _check(_TILE_WALK_SERIAL, bricks, o, d, codes, ids, t_codes,
+                     depth, top_depth, P_LIMIT)
+    hit_leaf, hit_t, iters = _outputs(T, P, o.device)
+    _TILE_WALK_SERIAL(o.device, bricks.data_ptr(), o.data_ptr(), d.data_ptr(),
+                      codes.data_ptr(), ids.data_ptr(), t_codes.data_ptr(), T,
+                      P, K, depth, top_depth, hit_leaf.data_ptr(),
+                      hit_t.data_ptr(), iters.data_ptr())
+    serial_launches += 1
     return hit_leaf, hit_t, iters
 
 
@@ -72,3 +148,14 @@ def tile_walk(bricks, o, d, codes, ids, t_codes, depth, top_depth):
         return tile.walk_plain(bricks, o, d, codes, ids, t_codes, depth,
                                top_depth)
     return _walk_kernel(bricks, o, d, codes, ids, t_codes, depth, top_depth)
+
+
+def tile_walk_serial(bricks, o, d, codes, ids, t_codes, depth, top_depth):
+    """``tile_walk`` through the walker's first form, one thread a ray: the
+    same results. The kernel runs for CUDA tensors, the plain version for
+    CPU tensors."""
+    if o.device.type == "cpu":
+        return tile.walk_plain(bricks, o, d, codes, ids, t_codes, depth,
+                               top_depth)
+    return _walk_serial_kernel(bricks, o, d, codes, ids, t_codes, depth,
+                               top_depth)

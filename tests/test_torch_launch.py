@@ -2,8 +2,10 @@
 (``raytracingtest_tpu_torch/_launch.py``), as far as it runs without a card:
 its checks, that they come before the library is asked for, and what a call
 does with the stream, the device and the error code (against a stand-in for
-the C function)."""
+the C function); and the tile walker's rule for its lanes a ray and the
+checks of its arguments."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +17,9 @@ CPU = torch.device("cpu")
 
 KERNELS = {
     "esvo_trace": traverse_cuda._ESVO_TRACE,
+    "esvo_trace_serial": traverse_cuda._ESVO_TRACE_SERIAL,
     "tile_walk": tile_cuda._TILE_WALK,
+    "tile_walk_serial": tile_cuda._TILE_WALK_SERIAL,
     "brick_dda16": brick_dda._BRICK_DDA16,
     "rowread": rowread._ROWREAD,
     "take": gather._TAKE,
@@ -144,3 +148,92 @@ def test_rowread_batch_forms_on_the_cpu():
     assert torch.equal(rowread.rowread_min_batch(table, cursors), table[[9, 5, 0]])
     singles = [rowread.rowread_min(table, c) for c in cursors]
     assert torch.equal(rowread.rowread_min_batch(table, cursors), torch.cat(singles))
+
+
+H100_SLOTS = 132 * 2048   # SMs times resident threads an SM
+
+
+@pytest.mark.parametrize("tiles,rays,want", [
+    (4096, 256, 1),     # the frame's main walk fills the card alone
+    (96, 256, 16),      # the enlarged-K walk: 24,576 rays
+    (64, 64, 32),       # the sub-tile walk: 4,096 rays
+    (1, 1, 32),
+    (2112, 256, 1),     # exactly two fills at G = 1
+    (1056, 256, 2),
+])
+def test_lanes_rule_on_the_frames_walks(tiles, rays, want):
+    assert tile_cuda.lanes_per_ray(tiles, rays, H100_SLOTS) == want
+
+
+def test_lanes_rule_is_a_power_of_two_that_fills_the_card():
+    """A pure function of the shape: a power of two up to 32, never more
+    threads than FILLS fills of the slots unless one lane a ray already
+    takes more, never fewer than half of that unless at 32 lanes, and no
+    larger for more rays."""
+    last = 64
+    for rays in [1, 3, 64, 100, 1000, 4096, 24576, 65536, 10 ** 6, 5 * 10 ** 6]:
+        g = tile_cuda.lanes_per_ray(1, rays, H100_SLOTS)
+        assert g in tile_cuda.LANES and g <= last
+        limit = tile_cuda.FILLS * H100_SLOTS
+        assert g == 1 or rays * g <= limit
+        assert g == 32 or rays * g * 2 > limit
+        assert tile_cuda.lanes_per_ray(1, rays, H100_SLOTS) == g   # pure
+        last = g
+    for bad in [(0, 256, H100_SLOTS), (4, 0, H100_SLOTS), (4, 256, 0)]:
+        with pytest.raises(ValueError):
+            tile_cuda.lanes_per_ray(*bad)
+
+
+def walk_args(T=2, P=8, K=4):
+    return (torch.zeros((10, 17), dtype=torch.int32), torch.zeros((T, P, 3)),
+            torch.zeros((T, P, 3)), torch.zeros((T, K), dtype=torch.int32),
+            torch.zeros((T, K), dtype=torch.int32), torch.zeros((T, K)), 7, 4)
+
+
+@pytest.mark.parametrize("what", ["lanes", "K", "o", "ids", "depth", "serial P"])
+def test_walk_kernels_refuse_bad_arguments(what, monkeypatch):
+    """Bad shapes and lane counts raise ValueError before any launch (the
+    device check stood in for, so that CPU tensors reach the later ones)."""
+    for kernel in (tile_cuda._TILE_WALK, tile_cuda._TILE_WALK_SERIAL):
+        monkeypatch.setattr(kernel, "check", lambda device, specs: None)
+    args, kw, launch = list(walk_args()), {}, tile_cuda._walk_kernel
+    if what == "lanes":
+        kw = dict(lanes=3)
+    elif what == "K":
+        args = list(walk_args(K=tile_cuda.K_LIMIT + 1))
+    elif what == "o":
+        args[1] = torch.zeros((16, 3))
+    elif what == "ids":
+        args[4] = torch.zeros((3, 4), dtype=torch.int32)
+    elif what == "depth":
+        args[6] = 9
+    else:
+        args, launch = list(walk_args(P=tile_cuda.P_LIMIT + 1)), tile_cuda._walk_serial_kernel
+    before = (tile_cuda.launches, tile_cuda.serial_launches)
+    with pytest.raises(ValueError):
+        launch(*args, **kw)
+    assert (tile_cuda.launches, tile_cuda.serial_launches) == before
+
+
+def test_first_forms_take_the_plain_version_on_the_cpu():
+    """``tile_walk_serial`` and ``trace_cuda_serial`` on CPU tensors are the
+    plain versions, and launch nothing."""
+    from raytracingtest_tpu_torch.ops import octree, tile
+    from raytracingtest_tpu_torch.scenes import get_scene
+
+    args = walk_args(T=1, P=4, K=2)
+    before = (tile_cuda.serial_launches, traverse_cuda.serial_launches)
+    got = tile_cuda.tile_walk_serial(*args)
+    want = tile.walk_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    svo = octree.build_svo(get_scene("sphere"), 3)
+    o = np.random.default_rng(0).random((1024, 3), dtype=np.float32) * 0.2 - 0.5
+    d = 0.5 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    got = traverse_cuda.trace_cuda_serial(svo, o, d)
+    want = traverse_cuda.trace_cuda(svo, o, d)
+    assert all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters"))
+    assert int((got.hit_leaf >= 0).sum()) > 0
+    assert (tile_cuda.serial_launches, traverse_cuda.serial_launches) == before
