@@ -11,7 +11,8 @@ benchmark frame, the depth-10 `terrain` SVO seen by bench.py's camera at
   * ray by ray, through `diff.render_diff_cuda` (kernels `esvo_trace` and
     `shade_fwd`), and
   * tile by tile, through `diff.render_diff_tile` with bench.py's budgets
-    (kernel `tile_walk`, three launches a frame, and `shade_fwd`),
+    (kernels `tile_candidates` and `tile_walk`, three launches each a frame,
+    and `shade_fwd`),
 
 and as a training step on both traversals (`diff.loss_and_grads_cuda`,
 `diff.loss_and_grads_tile`: the forward frame, then `shade_bwd` and the
@@ -20,11 +21,16 @@ on that view. The two traversal kernels keep their first forms beside them,
 `esvo_trace_serial` and `tile_walk_serial` (one thread a ray, off the main
 path): each kernel is held bitwise against its plain version and its first
 form, the walker on each of the frame's three launches and at every number
-of lanes a ray, and each pair is timed in turns. It runs the probe kernels
+of lanes a ray, and each pair is timed in turns. `tile_candidates` (phase 1
+of the tile trace) is held bitwise against `tile.candidates_plain` on each
+of the frame's three calls and on small cases, and timed in turns against
+it; no call of the plain version may happen on the tile frame's or the tile
+step's path. It runs the probe kernels
 (`brick_dda16`, `rowread`, `take`, `loop_probe`, and the sorted form of the
 segment sum) at the sizes of the probes they replace, `take` also at the
-main path's size, and times the parts of one wrapper's launch path on the
-host. One line per phase; any failure raises and the exit code is non-zero.
+main path's size, times the parts of one wrapper's launch path on the
+host, and counts the tile frame's and tile step's eager ops on the host by
+group. One line per phase; any failure raises and the exit code is non-zero.
 The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
 """
@@ -47,7 +53,7 @@ from raytracingtest_tpu_torch.ops import (
     traverse, traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
-from raytracingtest_tpu_torch.scenes import get_scene
+from raytracingtest_tpu_torch.scenes import Scene, get_scene
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
 
@@ -70,6 +76,16 @@ OPS_RAY_SETUP = 40
 OPS_SHADE_FWD = 45
 OPS_SHADE_BWD = 100
 OPS_LOOP_ELEM = 4
+# phase 1 (tile_candidates): the occupancy test of a child slot (its parent
+# from shared memory, the bit of the pyramid word), and the cull and key of
+# an occupied child: unmorton 41, the cell's offset from the apex 12, four
+# plane tests 28, the half-space 7, t_lb 15, the key 7
+OPS_CAND_SLOT = 6
+OPS_CAND_CHILD = 110
+
+# calls of plain versions that the main path must not make, counted by
+# count_plain_calls()
+PLAIN_CALLS = {"candidates_plain": 0}
 
 
 def say(*parts):
@@ -173,9 +189,23 @@ def reset_counts():
     for mod in (traverse_cuda, tile_cuda, brick_dda, rowread):
         mod.launches = 0
     traverse_cuda.serial_launches = tile_cuda.serial_launches = 0
+    tile_cuda.candidates_launches = 0
+    for name in PLAIN_CALLS:
+        PLAIN_CALLS[name] = 0
     for mod in (gather, shade_cuda):
         for name in mod.launches:
             mod.launches[name] = 0
+
+
+def count_plain_calls():
+    """From here on, count every call of ``tile.candidates_plain`` in
+    PLAIN_CALLS (``tile._candidates`` looks it up at each call)."""
+    plain = tile.candidates_plain
+
+    def counted(*args):
+        PLAIN_CALLS["candidates_plain"] += 1
+        return plain(*args)
+    tile.candidates_plain = counted
 
 
 def probe_idx(shape, rows, dev):
@@ -298,6 +328,66 @@ def check_segment_sum(what, cot, hit_leaf, n_leaves):
     return sums, e_new, e_sorted
 
 
+# The tile frame's host work in groups: the functions of the tile trace and of
+# the frame that hold its eager tensor ops, from the innermost out. An op
+# counts for the innermost group that it runs in.
+HOST_GROUPS = (
+    ("phase 1 (tile._candidates)", tile, "_candidates"),
+    ("walk launch, ray set-up, unresolved mask (tile._walk_tiles_chunk)", tile,
+     "_walk_tiles_chunk"),
+    ("tile selection (tile._unresolved_first)", tile, "_unresolved_first"),
+    ("sub-tile split (tile._subtile_split)", tile, "_subtile_split"),
+    ("sub-tile merge (tile._subtile_merge)", tile, "_subtile_merge"),
+    ("the rest of the fallbacks: gathers, substitution (tile._trace_tile_fb)",
+     tile, "_trace_tile_fb"),
+    ("argument checks (tile.trace_tile_fb)", tile, "trace_tile_fb"),
+    ("shading (diff.shade_diff)", diff, "shade_diff"),
+    ("loss (diff.l2_loss_tile)", diff, "l2_loss_tile"),
+)
+
+
+def host_groups(fn):
+    """One fn() on the host's clock, the functions of HOST_GROUPS wrapped in
+    profiler ranges: group -> (top-level aten ops, their host us), where
+    an op is top-level if no other aten op called it, and ops outside every
+    group (autograd's backward, the residual count) count as "other"."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = []
+    for label, mod, name in HOST_GROUPS:
+        orig = getattr(mod, name)
+
+        def ranged(*args, _orig=orig, _label=label, **kw):
+            with record_function(_label):
+                return _orig(*args, **kw)
+        saved.append((mod, name, orig))
+        setattr(mod, name, ranged)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    labels = {label for label, _m, _n in HOST_GROUPS}
+    out = {}
+    for e in prof.events():
+        if not e.name.startswith("aten::"):
+            continue
+        up = e.cpu_parent
+        if up is not None and up.name.startswith("aten::"):
+            continue
+        while up is not None and up.name not in labels:
+            up = up.cpu_parent
+        group = up.name if up is not None else "other"
+        ops, us = out.get(group, (0, 0.0))
+        out[group] = (ops + 1, us + e.cpu_time_total)
+    return out
+
+
 def kernel_us(rows, new, first):
     """(us a launch of the kernel whose name holds `new`, of the one whose
     name holds `first`) from a profile pass's rows; None where the tracer
@@ -389,6 +479,88 @@ def walk_inputs(ts, o, d, corners, mode):
 
 
 WALK_NAMES = ("hit_leaf", "hit_t", "iters")
+CAND_NAMES = ("codes", "ids", "t_codes", "drop_t")
+CAND_CALLS = ("main", "enlarged-K", "sub-tile")
+
+
+def check_candidates(args, what):
+    """tile_candidates bitwise against candidates_plain on the card (codes,
+    ids, t_codes and drop_t bits). Returns the largest float difference (0.0
+    when exact) and the number of valid candidates."""
+    kern = tile_cuda.candidates(*args)
+    plain = tile.candidates_plain(*args)
+    torch.cuda.synchronize()
+    return (compare_tensors(kern, plain, CAND_NAMES, what),
+            int((kern[1] >= 0).sum()))
+
+
+def candidate_cases(dev, small_cam, inside_cam):
+    """(what, tile_candidates arguments) of the small cases: the tests'
+    budgets (tiny, default, wide), bench.py's, the sub-tile pass's on 2x2
+    sub-tile corners, the trainer's fb_k = 256, shallow trees whose lists are
+    shorter than k_max, a camera inside the solid, and the empty scene."""
+    def budgets(td):
+        return {
+            "tiny": ((1, 2, 2, 2), 2), "default": (tile._default_caps(td, 48), 48),
+            "wide": (tuple(min(160, 8 ** l) for l in range(td + 1)), 160),
+            "bench": (tile._default_caps(td, 96), 96),
+            "fb2": (tile._fb2_caps(td, 160), 160),
+            "fb_k 256": (tuple(min(256, 8 ** l) for l in range(td + 1)), 256)}
+    empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
+    cases = []
+    for name, depth, cam, which in (
+            ("terrain", 6, small_cam, None), ("terrain", 7, small_cam, None),
+            ("flat_ground", 6, small_cam, None), ("sphere", 5, small_cam, None),
+            ("flat_ground", 4, small_cam, None),
+            ("terrain", 6, inside_cam, ("default", "fb_k 256")),
+            ("empty", 4, small_cam, ("default",))):
+        scene = empty if name == "empty" else get_scene(name)
+        ts = tile.make_tile_svo(octree.build_svo(scene, depth)).to(dev)
+        o, d, corners, _grid = tile.tile_rays(cam, dev)
+        sub = tile._subtile_split(o, d, corners, 2)[2].contiguous()
+        where = "inside the solid" if cam is inside_cam else "bench camera"
+        for b, (caps, k_max) in budgets(ts.top_depth).items():
+            if which is None or b in which:
+                c = sub if b == "fb2" else corners
+                cases.append((f"{name} d{depth} {where} {b}",
+                              (ts.pyr, ts.cellmap, c, o[0, 0], ts.top_depth,
+                               caps, k_max)))
+    return cases
+
+
+def candidate_work(args):
+    """(bytes, operations) that phase 1 on these arguments needs, counted from
+    this run's data: each tile's corners and the apex read once, one pyramid
+    word for each kept cell of a level above the finest, one cellmap row for
+    each valid candidate, the outputs written once; the occupancy test of
+    every child slot of a kept cell, and the cull and key of every occupied
+    child. The sort's comparisons are not counted: the function needs the
+    smallest `width` keys of a level, which a selection finds without a full
+    sort, so they are this implementation's cost, not the work's. A level's
+    kept cells are the valid codes of the kernel stopped at that level."""
+    pyr, cellmap, corners, apex, td, caps, k_max = args
+    widths = tile_cuda.level_widths(td, caps, k_max)
+    T = corners.shape[0]
+    offs, _ = tile._pyr_layout(td)
+    n_words = lambda l: tile._pyr_layout(l)[1]
+    codes = torch.zeros((T, 1), dtype=torch.int32, device=corners.device)
+    words = slots = occupied = 0
+    for l in range(1, td + 1):
+        if l > 1:
+            codes = tile_cuda.candidates(
+                pyr[:n_words(l - 1)], cellmap[:max(1, 8 ** (l - 1) // 32)],
+                corners, apex, l - 1, caps, widths[l - 1])[0]
+        valid = codes >= 0
+        safe = torch.where(valid, codes, 0)
+        word = pyr[(offs[l] + (safe >> 2)).long()]
+        eight = (word >> ((safe & 3) << 3)) & 0xFF
+        words += int(valid.sum())
+        slots += 8 * int(valid.sum())
+        occupied += int(torch.where(valid, tile._popcount32(eight), 0).sum())
+    final = tile_cuda.candidates(*args)
+    n_bytes = (nbytes(corners, apex) + words * 4 + int((final[1] >= 0).sum()) * 8
+               + nbytes(*final))
+    return n_bytes, slots * OPS_CAND_SLOT + occupied * OPS_CAND_CHILD, widths
 
 
 def check_walk(args, what):
@@ -507,12 +679,15 @@ def main():
     say(f"[build] esvo_trace (nvcc sm_90a) {secs['esvo_trace']:.2f} s, "
         f"tile_walk (nvcc sm_90a) {secs['tile_walk']:.2f} s, "
         f"shade (nvcc sm_90a) {secs['shade']:.2f} s, "
+        f"tile_candidates (nvcc sm_90a) {secs['tile_candidates']:.2f} s, "
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
+    count_plain_calls()
     err = dict(esvo_trace=0.0, esvo_trace_serial=0.0, tile_walk=0.0,
-               tile_walk_serial=0.0, brick_dda16=0.0, rowread=0.0,
+               tile_walk_serial=0.0, tile_candidates=0.0, brick_dda16=0.0,
+               rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
                segment_sum=0.0, segment_sum_sorted=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
@@ -536,6 +711,18 @@ def main():
     bench_cam = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
                      fov_y_deg=50.0)
     small_cam = camera.Camera(**bench_cam, width=128, height=128)
+    inside_cam = camera.Camera(position=(0.5, 0.05, 0.5), look_at=(0.5, 0.5, 0.5),
+                               fov_y_deg=60.0, width=128, height=128)
+    cand_cases = candidate_cases(dev, small_cam, inside_cam)
+    cand_valid = []
+    for what, args in cand_cases:
+        e, n_valid = check_candidates(args, f"tile_candidates {what}")
+        err["tile_candidates"] = max(err["tile_candidates"], e)
+        cand_valid.append(n_valid)
+    say(f"[parity] tile_candidates: kernel == candidates_plain bitwise (codes, "
+        f"ids, t_codes and drop_t bits) on {len(cand_cases)} small cases: "
+        + ", ".join(f"{what} ({n})" for (what, _a), n in zip(cand_cases, cand_valid))
+        + " (valid candidates in brackets)")
     for name, depth in (("terrain", 6), ("terrain", 7), ("flat_ground", 6)):
         ts = tile.make_tile_svo(octree.build_svo(get_scene(name), depth)).to(dev)
         o, d, corners, _grid = tile.tile_rays(small_cam, dev)
@@ -809,9 +996,14 @@ def main():
                                             light, **TILE_BUDGETS)
     torch.cuda.synchronize()
     tile_launches = tile_cuda.launches
-    if tile_launches != 3:
+    cand_launches = tile_cuda.candidates_launches
+    if tile_launches != 3 or cand_launches != 3:
         raise AssertionError(f"the tile frame launched the walker "
-                             f"{tile_launches} times, expected 3")
+                             f"{tile_launches} times and tile_candidates "
+                             f"{cand_launches} times, expected 3 each")
+    if PLAIN_CALLS["candidates_plain"]:
+        raise AssertionError(f"the tile frame called candidates_plain "
+                             f"{PLAIN_CALLS['candidates_plain']} times")
     if (traverse_cuda.launches or brick_dda.launches or rowread.launches
             or tile_cuda.serial_launches or shade_cuda.launches["shade_fwd"] != 1):
         raise AssertionError("the tile frame launched a kernel it has no use "
@@ -875,18 +1067,39 @@ def main():
         raise AssertionError(f"tile image differs from the per-ray frame's by "
                              f"{img_tile_err}")
 
-    # the frame's three walks (main, enlarged-K, sub-tile) with the very
-    # arguments the frame gives them, each held bitwise against the plain
-    # walk and the first form, at the rule's G and at every G
-    walks = []
-    walk_kernel = tile_cuda.tile_walk
+    # the frame's three phase-1 calls and three walks (main, enlarged-K,
+    # sub-tile) with the very arguments the frame gives them: each call held
+    # bitwise against candidates_plain, each walk against the plain walk and
+    # the first form, at the rule's G and at every G
+    walks, cands = [], []
+    walk_kernel, cand_kernel = tile_cuda.tile_walk, tile_cuda.candidates
     tile_cuda.tile_walk = lambda *args: walks.append(args) or walk_kernel(*args)
+    tile_cuda.candidates = lambda *args: cands.append(args) or cand_kernel(*args)
     try:
         tile.trace_tile_fb(ts, o_t, d_t, corners, **TILE_BUDGETS)
     finally:
-        tile_cuda.tile_walk = walk_kernel
-    if len(walks) != 3:
-        raise AssertionError(f"the tile frame made {len(walks)} walks, expected 3")
+        tile_cuda.tile_walk, tile_cuda.candidates = walk_kernel, cand_kernel
+    if len(walks) != 3 or len(cands) != 3:
+        raise AssertionError(f"the tile frame made {len(walks)} walks and "
+                             f"{len(cands)} phase-1 calls, expected 3 each")
+    cand_rows = {}
+    for cname, args in zip(CAND_CALLS, cands):
+        e, n_valid = check_candidates(args, f"tile_candidates d10 frame, {cname}")
+        err["tile_candidates"] = max(err["tile_candidates"], e)
+        n_bytes, n_ops, widths = candidate_work(args)
+        b = bound(n_bytes, n_ops)
+        cand_rows[cname] = dict(
+            T=args[2].shape[0], K=args[6], widths=widths,
+            children_a_tile=8 * sum(widths[:-1]),
+            widest_sort=max(8 * w for w in widths[:-1]),
+            valid_a_tile=n_valid / args[2].shape[0], bytes=n_bytes, ops=n_ops,
+            bound_ms=b[0], bound_by=b[1])
+    say("[parity] tile_candidates d10 frame: kernel == candidates_plain bitwise "
+        "(codes, ids, t_codes and drop_t bits) on the frame's three calls: "
+        + "; ".join(f"{c} T={r['T']} K={r['K']} widths {r['widths']} "
+                    f"({r['children_a_tile']} child slots a tile, widest sort "
+                    f"{r['widest_sort']}), {r['valid_a_tile']:.2f} valid a tile"
+                    for c, r in cand_rows.items()))
     WALKS = ("main", "enlarged-K", "sub-tile")
     walk_rows = {}
     for wname, args in zip(WALKS, walks):
@@ -953,7 +1166,8 @@ def main():
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
             or loop_launches != 5 or sorted_launches != 1
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1)
-            or traverse_cuda.launches or tile_cuda.launches):
+            or traverse_cuda.launches or tile_cuda.launches
+            or tile_cuda.candidates_launches):
         raise AssertionError("the probes did not launch their kernels")
     if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
@@ -1000,11 +1214,15 @@ def main():
             out, grads = step()
             torch.cuda.synchronize()
             counts = dict(esvo_trace=traverse_cuda.launches,
-                          tile_walk=tile_cuda.launches, **shade_cuda.launches)
+                          tile_walk=tile_cuda.launches,
+                          tile_candidates=tile_cuda.candidates_launches,
+                          candidates_plain=PLAIN_CALLS["candidates_plain"],
+                          **shade_cuda.launches)
             want = dict(esvo_trace=1 if path == "per-ray" else 0,
                         tile_walk=0 if path == "per-ray" else 3,
-                        shade_fwd=1, shade_bwd=1, segment_sum=1,
-                        segment_sum_sorted=0)
+                        tile_candidates=0 if path == "per-ray" else 3,
+                        candidates_plain=0, shade_fwd=1, shade_bwd=1,
+                        segment_sum=1, segment_sum_sorted=0)
             if counts != want:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
                                      f"expected {want}")
@@ -1073,9 +1291,11 @@ def main():
         losses.append(float(loss))
         residuals.append(int(n_res))
     torch.cuda.synchronize()
-    # two walks a step: the trainer's budgets have no sub-tile pass
-    if tile_cuda.launches != 6 or shade_cuda.launches != dict(
-            shade_fwd=3, shade_bwd=3, segment_sum=3, segment_sum_sorted=0):
+    # two walks and two phase-1 calls a step: the trainer's budgets have no
+    # sub-tile pass
+    if (tile_cuda.launches != 6 or tile_cuda.candidates_launches != 6
+            or PLAIN_CALLS["candidates_plain"] or shade_cuda.launches != dict(
+                shade_fwd=3, shade_bwd=3, segment_sum=3, segment_sum_sorted=0)):
         raise AssertionError("step_view did not take the tile step's kernels")
     # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
     # fb_k=256, no sub-tile pass), which leave a few rays of this view
@@ -1095,7 +1315,8 @@ def main():
         f"view from random albedo: loss {losses[0]:.6f} -> {losses[1]:.6f} -> "
         f"{losses[2]:.6f}, {residuals[0]} residual rays a step at the "
         f"trainer's budgets (the tile frame's own count there; 0 at bench.py's "
-        f"budgets above), 6 walker launches, frozen parameters unchanged")
+        f"budgets above), 6 walker and 6 tile_candidates launches, no call "
+        f"of candidates_plain, frozen parameters unchanged")
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -1105,10 +1326,13 @@ def main():
     t["tile_frame"] = cuda_ms(lambda: diff.render_diff_tile(
         *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), 50, 3)
     t["walk"] = cuda_ms(lambda: tile_cuda.tile_walk(*main_args), 50, 3)
-    caps = tile._default_caps(ts.top_depth, TILE_BUDGETS["k_max"])
-    t["phase1"] = cuda_ms(lambda: tile._candidates(
-        ts.pyr, ts.cellmap, corners, o_t[0, 0], ts.top_depth, caps,
-        TILE_BUDGETS["k_max"]), 50, 3)
+    # phase 1: the frame's three calls, each against its plain version, in
+    # turns (the plain version takes tens of milliseconds a call)
+    variants = {}
+    for cname, args in zip(CAND_CALLS, cands):
+        variants[f"phase1 {cname}"] = lambda a=args: tile_cuda.candidates(*a)
+        variants[f"phase1 {cname} plain"] = lambda a=args: tile.candidates_plain(*a)
+    t.update(in_turns(variants, rounds=3, reps=10))
     t["frame_again"] = cuda_ms(lambda: diff.render_diff_cuda(*params, svo, o, d, light), 50, 3)
     t["dda"] = cuda_ms(lambda: brick_dda.brick_dda16(
         dda_args[0], dda_args[1], dda_args[2], *dda_args[3:], depth=10, steps=16), 50, 3)
@@ -1210,9 +1434,11 @@ def main():
         f"{m['tile_frame'][1]:.4f}, n=50) = "
         f"{n_rays / m['tile_frame'][0] / 1e3:.2f} Mrays/s at {res}x{res} depth "
         f"{depth}, {n_residual} residual rays; tile_walk (main walk) median "
-        f"{m['walk'][0]:.4f} ms (p80 {m['walk'][1]:.4f}); phase 1 (main) median "
-        f"{m['phase1'][0]:.4f} ms (p80 {m['phase1'][1]:.4f}); plain walk "
-        f"{walk_plain_ms:.3f} ms (n=1)")
+        f"{m['walk'][0]:.4f} ms (p80 {m['walk'][1]:.4f}); plain walk "
+        f"{walk_plain_ms:.3f} ms (n=1); phase 1, tile_candidates against "
+        f"candidates_plain in turns (three rounds of 10): " + ", ".join(
+            f"{c} {m[f'phase1 {c}'][0]:.4f} ms (p80 {m[f'phase1 {c}'][1]:.4f}) "
+            f"against {m[f'phase1 {c} plain'][0]:.4f}" for c in CAND_CALLS))
     say(f"[timing] {card}: brick_dda16 N={n_dda} median {m['dda'][0]:.4f} ms "
         f"(p80 {m['dda'][1]:.4f}), plain {m['dda_plain'][0]:.4f} ms (n=5); "
         f"rowread rows {m['row'][0]:.4f} ms, scalar {m['row_scalar'][0]:.4f}, "
@@ -1337,6 +1563,9 @@ def main():
                 and not e.key.startswith("ProfilerStep")]
 
     def profile_kernels(what, fn, unit, top):
+        """(us of kernel time a unit, us a launch by kernel, launches a
+        unit) of `runs` units of fn(), and a line for each of the `top`
+        largest kernels."""
         dev_us = lambda e: getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0.0))
         for runs in (20, 80, 320):
@@ -1347,22 +1576,31 @@ def main():
         else:
             say(f"[profile] {what}: the profiler saw no kernel in 20, 80 or 320 "
                 f"{unit}s; not measured here")
-            return None, {}
+            return None, {}, None
+        n_launches = sum(e.count for e in rows) / runs
         say(f"[profile] {what}, {runs} {unit}s: {total_us:.1f} us of kernel time a "
-            f"{unit} in {sum(e.count for e in rows) / runs:.1f} launches; the "
+            f"{unit} in {n_launches:.1f} launches; the "
             f"{min(top, len(rows))} largest, us a {unit} (launches a {unit}):")
         for e in rows[:top]:
             say(f"[profile]   {dev_us(e) / runs:9.1f}  ({e.count / runs:6.1f})  {e.key[:90]}")
         # by kernel, us a launch: the tracer may still drop a few launches
         # of a short pass, which lowers a sum over the pass but not this
-        return total_us, {e.key: dev_us(e) / e.count for e in rows if e.count}
+        return (total_us, {e.key: dev_us(e) / e.count for e in rows if e.count},
+                n_launches)
 
-    tile_us, tile_rows = profile_kernels("tile frame", lambda: diff.render_diff_tile(
-        *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), "frame", 10)
+    tile_us, tile_rows, tile_n = profile_kernels(
+        "tile frame", lambda: diff.render_diff_tile(
+            *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), "frame", 10)
     say("[profile] the tile frame's walks, us a launch: " + ", ".join(
         f"{k.split('(')[-2].split('::')[-1]} {v:.1f}" for k, v in tile_rows.items()
         if "tile_walk" in k))
-    step_us, step_rows = profile_kernels(
+    say("[profile] the tile frame's phase-1 calls, us a launch: " + ", ".join(
+        f"{v:.1f}" for k, v in tile_rows.items() if "tile_candidates" in k))
+    tile_step_us, _rows, tile_step_n = profile_kernels(
+        "tile fwd+bwd step", lambda: diff.loss_and_grads_tile(
+            *params, ts, o_t, d_t, corners, light, target0, **TILE_BUDGETS),
+        "step", 10)
+    step_us, step_rows, _n = profile_kernels(
         "per-ray fwd+bwd step", lambda: diff.loss_and_grads_cuda(
             *params, svo, o, d, light, target0), "step", 14)
     sorts = [k for k in step_rows if "sort" in k.lower() and "seg_" not in k]
@@ -1370,7 +1608,7 @@ def main():
         raise AssertionError(f"the per-ray step launched a sort: {sorts}")
     # the sort-free segment sum's kernels alone (each is launched once a
     # call, so us a launch is us a call), and the sorted form's
-    _, seg_rows = profile_kernels(
+    _, seg_rows, _n = profile_kernels(
         "segment_sum alone (the memset and its five kernels)",
         lambda: shade_cuda.segment_sum(seg_cot, hit_leaf, n_leaves), "call", 6)
     seg_kernel_us = {
@@ -1385,28 +1623,52 @@ def main():
     # round: us a launch of each, the frame's three walks one by one
     alone = {}
     for wname, args in zip(WALKS, walks):
-        _, rows = profile_kernels(
+        _, rows, _n = profile_kernels(
             f"walk {wname} alone: tile_walk at G={walk_rows[wname]['G']} and its "
             f"first form", lambda a=args: (tile_cuda._walk_kernel(*a),
                                             tile_cuda._walk_serial_kernel(*a)),
             "round", 2)
         alone[wname] = kernel_us(rows, "tile_walk_kernel", "tile_walk_serial_kernel")
-    _, rows = profile_kernels(
+    _, rows, _n = profile_kernels(
         "esvo_trace alone, and its first form", lambda: (
             traverse_cuda.trace_cuda(svo, o, d),
             traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
     alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
-    _, rows = profile_kernels(
+    _, rows, _n = profile_kernels(
         "take_1d at the main path's size alone, and index_select", lambda: (
             gather.take_1d(big_table, big_idx),
             torch.index_select(big_table, 0, big_idx)), "round", 2)
     # index_select of a 1-D table runs PyTorch's gather kernel
     alone["take"] = kernel_us(rows, "take_kernel", "gather")
+    # phase 1's three calls alone, one call a pass
+    for cname, args in zip(CAND_CALLS, cands):
+        _, rows, _n = profile_kernels(f"tile_candidates {cname} alone",
+                                      lambda a=args: tile_cuda.candidates(*a),
+                                      "call", 1)
+        alone[f"phase1 {cname}"] = next(
+            (v for k, v in rows.items() if "tile_candidates_kernel" in k), None)
     idle = lambda us, ms: "not measured" if us is None else f"{1 - us / 1e3 / ms:.2f}"
-    say(f"[profile] idle share of the card: tile frame "
-        f"{idle(tile_us, m['tile_frame'][0])} (of its median "
-        f"{m['tile_frame'][0]:.4f} ms), per-ray fwd+bwd step "
-        f"{idle(step_us, m['step'][0])} (of {m['step'][0]:.4f} ms)")
+    count = lambda n: "not measured" if n is None else f"{n:.1f}"
+    say(f"[profile] {card}: idle share of the card: tile frame {count(tile_n)} "
+        f"launches a frame, idle {idle(tile_us, m['tile_frame'][0])} of its "
+        f"median {m['tile_frame'][0]:.4f} ms; tile fwd+bwd step "
+        f"{count(tile_step_n)} launches a step, idle "
+        f"{idle(tile_step_us, m['step_tile'][0])} of its median "
+        f"{m['step_tile'][0]:.4f} ms; per-ray fwd+bwd step idle "
+        f"{idle(step_us, m['step'][0])} of its median {m['step'][0]:.4f} ms")
+
+    # where the tile frame's and the tile step's host time goes, by group
+    for what, fn in (
+            ("tile frame", lambda: diff.render_diff_tile(
+                *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS)),
+            ("tile fwd+bwd step", lambda: diff.loss_and_grads_tile(
+                *params, ts, o_t, d_t, corners, light, target0, **TILE_BUDGETS))):
+        groups = sorted(host_groups(fn).items(), key=lambda kv: -kv[1][1])
+        say(f"[host] {card}: {what}, top-level aten ops and their host us by "
+            f"group (one pass, CPU profiler): " + "; ".join(
+                f"{g} {n} ops {us:.0f} us" for g, (n, us) in groups)
+            + f"; in all {sum(n for n, _u in dict(groups).values())} ops "
+            f"{sum(u for _n, u in dict(groups).values()):.0f} us")
 
     # the probe kernels without their wrappers: one call of each a round
     def probe_round():
@@ -1448,6 +1710,19 @@ def main():
         f"{us(alone['esvo'][1])} us, bound {esvo_bound[0]:.5f} ms; take_1d at "
         f"full size {us(alone['take'][0])} us alone, index_select "
         f"{us(alone['take'][1])} us, bound {take_full_bound[0]:.5f} ms")
+    for cname in CAND_CALLS:
+        cand_rows[cname].update(
+            ms=m[f"phase1 {cname}"][0], plain_ms=m[f"phase1 {cname} plain"][0],
+            us_alone=alone[f"phase1 {cname}"])
+    say(f"[bound] tile_candidates, each of the frame's calls (its corners, a "
+        f"pyramid word a kept cell, a cellmap row a valid candidate and its "
+        f"outputs at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {OPS_CAND_SLOT} "
+        f"operations a child slot and {OPS_CAND_CHILD} an occupied child at "
+        f"{PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s; the sort not counted): " + "; ".join(
+            f"{c} {r['bound_ms']:.5f} ms ({r['bound_by']}; {r['bytes'] / 1e6:.3f} "
+            f"MB, {r['ops'] / 1e6:.1f} M operations), {us(r['us_alone'])} us "
+            f"alone, {r['ms']:.4f} ms in turns against the plain version's "
+            f"{r['plain_ms']:.4f}" for c, r in cand_rows.items()))
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
     n_hits = int((hit_leaf >= 0).sum())
@@ -1504,6 +1779,15 @@ def main():
              ms=main_walk["ms_first_form"], plain_ms=walk_plain_ms,
              bound_ms=main_walk["bound_ms"], bound_by=main_walk["bound_by"],
              library_ms=None),
+        dict(name="tile_candidates", route="cuda",
+             source=src + "tile_candidates.cu",
+             replaces="raytracingtest_tpu/ops/tile.py:288",
+             path="diff.render_diff_tile / diff.loss_and_grads_tile",
+             launches=cand_launches, max_abs_err=err["tile_candidates"],
+             ms=cand_rows["main"]["ms"], plain_ms=cand_rows["main"]["plain_ms"],
+             bound_ms=cand_rows["main"]["bound_ms"],
+             bound_by=cand_rows["main"]["bound_by"], library_ms=None,
+             us_alone=cand_rows["main"]["us_alone"], calls=cand_rows),
         dict(name="brick_dda16", route="cuda", source=src + "tile_walk.cu",
              replaces="scratch/r4_pallas2.py:115",
              path="brick_dda.brick_dda16", launches=dda_launches,
@@ -1565,6 +1849,7 @@ def main():
     ]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
+    kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

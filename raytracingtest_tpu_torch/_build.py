@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (ctypes, plain C interfaces).
 
-Four libraries, each built on first use into
+Five libraries, each built on first use into
 ``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
@@ -15,7 +15,9 @@ Four libraries, each built on first use into
   * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
                      the loop probe, fused shading, its backward and the
                      deterministic segment sum (sort-free, and its earlier
-                     sorted form).
+                     sorted form);
+  * ``tile_candidates`` — ``csrc/tile_candidates.cu`` with nvcc for ``sm_90a``:
+                     phase 1 of the tile trace, each tile's candidate list.
 
 ``build_all`` builds them side by side, one compiler process each.
 
@@ -146,6 +148,12 @@ def _declare_shade(lib):
         fn.restype = i
 
 
+def _declare_candidates(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tile_candidates.argtypes = [p, p, p, p, i, i, p, i, p, p, p, p, p]
+    lib.tile_candidates.restype = i
+
+
 def noise_lib():
     """The host noise library (built with g++ on first call)."""
     return _load("noise", lambda: "g++", NOISE_FLAGS,
@@ -172,6 +180,12 @@ def shade_lib():
                  os.path.join(_CSRC, "shade.cu"), _declare_shade)
 
 
+def candidates_lib():
+    """The tile trace's phase-1 kernel (built with nvcc on first call)."""
+    return _load("tile_candidates", _nvcc, NVCC_FLAGS,
+                 os.path.join(_CSRC, "tile_candidates.cu"), _declare_candidates)
+
+
 def build_all() -> dict:
     """Build and load every library at once, one thread (and so one
     compiler process) each; returns seconds by library name. The first
@@ -185,7 +199,8 @@ def build_all() -> dict:
         return time.perf_counter() - t0
 
     libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib,
-            "shade": shade_lib, "noise": noise_lib}
+            "shade": shade_lib, "tile_candidates": candidates_lib,
+            "noise": noise_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -116,7 +116,7 @@ def shade_diff(hit_leaf, direction, albedo, normal, density,
 
 def render_diff_cuda(albedo, normal, density, svo, o, d, light_dir,
                      light_intensity=1.3, light_ambient=0.08):
-    """Render a flat batch of (N, 3) rays, N a multiple of 1024: trace
+    """Render a flat batch of (N, 3) rays, any N: trace
     (the CUDA kernel for CUDA tensors), then shade. Returns (N, 3)
     radiance, differentiable in the three parameter tensors."""
     with torch.no_grad():

@@ -118,8 +118,8 @@ class InverseRenderer:
 
     def step(self, params, opt_state, o, d, light, target):
         """One train step on a flat batch of (N, 3) rays against `target`
-        (N, 3), through the per-ray frame (``diff.loss_and_grads_cuda``; N a
-        multiple of 1024). Returns (params, opt_state, loss)."""
+        (N, 3), through the per-ray frame (``diff.loss_and_grads_cuda``; any
+        N). Returns (params, opt_state, loss)."""
         loss, grads = diff.loss_and_grads_cuda(
             *(params[name] for name in PARAM_NAMES), self.svo, o, d,
             self._light(light), target)

@@ -7,7 +7,9 @@ camera tiles (default 16x16):
     walks a dense occupancy-bit mip pyramid of the octree once, level by
     level, and keeps up to K brick candidates in conservative front-to-back
     order. Selection per level is one sort of a packed int32 key (quantised
-    conservative t | morton code). Tensor ops here, as in the reference.
+    conservative t | morton code). For CUDA tensors this is the hand-written
+    kernel behind ``tile_cuda.candidates``; its plain version is
+    ``candidates_plain`` below.
   * phase 2 (the walker): every ray walks its tile's candidate list with its
     own cursor and runs the exact 8^3 brick DDA in each brick it enters;
     the hit's leaf id is resolved from one brick row. For CUDA tensors this
@@ -255,10 +257,23 @@ def _frustum_planes(corners, apex):
 
 
 def _candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
-    """Per-tile brick candidates. Returns (codes (T,K), brick_ids (T,K),
-    t_lb (T,K), a conservative per-tile lower bound on any ray's entry t,
-    ascending) and drop_t (T,), a lower bound on the t of anything dropped
-    (inf when nothing was dropped)."""
+    """Per-tile brick candidates (see ``candidates_plain``). The kernel runs
+    for CUDA tensors, the plain version for CPU tensors."""
+    if corners.device.type == "cpu":
+        return candidates_plain(pyr, cellmap, corners, apex, top_depth, caps,
+                                k_max)
+    from raytracingtest_tpu_torch.ops import tile_cuda
+
+    return tile_cuda.candidates(pyr, cellmap, corners, apex, top_depth, caps,
+                                k_max)
+
+
+def candidates_plain(pyr, cellmap, corners, apex, top_depth, caps, k_max):
+    """Phase 1 in tensor ops: what ``tile_cuda.candidates``'s kernel
+    computes, tile for tile. Per-tile brick candidates. Returns (codes (T,K),
+    brick_ids (T,K), t_lb (T,K), a conservative per-tile lower bound on any
+    ray's entry t, ascending) and drop_t (T,), a lower bound on the t of
+    anything dropped (inf when nothing was dropped)."""
     T = corners.shape[0]
     dev = corners.device
     planes = _frustum_planes(corners, apex)           # (T,4,3)
@@ -654,8 +669,9 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
         # level keeps up to fb_k candidates (clipped to the level's 8^l
         # cells)
         caps2 = tuple(min(fb_k, 8 ** l) for l in range(top_depth + 1))
-        codes2, ids2, t2, drop2 = _candidates(pyr, cellmap, corners[sel_t],
-                                              apex, top_depth, caps2, fb_k)
+        codes2, ids2, t2, drop2 = _candidates(
+            pyr, cellmap, corners[sel_t].contiguous(), apex, top_depth, caps2,
+            fb_k)
         hit2, t_hit2, _it2, un2 = _walk_tiles_scheduled(
             bricks, o[sel_t], d[sel_t], codes2, ids2, t2, drop2, depth=depth,
             top_depth=top_depth, k_max=fb_k)
@@ -672,8 +688,8 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
         o3, d3, c3 = _subtile_split(o[sel2], d[sel2], corners[sel2],
                                     fb2_split)
         caps3 = _fb2_caps(top_depth, fb_k)
-        codes3, ids3, t3, drop3 = _candidates(pyr, cellmap, c3, apex,
-                                              top_depth, caps3, fb_k)
+        codes3, ids3, t3, drop3 = _candidates(pyr, cellmap, c3.contiguous(),
+                                              apex, top_depth, caps3, fb_k)
         hit3, t_hit3, _it3, un3 = _walk_tiles_scheduled(
             bricks, o3.contiguous(), d3.contiguous(), codes3, ids3, t3,
             drop3, depth=depth, top_depth=top_depth, k_max=fb_k)
@@ -720,18 +736,14 @@ def trace_tile_exact(tsvo: TileSVO, svo, o, d, corners, k_max=48, caps=None,
                                     caps=caps, fb_tiles=fb_tiles, fb_k=fb_k,
                                     fb2_tiles=fb2_tiles, fb2_split=fb2_split)
     idx = torch.nonzero(unresolved)[:, 0]
-    n_un = idx.shape[0]
-    if n_un == 0:
+    if idx.shape[0] == 0:
         return res
-    # pad to the per-ray trace's ray-count multiple with copies of ray 0
-    pad = -n_un % traverse_cuda.TILE_N
-    sel = torch.cat([idx, idx.new_zeros(pad)])
-    o_f = o.reshape(-1, 3).to(_F32)[sel].contiguous()
-    d_f = d.reshape(-1, 3).to(_F32)[sel].contiguous()
+    o_f = o.reshape(-1, 3).to(_F32)[idx].contiguous()
+    d_f = d.reshape(-1, 3).to(_F32)[idx].contiguous()
     sub = traverse_cuda.trace_cuda(svo, o_f, d_f)
     hit_leaf = res.hit_leaf.clone()
     hit_t = res.hit_t.clone()
-    hit_leaf[idx] = sub.hit_leaf[:n_un]
-    hit_t[idx] = sub.hit_t[:n_un]
+    hit_leaf[idx] = sub.hit_leaf
+    hit_t[idx] = sub.hit_t
     return TraceResult(hit_leaf, hit_t, res.hit_parent, res.hit_child,
                        res.iters)

@@ -1,5 +1,6 @@
-"""The tile walker on the card: the wrappers of ``tile_walk`` and
-``tile_walk_serial`` in ``csrc/tile_walk.cu``.
+"""The tile trace on the card: the wrappers of ``tile_walk`` and
+``tile_walk_serial`` in ``csrc/tile_walk.cu`` (phase 2, the walk) and of
+``tile_candidates`` in ``csrc/tile_candidates.cu`` (phase 1).
 
 Both kernels replace what the reference's ``_walk_chunk_window`` and
 ``_resolve_hits`` compute (``raytracingtest_tpu/ops/tile.py``) and give the
@@ -11,13 +12,21 @@ ray: the check of the other and its yardstick, which nothing on the main
 path launches. CUDA tensors go to a kernel; CPU tensors go to the plain
 version, ``tile.walk_plain``. Nothing else picks the path: a build or launch
 failure raises.
+
+``candidates`` launches ``tile_candidates``, which computes what the
+reference's ``_candidates`` does and gives the same bits as its plain
+version, ``tile.candidates_plain``: one block a tile, a level's keys sorted
+in shared memory. ``tile._candidates`` sends CUDA tensors here and CPU
+tensors to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from raytracingtest_tpu_torch._build import tile_lib
+from raytracingtest_tpu_torch._build import candidates_lib, tile_lib
 from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.ops import tile
 from raytracingtest_tpu_torch.ops.brick import BRICK_LEVELS
@@ -34,12 +43,21 @@ LANES = (1, 2, 4, 8, 16, 32)
 # lanes_per_ray fills the card's thread slots this many times over
 FILLS = 2
 
-# kernel launches made by this process: tile_walk, and its serial form
+# tile_candidates keeps at most this many keys a level (k_max and every
+# cap), so a block sorts at most 8 times as many; the pyramid has at most
+# this many levels
+WIDTH_LIMIT = 256
+TOP_DEPTH_LIMIT = 10
+
+# kernel launches made by this process: tile_walk, its serial form, and
+# tile_candidates
 launches = 0
 serial_launches = 0
+candidates_launches = 0
 
 _TILE_WALK = Kernel("tile_walk", tile_lib)
 _TILE_WALK_SERIAL = Kernel("tile_walk_serial", tile_lib)
+_TILE_CANDIDATES = Kernel("tile_candidates", candidates_lib)
 
 _slots: dict = {}
 
@@ -159,3 +177,64 @@ def tile_walk_serial(bricks, o, d, codes, ids, t_codes, depth, top_depth):
                                top_depth)
     return _walk_serial_kernel(bricks, o, d, codes, ids, t_codes, depth,
                                top_depth)
+
+
+def level_widths(top_depth, caps, k_max):
+    """The keys phase 1 keeps at each level 0..top_depth, a static rule that
+    ``tile.candidates_plain`` follows by slicing: 1 at level 0, then
+    min(cap_l, 8 * the last level's), where cap_l is min(caps[l], 8^l)
+    (caps[-1] past its end) and, at the finest level, min(k_max, 8^l). A
+    level drops keys, and lowers drop_t, where its width is below 8 times
+    the last one's."""
+    widths = [1]
+    for l in range(1, top_depth + 1):
+        cap = min(caps[l] if l < len(caps) else caps[-1], 8 ** l)
+        if l == top_depth:
+            cap = min(k_max, 8 ** l)
+        widths.append(min(cap, 8 * widths[-1]))
+    return tuple(widths)
+
+
+def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
+    """Launch ``tile_candidates`` on CUDA tensors: phase 1 for every tile of
+    the (T, 4, 3) contiguous `corners` (arguments and results as
+    ``tile.candidates_plain``). `apex` is the (3,) float32 camera position on
+    the card; nothing is read back to the host. top_depth must be 1..10, and
+    k_max and every cap of levels 1..top_depth-1 1..256."""
+    global candidates_launches
+    if not 1 <= top_depth <= TOP_DEPTH_LIMIT:
+        raise ValueError(f"top_depth {top_depth} out of range: the kernel "
+                         f"takes 1 to {TOP_DEPTH_LIMIT}")
+    if not 1 <= k_max <= WIDTH_LIMIT:
+        raise ValueError(f"k_max {k_max} out of range: the kernel takes 1 to "
+                         f"{WIDTH_LIMIT}")
+    for l in range(1, top_depth):
+        cap = caps[l] if l < len(caps) else caps[-1]
+        if not 1 <= cap <= WIDTH_LIMIT:
+            raise ValueError(f"caps[{min(l, len(caps) - 1)}] = {cap} out of "
+                             f"range: the kernel takes 1 to {WIDTH_LIMIT}")
+    if corners.dim() != 3:
+        raise ValueError(f"corners has shape {tuple(corners.shape)}, "
+                         f"expected (T, 4, 3)")
+    T = corners.shape[0]
+    if not 1 <= T < 2 ** 31:
+        raise ValueError(f"corners holds {T} tiles: the kernel takes 1 to "
+                         f"2**31 - 1")
+    n_words = tile._pyr_layout(top_depth)[1]
+    _TILE_CANDIDATES.check(corners.device, (
+        ("pyr", pyr, _I32, (n_words,)),
+        ("cellmap", cellmap, _I32, (max(1, 8 ** top_depth // 32), 2)),
+        ("corners", corners, _F32, (T, 4, 3)), ("apex", apex, _F32, (3,))))
+    widths = level_widths(top_depth, caps, k_max)
+    dev = corners.device
+    codes = torch.empty((T, k_max), dtype=_I32, device=dev)
+    ids = torch.empty((T, k_max), dtype=_I32, device=dev)
+    t_codes = torch.empty((T, k_max), dtype=_F32, device=dev)
+    drop_t = torch.empty((T,), dtype=_F32, device=dev)
+    _TILE_CANDIDATES(dev, pyr.data_ptr(), cellmap.data_ptr(),
+                     corners.data_ptr(), apex.data_ptr(), T, top_depth,
+                     (ctypes.c_int * len(widths))(*widths), k_max,
+                     codes.data_ptr(), ids.data_ptr(), t_codes.data_ptr(),
+                     drop_t.data_ptr())
+    candidates_launches += 1
+    return codes, ids, t_codes, drop_t

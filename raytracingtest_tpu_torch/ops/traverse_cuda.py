@@ -21,9 +21,6 @@ from raytracingtest_tpu_torch.ops.traverse import S_MAX, TraceResult
 
 _F32, _I32 = torch.float32, torch.int32
 
-# trace_cuda keeps trace_pallas's contract: a multiple of one (8, 128) tile
-TILE_N = 1024
-
 # kernel launches made by this process (a plain count, for checks of the
 # path a run took): esvo_trace, and its serial form
 launches = 0
@@ -79,17 +76,9 @@ def _trace_serial_kernel(svo, origin, direction) -> TraceResult:
     return TraceResult(*out)
 
 
-def _aligned(origin):
-    n = origin.shape[0]
-    if n % TILE_N:
-        raise ValueError(f"ray count {n} not a multiple of {TILE_N}")
-
-
 def trace_cuda(svo, origin, direction) -> TraceResult:
-    """Trace (N, 3) float32 rays in octree-local coordinates; N must be a
-    multiple of TILE_N (pad upstream). The kernel runs for CUDA tensors, the
-    plain version for CPU tensors."""
-    _aligned(origin)
+    """Trace (N, 3) float32 rays in octree-local coordinates, any N. The
+    kernel runs for CUDA tensors, the plain version for CPU tensors."""
     if origin.device.type == "cpu":
         return traverse.trace(svo, origin, direction)
     return _trace_kernel(svo, origin, direction)
@@ -99,7 +88,6 @@ def trace_cuda_serial(svo, origin, direction) -> TraceResult:
     """``trace_cuda`` through the first form of the kernel: the same
     results. The kernel runs for CUDA tensors, the plain version for CPU
     tensors."""
-    _aligned(origin)
     if origin.device.type == "cpu":
         return traverse.trace(svo, origin, direction)
     return _trace_serial_kernel(svo, origin, direction)

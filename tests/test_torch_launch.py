@@ -20,6 +20,7 @@ KERNELS = {
     "esvo_trace_serial": traverse_cuda._ESVO_TRACE_SERIAL,
     "tile_walk": tile_cuda._TILE_WALK,
     "tile_walk_serial": tile_cuda._TILE_WALK_SERIAL,
+    "tile_candidates": tile_cuda._TILE_CANDIDATES,
     "brick_dda16": brick_dda._BRICK_DDA16,
     "rowread": rowread._ROWREAD,
     "take": gather._TAKE,

@@ -16,7 +16,8 @@ from raytracingtest_tpu.ops.traverse_pallas import trace_pallas
 from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 
 from raytracingtest_tpu_torch import convert, diff, render
-from raytracingtest_tpu_torch.ops import traverse_cuda
+from raytracingtest_tpu_torch.ops import traverse, traverse_cuda
+from tests.test_traverse import random_rays
 
 LIGHT = np.array([-0.5, -1.0, -0.3], np.float32)
 
@@ -114,11 +115,17 @@ def test_gather_voxel_params_rows():
     assert torch.equal(den, density[ids.long()])
 
 
-def test_render_diff_cuda_rejects_unaligned_count():
-    ref = jax_octree.build_svo(jax_get_scene("sphere"), 3).svo
+def test_render_diff_cuda_takes_any_ray_count():
+    """100 rays, no multiple of the Pallas kernel's 1024-ray tile: the frame
+    is the plain trace shaded, as for any other count."""
+    ref = jax_octree.build_svo(jax_get_scene("sphere"), 5).svo
     svo = convert.svo_from_numpy(ref, "cpu")
     alb, nrm, den = convert.params_from_numpy(ref.leaf_albedo, ref.leaf_normal,
                                               ref.leaf_density, "cpu")
-    with pytest.raises(ValueError):
-        diff.render_diff_cuda(alb, nrm, den, svo, torch.zeros((100, 3)),
-                              torch.ones((100, 3)), torch.from_numpy(LIGHT))
+    o, d = (torch.from_numpy(a) for a in random_rays(100, seed=100))
+    light = torch.from_numpy(LIGHT)
+    img = diff.render_diff_cuda(alb, nrm, den, svo, o, d, light)
+    hit_leaf = traverse.trace(svo, o, d).hit_leaf
+    assert img.shape == (100, 3) and int((hit_leaf >= 0).sum()) > 0
+    assert torch.equal(img, diff.shade_diff_plain(hit_leaf, d, alb, nrm, den,
+                                                  light, 1.3, 0.08))

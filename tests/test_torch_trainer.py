@@ -140,6 +140,20 @@ def test_step_view_falls_back_to_the_flat_step(scene):
                                atol=PARAM_ATOL)
 
 
+def test_step_view_trains_any_ray_count(scene):
+    """A 24 x 24 view: 576 rays, no multiple of 16 (so ``step``) nor of the
+    Pallas kernel's 1024-ray tile. The reference trains on it; so must the
+    port, with the loss and parameters the reference's step gives."""
+    (_ref_start, _start), steps = run_both(
+        scene, dict(CAM, width=24, height=24), 1)
+    ref_p, p, ref_loss, loss, ref_res, n_res = steps[0]
+    assert ref_res == n_res == 0
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    np.testing.assert_allclose(p["albedo"], ref_p["albedo"], rtol=0,
+                               atol=PARAM_ATOL)
+    assert loss > 0.0
+
+
 def test_step_updates_in_place_and_returns_the_same_objects(scene):
     _ref_svo, svo = scene
     model = InverseRenderer(svo, optimize=("albedo", "density"), device="cpu")

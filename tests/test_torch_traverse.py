@@ -11,7 +11,7 @@ import torch
 from raytracingtest_tpu.ops import camera as jax_camera
 from raytracingtest_tpu.ops import octree as jax_octree
 from raytracingtest_tpu.ops import traverse as jax_traverse
-from raytracingtest_tpu.ops.traverse_pallas import trace_pallas
+from raytracingtest_tpu.ops.traverse_pallas import TILE_N, trace_pallas
 from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 from tests.test_traverse import random_rays
 
@@ -112,7 +112,7 @@ def test_trace_axis_aligned_and_missing_rays():
 @pytest.mark.parametrize("name,depth", SCENES)
 def test_trace_matches_pallas_interpret(name, depth):
     ref_svo, svo = _svos(name, depth)
-    o, d = random_rays(traverse_cuda.TILE_N, seed=depth)
+    o, d = random_rays(TILE_N, seed=depth)
     ours = traverse_cuda.trace_cuda(svo, torch.from_numpy(o), torch.from_numpy(d))
     pal = trace_pallas(ref_svo.device(), o, d, interpret=True)
     np.testing.assert_array_equal(ours.hit_leaf.numpy(), np.asarray(pal.hit_leaf))
@@ -126,10 +126,18 @@ def test_trace_matches_pallas_interpret(name, depth):
                                np.asarray(pal.hit_t)[hit], rtol=1e-5, atol=1e-6)
 
 
-def test_trace_cuda_rejects_unaligned_count():
-    _, svo = _svos("sphere", 3)
-    with pytest.raises(ValueError):
-        traverse_cuda.trace_cuda(svo, torch.zeros((100, 3)), torch.ones((100, 3)))
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_trace_cuda_takes_any_ray_count(n):
+    """Any N, as the reference's per-ray step takes (no multiple of the
+    Pallas kernel's 1024-ray tile): the CPU path is the plain trace."""
+    _, svo = _svos("terrain", 5)
+    o, d = random_rays(n, seed=n)
+    ours = traverse_cuda.trace_cuda(svo, torch.from_numpy(o), torch.from_numpy(d))
+    plain = _trace(svo, o, d)
+    for name in ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters"):
+        assert torch.equal(getattr(ours, name), getattr(plain, name)), name
+    assert ours.hit_leaf.shape == (n,)
+    assert n < 100 or int((ours.hit_leaf >= 0).sum()) > 0
 
 
 def test_trace_cuda_on_cpu_runs_plain_version():
