@@ -189,7 +189,7 @@ def reset_counts():
     for mod in (traverse_cuda, tile_cuda, brick_dda, rowread):
         mod.launches = 0
     traverse_cuda.serial_launches = tile_cuda.serial_launches = 0
-    tile_cuda.candidates_launches = 0
+    tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
     for mod in (gather, shade_cuda):
@@ -328,6 +328,19 @@ def check_segment_sum(what, cot, hit_leaf, n_leaves):
     return sums, e_new, e_sorted
 
 
+def check_bwd_forms(cot, args, what):
+    """`cot` (shade_bwd's) bitwise against shade_bwd_serial and against
+    shade_bwd with the light normalised once a ray, on `args`; returns the
+    first form's cot."""
+    first = shade_cuda.shade_bwd_serial(*args)
+    each = shade_cuda.shade_bwd(*args, light_once=not shade_cuda.LIGHT_ONCE)
+    torch.cuda.synchronize()
+    compare_tensors((cot,), (first,), ("cot",), f"{what}, against the first form")
+    compare_tensors((cot,), (each,), ("cot",),
+                    f"{what}, against the light normalised the other way")
+    return first
+
+
 # The tile frame's host work in groups: the functions of the tile trace and of
 # the frame that hold its eager tensor ops, from the innermost out. An op
 # counts for the innermost group that it runs in.
@@ -388,12 +401,16 @@ def host_groups(fn):
     return out
 
 
-def kernel_us(rows, new, first):
-    """(us a launch of the kernel whose name holds `new`, of the one whose
-    name holds `first`) from a profile pass's rows; None where the tracer
-    saw none."""
-    pick = lambda part: next((v for k, v in rows.items() if part in k), None)
-    return pick(new), pick(first)
+def us_or(v):
+    """A time in us for a line, or "not measured" where the tracer saw none."""
+    return "not measured" if v is None else f"{v:.2f}"
+
+
+def kernel_us(rows, *parts):
+    """For each of `parts`, us a launch of the kernel whose name holds it,
+    from a profile pass's rows; None where the tracer saw none."""
+    return tuple(next((v for k, v in rows.items() if part in k), None)
+                 for part in parts)
 
 
 def host_us(fn, calls=3000):
@@ -481,31 +498,47 @@ def walk_inputs(ts, o, d, corners, mode):
 WALK_NAMES = ("hit_leaf", "hit_t", "iters")
 CAND_NAMES = ("codes", "ids", "t_codes", "drop_t")
 CAND_CALLS = ("main", "enlarged-K", "sub-tile")
+# the small cases' budgets that make levels overflow their widths
+NARROW = ("narrow", "narrow top")
 
 
 def check_candidates(args, what):
-    """tile_candidates bitwise against candidates_plain on the card (codes,
-    ids, t_codes and drop_t bits). Returns the largest float difference (0.0
-    when exact) and the number of valid candidates."""
+    """tile_candidates (at the rule's warps a tile and at each of them) and
+    its first form, tile_candidates_block, each bitwise against
+    candidates_plain on the card (codes, ids, t_codes and drop_t bits).
+    Returns the largest float differences of the new and of the first form
+    (0.0 when exact) and the number of valid candidates."""
     kern = tile_cuda.candidates(*args)
+    every = [tile_cuda.candidates(*args, warps=w) for w in tile_cuda.CANDIDATE_WARPS]
+    first = tile_cuda.candidates_block(*args)
     plain = tile.candidates_plain(*args)
     torch.cuda.synchronize()
-    return (compare_tensors(kern, plain, CAND_NAMES, what),
-            int((kern[1] >= 0).sum()))
+    e_new = compare_tensors(kern, plain, CAND_NAMES, what)
+    for w, got in zip(tile_cuda.CANDIDATE_WARPS, every):
+        e_new = max(e_new, compare_tensors(got, plain, CAND_NAMES,
+                                           f"{what}, {w} warps a tile"))
+    e_first = compare_tensors(first, plain, CAND_NAMES, f"{what}, first form")
+    return e_new, e_first, int((kern[1] >= 0).sum())
 
 
-def candidate_cases(dev, small_cam, inside_cam):
+def candidate_cases(dev, small_cam, inside_cam, horizon_cam):
     """(what, tile_candidates arguments) of the small cases: the tests'
     budgets (tiny, default, wide), bench.py's, the sub-tile pass's on 2x2
     sub-tile corners, the trainer's fb_k = 256, shallow trees whose lists are
-    shorter than k_max, a camera inside the solid, and the empty scene."""
+    shorter than k_max, a camera inside the solid, the empty scene, and the
+    cases of the selection: narrow intermediate levels that overflow in
+    many tiles ("narrow"), a finest level that overflows ("narrow top"), and
+    a camera on the horizon, whose upper tiles see nothing and whose lower
+    ones overflow bench.py's budgets."""
     def budgets(td):
         return {
             "tiny": ((1, 2, 2, 2), 2), "default": (tile._default_caps(td, 48), 48),
             "wide": (tuple(min(160, 8 ** l) for l in range(td + 1)), 160),
             "bench": (tile._default_caps(td, 96), 96),
             "fb2": (tile._fb2_caps(td, 160), 160),
-            "fb_k 256": (tuple(min(256, 8 ** l) for l in range(td + 1)), 256)}
+            "fb_k 256": (tuple(min(256, 8 ** l) for l in range(td + 1)), 256),
+            "narrow": ((1, 8) + (3,) * (td - 1), 96),
+            "narrow top": (tuple(min(64, 8 ** l) for l in range(td + 1)), 40)}
     empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
     cases = []
     for name, depth, cam, which in (
@@ -513,14 +546,17 @@ def candidate_cases(dev, small_cam, inside_cam):
             ("flat_ground", 6, small_cam, None), ("sphere", 5, small_cam, None),
             ("flat_ground", 4, small_cam, None),
             ("terrain", 6, inside_cam, ("default", "fb_k 256")),
-            ("empty", 4, small_cam, ("default",))):
+            ("empty", 4, small_cam, ("default",)),
+            ("terrain", 7, small_cam, NARROW),
+            ("terrain", 7, horizon_cam, ("bench",) + NARROW)):
         scene = empty if name == "empty" else get_scene(name)
         ts = tile.make_tile_svo(octree.build_svo(scene, depth)).to(dev)
         o, d, corners, _grid = tile.tile_rays(cam, dev)
         sub = tile._subtile_split(o, d, corners, 2)[2].contiguous()
-        where = "inside the solid" if cam is inside_cam else "bench camera"
+        where = ("inside the solid" if cam is inside_cam else
+                 "on the horizon" if cam is horizon_cam else "bench camera")
         for b, (caps, k_max) in budgets(ts.top_depth).items():
-            if which is None or b in which:
+            if (which is None and b not in NARROW) or (which and b in which):
                 c = sub if b == "fb2" else corners
                 cases.append((f"{name} d{depth} {where} {b}",
                               (ts.pyr, ts.cellmap, c, o[0, 0], ts.top_depth,
@@ -561,6 +597,35 @@ def candidate_work(args):
     n_bytes = (nbytes(corners, apex) + words * 4 + int((final[1] >= 0).sum()) * 8
                + nbytes(*final))
     return n_bytes, slots * OPS_CAND_SLOT + occupied * OPS_CAND_CHILD, widths
+
+
+def level_counts(args):
+    """(T, top_depth) int64: for each tile and each level 1..top_depth, the
+    valid (non-sentinel) keys phase 1 sees at that level before it keeps
+    `width` of them, and the static widths. Counted by the plain version
+    stopped at each level with room for every child of the kept cells
+    there, so that nothing at that level is dropped."""
+    pyr, cellmap, corners, apex, td, caps, k_max = args
+    widths = tile_cuda.level_widths(td, caps, k_max)
+    cols = [(tile.candidates_plain(pyr, cellmap, corners, apex, l, caps,
+                                   8 * widths[l - 1])[0] >= 0).sum(dim=1)
+            for l in range(1, td + 1)]
+    return torch.stack(cols, dim=1), widths
+
+
+def work_line(cname, args):
+    """The [work] text of one phase-1 call: per level, the mean and the
+    largest count of valid keys a tile, the width, and the tiles whose
+    count is above the width."""
+    counts, widths = level_counts(args)
+    counts = counts.float()
+    parts = [f"l{l} {float(counts[:, l - 1].mean()):.2f}/"
+             f"{int(counts[:, l - 1].max())} of {widths[l]} "
+             f"({int((counts[:, l - 1] > widths[l]).sum())} over)"
+             for l in range(1, len(widths))]
+    return (f"{cname} T={counts.shape[0]} K={args[6]}, "
+            f"{int((counts[:, -1] == 0).sum())} tiles see nothing: "
+            + ", ".join(parts))
 
 
 def check_walk(args, what):
@@ -686,10 +751,10 @@ def main():
     # ---- 3. kernels vs plain versions on the card ---------------------------
     count_plain_calls()
     err = dict(esvo_trace=0.0, esvo_trace_serial=0.0, tile_walk=0.0,
-               tile_walk_serial=0.0, tile_candidates=0.0, brick_dda16=0.0,
-               rowread=0.0,
+               tile_walk_serial=0.0, tile_candidates=0.0,
+               tile_candidates_block=0.0, brick_dda16=0.0, rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
-               segment_sum=0.0, segment_sum_sorted=0.0)
+               shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -713,14 +778,34 @@ def main():
     small_cam = camera.Camera(**bench_cam, width=128, height=128)
     inside_cam = camera.Camera(position=(0.5, 0.05, 0.5), look_at=(0.5, 0.5, 0.5),
                                fov_y_deg=60.0, width=128, height=128)
-    cand_cases = candidate_cases(dev, small_cam, inside_cam)
+    horizon_cam = camera.Camera(position=(0.5, 0.5, -0.3), look_at=(0.5, 0.5, 1.0),
+                                fov_y_deg=50.0, width=128, height=128)
+    cand_cases = candidate_cases(dev, small_cam, inside_cam, horizon_cam)
     cand_valid = []
+    # tiles of the selection's cases in which an intermediate level, the
+    # finest level overflows its width, and which see nothing at the finest
+    selection = dict(intermediate=0, finest=0, nothing=0)
     for what, args in cand_cases:
-        e, n_valid = check_candidates(args, f"tile_candidates {what}")
-        err["tile_candidates"] = max(err["tile_candidates"], e)
+        e_new, e_first, n_valid = check_candidates(args, f"tile_candidates {what}")
+        err["tile_candidates"] = max(err["tile_candidates"], e_new)
+        err["tile_candidates_block"] = max(err["tile_candidates_block"], e_first)
         cand_valid.append(n_valid)
-    say(f"[parity] tile_candidates: kernel == candidates_plain bitwise (codes, "
-        f"ids, t_codes and drop_t bits) on {len(cand_cases)} small cases: "
+        if "narrow" in what or "horizon" in what:
+            counts, widths = level_counts(args)
+            over = counts > torch.tensor(widths[1:], device=counts.device)
+            selection["intermediate"] += int(over[:, :-1].any(dim=1).sum())
+            selection["finest"] += int(over[:, -1].sum())
+            selection["nothing"] += int((counts[:, -1] == 0).sum())
+    if not all(selection.values()):
+        raise AssertionError(f"the selection's cases lack a kind of tile: "
+                             f"{selection}")
+    say(f"[parity] tile_candidates (at the rule's warps a tile and at each of "
+        f"{tile_cuda.CANDIDATE_WARPS}) == candidates_plain == "
+        f"tile_candidates_block bitwise (codes, ids, t_codes and drop_t bits) "
+        f"on {len(cand_cases)} small cases, among them tiles whose "
+        f"intermediate levels overflow ({selection['intermediate']}), whose "
+        f"finest level overflows ({selection['finest']}) and which see "
+        f"nothing ({selection['nothing']}): "
         + ", ".join(f"{what} ({n})" for (what, _a), n in zip(cand_cases, cand_valid))
         + " (valid candidates in brackets)")
     for name, depth in (("terrain", 6), ("terrain", 7), ("flat_ground", 6)):
@@ -919,12 +1004,25 @@ def main():
         if bool(got[hit_leaf < 0].any()):
             raise AssertionError("shade_bwd: a miss has a cotangent")
         err["shade_bwd"] = max(err["shade_bwd"], e)
+        first = check_bwd_forms(got, (g_unit, hit_leaf, d, *pset, light, 1.3,
+                                      0.08, sky), f"shade_bwd, {what}")
+        err["shade_bwd_serial"] = max(err["shade_bwd_serial"], float(
+            (first - want).abs().max()))
+    # the cotangent 4 bytes off a 16-byte boundary: the word-by-word staging
+    g_off = torch.empty(n_rays * 3 + 1, device=dev)[1:].view(n_rays, 3)
+    g_off.copy_(g_unit)
+    check_bwd_forms(shade_cuda.shade_bwd(g_off, hit_leaf, d, *perturbed, light,
+                                         1.3, 0.08),
+                    (g_unit, hit_leaf, d, *perturbed, light, 1.3, 0.08),
+                    "shade_bwd, a cotangent 4 bytes off")
     say(f"[parity] shade_fwd on the {res}x{res} frame, three parameter sets: "
         f"max abs {err['shade_fwd']} against the plain version (limit 1e-6), "
         f"{fwd_bits} of {3 * n_rays} pixels differ in bits; shade_bwd with a "
-        f"cotangent in [-0.5, 0.5): max abs {err['shade_bwd']} against "
-        f"autograd through the plain version (rtol 1e-5, atol 1e-6), rows of "
-        f"misses zero")
+        f"cotangent in [-0.5, 0.5): == shade_bwd_serial == shade_bwd with the "
+        f"light normalised a ray, bitwise (also on a cotangent 4 bytes off a "
+        f"16-byte boundary), max abs {err['shade_bwd']} against autograd "
+        f"through the plain version (rtol 1e-5, atol 1e-6), rows of misses "
+        f"zero")
 
     keys, order = shade_cuda.sort_by_leaf(hit_leaf, n_leaves)
     safe_leaf = torch.where(hit_leaf >= 0, hit_leaf, 0)
@@ -932,6 +1030,8 @@ def main():
     for what, g in (("a unit cotangent", g_unit),
                     ("the step's cotangent", 2.0 * img / img.numel())):
         cot = shade_cuda.shade_bwd(g, hit_leaf, d, *perturbed, light, 1.3, 0.08)
+        check_bwd_forms(cot, (g, hit_leaf, d, *perturbed, light, 1.3, 0.08),
+                        f"shade_bwd, {what}")
         sums, e_new, e_sorted = check_segment_sum(what, cot, hit_leaf, n_leaves)
         err["segment_sum"] = max(err["segment_sum"], e_new)
         err["segment_sum_sorted"] = max(err["segment_sum_sorted"], e_sorted)
@@ -1005,7 +1105,8 @@ def main():
         raise AssertionError(f"the tile frame called candidates_plain "
                              f"{PLAIN_CALLS['candidates_plain']} times")
     if (traverse_cuda.launches or brick_dda.launches or rowread.launches
-            or tile_cuda.serial_launches or shade_cuda.launches["shade_fwd"] != 1):
+            or tile_cuda.serial_launches or tile_cuda.candidates_block_launches
+            or shade_cuda.launches["shade_fwd"] != 1):
         raise AssertionError("the tile frame launched a kernel it has no use "
                              "for, or not the shading kernel once")
     if img_t.shape != (n_rays, 3) or not bool(torch.isfinite(img_t).all()):
@@ -1084,22 +1185,30 @@ def main():
                              f"{len(cands)} phase-1 calls, expected 3 each")
     cand_rows = {}
     for cname, args in zip(CAND_CALLS, cands):
-        e, n_valid = check_candidates(args, f"tile_candidates d10 frame, {cname}")
-        err["tile_candidates"] = max(err["tile_candidates"], e)
+        e_new, e_first, n_valid = check_candidates(
+            args, f"tile_candidates d10 frame, {cname}")
+        err["tile_candidates"] = max(err["tile_candidates"], e_new)
+        err["tile_candidates_block"] = max(err["tile_candidates_block"], e_first)
         n_bytes, n_ops, widths = candidate_work(args)
         b = bound(n_bytes, n_ops)
         cand_rows[cname] = dict(
             T=args[2].shape[0], K=args[6], widths=widths,
+            warps=tile_cuda.candidate_warps(widths),
             children_a_tile=8 * sum(widths[:-1]),
             widest_sort=max(8 * w for w in widths[:-1]),
             valid_a_tile=n_valid / args[2].shape[0], bytes=n_bytes, ops=n_ops,
             bound_ms=b[0], bound_by=b[1])
-    say("[parity] tile_candidates d10 frame: kernel == candidates_plain bitwise "
+    say("[parity] tile_candidates d10 frame: kernel (at the rule's warps a "
+        "tile and at each) == candidates_plain == tile_candidates_block bitwise "
         "(codes, ids, t_codes and drop_t bits) on the frame's three calls: "
         + "; ".join(f"{c} T={r['T']} K={r['K']} widths {r['widths']} "
-                    f"({r['children_a_tile']} child slots a tile, widest sort "
-                    f"{r['widest_sort']}), {r['valid_a_tile']:.2f} valid a tile"
+                    f"({r['children_a_tile']} child slots a tile, widest level "
+                    f"{r['widest_sort']}), {r['warps']} warps a tile by the "
+                    f"rule, {r['valid_a_tile']:.2f} valid a tile"
                     for c, r in cand_rows.items()))
+    say("[work] valid keys a tile at each level of the frame's phase-1 calls, "
+        "mean/largest of the width kept there (tiles above the width): "
+        + "; ".join(work_line(c, a) for c, a in zip(CAND_CALLS, cands)))
     WALKS = ("main", "enlarged-K", "sub-tile")
     walk_rows = {}
     for wname, args in zip(WALKS, walks):
@@ -1156,18 +1265,23 @@ def main():
     shade_cuda.segment_sum_sorted(seg_cot, keys, order, n_leaves)
     traverse_cuda.trace_cuda_serial(svo, o, d)
     tile_cuda.tile_walk_serial(*main_args)
+    tile_cuda.candidates_block(*cands[0])
+    shade_cuda.shade_bwd_serial(g_unit, hit_leaf, d, *params, light, 1.3, 0.08)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
-                          tile_walk_serial=tile_cuda.serial_launches)
+                          tile_walk_serial=tile_cuda.serial_launches,
+                          tile_candidates_block=tile_cuda.candidates_block_launches,
+                          shade_bwd_serial=shade_cuda.launches["shade_bwd_serial"])
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
     sorted_launches = shade_cuda.launches["segment_sum_sorted"]
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
             or loop_launches != 5 or sorted_launches != 1
-            or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1)
+            or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
+                                      tile_candidates_block=1, shade_bwd_serial=1)
             or traverse_cuda.launches or tile_cuda.launches
-            or tile_cuda.candidates_launches):
+            or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
         raise AssertionError("the probes did not launch their kernels")
     if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
@@ -1189,8 +1303,7 @@ def main():
         f"launches (scalar, min, rows); take: {take_launches} launches; "
         f"loop_probe: {loop_launches} launches; segment_sum_sorted (the "
         f"sorted form, off the training path): {sorted_launches} launch; the "
-        f"first forms of the two traversals, off the main path: "
-        f"{first_launches}")
+        f"first forms, off the main path: {first_launches}")
 
     # ---- 7b. the training step, on both traversals ----------------------------
     hit_tile = res_fb.hit_leaf
@@ -1216,12 +1329,14 @@ def main():
             counts = dict(esvo_trace=traverse_cuda.launches,
                           tile_walk=tile_cuda.launches,
                           tile_candidates=tile_cuda.candidates_launches,
+                          tile_candidates_block=tile_cuda.candidates_block_launches,
                           candidates_plain=PLAIN_CALLS["candidates_plain"],
                           **shade_cuda.launches)
             want = dict(esvo_trace=1 if path == "per-ray" else 0,
                         tile_walk=0 if path == "per-ray" else 3,
                         tile_candidates=0 if path == "per-ray" else 3,
-                        candidates_plain=0, shade_fwd=1, shade_bwd=1,
+                        tile_candidates_block=0, candidates_plain=0,
+                        shade_fwd=1, shade_bwd=1, shade_bwd_serial=0,
                         segment_sum=1, segment_sum_sorted=0)
             if counts != want:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
@@ -1294,8 +1409,10 @@ def main():
     # two walks and two phase-1 calls a step: the trainer's budgets have no
     # sub-tile pass
     if (tile_cuda.launches != 6 or tile_cuda.candidates_launches != 6
+            or tile_cuda.candidates_block_launches
             or PLAIN_CALLS["candidates_plain"] or shade_cuda.launches != dict(
-                shade_fwd=3, shade_bwd=3, segment_sum=3, segment_sum_sorted=0)):
+                shade_fwd=3, shade_bwd=3, shade_bwd_serial=0, segment_sum=3,
+                segment_sum_sorted=0)):
         raise AssertionError("step_view did not take the tile step's kernels")
     # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
     # fb_k=256, no sub-tile pass), which leave a few rays of this view
@@ -1315,8 +1432,9 @@ def main():
         f"view from random albedo: loss {losses[0]:.6f} -> {losses[1]:.6f} -> "
         f"{losses[2]:.6f}, {residuals[0]} residual rays a step at the "
         f"trainer's budgets (the tile frame's own count there; 0 at bench.py's "
-        f"budgets above), 6 walker and 6 tile_candidates launches, no call "
-        f"of candidates_plain, frozen parameters unchanged")
+        f"budgets above), 6 walker and 6 tile_candidates launches, no launch "
+        f"of a first form and no call of candidates_plain, frozen parameters "
+        f"unchanged")
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -1326,11 +1444,16 @@ def main():
     t["tile_frame"] = cuda_ms(lambda: diff.render_diff_tile(
         *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), 50, 3)
     t["walk"] = cuda_ms(lambda: tile_cuda.tile_walk(*main_args), 50, 3)
-    # phase 1: the frame's three calls, each against its plain version, in
-    # turns (the plain version takes tens of milliseconds a call)
+    # phase 1: the frame's three calls, each at the rule's warps a tile, at
+    # the other, in its first form and in its plain version, in turns (the
+    # plain version takes tens of milliseconds a call)
     variants = {}
     for cname, args in zip(CAND_CALLS, cands):
+        other = 9 - cand_rows[cname]["warps"]
         variants[f"phase1 {cname}"] = lambda a=args: tile_cuda.candidates(*a)
+        variants[f"phase1 {cname} other"] = (
+            lambda a=args, w=other: tile_cuda.candidates(*a, warps=w))
+        variants[f"phase1 {cname} first"] = lambda a=args: tile_cuda.candidates_block(*a)
         variants[f"phase1 {cname} plain"] = lambda a=args: tile.candidates_plain(*a)
     t.update(in_turns(variants, rounds=3, reps=10))
     t["frame_again"] = cuda_ms(lambda: diff.render_diff_cuda(*params, svo, o, d, light), 50, 3)
@@ -1390,6 +1513,14 @@ def main():
     t["shade_fwd"] = cuda_ms(lambda: shade_cuda.shade_fwd(*shade_args), 50, 3)
     t["shade_fwd_plain"] = cuda_ms(lambda: diff.shade_diff_plain(*shade_args), 20, 2)
     t["shade_bwd"] = cuda_ms(lambda: shade_cuda.shade_bwd(g_step, *shade_args), 50, 3)
+    # shade_bwd against its first form and against the light normalised the
+    # other way, in turns
+    turns = in_turns({
+        "bwd": lambda: shade_cuda.shade_bwd(g_step, *shade_args),
+        "bwd_other_light": lambda: shade_cuda.shade_bwd(
+            g_step, *shade_args, light_once=not shade_cuda.LIGHT_ONCE),
+        "bwd_first": lambda: shade_cuda.shade_bwd_serial(g_step, *shade_args)})
+    t.update({f"{name}_turns": v for name, v in turns.items()})
     t["shade_bwd_plain"] = cuda_ms(lambda: shade_cuda.shade_bwd_plain(
         g_step, *shade_args), 20, 2)
     # the whole function each time, from (cot, hit_leaf) to the three
@@ -1435,10 +1566,13 @@ def main():
         f"{n_rays / m['tile_frame'][0] / 1e3:.2f} Mrays/s at {res}x{res} depth "
         f"{depth}, {n_residual} residual rays; tile_walk (main walk) median "
         f"{m['walk'][0]:.4f} ms (p80 {m['walk'][1]:.4f}); plain walk "
-        f"{walk_plain_ms:.3f} ms (n=1); phase 1, tile_candidates against "
-        f"candidates_plain in turns (three rounds of 10): " + ", ".join(
-            f"{c} {m[f'phase1 {c}'][0]:.4f} ms (p80 {m[f'phase1 {c}'][1]:.4f}) "
-            f"against {m[f'phase1 {c} plain'][0]:.4f}" for c in CAND_CALLS))
+        f"{walk_plain_ms:.3f} ms (n=1); phase 1 in turns (three rounds of 10): "
+        + ", ".join(
+            f"{c}: tile_candidates at {cand_rows[c]['warps']} warps a tile "
+            f"{m[f'phase1 {c}'][0]:.4f} ms (p80 {m[f'phase1 {c}'][1]:.4f}), at "
+            f"{9 - cand_rows[c]['warps']} {m[f'phase1 {c} other'][0]:.4f}, "
+            f"tile_candidates_block {m[f'phase1 {c} first'][0]:.4f}, "
+            f"candidates_plain {m[f'phase1 {c} plain'][0]:.4f}" for c in CAND_CALLS))
     say(f"[timing] {card}: brick_dda16 N={n_dda} median {m['dda'][0]:.4f} ms "
         f"(p80 {m['dda'][1]:.4f}), plain {m['dda_plain'][0]:.4f} ms (n=5); "
         f"rowread rows {m['row'][0]:.4f} ms, scalar {m['row_scalar'][0]:.4f}, "
@@ -1463,7 +1597,13 @@ def main():
     say(f"[timing] {card}: shade_fwd median {m['shade_fwd'][0]:.4f} ms (p80 "
         f"{m['shade_fwd'][1]:.4f}), plain {m['shade_fwd_plain'][0]:.4f}; "
         f"shade_bwd {m['shade_bwd'][0]:.4f} (p80 {m['shade_bwd'][1]:.4f}), "
-        f"plain {m['shade_bwd_plain'][0]:.4f} (kernels n=50, plain n=20)")
+        f"plain {m['shade_bwd_plain'][0]:.4f} (kernels n=50, plain n=20); in "
+        f"turns, three rounds of 50: shade_bwd (light normalised "
+        f"{'a block' if shade_cuda.LIGHT_ONCE else 'a ray'}) "
+        f"{m['bwd_turns'][0]:.4f}, with the light normalised "
+        f"{'a ray' if shade_cuda.LIGHT_ONCE else 'a block'} "
+        f"{m['bwd_other_light_turns'][0]:.4f}, shade_bwd_serial "
+        f"{m['bwd_first_turns'][0]:.4f}")
     say(f"[timing] {card}: segment_sum, (cot, hit_leaf) to the three gradients, "
         f"scratch included: median {m['segment_sum'][0]:.4f} ms (p80 "
         f"{m['segment_sum'][1]:.4f}; again {m['segment_sum_again'][0]:.4f}); "
@@ -1562,16 +1702,19 @@ def main():
         return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                 and not e.key.startswith("ProfilerStep")]
 
-    def profile_kernels(what, fn, unit, top):
+    def profile_kernels(what, fn, unit, top, launches=None):
         """(us of kernel time a unit, us a launch by kernel, launches a
         unit) of `runs` units of fn(), and a line for each of the `top`
-        largest kernels."""
+        largest kernels. A pass that sees no kernel, or fewer than nine in
+        ten of the `launches` a unit that fn() makes, is repeated with
+        more runs."""
         dev_us = lambda e: getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0.0))
         for runs in (20, 80, 320):
             rows = sorted(traced_kernels(fn, runs), key=dev_us, reverse=True)
             total_us = sum(dev_us(e) for e in rows) / runs
-            if total_us > 0.0:
+            seen = sum(e.count for e in rows) / runs
+            if total_us > 0.0 and (launches is None or seen >= 0.9 * launches):
                 break
         else:
             say(f"[profile] {what}: the profiler saw no kernel in 20, 80 or 320 "
@@ -1640,13 +1783,38 @@ def main():
             torch.index_select(big_table, 0, big_idx)), "round", 2)
     # index_select of a 1-D table runs PyTorch's gather kernel
     alone["take"] = kernel_us(rows, "take_kernel", "gather")
-    # phase 1's three calls alone, one call a pass
+    # phase 1's three calls alone: the rule's variant, the other and the
+    # first form, one call of each a round
     for cname, args in zip(CAND_CALLS, cands):
-        _, rows, _n = profile_kernels(f"tile_candidates {cname} alone",
-                                      lambda a=args: tile_cuda.candidates(*a),
-                                      "call", 1)
-        alone[f"phase1 {cname}"] = next(
-            (v for k, v in rows.items() if "tile_candidates_kernel" in k), None)
+        warps = cand_rows[cname]["warps"]
+        _, rows, _n = profile_kernels(
+            f"tile_candidates {cname} alone at {warps} and {9 - warps} warps a "
+            f"tile, and tile_candidates_block", lambda a=args, w=warps: (
+                tile_cuda.candidates(*a), tile_cuda.candidates(*a, warps=9 - w),
+                tile_cuda.candidates_block(*a)), "round", 3, launches=3)
+        alone[f"phase1 {cname}"] = kernel_us(
+            rows, f"tile_candidates_kernel<{warps}>",
+            "tile_candidates_block_kernel", f"tile_candidates_kernel<{9 - warps}>")
+    light_once = shade_cuda.LIGHT_ONCE
+    _, rows, _n = profile_kernels(
+        "shade_bwd alone, with the light normalised the other way, and "
+        "shade_bwd_serial", lambda: (
+            shade_cuda.shade_bwd(g_step, *shade_args),
+            shade_cuda.shade_bwd(g_step, *shade_args, light_once=not light_once),
+            shade_cuda.shade_bwd_serial(g_step, *shade_args)), "round", 3,
+        launches=3)
+    name = lambda once: f"shade_bwd_kernel<{'true' if once else 'false'}>"
+    alone["shade_bwd"] = kernel_us(rows, name(light_once), "shade_bwd_serial_kernel",
+                                   name(not light_once))
+    say(f"[profile] {card}: shade_bwd {us_or(alone['shade_bwd'][0])} us alone "
+        f"(light normalised {'a block' if light_once else 'a ray'}; "
+        f"{us_or(alone['shade_bwd'][2])} us the other way), shade_bwd_serial "
+        f"{us_or(alone['shade_bwd'][1])} us; tile_candidates "
+        f"alone at the rule's warps a tile, at the other, and "
+        f"tile_candidates_block, us: " + "; ".join(
+            f"{c} " + ", ".join(us_or(x) for x in (
+                alone[f"phase1 {c}"][0], alone[f"phase1 {c}"][2],
+                alone[f"phase1 {c}"][1])) for c in CAND_CALLS))
     idle = lambda us, ms: "not measured" if us is None else f"{1 - us / 1e3 / ms:.2f}"
     count = lambda n: "not measured" if n is None else f"{n:.1f}"
     say(f"[profile] {card}: idle share of the card: tile frame {count(tile_n)} "
@@ -1693,7 +1861,7 @@ def main():
     # once, and writes one value a ray
     take_full_bound = bound(nbytes(big_idx) + int(touched.sum()) * 4
                             + big_idx.numel() * 4, 0)
-    us = lambda v: "not measured" if v is None else f"{v:.2f}"
+    us = us_or
     main_walk = walk_rows["main"]
     for wname in WALKS:
         walk_rows[wname].update(
@@ -1711,9 +1879,12 @@ def main():
         f"full size {us(alone['take'][0])} us alone, index_select "
         f"{us(alone['take'][1])} us, bound {take_full_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
+        new_us, first_us, other_us = alone[f"phase1 {cname}"]
         cand_rows[cname].update(
             ms=m[f"phase1 {cname}"][0], plain_ms=m[f"phase1 {cname} plain"][0],
-            us_alone=alone[f"phase1 {cname}"])
+            ms_first_form=m[f"phase1 {cname} first"][0],
+            ms_other_warps=m[f"phase1 {cname} other"][0], us_alone=new_us,
+            us_alone_first_form=first_us, us_alone_other_warps=other_us)
     say(f"[bound] tile_candidates, each of the frame's calls (its corners, a "
         f"pyramid word a kept cell, a cellmap row a valid candidate and its "
         f"outputs at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {OPS_CAND_SLOT} "
@@ -1721,8 +1892,11 @@ def main():
         f"{PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s; the sort not counted): " + "; ".join(
             f"{c} {r['bound_ms']:.5f} ms ({r['bound_by']}; {r['bytes'] / 1e6:.3f} "
             f"MB, {r['ops'] / 1e6:.1f} M operations), {us(r['us_alone'])} us "
-            f"alone, {r['ms']:.4f} ms in turns against the plain version's "
-            f"{r['plain_ms']:.4f}" for c, r in cand_rows.items()))
+            f"alone at {r['warps']} warps a tile ({us(r['us_alone_other_warps'])} "
+            f"at {9 - r['warps']}; the first form {us(r['us_alone_first_form'])}), "
+            f"{r['ms']:.4f} ms in turns against the first form's "
+            f"{r['ms_first_form']:.4f} and the plain version's {r['plain_ms']:.4f}"
+            for c, r in cand_rows.items()))
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
     n_hits = int((hit_leaf >= 0).sum())
@@ -1787,7 +1961,21 @@ def main():
              ms=cand_rows["main"]["ms"], plain_ms=cand_rows["main"]["plain_ms"],
              bound_ms=cand_rows["main"]["bound_ms"],
              bound_by=cand_rows["main"]["bound_by"], library_ms=None,
-             us_alone=cand_rows["main"]["us_alone"], calls=cand_rows),
+             us_alone=cand_rows["main"]["us_alone"],
+             ms_first_form=cand_rows["main"]["ms_first_form"],
+             us_alone_first_form=cand_rows["main"]["us_alone_first_form"],
+             calls=cand_rows),
+        dict(name="tile_candidates_block", route="cuda",
+             source=src + "tile_candidates.cu",
+             replaces="raytracingtest_tpu/ops/tile.py:288",
+             path="tile_cuda.candidates_block (the first form, off the main "
+                  "path)", launches=first_launches["tile_candidates_block"],
+             max_abs_err=err["tile_candidates_block"],
+             ms=cand_rows["main"]["ms_first_form"],
+             plain_ms=cand_rows["main"]["plain_ms"],
+             bound_ms=cand_rows["main"]["bound_ms"],
+             bound_by=cand_rows["main"]["bound_by"], library_ms=None,
+             us_alone=cand_rows["main"]["us_alone_first_form"]),
         dict(name="brick_dda16", route="cuda", source=src + "tile_walk.cu",
              replaces="scratch/r4_pallas2.py:115",
              path="brick_dda.brick_dda16", launches=dda_launches,
@@ -1827,9 +2015,23 @@ def main():
              replaces="raytracingtest_tpu/diff.py:132",
              path="diff.loss_and_grads_cuda",
              launches=train_launches["per-ray"]["shade_bwd"],
-             max_abs_err=err["shade_bwd"], ms=m["shade_bwd"][0],
+             max_abs_err=err["shade_bwd"], ms=m["bwd_turns"][0],
              plain_ms=m["shade_bwd_plain"][0], bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], library_ms=None),
+             bound_by=bwd_bound[1], library_ms=None,
+             ms_first_form=m["bwd_first_turns"][0],
+             ms_other_light=m["bwd_other_light_turns"][0],
+             us_alone=alone["shade_bwd"][0],
+             us_alone_first_form=alone["shade_bwd"][1],
+             us_alone_other_light=alone["shade_bwd"][2],
+             us_in_step=kernel_us(step_rows, "shade_bwd_kernel")[0]),
+        dict(name="shade_bwd_serial", route="cuda", source=src + "shade.cu",
+             replaces="raytracingtest_tpu/diff.py:132",
+             path="shade_cuda.shade_bwd_serial (the first form, off the "
+                  "training path)", launches=first_launches["shade_bwd_serial"],
+             max_abs_err=err["shade_bwd_serial"], ms=m["bwd_first_turns"][0],
+             plain_ms=m["shade_bwd_plain"][0], bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], library_ms=None,
+             us_alone=alone["shade_bwd"][1]),
         dict(name="segment_sum", route="cuda", source=src + "shade.cu",
              replaces="raytracingtest_tpu/diff.py:72",
              path="diff.loss_and_grads_cuda",

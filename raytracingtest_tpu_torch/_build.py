@@ -13,11 +13,13 @@ Five libraries, each built on first use into
                      walker and its first form, the brick DDA and the row
                      read;
   * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
-                     the loop probe, fused shading, its backward and the
+                     the loop probe, fused shading, its backward (and that
+                     backward's first form) and the
                      deterministic segment sum (sort-free, and its earlier
                      sorted form);
   * ``tile_candidates`` — ``csrc/tile_candidates.cu`` with nvcc for ``sm_90a``:
-                     phase 1 of the tile trace, each tile's candidate list.
+                     phase 1 of the tile trace, each tile's candidate list,
+                     and its first form.
 
 ``build_all`` builds them side by side, one compiler process each.
 
@@ -140,18 +142,22 @@ def _declare_shade(lib):
     lib.take.argtypes = [p, p, p, i, i, i, i, p]
     lib.loop_probe.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.shade_fwd.argtypes = [p, p, p, p, p, i, p, f, f, p, p, i, p]
-    lib.shade_bwd.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
+    lib.shade_bwd.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, i, p]
+    lib.shade_bwd_serial.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
     lib.segment_sum.argtypes = [p, p, i, i, p, ctypes.c_longlong, p, p, p, p]
     lib.segment_sum_sorted.argtypes = [p, p, p, i, i, p, p, p, p]
     for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,
-               lib.segment_sum, lib.segment_sum_sorted):
+               lib.shade_bwd_serial, lib.segment_sum, lib.segment_sum_sorted):
         fn.restype = i
 
 
 def _declare_candidates(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tile_candidates.argtypes = [p, p, p, p, i, i, p, i, p, p, p, p, p]
-    lib.tile_candidates.restype = i
+    lib.tile_candidates.argtypes = [p, p, p, p, i, i, p, i, i, p, p, p, p, p]
+    lib.tile_candidates_block.argtypes = [p, p, p, p, i, i, p, i, p, p, p, p,
+                                          p]
+    for fn in (lib.tile_candidates, lib.tile_candidates_block):
+        fn.restype = i
 
 
 def noise_lib():

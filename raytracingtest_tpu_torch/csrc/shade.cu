@@ -23,7 +23,12 @@
 //                 Lambert shading over the sky, fused.
 //   shade_bwd     replaces what XLA's autodiff makes of shade_diff: the seven
 //                 cotangents of the ray's parameter row from the image
-//                 cotangent.
+//                 cotangent. A block stages its 256 rays' image cotangents
+//                 and sky inputs in shared memory, and writes their
+//                 cotangent rows back from there, with 16-byte moves.
+//   shade_bwd_serial  the first form of shade_bwd, every row moved by its
+//                 ray's own thread in 4-byte words. Kept as the new form's
+//                 check and yardstick; nothing on the training path calls it.
 //   segment_sum   replaces _gather_bwd/_segment_reduce_cols (diff.py:72-122):
 //                 per-leaf sums of the cotangent rows, the same bits in every
 //                 run, without a sort of the rays and without float atomics.
@@ -34,9 +39,9 @@
 //                 one against; nothing on the training path calls it.
 //
 // One thread an output element (take, loop_probe), a ray (shade_fwd,
-// shade_bwd) or a leaf (segment_sum). `take_row` is the row load they share:
-// the row index clipped to the table, then one read through the read-only
-// path.
+// shade_bwd, shade_bwd_serial) or a leaf (segment_sum). `take_row` is the row
+// load they share: the row index clipped to the table, then one read through
+// the read-only path.
 //
 // What bounds them on this card. take: the launch; its probes move 4 KB.
 // loop_probe: a chain of dependent float32 operations, 4*elem a trip, that
@@ -46,8 +51,13 @@
 // reads 28 B + 12 B and writes 28 B (backward), against some 40 float
 // operations; reading the three parameter tensors in place saves writing and
 // re-reading a packed (n_leaves, 7) table every frame, and a miss reads no
-// row. segment_sum: bytes, 28 B written for every leaf and a scattered 28 B
-// row read for every hit, and launches, since its passes are short.
+// row. A thread's own 12 B and 28 B rows, moved as 4-byte words, leave a
+// warp's every store touching the same 32-byte sectors up to seven times
+// (shade_bwd_serial); shade_bwd moves a block's rows between device memory
+// and shared memory as coalesced 16-byte vectors, each sector once, and the
+// threads read and write them there. segment_sum: bytes, 28 B written for
+// every leaf and a scattered 28 B row read for every hit, and launches,
+// since its passes are short.
 //
 // segment_sum. The function: each leaf's rows are added one after another in
 // ascending ray index, starting from +0; a miss (hit_leaf < 0) adds nothing;
@@ -197,8 +207,16 @@ struct Shaded {
   float alpha;      // clip(den, 0, 1)
 };
 
-// The sky of ray i: the texture's sample handed in, or the procedural
-// vertical gradient of render.sky_color.
+// The procedural vertical gradient of render.sky_color for a ray whose
+// direction has y component `dy`.
+__device__ __forceinline__ void gradient_sky(float dy, float s[3]) {
+  const float hor[3] = {0.71f, 0.82f, 0.95f};
+  const float zen[3] = {0.22f, 0.42f, 0.80f};
+  const float t = fminf(fmaxf(dy * 0.5f + 0.5f, 0.0f), 1.0f);
+  for (int c = 0; c < 3; ++c) s[c] = hor[c] * (1.0f - t) + zen[c] * t;
+}
+
+// The sky of ray i: the texture's sample handed in, or the gradient.
 __device__ __forceinline__ void sky_of(const float* __restrict__ d,
                                        const float* __restrict__ sky, int i,
                                        float s[3]) {
@@ -206,27 +224,29 @@ __device__ __forceinline__ void sky_of(const float* __restrict__ d,
     for (int c = 0; c < 3; ++c) s[c] = sky[(size_t)i * 3 + c];
     return;
   }
-  const float hor[3] = {0.71f, 0.82f, 0.95f};
-  const float zen[3] = {0.22f, 0.42f, 0.80f};
-  const float t = fminf(fmaxf(d[(size_t)i * 3 + 1] * 0.5f + 0.5f, 0.0f), 1.0f);
-  for (int c = 0; c < 3; ++c) s[c] = hor[c] * (1.0f - t) + zen[c] * t;
+  gradient_sky(d[(size_t)i * 3 + 1], s);
 }
 
+// Minus the normalised light direction.
+__device__ __forceinline__ void light_dir(const float* __restrict__ light,
+                                          float m[3]) {
+  const float l0 = light[0], l1 = light[1], l2 = light[2];
+  const float len = sqrtf(sum3(l0 * l0, l1 * l1, l2 * l2));
+  m[0] = -(l0 / len);
+  m[1] = -(l1 / len);
+  m[2] = -(l2 / len);
+}
+
+// v.m must hold light_dir's result.
 __device__ __forceinline__ void shade_ray(
     int leaf, const float* __restrict__ albedo,
     const float* __restrict__ normal, const float* __restrict__ density,
-    int n_leaves, const float* __restrict__ light, float intensity,
-    float ambient, Shaded& v) {
+    int n_leaves, float intensity, float ambient, Shaded& v) {
   for (int c = 0; c < 3; ++c) {
     v.alb[c] = take_row(albedo, n_leaves, 3, leaf, c);
     v.nrm[c] = take_row(normal, n_leaves, 3, leaf, c);
   }
   v.den = take_row(density, n_leaves, 1, leaf, 0);
-  const float l0 = light[0], l1 = light[1], l2 = light[2];
-  const float len = sqrtf(sum3(l0 * l0, l1 * l1, l2 * l2));
-  v.m[0] = -(l0 / len);
-  v.m[1] = -(l1 / len);
-  v.m[2] = -(l2 / len);
   v.ss = sum3(v.nrm[0] * v.nrm[0], v.nrm[1] * v.nrm[1], v.nrm[2] * v.nrm[2]);
   v.r = sqrtf(fmaxf(v.ss, 1e-12f));
   for (int c = 0; c < 3; ++c) v.nn[c] = v.nrm[c] / v.r;
@@ -252,38 +272,19 @@ shade_fwd_kernel(const int* __restrict__ hit_leaf, const float* __restrict__ d,
     for (int c = 0; c < 3; ++c) out[(size_t)i * 3 + c] = v.sky[c];
     return;
   }
-  shade_ray(leaf, albedo, normal, density, n_leaves, light, intensity, ambient,
-            v);
+  light_dir(light, v.m);
+  shade_ray(leaf, albedo, normal, density, n_leaves, intensity, ambient, v);
   for (int c = 0; c < 3; ++c) {
     out[(size_t)i * 3 + c] =
         v.alpha * (v.alb[c] * v.sh) + (1.0f - v.alpha) * v.sky[c];
   }
 }
 
-// cot (n, 7): the cotangents of albedo (3), normal (3) and density of the
-// ray's row; zero for a miss.
-__global__ void __launch_bounds__(BLOCK)
-shade_bwd_kernel(const float* __restrict__ g, const int* __restrict__ hit_leaf,
-                 const float* __restrict__ d, const float* __restrict__ albedo,
-                 const float* __restrict__ normal,
-                 const float* __restrict__ density, int n_leaves,
-                 const float* __restrict__ light, float intensity,
-                 float ambient, const float* __restrict__ sky,
-                 float* __restrict__ cot, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float* row = cot + (size_t)i * 7;
-  const int leaf = hit_leaf[i];
-  if (leaf < 0) {
-    for (int c = 0; c < 7; ++c) row[c] = 0.0f;
-    return;
-  }
-  Shaded v;
-  sky_of(d, sky, i, v.sky);
-  shade_ray(leaf, albedo, normal, density, n_leaves, light, intensity, ambient,
-            v);
-  float gi[3], d_lit[3];
-  for (int c = 0; c < 3; ++c) gi[c] = g[(size_t)i * 3 + c];
+// The cotangents of a hit ray's parameter row (albedo 3, normal 3, density
+// 1) from its image cotangent gi.
+__device__ __forceinline__ void bwd_row(const Shaded& v, const float gi[3],
+                                        float intensity, float row[7]) {
+  float d_lit[3];
   // out = alpha * lit + (1 - alpha) * sky, lit = alb * sh
   const float d_alpha =
       sum3(gi[0] * (v.alb[0] * v.sh), gi[1] * (v.alb[1] * v.sh),
@@ -310,6 +311,114 @@ shade_bwd_kernel(const float* __restrict__ g, const int* __restrict__ hit_leaf,
   const float d_ss = d_r / (2.0f * v.r) * pass_above(v.ss, 1e-12f);
   for (int c = 0; c < 3; ++c)
     row[3 + c] = d_nn[c] / v.r + d_ss * (2.0f * v.nrm[c]);
+}
+
+// cot (n, 7): the cotangents of albedo (3), normal (3) and density of the
+// ray's row; zero for a miss. The first form: a thread a ray, every word of
+// its rows read or written on its own.
+__global__ void __launch_bounds__(BLOCK)
+shade_bwd_serial_kernel(const float* __restrict__ g,
+                        const int* __restrict__ hit_leaf,
+                        const float* __restrict__ d,
+                        const float* __restrict__ albedo,
+                        const float* __restrict__ normal,
+                        const float* __restrict__ density, int n_leaves,
+                        const float* __restrict__ light, float intensity,
+                        float ambient, const float* __restrict__ sky,
+                        float* __restrict__ cot, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float* row = cot + (size_t)i * 7;
+  const int leaf = hit_leaf[i];
+  if (leaf < 0) {
+    for (int c = 0; c < 7; ++c) row[c] = 0.0f;
+    return;
+  }
+  Shaded v;
+  sky_of(d, sky, i, v.sky);
+  light_dir(light, v.m);
+  shade_ray(leaf, albedo, normal, density, n_leaves, intensity, ambient, v);
+  float gi[3], out[7];
+  for (int c = 0; c < 3; ++c) gi[c] = g[(size_t)i * 3 + c];
+  bwd_row(v, gi, intensity, out);
+  for (int c = 0; c < 7; ++c) row[c] = out[c];
+}
+
+// dst[0, count) = src[0, count), the block's threads side by side: 16-byte
+// moves where both ends allow them (dst in shared memory is 16-byte
+// aligned), words where not.
+__device__ __forceinline__ void copy_rows(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int count, bool load) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(load ? src : dst) & 15) == 0);
+  int done = 0;
+  if (wide) {
+    const int quads = count / 4;
+    for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+      const float4 x = load ? __ldg(reinterpret_cast<const float4*>(src) + q)
+                            : reinterpret_cast<const float4*>(src)[q];
+      reinterpret_cast<float4*>(dst)[q] = x;
+    }
+    done = quads * 4;
+  }
+  for (int k = done + threadIdx.x; k < count; k += blockDim.x)
+    dst[k] = load ? __ldg(src + k) : src[k];
+}
+
+// cot (n, 7) as shade_bwd_serial writes it, bit for bit. A block's 256 rays
+// move through shared memory: their image cotangents and sky inputs (the
+// texture's rows, or the directions for the gradient) come in as coalesced
+// 16-byte loads, each thread shades its ray from there and leaves its seven
+// cotangents (or zeros for a miss, which reads no parameter row) in the
+// staged tile, and the tile goes out as coalesced 16-byte stores. With
+// LIGHT_ONCE the block's first thread normalises the light for all of them;
+// else every hit ray's thread does, as the first form does.
+template <bool LIGHT_ONCE>
+__global__ void __launch_bounds__(BLOCK)
+shade_bwd_kernel(const float* __restrict__ g, const int* __restrict__ hit_leaf,
+                 const float* __restrict__ d, const float* __restrict__ albedo,
+                 const float* __restrict__ normal,
+                 const float* __restrict__ density, int n_leaves,
+                 const float* __restrict__ light, float intensity,
+                 float ambient, const float* __restrict__ sky,
+                 float* __restrict__ cot, int n) {
+  __shared__ __align__(16) float s_g[BLOCK * 3];
+  __shared__ __align__(16) float s_sky[BLOCK * 3];
+  __shared__ __align__(16) float s_cot[BLOCK * 7];
+  __shared__ float s_m[3];
+  const int first = blockIdx.x * BLOCK;
+  const int rays = min(BLOCK, n - first);
+  const int tid = threadIdx.x;
+  if (LIGHT_ONCE && tid == 0) light_dir(light, s_m);
+  copy_rows(s_g, g + (size_t)first * 3, rays * 3, true);
+  copy_rows(s_sky, (sky != nullptr ? sky : d) + (size_t)first * 3, rays * 3,
+            true);
+  __syncthreads();
+  if (tid < rays) {
+    float* row = s_cot + tid * 7;
+    const int leaf = hit_leaf[first + tid];
+    if (leaf < 0) {
+      for (int c = 0; c < 7; ++c) row[c] = 0.0f;
+    } else {
+      Shaded v;
+      if (sky != nullptr) {
+        for (int c = 0; c < 3; ++c) v.sky[c] = s_sky[tid * 3 + c];
+      } else {
+        gradient_sky(s_sky[tid * 3 + 1], v.sky);
+      }
+      if (LIGHT_ONCE) {
+        for (int c = 0; c < 3; ++c) v.m[c] = s_m[c];
+      } else {
+        light_dir(light, v.m);
+      }
+      shade_ray(leaf, albedo, normal, density, n_leaves, intensity, ambient, v);
+      float out[7];
+      bwd_row(v, s_g + tid * 3, intensity, out);
+      for (int c = 0; c < 7; ++c) row[c] = out[c];
+    }
+  }
+  __syncthreads();
+  copy_rows(cot + (size_t)first * 7, s_cot, rays * 7, false);
 }
 
 // keys (n,): leaf ids in ascending order, misses marked by a key outside
@@ -552,14 +661,35 @@ extern "C" int shade_fwd(const void* hit_leaf, const void* d,
   return (int)cudaGetLastError();
 }
 
+// light_once: 1 to normalise the light once a block, 0 once a hit ray.
 extern "C" int shade_bwd(const void* g, const void* hit_leaf, const void* d,
                          const void* albedo, const void* normal,
                          const void* density, int n_leaves, const void* light,
                          float intensity, float ambient, const void* sky,
-                         void* cot, int n, void* stream) {
+                         void* cot, int n, int light_once, void* stream) {
+  if (n_leaves < 1 || (light_once != 0 && light_once != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    auto kernel = light_once ? shade_bwd_kernel<true> : shade_bwd_kernel<false>;
+    kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float*)g, (const int*)hit_leaf, (const float*)d,
+        (const float*)albedo, (const float*)normal, (const float*)density,
+        n_leaves, (const float*)light, intensity, ambient, (const float*)sky,
+        (float*)cot, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int shade_bwd_serial(const void* g, const void* hit_leaf,
+                                const void* d, const void* albedo,
+                                const void* normal, const void* density,
+                                int n_leaves, const void* light,
+                                float intensity, float ambient,
+                                const void* sky, void* cot, int n,
+                                void* stream) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    shade_bwd_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+    shade_bwd_serial_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)g, (const int*)hit_leaf, (const float*)d,
         (const float*)albedo, (const float*)normal, (const float*)density,
         n_leaves, (const float*)light, intensity, ambient, (const float*)sky,

@@ -5,7 +5,10 @@ Counterpart of ``gather_voxel_params`` with ``shade_diff`` in
 ``raytracingtest_tpu/diff.py`` and of the backward XLA derives for them.
 ``shade_fwd`` gathers a ray's parameter row from the three parameter tensors
 and shades it in one kernel. The backward is two calls: ``shade_bwd`` turns
-the image cotangent into the seven cotangents of each ray's row, and
+the image cotangent into the seven cotangents of each ray's row (a block's
+rows staged in shared memory and moved as 16-byte vectors; its first form
+``shade_bwd_serial``, every row moved by its ray's own thread word by word,
+gives the same bits and is off the training path), and
 ``segment_sum`` adds each leaf's rows in ascending ray index from +0, the
 order of a serial scatter-add, so the gradients are the same bits in every
 run. It sorts nothing but the ray ids inside a leaf and uses integer atomics
@@ -35,17 +38,23 @@ _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 
 # kernel launches made by this process, by kernel (a call of segment_sum
 # counts once: its passes go out together)
-launches = {"shade_fwd": 0, "shade_bwd": 0, "segment_sum": 0,
-            "segment_sum_sorted": 0}
+launches = {"shade_fwd": 0, "shade_bwd": 0, "shade_bwd_serial": 0,
+            "segment_sum": 0, "segment_sum_sorted": 0}
 
 _SHADE_FWD = Kernel("shade_fwd", shade_lib)
 _SHADE_BWD = Kernel("shade_bwd", shade_lib)
+_SHADE_BWD_SERIAL = Kernel("shade_bwd_serial", shade_lib)
 _SEGMENT_SUM = Kernel("segment_sum", shade_lib)
 _SEGMENT_SUM_SORTED = Kernel("segment_sum_sorted", shade_lib)
 
 # csrc/shade.cu's SEG_SHORT: the longest run a leaf's own thread adds; longer
 # ones go to a block each
 SEG_SHORT = 16
+# shade_bwd normalises the light once a block (True) or once a hit ray
+# (False, as the first form does); the same bits either way. Once a block
+# measured no faster on an H100 (chip_smoke.py times both), so it is once a
+# ray.
+LIGHT_ONCE = False
 
 
 def _sum3(x):
@@ -155,27 +164,47 @@ def shade_bwd_plain(g, hit_leaf, d, albedo, normal, density, light_dir,
     return torch.cat([g_alb, g_nrm, g_den[:, None]], dim=1)
 
 
-def shade_bwd(g, hit_leaf, d, albedo, normal, density, light_dir,
-              light_intensity, light_ambient, sky=None):
-    """(N, 7) cotangents of each ray's parameter row (albedo 3, normal 3,
-    density 1) from the image cotangent `g` (N, 3); the other arguments as
-    ``shade_fwd``. Rows of misses are zero."""
-    if hit_leaf.device.type == "cpu":
-        return shade_bwd_plain(g, hit_leaf, d, albedo, normal, density,
-                               light_dir, light_intensity, light_ambient, sky)
+def _bwd_kernel(kernel, g, hit_leaf, d, albedo, normal, density, light_dir,
+                light_intensity, light_ambient, sky, *extra):
+    """Launch one of the two backward kernels on CUDA tensors; returns cot."""
     device = hit_leaf.device
     n, n_leaves, specs = _shade_specs(hit_leaf, d, albedo, normal, density,
                                       light_dir, sky)
     specs.append(("g", g, _F32, (n, 3)))
-    _SHADE_BWD.check(device, specs)
+    kernel.check(device, specs)
     cot = torch.empty((n, 7), dtype=_F32, device=device)
-    _SHADE_BWD(device, g.data_ptr(), hit_leaf.data_ptr(), d.data_ptr(),
-               albedo.data_ptr(), normal.data_ptr(), density.data_ptr(),
-               n_leaves, light_dir.data_ptr(), float(light_intensity),
-               float(light_ambient), 0 if sky is None else sky.data_ptr(),
-               cot.data_ptr(), n)
-    launches["shade_bwd"] += 1
+    kernel(device, g.data_ptr(), hit_leaf.data_ptr(), d.data_ptr(),
+           albedo.data_ptr(), normal.data_ptr(), density.data_ptr(), n_leaves,
+           light_dir.data_ptr(), float(light_intensity), float(light_ambient),
+           0 if sky is None else sky.data_ptr(), cot.data_ptr(), n, *extra)
+    launches[kernel.name] += 1
     return cot
+
+
+def shade_bwd(g, hit_leaf, d, albedo, normal, density, light_dir,
+              light_intensity, light_ambient, sky=None, light_once=LIGHT_ONCE):
+    """(N, 7) cotangents of each ray's parameter row (albedo 3, normal 3,
+    density 1) from the image cotangent `g` (N, 3); the other arguments as
+    ``shade_fwd``. Rows of misses are zero. `light_once` picks where the
+    kernel normalises the light (see LIGHT_ONCE)."""
+    if hit_leaf.device.type == "cpu":
+        return shade_bwd_plain(g, hit_leaf, d, albedo, normal, density,
+                               light_dir, light_intensity, light_ambient, sky)
+    return _bwd_kernel(_SHADE_BWD, g, hit_leaf, d, albedo, normal, density,
+                       light_dir, light_intensity, light_ambient, sky,
+                       int(light_once))
+
+
+def shade_bwd_serial(g, hit_leaf, d, albedo, normal, density, light_dir,
+                     light_intensity, light_ambient, sky=None):
+    """``shade_bwd`` through its first form, a thread a ray moving its rows
+    word by word: the same bits. The kernel runs for CUDA tensors, the
+    plain version for CPU tensors."""
+    if hit_leaf.device.type == "cpu":
+        return shade_bwd_plain(g, hit_leaf, d, albedo, normal, density,
+                               light_dir, light_intensity, light_ambient, sky)
+    return _bwd_kernel(_SHADE_BWD_SERIAL, g, hit_leaf, d, albedo, normal,
+                       density, light_dir, light_intensity, light_ambient, sky)
 
 
 def segment_scratch_words(n, n_leaves):

@@ -15,8 +15,13 @@ failure raises.
 
 ``candidates`` launches ``tile_candidates``, which computes what the
 reference's ``_candidates`` does and gives the same bits as its plain
-version, ``tile.candidates_plain``: one block a tile, a level's keys sorted
-in shared memory. ``tile._candidates`` sends CUDA tensors here and CPU
+version, ``tile.candidates_plain``: a warp or a block a tile
+(``candidate_warps``), each level's valid keys compacted, the ``width``
+smallest selected, and only the finest level's row sorted.
+``candidates_block`` launches the first form, ``tile_candidates_block``, one
+block a tile that sorts each level's keys padded to a power of two: the
+check of the other and its yardstick, which nothing on the main path
+launches. ``tile._candidates`` sends CUDA tensors to ``candidates`` and CPU
 tensors to the plain version.
 """
 
@@ -44,20 +49,26 @@ LANES = (1, 2, 4, 8, 16, 32)
 FILLS = 2
 
 # tile_candidates keeps at most this many keys a level (k_max and every
-# cap), so a block sorts at most 8 times as many; the pyramid has at most
+# cap), so a tile stages at most 8 times as many; the pyramid has at most
 # this many levels
 WIDTH_LIMIT = 256
 TOP_DEPTH_LIMIT = 10
+# warps a tile of tile_candidates: one, or a block of eight; one warp a tile
+# while a level expands at most this many child slots
+CANDIDATE_WARPS = (1, 8)
+WARP_SLOTS = 512
 
-# kernel launches made by this process: tile_walk, its serial form, and
-# tile_candidates
+# kernel launches made by this process: tile_walk, its serial form,
+# tile_candidates and its first form
 launches = 0
 serial_launches = 0
 candidates_launches = 0
+candidates_block_launches = 0
 
 _TILE_WALK = Kernel("tile_walk", tile_lib)
 _TILE_WALK_SERIAL = Kernel("tile_walk_serial", tile_lib)
 _TILE_CANDIDATES = Kernel("tile_candidates", candidates_lib)
+_TILE_CANDIDATES_BLOCK = Kernel("tile_candidates_block", candidates_lib)
 
 _slots: dict = {}
 
@@ -195,13 +206,20 @@ def level_widths(top_depth, caps, k_max):
     return tuple(widths)
 
 
-def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
-    """Launch ``tile_candidates`` on CUDA tensors: phase 1 for every tile of
-    the (T, 4, 3) contiguous `corners` (arguments and results as
-    ``tile.candidates_plain``). `apex` is the (3,) float32 camera position on
-    the card; nothing is read back to the host. top_depth must be 1..10, and
-    k_max and every cap of levels 1..top_depth-1 1..256."""
-    global candidates_launches
+def candidate_warps(widths):
+    """Warps a tile for ``tile_candidates`` from the static `widths` of
+    ``level_widths``: one (eight tiles a block, no block barrier) while the
+    widest level expands at most WARP_SLOTS child slots, 8 * the widest width
+    above the finest (the frame's main call: 480), else a block of eight (the
+    frame's enlarged-K and sub-tile calls: 1,280, on a hundred tiles or
+    fewer)."""
+    return 1 if 8 * max(widths[:-1]) <= WARP_SLOTS else 8
+
+
+def _candidates_check(kernel, pyr, cellmap, corners, apex, top_depth, caps,
+                      k_max):
+    """The one check of both phase-1 kernels' arguments; returns the
+    widths and the four outputs, allocated."""
     if not 1 <= top_depth <= TOP_DEPTH_LIMIT:
         raise ValueError(f"top_depth {top_depth} out of range: the kernel "
                          f"takes 1 to {TOP_DEPTH_LIMIT}")
@@ -221,20 +239,53 @@ def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
         raise ValueError(f"corners holds {T} tiles: the kernel takes 1 to "
                          f"2**31 - 1")
     n_words = tile._pyr_layout(top_depth)[1]
-    _TILE_CANDIDATES.check(corners.device, (
+    kernel.check(corners.device, (
         ("pyr", pyr, _I32, (n_words,)),
         ("cellmap", cellmap, _I32, (max(1, 8 ** top_depth // 32), 2)),
         ("corners", corners, _F32, (T, 4, 3)), ("apex", apex, _F32, (3,))))
-    widths = level_widths(top_depth, caps, k_max)
     dev = corners.device
-    codes = torch.empty((T, k_max), dtype=_I32, device=dev)
-    ids = torch.empty((T, k_max), dtype=_I32, device=dev)
-    t_codes = torch.empty((T, k_max), dtype=_F32, device=dev)
-    drop_t = torch.empty((T,), dtype=_F32, device=dev)
-    _TILE_CANDIDATES(dev, pyr.data_ptr(), cellmap.data_ptr(),
-                     corners.data_ptr(), apex.data_ptr(), T, top_depth,
-                     (ctypes.c_int * len(widths))(*widths), k_max,
-                     codes.data_ptr(), ids.data_ptr(), t_codes.data_ptr(),
-                     drop_t.data_ptr())
+    return level_widths(top_depth, caps, k_max), (
+        torch.empty((T, k_max), dtype=_I32, device=dev),
+        torch.empty((T, k_max), dtype=_I32, device=dev),
+        torch.empty((T, k_max), dtype=_F32, device=dev),
+        torch.empty((T,), dtype=_F32, device=dev))
+
+
+def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
+               warps=None):
+    """Launch ``tile_candidates`` on CUDA tensors: phase 1 for every tile of
+    the (T, 4, 3) contiguous `corners` (arguments and results as
+    ``tile.candidates_plain``), `warps` warps a tile (None:
+    ``candidate_warps`` of the widths). `apex` is the (3,) float32 camera
+    position on the card; nothing is read back to the host. top_depth must
+    be 1..10, and k_max and every cap of levels 1..top_depth-1 1..256."""
+    global candidates_launches
+    if warps is not None and warps not in CANDIDATE_WARPS:
+        raise ValueError(f"{warps} warps a tile: the kernel takes one of "
+                         f"{CANDIDATE_WARPS}")
+    widths, out = _candidates_check(_TILE_CANDIDATES, pyr, cellmap, corners,
+                                    apex, top_depth, caps, k_max)
+    if warps is None:
+        warps = candidate_warps(widths)
+    _TILE_CANDIDATES(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
+                     corners.data_ptr(), apex.data_ptr(), corners.shape[0],
+                     top_depth, (ctypes.c_int * len(widths))(*widths), k_max,
+                     warps, *(t.data_ptr() for t in out))
     candidates_launches += 1
-    return codes, ids, t_codes, drop_t
+    return out
+
+
+def candidates_block(pyr, cellmap, corners, apex, top_depth, caps, k_max):
+    """``candidates`` through the first form, ``tile_candidates_block`` (one
+    block a tile, each level's keys sorted in full): the same results, on
+    CUDA tensors."""
+    global candidates_block_launches
+    widths, out = _candidates_check(_TILE_CANDIDATES_BLOCK, pyr, cellmap,
+                                    corners, apex, top_depth, caps, k_max)
+    _TILE_CANDIDATES_BLOCK(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
+                           corners.data_ptr(), apex.data_ptr(),
+                           corners.shape[0], top_depth,
+                           (ctypes.c_int * len(widths))(*widths), k_max,
+                           *(t.data_ptr() for t in out))
+    candidates_block_launches += 1
+    return out

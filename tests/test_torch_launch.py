@@ -2,8 +2,9 @@
 (``raytracingtest_tpu_torch/_launch.py``), as far as it runs without a card:
 its checks, that they come before the library is asked for, and what a call
 does with the stream, the device and the error code (against a stand-in for
-the C function); and the tile walker's rule for its lanes a ray and the
-checks of its arguments."""
+the C function); the tile walker's rule for its lanes a ray and the
+checks of its arguments; phase 1's rule for its warps a tile; and the first
+forms' wrappers on the CPU."""
 
 import numpy as np
 import pytest
@@ -21,12 +22,14 @@ KERNELS = {
     "tile_walk": tile_cuda._TILE_WALK,
     "tile_walk_serial": tile_cuda._TILE_WALK_SERIAL,
     "tile_candidates": tile_cuda._TILE_CANDIDATES,
+    "tile_candidates_block": tile_cuda._TILE_CANDIDATES_BLOCK,
     "brick_dda16": brick_dda._BRICK_DDA16,
     "rowread": rowread._ROWREAD,
     "take": gather._TAKE,
     "loop_probe": gather._LOOP_PROBE,
     "shade_fwd": shade_cuda._SHADE_FWD,
     "shade_bwd": shade_cuda._SHADE_BWD,
+    "shade_bwd_serial": shade_cuda._SHADE_BWD_SERIAL,
     "segment_sum": shade_cuda._SEGMENT_SUM,
     "segment_sum_sorted": shade_cuda._SEGMENT_SUM_SORTED,
 }
@@ -216,9 +219,36 @@ def test_walk_kernels_refuse_bad_arguments(what, monkeypatch):
     assert (tile_cuda.launches, tile_cuda.serial_launches) == before
 
 
+@pytest.mark.parametrize("which,widths,warps", [
+    ("main", (1, 8, 12, 18, 27, 40, 60, 96), 1),         # 480 child slots
+    ("wide", (1, 8, 64, 160, 160, 160, 160, 160), 8),    # 1,280
+    ("fb2", (1, 8, 32, 64, 128, 160, 160, 160), 8),      # 1,280
+])
+def test_candidate_warps_on_the_frames_budgets(which, widths, warps):
+    """The rule's warps a tile for the depth-10 frame's three phase-1 calls
+    (top_depth 7): bench.py's main budgets, the enlarged-K ("wide") and the
+    sub-tile ("fb2") budgets of tests/test_torch_candidates.py's
+    ``budget``, with the widths ``level_widths`` gives them."""
+    from tests.test_torch_candidates import budget
+
+    caps, k_max, _mode = budget(which, 7)
+    assert tile_cuda.level_widths(7, caps, k_max) == widths
+    assert tile_cuda.candidate_warps(widths) == warps
+
+
+def test_candidate_warps_bound():
+    """One warp a tile up to WARP_SLOTS child slots a level, a block above;
+    only the levels above the finest expand."""
+    slots = tile_cuda.WARP_SLOTS
+    assert tile_cuda.candidate_warps((1, 8, slots // 8, 256)) == 1
+    assert tile_cuda.candidate_warps((1, 8, slots // 8 + 1, 256)) == 8
+    assert tile_cuda.candidate_warps((1, 2)) == 1
+    assert set(tile_cuda.CANDIDATE_WARPS) == {1, 8}
+
+
 def test_first_forms_take_the_plain_version_on_the_cpu():
-    """``tile_walk_serial`` and ``trace_cuda_serial`` on CPU tensors are the
-    plain versions, and launch nothing."""
+    """``tile_walk_serial``, ``trace_cuda_serial`` and ``shade_bwd_serial``
+    on CPU tensors are the plain versions, and launch nothing."""
     from raytracingtest_tpu_torch.ops import octree, tile
     from raytracingtest_tpu_torch.scenes import get_scene
 
@@ -238,3 +268,14 @@ def test_first_forms_take_the_plain_version_on_the_cpu():
                for f in ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters"))
     assert int((got.hit_leaf >= 0).sum()) > 0
     assert (tile_cuda.serial_launches, traverse_cuda.serial_launches) == before
+    hit_leaf = got.hit_leaf
+    g = torch.from_numpy(np.random.default_rng(1).uniform(
+        -0.5, 0.5, (1024, 3)).astype(np.float32))
+    args = (g, hit_leaf, d, svo.leaf_albedo, svo.leaf_normal, svo.leaf_density,
+            torch.tensor([-0.5, -1.0, -0.3]), 1.3, 0.08)
+    before = dict(shade_cuda.launches)
+    got = shade_cuda.shade_bwd_serial(*args)
+    assert torch.equal(got, shade_cuda.shade_bwd_plain(*args))
+    assert torch.equal(got, shade_cuda.shade_bwd(*args))
+    assert bool(got[hit_leaf >= 0].any()) and not bool(got[hit_leaf < 0].any())
+    assert shade_cuda.launches == before
