@@ -329,15 +329,11 @@ def check_segment_sum(what, cot, hit_leaf, n_leaves):
 
 
 def check_bwd_forms(cot, args, what):
-    """`cot` (shade_bwd's) bitwise against shade_bwd_serial and against
-    shade_bwd with the light normalised once a ray, on `args`; returns the
-    first form's cot."""
+    """`cot` (shade_bwd's) bitwise against shade_bwd_serial on `args`;
+    returns the first form's cot."""
     first = shade_cuda.shade_bwd_serial(*args)
-    each = shade_cuda.shade_bwd(*args, light_once=not shade_cuda.LIGHT_ONCE)
     torch.cuda.synchronize()
     compare_tensors((cot,), (first,), ("cot",), f"{what}, against the first form")
-    compare_tensors((cot,), (each,), ("cot",),
-                    f"{what}, against the light normalised the other way")
     return first
 
 
@@ -1018,9 +1014,9 @@ def main():
     say(f"[parity] shade_fwd on the {res}x{res} frame, three parameter sets: "
         f"max abs {err['shade_fwd']} against the plain version (limit 1e-6), "
         f"{fwd_bits} of {3 * n_rays} pixels differ in bits; shade_bwd with a "
-        f"cotangent in [-0.5, 0.5): == shade_bwd_serial == shade_bwd with the "
-        f"light normalised a ray, bitwise (also on a cotangent 4 bytes off a "
-        f"16-byte boundary), max abs {err['shade_bwd']} against autograd "
+        f"cotangent in [-0.5, 0.5): == shade_bwd_serial bitwise (also on a "
+        f"cotangent 4 bytes off a 16-byte boundary), max abs "
+        f"{err['shade_bwd']} against autograd "
         f"through the plain version (rtol 1e-5, atol 1e-6), rows of misses "
         f"zero")
 
@@ -1513,12 +1509,9 @@ def main():
     t["shade_fwd"] = cuda_ms(lambda: shade_cuda.shade_fwd(*shade_args), 50, 3)
     t["shade_fwd_plain"] = cuda_ms(lambda: diff.shade_diff_plain(*shade_args), 20, 2)
     t["shade_bwd"] = cuda_ms(lambda: shade_cuda.shade_bwd(g_step, *shade_args), 50, 3)
-    # shade_bwd against its first form and against the light normalised the
-    # other way, in turns
+    # shade_bwd against its first form, in turns
     turns = in_turns({
         "bwd": lambda: shade_cuda.shade_bwd(g_step, *shade_args),
-        "bwd_other_light": lambda: shade_cuda.shade_bwd(
-            g_step, *shade_args, light_once=not shade_cuda.LIGHT_ONCE),
         "bwd_first": lambda: shade_cuda.shade_bwd_serial(g_step, *shade_args)})
     t.update({f"{name}_turns": v for name, v in turns.items()})
     t["shade_bwd_plain"] = cuda_ms(lambda: shade_cuda.shade_bwd_plain(
@@ -1598,12 +1591,8 @@ def main():
         f"{m['shade_fwd'][1]:.4f}), plain {m['shade_fwd_plain'][0]:.4f}; "
         f"shade_bwd {m['shade_bwd'][0]:.4f} (p80 {m['shade_bwd'][1]:.4f}), "
         f"plain {m['shade_bwd_plain'][0]:.4f} (kernels n=50, plain n=20); in "
-        f"turns, three rounds of 50: shade_bwd (light normalised "
-        f"{'a block' if shade_cuda.LIGHT_ONCE else 'a ray'}) "
-        f"{m['bwd_turns'][0]:.4f}, with the light normalised "
-        f"{'a ray' if shade_cuda.LIGHT_ONCE else 'a block'} "
-        f"{m['bwd_other_light_turns'][0]:.4f}, shade_bwd_serial "
-        f"{m['bwd_first_turns'][0]:.4f}")
+        f"turns, three rounds of 50: shade_bwd {m['bwd_turns'][0]:.4f}, "
+        f"shade_bwd_serial {m['bwd_first_turns'][0]:.4f}")
     say(f"[timing] {card}: segment_sum, (cot, hit_leaf) to the three gradients, "
         f"scratch included: median {m['segment_sum'][0]:.4f} ms (p80 "
         f"{m['segment_sum'][1]:.4f}; again {m['segment_sum_again'][0]:.4f}); "
@@ -1795,21 +1784,14 @@ def main():
         alone[f"phase1 {cname}"] = kernel_us(
             rows, f"tile_candidates_kernel<{warps}>",
             "tile_candidates_block_kernel", f"tile_candidates_kernel<{9 - warps}>")
-    light_once = shade_cuda.LIGHT_ONCE
     _, rows, _n = profile_kernels(
-        "shade_bwd alone, with the light normalised the other way, and "
-        "shade_bwd_serial", lambda: (
+        "shade_bwd alone, and shade_bwd_serial", lambda: (
             shade_cuda.shade_bwd(g_step, *shade_args),
-            shade_cuda.shade_bwd(g_step, *shade_args, light_once=not light_once),
-            shade_cuda.shade_bwd_serial(g_step, *shade_args)), "round", 3,
-        launches=3)
-    name = lambda once: f"shade_bwd_kernel<{'true' if once else 'false'}>"
-    alone["shade_bwd"] = kernel_us(rows, name(light_once), "shade_bwd_serial_kernel",
-                                   name(not light_once))
-    say(f"[profile] {card}: shade_bwd {us_or(alone['shade_bwd'][0])} us alone "
-        f"(light normalised {'a block' if light_once else 'a ray'}; "
-        f"{us_or(alone['shade_bwd'][2])} us the other way), shade_bwd_serial "
-        f"{us_or(alone['shade_bwd'][1])} us; tile_candidates "
+            shade_cuda.shade_bwd_serial(g_step, *shade_args)), "round", 2,
+        launches=2)
+    alone["shade_bwd"] = kernel_us(rows, "shade_bwd_kernel", "shade_bwd_serial_kernel")
+    say(f"[profile] {card}: shade_bwd {us_or(alone['shade_bwd'][0])} us alone, "
+        f"shade_bwd_serial {us_or(alone['shade_bwd'][1])} us; tile_candidates "
         f"alone at the rule's warps a tile, at the other, and "
         f"tile_candidates_block, us: " + "; ".join(
             f"{c} " + ", ".join(us_or(x) for x in (
@@ -2019,10 +2001,8 @@ def main():
              plain_ms=m["shade_bwd_plain"][0], bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], library_ms=None,
              ms_first_form=m["bwd_first_turns"][0],
-             ms_other_light=m["bwd_other_light_turns"][0],
              us_alone=alone["shade_bwd"][0],
              us_alone_first_form=alone["shade_bwd"][1],
-             us_alone_other_light=alone["shade_bwd"][2],
              us_in_step=kernel_us(step_rows, "shade_bwd_kernel")[0]),
         dict(name="shade_bwd_serial", route="cuda", source=src + "shade.cu",
              replaces="raytracingtest_tpu/diff.py:132",

@@ -142,8 +142,8 @@ def _declare_shade(lib):
     lib.take.argtypes = [p, p, p, i, i, i, i, p]
     lib.loop_probe.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.shade_fwd.argtypes = [p, p, p, p, p, i, p, f, f, p, p, i, p]
-    lib.shade_bwd.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, i, p]
-    lib.shade_bwd_serial.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
+    for fn in (lib.shade_bwd, lib.shade_bwd_serial):
+        fn.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
     lib.segment_sum.argtypes = [p, p, i, i, p, ctypes.c_longlong, p, p, p, p]
     lib.segment_sum_sorted.argtypes = [p, p, p, i, i, p, p, p, p]
     for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,

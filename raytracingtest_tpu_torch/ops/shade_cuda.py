@@ -50,11 +50,6 @@ _SEGMENT_SUM_SORTED = Kernel("segment_sum_sorted", shade_lib)
 # csrc/shade.cu's SEG_SHORT: the longest run a leaf's own thread adds; longer
 # ones go to a block each
 SEG_SHORT = 16
-# shade_bwd normalises the light once a block (True) or once a hit ray
-# (False, as the first form does); the same bits either way. Once a block
-# measured no faster on an H100 (chip_smoke.py times both), so it is once a
-# ray.
-LIGHT_ONCE = False
 
 
 def _sum3(x):
@@ -165,7 +160,7 @@ def shade_bwd_plain(g, hit_leaf, d, albedo, normal, density, light_dir,
 
 
 def _bwd_kernel(kernel, g, hit_leaf, d, albedo, normal, density, light_dir,
-                light_intensity, light_ambient, sky, *extra):
+                light_intensity, light_ambient, sky):
     """Launch one of the two backward kernels on CUDA tensors; returns cot."""
     device = hit_leaf.device
     n, n_leaves, specs = _shade_specs(hit_leaf, d, albedo, normal, density,
@@ -176,23 +171,21 @@ def _bwd_kernel(kernel, g, hit_leaf, d, albedo, normal, density, light_dir,
     kernel(device, g.data_ptr(), hit_leaf.data_ptr(), d.data_ptr(),
            albedo.data_ptr(), normal.data_ptr(), density.data_ptr(), n_leaves,
            light_dir.data_ptr(), float(light_intensity), float(light_ambient),
-           0 if sky is None else sky.data_ptr(), cot.data_ptr(), n, *extra)
+           0 if sky is None else sky.data_ptr(), cot.data_ptr(), n)
     launches[kernel.name] += 1
     return cot
 
 
 def shade_bwd(g, hit_leaf, d, albedo, normal, density, light_dir,
-              light_intensity, light_ambient, sky=None, light_once=LIGHT_ONCE):
+              light_intensity, light_ambient, sky=None):
     """(N, 7) cotangents of each ray's parameter row (albedo 3, normal 3,
     density 1) from the image cotangent `g` (N, 3); the other arguments as
-    ``shade_fwd``. Rows of misses are zero. `light_once` picks where the
-    kernel normalises the light (see LIGHT_ONCE)."""
+    ``shade_fwd``. Rows of misses are zero."""
     if hit_leaf.device.type == "cpu":
         return shade_bwd_plain(g, hit_leaf, d, albedo, normal, density,
                                light_dir, light_intensity, light_ambient, sky)
     return _bwd_kernel(_SHADE_BWD, g, hit_leaf, d, albedo, normal, density,
-                       light_dir, light_intensity, light_ambient, sky,
-                       int(light_once))
+                       light_dir, light_intensity, light_ambient, sky)
 
 
 def shade_bwd_serial(g, hit_leaf, d, albedo, normal, density, light_dir,
