@@ -234,48 +234,27 @@ __device__ __forceinline__ void group_sync() {
   else __syncthreads();
 }
 
-// The sum over the group of each thread's `x` (an int), in every thread.
-// `partial` holds a row of WARPS words; successive calls alternate rows, so
-// a call's writes never meet the last call's reads.
-template <int WARPS>
-__device__ __forceinline__ int group_sum(int x, int* partial, int& row) {
-  x = __reduce_add_sync(FULL, x);
-  if (WARPS == 1) return x;
-  int* p = partial + row * 8;
-  row ^= 1;
-  if ((threadIdx.x & 31) == 0) p[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int s = 0;
-  for (int w = 0; w < WARPS; ++w) s += p[w];
-  return s;
-}
+enum Reduce { SUM, MIN, MAX };
 
-template <int WARPS>
-__device__ __forceinline__ unsigned group_min(unsigned x, int* partial,
-                                              int& row) {
-  x = __reduce_min_sync(FULL, x);
+// The sum, least or largest over the group of each thread's `x`, in every
+// thread. `partial` holds two rows of eight words; successive calls
+// alternate rows, so a call's writes never meet the last call's reads.
+template <int WARPS, Reduce R>
+__device__ __forceinline__ unsigned group_reduce(unsigned x, int* partial,
+                                                 int& row) {
+  x = R == SUM ? __reduce_add_sync(FULL, x)
+               : R == MIN ? __reduce_min_sync(FULL, x) : __reduce_max_sync(FULL, x);
   if (WARPS == 1) return x;
   int* p = partial + row * 8;
   row ^= 1;
   if ((threadIdx.x & 31) == 0) p[threadIdx.x >> 5] = (int)x;
   __syncthreads();
-  unsigned s = ~0u;
-  for (int w = 0; w < WARPS; ++w) s = min(s, (unsigned)p[w]);
-  return s;
-}
-
-template <int WARPS>
-__device__ __forceinline__ unsigned group_max(unsigned x, int* partial,
-                                              int& row) {
-  x = __reduce_max_sync(FULL, x);
-  if (WARPS == 1) return x;
-  int* p = partial + row * 8;
-  row ^= 1;
-  if ((threadIdx.x & 31) == 0) p[threadIdx.x >> 5] = (int)x;
-  __syncthreads();
-  unsigned s = 0u;
-  for (int w = 0; w < WARPS; ++w) s = max(s, (unsigned)p[w]);
-  return s;
+  x = (unsigned)p[0];
+  for (int w = 1; w < WARPS; ++w) {
+    const unsigned y = (unsigned)p[w];
+    x = R == SUM ? x + y : R == MIN ? min(x, y) : max(x, y);
+  }
+  return x;
 }
 
 // Appends, for each warp and 32 values at a time, the values for which
@@ -422,18 +401,19 @@ tile_candidates_kernel(const int* __restrict__ pyr,
         lo = min(lo, (unsigned)stage[i]);
         hi = max(hi, (unsigned)stage[i]);
       }
-      lo = group_min<WARPS>(lo, partial, row_sel);
-      hi = group_max<WARPS>(hi, partial, row_sel);
+      lo = group_reduce<WARPS, MIN>(lo, partial, row_sel);
+      hi = group_reduce<WARPS, MAX>(hi, partial, row_sel);
       // every key shares lo's bits above the highest bit in which lo and
       // hi differ (count > w >= 1 keys, unique, so lo < hi)
       const int top = 31 - __clz((int)(lo ^ hi));
       unsigned prefix = lo & ~((2u << top) - 1u);
       for (int bit = top; bit >= 0; --bit) {
         const unsigned cand = prefix | (1u << bit);
-        int below = 0;
+        unsigned below = 0;
         for (int i = warp * 32 + lane; i < count; i += 32 * WARPS)
           below += (unsigned)stage[i] < cand;
-        if (group_sum<WARPS>(below, partial, row_sel) <= w) prefix = cand;
+        if (group_reduce<WARPS, SUM>(below, partial, row_sel) <= (unsigned)w)
+          prefix = cand;
       }
       kth = (int)prefix;
       const float t_drop = (float)(kth >> v.code_bits) * v.t_scale;
