@@ -14,12 +14,23 @@ benchmark frame, the depth-10 `terrain` SVO seen by bench.py's camera at
     (kernels `tile_candidates` and `tile_walk`, three launches each a frame,
     and `shade_fwd`),
 
-and as a training step on both traversals (`diff.loss_and_grads_cuda`,
-`diff.loss_and_grads_tile`: the forward frame, then `shade_bwd` and the
+  * ray by ray through the brick trace, `diff.render_diff_brick` (kernels
+    `brick_trace` and `shade_fwd`; bench.py's BENCH_PATH=brick), and
+  * ray by ray through the stackless trace, `diff.render_diff` (kernels
+    `esvo_stackless` and `shade_fwd`; bench.py's BENCH_PATH=plain),
+
+and as a training step on all four traversals (`diff.loss_and_grads_cuda`,
+`diff.loss_and_grads_tile`, `diff.loss_and_grads_brick`,
+`diff.loss_and_grads`: the forward frame, then `shade_bwd` and the
 sort-free `segment_sum`), and takes three `InverseRenderer.step_view` steps
-on that view. The two traversal kernels keep their first forms beside them,
-`esvo_trace_serial` and `tile_walk_serial` (one thread a ray, off the main
-path): each kernel is held bitwise against its plain version and its first
+on that view and three `InverseRenderer.step` steps on its flat batch of
+rays (the brick step). `brick_trace` and `esvo_stackless` are held bitwise
+against their plain versions (hits, hit_t bits, step counts and statistics)
+on small cases and on the full frame; the rays on which the frames part
+from `esvo_trace` go to a float64 referee; no call of their plain versions
+may happen on their paths. The two traversal kernels of the first slices
+keep their first forms beside them, `esvo_trace_serial` and
+`tile_walk_serial` (one thread a ray, off the main path): each kernel is held bitwise against its plain version and its first
 form, the walker on each of the frame's three launches and at every number
 of lanes a ray, and each pair is timed in turns. `tile_candidates` (phase 1
 of the tile trace) is held bitwise against `tile.candidates_plain` on each
@@ -35,6 +46,7 @@ The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,8 +61,8 @@ from raytracingtest_tpu_torch.config import CameraConfig
 from raytracingtest_tpu_torch.io import checkpoint
 from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.ops import (
-    brick_dda, camera, gather, octree, rowread, shade_cuda, tile, tile_cuda,
-    traverse, traverse_cuda)
+    brick, brick_cuda, brick_dda, camera, gather, octree, rowread, shade_cuda,
+    tile, tile_cuda, traverse, traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import Scene, get_scene
@@ -85,7 +97,8 @@ OPS_CAND_CHILD = 110
 
 # calls of plain versions that the main path must not make, counted by
 # count_plain_calls()
-PLAIN_CALLS = {"candidates_plain": 0}
+PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0}
+STAT = traverse.STAT_NAMES.index
 
 
 def say(*parts):
@@ -192,20 +205,60 @@ def reset_counts():
     tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
-    for mod in (gather, shade_cuda):
+    for mod in (gather, shade_cuda, brick_cuda):
         for name in mod.launches:
             mod.launches[name] = 0
 
 
 def count_plain_calls():
-    """From here on, count every call of ``tile.candidates_plain`` in
-    PLAIN_CALLS (``tile._candidates`` looks it up at each call)."""
-    plain = tile.candidates_plain
+    """From here on, count every call of ``tile.candidates_plain``,
+    ``brick.trace_brick`` and ``traverse.trace_stackless`` in PLAIN_CALLS
+    (their callers look them up in their modules at each call)."""
+    for mod, name, key in ((tile, "candidates_plain", "candidates_plain"),
+                           (brick, "trace_brick", "trace_brick"),
+                           (traverse, "trace_stackless", "trace_stackless")):
+        plain = getattr(mod, name)
 
-    def counted(*args):
-        PLAIN_CALLS["candidates_plain"] += 1
-        return plain(*args)
-    tile.candidates_plain = counted
+        def counted(*args, _plain=plain, _key=key):
+            PLAIN_CALLS[_key] += 1
+            return _plain(*args)
+        setattr(mod, name, counted)
+
+
+def compare_stats(kern, plain, what):
+    """A trace and its statistics ((TraceResult, stats) pairs) bitwise, as
+    ``compare`` does; returns the largest absolute difference of hit_t."""
+    err = compare(kern[0], plain[0], what)
+    if not torch.equal(kern[1], plain[1]):
+        bad = int((kern[1] != plain[1]).any(dim=1).sum())
+        raise AssertionError(f"{what}: the statistics differ on {bad} rays")
+    return err
+
+
+def ray_sets(dev, cam, n, seed):
+    """(name, o, d) on `dev`: a camera's rays, rays from a shell aimed near
+    the centre, and rays from inside the cube in random directions."""
+    rng = np.random.default_rng(seed)
+    inside_d = rng.normal(size=(n, 3))
+    inside_d /= np.linalg.norm(inside_d, axis=1, keepdims=True)
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return [("camera", *cam.rays(dev)),
+            ("random", *(as_dev(a) for a in random_rays(n, seed))),
+            ("inside", as_dev(rng.random((n, 3))), as_dev(inside_d))]
+
+
+def route_line(res, stats):
+    """A per-ray route's frame in words: hits, steps a ray and the rays
+    that reach each bound."""
+    dda = stats[:, STAT("dda_steps")].double()
+    top = res.iters.double() - dda
+    return (f"{int((res.hit_leaf >= 0).sum())} hits; {float(top.mean()):.2f} top "
+            f"steps and {float(dda.mean()):.2f} DDA steps a ray (most "
+            f"{int(res.iters.max())} steps, {int(stats[:, STAT('rounds')].max())} "
+            f"rounds, {int(stats[:, STAT('dda_max')].max())} DDA steps in one "
+            f"round); {int((stats[:, STAT('top_capped')] > 0).sum())} rays reach "
+            f"a round's top-step cap, {int(stats[:, STAT('unfinished')].sum())} "
+            f"stop unfinished at the route's bound")
 
 
 def probe_idx(shape, rows, dev):
@@ -738,6 +791,7 @@ def main():
     t0 = time.perf_counter()
     secs = _build.build_all()
     say(f"[build] esvo_trace (nvcc sm_90a) {secs['esvo_trace']:.2f} s, "
+        f"brick_trace (nvcc sm_90a) {secs['brick_trace']:.2f} s, "
         f"tile_walk (nvcc sm_90a) {secs['tile_walk']:.2f} s, "
         f"shade (nvcc sm_90a) {secs['shade']:.2f} s, "
         f"tile_candidates (nvcc sm_90a) {secs['tile_candidates']:.2f} s, "
@@ -750,7 +804,8 @@ def main():
                tile_walk_serial=0.0, tile_candidates=0.0,
                tile_candidates_block=0.0, brick_dda16=0.0, rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
-               shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0)
+               shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
+               brick_trace=0.0, esvo_stackless=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -816,6 +871,47 @@ def main():
                 f"the rule, and every G of {tile_cuda.LANES}) == plain == first "
                 f"form (hit_leaf, iters, hit_t bitwise), T={args[1].shape[0]} "
                 f"P={args[1].shape[1]} K={args[4].shape[1]}, {hits} hits")
+
+    # the per-ray stackless traces, each kernel against its plain version:
+    # small trees, the empty tree (one zero brick row) and a depth-4 tree
+    # (a top tree of one level); camera rays, rays from a shell, rays from
+    # inside the cube
+    empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
+    dda_most, parity_lines = 0, []
+    for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
+                        ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        small_svo, small_bsvo = host.to(dev), brick.make_brick_svo(host).to(dev)
+        found = []
+        for kind, o, d in ray_sets(dev, small_cam, 4096, depth):
+            what = f"{name} d{depth} {kind} rays N={o.shape[0]}"
+            kb = brick_cuda._brick_kernel(small_bsvo, o, d, True)
+            ks = brick_cuda._stackless_kernel(small_svo, o, d, True)
+            pb = brick.trace_brick(small_bsvo, o, d, True)
+            ps = traverse.trace_stackless(small_svo, o, d, True)
+            torch.cuda.synchronize()
+            err["brick_trace"] = max(err["brick_trace"], compare_stats(
+                kb, pb, f"brick_trace, {what}"))
+            err["esvo_stackless"] = max(err["esvo_stackless"], compare_stats(
+                ks, ps, f"esvo_stackless, {what}"))
+            dda_most = max(dda_most, int(kb[1][:, STAT("dda_max")].max()))
+            hits = int((kb[0].hit_leaf >= 0).sum())
+            if name == "empty" and (hits or int((ks[0].hit_leaf >= 0).sum())):
+                raise AssertionError(f"{what}: a hit in the empty tree")
+            found.append(f"{kind} {hits} hits, "
+                         f"{int((kb[0].hit_leaf != ks[0].hit_leaf).sum())} parting")
+        parity_lines.append(f"{name} d{depth} (top depth {small_bsvo.top_depth}): "
+                            + ", ".join(found))
+    if dda_most > 22:
+        raise AssertionError(f"a brick walk took {dda_most} DDA steps in one "
+                             f"round; an 8^3 brick needs at most 22")
+    say("[parity] brick_trace and esvo_stackless == their plain versions "
+        "(brick.trace_brick, traverse.trace_stackless) bitwise (hit_leaf, "
+        "hit_t bits, hit_parent, hit_child, iters, and the statistics a ray), "
+        "camera rays (128x128) and 4,096 rays from a shell and from inside "
+        "the cube: " + "; ".join(parity_lines) + f" (hits of brick_trace; rays "
+        f"on which the two traces part in hit_leaf); at most {dda_most} DDA "
+        f"steps in a round (the cap of {brick.DDA_ROUND_STEPS} never binds)")
 
     n_dda = 65536
     dda_args = dda_inputs(n_dda, 0, dev)
@@ -920,6 +1016,14 @@ def main():
 
     svo = host_svo.to(dev)
     ts = host_ts.to(dev)
+    # the stackless trace climbs through parent pointers: derived once on the
+    # card (a loaded SVO carries none), held against the host's
+    pptr = traverse.derive_parent_ptr(svo.masks, svo.child_base)
+    if not torch.equal(pptr.cpu(), torch.from_numpy(octree.compute_parent_ptr(
+            host_svo.masks.numpy(), host_svo.child_base.numpy()))):
+        raise AssertionError("derive_parent_ptr on the card differs from the host's")
+    svo = dataclasses.replace(svo, parent_ptr=pptr)
+    bsvo = ts.bsvo
     cam = camera.Camera(**bench_cam, width=res, height=res)
     o, d = cam.rays(dev)
     light = torch.tensor([-0.5, -1.0, -0.3], dtype=torch.float32, device=dev)
@@ -960,6 +1064,90 @@ def main():
         f"{hits} hits, {esvo_steps / n_rays:.2f} steps a ray, hits == plain "
         f"trace == esvo_trace_serial (bitwise: hit_leaf, hit_t, hit_parent, "
         f"hit_child, iters), image == plain path (max abs {img_err}), finite")
+
+    # ---- 5c. main path ray by ray through the brick and stackless traces -----
+    per_ray = kern
+    voxels = leaf_voxels(host_ts)
+    routes = {}
+    for route, kname, render, kernel_call, plain_call in (
+            ("brick", "brick_trace",
+             lambda: diff.render_diff_brick(*params, bsvo, o, d, light),
+             lambda: brick_cuda._brick_kernel(bsvo, o, d, True),
+             lambda: brick.trace_brick(bsvo, o, d, True)),
+            ("plain", "esvo_stackless",
+             lambda: diff.render_diff(*params, svo, o, d, light),
+             lambda: brick_cuda._stackless_kernel(svo, o, d, True),
+             lambda: traverse.trace_stackless(svo, o, d, True))):
+        reset_counts()
+        img_r = render()
+        torch.cuda.synchronize()
+        launched = dict(brick_cuda.launches)
+        want = dict(brick_trace=int(route == "brick"),
+                    esvo_stackless=int(route == "plain"))
+        if (launched != want or traverse_cuda.launches
+                or shade_cuda.launches["shade_fwd"] != 1
+                or PLAIN_CALLS["trace_brick"] or PLAIN_CALLS["trace_stackless"]):
+            raise AssertionError(f"the {route} frame launched {launched}, "
+                                 f"esvo_trace {traverse_cuda.launches} times, "
+                                 f"plain calls {PLAIN_CALLS}; expected {want}")
+        if img_r.shape != (n_rays, 3) or not bool(torch.isfinite(img_r).all()):
+            raise AssertionError(f"bad {route} image: shape or non-finite")
+        # the kernel against its plain version on the same card and inputs
+        t0 = time.perf_counter()
+        plain_r = plain_call()
+        torch.cuda.synchronize()
+        route_plain_ms = (time.perf_counter() - t0) * 1e3
+        res_r, st_r = kernel_call()
+        err[kname] = max(err[kname], compare_stats(
+            (res_r, st_r), plain_r, f"{kname}, terrain d10 frame"))
+        img_plain_r = diff.shade_diff_plain(plain_r[0].hit_leaf, d, *params,
+                                            light, 1.3, 0.08)
+        img_err_r = float((img_r - img_plain_r).abs().max())
+        if img_err_r > 1e-6:
+            raise AssertionError(f"{route} frame differs from its plain path by "
+                                 f"{img_err_r}")
+        # rays on which the route parts from esvo_trace, to the referee; a
+        # ray that this route's bound stopped is counted, not excused
+        unfinished = st_r[:, STAT("unfinished")] == 1
+        differ = res_r.hit_leaf != per_ray.hit_leaf
+        n_differ = int(differ.sum())
+        if n_differ > MAX_DIFFER + int(unfinished.sum()):
+            raise AssertionError(f"{route} frame: {n_differ} rays hit another "
+                                 f"leaf than esvo_trace")
+        verdict_r = referee(
+            voxels, depth, o[differ].cpu().numpy(), d[differ].cpu().numpy(),
+            dict(route=res_r.hit_leaf[differ].cpu().numpy(),
+                 per_ray=per_ray.hit_leaf[differ].cpu().numpy()))
+        cut_here = unfinished[differ].cpu().numpy()
+        wrong = ~verdict_r["route"] & ~cut_here
+        if wrong.any():
+            raise AssertionError(f"{route} frame: wrong on {int(wrong.sum())} "
+                                 f"finished rays of the {n_differ} where it parts "
+                                 f"from esvo_trace")
+        per_ray_cut = differ & (per_ray.iters >= traverse.max_iters_for_depth(depth))
+        routes[route] = dict(res=res_r, stats=st_r, differ=differ,
+                             unfinished=unfinished, plain_ms=route_plain_ms,
+                             launches=launched[kname])
+        say(f"[frame-{route}] {res}x{res} depth {depth}: {kname} launched "
+            f"{launched[kname]} time(s) in the frame, shade_fwd once, no plain "
+            f"call; " + route_line(res_r, st_r) + f"; kernel == plain version "
+            f"on the card, bitwise (hit_leaf, hit_t, hit_parent, hit_child, "
+            f"iters, statistics; the plain version {route_plain_ms:.1f} ms, n=1); "
+            f"image == plain path (max abs {img_err_r}); parts from esvo_trace "
+            f"on {n_differ} rays, where the float64 referee finds this route "
+            f"right on {int(verdict_r['route'].sum())} and esvo_trace right on "
+            f"{int(verdict_r['per_ray'].sum())}; of them {int(cut_here.sum())} "
+            f"stopped unfinished at this route's bound (the referee finds "
+            f"esvo_trace right on {int(verdict_r['per_ray'][cut_here].sum())} of "
+            f"those) and {int(per_ray_cut.sum())} ran into esvo_trace's "
+            f"{traverse.max_iters_for_depth(depth)}-step bound")
+    both = ~routes["plain"]["unfinished"]
+    apart = both & (routes["brick"]["res"].hit_leaf != routes["plain"]["res"].hit_leaf)
+    say(f"[frame-brick] the brick and stackless frames part on {int(apart.sum())} "
+        f"of the rays the stackless trace finishes (each refereed above where it "
+        f"parts from esvo_trace), and the brick trace finishes all "
+        f"{int((~both).sum())} that the stackless trace leaves: "
+        f"{int((routes['brick']['res'].hit_leaf[~both] >= 0).sum())} of them hits")
 
     # ---- 5b. the shading kernels on that frame vs their plain versions ----------
     hit_leaf = kern.hit_leaf
@@ -1301,7 +1489,7 @@ def main():
         f"sorted form, off the training path): {sorted_launches} launch; the "
         f"first forms, off the main path: {first_launches}")
 
-    # ---- 7b. the training step, on both traversals ----------------------------
+    # ---- 7b. the training step, on all four traversals -----------------------
     hit_tile = res_fb.hit_leaf
     d_flat = d_t.reshape(-1, 3)
     target_rand = torch.from_numpy(np.random.default_rng(11).random(
@@ -1317,7 +1505,13 @@ def main():
             ("tile", lambda: diff.loss_and_grads_tile(
                 *params, ts, o_t, d_t, corners, light,
                 tile.tile_pixels(target, grid), **TILE_BUDGETS),
-             hit_tile, d_flat, tile.tile_pixels(target, grid)))
+             hit_tile, d_flat, tile.tile_pixels(target, grid)),
+            ("brick", lambda: diff.loss_and_grads_brick(
+                *params, bsvo, o, d, light, target),
+             routes["brick"]["res"].hit_leaf, d, target),
+            ("plain", lambda: diff.loss_and_grads(
+                *params, svo, o, d, light, target),
+             routes["plain"]["res"].hit_leaf, d, target))
         for path, step, leafs, dirs, tgt in steps:
             reset_counts()
             out, grads = step()
@@ -1326,19 +1520,22 @@ def main():
                           tile_walk=tile_cuda.launches,
                           tile_candidates=tile_cuda.candidates_launches,
                           tile_candidates_block=tile_cuda.candidates_block_launches,
-                          candidates_plain=PLAIN_CALLS["candidates_plain"],
+                          **brick_cuda.launches, **PLAIN_CALLS,
                           **shade_cuda.launches)
-            want = dict(esvo_trace=1 if path == "per-ray" else 0,
-                        tile_walk=0 if path == "per-ray" else 3,
-                        tile_candidates=0 if path == "per-ray" else 3,
-                        tile_candidates_block=0, candidates_plain=0,
+            want = dict(esvo_trace=int(path == "per-ray"),
+                        tile_walk=3 if path == "tile" else 0,
+                        tile_candidates=3 if path == "tile" else 0,
+                        tile_candidates_block=0,
+                        brick_trace=int(path == "brick"),
+                        esvo_stackless=int(path == "plain"),
+                        candidates_plain=0, trace_brick=0, trace_stackless=0,
                         shade_fwd=1, shade_bwd=1, shade_bwd_serial=0,
                         segment_sum=1, segment_sum_sorted=0)
             if counts != want:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
                                      f"expected {want}")
             train_launches[path] = counts
-            loss, n_res = (out, 0) if path == "per-ray" else (out[0], int(out[1]))
+            loss, n_res = (out[0], int(out[1])) if path == "tile" else (out, 0)
             if not bool(torch.isfinite(loss)) or n_res != 0:
                 raise AssertionError(f"{path} step, {what}: loss {float(loss)}, "
                                      f"{n_res} residual rays")
@@ -1357,7 +1554,9 @@ def main():
             if not torch.allclose(loss, loss_plain, rtol=1e-5):
                 raise AssertionError(f"{path} step, {what}: loss {float(loss)} "
                                      f"against plain {float(loss_plain)}")
-            if path == "per-ray" and bool(join7(grads)[~touched].any()):
+            touched_p = torch.bincount(leafs[leafs >= 0].long(),
+                                       minlength=n_leaves) > 0
+            if path != "tile" and bool(join7(grads)[~touched_p].any()):
                 raise AssertionError(f"{path} step, {what}: a leaf no ray hit "
                                      f"has a gradient")
             grads_by_path[(path, what)] = grads
@@ -1368,8 +1567,8 @@ def main():
                 f"(max abs {worst_tight:.3e}), and within rtol 1e-5 / atol 1e-7 "
                 f"of the plain sort + running-sum backward on the card (max "
                 f"abs {worst:.3e}); "
-                + (f"{int(touched.sum())} of {n_leaves} leaves touched, the "
-                   f"others exactly zero" if path == "per-ray" else
+                + (f"{int(touched_p.sum())} of {n_leaves} leaves touched, the "
+                   f"others exactly zero" if path != "tile" else
                    f"{n_res} residual rays"))
         # the two traversals give the same gradients, off the leaves of the
         # rays the referee judged (their rows differ by those rays' terms);
@@ -1388,6 +1587,24 @@ def main():
             f"{int(keep.sum())} leaves off the refereed rays (max abs "
             f"{paths_err:.3e}, limit 1e-5 of the largest gradient "
             f"{float(a.abs().max()):.3e})")
+        # the brick and stackless steps against the per-ray step, off the
+        # leaves of the rays where their frames part from esvo_trace (the
+        # rays of a leaf add in the same order: all three are row-major)
+        for path in ("brick", "plain"):
+            parted = routes[path]["differ"]
+            off = torch.cat([routes[path]["res"].hit_leaf[parted],
+                             per_ray.hit_leaf[parted]])
+            keep = torch.ones(n_leaves, dtype=torch.bool, device=dev)
+            keep[off[off >= 0].long()] = False
+            a = join7(grads_by_path[("per-ray", what)])[keep]
+            b = join7(grads_by_path[(path, what)])[keep]
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the {path} step's gradients differ "
+                                     f"from the per-ray step's off the refereed "
+                                     f"rays by {float((a - b).abs().max())}")
+            say(f"[train] {what}: the {path} step's gradients == the per-ray "
+                f"step's, bitwise, on the {int(keep.sum())} leaves off the "
+                f"{int(parted.sum())} rays where the frames part")
 
     # three Adam steps on the view, from random albedo towards the scene's own
     model = InverseRenderer(host_svo, device=dev)
@@ -1430,6 +1647,35 @@ def main():
         f"trainer's budgets (the tile frame's own count there; 0 at bench.py's "
         f"budgets above), 6 walker and 6 tile_candidates launches, no launch "
         f"of a first form and no call of candidates_plain, frozen parameters "
+        f"unchanged")
+
+    # three Adam steps on the view's flat batch of rays: InverseRenderer.step,
+    # the brick step on this tree, as the reference's trainer takes it
+    flat_params, flat_state = model.init_params(seed=0)
+    flat_losses = []
+    reset_counts()
+    for _ in range(3):
+        flat_params, flat_state, loss = model.step(
+            flat_params, flat_state, o, d, (-0.5, -1.0, -0.3), img)
+        flat_losses.append(float(loss))
+    torch.cuda.synchronize()
+    flat_counts = dict(esvo_trace=traverse_cuda.launches, **brick_cuda.launches,
+                       **PLAIN_CALLS, **shade_cuda.launches)
+    want = dict(esvo_trace=0, brick_trace=3, esvo_stackless=0, candidates_plain=0,
+                trace_brick=0, trace_stackless=0, shade_fwd=3, shade_bwd=3,
+                shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0)
+    if flat_counts != want:
+        raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
+                             f"expected {want}")
+    if not (flat_losses[0] > flat_losses[1] > flat_losses[2] > 0.0):
+        raise AssertionError(f"InverseRenderer.step: the loss does not fall: "
+                             f"{flat_losses}")
+    if not torch.equal(flat_params["normal"], frozen):
+        raise AssertionError("InverseRenderer.step changed a frozen parameter")
+    say(f"[train] InverseRenderer.step, 3 Adam steps on the {res}x{res} view's "
+        f"flat batch of {n_rays} rays from random albedo: loss "
+        f"{flat_losses[0]:.6f} -> {flat_losses[1]:.6f} -> {flat_losses[2]:.6f}, "
+        f"through the brick step (launches {flat_counts}), frozen parameters "
         f"unchanged")
 
     # ---- 8. timing: both frames within this one call -----------------------
@@ -1504,6 +1750,24 @@ def main():
     t["frame_last"] = cuda_ms(lambda: diff.render_diff_cuda(*params, svo, o, d, light), 50, 3)
     t["tile_frame_last"] = cuda_ms(lambda: diff.render_diff_tile(
         *params, ts, o_t, d_t, corners, light, **TILE_BUDGETS), 20, 2)
+    # bench.py's BENCH_PATH=brick and plain: each frame, and its step beside it
+    route_calls = {
+        "brick": (lambda: diff.render_diff_brick(*params, bsvo, o, d, light),
+                  lambda: diff.loss_and_grads_brick(*params, bsvo, o, d, light,
+                                                    target0)),
+        "plain": (lambda: diff.render_diff(*params, svo, o, d, light),
+                  lambda: diff.loss_and_grads(*params, svo, o, d, light, target0))}
+    for route, (fwd, fwdbwd) in route_calls.items():
+        t[f"{route}_frame"] = cuda_ms(fwd, 50, 3)
+        t[f"{route}_step"] = cuda_ms(fwdbwd, 50, 3)
+    # the three per-ray traces in turns, and the new ones' plain versions
+    turns = in_turns({
+        "trace_esvo": lambda: traverse_cuda.trace_cuda(svo, o, d),
+        "trace_brick": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
+        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)})
+    t.update({f"{name}_turns": v for name, v in turns.items()})
+    t["brick_plain"] = cuda_ms(lambda: brick.trace_brick(bsvo, o, d), 2, 0)
+    t["stackless_plain"] = cuda_ms(lambda: traverse.trace_stackless(svo, o, d), 2, 0)
     g_step = 2.0 * img / img.numel()
     shade_args = (hit_leaf, d, *params, light, 1.3, 0.08)
     t["shade_fwd"] = cuda_ms(lambda: shade_cuda.shade_fwd(*shade_args), 50, 3)
@@ -1619,6 +1883,19 @@ def main():
         f"50); take_1d at the main path's size ({big_table.shape[0]} float32 "
         f"entries, {big_idx.shape[0]} int32 indices) {m['take_full_turns'][0]:.4f} "
         f"ms against index_select {m['take_full_library_turns'][0]:.4f} (in turns)")
+    for route in route_calls:
+        f, st = m[f"{route}_frame"], m[f"{route}_step"]
+        say(f"[timing] {card}: BENCH_PATH={route}: fwd median {f[0]:.4f} ms (p80 "
+            f"{f[1]:.4f}, n=50) = {n_rays / f[0] / 1e3:.2f} Mrays/s; fwdbwd median "
+            f"{st[0]:.4f} ms (p80 {st[1]:.4f}, n=50) = "
+            f"{n_rays / st[0] / 1e3:.2f} Mrays/s; fwdbwd_over_fwd "
+            f"{st[0] / f[0]:.2f}")
+    say(f"[timing] {card}: the per-ray traces in turns (three rounds of 50): "
+        f"esvo_trace {m['trace_esvo_turns'][0]:.4f} ms, brick_trace "
+        f"{m['trace_brick_turns'][0]:.4f}, esvo_stackless "
+        f"{m['trace_stackless_turns'][0]:.4f}; their plain versions "
+        f"brick.trace_brick {m['brick_plain'][0]:.1f} ms and "
+        f"traverse.trace_stackless {m['stackless_plain'][0]:.1f} ms (n=2)")
     for wname in WALKS:
         row = walk_rows[wname]
         say(f"[lanes] {card}: walk {wname} (T={row['T']}, P={row['P']}, "
@@ -1767,6 +2044,18 @@ def main():
             traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
     alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
     _, rows, _n = profile_kernels(
+        "brick_trace and esvo_stackless alone, and esvo_trace beside them",
+        lambda: (brick_cuda.trace_brick_cuda(bsvo, o, d),
+                 brick_cuda.trace_stackless_cuda(svo, o, d),
+                 traverse_cuda.trace_cuda(svo, o, d)), "round", 3, launches=3)
+    alone["brick_trace"], alone["esvo_stackless"], alone["esvo_beside"] = kernel_us(
+        rows, "brick_trace_kernel", "esvo_stackless_kernel", "esvo_kernel<false>")
+    route_prof = {}
+    for route, (fwd, fwdbwd) in route_calls.items():
+        f_us, _rows, f_n = profile_kernels(f"{route} frame", fwd, "frame", 4)
+        s_us, _rows, s_n = profile_kernels(f"{route} fwd+bwd step", fwdbwd, "step", 10)
+        route_prof[route] = (f_us, f_n, s_us, s_n)
+    _, rows, _n = profile_kernels(
         "take_1d at the main path's size alone, and index_select", lambda: (
             gather.take_1d(big_table, big_idx),
             torch.index_select(big_table, 0, big_idx)), "round", 2)
@@ -1806,6 +2095,15 @@ def main():
         f"{idle(tile_step_us, m['step_tile'][0])} of its median "
         f"{m['step_tile'][0]:.4f} ms; per-ray fwd+bwd step idle "
         f"{idle(step_us, m['step'][0])} of its median {m['step'][0]:.4f} ms")
+    say(f"[profile] {card}: brick_trace {us_or(alone['brick_trace'])} us alone, "
+        f"esvo_stackless {us_or(alone['esvo_stackless'])} us, esvo_trace beside "
+        f"them {us_or(alone['esvo_beside'])} us; " + "; ".join(
+            f"{route} frame {us_or(f_us)} us of kernels in {count(f_n)} launches, "
+            f"idle {idle(f_us, m[f'{route}_frame'][0])} of its median "
+            f"{m[f'{route}_frame'][0]:.4f} ms; {route} fwd+bwd step {us_or(s_us)} us "
+            f"in {count(s_n)} launches, idle {idle(s_us, m[f'{route}_step'][0])} of "
+            f"its median {m[f'{route}_step'][0]:.4f} ms"
+            for route, (f_us, f_n, s_us, s_n) in route_prof.items()))
 
     # where the tile frame's and the tile step's host time goes, by group
     for what, fn in (
@@ -1826,9 +2124,14 @@ def main():
                               *dda_args[3:], depth=10, steps=16)
         rowread.rowread_rows(table, rows8)
         gather.take_1d(take_table, take_idx)
+        gather.loop_probe(loop_x, loop_table, 2048, 8, 0)
         torch.index_select(table, 0, rows8)
-    profile_kernels("probe kernels alone (brick_dda16, rowread, take_1d, and "
-                    "index_select beside them)", probe_round, "round", 4)
+    _, probe_rows, _n = profile_kernels(
+        "probe kernels alone (brick_dda16, rowread, take_1d, loop_probe at 2048 "
+        "trips, and index_select beside them)", probe_round, "round", 5)
+    alone["loop_probe"] = kernel_us(probe_rows, "loop_probe_kernel")[0]
+    say(f"[profile] {card}: loop_probe (512,128), 2048 trips of 8 steps, "
+        f"{us_or(alone['loop_probe'])} us alone")
     # the same kernel in its one-hot mode, on its own so the two do not merge
     profile_kernels("take in its one-hot mode alone", lambda: gather.take_onehot(
         hot_table, hot_idx), "call", 1)
@@ -1839,6 +2142,19 @@ def main():
     esvo_bound = bound(
         nbytes(o, d, svo.masks, svo.child_base, svo.leaf_base) + n_rays * 5 * 4,
         esvo_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)
+    # the per-ray routes: rays and results, their tables read once, and the
+    # top steps and DDA steps this frame's rays took
+    b_res, b_st = routes["brick"]["res"], routes["brick"]["stats"]
+    b_dda = int(b_st[:, STAT("dda_steps")].sum())
+    b_top = int(b_res.iters.sum()) - b_dda
+    brick_bound = bound(
+        nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent, bsvo.bricks)
+        + n_rays * 5 * 4,
+        b_top * OPS_ESVO_STEP + b_dda * OPS_DDA_STEP + n_rays * OPS_RAY_SETUP)
+    s_steps = int(routes["plain"]["res"].iters.sum())
+    stackless_bound = bound(
+        nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr, svo.leaf_base)
+        + n_rays * 5 * 4, s_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)
     # take at full size reads each index once and at most each touched entry
     # once, and writes one value a ray
     take_full_bound = bound(nbytes(big_idx) + int(touched.sum()) * 4
@@ -1860,6 +2176,15 @@ def main():
         f"{us(alone['esvo'][1])} us, bound {esvo_bound[0]:.5f} ms; take_1d at "
         f"full size {us(alone['take'][0])} us alone, index_select "
         f"{us(alone['take'][1])} us, bound {take_full_bound[0]:.5f} ms")
+    say(f"[bound] the per-ray routes (24 B of ray in and 20 B of results out a "
+        f"ray and their tables once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{OPS_ESVO_STEP} operations a top step, {OPS_DDA_STEP} a DDA step and "
+        f"{OPS_RAY_SETUP} a ray's set-up at {PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s): "
+        f"brick_trace {b_top} top steps and {b_dda} DDA steps, bound "
+        f"{brick_bound[0]:.5f} ms ({brick_bound[1]}), {us(alone['brick_trace'])} "
+        f"us alone; esvo_stackless {s_steps} steps, bound {stackless_bound[0]:.5f} "
+        f"ms ({stackless_bound[1]}), {us(alone['esvo_stackless'])} us alone; "
+        f"esvo_trace {esvo_steps} steps, bound {esvo_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
         new_us, first_us, other_us = alone[f"phase1 {cname}"]
         cand_rows[cname].update(
@@ -1985,7 +2310,8 @@ def main():
              replaces="scratch/probe2.py:80", path="gather.loop_probe",
              launches=loop_launches, max_abs_err=err["loop_probe"],
              ms=m["loop_2048_0"][0], plain_ms=loop_plain_ms[(2048, 0)],
-             bound_ms=loop_bound[0], bound_by=loop_bound[1], library_ms=None),
+             bound_ms=loop_bound[0], bound_by=loop_bound[1], library_ms=None,
+             us_alone=alone["loop_probe"]),
         dict(name="shade_fwd", route="cuda", source=src + "shade.cu",
              replaces="raytracingtest_tpu/diff.py:35",
              path="diff.loss_and_grads_cuda",
@@ -2028,6 +2354,26 @@ def main():
              ms=m["segment_sorted_whole"][0], plain_ms=m["segment_plain"][0],
              bound_ms=seg_bound[0], bound_by=seg_bound[1],
              library_ms=m["segment_library"][0]),
+    ]
+    kernels += [
+        dict(name="brick_trace", route="cuda", source=src + "brick_trace.cu",
+             replaces="raytracingtest_tpu/ops/brick.py:492",
+             path="diff.render_diff_brick / diff.loss_and_grads_brick / "
+                  "InverseRenderer.step", launches=routes["brick"]["launches"],
+             max_abs_err=err["brick_trace"], ms=m["trace_brick_turns"][0],
+             plain_ms=m["brick_plain"][0], bound_ms=brick_bound[0],
+             bound_by=brick_bound[1], library_ms=None,
+             us_alone=alone["brick_trace"],
+             launches_train_step=train_launches["brick"]["brick_trace"]),
+        dict(name="esvo_stackless", route="cuda", source=src + "brick_trace.cu",
+             replaces="raytracingtest_tpu/ops/traverse.py:530",
+             path="diff.render_diff / diff.loss_and_grads",
+             launches=routes["plain"]["launches"],
+             max_abs_err=err["esvo_stackless"], ms=m["trace_stackless_turns"][0],
+             plain_ms=m["stackless_plain"][0], bound_ms=stackless_bound[0],
+             bound_by=stackless_bound[1], library_ms=None,
+             us_alone=alone["esvo_stackless"],
+             launches_train_step=train_launches["plain"]["esvo_stackless"]),
     ]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (ctypes, plain C interfaces).
 
-Five libraries, each built on first use into
+Six libraries, each built on first use into
 ``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
@@ -19,12 +19,18 @@ Five libraries, each built on first use into
                      sorted form);
   * ``tile_candidates`` — ``csrc/tile_candidates.cu`` with nvcc for ``sm_90a``:
                      phase 1 of the tile trace, each tile's candidate list,
-                     and its first form.
+                     and its first form;
+  * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
+                     per-ray stackless trace and the per-ray brick trace.
+
+``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
+``brick_trace.cu`` share.
 
 ``build_all`` builds them side by side, one compiler process each.
 
-The file name of each library carries a hash of its source and flags, so a
-stale build is never loaded. Each compiles to a temporary name and is moved
+The file name of each library carries a hash of its source, its flags and,
+for a CUDA source, the headers under ``csrc/``, so a stale build is never
+loaded. Each compiles to a temporary name and is moved
 into place with ``os.replace``: concurrent processes (pytest workers) never
 load a half-written file. A failed build raises; nothing falls back.
 """
@@ -32,6 +38,7 @@ load a half-written file. A failed build raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -76,8 +83,13 @@ def _host_cpu() -> bytes:
 
 def _build(name: str, compiler: str, flags: list, source: str) -> str:
     """Compile `source` into a hash-keyed shared library; returns its path."""
-    with open(source, "rb") as f:
-        text = f.read() + " ".join(flags).encode()
+    headers = (sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+               if source.endswith(".cu") else [])
+    text = b""
+    for path in [source] + headers:
+        with open(path, "rb") as f:
+            text += f.read()
+    text += " ".join(flags).encode()
     if "-march=native" in flags:
         text += _host_cpu()
     key = hashlib.sha256(text).hexdigest()
@@ -160,6 +172,14 @@ def _declare_candidates(lib):
         fn.restype = i
 
 
+def _declare_brick(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.esvo_stackless.argtypes = [p, p, p, p, p, p, i, i, p, p, p, p, p, p, p]
+    lib.brick_trace.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
+    for fn in (lib.esvo_stackless, lib.brick_trace):
+        fn.restype = i
+
+
 def noise_lib():
     """The host noise library (built with g++ on first call)."""
     return _load("noise", lambda: "g++", NOISE_FLAGS,
@@ -192,6 +212,13 @@ def candidates_lib():
                  os.path.join(_CSRC, "tile_candidates.cu"), _declare_candidates)
 
 
+def brick_lib():
+    """The per-ray stackless and brick trace kernels (built with nvcc on
+    first call)."""
+    return _load("brick_trace", _nvcc, NVCC_FLAGS,
+                 os.path.join(_CSRC, "brick_trace.cu"), _declare_brick)
+
+
 def build_all() -> dict:
     """Build and load every library at once, one thread (and so one
     compiler process) each; returns seconds by library name. The first
@@ -206,7 +233,7 @@ def build_all() -> dict:
 
     libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib,
             "shade": shade_lib, "tile_candidates": candidates_lib,
-            "noise": noise_lib}
+            "brick_trace": brick_lib, "noise": noise_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -71,20 +71,29 @@
 // Rounding: built with --fmad=false, so pos*t_coef - t_bias and
 // half*t_coef + t_corner round in two steps, as the plain versions' separate
 // tensor ops do; -1/|d| is an IEEE division. Occupancy words are uint32_t
-// here (the port carries them as int32 bit patterns).
+// here (the port carries them as int32 bit patterns). The DDA step, the
+// descent into a brick and the leaf id of a hit are in brick_dda.cuh, which
+// brick_trace.cu shares.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "brick_dda.cuh"
+
 namespace {
+
+using rtt_dda::DDA_EXIT;
+using rtt_dda::DDA_HIT;
+using rtt_dda::DDA_STAY;
+using rtt_dda::dda_step;
+using rtt_dda::leaf_of;
 
 constexpr int S_MAX = 23;
 constexpr int K_LIMIT = 256;   // candidates a block stages
 constexpr int P_LIMIT = 256;   // rays (threads) a block holds
 constexpr int ROW_WORDS = 17;  // a brick row: 16 occupancy words + first leaf id
-constexpr int DDA_STAY = 0, DDA_HIT = 1, DDA_EXIT = 2;
 
 __device__ __forceinline__ uint32_t compact3_10(uint32_t x) {
   x &= 0x9249249u;
@@ -95,47 +104,11 @@ __device__ __forceinline__ uint32_t compact3_10(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ int spread3(int x) {
-  return (x & 1) | ((x & 2) << 2) | ((x & 4) << 4);
-}
-
 // Word `c` of row `row` of a table with `stride` words a row: the one read
 // that rowread serves and tile_walk stages with.
 __device__ __forceinline__ int row_word(const int* __restrict__ table,
                                         int stride, int row, int c) {
   return __ldg(table + (size_t)row * stride + c);
-}
-
-// One step of the exact voxel DDA inside an 8^3 brick. bpos is the mirrored
-// lower corner of the ray's current voxel; flip[c] is 0 on a mirrored axis,
-// else 7; word_of(w) gives the brick's occupancy word w. An occupied voxel is
-// a hit only while t_cur < hit_t, otherwise the ray steps on. Leaves idx9
-// (the voxel's bit index in the brick) for the caller.
-template <typename WordFn>
-__device__ __forceinline__ int dda_step(float bpos[3], float& t_cur,
-                                        const float t_coef[3],
-                                        const float t_bias[3],
-                                        const int flip[3], int vshift,
-                                        float vsize, float hit_t,
-                                        WordFn word_of, int& idx9) {
-  int li[3];
-  for (int c = 0; c < 3; ++c) li[c] = (__float_as_int(bpos[c]) >> vshift) & 7;
-  idx9 = spread3(li[0] ^ flip[0]) | (spread3(li[1] ^ flip[1]) << 1) |
-         (spread3(li[2] ^ flip[2]) << 2);
-  const uint32_t w = word_of(idx9 >> 5);
-  if (((w >> (idx9 & 31)) & 1u) && t_cur < hit_t) return DDA_HIT;
-
-  float tc[3];
-  for (int c = 0; c < 3; ++c) tc[c] = bpos[c] * t_coef[c] - t_bias[c];
-  const float tc_max = fminf(fminf(tc[0], tc[1]), tc[2]);
-  bool exit_b = false;
-  for (int c = 0; c < 3; ++c) exit_b = exit_b || (tc[c] <= tc_max && li[c] == 0);
-  t_cur = fmaxf(t_cur, tc_max);
-  if (exit_b) return DDA_EXIT;
-  for (int c = 0; c < 3; ++c) {
-    if (tc[c] <= tc_max) bpos[c] = bpos[c] - vsize;
-  }
-  return DDA_STAY;
 }
 
 // A ray's walk set-up: mirroring and root-cube entry
@@ -195,26 +168,7 @@ __device__ __forceinline__ void box_test(const WalkRay& r, uint32_t code,
 // The three-level plane descent from the brick's corner to the entry voxel.
 __device__ __forceinline__ void descend(const WalkRay& r, float bsize,
                                         float t_in, float bpos[3]) {
-  float half = bsize;
-  for (int l = 0; l < 3; ++l) {
-    half *= 0.5f;
-    for (int c = 0; c < 3; ++c) {
-      const float t_center =
-          half * r.t_coef[c] + (bpos[c] * r.t_coef[c] - r.t_bias[c]);
-      if (t_center > t_in) bpos[c] = bpos[c] + half;
-    }
-  }
-}
-
-// A hit's leaf id from its brick's row (word(w) is word w of the 17): the
-// brick's first leaf plus the set bits below the hit's bit.
-template <typename WordFn>
-__device__ __forceinline__ int leaf_of(WordFn word, int idx9) {
-  const int wsel = idx9 >> 5;
-  int below = 0;
-  for (int w = 0; w < wsel; ++w) below += __popc((uint32_t)word(w));
-  below += __popc((uint32_t)word(wsel) & ((1u << (idx9 & 31)) - 1u));
-  return word(16) + below;
+  rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_in, bpos);
 }
 
 // One ray's walk through a staged candidate list, one candidate after

@@ -2,10 +2,15 @@
 
 Port of ``raytracingtest_tpu/diff.py``: the traversal gives each ray a hit
 leaf (discrete structure, no gradient), and shading is a differentiable
-function of the voxel parameters (albedo, normal, density). Two frames:
-``render_diff_cuda`` traces ray by ray, ``render_diff_tile`` through the tile
-traversal; ``loss_and_grads_cuda`` and ``loss_and_grads_tile`` are their L2
-training steps.
+function of the voxel parameters (albedo, normal, density). Four frames, one
+for each traversal: ``render_diff`` (the stackless walk, the reference's XLA
+path), ``render_diff_brick`` (the brick trace), ``render_diff_cuda`` (the
+ESVO walk with a stack, the reference's Pallas kernel's) and
+``render_diff_tile`` (the tile traversal); ``loss_and_grads``,
+``loss_and_grads_brick``, ``loss_and_grads_cuda`` and
+``loss_and_grads_tile`` are their L2 training steps. The first three give
+the same hits but on rays that a trace's step bound cuts short and on a few
+that graze a voxel's corner or edge, which the traces round differently.
 
 The backward routes a million pixel cotangents to far fewer voxel rows
 without float atomics, so gradients are the same bits in every run. On the
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracingtest_tpu_torch.ops import shade_cuda, tile, traverse_cuda
+from raytracingtest_tpu_torch.ops import brick_cuda, shade_cuda, tile, traverse_cuda
 from raytracingtest_tpu_torch.render import sky_color, sky_texture
 
 # below this row count the plain backward adds with seven rank-1
@@ -156,6 +161,60 @@ def loss_and_grads_cuda(albedo, normal, density, svo, o, d, light_dir,
     g_normal, g_density))."""
     return _value_and_grads(
         lambda a, n, s: l2_loss_cuda(a, n, s, svo, o, d, light_dir, target),
+        albedo, normal, density)
+
+
+def render_diff(albedo, normal, density, svo, o, d, light_dir,
+                light_intensity=1.3, light_ambient=0.08):
+    """Render a flat batch of (N, 3) rays, any N, through the stackless
+    trace (kernel ``esvo_stackless`` for CUDA tensors), then shade. Returns
+    (N, 3) radiance, differentiable in the three parameter tensors. The SVO's
+    parent_ptr is derived on the fly when it has none; hot paths give it
+    one."""
+    with torch.no_grad():
+        res = brick_cuda.trace_stackless_cuda(svo, o, d)
+    return shade_diff(res.hit_leaf, d, albedo, normal, density,
+                      light_dir, light_intensity, light_ambient)
+
+
+def l2_loss(albedo, normal, density, svo, o, d, light_dir, target):
+    """Mean squared error of the stackless frame against `target` (N, 3)."""
+    img = render_diff(albedo, normal, density, svo, o, d, light_dir)
+    return torch.mean((img - target) ** 2)
+
+
+def loss_and_grads(albedo, normal, density, svo, o, d, light_dir, target):
+    """One forward + backward step of the stackless frame: (loss,
+    (g_albedo, g_normal, g_density))."""
+    return _value_and_grads(
+        lambda a, n, s: l2_loss(a, n, s, svo, o, d, light_dir, target),
+        albedo, normal, density)
+
+
+def render_diff_brick(albedo, normal, density, bsvo, o, d, light_dir,
+                      light_intensity=1.3, light_ambient=0.08):
+    """Render a flat batch of (N, 3) rays, any N, through the brick trace
+    of `bsvo` (kernel ``brick_trace`` for CUDA tensors), then shade. The
+    same hits as ``render_diff`` on the source SVO. Returns (N, 3) radiance,
+    differentiable in the three parameter tensors."""
+    with torch.no_grad():
+        res = brick_cuda.trace_brick_cuda(bsvo, o, d)
+    return shade_diff(res.hit_leaf, d, albedo, normal, density,
+                      light_dir, light_intensity, light_ambient)
+
+
+def l2_loss_brick(albedo, normal, density, bsvo, o, d, light_dir, target):
+    """Mean squared error of the brick frame against `target` (N, 3)."""
+    img = render_diff_brick(albedo, normal, density, bsvo, o, d, light_dir)
+    return torch.mean((img - target) ** 2)
+
+
+def loss_and_grads_brick(albedo, normal, density, bsvo, o, d, light_dir,
+                         target):
+    """One forward + backward step of the brick frame: (loss, (g_albedo,
+    g_normal, g_density))."""
+    return _value_and_grads(
+        lambda a, n, s: l2_loss_brick(a, n, s, bsvo, o, d, light_dir, target),
         albedo, normal, density)
 
 

@@ -88,7 +88,10 @@ class InverseRenderer:
                              f"non-empty subset of {PARAM_NAMES}")
         self.device = resolve(self.device)
         self.svo = self.svo.to(self.device)
-        _bsvo, self._tsvo = _accel_of(self)
+        # the reference's routes: the tile step for step_view where the
+        # tree has the pyramid; `step` through the brick trace where it has
+        # bricks, else through the stackless trace
+        self._bsvo, self._tsvo = _accel_of(self)
 
     def init_params(self, seed: int = 0, randomize=("albedo",)):
         """(params, opt_state): the SVO's parameters, those named in
@@ -118,11 +121,17 @@ class InverseRenderer:
 
     def step(self, params, opt_state, o, d, light, target):
         """One train step on a flat batch of (N, 3) rays against `target`
-        (N, 3), through the per-ray frame (``diff.loss_and_grads_cuda``; any
-        N). Returns (params, opt_state, loss)."""
-        loss, grads = diff.loss_and_grads_cuda(
-            *(params[name] for name in PARAM_NAMES), self.svo, o, d,
-            self._light(light), target)
+        (N, 3), any N, on the reference's route: through the brick trace
+        (``diff.loss_and_grads_brick``) when the tree has bricks (depth >=
+        4), else through the stackless trace (``diff.loss_and_grads``).
+        Returns (params, opt_state, loss)."""
+        values = tuple(params[name] for name in PARAM_NAMES)
+        if self._bsvo is not None:
+            loss, grads = diff.loss_and_grads_brick(
+                *values, self._bsvo, o, d, self._light(light), target)
+        else:
+            loss, grads = diff.loss_and_grads(
+                *values, self.svo, o, d, self._light(light), target)
         self._update(params, opt_state, grads)
         return params, opt_state, loss
 

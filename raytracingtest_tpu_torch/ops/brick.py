@@ -1,9 +1,11 @@
 """Brick decomposition of an SVO: bottom octree levels as 512-bit bricks.
 
-Port of the host part of ``raytracingtest_tpu/ops/brick.py``: the
-``BrickSVO`` container, ``make_brick_svo`` (numpy, operation for operation
-the reference's, so its arrays come out byte-identical) and the bit helpers
-the tile walker shares. The deepest BRICK_LEVELS = 3 levels collapse into one
+Port of ``raytracingtest_tpu/ops/brick.py``: the ``BrickSVO`` container,
+``make_brick_svo`` (numpy, operation for operation the reference's, so its
+arrays come out byte-identical), the bit helpers the tile walker shares, and
+the brick trace (``_trace_brick_core``, ``_brick_round``, ``_top_step``
+without their LOD branch) as ``trace_brick``, the plain
+version of the ``brick_trace`` kernel (``ops/brick_cuda.py``). The deepest BRICK_LEVELS = 3 levels collapse into one
 8x8x8 occupancy bitmask per level-(depth-3) node: 16 words in hierarchical
 Morton bit order ((slot_l1 << 6) | (slot_l2 << 3) | slot_l3), which is the
 leaf attribute order, so a hit's global leaf id is the brick's first leaf
@@ -23,6 +25,8 @@ import torch
 
 from raytracingtest_tpu_torch._device import resolve
 from raytracingtest_tpu_torch.ops.octree import compute_parent_ptr
+from raytracingtest_tpu_torch.ops.traverse import (
+    Compacted, TraceResult, fast_step, max_iters_for_depth, walk_state)
 
 BRICK_LEVELS = 3  # bottom levels folded into 8^3 bit bricks
 
@@ -188,3 +192,145 @@ def _sel16(words, w):
     (The reference selects with a mux tree, its machine having no per-lane
     gather; here it is a gather.)"""
     return torch.gather(words, 1, w.long()[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the brick trace (the reference's `_trace_brick_core`), plain version
+# ---------------------------------------------------------------------------
+
+# DDA steps a round may take: the reference's loop runs while its counter is
+# below 3 * 8 + 2, six steps a trip, so 30. An 8^3 brick needs at most 22
+# (7 moves on each axis, and the step that leaves), so it never binds.
+DDA_ROUND_STEPS = 30
+
+
+def rounds_for_depth(depth: int) -> int:
+    """The reference's bound on rounds (brick.py: 16 * depth + 64)."""
+    return 16 * depth + 64
+
+
+def _dda_round(s, bricks, depth, top_depth):
+    """The parked rays' brick walk (the DDA half of ``_brick_round``): each
+    parked ray descends three levels from its brick's corner to its entry
+    voxel, then steps voxel by voxel, at most DDA_ROUND_STEPS steps, to an
+    occupied voxel (a hit: the brick's first leaf plus the set bits below
+    the voxel's, and the top tree's parent and slot) or out of the brick
+    (`popped`, so that the resumed walk steps past it). Every ray leaves
+    unparked."""
+    from raytracingtest_tpu_torch.ops.brick_dda import dda_step
+
+    parked = s["parked"]
+    sel = torch.nonzero(parked)[:, 0]
+    if sel.numel() == 0:
+        return s
+    t_coef, t_bias = s["t_coef"][sel], s["t_bias"][sel]
+    t_cur = s["t_min"][sel]
+    om = s["octant_mask"][sel]
+    row = bricks[s["brick_id"][sel].long()]
+    words, bleaf = row[:, :16], row[:, 16]
+
+    # descend BRICK_LEVELS levels: half * coef + (pos * coef - bias), the
+    # reference's expression (it rounds in two steps, as the kernel does)
+    bpos = s["pos"][sel]
+    for level in range(1, BRICK_LEVELS + 1):
+        half = 2.0 ** (-top_depth - level)
+        upper = half * t_coef + (bpos * t_coef - t_bias) > t_cur[:, None]
+        bpos = bpos + torch.where(upper, half, 0.0)
+
+    flip = torch.stack([torch.where(((om >> c) & 1) != 0, 0, 7) for c in range(3)],
+                       dim=1).to(_I32)
+    word_of = lambda wsel: _sel16(words, wsel)
+    no_bound = torch.full_like(t_cur, float("inf"))
+    walking = torch.ones_like(parked[sel])
+    hit = torch.zeros_like(walking)
+    exited = torch.zeros_like(walking)
+    steps = torch.zeros_like(t_cur, dtype=_I32)
+    idx9_hit = torch.zeros_like(steps)
+    t_hit = torch.zeros_like(t_cur)
+    for _ in range(DDA_ROUND_STEPS):
+        if not bool(walking.any()):
+            break
+        steps += walking.to(_I32)
+        bpos, t_cur, hit_now, exit_b, walking, idx9 = dda_step(
+            bpos, t_cur, walking, no_bound, t_coef, t_bias, flip, word_of, depth)
+        idx9_hit = torch.where(hit_now, idx9, idx9_hit)
+        t_hit = torch.where(hit_now, t_cur, t_hit)
+        hit |= hit_now
+        exited |= exit_b
+
+    # the hit's leaf: the brick's first leaf, the set bits of the words
+    # below the voxel's word, and those below its bit in its own word
+    wsel = idx9_hit >> 5
+    below_words = torch.arange(16, device=sel.device)[None, :] < wsel[:, None]
+    full = torch.sum(torch.where(below_words, _popcount32(words), 0), dim=1,
+                     dtype=_I32)
+    low_bits = (torch.ones_like(wsel, dtype=torch.int64) << (idx9_hit & 31)) - 1
+    partial = _popcount32(word_of(wsel).to(torch.int64) & low_bits)
+    leaf = bleaf + full + partial
+
+    out = dict(s)
+    upd = lambda name, value: out[name].index_copy(0, sel, value)
+    out["t_min"] = upd("t_min", t_cur)
+    out["done"] = upd("done", s["done"][sel] | hit)
+    out["popped"] = upd("popped", s["popped"][sel] | exited)
+    out["hit_leaf"] = upd("hit_leaf", torch.where(hit, leaf, s["hit_leaf"][sel]))
+    out["hit_t"] = upd("hit_t", torch.where(hit, t_hit, s["hit_t"][sel]))
+    child = s["idx"][sel] ^ om ^ 7
+    out["hit_parent"] = upd("hit_parent",
+                            torch.where(hit, s["parent"][sel], s["hit_parent"][sel]))
+    out["hit_child"] = upd("hit_child", torch.where(hit, child, s["hit_child"][sel]))
+    out["iters"] = upd("iters", s["iters"][sel] + steps)
+    out["dda_steps"] = upd("dda_steps", s["dda_steps"][sel] + steps)
+    out["dda_max"] = upd("dda_max", torch.maximum(s["dda_max"][sel], steps))
+    out["parked"] = torch.zeros_like(parked)
+    return out
+
+
+def trace_brick(bsvo, origin, direction, with_stats=False):
+    """Brick trace of (N, 3) float32 rays through `bsvo`, any N: the plain
+    version of the ``brick_trace`` kernel. hit_leaf and hit_t are the
+    stackless trace's on the source SVO; hit_parent and hit_child are the
+    TOP tree's (the level-(top_depth - 1) node and the brick's slot under
+    it). Returns a TraceResult, or (TraceResult, stats (N, 5) int32; columns
+    ``traverse.STAT_NAMES``) with `with_stats`.
+
+    A round walks the top tree stacklessly, at most
+    ``max_iters_for_depth(top_depth)`` steps, until the ray parks at a brick
+    or finishes; a parked ray then walks its brick. At most
+    ``rounds_for_depth(depth)`` rounds. Every ray still walking steps on
+    every iteration of a round's top walk, so these are bounds on each ray:
+    the reference's own, which it counts for the whole batch (and its round
+    also ends once few rays can still step, ``TOP_DRAIN``), are never
+    looser, and every ray that the reference finishes ends here alike."""
+    depth, top_depth = bsvo.depth, bsvo.top_depth
+    nodes = torch.stack([bsvo.top_masks, bsvo.top_child, bsvo.top_parent], dim=1)
+    st = walk_state(origin, direction, top_depth)
+    zi = torch.zeros_like(st["idx"])
+    st.update(parked=torch.zeros_like(st["done"]), brick_id=zi, hit_leaf=zi - 1,
+              rounds=zi, dda_steps=zi, top_capped=zi, dda_max=zi)
+    walk = Compacted(st, ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters",
+                          "done", "rounds", "dda_steps", "top_capped", "dda_max"))
+    n_top = max_iters_for_depth(top_depth)
+    for _ in range(rounds_for_depth(depth)):
+        walking = ~walk.state["done"]
+        n_walking = int(walking.sum())
+        if n_walking == 0:
+            break
+        if 2 * n_walking < walking.shape[0]:
+            walk.compact(walking)
+            walking = ~walk.state["done"]
+        s = walk.state
+        s["rounds"] = s["rounds"] + walking.to(_I32)
+        for _ in range(n_top):
+            if not bool((~s["done"] & ~s["parked"]).any()):
+                break
+            s = fast_step(s, nodes, park=True)
+        s["top_capped"] = s["top_capped"] + (~s["done"] & ~s["parked"]).to(_I32)
+        walk.state = _dda_round(s, bsvo.bricks, depth, top_depth)
+    out = walk.finish()
+    res = TraceResult(out["hit_leaf"], out["hit_t"], out["hit_parent"],
+                      out["hit_child"], out["iters"])
+    if not with_stats:
+        return res
+    return res, torch.stack([out["rounds"], out["dda_steps"], out["top_capped"],
+                             out["dda_max"], (~out["done"]).to(_I32)], dim=1)

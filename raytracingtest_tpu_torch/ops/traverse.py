@@ -1,17 +1,22 @@
 """ESVO traversal, plain PyTorch: masked PUSH/ADVANCE/POP over all rays.
 
-Port of ``raytracingtest_tpu/ops/traverse.py`` (``init_state``, ``step``,
-``trace_numpy``). Every lane runs every iteration; PUSH/ADVANCE/POP are
+Port of ``raytracingtest_tpu/ops/traverse.py``: ``init_state``, ``step``,
+``trace_numpy`` (the walk with a stack, below), and the stackless walk of the
+reference's XLA path, ``_fast_step`` / ``_trace_core`` / ``trace_jax``, as
+``fast_step`` / ``trace_stackless`` (the end of the module), with
+``derive_parent_ptr`` and ``parent_ptr_of``.
+
+The walk with a stack: every lane runs every iteration; PUSH/ADVANCE/POP are
 ``torch.where`` selects and the per-ray stack is a (depth, N) pair of
 tensors addressed by gather/scatter. Rays are in octree-local coordinates,
 mapped to the mirrored [1,2]^3 traversal cube.
 
-This is the CUDA kernel's plain version (``traverse_cuda``): the CPU tests
-hold it to the numpy oracle bit for bit and to the Pallas kernel's hits, and
-``chip_smoke.py`` holds the kernel to it on the card. POP follows the Pallas
-kernel where the oracle differs from it (see ``step``). Integer state stays int32 throughout (torch
-promotes to int64 readily); float steps are separate ops, so ``a*b - c``
-rounds twice, as in the oracle.
+It is the ``esvo_trace`` kernel's plain version (``traverse_cuda``): the CPU
+tests hold it to the numpy oracle bit for bit and to the Pallas kernel's
+hits, and ``chip_smoke.py`` holds the kernel to it on the card. POP follows
+the Pallas kernel where the oracle differs from it (see ``step``). Integer
+state stays int32 throughout (torch promotes to int64 readily); float steps
+are separate ops, so ``a*b - c`` rounds twice, as in the oracle.
 """
 
 from __future__ import annotations
@@ -248,3 +253,213 @@ def trace(svo, origin, direction) -> TraceResult:
         st = step(st, svo.masks, svo.child_base, svo.leaf_base, svo.depth)
     return TraceResult(st.hit_leaf, st.hit_t, st.hit_parent, st.hit_child,
                        st.iters)
+
+
+# ---------------------------------------------------------------------------
+# the stackless walk (the reference's XLA path, `_fast_step` / `_trace_core`)
+# ---------------------------------------------------------------------------
+
+# columns of the optional per-ray statistics of `trace_stackless` and
+# ``brick.trace_brick``: rounds begun, DDA steps (top steps = iters - DDA
+# steps), rounds whose top walk stopped at the round's step cap, the most DDA
+# steps in one round, and 1 where a bound stopped a ray that was still walking
+STAT_NAMES = ("rounds", "dda_steps", "top_capped", "dda_max", "unfinished")
+
+
+def derive_parent_ptr(masks, child_base):
+    """Each node row's parent row (the root at itself) from the raw arrays,
+    in tensor operations on their device: each parent's row is scattered at
+    its child block's start and forward-filled by a running maximum (child
+    blocks are contiguous and ordered by parent row). Counterpart of
+    ``derive_parent_ptr_jnp``; ``octree.compute_parent_ptr`` is the host
+    form."""
+    n = masks.shape[0]
+    vm = (masks >> 8) & 0xFF
+    lm = masks & 0xFF
+    has = (vm & ~lm) != 0
+    iota = torch.arange(n, dtype=_I32, device=masks.device)
+    seed = torch.zeros(n, dtype=_I32, device=masks.device).scatter_reduce(
+        0, torch.where(has, child_base, 0).long(), torch.where(has, iota, 0),
+        "amax")
+    return torch.cummax(seed, dim=0).values
+
+
+def parent_ptr_of(svo):
+    """``svo.parent_ptr``, derived on its device for an SVO built without
+    one."""
+    if svo.parent_ptr is not None:
+        return svo.parent_ptr
+    return derive_parent_ptr(svo.masks, svo.child_base)
+
+
+def walk_state(origin, direction, depth):
+    """The stackless walk's per-ray registers after cube entry (a dict of
+    tensors): ``init_state`` without the stack."""
+    s = init_state(origin, direction, depth)
+    return dict(pos=s.pos, idx=s.idx, parent=s.parent, scale=s.scale,
+                t_min=s.t_min, octant_mask=s.octant_mask, t_coef=s.t_coef,
+                t_bias=s.t_bias, done=s.done, popped=torch.zeros_like(s.done),
+                hit_parent=s.hit_parent, hit_child=s.hit_child, hit_t=s.hit_t,
+                iters=s.iters)
+
+
+def fast_step(st, nodes, park=False):
+    """One step of the stackless walk on the rays of `st` that are walking
+    (not done; with `park`, not parked either). Counterpart of
+    ``_fast_step`` (and, with `park`, of ``brick._top_step`` without its LOD
+    branch). `nodes` (n, 3) int32 holds each row's (masks, child_base,
+    parent_ptr). Returns a new dict.
+
+    One row a step; no stack: the parent's exit t comes from `pos` rounded
+    up to the parent's grid, and POP climbs one level through parent_ptr.
+    `popped` marks a ray that climbed on its last step, whose current child
+    is the one it just left: it may not enter it again. Entering a leaf
+    child is a hit (the parent and the unmirrored slot are recorded), or,
+    with `park`, parks the ray at brick ``child_base + leaf rank``."""
+    walking = ~st["done"] & ~st["parked"] if park else ~st["done"]
+    nd = nodes[st["parent"].long()]
+    desc, cbase, pptr = nd[:, 0], nd[:, 1], nd[:, 2]
+    vm = (desc >> 8) & 0xFF
+    lm = desc & 0xFF
+
+    scale = st["scale"]
+    scale_exp2 = _i2f((scale - S_MAX + 127) << 23)  # 2^(scale - S_MAX)
+    pos, t_coef, t_bias, t_min = st["pos"], st["t_coef"], st["t_bias"], st["t_min"]
+    t_corner = pos * t_coef - t_bias
+    tc_max = torch.amin(t_corner, dim=1)
+
+    # the parent cube's exit t: pos rounded up to the parent's grid, the
+    # least of its corner planes' t, clipped by the root's exit
+    pshift = (scale + 1)[:, None]
+    psh = _f2i(pos) >> pshift
+    parent_pos = _i2f(psh << pshift)
+    t_root = torch.amin(t_coef - t_bias, dim=1)
+    t_max = torch.minimum(torch.amin(parent_pos * t_coef - t_bias, dim=1), t_root)
+
+    child_shift = st["idx"] ^ st["octant_mask"] ^ 7
+    child_valid = ((vm >> child_shift) & 1) != 0
+    can = child_valid & (t_min <= t_max) & walking & ~st["popped"]
+    tv_max = torch.minimum(t_max, tc_max)
+    half = scale_exp2 * 0.5
+    enter = can & (t_min <= tv_max)
+    below = (torch.ones_like(child_shift) << child_shift) - 1
+    leaf_bit = ((lm >> child_shift) & 1) != 0
+
+    out = dict(st)
+    leaf_now = enter & leaf_bit
+    if park:
+        out["brick_id"] = torch.where(leaf_now, cbase + popc8(vm & lm & below),
+                                      st["brick_id"])
+        out["parked"] = st["parked"] | leaf_now
+        done = st["done"]
+    else:
+        out["hit_parent"] = torch.where(leaf_now, st["parent"], st["hit_parent"])
+        out["hit_child"] = torch.where(leaf_now, child_shift, st["hit_child"])
+        out["hit_t"] = torch.where(leaf_now, t_min, st["hit_t"])
+        done = st["done"] | leaf_now
+
+    # ---- PUSH: descend into the entered non-leaf child ----
+    push = enter & ~leaf_bit
+    parent = torch.where(push, cbase + popc8(vm & ~lm & below), st["parent"])
+    upper = half[:, None] * t_coef + t_corner > t_min[:, None]
+    idx = torch.where(push, _bits(upper), st["idx"])
+    pos = torch.where(push[:, None], pos + torch.where(upper, half[:, None], 0.0), pos)
+    scale = torch.where(push, scale - 1, scale)
+
+    # ---- ADVANCE: step to the sibling, or POP one level ----
+    adv = walking & ~push & ~leaf_now
+    step_bits = t_corner <= tc_max[:, None]
+    step_mask = _bits(step_bits)
+    idx_adv = st["idx"] ^ step_mask
+    pop = adv & ((idx_adv & step_mask) != 0)
+    move = adv & ~pop
+    out["t_min"] = torch.where(adv, torch.maximum(t_min, tc_max), t_min)
+    pos = pos - torch.where(step_bits & move[:, None], scale_exp2[:, None], 0.0)
+    idx = torch.where(move, idx_adv, idx)
+
+    new_scale = st["scale"] + 1
+    exit_root = pop & (new_scale >= S_MAX)
+    pop_ok = pop & ~exit_root
+    out["pos"] = torch.where(pop_ok[:, None], parent_pos, pos)
+    out["idx"] = torch.where(
+        pop_ok, (psh[:, 0] & 1) | ((psh[:, 1] & 1) << 1) | ((psh[:, 2] & 1) << 2),
+        idx)
+    out["parent"] = torch.where(pop_ok, pptr, parent)
+    out["scale"] = torch.where(pop_ok, new_scale, scale)
+    out["done"] = done | exit_root
+    out["popped"] = pop_ok
+    out["iters"] = st["iters"] + walking.to(_I32)
+    return out
+
+
+def resolve_leaf(masks, leaf_base, hit_parent, hit_child):
+    """Leaf rows of recorded hits (-1 where hit_parent < 0): the parent's
+    first leaf plus the rank of the hit slot among its leaf children."""
+    hit = hit_parent >= 0
+    safe = torch.where(hit, hit_parent, 0).long()
+    desc = masks[safe]
+    vm = (desc >> 8) & 0xFF
+    lm = desc & 0xFF
+    below = (torch.ones_like(hit_child) << hit_child) - 1
+    return torch.where(hit, leaf_base[safe] + popc8(vm & lm & below), -1)
+
+
+class Compacted:
+    """A walk's per-ray registers kept for the rays still walking only.
+
+    ``state`` holds the walking rays' tensors and ``rays`` their ray ids;
+    ``out`` the full-width outputs, which ``compact`` writes for the rays it
+    drops (and ``finish`` for all). Which rays share a tensor never changes
+    what a ray computes: every step is per ray."""
+
+    def __init__(self, state, out_names):
+        self.state = state
+        self.rays = torch.arange(state["done"].shape[0], device=state["done"].device)
+        self.out = {k: state[k].clone() for k in out_names}
+
+    def compact(self, keep):
+        """Write the outputs of the rays where `keep` is False, then drop
+        them."""
+        gone = self.rays[~keep]
+        for k in self.out:
+            self.out[k][gone] = self.state[k][~keep]
+        self.state = {k: v[keep] for k, v in self.state.items()}
+        self.rays = self.rays[keep]
+
+    def finish(self):
+        self.compact(torch.zeros_like(self.rays, dtype=torch.bool))
+        return self.out
+
+
+def trace_stackless(svo, origin, direction, with_stats=False):
+    """Stackless trace of (N, 3) float32 rays through `svo`, any N: the
+    plain version of the ``esvo_stackless`` kernel. Returns a TraceResult,
+    or (TraceResult, stats (N, 5) int32; columns ``STAT_NAMES``) with
+    `with_stats`.
+
+    Every ray that has not finished takes one step an iteration, for at
+    most ``max_iters_for_depth(depth)`` steps, which is the reference's
+    bound on each ray exactly (its loop checks the batch's step count and
+    steps every ray still walking)."""
+    masks = svo.masks
+    nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
+    walk = Compacted(walk_state(origin, direction, svo.depth),
+                     ("hit_parent", "hit_child", "hit_t", "iters", "done"))
+    for _ in range(max_iters_for_depth(svo.depth)):
+        walking = ~walk.state["done"]
+        n_walking = int(walking.sum())
+        if n_walking == 0:
+            break
+        if 2 * n_walking < walking.shape[0]:
+            walk.compact(walking)
+        walk.state = fast_step(walk.state, nodes)
+    out = walk.finish()
+    hit_leaf = resolve_leaf(masks, svo.leaf_base, out["hit_parent"], out["hit_child"])
+    res = TraceResult(hit_leaf, out["hit_t"], out["hit_parent"], out["hit_child"],
+                      out["iters"])
+    if not with_stats:
+        return res
+    stats = torch.zeros((hit_leaf.shape[0], len(STAT_NAMES)), dtype=_I32,
+                        device=hit_leaf.device)
+    stats[:, STAT_NAMES.index("unfinished")] = (~out["done"]).to(_I32)
+    return res, stats

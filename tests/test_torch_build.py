@@ -159,6 +159,7 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.models",
     "raytracingtest_tpu_torch.models.renderers",
     "raytracingtest_tpu_torch.ops.brick",
+    "raytracingtest_tpu_torch.ops.brick_cuda",
     "raytracingtest_tpu_torch.ops.brick_dda",
     "raytracingtest_tpu_torch.ops.camera",
     "raytracingtest_tpu_torch.ops.gather",

@@ -128,9 +128,9 @@ def test_step_view_trains_density_from_its_clip_bound(scene):
 
 
 def test_step_view_falls_back_to_the_flat_step(scene):
-    """A width that is no multiple of 16 takes ``step`` (the per-ray frame;
-    the reference's brick step has the same hits): residual 0 by
-    definition, parameters as the reference's."""
+    """A width that is no multiple of 16 takes ``step`` (the brick step, as
+    the reference's does): residual 0 by definition, parameters as the
+    reference's."""
     (_ref_start, _start), steps = run_both(
         scene, dict(CAM, width=8, height=128), 1)
     ref_p, p, ref_loss, loss, ref_res, n_res = steps[0]
@@ -191,3 +191,57 @@ def test_accel_cache_is_keyed_by_svo_identity(scene):
         jax_octree.build_svo(jax_get_scene("sphere"), 3).svo, "cpu")
     model.svo = shallow
     assert _accel_of(model) == (None, None)  # too shallow for bricks
+
+
+def _step_both(ref_svo, svo, cam_args, monkeypatch):
+    """One ``step`` of each trainer on the view's flat batch of rays
+    towards a seeded target, counting which of the port's two steps ran;
+    returns (reference params, port params, reference loss, port loss,
+    calls by route)."""
+    calls = {"loss_and_grads_brick": 0, "loss_and_grads": 0}
+    for name in calls:
+        fn = getattr(diff, name)
+
+        def counted(*args, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(diff, name, counted)
+    o, d = camera.Camera(**cam_args).rays("cpu")
+    target = np.random.default_rng(5).random((o.shape[0], 3), dtype=np.float32)
+    ref_model = JaxInverseRenderer(ref_svo.device(), n_devices=1)
+    model = InverseRenderer(svo, device="cpu")
+    ref_params, ref_state = ref_model.init_params(seed=0)
+    params, state = model.init_params(seed=0)
+    o_s, d_s, t_s = ref_model.shard_rays(o.numpy(), d.numpy(), target)
+    ref_params, ref_state, ref_loss = ref_model.step(
+        ref_params, ref_state, o_s, d_s, jnp.asarray(LIGHT, jnp.float32), t_s)
+    params, state, loss = model.step(params, state, o, d, LIGHT,
+                                     torch.from_numpy(target))
+    return as_numpy(ref_params), as_numpy(params), float(ref_loss), float(loss), calls
+
+
+def test_step_takes_the_brick_route(scene, monkeypatch):
+    """A tree with bricks (depth >= 4): ``step`` goes through the brick
+    trace, as the reference's does, and lands where the reference's step
+    does."""
+    ref_svo, svo = scene
+    ref_p, p, ref_loss, loss, calls = _step_both(
+        ref_svo, svo, dict(CAM, width=40, height=24), monkeypatch)
+    assert calls == {"loss_and_grads_brick": 1, "loss_and_grads": 0}
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    np.testing.assert_allclose(p["albedo"], ref_p["albedo"], rtol=0, atol=PARAM_ATOL)
+
+
+def test_step_takes_the_stackless_route_on_a_shallow_tree(monkeypatch):
+    """A depth-3 tree has no bricks: ``step`` goes through the stackless
+    trace, as the reference's does."""
+    ref_svo = jax_octree.build_svo(jax_get_scene("terrain"), 3).svo
+    svo = convert.svo_from_numpy(ref_svo, "cpu")
+    ref_p, p, ref_loss, loss, calls = _step_both(
+        ref_svo, svo, dict(CAM, width=40, height=24), monkeypatch)
+    assert calls == {"loss_and_grads_brick": 0, "loss_and_grads": 1}
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    np.testing.assert_allclose(p["albedo"], ref_p["albedo"], rtol=0, atol=PARAM_ATOL)
+    moved = np.abs(p["albedo"] - as_numpy(InverseRenderer(
+        svo, device="cpu").init_params(seed=0)[0])["albedo"]).max(axis=1) > 0
+    assert moved.any()
