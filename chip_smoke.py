@@ -26,9 +26,12 @@ sort-free `segment_sum`), and takes three `InverseRenderer.step_view` steps
 on that view and three `InverseRenderer.step` steps on its flat batch of
 rays (the brick step). `brick_trace` and `esvo_stackless` are held bitwise
 against their plain versions (hits, hit_t bits, step counts and statistics)
-on small cases and on the full frame; the rays on which the frames part
-from `esvo_trace` go to a float64 referee; no call of their plain versions
-may happen on their paths. The two traversal kernels of the first slices
+on small cases and on the full frame, each in its three forms (wide, the
+main path's; first; refill) and its probe forms; the rays on which the
+frames part from `esvo_trace` go to a float64 referee; no call of their
+plain versions, and no launch of another form, may happen on their paths.
+`[warps]` runs each form's probe on the frame and prints where its warps
+spend their issues and cycles and when the last warps end. The two traversal kernels of the first slices
 keep their first forms beside them, `esvo_trace_serial` and
 `tile_walk_serial` (one thread a ray, off the main path): each kernel is held bitwise against its plain version and its first
 form, the walker on each of the frame's three launches and at every number
@@ -49,6 +52,7 @@ a CUDA device it fails before printing any result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +103,22 @@ OPS_CAND_CHILD = 110
 # count_plain_calls()
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0}
 STAT = traverse.STAT_NAMES.index
+# the brick and stackless traces' launch counts: the main path's wrapper,
+# the first forms', the refill forms' and the probe forms'
+BRICK_COUNTS = (brick_cuda.launches, brick_cuda.serial_launches,
+                brick_cuda.refill_launches, brick_cuda.probe_launches)
+# each form's kernel, as torch.profiler names it, and the main path's form
+FORM_KERNELS = {
+    ("brick_trace", "wide"): "brick_trace_kernel<1, true, false, 256>",
+    ("brick_trace", "first"): "brick_trace_kernel<0, false, false, 128>",
+    ("brick_trace", "unstaged"): "brick_trace_kernel<1, false, false, 256>",
+    ("brick_trace", "refill"): "brick_trace_kernel<2, false, false, 128>",
+    ("esvo_stackless", "first"): "esvo_stackless_kernel<0, false>",
+    ("esvo_stackless", "refill"): "esvo_stackless_kernel<2, false>",
+}
+MAIN_FORM = {"brick_trace": "wide", "esvo_stackless": "first"}
+# the err key of a trace_forms entry
+FORM_ERR = {"main": "", "first": "_serial", "unstaged": "_unstaged"}
 
 
 def say(*parts):
@@ -205,9 +225,9 @@ def reset_counts():
     tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
-    for mod in (gather, shade_cuda, brick_cuda):
-        for name in mod.launches:
-            mod.launches[name] = 0
+    for counts in (gather.launches, shade_cuda.launches, *BRICK_COUNTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_plain_calls():
@@ -259,6 +279,105 @@ def route_line(res, stats):
             f"round); {int((stats[:, STAT('top_capped')] > 0).sum())} rays reach "
             f"a round's top-step cap, {int(stats[:, STAT('unfinished')].sum())} "
             f"stop unfinished at the route's bound")
+
+
+def trace_forms(bsvo, svo, o, d):
+    """(kernel, form) -> (TraceResult, stats) of brick_trace and
+    esvo_stackless on these rays through the main path's wrapper ("main")
+    and in every form, each also in its probe form (form "... probe"), the
+    refill forms also at 3 rays a thread (and for the brick trace a DDA
+    trip once an eighth of the lanes are parked, and staged brick rows)."""
+    out = {
+        ("brick_trace", "main"): brick_cuda._brick_kernel(bsvo, o, d, True),
+        ("brick_trace", "first"): brick_cuda._brick_serial_kernel(bsvo, o, d, True),
+        ("brick_trace", "unstaged"): brick_cuda._brick_unstaged_kernel(bsvo, o, d, True),
+        ("brick_trace", "refill"): brick_cuda._brick_refill_kernel(bsvo, o, d, True),
+        ("brick_trace", "refill 3/8/staged"): brick_cuda._brick_refill_kernel(
+            bsvo, o, d, True, per_thread=3, drain=8, burst=True),
+        ("esvo_stackless", "main"): brick_cuda._stackless_kernel(svo, o, d, True),
+        ("esvo_stackless", "first"): brick_cuda._stackless_serial_kernel(svo, o, d, True),
+        ("esvo_stackless", "refill"): brick_cuda._stackless_refill_kernel(svo, o, d, True),
+        ("esvo_stackless", "refill 3"): brick_cuda._stackless_refill_kernel(
+            svo, o, d, True, per_thread=3)}
+    for form in brick_cuda.FORMS["brick_trace"]:
+        out[("brick_trace", f"{form} probe")] = brick_cuda.probe_brick_cuda(
+            bsvo, o, d, form)[:2]
+    for form in brick_cuda.FORMS["esvo_stackless"]:
+        out[("esvo_stackless", f"{form} probe")] = brick_cuda.probe_stackless_cuda(
+            svo, o, d, form)[:2]
+    return out
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill bytes stored, shared bytes) for each
+    kernel of brick_trace.cu's ptxas report, named as torch.profiler names
+    them."""
+    rows, name, stores = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"(brick_trace_kernel|esvo_stackless_kernel)I(\w*?)EEv", line)
+        if "Compiling entry function" in line:
+            name = None
+            if m:
+                args = [("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+                name, stores = f"{m.group(1)}<{', '.join(args)}>", 0
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and name:
+            stores = int(spill.group(1))
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used and name:
+            rows.append((name, int(used.group(1)), stores, int(used.group(2) or 0)))
+            name = None
+    return rows
+
+
+def warps_line(kernel, form, record, iters):
+    """[warps]: one form's per-warp counters on the frame in words: each
+    phase's issues a warp, SIMT efficiency (lanes active a issue over 32)
+    and share of warp cycles; warp durations; each block's tail; the
+    kernel's span and how much of it follows the end of 99 in 100 warps;
+    the last warp to end (for the one-ray-a-thread forms also its issues
+    against its longest ray's steps). Returns the numbers."""
+    r = record.cpu().numpy().astype(np.float64)
+    f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
+    cycles = f["end"] - f["start"]
+    phases = {}
+    for ph in brick_cuda.PHASES:
+        issues = f[f"{ph}_issues"].sum()
+        if issues:
+            phases[ph] = (issues / len(cycles), f[f"{ph}_lanes"].sum() / (32 * issues),
+                          f[f"{ph}_cycles"].sum() / cycles.sum())
+    t0 = f["ns_start"].min()
+    start, end = (f["ns_start"] - t0) / 1e3, (f["ns_end"] - t0) / 1e3
+    dur = end - start
+    span, t99 = float(end.max()), float(np.percentile(end, 99))
+    per_block = brick_cuda.BLOCKS[form] // 32
+    ends = end[: len(end) // per_block * per_block].reshape(-1, per_block)
+    tail = ends.max(axis=1) - np.median(ends, axis=1)
+    last = int(np.argmax(end))
+    steps_total = f["step_issues"][last] + f["dda_issues"][last]
+    longest = ""
+    if form != "refill" and last * 32 < len(iters):
+        lane_steps = max(int(iters[last * 32:(last + 1) * 32].max()), 1)
+        longest = (f", {steps_total:.0f} step and DDA issues for its longest ray's "
+                   f"{lane_steps} steps ({steps_total / lane_steps:.2f} issues a step)")
+    say(f"[warps] {kernel} {form} ({len(cycles)} warps of {brick_cuda.BLOCKS[form]}-thread "
+        f"blocks): " + "; ".join(
+            f"{ph} {n:.1f} issues a warp, SIMT {e:.3f}, {c:.3f} of warp cycles"
+            for ph, (n, e, c) in phases.items())
+        + f"; warp time median {np.median(dur):.2f} us, p99 {np.percentile(dur, 99):.1f}, "
+        f"max {dur.max():.1f}; block tail (last warp's end - median warp's end) "
+        f"median {np.median(tail):.2f} us, max {tail.max():.1f}; the kernel spans "
+        f"{span:.1f} us, 99% of warps ended by {t99:.1f} ({(span - t99) / span:.2f} of "
+        f"the span after it); the last warp {last} started at {start[last]:.1f} us "
+        f"and ran {dur[last]:.1f}{longest}")
+    return dict(phases={ph: dict(issues_a_warp=n, simt=e, cycle_share=c)
+                        for ph, (n, e, c) in phases.items()},
+                warp_us_median=float(np.median(dur)), warp_us_p99=float(np.percentile(dur, 99)),
+                warp_us_max=float(dur.max()), block_tail_us_median=float(np.median(tail)),
+                block_tail_us_max=float(tail.max()), span_us=span, t99_us=t99,
+                last_warp_start_us=float(start[last]), last_warp_us=float(dur[last]))
 
 
 def probe_idx(shape, rows, dev):
@@ -797,6 +916,13 @@ def main():
         f"tile_candidates (nvcc sm_90a) {secs['tile_candidates']:.2f} s, "
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
+    ptxas = ptxas_report(_build.build_log("brick_trace"))
+    if len(ptxas) != 14:
+        raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
+                             f"expected 14")
+    say("[build] brick_trace.cu, ptxas -v (kernel<form, staged rows, probe, block>: "
+        "registers, spill bytes, shared bytes): " + "; ".join(
+            f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas))
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
     count_plain_calls()
@@ -805,7 +931,10 @@ def main():
                tile_candidates_block=0.0, brick_dda16=0.0, rowread=0.0,
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
-               brick_trace=0.0, esvo_stackless=0.0)
+               brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
+               esvo_stackless_serial=0.0, brick_trace_refill=0.0,
+               brick_trace_unstaged=0.0,
+               esvo_stackless_refill=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -877,7 +1006,7 @@ def main():
     # (a top tree of one level); camera rays, rays from a shell, rays from
     # inside the cube
     empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
-    dda_most, parity_lines = 0, []
+    dda_most, parity_lines, n_small = 0, [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
                         ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
         host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
@@ -885,15 +1014,17 @@ def main():
         found = []
         for kind, o, d in ray_sets(dev, small_cam, 4096, depth):
             what = f"{name} d{depth} {kind} rays N={o.shape[0]}"
-            kb = brick_cuda._brick_kernel(small_bsvo, o, d, True)
-            ks = brick_cuda._stackless_kernel(small_svo, o, d, True)
-            pb = brick.trace_brick(small_bsvo, o, d, True)
-            ps = traverse.trace_stackless(small_svo, o, d, True)
+            forms = trace_forms(small_bsvo, small_svo, o, d)
+            plain = {"brick_trace": brick.trace_brick(small_bsvo, o, d, True),
+                     "esvo_stackless": traverse.trace_stackless(small_svo, o, d, True)}
             torch.cuda.synchronize()
-            err["brick_trace"] = max(err["brick_trace"], compare_stats(
-                kb, pb, f"brick_trace, {what}"))
-            err["esvo_stackless"] = max(err["esvo_stackless"], compare_stats(
-                ks, ps, f"esvo_stackless, {what}"))
+            for (kname, form), got in forms.items():
+                e = compare_stats(got, plain[kname], f"{kname} {form}, {what}")
+                if form in FORM_ERR or form.startswith("refill"):
+                    key = kname + FORM_ERR.get(form, "_refill")
+                    err[key] = max(err[key], e)
+            n_small += 1
+            kb, ks = forms[("brick_trace", "main")], forms[("esvo_stackless", "main")]
             dda_most = max(dda_most, int(kb[1][:, STAT("dda_max")].max()))
             hits = int((kb[0].hit_leaf >= 0).sum())
             if name == "empty" and (hits or int((ks[0].hit_leaf >= 0).sum())):
@@ -905,11 +1036,16 @@ def main():
     if dda_most > 22:
         raise AssertionError(f"a brick walk took {dda_most} DDA steps in one "
                              f"round; an 8^3 brick needs at most 22")
-    say("[parity] brick_trace and esvo_stackless == their plain versions "
-        "(brick.trace_brick, traverse.trace_stackless) bitwise (hit_leaf, "
-        "hit_t bits, hit_parent, hit_child, iters, and the statistics a ray), "
-        "camera rays (128x128) and 4,096 rays from a shell and from inside "
-        "the cube: " + "; ".join(parity_lines) + f" (hits of brick_trace; rays "
+    say(f"[parity] brick_trace (through the main path's wrapper, and in its "
+        f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless (the same, "
+        f"forms {brick_cuda.FORMS['esvo_stackless']}), the refill forms also at 3 "
+        f"rays a thread (the brick trace's with a DDA trip once an eighth of the "
+        f"lanes are parked and staged rows), and every probe form == their plain "
+        f"versions (brick.trace_brick, "
+        f"traverse.trace_stackless) bitwise (hit_leaf, hit_t bits, hit_parent, "
+        f"hit_child, iters, and the statistics a ray), on {n_small} cases: "
+        f"camera rays (128x128) and 4,096 rays from a shell and from inside "
+        f"the cube: " + "; ".join(parity_lines) + f" (hits of brick_trace; rays "
         f"on which the two traces part in hit_leaf); at most {dda_most} DDA "
         f"steps in a round (the cap of {brick.DDA_ROUND_STEPS} never binds)")
 
@@ -1084,12 +1220,15 @@ def main():
         launched = dict(brick_cuda.launches)
         want = dict(brick_trace=int(route == "brick"),
                     esvo_stackless=int(route == "plain"))
-        if (launched != want or traverse_cuda.launches
+        other_forms = {**brick_cuda.serial_launches, **brick_cuda.refill_launches,
+                       **brick_cuda.probe_launches}
+        if (launched != want or any(other_forms.values()) or traverse_cuda.launches
                 or shade_cuda.launches["shade_fwd"] != 1
                 or PLAIN_CALLS["trace_brick"] or PLAIN_CALLS["trace_stackless"]):
-            raise AssertionError(f"the {route} frame launched {launched}, "
-                                 f"esvo_trace {traverse_cuda.launches} times, "
-                                 f"plain calls {PLAIN_CALLS}; expected {want}")
+            raise AssertionError(f"the {route} frame launched {launched} and "
+                                 f"{other_forms}, esvo_trace "
+                                 f"{traverse_cuda.launches} times, plain calls "
+                                 f"{PLAIN_CALLS}; expected {want}")
         if img_r.shape != (n_rays, 3) or not bool(torch.isfinite(img_r).all()):
             raise AssertionError(f"bad {route} image: shape or non-finite")
         # the kernel against its plain version on the same card and inputs
@@ -1128,9 +1267,9 @@ def main():
         routes[route] = dict(res=res_r, stats=st_r, differ=differ,
                              unfinished=unfinished, plain_ms=route_plain_ms,
                              launches=launched[kname])
-        say(f"[frame-{route}] {res}x{res} depth {depth}: {kname} launched "
-            f"{launched[kname]} time(s) in the frame, shade_fwd once, no plain "
-            f"call; " + route_line(res_r, st_r) + f"; kernel == plain version "
+        say(f"[frame-{route}] {res}x{res} depth {depth}: {kname} (its "
+            f"{MAIN_FORM[kname]} form) launched {launched[kname]} time(s) in the frame, shade_fwd once, no "
+            f"other form and no plain call; " + route_line(res_r, st_r) + f"; kernel == plain version "
             f"on the card, bitwise (hit_leaf, hit_t, hit_parent, hit_child, "
             f"iters, statistics; the plain version {route_plain_ms:.1f} ms, n=1); "
             f"image == plain path (max abs {img_err_r}); parts from esvo_trace "
@@ -1148,6 +1287,37 @@ def main():
         f"parts from esvo_trace), and the brick trace finishes all "
         f"{int((~both).sum())} that the stackless trace leaves: "
         f"{int((routes['brick']['res'].hit_leaf[~both] >= 0).sum())} of them hits")
+
+    # ---- 5d. every form of the two traces on the frame, and their warps -------
+    reference = {"brick_trace": (routes["brick"]["res"], routes["brick"]["stats"]),
+                 "esvo_stackless": (routes["plain"]["res"], routes["plain"]["stats"])}
+    for (kname, form), got in trace_forms(bsvo, svo, o, d).items():
+        e = compare_stats(got, reference[kname], f"{kname} {form}, terrain d10 frame")
+        if form in FORM_ERR or form.startswith("refill"):
+            key = kname + FORM_ERR.get(form, "_refill")
+            err[key] = max(err[key], e)
+    torch.cuda.synchronize()
+    say(f"[frame-forms] {res}x{res} depth {depth}: brick_trace in its forms "
+        f"{brick_cuda.FORMS['brick_trace']} and esvo_stackless in its forms "
+        f"{brick_cuda.FORMS['esvo_stackless']} (refill at "
+        f"{brick_cuda.rays_per_thread(n_rays, tile_cuda.thread_slots(dev))} rays a "
+        f"thread, the brick trace's at drain {brick_cuda.DRAIN}; and at 3 rays a "
+        f"thread, drain 8 and staged rows) and every probe form == the plain "
+        f"versions bitwise (hit_leaf, hit_t, hit_parent, hit_child, iters, "
+        f"statistics)")
+    warp_counts = {}
+    for kname in ("brick_trace", "esvo_stackless"):
+        for form in brick_cuda.FORMS[kname]:
+            probe = (brick_cuda.probe_brick_cuda(bsvo, o, d, form) if kname == "brick_trace"
+                     else brick_cuda.probe_stackless_cuda(svo, o, d, form))
+            torch.cuda.synchronize()
+            compare_stats(probe[:2], reference[kname], f"{kname} {form} probe, frame")
+            warp_counts[(kname, form)] = warps_line(kname, form, probe[2],
+                                              reference[kname][0].iters.cpu().numpy())
+    say("[warps] the probe forms' results == the plain versions' bitwise; issue "
+        "and lane counts are exact, cycle shares inside divergent code are "
+        "approximate (another branch's lanes may run between a phase's two "
+        "clock reads); times from the card's global timer")
 
     # ---- 5b. the shading kernels on that frame vs their plain versions ----------
     hit_leaf = kern.hit_leaf
@@ -1451,19 +1621,29 @@ def main():
     tile_cuda.tile_walk_serial(*main_args)
     tile_cuda.candidates_block(*cands[0])
     shade_cuda.shade_bwd_serial(g_unit, hit_leaf, d, *params, light, 1.3, 0.08)
+    brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
+    brick_cuda.trace_stackless_cuda_serial(svo, o, d)
+    brick_cuda._brick_refill_kernel(bsvo, o, d)
+    brick_cuda._stackless_refill_kernel(svo, o, d)
+    brick_cuda._brick_unstaged_kernel(bsvo, o, d)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
                           tile_walk_serial=tile_cuda.serial_launches,
                           tile_candidates_block=tile_cuda.candidates_block_launches,
-                          shade_bwd_serial=shade_cuda.launches["shade_bwd_serial"])
+                          shade_bwd_serial=shade_cuda.launches["shade_bwd_serial"],
+                          **brick_cuda.serial_launches, **brick_cuda.refill_launches)
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
     sorted_launches = shade_cuda.launches["segment_sum_sorted"]
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
             or loop_launches != 5 or sorted_launches != 1
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
-                                      tile_candidates_block=1, shade_bwd_serial=1)
+                                      tile_candidates_block=1, shade_bwd_serial=1,
+                                      esvo_stackless_serial=1, brick_trace_serial=1,
+                                      esvo_stackless_refill=1, brick_trace_refill=1,
+                                      brick_trace_unstaged=1)
+            or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
         raise AssertionError("the probes did not launch their kernels")
@@ -1487,7 +1667,7 @@ def main():
         f"launches (scalar, min, rows); take: {take_launches} launches; "
         f"loop_probe: {loop_launches} launches; segment_sum_sorted (the "
         f"sorted form, off the training path): {sorted_launches} launch; the "
-        f"first forms, off the main path: {first_launches}")
+        f"first forms and the refill forms, off the main path: {first_launches}")
 
     # ---- 7b. the training step, on all four traversals -----------------------
     hit_tile = res_fb.hit_leaf
@@ -1522,6 +1702,7 @@ def main():
                           tile_candidates_block=tile_cuda.candidates_block_launches,
                           **brick_cuda.launches, **PLAIN_CALLS,
                           **shade_cuda.launches)
+            others = [k for c in BRICK_COUNTS[1:] for k, v in c.items() if v]
             want = dict(esvo_trace=int(path == "per-ray"),
                         tile_walk=3 if path == "tile" else 0,
                         tile_candidates=3 if path == "tile" else 0,
@@ -1531,9 +1712,9 @@ def main():
                         candidates_plain=0, trace_brick=0, trace_stackless=0,
                         shade_fwd=1, shade_bwd=1, shade_bwd_serial=0,
                         segment_sum=1, segment_sum_sorted=0)
-            if counts != want:
+            if counts != want or others:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
-                                     f"expected {want}")
+                                     f"expected {want}; other forms: {others}")
             train_launches[path] = counts
             loss, n_res = (out[0], int(out[1])) if path == "tile" else (out, 0)
             if not bool(torch.isfinite(loss)) or n_res != 0:
@@ -1660,10 +1841,16 @@ def main():
         flat_losses.append(float(loss))
     torch.cuda.synchronize()
     flat_counts = dict(esvo_trace=traverse_cuda.launches, **brick_cuda.launches,
-                       **PLAIN_CALLS, **shade_cuda.launches)
+                       **PLAIN_CALLS, **shade_cuda.launches,
+                       **brick_cuda.serial_launches, **brick_cuda.refill_launches,
+                       **brick_cuda.probe_launches)
     want = dict(esvo_trace=0, brick_trace=3, esvo_stackless=0, candidates_plain=0,
                 trace_brick=0, trace_stackless=0, shade_fwd=3, shade_bwd=3,
-                shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0)
+                shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
+                esvo_stackless_serial=0, brick_trace_serial=0,
+                esvo_stackless_refill=0, brick_trace_refill=0,
+                brick_trace_unstaged=0,
+                esvo_stackless_probe=0, brick_trace_probe=0)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -1760,12 +1947,31 @@ def main():
     for route, (fwd, fwdbwd) in route_calls.items():
         t[f"{route}_frame"] = cuda_ms(fwd, 50, 3)
         t[f"{route}_step"] = cuda_ms(fwdbwd, 50, 3)
-    # the three per-ray traces in turns, and the new ones' plain versions
+    # the per-ray traces in turns, every form of the brick and stackless
+    # traces through its own wrapper, and their plain versions
     turns = in_turns({
         "trace_esvo": lambda: traverse_cuda.trace_cuda(svo, o, d),
         "trace_brick": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
-        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)})
+        "trace_brick_first": lambda: brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
+        "trace_brick_refill": lambda: brick_cuda._brick_refill_kernel(bsvo, o, d),
+        "trace_brick_unstaged": lambda: brick_cuda._brick_unstaged_kernel(bsvo, o, d),
+        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d),
+        "trace_stackless_first": lambda: brick_cuda.trace_stackless_cuda_serial(svo, o, d),
+        "trace_stackless_refill": lambda: brick_cuda._stackless_refill_kernel(svo, o, d)},
+        rounds=4)
     t.update({f"{name}_turns": v for name, v in turns.items()})
+    # the refill forms' knobs, each setting in turns with the first form
+    sweep = {"brick first": lambda: brick_cuda.trace_brick_cuda_serial(bsvo, o, d)}
+    for per, drain, burst in [(p_, d_, False) for p_ in (1, 2, 4, 8) for d_ in (1, 2, 8, 32)] + [
+            (2, 2, True), (4, 2, True)]:
+        sweep[f"brick per={per} drain={drain}{' staged' if burst else ''}"] = (
+            lambda a=(per, drain, burst): brick_cuda._brick_refill_kernel(
+                bsvo, o, d, False, *a))
+    sweep["stackless first"] = lambda: brick_cuda.trace_stackless_cuda_serial(svo, o, d)
+    for per in (1, 2, 4, 8):
+        sweep[f"stackless per={per}"] = lambda p_=per: brick_cuda._stackless_refill_kernel(
+            svo, o, d, False, p_)
+    refill_sweep = {k: med_p80(v)[0] for k, v in in_turns(sweep, rounds=2, reps=20).items()}
     t["brick_plain"] = cuda_ms(lambda: brick.trace_brick(bsvo, o, d), 2, 0)
     t["stackless_plain"] = cuda_ms(lambda: traverse.trace_stackless(svo, o, d), 2, 0)
     g_step = 2.0 * img / img.numel()
@@ -1890,12 +2096,24 @@ def main():
             f"{st[0]:.4f} ms (p80 {st[1]:.4f}, n=50) = "
             f"{n_rays / st[0] / 1e3:.2f} Mrays/s; fwdbwd_over_fwd "
             f"{st[0] / f[0]:.2f}")
-    say(f"[timing] {card}: the per-ray traces in turns (three rounds of 50): "
-        f"esvo_trace {m['trace_esvo_turns'][0]:.4f} ms, brick_trace "
-        f"{m['trace_brick_turns'][0]:.4f}, esvo_stackless "
-        f"{m['trace_stackless_turns'][0]:.4f}; their plain versions "
-        f"brick.trace_brick {m['brick_plain'][0]:.1f} ms and "
-        f"traverse.trace_stackless {m['stackless_plain'][0]:.1f} ms (n=2)")
+    say(f"[timing] {card}: the per-ray traces in turns (four rounds of 50, "
+        f"median and p80): esvo_trace {m['trace_esvo_turns'][0]:.4f} ms; "
+        + "; ".join(f"{k} through the main path's wrapper ({MAIN_FORM[k]} form) "
+                    f"{m[f'trace_{r}_turns'][0]:.4f} "
+                    f"({m[f'trace_{r}_turns'][1]:.4f}), first form "
+                    f"{m[f'trace_{r}_first_turns'][0]:.4f} "
+                    f"({m[f'trace_{r}_first_turns'][1]:.4f}), refill form "
+                    f"{m[f'trace_{r}_refill_turns'][0]:.4f} "
+                    f"({m[f'trace_{r}_refill_turns'][1]:.4f})"
+                    for k, r in (("brick_trace", "brick"), ("esvo_stackless", "stackless")))
+        + f"; brick_trace's wide form without staged rows (blocks of 256) "
+        f"{m['trace_brick_unstaged_turns'][0]:.4f} "
+        f"({m['trace_brick_unstaged_turns'][1]:.4f})"
+        + f"; their plain versions brick.trace_brick {m['brick_plain'][0]:.1f} ms "
+        f"and traverse.trace_stackless {m['stackless_plain'][0]:.1f} ms (n=2)")
+    say(f"[refill] {card}: the refill forms at each setting (rays a thread, the "
+        f"brick trace's drain, staged rows), ms in turns with the first forms (two "
+        f"rounds of 20): " + ", ".join(f"{k} {v:.4f}" for k, v in refill_sweep.items()))
     for wname in WALKS:
         row = walk_rows[wname]
         say(f"[lanes] {card}: walk {wname} (T={row['T']}, P={row['P']}, "
@@ -2044,12 +2262,21 @@ def main():
             traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
     alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
     _, rows, _n = profile_kernels(
-        "brick_trace and esvo_stackless alone, and esvo_trace beside them",
+        "brick_trace and esvo_stackless alone, each in its three forms, and "
+        "esvo_trace beside them",
         lambda: (brick_cuda.trace_brick_cuda(bsvo, o, d),
+                 brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
+                 brick_cuda._brick_refill_kernel(bsvo, o, d),
+                 brick_cuda._brick_unstaged_kernel(bsvo, o, d),
                  brick_cuda.trace_stackless_cuda(svo, o, d),
-                 traverse_cuda.trace_cuda(svo, o, d)), "round", 3, launches=3)
-    alone["brick_trace"], alone["esvo_stackless"], alone["esvo_beside"] = kernel_us(
-        rows, "brick_trace_kernel", "esvo_stackless_kernel", "esvo_kernel<false>")
+                 brick_cuda.trace_stackless_cuda_serial(svo, o, d),
+                 brick_cuda._stackless_refill_kernel(svo, o, d),
+                 traverse_cuda.trace_cuda(svo, o, d)), "round", 8, launches=8)
+    for key, name in FORM_KERNELS.items():
+        alone[key] = kernel_us(rows, name)[0]
+    for kname, form in MAIN_FORM.items():
+        alone[kname] = alone[(kname, form)]
+    alone["esvo_beside"] = kernel_us(rows, "esvo_kernel<false>")[0]
     route_prof = {}
     for route, (fwd, fwdbwd) in route_calls.items():
         f_us, _rows, f_n = profile_kernels(f"{route} frame", fwd, "frame", 4)
@@ -2095,9 +2322,11 @@ def main():
         f"{idle(tile_step_us, m['step_tile'][0])} of its median "
         f"{m['step_tile'][0]:.4f} ms; per-ray fwd+bwd step idle "
         f"{idle(step_us, m['step'][0])} of its median {m['step'][0]:.4f} ms")
-    say(f"[profile] {card}: brick_trace {us_or(alone['brick_trace'])} us alone, "
-        f"esvo_stackless {us_or(alone['esvo_stackless'])} us, esvo_trace beside "
-        f"them {us_or(alone['esvo_beside'])} us; " + "; ".join(
+    say(f"[profile] {card}: us alone: " + "; ".join(
+            f"{k} " + ", ".join(f"{form} form {us_or(alone[(k, form)])}"
+                                for form in brick_cuda.FORMS[k])
+            for k in ("brick_trace", "esvo_stackless"))
+        + f"; esvo_trace beside them {us_or(alone['esvo_beside'])}; " + "; ".join(
             f"{route} frame {us_or(f_us)} us of kernels in {count(f_n)} launches, "
             f"idle {idle(f_us, m[f'{route}_frame'][0])} of its median "
             f"{m[f'{route}_frame'][0]:.4f} ms; {route} fwd+bwd step {us_or(s_us)} us "
@@ -2182,9 +2411,14 @@ def main():
         f"{OPS_RAY_SETUP} a ray's set-up at {PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s): "
         f"brick_trace {b_top} top steps and {b_dda} DDA steps, bound "
         f"{brick_bound[0]:.5f} ms ({brick_bound[1]}), {us(alone['brick_trace'])} "
-        f"us alone; esvo_stackless {s_steps} steps, bound {stackless_bound[0]:.5f} "
-        f"ms ({stackless_bound[1]}), {us(alone['esvo_stackless'])} us alone; "
-        f"esvo_trace {esvo_steps} steps, bound {esvo_bound[0]:.5f} ms")
+        f"us alone (first form {us(alone[('brick_trace', 'first')])}, wide form "
+        f"without staged rows {us(alone[('brick_trace', 'unstaged')])}, refill form "
+        f"{us(alone[('brick_trace', 'refill')])}); esvo_stackless {s_steps} steps, "
+        f"bound {stackless_bound[0]:.5f} ms ({stackless_bound[1]}), "
+        f"{us(alone['esvo_stackless'])} us alone (first form "
+        f"{us(alone[('esvo_stackless', 'first')])}, refill form "
+        f"{us(alone[('esvo_stackless', 'refill')])}); esvo_trace {esvo_steps} steps, "
+        f"bound {esvo_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
         new_us, first_us, other_us = alone[f"phase1 {cname}"]
         cand_rows[cname].update(
@@ -2355,26 +2589,52 @@ def main():
              bound_ms=seg_bound[0], bound_by=seg_bound[1],
              library_ms=m["segment_library"][0]),
     ]
-    kernels += [
-        dict(name="brick_trace", route="cuda", source=src + "brick_trace.cu",
-             replaces="raytracingtest_tpu/ops/brick.py:492",
-             path="diff.render_diff_brick / diff.loss_and_grads_brick / "
-                  "InverseRenderer.step", launches=routes["brick"]["launches"],
-             max_abs_err=err["brick_trace"], ms=m["trace_brick_turns"][0],
-             plain_ms=m["brick_plain"][0], bound_ms=brick_bound[0],
-             bound_by=brick_bound[1], library_ms=None,
-             us_alone=alone["brick_trace"],
-             launches_train_step=train_launches["brick"]["brick_trace"]),
-        dict(name="esvo_stackless", route="cuda", source=src + "brick_trace.cu",
-             replaces="raytracingtest_tpu/ops/traverse.py:530",
-             path="diff.render_diff / diff.loss_and_grads",
-             launches=routes["plain"]["launches"],
-             max_abs_err=err["esvo_stackless"], ms=m["trace_stackless_turns"][0],
-             plain_ms=m["stackless_plain"][0], bound_ms=stackless_bound[0],
-             bound_by=stackless_bound[1], library_ms=None,
-             us_alone=alone["esvo_stackless"],
-             launches_train_step=train_launches["plain"]["esvo_stackless"]),
-    ]
+    # the brick and stackless traces: each form's own line; the main path's
+    # (wide) carries the others' times and every form's warp counters
+    per_ray = dict(
+        brick_trace=dict(replaces="raytracingtest_tpu/ops/brick.py:492",
+                         path="diff.render_diff_brick / diff.loss_and_grads_brick / "
+                              "InverseRenderer.step", route="brick", turns="trace_brick",
+                         plain="brick_plain", bound=brick_bound),
+        esvo_stackless=dict(replaces="raytracingtest_tpu/ops/traverse.py:530",
+                            path="diff.render_diff / diff.loss_and_grads",
+                            route="plain", turns="trace_stackless",
+                            plain="stackless_plain", bound=stackless_bound))
+    for kname, row in per_ray.items():
+        common = dict(route="cuda", source=src + "brick_trace.cu",
+                      replaces=row["replaces"], plain_ms=m[row["plain"]][0],
+                      bound_ms=row["bound"][0], bound_by=row["bound"][1],
+                      library_ms=None)
+        kernels += [
+            dict(name=kname, **common,
+                 path=row["path"] + f" (the {MAIN_FORM[kname]} form)",
+                 launches=routes[row["route"]]["launches"], max_abs_err=err[kname],
+                 ms=m[f"{row['turns']}_turns"][0], us_alone=alone[kname],
+                 launches_train_step=train_launches[row["route"]][kname],
+                 ms_first_form=m[f"{row['turns']}_first_turns"][0],
+                 us_alone_first_form=alone[(kname, "first")],
+                 ms_refill_form=m[f"{row['turns']}_refill_turns"][0],
+                 us_alone_refill_form=alone[(kname, "refill")],
+                 **(dict(ms_unstaged_form=m["trace_brick_unstaged_turns"][0],
+                         us_alone_unstaged_form=alone[(kname, "unstaged")])
+                    if kname == "brick_trace" else {}),
+                 warps={form: warp_counts[(kname, form)]
+                        for form in brick_cuda.FORMS[kname]}),
+            dict(name=f"{kname}_serial", **common,
+                 path=f"brick_cuda.trace_{'brick' if kname == 'brick_trace' else 'stackless'}"
+                      f"_cuda_serial (the first form, off the main path)",
+                 launches=first_launches[f"{kname}_serial"],
+                 max_abs_err=err[f"{kname}_serial"],
+                 ms=m[f"{row['turns']}_first_turns"][0],
+                 us_alone=alone[(kname, "first")]),
+            dict(name=f"{kname}_refill", **common,
+                 path=f"brick_cuda._{'brick' if kname == 'brick_trace' else 'stackless'}"
+                      f"_refill_kernel (the refill form, off the main path)",
+                 launches=first_launches[f"{kname}_refill"],
+                 max_abs_err=err[f"{kname}_refill"],
+                 ms=m[f"{row['turns']}_refill_turns"][0],
+                 us_alone=alone[(kname, "refill")]),
+        ]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]

@@ -21,12 +21,17 @@ Six libraries, each built on first use into
                      phase 1 of the tile trace, each tile's candidate list,
                      and its first form;
   * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
-                     per-ray stackless trace and the per-ray brick trace.
+                     per-ray stackless trace and the per-ray brick trace,
+                     each in three forms and with counters.
 
 ``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
 ``brick_trace.cu`` share.
 
 ``build_all`` builds them side by side, one compiler process each.
+
+Each library's build log (what the compiler printed, for a CUDA library
+ptxas's registers and spills of each kernel) is kept beside it as
+``<library>.so.log``; ``build_log`` reads it.
 
 The file name of each library carries a hash of its source, its flags and,
 for a CUDA source, the headers under ``csrc/``, so a stale build is never
@@ -52,9 +57,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raytracingtest_tpu_tor
 # csrc/Makefile's flags (-Wall dropped: warnings change no code)
 NOISE_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC",
                "-std=c++17", "-shared", "-pthread"]
-# --fmad=false: the traversal's hits depend on a*b-c rounding in two steps
+# --fmad=false: the traversal's hits depend on a*b-c rounding in two steps;
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept in the
+# library's build log (build_log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()      # guards the two tables below
 _build_locks: dict = {}       # one lock a library, so builds run side by side
@@ -104,8 +111,18 @@ def _build(name: str, compiler: str, flags: list, source: str) -> str:
         raise RuntimeError(
             f"building {name} failed ({compiler}, rc {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}")
+    with open(f"{so}.log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def build_log(name: str) -> str:
+    """What the compiler printed when it built the loaded library `name`
+    (for a CUDA library, ptxas's report of each kernel)."""
+    path = f"{_libs[name]._name}.log"
+    with open(path) as f:
+        return f.read()
 
 
 def _load(name: str, compiler_fn, flags: list, source: str, declare):
@@ -174,9 +191,18 @@ def _declare_candidates(lib):
 
 def _declare_brick(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.esvo_stackless.argtypes = [p, p, p, p, p, p, i, i, p, p, p, p, p, p, p]
-    lib.brick_trace.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
-    for fn in (lib.esvo_stackless, lib.brick_trace):
+    lib.esvo_stackless.argtypes = [p] * 6 + [i] * 2 + [p] * 7
+    lib.esvo_stackless_refill.argtypes = [p] * 6 + [i] * 3 + [p] * 7
+    lib.esvo_stackless_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
+    for fn in (lib.brick_trace, lib.brick_trace_serial, lib.brick_trace_unstaged):
+        fn.argtypes = [p] * 6 + [i] * 3 + [p] * 7
+    lib.brick_trace_refill.argtypes = [p] * 6 + [i] * 6 + [p] * 7
+    lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 6 + [p] * 8
+    for fn in (lib.esvo_stackless, lib.esvo_stackless_refill,
+               lib.esvo_stackless_probe,
+               lib.brick_trace, lib.brick_trace_serial, lib.brick_trace_refill,
+               lib.brick_trace_unstaged,
+               lib.brick_trace_probe):
         fn.restype = i
 
 
