@@ -26,12 +26,13 @@ sort-free `segment_sum`), and takes three `InverseRenderer.step_view` steps
 on that view and three `InverseRenderer.step` steps on its flat batch of
 rays (the brick step). `brick_trace` and `esvo_stackless` are held bitwise
 against their plain versions (hits, hit_t bits, step counts and statistics)
-on small cases and on the full frame, each in its three forms (wide, the
-main path's; first; refill) and its probe forms; the rays on which the
-frames part from `esvo_trace` go to a float64 referee; no call of their
-plain versions, and no launch of another form, may happen on their paths.
-`[warps]` runs each form's probe on the frame and prints where its warps
-spend their issues and cycles and when the last warps end. The two traversal kernels of the first slices
+on small cases and on the full frame, the brick trace in its forms (wide,
+the main path's; first; wide without staged rows) and both in their probe
+forms; the rays on which the frames part from `esvo_trace` go to a float64
+referee; no call of their plain versions, and no launch of another form,
+may happen on their paths. `[warps]` runs each form's probe on the frame
+and prints where its warps spend their issues and cycles and when the last
+warps end. The two traversal kernels of the first slices
 keep their first forms beside them, `esvo_trace_serial` and
 `tile_walk_serial` (one thread a ray, off the main path): each kernel is held bitwise against its plain version and its first
 form, the walker on each of the frame's three launches and at every number
@@ -104,17 +105,15 @@ OPS_CAND_CHILD = 110
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0}
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
-# the first forms', the refill forms' and the probe forms'
-BRICK_COUNTS = (brick_cuda.launches, brick_cuda.serial_launches,
-                brick_cuda.refill_launches, brick_cuda.probe_launches)
+# the brick trace's other forms' and the probe forms'
+BRICK_COUNTS = (brick_cuda.launches, brick_cuda.form_launches,
+                brick_cuda.probe_launches)
 # each form's kernel, as torch.profiler names it, and the main path's form
 FORM_KERNELS = {
-    ("brick_trace", "wide"): "brick_trace_kernel<1, true, false, 256>",
-    ("brick_trace", "first"): "brick_trace_kernel<0, false, false, 128>",
-    ("brick_trace", "unstaged"): "brick_trace_kernel<1, false, false, 256>",
-    ("brick_trace", "refill"): "brick_trace_kernel<2, false, false, 128>",
-    ("esvo_stackless", "first"): "esvo_stackless_kernel<0, false>",
-    ("esvo_stackless", "refill"): "esvo_stackless_kernel<2, false>",
+    ("brick_trace", "wide"): "brick_trace_kernel<true, false, 256>",
+    ("brick_trace", "first"): "brick_trace_kernel<false, false, 128>",
+    ("brick_trace", "unstaged"): "brick_trace_kernel<false, false, 256>",
+    ("esvo_stackless", "first"): "esvo_stackless_kernel<false>",
 }
 MAIN_FORM = {"brick_trace": "wide", "esvo_stackless": "first"}
 # the err key of a trace_forms entry
@@ -283,28 +282,19 @@ def route_line(res, stats):
 
 def trace_forms(bsvo, svo, o, d):
     """(kernel, form) -> (TraceResult, stats) of brick_trace and
-    esvo_stackless on these rays through the main path's wrapper ("main")
-    and in every form, each also in its probe form (form "... probe"), the
-    refill forms also at 3 rays a thread (and for the brick trace a DDA
-    trip once an eighth of the lanes are parked, and staged brick rows)."""
+    esvo_stackless on these rays through the main path's wrapper ("main"),
+    the brick trace also in its other forms, and every form in its probe
+    form (form "... probe")."""
     out = {
         ("brick_trace", "main"): brick_cuda._brick_kernel(bsvo, o, d, True),
         ("brick_trace", "first"): brick_cuda._brick_serial_kernel(bsvo, o, d, True),
         ("brick_trace", "unstaged"): brick_cuda._brick_unstaged_kernel(bsvo, o, d, True),
-        ("brick_trace", "refill"): brick_cuda._brick_refill_kernel(bsvo, o, d, True),
-        ("brick_trace", "refill 3/8/staged"): brick_cuda._brick_refill_kernel(
-            bsvo, o, d, True, per_thread=3, drain=8, burst=True),
         ("esvo_stackless", "main"): brick_cuda._stackless_kernel(svo, o, d, True),
-        ("esvo_stackless", "first"): brick_cuda._stackless_serial_kernel(svo, o, d, True),
-        ("esvo_stackless", "refill"): brick_cuda._stackless_refill_kernel(svo, o, d, True),
-        ("esvo_stackless", "refill 3"): brick_cuda._stackless_refill_kernel(
-            svo, o, d, True, per_thread=3)}
+        ("esvo_stackless", "first probe"): brick_cuda.probe_stackless_cuda(
+            svo, o, d)[:2]}
     for form in brick_cuda.FORMS["brick_trace"]:
         out[("brick_trace", f"{form} probe")] = brick_cuda.probe_brick_cuda(
             bsvo, o, d, form)[:2]
-    for form in brick_cuda.FORMS["esvo_stackless"]:
-        out[("esvo_stackless", f"{form} probe")] = brick_cuda.probe_stackless_cuda(
-            svo, o, d, form)[:2]
     return out
 
 
@@ -337,8 +327,8 @@ def warps_line(kernel, form, record, iters):
     phase's issues a warp, SIMT efficiency (lanes active a issue over 32)
     and share of warp cycles; warp durations; each block's tail; the
     kernel's span and how much of it follows the end of 99 in 100 warps;
-    the last warp to end (for the one-ray-a-thread forms also its issues
-    against its longest ray's steps). Returns the numbers."""
+    the last warp to end, with its issues against its longest ray's steps.
+    Returns the numbers."""
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
     cycles = f["end"] - f["start"]
@@ -358,7 +348,7 @@ def warps_line(kernel, form, record, iters):
     last = int(np.argmax(end))
     steps_total = f["step_issues"][last] + f["dda_issues"][last]
     longest = ""
-    if form != "refill" and last * 32 < len(iters):
+    if last * 32 < len(iters):
         lane_steps = max(int(iters[last * 32:(last + 1) * 32].max()), 1)
         longest = (f", {steps_total:.0f} step and DDA issues for its longest ray's "
                    f"{lane_steps} steps ({steps_total / lane_steps:.2f} issues a step)")
@@ -917,10 +907,11 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 14:
+    if len(ptxas) != 8:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 14")
-    say("[build] brick_trace.cu, ptxas -v (kernel<form, staged rows, probe, block>: "
+                             f"expected 8")
+    say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
+        "esvo_stackless_kernel<probe>: "
         "registers, spill bytes, shared bytes): " + "; ".join(
             f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas))
 
@@ -932,9 +923,7 @@ def main():
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
-               esvo_stackless_serial=0.0, brick_trace_refill=0.0,
-               brick_trace_unstaged=0.0,
-               esvo_stackless_refill=0.0)
+               brick_trace_unstaged=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -1020,9 +1009,8 @@ def main():
             torch.cuda.synchronize()
             for (kname, form), got in forms.items():
                 e = compare_stats(got, plain[kname], f"{kname} {form}, {what}")
-                if form in FORM_ERR or form.startswith("refill"):
-                    key = kname + FORM_ERR.get(form, "_refill")
-                    err[key] = max(err[key], e)
+                if form in FORM_ERR:
+                    err[kname + FORM_ERR[form]] = max(err[kname + FORM_ERR[form]], e)
             n_small += 1
             kb, ks = forms[("brick_trace", "main")], forms[("esvo_stackless", "main")]
             dda_most = max(dda_most, int(kb[1][:, STAT("dda_max")].max()))
@@ -1037,11 +1025,8 @@ def main():
         raise AssertionError(f"a brick walk took {dda_most} DDA steps in one "
                              f"round; an 8^3 brick needs at most 22")
     say(f"[parity] brick_trace (through the main path's wrapper, and in its "
-        f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless (the same, "
-        f"forms {brick_cuda.FORMS['esvo_stackless']}), the refill forms also at 3 "
-        f"rays a thread (the brick trace's with a DDA trip once an eighth of the "
-        f"lanes are parked and staged rows), and every probe form == their plain "
-        f"versions (brick.trace_brick, "
+        f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless, and every "
+        f"probe form == their plain versions (brick.trace_brick, "
         f"traverse.trace_stackless) bitwise (hit_leaf, hit_t bits, hit_parent, "
         f"hit_child, iters, and the statistics a ray), on {n_small} cases: "
         f"camera rays (128x128) and 4,096 rays from a shell and from inside "
@@ -1220,8 +1205,7 @@ def main():
         launched = dict(brick_cuda.launches)
         want = dict(brick_trace=int(route == "brick"),
                     esvo_stackless=int(route == "plain"))
-        other_forms = {**brick_cuda.serial_launches, **brick_cuda.refill_launches,
-                       **brick_cuda.probe_launches}
+        other_forms = {**brick_cuda.form_launches, **brick_cuda.probe_launches}
         if (launched != want or any(other_forms.values()) or traverse_cuda.launches
                 or shade_cuda.launches["shade_fwd"] != 1
                 or PLAIN_CALLS["trace_brick"] or PLAIN_CALLS["trace_stackless"]):
@@ -1293,23 +1277,18 @@ def main():
                  "esvo_stackless": (routes["plain"]["res"], routes["plain"]["stats"])}
     for (kname, form), got in trace_forms(bsvo, svo, o, d).items():
         e = compare_stats(got, reference[kname], f"{kname} {form}, terrain d10 frame")
-        if form in FORM_ERR or form.startswith("refill"):
-            key = kname + FORM_ERR.get(form, "_refill")
-            err[key] = max(err[key], e)
+        if form in FORM_ERR:
+            err[kname + FORM_ERR[form]] = max(err[kname + FORM_ERR[form]], e)
     torch.cuda.synchronize()
     say(f"[frame-forms] {res}x{res} depth {depth}: brick_trace in its forms "
-        f"{brick_cuda.FORMS['brick_trace']} and esvo_stackless in its forms "
-        f"{brick_cuda.FORMS['esvo_stackless']} (refill at "
-        f"{brick_cuda.rays_per_thread(n_rays, tile_cuda.thread_slots(dev))} rays a "
-        f"thread, the brick trace's at drain {brick_cuda.DRAIN}; and at 3 rays a "
-        f"thread, drain 8 and staged rows) and every probe form == the plain "
-        f"versions bitwise (hit_leaf, hit_t, hit_parent, hit_child, iters, "
-        f"statistics)")
+        f"{brick_cuda.FORMS['brick_trace']}, esvo_stackless, and every probe form "
+        f"== the plain versions bitwise (hit_leaf, hit_t, hit_parent, hit_child, "
+        f"iters, statistics)")
     warp_counts = {}
     for kname in ("brick_trace", "esvo_stackless"):
         for form in brick_cuda.FORMS[kname]:
             probe = (brick_cuda.probe_brick_cuda(bsvo, o, d, form) if kname == "brick_trace"
-                     else brick_cuda.probe_stackless_cuda(svo, o, d, form))
+                     else brick_cuda.probe_stackless_cuda(svo, o, d))
             torch.cuda.synchronize()
             compare_stats(probe[:2], reference[kname], f"{kname} {form} probe, frame")
             warp_counts[(kname, form)] = warps_line(kname, form, probe[2],
@@ -1622,9 +1601,6 @@ def main():
     tile_cuda.candidates_block(*cands[0])
     shade_cuda.shade_bwd_serial(g_unit, hit_leaf, d, *params, light, 1.3, 0.08)
     brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
-    brick_cuda.trace_stackless_cuda_serial(svo, o, d)
-    brick_cuda._brick_refill_kernel(bsvo, o, d)
-    brick_cuda._stackless_refill_kernel(svo, o, d)
     brick_cuda._brick_unstaged_kernel(bsvo, o, d)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
@@ -1632,7 +1608,7 @@ def main():
                           tile_walk_serial=tile_cuda.serial_launches,
                           tile_candidates_block=tile_cuda.candidates_block_launches,
                           shade_bwd_serial=shade_cuda.launches["shade_bwd_serial"],
-                          **brick_cuda.serial_launches, **brick_cuda.refill_launches)
+                          **brick_cuda.form_launches)
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
     sorted_launches = shade_cuda.launches["segment_sum_sorted"]
@@ -1640,9 +1616,7 @@ def main():
             or loop_launches != 5 or sorted_launches != 1
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
                                       tile_candidates_block=1, shade_bwd_serial=1,
-                                      esvo_stackless_serial=1, brick_trace_serial=1,
-                                      esvo_stackless_refill=1, brick_trace_refill=1,
-                                      brick_trace_unstaged=1)
+                                      brick_trace_serial=1, brick_trace_unstaged=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -1667,7 +1641,7 @@ def main():
         f"launches (scalar, min, rows); take: {take_launches} launches; "
         f"loop_probe: {loop_launches} launches; segment_sum_sorted (the "
         f"sorted form, off the training path): {sorted_launches} launch; the "
-        f"first forms and the refill forms, off the main path: {first_launches}")
+        f"first forms and the unstaged wide form, off the main path: {first_launches}")
 
     # ---- 7b. the training step, on all four traversals -----------------------
     hit_tile = res_fb.hit_leaf
@@ -1842,14 +1816,11 @@ def main():
     torch.cuda.synchronize()
     flat_counts = dict(esvo_trace=traverse_cuda.launches, **brick_cuda.launches,
                        **PLAIN_CALLS, **shade_cuda.launches,
-                       **brick_cuda.serial_launches, **brick_cuda.refill_launches,
-                       **brick_cuda.probe_launches)
+                       **brick_cuda.form_launches, **brick_cuda.probe_launches)
     want = dict(esvo_trace=0, brick_trace=3, esvo_stackless=0, candidates_plain=0,
                 trace_brick=0, trace_stackless=0, shade_fwd=3, shade_bwd=3,
                 shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
-                esvo_stackless_serial=0, brick_trace_serial=0,
-                esvo_stackless_refill=0, brick_trace_refill=0,
-                brick_trace_unstaged=0,
+                brick_trace_serial=0, brick_trace_unstaged=0,
                 esvo_stackless_probe=0, brick_trace_probe=0)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
@@ -1947,31 +1918,16 @@ def main():
     for route, (fwd, fwdbwd) in route_calls.items():
         t[f"{route}_frame"] = cuda_ms(fwd, 50, 3)
         t[f"{route}_step"] = cuda_ms(fwdbwd, 50, 3)
-    # the per-ray traces in turns, every form of the brick and stackless
-    # traces through its own wrapper, and their plain versions
+    # the per-ray traces in turns, the brick trace in each of its forms
+    # through its own wrapper, and the plain versions
     turns = in_turns({
         "trace_esvo": lambda: traverse_cuda.trace_cuda(svo, o, d),
         "trace_brick": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
         "trace_brick_first": lambda: brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
-        "trace_brick_refill": lambda: brick_cuda._brick_refill_kernel(bsvo, o, d),
         "trace_brick_unstaged": lambda: brick_cuda._brick_unstaged_kernel(bsvo, o, d),
-        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d),
-        "trace_stackless_first": lambda: brick_cuda.trace_stackless_cuda_serial(svo, o, d),
-        "trace_stackless_refill": lambda: brick_cuda._stackless_refill_kernel(svo, o, d)},
+        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)},
         rounds=4)
     t.update({f"{name}_turns": v for name, v in turns.items()})
-    # the refill forms' knobs, each setting in turns with the first form
-    sweep = {"brick first": lambda: brick_cuda.trace_brick_cuda_serial(bsvo, o, d)}
-    for per, drain, burst in [(p_, d_, False) for p_ in (1, 2, 4, 8) for d_ in (1, 2, 8, 32)] + [
-            (2, 2, True), (4, 2, True)]:
-        sweep[f"brick per={per} drain={drain}{' staged' if burst else ''}"] = (
-            lambda a=(per, drain, burst): brick_cuda._brick_refill_kernel(
-                bsvo, o, d, False, *a))
-    sweep["stackless first"] = lambda: brick_cuda.trace_stackless_cuda_serial(svo, o, d)
-    for per in (1, 2, 4, 8):
-        sweep[f"stackless per={per}"] = lambda p_=per: brick_cuda._stackless_refill_kernel(
-            svo, o, d, False, p_)
-    refill_sweep = {k: med_p80(v)[0] for k, v in in_turns(sweep, rounds=2, reps=20).items()}
     t["brick_plain"] = cuda_ms(lambda: brick.trace_brick(bsvo, o, d), 2, 0)
     t["stackless_plain"] = cuda_ms(lambda: traverse.trace_stackless(svo, o, d), 2, 0)
     g_step = 2.0 * img / img.numel()
@@ -2098,22 +2054,16 @@ def main():
             f"{st[0] / f[0]:.2f}")
     say(f"[timing] {card}: the per-ray traces in turns (four rounds of 50, "
         f"median and p80): esvo_trace {m['trace_esvo_turns'][0]:.4f} ms; "
-        + "; ".join(f"{k} through the main path's wrapper ({MAIN_FORM[k]} form) "
-                    f"{m[f'trace_{r}_turns'][0]:.4f} "
-                    f"({m[f'trace_{r}_turns'][1]:.4f}), first form "
-                    f"{m[f'trace_{r}_first_turns'][0]:.4f} "
-                    f"({m[f'trace_{r}_first_turns'][1]:.4f}), refill form "
-                    f"{m[f'trace_{r}_refill_turns'][0]:.4f} "
-                    f"({m[f'trace_{r}_refill_turns'][1]:.4f})"
-                    for k, r in (("brick_trace", "brick"), ("esvo_stackless", "stackless")))
-        + f"; brick_trace's wide form without staged rows (blocks of 256) "
+        f"brick_trace through the main path's wrapper (wide form: blocks of 256, "
+        f"staged rows) {m['trace_brick_turns'][0]:.4f} "
+        f"({m['trace_brick_turns'][1]:.4f}), the wide form without staged rows "
         f"{m['trace_brick_unstaged_turns'][0]:.4f} "
-        f"({m['trace_brick_unstaged_turns'][1]:.4f})"
+        f"({m['trace_brick_unstaged_turns'][1]:.4f}), the first form (blocks of "
+        f"128) {m['trace_brick_first_turns'][0]:.4f} "
+        f"({m['trace_brick_first_turns'][1]:.4f}); esvo_stackless "
+        f"{m['trace_stackless_turns'][0]:.4f} ({m['trace_stackless_turns'][1]:.4f})"
         + f"; their plain versions brick.trace_brick {m['brick_plain'][0]:.1f} ms "
         f"and traverse.trace_stackless {m['stackless_plain'][0]:.1f} ms (n=2)")
-    say(f"[refill] {card}: the refill forms at each setting (rays a thread, the "
-        f"brick trace's drain, staged rows), ms in turns with the first forms (two "
-        f"rounds of 20): " + ", ".join(f"{k} {v:.4f}" for k, v in refill_sweep.items()))
     for wname in WALKS:
         row = walk_rows[wname]
         say(f"[lanes] {card}: walk {wname} (T={row['T']}, P={row['P']}, "
@@ -2262,16 +2212,13 @@ def main():
             traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
     alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
     _, rows, _n = profile_kernels(
-        "brick_trace and esvo_stackless alone, each in its three forms, and "
+        "brick_trace alone in its three forms, and esvo_stackless and "
         "esvo_trace beside them",
         lambda: (brick_cuda.trace_brick_cuda(bsvo, o, d),
                  brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
-                 brick_cuda._brick_refill_kernel(bsvo, o, d),
                  brick_cuda._brick_unstaged_kernel(bsvo, o, d),
                  brick_cuda.trace_stackless_cuda(svo, o, d),
-                 brick_cuda.trace_stackless_cuda_serial(svo, o, d),
-                 brick_cuda._stackless_refill_kernel(svo, o, d),
-                 traverse_cuda.trace_cuda(svo, o, d)), "round", 8, launches=8)
+                 traverse_cuda.trace_cuda(svo, o, d)), "round", 5, launches=5)
     for key, name in FORM_KERNELS.items():
         alone[key] = kernel_us(rows, name)[0]
     for kname, form in MAIN_FORM.items():
@@ -2412,12 +2359,10 @@ def main():
         f"brick_trace {b_top} top steps and {b_dda} DDA steps, bound "
         f"{brick_bound[0]:.5f} ms ({brick_bound[1]}), {us(alone['brick_trace'])} "
         f"us alone (first form {us(alone[('brick_trace', 'first')])}, wide form "
-        f"without staged rows {us(alone[('brick_trace', 'unstaged')])}, refill form "
-        f"{us(alone[('brick_trace', 'refill')])}); esvo_stackless {s_steps} steps, "
+        f"without staged rows {us(alone[('brick_trace', 'unstaged')])}); "
+        f"esvo_stackless {s_steps} steps, "
         f"bound {stackless_bound[0]:.5f} ms ({stackless_bound[1]}), "
-        f"{us(alone['esvo_stackless'])} us alone (first form "
-        f"{us(alone[('esvo_stackless', 'first')])}, refill form "
-        f"{us(alone[('esvo_stackless', 'refill')])}); esvo_trace {esvo_steps} steps, "
+        f"{us(alone['esvo_stackless'])} us alone; esvo_trace {esvo_steps} steps, "
         f"bound {esvo_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
         new_us, first_us, other_us = alone[f"phase1 {cname}"]
@@ -2589,8 +2534,9 @@ def main():
              bound_ms=seg_bound[0], bound_by=seg_bound[1],
              library_ms=m["segment_library"][0]),
     ]
-    # the brick and stackless traces: each form's own line; the main path's
-    # (wide) carries the others' times and every form's warp counters
+    # the brick and stackless traces: the main path's line carries the other
+    # forms' times and every form's warp counters; the brick trace's other
+    # forms have lines of their own
     per_ray = dict(
         brick_trace=dict(replaces="raytracingtest_tpu/ops/brick.py:492",
                          path="diff.render_diff_brick / diff.loss_and_grads_brick / "
@@ -2605,36 +2551,28 @@ def main():
                       replaces=row["replaces"], plain_ms=m[row["plain"]][0],
                       bound_ms=row["bound"][0], bound_by=row["bound"][1],
                       library_ms=None)
-        kernels += [
-            dict(name=kname, **common,
-                 path=row["path"] + f" (the {MAIN_FORM[kname]} form)",
-                 launches=routes[row["route"]]["launches"], max_abs_err=err[kname],
-                 ms=m[f"{row['turns']}_turns"][0], us_alone=alone[kname],
-                 launches_train_step=train_launches[row["route"]][kname],
-                 ms_first_form=m[f"{row['turns']}_first_turns"][0],
-                 us_alone_first_form=alone[(kname, "first")],
-                 ms_refill_form=m[f"{row['turns']}_refill_turns"][0],
-                 us_alone_refill_form=alone[(kname, "refill")],
-                 **(dict(ms_unstaged_form=m["trace_brick_unstaged_turns"][0],
-                         us_alone_unstaged_form=alone[(kname, "unstaged")])
-                    if kname == "brick_trace" else {}),
-                 warps={form: warp_counts[(kname, form)]
-                        for form in brick_cuda.FORMS[kname]}),
-            dict(name=f"{kname}_serial", **common,
-                 path=f"brick_cuda.trace_{'brick' if kname == 'brick_trace' else 'stackless'}"
-                      f"_cuda_serial (the first form, off the main path)",
-                 launches=first_launches[f"{kname}_serial"],
-                 max_abs_err=err[f"{kname}_serial"],
-                 ms=m[f"{row['turns']}_first_turns"][0],
-                 us_alone=alone[(kname, "first")]),
-            dict(name=f"{kname}_refill", **common,
-                 path=f"brick_cuda._{'brick' if kname == 'brick_trace' else 'stackless'}"
-                      f"_refill_kernel (the refill form, off the main path)",
-                 launches=first_launches[f"{kname}_refill"],
-                 max_abs_err=err[f"{kname}_refill"],
-                 ms=m[f"{row['turns']}_refill_turns"][0],
-                 us_alone=alone[(kname, "refill")]),
-        ]
+        kernels.append(dict(
+            name=kname, **common, path=row["path"] + f" (the {MAIN_FORM[kname]} form)",
+            launches=routes[row["route"]]["launches"], max_abs_err=err[kname],
+            ms=m[f"{row['turns']}_turns"][0], us_alone=alone[kname],
+            launches_train_step=train_launches[row["route"]][kname],
+            **({} if kname != "brick_trace" else dict(
+                ms_first_form=m["trace_brick_first_turns"][0],
+                us_alone_first_form=alone[(kname, "first")],
+                ms_unstaged_form=m["trace_brick_unstaged_turns"][0],
+                us_alone_unstaged_form=alone[(kname, "unstaged")])),
+            warps={form: warp_counts[(kname, form)] for form in brick_cuda.FORMS[kname]}))
+        if kname == "brick_trace":
+            kernels += [dict(name=f"brick_trace_{suffix}", **common,
+                             path=f"brick_cuda.{call} ({what}, off the main path)",
+                             launches=first_launches[f"brick_trace_{suffix}"],
+                             max_abs_err=err[f"brick_trace_{suffix}"],
+                             ms=m[f"trace_brick_{form}_turns"][0],
+                             us_alone=alone[(kname, form)])
+                        for suffix, form, call, what in (
+                            ("serial", "first", "trace_brick_cuda_serial", "the first form"),
+                            ("unstaged", "unstaged", "_brick_unstaged_kernel",
+                             "the wide form without staged rows"))]
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]

@@ -21,8 +21,8 @@ Six libraries, each built on first use into
                      phase 1 of the tile trace, each tile's candidate list,
                      and its first form;
   * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
-                     per-ray stackless trace and the per-ray brick trace,
-                     each in three forms and with counters.
+                     per-ray stackless trace and the per-ray brick trace
+                     in its forms, each also with counters.
 
 ``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
 ``brick_trace.cu`` share.
@@ -192,16 +192,12 @@ def _declare_candidates(lib):
 def _declare_brick(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.esvo_stackless.argtypes = [p] * 6 + [i] * 2 + [p] * 7
-    lib.esvo_stackless_refill.argtypes = [p] * 6 + [i] * 3 + [p] * 7
-    lib.esvo_stackless_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
+    lib.esvo_stackless_probe.argtypes = [p] * 6 + [i] * 2 + [p] * 8
     for fn in (lib.brick_trace, lib.brick_trace_serial, lib.brick_trace_unstaged):
         fn.argtypes = [p] * 6 + [i] * 3 + [p] * 7
-    lib.brick_trace_refill.argtypes = [p] * 6 + [i] * 6 + [p] * 7
-    lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 6 + [p] * 8
-    for fn in (lib.esvo_stackless, lib.esvo_stackless_refill,
-               lib.esvo_stackless_probe,
-               lib.brick_trace, lib.brick_trace_serial, lib.brick_trace_refill,
-               lib.brick_trace_unstaged,
+    lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
+    for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
+               lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe):
         fn.restype = i
 

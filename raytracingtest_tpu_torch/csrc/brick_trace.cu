@@ -1,5 +1,5 @@
 // The per-ray stackless traces for Hopper, sm_90a: two kernels that share
-// one stackless step, each in a new form and its first form.
+// one stackless step.
 //
 //   esvo_stackless  replaces raytracingtest_tpu/ops/traverse.py::_trace_core
 //                   (:530, driven by trace_jax :639; its step _fast_step
@@ -38,50 +38,23 @@
 // instruction issue in divergent warps and the chains of a few straggler
 // warps. The probe forms measured it on that frame (chip_smoke.py [warps]):
 // a warp issues a loop for as long as its slowest lane runs it (SIMT
-// efficiency 0.75 in the stackless step, 0.57 in the brick trace's top
+// efficiency 0.75 in the stackless step, 0.56 in the brick trace's top
 // step and 0.35 in its DDA step), and the last fifth of the kernel's span
 // runs its last hundredth of warps, warps of grazing rays that start
-// mid-launch and run for 140-270 us while the rest of the card idles; in
-// such a brick warp the rounds' phase changes cost some 2.8 loop issues for
-// each step of its longest ray.
+// mid-launch and run for 100-400 us while the rest of the card idles.
 //
-// One kernel template a trace holds its forms; they compute the same bits.
-//   * FORM_FIRST (esvo_stackless, brick_trace_serial): the simple kernels,
-//     one thread a ray in blocks of 128, rows read through the read-only
-//     path as the step needs them; brick_trace_serial runs each round as a
-//     top loop, a three-level descent and a DDA loop. It is also the main
-//     path's stackless trace: no other form of it measured faster.
-//   * FORM_WIDE, brick_trace's main-path form (brick_trace): the first
-//     form's rounds in blocks of 256, and a ray that parks reads its brick
-//     row's 17 words as independent loads into its own slice of shared
-//     memory, so that each DDA step reads its word there instead of behind
-//     a dependent load from L2 (4% faster alone on an H100 at 700 W).
-//   * FORM_REFILL (esvo_stackless_refill, brick_trace_refill): the card's
-//     counterparts of the reference's schedules for stragglers, kept with
-//     their numbers because they measured slower:
-//       - Lane refill (COMPACT's counterpart: traverse.py:518-527,
-//         brick.py:475). A block owns a contiguous range of rays,
-//         `per_thread` times its thread count, and hands them out in order
-//         from a counter in shared memory. Each trip of the loop, the lanes
-//         whose ray has ended write its results at the ray's own index and
-//         take the next rays (one atomicAdd a warp). No global counter, so
-//         no extra launch.
-//       - Warp-voted phases, brick_trace only (TOP_DRAIN's counterpart:
-//         brick.py:51-55, 358). Each lane is in a mode, the top walk or a
-//         brick; each trip the warp votes (__ballot_sync) and runs one step
-//         of one mode for the lanes in it: a DDA step once the parked lanes
-//         are at least 1/drain of the lanes with a ray, or no lane walks the
-//         top tree; else a top step. A lane that waits keeps its logical
-//         round: its top steps still count against the round's cap, and
-//         rounds, iters and the five statistics are counted per ray as in
-//         the first form. The descent runs when a ray parks.
-//       - `burst` stages a parked ray's brick row as FORM_WIDE does.
-//     Why they lose: the step's SIMT efficiency did not rise (0.74 against
-//     0.75), because the stragglers are warps full of long rays, not warps
-//     with a few; the refill trips write one ray at a time and set up the
-//     next with a fifth of the lanes (SIMT 0.16), and the vote's DDA trips
-//     run with a third of the lanes or fewer.
-//   * The probe forms (esvo_stackless_probe, brick_trace_probe) are any form
+// The kernels, one thread a ray each; they compute the same bits:
+//   * esvo_stackless: blocks of 128, rows read through the read-only path
+//     as the step needs them.
+//   * brick_trace_serial, the brick trace's first form: the same, each
+//     round a top loop, a three-level descent and a DDA loop.
+//   * brick_trace, its wide form (the main path's): the first form's rounds
+//     in blocks of 256, and a ray that parks reads its brick row's 17 words
+//     as independent loads into its own slice of shared memory, so that
+//     each DDA step reads its word there instead of behind a dependent load.
+//     brick_trace_unstaged is the wide form without the staged row, which
+//     splits the gain between the two changes (chip_smoke.py [timing]).
+//   * The probe forms (esvo_stackless_probe, brick_trace_probe) are a form
 //     with counters: each warp writes PROBE_WORDS int64 words (the layout
 //     at Probe below), the issues of each phase (a step, the descent, a DDA
 //     step, a ray's set-up or write), the lanes active at each issue, the
@@ -91,6 +64,10 @@
 //     may run between the two reads). Their results are the bits of the
 //     form they instrument; their registers are not, so their times are not
 //     the form's.
+// Lane refill (each lane takes the block's next ray when its own ends) and,
+// for the brick trace, warp-voted phases were built, held bitwise and
+// measured slower at every setting; commit f90bb90 holds them and the
+// sweep that measured them.
 //
 // Rounding: built with --fmad=false, so pos*t_coef - t_bias and
 // half*t_coef + t_corner round in two steps, as the plain versions'
@@ -112,10 +89,8 @@ constexpr int ROW_WORDS = 17;        // a brick row: 16 occupancy words + first 
 constexpr int DDA_ROUND_STEPS = 30;  // the reference's DDA loop: 26 rounded up to 6s
 constexpr int N_STATS = 5;           // rounds, DDA steps, capped rounds, DDA max, unfinished
 constexpr int STEP_ON = 0, STEP_LEAF = 1, STEP_EXIT = 2;
-constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_REFILL = 2;
-constexpr int WIDE_BLOCK = 256;  // the wide forms' block
-constexpr int MODE_TOP = 0, MODE_BRICK = 1, MODE_END = 2;
-constexpr int PER_THREAD_MAX = 1024;
+constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2;
+constexpr int WIDE_BLOCK = 256;  // the wide form's block
 
 __device__ __forceinline__ int max_iters_for_depth(int depth) {
   return 24 * depth + 48;
@@ -387,37 +362,14 @@ __device__ __forceinline__ void write_ray(const Out& out, int i, int leaf,
   out.iters[i] = it;
 }
 
-// The block's range of rays for the refill forms, and the warp's hand-out:
-// `want` holds the lanes that take a ray; each gets the block's next offset
-// in lane order. Called by all 32 lanes with the same `want`.
-struct Range {
-  long long first;  // the block's first ray
-  long long end;    // one past its last
-  __device__ __forceinline__ Range(int n, int per_thread) {
-    const long long span = (long long)BLOCK * per_thread;
-    first = (long long)blockIdx.x * span;
-    end = first + span < n ? first + span : (long long)n;
-  }
-};
-
-__device__ __forceinline__ long long hand_out(unsigned* taken, unsigned want,
-                                              bool mine) {
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(want) - 1;
-  unsigned base = 0;
-  if (lane == leader) base = atomicAdd(taken, (unsigned)__popc(want));
-  base = __shfl_sync(FULL, base, leader);
-  return mine ? (long long)base + __popc(want & ((1u << lane) - 1u)) : 0;
-}
-
 // ---- esvo_stackless --------------------------------------------------------
 
-// The first form: one thread a ray, the stackless walk over the full tree,
-// at most max_iters_for_depth(depth) steps.
+// One thread a ray, the stackless walk over the full tree, at most
+// max_iters_for_depth(depth) steps.
 template <bool PROBE>
-__device__ __forceinline__ void stackless_first(const Tree& tree, const Rays& rays,
-                                                const Out& out,
-                                                long long* __restrict__ probe_out) {
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_kernel(Tree tree, Rays rays, Out out,
+                      long long* __restrict__ probe_out) {
   Probe<PROBE> probe;
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -454,92 +406,17 @@ __device__ __forceinline__ void stackless_first(const Tree& tree, const Rays& ra
   probe.finish(probe_out);
 }
 
-// The new form: the same walk with lane refill over the block's range.
-template <bool PROBE>
-__device__ __forceinline__ void stackless_refill(const Tree& tree, const Rays& rays,
-                                                 const Out& out, int per_thread,
-                                                 long long* __restrict__ probe_out) {
-  __shared__ unsigned taken;  // offsets of the block's range handed out
-  if (threadIdx.x == 0) taken = BLOCK;  // each thread's first ray is its own
-  __syncthreads();
-  Probe<PROBE> probe;
-  probe.begin();
-  const Range range(rays.n, per_thread);
-  const int n_max = max_iters_for_depth(tree.depth);
-
-  Ray r;
-  Walk w;
-  int i = 0, hp = -1, hc = 0, leaf = -1, it = 0;
-  float ht = 0.0f;
-  bool done = true;
-  bool has = range.first + threadIdx.x < range.end;
-  auto start = [&](long long ray) {
-    i = (int)ray;
-    done = setup(rays.origin, rays.direction, i, r, w);
-    hp = -1, hc = 0, leaf = -1, it = 0;
-    ht = 0.0f;
-  };
-  if (has) {
-    const long long t = probe.enter(PH_RAY);
-    start(range.first + threadIdx.x);
-    probe.leave(PH_RAY, t);
-  }
-  while (true) {
-    // lanes whose ray has ended write it and take the block's next
-    const bool ended = has && (done || it >= n_max);
-    const unsigned want = __ballot_sync(FULL, ended);
-    if (want) {
-      const long long off = hand_out(&taken, want, ended);
-      if (ended) {
-        const long long t = probe.enter(PH_RAY);
-        write_ray(out, i, leaf, ht, hp, hc, it);
-        write_stats(out.stats, i, 0, 0, 0, 0, !done);
-        probe.ray();
-        has = range.first + off < range.end;
-        if (has) start(range.first + off);
-        probe.leave(PH_RAY, t);
-      }
-    }
-    if (!__any_sync(FULL, has)) break;
-    if (has && !done && it < n_max) {
-      const long long t = probe.enter(PH_STEP);
-      ++it;
-      int child_shift, leaf_rank;
-      const int what = stackless_step(r, w, tree.masks, tree.child,
-                                      tree.parent_ptr, child_shift, leaf_rank);
-      if (what == STEP_LEAF) {
-        hp = w.parent;
-        hc = child_shift;
-        ht = w.t_min;
-        leaf = __ldg(tree.leaf_base + hp) + leaf_rank;
-      }
-      done = what != STEP_ON;
-      probe.leave(PH_STEP, t);
-    }
-  }
-  probe.finish(probe_out);
-}
-
-template <int FORM, bool PROBE>
-__global__ void __launch_bounds__(BLOCK)
-esvo_stackless_kernel(Tree tree, Rays rays, Out out, int per_thread,
-                      long long* __restrict__ probe_out) {
-  if constexpr (FORM == FORM_REFILL) {
-    stackless_refill<PROBE>(tree, rays, out, per_thread, probe_out);
-  } else {
-    stackless_first<PROBE>(tree, rays, out, probe_out);
-  }
-}
-
 // ---- brick_trace -----------------------------------------------------------
 
-// The first form: one thread a ray, rounds of a stackless walk over the top
-// tree until the ray parks at a brick, then the brick's DDA; a DDA that
-// leaves the brick sets `popped`, so the next round's walk steps past it.
+// One thread a ray, rounds of a stackless walk over the top tree until the
+// ray parks at a brick, then the brick's DDA; a DDA that leaves the brick
+// sets `popped`, so the next round's walk steps past it. STAGE: the parked
+// ray's brick row is read into its slice of shared memory first; B: the
+// block's threads.
 template <bool STAGE, bool PROBE, int B>
-__device__ __forceinline__ void brick_first(const Tree& tree, const Rays& rays,
-                                            const Out& out,
-                                            long long* __restrict__ probe_out) {
+__global__ void __launch_bounds__(B)
+brick_trace_kernel(Tree tree, Rays rays, Out out,
+                   long long* __restrict__ probe_out) {
   __shared__ int staged[STAGE ? B * ROW_WORDS : 1];
   int* const my_row = staged + (STAGE ? threadIdx.x * ROW_WORDS : 0);
   Probe<PROBE> probe;
@@ -636,177 +513,6 @@ __device__ __forceinline__ void brick_first(const Tree& tree, const Rays& rays,
   probe.finish(probe_out);
 }
 
-// The new form: lane refill over the block's range, and warp-voted phases
-// (see the header). Each lane runs the first form's sequence of steps for
-// its ray, one step a trip when the vote gives its mode the trip.
-template <bool BURST, bool PROBE>
-__device__ __forceinline__ void brick_voted(const Tree& tree, const Rays& rays,
-                                            const Out& out, int per_thread,
-                                            int drain,
-                                            long long* __restrict__ probe_out) {
-  __shared__ unsigned taken;
-  __shared__ int staged[BURST ? BLOCK * ROW_WORDS : 1];
-  if (threadIdx.x == 0) taken = BLOCK;
-  __syncthreads();
-  Probe<PROBE> probe;
-  probe.begin();
-  const Range range(rays.n, per_thread);
-  const int depth = tree.depth, top_depth = tree.top_depth;
-  const int n_top = max_iters_for_depth(top_depth);
-  const int n_rounds = 16 * depth + 64;
-  const int vshift = S_MAX - depth;
-  const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
-  const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
-  int* const my_row = staged + (BURST ? threadIdx.x * ROW_WORDS : 0);
-
-  Ray r;
-  Walk w;
-  int flip[3];
-  int i = 0, hp = -1, hc = 0, leaf = -1, it = 0;
-  float ht = 0.0f;
-  int rounds = 0, dda = 0, capped = 0, dda_max = 0;
-  int mode = MODE_END, top_count = 0, steps = 0, park_child = 0;
-  bool done = true;
-  const int* row = tree.bricks;
-  float bpos[3] = {0.0f, 0.0f, 0.0f};
-  float t_cur = 0.0f;
-
-  // a new round, unless the ray has had its rounds
-  auto begin_round = [&]() {
-    if (rounds >= n_rounds) {
-      mode = MODE_END;
-      return;
-    }
-    ++rounds;
-    top_count = 0;
-    mode = MODE_TOP;
-  };
-  auto start = [&](long long ray) {
-    i = (int)ray;
-    done = setup(rays.origin, rays.direction, i, r, w);
-    for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
-    hp = -1, hc = 0, leaf = -1, it = 0;
-    ht = 0.0f;
-    rounds = dda = capped = dda_max = 0;
-    if (done) {
-      mode = MODE_END;
-    } else {
-      begin_round();
-    }
-  };
-  auto word = [&](int k) -> int {
-    if constexpr (BURST) {
-      return my_row[k];
-    } else {
-      return __ldg(row + k);
-    }
-  };
-
-  bool has = range.first + threadIdx.x < range.end;
-  if (has) {
-    const long long t = probe.enter(PH_RAY);
-    start(range.first + threadIdx.x);
-    probe.leave(PH_RAY, t);
-  }
-  while (true) {
-    const bool ended = has && mode == MODE_END;
-    const unsigned want = __ballot_sync(FULL, ended);
-    if (want) {
-      const long long off = hand_out(&taken, want, ended);
-      if (ended) {
-        const long long t = probe.enter(PH_RAY);
-        write_ray(out, i, leaf, ht, hp, hc, it);
-        write_stats(out.stats, i, rounds, dda, capped, dda_max, !done);
-        probe.ray();
-        has = range.first + off < range.end;
-        if (has) start(range.first + off);
-        probe.leave(PH_RAY, t);
-      }
-    }
-    if (!__any_sync(FULL, has)) break;
-    const unsigned parked = __ballot_sync(FULL, has && mode == MODE_BRICK);
-    const unsigned walking = __ballot_sync(FULL, has && mode == MODE_TOP);
-    const bool dda_trip =
-        parked != 0 &&
-        (walking == 0 || __popc(parked) * drain >= __popc(parked | walking));
-    if (dda_trip) {
-      if (has && mode == MODE_BRICK) {
-        const long long t = probe.enter(PH_DDA);
-        ++steps;
-        int idx9;
-        const int step = rtt_dda::dda_step(
-            bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
-            [&word](int k) { return (uint32_t)word(k); }, idx9);
-        if (step == rtt_dda::DDA_HIT) {
-          leaf = rtt_dda::leaf_of(word, idx9);
-          hp = w.parent;
-          hc = park_child;
-          ht = t_cur;
-          done = true;
-        }
-        if (step == rtt_dda::DDA_EXIT) w.popped = true;
-        if (step != rtt_dda::DDA_STAY || steps == DDA_ROUND_STEPS) {
-          w.t_min = t_cur;
-          it += steps;
-          dda += steps;
-          dda_max = max(dda_max, steps);
-          if (done) {
-            mode = MODE_END;
-          } else {
-            begin_round();
-          }
-        }
-        probe.leave(PH_DDA, t);
-      }
-    } else if (has && mode == MODE_TOP) {
-      long long t = probe.enter(PH_STEP);
-      ++it;
-      ++top_count;
-      int child_shift, leaf_rank;
-      const int what = stackless_step(r, w, tree.masks, tree.child,
-                                      tree.parent_ptr, child_shift, leaf_rank);
-      probe.leave(PH_STEP, t);
-      if (what == STEP_EXIT) {
-        done = true;
-        mode = MODE_END;
-      } else if (what == STEP_LEAF) {
-        // park at brick top_child[parent] + leaf_rank and descend to the
-        // entry voxel
-        t = probe.enter(PH_DESCENT);
-        row = tree.bricks +
-              (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
-        if constexpr (BURST) {
-          int v[ROW_WORDS];
-          for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
-          for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
-        }
-        for (int c = 0; c < 3; ++c) bpos[c] = w.pos[c];
-        t_cur = w.t_min;
-        rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
-        steps = 0;
-        park_child = child_shift;
-        mode = MODE_BRICK;
-        probe.leave(PH_DESCENT, t);
-      } else if (top_count == n_top) {  // the round's step cap
-        ++capped;
-        begin_round();
-      }
-    }
-  }
-  probe.finish(probe_out);
-}
-
-template <int FORM, bool BURST, bool PROBE, int B>
-__global__ void __launch_bounds__(B)
-brick_trace_kernel(Tree tree, Rays rays, Out out, int per_thread, int drain,
-                   long long* __restrict__ probe_out) {
-  if constexpr (FORM == FORM_REFILL) {
-    brick_voted<BURST, PROBE>(tree, rays, out, per_thread, drain, probe_out);
-  } else {
-    brick_first<BURST, PROBE, B>(tree, rays, out, probe_out);
-  }
-}
-
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
 
 Out outputs(void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
@@ -815,24 +521,12 @@ Out outputs(void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
              (int*)hit_child, (int*)iters, (int*)stats};
 }
 
-template <int FORM, typename... Args>
-void stackless_launch(int blocks, long long* p, cudaStream_t s, Args... args) {
-  if (p) {
-    esvo_stackless_kernel<FORM, true><<<blocks, BLOCK, 0, s>>>(args..., p);
-  } else {
-    esvo_stackless_kernel<FORM, false><<<blocks, BLOCK, 0, s>>>(args..., p);
-  }
-}
-
-// One launch of esvo_stackless in `form` (probe: with the counters).
-int launch_stackless(int form, const void* masks, const void* child_base,
+// One launch of esvo_stackless (probe: with the counters).
+int launch_stackless(const void* masks, const void* child_base,
                      const void* parent_ptr, const void* leaf_base,
                      const void* origin, const void* direction, int n,
-                     int depth, int per_thread, const Out& out, void* probe,
-                     void* stream) {
-  if (n < 0 || depth < 1 || depth > S_MAX - 1 || per_thread < 1 ||
-      per_thread > PER_THREAD_MAX || (form != FORM_FIRST && form != FORM_REFILL))
-    return (int)cudaErrorInvalidValue;
+                     int depth, const Out& out, void* probe, void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX - 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree tree{(const int*)masks, (const int*)child_base,
                     (const int*)parent_ptr, (const int*)leaf_base, nullptr,
@@ -840,41 +534,35 @@ int launch_stackless(int form, const void* masks, const void* child_base,
     const Rays rays{(const float*)origin, (const float*)direction, n};
     const cudaStream_t s = (cudaStream_t)stream;
     long long* p = (long long*)probe;
-    if (form == FORM_FIRST) {
-      stackless_launch<FORM_FIRST>(blocks_for(n, BLOCK), p, s, tree, rays,
-                                   out, 1);
+    if (p) {
+      esvo_stackless_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
     } else {
-      stackless_launch<FORM_REFILL>(blocks_for(n, BLOCK * per_thread), p, s,
-                                    tree, rays, out, per_thread);
+      esvo_stackless_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
     }
   }
   return (int)cudaGetLastError();
 }
 
-template <int FORM, bool BURST, int B>
-void brick_launch(int blocks, const Tree& tree, const Rays& rays,
-                  const Out& out, int per_thread, int drain, long long* p,
-                  cudaStream_t s) {
+template <bool STAGE, int B>
+void brick_launch(const Tree& tree, const Rays& rays, const Out& out,
+                  long long* p, cudaStream_t s) {
+  const int blocks = blocks_for(rays.n, B);
   if (p) {
-    brick_trace_kernel<FORM, BURST, true, B><<<blocks, B, 0, s>>>(
-        tree, rays, out, per_thread, drain, p);
+    brick_trace_kernel<STAGE, true, B><<<blocks, B, 0, s>>>(tree, rays, out, p);
   } else {
-    brick_trace_kernel<FORM, BURST, false, B><<<blocks, B, 0, s>>>(
-        tree, rays, out, per_thread, drain, p);
+    brick_trace_kernel<STAGE, false, B><<<blocks, B, 0, s>>>(tree, rays, out, p);
   }
 }
 
-// One launch of brick_trace in `form` (burst: whether the refill form
-// stages a parked ray's brick row, as the wide form always does; probe:
-// with the counters).
+// One launch of brick_trace in `form` (probe: with the counters).
 int launch_brick(int form, const void* top_masks, const void* top_child,
                  const void* top_parent, const void* bricks,
                  const void* origin, const void* direction, int n, int depth,
-                 int top_depth, int per_thread, int drain, int burst,
-                 const Out& out, void* probe, void* stream) {
+                 int top_depth, const Out& out, void* probe, void* stream) {
   if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
-      per_thread < 1 || per_thread > PER_THREAD_MAX || drain < 1 ||
-      drain > 32 || form < FORM_FIRST || form > FORM_REFILL)
+      form < FORM_FIRST || form > FORM_UNSTAGED)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree tree{(const int*)top_masks, (const int*)top_child,
@@ -884,26 +572,11 @@ int launch_brick(int form, const void* top_masks, const void* top_child,
     const cudaStream_t s = (cudaStream_t)stream;
     long long* p = (long long*)probe;
     if (form == FORM_FIRST) {
-      brick_launch<FORM_FIRST, false, BLOCK>(blocks_for(n, BLOCK), tree, rays,
-                                             out, 1, 1, p, s);
+      brick_launch<false, BLOCK>(tree, rays, out, p, s);
     } else if (form == FORM_WIDE) {
-      const int blocks = blocks_for(n, WIDE_BLOCK);
-      if (burst) {
-        brick_launch<FORM_WIDE, true, WIDE_BLOCK>(blocks, tree, rays, out, 1, 1,
-                                                  p, s);
-      } else {
-        brick_launch<FORM_WIDE, false, WIDE_BLOCK>(blocks, tree, rays, out, 1,
-                                                   1, p, s);
-      }
+      brick_launch<true, WIDE_BLOCK>(tree, rays, out, p, s);
     } else {
-      const int blocks = blocks_for(n, BLOCK * per_thread);
-      if (burst) {
-        brick_launch<FORM_REFILL, true, BLOCK>(blocks, tree, rays, out,
-                                               per_thread, drain, p, s);
-      } else {
-        brick_launch<FORM_REFILL, false, BLOCK>(blocks, tree, rays, out,
-                                                per_thread, drain, p, s);
-      }
+      brick_launch<false, WIDE_BLOCK>(tree, rays, out, p, s);
     }
   }
   return (int)cudaGetLastError();
@@ -911,55 +584,36 @@ int launch_brick(int form, const void* top_masks, const void* top_child,
 
 }  // namespace
 
-// The first form, which is also the main path's (no other form measured
-// faster).
 extern "C" int esvo_stackless(const void* masks, const void* child_base,
                               const void* parent_ptr, const void* leaf_base,
                               const void* origin, const void* direction, int n,
                               int depth, void* hit_leaf, void* hit_t,
                               void* hit_parent, void* hit_child, void* iters,
                               void* stats, void* stream) {
-  return launch_stackless(FORM_FIRST, masks, child_base, parent_ptr, leaf_base,
-                          origin, direction, n, depth, 1,
+  return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
+                          direction, n, depth,
                           outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                           nullptr, stream);
 }
 
-// The refill form (`per_thread` rays a thread, a block's range).
-extern "C" int esvo_stackless_refill(const void* masks, const void* child_base,
-                                     const void* parent_ptr,
-                                     const void* leaf_base, const void* origin,
-                                     const void* direction, int n, int depth,
-                                     int per_thread, void* hit_leaf,
-                                     void* hit_t, void* hit_parent,
-                                     void* hit_child, void* iters, void* stats,
-                                     void* stream) {
-  return launch_stackless(FORM_REFILL, masks, child_base, parent_ptr, leaf_base,
-                          origin, direction, n, depth, per_thread,
-                          outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
-                          nullptr, stream);
-}
-
-// A form (FORM_FIRST or FORM_REFILL) with the counters: `probe` holds
-// PROBE_WORDS int64 words for each warp of the launch.
-extern "C" int esvo_stackless_probe(int form, const void* masks,
-                                    const void* child_base,
+// With the counters: `probe` holds PROBE_WORDS int64 words for each warp of
+// the launch.
+extern "C" int esvo_stackless_probe(const void* masks, const void* child_base,
                                     const void* parent_ptr,
                                     const void* leaf_base, const void* origin,
                                     const void* direction, int n, int depth,
-                                    int per_thread, void* hit_leaf, void* hit_t,
+                                    void* hit_leaf, void* hit_t,
                                     void* hit_parent, void* hit_child,
                                     void* iters, void* stats, void* probe,
                                     void* stream) {
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_stackless(form, masks, child_base, parent_ptr, leaf_base,
-                          origin, direction, n, depth, per_thread,
+  return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
+                          direction, n, depth,
                           outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                           probe, stream);
 }
 
-// The wide form, the main path's (rounds as the first form's, 256-thread
-// blocks, a parked ray's brick row staged in shared memory).
+// The wide form, the main path's.
 extern "C" int brick_trace(const void* top_masks, const void* top_child,
                            const void* top_parent, const void* bricks,
                            const void* origin, const void* direction, int n,
@@ -967,26 +621,12 @@ extern "C" int brick_trace(const void* top_masks, const void* top_child,
                            void* hit_t, void* hit_parent, void* hit_child,
                            void* iters, void* stats, void* stream) {
   return launch_brick(FORM_WIDE, top_masks, top_child, top_parent, bricks,
-                      origin, direction, n, depth, top_depth, 1, 1, 1,
+                      origin, direction, n, depth, top_depth,
                       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       nullptr, stream);
 }
 
-// The wide form without the staged row (256-thread blocks only).
-extern "C" int brick_trace_unstaged(const void* top_masks, const void* top_child,
-                                    const void* top_parent, const void* bricks,
-                                    const void* origin, const void* direction,
-                                    int n, int depth, int top_depth,
-                                    void* hit_leaf, void* hit_t, void* hit_parent,
-                                    void* hit_child, void* iters, void* stats,
-                                    void* stream) {
-  return launch_brick(FORM_WIDE, top_masks, top_child, top_parent, bricks,
-                      origin, direction, n, depth, top_depth, 1, 1, 0,
-                      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
-                      nullptr, stream);
-}
-
-// The first form (one thread a ray, 128-thread blocks, nested loops).
+// The first form.
 extern "C" int brick_trace_serial(const void* top_masks, const void* top_child,
                                   const void* top_parent, const void* bricks,
                                   const void* origin, const void* direction,
@@ -995,23 +635,22 @@ extern "C" int brick_trace_serial(const void* top_masks, const void* top_child,
                                   void* hit_child, void* iters, void* stats,
                                   void* stream) {
   return launch_brick(FORM_FIRST, top_masks, top_child, top_parent, bricks,
-                      origin, direction, n, depth, top_depth, 1, 1, 0,
+                      origin, direction, n, depth, top_depth,
                       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       nullptr, stream);
 }
 
-// The refill form (lane refill and warp-voted phases).
-extern "C" int brick_trace_refill(const void* top_masks, const void* top_child,
-                                  const void* top_parent, const void* bricks,
-                                  const void* origin, const void* direction,
-                                  int n, int depth, int top_depth,
-                                  int per_thread, int drain, int burst,
-                                  void* hit_leaf, void* hit_t, void* hit_parent,
-                                  void* hit_child, void* iters, void* stats,
-                                  void* stream) {
-  return launch_brick(FORM_REFILL, top_masks, top_child, top_parent, bricks,
-                      origin, direction, n, depth, top_depth, per_thread, drain,
-                      burst, outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+// The wide form without the staged row.
+extern "C" int brick_trace_unstaged(const void* top_masks, const void* top_child,
+                                    const void* top_parent, const void* bricks,
+                                    const void* origin, const void* direction,
+                                    int n, int depth, int top_depth,
+                                    void* hit_leaf, void* hit_t, void* hit_parent,
+                                    void* hit_child, void* iters, void* stats,
+                                    void* stream) {
+  return launch_brick(FORM_UNSTAGED, top_masks, top_child, top_parent, bricks, origin,
+                      direction, n, depth, top_depth,
+                      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       nullptr, stream);
 }
 
@@ -1020,13 +659,12 @@ extern "C" int brick_trace_probe(int form, const void* top_masks,
                                  const void* top_child, const void* top_parent,
                                  const void* bricks, const void* origin,
                                  const void* direction, int n, int depth,
-                                 int top_depth, int per_thread, int drain,
-                                 int burst, void* hit_leaf, void* hit_t,
+                                 int top_depth, void* hit_leaf, void* hit_t,
                                  void* hit_parent, void* hit_child, void* iters,
                                  void* stats, void* probe, void* stream) {
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
   return launch_brick(form, top_masks, top_child, top_parent, bricks, origin,
-                      direction, n, depth, top_depth, per_thread, drain, burst,
+                      direction, n, depth, top_depth,
                       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       probe, stream);
 }

@@ -10,22 +10,18 @@ and ``brick.trace_brick``, which give the same bits. Nothing else picks the
 path: a build or launch failure raises.
 
 The kernels' forms give the same results (FORMS; the source's header says
-what each does and what it measured):
+what each does, and PERF.md what it measured):
 
-  * ``first``, the first form, one thread a ray in blocks of 128:
-    ``trace_brick_cuda_serial`` and ``trace_stackless_cuda_serial``, the
-    check and the yardstick. It is also the main path's stackless trace,
-    ``trace_stackless_cuda``: no other form of it measured faster.
-  * ``wide``, the brick trace's only: the first form's rounds in blocks of
-    256 with a parked ray's brick row staged in shared memory, the main
-    path's brick trace, ``trace_brick_cuda``.
-  * ``refill``: lane refill from a block's range of rays
-    (``rays_per_thread``), and for the brick trace warp-voted phases
-    (``DRAIN``) and optionally staged brick rows; measured slower, kept as
-    the record of that design (``_stackless_refill_kernel``,
-    ``_brick_refill_kernel``).
+  * ``esvo_stackless`` has one form, one thread a ray in blocks of 128:
+    ``trace_stackless_cuda``.
+  * ``brick_trace``'s ``wide`` form, the main path's (``trace_brick_cuda``):
+    one thread a ray in blocks of 256, a parked ray's brick row staged in
+    shared memory. Its ``first`` form, blocks of 128 and rows read as the
+    DDA needs them, is ``trace_brick_cuda_serial``, the check and the
+    yardstick; ``_brick_unstaged_kernel`` is the wide form without the
+    staged row, which splits the wide form's gain between its two changes.
 
-``probe_stackless_cuda`` and ``probe_brick_cuda`` launch any form with
+``probe_stackless_cuda`` and ``probe_brick_cuda`` launch a form with
 per-warp counters (``PROBE_FIELDS``), for measurement only.
 
 All take any ray count and return a ``TraceResult``; with
@@ -47,33 +43,25 @@ from raytracingtest_tpu_torch.ops.traverse import STAT_NAMES, S_MAX, TraceResult
 _F32, _I32 = torch.float32, torch.int32
 
 # kernel launches made by this process (plain counts, for checks of the
-# path a run took), by form
+# path a run took): the main path's, the brick trace's other forms', the
+# probe forms'
 launches = {"esvo_stackless": 0, "brick_trace": 0}
-serial_launches = {"esvo_stackless_serial": 0, "brick_trace_serial": 0,
-                   "brick_trace_unstaged": 0}
-refill_launches = {"esvo_stackless_refill": 0, "brick_trace_refill": 0}
+form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
-_ESVO_STACKLESS_REFILL = Kernel("esvo_stackless_refill", brick_lib)
 _ESVO_STACKLESS_PROBE = Kernel("esvo_stackless_probe", brick_lib)
 _BRICK_TRACE = Kernel("brick_trace", brick_lib)
 _BRICK_TRACE_SERIAL = Kernel("brick_trace_serial", brick_lib)
 _BRICK_TRACE_UNSTAGED = Kernel("brick_trace_unstaged", brick_lib)
-_BRICK_TRACE_REFILL = Kernel("brick_trace_refill", brick_lib)
 _BRICK_TRACE_PROBE = Kernel("brick_trace_probe", brick_lib)
 
-# each kernel's forms, their numbers in the kernel, and the threads of
-# their blocks
-FORMS = {"brick_trace": ("first", "wide", "refill"),
-         "esvo_stackless": ("first", "refill")}
-FORM_CODES = {"first": 0, "wide": 1, "refill": 2}
-BLOCKS = {"first": 128, "wide": 256, "refill": 128}
-# the refill form: rays a thread (a block's range is 128 * this many rays)
-REFILL_MAX = 8
-# brick_trace's refill form: a DDA trip once the parked lanes are at least
-# 1/DRAIN of the lanes with a ray (or no lane walks the top tree)
-DRAIN = 2
+# each kernel's forms, the brick trace's form numbers in the kernel, and
+# the threads of each form's blocks
+FORMS = {"brick_trace": ("first", "wide", "unstaged"),
+         "esvo_stackless": ("first",)}
+FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2}
+BLOCKS = {"first": 128, "wide": 256, "unstaged": 256}
 
 # a warp's record in the probe forms: int64 words, in this order (the
 # four phases' issues, lanes active summed over the issues, and cycles)
@@ -84,27 +72,13 @@ PROBE_FIELDS = (("start", "end", "rays")
                 + ("sm", "ns_start", "ns_end"))
 
 
-def rays_per_thread(n: int, slots: int) -> int:
-    """Rays each thread of the refill form takes in turn, for `n` rays on a
-    card with `slots` resident thread slots: the largest power of two up to
-    REFILL_MAX for which the launch's n / per_thread threads still fill the
-    slots, else 1. More rays a thread shorten a warp's wait for its slowest
-    lane; fewer threads than the slots would leave SMs idle."""
-    if n < 0 or slots < 1:
-        raise ValueError(f"ray count {n}, slots {slots}")
-    per = 1
-    while per < REFILL_MAX and n >= 2 * per * slots:
-        per *= 2
-    return per
-
-
-def warps_of(n: int, form: str, per_thread: int = 1) -> int:
-    """Warps of a launch of `form` over `n` rays (the refill form at
-    `per_thread` rays a thread): the rows of a probe form's record."""
-    if n < 0 or per_thread < 1 or form not in BLOCKS:
-        raise ValueError(f"ray count {n}, form {form!r}, {per_thread} rays a thread")
-    span = BLOCKS[form] * (per_thread if form == "refill" else 1)
-    return (n + span - 1) // span * (BLOCKS[form] // 32)
+def warps_of(n: int, form: str) -> int:
+    """Warps of a launch of `form` over `n` rays: the rows of a probe
+    form's record."""
+    if n < 0 or form not in BLOCKS:
+        raise ValueError(f"ray count {n}, form {form!r}")
+    span = BLOCKS[form]
+    return (n + span - 1) // span * (span // 32)
 
 
 def _table(name, t):
@@ -134,15 +108,6 @@ def _results(out, stats):
             None if stats is None else stats.data_ptr())
 
 
-def _per_thread(n, device, per_thread):
-    if per_thread is None:
-        from raytracingtest_tpu_torch.ops.tile_cuda import thread_slots
-        per_thread = rays_per_thread(n, thread_slots(device))
-    if not 1 <= per_thread <= 1024:
-        raise ValueError(f"{per_thread} rays a thread: the kernel takes 1 to 1024")
-    return per_thread
-
-
 def _form(kernel, form):
     if form not in FORMS[kernel]:
         raise ValueError(f"form {form!r}: {kernel} has {FORMS[kernel]}")
@@ -167,34 +132,11 @@ def _stackless_args(kernel, svo, origin, direction, with_stats):
 
 
 def _stackless_kernel(svo, origin, direction, with_stats=False):
-    """Launch ``esvo_stackless`` (the main path's: the first form's kernel)
-    on (N, 3) float32 CUDA rays."""
+    """Launch ``esvo_stackless`` on (N, 3) float32 CUDA rays."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS, svo, origin,
                                             direction, with_stats)
     _ESVO_STACKLESS(origin.device, *tables, n, svo.depth, *_results(out, stats))
     launches["esvo_stackless"] += 1
-    return TraceResult(*out), stats
-
-
-def _stackless_serial_kernel(svo, origin, direction, with_stats=False):
-    """Launch the first form on CUDA rays: the main path's kernel, counted
-    apart as the first form's launch."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS, svo, origin,
-                                            direction, with_stats)
-    _ESVO_STACKLESS(origin.device, *tables, n, svo.depth, *_results(out, stats))
-    serial_launches["esvo_stackless_serial"] += 1
-    return TraceResult(*out), stats
-
-
-def _stackless_refill_kernel(svo, origin, direction, with_stats=False,
-                             per_thread=None):
-    """Launch ``esvo_stackless_refill`` (the refill form) on CUDA rays."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_REFILL, svo, origin,
-                                            direction, with_stats)
-    per = _per_thread(n, origin.device, per_thread)
-    _ESVO_STACKLESS_REFILL(origin.device, *tables, n, svo.depth, per,
-                           *_results(out, stats))
-    refill_launches["esvo_stackless_refill"] += 1
     return TraceResult(*out), stats
 
 
@@ -217,12 +159,6 @@ def _brick_args(kernel, bsvo, origin, direction, with_stats):
     return n, tables, out, stats
 
 
-def _vote(drain, burst):
-    if not 1 <= drain <= 32:
-        raise ValueError(f"drain {drain}: the kernel takes 1 to 32")
-    return drain, int(bool(burst))
-
-
 def _brick_kernel(bsvo, origin, direction, with_stats=False):
     """Launch ``brick_trace`` (the wide form) on (N, 3) float32 CUDA rays."""
     n, tables, out, stats = _brick_args(_BRICK_TRACE, bsvo, origin, direction,
@@ -239,65 +175,48 @@ def _brick_serial_kernel(bsvo, origin, direction, with_stats=False):
                                         direction, with_stats)
     _BRICK_TRACE_SERIAL(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
                         *_results(out, stats))
-    serial_launches["brick_trace_serial"] += 1
+    form_launches["brick_trace_serial"] += 1
     return TraceResult(*out), stats
 
 
 def _brick_unstaged_kernel(bsvo, origin, direction, with_stats=False):
     """Launch ``brick_trace_unstaged`` (the wide form without its staged
-    rows) on CUDA rays."""
+    row) on CUDA rays."""
     n, tables, out, stats = _brick_args(_BRICK_TRACE_UNSTAGED, bsvo, origin,
                                         direction, with_stats)
     _BRICK_TRACE_UNSTAGED(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
                           *_results(out, stats))
-    serial_launches["brick_trace_unstaged"] += 1
+    form_launches["brick_trace_unstaged"] += 1
     return TraceResult(*out), stats
 
 
-def _brick_refill_kernel(bsvo, origin, direction, with_stats=False,
-                         per_thread=None, drain=DRAIN, burst=False):
-    """Launch ``brick_trace_refill`` (the refill form) on CUDA rays."""
-    n, tables, out, stats = _brick_args(_BRICK_TRACE_REFILL, bsvo, origin,
-                                        direction, with_stats)
-    per = _per_thread(n, origin.device, per_thread)
-    _BRICK_TRACE_REFILL(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
-                        per, *_vote(drain, burst), *_results(out, stats))
-    refill_launches["brick_trace_refill"] += 1
-    return TraceResult(*out), stats
-
-
-def _probe_record(n, form, per, device):
-    return torch.zeros((warps_of(n, form, per), len(PROBE_FIELDS)),
+def _probe_record(n, form, device):
+    return torch.zeros((warps_of(n, form), len(PROBE_FIELDS)),
                        dtype=torch.int64, device=device)
 
 
-def probe_stackless_cuda(svo, origin, direction, form, per_thread=None):
-    """``esvo_stackless`` in `form` (one of its FORMS) with per-warp
-    counters, on CUDA rays. Returns (TraceResult, stats, record): record is
-    (warps, len(PROBE_FIELDS)) int64."""
-    code = _form("esvo_stackless", form)
+def probe_stackless_cuda(svo, origin, direction):
+    """``esvo_stackless`` with per-warp counters, on CUDA rays. Returns
+    (TraceResult, stats, record): record is (warps, len(PROBE_FIELDS))
+    int64."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_PROBE, svo, origin,
                                             direction, True)
-    per = _per_thread(n, origin.device, per_thread) if form == "refill" else 1
-    record = _probe_record(n, form, per, origin.device)
-    _ESVO_STACKLESS_PROBE(origin.device, code, *tables, n, svo.depth, per,
+    record = _probe_record(n, "first", origin.device)
+    _ESVO_STACKLESS_PROBE(origin.device, *tables, n, svo.depth,
                           *_results(out, stats), record.data_ptr())
     probe_launches["esvo_stackless_probe"] += 1
     return TraceResult(*out), stats, record
 
 
-def probe_brick_cuda(bsvo, origin, direction, form, per_thread=None,
-                     drain=DRAIN, burst=False):
-    """``brick_trace`` in `form` with per-warp counters, on CUDA rays.
-    Returns (TraceResult, stats, record)."""
+def probe_brick_cuda(bsvo, origin, direction, form):
+    """``brick_trace`` in `form` (one of its FORMS) with per-warp counters,
+    on CUDA rays. Returns (TraceResult, stats, record)."""
     code = _form("brick_trace", form)
     n, tables, out, stats = _brick_args(_BRICK_TRACE_PROBE, bsvo, origin,
                                         direction, True)
-    per = _per_thread(n, origin.device, per_thread) if form == "refill" else 1
-    record = _probe_record(n, form, per, origin.device)
+    record = _probe_record(n, form, origin.device)
     _BRICK_TRACE_PROBE(origin.device, code, *tables, n, bsvo.depth,
-                       bsvo.top_depth, per, *_vote(drain, burst),
-                       *_results(out, stats), record.data_ptr())
+                       bsvo.top_depth, *_results(out, stats), record.data_ptr())
     probe_launches["brick_trace_probe"] += 1
     return TraceResult(*out), stats, record
 
@@ -309,15 +228,6 @@ def trace_stackless_cuda(svo, origin, direction, with_stats=False):
     if origin.device.type == "cpu":
         return traverse.trace_stackless(svo, origin, direction, with_stats)
     res, stats = _stackless_kernel(svo, origin, direction, with_stats)
-    return (res, stats) if with_stats else res
-
-
-def trace_stackless_cuda_serial(svo, origin, direction, with_stats=False):
-    """``trace_stackless_cuda`` through the first form of the kernel: the
-    same results."""
-    if origin.device.type == "cpu":
-        return traverse.trace_stackless(svo, origin, direction, with_stats)
-    res, stats = _stackless_serial_kernel(svo, origin, direction, with_stats)
     return (res, stats) if with_stats else res
 
 

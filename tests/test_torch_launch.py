@@ -4,9 +4,10 @@ its checks, that they come before the library is asked for, and what a call
 does with the stream, the device and the error code (against a stand-in for
 the C function); the tile walker's rule for its lanes a ray and the
 checks of its arguments; phase 1's rule for its warps a tile; the brick and
-stackless traces' rules for their refill form and probe records, and the
-checks of their forms' arguments; and the first forms' wrappers on the
-CPU."""
+stackless traces' probe records and the checks of their forms' arguments;
+and the first forms' wrappers on the CPU."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,11 +37,10 @@ KERNELS = {
     "segment_sum": shade_cuda._SEGMENT_SUM,
     "segment_sum_sorted": shade_cuda._SEGMENT_SUM_SORTED,
     "esvo_stackless": brick_cuda._ESVO_STACKLESS,
-    "esvo_stackless_refill": brick_cuda._ESVO_STACKLESS_REFILL,
     "esvo_stackless_probe": brick_cuda._ESVO_STACKLESS_PROBE,
     "brick_trace": brick_cuda._BRICK_TRACE,
     "brick_trace_serial": brick_cuda._BRICK_TRACE_SERIAL,
-    "brick_trace_refill": brick_cuda._BRICK_TRACE_REFILL,
+    "brick_trace_unstaged": brick_cuda._BRICK_TRACE_UNSTAGED,
     "brick_trace_probe": brick_cuda._BRICK_TRACE_PROBE,
 }
 
@@ -308,21 +308,22 @@ def small_trees():
 
 
 def brick_counts():
-    return tuple(dict(c) for c in (brick_cuda.launches, brick_cuda.serial_launches,
-                                   brick_cuda.refill_launches, brick_cuda.probe_launches))
+    return tuple(dict(c) for c in (brick_cuda.launches, brick_cuda.form_launches,
+                                   brick_cuda.probe_launches))
 
 
 def test_brick_first_forms_take_the_plain_version_on_the_cpu():
-    """``trace_brick_cuda_serial`` and ``trace_stackless_cuda_serial`` on CPU
-    tensors are ``brick.trace_brick`` and ``traverse.trace_stackless``,
-    statistics included, and launch nothing."""
+    """``trace_brick_cuda_serial`` and ``trace_stackless_cuda`` (whose one
+    form is the first) on CPU tensors are ``brick.trace_brick`` and
+    ``traverse.trace_stackless``, statistics included, and launch
+    nothing."""
     svo, bsvo, o, d = small_trees()
     before = brick_counts()
     fields = ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters")
     for got, want in (
             (brick_cuda.trace_brick_cuda_serial(bsvo, o, d, with_stats=True),
              brick.trace_brick(bsvo, o, d, True)),
-            (brick_cuda.trace_stackless_cuda_serial(svo, o, d, with_stats=True),
+            (brick_cuda.trace_stackless_cuda(svo, o, d, with_stats=True),
              traverse.trace_stackless(svo, o, d, True))):
         assert all(torch.equal(getattr(got[0], f), getattr(want[0], f)) for f in fields)
         assert torch.equal(got[1], want[1])
@@ -335,14 +336,13 @@ def test_brick_first_forms_take_the_plain_version_on_the_cpu():
 @pytest.mark.parametrize("call", [
     lambda svo, bsvo, o, d: brick_cuda._brick_kernel(bsvo, o, d),
     lambda svo, bsvo, o, d: brick_cuda._brick_serial_kernel(bsvo, o, d),
-    lambda svo, bsvo, o, d: brick_cuda._brick_refill_kernel(bsvo, o, d, per_thread=2),
+    lambda svo, bsvo, o, d: brick_cuda._brick_unstaged_kernel(bsvo, o, d),
     lambda svo, bsvo, o, d: brick_cuda.probe_brick_cuda(bsvo, o, d, "wide"),
+    lambda svo, bsvo, o, d: brick_cuda.probe_brick_cuda(bsvo, o, d, "first"),
     lambda svo, bsvo, o, d: brick_cuda._stackless_kernel(svo, o, d),
-    lambda svo, bsvo, o, d: brick_cuda._stackless_serial_kernel(svo, o, d),
-    lambda svo, bsvo, o, d: brick_cuda._stackless_refill_kernel(svo, o, d, per_thread=2),
-    lambda svo, bsvo, o, d: brick_cuda.probe_stackless_cuda(svo, o, d, "first"),
-], ids=["brick", "brick serial", "brick refill", "brick probe", "stackless",
-        "stackless serial", "stackless refill", "stackless probe"])
+    lambda svo, bsvo, o, d: brick_cuda.probe_stackless_cuda(svo, o, d),
+], ids=["brick", "brick serial", "brick unstaged", "brick probe",
+        "brick first probe", "stackless", "stackless probe"])
 def test_brick_kernels_refuse_cpu_tensors_before_any_library(call):
     """Every form's launcher refuses CPU tensors by the kernel's name, asks
     ``_build`` for no library and counts no launch."""
@@ -353,24 +353,25 @@ def test_brick_kernels_refuse_cpu_tensors_before_any_library(call):
     assert brick_counts() == before and set(_build._libs) == loaded
 
 
-@pytest.mark.parametrize("what", ["drain", "rays a thread", "brick form",
-                                  "stackless form", "depth"])
+@pytest.mark.parametrize("what", ["brick form", "depth", "stackless depth",
+                                  "rays"])
 def test_brick_kernels_refuse_bad_arguments(what, monkeypatch):
-    """Out-of-range knobs, a form a kernel does not have and a brick tree
-    whose depths disagree raise ValueError before any launch (the device
-    check stood in for, so that CPU tensors reach the later ones)."""
-    for kernel in (brick_cuda._BRICK_TRACE_REFILL, brick_cuda._BRICK_TRACE_PROBE,
-                   brick_cuda._ESVO_STACKLESS_PROBE, brick_cuda._BRICK_TRACE):
+    """A form the brick trace does not have, trees whose depths are out of
+    range and rays that are not (N, 3) raise ValueError before any launch
+    (the device check stood in for, so that CPU tensors reach the later
+    ones)."""
+    for kernel in (brick_cuda._BRICK_TRACE_PROBE, brick_cuda._ESVO_STACKLESS,
+                   brick_cuda._BRICK_TRACE):
         monkeypatch.setattr(kernel, "check", lambda device, specs: None)
     svo, bsvo, o, d = small_trees()
     calls = {
-        "drain": lambda: brick_cuda._brick_refill_kernel(bsvo, o, d, per_thread=2, drain=33),
-        "rays a thread": lambda: brick_cuda._brick_refill_kernel(bsvo, o, d, per_thread=0),
         "brick form": lambda: brick_cuda.probe_brick_cuda(bsvo, o, d, "serial"),
-        "stackless form": lambda: brick_cuda.probe_stackless_cuda(svo, o, d, "wide"),
         "depth": lambda: brick_cuda._brick_kernel(
             brick.BrickSVO(bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
                            bsvo.bricks, bsvo.depth + 1, bsvo.top_depth), o, d),
+        "stackless depth": lambda: brick_cuda._stackless_kernel(
+            dataclasses.replace(svo, depth=23), o, d),
+        "rays": lambda: brick_cuda._brick_kernel(bsvo, o.reshape(-1), d),
     }
     before = brick_counts()
     with pytest.raises(ValueError):
@@ -378,33 +379,21 @@ def test_brick_kernels_refuse_bad_arguments(what, monkeypatch):
     assert brick_counts() == before
 
 
-@pytest.mark.parametrize("n,want", [
-    (0, 1), (4096, 1), (2 * H100_SLOTS - 1, 1), (2 * H100_SLOTS, 2),
-    (1024 * 1024, 2), (4 * H100_SLOTS, 4), (16 * H100_SLOTS, 8), (10 ** 9, 8),
+@pytest.mark.parametrize("n,form,want", [
+    (1024 * 1024, "first", 1024 * 1024 // 32), (1024 * 1024, "wide", 1024 * 1024 // 32),
+    (1024 * 1024, "unstaged", 1024 * 1024 // 32), (1000, "first", 8 * 4),
+    (1000, "wide", 4 * 8), (129, "first", 2 * 4), (129, "wide", 1 * 8),
+    (0, "wide", 0),
 ])
-def test_refill_rays_a_thread(n, want):
-    """The refill form's rays a thread: a power of two up to REFILL_MAX
-    whose launch still fills the card's thread slots (1024^2 rays, the
-    frame, on an H100: 2)."""
-    assert brick_cuda.rays_per_thread(n, H100_SLOTS) == want
-    per = brick_cuda.rays_per_thread(n, H100_SLOTS)
-    assert per == 1 or n // per >= H100_SLOTS
-    with pytest.raises(ValueError):
-        brick_cuda.rays_per_thread(-1, H100_SLOTS)
-
-
-def test_probe_record_rows_are_the_launch_warps():
+def test_probe_record_rows_are_the_launch_warps(n, form, want):
     """A probe record has a row for each warp of the form's launch: blocks
-    of 128 threads for the first and refill forms (the refill form's block
-    covers 128 * per_thread rays), of 256 for the wide form."""
-    n = 1024 * 1024
-    assert brick_cuda.warps_of(n, "first") == n // 32
-    assert brick_cuda.warps_of(n, "wide") == n // 32
-    assert brick_cuda.warps_of(n, "refill", 2) == n // 64
-    assert brick_cuda.warps_of(1000, "first") == 8 * 4
-    assert brick_cuda.warps_of(1000, "wide") == 4 * 8
-    assert brick_cuda.warps_of(1000, "refill", 3) == 3 * 4
-    assert brick_cuda.warps_of(0, "wide") == 0
+    of 128 threads for the first form, of 256 for the wide forms, the last
+    block's idle warps included."""
+    assert brick_cuda.warps_of(n, form) == want
     assert len(brick_cuda.PROBE_FIELDS) == 18
+
+
+@pytest.mark.parametrize("n,form", [(10, "serial"), (10, "refill"), (-1, "first")])
+def test_probe_record_refuses_a_form_or_count_it_lacks(n, form):
     with pytest.raises(ValueError):
-        brick_cuda.warps_of(10, "serial")
+        brick_cuda.warps_of(n, form)
