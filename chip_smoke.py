@@ -45,7 +45,22 @@ step's path. It runs the probe kernels
 segment sum) at the sizes of the probes they replace, `take` also at the
 main path's size, times the parts of one wrapper's launch path on the
 host, and counts the tile frame's and tile step's eager ops on the host by
-group. One line per phase; any failure raises and the exit code is non-zero.
+group.
+
+The serving renderers: `[frame-volumetric]` drives `VolumetricRenderer.render`
+(k = 4; the brick route: kernels `brick_trace_multi` and `composite_fwd`) and
+`diff.render_volumetric` (the stackless route: `esvo_stackless_multi` and
+`composite_fwd`) on the same frame, holds both k-segment traces bitwise and
+`composite_fwd` to 1e-6 against their plain versions (there and on small
+cases in `[parity]`), counts the rays each trace stops at a bound and the
+rays on which the two part, checks slot 0 against `esvo_stackless`'s hit,
+and that a parameter which requires a gradient raises on the card.
+`[surface]` drives `SurfaceRenderer` on each of its routes (the tile route
+through `render_progressive` with four samples, the brick route on a 1000²
+pinhole and on an orthographic camera, `render.render_image` for a skybox off
+the tile route), `render.render_attachment` and `render.render_bounce`, each
+with the kernels it must launch and no other. One line per phase; any
+failure raises and the exit code is non-zero.
 The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
 """
@@ -61,13 +76,15 @@ import time
 import numpy as np
 import torch
 
-from raytracingtest_tpu_torch import _build, diff
-from raytracingtest_tpu_torch.config import CameraConfig
+from raytracingtest_tpu_torch import _build, diff, render
+from raytracingtest_tpu_torch.config import CameraConfig, RenderConfig
 from raytracingtest_tpu_torch.io import checkpoint
-from raytracingtest_tpu_torch.models import InverseRenderer
+from raytracingtest_tpu_torch.models import (
+    InverseRenderer, SurfaceRenderer, VolumetricRenderer)
+from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import (
-    brick, brick_cuda, brick_dda, camera, gather, octree, rowread, shade_cuda,
-    tile, tile_cuda, traverse, traverse_cuda)
+    brick, brick_cuda, brick_dda, camera, codecs, gather, octree, rowread,
+    shade_cuda, tile, tile_cuda, traverse, traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import Scene, get_scene
@@ -100,9 +117,21 @@ OPS_LOOP_ELEM = 4
 OPS_CAND_SLOT = 6
 OPS_CAND_CHILD = 110
 
+# compositing one valid segment (its row's normalisation and Lambert term,
+# softplus, the opacity, the transmittance and the sum) and one ray (the sky,
+# the light, the sky's term)
+OPS_COMPOSITE_SLOT = 60
+OPS_COMPOSITE_RAY = 25
+# the volumetric renderers' segments a ray, and the composite's density scale
+VOLUME_K = 4
+DENSITY_SCALE = 64.0
+
 # calls of plain versions that the main path must not make, counted by
 # count_plain_calls()
-PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0}
+PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
+               "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0}
+# the launch counts of the kernels this checkout adds to the earlier ones'
+MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0)
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
 # the brick trace's other forms' and the probe forms'
@@ -231,11 +260,15 @@ def reset_counts():
 
 def count_plain_calls():
     """From here on, count every call of ``tile.candidates_plain``,
-    ``brick.trace_brick`` and ``traverse.trace_stackless`` in PLAIN_CALLS
-    (their callers look them up in their modules at each call)."""
+    ``brick.trace_brick``, ``traverse.trace_stackless``, the k-segment traces'
+    plain versions and ``shade_cuda.composite_plain`` in PLAIN_CALLS (their
+    callers look them up in their modules at each call)."""
     for mod, name, key in ((tile, "candidates_plain", "candidates_plain"),
                            (brick, "trace_brick", "trace_brick"),
-                           (traverse, "trace_stackless", "trace_stackless")):
+                           (traverse, "trace_stackless", "trace_stackless"),
+                           (traverse, "trace_multi", "trace_multi"),
+                           (brick, "trace_brick_multi", "trace_brick_multi"),
+                           (shade_cuda, "composite_plain", "composite_plain")):
         plain = getattr(mod, name)
 
         def counted(*args, _plain=plain, _key=key):
@@ -252,6 +285,372 @@ def compare_stats(kern, plain, what):
         bad = int((kern[1] != plain[1]).any(dim=1).sum())
         raise AssertionError(f"{what}: the statistics differ on {bad} rays")
     return err
+
+
+MULTI_NAMES = ("hit_leaf", "t_in", "t_out", "count", "iters", "stats")
+
+
+def multi_compare(kern, plain, what):
+    """Two (MultiTraceResult, stats) pairs bitwise; returns the largest
+    absolute difference of the t's (0.0 when exact)."""
+    (a, sa), (b, sb) = kern, plain
+    return compare_tensors((a.hit_leaf, a.t_in, a.t_out, a.count, a.iters, sa),
+                           (b.hit_leaf, b.t_in, b.t_out, b.count, b.iters, sb),
+                           MULTI_NAMES, what)
+
+
+def segments_apart(a, b):
+    """Rays on which two MultiTraceResults give other segments (leaf, count,
+    or the bits of a t)."""
+    return ((a.hit_leaf != b.hit_leaf).any(dim=1) | (a.count != b.count)
+            | (bits(a.t_in) != bits(b.t_in)).any(dim=1)
+            | (bits(a.t_out) != bits(b.t_out)).any(dim=1))
+
+
+def volume_params(host, dev, seed):
+    """The tree's parameters with random densities across softplus's bend
+    and normals of random length, on `dev`."""
+    rng = np.random.default_rng(seed)
+    n = host.n_leaves
+    as_dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    return (host.leaf_albedo.to(dev),
+            as_dev(host.leaf_normal.numpy() * rng.uniform(0.5, 2.0, (n, 1))),
+            as_dev(rng.uniform(-3.0, 2.0, n)))
+
+
+def check_composite(seg, d, pset, light, what):
+    """composite_fwd against composite_plain on the same segments; returns
+    the largest absolute difference (limit 1e-6)."""
+    got = shade_cuda._composite_kernel(seg.hit_leaf, seg.t_in, seg.t_out, d,
+                                       *pset, light, 1.3, 0.08, DENSITY_SCALE)
+    want = shade_cuda.composite_plain(seg.hit_leaf, seg.t_in, seg.t_out, d,
+                                      *pset, light, 1.3, 0.08, DENSITY_SCALE)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not e <= 1e-6:
+        raise AssertionError(f"composite_fwd, {what}: max abs {e} against "
+                             f"composite_plain")
+    return e
+
+
+def volumetric_parity(dev, cam, light, err):
+    """[parity] of the k-segment traces (through their launchers) and the
+    compositing against their plain versions on small trees: the empty
+    tree, a depth-4 tree (a top tree of one level), camera rays, rays from
+    a shell and rays from inside the cube; k = 4, and k = 1 on one tree."""
+    empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
+    lines, n_cases = [], 0
+    for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
+                        ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        svo_s, bsvo_s = host.to(dev), brick.make_brick_svo(host).to(dev)
+        pset = volume_params(host, dev, depth) if host.n_leaves else None
+        found = []
+        for kind, o, d in ray_sets(dev, cam, 4096, depth + 100):
+            for k in ((1, VOLUME_K) if (name, depth) == ("terrain", 6) else (VOLUME_K,)):
+                what = f"{name} d{depth} {kind} rays N={o.shape[0]} k={k}"
+                ks = brick_cuda._stackless_multi_kernel(svo_s, o, d, k, True)
+                kb = brick_cuda._brick_multi_kernel(bsvo_s, o, d, k, True)
+                ps = traverse.trace_multi(svo_s, o, d, k, True)
+                pb = brick.trace_brick_multi(bsvo_s, o, d, k, True)
+                torch.cuda.synchronize()
+                err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
+                    ks, ps, f"esvo_stackless_multi, {what}"))
+                err["brick_trace_multi"] = max(err["brick_trace_multi"], multi_compare(
+                    kb, pb, f"brick_trace_multi, {what}"))
+                if pset is not None:
+                    for seg in (ks[0], kb[0]):
+                        err["composite_fwd"] = max(err["composite_fwd"], check_composite(
+                            seg, d, pset, light, what))
+                elif int((ks[0].count > 0).sum()) or int((kb[0].count > 0).sum()):
+                    raise AssertionError(f"{what}: a segment in the empty tree")
+                n_cases += 1
+                apart = segments_apart(ks[0], kb[0]) & (ks[1][:, 4] == 0) & (kb[1][:, 4] == 0)
+                found.append(f"{kind} k={k} {int(ks[0].count.sum())} segments, "
+                             f"{int(apart.sum())} apart")
+        lines.append(f"{name} d{depth}: " + ", ".join(found))
+    say(f"[parity] esvo_stackless_multi and brick_trace_multi (through their "
+        f"launchers) == traverse.trace_multi and brick.trace_brick_multi bitwise "
+        f"(hit_leaf, t_in and t_out bits, count, iters, statistics) on {n_cases} "
+        f"cases, and composite_fwd within 1e-6 of composite_plain on each "
+        f"case's segments of both traces (random densities in [-3, 2), normals "
+        f"of random length; max abs {err['composite_fwd']}): " + "; ".join(lines)
+        + " (segments of the stackless trace; rays on which the two traces' "
+        "segments part where neither is cut)")
+
+
+def launch_counts():
+    """Every kernel's launches since reset_counts(), by name, and the plain
+    versions' calls."""
+    return dict(esvo_trace=traverse_cuda.launches, tile_walk=tile_cuda.launches,
+                tile_candidates=tile_cuda.candidates_launches,
+                tile_candidates_block=tile_cuda.candidates_block_launches,
+                esvo_trace_serial=traverse_cuda.serial_launches,
+                tile_walk_serial=tile_cuda.serial_launches,
+                brick_dda16=brick_dda.launches, rowread=rowread.launches,
+                **gather.launches, **brick_cuda.launches,
+                **brick_cuda.form_launches, **brick_cuda.probe_launches,
+                **shade_cuda.launches, **PLAIN_CALLS)
+
+
+def expect_launches(what, fn, want, allow=()):
+    """Run fn() from zeroed counts; fail unless it launched exactly the
+    kernels of `want` (name -> count) and no other, nor called a plain
+    version. `allow` names kernels that may launch any number of times
+    (the tile route's backstop on residual rays). Returns (fn()'s result,
+    the launches)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    extra = {k: v for k, v in got.items() if k not in want and k not in allow}
+    short = {k: v for k, v in want.items() if got.get(k, 0) != v}
+    if extra or short:
+        raise AssertionError(f"{what}: launched {got}, expected {want}"
+                             + (f" and any of {allow}" if allow else ""))
+    return out, got
+
+
+def serving(ctx, card):
+    """[frame-volumetric] and [surface]: the serving renderers at full
+    width on the depth-10 frame. Returns what the kernels line and the
+    profile take from them."""
+    dev, host_svo, svo, bsvo = ctx["dev"], ctx["host_svo"], ctx["svo"], ctx["bsvo"]
+    o, d, light, params = ctx["o"], ctx["d"], ctx["light"], ctx["params"]
+    res, bench_cam, routes = ctx["res"], ctx["bench_cam"], ctx["routes"]
+    n_rays, k = o.shape[0], VOLUME_K
+    view = CameraConfig(**bench_cam, width=res, height=res)
+    rcfg = RenderConfig()
+    out = {}
+
+    # ---- the volumetric renderers: main path, both routes ------------------
+    vmodel = VolumetricRenderer(host_svo, k=k, density_scale=DENSITY_SCALE,
+                                device=dev)
+    renderers._accel_of(vmodel)    # the model's brick table, built on first use
+    vol_img, vol_brick_launches = expect_launches(
+        "VolumetricRenderer.render (brick route)", lambda: vmodel.render(view, rcfg),
+        dict(brick_trace_multi=1, composite_fwd=1))
+    vol_flat, vol_flat_launches = expect_launches(
+        "diff.render_volumetric (stackless route)", lambda: diff.render_volumetric(
+            *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE),
+        dict(esvo_stackless_multi=1, composite_fwd=1))
+    for what, img_v in (("brick route", vol_img.reshape(-1, 3)), ("stackless route", vol_flat)):
+        if img_v.shape != (n_rays, 3) or not bool(torch.isfinite(img_v).all()):
+            raise AssertionError(f"volumetric {what}: bad image")
+    # each kernel against its plain version on the same card and inputs
+    kb = brick_cuda._brick_multi_kernel(bsvo, o, d, k, True)
+    ks = brick_cuda._stackless_multi_kernel(svo, o, d, k, True)
+    t0 = time.perf_counter()
+    pb = brick.trace_brick_multi(bsvo, o, d, k, True)
+    torch.cuda.synchronize()
+    out["brick_multi_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ps = traverse.trace_multi(svo, o, d, k, True)
+    torch.cuda.synchronize()
+    out["stackless_multi_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    err = ctx["err"]
+    err["brick_trace_multi"] = max(err["brick_trace_multi"], multi_compare(
+        kb, pb, "brick_trace_multi, terrain d10 frame"))
+    err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
+        ks, ps, "esvo_stackless_multi, terrain d10 frame"))
+    for what, seg in (("brick segments", kb[0]), ("stackless segments", ks[0])):
+        err["composite_fwd"] = max(err["composite_fwd"], check_composite(
+            seg, d, params, light, f"terrain d10 frame, {what}"))
+    pset = volume_params(host_svo, dev, 12)
+    err["composite_fwd"] = max(err["composite_fwd"], check_composite(
+        kb[0], d, pset, light, "terrain d10 frame, random densities"))
+    want_img = shade_cuda.composite_plain(kb[0].hit_leaf, kb[0].t_in, kb[0].t_out,
+                                          d, *params, light, 1.3, 0.08, DENSITY_SCALE)
+    vol_err = float((vol_img.reshape(-1, 3) - want_img).abs().max())
+    if vol_err > 1e-6:
+        raise AssertionError(f"VolumetricRenderer image {vol_err} off the plain path")
+    cut_b = kb[1][:, STAT("unfinished")] == 1
+    cut_s = ks[1][:, STAT("unfinished")] == 1
+    neither = ~cut_b & ~cut_s
+    apart = segments_apart(kb[0], ks[0]) & neither
+    single = routes["plain"]["res"]
+    first_ok = neither & ~routes["plain"]["unfinished"]
+    slot0 = (ks[0].hit_leaf[:, 0] != single.hit_leaf) | (
+        (single.hit_leaf >= 0) & (bits(ks[0].t_in[:, 0]) != bits(single.hit_t)))
+    n_slot0 = int((slot0 & first_ok).sum())
+    # the two traces are different walks: like the single-hit brick and
+    # stackless frames, they may part on a few rays that graze a corner
+    # (counted and bounded here, as the frames' parting rays are)
+    apart_leaf = apart & ((kb[0].hit_leaf != ks[0].hit_leaf).any(dim=1)
+                          | (kb[0].count != ks[0].count))
+    t_gap = torch.cat([(kb[0].t_in - ks[0].t_in)[apart],
+                       (kb[0].t_out - ks[0].t_out)[apart]]).abs()
+    out["apart"] = (int(apart.sum()), int(apart_leaf.sum()),
+                    float(t_gap.max()) if t_gap.numel() else 0.0)
+    if n_slot0 or int(apart.sum()) > MAX_DIFFER:
+        raise AssertionError(f"k-segment traces: {int(apart.sum())} rays part "
+                             f"between the two, slot 0 differs from "
+                             f"esvo_stackless on {n_slot0}")
+    # on the card, a parameter that requires a gradient raises and launches
+    # nothing
+    needs_grad = params[0].detach().clone().requires_grad_(True)
+    reset_counts()
+    try:
+        diff.render_volumetric(needs_grad, params[1], params[2], svo, o, d, light)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("render_volumetric with a parameter that requires "
+                             "a gradient did not raise on the card")
+    if any(launch_counts().values()):
+        raise AssertionError("render_volumetric launched a kernel before refusing")
+    out["segments"] = dict(
+        brick=(int(kb[0].count.sum()), int(kb[0].iters.sum())
+               - int(kb[1][:, STAT("dda_steps")].sum()),
+               int(kb[1][:, STAT("dda_steps")].sum())),
+        stackless=(int(ks[0].count.sum()), int(ks[0].iters.sum())))
+    out["multi"] = (kb, ks)
+    out["launches"] = dict(brick_trace_multi=vol_brick_launches["brick_trace_multi"],
+                           esvo_stackless_multi=vol_flat_launches["esvo_stackless_multi"],
+                           composite_fwd=vol_brick_launches["composite_fwd"])
+    t = {}
+    t["vol_model"] = cuda_ms(lambda: vmodel.render(view, rcfg), 50, 3)
+    t["vol_brick"] = cuda_ms(lambda: diff.render_volumetric_brick(
+        *params, bsvo, o, d, light, k=k, density_scale=DENSITY_SCALE), 50, 3)
+    t["vol_flat"] = cuda_ms(lambda: diff.render_volumetric(
+        *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE), 50, 3)
+    t.update(in_turns({
+        "brick_trace_multi": lambda: brick_cuda.trace_brick_multi_cuda(bsvo, o, d, k),
+        "esvo_stackless_multi": lambda: brick_cuda.trace_multi_cuda(svo, o, d, k),
+        "composite_fwd": lambda: shade_cuda.composite_fwd(
+            kb[0].hit_leaf, kb[0].t_in, kb[0].t_out, d, *params, light, 1.3,
+            0.08, DENSITY_SCALE)}))
+    t["composite_plain"] = cuda_ms(lambda: shade_cuda.composite_plain(
+        kb[0].hit_leaf, kb[0].t_in, kb[0].t_out, d, *params, light, 1.3, 0.08,
+        DENSITY_SCALE), 10, 2)
+    m = {name: med_p80(v) for name, v in t.items()}
+    out["ms"] = m
+    seg_line = lambda r, st: (
+        f"{int(r.count.sum()) / n_rays:.3f} segments a ray ({int((r.count == k).sum())} "
+        f"rays full, {int((r.count == 0).sum())} with none), {float(r.iters.double().mean()):.2f} "
+        f"steps a ray (most {int(r.iters.max())}), {int(st[:, STAT('unfinished')].sum())} "
+        f"rays stopped at the bound")
+    say(f"[frame-volumetric] {res}x{res} depth 10, k={k}: "
+        f"VolumetricRenderer.render (brick route) launched {vol_brick_launches}, "
+        f"diff.render_volumetric (stackless route) {vol_flat_launches}, no "
+        f"other kernel and no plain call; brick_trace_multi: "
+        + seg_line(*kb) + f", {int(kb[1][:, STAT('rounds')].max())} rounds at most, "
+        f"{int(kb[1][:, STAT('dda_max')].max())} DDA steps in one round at most "
+        f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
+        + f" (bound {traverse.multi_steps_for_depth(10, k)}); both == their plain "
+        f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
+        f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
+        f"ms, n=1); composite_fwd within 1e-6 of composite_plain (max abs "
+        f"{err['composite_fwd']}); the image == the plain path within "
+        f"{vol_err}; of the {int(neither.sum())} rays neither trace cut, "
+        f"{out['apart'][0]} have other segments in the two ({out['apart'][1]} "
+        f"with another leaf or count, the rest only t bits; the t's of those "
+        f"rays part by up to {out['apart'][2]}), and slot 0 == "
+        f"esvo_stackless's hit on all {int(first_ok.sum())} that esvo_stackless "
+        f"finishes too; a parameter that requires a gradient raises "
+        f"NotImplementedError and launches nothing")
+    say(f"[frame-volumetric] {card}: VolumetricRenderer.render median "
+        f"{m['vol_model'][0]:.4f} ms (p80 {m['vol_model'][1]:.4f}, n=50) = "
+        f"{n_rays / m['vol_model'][0] / 1e3:.2f} Mrays/s (its camera's rays and "
+        f"light made anew each call); on the same rays, "
+        f"diff.render_volumetric_brick median {m['vol_brick'][0]:.4f} ms (p80 "
+        f"{m['vol_brick'][1]:.4f}) = {n_rays / m['vol_brick'][0] / 1e3:.2f} "
+        f"Mrays/s and diff.render_volumetric "
+        f"median {m['vol_flat'][0]:.4f} ms (p80 {m['vol_flat'][1]:.4f}) = "
+        f"{n_rays / m['vol_flat'][0] / 1e3:.2f} Mrays/s; in turns, three rounds "
+        f"of 50: brick_trace_multi {m['brick_trace_multi'][0]:.4f} ms (p80 "
+        f"{m['brick_trace_multi'][1]:.4f}), esvo_stackless_multi "
+        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}), "
+        f"composite_fwd {m['composite_fwd'][0]:.4f} ({m['composite_fwd'][1]:.4f}); "
+        f"composite_plain {m['composite_plain'][0]:.4f} (n=10)")
+
+    # ---- the surface renderer: each route, and render.py's image paths -----
+    smodel = SurfaceRenderer(host_svo, device=dev)
+    renderers._accel_of(smodel)
+    tile_route = dict(tile_candidates=None, tile_walk=None, shade_fwd=None)
+    sky_np = make_gradient_skybox()
+    cases = [
+        ("tile route, render_progressive samples=4", 4,
+         lambda: smodel.render_progressive(view, RenderConfig(samples=4), seed=0),
+         dict(shade_fwd=4), ("tile_candidates", "tile_walk", "esvo_trace")),
+        ("brick route, 1000x1000 pinhole", 1,
+         lambda: smodel.render(CameraConfig(**bench_cam, width=1000, height=1000), rcfg),
+         dict(brick_trace=1, shade_fwd=1), ()),
+        ("brick route, orthographic 1024x1024", 1,
+         lambda: smodel.render(CameraConfig(position=(0.5, 0.9, -0.4),
+                                            look_at=(0.5, 0.3, 0.5),
+                                            ortho_height=1.2, width=res,
+                                            height=res), rcfg),
+         dict(brick_trace=1, shade_fwd=1), ()),
+        ("render_image route, 1000x1000 pinhole with a skybox", 1,
+         lambda: smodel.render(CameraConfig(**bench_cam, width=1000, height=1000),
+                               rcfg, skybox=sky_np),
+         dict(esvo_stackless=1), ()),
+    ]
+    lines, s_ms = [], {}
+    for what, n_frames, fn, want, allow in cases:
+        img_s, got = expect_launches(f"SurfaceRenderer, {what}", fn, want, allow)
+        if "tile" in what and not (got.get("tile_walk") and got.get("tile_candidates")):
+            raise AssertionError(f"{what}: launched {got}")
+        if not bool(torch.isfinite(img_s).all()) or img_s.dim() != 3:
+            raise AssertionError(f"SurfaceRenderer, {what}: bad image")
+        s_ms[what] = med_p80(cuda_ms(fn, 10, 1))
+        lines.append(f"{what}: launches {got}, median {s_ms[what][0]:.4f} ms "
+                     f"(p80 {s_ms[what][1]:.4f}, n=10)")
+    # one tile-route frame against the per-ray frame on the same camera, off
+    # the rays the tile frame's referee judged
+    one, _got = expect_launches("SurfaceRenderer tile route, one frame",
+                                lambda: smodel.render(view, rcfg),
+                                dict(shade_fwd=1), ("tile_candidates", "tile_walk", "esvo_trace"))
+    keep = ~ctx["refereed_px"]
+    tile_err = float((one.reshape(-1, 3)[keep] - ctx["img"][keep]).abs().max())
+    if tile_err > 1e-6:
+        raise AssertionError(f"the tile route's frame differs from the per-ray "
+                             f"frame by {tile_err}")
+    say(f"[surface] {card}: SurfaceRenderer at depth 10: " + "; ".join(lines)
+        + f"; the tile route's frame == the per-ray frame within {tile_err} off "
+        f"the {int((~keep).sum())} refereed rays")
+
+    # render.py's image paths: attachments and bounces
+    cam = camera.Camera(**bench_cam, width=res, height=res)
+    t0 = time.perf_counter()
+    words = tuple(w.to(dev) for w in codecs.build_attachments(host_svo))
+    build_s = time.perf_counter() - t0
+    att, got_att = expect_launches("render_attachment", lambda: render.render_attachment(
+        svo, *words, o, d), dict(esvo_stackless=1))
+    miss = single.hit_leaf < 0
+    if (att.shape != (n_rays, 3) or not bool(torch.isfinite(att).all())
+            or not torch.equal(att[miss], sky_color(d)[miss])):
+        raise AssertionError("render_attachment: bad image, or a miss is not the sky")
+    bounce = lambda spec, nb: render.render_bounce(
+        bsvo, params[0], params[1], cam, specular=spec, bounces=nb, device=dev)
+    live, got_b = expect_launches("render_bounce specular 0.5, 3 bounces",
+                                  lambda: bounce(0.5, 3), dict(brick_trace=3))
+    b1, b3 = bounce(0.0, 1), bounce(0.0, 3)
+    base = render.render_image(svo, cam, device=dev).reshape(-1, 3)
+    # render_image traces stacklessly and render_bounce through the bricks:
+    # the rays on which the two traces part are left out
+    same_hit = routes["brick"]["res"].hit_leaf == single.hit_leaf
+    b1_flat = b1.reshape(-1, 3)
+    if not torch.allclose(b1_flat[same_hit], base[same_hit], rtol=1e-5, atol=1e-6):
+        raise AssertionError("render_bounce(specular=0, bounces=1) differs from "
+                             "render_image")
+    if not torch.equal(b3, b1):
+        raise AssertionError("render_bounce: bounces=3 differs from bounces=1 at "
+                             "specular 0")
+    if not bool(torch.isfinite(live).all()) or not float((live - b1).abs().max()) > 1e-3:
+        raise AssertionError("render_bounce at specular 0.5: no reflection")
+    a_ms = med_p80(cuda_ms(lambda: render.render_attachment(svo, *words, o, d), 10, 1))
+    b_ms = med_p80(cuda_ms(lambda: bounce(0.5, 3), 10, 1))
+    say(f"[surface] {card}: render_attachment {res}x{res} (attachments of "
+        f"{host_svo.n_nodes} nodes built on the host in {build_s:.2f} s): launches "
+        f"{got_att}, misses == the sky, median {a_ms[0]:.4f} ms (p80 {a_ms[1]:.4f}, "
+        f"n=10); render_bounce specular 0.5, 3 bounces: launches {got_b}, median "
+        f"{b_ms[0]:.4f} ms (p80 {b_ms[1]:.4f}, n=10); at specular 0 one bounce == "
+        f"render_image within rtol 1e-5 / atol 1e-6 on the "
+        f"{int(same_hit.sum())} rays where the brick and stackless traces hit "
+        f"alike, and 3 bounces == 1 bounce bitwise")
+    return out
 
 
 def ray_sets(dev, cam, n, seed):
@@ -305,12 +704,15 @@ def ptxas_report(log):
     rows, name, stores = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(brick_trace_kernel|esvo_stackless_kernel)I(\w*?)EEv", line)
+        multi = re.search(r"(brick_trace_multi_kernel|esvo_stackless_multi_kernel)", line)
         if "Compiling entry function" in line:
             name = None
             if m:
                 args = [("true" if v == "1" else "false") if t == "b" else v
                         for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
                 name, stores = f"{m.group(1)}<{', '.join(args)}>", 0
+            elif multi:
+                name, stores = multi.group(1), 0
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
@@ -907,11 +1309,11 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 8:
+    if len(ptxas) != 10:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 8")
+                             f"expected 10")
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
-        "esvo_stackless_kernel<probe>: "
+        "esvo_stackless_kernel<probe>, the two k-segment kernels: "
         "registers, spill bytes, shared bytes): " + "; ".join(
             f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas))
 
@@ -923,7 +1325,8 @@ def main():
                take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
-               brick_trace_unstaged=0.0)
+               brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
+               brick_trace_multi=0.0, composite_fwd=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -1024,6 +1427,8 @@ def main():
     if dda_most > 22:
         raise AssertionError(f"a brick walk took {dda_most} DDA steps in one "
                              f"round; an 8^3 brick needs at most 22")
+    volumetric_parity(dev, small_cam, torch.tensor([-0.5, -1.0, -0.3], device=dev),
+                      err)
     say(f"[parity] brick_trace (through the main path's wrapper, and in its "
         f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless, and every "
         f"probe form == their plain versions (brick.trace_brick, "
@@ -1204,11 +1609,11 @@ def main():
         torch.cuda.synchronize()
         launched = dict(brick_cuda.launches)
         want = dict(brick_trace=int(route == "brick"),
-                    esvo_stackless=int(route == "plain"))
+                    esvo_stackless=int(route == "plain"), **MULTI_ZERO)
         other_forms = {**brick_cuda.form_launches, **brick_cuda.probe_launches}
         if (launched != want or any(other_forms.values()) or traverse_cuda.launches
                 or shade_cuda.launches["shade_fwd"] != 1
-                or PLAIN_CALLS["trace_brick"] or PLAIN_CALLS["trace_stackless"]):
+                or any(PLAIN_CALLS.values())):
             raise AssertionError(f"the {route} frame launched {launched} and "
                                  f"{other_forms}, esvo_trace "
                                  f"{traverse_cuda.launches} times, plain calls "
@@ -1684,8 +2089,10 @@ def main():
                         brick_trace=int(path == "brick"),
                         esvo_stackless=int(path == "plain"),
                         candidates_plain=0, trace_brick=0, trace_stackless=0,
+                        trace_multi=0, trace_brick_multi=0, composite_plain=0,
                         shade_fwd=1, shade_bwd=1, shade_bwd_serial=0,
-                        segment_sum=1, segment_sum_sorted=0)
+                        segment_sum=1, segment_sum_sorted=0, composite_fwd=0,
+                        **MULTI_ZERO)
             if counts != want or others:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
                                      f"expected {want}; other forms: {others}")
@@ -1780,7 +2187,7 @@ def main():
             or tile_cuda.candidates_block_launches
             or PLAIN_CALLS["candidates_plain"] or shade_cuda.launches != dict(
                 shade_fwd=3, shade_bwd=3, shade_bwd_serial=0, segment_sum=3,
-                segment_sum_sorted=0)):
+                segment_sum_sorted=0, composite_fwd=0)):
         raise AssertionError("step_view did not take the tile step's kernels")
     # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
     # fb_k=256, no sub-tile pass), which leave a few rays of this view
@@ -1818,10 +2225,11 @@ def main():
                        **PLAIN_CALLS, **shade_cuda.launches,
                        **brick_cuda.form_launches, **brick_cuda.probe_launches)
     want = dict(esvo_trace=0, brick_trace=3, esvo_stackless=0, candidates_plain=0,
-                trace_brick=0, trace_stackless=0, shade_fwd=3, shade_bwd=3,
+                trace_brick=0, trace_stackless=0, trace_multi=0,
+                trace_brick_multi=0, composite_plain=0, shade_fwd=3, shade_bwd=3,
                 shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
-                brick_trace_serial=0, brick_trace_unstaged=0,
-                esvo_stackless_probe=0, brick_trace_probe=0)
+                composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
+                esvo_stackless_probe=0, brick_trace_probe=0, **MULTI_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -1835,6 +2243,12 @@ def main():
         f"{flat_losses[0]:.6f} -> {flat_losses[1]:.6f} -> {flat_losses[2]:.6f}, "
         f"through the brick step (launches {flat_counts}), frozen parameters "
         f"unchanged")
+
+    # ---- 7c. the serving renderers: volumetric and surface -----------------
+    served = serving(dict(
+        dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o, d=d, light=light,
+        params=params, res=res, bench_cam=bench_cam, routes=routes, err=err,
+        img=img, refereed_px=tile.untile_image(mask | differ, grid)), card)
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -2281,6 +2695,35 @@ def main():
             f"its median {m[f'{route}_step'][0]:.4f} ms"
             for route, (f_us, f_n, s_us, s_n) in route_prof.items()))
 
+    # the volumetric frames: their kernels alone, and the card's idle share
+    kb_seg = served["multi"][0][0]
+    _, rows, _n = profile_kernels(
+        "brick_trace_multi, esvo_stackless_multi and composite_fwd alone",
+        lambda: (brick_cuda.trace_brick_multi_cuda(bsvo, o, d, VOLUME_K),
+                 brick_cuda.trace_multi_cuda(svo, o, d, VOLUME_K),
+                 shade_cuda.composite_fwd(kb_seg.hit_leaf, kb_seg.t_in,
+                                          kb_seg.t_out, d, *params, light, 1.3,
+                                          0.08, DENSITY_SCALE)),
+        "round", 3, launches=3)
+    for kname in ("brick_trace_multi", "esvo_stackless_multi", "composite_fwd"):
+        alone[kname] = kernel_us(rows, kname + "_kernel")[0]
+    vol_prof = {}
+    for route, fn in (
+            ("brick", lambda: diff.render_volumetric_brick(
+                *params, bsvo, o, d, light, k=VOLUME_K, density_scale=DENSITY_SCALE)),
+            ("stackless", lambda: diff.render_volumetric(
+                *params, svo, o, d, light, k=VOLUME_K, density_scale=DENSITY_SCALE))):
+        vol_prof[route] = profile_kernels(f"volumetric frame, {route} route", fn,
+                                          "frame", 4)
+    vm = served["ms"]
+    say(f"[profile] {card}: us alone: brick_trace_multi "
+        f"{us_or(alone['brick_trace_multi'])}, esvo_stackless_multi "
+        f"{us_or(alone['esvo_stackless_multi'])}, composite_fwd "
+        f"{us_or(alone['composite_fwd'])}; volumetric frames: " + "; ".join(
+            f"{route} route {us_or(f_us)} us of kernels in {count(f_n)} launches, "
+            f"idle {idle(f_us, vm['vol_brick' if route == 'brick' else 'vol_flat'][0])} "
+            f"of its median" for route, (f_us, _r, f_n) in vol_prof.items()))
+
     # where the tile frame's and the tile step's host time goes, by group
     for what, fn in (
             ("tile frame", lambda: diff.render_diff_tile(
@@ -2573,6 +3016,64 @@ def main():
                             ("serial", "first", "trace_brick_cuda_serial", "the first form"),
                             ("unstaged", "unstaged", "_brick_unstaged_kernel",
                              "the wide form without staged rows"))]
+    # the k-segment traces and the compositing: bounds from this run's
+    # segments and steps; ids in, each segment's 12 B out (a padded slot
+    # too), each touched leaf's 28 B row read once
+    kb = served["multi"][0][0]
+    n_seg_b, b_top_m, b_dda_m = served["segments"]["brick"]
+    n_seg_s, s_steps_m = served["segments"]["stackless"]
+    seg_out = n_rays * VOLUME_K * 12 + n_rays * 8
+    multi_rows = dict(
+        brick_trace_multi=dict(
+            replaces="raytracingtest_tpu/ops/brick.py:574",
+            path="VolumetricRenderer.render / diff.render_volumetric_brick",
+            plain_ms=served["brick_multi_plain_ms"], bound=bound(
+                nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
+                       bsvo.bricks) + seg_out,
+                b_top_m * OPS_ESVO_STEP + b_dda_m * OPS_DDA_STEP
+                + n_rays * OPS_RAY_SETUP)),
+        esvo_stackless_multi=dict(
+            replaces="raytracingtest_tpu/ops/traverse.py:684",
+            path="diff.render_volumetric",
+            plain_ms=served["stackless_multi_plain_ms"], bound=bound(
+                nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr,
+                       svo.leaf_base) + seg_out,
+                s_steps_m * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)))
+    seg_leaves = kb.hit_leaf[kb.hit_leaf >= 0].long()
+    touched_v = int((torch.bincount(seg_leaves, minlength=n_leaves) > 0).sum())
+    composite_bound = bound(
+        nbytes(kb.hit_leaf, kb.t_in, kb.t_out, d, light) + touched_v * 28
+        + n_rays * 12,
+        int(seg_leaves.numel()) * OPS_COMPOSITE_SLOT + n_rays * OPS_COMPOSITE_RAY)
+    say(f"[bound] the volumetric kernels, k={VOLUME_K} (rays, tables and (N, k) "
+        f"segments at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {OPS_ESVO_STEP} "
+        f"operations a top or stackless step, {OPS_DDA_STEP} a DDA step, "
+        f"{OPS_COMPOSITE_SLOT} a valid slot at {PEAK_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s): brick_trace_multi {b_top_m} top and {b_dda_m} DDA steps, "
+        f"bound {multi_rows['brick_trace_multi']['bound'][0]:.5f} ms "
+        f"({multi_rows['brick_trace_multi']['bound'][1]}), "
+        f"{us_or(alone['brick_trace_multi'])} us alone; esvo_stackless_multi "
+        f"{s_steps_m} steps, bound {multi_rows['esvo_stackless_multi']['bound'][0]:.5f} "
+        f"ms ({multi_rows['esvo_stackless_multi']['bound'][1]}), "
+        f"{us_or(alone['esvo_stackless_multi'])} us alone; composite_fwd "
+        f"{n_seg_b} segments on {touched_v} leaves, bound {composite_bound[0]:.5f} "
+        f"ms ({composite_bound[1]}), {us_or(alone['composite_fwd'])} us alone")
+    for kname, row in multi_rows.items():
+        kernels.append(dict(
+            name=kname, route="cuda", source=src + "brick_trace.cu",
+            replaces=row["replaces"], path=row["path"],
+            launches=served["launches"][kname], max_abs_err=err[kname],
+            ms=vm[kname][0], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
+            bound_by=row["bound"][1], library_ms=None, us_alone=alone[kname]))
+    kernels.append(dict(
+        name="composite_fwd", route="cuda", source=src + "shade.cu",
+        replaces="raytracingtest_tpu/diff.py:377",
+        path="VolumetricRenderer.render / diff.render_volumetric[_brick]",
+        launches=served["launches"]["composite_fwd"],
+        max_abs_err=err["composite_fwd"], ms=vm["composite_fwd"][0],
+        plain_ms=vm["composite_plain"][0], bound_ms=composite_bound[0],
+        bound_by=composite_bound[1], library_ms=None,
+        us_alone=alone["composite_fwd"]))
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]

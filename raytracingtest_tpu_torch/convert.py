@@ -76,3 +76,13 @@ def tile_svo_from_numpy(obj, device=None) -> TileSVO:
     return TileSVO(bsvo=brick_svo_from_numpy(obj.bsvo, device),
                    pyr=_words(np.asarray(obj.pyr)).to(device),
                    cellmap=_tensor(obj.cellmap, np.int32, device))
+
+
+def attachments_from_numpy(word_a, word_b, device=None):
+    """The reference's 64-bit node attachments (two uint32 words a node, as
+    its ``codecs.build_attachments`` returns them) as the int32 tensors of
+    the same bits that ``render.render_attachment`` reads, on `device`
+    (None: the default device)."""
+    device = resolve(device)
+    return (_words(np.asarray(word_a)).to(device),
+            _words(np.asarray(word_b)).to(device))

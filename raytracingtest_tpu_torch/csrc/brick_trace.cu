@@ -1,4 +1,4 @@
-// The per-ray stackless traces for Hopper, sm_90a: two kernels that share
+// The per-ray stackless traces for Hopper, sm_90a: four kernels that share
 // one stackless step.
 //
 //   esvo_stackless  replaces raytracingtest_tpu/ops/traverse.py::_trace_core
@@ -10,10 +10,20 @@
 //                   the same walk over the top tree, which parks a ray at
 //                   each brick it enters and walks the brick with the exact
 //                   voxel DDA (brick_dda.cuh, shared with tile_walk.cu).
+//   esvo_stackless_multi  replaces traverse.py::_trace_multi_core (:684):
+//                   the first k leaf segments (leaf, t_in, t_out) of each
+//                   ray, the stackless walk in collect mode (a leaf entered
+//                   is recorded and the ray walks on).
+//   brick_trace_multi  replaces brick.py::_trace_brick_multi_core (:574):
+//                   the same segments through the top tree and its bricks,
+//                   brick_trace's first form with the DDA in collect mode
+//                   (each solid voxel recorded, its exit t the segment's
+//                   end).
 //
 // Semantics follow the plain PyTorch versions bit for bit
-// (raytracingtest_tpu_torch/ops/traverse.py::fast_step, trace_stackless;
-// ops/brick.py::trace_brick, _dda_round). The stackless step reads one node
+// (raytracingtest_tpu_torch/ops/traverse.py::fast_step, trace_stackless,
+// trace_multi; ops/brick.py::trace_brick, _dda_round, trace_brick_multi,
+// _dda_round_multi). The stackless step reads one node
 // row, gets the parent's exit t from pos rounded up to the parent's grid
 // (no stack), and climbs one level a POP through parent_ptr; `popped` keeps
 // a ray that just climbed out of a child from entering it again. All in
@@ -30,6 +40,11 @@
 //     a round's top walk once few rays can still step (TOP_DRAIN): its
 //     rounds are never longer for a ray, so every ray it finishes ends here
 //     with the same bits, iters included.
+//   * esvo_stackless_multi: max_iters_for_depth(depth) + 8k steps, each
+//     ray's own in the reference too (its loop does not compact).
+//   * brick_trace_multi: brick_trace's bounds with 8k more top steps a round
+//     and 8k more rounds, and 3 * 8 + 2 + k DDA steps a round (the
+//     reference's, one step a trip); the same rule on TOP_DRAIN holds.
 //
 // What bounds them on this card: not bytes (24 B of ray in, 20 B of results
 // out a ray, and the node rows and brick rows its steps read: under 100 MB
@@ -54,6 +69,11 @@
 //     each DDA step reads its word there instead of behind a dependent load.
 //     brick_trace_unstaged is the wide form without the staged row, which
 //     splits the gain between the two changes (chip_smoke.py [timing]).
+//   * esvo_stackless_multi and brick_trace_multi: one thread a ray in blocks
+//     of 128, rows read as the steps need them, each segment written to its
+//     (N, k) slot as it is found and the empty slots padded at the end. The
+//     first forms' structure, plain and correct first; PERF.md holds their
+//     times against their bounds.
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe) are a form
 //     with counters: each warp writes PROBE_WORDS int64 words (the layout
 //     at Probe below), the issues of each phase (a step, the descent, a DDA
@@ -150,15 +170,31 @@ __device__ __forceinline__ bool setup(const float* __restrict__ origin,
   return t_min >= r.t_root;
 }
 
+// A leaf segment that a step in collect mode records: the parent row of the
+// leaf child entered, the child's rank among the parent's leaf children,
+// and the segment's entry and exit t.
+struct Seg {
+  int parent, rank;
+  float t_in, t_out;
+};
+
+// Set in a collect-mode step's result when it recorded a segment; the low
+// bits are STEP_ON or STEP_EXIT.
+constexpr int STEP_COLLECTED = 4, STEP_WHAT = 3;
+
 // One stackless step (ops/traverse.py::fast_step). Returns STEP_LEAF when
 // the ray enters a leaf child: the walk registers are left at that child
 // (child_shift its unmirrored slot, leaf_rank its rank among the parent's
 // leaf children); STEP_EXIT when it leaves the
 // root cube; otherwise STEP_ON after a PUSH, a move to a sibling or a POP.
-__device__ __forceinline__ int stackless_step(
+// COLLECT (fast_step's collect mode): entering a leaf child records the
+// segment (the parent, the rank, t_min, min(t_max, tc_max)) in `seg` and
+// sets STEP_COLLECTED, and the ray ADVANCEs in the same step.
+template <bool COLLECT>
+__device__ __forceinline__ int walk_step(
     const Ray& r, Walk& w, const int* __restrict__ masks,
     const int* __restrict__ child, const int* __restrict__ parent_ptr,
-    int& child_shift, int& leaf_rank) {
+    int& child_shift, int& leaf_rank, Seg& seg) {
   const int desc = __ldg(masks + w.parent);
   const int vm = (desc >> 8) & 0xFF;
   const int lm = desc & 0xFF;
@@ -187,12 +223,17 @@ __device__ __forceinline__ int stackless_step(
       child_valid && w.t_min <= t_max && !w.popped && w.t_min <= tv_max;
   const int below = (1 << child_shift) - 1;
 
-  if (enter && ((lm >> child_shift) & 1)) {  // a leaf child: hit, or park
+  int collected = 0;
+  if (enter && ((lm >> child_shift) & 1)) {  // a leaf child
     leaf_rank = __popc(vm & lm & below);
-    w.popped = false;
-    return STEP_LEAF;
-  }
-  if (enter) {  // PUSH
+    if constexpr (COLLECT) {  // record the segment, then ADVANCE
+      seg = Seg{w.parent, leaf_rank, w.t_min, tv_max};
+      collected = STEP_COLLECTED;
+    } else {  // hit, or park
+      w.popped = false;
+      return STEP_LEAF;
+    }
+  } else if (enter) {  // PUSH
     const float half = scale_exp2 * 0.5f;
     w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
     int idx = 0;
@@ -221,18 +262,27 @@ __device__ __forceinline__ int stackless_step(
     }
     w.idx = idx_adv;
     w.popped = false;
-    return STEP_ON;
+    return STEP_ON | collected;
   }
   if (w.scale + 1 >= S_MAX) {  // left the root cube
     w.popped = false;
-    return STEP_EXIT;
+    return STEP_EXIT | collected;
   }
   for (int c = 0; c < 3; ++c) w.pos[c] = parent_pos[c];
   w.idx = (psh[0] & 1) | ((psh[1] & 1) << 1) | ((psh[2] & 1) << 2);
   w.parent = __ldg(parent_ptr + w.parent);
   w.scale += 1;
   w.popped = true;
-  return STEP_ON;
+  return STEP_ON | collected;
+}
+
+__device__ __forceinline__ int stackless_step(
+    const Ray& r, Walk& w, const int* __restrict__ masks,
+    const int* __restrict__ child, const int* __restrict__ parent_ptr,
+    int& child_shift, int& leaf_rank) {
+  Seg unused;
+  return walk_step<false>(r, w, masks, child, parent_ptr, child_shift,
+                          leaf_rank, unused);
 }
 
 __device__ __forceinline__ void write_stats(int* __restrict__ stats, int i,
@@ -513,6 +563,144 @@ brick_trace_kernel(Tree tree, Rays rays, Out out,
   probe.finish(probe_out);
 }
 
+// ---- the k-segment traces ---------------------------------------------------
+
+// (N, k) row-major segments, (N,) counts and steps, and optional statistics.
+struct MultiOut {
+  int* hit_leaf;
+  float* t_in;
+  float* t_out;
+  int* count;
+  int* iters;
+  int* stats;  // nullptr: no statistics
+  int k;
+};
+
+__device__ __forceinline__ void write_segment(const MultiOut& out, int i,
+                                              int slot, int leaf, float t_in,
+                                              float t_out) {
+  const size_t s = (size_t)i * out.k + slot;
+  out.hit_leaf[s] = leaf;
+  out.t_in[s] = t_in;
+  out.t_out[s] = t_out;
+}
+
+// The ray's count and steps, and its empty slots padded (-1, 0, 0).
+__device__ __forceinline__ void finish_multi(const MultiOut& out, int i,
+                                             int count, int it) {
+  for (int slot = count; slot < out.k; ++slot)
+    write_segment(out, i, slot, -1, 0.0f, 0.0f);
+  out.count[i] = count;
+  out.iters[i] = it;
+}
+
+// One thread a ray: the stackless walk over the full tree in collect mode,
+// at most max_iters_for_depth(depth) + 8k steps; it ends with k segments or
+// when the ray leaves the root cube.
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  const int n_max = max_iters_for_depth(tree.depth) + 8 * out.k;
+  int count = 0, it = 0;
+  while (!done && it < n_max) {
+    ++it;
+    int child_shift, leaf_rank;
+    Seg seg;
+    const int what = walk_step<true>(r, w, tree.masks, tree.child,
+                                     tree.parent_ptr, child_shift, leaf_rank,
+                                     seg);
+    if (what & STEP_COLLECTED) {
+      write_segment(out, i, count, __ldg(tree.leaf_base + seg.parent) + seg.rank,
+                    seg.t_in, seg.t_out);
+      done = ++count >= out.k;
+    }
+    done = done || (what & STEP_WHAT) == STEP_EXIT;
+  }
+  finish_multi(out, i, count, it);
+  write_stats(out.stats, i, 0, 0, 0, 0, !done);
+}
+
+// One thread a ray: brick_trace's first form (rounds of a top walk, a
+// descent and a brick DDA) with the DDA in collect mode. Each solid voxel
+// the ray stands in records (leaf, t, the voxel's exit t) and the walk goes
+// on. Bounds on each ray: max_iters_for_depth(top_depth) + 8k top steps and
+// 3 * 8 + 2 + k DDA steps a round, 16 * depth + 8k + 64 rounds.
+__global__ void __launch_bounds__(BLOCK)
+brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  const int depth = tree.depth, top_depth = tree.top_depth, k = out.k;
+  const int n_top = max_iters_for_depth(top_depth) + 8 * k;
+  const int n_rounds = 16 * depth + 8 * k + 64;
+  const int n_dda = 3 * 8 + 2 + k;
+  const int vshift = S_MAX - depth;
+  const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
+  const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
+  int flip[3];
+  for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
+
+  int count = 0, it = 0, rounds = 0, dda = 0, capped = 0, dda_max = 0;
+  while (!done && rounds < n_rounds) {
+    ++rounds;
+    int what = STEP_ON, child_shift = 0, leaf_rank = 0;
+    for (int top = 0; top < n_top && what == STEP_ON; ++top) {
+      ++it;
+      what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                            child_shift, leaf_rank);
+    }
+    if (what == STEP_EXIT) {
+      done = true;
+      break;
+    }
+    if (what == STEP_ON) {  // the round's step cap
+      ++capped;
+      continue;
+    }
+    const int* row = tree.bricks +
+                     (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
+    auto word = [row](int kk) -> int { return __ldg(row + kk); };
+    float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
+    float t_cur = w.t_min;
+    rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+    int steps = 0;
+    while (steps < n_dda) {
+      ++steps;
+      const float t_entry = t_cur;
+      int idx9;
+      bool solid;
+      float t_exit;
+      const int step = rtt_dda::dda_collect_step(
+          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize,
+          [&word](int kk) { return (uint32_t)word(kk); }, idx9, solid, t_exit);
+      if (solid) {
+        write_segment(out, i, count, rtt_dda::leaf_of(word, idx9), t_entry,
+                      t_exit);
+        if (++count >= k) {  // full: the ray ends here, without the step
+          done = true;
+          break;
+        }
+      }
+      if (step == rtt_dda::DDA_EXIT) {
+        w.popped = true;
+        break;
+      }
+    }
+    w.t_min = t_cur;
+    it += steps;
+    dda += steps;
+    dda_max = max(dda_max, steps);
+  }
+  finish_multi(out, i, count, it);
+  write_stats(out.stats, i, rounds, dda, capped, dda_max, !done);
+}
+
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
 
 Out outputs(void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
@@ -667,4 +855,53 @@ extern "C" int brick_trace_probe(int form, const void* top_masks,
                       direction, n, depth, top_depth,
                       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       probe, stream);
+}
+
+// The first k leaf segments of each ray, the stackless walk over the full
+// tree: (n, k) hit_leaf, t_in, t_out, (n,) count and iters, stats (n, 5) or
+// null.
+extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
+                                    const void* parent_ptr,
+                                    const void* leaf_base, const void* origin,
+                                    const void* direction, int n, int depth,
+                                    int k, void* hit_leaf, void* t_in,
+                                    void* t_out, void* count, void* iters,
+                                    void* stats, void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX - 1 || k < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)masks, (const int*)child_base,
+                    (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                    depth, 0};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const MultiOut out{(int*)hit_leaf, (float*)t_in, (float*)t_out,
+                       (int*)count, (int*)iters, (int*)stats, k};
+    esvo_stackless_multi_kernel<<<blocks_for(n, BLOCK), BLOCK, 0,
+                                  (cudaStream_t)stream>>>(tree, rays, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The first k leaf segments of each ray through the top tree and its bricks.
+extern "C" int brick_trace_multi(const void* top_masks, const void* top_child,
+                                 const void* top_parent, const void* bricks,
+                                 const void* origin, const void* direction,
+                                 int n, int depth, int top_depth, int k,
+                                 void* hit_leaf, void* t_in, void* t_out,
+                                 void* count, void* iters, void* stats,
+                                 void* stream) {
+  if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
+      k < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)top_masks, (const int*)top_child,
+                    (const int*)top_parent, nullptr, (const int*)bricks,
+                    depth, top_depth};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const MultiOut out{(int*)hit_leaf, (float*)t_in, (float*)t_out,
+                       (int*)count, (int*)iters, (int*)stats, k};
+    brick_trace_multi_kernel<<<blocks_for(n, BLOCK), BLOCK, 0,
+                               (cudaStream_t)stream>>>(tree, rays, out);
+  }
+  return (int)cudaGetLastError();
 }

@@ -33,13 +33,18 @@
 //                 per-leaf sums of the cotangent rows, the same bits in every
 //                 run, without a sort of the rays and without float atomics.
 //                 Five small kernels behind one entry point (below).
+//   composite_fwd replaces raytracingtest_tpu/diff.py::_composite_segments
+//                 (:377), forward: the emission-absorption compositing of a
+//                 ray's first k leaf segments (from the k-segment traces of
+//                 brick_trace.cu) over the procedural sky, each segment's
+//                 parameter row gathered and shaded as in shade_fwd.
 //   segment_sum_sorted  the earlier form of the same sum, over rays that a
 //                 stable sort outside the kernel has ordered by leaf id. Kept
 //                 as a second, independent implementation to hold the new
 //                 one against; nothing on the training path calls it.
 //
 // One thread an output element (take, loop_probe), a ray (shade_fwd,
-// shade_bwd, shade_bwd_serial) or a leaf (segment_sum). `take_row` is the row
+// shade_bwd, shade_bwd_serial, composite_fwd) or a leaf (segment_sum). `take_row` is the row
 // load they share: the row index clipped to the table, then one read through
 // the read-only path.
 //
@@ -57,7 +62,11 @@
 // and shared memory as coalesced 16-byte vectors, each sector once, and the
 // threads read and write them there. segment_sum: bytes, 28 B written for
 // every leaf and a scattered 28 B row read for every hit, and launches,
-// since its passes are short.
+// since its passes are short. composite_fwd: bytes, 12 B of segment a slot
+// and a scattered 28 B row a valid slot in, 12 B out a ray, against some 70
+// float operations a valid slot; a thread walks its ray's slots in order
+// (the transmittance is a running product), so its design is shade_fwd's:
+// rows read in place through take_row, none for a padded slot.
 //
 // segment_sum. The function: each leaf's rows are added one after another in
 // ascending ray index, starting from +0; a miss (hit_leaf < 0) adds nothing;
@@ -606,6 +615,57 @@ seg_long_kernel(const float* __restrict__ cot, const int* __restrict__ count,
   }
 }
 
+// ---- composite_fwd ---------------------------------------------------------
+// softplus as jax.nn.softplus computes it, logaddexp(x, 0).
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+// One thread a ray over its k segments, left to right: each valid segment's
+// parameter row, its Lambert colour and its opacity
+// alpha = 1 - exp(-softplus(density) * density_scale * max(t_out - t_in, 0));
+// the radiance sums transmittance * alpha * colour, the transmittance a
+// running product of (1 - alpha) + 1e-9, and adds the sky behind the last
+// segment at t_before(k-1) * (1 - alpha(k-1)). A padded slot (leaf < 0) has
+// alpha 0 and reads no row.
+__global__ void __launch_bounds__(BLOCK)
+composite_fwd_kernel(const int* __restrict__ hit_leaf,
+                     const float* __restrict__ t_in,
+                     const float* __restrict__ t_out,
+                     const float* __restrict__ d,
+                     const float* __restrict__ albedo,
+                     const float* __restrict__ normal,
+                     const float* __restrict__ density, int n_leaves,
+                     const float* __restrict__ light, float intensity,
+                     float ambient, float density_scale, int k,
+                     float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Shaded v;
+  gradient_sky(d[(size_t)i * 3 + 1], v.sky);
+  light_dir(light, v.m);
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  float t_before = 1.0f, t_before_last = 1.0f, alpha = 0.0f;
+  for (int c = 0; c < k; ++c) {
+    const size_t s = (size_t)i * k + c;
+    const int leaf = hit_leaf[s];
+    alpha = 0.0f;
+    if (leaf >= 0) {
+      shade_ray(leaf, albedo, normal, density, n_leaves, intensity, ambient, v);
+      const float seg_len = fmaxf(t_out[s] - t_in[s], 0.0f);
+      const float sigma = softplus(v.den) * density_scale;
+      alpha = 1.0f - expf(-sigma * seg_len);
+      const float w = t_before * alpha;
+      for (int j = 0; j < 3; ++j) acc[j] = acc[j] + w * (v.alb[j] * v.sh);
+    }
+    t_before_last = t_before;
+    t_before = t_before * (1.0f - alpha + 1e-9f);
+  }
+  const float t_final = t_before_last * (1.0f - alpha);
+  for (int j = 0; j < 3; ++j)
+    out[(size_t)i * 3 + j] = acc[j] + t_final * v.sky[j];
+}
+
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
@@ -741,6 +801,26 @@ extern "C" int segment_sum(const void* hit_leaf, const void* cot, int n,
     seg_long_kernel<<<SEG_GRID, SEG_BLOCK, 0, st>>>(
         (const float*)cot, count, cursor, rays, n_long, long_leaves,
         (float*)g_alb, (float*)g_nrm, (float*)g_den);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The radiance of n rays of k segments each: hit_leaf, t_in, t_out (n, k),
+// d (n, 3), the parameter tensors of n_leaves >= 1 leaves, out (n, 3).
+extern "C" int composite_fwd(const void* hit_leaf, const void* t_in,
+                             const void* t_out, const void* d,
+                             const void* albedo, const void* normal,
+                             const void* density, int n_leaves,
+                             const void* light, float intensity, float ambient,
+                             float density_scale, int k, void* out, int n,
+                             void* stream) {
+  if (n_leaves < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    composite_fwd_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int*)hit_leaf, (const float*)t_in, (const float*)t_out,
+        (const float*)d, (const float*)albedo, (const float*)normal,
+        (const float*)density, n_leaves, (const float*)light, intensity,
+        ambient, density_scale, k, (float*)out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-"""Model-level API of the port: so far the trainable ``InverseRenderer``."""
+"""Model-level API of the port: ``SurfaceRenderer``, ``VolumetricRenderer``
+and the trainable ``InverseRenderer``."""
 
-from raytracingtest_tpu_torch.models.renderers import InverseRenderer
+from raytracingtest_tpu_torch.models.renderers import (
+    InverseRenderer, SurfaceRenderer, VolumetricRenderer)
 
-__all__ = ["InverseRenderer"]
+__all__ = ["InverseRenderer", "SurfaceRenderer", "VolumetricRenderer"]

@@ -1,10 +1,18 @@
 """Model-level API over the functional ops (port of
 ``raytracingtest_tpu/models/renderers.py``).
 
-Ported so far: ``InverseRenderer``, the trainable model: a dictionary of
-voxel parameters, an Adam optimizer over the trained ones, and a train step
-on one device. ``SurfaceRenderer``, ``VolumetricRenderer`` and the sharded
-(multi-device) step are not ported yet.
+Three models over the same packed SVO, each on one device:
+
+  * ``SurfaceRenderer``: hard-surface Lambert images, on the reference's
+    routes (the tile trace for a pinhole camera at multiples of 16 pixels,
+    else the per-ray brick or stackless trace; ``render.render_image`` for a
+    skybox off the tile route), and their progressive average;
+  * ``VolumetricRenderer``: the first k leaf segments of each ray,
+    composited (``diff.render_volumetric[_brick]``);
+  * ``InverseRenderer``, the trainable model: a dictionary of voxel
+    parameters, an Adam optimizer over the trained ones, and a train step.
+
+The sharded (multi-device) step is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,9 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytracingtest_tpu_torch import diff
+from raytracingtest_tpu_torch import diff, render
 from raytracingtest_tpu_torch._device import resolve
-from raytracingtest_tpu_torch.config import CameraConfig
+from raytracingtest_tpu_torch.config import CameraConfig, RenderConfig
 from raytracingtest_tpu_torch.ops import brick, tile
 from raytracingtest_tpu_torch.ops.camera import Camera
 from raytracingtest_tpu_torch.ops.octree import SVO
@@ -56,6 +64,123 @@ def _accel_of(obj):
         cache = (obj.svo, bsvo_dev, tsvo_dev)
         obj._accel_cache = cache
     return cache[1], cache[2]
+
+
+def _tile_route(cam: Camera, obj):
+    """The tile route's TileSVO when `cam` takes it (pinhole, both sizes
+    multiples of 16, a tree with the pyramid), else None."""
+    if cam.ortho_height > 0.0 or cam.width % 16 or cam.height % 16:
+        return None
+    return _accel_of(obj)[1]
+
+
+@dataclasses.dataclass
+class SurfaceRenderer:
+    """Hard-surface renderer of `svo` on `device` (None: the card); the SVO
+    is moved there. Images are (H, W, 3) float32 tensors on that device."""
+
+    svo: SVO
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
+        self.svo = self.svo.to(self.device)
+
+    def render(self, camera_cfg: CameraConfig, render_cfg: RenderConfig,
+               jitter=None, skybox=None):
+        """One image on the reference's route:
+
+          * a pinhole camera whose sizes are multiples of 16, on a tree with
+            the tile pyramid: ``tile.trace_tile_exact`` (its defaults, the
+            reference's) then ``diff.shade_diff`` with the skybox, untiled;
+          * otherwise, with a skybox: ``render.render_image``;
+          * otherwise ``diff.render_diff_brick`` on a tree with bricks, else
+            ``diff.render_diff``.
+
+        `jitter`: a (2,) pixel offset; `skybox`: an optional (H, W, 3)
+        equirect texture sampled on a miss."""
+        cam = _camera(camera_cfg)
+        light = torch.tensor(render_cfg.light_direction, dtype=torch.float32,
+                             device=self.device)
+        shading = (render_cfg.light_intensity, render_cfg.light_ambient)
+        params = (self.svo.leaf_albedo, self.svo.leaf_normal,
+                  self.svo.leaf_density)
+        shape = (camera_cfg.height, camera_cfg.width, 3)
+        tsvo = _tile_route(cam, self)
+        with torch.no_grad():
+            if tsvo is not None:
+                o_t, d_t, corners, grid = tile.tile_rays(cam, self.device,
+                                                         jitter=jitter)
+                res = tile.trace_tile_exact(tsvo, self.svo, o_t, d_t, corners)
+                sky = None if skybox is None else torch.as_tensor(
+                    np.asarray(skybox, np.float32), device=self.device)
+                img = diff.shade_diff(res.hit_leaf, d_t.reshape(-1, 3), *params,
+                                      light, *shading, skybox=sky)
+                return tile.untile_image(img, grid).reshape(shape)
+            if skybox is not None:
+                return render.render_image(
+                    self.svo, cam, light=render.Light(
+                        direction=render_cfg.light_direction,
+                        intensity=render_cfg.light_intensity,
+                        ambient=render_cfg.light_ambient),
+                    jitter=jitter, skybox=skybox, device=self.device)
+            o, d = cam.rays(self.device, jitter=jitter)
+            bsvo = _accel_of(self)[0]
+            if bsvo is not None:
+                img = diff.render_diff_brick(*params, bsvo, o, d, light, *shading)
+            else:
+                img = diff.render_diff(*params, self.svo, o, d, light, *shading)
+        return img.reshape(shape)
+
+    def render_progressive(self, camera_cfg: CameraConfig,
+                           render_cfg: RenderConfig, seed=0, skybox=None):
+        """The running average of ``render_cfg.samples`` (at least one)
+        images, each at a pixel offset drawn by numpy's generator
+        (``rng.random(2, dtype=float32)``, the reference's stream)."""
+        rng = np.random.default_rng(seed)
+        acc = None
+        for s in range(max(render_cfg.samples, 1)):
+            img = self.render(camera_cfg, render_cfg,
+                              jitter=rng.random(2, dtype=np.float32),
+                              skybox=skybox)
+            acc = img if acc is None else acc + (img - acc) / (s + 1)
+        return acc
+
+
+@dataclasses.dataclass
+class VolumetricRenderer:
+    """Emission-absorption renderer of `svo` over the first `k` leaf
+    segments of each ray, on `device` (None: the card)."""
+
+    svo: SVO
+    k: int = 4
+    density_scale: float = 64.0
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
+        self.svo = self.svo.to(self.device)
+
+    def render(self, camera_cfg: CameraConfig, render_cfg: RenderConfig,
+               jitter=None):
+        """One (H, W, 3) image: ``diff.render_volumetric_brick`` on a tree
+        with bricks, else ``diff.render_volumetric``."""
+        cam = _camera(camera_cfg)
+        o, d = cam.rays(self.device, jitter=jitter)
+        light = torch.tensor(render_cfg.light_direction, dtype=torch.float32,
+                             device=self.device)
+        params = (self.svo.leaf_albedo, self.svo.leaf_normal,
+                  self.svo.leaf_density)
+        kw = dict(k=self.k, light_intensity=render_cfg.light_intensity,
+                  light_ambient=render_cfg.light_ambient,
+                  density_scale=self.density_scale)
+        bsvo = _accel_of(self)[0]
+        with torch.no_grad():
+            if bsvo is not None:
+                img = diff.render_volumetric_brick(*params, bsvo, o, d, light, **kw)
+            else:
+                img = diff.render_volumetric(*params, self.svo, o, d, light, **kw)
+        return img.reshape(camera_cfg.height, camera_cfg.width, 3)
 
 
 @dataclasses.dataclass

@@ -5,7 +5,9 @@ Port of ``raytracingtest_tpu/ops/brick.py``: the ``BrickSVO`` container,
 arrays come out byte-identical), the bit helpers the tile walker shares, and
 the brick trace (``_trace_brick_core``, ``_brick_round``, ``_top_step``
 without their LOD branch) as ``trace_brick``, the plain
-version of the ``brick_trace`` kernel (``ops/brick_cuda.py``). The deepest BRICK_LEVELS = 3 levels collapse into one
+version of the ``brick_trace`` kernel (``ops/brick_cuda.py``), and its
+k-segment form (``_trace_brick_multi_core``) as ``trace_brick_multi``, the
+plain version of ``brick_trace_multi``. The deepest BRICK_LEVELS = 3 levels collapse into one
 8x8x8 occupancy bitmask per level-(depth-3) node: 16 words in hierarchical
 Morton bit order ((slot_l1 << 6) | (slot_l2 << 3) | slot_l3), which is the
 leaf attribute order, so a hit's global leaf id is the brick's first leaf
@@ -26,7 +28,8 @@ import torch
 from raytracingtest_tpu_torch._device import resolve
 from raytracingtest_tpu_torch.ops.octree import compute_parent_ptr
 from raytracingtest_tpu_torch.ops.traverse import (
-    Compacted, TraceResult, fast_step, max_iters_for_depth, walk_state)
+    S_MAX, Compacted, MultiTraceResult, TraceResult, _f2i, fast_step,
+    max_iters_for_depth, multi_state, multi_steps_for_depth, walk_state)
 
 BRICK_LEVELS = 3  # bottom levels folded into 8^3 bit bricks
 
@@ -209,6 +212,43 @@ def rounds_for_depth(depth: int) -> int:
     return 16 * depth + 64
 
 
+def _parked_rays(s, bricks, top_depth):
+    """The parked rays of `s` at their brick's entry voxel: (sel, their ray
+    rows; t_coef, t_bias, t_cur, om; the brick rows' 16 words and first
+    leaf; bpos, the entry voxel's mirrored corner; flip), or None when no
+    ray is parked. Each descends BRICK_LEVELS levels from its brick's
+    corner with the reference's expression, half * coef + (pos * coef -
+    bias), which rounds in two steps as the kernels do."""
+    sel = torch.nonzero(s["parked"])[:, 0]
+    if sel.numel() == 0:
+        return None
+    t_coef, t_bias = s["t_coef"][sel], s["t_bias"][sel]
+    t_cur = s["t_min"][sel]
+    om = s["octant_mask"][sel]
+    row = bricks[s["brick_id"][sel].long()]
+    bpos = s["pos"][sel]
+    for level in range(1, BRICK_LEVELS + 1):
+        half = 2.0 ** (-top_depth - level)
+        upper = half * t_coef + (bpos * t_coef - t_bias) > t_cur[:, None]
+        bpos = bpos + torch.where(upper, half, 0.0)
+    flip = torch.stack([torch.where(((om >> c) & 1) != 0, 0, 7) for c in range(3)],
+                       dim=1).to(_I32)
+    return sel, t_coef, t_bias, t_cur, om, row[:, :16], row[:, 16], bpos, flip
+
+
+def _leaf_in_brick(words, bleaf, idx9):
+    """Leaf ids of voxels `idx9` of bricks (`words` (N, 16), first leaves
+    `bleaf`): the brick's first leaf, the set bits of the words below the
+    voxel's word, and those below its bit in its own word."""
+    wsel = idx9 >> 5
+    below_words = torch.arange(16, device=idx9.device)[None, :] < wsel[:, None]
+    full = torch.sum(torch.where(below_words, _popcount32(words), 0), dim=1,
+                     dtype=_I32)
+    low_bits = (torch.ones_like(wsel, dtype=torch.int64) << (idx9 & 31)) - 1
+    partial = _popcount32(_sel16(words, wsel).to(torch.int64) & low_bits)
+    return bleaf + full + partial
+
+
 def _dda_round(s, bricks, depth, top_depth):
     """The parked rays' brick walk (the DDA half of ``_brick_round``): each
     parked ray descends three levels from its brick's corner to its entry
@@ -219,29 +259,13 @@ def _dda_round(s, bricks, depth, top_depth):
     unparked."""
     from raytracingtest_tpu_torch.ops.brick_dda import dda_step
 
-    parked = s["parked"]
-    sel = torch.nonzero(parked)[:, 0]
-    if sel.numel() == 0:
+    parked = _parked_rays(s, bricks, top_depth)
+    if parked is None:
         return s
-    t_coef, t_bias = s["t_coef"][sel], s["t_bias"][sel]
-    t_cur = s["t_min"][sel]
-    om = s["octant_mask"][sel]
-    row = bricks[s["brick_id"][sel].long()]
-    words, bleaf = row[:, :16], row[:, 16]
-
-    # descend BRICK_LEVELS levels: half * coef + (pos * coef - bias), the
-    # reference's expression (it rounds in two steps, as the kernel does)
-    bpos = s["pos"][sel]
-    for level in range(1, BRICK_LEVELS + 1):
-        half = 2.0 ** (-top_depth - level)
-        upper = half * t_coef + (bpos * t_coef - t_bias) > t_cur[:, None]
-        bpos = bpos + torch.where(upper, half, 0.0)
-
-    flip = torch.stack([torch.where(((om >> c) & 1) != 0, 0, 7) for c in range(3)],
-                       dim=1).to(_I32)
+    sel, t_coef, t_bias, t_cur, om, words, bleaf, bpos, flip = parked
     word_of = lambda wsel: _sel16(words, wsel)
     no_bound = torch.full_like(t_cur, float("inf"))
-    walking = torch.ones_like(parked[sel])
+    walking = torch.ones_like(sel, dtype=torch.bool)
     hit = torch.zeros_like(walking)
     exited = torch.zeros_like(walking)
     steps = torch.zeros_like(t_cur, dtype=_I32)
@@ -257,16 +281,7 @@ def _dda_round(s, bricks, depth, top_depth):
         t_hit = torch.where(hit_now, t_cur, t_hit)
         hit |= hit_now
         exited |= exit_b
-
-    # the hit's leaf: the brick's first leaf, the set bits of the words
-    # below the voxel's word, and those below its bit in its own word
-    wsel = idx9_hit >> 5
-    below_words = torch.arange(16, device=sel.device)[None, :] < wsel[:, None]
-    full = torch.sum(torch.where(below_words, _popcount32(words), 0), dim=1,
-                     dtype=_I32)
-    low_bits = (torch.ones_like(wsel, dtype=torch.int64) << (idx9_hit & 31)) - 1
-    partial = _popcount32(word_of(wsel).to(torch.int64) & low_bits)
-    leaf = bleaf + full + partial
+    leaf = _leaf_in_brick(words, bleaf, idx9_hit)
 
     out = dict(s)
     upd = lambda name, value: out[name].index_copy(0, sel, value)
@@ -279,11 +294,117 @@ def _dda_round(s, bricks, depth, top_depth):
     out["hit_parent"] = upd("hit_parent",
                             torch.where(hit, s["parent"][sel], s["hit_parent"][sel]))
     out["hit_child"] = upd("hit_child", torch.where(hit, child, s["hit_child"][sel]))
+    _count_dda(out, s, sel, steps)
+    out["parked"] = torch.zeros_like(s["parked"])
+    return out
+
+
+def _count_dda(out, s, sel, steps):
+    """Add a round's DDA `steps` of the rays `sel` to their counts."""
+    upd = lambda name, value: out[name].index_copy(0, sel, value)
     out["iters"] = upd("iters", s["iters"][sel] + steps)
     out["dda_steps"] = upd("dda_steps", s["dda_steps"][sel] + steps)
     out["dda_max"] = upd("dda_max", torch.maximum(s["dda_max"][sel], steps))
-    out["parked"] = torch.zeros_like(parked)
+
+
+def dda_multi_steps(k: int) -> int:
+    """DDA steps a round of the k-segment brick trace may take: the
+    reference's loop runs while its counter is below 3 * 8 + 2 + k, one step
+    a trip."""
+    return 3 * 8 + 2 + k
+
+
+def _dda_round_multi(s, bricks, depth, top_depth, k):
+    """The DDA half of a round of ``_trace_brick_multi_core``: each parked
+    ray descends to its entry voxel and steps through its brick, at most
+    ``dda_multi_steps(k)`` steps; each occupied voxel it stands in records
+    the segment (leaf, t, the voxel's exit t) in slot `count`, and the ray
+    walks on, until it holds k segments (it is done, and does not step) or
+    leaves the brick (`popped`). Every ray leaves unparked."""
+    parked = _parked_rays(s, bricks, top_depth)
+    if parked is None:
+        return s
+    sel, t_coef, t_bias, t_cur, _om, words, bleaf, bpos, flip = parked
+    vshift, vsize = S_MAX - depth, 2.0 ** -depth
+    hits_leaf, t_in, t_out = s["hits_leaf"][sel], s["t_in"][sel], s["t_out"][sel]
+    count = s["count"][sel]
+    slots = torch.arange(k, dtype=_I32, device=sel.device)[None, :]
+    walking = torch.ones_like(sel, dtype=torch.bool)
+    exited = torch.zeros_like(walking)
+    steps = torch.zeros_like(count)
+    for _ in range(dda_multi_steps(k)):
+        if not bool(walking.any()):
+            break
+        steps += walking.to(_I32)
+        li = (_f2i(bpos) >> vshift) & 7
+        aa = li ^ flip
+        idx9 = (_spread3(aa[:, 0]) | (_spread3(aa[:, 1]) << 1)
+                | (_spread3(aa[:, 2]) << 2))
+        occ = ((_sel16(words, idx9 >> 5) >> (idx9 & 31)) & 1) != 0
+        hit_now = walking & occ
+        t_corner = bpos * t_coef - t_bias
+        tc_max = torch.amin(t_corner, dim=1)
+        put = (slots == count[:, None]) & hit_now[:, None]
+        hits_leaf = torch.where(put, _leaf_in_brick(words, bleaf, idx9)[:, None],
+                                hits_leaf)
+        t_in = torch.where(put, t_cur[:, None], t_in)
+        t_out = torch.where(put, tc_max[:, None], t_out)
+        count = count + hit_now.to(_I32)
+        adv = walking & (count < k)
+        step_bits = t_corner <= tc_max[:, None]
+        exit_b = adv & torch.any(step_bits & (li == 0), dim=1)
+        stay = adv & ~exit_b
+        bpos = bpos - torch.where(step_bits & stay[:, None], vsize, 0.0)
+        t_cur = torch.where(adv, torch.maximum(t_cur, tc_max), t_cur)
+        exited |= exit_b
+        walking = stay
+
+    out = dict(s)
+    upd = lambda name, value: out[name].index_copy(0, sel, value)
+    out["t_min"] = upd("t_min", t_cur)
+    out["done"] = upd("done", s["done"][sel] | (count >= k))
+    out["popped"] = upd("popped", s["popped"][sel] | exited)
+    out["hits_leaf"] = upd("hits_leaf", hits_leaf)
+    out["t_in"] = upd("t_in", t_in)
+    out["t_out"] = upd("t_out", t_out)
+    out["count"] = upd("count", count)
+    _count_dda(out, s, sel, steps)
+    out["parked"] = torch.zeros_like(s["parked"])
     return out
+
+
+def _brick_rounds(bsvo, st, out_names, n_top, n_rounds, dda_round):
+    """Rounds of the brick trace over the walk registers `st`: in each, the
+    top walk of every ray still walking, at most `n_top` steps, until it
+    parks or finishes; then `dda_round` (state -> state) walks the parked
+    rays' bricks. At most `n_rounds` rounds. Returns the outputs
+    `out_names` and the round statistics."""
+    nodes = torch.stack([bsvo.top_masks, bsvo.top_child, bsvo.top_parent], dim=1)
+    zi = torch.zeros_like(st["idx"])
+    st.update(parked=torch.zeros_like(st["done"]), brick_id=zi, rounds=zi,
+              dda_steps=zi, top_capped=zi, dda_max=zi)
+    walk = Compacted(st, out_names + ("iters", "done", "rounds", "dda_steps",
+                                      "top_capped", "dda_max"))
+    for _ in range(n_rounds):
+        walking = ~walk.state["done"]
+        n_walking = int(walking.sum())
+        if n_walking == 0:
+            break
+        if 2 * n_walking < walking.shape[0]:
+            walk.compact(walking)
+            walking = ~walk.state["done"]
+        s = walk.state
+        s["rounds"] = s["rounds"] + walking.to(_I32)
+        for _ in range(n_top):
+            if not bool((~s["done"] & ~s["parked"]).any()):
+                break
+            s = fast_step(s, nodes, park=True)
+        s["top_capped"] = s["top_capped"] + (~s["done"] & ~s["parked"]).to(_I32)
+        walk.state = dda_round(s)
+    out = walk.finish()
+    stats = torch.stack([out["rounds"], out["dda_steps"], out["top_capped"],
+                         out["dda_max"], (~out["done"]).to(_I32)], dim=1)
+    return out, stats
 
 
 def trace_brick(bsvo, origin, direction, with_stats=False):
@@ -303,34 +424,43 @@ def trace_brick(bsvo, origin, direction, with_stats=False):
     also ends once few rays can still step, ``TOP_DRAIN``), are never
     looser, and every ray that the reference finishes ends here alike."""
     depth, top_depth = bsvo.depth, bsvo.top_depth
-    nodes = torch.stack([bsvo.top_masks, bsvo.top_child, bsvo.top_parent], dim=1)
     st = walk_state(origin, direction, top_depth)
-    zi = torch.zeros_like(st["idx"])
-    st.update(parked=torch.zeros_like(st["done"]), brick_id=zi, hit_leaf=zi - 1,
-              rounds=zi, dda_steps=zi, top_capped=zi, dda_max=zi)
-    walk = Compacted(st, ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters",
-                          "done", "rounds", "dda_steps", "top_capped", "dda_max"))
-    n_top = max_iters_for_depth(top_depth)
-    for _ in range(rounds_for_depth(depth)):
-        walking = ~walk.state["done"]
-        n_walking = int(walking.sum())
-        if n_walking == 0:
-            break
-        if 2 * n_walking < walking.shape[0]:
-            walk.compact(walking)
-            walking = ~walk.state["done"]
-        s = walk.state
-        s["rounds"] = s["rounds"] + walking.to(_I32)
-        for _ in range(n_top):
-            if not bool((~s["done"] & ~s["parked"]).any()):
-                break
-            s = fast_step(s, nodes, park=True)
-        s["top_capped"] = s["top_capped"] + (~s["done"] & ~s["parked"]).to(_I32)
-        walk.state = _dda_round(s, bsvo.bricks, depth, top_depth)
-    out = walk.finish()
+    st["hit_leaf"] = torch.full_like(st["idx"], -1)
+    out, stats = _brick_rounds(
+        bsvo, st, ("hit_leaf", "hit_t", "hit_parent", "hit_child"),
+        max_iters_for_depth(top_depth), rounds_for_depth(depth),
+        lambda s: _dda_round(s, bsvo.bricks, depth, top_depth))
     res = TraceResult(out["hit_leaf"], out["hit_t"], out["hit_parent"],
                       out["hit_child"], out["iters"])
-    if not with_stats:
-        return res
-    return res, torch.stack([out["rounds"], out["dda_steps"], out["top_capped"],
-                             out["dda_max"], (~out["done"]).to(_I32)], dim=1)
+    return (res, stats) if with_stats else res
+
+
+def trace_brick_multi(bsvo, origin, direction, k=4, with_stats=False):
+    """The first `k` leaf segments of (N, 3) float32 rays through `bsvo`,
+    any N: the plain version of the ``brick_trace_multi`` kernel and the
+    counterpart of ``_trace_brick_multi_core``. The rounds of
+    ``trace_brick`` with the DDA in collect mode (``_dda_round_multi``): a
+    segment's t_out is its voxel's exit, which equals the stackless walk's
+    min(t_max, tc_max), so the segments are ``traverse.trace_multi``'s on
+    the source SVO. Returns a ``traverse.MultiTraceResult``, or
+    (MultiTraceResult, stats (N, 5) int32; columns ``traverse.STAT_NAMES``)
+    with `with_stats`.
+
+    The bounds are the reference's, on each ray: at most
+    ``max_iters_for_depth(top_depth) + 8 * k`` top steps and
+    ``dda_multi_steps(k)`` DDA steps a round, at most ``rounds_for_depth(
+    depth) + 8 * k`` rounds. The reference counts them for the batch and
+    ends a round's top walk early once few rays can still step
+    (``TOP_DRAIN``), which never lengthens a ray's stretch, so every ray it
+    finishes within them ends here with the same segments."""
+    if k < 1:
+        raise ValueError(f"k = {k}: a ray keeps at least one segment")
+    depth, top_depth = bsvo.depth, bsvo.top_depth
+    st = multi_state(walk_state(origin, direction, top_depth), k)
+    out, stats = _brick_rounds(
+        bsvo, st, ("hits_leaf", "t_in", "t_out", "count"),
+        multi_steps_for_depth(top_depth, k), rounds_for_depth(depth) + 8 * k,
+        lambda s: _dda_round_multi(s, bsvo.bricks, depth, top_depth, k))
+    res = MultiTraceResult(out["hits_leaf"], out["t_in"], out["t_out"],
+                           out["count"], out["iters"])
+    return (res, stats) if with_stats else res

@@ -4,10 +4,13 @@
 Counterparts of ``raytracingtest_tpu/ops/traverse.py::trace_jax`` (the
 stackless walk over the full tree, kernel ``esvo_stackless``) and
 ``raytracingtest_tpu/ops/brick.py::trace_brick_jax`` (the walk over the top
-tree with the brick DDA, kernel ``brick_trace``). CUDA tensors go to the
-kernels; CPU tensors go to the plain versions, ``traverse.trace_stackless``
-and ``brick.trace_brick``, which give the same bits. Nothing else picks the
-path: a build or launch failure raises.
+tree with the brick DDA, kernel ``brick_trace``), and of their k-segment
+forms ``trace_multi_jax`` and ``trace_brick_multi_jax`` (kernels
+``esvo_stackless_multi`` and ``brick_trace_multi``: ``trace_multi_cuda``,
+``trace_brick_multi_cuda``). CUDA tensors go to the kernels; CPU tensors go
+to the plain versions, ``traverse.trace_stackless``, ``brick.trace_brick``,
+``traverse.trace_multi`` and ``brick.trace_brick_multi``, which give the
+same bits. Nothing else picks the path: a build or launch failure raises.
 
 The kernels' forms give the same results (FORMS; the source's header says
 what each does, and PERF.md what it measured):
@@ -24,7 +27,8 @@ what each does, and PERF.md what it measured):
 ``probe_stackless_cuda`` and ``probe_brick_cuda`` launch a form with
 per-warp counters (``PROBE_FIELDS``), for measurement only.
 
-All take any ray count and return a ``TraceResult``; with
+All take any ray count and return a ``TraceResult`` (the k-segment forms a
+``MultiTraceResult``); with
 ``with_stats=True`` also (N, 5) int32 statistics a ray
 (``traverse.STAT_NAMES``): rounds begun, DDA steps, rounds stopped at the
 top walk's cap, the most DDA steps in a round, and whether a bound stopped
@@ -38,14 +42,16 @@ import torch
 from raytracingtest_tpu_torch._build import brick_lib
 from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.ops import brick, traverse
-from raytracingtest_tpu_torch.ops.traverse import STAT_NAMES, S_MAX, TraceResult
+from raytracingtest_tpu_torch.ops.traverse import (
+    STAT_NAMES, S_MAX, MultiTraceResult, TraceResult)
 
 _F32, _I32 = torch.float32, torch.int32
 
 # kernel launches made by this process (plain counts, for checks of the
 # path a run took): the main path's, the brick trace's other forms', the
 # probe forms'
-launches = {"esvo_stackless": 0, "brick_trace": 0}
+launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
+            "brick_trace_multi": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0}
 
@@ -55,6 +61,8 @@ _BRICK_TRACE = Kernel("brick_trace", brick_lib)
 _BRICK_TRACE_SERIAL = Kernel("brick_trace_serial", brick_lib)
 _BRICK_TRACE_UNSTAGED = Kernel("brick_trace_unstaged", brick_lib)
 _BRICK_TRACE_PROBE = Kernel("brick_trace_probe", brick_lib)
+_ESVO_STACKLESS_MULTI = Kernel("esvo_stackless_multi", brick_lib)
+_BRICK_TRACE_MULTI = Kernel("brick_trace_multi", brick_lib)
 
 # each kernel's forms, the brick trace's form numbers in the kernel, and
 # the threads of each form's blocks
@@ -114,9 +122,27 @@ def _form(kernel, form):
     return FORM_CODES[form]
 
 
-def _stackless_args(kernel, svo, origin, direction, with_stats):
-    """Check a stackless launch; returns (n, pointer arguments before the
-    scalars, outputs, stats)."""
+def _multi_outputs(n, k, device, with_stats):
+    """(hit_leaf, t_in, t_out (N, k); count, iters (N,)) and the stats of a
+    k-segment launch."""
+    out = (torch.empty((n, k), dtype=_I32, device=device),
+           torch.empty((n, k), dtype=_F32, device=device),
+           torch.empty((n, k), dtype=_F32, device=device),
+           torch.empty(n, dtype=_I32, device=device),
+           torch.empty(n, dtype=_I32, device=device))
+    stats = (torch.empty((n, len(STAT_NAMES)), dtype=_I32, device=device)
+             if with_stats else None)
+    return out, stats
+
+
+def _check_k(k, n):
+    if not 1 <= k or n * k >= 2 ** 31:
+        raise ValueError(f"k = {k} segments a ray for {n} rays out of range")
+
+
+def _stackless_args(kernel, svo, origin, direction, with_stats, k=None):
+    """Check a stackless launch (a k-segment one with `k`); returns (n,
+    pointer arguments before the scalars, outputs, stats)."""
     n, rays = _rays(origin, direction)
     parent_ptr = traverse.parent_ptr_of(svo)
     kernel.check(origin.device, rays + (
@@ -124,7 +150,11 @@ def _stackless_args(kernel, svo, origin, direction, with_stats):
         _table("parent_ptr", parent_ptr), _table("leaf_base", svo.leaf_base)))
     if not 1 <= svo.depth <= S_MAX - 1:
         raise ValueError(f"depth {svo.depth} out of range")
-    out, stats = _outputs(n, origin.device, with_stats)
+    if k is None:
+        out, stats = _outputs(n, origin.device, with_stats)
+    else:
+        _check_k(k, n)
+        out, stats = _multi_outputs(n, k, origin.device, with_stats)
     tables = (svo.masks.data_ptr(), svo.child_base.data_ptr(),
               parent_ptr.data_ptr(), svo.leaf_base.data_ptr(),
               origin.data_ptr(), direction.data_ptr())
@@ -140,9 +170,19 @@ def _stackless_kernel(svo, origin, direction, with_stats=False):
     return TraceResult(*out), stats
 
 
-def _brick_args(kernel, bsvo, origin, direction, with_stats):
-    """Check a brick launch; returns (n, pointer arguments before the
-    scalars, outputs, stats)."""
+def _stackless_multi_kernel(svo, origin, direction, k, with_stats=False):
+    """Launch ``esvo_stackless_multi`` on (N, 3) float32 CUDA rays."""
+    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI, svo, origin,
+                                            direction, with_stats, k)
+    _ESVO_STACKLESS_MULTI(origin.device, *tables, n, svo.depth, k,
+                          *_results(out, stats))
+    launches["esvo_stackless_multi"] += 1
+    return MultiTraceResult(*out), stats
+
+
+def _brick_args(kernel, bsvo, origin, direction, with_stats, k=None):
+    """Check a brick launch (a k-segment one with `k`); returns (n, pointer
+    arguments before the scalars, outputs, stats)."""
     n, rays = _rays(origin, direction)
     kernel.check(origin.device, rays + (
         _table("top_masks", bsvo.top_masks), _table("top_child", bsvo.top_child),
@@ -152,11 +192,25 @@ def _brick_args(kernel, bsvo, origin, direction, with_stats):
             or not 1 <= bsvo.top_depth or bsvo.depth > S_MAX - 1):
         raise ValueError(f"depth {bsvo.depth} / top_depth {bsvo.top_depth} "
                          f"out of range")
-    out, stats = _outputs(n, origin.device, with_stats)
+    if k is None:
+        out, stats = _outputs(n, origin.device, with_stats)
+    else:
+        _check_k(k, n)
+        out, stats = _multi_outputs(n, k, origin.device, with_stats)
     tables = (bsvo.top_masks.data_ptr(), bsvo.top_child.data_ptr(),
               bsvo.top_parent.data_ptr(), bsvo.bricks.data_ptr(),
               origin.data_ptr(), direction.data_ptr())
     return n, tables, out, stats
+
+
+def _brick_multi_kernel(bsvo, origin, direction, k, with_stats=False):
+    """Launch ``brick_trace_multi`` on (N, 3) float32 CUDA rays."""
+    n, tables, out, stats = _brick_args(_BRICK_TRACE_MULTI, bsvo, origin,
+                                        direction, with_stats, k)
+    _BRICK_TRACE_MULTI(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
+                       k, *_results(out, stats))
+    launches["brick_trace_multi"] += 1
+    return MultiTraceResult(*out), stats
 
 
 def _brick_kernel(bsvo, origin, direction, with_stats=False):
@@ -248,4 +302,28 @@ def trace_brick_cuda_serial(bsvo, origin, direction, with_stats=False):
     if origin.device.type == "cpu":
         return brick.trace_brick(bsvo, origin, direction, with_stats)
     res, stats = _brick_serial_kernel(bsvo, origin, direction, with_stats)
+    return (res, stats) if with_stats else res
+
+
+def trace_multi_cuda(svo, origin, direction, k=4, with_stats=False):
+    """The first `k` leaf segments of (N, 3) float32 rays in octree-local
+    coordinates through `svo`, any N: kernel ``esvo_stackless_multi`` for
+    CUDA tensors, the plain version ``traverse.trace_multi`` for CPU
+    tensors. Returns a MultiTraceResult, or (MultiTraceResult, stats (N,
+    5); all zero but `unfinished`)."""
+    if origin.device.type == "cpu":
+        return traverse.trace_multi(svo, origin, direction, k, with_stats)
+    res, stats = _stackless_multi_kernel(svo, origin, direction, k, with_stats)
+    return (res, stats) if with_stats else res
+
+
+def trace_brick_multi_cuda(bsvo, origin, direction, k=4, with_stats=False):
+    """The first `k` leaf segments of (N, 3) float32 rays through the brick
+    SVO `bsvo`, any N: kernel ``brick_trace_multi`` for CUDA tensors, the
+    plain version ``brick.trace_brick_multi`` for CPU tensors; the segments
+    are ``trace_multi_cuda``'s on the source SVO. Returns a
+    MultiTraceResult, or (MultiTraceResult, stats (N, 5))."""
+    if origin.device.type == "cpu":
+        return brick.trace_brick_multi(bsvo, origin, direction, k, with_stats)
+    res, stats = _brick_multi_kernel(bsvo, origin, direction, k, with_stats)
     return (res, stats) if with_stats else res

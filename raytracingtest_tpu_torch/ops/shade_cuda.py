@@ -2,7 +2,9 @@
 ``shade_fwd``, ``shade_bwd`` and ``segment_sum`` in ``csrc/shade.cu``.
 
 Counterpart of ``gather_voxel_params`` with ``shade_diff`` in
-``raytracingtest_tpu/diff.py`` and of the backward XLA derives for them.
+``raytracingtest_tpu/diff.py`` and of the backward XLA derives for them, and
+(``composite_fwd``, forward only) of ``_composite_segments``, the volumetric
+renderers' compositing of k leaf segments a ray.
 ``shade_fwd`` gathers a ray's parameter row from the three parameter tensors
 and shades it in one kernel. The backward is two calls: ``shade_bwd`` turns
 the image cotangent into the seven cotangents of each ray's row (a block's
@@ -39,13 +41,14 @@ _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 # kernel launches made by this process, by kernel (a call of segment_sum
 # counts once: its passes go out together)
 launches = {"shade_fwd": 0, "shade_bwd": 0, "shade_bwd_serial": 0,
-            "segment_sum": 0, "segment_sum_sorted": 0}
+            "segment_sum": 0, "segment_sum_sorted": 0, "composite_fwd": 0}
 
 _SHADE_FWD = Kernel("shade_fwd", shade_lib)
 _SHADE_BWD = Kernel("shade_bwd", shade_lib)
 _SHADE_BWD_SERIAL = Kernel("shade_bwd_serial", shade_lib)
 _SEGMENT_SUM = Kernel("segment_sum", shade_lib)
 _SEGMENT_SUM_SORTED = Kernel("segment_sum_sorted", shade_lib)
+_COMPOSITE_FWD = Kernel("composite_fwd", shade_lib)
 
 # csrc/shade.cu's SEG_SHORT: the longest run a leaf's own thread adds; longer
 # ones go to a block each
@@ -267,6 +270,104 @@ def segment_sum_sorted(cot, keys, order, n_leaves):
                         g_nrm.data_ptr(), g_den.data_ptr())
     launches["segment_sum_sorted"] += 1
     return g_alb, g_nrm, g_den
+
+
+def softplus(x):
+    """``jax.nn.softplus``, logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|));
+    ``F.softplus`` with its threshold is another function."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def composite_rows(alb, nrm, den, valid, t_in, t_out, sky, light_dir,
+                   light_intensity, light_ambient, density_scale):
+    """Emission-absorption compositing of k segments a ray whose parameter
+    rows are already gathered: `alb`, `nrm` (N, k, 3), `den`, `valid`,
+    `t_in`, `t_out` (N, k), `sky` (N, 3). Returns (N, 3) radiance,
+    differentiable in the rows: the counterpart of the reference's
+    ``_composite_segments`` after its gather. A segment's colour is
+    ``shade_rows``' Lambert term; its opacity alpha = (1 - exp(-softplus(den)
+    * density_scale * max(t_out - t_in, 0))) * valid; the transmittance in
+    front of segment i is the running product of (1 - alpha) + 1e-9 over the
+    segments before it, and the sky shows through t_before(k-1) * (1 -
+    alpha(k-1)), with no 1e-9."""
+    n, k = valid.shape
+    zero = den.new_zeros(())
+    ldir = light_dir / torch.sqrt(_sum3(light_dir * light_dir))
+    nrm = nrm.reshape(n * k, 3)
+    nn = nrm / torch.sqrt(torch.maximum(_sum3(nrm * nrm),
+                                        den.new_full((), 1e-12)))[:, None]
+    ndotl = torch.maximum(_sum3(nn * (-ldir)[None, :]), zero).reshape(n, k)
+    color = alb * (ndotl * light_intensity + light_ambient)[..., None]
+    seg_len = torch.maximum(t_out - t_in, zero)
+    sigma = softplus(den) * density_scale
+    alpha = (1.0 - torch.exp(-sigma * seg_len)) * valid
+    t_before = [alpha.new_ones(n)]
+    for i in range(1, k):
+        t_before.append(t_before[-1] * (1.0 - alpha[:, i - 1] + 1e-9))
+    out = t_before[0][:, None] * alpha[:, 0, None] * color[:, 0]
+    for i in range(1, k):
+        out = out + (t_before[i] * alpha[:, i])[:, None] * color[:, i]
+    t_final = t_before[-1] * (1.0 - alpha[:, -1])
+    return out + t_final[:, None] * sky
+
+
+def composite_plain(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                    light_dir, light_intensity, light_ambient, density_scale):
+    """``composite_fwd`` in tensor operations on any device: each slot's
+    row by plain indexing (a padded slot reads leaf 0 and gets alpha 0),
+    then ``composite_rows`` under the procedural sky."""
+    n, k = hit_leaf.shape
+    valid, leaf = safe_leaf(hit_leaf.reshape(-1), albedo.shape[0])
+    alb, nrm, den = index_rows(leaf, albedo, normal, density)
+    return composite_rows(alb.reshape(n, k, 3), nrm.reshape(n, k, 3),
+                          den.reshape(n, k), valid.reshape(n, k), t_in, t_out,
+                          sky_color(d), light_dir, light_intensity,
+                          light_ambient, density_scale)
+
+
+def composite_fwd(hit_leaf, t_in, t_out, d, albedo, normal, density, light_dir,
+                  light_intensity, light_ambient, density_scale):
+    """(N, 3) radiance of rays from their first k leaf segments: `hit_leaf`
+    (N, k) int32 (negative: an empty slot), `t_in`, `t_out` (N, k) float32,
+    `d` (N, 3), the parameter tensors of n_leaves >= 1 leaves, `light_dir`
+    (3,); the procedural sky behind. The kernel runs for CUDA tensors, the
+    plain version ``composite_plain`` for CPU tensors. No gradient."""
+    if hit_leaf.device.type == "cpu":
+        return composite_plain(hit_leaf, t_in, t_out, d, albedo, normal,
+                               density, light_dir, light_intensity,
+                               light_ambient, density_scale)
+    return _composite_kernel(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                             light_dir, light_intensity, light_ambient,
+                             density_scale)
+
+
+def _composite_kernel(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                      light_dir, light_intensity, light_ambient, density_scale):
+    """Launch ``composite_fwd`` on CUDA tensors (arguments as
+    ``composite_fwd``)."""
+    device = hit_leaf.device
+    if hit_leaf.dim() != 2:
+        raise ValueError(f"hit_leaf has shape {tuple(hit_leaf.shape)}, "
+                         f"expected (N, k)")
+    (n, k), n_leaves = hit_leaf.shape, albedo.shape[0]
+    if n_leaves < 1 or k < 1 or n * k >= 2 ** 31:
+        raise ValueError(f"{n_leaves} leaves, {n} rays or k = {k} out of range")
+    _COMPOSITE_FWD.check(device, (
+        ("hit_leaf", hit_leaf, _I32, (n, k)), ("t_in", t_in, _F32, (n, k)),
+        ("t_out", t_out, _F32, (n, k)), ("d", d, _F32, (n, 3)),
+        ("albedo", albedo, _F32, (n_leaves, 3)),
+        ("normal", normal, _F32, (n_leaves, 3)),
+        ("density", density, _F32, (n_leaves,)),
+        ("light_dir", light_dir, _F32, (3,))))
+    out = torch.empty((n, 3), dtype=_F32, device=device)
+    _COMPOSITE_FWD(device, hit_leaf.data_ptr(), t_in.data_ptr(),
+                   t_out.data_ptr(), d.data_ptr(), albedo.data_ptr(),
+                   normal.data_ptr(), density.data_ptr(), n_leaves,
+                   light_dir.data_ptr(), float(light_intensity),
+                   float(light_ambient), float(density_scale), k,
+                   out.data_ptr(), n)
+    launches["composite_fwd"] += 1
+    return out
 
 
 class ShadeCuda(torch.autograd.Function):

@@ -4,7 +4,9 @@ Port of ``raytracingtest_tpu/ops/traverse.py``: ``init_state``, ``step``,
 ``trace_numpy`` (the walk with a stack, below), and the stackless walk of the
 reference's XLA path, ``_fast_step`` / ``_trace_core`` / ``trace_jax``, as
 ``fast_step`` / ``trace_stackless`` (the end of the module), with
-``derive_parent_ptr`` and ``parent_ptr_of``.
+``derive_parent_ptr`` and ``parent_ptr_of``; and its k-segment walk,
+``_trace_multi_core`` / ``trace_multi_jax``, as ``trace_multi`` (the plain
+version of the ``esvo_stackless_multi`` kernel), with ``MultiTraceResult``.
 
 The walk with a stack: every lane runs every iteration; PUSH/ADVANCE/POP are
 ``torch.where`` selects and the per-ray stack is a (depth, N) pair of
@@ -303,19 +305,24 @@ def walk_state(origin, direction, depth):
                 iters=s.iters)
 
 
-def fast_step(st, nodes, park=False):
+def fast_step(st, nodes, park=False, k=0):
     """One step of the stackless walk on the rays of `st` that are walking
     (not done; with `park`, not parked either). Counterpart of
-    ``_fast_step`` (and, with `park`, of ``brick._top_step`` without its LOD
-    branch). `nodes` (n, 3) int32 holds each row's (masks, child_base,
-    parent_ptr). Returns a new dict.
+    ``_fast_step`` (with `park`, of ``brick._top_step`` without its LOD
+    branch; with `k`, of the step of ``_trace_multi_core``). `nodes` (n, 3)
+    int32 holds each row's (masks, child_base, parent_ptr), and with `k` a
+    fourth column, leaf_base. Returns a new dict.
 
     One row a step; no stack: the parent's exit t comes from `pos` rounded
     up to the parent's grid, and POP climbs one level through parent_ptr.
     `popped` marks a ray that climbed on its last step, whose current child
     is the one it just left: it may not enter it again. Entering a leaf
-    child is a hit (the parent and the unmirrored slot are recorded), or,
-    with `park`, parks the ray at brick ``child_base + leaf rank``."""
+    child is a hit (the parent and the unmirrored slot are recorded); with
+    `park`, it parks the ray at brick ``child_base + leaf rank``; with `k`
+    (collect mode), it records the segment (leaf, t_min, min(t_max,
+    tc_max)) in slot `count` of (N, k) `hits_leaf`, `t_in`, `t_out`, and the
+    ray ADVANCEs in the same step unless it now holds k segments, which
+    ends it."""
     walking = ~st["done"] & ~st["parked"] if park else ~st["done"]
     nd = nodes[st["parent"].long()]
     desc, cbase, pptr = nd[:, 0], nd[:, 1], nd[:, 2]
@@ -347,11 +354,22 @@ def fast_step(st, nodes, park=False):
 
     out = dict(st)
     leaf_now = enter & leaf_bit
+    full = None
     if park:
         out["brick_id"] = torch.where(leaf_now, cbase + popc8(vm & lm & below),
                                       st["brick_id"])
         out["parked"] = st["parked"] | leaf_now
         done = st["done"]
+    elif k:
+        leaf_id = nd[:, 3] + popc8(vm & lm & below)
+        slots = torch.arange(k, dtype=_I32, device=desc.device)[None, :]
+        sel = (slots == st["count"][:, None]) & leaf_now[:, None]
+        out["hits_leaf"] = torch.where(sel, leaf_id[:, None], st["hits_leaf"])
+        out["t_in"] = torch.where(sel, t_min[:, None], st["t_in"])
+        out["t_out"] = torch.where(sel, tv_max[:, None], st["t_out"])
+        out["count"] = st["count"] + leaf_now.to(_I32)
+        full = out["count"] >= k
+        done = st["done"] | full
     else:
         out["hit_parent"] = torch.where(leaf_now, st["parent"], st["hit_parent"])
         out["hit_child"] = torch.where(leaf_now, child_shift, st["hit_child"])
@@ -366,8 +384,9 @@ def fast_step(st, nodes, park=False):
     pos = torch.where(push[:, None], pos + torch.where(upper, half[:, None], 0.0), pos)
     scale = torch.where(push, scale - 1, scale)
 
-    # ---- ADVANCE: step to the sibling, or POP one level ----
-    adv = walking & ~push & ~leaf_now
+    # ---- ADVANCE: step to the sibling, or POP one level (in collect mode
+    # a ray that recorded a segment advances too, unless it is full) ----
+    adv = walking & ~push & (~leaf_now if full is None else ~full)
     step_bits = t_corner <= tc_max[:, None]
     step_mask = _bits(step_bits)
     idx_adv = st["idx"] ^ step_mask
@@ -445,21 +464,91 @@ def trace_stackless(svo, origin, direction, with_stats=False):
     nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
     walk = Compacted(walk_state(origin, direction, svo.depth),
                      ("hit_parent", "hit_child", "hit_t", "iters", "done"))
-    for _ in range(max_iters_for_depth(svo.depth)):
+    out = _walk(walk, nodes, max_iters_for_depth(svo.depth))
+    hit_leaf = resolve_leaf(masks, svo.leaf_base, out["hit_parent"], out["hit_child"])
+    res = TraceResult(hit_leaf, out["hit_t"], out["hit_parent"], out["hit_child"],
+                      out["iters"])
+    return (res, _unfinished_stats(out["done"])) if with_stats else res
+
+
+def _walk(walk, nodes, n_steps, k=0):
+    """Step the rays of the Compacted `walk` that are walking, at most
+    `n_steps` steps each (``fast_step``, in collect mode with `k`); returns
+    the outputs."""
+    for _ in range(n_steps):
         walking = ~walk.state["done"]
         n_walking = int(walking.sum())
         if n_walking == 0:
             break
         if 2 * n_walking < walking.shape[0]:
             walk.compact(walking)
-        walk.state = fast_step(walk.state, nodes)
-    out = walk.finish()
-    hit_leaf = resolve_leaf(masks, svo.leaf_base, out["hit_parent"], out["hit_child"])
-    res = TraceResult(hit_leaf, out["hit_t"], out["hit_parent"], out["hit_child"],
-                      out["iters"])
-    if not with_stats:
-        return res
-    stats = torch.zeros((hit_leaf.shape[0], len(STAT_NAMES)), dtype=_I32,
-                        device=hit_leaf.device)
-    stats[:, STAT_NAMES.index("unfinished")] = (~out["done"]).to(_I32)
-    return res, stats
+        walk.state = fast_step(walk.state, nodes, k=k)
+    return walk.finish()
+
+
+def _unfinished_stats(done):
+    """The statistics of a walk without rounds: zeros, and 1 in the
+    `unfinished` column where a bound stopped a ray still walking."""
+    stats = torch.zeros((done.shape[0], len(STAT_NAMES)), dtype=_I32,
+                        device=done.device)
+    stats[:, STAT_NAMES.index("unfinished")] = (~done).to(_I32)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# the first k leaf segments of each ray (the reference's `_trace_multi_core`)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MultiTraceResult:
+    """Up to k ordered leaf segments a ray, for volumetric rendering."""
+
+    hit_leaf: torch.Tensor  # int32 (N, k) leaf rows in t order, -1 padded
+    t_in: torch.Tensor      # float32 (N, k) segment entry t, 0.0 padded
+    t_out: torch.Tensor     # float32 (N, k) segment exit t, 0.0 padded
+    count: torch.Tensor     # int32 (N,) segments found
+    iters: torch.Tensor     # int32 (N,) steps taken
+
+
+def multi_steps_for_depth(depth: int, k: int) -> int:
+    """The k-segment walk's bound on each ray's steps (the reference's
+    ``max_iters_for_depth(depth) + 8 * k``)."""
+    return max_iters_for_depth(depth) + 8 * k
+
+
+def multi_state(state, k):
+    """`state` with the k-segment walk's slots added: (N, k) hits_leaf,
+    t_in and t_out padded -1, 0.0, 0.0, and a count of 0."""
+    n = state["done"].shape[0]
+    device = state["done"].device
+    return dict(state, count=torch.zeros(n, dtype=_I32, device=device),
+                hits_leaf=torch.full((n, k), -1, dtype=_I32, device=device),
+                t_in=torch.zeros((n, k), dtype=_F32, device=device),
+                t_out=torch.zeros((n, k), dtype=_F32, device=device))
+
+
+MULTI_OUTPUTS = ("hits_leaf", "t_in", "t_out", "count", "iters", "done")
+
+
+def trace_multi(svo, origin, direction, k=4, with_stats=False):
+    """The first `k` leaf segments of (N, 3) float32 rays through `svo`, any
+    N: the plain version of the ``esvo_stackless_multi`` kernel and the
+    counterpart of ``_trace_multi_core``. The stackless walk in collect
+    mode: entering a leaf records (leaf, t_min, min(t_max, tc_max)) and the
+    ray walks on; it ends with k segments or when it leaves the root.
+    Returns a MultiTraceResult, or (MultiTraceResult, stats (N, 5) int32;
+    columns ``STAT_NAMES``, all zero but `unfinished`) with `with_stats`.
+
+    Each ray takes at most ``multi_steps_for_depth(depth, k)`` steps: the
+    reference's loop checks that count for the batch and steps every ray
+    still walking, and does not compact, so it is each ray's own bound."""
+    if k < 1:
+        raise ValueError(f"k = {k}: a ray keeps at least one segment")
+    nodes = torch.stack([svo.masks, svo.child_base, parent_ptr_of(svo),
+                         svo.leaf_base], dim=1)
+    walk = Compacted(multi_state(walk_state(origin, direction, svo.depth), k),
+                     MULTI_OUTPUTS)
+    out = _walk(walk, nodes, multi_steps_for_depth(svo.depth, k), k=k)
+    res = MultiTraceResult(out["hits_leaf"], out["t_in"], out["t_out"],
+                           out["count"], out["iters"])
+    return (res, _unfinished_stats(out["done"])) if with_stats else res

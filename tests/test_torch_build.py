@@ -162,6 +162,7 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.brick_cuda",
     "raytracingtest_tpu_torch.ops.brick_dda",
     "raytracingtest_tpu_torch.ops.camera",
+    "raytracingtest_tpu_torch.ops.codecs",
     "raytracingtest_tpu_torch.ops.gather",
     "raytracingtest_tpu_torch.ops.octree",
     "raytracingtest_tpu_torch.ops.rowread",

@@ -42,6 +42,9 @@ KERNELS = {
     "brick_trace_serial": brick_cuda._BRICK_TRACE_SERIAL,
     "brick_trace_unstaged": brick_cuda._BRICK_TRACE_UNSTAGED,
     "brick_trace_probe": brick_cuda._BRICK_TRACE_PROBE,
+    "esvo_stackless_multi": brick_cuda._ESVO_STACKLESS_MULTI,
+    "brick_trace_multi": brick_cuda._BRICK_TRACE_MULTI,
+    "composite_fwd": shade_cuda._COMPOSITE_FWD,
 }
 
 
