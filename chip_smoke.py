@@ -53,8 +53,23 @@ The serving renderers: `[frame-volumetric]` drives `VolumetricRenderer.render`
 `composite_fwd`) on the same frame, holds both k-segment traces bitwise and
 `composite_fwd` to 1e-6 against their plain versions (there and on small
 cases in `[parity]`), counts the rays each trace stops at a bound and the
-rays on which the two part, checks slot 0 against `esvo_stackless`'s hit,
-and that a parameter which requires a gradient raises on the card.
+rays on which the two part (printing them, `[parting]`, and saving their
+origins and directions as float32 bits to build/; the reference's two walks
+part on the same rays when its arithmetic rounds as the port's does, F19),
+checks slot 0 against `esvo_stackless`'s hit, and that a parameter which
+requires a gradient gets one on the card.
+`[frame-lod]` renders the frame as `cli render --lod-coef` does at depth 10
+(node attributes on the host, `brick_trace_lod`, `lod.shade_lod`) and through
+`lod.render_lod` (`esvo_stackless_lod`) at four footprint coefficients: the
+camera's pixel footprint c0, 8 c0, 0.4 and 0; both LOD kernels are held
+bitwise against their plain versions at c0 and 8 c0 (and on small cases in
+`[parity]`), against `brick_trace` and `esvo_stackless` at 0, and against
+each other at 0.4. `[step-volumetric]` takes the volumetric L2 step on both
+routes under `torch.autograd.grad` (kernels: the k-segment trace,
+`composite_fwd`, `composite_bwd`, `segment_sum`), holds `composite_bwd` to
+rtol 1e-5 against `composite_bwd_plain`, the per-leaf sums bitwise against
+a serial scatter-add, and the gradients against builtin autograd of
+`shade_cuda.composite_rows` on the card.
 `[surface]` drives `SurfaceRenderer` on each of its routes (the tile route
 through `render_progressive` with four samples, the brick route on a 1000²
 pinhole and on an orthographic camera, `render.render_image` for a skybox off
@@ -83,7 +98,7 @@ from raytracingtest_tpu_torch.models import (
     InverseRenderer, SurfaceRenderer, VolumetricRenderer)
 from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import (
-    brick, brick_cuda, brick_dda, camera, codecs, gather, octree, rowread,
+    brick, brick_cuda, brick_dda, camera, codecs, gather, lod, octree, rowread,
     shade_cuda, tile, tile_cuda, traverse, traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
@@ -125,13 +140,28 @@ OPS_COMPOSITE_RAY = 25
 # the volumetric renderers' segments a ray, and the composite's density scale
 VOLUME_K = 4
 DENSITY_SCALE = 64.0
+# the backward of one valid slot: its forward again (OPS_COMPOSITE_SLOT) and
+# the reverse (the albedo, normal and density cotangents and the carried
+# transmittance's), counted from composite_bwd_kernel
+OPS_COMPOSITE_BWD_SLOT = 130
+# the LOD frames' footprint coefficients: the pixel footprint of bench.py's
+# 1024-pixel camera (2 tan(fov / 2) / height, trace_lod_jax's docstring), the
+# reference test's coarse setting (8 c0), its brick-parity setting and 0
+LOD_C0 = 2.0 * np.tan(np.radians(25.0)) / 1024
+LOD_COEFS = (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0.4", 0.4), ("0", 0.0))
 
 # calls of plain versions that the main path must not make, counted by
 # count_plain_calls()
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
-               "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0}
+               "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
+               "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0}
 # the launch counts of the kernels this checkout adds to the earlier ones'
-MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0)
+MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0,
+                  esvo_stackless_lod=0, brick_trace_lod=0)
+# the compositing backward's and the LOD traces' plain calls and launches
+# that the training steps must not make
+STEP_ZERO = dict(trace_lod=0, trace_brick_lod=0, composite_bwd_plain=0,
+                 composite_bwd=0)
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
 # the brick trace's other forms' and the probe forms'
@@ -260,20 +290,24 @@ def reset_counts():
 
 def count_plain_calls():
     """From here on, count every call of ``tile.candidates_plain``,
-    ``brick.trace_brick``, ``traverse.trace_stackless``, the k-segment traces'
-    plain versions and ``shade_cuda.composite_plain`` in PLAIN_CALLS (their
-    callers look them up in their modules at each call)."""
+    ``brick.trace_brick``, ``traverse.trace_stackless``, the k-segment and
+    LOD traces' plain versions, ``shade_cuda.composite_plain`` and
+    ``shade_cuda.composite_bwd_plain`` in PLAIN_CALLS (their callers look
+    them up in their modules at each call)."""
     for mod, name, key in ((tile, "candidates_plain", "candidates_plain"),
                            (brick, "trace_brick", "trace_brick"),
                            (traverse, "trace_stackless", "trace_stackless"),
                            (traverse, "trace_multi", "trace_multi"),
                            (brick, "trace_brick_multi", "trace_brick_multi"),
-                           (shade_cuda, "composite_plain", "composite_plain")):
+                           (shade_cuda, "composite_plain", "composite_plain"),
+                           (traverse, "trace_lod", "trace_lod"),
+                           (brick, "trace_brick_lod", "trace_brick_lod"),
+                           (shade_cuda, "composite_bwd_plain", "composite_bwd_plain")):
         plain = getattr(mod, name)
 
-        def counted(*args, _plain=plain, _key=key):
+        def counted(*args, _plain=plain, _key=key, **kw):
             PLAIN_CALLS[_key] += 1
-            return _plain(*args)
+            return _plain(*args, **kw)
         setattr(mod, name, counted)
 
 
@@ -411,6 +445,27 @@ def expect_launches(what, fn, want, allow=()):
     return out, got
 
 
+PARTING_RAYS = os.path.join(_build.BUILD_DIR, "parting_rays.npy")
+
+
+def dump_parting_rays(apart, o, d, seg_b, seg_s):
+    """The rays on which the two k-segment traces part, for a run of the
+    reference on the host: (ray index, origin bits (3), direction bits (3))
+    int64 rows, float32 bit patterns, saved to PARTING_RAYS and printed with
+    both traces' segments."""
+    rays = torch.nonzero(apart)[:, 0]
+    rows = torch.cat([rays[:, None], bits(o[rays]).long(), bits(d[rays]).long()],
+                     dim=1).cpu().numpy()
+    os.makedirs(os.path.dirname(PARTING_RAYS), exist_ok=True)
+    np.save(PARTING_RAYS, rows)
+    for row, i in zip(rows.tolist(), rays.tolist()):
+        seg = lambda s: (s.hit_leaf[i].tolist(), int(s.count[i]),
+                         [f"{v:.9g}" for v in s.t_in[i].tolist()],
+                         [f"{v:.9g}" for v in s.t_out[i].tolist()])
+        say(f"[parting] ray {row[0]} origin bits {row[1:4]} direction bits "
+            f"{row[4:7]}: brick {seg(seg_b)}, stackless {seg(seg_s)}")
+
+
 def serving(ctx, card):
     """[frame-volumetric] and [surface]: the serving renderers at full
     width on the depth-10 frame. Returns what the kernels line and the
@@ -482,23 +537,24 @@ def serving(ctx, card):
                        (kb[0].t_out - ks[0].t_out)[apart]]).abs()
     out["apart"] = (int(apart.sum()), int(apart_leaf.sum()),
                     float(t_gap.max()) if t_gap.numel() else 0.0)
+    dump_parting_rays(apart, o, d, kb[0], ks[0])
     if n_slot0 or int(apart.sum()) > MAX_DIFFER:
         raise AssertionError(f"k-segment traces: {int(apart.sum())} rays part "
                              f"between the two, slot 0 differs from "
                              f"esvo_stackless on {n_slot0}")
-    # on the card, a parameter that requires a gradient raises and launches
-    # nothing
+    # on the card, a parameter that requires a gradient gets one: the image
+    # through composite_fwd, its backward through composite_bwd and
+    # segment_sum
     needs_grad = params[0].detach().clone().requires_grad_(True)
-    reset_counts()
-    try:
-        diff.render_volumetric(needs_grad, params[1], params[2], svo, o, d, light)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("render_volumetric with a parameter that requires "
-                             "a gradient did not raise on the card")
-    if any(launch_counts().values()):
-        raise AssertionError("render_volumetric launched a kernel before refusing")
+    grad, grad_launches = expect_launches(
+        "render_volumetric with a parameter that requires a gradient, and its "
+        "gradient", lambda: torch.autograd.grad(diff.render_volumetric(
+            needs_grad, params[1], params[2], svo, o, d, light, k=k,
+            density_scale=DENSITY_SCALE).sum(), needs_grad)[0],
+        dict(esvo_stackless_multi=1, composite_fwd=1, composite_bwd=1, segment_sum=1))
+    if (grad.shape != params[0].shape or not bool(torch.isfinite(grad).all())
+            or not float(grad.abs().max()) > 0.0):
+        raise AssertionError("render_volumetric on the card: no finite gradient")
     out["segments"] = dict(
         brick=(int(kb[0].count.sum()), int(kb[0].iters.sum())
                - int(kb[1][:, STAT("dda_steps")].sum()),
@@ -547,8 +603,8 @@ def serving(ctx, card):
         f"with another leaf or count, the rest only t bits; the t's of those "
         f"rays part by up to {out['apart'][2]}), and slot 0 == "
         f"esvo_stackless's hit on all {int(first_ok.sum())} that esvo_stackless "
-        f"finishes too; a parameter that requires a gradient raises "
-        f"NotImplementedError and launches nothing")
+        f"finishes too; a parameter that requires a gradient gets a finite, "
+        f"nonzero one (launches {grad_launches})")
     say(f"[frame-volumetric] {card}: VolumetricRenderer.render median "
         f"{m['vol_model'][0]:.4f} ms (p80 {m['vol_model'][1]:.4f}, n=50) = "
         f"{n_rays / m['vol_model'][0] / 1e3:.2f} Mrays/s (its camera's rays and "
@@ -653,6 +709,323 @@ def serving(ctx, card):
     return out
 
 
+def compare_lod(kern, plain, what):
+    """Two (TraceResult, stats) pairs of the LOD traces bitwise, hit_node
+    too; returns the largest absolute difference of hit_t."""
+    err = compare_stats(kern, plain, what)
+    if not torch.equal(kern[0].hit_node, plain[0].hit_node):
+        bad = int((kern[0].hit_node != plain[0].hit_node).sum())
+        raise AssertionError(f"{what}: hit_node differs on {bad} rays")
+    return err
+
+
+def lod_ends(res, stats):
+    """An LOD trace's rays in words: ending at a node, at a leaf, at no hit;
+    cut at the bound; steps a ray."""
+    node, leaf = res.hit_node >= 0, res.hit_leaf >= 0
+    return dict(node=int(node.sum()), leaf=int(leaf.sum()),
+                none=int((~node & ~leaf).sum()),
+                cut=int(stats[:, STAT("unfinished")].sum()),
+                steps=float(res.iters.double().mean()))
+
+
+def lod_parity(dev, cam, err):
+    """[parity] of the LOD traces (through their launchers) against their
+    plain versions on small trees, bitwise (hit_leaf, hit_node, hit_t bits,
+    hit_parent, hit_child, iters, statistics): every ray set at the
+    camera's pixel footprint c0 and at 8 and 32 times it, the camera's rays
+    also at 0.4 and at 0, where each must equal its trace without LOD."""
+    empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
+    c0 = 2.0 * np.tan(np.radians(25.0)) / cam.height
+    lines, n_cases = [], 0
+    for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
+                        ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        svo_s, bsvo_s = host.to(dev), brick.make_brick_svo(host).to(dev)
+        found = []
+        for kind, o, d in ray_sets(dev, cam, 4096, depth + 200):
+            coefs = (c0, 8 * c0, 32 * c0) + ((0.4, 0.0) if kind == "camera" else ())
+            for coef in coefs:
+                what = f"{name} d{depth} {kind} rays N={o.shape[0]} coef {coef:.6g}"
+                ks = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True)
+                kb = brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True)
+                ps = traverse.trace_lod(svo_s, o, d, coef, 0.0, True)
+                pb = brick.trace_brick_lod(bsvo_s, o, d, coef, 0.0, True)
+                torch.cuda.synchronize()
+                err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
+                    ks, ps, f"esvo_stackless_lod, {what}"))
+                err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
+                    kb, pb, f"brick_trace_lod, {what}"))
+                if coef == 0.0:
+                    compare_stats(ks, brick_cuda._stackless_kernel(svo_s, o, d, True),
+                                  f"esvo_stackless_lod at 0 against esvo_stackless, {what}")
+                    compare_stats(kb, brick_cuda._brick_kernel(bsvo_s, o, d, True),
+                                  f"brick_trace_lod at 0 against brick_trace, {what}")
+                    if bool((ks[0].hit_node >= 0).any() or (kb[0].hit_node >= 0).any()):
+                        raise AssertionError(f"{what}: a node stop at coefficient 0")
+                n_cases += 1
+                if kind == "camera" and coef != 0.0:
+                    found.append(f"{lod_ends(*ks)['node']}/{lod_ends(*kb)['node']}")
+        lines.append(f"{name} d{depth}: " + ", ".join(found))
+    say(f"[parity] esvo_stackless_lod and brick_trace_lod (through their "
+        f"launchers) == traverse.trace_lod and brick.trace_brick_lod bitwise "
+        f"(hit_leaf, hit_node, hit_t bits, hit_parent, hit_child, iters, "
+        f"statistics) on {n_cases} cases (camera rays 128x128 at c0 = "
+        f"{c0:.6g}, 8 c0, 32 c0, 0.4 and 0; 4,096 rays from a shell and from "
+        f"inside the cube at c0, 8 c0 and 32 c0), and at 0 == esvo_stackless "
+        f"and brick_trace with no node stop; the camera's rays stopped at a "
+        f"node by the stackless/brick trace at c0, 8 c0, 32 c0, 0.4: "
+        + "; ".join(lines))
+
+
+def frame_lod(ctx, card):
+    """[frame-lod]: the LOD render of `cli render --lod-coef` on the
+    depth-10 frame at each of LOD_COEFS: the node attributes on the host,
+    then the LOD brick trace and shade_lod (the command's sequence at this
+    depth), and render_lod through the LOD stackless trace. Returns what the
+    kernels line and the profile take from it."""
+    dev, host_svo, svo, bsvo = ctx["dev"], ctx["host_svo"], ctx["svo"], ctx["bsvo"]
+    o, d, routes, err, res = ctx["o"], ctx["d"], ctx["routes"], ctx["err"], ctx["res"]
+    n_rays = o.shape[0]
+    t0 = time.perf_counter()
+    node_alb, node_nrm = lod.compute_node_attributes(host_svo)
+    attr_s = time.perf_counter() - t0
+    node_alb, node_nrm = node_alb.to(dev), node_nrm.to(dev)
+    light = render.Light()
+    c0 = LOD_C0
+    frame = lambda coef: lod.shade_lod(svo, node_alb, node_nrm,
+                                       brick_cuda.trace_brick_lod_cuda(bsvo, o, d, coef),
+                                       d, light)
+    stackless = lambda coef: lod.render_lod(svo, node_alb, node_nrm, o, d, coef,
+                                            light)[0]
+    img, got_b = expect_launches("the LOD frame (brick route)", lambda: frame(c0),
+                                 dict(brick_trace_lod=1))
+    img_s, got_s = expect_launches("render_lod (stackless route)", lambda: stackless(c0),
+                                   dict(esvo_stackless_lod=1))
+    for what, im in (("brick route", img), ("render_lod", img_s)):
+        if im.shape != (n_rays, 3) or not bool(torch.isfinite(im).all()):
+            raise AssertionError(f"LOD frame, {what}: bad image")
+    out = dict(attr_s=attr_s, launches=dict(brick_trace_lod=got_b["brick_trace_lod"],
+                                            esvo_stackless_lod=got_s["esvo_stackless_lod"]),
+               ends={}, plain_ms={}, node_alb=node_alb, node_nrm=node_nrm,
+               light=light)
+    lines = []
+    for name, coef in LOD_COEFS:
+        kb = brick_cuda._brick_lod_kernel(bsvo, o, d, coef, 0.0, True)
+        ks = brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True)
+        torch.cuda.synchronize()
+        if name in ("c0", "8c0"):
+            t0 = time.perf_counter()
+            pb = brick.trace_brick_lod(bsvo, o, d, coef, 0.0, True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ps = traverse.trace_lod(svo, o, d, coef, 0.0, True)
+            torch.cuda.synchronize()
+            out["plain_ms"][name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+            err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
+                kb, pb, f"brick_trace_lod, terrain d10 frame, coef {name}"))
+            err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
+                ks, ps, f"esvo_stackless_lod, terrain d10 frame, coef {name}"))
+            check = "== its plain version bitwise"
+        elif name == "0":
+            compare_stats(kb, (routes["brick"]["res"], routes["brick"]["stats"]),
+                          "brick_trace_lod at 0 against brick_trace, terrain d10 frame")
+            compare_stats(ks, (routes["plain"]["res"], routes["plain"]["stats"]),
+                          "esvo_stackless_lod at 0 against esvo_stackless, terrain d10 frame")
+            if bool((kb[0].hit_node >= 0).any() or (ks[0].hit_node >= 0).any()):
+                raise AssertionError("the LOD traces stop at a node at coefficient 0")
+            # the image without LOD: shade_lod of leaf hits is render.shade
+            plain_img = render.shade(kb[0].hit_leaf, d, svo.leaf_albedo,
+                                     svo.leaf_normal, light)
+            if not torch.equal(lod.shade_lod(svo, node_alb, node_nrm, kb[0], d, light),
+                               plain_img):
+                raise AssertionError("shade_lod at coefficient 0 differs from render.shade")
+            check = ("== brick_trace and esvo_stackless bitwise, no node stop, "
+                     "the image == render.shade's")
+        else:
+            # the two traces walk the same top tree above the bricks; rays
+            # on which they part are counted as F19's are (the reference's
+            # two walks part on the same rays when they round alike)
+            cut = ks[1][:, STAT("unfinished")] == 1
+            apart = ~cut & ((kb[0].hit_node != ks[0].hit_node)
+                            | (kb[0].hit_leaf != ks[0].hit_leaf)
+                            | (bits(kb[0].hit_t) != bits(ks[0].hit_t)))
+            out["apart"] = int(apart.sum())
+            if out["apart"] > MAX_DIFFER:
+                raise AssertionError(f"the LOD traces part on {out['apart']} rays at 0.4")
+            check = (f"the two traces part on {out['apart']} of the "
+                     f"{int((~cut).sum())} rays the stackless one finishes")
+        out["ends"][name] = dict(brick=lod_ends(*kb), stackless=lod_ends(*ks))
+        if name == "c0":
+            out["c0"] = (kb, ks)
+        words = lambda e: (f"{e['node']} at a node, {e['leaf']} at a leaf, {e['none']} "
+                           f"with no hit, {e['cut']} cut at the bound, "
+                           f"{e['steps']:.2f} steps a ray")
+        lines.append(f"coef {name} ({coef:.6g}): brick_trace_lod "
+                     + words(out["ends"][name]["brick"]) + "; esvo_stackless_lod "
+                     + words(out["ends"][name]["stackless"]) + f"; {check}")
+    t = {"frame": cuda_ms(lambda: frame(c0), 50, 3),
+         "render_lod": cuda_ms(lambda: stackless(c0), 50, 3),
+         "frame_8c0": cuda_ms(lambda: frame(8 * c0), 50, 3)}
+    t.update(in_turns({
+        "brick_trace_lod": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, c0),
+        "esvo_stackless_lod": lambda: brick_cuda.trace_lod_cuda(svo, o, d, c0),
+        "brick_trace_lod_8c0": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * c0),
+        "esvo_stackless_lod_8c0": lambda: brick_cuda.trace_lod_cuda(svo, o, d, 8 * c0),
+        "brick_trace": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
+        "esvo_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)}))
+    out["ms"] = m = {k: med_p80(v) for k, v in t.items()}
+    say(f"[frame-lod] {res}x{res} depth 10, the default Light: node attributes "
+        f"of {host_svo.n_nodes} nodes on the host in {attr_s:.2f} s; the frame "
+        f"(brick_trace_lod, shade_lod) launched {got_b}, render_lod {got_s}, no "
+        f"other kernel and no plain call; " + "; ".join(lines)
+        + f" (plain versions at c0 {out['plain_ms']['c0'][0]:.1f} and "
+        f"{out['plain_ms']['c0'][1]:.1f} ms, n=1)")
+    say(f"[frame-lod] {card}: at c0 the frame (brick_trace_lod, shade_lod) "
+        f"median {m['frame'][0]:.4f} ms (p80 {m['frame'][1]:.4f}, n=50) = "
+        f"{n_rays / m['frame'][0] / 1e3:.2f} Mrays/s, render_lod median "
+        f"{m['render_lod'][0]:.4f} ms (p80 {m['render_lod'][1]:.4f}); at 8 c0 the "
+        f"frame {m['frame_8c0'][0]:.4f} ms (p80 {m['frame_8c0'][1]:.4f}); in turns, "
+        f"three rounds of 50: brick_trace_lod {m['brick_trace_lod'][0]:.4f} ms "
+        f"(p80 {m['brick_trace_lod'][1]:.4f}; at 8 c0 "
+        f"{m['brick_trace_lod_8c0'][0]:.4f}) against brick_trace "
+        f"{m['brick_trace'][0]:.4f}, esvo_stackless_lod "
+        f"{m['esvo_stackless_lod'][0]:.4f} ({m['esvo_stackless_lod'][1]:.4f}; at "
+        f"8 c0 {m['esvo_stackless_lod_8c0'][0]:.4f}) against esvo_stackless "
+        f"{m['esvo_stackless'][0]:.4f}")
+    return out
+
+
+def builtin_volumetric_grads(seg, d, target, params, light):
+    """The volumetric L2 loss's gradients by builtin autograd of
+    ``composite_rows`` through plain indexing on the card: no kernel of the
+    port and no custom backward."""
+    n, k = seg.hit_leaf.shape
+    valid, safe = shade_cuda.safe_leaf(seg.hit_leaf.reshape(-1), params[0].shape[0])
+    sky = sky_color(d)
+
+    def loss(a, nr, s):
+        img = shade_cuda.composite_rows(
+            a[safe].reshape(n, k, 3), nr[safe].reshape(n, k, 3), s[safe].reshape(n, k),
+            valid.reshape(n, k), seg.t_in, seg.t_out, sky, light, 1.3, 0.08,
+            DENSITY_SCALE)
+        return torch.mean((img - target) ** 2)
+    return diff._value_and_grads(loss, *params)[1]
+
+
+def check_composite_bwd(seg, g, d, pset, light, what):
+    """composite_bwd against composite_bwd_plain on the same segments (rtol
+    1e-5, atol 1e-6, as shade_bwd; padded slots' rows zero); returns the
+    kernel's rows and the largest absolute difference."""
+    args = (seg.hit_leaf, seg.t_in, seg.t_out, d, *pset, light, 1.3, 0.08,
+            DENSITY_SCALE)
+    got = shade_cuda.composite_bwd(g, *args)
+    want = shade_cuda.composite_bwd_plain(g, *args)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"composite_bwd, {what}: max abs {e} against "
+                             f"composite_bwd_plain")
+    if bool(got[seg.hit_leaf.reshape(-1) < 0].any()):
+        raise AssertionError(f"composite_bwd, {what}: a padded slot has a row")
+    return got, e
+
+
+def step_volumetric(ctx, card, served):
+    """[step-volumetric]: the volumetric L2 step, target 0, on both routes
+    at k = 4: loss and gradients of the three parameter tensors through
+    composite_fwd, composite_bwd and segment_sum, each held against its
+    plain version, the sums against the serial scatter-add and the
+    gradients against builtin autograd on the card. Returns what the
+    kernels line and the profile take from it."""
+    dev, svo, bsvo, o, d = ctx["dev"], ctx["svo"], ctx["bsvo"], ctx["o"], ctx["d"]
+    light, params, err, host_svo = ctx["light"], ctx["params"], ctx["err"], ctx["host_svo"]
+    k, n_leaves = VOLUME_K, params[0].shape[0]
+    target0 = torch.zeros_like(o)
+    steps = {
+        "stackless": lambda: diff._value_and_grads(
+            lambda a, nr, s: diff.volumetric_l2_loss(a, nr, s, svo, o, d, light,
+                                                     target0, k=k), *params),
+        "brick": lambda: diff._value_and_grads(
+            lambda a, nr, s: torch.mean((diff.render_volumetric_brick(
+                a, nr, s, bsvo, o, d, light, k=k, density_scale=DENSITY_SCALE)
+                - target0) ** 2), *params)}
+    segs = {"brick": served["multi"][0][0], "stackless": served["multi"][1][0]}
+    trace_of = {"brick": "brick_trace_multi", "stackless": "esvo_stackless_multi"}
+    g_unit = torch.from_numpy(np.random.default_rng(13).random(
+        (o.shape[0], 3), dtype=np.float32) - 0.5).to(dev)
+    pset = volume_params(host_svo, dev, 14)
+    out = dict(launches={}, ms={}, segs=segs, steps=steps)
+    lines = []
+    for route, fn in steps.items():
+        (loss, grads), got = expect_launches(
+            f"the volumetric step, {route} route", fn,
+            {trace_of[route]: 1, "composite_fwd": 1, "composite_bwd": 1,
+             "segment_sum": 1})
+        out["launches"][route] = got
+        seg = segs[route]
+        e_unit = max(check_composite_bwd(seg, g_unit, d, p, light,
+                                         f"{route} segments, {what}")[1]
+                     for what, p in (("the scene", params), ("random densities", pset)))
+        img = shade_cuda.composite_fwd(seg.hit_leaf, seg.t_in, seg.t_out, d, *params,
+                                       light, 1.3, 0.08, DENSITY_SCALE)
+        # the loss's cotangent as autograd forms it: 2 * img times 1 / numel
+        cot, e_step = check_composite_bwd(seg, (2.0 * img) * (1.0 / img.numel()), d,
+                                          params, light,
+                                          f"{route} segments, the step's cotangent")
+        err["composite_bwd"] = max(err["composite_bwd"], e_unit, e_step)
+        sums, _e_sum, _e_sorted = check_segment_sum(
+            f"the volumetric {route} step", cot, seg.hit_leaf.reshape(-1), n_leaves)
+        step_rows = join7(grads)
+        if not torch.allclose(sums, step_rows, rtol=1e-5,
+                              atol=1e-6 * float(step_rows.abs().max())):
+            raise AssertionError(f"the volumetric {route} step's gradients are not "
+                                 f"segment_sum of composite_bwd's rows")
+        want = builtin_volumetric_grads(seg, d, target0, params, light)
+        scale = max(float(w.abs().max()) for w in want)
+        worst, _scale = check_grads(grads, want, f"the volumetric {route} step",
+                                    rtol=1e-5, atol=1e-5 * scale)
+        if not scale > 0.0 or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"the volumetric {route} step: no gradient")
+        lines.append(f"{route} route: launches {got}, loss {float(loss):.6f}; "
+                     f"composite_bwd within rtol 1e-5 of composite_bwd_plain (max "
+                     f"abs {e_unit:.3g} at a unit cotangent on the scene's and on "
+                     f"random densities, {e_step:.3g} at the step's); the per-leaf "
+                     f"sums == the serial scatter-add bitwise; the gradients == "
+                     f"builtin autograd of composite_rows within rtol 1e-5, atol "
+                     f"1e-5 x {scale:.3g} (max abs {worst:.3g})")
+    t = {f"step_{route}": cuda_ms(fn, 50, 3) for route, fn in steps.items()}
+    kb = segs["brick"]
+    img = shade_cuda.composite_fwd(kb.hit_leaf, kb.t_in, kb.t_out, d, *params, light,
+                                   1.3, 0.08, DENSITY_SCALE)
+    bwd_args = ((2.0 * img) * (1.0 / img.numel()), kb.hit_leaf, kb.t_in, kb.t_out,
+                d, *params, light, 1.3, 0.08, DENSITY_SCALE)
+    t.update(in_turns({"composite_bwd": lambda: shade_cuda.composite_bwd(*bwd_args),
+                       "composite_fwd": lambda: shade_cuda.composite_fwd(
+                           *bwd_args[1:])}))
+    t["composite_bwd_plain"] = cuda_ms(lambda: shade_cuda.composite_bwd_plain(*bwd_args),
+                                       10, 2)
+    out["ms"] = m = {name: med_p80(v) for name, v in t.items()}
+    out["bwd_args"] = bwd_args
+    vm = served["ms"]
+    ratio = {"brick": m["step_brick"][0] / vm["vol_brick"][0],
+             "stackless": m["step_stackless"][0] / vm["vol_flat"][0]}
+    out["fwdbwd_over_fwd"] = ratio
+    say(f"[step-volumetric] {ctx['res']}x{ctx['res']} depth 10, k={k}, density "
+        f"scale {DENSITY_SCALE}, target 0: " + "; ".join(lines))
+    say(f"[step-volumetric] {card}: fwd+bwd step median "
+        f"{m['step_brick'][0]:.4f} ms (p80 {m['step_brick'][1]:.4f}, n=50) on the "
+        f"brick route, fwdbwd_over_fwd {ratio['brick']:.3f} against "
+        f"diff.render_volumetric_brick's {vm['vol_brick'][0]:.4f}; "
+        f"{m['step_stackless'][0]:.4f} ms (p80 {m['step_stackless'][1]:.4f}) on the "
+        f"stackless route, fwdbwd_over_fwd {ratio['stackless']:.3f} against "
+        f"diff.render_volumetric's {vm['vol_flat'][0]:.4f}; in turns, three rounds "
+        f"of 50: composite_bwd {m['composite_bwd'][0]:.4f} ms (p80 "
+        f"{m['composite_bwd'][1]:.4f}), composite_fwd {m['composite_fwd'][0]:.4f}; "
+        f"composite_bwd_plain {m['composite_bwd_plain'][0]:.4f} (n=10)")
+    return out
+
+
 def ray_sets(dev, cam, n, seed):
     """(name, o, d) on `dev`: a camera's rays, rays from a shell aimed near
     the centre, and rays from inside the cube in random directions."""
@@ -704,7 +1077,8 @@ def ptxas_report(log):
     rows, name, stores = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(brick_trace_kernel|esvo_stackless_kernel)I(\w*?)EEv", line)
-        multi = re.search(r"(brick_trace_multi_kernel|esvo_stackless_multi_kernel)", line)
+        multi = re.search(r"(brick_trace_multi_kernel|esvo_stackless_multi_kernel"
+                          r"|brick_trace_lod_kernel|esvo_stackless_lod_kernel)", line)
         if "Compiling entry function" in line:
             name = None
             if m:
@@ -1309,13 +1683,17 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 10:
+    if len(ptxas) != 12:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 10")
+                             f"expected 12")
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
-        "esvo_stackless_kernel<probe>, the two k-segment kernels: "
+        "esvo_stackless_kernel<probe>, the two k-segment and the two LOD kernels: "
         "registers, spill bytes, shared bytes): " + "; ".join(
             f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas))
+    bwd_regs = re.search(r"composite_bwd_kernel.*?\n.*?Used (\d+) registers",
+                         _build.build_log("shade"), re.S)
+    say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
+        f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
     count_plain_calls()
@@ -1326,7 +1704,8 @@ def main():
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
-               brick_trace_multi=0.0, composite_fwd=0.0)
+               brick_trace_multi=0.0, composite_fwd=0.0, esvo_stackless_lod=0.0,
+               brick_trace_lod=0.0, composite_bwd=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -1429,6 +1808,7 @@ def main():
                              f"round; an 8^3 brick needs at most 22")
     volumetric_parity(dev, small_cam, torch.tensor([-0.5, -1.0, -0.3], device=dev),
                       err)
+    lod_parity(dev, small_cam, err)
     say(f"[parity] brick_trace (through the main path's wrapper, and in its "
         f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless, and every "
         f"probe form == their plain versions (brick.trace_brick, "
@@ -2092,7 +2472,7 @@ def main():
                         trace_multi=0, trace_brick_multi=0, composite_plain=0,
                         shade_fwd=1, shade_bwd=1, shade_bwd_serial=0,
                         segment_sum=1, segment_sum_sorted=0, composite_fwd=0,
-                        **MULTI_ZERO)
+                        **MULTI_ZERO, **STEP_ZERO)
             if counts != want or others:
                 raise AssertionError(f"{path} step, {what}: launches {counts}, "
                                      f"expected {want}; other forms: {others}")
@@ -2187,7 +2567,7 @@ def main():
             or tile_cuda.candidates_block_launches
             or PLAIN_CALLS["candidates_plain"] or shade_cuda.launches != dict(
                 shade_fwd=3, shade_bwd=3, shade_bwd_serial=0, segment_sum=3,
-                segment_sum_sorted=0, composite_fwd=0)):
+                segment_sum_sorted=0, composite_fwd=0, composite_bwd=0)):
         raise AssertionError("step_view did not take the tile step's kernels")
     # The trainer keeps the reference's budgets (k_max=96, fb_tiles=128,
     # fb_k=256, no sub-tile pass), which leave a few rays of this view
@@ -2229,7 +2609,8 @@ def main():
                 trace_brick_multi=0, composite_plain=0, shade_fwd=3, shade_bwd=3,
                 shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
                 composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
-                esvo_stackless_probe=0, brick_trace_probe=0, **MULTI_ZERO)
+                esvo_stackless_probe=0, brick_trace_probe=0, **MULTI_ZERO,
+                **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -2249,6 +2630,11 @@ def main():
         dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o, d=d, light=light,
         params=params, res=res, bench_cam=bench_cam, routes=routes, err=err,
         img=img, refereed_px=tile.untile_image(mask | differ, grid)), card)
+    # ---- 7d. the LOD frames, and the volumetric step ---------------------------
+    slice_ctx = dict(dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o, d=d,
+                     light=light, params=params, res=res, routes=routes, err=err)
+    lodded = frame_lod(slice_ctx, card)
+    stepped = step_volumetric(slice_ctx, card, served)
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -2724,6 +3110,43 @@ def main():
             f"idle {idle(f_us, vm['vol_brick' if route == 'brick' else 'vol_flat'][0])} "
             f"of its median" for route, (f_us, _r, f_n) in vol_prof.items()))
 
+    # the LOD traces and composite_bwd alone; the LOD frame's and the
+    # volumetric steps' kernel time, for the card's idle share
+    _, rows, _n = profile_kernels(
+        "esvo_stackless_lod and brick_trace_lod at c0, and composite_bwd, alone",
+        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, LOD_C0),
+                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0),
+                 shade_cuda.composite_bwd(*stepped["bwd_args"])), "round", 3,
+        launches=3)
+    for kname in ("esvo_stackless_lod", "brick_trace_lod", "composite_bwd"):
+        alone[kname] = kernel_us(rows, kname + "_kernel")[0]
+    _, rows, _n = profile_kernels(
+        "esvo_stackless_lod and brick_trace_lod at 8 c0 alone",
+        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, 8 * LOD_C0),
+                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * LOD_C0)),
+        "round", 2, launches=2)
+    for kname in ("esvo_stackless_lod", "brick_trace_lod"):
+        alone[kname + " 8c0"] = kernel_us(rows, kname + "_kernel")[0]
+    slice_prof = {
+        "LOD frame (brick_trace_lod, shade_lod) at c0": (profile_kernels(
+            "the LOD frame at c0", lambda: lod.shade_lod(
+                svo, lodded["node_alb"], lodded["node_nrm"],
+                brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0), d,
+                lodded["light"]), "frame", 8), lodded["ms"]["frame"][0])}
+    for route, fn in stepped["steps"].items():
+        slice_prof[f"volumetric step, {route} route"] = (profile_kernels(
+            f"volumetric fwd+bwd step, {route} route", fn, "step", 10),
+            stepped["ms"][f"step_{route}"][0])
+    say(f"[profile] {card}: us alone: esvo_stackless_lod "
+        f"{us_or(alone['esvo_stackless_lod'])} (at 8 c0 "
+        f"{us_or(alone['esvo_stackless_lod 8c0'])}), brick_trace_lod "
+        f"{us_or(alone['brick_trace_lod'])} (at 8 c0 "
+        f"{us_or(alone['brick_trace_lod 8c0'])}), composite_bwd "
+        f"{us_or(alone['composite_bwd'])}; " + "; ".join(
+            f"{what} {us_or(p_us)} us of kernels in {count(p_n)} launches, idle "
+            f"{idle(p_us, ms)} of its median {ms:.4f} ms"
+            for what, ((p_us, _r, p_n), ms) in slice_prof.items()))
+
     # where the tile frame's and the tile step's host time goes, by group
     for what, fn in (
             ("tile frame", lambda: diff.render_diff_tile(
@@ -3074,6 +3497,64 @@ def main():
         plain_ms=vm["composite_plain"][0], bound_ms=composite_bound[0],
         bound_by=composite_bound[1], library_ms=None,
         us_alone=alone["composite_fwd"]))
+    # the LOD traces at c0: rays, tables and six outputs a ray once; the
+    # top and DDA steps this frame's rays took
+    lb, ls_ = lodded["c0"]
+    lb_dda = int(lb[1][:, STAT("dda_steps")].sum())
+    lb_top = int(lb[0].iters.sum()) - lb_dda
+    ls_steps = int(ls_[0].iters.sum())
+    lod_rows = dict(
+        brick_trace_lod=dict(
+            replaces="raytracingtest_tpu/ops/brick.py:789",
+            path="the LOD frame of cli render --lod-coef: trace_brick_lod_cuda, "
+                 "lod.shade_lod (the wide form)", plain_ms=lodded["plain_ms"]["c0"][0],
+            bound=bound(nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
+                               bsvo.bricks) + n_rays * 6 * 4,
+                        lb_top * OPS_ESVO_STEP + lb_dda * OPS_DDA_STEP
+                        + n_rays * OPS_RAY_SETUP)),
+        esvo_stackless_lod=dict(
+            replaces="raytracingtest_tpu/ops/traverse.py:816",
+            path="lod.render_lod", plain_ms=lodded["plain_ms"]["c0"][1],
+            bound=bound(nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr,
+                               svo.leaf_base) + n_rays * 6 * 4,
+                        ls_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)))
+    # composite_bwd on the brick route's step: the cotangent, segments and
+    # rays in, each touched leaf's row once, a 28 B row a slot out
+    bwd_bound = bound(
+        nbytes(stepped["bwd_args"][0], kb.hit_leaf, kb.t_in, kb.t_out, d, light)
+        + touched_v * 28 + kb.hit_leaf.numel() * 28,
+        int(seg_leaves.numel()) * OPS_COMPOSITE_BWD_SLOT + n_rays * OPS_COMPOSITE_RAY)
+    say(f"[bound] the LOD traces at c0 ({OPS_ESVO_STEP} operations a top or "
+        f"stackless step, {OPS_DDA_STEP} a DDA step): brick_trace_lod {lb_top} top "
+        f"and {lb_dda} DDA steps, bound {lod_rows['brick_trace_lod']['bound'][0]:.5f} "
+        f"ms ({lod_rows['brick_trace_lod']['bound'][1]}), "
+        f"{us_or(alone['brick_trace_lod'])} us alone; esvo_stackless_lod {ls_steps} "
+        f"steps, bound {lod_rows['esvo_stackless_lod']['bound'][0]:.5f} ms "
+        f"({lod_rows['esvo_stackless_lod']['bound'][1]}), "
+        f"{us_or(alone['esvo_stackless_lod'])} us alone; composite_bwd "
+        f"({OPS_COMPOSITE_BWD_SLOT} operations a valid slot) {n_seg_b} segments "
+        f"on {touched_v} leaves, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}), "
+        f"{us_or(alone['composite_bwd'])} us alone")
+    sm = stepped["ms"]
+    for kname, row in lod_rows.items():
+        kernels.append(dict(
+            name=kname, route="cuda", source=src + "brick_trace.cu",
+            replaces=row["replaces"], path=row["path"],
+            launches=lodded["launches"][kname], max_abs_err=err[kname],
+            ms=lodded["ms"][kname][0], plain_ms=row["plain_ms"],
+            bound_ms=row["bound"][0], bound_by=row["bound"][1], library_ms=None,
+            us_alone=alone[kname], coef=LOD_C0, ms_8c0=lodded["ms"][kname + "_8c0"][0],
+            us_alone_8c0=alone[kname + " 8c0"]))
+    kernels.append(dict(
+        name="composite_bwd", route="cuda", source=src + "shade.cu",
+        replaces="raytracingtest_tpu/diff.py:377",
+        path="the volumetric step: diff.volumetric_l2_loss / "
+             "diff.render_volumetric_brick under torch.autograd.grad",
+        launches=stepped["launches"]["brick"]["composite_bwd"],
+        max_abs_err=err["composite_bwd"], ms=sm["composite_bwd"][0],
+        plain_ms=sm["composite_bwd_plain"][0], bound_ms=bwd_bound[0],
+        bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
+        fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]

@@ -17,15 +17,18 @@ Six libraries, each built on first use into
                      backward's first form), the
                      deterministic segment sum (sort-free, and its earlier
                      sorted form) and the emission-absorption compositing of
-                     k segments a ray (``composite_fwd``);
+                     k segments a ray (``composite_fwd``) with its backward
+                     (``composite_bwd``);
   * ``tile_candidates`` — ``csrc/tile_candidates.cu`` with nvcc for ``sm_90a``:
                      phase 1 of the tile trace, each tile's candidate list,
                      and its first form;
   * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
                      per-ray stackless trace and the per-ray brick trace
-                     in its forms, each also with counters, and their
+                     in its forms, each also with counters, their
                      k-segment forms (``esvo_stackless_multi``,
-                     ``brick_trace_multi``) for volumetric rendering.
+                     ``brick_trace_multi``) for volumetric rendering and
+                     their LOD forms (``esvo_stackless_lod``,
+                     ``brick_trace_lod``).
 
 ``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
 ``brick_trace.cu`` share.
@@ -179,9 +182,10 @@ def _declare_shade(lib):
     lib.segment_sum.argtypes = [p, p, i, i, p, ctypes.c_longlong, p, p, p, p]
     lib.segment_sum_sorted.argtypes = [p, p, p, i, i, p, p, p, p]
     lib.composite_fwd.argtypes = [p] * 7 + [i, p, f, f, f, i, p, i, p]
+    lib.composite_bwd.argtypes = [p] * 8 + [i, p, f, f, f, i, p, i, p]
     for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,
                lib.shade_bwd_serial, lib.segment_sum, lib.segment_sum_sorted,
-               lib.composite_fwd):
+               lib.composite_fwd, lib.composite_bwd):
         fn.restype = i
 
 
@@ -203,10 +207,14 @@ def _declare_brick(lib):
     lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
     lib.esvo_stackless_multi.argtypes = [p] * 6 + [i] * 3 + [p] * 7
     lib.brick_trace_multi.argtypes = [p] * 6 + [i] * 4 + [p] * 7
+    f = ctypes.c_float
+    lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
+    lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,
-               lib.brick_trace_multi):
+               lib.brick_trace_multi, lib.esvo_stackless_lod,
+               lib.brick_trace_lod):
         fn.restype = i
 
 

@@ -19,6 +19,27 @@
 //                   brick_trace's first form with the DDA in collect mode
 //                   (each solid voxel recorded, its exit t the segment's
 //                   end).
+//   esvo_stackless_lod  replaces traverse.py::_trace_lod_core (:816, driven
+//                   by trace_lod_jax :879; the lod branch of _fast_step
+//                   :389-410): esvo_stackless with the footprint stop, the
+//                   walk step in LOD mode (walk_step<false, true>).
+//   brick_trace_lod  replaces brick.py::_trace_brick_core(lod=) (:492, driven
+//                   by trace_brick_lod_jax :811; _top_step's lod branch
+//                   :273-343): brick_trace's wide form with the footprint
+//                   stop in the top walk, the brick level included.
+//
+// LOD mode: a child is small when the ray's footprint there, tc_max * coef
+// + bias (a multiply, then an add: --fmad=false), is at least the child's
+// size 2 * half, a power of two, so one rounding moves a ray between a node
+// and a leaf; coef and bias arrive as float32, rounded once from the
+// caller's number as jnp.float32 rounds it. Entering a small non-leaf child
+// ends the ray at t_min with hit_node = that child's row (the stackless
+// trace also records its parent and slot, as for a leaf); in the brick
+// trace, entering a small brick ends it with hit_node = n_top + the brick's
+// id, the row of the brick's node in the source SVO. A brick larger than
+// the footprint is walked by the exact DDA. brick_trace_lod takes the wide
+// form (blocks of 256, staged brick rows), the brick trace's main-path form,
+// which measured faster than the first form in every run (PERF.md).
 //
 // Semantics follow the plain PyTorch versions bit for bit
 // (raytracingtest_tpu_torch/ops/traverse.py::fast_step, trace_stackless,
@@ -42,6 +63,7 @@
 //     with the same bits, iters included.
 //   * esvo_stackless_multi: max_iters_for_depth(depth) + 8k steps, each
 //     ray's own in the reference too (its loop does not compact).
+//   * the LOD kernels: the bounds of esvo_stackless and brick_trace.
 //   * brick_trace_multi: brick_trace's bounds with 8k more top steps a round
 //     and 8k more rounds, and 3 * 8 + 2 + k DDA steps a round (the
 //     reference's, one step a trip); the same rule on TOP_DRAIN holds.
@@ -74,6 +96,10 @@
 //     (N, k) slot as it is found and the empty slots padded at the end. The
 //     first forms' structure, plain and correct first; PERF.md holds their
 //     times against their bounds.
+//   * esvo_stackless_lod and brick_trace_lod: esvo_stackless's and the wide
+//     brick_trace's bodies (stackless_ray, brick_ray) with the step in LOD
+//     mode; the other kernels instantiate the same bodies without it, so
+//     their code and registers are as before (chip_smoke.py's [build]).
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe) are a form
 //     with counters: each warp writes PROBE_WORDS int64 words (the layout
 //     at Probe below), the issues of each phase (a step, the descent, a DDA
@@ -181,6 +207,25 @@ struct Seg {
 // Set in a collect-mode step's result when it recorded a segment; the low
 // bits are STEP_ON or STEP_EXIT.
 constexpr int STEP_COLLECTED = 4, STEP_WHAT = 3;
+// An LOD-mode step's result when the ray enters a small non-leaf child.
+constexpr int STEP_NODE = 3;
+
+// The LOD kernels' footprint t * coef + bias and their extra output: the
+// node row at which the footprint stopped each ray, -1 elsewhere; n_top, the
+// top tree's rows (brick trace).
+struct Lod {
+  float coef, bias;
+  int n_top;
+  int* hit_node;
+};
+
+// What an LOD-mode step reports beside its result: the small child's row
+// (STEP_NODE), and for a leaf child entered (STEP_LEAF), whether it is
+// small too.
+struct LodStep {
+  int node;
+  bool big;
+};
 
 // One stackless step (ops/traverse.py::fast_step). Returns STEP_LEAF when
 // the ray enters a leaf child: the walk registers are left at that child
@@ -189,12 +234,17 @@ constexpr int STEP_COLLECTED = 4, STEP_WHAT = 3;
 // root cube; otherwise STEP_ON after a PUSH, a move to a sibling or a POP.
 // COLLECT (fast_step's collect mode): entering a leaf child records the
 // segment (the parent, the rank, t_min, min(t_max, tc_max)) in `seg` and
-// sets STEP_COLLECTED, and the ray ADVANCEs in the same step.
-template <bool COLLECT>
+// sets STEP_COLLECTED, and the ray ADVANCEs in the same step. LOD
+// (fast_step's LOD mode, not with COLLECT): entering a small non-leaf child
+// returns STEP_NODE with its row in ls.node, the walk registers left as
+// they were; entering a leaf child sets ls.big, whether it is small.
+template <bool COLLECT, bool LOD = false>
 __device__ __forceinline__ int walk_step(
     const Ray& r, Walk& w, const int* __restrict__ masks,
     const int* __restrict__ child, const int* __restrict__ parent_ptr,
-    int& child_shift, int& leaf_rank, Seg& seg) {
+    int& child_shift, int& leaf_rank, Seg& seg, const Lod* lod = nullptr,
+    LodStep* ls = nullptr) {
+  static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
   const int desc = __ldg(masks + w.parent);
   const int vm = (desc >> 8) & 0xFF;
   const int lm = desc & 0xFF;
@@ -230,10 +280,17 @@ __device__ __forceinline__ int walk_step(
       seg = Seg{w.parent, leaf_rank, w.t_min, tv_max};
       collected = STEP_COLLECTED;
     } else {  // hit, or park
+      if constexpr (LOD) ls->big = tc_max * lod->coef + lod->bias >= scale_exp2;
       w.popped = false;
       return STEP_LEAF;
     }
   } else if (enter) {  // PUSH
+    if constexpr (LOD) {  // or stop at a small child: its size is 2 * half
+      if (tc_max * lod->coef + lod->bias >= scale_exp2) {
+        ls->node = __ldg(child + w.parent) + __popc(vm & ~lm & below);
+        return STEP_NODE;
+      }
+    }
     const float half = scale_exp2 * 0.5f;
     w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
     int idx = 0;
@@ -414,8 +471,61 @@ __device__ __forceinline__ void write_ray(const Out& out, int i, int leaf,
 
 // ---- esvo_stackless --------------------------------------------------------
 
-// One thread a ray, the stackless walk over the full tree, at most
-// max_iters_for_depth(depth) steps.
+// Ray i's stackless walk over the full tree, at most
+// max_iters_for_depth(depth) steps; LOD: with the footprint stop, its node
+// row written to lod.hit_node.
+template <bool PROBE, bool LOD>
+__device__ __forceinline__ void stackless_ray(const Tree& tree,
+                                              const Rays& rays, const Out& out,
+                                              int i, Probe<PROBE>& probe,
+                                              const Lod* lod) {
+  long long t = probe.enter(PH_RAY);
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  probe.leave(PH_RAY, t);
+  const int n_max = max_iters_for_depth(tree.depth);
+  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
+  float ht = 0.0f;
+  while (!done && it < n_max) {
+    t = probe.enter(PH_STEP);
+    ++it;
+    int child_shift, leaf_rank;
+    int what;
+    if constexpr (LOD) {
+      Seg unused;
+      LodStep ls;
+      what = walk_step<false, true>(r, w, tree.masks, tree.child,
+                                    tree.parent_ptr, child_shift, leaf_rank,
+                                    unused, lod, &ls);
+      if (what == STEP_NODE) {
+        hp = w.parent;
+        hc = child_shift;
+        ht = w.t_min;
+        node = ls.node;
+      }
+    } else {
+      what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                            child_shift, leaf_rank);
+    }
+    if (what == STEP_LEAF) {
+      hp = w.parent;
+      hc = child_shift;
+      ht = w.t_min;
+      leaf = __ldg(tree.leaf_base + hp) + leaf_rank;
+    }
+    done = what != STEP_ON;
+    probe.leave(PH_STEP, t);
+  }
+  t = probe.enter(PH_RAY);
+  write_ray(out, i, leaf, ht, hp, hc, it);
+  if constexpr (LOD) lod->hit_node[i] = node;
+  write_stats(out.stats, i, 0, 0, 0, 0, !done);
+  probe.ray();
+  probe.leave(PH_RAY, t);
+}
+
+// One thread a ray, the stackless walk over the full tree.
 template <bool PROBE>
 __global__ void __launch_bounds__(BLOCK)
 esvo_stackless_kernel(Tree tree, Rays rays, Out out,
@@ -423,144 +533,164 @@ esvo_stackless_kernel(Tree tree, Rays rays, Out out,
   Probe<PROBE> probe;
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) {
-    long long t = probe.enter(PH_RAY);
-    Ray r;
-    Walk w;
-    bool done = setup(rays.origin, rays.direction, i, r, w);
-    probe.leave(PH_RAY, t);
-    const int n_max = max_iters_for_depth(tree.depth);
-    int hp = -1, hc = 0, leaf = -1, it = 0;
-    float ht = 0.0f;
-    while (!done && it < n_max) {
-      t = probe.enter(PH_STEP);
-      ++it;
-      int child_shift, leaf_rank;
-      const int what = stackless_step(r, w, tree.masks, tree.child,
-                                      tree.parent_ptr, child_shift, leaf_rank);
-      if (what == STEP_LEAF) {
-        hp = w.parent;
-        hc = child_shift;
-        ht = w.t_min;
-        leaf = __ldg(tree.leaf_base + hp) + leaf_rank;
-      }
-      done = what != STEP_ON;
-      probe.leave(PH_STEP, t);
-    }
-    t = probe.enter(PH_RAY);
-    write_ray(out, i, leaf, ht, hp, hc, it);
-    write_stats(out.stats, i, 0, 0, 0, 0, !done);
-    probe.ray();
-    probe.leave(PH_RAY, t);
-  }
+  if (i < rays.n) stackless_ray<PROBE, false>(tree, rays, out, i, probe, nullptr);
   probe.finish(probe_out);
+}
+
+// One thread a ray, the stackless walk with the footprint stop.
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
+  Probe<false> probe;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) stackless_ray<false, true>(tree, rays, out, i, probe, &lod);
 }
 
 // ---- brick_trace -----------------------------------------------------------
 
-// One thread a ray, rounds of a stackless walk over the top tree until the
-// ray parks at a brick, then the brick's DDA; a DDA that leaves the brick
-// sets `popped`, so the next round's walk steps past it. STAGE: the parked
-// ray's brick row is read into its slice of shared memory first; B: the
-// block's threads.
+// Ray i's rounds: a stackless walk over the top tree until the ray parks at
+// a brick, then the brick's DDA; a DDA that leaves the brick sets `popped`,
+// so the next round's walk steps past it. STAGE: the parked ray's brick row
+// is read into `my_row`, its slice of shared memory, first. LOD: the top
+// walk has the footprint stop, at nodes and at bricks, its node row written
+// to lod.hit_node.
+template <bool STAGE, bool PROBE, bool LOD>
+__device__ __forceinline__ void brick_ray(const Tree& tree, const Rays& rays,
+                                          const Out& out, int i,
+                                          Probe<PROBE>& probe,
+                                          int* __restrict__ my_row,
+                                          const Lod* lod) {
+  long long t = probe.enter(PH_RAY);
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  probe.leave(PH_RAY, t);
+  const int depth = tree.depth, top_depth = tree.top_depth;
+  const int n_top = max_iters_for_depth(top_depth);
+  const int n_rounds = 16 * depth + 64;
+  const int vshift = S_MAX - depth;
+  const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
+  const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
+  int flip[3];
+  for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
+
+  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
+  float ht = 0.0f;
+  int rounds = 0, dda = 0, capped = 0, dda_max = 0;
+  while (!done && rounds < n_rounds) {
+    ++rounds;
+    // the round's top walk, to a brick or the end of the ray
+    int what = STEP_ON, child_shift = 0, leaf_rank = 0;
+    LodStep ls;
+    for (int top = 0; top < n_top && what == STEP_ON; ++top) {
+      t = probe.enter(PH_STEP);
+      ++it;
+      if constexpr (LOD) {
+        Seg unused;
+        what = walk_step<false, true>(r, w, tree.masks, tree.child,
+                                      tree.parent_ptr, child_shift, leaf_rank,
+                                      unused, lod, &ls);
+      } else {
+        what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                              child_shift, leaf_rank);
+      }
+      probe.leave(PH_STEP, t);
+    }
+    if (what == STEP_EXIT) {
+      done = true;
+      break;
+    }
+    if (what == STEP_ON) {  // the round's step cap
+      ++capped;
+      continue;
+    }
+    if constexpr (LOD) {  // the footprint stops the ray at a node or a brick
+      if (what == STEP_NODE || ls.big) {
+        node = what == STEP_NODE
+                   ? ls.node
+                   : lod->n_top + __ldg(tree.child + w.parent) + leaf_rank;
+        ht = w.t_min;
+        done = true;
+        break;
+      }
+    }
+    // parked at brick top_child[parent] + leaf_rank: descend to the entry
+    // voxel, then step through the brick
+    t = probe.enter(PH_DESCENT);
+    const int* row = tree.bricks +
+                     (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
+    if constexpr (STAGE) {
+      int v[ROW_WORDS];
+      for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
+      for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
+    }
+    auto word = [row, my_row](int k) -> int {
+      if constexpr (STAGE) {
+        return my_row[k];
+      } else {
+        return __ldg(row + k);
+      }
+    };
+    float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
+    float t_cur = w.t_min;
+    rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+    probe.leave(PH_DESCENT, t);
+    int steps = 0;
+    for (; steps < DDA_ROUND_STEPS;) {
+      t = probe.enter(PH_DDA);
+      ++steps;
+      int idx9;
+      const int step = rtt_dda::dda_step(
+          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
+          [&word](int k) { return (uint32_t)word(k); }, idx9);
+      if (step == rtt_dda::DDA_HIT) {
+        leaf = rtt_dda::leaf_of(word, idx9);
+        hp = w.parent;
+        hc = child_shift;
+        ht = t_cur;
+        done = true;
+      }
+      if (step == rtt_dda::DDA_EXIT) w.popped = true;
+      probe.leave(PH_DDA, t);
+      if (step != rtt_dda::DDA_STAY) break;
+    }
+    w.t_min = t_cur;
+    it += steps;
+    dda += steps;
+    dda_max = max(dda_max, steps);
+  }
+  t = probe.enter(PH_RAY);
+  write_ray(out, i, leaf, ht, hp, hc, it);
+  if constexpr (LOD) lod->hit_node[i] = node;
+  write_stats(out.stats, i, rounds, dda, capped, dda_max, !done);
+  probe.ray();
+  probe.leave(PH_RAY, t);
+}
+
+// One thread a ray, brick_ray in blocks of B threads.
 template <bool STAGE, bool PROBE, int B>
 __global__ void __launch_bounds__(B)
 brick_trace_kernel(Tree tree, Rays rays, Out out,
                    long long* __restrict__ probe_out) {
   __shared__ int staged[STAGE ? B * ROW_WORDS : 1];
-  int* const my_row = staged + (STAGE ? threadIdx.x * ROW_WORDS : 0);
   Probe<PROBE> probe;
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) {
-    long long t = probe.enter(PH_RAY);
-    Ray r;
-    Walk w;
-    bool done = setup(rays.origin, rays.direction, i, r, w);
-    probe.leave(PH_RAY, t);
-    const int depth = tree.depth, top_depth = tree.top_depth;
-    const int n_top = max_iters_for_depth(top_depth);
-    const int n_rounds = 16 * depth + 64;
-    const int vshift = S_MAX - depth;
-    const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
-    const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
-    int flip[3];
-    for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
-
-    int hp = -1, hc = 0, leaf = -1, it = 0;
-    float ht = 0.0f;
-    int rounds = 0, dda = 0, capped = 0, dda_max = 0;
-    while (!done && rounds < n_rounds) {
-      ++rounds;
-      // the round's top walk, to a brick or the end of the ray
-      int what = STEP_ON, child_shift = 0, leaf_rank = 0;
-      for (int top = 0; top < n_top && what == STEP_ON; ++top) {
-        t = probe.enter(PH_STEP);
-        ++it;
-        what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
-                              child_shift, leaf_rank);
-        probe.leave(PH_STEP, t);
-      }
-      if (what == STEP_EXIT) {
-        done = true;
-        break;
-      }
-      if (what == STEP_ON) {  // the round's step cap
-        ++capped;
-        continue;
-      }
-      // parked at brick top_child[parent] + leaf_rank: descend to the entry
-      // voxel, then step through the brick
-      t = probe.enter(PH_DESCENT);
-      const int* row = tree.bricks +
-                       (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
-      if constexpr (STAGE) {
-        int v[ROW_WORDS];
-        for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
-        for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
-      }
-      auto word = [row, my_row](int k) -> int {
-        if constexpr (STAGE) {
-          return my_row[k];
-        } else {
-          return __ldg(row + k);
-        }
-      };
-      float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
-      float t_cur = w.t_min;
-      rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
-      probe.leave(PH_DESCENT, t);
-      int steps = 0;
-      for (; steps < DDA_ROUND_STEPS;) {
-        t = probe.enter(PH_DDA);
-        ++steps;
-        int idx9;
-        const int step = rtt_dda::dda_step(
-            bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
-            [&word](int k) { return (uint32_t)word(k); }, idx9);
-        if (step == rtt_dda::DDA_HIT) {
-          leaf = rtt_dda::leaf_of(word, idx9);
-          hp = w.parent;
-          hc = child_shift;
-          ht = t_cur;
-          done = true;
-        }
-        if (step == rtt_dda::DDA_EXIT) w.popped = true;
-        probe.leave(PH_DDA, t);
-        if (step != rtt_dda::DDA_STAY) break;
-      }
-      w.t_min = t_cur;
-      it += steps;
-      dda += steps;
-      dda_max = max(dda_max, steps);
-    }
-    t = probe.enter(PH_RAY);
-    write_ray(out, i, leaf, ht, hp, hc, it);
-    write_stats(out.stats, i, rounds, dda, capped, dda_max, !done);
-    probe.ray();
-    probe.leave(PH_RAY, t);
-  }
+  if (i < rays.n)
+    brick_ray<STAGE, PROBE, false>(tree, rays, out, i, probe,
+                                   staged + (STAGE ? threadIdx.x * ROW_WORDS : 0),
+                                   nullptr);
   probe.finish(probe_out);
+}
+
+// The wide form with the footprint stop.
+__global__ void __launch_bounds__(WIDE_BLOCK)
+brick_trace_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
+  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
+  Probe<false> probe;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n)
+    brick_ray<true, false, true>(tree, rays, out, i, probe,
+                                 staged + threadIdx.x * ROW_WORDS, &lod);
 }
 
 // ---- the k-segment traces ---------------------------------------------------
@@ -855,6 +985,55 @@ extern "C" int brick_trace_probe(int form, const void* top_masks,
                       direction, n, depth, top_depth,
                       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                       probe, stream);
+}
+
+// esvo_stackless with the footprint stop coef, bias: hit_node (n,) beside
+// its outputs.
+extern "C" int esvo_stackless_lod(const void* masks, const void* child_base,
+                                  const void* parent_ptr, const void* leaf_base,
+                                  const void* origin, const void* direction,
+                                  int n, int depth, float coef, float bias,
+                                  void* hit_leaf, void* hit_t, void* hit_parent,
+                                  void* hit_child, void* iters, void* hit_node,
+                                  void* stats, void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX - 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)masks, (const int*)child_base,
+                    (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                    depth, 0};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    esvo_stackless_lod_kernel<<<blocks_for(n, BLOCK), BLOCK, 0,
+                                (cudaStream_t)stream>>>(
+        tree, rays, outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+        Lod{coef, bias, 0, (int*)hit_node});
+  }
+  return (int)cudaGetLastError();
+}
+
+// brick_trace's wide form with the footprint stop coef, bias: hit_node (n,)
+// beside its outputs, in the source SVO's rows (n_top: the top tree's rows).
+extern "C" int brick_trace_lod(const void* top_masks, const void* top_child,
+                               const void* top_parent, const void* bricks,
+                               const void* origin, const void* direction,
+                               int n, int depth, int top_depth, int n_top,
+                               float coef, float bias, void* hit_leaf,
+                               void* hit_t, void* hit_parent, void* hit_child,
+                               void* iters, void* hit_node, void* stats,
+                               void* stream) {
+  if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
+      n_top < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)top_masks, (const int*)top_child,
+                    (const int*)top_parent, nullptr, (const int*)bricks,
+                    depth, top_depth};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    brick_trace_lod_kernel<<<blocks_for(n, WIDE_BLOCK), WIDE_BLOCK, 0,
+                             (cudaStream_t)stream>>>(
+        tree, rays, outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+        Lod{coef, bias, n_top, (int*)hit_node});
+  }
+  return (int)cudaGetLastError();
 }
 
 // The first k leaf segments of each ray, the stackless walk over the full

@@ -38,6 +38,11 @@
 //                 ray's first k leaf segments (from the k-segment traces of
 //                 brick_trace.cu) over the procedural sky, each segment's
 //                 parameter row gathered and shaded as in shade_fwd.
+//   composite_bwd replaces what XLA's autodiff makes of _composite_segments
+//                 (:377-403): the seven cotangents of each of the ray's k
+//                 slots' parameter rows from its image cotangent, row
+//                 i * k + j for slot j of ray i (the reference's reshape
+//                 order); segment_sum then adds them onto the leaves.
 //   segment_sum_sorted  the earlier form of the same sum, over rays that a
 //                 stable sort outside the kernel has ordered by leaf id. Kept
 //                 as a second, independent implementation to hold the new
@@ -67,6 +72,22 @@
 // float operations a valid slot; a thread walks its ray's slots in order
 // (the transmittance is a running product), so its design is shade_fwd's:
 // rows read in place through take_row, none for a padded slot.
+// composite_bwd: bytes too, the forward's reads and 28 B written a slot,
+// against some 130 float operations a valid slot (the forward's again and
+// its reverse). The reverse needs each slot's transmittance T_j, a prefix
+// product, while it walks the slots from the back: a first pass computes
+// the T_j (a slot's density row only) and parks each in its slot's own
+// row, and the reverse pass reads it back before writing the row. The rows
+// live in shared memory, the block's k * 28 B a ray in the output's order,
+// and the block then writes them out as one contiguous run, each warp's
+// stores on consecutive words: a thread's own rows, 28 B each at a stride
+// of 28 k B, written straight to device memory cost eight times the sector
+// writes and measured 550 us alone on the depth-10 frame (PERF.md). The
+// block is 128 threads, or 64 or 32 where k * 28 B a ray would not fit, so
+// k is at most COMPOSITE_BWD_MAX_K. It never divides by (1 - alpha) + 1e-9,
+// which is 1e-9 where a long dense segment gives alpha == 1: the
+// cotangent of T_j is carried from the back as a scalar, dT_j = dw_j
+// alpha_j + dT_{j+1} f_j, the way the reference's autodiff carries it.
 //
 // segment_sum. The function: each leaf's rows are added one after another in
 // ascending ray index, starting from +0; a miss (hit_leaf < 0) adds nothing;
@@ -289,6 +310,22 @@ shade_fwd_kernel(const int* __restrict__ hit_leaf, const float* __restrict__ d,
   }
 }
 
+// The normal's cotangent d_nrm (3) from that of sh = max(dot, 0) *
+// intensity + ambient, dot = nn . m.
+__device__ __forceinline__ void normal_cot(const Shaded& v, float d_sh,
+                                           float intensity, float d_nrm[3]) {
+  const float d_dot = d_sh * intensity * pass_above(v.dot, 0.0f);
+  float d_nn[3];
+  for (int c = 0; c < 3; ++c) d_nn[c] = d_dot * v.m[c];
+  // nn = nrm / r, r = sqrt(max(ss, 1e-12)), ss = |nrm|^2: the normal's
+  // cotangent comes out tangent to the normal
+  const float d_r =
+      -sum3(d_nn[0] * v.nn[0], d_nn[1] * v.nn[1], d_nn[2] * v.nn[2]) / v.r;
+  const float d_ss = d_r / (2.0f * v.r) * pass_above(v.ss, 1e-12f);
+  for (int c = 0; c < 3; ++c)
+    d_nrm[c] = d_nn[c] / v.r + d_ss * (2.0f * v.nrm[c]);
+}
+
 // The cotangents of a hit ray's parameter row (albedo 3, normal 3, density
 // 1) from its image cotangent gi.
 __device__ __forceinline__ void bwd_row(const Shaded& v, const float gi[3],
@@ -307,19 +344,9 @@ __device__ __forceinline__ void bwd_row(const Shaded& v, const float gi[3],
   const float through_max = pass_above(v.den, 0.0f);
   const float through_min = pass_below(fmaxf(v.den, 0.0f), 1.0f);
   row[6] = d_alpha * through_min * through_max;
-  // sh = max(dot, 0) * intensity + ambient, dot = nn . m
   const float d_sh =
       sum3(d_lit[0] * v.alb[0], d_lit[1] * v.alb[1], d_lit[2] * v.alb[2]);
-  const float d_dot = d_sh * intensity * pass_above(v.dot, 0.0f);
-  float d_nn[3];
-  for (int c = 0; c < 3; ++c) d_nn[c] = d_dot * v.m[c];
-  // nn = nrm / r, r = sqrt(max(ss, 1e-12)), ss = |nrm|^2: the normal's
-  // cotangent comes out tangent to the normal
-  const float d_r =
-      -sum3(d_nn[0] * v.nn[0], d_nn[1] * v.nn[1], d_nn[2] * v.nn[2]) / v.r;
-  const float d_ss = d_r / (2.0f * v.r) * pass_above(v.ss, 1e-12f);
-  for (int c = 0; c < 3; ++c)
-    row[3 + c] = d_nn[c] / v.r + d_ss * (2.0f * v.nrm[c]);
+  normal_cot(v, d_sh, intensity, row + 3);
 }
 
 // cot (n, 7): the cotangents of albedo (3), normal (3) and density of the
@@ -666,6 +693,114 @@ composite_fwd_kernel(const int* __restrict__ hit_leaf,
     out[(size_t)i * 3 + j] = acc[j] + t_final * v.sky[j];
 }
 
+// Ray i's two passes over its k slots; `rows` (k rows of 7) is its slice
+// of the block's shared memory.
+__device__ __forceinline__ void composite_bwd_ray(
+    const float* __restrict__ g, const int* __restrict__ hit_leaf,
+    const float* __restrict__ t_in, const float* __restrict__ t_out,
+    const float* __restrict__ d, const float* __restrict__ albedo,
+    const float* __restrict__ normal, const float* __restrict__ density,
+    int n_leaves, const float* __restrict__ light, float intensity,
+    float ambient, float density_scale, int k, int i, float* rows) {
+  // forward: the transmittance in front of each slot
+  float t_before = 1.0f;
+  for (int c = 0; c < k; ++c) {
+    const size_t s = (size_t)i * k + c;
+    const int leaf = hit_leaf[s];
+    float alpha = 0.0f;
+    if (leaf >= 0) {
+      const float den = take_row(density, n_leaves, 1, leaf, 0);
+      const float seg_len = fmaxf(t_out[s] - t_in[s], 0.0f);
+      alpha = 1.0f - expf(-(softplus(den) * density_scale) * seg_len);
+    }
+    rows[c * 7 + 6] = t_before;
+    t_before = t_before * (1.0f - alpha + 1e-9f);
+  }
+  Shaded v;
+  gradient_sky(d[(size_t)i * 3 + 1], v.sky);
+  light_dir(light, v.m);
+  const float gi[3] = {g[(size_t)i * 3], g[(size_t)i * 3 + 1],
+                       g[(size_t)i * 3 + 2]};
+  const float d_final = sum3(gi[0] * v.sky[0], gi[1] * v.sky[1], gi[2] * v.sky[2]);
+  float d_t = 0.0f;  // the cotangent of T_{j+1}
+  for (int c = k - 1; c >= 0; --c) {
+    const size_t s = (size_t)i * k + c;
+    const int leaf = hit_leaf[s];
+    const float t_j = rows[c * 7 + 6];
+    float row[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float alpha = 0.0f, d_w = 0.0f;
+    if (leaf >= 0) {
+      shade_ray(leaf, albedo, normal, density, n_leaves, intensity, ambient, v);
+      const float seg_len = fmaxf(t_out[s] - t_in[s], 0.0f);
+      const float sp = softplus(v.den);
+      const float e = expf(-(sp * density_scale) * seg_len);
+      alpha = 1.0f - e;
+      const float w = t_j * alpha;
+      float d_col[3];
+      for (int j = 0; j < 3; ++j) {
+        d_col[j] = gi[j] * w;
+        row[j] = d_col[j] * v.sh;
+      }
+      d_w = sum3(gi[0] * (v.alb[0] * v.sh), gi[1] * (v.alb[1] * v.sh),
+                 gi[2] * (v.alb[2] * v.sh));
+      const float d_sh = sum3(d_col[0] * v.alb[0], d_col[1] * v.alb[1],
+                              d_col[2] * v.alb[2]);
+      normal_cot(v, d_sh, intensity, row + 3);
+      const float d_behind = c == k - 1 ? d_final : d_t;
+      const float d_alpha = d_w * t_j - d_behind * t_j;
+      row[6] = d_alpha * e * seg_len * density_scale * expf(v.den - sp);
+    }
+    d_t = c == k - 1 ? d_w * alpha + d_final * (1.0f - alpha)
+                     : d_w * alpha + d_t * (1.0f - alpha + 1e-9f);
+    for (int j = 0; j < 7; ++j) rows[c * 7 + j] = row[j];
+  }
+}
+
+constexpr int BWD_BLOCK = 128;               // composite_bwd's widest block
+constexpr int SMEM_MAX = 227 * 1024;         // shared memory a block can have
+constexpr int COMPOSITE_BWD_MAX_K = SMEM_MAX / (32 * 7 * 4);  // 259
+
+// One thread a ray: the cotangent rows (albedo 3, normal 3, density 1) of
+// its k slots from its image cotangent g, in two passes over the slots, in
+// the block's shared memory; then the block's rows out in one run.
+// Forward: each slot's opacity (its density row only) and transmittance
+// T_j = T_{j-1} * ((1 - alpha_{j-1}) + 1e-9), T_0 = 1, parked in column 6
+// of the slot's row. Reverse, from the last slot: the slot's row and
+// shading again, dw = g . colour, and with dT the cotangent carried from
+// behind (for the last slot, that of the sky's factor (1 - alpha) through
+// dTf = g . sky):
+//   d_alpha = dw * T_j - dT * T_j     (dT * T_j from f_j = (1 - alpha) + 1e-9,
+//                                      or from 1 - alpha for the last slot)
+//   dT     <- dw * alpha + dT * f_j   (dT * (1 - alpha) for the last slot)
+// then alpha = (1 - exp(-x)) * valid, x = softplus(den) * scale * len:
+// d_den = d_alpha * exp(-x) * len * scale * exp(den - softplus(den)), the
+// derivative jax.nn.softplus's logaddexp gives. A padded slot (leaf < 0)
+// has alpha 0, passes dT on times (1 + 1e-9) and gets a zero row.
+__global__ void __launch_bounds__(BWD_BLOCK)
+composite_bwd_kernel(const float* __restrict__ g,
+                     const int* __restrict__ hit_leaf,
+                     const float* __restrict__ t_in,
+                     const float* __restrict__ t_out,
+                     const float* __restrict__ d,
+                     const float* __restrict__ albedo,
+                     const float* __restrict__ normal,
+                     const float* __restrict__ density, int n_leaves,
+                     const float* __restrict__ light, float intensity,
+                     float ambient, float density_scale, int k,
+                     float* __restrict__ cot, int n) {
+  extern __shared__ float s_rows[];  // blockDim.x * k rows of 7
+  const int i0 = blockIdx.x * blockDim.x;
+  const int i = i0 + threadIdx.x;
+  if (i < n) composite_bwd_ray(g, hit_leaf, t_in, t_out, d, albedo, normal,
+                               density, n_leaves, light, intensity, ambient,
+                               density_scale, k, i,
+                               s_rows + (size_t)threadIdx.x * k * 7);
+  __syncthreads();
+  const size_t words = (size_t)min((int)blockDim.x, n - i0) * k * 7;
+  float* const out = cot + (size_t)i0 * k * 7;
+  for (size_t w = threadIdx.x; w < words; w += blockDim.x) out[w] = s_rows[w];
+}
+
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
@@ -821,6 +956,38 @@ extern "C" int composite_fwd(const void* hit_leaf, const void* t_in,
         (const float*)d, (const float*)albedo, (const float*)normal,
         (const float*)density, n_leaves, (const float*)light, intensity,
         ambient, density_scale, k, (float*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The cotangent rows cot (n * k, 7) of n rays of k <= COMPOSITE_BWD_MAX_K
+// segments each from the image cotangent g (n, 3); the other arguments as
+// composite_fwd's.
+extern "C" int composite_bwd(const void* g, const void* hit_leaf,
+                             const void* t_in, const void* t_out,
+                             const void* d, const void* albedo,
+                             const void* normal, const void* density,
+                             int n_leaves, const void* light, float intensity,
+                             float ambient, float density_scale, int k,
+                             void* cot, int n, void* stream) {
+  if (n_leaves < 1 || k < 1 || k > COMPOSITE_BWD_MAX_K)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    int threads = BWD_BLOCK;  // the widest block whose rows fit
+    while (threads > 32 && (size_t)threads * k * 7 * 4 > SMEM_MAX) threads /= 2;
+    const int smem = threads * k * 7 * 4;
+    if (smem > 48 * 1024) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (set != cudaSuccess) return (int)set;
+    }
+    composite_bwd_kernel<<<(n + threads - 1) / threads, threads, smem,
+                           (cudaStream_t)stream>>>(
+        (const float*)g, (const int*)hit_leaf, (const float*)t_in,
+        (const float*)t_out, (const float*)d, (const float*)albedo,
+        (const float*)normal, (const float*)density, n_leaves,
+        (const float*)light, intensity, ambient, density_scale, k,
+        (float*)cot, n);
   }
   return (int)cudaGetLastError();
 }

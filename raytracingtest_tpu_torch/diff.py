@@ -10,7 +10,8 @@ ESVO walk with a stack, the reference's Pallas kernel's) and
 ``loss_and_grads_brick``, ``loss_and_grads_cuda`` and
 ``loss_and_grads_tile`` are their L2 training steps. ``render_volumetric``
 and ``render_volumetric_brick`` composite the first k leaf segments of each
-ray instead (the emission-absorption model; on the card forward only). The first three give
+ray instead (the emission-absorption model), differentiable on the card
+through ``shade_cuda.CompositeCuda``. The first three give
 the same hits but on rays that a trace's step bound cuts short and on a few
 that graze a voxel's corner or edge, which the traces round differently.
 
@@ -270,33 +271,29 @@ def loss_and_grads_tile(albedo, normal, density, tsvo, o, d, corners,
 # volumetric rendering: the first k leaf segments of each ray, composited
 # ---------------------------------------------------------------------------
 
-def _refuse_grad_on_card(albedo, normal, density):
-    """The card's compositing kernel has no backward yet: raise rather than
-    hand back an image whose parameters would silently get no gradient."""
-    if albedo.device.type == "cuda" and torch.is_grad_enabled() and any(
-            p.requires_grad for p in (albedo, normal, density)):
-        raise NotImplementedError(
-            "volumetric rendering on the card is forward only: the backward "
-            "of the compositing kernel is ROADMAP Queue 1's next slice (slice "
-            "11); render under torch.no_grad(), or on CPU tensors, which are "
-            "differentiable")
-
-
 def composite_segments(albedo, normal, density, hit_leaf, t_in, t_out, d,
                        light_dir, light_intensity=1.3, light_ambient=0.08,
                        density_scale=64.0):
     """Emission-absorption radiance (N, 3) of rays from their first k leaf
     segments (`hit_leaf`, `t_in`, `t_out` (N, k), -1 padded): the
-    counterpart of the reference's ``_composite_segments``. CUDA tensors go
-    to the kernel ``composite_fwd`` (forward only: a parameter that requires
-    a gradient raises); CPU tensors through ``gather_voxel_params`` and
-    ``shade_cuda.composite_rows``, differentiable in the three parameter
-    tensors."""
+    counterpart of the reference's ``_composite_segments``, differentiable
+    in the three parameter tensors. CUDA tensors go through
+    ``shade_cuda.CompositeCuda`` (kernels ``composite_fwd``, and
+    ``composite_bwd`` with ``segment_sum`` backward) where a parameter
+    requires a gradient, and to ``composite_fwd`` alone where none does;
+    CPU tensors through ``gather_voxel_params`` and
+    ``shade_cuda.composite_rows``."""
     if albedo.shape[0] == 0:
         # empty scene: every slot is empty and the sky shows through
         return sky_color(d)
     if albedo.device.type == "cuda":
-        _refuse_grad_on_card(albedo, normal, density)
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in (albedo, normal, density)):
+            return shade_cuda.CompositeCuda.apply(
+                albedo, normal, density, hit_leaf, t_in, t_out, d, light_dir,
+                light_intensity, light_ambient, density_scale)
+        # nothing to differentiate: the forward kernel without the autograd
+        # Function's host work, which a served frame would pay (PERF.md)
         return shade_cuda.composite_fwd(hit_leaf, t_in, t_out, d, albedo, normal,
                                         density, light_dir, light_intensity,
                                         light_ambient, density_scale)
@@ -318,8 +315,7 @@ def render_volumetric(albedo, normal, density, svo, o, d, light_dir, k=4,
     Per segment alpha = 1 - exp(-softplus(density) * density_scale *
     length), and the radiance sums the segments' transmitted Lambert
     colours and the sky behind them. Returns (N, 3) radiance,
-    differentiable in the three parameter tensors on the CPU."""
-    _refuse_grad_on_card(albedo, normal, density)
+    differentiable in the three parameter tensors."""
     with torch.no_grad():
         res = brick_cuda.trace_multi_cuda(svo, o, d, k)
     return composite_segments(albedo, normal, density, res.hit_leaf, res.t_in,
@@ -333,7 +329,6 @@ def render_volumetric_brick(albedo, normal, density, bsvo, o, d, light_dir,
     """``render_volumetric`` through the brick trace of `bsvo` (kernel
     ``brick_trace_multi`` for CUDA tensors): the same segments, so the same
     image."""
-    _refuse_grad_on_card(albedo, normal, density)
     with torch.no_grad():
         res = brick_cuda.trace_brick_multi_cuda(bsvo, o, d, k)
     return composite_segments(albedo, normal, density, res.hit_leaf, res.t_in,

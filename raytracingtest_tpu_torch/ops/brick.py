@@ -3,11 +3,13 @@
 Port of ``raytracingtest_tpu/ops/brick.py``: the ``BrickSVO`` container,
 ``make_brick_svo`` (numpy, operation for operation the reference's, so its
 arrays come out byte-identical), the bit helpers the tile walker shares, and
-the brick trace (``_trace_brick_core``, ``_brick_round``, ``_top_step``
-without their LOD branch) as ``trace_brick``, the plain
-version of the ``brick_trace`` kernel (``ops/brick_cuda.py``), and its
+the brick trace (``_trace_brick_core``, ``_brick_round``, ``_top_step``)
+as ``trace_brick``, the plain
+version of the ``brick_trace`` kernel (``ops/brick_cuda.py``), its
 k-segment form (``_trace_brick_multi_core``) as ``trace_brick_multi``, the
-plain version of ``brick_trace_multi``. The deepest BRICK_LEVELS = 3 levels collapse into one
+plain version of ``brick_trace_multi``, and its LOD form
+(``trace_brick_lod_jax``) as ``trace_brick_lod``, the plain version of
+``brick_trace_lod``. The deepest BRICK_LEVELS = 3 levels collapse into one
 8x8x8 occupancy bitmask per level-(depth-3) node: 16 words in hierarchical
 Morton bit order ((slot_l1 << 6) | (slot_l2 << 3) | slot_l3), which is the
 leaf attribute order, so a hit's global leaf id is the brick's first leaf
@@ -29,7 +31,8 @@ from raytracingtest_tpu_torch._device import resolve
 from raytracingtest_tpu_torch.ops.octree import compute_parent_ptr
 from raytracingtest_tpu_torch.ops.traverse import (
     S_MAX, Compacted, MultiTraceResult, TraceResult, _f2i, fast_step,
-    max_iters_for_depth, multi_state, multi_steps_for_depth, walk_state)
+    lod_constants, max_iters_for_depth, multi_state, multi_steps_for_depth,
+    walk_state)
 
 BRICK_LEVELS = 3  # bottom levels folded into 8^3 bit bricks
 
@@ -373,10 +376,11 @@ def _dda_round_multi(s, bricks, depth, top_depth, k):
     return out
 
 
-def _brick_rounds(bsvo, st, out_names, n_top, n_rounds, dda_round):
+def _brick_rounds(bsvo, st, out_names, n_top, n_rounds, dda_round, lod=None):
     """Rounds of the brick trace over the walk registers `st`: in each, the
     top walk of every ray still walking, at most `n_top` steps, until it
-    parks or finishes; then `dda_round` (state -> state) walks the parked
+    parks or finishes (in LOD mode with `lod`, ``fast_step``'s); then
+    `dda_round` (state -> state) walks the parked
     rays' bricks. At most `n_rounds` rounds. Returns the outputs
     `out_names` and the round statistics."""
     nodes = torch.stack([bsvo.top_masks, bsvo.top_child, bsvo.top_parent], dim=1)
@@ -398,7 +402,7 @@ def _brick_rounds(bsvo, st, out_names, n_top, n_rounds, dda_round):
         for _ in range(n_top):
             if not bool((~s["done"] & ~s["parked"]).any()):
                 break
-            s = fast_step(s, nodes, park=True)
+            s = fast_step(s, nodes, park=True, lod=lod)
         s["top_capped"] = s["top_capped"] + (~s["done"] & ~s["parked"]).to(_I32)
         walk.state = dda_round(s)
     out = walk.finish()
@@ -463,4 +467,30 @@ def trace_brick_multi(bsvo, origin, direction, k=4, with_stats=False):
         lambda s: _dda_round_multi(s, bsvo.bricks, depth, top_depth, k))
     res = MultiTraceResult(out["hits_leaf"], out["t_in"], out["t_out"],
                            out["count"], out["iters"])
+    return (res, stats) if with_stats else res
+
+
+def trace_brick_lod(bsvo, origin, direction, coef, bias=0.0, with_stats=False):
+    """LOD brick trace of (N, 3) float32 rays through `bsvo`, any N: the
+    plain version of the ``brick_trace_lod`` kernel and the counterpart of
+    ``trace_brick_lod_jax``. ``trace_brick``'s rounds with the footprint
+    stop in the top walk, the brick level included: entering a top-tree
+    child (a node, or a brick) no larger than t * coef + bias ends the ray
+    at t_min with `hit_node` the child's row in the source SVO (top rows
+    are the source's, and the node of brick b is row n_top + b); hit_leaf,
+    hit_parent and hit_child stay -1, -1, 0. A footprint finer than a brick
+    walks the exact DDA to the leaf, as ``trace_brick`` does (hit_node -1).
+    Returns a TraceResult, or (TraceResult, stats (N, 5) int32; columns
+    ``traverse.STAT_NAMES``) with `with_stats`; ``trace_brick``'s bounds."""
+    depth, top_depth = bsvo.depth, bsvo.top_depth
+    st = walk_state(origin, direction, top_depth)
+    st["hit_leaf"] = torch.full_like(st["idx"], -1)
+    st["hit_node"] = torch.full_like(st["idx"], -1)
+    lod = (*lod_constants(coef, bias, bsvo.top_masks.device), bsvo.n_top)
+    out, stats = _brick_rounds(
+        bsvo, st, ("hit_leaf", "hit_t", "hit_parent", "hit_child", "hit_node"),
+        max_iters_for_depth(top_depth), rounds_for_depth(depth),
+        lambda s: _dda_round(s, bsvo.bricks, depth, top_depth), lod=lod)
+    res = TraceResult(out["hit_leaf"], out["hit_t"], out["hit_parent"],
+                      out["hit_child"], out["iters"], out["hit_node"])
     return (res, stats) if with_stats else res

@@ -7,10 +7,14 @@ stackless walk over the full tree, kernel ``esvo_stackless``) and
 tree with the brick DDA, kernel ``brick_trace``), and of their k-segment
 forms ``trace_multi_jax`` and ``trace_brick_multi_jax`` (kernels
 ``esvo_stackless_multi`` and ``brick_trace_multi``: ``trace_multi_cuda``,
-``trace_brick_multi_cuda``). CUDA tensors go to the kernels; CPU tensors go
-to the plain versions, ``traverse.trace_stackless``, ``brick.trace_brick``,
-``traverse.trace_multi`` and ``brick.trace_brick_multi``, which give the
-same bits. Nothing else picks the path: a build or launch failure raises.
+``trace_brick_multi_cuda``), and of their LOD forms ``trace_lod_jax`` and
+``trace_brick_lod_jax`` (kernels ``esvo_stackless_lod`` and
+``brick_trace_lod``: ``trace_lod_cuda``, ``trace_brick_lod_cuda``). CUDA
+tensors go to the kernels; CPU tensors go to the plain versions,
+``traverse.trace_stackless``, ``brick.trace_brick``, ``traverse.trace_multi``,
+``brick.trace_brick_multi``, ``traverse.trace_lod`` and
+``brick.trace_brick_lod``, which give the same bits. Nothing else picks the
+path: a build or launch failure raises.
 
 The kernels' forms give the same results (FORMS; the source's header says
 what each does, and PERF.md what it measured):
@@ -37,6 +41,7 @@ the ray while it was still walking.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytracingtest_tpu_torch._build import brick_lib
@@ -51,7 +56,7 @@ _F32, _I32 = torch.float32, torch.int32
 # path a run took): the main path's, the brick trace's other forms', the
 # probe forms'
 launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
-            "brick_trace_multi": 0}
+            "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0}
 
@@ -63,6 +68,8 @@ _BRICK_TRACE_UNSTAGED = Kernel("brick_trace_unstaged", brick_lib)
 _BRICK_TRACE_PROBE = Kernel("brick_trace_probe", brick_lib)
 _ESVO_STACKLESS_MULTI = Kernel("esvo_stackless_multi", brick_lib)
 _BRICK_TRACE_MULTI = Kernel("brick_trace_multi", brick_lib)
+_ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
+_BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 
 # each kernel's forms, the brick trace's form numbers in the kernel, and
 # the threads of each form's blocks
@@ -244,6 +251,39 @@ def _brick_unstaged_kernel(bsvo, origin, direction, with_stats=False):
     return TraceResult(*out), stats
 
 
+def _lod_args(coef, bias):
+    """coef and bias as the kernels take them: float32, each rounded once
+    from the Python number (as ``jnp.float32`` rounds it)."""
+    return float(np.float32(coef)), float(np.float32(bias))
+
+
+def _stackless_lod_kernel(svo, origin, direction, coef, bias=0.0,
+                          with_stats=False):
+    """Launch ``esvo_stackless_lod`` on (N, 3) float32 CUDA rays."""
+    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_LOD, svo, origin,
+                                            direction, with_stats)
+    hit_node = torch.empty(n, dtype=_I32, device=origin.device)
+    _ESVO_STACKLESS_LOD(origin.device, *tables, n, svo.depth,
+                        *_lod_args(coef, bias), *(t.data_ptr() for t in out),
+                        hit_node.data_ptr(),
+                        None if stats is None else stats.data_ptr())
+    launches["esvo_stackless_lod"] += 1
+    return TraceResult(*out, hit_node), stats
+
+
+def _brick_lod_kernel(bsvo, origin, direction, coef, bias=0.0, with_stats=False):
+    """Launch ``brick_trace_lod`` on (N, 3) float32 CUDA rays."""
+    n, tables, out, stats = _brick_args(_BRICK_TRACE_LOD, bsvo, origin,
+                                        direction, with_stats)
+    hit_node = torch.empty(n, dtype=_I32, device=origin.device)
+    _BRICK_TRACE_LOD(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
+                     bsvo.n_top, *_lod_args(coef, bias),
+                     *(t.data_ptr() for t in out), hit_node.data_ptr(),
+                     None if stats is None else stats.data_ptr())
+    launches["brick_trace_lod"] += 1
+    return TraceResult(*out, hit_node), stats
+
+
 def _probe_record(n, form, device):
     return torch.zeros((warps_of(n, form), len(PROBE_FIELDS)),
                        dtype=torch.int64, device=device)
@@ -326,4 +366,30 @@ def trace_brick_multi_cuda(bsvo, origin, direction, k=4, with_stats=False):
     if origin.device.type == "cpu":
         return brick.trace_brick_multi(bsvo, origin, direction, k, with_stats)
     res, stats = _brick_multi_kernel(bsvo, origin, direction, k, with_stats)
+    return (res, stats) if with_stats else res
+
+
+def trace_lod_cuda(svo, origin, direction, coef, bias=0.0, with_stats=False):
+    """The LOD stackless trace of (N, 3) float32 rays through `svo`, any N:
+    kernel ``esvo_stackless_lod`` for CUDA tensors, the plain version
+    ``traverse.trace_lod`` for CPU tensors. Returns a TraceResult with
+    hit_node, or (TraceResult, stats (N, 5); all zero but `unfinished`)."""
+    if origin.device.type == "cpu":
+        return traverse.trace_lod(svo, origin, direction, coef, bias, with_stats)
+    res, stats = _stackless_lod_kernel(svo, origin, direction, coef, bias,
+                                       with_stats)
+    return (res, stats) if with_stats else res
+
+
+def trace_brick_lod_cuda(bsvo, origin, direction, coef, bias=0.0,
+                         with_stats=False):
+    """The LOD brick trace of (N, 3) float32 rays through `bsvo`, any N:
+    kernel ``brick_trace_lod`` for CUDA tensors, the plain version
+    ``brick.trace_brick_lod`` for CPU tensors. hit_node rows are the source
+    SVO's. Returns a TraceResult, or (TraceResult, stats (N, 5))."""
+    if origin.device.type == "cpu":
+        return brick.trace_brick_lod(bsvo, origin, direction, coef, bias,
+                                     with_stats)
+    res, stats = _brick_lod_kernel(bsvo, origin, direction, coef, bias,
+                                   with_stats)
     return (res, stats) if with_stats else res

@@ -3,8 +3,11 @@
 
 Counterpart of ``gather_voxel_params`` with ``shade_diff`` in
 ``raytracingtest_tpu/diff.py`` and of the backward XLA derives for them, and
-(``composite_fwd``, forward only) of ``_composite_segments``, the volumetric
-renderers' compositing of k leaf segments a ray.
+(``composite_fwd``, its backward ``composite_bwd``) of
+``_composite_segments``, the volumetric renderers' compositing of k leaf
+segments a ray, with its backward. ``CompositeCuda`` ties ``composite_fwd``,
+``composite_bwd`` and ``segment_sum`` into one ``torch.autograd.Function``,
+as ``ShadeCuda`` ties the shading kernels.
 ``shade_fwd`` gathers a ray's parameter row from the three parameter tensors
 and shades it in one kernel. The backward is two calls: ``shade_bwd`` turns
 the image cotangent into the seven cotangents of each ray's row (a block's
@@ -41,7 +44,8 @@ _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 # kernel launches made by this process, by kernel (a call of segment_sum
 # counts once: its passes go out together)
 launches = {"shade_fwd": 0, "shade_bwd": 0, "shade_bwd_serial": 0,
-            "segment_sum": 0, "segment_sum_sorted": 0, "composite_fwd": 0}
+            "segment_sum": 0, "segment_sum_sorted": 0, "composite_fwd": 0,
+            "composite_bwd": 0}
 
 _SHADE_FWD = Kernel("shade_fwd", shade_lib)
 _SHADE_BWD = Kernel("shade_bwd", shade_lib)
@@ -49,10 +53,14 @@ _SHADE_BWD_SERIAL = Kernel("shade_bwd_serial", shade_lib)
 _SEGMENT_SUM = Kernel("segment_sum", shade_lib)
 _SEGMENT_SUM_SORTED = Kernel("segment_sum_sorted", shade_lib)
 _COMPOSITE_FWD = Kernel("composite_fwd", shade_lib)
+_COMPOSITE_BWD = Kernel("composite_bwd", shade_lib)
 
 # csrc/shade.cu's SEG_SHORT: the longest run a leaf's own thread adds; longer
 # ones go to a block each
 SEG_SHORT = 16
+# csrc/shade.cu's COMPOSITE_BWD_MAX_K: composite_bwd keeps a block's rows, k
+# of 28 B a ray for 32 rays at least, in its 227 KB of shared memory
+COMPOSITE_BWD_MAX_K = 227 * 1024 // (32 * 7 * 4)
 
 
 def _sum3(x):
@@ -341,24 +349,33 @@ def composite_fwd(hit_leaf, t_in, t_out, d, albedo, normal, density, light_dir,
                              density_scale)
 
 
-def _composite_kernel(hit_leaf, t_in, t_out, d, albedo, normal, density,
-                      light_dir, light_intensity, light_ambient, density_scale):
-    """Launch ``composite_fwd`` on CUDA tensors (arguments as
-    ``composite_fwd``)."""
-    device = hit_leaf.device
+def _composite_specs(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                     light_dir):
+    """(n rays, k slots, n leaves, what a compositing kernel's launcher
+    checks of its arguments)."""
     if hit_leaf.dim() != 2:
         raise ValueError(f"hit_leaf has shape {tuple(hit_leaf.shape)}, "
                          f"expected (N, k)")
     (n, k), n_leaves = hit_leaf.shape, albedo.shape[0]
-    if n_leaves < 1 or k < 1 or n * k >= 2 ** 31:
+    if n_leaves < 1 or k < 1 or n * k * 7 >= 2 ** 31:
         raise ValueError(f"{n_leaves} leaves, {n} rays or k = {k} out of range")
-    _COMPOSITE_FWD.check(device, (
+    return n, k, n_leaves, [
         ("hit_leaf", hit_leaf, _I32, (n, k)), ("t_in", t_in, _F32, (n, k)),
         ("t_out", t_out, _F32, (n, k)), ("d", d, _F32, (n, 3)),
         ("albedo", albedo, _F32, (n_leaves, 3)),
         ("normal", normal, _F32, (n_leaves, 3)),
         ("density", density, _F32, (n_leaves,)),
-        ("light_dir", light_dir, _F32, (3,))))
+        ("light_dir", light_dir, _F32, (3,))]
+
+
+def _composite_kernel(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                      light_dir, light_intensity, light_ambient, density_scale):
+    """Launch ``composite_fwd`` on CUDA tensors (arguments as
+    ``composite_fwd``)."""
+    device = hit_leaf.device
+    n, k, n_leaves, specs = _composite_specs(hit_leaf, t_in, t_out, d, albedo,
+                                             normal, density, light_dir)
+    _COMPOSITE_FWD.check(device, specs)
     out = torch.empty((n, 3), dtype=_F32, device=device)
     _COMPOSITE_FWD(device, hit_leaf.data_ptr(), t_in.data_ptr(),
                    t_out.data_ptr(), d.data_ptr(), albedo.data_ptr(),
@@ -368,6 +385,130 @@ def _composite_kernel(hit_leaf, t_in, t_out, d, albedo, normal, density,
                    out.data_ptr(), n)
     launches["composite_fwd"] += 1
     return out
+
+
+def composite_bwd_plain(g, hit_leaf, t_in, t_out, d, albedo, normal, density,
+                        light_dir, light_intensity, light_ambient,
+                        density_scale):
+    """``composite_bwd`` in tensor operations on any device: the rows
+    (N * k, 7) by the kernel's reverse pass over the slots, each slot's
+    row gathered by plain indexing (a padded slot gets a zero row)."""
+    n, k = hit_leaf.shape
+    valid, leaf = safe_leaf(hit_leaf.reshape(-1), albedo.shape[0])
+    alb, nrm, den = (t.reshape(n, k, *t.shape[1:])
+                     for t in index_rows(leaf, albedo, normal, density))
+    valid = valid.reshape(n, k)
+    zero = den.new_zeros(())
+    m = -(light_dir / torch.sqrt(_sum3(light_dir * light_dir)))
+    ss = _sum3(nrm * nrm)
+    r = torch.sqrt(torch.maximum(ss, den.new_full((), 1e-12)))
+    nn = nrm / r[..., None]
+    dot = _sum3(nn * m)
+    sh = torch.maximum(dot, zero) * light_intensity + light_ambient
+    seg_len = torch.maximum(t_out - t_in, zero)
+    sp = softplus(den)
+    e = torch.exp(-(sp * density_scale) * seg_len)
+    alpha = torch.where(valid, 1.0 - e, zero)
+    t_before = [alpha.new_ones(n)]
+    for j in range(1, k):
+        t_before.append(t_before[-1] * (1.0 - alpha[:, j - 1] + 1e-9))
+    t_j = torch.stack(t_before, dim=1)
+    g3 = g[:, None, :]
+    d_col = g3 * (t_j * alpha)[..., None]
+    d_w = _sum3(g3 * (alb * sh[..., None]))
+    d_sh = _sum3(d_col * alb)
+    # the normal's cotangent through sh = max(dot, 0) * intensity + ambient
+    d_dot = d_sh * light_intensity * _pass_above(dot, zero)
+    d_nn = d_dot[..., None] * m
+    d_r = -_sum3(d_nn * nn) / r
+    d_ss = d_r / (2.0 * r) * _pass_above(ss, den.new_full((), 1e-12))
+    g_nrm = d_nn / r[..., None] + d_ss[..., None] * (2.0 * nrm)
+    # the reverse pass: dT carried from the sky's factor back to slot 0
+    d_final = _sum3(g * sky_color(d))
+    d_alpha, d_t = [None] * k, None
+    for j in range(k - 1, -1, -1):
+        behind = d_final if j == k - 1 else d_t
+        d_alpha[j] = d_w[:, j] * t_j[:, j] - behind * t_j[:, j]
+        keep = (1.0 - alpha[:, j]) if j == k - 1 else (1.0 - alpha[:, j] + 1e-9)
+        d_t = d_w[:, j] * alpha[:, j] + behind * keep
+    d_den = (torch.stack(d_alpha, dim=1) * e * seg_len * density_scale
+             * torch.exp(den - sp))
+    rows = torch.cat([d_col * sh[..., None], g_nrm, d_den[..., None]], dim=2)
+    return torch.where(valid[..., None], rows, zero).reshape(n * k, 7)
+
+
+def _pass_above(x, bound):
+    """What the cotangent of max(x, bound) passes to x: all of it above the
+    bound, half at a tie, none below (the kernels' pass_above)."""
+    return torch.where(x > bound, 1.0, torch.where(x == bound, 0.5, 0.0))
+
+
+def composite_bwd(g, hit_leaf, t_in, t_out, d, albedo, normal, density,
+                  light_dir, light_intensity, light_ambient, density_scale):
+    """(N * k, 7) cotangents of each slot's parameter row (albedo 3, normal
+    3, density 1) from the image cotangent `g` (N, 3), row i * k + j for
+    slot j of ray i; the other arguments as ``composite_fwd``. Rows of
+    padded slots are zero. The kernel runs for CUDA tensors (k at most
+    ``COMPOSITE_BWD_MAX_K``), the plain version ``composite_bwd_plain`` for
+    CPU tensors."""
+    if hit_leaf.device.type == "cpu":
+        return composite_bwd_plain(g, hit_leaf, t_in, t_out, d, albedo, normal,
+                                   density, light_dir, light_intensity,
+                                   light_ambient, density_scale)
+    return _composite_bwd_kernel(g, hit_leaf, t_in, t_out, d, albedo, normal,
+                                 density, light_dir, light_intensity,
+                                 light_ambient, density_scale)
+
+
+def _composite_bwd_kernel(g, hit_leaf, t_in, t_out, d, albedo, normal, density,
+                          light_dir, light_intensity, light_ambient,
+                          density_scale):
+    """Launch ``composite_bwd`` on CUDA tensors (arguments as
+    ``composite_bwd``)."""
+    device = hit_leaf.device
+    n, k, n_leaves, specs = _composite_specs(hit_leaf, t_in, t_out, d, albedo,
+                                             normal, density, light_dir)
+    if k > COMPOSITE_BWD_MAX_K:
+        raise ValueError(f"k = {k}: the compositing kernel's backward keeps at "
+                         f"most {COMPOSITE_BWD_MAX_K} slots a ray")
+    _COMPOSITE_BWD.check(device, specs + [("g", g, _F32, (n, 3))])
+    cot = torch.empty((n * k, 7), dtype=_F32, device=device)
+    _COMPOSITE_BWD(device, g.data_ptr(), hit_leaf.data_ptr(), t_in.data_ptr(),
+                   t_out.data_ptr(), d.data_ptr(), albedo.data_ptr(),
+                   normal.data_ptr(), density.data_ptr(), n_leaves,
+                   light_dir.data_ptr(), float(light_intensity),
+                   float(light_ambient), float(density_scale), k,
+                   cot.data_ptr(), n)
+    launches["composite_bwd"] += 1
+    return cot
+
+
+class CompositeCuda(torch.autograd.Function):
+    """The compositing of k segments a ray as one differentiable function
+    of the three parameter tensors: ``composite_fwd`` forward;
+    ``composite_bwd`` and ``segment_sum`` over the N * k slot rows
+    backward (no float atomics). The segments, the rays and the light get
+    no gradient. CPU tensors take the plain versions of the three."""
+
+    @staticmethod
+    def forward(ctx, albedo, normal, density, hit_leaf, t_in, t_out, d,
+                light_dir, light_intensity, light_ambient, density_scale):
+        albedo, normal, density = (t.detach().contiguous()
+                                   for t in (albedo, normal, density))
+        d = d.contiguous()
+        ctx.save_for_backward(albedo, normal, density, hit_leaf, t_in, t_out, d,
+                              light_dir)
+        ctx.scalars = (light_intensity, light_ambient, density_scale)
+        return composite_fwd(hit_leaf, t_in, t_out, d, albedo, normal, density,
+                             light_dir, *ctx.scalars)
+
+    @staticmethod
+    def backward(ctx, g):
+        albedo, normal, density, hit_leaf, t_in, t_out, d, light_dir = ctx.saved_tensors
+        cot = composite_bwd(g.contiguous(), hit_leaf, t_in, t_out, d, albedo,
+                            normal, density, light_dir, *ctx.scalars)
+        return (*segment_sum(cot, hit_leaf.reshape(-1), albedo.shape[0]),
+                None, None, None, None, None, None, None, None)
 
 
 class ShadeCuda(torch.autograd.Function):

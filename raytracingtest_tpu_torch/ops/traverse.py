@@ -4,9 +4,11 @@ Port of ``raytracingtest_tpu/ops/traverse.py``: ``init_state``, ``step``,
 ``trace_numpy`` (the walk with a stack, below), and the stackless walk of the
 reference's XLA path, ``_fast_step`` / ``_trace_core`` / ``trace_jax``, as
 ``fast_step`` / ``trace_stackless`` (the end of the module), with
-``derive_parent_ptr`` and ``parent_ptr_of``; and its k-segment walk,
+``derive_parent_ptr`` and ``parent_ptr_of``; its k-segment walk,
 ``_trace_multi_core`` / ``trace_multi_jax``, as ``trace_multi`` (the plain
-version of the ``esvo_stackless_multi`` kernel), with ``MultiTraceResult``.
+version of the ``esvo_stackless_multi`` kernel), with ``MultiTraceResult``;
+and its LOD walk, ``_trace_lod_core`` / ``trace_lod_jax``, as ``trace_lod``
+(the plain version of ``esvo_stackless_lod``).
 
 The walk with a stack: every lane runs every iteration; PUSH/ADVANCE/POP are
 ``torch.where`` selects and the per-ray stack is a (depth, N) pair of
@@ -55,6 +57,9 @@ class TraceResult:
     hit_parent: torch.Tensor  # int32 (N,) node row holding the hit leaf, -1
     hit_child: torch.Tensor   # int32 (N,) unmirrored child slot
     iters: torch.Tensor       # int32 (N,) traversal steps taken
+    # int32 (N,) the LOD traces' interior node row where the footprint
+    # stopped the ray, -1 elsewhere; None from the other traces
+    hit_node: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,11 +310,11 @@ def walk_state(origin, direction, depth):
                 iters=s.iters)
 
 
-def fast_step(st, nodes, park=False, k=0):
+def fast_step(st, nodes, park=False, k=0, lod=None):
     """One step of the stackless walk on the rays of `st` that are walking
     (not done; with `park`, not parked either). Counterpart of
-    ``_fast_step`` (with `park`, of ``brick._top_step`` without its LOD
-    branch; with `k`, of the step of ``_trace_multi_core``). `nodes` (n, 3)
+    ``_fast_step`` (with `park`, of ``brick._top_step``; with `k`, of the
+    step of ``_trace_multi_core``). `nodes` (n, 3)
     int32 holds each row's (masks, child_base, parent_ptr), and with `k` a
     fourth column, leaf_base. Returns a new dict.
 
@@ -322,7 +327,18 @@ def fast_step(st, nodes, park=False, k=0):
     (collect mode), it records the segment (leaf, t_min, min(t_max,
     tc_max)) in slot `count` of (N, k) `hits_leaf`, `t_in`, `t_out`, and the
     ray ADVANCEs in the same step unless it now holds k segments, which
-    ends it."""
+    ends it.
+
+    `lod` (LOD mode, not with `k`): (coef, bias) float32 0-dim tensors, and
+    with `park` the top tree's row count n_top. A child is small when the
+    ray's footprint there, tc_max * coef + bias (a multiply, then an add),
+    is at least its size 2 * half. Entering a small non-leaf child ends the
+    ray at t_min with `hit_node` = that child's row (the parent and slot
+    recorded as for a leaf, without `park`); with `park`, entering a small
+    brick ends it with `hit_node` = n_top + the brick's id and `hit_t` =
+    t_min, and a small child is never pushed nor parked at."""
+    if lod is not None and k:
+        raise ValueError("the LOD walk has no collect mode")
     walking = ~st["done"] & ~st["parked"] if park else ~st["done"]
     nd = nodes[st["parent"].long()]
     desc, cbase, pptr = nd[:, 0], nd[:, 1], nd[:, 2]
@@ -354,12 +370,24 @@ def fast_step(st, nodes, park=False, k=0):
 
     out = dict(st)
     leaf_now = enter & leaf_bit
-    full = None
+    full = small = None
+    node_rank = popc8(vm & ~lm & below)
+    if lod is not None:
+        big = tc_max * lod[0] + lod[1] >= half * 2.0
+        small = enter & ~leaf_bit & big
+        out["hit_node"] = torch.where(small, cbase + node_rank, st["hit_node"])
     if park:
-        out["brick_id"] = torch.where(leaf_now, cbase + popc8(vm & lm & below),
-                                      st["brick_id"])
-        out["parked"] = st["parked"] | leaf_now
-        done = st["done"]
+        leaf_rank = popc8(vm & lm & below)
+        park_now, done = leaf_now, st["done"]
+        if lod is not None:
+            small_brick = leaf_now & big
+            park_now = leaf_now & ~big
+            out["hit_node"] = torch.where(small_brick, lod[2] + cbase + leaf_rank,
+                                          out["hit_node"])
+            out["hit_t"] = torch.where(small | small_brick, t_min, st["hit_t"])
+            done = done | small | small_brick
+        out["brick_id"] = torch.where(park_now, cbase + leaf_rank, st["brick_id"])
+        out["parked"] = st["parked"] | park_now
     elif k:
         leaf_id = nd[:, 3] + popc8(vm & lm & below)
         slots = torch.arange(k, dtype=_I32, device=desc.device)[None, :]
@@ -371,14 +399,17 @@ def fast_step(st, nodes, park=False, k=0):
         full = out["count"] >= k
         done = st["done"] | full
     else:
-        out["hit_parent"] = torch.where(leaf_now, st["parent"], st["hit_parent"])
-        out["hit_child"] = torch.where(leaf_now, child_shift, st["hit_child"])
-        out["hit_t"] = torch.where(leaf_now, t_min, st["hit_t"])
-        done = st["done"] | leaf_now
+        stop = leaf_now if small is None else leaf_now | small
+        out["hit_parent"] = torch.where(stop, st["parent"], st["hit_parent"])
+        out["hit_child"] = torch.where(stop, child_shift, st["hit_child"])
+        out["hit_t"] = torch.where(stop, t_min, st["hit_t"])
+        done = st["done"] | stop
 
     # ---- PUSH: descend into the entered non-leaf child ----
     push = enter & ~leaf_bit
-    parent = torch.where(push, cbase + popc8(vm & ~lm & below), st["parent"])
+    if small is not None:
+        push = push & ~small
+    parent = torch.where(push, cbase + node_rank, st["parent"])
     upper = half[:, None] * t_coef + t_corner > t_min[:, None]
     idx = torch.where(push, _bits(upper), st["idx"])
     pos = torch.where(push[:, None], pos + torch.where(upper, half[:, None], 0.0), pos)
@@ -387,6 +418,8 @@ def fast_step(st, nodes, park=False, k=0):
     # ---- ADVANCE: step to the sibling, or POP one level (in collect mode
     # a ray that recorded a segment advances too, unless it is full) ----
     adv = walking & ~push & (~leaf_now if full is None else ~full)
+    if small is not None:
+        adv = adv & ~small
     step_bits = t_corner <= tc_max[:, None]
     step_mask = _bits(step_bits)
     idx_adv = st["idx"] ^ step_mask
@@ -471,10 +504,10 @@ def trace_stackless(svo, origin, direction, with_stats=False):
     return (res, _unfinished_stats(out["done"])) if with_stats else res
 
 
-def _walk(walk, nodes, n_steps, k=0):
+def _walk(walk, nodes, n_steps, k=0, lod=None):
     """Step the rays of the Compacted `walk` that are walking, at most
-    `n_steps` steps each (``fast_step``, in collect mode with `k`); returns
-    the outputs."""
+    `n_steps` steps each (``fast_step``, in collect mode with `k`, in LOD
+    mode with `lod`); returns the outputs."""
     for _ in range(n_steps):
         walking = ~walk.state["done"]
         n_walking = int(walking.sum())
@@ -482,7 +515,7 @@ def _walk(walk, nodes, n_steps, k=0):
             break
         if 2 * n_walking < walking.shape[0]:
             walk.compact(walking)
-        walk.state = fast_step(walk.state, nodes, k=k)
+        walk.state = fast_step(walk.state, nodes, k=k, lod=lod)
     return walk.finish()
 
 
@@ -551,4 +584,42 @@ def trace_multi(svo, origin, direction, k=4, with_stats=False):
     out = _walk(walk, nodes, multi_steps_for_depth(svo.depth, k), k=k)
     res = MultiTraceResult(out["hits_leaf"], out["t_in"], out["t_out"],
                            out["count"], out["iters"])
+    return (res, _unfinished_stats(out["done"])) if with_stats else res
+
+
+# ---------------------------------------------------------------------------
+# the LOD walk (the reference's `_trace_lod_core`)
+# ---------------------------------------------------------------------------
+
+def lod_constants(coef, bias, device):
+    """(coef, bias) as float32 0-dim tensors on `device`, each rounded once
+    from the Python number, as ``jnp.float32`` rounds it."""
+    return (torch.tensor(float(coef), dtype=_F32, device=device),
+            torch.tensor(float(bias), dtype=_F32, device=device))
+
+
+def trace_lod(svo, origin, direction, coef, bias=0.0, with_stats=False):
+    """LOD trace of (N, 3) float32 rays through `svo`, any N: the plain
+    version of the ``esvo_stackless_lod`` kernel and the counterpart of
+    ``_trace_lod_core``. The stackless walk, but descent stops at a non-leaf
+    child no larger than the ray's footprint t * coef + bias (octree-local
+    units; for a pinhole camera coef is about 2 tan(fov / 2) / height): the
+    ray ends there at t_min with `hit_node` that child's row, hit_parent and
+    hit_child its parent and slot, and hit_leaf -1. Other rays end as in
+    ``trace_stackless`` (hit_node -1). Returns a TraceResult, or
+    (TraceResult, stats (N, 5) int32; all zero but `unfinished`) with
+    `with_stats`. The bound is ``max_iters_for_depth(depth)`` steps a ray,
+    the reference's."""
+    masks = svo.masks
+    nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
+    st = walk_state(origin, direction, svo.depth)
+    st["hit_node"] = torch.full_like(st["idx"], -1)
+    walk = Compacted(st, ("hit_parent", "hit_child", "hit_t", "hit_node",
+                          "iters", "done"))
+    out = _walk(walk, nodes, max_iters_for_depth(svo.depth),
+                lod=lod_constants(coef, bias, masks.device))
+    leaf_parent = torch.where(out["hit_node"] >= 0, -1, out["hit_parent"])
+    hit_leaf = resolve_leaf(masks, svo.leaf_base, leaf_parent, out["hit_child"])
+    res = TraceResult(hit_leaf, out["hit_t"], out["hit_parent"], out["hit_child"],
+                      out["iters"], out["hit_node"])
     return (res, _unfinished_stats(out["done"])) if with_stats else res

@@ -164,6 +164,7 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.camera",
     "raytracingtest_tpu_torch.ops.codecs",
     "raytracingtest_tpu_torch.ops.gather",
+    "raytracingtest_tpu_torch.ops.lod",
     "raytracingtest_tpu_torch.ops.octree",
     "raytracingtest_tpu_torch.ops.rowread",
     "raytracingtest_tpu_torch.ops.shade_cuda",

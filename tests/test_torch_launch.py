@@ -45,6 +45,9 @@ KERNELS = {
     "esvo_stackless_multi": brick_cuda._ESVO_STACKLESS_MULTI,
     "brick_trace_multi": brick_cuda._BRICK_TRACE_MULTI,
     "composite_fwd": shade_cuda._COMPOSITE_FWD,
+    "esvo_stackless_lod": brick_cuda._ESVO_STACKLESS_LOD,
+    "brick_trace_lod": brick_cuda._BRICK_TRACE_LOD,
+    "composite_bwd": shade_cuda._COMPOSITE_BWD,
 }
 
 
