@@ -57,7 +57,19 @@ rays on which the two part (printing them, `[parting]`, and saving their
 origins and directions as float32 bits to build/; the reference's two walks
 part on the same rays when its arithmetic rounds as the port's does, F19),
 checks slot 0 against `esvo_stackless`'s hit, and that a parameter which
-requires a gradient gets one on the card.
+requires a gradient gets one on the card. Each k-segment trace has two
+forms: a staged form (the walk of `brick_trace`'s wide form or of
+`esvo_stackless` in collect mode, each ray's k slots staged in its warp's
+shared memory and written out when the warp's walks end;
+`brick_cuda.multi_block` picks the block from k, and the first form beyond
+it) and a first form (one thread a ray in blocks of 128, each segment
+written as found). The brick trace's main path takes its staged form, the
+stackless trace's its first form (`brick_cuda.MAIN_FORMS`, the faster in
+turns); the form off each main path is launched once in `[probes]` and
+timed in turns against it. Both forms, and both probe forms, are held
+bitwise against the plain versions on the frame, on small cases at k = 1,
+4, 7 and at the k where the rule changes, on a ragged ray count;
+`[warps]` reads both forms' probes on the frame.
 `[frame-lod]` renders the frame as `cli render --lod-coef` does at depth 10
 (node attributes on the host, `brick_trace_lod`, `lod.shade_lod`) and through
 `lod.render_lod` (`esvo_stackless_lod`) at four footprint coefficients: the
@@ -167,6 +179,23 @@ STAT = traverse.STAT_NAMES.index
 # the brick trace's other forms' and the probe forms'
 BRICK_COUNTS = (brick_cuda.launches, brick_cuda.form_launches,
                 brick_cuda.probe_launches)
+# brick_trace.cu's kernels other than the staged k-segment forms and the
+# probe forms, at their registers as ptxas gave them before the staged forms
+EARLIER_REGS = {
+    "brick_trace_kernel<false, false, 256>": 59, "brick_trace_kernel<true, false, 256>": 63,
+    "brick_trace_kernel<false, false, 128>": 56, "esvo_stackless_kernel<false>": 45,
+    "brick_trace_lod_kernel": 64, "esvo_stackless_lod_kernel": 47,
+    "brick_trace_multi_kernel<false>": 56, "esvo_stackless_multi_kernel<false>": 47}
+# each k-segment trace's form off the main path (brick_cuda.MAIN_FORMS has
+# the main path's), with the suffix of its wrapper's, count's and record's
+# names; and each form's kernel as torch.profiler names it, by those names
+OFF_FORM = {"brick_trace_multi": ("first", "_serial"),
+            "esvo_stackless_multi": ("staged", "_staged")}
+MULTI_KERNELS = {
+    "brick_trace_multi": "brick_trace_multi_staged_kernel<false>",
+    "brick_trace_multi_serial": "brick_trace_multi_kernel<false>",
+    "esvo_stackless_multi": "esvo_stackless_multi_kernel<false>",
+    "esvo_stackless_multi_staged": "esvo_stackless_multi_staged_kernel<false>"}
 # each form's kernel, as torch.profiler names it, and the main path's form
 FORM_KERNELS = {
     ("brick_trace", "wide"): "brick_trace_kernel<true, false, 256>",
@@ -367,11 +396,101 @@ def check_composite(seg, d, pset, light, what):
     return e
 
 
+def multi_forms(kname, tree, o, d, k):
+    """form -> (MultiTraceResult, stats) of one k-segment trace on these
+    rays: through the main path's wrapper ("main"), in its form off the main
+    path (by that form's name) and, where the rule gives k a staged form,
+    in both forms' probe forms."""
+    block = brick_cuda.multi_block(kname, k)
+    if kname == "brick_trace_multi":
+        out = {"main": brick_cuda._brick_multi_kernel(tree, o, d, k, True),
+               "first": brick_cuda._brick_multi_serial_kernel(tree, o, d, k, True)}
+        probe = brick_cuda.probe_brick_multi_cuda
+    else:
+        out = {"main": brick_cuda._stackless_multi_kernel(tree, o, d, k, True)}
+        if block:
+            out["staged"] = brick_cuda._stackless_multi_staged_kernel(tree, o, d, k, True)
+        probe = brick_cuda.probe_stackless_multi_cuda
+    if block:
+        for form in brick_cuda.FORMS[kname]:
+            out[f"{form} probe"] = probe(tree, o, d, k, form)[:2]
+    return out
+
+
+# each k-segment trace's k at which its staged form's block shrinks (the
+# last k of one size and the first of the next), at which the block's
+# slots first pass 48 KB, and at which the rule turns to the first form
+MULTI_RULE_KS = {
+    "brick_trace_multi": (21, 22, 53, 54, 117, 118, 594, 595),
+    "esvo_stackless_multi": (24, 25, 48, 49, 96, 97, 454, 455)}
+# the k-segment traces on the depth-10 frame at k = 4: the rays on which
+# the two part where neither is cut (F19), and the rays each bound stops
+MULTI_PARTING, MULTI_UNFINISHED = 15, {"brick_trace_multi": 0, "esvo_stackless_multi": 463}
+
+
+def check_multi_forms(kname, tree, o, d, k, plain, err, what):
+    """Every form of one k-segment trace bitwise against its plain version
+    (a (MultiTraceResult, stats) pair); returns the main path's result."""
+    forms = multi_forms(kname, tree, o, d, k)
+    torch.cuda.synchronize()
+    for form, got in forms.items():
+        e = multi_compare(got, plain, f"{kname} {form}, {what}")
+        if form == "main":
+            err[kname] = max(err[kname], e)
+        elif form == OFF_FORM[kname][0]:
+            err[kname + OFF_FORM[kname][1]] = max(err[kname + OFF_FORM[kname][1]], e)
+    return forms["main"]
+
+
+def multi_rule_parity(dev, err):
+    """[parity] of the k-segment traces at the k where the staged forms'
+    rule changes the block or turns to the first form, on 4,133 rays (a
+    ragged last block and warp at every block size) of a depth-6 terrain:
+    each form bitwise against the plain version, and the brick trace's main
+    path's wrapper through the form the rule names."""
+    host = octree.build_svo(get_scene("terrain"), 6)
+    trees = {"brick_trace_multi": brick.make_brick_svo(host).to(dev),
+             "esvo_stackless_multi": host.to(dev)}
+    plain = {"brick_trace_multi": brick.trace_brick_multi,
+             "esvo_stackless_multi": traverse.trace_multi}
+    o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4133, 61))
+    lines = []
+    for kname, ks in MULTI_RULE_KS.items():
+        found = []
+        for k in ks:
+            block = brick_cuda.multi_block(kname, k)
+            reset_counts()
+            want = plain[kname](trees[kname], o, d, k, True)
+            seg = check_multi_forms(kname, trees[kname], o, d, k, want, err,
+                                    f"terrain d6 N=4133 k={k}")
+            # the brick trace's main path launches its staged form where the
+            # rule gives a block, else its first form; the stackless trace's
+            # its first form, and its staged form launches where it has one
+            got = (brick_cuda.launches[kname],
+                   brick_cuda.form_launches[kname + OFF_FORM[kname][1]])
+            want_n = (((1, 1) if block else (0, 2)) if kname == "brick_trace_multi"
+                      else (1, 1 if block else 0))
+            if got != want_n:
+                raise AssertionError(f"{kname} k={k}: launched (main, {OFF_FORM[kname]}) "
+                                     f"{got}; the rule gives {block or 'no block'}")
+            found.append(f"k={k} {block or 'first form'} ({int(seg[0].count.sum())} "
+                         f"segments)")
+        lines.append(f"{kname}: " + ", ".join(found))
+    say("[parity] the k-segment traces at the k where the staged forms' blocks "
+        "shrink, pass 48 KB of shared memory or turn to the first form "
+        "(brick_cuda.multi_block; threads a block, or the first form), on "
+        "4,133 rays of terrain d6 (a ragged last block and warp): the main "
+        "path's wrapper, the form off it and the probe forms == the plain "
+        "version bitwise; " + "; ".join(lines))
+
+
 def volumetric_parity(dev, cam, light, err):
-    """[parity] of the k-segment traces (through their launchers) and the
-    compositing against their plain versions on small trees: the empty
-    tree, a depth-4 tree (a top tree of one level), camera rays, rays from
-    a shell and rays from inside the cube; k = 4, and k = 1 on one tree."""
+    """[parity] of the k-segment traces (through their launchers, in their
+    first forms and in their probe forms) and the compositing against their
+    plain versions on small trees: the empty tree, a depth-4 tree (a top
+    tree of one level), camera rays, rays from a shell and rays from inside
+    the cube, at k = 1, 4 and 7; then at the k where the staged forms'
+    rule changes, on a ragged ray count."""
     empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
     lines, n_cases = [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
@@ -381,17 +500,12 @@ def volumetric_parity(dev, cam, light, err):
         pset = volume_params(host, dev, depth) if host.n_leaves else None
         found = []
         for kind, o, d in ray_sets(dev, cam, 4096, depth + 100):
-            for k in ((1, VOLUME_K) if (name, depth) == ("terrain", 6) else (VOLUME_K,)):
+            for k in (1, VOLUME_K, 7):
                 what = f"{name} d{depth} {kind} rays N={o.shape[0]} k={k}"
-                ks = brick_cuda._stackless_multi_kernel(svo_s, o, d, k, True)
-                kb = brick_cuda._brick_multi_kernel(bsvo_s, o, d, k, True)
                 ps = traverse.trace_multi(svo_s, o, d, k, True)
                 pb = brick.trace_brick_multi(bsvo_s, o, d, k, True)
-                torch.cuda.synchronize()
-                err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
-                    ks, ps, f"esvo_stackless_multi, {what}"))
-                err["brick_trace_multi"] = max(err["brick_trace_multi"], multi_compare(
-                    kb, pb, f"brick_trace_multi, {what}"))
+                ks = check_multi_forms("esvo_stackless_multi", svo_s, o, d, k, ps, err, what)
+                kb = check_multi_forms("brick_trace_multi", bsvo_s, o, d, k, pb, err, what)
                 if pset is not None:
                     for seg in (ks[0], kb[0]):
                         err["composite_fwd"] = max(err["composite_fwd"], check_composite(
@@ -404,13 +518,15 @@ def volumetric_parity(dev, cam, light, err):
                              f"{int(apart.sum())} apart")
         lines.append(f"{name} d{depth}: " + ", ".join(found))
     say(f"[parity] esvo_stackless_multi and brick_trace_multi (through their "
-        f"launchers) == traverse.trace_multi and brick.trace_brick_multi bitwise "
+        f"launchers, in their first forms and in both forms' probe forms) == "
+        f"traverse.trace_multi and brick.trace_brick_multi bitwise "
         f"(hit_leaf, t_in and t_out bits, count, iters, statistics) on {n_cases} "
         f"cases, and composite_fwd within 1e-6 of composite_plain on each "
         f"case's segments of both traces (random densities in [-3, 2), normals "
         f"of random length; max abs {err['composite_fwd']}): " + "; ".join(lines)
         + " (segments of the stackless trace; rays on which the two traces' "
         "segments part where neither is cut)")
+    multi_rule_parity(dev, err)
 
 
 def launch_counts():
@@ -508,6 +624,29 @@ def serving(ctx, card):
         kb, pb, "brick_trace_multi, terrain d10 frame"))
     err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
         ks, ps, "esvo_stackless_multi, terrain d10 frame"))
+    # the first forms on the frame, and every form's probe form with its
+    # warps' counters
+    err["brick_trace_multi_serial"] = max(err["brick_trace_multi_serial"], multi_compare(
+        brick_cuda._brick_multi_serial_kernel(bsvo, o, d, k, True), pb,
+        "brick_trace_multi_serial, terrain d10 frame"))
+    err["esvo_stackless_multi_staged"] = max(err["esvo_stackless_multi_staged"], multi_compare(
+        brick_cuda._stackless_multi_staged_kernel(svo, o, d, k, True), ps,
+        "esvo_stackless_multi_staged, terrain d10 frame"))
+    out["warps"] = {}
+    for kname, probe, tree, plain_r in (
+            ("brick_trace_multi", brick_cuda.probe_brick_multi_cuda, bsvo, pb),
+            ("esvo_stackless_multi", brick_cuda.probe_stackless_multi_cuda, svo, ps)):
+        for form in brick_cuda.FORMS[kname]:
+            got = probe(tree, o, d, k, form)
+            torch.cuda.synchronize()
+            multi_compare(got[:2], plain_r, f"{kname} {form} probe, terrain d10 frame")
+            out["warps"][(kname, form)] = warps_line(
+                kname, form, got[2], plain_r[0].iters.cpu().numpy(),
+                brick_cuda.multi_block(kname, k) if form == "staged" else None)
+    say("[warps] the k-segment traces' probe forms (k=4; seg: a segment's "
+        "record, its write in the first forms and its stage in shared memory "
+        "in the staged forms, whose warps' write-out is their ray phase) == "
+        "the plain versions bitwise")
     for what, seg in (("brick segments", kb[0]), ("stackless segments", ks[0])):
         err["composite_fwd"] = max(err["composite_fwd"], check_composite(
             seg, d, params, light, f"terrain d10 frame, {what}"))
@@ -542,6 +681,11 @@ def serving(ctx, card):
         raise AssertionError(f"k-segment traces: {int(apart.sum())} rays part "
                              f"between the two, slot 0 differs from "
                              f"esvo_stackless on {n_slot0}")
+    cut = {"brick_trace_multi": int(cut_b.sum()), "esvo_stackless_multi": int(cut_s.sum())}
+    if k == VOLUME_K and (int(apart.sum()) != MULTI_PARTING or cut != MULTI_UNFINISHED):
+        raise AssertionError(f"k-segment traces on the frame: {int(apart.sum())} rays "
+                             f"part and {cut} stop at a bound, where the plain "
+                             f"versions gave {MULTI_PARTING} and {MULTI_UNFINISHED}")
     # on the card, a parameter that requires a gradient gets one: the image
     # through composite_fwd, its backward through composite_bwd and
     # segment_sum
@@ -572,7 +716,11 @@ def serving(ctx, card):
         *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE), 50, 3)
     t.update(in_turns({
         "brick_trace_multi": lambda: brick_cuda.trace_brick_multi_cuda(bsvo, o, d, k),
+        "brick_trace_multi_serial": lambda: brick_cuda.trace_brick_multi_cuda_serial(
+            bsvo, o, d, k),
         "esvo_stackless_multi": lambda: brick_cuda.trace_multi_cuda(svo, o, d, k),
+        "esvo_stackless_multi_staged": lambda: brick_cuda.trace_multi_cuda_staged(
+            svo, o, d, k),
         "composite_fwd": lambda: shade_cuda.composite_fwd(
             kb[0].hit_leaf, kb[0].t_in, kb[0].t_out, d, *params, light, 1.3,
             0.08, DENSITY_SCALE)}))
@@ -593,7 +741,11 @@ def serving(ctx, card):
         + seg_line(*kb) + f", {int(kb[1][:, STAT('rounds')].max())} rounds at most, "
         f"{int(kb[1][:, STAT('dda_max')].max())} DDA steps in one round at most "
         f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
-        + f" (bound {traverse.multi_steps_for_depth(10, k)}); both == their plain "
+        + f" (bound {traverse.multi_steps_for_depth(10, k)}); both, on their main "
+        f"paths ({brick_cuda.MAIN_FORMS}; staged blocks of "
+        f"{brick_cuda.multi_block('brick_trace_multi', k)} and "
+        f"{brick_cuda.multi_block('esvo_stackless_multi', k)} threads at k={k}) and "
+        f"in the forms off them, == their plain "
         f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
         f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
         f"ms, n=1); composite_fwd within 1e-6 of composite_plain (max abs "
@@ -615,8 +767,12 @@ def serving(ctx, card):
         f"median {m['vol_flat'][0]:.4f} ms (p80 {m['vol_flat'][1]:.4f}) = "
         f"{n_rays / m['vol_flat'][0] / 1e3:.2f} Mrays/s; in turns, three rounds "
         f"of 50: brick_trace_multi {m['brick_trace_multi'][0]:.4f} ms (p80 "
-        f"{m['brick_trace_multi'][1]:.4f}), esvo_stackless_multi "
-        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}), "
+        f"{m['brick_trace_multi'][1]:.4f}; the first form "
+        f"{m['brick_trace_multi_serial'][0]:.4f}, p80 "
+        f"{m['brick_trace_multi_serial'][1]:.4f}), esvo_stackless_multi "
+        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}; "
+        f"the staged form {m['esvo_stackless_multi_staged'][0]:.4f}, "
+        f"{m['esvo_stackless_multi_staged'][1]:.4f}), "
         f"composite_fwd {m['composite_fwd'][0]:.4f} ({m['composite_fwd'][1]:.4f}); "
         f"composite_plain {m['composite_plain'][0]:.4f} (n=10)")
 
@@ -1076,17 +1232,16 @@ def ptxas_report(log):
     them."""
     rows, name, stores = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"(brick_trace_kernel|esvo_stackless_kernel)I(\w*?)EEv", line)
-        multi = re.search(r"(brick_trace_multi_kernel|esvo_stackless_multi_kernel"
-                          r"|brick_trace_lod_kernel|esvo_stackless_lod_kernel)", line)
         if "Compiling entry function" in line:
-            name = None
+            # the mangled name: its length, the name, and a template's
+            # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
+            m = re.search(r"\d+((?:brick_trace|esvo_stackless)\w*?_kernel)"
+                          r"(?:I((?:L[ib]\d+E)+)E)?", line)
+            name, stores = None, 0
             if m:
                 args = [("true" if v == "1" else "false") if t == "b" else v
-                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
-                name, stores = f"{m.group(1)}<{', '.join(args)}>", 0
-            elif multi:
-                name, stores = multi.group(1), 0
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
+                name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
@@ -1098,13 +1253,14 @@ def ptxas_report(log):
     return rows
 
 
-def warps_line(kernel, form, record, iters):
+def warps_line(kernel, form, record, iters, block=None):
     """[warps]: one form's per-warp counters on the frame in words: each
     phase's issues a warp, SIMT efficiency (lanes active a issue over 32)
     and share of warp cycles; warp durations; each block's tail; the
     kernel's span and how much of it follows the end of 99 in 100 warps;
     the last warp to end, with its issues against its longest ray's steps.
-    Returns the numbers."""
+    `block`: the threads of a staged form's blocks. Returns the numbers."""
+    block = block or brick_cuda.BLOCKS[form]
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
     cycles = f["end"] - f["start"]
@@ -1118,7 +1274,7 @@ def warps_line(kernel, form, record, iters):
     start, end = (f["ns_start"] - t0) / 1e3, (f["ns_end"] - t0) / 1e3
     dur = end - start
     span, t99 = float(end.max()), float(np.percentile(end, 99))
-    per_block = brick_cuda.BLOCKS[form] // 32
+    per_block = block // 32
     ends = end[: len(end) // per_block * per_block].reshape(-1, per_block)
     tail = ends.max(axis=1) - np.median(ends, axis=1)
     last = int(np.argmax(end))
@@ -1128,7 +1284,7 @@ def warps_line(kernel, form, record, iters):
         lane_steps = max(int(iters[last * 32:(last + 1) * 32].max()), 1)
         longest = (f", {steps_total:.0f} step and DDA issues for its longest ray's "
                    f"{lane_steps} steps ({steps_total / lane_steps:.2f} issues a step)")
-    say(f"[warps] {kernel} {form} ({len(cycles)} warps of {brick_cuda.BLOCKS[form]}-thread "
+    say(f"[warps] {kernel} {form} ({len(cycles)} warps of {block}-thread "
         f"blocks): " + "; ".join(
             f"{ph} {n:.1f} issues a warp, SIMT {e:.3f}, {c:.3f} of warp cycles"
             for ph, (n, e, c) in phases.items())
@@ -1683,13 +1839,21 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 12:
+    if len(ptxas) != 18:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 12")
+                             f"expected 18")
+    moved = {name: regs for name, regs, _sp, _sm in ptxas
+             if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
+    if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
+        raise AssertionError(f"brick_trace.cu's earlier kernels moved: {moved}, "
+                             f"expected {EARLIER_REGS}")
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
-        "esvo_stackless_kernel<probe>, the two k-segment and the two LOD kernels: "
-        "registers, spill bytes, shared bytes): " + "; ".join(
-            f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas))
+        "esvo_stackless_kernel<probe>, the k-segment kernels' staged forms and "
+        "first forms <probe>, the two LOD kernels: registers, spill bytes, "
+        "shared bytes; the staged forms' slots are dynamic shared memory): "
+        + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
+        + f"; the main-path and first-form kernels other than the staged forms "
+        f"at their registers before ({len(EARLIER_REGS)} kernels)")
     bwd_regs = re.search(r"composite_bwd_kernel.*?\n.*?Used (\d+) registers",
                          _build.build_log("shade"), re.S)
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
@@ -1704,8 +1868,9 @@ def main():
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
-               brick_trace_multi=0.0, composite_fwd=0.0, esvo_stackless_lod=0.0,
-               brick_trace_lod=0.0, composite_bwd=0.0)
+               brick_trace_multi=0.0, esvo_stackless_multi_staged=0.0,
+               brick_trace_multi_serial=0.0, composite_fwd=0.0,
+               esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -2387,6 +2552,8 @@ def main():
     shade_cuda.shade_bwd_serial(g_unit, hit_leaf, d, *params, light, 1.3, 0.08)
     brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
     brick_cuda._brick_unstaged_kernel(bsvo, o, d)
+    brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K)
+    brick_cuda.trace_multi_cuda_staged(svo, o, d, VOLUME_K)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
@@ -2401,7 +2568,9 @@ def main():
             or loop_launches != 5 or sorted_launches != 1
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
                                       tile_candidates_block=1, shade_bwd_serial=1,
-                                      brick_trace_serial=1, brick_trace_unstaged=1)
+                                      brick_trace_serial=1, brick_trace_unstaged=1,
+                                      esvo_stackless_multi_staged=1,
+                                      brick_trace_multi_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -2609,8 +2778,10 @@ def main():
                 trace_brick_multi=0, composite_plain=0, shade_fwd=3, shade_bwd=3,
                 shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
                 composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
-                esvo_stackless_probe=0, brick_trace_probe=0, **MULTI_ZERO,
-                **STEP_ZERO)
+                esvo_stackless_probe=0, brick_trace_probe=0,
+                esvo_stackless_multi_staged=0, brick_trace_multi_serial=0,
+                esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
+                **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -3021,8 +3192,8 @@ def main():
                  traverse_cuda.trace_cuda(svo, o, d)), "round", 5, launches=5)
     for key, name in FORM_KERNELS.items():
         alone[key] = kernel_us(rows, name)[0]
-    for kname, form in MAIN_FORM.items():
-        alone[kname] = alone[(kname, form)]
+    for kname in ("brick_trace", "esvo_stackless"):
+        alone[kname] = alone[(kname, MAIN_FORM[kname])]
     alone["esvo_beside"] = kernel_us(rows, "esvo_kernel<false>")[0]
     route_prof = {}
     for route, (fwd, fwdbwd) in route_calls.items():
@@ -3084,15 +3255,19 @@ def main():
     # the volumetric frames: their kernels alone, and the card's idle share
     kb_seg = served["multi"][0][0]
     _, rows, _n = profile_kernels(
-        "brick_trace_multi, esvo_stackless_multi and composite_fwd alone",
+        "brick_trace_multi, esvo_stackless_multi (each in its staged and its "
+        "first form) and composite_fwd alone",
         lambda: (brick_cuda.trace_brick_multi_cuda(bsvo, o, d, VOLUME_K),
+                 brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K),
                  brick_cuda.trace_multi_cuda(svo, o, d, VOLUME_K),
+                 brick_cuda.trace_multi_cuda_staged(svo, o, d, VOLUME_K),
                  shade_cuda.composite_fwd(kb_seg.hit_leaf, kb_seg.t_in,
                                           kb_seg.t_out, d, *params, light, 1.3,
                                           0.08, DENSITY_SCALE)),
-        "round", 3, launches=3)
-    for kname in ("brick_trace_multi", "esvo_stackless_multi", "composite_fwd"):
-        alone[kname] = kernel_us(rows, kname + "_kernel")[0]
+        "round", 5, launches=5)
+    for kname, kernel in MULTI_KERNELS.items():
+        alone[kname] = kernel_us(rows, kernel)[0]
+    alone["composite_fwd"] = kernel_us(rows, "composite_fwd_kernel")[0]
     vol_prof = {}
     for route, fn in (
             ("brick", lambda: diff.render_volumetric_brick(
@@ -3103,8 +3278,10 @@ def main():
                                           "frame", 4)
     vm = served["ms"]
     say(f"[profile] {card}: us alone: brick_trace_multi "
-        f"{us_or(alone['brick_trace_multi'])}, esvo_stackless_multi "
-        f"{us_or(alone['esvo_stackless_multi'])}, composite_fwd "
+        f"{us_or(alone['brick_trace_multi'])} (staged; the first form "
+        f"{us_or(alone['brick_trace_multi_serial'])}), esvo_stackless_multi "
+        f"{us_or(alone['esvo_stackless_multi'])} (the first form; the staged form "
+        f"{us_or(alone['esvo_stackless_multi_staged'])}), composite_fwd "
         f"{us_or(alone['composite_fwd'])}; volumetric frames: " + "; ".join(
             f"{route} route {us_or(f_us)} us of kernels in {count(f_n)} launches, "
             f"idle {idle(f_us, vm['vol_brick' if route == 'brick' else 'vol_flat'][0])} "
@@ -3450,6 +3627,7 @@ def main():
         brick_trace_multi=dict(
             replaces="raytracingtest_tpu/ops/brick.py:574",
             path="VolumetricRenderer.render / diff.render_volumetric_brick",
+            other="trace_brick_multi_cuda_serial",
             plain_ms=served["brick_multi_plain_ms"], bound=bound(
                 nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
                        bsvo.bricks) + seg_out,
@@ -3457,7 +3635,7 @@ def main():
                 + n_rays * OPS_RAY_SETUP)),
         esvo_stackless_multi=dict(
             replaces="raytracingtest_tpu/ops/traverse.py:684",
-            path="diff.render_volumetric",
+            path="diff.render_volumetric", other="trace_multi_cuda_staged",
             plain_ms=served["stackless_multi_plain_ms"], bound=bound(
                 nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr,
                        svo.leaf_base) + seg_out,
@@ -3482,12 +3660,26 @@ def main():
         f"{n_seg_b} segments on {touched_v} leaves, bound {composite_bound[0]:.5f} "
         f"ms ({composite_bound[1]}), {us_or(alone['composite_fwd'])} us alone")
     for kname, row in multi_rows.items():
-        kernels.append(dict(
-            name=kname, route="cuda", source=src + "brick_trace.cu",
-            replaces=row["replaces"], path=row["path"],
-            launches=served["launches"][kname], max_abs_err=err[kname],
-            ms=vm[kname][0], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
-            bound_by=row["bound"][1], library_ms=None, us_alone=alone[kname]))
+        common = dict(route="cuda", source=src + "brick_trace.cu",
+                      replaces=row["replaces"], plain_ms=row["plain_ms"],
+                      bound_ms=row["bound"][0], bound_by=row["bound"][1],
+                      library_ms=None)
+        other, suffix = OFF_FORM[kname]
+        kernels += [
+            dict(name=kname, **common,
+                 path=row["path"] + f" (the {brick_cuda.MAIN_FORMS[kname]} form)",
+                 launches=served["launches"][kname], max_abs_err=err[kname],
+                 ms=vm[kname][0], us_alone=alone[kname], other_form=other,
+                 ms_other_form=vm[kname + suffix][0],
+                 us_alone_other_form=alone[kname + suffix],
+                 staged_block=brick_cuda.multi_block(kname, VOLUME_K),
+                 warps={form: served["warps"][(kname, form)]
+                        for form in brick_cuda.FORMS[kname]}),
+            dict(name=kname + suffix, **common,
+                 path=f"brick_cuda.{row['other']} (the {other} form, off the main path)",
+                 launches=first_launches[kname + suffix],
+                 max_abs_err=err[kname + suffix], ms=vm[kname + suffix][0],
+                 us_alone=alone[kname + suffix])]
     kernels.append(dict(
         name="composite_fwd", route="cuda", source=src + "shade.cu",
         replaces="raytracingtest_tpu/diff.py:377",

@@ -1,4 +1,4 @@
-// The per-ray stackless traces for Hopper, sm_90a: four kernels that share
+// The per-ray stackless traces for Hopper, sm_90a: six traces that share
 // one stackless step.
 //
 //   esvo_stackless  replaces raytracingtest_tpu/ops/traverse.py::_trace_core
@@ -13,12 +13,13 @@
 //   esvo_stackless_multi  replaces traverse.py::_trace_multi_core (:684):
 //                   the first k leaf segments (leaf, t_in, t_out) of each
 //                   ray, the stackless walk in collect mode (a leaf entered
-//                   is recorded and the ray walks on).
+//                   is recorded and the ray walks on): esvo_stackless's
+//                   body, stackless_ray, in collect mode.
 //   brick_trace_multi  replaces brick.py::_trace_brick_multi_core (:574):
-//                   the same segments through the top tree and its bricks,
-//                   brick_trace's first form with the DDA in collect mode
-//                   (each solid voxel recorded, its exit t the segment's
-//                   end).
+//                   the same segments through the top tree and its bricks:
+//                   the wide brick_trace's body, brick_ray, with the DDA in
+//                   collect mode (each solid voxel recorded, its exit t the
+//                   segment's end).
 //   esvo_stackless_lod  replaces traverse.py::_trace_lod_core (:816, driven
 //                   by trace_lod_jax :879; the lod branch of _fast_step
 //                   :389-410): esvo_stackless with the footprint stop, the
@@ -91,19 +92,60 @@
 //     each DDA step reads its word there instead of behind a dependent load.
 //     brick_trace_unstaged is the wide form without the staged row, which
 //     splits the gain between the two changes (chip_smoke.py [timing]).
-//   * esvo_stackless_multi and brick_trace_multi: one thread a ray in blocks
-//     of 128, rows read as the steps need them, each segment written to its
-//     (N, k) slot as it is found and the empty slots padded at the end. The
-//     first forms' structure, plain and correct first; PERF.md holds their
-//     times against their bounds.
+//   * The k-segment traces have two forms each; they compute the same bits.
+//     The staged forms (brick_trace_multi_staged_kernel, the brick trace's
+//     main path; esvo_stackless_multi_staged_kernel) run the bodies of the
+//     wide brick_trace and of esvo_stackless in collect mode (a template
+//     parameter, as LOD is), in blocks of 128 threads while a block's slots
+//     fit in 48 KB and fewer above (brick_cuda.multi_block). Each ray's k
+//     slots live in its warp's region of shared memory, padded (-1, 0, 0)
+//     at set-up: the brick trace stages (leaf, t_in, t_out) beside its
+//     parked brick row and the row's 16 prefix counts (a segment's leaf id
+//     is then one shared word and a popcount, not a loop over the words
+//     below its bit), 132 + 12k bytes a ray; the stackless trace stages
+//     (parent, rank, t_in, t_out), 16k bytes a ray (at least 20), so that no
+//     step waits on the leaf id's load. When its 32 walks have ended, a warp
+//     writes its rays' contiguous run of 32k words of each (N, k) array,
+//     consecutive lanes on consecutive words (the ragged last warp masked),
+//     adding leaf_base[parent] + rank there; count and iters a word a lane;
+//     the statistics staged over the region and written the same way. A
+//     warp's rays are contiguous, so the write-out needs no block barrier
+//     (the brick trace measured 0.5-2% slower writing out after one). Above
+//     48 KB a block
+//     opts in to more dynamic shared memory; where even 32 rays' slots pass
+//     SMEM_MAX (k from 595 in the brick trace, 455 in the stackless trace)
+//     the rule in brick_cuda takes the first form.
+//   * The first forms (brick_trace_multi_kernel, esvo_stackless_multi_kernel;
+//     the stackless trace's main path): one thread a ray in blocks of 128,
+//     rows read as the steps need them, each segment written to its (N, k)
+//     slot as it is found, three 4-byte stores at a 4k-byte stride from a
+//     partly active warp, and the empty slots padded at the end. The brick
+//     trace's is the check and the yardstick of its staged form. The
+//     stackless trace's stays on the main path: its staged form measured no
+//     faster (the record it takes off the walk was 4% of the warps' cycles;
+//     PERF.md).
+//     What bounds the k-segment traces on this card is what bounds the
+//     single-hit ones, more so (their probe forms on the depth-10 frame at
+//     k = 4, chip_smoke.py [warps]): the brick trace's top step issues at
+//     SIMT efficiency 0.40 (0.56 in brick_trace: a ray walks on past its
+//     first hit, so the lanes of a warp part further) and takes about half
+//     of the first form's warp cycles; a segment's record runs at SIMT 0.08
+//     (a few lanes at a time), 10% of the first form's warp cycles in the
+//     brick trace (the leaf id's loop over the row) and 4% in the stackless
+//     trace (its leaf id's load); the last 99th of warps runs 10-12% of the
+//     span. Staging takes the record off the walk; it cannot mend the
+//     divergence.
 //   * esvo_stackless_lod and brick_trace_lod: esvo_stackless's and the wide
 //     brick_trace's bodies (stackless_ray, brick_ray) with the step in LOD
 //     mode; the other kernels instantiate the same bodies without it, so
 //     their code and registers are as before (chip_smoke.py's [build]).
-//   * The probe forms (esvo_stackless_probe, brick_trace_probe) are a form
-//     with counters: each warp writes PROBE_WORDS int64 words (the layout
-//     at Probe below), the issues of each phase (a step, the descent, a DDA
-//     step, a ray's set-up or write), the lanes active at each issue, the
+//   * The probe forms (esvo_stackless_probe, brick_trace_probe and the
+//     k-segment traces' esvo_stackless_multi_probe, brick_trace_multi_probe,
+//     of either form) are a form with counters: each warp writes PROBE_WORDS
+//     int64 words (the layout at Probe below), the issues of each phase (a
+//     step, the descent, a DDA step, a ray's set-up or write, a segment's
+//     record; in a staged form the warp's write-out is the write), the
+//     lanes active at each issue, the
 //     clock64() cycles inside each phase, and the warp's start and end on
 //     clock64() and on the global timer. Issue and lane counts are exact;
 //     cycles inside divergent code are approximate (another branch's lanes
@@ -132,11 +174,17 @@ constexpr int S_MAX = 23;
 constexpr int BLOCK = 128;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ROW_WORDS = 17;        // a brick row: 16 occupancy words + first leaf id
+// the collect mode's staged row: the row, then for each occupancy word w
+// the first leaf id plus the set bits of the words below w
+constexpr int PREFIX_ROW_WORDS = ROW_WORDS + 16;
 constexpr int DDA_ROUND_STEPS = 30;  // the reference's DDA loop: 26 rounded up to 6s
 constexpr int N_STATS = 5;           // rounds, DDA steps, capped rounds, DDA max, unfinished
 constexpr int STEP_ON = 0, STEP_LEAF = 1, STEP_EXIT = 2;
-constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2;
+constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3;
 constexpr int WIDE_BLOCK = 256;  // the wide form's block
+// shared memory a block: above SMEM_STATIC only after opting in
+// (cudaFuncSetAttribute); SMEM_MAX, the most an sm_90 block can have
+constexpr int SMEM_STATIC = 48 * 1024, SMEM_MAX = 232448;
 
 __device__ __forceinline__ int max_iters_for_depth(int depth) {
   return 24 * depth + 48;
@@ -358,13 +406,16 @@ __device__ __forceinline__ void write_stats(int* __restrict__ stats, int i,
 // A warp's record, PROBE_WORDS int64 words: its start and end clock64() (the
 // SM's own counter, so compare only warps of one block), rays it wrote, then
 // for each phase (a top or stackless step, the descent into a brick, a DDA
-// step, a ray's set-up or write) its issues, the lanes active summed over
-// them, and the cycles inside it; then the SM's id, and the warp's start and
-// end on the card's global timer (ns, one clock for all SMs).
-constexpr int PH_STEP = 0, PH_DESCENT = 1, PH_DDA = 2, PH_RAY = 3, N_PHASES = 4;
-constexpr int PROBE_WORDS = 18;
-constexpr int PW_START = 0, PW_END = 1, PW_RAYS = 2, PW_PHASES = 3, PW_SM = 15,
-              PW_NS_START = 16, PW_NS_END = 17;
+// step, a ray's set-up or write, a k-segment trace's record of a segment:
+// its write, or its stage in shared memory) its issues, the lanes active
+// summed over them, and the cycles inside it; then the SM's id, and the
+// warp's start and end on the card's global timer (ns, one clock for all
+// SMs).
+constexpr int PH_STEP = 0, PH_DESCENT = 1, PH_DDA = 2, PH_RAY = 3, PH_SEG = 4,
+              N_PHASES = 5;
+constexpr int PROBE_WORDS = 21;
+constexpr int PW_START = 0, PW_END = 1, PW_RAYS = 2, PW_PHASES = 3, PW_SM = 18,
+              PW_NS_START = 19, PW_NS_END = 20;
 
 __device__ __forceinline__ long long global_ns() {
   unsigned long long t;
@@ -469,30 +520,79 @@ __device__ __forceinline__ void write_ray(const Out& out, int i, int leaf,
   out.iters[i] = it;
 }
 
+// The k-segment traces' outputs: (N, k) row-major segments, (N,) counts and
+// steps, and optional statistics.
+struct MultiOut {
+  int* hit_leaf;
+  float* t_in;
+  float* t_out;
+  int* count;
+  int* iters;
+  int* stats;  // nullptr: no statistics
+  int k;
+};
+
+// Collect mode of the walks: a thread's k segment slots in its block's
+// shared memory (slot s of thread t at t * k + s of each array), padded
+// (-1, 0, 0) before the walk, and the tallies the walk leaves for the
+// block's write-out.
+struct Slots {
+  int* id;     // brick trace: the leaf; stackless: the parent row; -1 empty
+  int* rank;   // stackless: the leaf's rank among the parent's leaf children
+  float* t_in;
+  float* t_out;
+  int k;
+  int count, iters;
+  int stats[N_STATS];
+};
+
 // ---- esvo_stackless --------------------------------------------------------
 
 // Ray i's stackless walk over the full tree, at most
 // max_iters_for_depth(depth) steps; LOD: with the footprint stop, its node
-// row written to lod.hit_node.
-template <bool PROBE, bool LOD>
+// row written to lod.hit_node. COLLECT (esvo_stackless_multi): the walk in
+// collect mode, at most 8k more steps; each leaf segment is staged in
+// col's slots as (parent, rank, t_in, t_out), the leaf id left to the
+// write-out, and the ray ends with k segments or when it leaves the root;
+// its count and steps go to col, nothing to `out`.
+template <bool PROBE, bool LOD, bool COLLECT = false>
 __device__ __forceinline__ void stackless_ray(const Tree& tree,
                                               const Rays& rays, const Out& out,
                                               int i, Probe<PROBE>& probe,
-                                              const Lod* lod) {
+                                              const Lod* lod,
+                                              Slots* col = nullptr) {
+  static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
   long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
   probe.leave(PH_RAY, t);
-  const int n_max = max_iters_for_depth(tree.depth);
-  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
+  int n_max = max_iters_for_depth(tree.depth);
+  if constexpr (COLLECT) n_max += 8 * col->k;
+  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1, count = 0;
   float ht = 0.0f;
   while (!done && it < n_max) {
     t = probe.enter(PH_STEP);
     ++it;
     int child_shift, leaf_rank;
     int what;
-    if constexpr (LOD) {
+    if constexpr (COLLECT) {
+      Seg seg;
+      what = walk_step<true>(r, w, tree.masks, tree.child, tree.parent_ptr,
+                             child_shift, leaf_rank, seg);
+      probe.leave(PH_STEP, t);
+      if (what & STEP_COLLECTED) {
+        t = probe.enter(PH_SEG);
+        col->id[count] = seg.parent;
+        col->rank[count] = seg.rank;
+        col->t_in[count] = seg.t_in;
+        col->t_out[count] = seg.t_out;
+        done = ++count >= col->k;
+        probe.leave(PH_SEG, t);
+      }
+      done = done || (what & STEP_WHAT) == STEP_EXIT;
+      continue;
+    } else if constexpr (LOD) {
       Seg unused;
       LodStep ls;
       what = walk_step<false, true>(r, w, tree.masks, tree.child,
@@ -516,6 +616,13 @@ __device__ __forceinline__ void stackless_ray(const Tree& tree,
     }
     done = what != STEP_ON;
     probe.leave(PH_STEP, t);
+  }
+  if constexpr (COLLECT) {  // the block's write-out writes the ray
+    col->count = count;
+    col->iters = it;
+    for (int c = 0; c < N_STATS - 1; ++c) col->stats[c] = 0;
+    col->stats[N_STATS - 1] = done ? 0 : 1;
+    return;
   }
   t = probe.enter(PH_RAY);
   write_ray(out, i, leaf, ht, hp, hc, it);
@@ -550,30 +657,42 @@ esvo_stackless_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
 // Ray i's rounds: a stackless walk over the top tree until the ray parks at
 // a brick, then the brick's DDA; a DDA that leaves the brick sets `popped`,
 // so the next round's walk steps past it. STAGE: the parked ray's brick row
-// is read into `my_row`, its slice of shared memory, first. LOD: the top
+// is read into `my_row`, its slice of shared memory, first (in collect mode
+// with its 16 prefix counts beside it, PREFIX_ROW_WORDS words, so that a
+// segment's leaf id is one word and one popcount). LOD: the top
 // walk has the footprint stop, at nodes and at bricks, its node row written
-// to lod.hit_node.
-template <bool STAGE, bool PROBE, bool LOD>
+// to lod.hit_node. COLLECT (brick_trace_multi): the DDA in collect mode,
+// each solid voxel the ray stands in staged in col's slots as (leaf, t, the
+// voxel's exit t) and the walk going on, with the k-segment bounds (8k more
+// top steps a round and rounds, 26 + k DDA steps a round); the ray ends
+// with k segments, and its tallies go to col, nothing to `out`.
+template <bool STAGE, bool PROBE, bool LOD, bool COLLECT = false>
 __device__ __forceinline__ void brick_ray(const Tree& tree, const Rays& rays,
                                           const Out& out, int i,
                                           Probe<PROBE>& probe,
                                           int* __restrict__ my_row,
-                                          const Lod* lod) {
+                                          const Lod* lod,
+                                          Slots* col = nullptr) {
+  static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
   long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
   probe.leave(PH_RAY, t);
   const int depth = tree.depth, top_depth = tree.top_depth;
-  const int n_top = max_iters_for_depth(top_depth);
-  const int n_rounds = 16 * depth + 64;
+  int n_top = max_iters_for_depth(top_depth);
+  int n_rounds = 16 * depth + 64;
+  if constexpr (COLLECT) {
+    n_top += 8 * col->k;
+    n_rounds += 8 * col->k;
+  }
   const int vshift = S_MAX - depth;
   const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
   const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
   int flip[3];
   for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
 
-  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
+  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1, count = 0;
   float ht = 0.0f;
   int rounds = 0, dda = 0, capped = 0, dda_max = 0;
   while (!done && rounds < n_rounds) {
@@ -622,6 +741,13 @@ __device__ __forceinline__ void brick_ray(const Tree& tree, const Rays& rays,
       int v[ROW_WORDS];
       for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
       for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
+      if constexpr (COLLECT) {
+        int first = v[16];
+        for (int k = 0; k < 16; ++k) {
+          my_row[ROW_WORDS + k] = first;
+          first += __popc((uint32_t)v[k]);
+        }
+      }
     }
     auto word = [row, my_row](int k) -> int {
       if constexpr (STAGE) {
@@ -635,28 +761,72 @@ __device__ __forceinline__ void brick_ray(const Tree& tree, const Rays& rays,
     rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
     probe.leave(PH_DESCENT, t);
     int steps = 0;
-    for (; steps < DDA_ROUND_STEPS;) {
-      t = probe.enter(PH_DDA);
-      ++steps;
-      int idx9;
-      const int step = rtt_dda::dda_step(
-          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
-          [&word](int k) { return (uint32_t)word(k); }, idx9);
-      if (step == rtt_dda::DDA_HIT) {
-        leaf = rtt_dda::leaf_of(word, idx9);
-        hp = w.parent;
-        hc = child_shift;
-        ht = t_cur;
-        done = true;
+    if constexpr (COLLECT) {
+      const int n_dda = 3 * 8 + 2 + col->k;
+      while (steps < n_dda) {
+        t = probe.enter(PH_DDA);
+        ++steps;
+        const float t_entry = t_cur;
+        int idx9;
+        bool solid;
+        float t_exit;
+        const int step = rtt_dda::dda_collect_step(
+            bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize,
+            [&word](int k) { return (uint32_t)word(k); }, idx9, solid, t_exit);
+        probe.leave(PH_DDA, t);
+        if (solid) {
+          t = probe.enter(PH_SEG);
+          const int wsel = idx9 >> 5;  // rtt_dda::leaf_of from the prefix
+          col->id[count] = my_row[ROW_WORDS + wsel] +
+                           __popc((uint32_t)word(wsel) & ((1u << (idx9 & 31)) - 1u));
+          col->t_in[count] = t_entry;
+          col->t_out[count] = t_exit;
+          const bool full = ++count >= col->k;
+          probe.leave(PH_SEG, t);
+          if (full) {  // the ray ends here, without the step
+            done = true;
+            break;
+          }
+        }
+        if (step == rtt_dda::DDA_EXIT) {
+          w.popped = true;
+          break;
+        }
       }
-      if (step == rtt_dda::DDA_EXIT) w.popped = true;
-      probe.leave(PH_DDA, t);
-      if (step != rtt_dda::DDA_STAY) break;
+    } else {
+      for (; steps < DDA_ROUND_STEPS;) {
+        t = probe.enter(PH_DDA);
+        ++steps;
+        int idx9;
+        const int step = rtt_dda::dda_step(
+            bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
+            [&word](int k) { return (uint32_t)word(k); }, idx9);
+        if (step == rtt_dda::DDA_HIT) {
+          leaf = rtt_dda::leaf_of(word, idx9);
+          hp = w.parent;
+          hc = child_shift;
+          ht = t_cur;
+          done = true;
+        }
+        if (step == rtt_dda::DDA_EXIT) w.popped = true;
+        probe.leave(PH_DDA, t);
+        if (step != rtt_dda::DDA_STAY) break;
+      }
     }
     w.t_min = t_cur;
     it += steps;
     dda += steps;
     dda_max = max(dda_max, steps);
+  }
+  if constexpr (COLLECT) {  // the block's write-out writes the ray
+    col->count = count;
+    col->iters = it;
+    col->stats[0] = rounds;
+    col->stats[1] = dda;
+    col->stats[2] = capped;
+    col->stats[3] = dda_max;
+    col->stats[4] = done ? 0 : 1;
+    return;
   }
   t = probe.enter(PH_RAY);
   write_ray(out, i, leaf, ht, hp, hc, it);
@@ -695,17 +865,6 @@ brick_trace_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
 
 // ---- the k-segment traces ---------------------------------------------------
 
-// (N, k) row-major segments, (N,) counts and steps, and optional statistics.
-struct MultiOut {
-  int* hit_leaf;
-  float* t_in;
-  float* t_out;
-  int* count;
-  int* iters;
-  int* stats;  // nullptr: no statistics
-  int k;
-};
-
 __device__ __forceinline__ void write_segment(const MultiOut& out, int i,
                                               int slot, int leaf, float t_in,
                                               float t_out) {
@@ -724,48 +883,74 @@ __device__ __forceinline__ void finish_multi(const MultiOut& out, int i,
   out.iters[i] = it;
 }
 
-// One thread a ray: the stackless walk over the full tree in collect mode,
-// at most max_iters_for_depth(depth) + 8k steps; it ends with k segments or
-// when the ray leaves the root cube.
-__global__ void __launch_bounds__(BLOCK)
-esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
+// The first form of esvo_stackless_multi, one thread a ray: the stackless
+// walk over the full tree in collect mode, at most
+// max_iters_for_depth(depth) + 8k steps; it ends with k segments or when
+// the ray leaves the root cube. Each segment is written to its (N, k) slot
+// as it is found, its leaf id loaded first.
+template <bool PROBE>
+__device__ __forceinline__ void stackless_multi_ray(
+    const Tree& tree, const Rays& rays, const MultiOut& out, int i,
+    Probe<PROBE>& probe) {
+  long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
+  probe.leave(PH_RAY, t);
   const int n_max = max_iters_for_depth(tree.depth) + 8 * out.k;
   int count = 0, it = 0;
   while (!done && it < n_max) {
+    t = probe.enter(PH_STEP);
     ++it;
     int child_shift, leaf_rank;
     Seg seg;
     const int what = walk_step<true>(r, w, tree.masks, tree.child,
                                      tree.parent_ptr, child_shift, leaf_rank,
                                      seg);
+    probe.leave(PH_STEP, t);
     if (what & STEP_COLLECTED) {
+      t = probe.enter(PH_SEG);
       write_segment(out, i, count, __ldg(tree.leaf_base + seg.parent) + seg.rank,
                     seg.t_in, seg.t_out);
       done = ++count >= out.k;
+      probe.leave(PH_SEG, t);
     }
     done = done || (what & STEP_WHAT) == STEP_EXIT;
   }
+  t = probe.enter(PH_RAY);
   finish_multi(out, i, count, it);
   write_stats(out.stats, i, 0, 0, 0, 0, !done);
+  probe.ray();
+  probe.leave(PH_RAY, t);
 }
 
-// One thread a ray: brick_trace's first form (rounds of a top walk, a
-// descent and a brick DDA) with the DDA in collect mode. Each solid voxel
-// the ray stands in records (leaf, t, the voxel's exit t) and the walk goes
-// on. Bounds on each ray: max_iters_for_depth(top_depth) + 8k top steps and
-// 3 * 8 + 2 + k DDA steps a round, 16 * depth + 8k + 64 rounds.
+template <bool PROBE>
 __global__ void __launch_bounds__(BLOCK)
-brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
+esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out,
+                                   long long* __restrict__ probe_out) {
+  Probe<PROBE> probe;
+  probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
+  if (i < rays.n) stackless_multi_ray<PROBE>(tree, rays, out, i, probe);
+  probe.finish(probe_out);
+}
+
+// The first form of brick_trace_multi, one thread a ray: brick_trace's
+// first form (rounds of a top walk, a descent and a brick DDA, rows read as
+// the DDA needs them) with the DDA in collect mode. Each solid voxel the ray
+// stands in is written to its (N, k) slot as (leaf, t, the voxel's exit t)
+// and the walk goes on. Bounds on each ray: max_iters_for_depth(top_depth)
+// + 8k top steps and 3 * 8 + 2 + k DDA steps a round, 16 * depth + 8k + 64
+// rounds.
+template <bool PROBE>
+__device__ __forceinline__ void brick_multi_ray(
+    const Tree& tree, const Rays& rays, const MultiOut& out, int i,
+    Probe<PROBE>& probe) {
+  long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
+  probe.leave(PH_RAY, t);
   const int depth = tree.depth, top_depth = tree.top_depth, k = out.k;
   const int n_top = max_iters_for_depth(top_depth) + 8 * k;
   const int n_rounds = 16 * depth + 8 * k + 64;
@@ -781,9 +966,11 @@ brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
     ++rounds;
     int what = STEP_ON, child_shift = 0, leaf_rank = 0;
     for (int top = 0; top < n_top && what == STEP_ON; ++top) {
+      t = probe.enter(PH_STEP);
       ++it;
       what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
                             child_shift, leaf_rank);
+      probe.leave(PH_STEP, t);
     }
     if (what == STEP_EXIT) {
       done = true;
@@ -793,14 +980,17 @@ brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
       ++capped;
       continue;
     }
+    t = probe.enter(PH_DESCENT);
     const int* row = tree.bricks +
                      (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
     auto word = [row](int kk) -> int { return __ldg(row + kk); };
     float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
     float t_cur = w.t_min;
     rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+    probe.leave(PH_DESCENT, t);
     int steps = 0;
     while (steps < n_dda) {
+      t = probe.enter(PH_DDA);
       ++steps;
       const float t_entry = t_cur;
       int idx9;
@@ -809,10 +999,14 @@ brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
       const int step = rtt_dda::dda_collect_step(
           bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize,
           [&word](int kk) { return (uint32_t)word(kk); }, idx9, solid, t_exit);
+      probe.leave(PH_DDA, t);
       if (solid) {
+        t = probe.enter(PH_SEG);
         write_segment(out, i, count, rtt_dda::leaf_of(word, idx9), t_entry,
                       t_exit);
-        if (++count >= k) {  // full: the ray ends here, without the step
+        const bool full = ++count >= k;
+        probe.leave(PH_SEG, t);
+        if (full) {  // the ray ends here, without the step
           done = true;
           break;
         }
@@ -827,8 +1021,148 @@ brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out) {
     dda += steps;
     dda_max = max(dda_max, steps);
   }
+  t = probe.enter(PH_RAY);
   finish_multi(out, i, count, it);
   write_stats(out.stats, i, rounds, dda, capped, dda_max, !done);
+  probe.ray();
+  probe.leave(PH_RAY, t);
+}
+
+template <bool PROBE>
+__global__ void __launch_bounds__(BLOCK)
+brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out,
+                                long long* __restrict__ probe_out) {
+  Probe<PROBE> probe;
+  probe.begin();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) brick_multi_ray<PROBE>(tree, rays, out, i, probe);
+  probe.finish(probe_out);
+}
+
+// The staged forms' shared memory a ray, in 4-byte words: brick_trace_multi
+// stages its parked brick row with its prefix counts and its k slots (leaf,
+// t_in, t_out);
+// esvo_stackless_multi its k slots (parent, rank, t_in, t_out), and at
+// least N_STATS words, over which the statistics are staged for their
+// write-out.
+__host__ __device__ constexpr int brick_multi_words(int k) {
+  return PREFIX_ROW_WORDS + 3 * k;
+}
+__host__ __device__ constexpr int stackless_multi_words(int k) {
+  return 4 * k > N_STATS ? 4 * k : N_STATS;
+}
+
+// A staged form's write-out by each warp, once its 32 walks have ended (the
+// warp's rays are contiguous, so no block barrier is needed): the warp's
+// rays [w0, w0 + nw) own one contiguous run of nw * k words of each (N, k)
+// array, written by consecutive lanes to consecutive words, the ragged last
+// warp masked; count and iters a word a lane; the statistics staged over
+// `spare` (the warp's shared memory, N_STATS words a lane) and written as
+// one run of nw * N_STATS words. With leaf_base (the stackless trace), a
+// slot holds (parent, rank) and its leaf is leaf_base[parent] + rank,
+// loaded here so that no step waits on it.
+template <bool PROBE>
+__device__ __forceinline__ void write_warp(
+    const MultiOut& out, const int* s_id, const int* s_rank,
+    const float* s_tin, const float* s_tout,
+    const int* __restrict__ leaf_base, int* spare, const Slots& col, int n,
+    Probe<PROBE>& probe) {
+  const int lane = threadIdx.x & 31, k = out.k;
+  const int w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  const int nw = min(32, n - w0);
+  __syncwarp();
+  long long t = probe.enter(PH_RAY);
+  const size_t base = (size_t)w0 * k;
+  for (int j = lane; j < nw * k; j += 32) {
+    int leaf = s_id[j];
+    if (leaf_base != nullptr && leaf >= 0) leaf = __ldg(leaf_base + leaf) + s_rank[j];
+    out.hit_leaf[base + j] = leaf;
+    out.t_in[base + j] = s_tin[j];
+    out.t_out[base + j] = s_tout[j];
+  }
+  if (lane < nw) {
+    out.count[w0 + lane] = col.count;
+    out.iters[w0 + lane] = col.iters;
+    probe.ray();
+  }
+  if (out.stats != nullptr) {
+    __syncwarp();  // every slot is read: `spare` may overlap them
+    for (int c = 0; c < N_STATS; ++c) spare[lane * N_STATS + c] = col.stats[c];
+    __syncwarp();
+    for (int j = lane; j < nw * N_STATS; j += 32)
+      out.stats[(size_t)w0 * N_STATS + j] = spare[j];
+  }
+  probe.leave(PH_RAY, t);
+}
+
+// The staged form of esvo_stackless_multi: stackless_ray in collect mode in
+// blocks of blockDim.x threads (at most BLOCK), each warp's 32 rays' k slots
+// staged in its region of the block's shared memory (32 *
+// stackless_multi_words(k) words a warp, dynamic: (parent, rank, t_in,
+// t_out), each 32k words) and written out at the warp's end.
+template <bool PROBE>
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
+                                   long long* __restrict__ probe_out) {
+  extern __shared__ int smem[];
+  const int tid = threadIdx.x, lane = tid & 31, k = out.k;
+  int* region = smem + (tid >> 5) * 32 * stackless_multi_words(k);
+  int* s_parent = region;
+  int* s_rank = region + 32 * k;
+  float* s_tin = reinterpret_cast<float*>(region + 64 * k);
+  float* s_tout = s_tin + 32 * k;
+  Probe<PROBE> probe;
+  probe.begin();
+  Slots col{s_parent + lane * k, s_rank + lane * k, s_tin + lane * k,
+            s_tout + lane * k, k, 0, 0, {0, 0, 0, 0, 0}};
+  for (int s = 0; s < k; ++s) {
+    col.id[s] = -1;
+    col.rank[s] = 0;
+    col.t_in[s] = 0.0f;
+    col.t_out[s] = 0.0f;
+  }
+  const int i = blockIdx.x * blockDim.x + tid;
+  if (i < rays.n)
+    stackless_ray<PROBE, false, true>(tree, rays, Out{}, i, probe, nullptr, &col);
+  write_warp(out, s_parent, s_rank, s_tin, s_tout, tree.leaf_base, region, col,
+             rays.n, probe);
+  probe.finish(probe_out);
+}
+
+// The staged form of brick_trace_multi: brick_ray in collect mode on the
+// wide form's body (the parked ray's brick row and its prefix counts staged
+// in the thread's slice of shared memory) in blocks of blockDim.x threads
+// (at most BLOCK), each warp's region holding its 32 rays' rows, then their
+// k slots (leaf, t_in, t_out), each 32k words (32 * brick_multi_words(k)
+// words a warp, dynamic), written out at the warp's end.
+template <bool PROBE>
+__global__ void __launch_bounds__(BLOCK)
+brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
+                                long long* __restrict__ probe_out) {
+  extern __shared__ int smem[];
+  const int tid = threadIdx.x, lane = tid & 31, k = out.k;
+  int* region = smem + (tid >> 5) * 32 * brick_multi_words(k);
+  int* rows = region;
+  int* s_leaf = region + 32 * PREFIX_ROW_WORDS;
+  float* s_tin = reinterpret_cast<float*>(s_leaf + 32 * k);
+  float* s_tout = s_tin + 32 * k;
+  Probe<PROBE> probe;
+  probe.begin();
+  Slots col{s_leaf + lane * k, nullptr, s_tin + lane * k, s_tout + lane * k, k,
+            0, 0, {0, 0, 0, 0, 0}};
+  for (int s = 0; s < k; ++s) {
+    col.id[s] = -1;
+    col.t_in[s] = 0.0f;
+    col.t_out[s] = 0.0f;
+  }
+  const int i = blockIdx.x * blockDim.x + tid;
+  if (i < rays.n)
+    brick_ray<true, PROBE, false, true>(tree, rays, Out{}, i, probe,
+                                        rows + lane * PREFIX_ROW_WORDS, nullptr,
+                                        &col);
+  write_warp(out, s_leaf, nullptr, s_tin, s_tout, nullptr, rows, col, rays.n,
+             probe);
+  probe.finish(probe_out);
 }
 
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
@@ -896,6 +1230,103 @@ int launch_brick(int form, const void* top_masks, const void* top_child,
     } else {
       brick_launch<false, WIDE_BLOCK>(tree, rays, out, p, s);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of a staged form at `block` threads a block (32 to BLOCK, a
+// multiple of 32), `words` words of shared memory a ray (the caller reads
+// cudaGetLastError).
+template <typename KernelFn>
+int launch_staged(KernelFn kernel, int block, size_t words, const Tree& tree,
+                  const Rays& rays, const MultiOut& out, long long* p,
+                  cudaStream_t s) {
+  const size_t bytes = (size_t)block * words * sizeof(int);
+  if (block < 32 || block > BLOCK || block % 32 != 0 || bytes > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > SMEM_STATIC) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks_for(rays.n, block), block, bytes, s>>>(tree, rays, out, p);
+  return (int)cudaSuccess;
+}
+
+MultiOut multi_outputs(void* hit_leaf, void* t_in, void* t_out, void* count,
+                       void* iters, void* stats, int k) {
+  return MultiOut{(int*)hit_leaf, (float*)t_in, (float*)t_out, (int*)count,
+                  (int*)iters, (int*)stats, k};
+}
+
+// One launch of esvo_stackless_multi in `form` (FORM_FIRST, or FORM_STAGED
+// at `block` threads a block; probe: with the counters).
+int launch_stackless_multi(int form, const void* masks, const void* child_base,
+                           const void* parent_ptr, const void* leaf_base,
+                           const void* origin, const void* direction, int n,
+                           int depth, int block, const MultiOut& out,
+                           void* probe, void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX - 1 || out.k < 1 ||
+      (form != FORM_FIRST && form != FORM_STAGED))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)masks, (const int*)child_base,
+                    (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                    depth, 0};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const cudaStream_t s = (cudaStream_t)stream;
+    long long* p = (long long*)probe;
+    int e = 0;
+    if (form == FORM_FIRST && p) {
+      esvo_stackless_multi_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
+    } else if (form == FORM_FIRST) {
+      esvo_stackless_multi_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
+    } else {
+      const size_t words = stackless_multi_words(out.k);
+      e = p ? launch_staged(esvo_stackless_multi_staged_kernel<true>, block, words,
+                            tree, rays, out, p, s)
+            : launch_staged(esvo_stackless_multi_staged_kernel<false>, block, words,
+                            tree, rays, out, p, s);
+    }
+    if (e != 0) return e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of brick_trace_multi in `form` (FORM_FIRST, or FORM_STAGED at
+// `block` threads a block; probe: with the counters).
+int launch_brick_multi(int form, const void* top_masks, const void* top_child,
+                       const void* top_parent, const void* bricks,
+                       const void* origin, const void* direction, int n,
+                       int depth, int top_depth, int block, const MultiOut& out,
+                       void* probe, void* stream) {
+  if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
+      out.k < 1 || (form != FORM_FIRST && form != FORM_STAGED))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree tree{(const int*)top_masks, (const int*)top_child,
+                    (const int*)top_parent, nullptr, (const int*)bricks,
+                    depth, top_depth};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const cudaStream_t s = (cudaStream_t)stream;
+    long long* p = (long long*)probe;
+    int e = 0;
+    if (form == FORM_FIRST && p) {
+      brick_trace_multi_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
+    } else if (form == FORM_FIRST) {
+      brick_trace_multi_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, p);
+    } else {
+      const size_t words = brick_multi_words(out.k);
+      e = p ? launch_staged(brick_trace_multi_staged_kernel<true>, block, words,
+                            tree, rays, out, p, s)
+            : launch_staged(brick_trace_multi_staged_kernel<false>, block, words,
+                            tree, rays, out, p, s);
+    }
+    if (e != 0) return e;
   }
   return (int)cudaGetLastError();
 }
@@ -1038,7 +1469,8 @@ extern "C" int brick_trace_lod(const void* top_masks, const void* top_child,
 
 // The first k leaf segments of each ray, the stackless walk over the full
 // tree: (n, k) hit_leaf, t_in, t_out, (n,) count and iters, stats (n, 5) or
-// null.
+// null. The first form, the main path's (it measured faster in turns than
+// the staged form, PERF.md): one thread a ray in blocks of 128.
 extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
                                     const void* parent_ptr,
                                     const void* leaf_base, const void* origin,
@@ -1046,41 +1478,82 @@ extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
                                     int k, void* hit_leaf, void* t_in,
                                     void* t_out, void* count, void* iters,
                                     void* stats, void* stream) {
-  if (n < 0 || depth < 1 || depth > S_MAX - 1 || k < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const Tree tree{(const int*)masks, (const int*)child_base,
-                    (const int*)parent_ptr, (const int*)leaf_base, nullptr,
-                    depth, 0};
-    const Rays rays{(const float*)origin, (const float*)direction, n};
-    const MultiOut out{(int*)hit_leaf, (float*)t_in, (float*)t_out,
-                       (int*)count, (int*)iters, (int*)stats, k};
-    esvo_stackless_multi_kernel<<<blocks_for(n, BLOCK), BLOCK, 0,
-                                  (cudaStream_t)stream>>>(tree, rays, out);
-  }
-  return (int)cudaGetLastError();
+  return launch_stackless_multi(
+      FORM_FIRST, masks, child_base, parent_ptr, leaf_base, origin, direction,
+      n, depth, BLOCK, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
+      nullptr, stream);
 }
 
-// The first k leaf segments of each ray through the top tree and its bricks.
+// The staged form: the same results, in blocks of `block` threads (32 to
+// 128, a multiple of 32, and block * stackless_multi_words(k) words at most
+// SMEM_MAX bytes).
+extern "C" int esvo_stackless_multi_staged(
+    const void* masks, const void* child_base, const void* parent_ptr,
+    const void* leaf_base, const void* origin, const void* direction, int n,
+    int depth, int k, int block, void* hit_leaf, void* t_in, void* t_out,
+    void* count, void* iters, void* stats, void* stream) {
+  return launch_stackless_multi(
+      FORM_STAGED, masks, child_base, parent_ptr, leaf_base, origin, direction,
+      n, depth, block, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
+      nullptr, stream);
+}
+
+// A form with the counters (`block`: the staged form's; the first form's
+// blocks are of 128).
+extern "C" int esvo_stackless_multi_probe(
+    int form, const void* masks, const void* child_base, const void* parent_ptr,
+    const void* leaf_base, const void* origin, const void* direction, int n,
+    int depth, int k, int block, void* hit_leaf, void* t_in, void* t_out,
+    void* count, void* iters, void* stats, void* probe, void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_stackless_multi(
+      form, masks, child_base, parent_ptr, leaf_base, origin, direction, n,
+      depth, block, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
+      probe, stream);
+}
+
+// The first k leaf segments of each ray through the top tree and its
+// bricks. The staged form, the main path's, in blocks of `block` threads
+// (32 to 128, a multiple of 32, and block * brick_multi_words(k) words at
+// most SMEM_MAX bytes).
 extern "C" int brick_trace_multi(const void* top_masks, const void* top_child,
                                  const void* top_parent, const void* bricks,
                                  const void* origin, const void* direction,
                                  int n, int depth, int top_depth, int k,
-                                 void* hit_leaf, void* t_in, void* t_out,
-                                 void* count, void* iters, void* stats,
-                                 void* stream) {
-  if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
-      k < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const Tree tree{(const int*)top_masks, (const int*)top_child,
-                    (const int*)top_parent, nullptr, (const int*)bricks,
-                    depth, top_depth};
-    const Rays rays{(const float*)origin, (const float*)direction, n};
-    const MultiOut out{(int*)hit_leaf, (float*)t_in, (float*)t_out,
-                       (int*)count, (int*)iters, (int*)stats, k};
-    brick_trace_multi_kernel<<<blocks_for(n, BLOCK), BLOCK, 0,
-                               (cudaStream_t)stream>>>(tree, rays, out);
-  }
-  return (int)cudaGetLastError();
+                                 int block, void* hit_leaf, void* t_in,
+                                 void* t_out, void* count, void* iters,
+                                 void* stats, void* stream) {
+  return launch_brick_multi(
+      FORM_STAGED, top_masks, top_child, top_parent, bricks, origin, direction,
+      n, depth, top_depth, block,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
+      stream);
+}
+
+// The first form: the same results, one thread a ray in blocks of 128.
+extern "C" int brick_trace_multi_serial(
+    const void* top_masks, const void* top_child, const void* top_parent,
+    const void* bricks, const void* origin, const void* direction, int n,
+    int depth, int top_depth, int k, void* hit_leaf, void* t_in, void* t_out,
+    void* count, void* iters, void* stats, void* stream) {
+  return launch_brick_multi(
+      FORM_FIRST, top_masks, top_child, top_parent, bricks, origin, direction,
+      n, depth, top_depth, BLOCK,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
+      stream);
+}
+
+// A form with the counters (`block`: the staged form's).
+extern "C" int brick_trace_multi_probe(
+    int form, const void* top_masks, const void* top_child,
+    const void* top_parent, const void* bricks, const void* origin,
+    const void* direction, int n, int depth, int top_depth, int k, int block,
+    void* hit_leaf, void* t_in, void* t_out, void* count, void* iters,
+    void* stats, void* probe, void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_brick_multi(
+      form, top_masks, top_child, top_parent, bricks, origin, direction, n,
+      depth, top_depth, block,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), probe,
+      stream);
 }

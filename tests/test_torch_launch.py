@@ -43,7 +43,11 @@ KERNELS = {
     "brick_trace_unstaged": brick_cuda._BRICK_TRACE_UNSTAGED,
     "brick_trace_probe": brick_cuda._BRICK_TRACE_PROBE,
     "esvo_stackless_multi": brick_cuda._ESVO_STACKLESS_MULTI,
+    "esvo_stackless_multi_staged": brick_cuda._ESVO_STACKLESS_MULTI_STAGED,
+    "esvo_stackless_multi_probe": brick_cuda._ESVO_STACKLESS_MULTI_PROBE,
     "brick_trace_multi": brick_cuda._BRICK_TRACE_MULTI,
+    "brick_trace_multi_serial": brick_cuda._BRICK_TRACE_MULTI_SERIAL,
+    "brick_trace_multi_probe": brick_cuda._BRICK_TRACE_MULTI_PROBE,
     "composite_fwd": shade_cuda._COMPOSITE_FWD,
     "esvo_stackless_lod": brick_cuda._ESVO_STACKLESS_LOD,
     "brick_trace_lod": brick_cuda._BRICK_TRACE_LOD,
@@ -396,7 +400,7 @@ def test_probe_record_rows_are_the_launch_warps(n, form, want):
     of 128 threads for the first form, of 256 for the wide forms, the last
     block's idle warps included."""
     assert brick_cuda.warps_of(n, form) == want
-    assert len(brick_cuda.PROBE_FIELDS) == 18
+    assert len(brick_cuda.PROBE_FIELDS) == 21
 
 
 @pytest.mark.parametrize("n,form", [(10, "serial"), (10, "refill"), (-1, "first")])
