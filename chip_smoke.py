@@ -185,17 +185,14 @@ EARLIER_REGS = {
     "brick_trace_kernel<false, false, 256>": 59, "brick_trace_kernel<true, false, 256>": 63,
     "brick_trace_kernel<false, false, 128>": 56, "esvo_stackless_kernel<false>": 45,
     "brick_trace_lod_kernel": 64, "esvo_stackless_lod_kernel": 47,
-    "brick_trace_multi_kernel<false>": 56, "esvo_stackless_multi_kernel<false>": 47}
-# each k-segment trace's form off the main path (brick_cuda.MAIN_FORMS has
-# the main path's), with the suffix of its wrapper's, count's and record's
-# names; and each form's kernel as torch.profiler names it, by those names
-OFF_FORM = {"brick_trace_multi": ("first", "_serial"),
-            "esvo_stackless_multi": ("staged", "_staged")}
+    "brick_trace_multi_kernel<false>": 56, "esvo_stackless_multi_kernel": 47}
+# the k-segment traces' kernels as torch.profiler names them: the brick
+# trace's staged form (its main path's), its first form, and the stackless
+# trace's one form
 MULTI_KERNELS = {
     "brick_trace_multi": "brick_trace_multi_staged_kernel<false>",
     "brick_trace_multi_serial": "brick_trace_multi_kernel<false>",
-    "esvo_stackless_multi": "esvo_stackless_multi_kernel<false>",
-    "esvo_stackless_multi_staged": "esvo_stackless_multi_staged_kernel<false>"}
+    "esvo_stackless_multi": "esvo_stackless_multi_kernel"}
 # each form's kernel, as torch.profiler names it, and the main path's form
 FORM_KERNELS = {
     ("brick_trace", "wide"): "brick_trace_kernel<true, false, 256>",
@@ -398,31 +395,23 @@ def check_composite(seg, d, pset, light, what):
 
 def multi_forms(kname, tree, o, d, k):
     """form -> (MultiTraceResult, stats) of one k-segment trace on these
-    rays: through the main path's wrapper ("main"), in its form off the main
-    path (by that form's name) and, where the rule gives k a staged form,
-    in both forms' probe forms."""
-    block = brick_cuda.multi_block(kname, k)
-    if kname == "brick_trace_multi":
-        out = {"main": brick_cuda._brick_multi_kernel(tree, o, d, k, True),
-               "first": brick_cuda._brick_multi_serial_kernel(tree, o, d, k, True)}
-        probe = brick_cuda.probe_brick_multi_cuda
-    else:
-        out = {"main": brick_cuda._stackless_multi_kernel(tree, o, d, k, True)}
-        if block:
-            out["staged"] = brick_cuda._stackless_multi_staged_kernel(tree, o, d, k, True)
-        probe = brick_cuda.probe_stackless_multi_cuda
-    if block:
-        for form in brick_cuda.FORMS[kname]:
-            out[f"{form} probe"] = probe(tree, o, d, k, form)[:2]
+    rays: through the main path's wrapper ("main"), the brick trace also in
+    its first form, and every form the rule gives k in its probe form."""
+    if kname == "esvo_stackless_multi":
+        return {"main": brick_cuda._stackless_multi_kernel(tree, o, d, k, True),
+                "first probe": brick_cuda.probe_stackless_multi_cuda(tree, o, d, k)[:2]}
+    out = {"main": brick_cuda._brick_multi_kernel(tree, o, d, k, True),
+           "first": brick_cuda._brick_multi_serial_kernel(tree, o, d, k, True)}
+    for form in brick_cuda.FORMS[kname]:
+        if form == "first" or brick_cuda.multi_block(k):
+            out[f"{form} probe"] = brick_cuda.probe_brick_multi_cuda(tree, o, d, k, form)[:2]
     return out
 
 
-# each k-segment trace's k at which its staged form's block shrinks (the
-# last k of one size and the first of the next), at which the block's
-# slots first pass 48 KB, and at which the rule turns to the first form
-MULTI_RULE_KS = {
-    "brick_trace_multi": (21, 22, 53, 54, 117, 118, 594, 595),
-    "esvo_stackless_multi": (24, 25, 48, 49, 96, 97, 454, 455)}
+# the k at which the brick trace's staged form's block shrinks (the last k
+# of one size and the first of the next), at which the block's slots first
+# pass 48 KB, and at which the rule turns to the first form
+MULTI_RULE_KS = (21, 22, 53, 54, 117, 118, 594, 595)
 # the k-segment traces on the depth-10 frame at k = 4: the rays on which
 # the two part where neither is cut (F19), and the rays each bound stops
 MULTI_PARTING, MULTI_UNFINISHED = 15, {"brick_trace_multi": 0, "esvo_stackless_multi": 463}
@@ -437,51 +426,42 @@ def check_multi_forms(kname, tree, o, d, k, plain, err, what):
         e = multi_compare(got, plain, f"{kname} {form}, {what}")
         if form == "main":
             err[kname] = max(err[kname], e)
-        elif form == OFF_FORM[kname][0]:
-            err[kname + OFF_FORM[kname][1]] = max(err[kname + OFF_FORM[kname][1]], e)
+        elif form == "first":
+            err[kname + "_serial"] = max(err[kname + "_serial"], e)
     return forms["main"]
 
 
 def multi_rule_parity(dev, err):
-    """[parity] of the k-segment traces at the k where the staged forms'
-    rule changes the block or turns to the first form, on 4,133 rays (a
-    ragged last block and warp at every block size) of a depth-6 terrain:
-    each form bitwise against the plain version, and the brick trace's main
+    """[parity] of the brick k-segment trace at the k where its staged
+    form's rule changes the block or turns to the first form, on 4,133 rays
+    (a ragged last block and warp at every block size) of a depth-6
+    terrain: each form bitwise against the plain version, and the main
     path's wrapper through the form the rule names."""
     host = octree.build_svo(get_scene("terrain"), 6)
-    trees = {"brick_trace_multi": brick.make_brick_svo(host).to(dev),
-             "esvo_stackless_multi": host.to(dev)}
-    plain = {"brick_trace_multi": brick.trace_brick_multi,
-             "esvo_stackless_multi": traverse.trace_multi}
+    bsvo = brick.make_brick_svo(host).to(dev)
     o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4133, 61))
-    lines = []
-    for kname, ks in MULTI_RULE_KS.items():
-        found = []
-        for k in ks:
-            block = brick_cuda.multi_block(kname, k)
-            reset_counts()
-            want = plain[kname](trees[kname], o, d, k, True)
-            seg = check_multi_forms(kname, trees[kname], o, d, k, want, err,
-                                    f"terrain d6 N=4133 k={k}")
-            # the brick trace's main path launches its staged form where the
-            # rule gives a block, else its first form; the stackless trace's
-            # its first form, and its staged form launches where it has one
-            got = (brick_cuda.launches[kname],
-                   brick_cuda.form_launches[kname + OFF_FORM[kname][1]])
-            want_n = (((1, 1) if block else (0, 2)) if kname == "brick_trace_multi"
-                      else (1, 1 if block else 0))
-            if got != want_n:
-                raise AssertionError(f"{kname} k={k}: launched (main, {OFF_FORM[kname]}) "
-                                     f"{got}; the rule gives {block or 'no block'}")
-            found.append(f"k={k} {block or 'first form'} ({int(seg[0].count.sum())} "
-                         f"segments)")
-        lines.append(f"{kname}: " + ", ".join(found))
-    say("[parity] the k-segment traces at the k where the staged forms' blocks "
+    found = []
+    for k in MULTI_RULE_KS:
+        block = brick_cuda.multi_block(k)
+        reset_counts()
+        want = brick.trace_brick_multi(bsvo, o, d, k, True)
+        seg = check_multi_forms("brick_trace_multi", bsvo, o, d, k, want, err,
+                                f"terrain d6 N=4133 k={k}")
+        # the main path launches the staged form where the rule gives a
+        # block, else the first form
+        got = (brick_cuda.launches["brick_trace_multi"],
+               brick_cuda.form_launches["brick_trace_multi_serial"])
+        if got != ((1, 1) if block else (0, 2)):
+            raise AssertionError(f"brick_trace_multi k={k}: launched (staged, first) "
+                                 f"{got}; the rule gives {block or 'no block'}")
+        found.append(f"k={k} {block or 'first form'} ({int(seg[0].count.sum())} "
+                     f"segments)")
+    say("[parity] brick_trace_multi at the k where its staged form's blocks "
         "shrink, pass 48 KB of shared memory or turn to the first form "
         "(brick_cuda.multi_block; threads a block, or the first form), on "
         "4,133 rays of terrain d6 (a ragged last block and warp): the main "
-        "path's wrapper, the form off it and the probe forms == the plain "
-        "version bitwise; " + "; ".join(lines))
+        "path's wrapper, the first form and the probe forms == the plain "
+        "version bitwise; " + ", ".join(found))
 
 
 def volumetric_parity(dev, cam, light, err):
@@ -624,29 +604,27 @@ def serving(ctx, card):
         kb, pb, "brick_trace_multi, terrain d10 frame"))
     err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
         ks, ps, "esvo_stackless_multi, terrain d10 frame"))
-    # the first forms on the frame, and every form's probe form with its
-    # warps' counters
+    # the brick trace's first form on the frame, and every form's probe form
+    # with its warps' counters
     err["brick_trace_multi_serial"] = max(err["brick_trace_multi_serial"], multi_compare(
         brick_cuda._brick_multi_serial_kernel(bsvo, o, d, k, True), pb,
         "brick_trace_multi_serial, terrain d10 frame"))
-    err["esvo_stackless_multi_staged"] = max(err["esvo_stackless_multi_staged"], multi_compare(
-        brick_cuda._stackless_multi_staged_kernel(svo, o, d, k, True), ps,
-        "esvo_stackless_multi_staged, terrain d10 frame"))
+    probes = [("brick_trace_multi", form, pb, lambda form=form: brick_cuda.probe_brick_multi_cuda(
+                  bsvo, o, d, k, form)) for form in brick_cuda.FORMS["brick_trace_multi"]]
+    probes.append(("esvo_stackless_multi", "first", ps,
+                   lambda: brick_cuda.probe_stackless_multi_cuda(svo, o, d, k)))
     out["warps"] = {}
-    for kname, probe, tree, plain_r in (
-            ("brick_trace_multi", brick_cuda.probe_brick_multi_cuda, bsvo, pb),
-            ("esvo_stackless_multi", brick_cuda.probe_stackless_multi_cuda, svo, ps)):
-        for form in brick_cuda.FORMS[kname]:
-            got = probe(tree, o, d, k, form)
-            torch.cuda.synchronize()
-            multi_compare(got[:2], plain_r, f"{kname} {form} probe, terrain d10 frame")
-            out["warps"][(kname, form)] = warps_line(
-                kname, form, got[2], plain_r[0].iters.cpu().numpy(),
-                brick_cuda.multi_block(kname, k) if form == "staged" else None)
+    for kname, form, plain_r, probe in probes:
+        got = probe()
+        torch.cuda.synchronize()
+        multi_compare(got[:2], plain_r, f"{kname} {form} probe, terrain d10 frame")
+        out["warps"][(kname, form)] = warps_line(
+            kname, form, got[2], plain_r[0].iters.cpu().numpy(),
+            brick_cuda.multi_block(k) if form == "staged" else None)
     say("[warps] the k-segment traces' probe forms (k=4; seg: a segment's "
         "record, its write in the first forms and its stage in shared memory "
-        "in the staged forms, whose warps' write-out is their ray phase) == "
-        "the plain versions bitwise")
+        "in the brick trace's staged form, whose warps' write-out is its ray "
+        "phase) == the plain versions bitwise")
     for what, seg in (("brick segments", kb[0]), ("stackless segments", ks[0])):
         err["composite_fwd"] = max(err["composite_fwd"], check_composite(
             seg, d, params, light, f"terrain d10 frame, {what}"))
@@ -719,8 +697,6 @@ def serving(ctx, card):
         "brick_trace_multi_serial": lambda: brick_cuda.trace_brick_multi_cuda_serial(
             bsvo, o, d, k),
         "esvo_stackless_multi": lambda: brick_cuda.trace_multi_cuda(svo, o, d, k),
-        "esvo_stackless_multi_staged": lambda: brick_cuda.trace_multi_cuda_staged(
-            svo, o, d, k),
         "composite_fwd": lambda: shade_cuda.composite_fwd(
             kb[0].hit_leaf, kb[0].t_in, kb[0].t_out, d, *params, light, 1.3,
             0.08, DENSITY_SCALE)}))
@@ -741,11 +717,10 @@ def serving(ctx, card):
         + seg_line(*kb) + f", {int(kb[1][:, STAT('rounds')].max())} rounds at most, "
         f"{int(kb[1][:, STAT('dda_max')].max())} DDA steps in one round at most "
         f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
-        + f" (bound {traverse.multi_steps_for_depth(10, k)}); both, on their main "
-        f"paths ({brick_cuda.MAIN_FORMS}; staged blocks of "
-        f"{brick_cuda.multi_block('brick_trace_multi', k)} and "
-        f"{brick_cuda.multi_block('esvo_stackless_multi', k)} threads at k={k}) and "
-        f"in the forms off them, == their plain "
+        + f" (bound {traverse.multi_steps_for_depth(10, k)}); both on their main "
+        f"paths (the brick trace's staged form in blocks of "
+        f"{brick_cuda.multi_block(k)} threads at k={k}), and the brick trace's "
+        f"first form, == their plain "
         f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
         f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
         f"ms, n=1); composite_fwd within 1e-6 of composite_plain (max abs "
@@ -770,9 +745,7 @@ def serving(ctx, card):
         f"{m['brick_trace_multi'][1]:.4f}; the first form "
         f"{m['brick_trace_multi_serial'][0]:.4f}, p80 "
         f"{m['brick_trace_multi_serial'][1]:.4f}), esvo_stackless_multi "
-        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}; "
-        f"the staged form {m['esvo_stackless_multi_staged'][0]:.4f}, "
-        f"{m['esvo_stackless_multi_staged'][1]:.4f}), "
+        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}), "
         f"composite_fwd {m['composite_fwd'][0]:.4f} ({m['composite_fwd'][1]:.4f}); "
         f"composite_plain {m['composite_plain'][0]:.4f} (n=10)")
 
@@ -1839,20 +1812,21 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 18:
+    if len(ptxas) != 16:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 18")
+                             f"expected 16")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
         raise AssertionError(f"brick_trace.cu's earlier kernels moved: {moved}, "
                              f"expected {EARLIER_REGS}")
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
-        "esvo_stackless_kernel<probe>, the k-segment kernels' staged forms and "
-        "first forms <probe>, the two LOD kernels: registers, spill bytes, "
-        "shared bytes; the staged forms' slots are dynamic shared memory): "
+        "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
+        "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
+        "kernels: registers, spill bytes, shared bytes; the staged form's "
+        "slots are dynamic shared memory): "
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
-        + f"; the main-path and first-form kernels other than the staged forms "
+        + f"; the main-path and first-form kernels other than the staged form "
         f"at their registers before ({len(EARLIER_REGS)} kernels)")
     bwd_regs = re.search(r"composite_bwd_kernel.*?\n.*?Used (\d+) registers",
                          _build.build_log("shade"), re.S)
@@ -1868,8 +1842,7 @@ def main():
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
-               brick_trace_multi=0.0, esvo_stackless_multi_staged=0.0,
-               brick_trace_multi_serial=0.0, composite_fwd=0.0,
+               brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0)
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
@@ -2553,7 +2526,6 @@ def main():
     brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
     brick_cuda._brick_unstaged_kernel(bsvo, o, d)
     brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K)
-    brick_cuda.trace_multi_cuda_staged(svo, o, d, VOLUME_K)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
@@ -2569,7 +2541,6 @@ def main():
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
                                       tile_candidates_block=1, shade_bwd_serial=1,
                                       brick_trace_serial=1, brick_trace_unstaged=1,
-                                      esvo_stackless_multi_staged=1,
                                       brick_trace_multi_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
@@ -2779,8 +2750,7 @@ def main():
                 shade_bwd_serial=0, segment_sum=3, segment_sum_sorted=0,
                 composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
                 esvo_stackless_probe=0, brick_trace_probe=0,
-                esvo_stackless_multi_staged=0, brick_trace_multi_serial=0,
-                esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
+                brick_trace_multi_serial=0, esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
                 **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
@@ -3255,16 +3225,15 @@ def main():
     # the volumetric frames: their kernels alone, and the card's idle share
     kb_seg = served["multi"][0][0]
     _, rows, _n = profile_kernels(
-        "brick_trace_multi, esvo_stackless_multi (each in its staged and its "
-        "first form) and composite_fwd alone",
+        "brick_trace_multi (in its staged and its first form), "
+        "esvo_stackless_multi and composite_fwd alone",
         lambda: (brick_cuda.trace_brick_multi_cuda(bsvo, o, d, VOLUME_K),
                  brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K),
                  brick_cuda.trace_multi_cuda(svo, o, d, VOLUME_K),
-                 brick_cuda.trace_multi_cuda_staged(svo, o, d, VOLUME_K),
                  shade_cuda.composite_fwd(kb_seg.hit_leaf, kb_seg.t_in,
                                           kb_seg.t_out, d, *params, light, 1.3,
                                           0.08, DENSITY_SCALE)),
-        "round", 5, launches=5)
+        "round", 4, launches=4)
     for kname, kernel in MULTI_KERNELS.items():
         alone[kname] = kernel_us(rows, kernel)[0]
     alone["composite_fwd"] = kernel_us(rows, "composite_fwd_kernel")[0]
@@ -3280,8 +3249,7 @@ def main():
     say(f"[profile] {card}: us alone: brick_trace_multi "
         f"{us_or(alone['brick_trace_multi'])} (staged; the first form "
         f"{us_or(alone['brick_trace_multi_serial'])}), esvo_stackless_multi "
-        f"{us_or(alone['esvo_stackless_multi'])} (the first form; the staged form "
-        f"{us_or(alone['esvo_stackless_multi_staged'])}), composite_fwd "
+        f"{us_or(alone['esvo_stackless_multi'])}, composite_fwd "
         f"{us_or(alone['composite_fwd'])}; volumetric frames: " + "; ".join(
             f"{route} route {us_or(f_us)} us of kernels in {count(f_n)} launches, "
             f"idle {idle(f_us, vm['vol_brick' if route == 'brick' else 'vol_flat'][0])} "
@@ -3635,7 +3603,7 @@ def main():
                 + n_rays * OPS_RAY_SETUP)),
         esvo_stackless_multi=dict(
             replaces="raytracingtest_tpu/ops/traverse.py:684",
-            path="diff.render_volumetric", other="trace_multi_cuda_staged",
+            path="diff.render_volumetric",
             plain_ms=served["stackless_multi_plain_ms"], bound=bound(
                 nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr,
                        svo.leaf_base) + seg_out,
@@ -3664,22 +3632,27 @@ def main():
                       replaces=row["replaces"], plain_ms=row["plain_ms"],
                       bound_ms=row["bound"][0], bound_by=row["bound"][1],
                       library_ms=None)
-        other, suffix = OFF_FORM[kname]
+        if kname == "esvo_stackless_multi":
+            kernels.append(dict(
+                name=kname, **common, path=row["path"],
+                launches=served["launches"][kname], max_abs_err=err[kname],
+                ms=vm[kname][0], us_alone=alone[kname],
+                warps=served["warps"][(kname, "first")]))
+            continue
         kernels += [
-            dict(name=kname, **common,
-                 path=row["path"] + f" (the {brick_cuda.MAIN_FORMS[kname]} form)",
+            dict(name=kname, **common, path=row["path"] + " (the staged form)",
                  launches=served["launches"][kname], max_abs_err=err[kname],
-                 ms=vm[kname][0], us_alone=alone[kname], other_form=other,
-                 ms_other_form=vm[kname + suffix][0],
-                 us_alone_other_form=alone[kname + suffix],
-                 staged_block=brick_cuda.multi_block(kname, VOLUME_K),
+                 ms=vm[kname][0], us_alone=alone[kname], other_form="first",
+                 ms_other_form=vm[kname + "_serial"][0],
+                 us_alone_other_form=alone[kname + "_serial"],
+                 staged_block=brick_cuda.multi_block(VOLUME_K),
                  warps={form: served["warps"][(kname, form)]
                         for form in brick_cuda.FORMS[kname]}),
-            dict(name=kname + suffix, **common,
-                 path=f"brick_cuda.{row['other']} (the {other} form, off the main path)",
-                 launches=first_launches[kname + suffix],
-                 max_abs_err=err[kname + suffix], ms=vm[kname + suffix][0],
-                 us_alone=alone[kname + suffix])]
+            dict(name=kname + "_serial", **common,
+                 path=f"brick_cuda.{row['other']} (the first form, off the main path)",
+                 launches=first_launches[kname + "_serial"],
+                 max_abs_err=err[kname + "_serial"], ms=vm[kname + "_serial"][0],
+                 us_alone=alone[kname + "_serial"])]
     kernels.append(dict(
         name="composite_fwd", route="cuda", source=src + "shade.cu",
         replaces="raytracingtest_tpu/diff.py:377",

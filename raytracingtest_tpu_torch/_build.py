@@ -26,8 +26,8 @@ Six libraries, each built on first use into
                      per-ray stackless trace and the per-ray brick trace
                      in its forms, each also with counters, their
                      k-segment forms (``esvo_stackless_multi``,
-                     ``brick_trace_multi``, each in a staged form and its
-                     first form, with counters too) for volumetric
+                     ``brick_trace_multi``, the latter in a staged form and
+                     its first form; each with counters too) for volumetric
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
                      ``brick_trace_lod``).
@@ -208,8 +208,7 @@ def _declare_brick(lib):
         fn.argtypes = [p] * 6 + [i] * 3 + [p] * 7
     lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
     lib.esvo_stackless_multi.argtypes = [p] * 6 + [i] * 3 + [p] * 7
-    lib.esvo_stackless_multi_staged.argtypes = [p] * 6 + [i] * 4 + [p] * 7
-    lib.esvo_stackless_multi_probe.argtypes = [i] + [p] * 6 + [i] * 4 + [p] * 8
+    lib.esvo_stackless_multi_probe.argtypes = [p] * 6 + [i] * 3 + [p] * 8
     lib.brick_trace_multi.argtypes = [p] * 6 + [i] * 5 + [p] * 7
     lib.brick_trace_multi_serial.argtypes = [p] * 6 + [i] * 4 + [p] * 7
     lib.brick_trace_multi_probe.argtypes = [i] + [p] * 6 + [i] * 5 + [p] * 8
@@ -219,7 +218,7 @@ def _declare_brick(lib):
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,
-               lib.esvo_stackless_multi_staged, lib.esvo_stackless_multi_probe,
+               lib.esvo_stackless_multi_probe,
                lib.brick_trace_multi, lib.brick_trace_multi_serial,
                lib.brick_trace_multi_probe, lib.esvo_stackless_lod,
                lib.brick_trace_lod):

@@ -532,13 +532,12 @@ struct MultiOut {
   int k;
 };
 
-// Collect mode of the walks: a thread's k segment slots in its block's
-// shared memory (slot s of thread t at t * k + s of each array), padded
+// Collect mode of the brick walk: a thread's k segment slots in its warp's
+// shared memory (slot s of lane l at l * k + s of each array), padded
 // (-1, 0, 0) before the walk, and the tallies the walk leaves for the
-// block's write-out.
+// warp's write-out.
 struct Slots {
-  int* id;     // brick trace: the leaf; stackless: the parent row; -1 empty
-  int* rank;   // stackless: the leaf's rank among the parent's leaf children
+  int* id;     // the leaf; -1 empty
   float* t_in;
   float* t_out;
   int k;
@@ -550,49 +549,26 @@ struct Slots {
 
 // Ray i's stackless walk over the full tree, at most
 // max_iters_for_depth(depth) steps; LOD: with the footprint stop, its node
-// row written to lod.hit_node. COLLECT (esvo_stackless_multi): the walk in
-// collect mode, at most 8k more steps; each leaf segment is staged in
-// col's slots as (parent, rank, t_in, t_out), the leaf id left to the
-// write-out, and the ray ends with k segments or when it leaves the root;
-// its count and steps go to col, nothing to `out`.
-template <bool PROBE, bool LOD, bool COLLECT = false>
+// row written to lod.hit_node.
+template <bool PROBE, bool LOD>
 __device__ __forceinline__ void stackless_ray(const Tree& tree,
                                               const Rays& rays, const Out& out,
                                               int i, Probe<PROBE>& probe,
-                                              const Lod* lod,
-                                              Slots* col = nullptr) {
-  static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
+                                              const Lod* lod) {
   long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
   probe.leave(PH_RAY, t);
-  int n_max = max_iters_for_depth(tree.depth);
-  if constexpr (COLLECT) n_max += 8 * col->k;
-  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1, count = 0;
+  const int n_max = max_iters_for_depth(tree.depth);
+  int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
   float ht = 0.0f;
   while (!done && it < n_max) {
     t = probe.enter(PH_STEP);
     ++it;
     int child_shift, leaf_rank;
     int what;
-    if constexpr (COLLECT) {
-      Seg seg;
-      what = walk_step<true>(r, w, tree.masks, tree.child, tree.parent_ptr,
-                             child_shift, leaf_rank, seg);
-      probe.leave(PH_STEP, t);
-      if (what & STEP_COLLECTED) {
-        t = probe.enter(PH_SEG);
-        col->id[count] = seg.parent;
-        col->rank[count] = seg.rank;
-        col->t_in[count] = seg.t_in;
-        col->t_out[count] = seg.t_out;
-        done = ++count >= col->k;
-        probe.leave(PH_SEG, t);
-      }
-      done = done || (what & STEP_WHAT) == STEP_EXIT;
-      continue;
-    } else if constexpr (LOD) {
+    if constexpr (LOD) {
       Seg unused;
       LodStep ls;
       what = walk_step<false, true>(r, w, tree.masks, tree.child,
@@ -616,13 +592,6 @@ __device__ __forceinline__ void stackless_ray(const Tree& tree,
     }
     done = what != STEP_ON;
     probe.leave(PH_STEP, t);
-  }
-  if constexpr (COLLECT) {  // the block's write-out writes the ray
-    col->count = count;
-    col->iters = it;
-    for (int c = 0; c < N_STATS - 1; ++c) col->stats[c] = 0;
-    col->stats[N_STATS - 1] = done ? 0 : 1;
-    return;
   }
   t = probe.enter(PH_RAY);
   write_ray(out, i, leaf, ht, hp, hc, it);
@@ -818,7 +787,7 @@ __device__ __forceinline__ void brick_ray(const Tree& tree, const Rays& rays,
     dda += steps;
     dda_max = max(dda_max, steps);
   }
-  if constexpr (COLLECT) {  // the block's write-out writes the ray
+  if constexpr (COLLECT) {  // the warp's write-out writes the ray
     col->count = count;
     col->iters = it;
     col->stats[0] = rounds;
@@ -924,14 +893,23 @@ __device__ __forceinline__ void stackless_multi_ray(
   probe.leave(PH_RAY, t);
 }
 
-template <bool PROBE>
+// esvo_stackless_multi, one thread a ray in blocks of 128.
 __global__ void __launch_bounds__(BLOCK)
-esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out,
-                                   long long* __restrict__ probe_out) {
-  Probe<PROBE> probe;
+esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  Probe<false> probe;
+  stackless_multi_ray<false>(tree, rays, out, i, probe);
+}
+
+// The same with the counters.
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_multi_probe_kernel(Tree tree, Rays rays, MultiOut out,
+                                  long long* __restrict__ probe_out) {
+  Probe<true> probe;
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) stackless_multi_ray<PROBE>(tree, rays, out, i, probe);
+  if (i < rays.n) stackless_multi_ray<true>(tree, rays, out, i, probe);
   probe.finish(probe_out);
 }
 
@@ -1039,33 +1017,25 @@ brick_trace_multi_kernel(Tree tree, Rays rays, MultiOut out,
   probe.finish(probe_out);
 }
 
-// The staged forms' shared memory a ray, in 4-byte words: brick_trace_multi
-// stages its parked brick row with its prefix counts and its k slots (leaf,
-// t_in, t_out);
-// esvo_stackless_multi its k slots (parent, rank, t_in, t_out), and at
-// least N_STATS words, over which the statistics are staged for their
-// write-out.
+// The staged form's shared memory a ray, in 4-byte words: its parked brick
+// row with its prefix counts (over which the statistics are staged for the
+// write-out) and its k slots (leaf, t_in, t_out).
 __host__ __device__ constexpr int brick_multi_words(int k) {
   return PREFIX_ROW_WORDS + 3 * k;
 }
-__host__ __device__ constexpr int stackless_multi_words(int k) {
-  return 4 * k > N_STATS ? 4 * k : N_STATS;
-}
 
-// A staged form's write-out by each warp, once its 32 walks have ended (the
-// warp's rays are contiguous, so no block barrier is needed): the warp's
-// rays [w0, w0 + nw) own one contiguous run of nw * k words of each (N, k)
-// array, written by consecutive lanes to consecutive words, the ragged last
-// warp masked; count and iters a word a lane; the statistics staged over
-// `spare` (the warp's shared memory, N_STATS words a lane) and written as
-// one run of nw * N_STATS words. With leaf_base (the stackless trace), a
-// slot holds (parent, rank) and its leaf is leaf_base[parent] + rank,
-// loaded here so that no step waits on it.
+// The staged form's write-out by each warp, once its 32 walks have ended
+// (the warp's rays are contiguous, so no block barrier is needed): the
+// warp's rays [w0, w0 + nw) own one contiguous run of nw * k words of each
+// (N, k) array, written by consecutive lanes to consecutive words; nw is
+// below 32 in the ragged last warp and at most 0 in a warp past the last
+// ray, which writes nothing. Count and iters a word a lane; the statistics
+// staged over `spare` (the warp's shared memory, N_STATS words a lane) and
+// written as one run of nw * N_STATS words.
 template <bool PROBE>
 __device__ __forceinline__ void write_warp(
-    const MultiOut& out, const int* s_id, const int* s_rank,
-    const float* s_tin, const float* s_tout,
-    const int* __restrict__ leaf_base, int* spare, const Slots& col, int n,
+    const MultiOut& out, const int* s_id, const float* s_tin,
+    const float* s_tout, int* spare, const Slots& col, int n,
     Probe<PROBE>& probe) {
   const int lane = threadIdx.x & 31, k = out.k;
   const int w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
@@ -1074,9 +1044,7 @@ __device__ __forceinline__ void write_warp(
   long long t = probe.enter(PH_RAY);
   const size_t base = (size_t)w0 * k;
   for (int j = lane; j < nw * k; j += 32) {
-    int leaf = s_id[j];
-    if (leaf_base != nullptr && leaf >= 0) leaf = __ldg(leaf_base + leaf) + s_rank[j];
-    out.hit_leaf[base + j] = leaf;
+    out.hit_leaf[base + j] = s_id[j];
     out.t_in[base + j] = s_tin[j];
     out.t_out[base + j] = s_tout[j];
   }
@@ -1093,40 +1061,6 @@ __device__ __forceinline__ void write_warp(
       out.stats[(size_t)w0 * N_STATS + j] = spare[j];
   }
   probe.leave(PH_RAY, t);
-}
-
-// The staged form of esvo_stackless_multi: stackless_ray in collect mode in
-// blocks of blockDim.x threads (at most BLOCK), each warp's 32 rays' k slots
-// staged in its region of the block's shared memory (32 *
-// stackless_multi_words(k) words a warp, dynamic: (parent, rank, t_in,
-// t_out), each 32k words) and written out at the warp's end.
-template <bool PROBE>
-__global__ void __launch_bounds__(BLOCK)
-esvo_stackless_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
-                                   long long* __restrict__ probe_out) {
-  extern __shared__ int smem[];
-  const int tid = threadIdx.x, lane = tid & 31, k = out.k;
-  int* region = smem + (tid >> 5) * 32 * stackless_multi_words(k);
-  int* s_parent = region;
-  int* s_rank = region + 32 * k;
-  float* s_tin = reinterpret_cast<float*>(region + 64 * k);
-  float* s_tout = s_tin + 32 * k;
-  Probe<PROBE> probe;
-  probe.begin();
-  Slots col{s_parent + lane * k, s_rank + lane * k, s_tin + lane * k,
-            s_tout + lane * k, k, 0, 0, {0, 0, 0, 0, 0}};
-  for (int s = 0; s < k; ++s) {
-    col.id[s] = -1;
-    col.rank[s] = 0;
-    col.t_in[s] = 0.0f;
-    col.t_out[s] = 0.0f;
-  }
-  const int i = blockIdx.x * blockDim.x + tid;
-  if (i < rays.n)
-    stackless_ray<PROBE, false, true>(tree, rays, Out{}, i, probe, nullptr, &col);
-  write_warp(out, s_parent, s_rank, s_tin, s_tout, tree.leaf_base, region, col,
-             rays.n, probe);
-  probe.finish(probe_out);
 }
 
 // The staged form of brick_trace_multi: brick_ray in collect mode on the
@@ -1148,8 +1082,8 @@ brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
   float* s_tout = s_tin + 32 * k;
   Probe<PROBE> probe;
   probe.begin();
-  Slots col{s_leaf + lane * k, nullptr, s_tin + lane * k, s_tout + lane * k, k,
-            0, 0, {0, 0, 0, 0, 0}};
+  Slots col{s_leaf + lane * k, s_tin + lane * k, s_tout + lane * k, k, 0, 0,
+            {0, 0, 0, 0, 0}};
   for (int s = 0; s < k; ++s) {
     col.id[s] = -1;
     col.t_in[s] = 0.0f;
@@ -1160,8 +1094,7 @@ brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
     brick_ray<true, PROBE, false, true>(tree, rays, Out{}, i, probe,
                                         rows + lane * PREFIX_ROW_WORDS, nullptr,
                                         &col);
-  write_warp(out, s_leaf, nullptr, s_tin, s_tout, nullptr, rows, col, rays.n,
-             probe);
+  write_warp(out, s_leaf, s_tin, s_tout, rows, col, rays.n, probe);
   probe.finish(probe_out);
 }
 
@@ -1259,15 +1192,13 @@ MultiOut multi_outputs(void* hit_leaf, void* t_in, void* t_out, void* count,
                   (int*)iters, (int*)stats, k};
 }
 
-// One launch of esvo_stackless_multi in `form` (FORM_FIRST, or FORM_STAGED
-// at `block` threads a block; probe: with the counters).
-int launch_stackless_multi(int form, const void* masks, const void* child_base,
+// One launch of esvo_stackless_multi (probe: with the counters).
+int launch_stackless_multi(const void* masks, const void* child_base,
                            const void* parent_ptr, const void* leaf_base,
                            const void* origin, const void* direction, int n,
-                           int depth, int block, const MultiOut& out,
-                           void* probe, void* stream) {
-  if (n < 0 || depth < 1 || depth > S_MAX - 1 || out.k < 1 ||
-      (form != FORM_FIRST && form != FORM_STAGED))
+                           int depth, const MultiOut& out, void* probe,
+                           void* stream) {
+  if (n < 0 || depth < 1 || depth > S_MAX - 1 || out.k < 1)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree tree{(const int*)masks, (const int*)child_base,
@@ -1275,22 +1206,13 @@ int launch_stackless_multi(int form, const void* masks, const void* child_base,
                     depth, 0};
     const Rays rays{(const float*)origin, (const float*)direction, n};
     const cudaStream_t s = (cudaStream_t)stream;
-    long long* p = (long long*)probe;
-    int e = 0;
-    if (form == FORM_FIRST && p) {
-      esvo_stackless_multi_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
-          tree, rays, out, p);
-    } else if (form == FORM_FIRST) {
-      esvo_stackless_multi_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
-          tree, rays, out, p);
+    if (probe) {
+      esvo_stackless_multi_probe_kernel<<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out, (long long*)probe);
     } else {
-      const size_t words = stackless_multi_words(out.k);
-      e = p ? launch_staged(esvo_stackless_multi_staged_kernel<true>, block, words,
-                            tree, rays, out, p, s)
-            : launch_staged(esvo_stackless_multi_staged_kernel<false>, block, words,
-                            tree, rays, out, p, s);
+      esvo_stackless_multi_kernel<<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
+          tree, rays, out);
     }
-    if (e != 0) return e;
   }
   return (int)cudaGetLastError();
 }
@@ -1469,8 +1391,8 @@ extern "C" int brick_trace_lod(const void* top_masks, const void* top_child,
 
 // The first k leaf segments of each ray, the stackless walk over the full
 // tree: (n, k) hit_leaf, t_in, t_out, (n,) count and iters, stats (n, 5) or
-// null. The first form, the main path's (it measured faster in turns than
-// the staged form, PERF.md): one thread a ray in blocks of 128.
+// null. One thread a ray in blocks of 128 (a staged form measured no
+// faster, PERF.md).
 extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
                                     const void* parent_ptr,
                                     const void* leaf_base, const void* origin,
@@ -1479,37 +1401,22 @@ extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
                                     void* t_out, void* count, void* iters,
                                     void* stats, void* stream) {
   return launch_stackless_multi(
-      FORM_FIRST, masks, child_base, parent_ptr, leaf_base, origin, direction,
-      n, depth, BLOCK, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
-      nullptr, stream);
+      masks, child_base, parent_ptr, leaf_base, origin, direction, n, depth,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
+      stream);
 }
 
-// The staged form: the same results, in blocks of `block` threads (32 to
-// 128, a multiple of 32, and block * stackless_multi_words(k) words at most
-// SMEM_MAX bytes).
-extern "C" int esvo_stackless_multi_staged(
+// With the counters.
+extern "C" int esvo_stackless_multi_probe(
     const void* masks, const void* child_base, const void* parent_ptr,
     const void* leaf_base, const void* origin, const void* direction, int n,
-    int depth, int k, int block, void* hit_leaf, void* t_in, void* t_out,
-    void* count, void* iters, void* stats, void* stream) {
-  return launch_stackless_multi(
-      FORM_STAGED, masks, child_base, parent_ptr, leaf_base, origin, direction,
-      n, depth, block, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
-      nullptr, stream);
-}
-
-// A form with the counters (`block`: the staged form's; the first form's
-// blocks are of 128).
-extern "C" int esvo_stackless_multi_probe(
-    int form, const void* masks, const void* child_base, const void* parent_ptr,
-    const void* leaf_base, const void* origin, const void* direction, int n,
-    int depth, int k, int block, void* hit_leaf, void* t_in, void* t_out,
-    void* count, void* iters, void* stats, void* probe, void* stream) {
+    int depth, int k, void* hit_leaf, void* t_in, void* t_out, void* count,
+    void* iters, void* stats, void* probe, void* stream) {
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
   return launch_stackless_multi(
-      form, masks, child_base, parent_ptr, leaf_base, origin, direction, n,
-      depth, block, multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k),
-      probe, stream);
+      masks, child_base, parent_ptr, leaf_base, origin, direction, n, depth,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), probe,
+      stream);
 }
 
 // The first k leaf segments of each ray through the top tree and its

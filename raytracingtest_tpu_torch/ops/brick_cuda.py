@@ -27,18 +27,16 @@ what each does, and PERF.md what it measured):
     DDA needs them, is ``trace_brick_cuda_serial``, the check and the
     yardstick; ``_brick_unstaged_kernel`` is the wide form without the
     staged row, which splits the wide form's gain between its two changes.
-  * the k-segment traces have a ``staged`` form (the walks of
-    ``brick_trace``'s wide form and of ``esvo_stackless`` in collect mode,
-    each ray's k slots staged in its warp's shared memory and written out
-    when the warp's walks end, in one coalesced run; the block's threads
-    come from k, ``multi_block``) and a ``first`` form (one thread a ray in
-    blocks of 128 writing each segment as it is found). The main path
-    (``MAIN_FORMS``) takes the form that measured faster in turns: the
-    staged form for the brick trace (``trace_brick_multi_cuda``; the first
-    form where the rule finds no block, and as
-    ``trace_brick_multi_cuda_serial``), the first form for the stackless
-    trace (``trace_multi_cuda``; its staged form is
-    ``trace_multi_cuda_staged``).
+  * ``esvo_stackless_multi`` has one form, one thread a ray in blocks of
+    128 writing each segment as it is found: ``trace_multi_cuda``.
+  * ``brick_trace_multi``'s ``staged`` form, the main path's
+    (``trace_brick_multi_cuda``): the walk of ``brick_trace``'s wide form in
+    collect mode, each ray's k slots staged in its warp's shared memory and
+    written out when the warp's walks end, in one coalesced run; the
+    block's threads come from k (``multi_block``), and where the rule gives
+    none the main path takes the ``first`` form. The first form, one thread
+    a ray in blocks of 128 writing each segment as it is found, is also
+    ``trace_brick_multi_cuda_serial``, the check and the yardstick.
 
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
 and ``probe_brick_multi_cuda`` launch a form with per-warp counters
@@ -71,7 +69,7 @@ _F32, _I32 = torch.float32, torch.int32
 launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
-                 "esvo_stackless_multi_staged": 0, "brick_trace_multi_serial": 0}
+                 "brick_trace_multi_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0}
 
@@ -82,7 +80,6 @@ _BRICK_TRACE_SERIAL = Kernel("brick_trace_serial", brick_lib)
 _BRICK_TRACE_UNSTAGED = Kernel("brick_trace_unstaged", brick_lib)
 _BRICK_TRACE_PROBE = Kernel("brick_trace_probe", brick_lib)
 _ESVO_STACKLESS_MULTI = Kernel("esvo_stackless_multi", brick_lib)
-_ESVO_STACKLESS_MULTI_STAGED = Kernel("esvo_stackless_multi_staged", brick_lib)
 _ESVO_STACKLESS_MULTI_PROBE = Kernel("esvo_stackless_multi_probe", brick_lib)
 _BRICK_TRACE_MULTI = Kernel("brick_trace_multi", brick_lib)
 _BRICK_TRACE_MULTI_SERIAL = Kernel("brick_trace_multi_serial", brick_lib)
@@ -91,28 +88,22 @@ _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
-# each form's blocks (the staged forms' come from k: multi_block); the
-# k-segment traces' main-path forms, the faster in turns on the card
+# each form's blocks (the staged form's come from k: multi_block)
 FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("first",),
          "brick_trace_multi": ("staged", "first"),
-         "esvo_stackless_multi": ("staged", "first")}
-MAIN_FORMS = {"brick_trace_multi": "staged", "esvo_stackless_multi": "first"}
+         "esvo_stackless_multi": ("first",)}
 FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
 BLOCKS = {"first": 128, "wide": 256, "unstaged": 256}
 
-# The staged forms' rule for their blocks. Each ray stages
-# staged_words(kernel, k) 4-byte words in shared memory (csrc/brick_trace.cu's
-# brick_multi_words and stackless_multi_words: the brick trace's parked row
-# with its 16 prefix counts and its k (leaf, t_in, t_out) slots, 132 + 12k
-# bytes; the stackless trace's k (parent, rank, t_in, t_out) slots, 16k
-# bytes, at least the 20 bytes over which its statistics are staged). A
-# block takes the most threads of STAGED_BLOCKS (128; 256 measured within
-# 1% of it, either way, for the brick trace) whose slots fit in SMEM_BLOCK
-# bytes, so that
-# several blocks stay resident on an SM; else 32 threads, up to SMEM_MAX
-# bytes (the most an H100 block may opt into); beyond that (k from 595 for
-# the brick trace, 455 for the stackless trace), the first form.
+# The staged form's rule for its blocks. Each ray stages staged_words(k)
+# 4-byte words in shared memory (csrc/brick_trace.cu's brick_multi_words:
+# its parked brick row with the row's 16 prefix counts, and its k (leaf,
+# t_in, t_out) slots, 132 + 12k bytes). A block takes the most threads of
+# STAGED_BLOCKS (128; 256 measured within 1% of it, either way) whose slots
+# fit in SMEM_BLOCK bytes, so that several blocks stay resident on an SM;
+# else 32 threads, up to SMEM_MAX bytes (the most an H100 block may opt
+# into); beyond that (k from 595), the first form.
 SMEM_BLOCK = 48 * 1024
 SMEM_MAX = 232448
 STAGED_BLOCKS = (128, 64, 32)
@@ -137,22 +128,18 @@ def warps_of(n: int, form: str, block: int | None = None) -> int:
     return (n + span - 1) // span * (span // 32)
 
 
-def staged_words(kernel: str, k: int) -> int:
-    """4-byte words of shared memory a ray in `kernel`'s staged form."""
-    if kernel == "brick_trace_multi":
-        return 17 + 16 + 3 * k
-    return max(4 * k, len(STAT_NAMES))
+def staged_words(k: int) -> int:
+    """4-byte words of shared memory a ray in the staged form."""
+    return 17 + 16 + 3 * k
 
 
-def multi_block(kernel: str, k: int) -> int:
-    """Threads a block of `kernel`'s staged form ("brick_trace_multi" or
-    "esvo_stackless_multi") at `k` segments a ray, or 0 where even 32 rays'
-    slots do not fit in a block and the first form runs: the brick trace
-    128 up to k = 21, 64 to 53, 32 to 594; the stackless trace 128 up to
-    k = 24, 64 to 48, 32 to 454."""
-    if k < 1 or kernel not in ("brick_trace_multi", "esvo_stackless_multi"):
-        raise ValueError(f"{kernel}, k = {k}")
-    ray_bytes = 4 * staged_words(kernel, k)
+def multi_block(k: int) -> int:
+    """Threads a block of ``brick_trace_multi``'s staged form at `k`
+    segments a ray, or 0 where the first form runs: 128 up to k = 21, 64 to
+    53, 32 to 594, then the first form."""
+    if k < 1:
+        raise ValueError(f"brick_trace_multi: k = {k}")
+    ray_bytes = 4 * staged_words(k)
     for block in STAGED_BLOCKS:
         if block * ray_bytes <= SMEM_BLOCK:
             return block
@@ -241,28 +228,12 @@ def _stackless_kernel(svo, origin, direction, with_stats=False):
 
 
 def _stackless_multi_kernel(svo, origin, direction, k, with_stats=False):
-    """Launch ``esvo_stackless_multi``, the main path's first form, on (N, 3)
-    float32 CUDA rays."""
+    """Launch ``esvo_stackless_multi`` on (N, 3) float32 CUDA rays."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI, svo, origin,
                                             direction, with_stats, k)
     _ESVO_STACKLESS_MULTI(origin.device, *tables, n, svo.depth, k,
                           *_results(out, stats))
     launches["esvo_stackless_multi"] += 1
-    return MultiTraceResult(*out), stats
-
-
-def _stackless_multi_staged_kernel(svo, origin, direction, k, with_stats=False):
-    """Launch ``esvo_stackless_multi_staged`` (the staged form, off the main
-    path) at ``multi_block``'s threads on CUDA rays; a k it has no block for
-    raises ValueError."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI_STAGED, svo,
-                                            origin, direction, with_stats, k)
-    block = multi_block("esvo_stackless_multi", k)
-    if block == 0:
-        raise ValueError(f"esvo_stackless_multi: k = {k} has no staged form")
-    _ESVO_STACKLESS_MULTI_STAGED(origin.device, *tables, n, svo.depth, k, block,
-                                 *_results(out, stats))
-    form_launches["esvo_stackless_multi_staged"] += 1
     return MultiTraceResult(*out), stats
 
 
@@ -295,7 +266,7 @@ def _brick_multi_kernel(bsvo, origin, direction, k, with_stats=False):
     where the rule says so."""
     n, tables, out, stats = _brick_args(_BRICK_TRACE_MULTI, bsvo, origin,
                                         direction, with_stats, k)
-    block = multi_block("brick_trace_multi", k)
+    block = multi_block(k)
     if block:
         _BRICK_TRACE_MULTI(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
                            k, block, *_results(out, stats))
@@ -412,25 +383,14 @@ def probe_brick_cuda(bsvo, origin, direction, form):
     return TraceResult(*out), stats, record
 
 
-def _multi_probe_form(kernel, form, k):
-    """(form code, block) of a k-segment probe launch."""
-    code = _form(kernel, form)
-    block = multi_block(kernel, k) if form == "staged" else BLOCKS["first"]
-    if block == 0:
-        raise ValueError(f"{kernel}: k = {k} has no staged form")
-    return code, block
-
-
-def probe_stackless_multi_cuda(svo, origin, direction, k, form):
-    """``esvo_stackless_multi`` in `form` ("staged" or "first") with
-    per-warp counters, on CUDA rays. Returns (MultiTraceResult, stats,
-    record)."""
+def probe_stackless_multi_cuda(svo, origin, direction, k):
+    """``esvo_stackless_multi`` with per-warp counters, on CUDA rays.
+    Returns (MultiTraceResult, stats, record)."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI_PROBE, svo,
                                             origin, direction, True, k)
-    code, block = _multi_probe_form("esvo_stackless_multi", form, k)
-    record = _probe_record(n, form, origin.device, block)
-    _ESVO_STACKLESS_MULTI_PROBE(origin.device, code, *tables, n, svo.depth, k,
-                                block, *_results(out, stats), record.data_ptr())
+    record = _probe_record(n, "first", origin.device)
+    _ESVO_STACKLESS_MULTI_PROBE(origin.device, *tables, n, svo.depth, k,
+                                *_results(out, stats), record.data_ptr())
     probe_launches["esvo_stackless_multi_probe"] += 1
     return MultiTraceResult(*out), stats, record
 
@@ -440,7 +400,10 @@ def probe_brick_multi_cuda(bsvo, origin, direction, k, form):
     counters, on CUDA rays. Returns (MultiTraceResult, stats, record)."""
     n, tables, out, stats = _brick_args(_BRICK_TRACE_MULTI_PROBE, bsvo, origin,
                                         direction, True, k)
-    code, block = _multi_probe_form("brick_trace_multi", form, k)
+    code = _form("brick_trace_multi", form)
+    block = multi_block(k) if form == "staged" else BLOCKS["first"]
+    if block == 0:
+        raise ValueError(f"brick_trace_multi: k = {k} has no staged form")
     record = _probe_record(n, form, origin.device, block)
     _BRICK_TRACE_MULTI_PROBE(origin.device, code, *tables, n, bsvo.depth,
                              bsvo.top_depth, k, block, *_results(out, stats),
@@ -481,8 +444,8 @@ def trace_brick_cuda_serial(bsvo, origin, direction, with_stats=False):
 
 def trace_multi_cuda(svo, origin, direction, k=4, with_stats=False):
     """The first `k` leaf segments of (N, 3) float32 rays in octree-local
-    coordinates through `svo`, any N: kernel ``esvo_stackless_multi`` (its
-    first form) for CUDA tensors, the plain version ``traverse.trace_multi`` for CPU
+    coordinates through `svo`, any N: kernel ``esvo_stackless_multi`` for
+    CUDA tensors, the plain version ``traverse.trace_multi`` for CPU
     tensors. Returns a MultiTraceResult, or (MultiTraceResult, stats (N,
     5); all zero but `unfinished`)."""
     if origin.device.type == "cpu":
@@ -500,16 +463,6 @@ def trace_brick_multi_cuda(bsvo, origin, direction, k=4, with_stats=False):
     if origin.device.type == "cpu":
         return brick.trace_brick_multi(bsvo, origin, direction, k, with_stats)
     res, stats = _brick_multi_kernel(bsvo, origin, direction, k, with_stats)
-    return (res, stats) if with_stats else res
-
-
-def trace_multi_cuda_staged(svo, origin, direction, k=4, with_stats=False):
-    """``trace_multi_cuda`` through the staged form of the kernel: the same
-    results."""
-    if origin.device.type == "cpu":
-        return traverse.trace_multi(svo, origin, direction, k, with_stats)
-    res, stats = _stackless_multi_staged_kernel(svo, origin, direction, k,
-                                                with_stats)
     return (res, stats) if with_stats else res
 
 

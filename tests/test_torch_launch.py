@@ -43,7 +43,6 @@ KERNELS = {
     "brick_trace_unstaged": brick_cuda._BRICK_TRACE_UNSTAGED,
     "brick_trace_probe": brick_cuda._BRICK_TRACE_PROBE,
     "esvo_stackless_multi": brick_cuda._ESVO_STACKLESS_MULTI,
-    "esvo_stackless_multi_staged": brick_cuda._ESVO_STACKLESS_MULTI_STAGED,
     "esvo_stackless_multi_probe": brick_cuda._ESVO_STACKLESS_MULTI_PROBE,
     "brick_trace_multi": brick_cuda._BRICK_TRACE_MULTI,
     "brick_trace_multi_serial": brick_cuda._BRICK_TRACE_MULTI_SERIAL,
