@@ -57,19 +57,18 @@ rays on which the two part (printing them, `[parting]`, and saving their
 origins and directions as float32 bits to build/; the reference's two walks
 part on the same rays when its arithmetic rounds as the port's does, F19),
 checks slot 0 against `esvo_stackless`'s hit, and that a parameter which
-requires a gradient gets one on the card. Each k-segment trace has two
-forms: a staged form (the walk of `brick_trace`'s wide form or of
-`esvo_stackless` in collect mode, each ray's k slots staged in its warp's
-shared memory and written out when the warp's walks end;
-`brick_cuda.multi_block` picks the block from k, and the first form beyond
-it) and a first form (one thread a ray in blocks of 128, each segment
-written as found). The brick trace's main path takes its staged form, the
-stackless trace's its first form (`brick_cuda.MAIN_FORMS`, the faster in
-turns); the form off each main path is launched once in `[probes]` and
-timed in turns against it. Both forms, and both probe forms, are held
-bitwise against the plain versions on the frame, on small cases at k = 1,
-4, 7 and at the k where the rule changes, on a ragged ray count;
-`[warps]` reads both forms' probes on the frame.
+requires a gradient gets one on the card. The brick trace has two forms:
+a staged form (the walk of `brick_trace`'s wide form in collect mode, each
+ray's k slots staged in its warp's shared memory and written out when the
+warp's walks end, in blocks of 32; the main path's up to
+`brick_cuda.STAGED_MAX_K`) and a first form (one thread a ray in blocks of
+128, each segment written as found; the main path's above it). The
+stackless trace has its first form alone. The first form off the brick
+trace's main path is launched once in `[probes]` and timed in turns against
+it, at k = 4 and, in `[timing-k]`, at larger k. Every form, and every probe
+form, is held bitwise against the plain versions on the frame, on small
+cases at k = 1, 4, 7 and at the k where the rule changes, on a ragged ray
+count; `[warps]` reads every probe form on the frame.
 `[frame-lod]` renders the frame as `cli render --lod-coef` does at depth 10
 (node attributes on the host, `brick_trace_lod`, `lod.shade_lod`) and through
 `lod.render_lod` (`esvo_stackless_lod`) at four footprint coefficients: the
@@ -180,7 +179,7 @@ STAT = traverse.STAT_NAMES.index
 BRICK_COUNTS = (brick_cuda.launches, brick_cuda.form_launches,
                 brick_cuda.probe_launches)
 # brick_trace.cu's kernels other than the staged k-segment forms and the
-# probe forms, at their registers as ptxas gave them before the staged forms
+# probe forms, at their registers as ptxas gave them before the staged form
 EARLIER_REGS = {
     "brick_trace_kernel<false, false, 256>": 59, "brick_trace_kernel<true, false, 256>": 63,
     "brick_trace_kernel<false, false, 128>": 56, "esvo_stackless_kernel<false>": 45,
@@ -403,15 +402,18 @@ def multi_forms(kname, tree, o, d, k):
     out = {"main": brick_cuda._brick_multi_kernel(tree, o, d, k, True),
            "first": brick_cuda._brick_multi_serial_kernel(tree, o, d, k, True)}
     for form in brick_cuda.FORMS[kname]:
-        if form == "first" or brick_cuda.multi_block(k):
+        if form == "first" or k <= brick_cuda.STAGED_MAX_K:
             out[f"{form} probe"] = brick_cuda.probe_brick_multi_cuda(tree, o, d, k, form)[:2]
     return out
 
 
-# the k at which the brick trace's staged form's block shrinks (the last k
-# of one size and the first of the next), at which the block's slots first
-# pass 48 KB, and at which the rule turns to the first form
-MULTI_RULE_KS = (21, 22, 53, 54, 117, 118, 594, 595)
+# the k at which the brick trace's staged form's block first passes 48 KB
+# of shared memory (and opts in to more) and at which the main path turns
+# to the first form (the last k of one and the first of the next)
+MULTI_RULE_KS = (117, 118, 594, 595)
+# the k at which [timing-k] times the brick trace's main path against its
+# first form on the frame
+MULTI_TIMING_KS = (16, 54, 118, 300, 594)
 # the k-segment traces on the depth-10 frame at k = 4: the rays on which
 # the two part where neither is cut (F19), and the rays each bound stops
 MULTI_PARTING, MULTI_UNFINISHED = 15, {"brick_trace_multi": 0, "esvo_stackless_multi": 463}
@@ -433,44 +435,45 @@ def check_multi_forms(kname, tree, o, d, k, plain, err, what):
 
 def multi_rule_parity(dev, err):
     """[parity] of the brick k-segment trace at the k where its staged
-    form's rule changes the block or turns to the first form, on 4,133 rays
-    (a ragged last block and warp at every block size) of a depth-6
-    terrain: each form bitwise against the plain version, and the main
-    path's wrapper through the form the rule names."""
+    form's block passes 48 KB of shared memory and where the main path
+    turns to the first form, on 4,133 rays (a ragged last block and warp)
+    of a depth-6 terrain: each form bitwise against the plain version, and
+    the main path's wrapper through the form the rule names."""
     host = octree.build_svo(get_scene("terrain"), 6)
     bsvo = brick.make_brick_svo(host).to(dev)
     o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4133, 61))
     found = []
     for k in MULTI_RULE_KS:
-        block = brick_cuda.multi_block(k)
+        staged = k <= brick_cuda.STAGED_MAX_K
         reset_counts()
         want = brick.trace_brick_multi(bsvo, o, d, k, True)
         seg = check_multi_forms("brick_trace_multi", bsvo, o, d, k, want, err,
                                 f"terrain d6 N=4133 k={k}")
-        # the main path launches the staged form where the rule gives a
-        # block, else the first form
+        # the main path launches the staged form up to STAGED_MAX_K, else
+        # the first form
         got = (brick_cuda.launches["brick_trace_multi"],
                brick_cuda.form_launches["brick_trace_multi_serial"])
-        if got != ((1, 1) if block else (0, 2)):
+        if got != ((1, 1) if staged else (0, 2)):
             raise AssertionError(f"brick_trace_multi k={k}: launched (staged, first) "
-                                 f"{got}; the rule gives {block or 'no block'}")
-        found.append(f"k={k} {block or 'first form'} ({int(seg[0].count.sum())} "
-                     f"segments)")
-    say("[parity] brick_trace_multi at the k where its staged form's blocks "
-        "shrink, pass 48 KB of shared memory or turn to the first form "
-        "(brick_cuda.multi_block; threads a block, or the first form), on "
-        "4,133 rays of terrain d6 (a ragged last block and warp): the main "
-        "path's wrapper, the first form and the probe forms == the plain "
-        "version bitwise; " + ", ".join(found))
+                                 f"{got}; the rule gives the "
+                                 f"{'staged' if staged else 'first'} form")
+        found.append(f"k={k} {'staged' if staged else 'first'} form "
+                     f"({int(seg[0].count.sum())} segments)")
+    say("[parity] brick_trace_multi at the k where its staged form's block "
+        "passes 48 KB of shared memory and where the main path turns to the "
+        "first form (brick_cuda.STAGED_MAX_K), on 4,133 rays of terrain d6 "
+        "(a ragged last block and warp): the main path's wrapper, the first "
+        "form and the probe forms == the plain version bitwise; "
+        + ", ".join(found))
 
 
 def volumetric_parity(dev, cam, light, err):
-    """[parity] of the k-segment traces (through their launchers, in their
-    first forms and in their probe forms) and the compositing against their
-    plain versions on small trees: the empty tree, a depth-4 tree (a top
-    tree of one level), camera rays, rays from a shell and rays from inside
-    the cube, at k = 1, 4 and 7; then at the k where the staged forms'
-    rule changes, on a ragged ray count."""
+    """[parity] of the k-segment traces (through their launchers, in every
+    form and probe form) and the compositing against their plain versions
+    on small trees: the empty tree, a depth-4 tree (a top tree of one
+    level), camera rays, rays from a shell and rays from inside the cube,
+    at k = 1, 4 and 7; then at the k where the brick trace's rule changes,
+    on a ragged ray count."""
     empty = Scene("empty", lambda x, y, z: np.ones_like(np.asarray(x, np.float32)), 0.0)
     lines, n_cases = [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
@@ -498,7 +501,8 @@ def volumetric_parity(dev, cam, light, err):
                              f"{int(apart.sum())} apart")
         lines.append(f"{name} d{depth}: " + ", ".join(found))
     say(f"[parity] esvo_stackless_multi and brick_trace_multi (through their "
-        f"launchers, in their first forms and in both forms' probe forms) == "
+        f"launchers, the brick trace also in its first form, and in every "
+        f"probe form) == "
         f"traverse.trace_multi and brick.trace_brick_multi bitwise "
         f"(hit_leaf, t_in and t_out bits, count, iters, statistics) on {n_cases} "
         f"cases, and composite_fwd within 1e-6 of composite_plain on each "
@@ -618,9 +622,8 @@ def serving(ctx, card):
         got = probe()
         torch.cuda.synchronize()
         multi_compare(got[:2], plain_r, f"{kname} {form} probe, terrain d10 frame")
-        out["warps"][(kname, form)] = warps_line(
-            kname, form, got[2], plain_r[0].iters.cpu().numpy(),
-            brick_cuda.multi_block(k) if form == "staged" else None)
+        out["warps"][(kname, form)] = warps_line(kname, form, got[2],
+                                                 plain_r[0].iters.cpu().numpy())
     say("[warps] the k-segment traces' probe forms (k=4; seg: a segment's "
         "record, its write in the first forms and its stage in shared memory "
         "in the brick trace's staged form, whose warps' write-out is its ray "
@@ -719,7 +722,7 @@ def serving(ctx, card):
         f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
         + f" (bound {traverse.multi_steps_for_depth(10, k)}); both on their main "
         f"paths (the brick trace's staged form in blocks of "
-        f"{brick_cuda.multi_block(k)} threads at k={k}), and the brick trace's "
+        f"{brick_cuda.BLOCKS['staged']} threads), and the brick trace's "
         f"first form, == their plain "
         f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
         f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
@@ -748,6 +751,26 @@ def serving(ctx, card):
         f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}), "
         f"composite_fwd {m['composite_fwd'][0]:.4f} ({m['composite_fwd'][1]:.4f}); "
         f"composite_plain {m['composite_plain'][0]:.4f} (n=10)")
+    # the brick trace's main path at larger k (where the staged form opts in
+    # to more shared memory, and at the last k it takes): against its first
+    # form on the frame, bitwise, then in turns
+    by_k = {}
+    for kk in MULTI_TIMING_KS:
+        multi_compare(brick_cuda._brick_multi_kernel(bsvo, o, d, kk, True),
+                      brick_cuda._brick_multi_serial_kernel(bsvo, o, d, kk, True),
+                      f"brick_trace_multi k={kk}, terrain d10 frame, against its first form")
+        tk = in_turns({
+            "staged": lambda kk=kk: brick_cuda.trace_brick_multi_cuda(bsvo, o, d, kk),
+            "first": lambda kk=kk: brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, kk)},
+            rounds=3, reps=10)
+        by_k[kk] = {name: med_p80(v) for name, v in tk.items()}
+        torch.cuda.empty_cache()
+    out["ms_by_k"] = by_k
+    say(f"[timing-k] {card}: brick_trace_multi's main path (the staged form, "
+        f"blocks of {brick_cuda.BLOCKS['staged']}) == its first form bitwise on "
+        f"the frame, and in turns, three rounds of 10, median ms (p80): " + "; ".join(
+            f"k={kk} {v['staged'][0]:.4f} ({v['staged'][1]:.4f}) against the first "
+            f"form's {v['first'][0]:.4f} ({v['first'][1]:.4f})" for kk, v in by_k.items()))
 
     # ---- the surface renderer: each route, and render.py's image paths -----
     smodel = SurfaceRenderer(host_svo, device=dev)
@@ -1226,14 +1249,14 @@ def ptxas_report(log):
     return rows
 
 
-def warps_line(kernel, form, record, iters, block=None):
+def warps_line(kernel, form, record, iters):
     """[warps]: one form's per-warp counters on the frame in words: each
     phase's issues a warp, SIMT efficiency (lanes active a issue over 32)
     and share of warp cycles; warp durations; each block's tail; the
     kernel's span and how much of it follows the end of 99 in 100 warps;
     the last warp to end, with its issues against its longest ray's steps.
-    `block`: the threads of a staged form's blocks. Returns the numbers."""
-    block = block or brick_cuda.BLOCKS[form]
+    Returns the numbers."""
+    block = brick_cuda.BLOCKS[form]
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
     cycles = f["end"] - f["start"]
@@ -3645,7 +3668,9 @@ def main():
                  ms=vm[kname][0], us_alone=alone[kname], other_form="first",
                  ms_other_form=vm[kname + "_serial"][0],
                  us_alone_other_form=alone[kname + "_serial"],
-                 staged_block=brick_cuda.multi_block(VOLUME_K),
+                 staged_block=brick_cuda.BLOCKS["staged"],
+                 ms_by_k={kk: dict(ms=v["staged"][0], ms_other_form=v["first"][0])
+                          for kk, v in served["ms_by_k"].items()},
                  warps={form: served["warps"][(kname, form)]
                         for form in brick_cuda.FORMS[kname]}),
             dict(name=kname + "_serial", **common,

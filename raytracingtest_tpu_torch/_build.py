@@ -209,9 +209,9 @@ def _declare_brick(lib):
     lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
     lib.esvo_stackless_multi.argtypes = [p] * 6 + [i] * 3 + [p] * 7
     lib.esvo_stackless_multi_probe.argtypes = [p] * 6 + [i] * 3 + [p] * 8
-    lib.brick_trace_multi.argtypes = [p] * 6 + [i] * 5 + [p] * 7
+    lib.brick_trace_multi.argtypes = [p] * 6 + [i] * 4 + [p] * 7
     lib.brick_trace_multi_serial.argtypes = [p] * 6 + [i] * 4 + [p] * 7
-    lib.brick_trace_multi_probe.argtypes = [i] + [p] * 6 + [i] * 5 + [p] * 8
+    lib.brick_trace_multi_probe.argtypes = [i] + [p] * 6 + [i] * 4 + [p] * 8
     f = ctypes.c_float
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8

@@ -13,8 +13,7 @@
 //   esvo_stackless_multi  replaces traverse.py::_trace_multi_core (:684):
 //                   the first k leaf segments (leaf, t_in, t_out) of each
 //                   ray, the stackless walk in collect mode (a leaf entered
-//                   is recorded and the ray walks on): esvo_stackless's
-//                   body, stackless_ray, in collect mode.
+//                   is recorded and the ray walks on).
 //   brick_trace_multi  replaces brick.py::_trace_brick_multi_core (:574):
 //                   the same segments through the top tree and its bricks:
 //                   the wide brick_trace's body, brick_ray, with the DDA in
@@ -92,38 +91,36 @@
 //     each DDA step reads its word there instead of behind a dependent load.
 //     brick_trace_unstaged is the wide form without the staged row, which
 //     splits the gain between the two changes (chip_smoke.py [timing]).
-//   * The k-segment traces have two forms each; they compute the same bits.
-//     The staged forms (brick_trace_multi_staged_kernel, the brick trace's
-//     main path; esvo_stackless_multi_staged_kernel) run the bodies of the
-//     wide brick_trace and of esvo_stackless in collect mode (a template
-//     parameter, as LOD is), in blocks of 128 threads while a block's slots
-//     fit in 48 KB and fewer above (brick_cuda.multi_block). Each ray's k
-//     slots live in its warp's region of shared memory, padded (-1, 0, 0)
-//     at set-up: the brick trace stages (leaf, t_in, t_out) beside its
+//   * brick_trace_multi has two forms; they compute the same bits. Its
+//     staged form (brick_trace_multi_staged_kernel, the main path's) runs
+//     the wide brick_trace's body, brick_ray, in collect mode (a template
+//     parameter, as LOD is). Each ray's k slots live in its warp's region
+//     of dynamic shared memory, padded (-1, 0, 0) at set-up, beside its
 //     parked brick row and the row's 16 prefix counts (a segment's leaf id
 //     is then one shared word and a popcount, not a loop over the words
-//     below its bit), 132 + 12k bytes a ray; the stackless trace stages
-//     (parent, rank, t_in, t_out), 16k bytes a ray (at least 20), so that no
-//     step waits on the leaf id's load. When its 32 walks have ended, a warp
-//     writes its rays' contiguous run of 32k words of each (N, k) array,
-//     consecutive lanes on consecutive words (the ragged last warp masked),
-//     adding leaf_base[parent] + rank there; count and iters a word a lane;
-//     the statistics staged over the region and written the same way. A
-//     warp's rays are contiguous, so the write-out needs no block barrier
-//     (the brick trace measured 0.5-2% slower writing out after one). Above
-//     48 KB a block
-//     opts in to more dynamic shared memory; where even 32 rays' slots pass
-//     SMEM_MAX (k from 595 in the brick trace, 455 in the stackless trace)
-//     the rule in brick_cuda takes the first form.
-//   * The first forms (brick_trace_multi_kernel, esvo_stackless_multi_kernel;
-//     the stackless trace's main path): one thread a ray in blocks of 128,
-//     rows read as the steps need them, each segment written to its (N, k)
-//     slot as it is found, three 4-byte stores at a 4k-byte stride from a
-//     partly active warp, and the empty slots padded at the end. The brick
-//     trace's is the check and the yardstick of its staged form. The
-//     stackless trace's stays on the main path: its staged form measured no
-//     faster (the record it takes off the walk was 4% of the warps' cycles;
-//     PERF.md).
+//     below its bit): 132 + 12k bytes a ray. When its 32 walks have ended,
+//     a warp writes its rays' contiguous run of 32k words of each (N, k)
+//     array, consecutive lanes on consecutive words (the ragged last warp
+//     masked); count and iters a word a lane; the statistics staged over
+//     the rows and written the same way. A warp's rays are contiguous, so
+//     the write-out needs no block barrier (one after a block barrier
+//     measured 0.5-2% slower). Blocks are of MULTI_BLOCK = 32 threads at
+//     every k: a block's shared memory is held until its last warp ends,
+//     so smaller blocks free it sooner, and from k = 8 on 32 threads
+//     measured fastest (blocks of 128 within 1.2% at k = 4). Above 48 KB
+//     the block opts in to more; where even 32 rays' slots pass SMEM_MAX
+//     (k from 595) brick_cuda's rule takes the first form.
+//   * The first forms (brick_trace_multi_kernel, the staged form's check
+//     and yardstick; esvo_stackless_multi_kernel, the stackless trace's
+//     one form): one thread a ray in blocks of 128, rows read as the steps
+//     need them, each segment written to its (N, k) slot as it is found,
+//     three 4-byte stores at a 4k-byte stride from a partly active warp,
+//     and the empty slots padded at the end; the padding grows with k (at
+//     k = 594 the brick first form measured 63 ms against the staged
+//     form's 11). A staged form of the stackless trace (its slots (parent,
+//     rank, t_in, t_out), the leaf id added at write-out) measured no
+//     faster at k = 4 and was dropped: the record it takes off the walk
+//     was 4% of the warps' cycles (PERF.md).
 //     What bounds the k-segment traces on this card is what bounds the
 //     single-hit ones, more so (their probe forms on the depth-10 frame at
 //     k = 4, chip_smoke.py [warps]): the brick trace's top step issues at
@@ -140,12 +137,12 @@
 //     mode; the other kernels instantiate the same bodies without it, so
 //     their code and registers are as before (chip_smoke.py's [build]).
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe and the
-//     k-segment traces' esvo_stackless_multi_probe, brick_trace_multi_probe,
-//     of either form) are a form with counters: each warp writes PROBE_WORDS
-//     int64 words (the layout at Probe below), the issues of each phase (a
-//     step, the descent, a DDA step, a ray's set-up or write, a segment's
-//     record; in a staged form the warp's write-out is the write), the
-//     lanes active at each issue, the
+//     k-segment traces' esvo_stackless_multi_probe and
+//     brick_trace_multi_probe, of either form) are a form with counters:
+//     each warp writes PROBE_WORDS int64 words (the layout at Probe below),
+//     the issues of each phase (a step, the descent, a DDA step, a ray's
+//     set-up or write, a segment's record; in the staged form the warp's
+//     write-out is the write), the lanes active at each issue, the
 //     clock64() cycles inside each phase, and the warp's start and end on
 //     clock64() and on the global timer. Issue and lane counts are exact;
 //     cycles inside divergent code are approximate (another branch's lanes
@@ -182,6 +179,7 @@ constexpr int N_STATS = 5;           // rounds, DDA steps, capped rounds, DDA ma
 constexpr int STEP_ON = 0, STEP_LEAF = 1, STEP_EXIT = 2;
 constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3;
 constexpr int WIDE_BLOCK = 256;  // the wide form's block
+constexpr int MULTI_BLOCK = 32;  // the staged brick_trace_multi's block
 // shared memory a block: above SMEM_STATIC only after opting in
 // (cudaFuncSetAttribute); SMEM_MAX, the most an sm_90 block can have
 constexpr int SMEM_STATIC = 48 * 1024, SMEM_MAX = 232448;
@@ -852,15 +850,44 @@ __device__ __forceinline__ void finish_multi(const MultiOut& out, int i,
   out.iters[i] = it;
 }
 
-// The first form of esvo_stackless_multi, one thread a ray: the stackless
-// walk over the full tree in collect mode, at most
-// max_iters_for_depth(depth) + 8k steps; it ends with k segments or when
-// the ray leaves the root cube. Each segment is written to its (N, k) slot
-// as it is found, its leaf id loaded first.
-template <bool PROBE>
+// esvo_stackless_multi, one thread a ray in blocks of 128: the stackless walk
+// over the full tree in collect mode, at most max_iters_for_depth(depth) + 8k
+// steps; it ends with k segments or when the ray leaves the root cube. Each
+// segment is written to its (N, k) slot as it is found, its leaf id loaded
+// first.
+__global__ void __launch_bounds__(BLOCK)
+esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  const int n_max = max_iters_for_depth(tree.depth) + 8 * out.k;
+  int count = 0, it = 0;
+  while (!done && it < n_max) {
+    ++it;
+    int child_shift, leaf_rank;
+    Seg seg;
+    const int what = walk_step<true>(r, w, tree.masks, tree.child,
+                                     tree.parent_ptr, child_shift, leaf_rank,
+                                     seg);
+    if (what & STEP_COLLECTED) {
+      write_segment(out, i, count, __ldg(tree.leaf_base + seg.parent) + seg.rank,
+                    seg.t_in, seg.t_out);
+      done = ++count >= out.k;
+    }
+    done = done || (what & STEP_WHAT) == STEP_EXIT;
+  }
+  finish_multi(out, i, count, it);
+  write_stats(out.stats, i, 0, 0, 0, 0, !done);
+}
+
+// Ray i of esvo_stackless_multi with the counters: the kernel above's body,
+// each phase counted. (The kernel keeps its own copy of the body: through
+// this function its code comes out with two registers' names exchanged.)
 __device__ __forceinline__ void stackless_multi_ray(
     const Tree& tree, const Rays& rays, const MultiOut& out, int i,
-    Probe<PROBE>& probe) {
+    Probe<true>& probe) {
   long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
@@ -893,15 +920,6 @@ __device__ __forceinline__ void stackless_multi_ray(
   probe.leave(PH_RAY, t);
 }
 
-// esvo_stackless_multi, one thread a ray in blocks of 128.
-__global__ void __launch_bounds__(BLOCK)
-esvo_stackless_multi_kernel(Tree tree, Rays rays, MultiOut out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
-  Probe<false> probe;
-  stackless_multi_ray<false>(tree, rays, out, i, probe);
-}
-
 // The same with the counters.
 __global__ void __launch_bounds__(BLOCK)
 esvo_stackless_multi_probe_kernel(Tree tree, Rays rays, MultiOut out,
@@ -909,7 +927,7 @@ esvo_stackless_multi_probe_kernel(Tree tree, Rays rays, MultiOut out,
   Probe<true> probe;
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) stackless_multi_ray<true>(tree, rays, out, i, probe);
+  if (i < rays.n) stackless_multi_ray(tree, rays, out, i, probe);
   probe.finish(probe_out);
 }
 
@@ -1065,10 +1083,11 @@ __device__ __forceinline__ void write_warp(
 
 // The staged form of brick_trace_multi: brick_ray in collect mode on the
 // wide form's body (the parked ray's brick row and its prefix counts staged
-// in the thread's slice of shared memory) in blocks of blockDim.x threads
-// (at most BLOCK), each warp's region holding its 32 rays' rows, then their
-// k slots (leaf, t_in, t_out), each 32k words (32 * brick_multi_words(k)
-// words a warp, dynamic), written out at the warp's end.
+// in the thread's slice of shared memory), each warp's region holding its
+// 32 rays' rows, then their k slots (leaf, t_in, t_out), each 32k words (32
+// * brick_multi_words(k) words a warp, dynamic), written out at the warp's
+// end. Launched in blocks of MULTI_BLOCK threads (any multiple of 32 up to
+// BLOCK gives the same bits; its launch bounds are BLOCK's, as measured).
 template <bool PROBE>
 __global__ void __launch_bounds__(BLOCK)
 brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
@@ -1167,22 +1186,22 @@ int launch_brick(int form, const void* top_masks, const void* top_child,
   return (int)cudaGetLastError();
 }
 
-// One launch of a staged form at `block` threads a block (32 to BLOCK, a
-// multiple of 32), `words` words of shared memory a ray (the caller reads
-// cudaGetLastError).
-template <typename KernelFn>
-int launch_staged(KernelFn kernel, int block, size_t words, const Tree& tree,
-                  const Rays& rays, const MultiOut& out, long long* p,
-                  cudaStream_t s) {
-  const size_t bytes = (size_t)block * words * sizeof(int);
-  if (block < 32 || block > BLOCK || block % 32 != 0 || bytes > SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
+// One launch of the staged brick_trace_multi (probe: with the counters) in
+// blocks of MULTI_BLOCK threads, brick_multi_words(k) words of dynamic
+// shared memory a ray; a k whose block would pass SMEM_MAX is refused (the
+// caller reads cudaGetLastError).
+template <bool PROBE>
+int launch_staged(const Tree& tree, const Rays& rays, const MultiOut& out,
+                  long long* p, cudaStream_t s) {
+  const auto kernel = brick_trace_multi_staged_kernel<PROBE>;
+  const size_t bytes = (size_t)MULTI_BLOCK * brick_multi_words(out.k) * sizeof(int);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (bytes > SMEM_STATIC) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<blocks_for(rays.n, block), block, bytes, s>>>(tree, rays, out, p);
+  kernel<<<blocks_for(rays.n, MULTI_BLOCK), MULTI_BLOCK, bytes, s>>>(tree, rays, out, p);
   return (int)cudaSuccess;
 }
 
@@ -1217,12 +1236,12 @@ int launch_stackless_multi(const void* masks, const void* child_base,
   return (int)cudaGetLastError();
 }
 
-// One launch of brick_trace_multi in `form` (FORM_FIRST, or FORM_STAGED at
-// `block` threads a block; probe: with the counters).
+// One launch of brick_trace_multi in `form` (FORM_FIRST or FORM_STAGED;
+// probe: with the counters).
 int launch_brick_multi(int form, const void* top_masks, const void* top_child,
                        const void* top_parent, const void* bricks,
                        const void* origin, const void* direction, int n,
-                       int depth, int top_depth, int block, const MultiOut& out,
+                       int depth, int top_depth, const MultiOut& out,
                        void* probe, void* stream) {
   if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
       out.k < 1 || (form != FORM_FIRST && form != FORM_STAGED))
@@ -1242,11 +1261,8 @@ int launch_brick_multi(int form, const void* top_masks, const void* top_child,
       brick_trace_multi_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, s>>>(
           tree, rays, out, p);
     } else {
-      const size_t words = brick_multi_words(out.k);
-      e = p ? launch_staged(brick_trace_multi_staged_kernel<true>, block, words,
-                            tree, rays, out, p, s)
-            : launch_staged(brick_trace_multi_staged_kernel<false>, block, words,
-                            tree, rays, out, p, s);
+      e = p ? launch_staged<true>(tree, rays, out, p, s)
+            : launch_staged<false>(tree, rays, out, p, s);
     }
     if (e != 0) return e;
   }
@@ -1420,19 +1436,18 @@ extern "C" int esvo_stackless_multi_probe(
 }
 
 // The first k leaf segments of each ray through the top tree and its
-// bricks. The staged form, the main path's, in blocks of `block` threads
-// (32 to 128, a multiple of 32, and block * brick_multi_words(k) words at
-// most SMEM_MAX bytes).
+// bricks. The staged form, the main path's, in blocks of MULTI_BLOCK threads;
+// a k whose 32 rays' slots pass SMEM_MAX (k > 594) is refused.
 extern "C" int brick_trace_multi(const void* top_masks, const void* top_child,
                                  const void* top_parent, const void* bricks,
                                  const void* origin, const void* direction,
                                  int n, int depth, int top_depth, int k,
-                                 int block, void* hit_leaf, void* t_in,
-                                 void* t_out, void* count, void* iters,
-                                 void* stats, void* stream) {
+                                 void* hit_leaf, void* t_in, void* t_out,
+                                 void* count, void* iters, void* stats,
+                                 void* stream) {
   return launch_brick_multi(
       FORM_STAGED, top_masks, top_child, top_parent, bricks, origin, direction,
-      n, depth, top_depth, block,
+      n, depth, top_depth,
       multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
       stream);
 }
@@ -1445,22 +1460,22 @@ extern "C" int brick_trace_multi_serial(
     void* count, void* iters, void* stats, void* stream) {
   return launch_brick_multi(
       FORM_FIRST, top_masks, top_child, top_parent, bricks, origin, direction,
-      n, depth, top_depth, BLOCK,
+      n, depth, top_depth,
       multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
       stream);
 }
 
-// A form with the counters (`block`: the staged form's).
+// A form with the counters.
 extern "C" int brick_trace_multi_probe(
     int form, const void* top_masks, const void* top_child,
     const void* top_parent, const void* bricks, const void* origin,
-    const void* direction, int n, int depth, int top_depth, int k, int block,
+    const void* direction, int n, int depth, int top_depth, int k,
     void* hit_leaf, void* t_in, void* t_out, void* count, void* iters,
     void* stats, void* probe, void* stream) {
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
   return launch_brick_multi(
       form, top_masks, top_child, top_parent, bricks, origin, direction, n,
-      depth, top_depth, block,
+      depth, top_depth,
       multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), probe,
       stream);
 }

@@ -32,10 +32,10 @@ what each does, and PERF.md what it measured):
   * ``brick_trace_multi``'s ``staged`` form, the main path's
     (``trace_brick_multi_cuda``): the walk of ``brick_trace``'s wide form in
     collect mode, each ray's k slots staged in its warp's shared memory and
-    written out when the warp's walks end, in one coalesced run; the
-    block's threads come from k (``multi_block``), and where the rule gives
-    none the main path takes the ``first`` form. The first form, one thread
-    a ray in blocks of 128 writing each segment as it is found, is also
+    written out when the warp's walks end, in one coalesced run, in blocks
+    of 32 threads, up to k = ``STAGED_MAX_K``; above it the main path takes
+    the ``first`` form. The first form, one thread a ray in blocks of 128
+    writing each segment as it is found, is also
     ``trace_brick_multi_cuda_serial``, the check and the yardstick.
 
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
@@ -88,25 +88,22 @@ _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
-# each form's blocks (the staged form's come from k: multi_block)
+# each form's blocks
 FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("first",),
          "brick_trace_multi": ("staged", "first"),
          "esvo_stackless_multi": ("first",)}
 FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
-BLOCKS = {"first": 128, "wide": 256, "unstaged": 256}
+BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
 
-# The staged form's rule for its blocks. Each ray stages staged_words(k)
-# 4-byte words in shared memory (csrc/brick_trace.cu's brick_multi_words:
-# its parked brick row with the row's 16 prefix counts, and its k (leaf,
-# t_in, t_out) slots, 132 + 12k bytes). A block takes the most threads of
-# STAGED_BLOCKS (128; 256 measured within 1% of it, either way) whose slots
-# fit in SMEM_BLOCK bytes, so that several blocks stay resident on an SM;
-# else 32 threads, up to SMEM_MAX bytes (the most an H100 block may opt
-# into); beyond that (k from 595), the first form.
-SMEM_BLOCK = 48 * 1024
-SMEM_MAX = 232448
-STAGED_BLOCKS = (128, 64, 32)
+# brick_trace_multi's staged form takes k up to STAGED_MAX_K: a block of
+# 32 rays (csrc/brick_trace.cu's MULTI_BLOCK: the fastest block from k = 8
+# on, and within 1.2% of blocks of 128 at k = 4; PERF.md) stages 32 *
+# (33 + 3k) 4-byte words (brick_multi_words: the parked brick rows with
+# their 16 prefix counts, and the k (leaf, t_in, t_out) slots), at most
+# SMEM_MAX bytes, the most an H100 block may opt into. Beyond it the main
+# path takes the first form.
+STAGED_MAX_K = 594
 
 # a warp's record in the probe forms: int64 words, in this order (the
 # five phases' issues, lanes active summed over the issues, and cycles;
@@ -118,32 +115,13 @@ PROBE_FIELDS = (("start", "end", "rays")
                 + ("sm", "ns_start", "ns_end"))
 
 
-def warps_of(n: int, form: str, block: int | None = None) -> int:
+def warps_of(n: int, form: str) -> int:
     """Warps of a launch of `form` over `n` rays: the rows of a probe
-    form's record. `block`: the threads of a staged form's blocks, which
-    depend on k (``multi_block``)."""
-    span = BLOCKS.get(form) if block is None else block
-    if n < 0 or span is None or span < 32 or span % 32:
-        raise ValueError(f"ray count {n}, form {form!r}, block {block}")
+    form's record."""
+    if n < 0 or form not in BLOCKS:
+        raise ValueError(f"ray count {n}, form {form!r}")
+    span = BLOCKS[form]
     return (n + span - 1) // span * (span // 32)
-
-
-def staged_words(k: int) -> int:
-    """4-byte words of shared memory a ray in the staged form."""
-    return 17 + 16 + 3 * k
-
-
-def multi_block(k: int) -> int:
-    """Threads a block of ``brick_trace_multi``'s staged form at `k`
-    segments a ray, or 0 where the first form runs: 128 up to k = 21, 64 to
-    53, 32 to 594, then the first form."""
-    if k < 1:
-        raise ValueError(f"brick_trace_multi: k = {k}")
-    ray_bytes = 4 * staged_words(k)
-    for block in STAGED_BLOCKS:
-        if block * ray_bytes <= SMEM_BLOCK:
-            return block
-    return 32 if 32 * ray_bytes <= SMEM_MAX else 0
 
 
 def _table(name, t):
@@ -262,14 +240,12 @@ def _brick_args(kernel, bsvo, origin, direction, with_stats, k=None):
 
 def _brick_multi_kernel(bsvo, origin, direction, k, with_stats=False):
     """Launch ``brick_trace_multi``'s main path on (N, 3) float32 CUDA
-    rays: the staged form at ``multi_block``'s threads, or the first form
-    where the rule says so."""
+    rays: the staged form up to k = STAGED_MAX_K, the first form above."""
     n, tables, out, stats = _brick_args(_BRICK_TRACE_MULTI, bsvo, origin,
                                         direction, with_stats, k)
-    block = multi_block(k)
-    if block:
+    if k <= STAGED_MAX_K:
         _BRICK_TRACE_MULTI(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
-                           k, block, *_results(out, stats))
+                           k, *_results(out, stats))
         launches["brick_trace_multi"] += 1
     else:
         _BRICK_TRACE_MULTI_SERIAL(origin.device, *tables, n, bsvo.depth,
@@ -352,8 +328,8 @@ def _brick_lod_kernel(bsvo, origin, direction, coef, bias=0.0, with_stats=False)
     return TraceResult(*out, hit_node), stats
 
 
-def _probe_record(n, form, device, block=None):
-    return torch.zeros((warps_of(n, form, block), len(PROBE_FIELDS)),
+def _probe_record(n, form, device):
+    return torch.zeros((warps_of(n, form), len(PROBE_FIELDS)),
                        dtype=torch.int64, device=device)
 
 
@@ -401,12 +377,11 @@ def probe_brick_multi_cuda(bsvo, origin, direction, k, form):
     n, tables, out, stats = _brick_args(_BRICK_TRACE_MULTI_PROBE, bsvo, origin,
                                         direction, True, k)
     code = _form("brick_trace_multi", form)
-    block = multi_block(k) if form == "staged" else BLOCKS["first"]
-    if block == 0:
+    if form == "staged" and k > STAGED_MAX_K:
         raise ValueError(f"brick_trace_multi: k = {k} has no staged form")
-    record = _probe_record(n, form, origin.device, block)
+    record = _probe_record(n, form, origin.device)
     _BRICK_TRACE_MULTI_PROBE(origin.device, code, *tables, n, bsvo.depth,
-                             bsvo.top_depth, k, block, *_results(out, stats),
+                             bsvo.top_depth, k, *_results(out, stats),
                              record.data_ptr())
     probe_launches["brick_trace_multi_probe"] += 1
     return MultiTraceResult(*out), stats, record

@@ -3,12 +3,13 @@ kernel by kernel.
 
     python3 sass_diff.py OTHER_CHECKOUT [SOURCE] [--rename OLD=NEW ...]
 
-SOURCE is a library name of ``raytracingtest_tpu_torch._build`` (default
-``brick_trace``). Each checkout builds the library with its own ``_build``
-(nvcc for sm_90a), ``cuobjdump -sass`` dumps both, and each kernel of
-OTHER_CHECKOUT is held against the kernel of the same name here (``--rename``
-maps a kernel's name there to its name here, as ``ptxas`` names them, e.g.
-``esvo_stackless_kernel<0>``). A kernel is "identical" when its instructions
+SOURCE names a library of ``raytracingtest_tpu_torch._build`` by its
+builder (``brick`` for ``brick_lib``, csrc/brick_trace.cu, the default;
+``shade``, ``tile``, ...). Each checkout builds the library with its own
+``_build`` (nvcc for sm_90a), ``cuobjdump -sass`` dumps both, and each
+kernel of OTHER_CHECKOUT is held against the kernel of the same name here
+(``--rename`` maps a kernel's name there to its name here, as ``ptxas``
+names them, e.g. ``esvo_stackless_kernel<0>``). A kernel is "identical" when its instructions
 and encodings are; else its differing instructions are printed, in pairs
 (there | here), up to SHOW of them. Needs nvcc and cuobjdump: it runs on a
 machine with the card's toolkit.
@@ -29,8 +30,11 @@ def build(checkout, source):
     """Path of `source`'s library as `checkout` builds it."""
     code = (f"from raytracingtest_tpu_torch import _build; "
             f"print(getattr(_build, '{source}_lib')()._name)")
-    return subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True,
-                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"building {source} in {checkout} failed:\n{proc.stderr}")
+    return proc.stdout.strip().splitlines()[-1]
 
 
 def cuobjdump():
@@ -73,7 +77,7 @@ def short(mangled):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("source", nargs="?", default="brick_trace")
+    ap.add_argument("source", nargs="?", default="brick")
     ap.add_argument("--rename", action="append", default=[])
     args = ap.parse_args()
     rename = dict(r.split("=", 1) for r in args.rename)

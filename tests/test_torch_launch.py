@@ -392,12 +392,12 @@ def test_brick_kernels_refuse_bad_arguments(what, monkeypatch):
     (1024 * 1024, "first", 1024 * 1024 // 32), (1024 * 1024, "wide", 1024 * 1024 // 32),
     (1024 * 1024, "unstaged", 1024 * 1024 // 32), (1000, "first", 8 * 4),
     (1000, "wide", 4 * 8), (129, "first", 2 * 4), (129, "wide", 1 * 8),
-    (0, "wide", 0),
+    (0, "wide", 0), (1000, "staged", 32), (129, "staged", 5),
 ])
 def test_probe_record_rows_are_the_launch_warps(n, form, want):
     """A probe record has a row for each warp of the form's launch: blocks
-    of 128 threads for the first form, of 256 for the wide forms, the last
-    block's idle warps included."""
+    of 128 threads for the first form, of 256 for the wide forms, of 32 for
+    brick_trace_multi's staged form, the last block's idle warps included."""
     assert brick_cuda.warps_of(n, form) == want
     assert len(brick_cuda.PROBE_FIELDS) == 21
 

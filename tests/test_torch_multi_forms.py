@@ -1,8 +1,8 @@
 """The k-segment traces' forms as far as they run without a card: the
-staged forms' rule for their blocks (and the k at which it turns to the
-first form), a numpy model of the staged forms' write-out, the C entry
-points and their declared arguments, the wrappers' checks, the first forms'
-wrappers on the CPU, and the probe record's segment phase.
+brick trace's rule for its staged form (and the k at which it turns to the
+first form), a numpy model of the staged form's write-out, the C entry
+points and their declared arguments, the wrappers' checks, the first
+form's wrapper on the CPU, and the probe record's segment phase.
 
 The kernels themselves run only on the card: ``chip_smoke.py`` holds every
 form bitwise against the plain versions there. Inputs come from numpy
@@ -20,140 +20,154 @@ from raytracingtest_tpu_torch.ops import brick, brick_cuda, octree, traverse
 from raytracingtest_tpu_torch.scenes import get_scene
 
 SOURCE = _build._CSRC + "/brick_trace.cu"
-KERNELS = ("brick_trace_multi", "esvo_stackless_multi")
 
 
-@pytest.mark.parametrize("kernel,k,block", [
-    ("brick_trace_multi", 1, 128), ("brick_trace_multi", 4, 128),
-    ("brick_trace_multi", 21, 128), ("brick_trace_multi", 22, 64),
-    ("brick_trace_multi", 53, 64), ("brick_trace_multi", 54, 32),
-    ("brick_trace_multi", 594, 32), ("brick_trace_multi", 595, 0),
-    ("esvo_stackless_multi", 1, 128), ("esvo_stackless_multi", 4, 128),
-    ("esvo_stackless_multi", 24, 128), ("esvo_stackless_multi", 25, 64),
-    ("esvo_stackless_multi", 48, 64), ("esvo_stackless_multi", 49, 32),
-    ("esvo_stackless_multi", 454, 32), ("esvo_stackless_multi", 455, 0),
-])
-def test_multi_block_rule(kernel, k, block):
-    """Threads a block of the staged form at k segments a ray (0: the first
-    form), at the k where the rule changes."""
-    assert brick_cuda.multi_block(kernel, k) == block
+def source_constants():
+    """brick_trace.cu's integer constexprs, by name (one defined from
+    another is evaluated)."""
+    found = {}
+    for name, expr in re.findall(r"\b([A-Z][A-Z0-9_]+) = ([^,;]+)[,;]", open(SOURCE).read()):
+        try:
+            found[name] = int(eval(expr, {}, dict(found)))
+        except (NameError, SyntaxError, TypeError):
+            pass
+    return found
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_multi_block_rule_fits_and_switches_once(kernel):
-    """Every block the rule gives holds its rays' slots: in SMEM_BLOCK
-    bytes, or at 32 threads in SMEM_MAX; the block never grows with k; the
-    rule turns to the first form once, where 32 rays' slots pass SMEM_MAX,
-    and stays there."""
-    last = 1 << 30
-    first_form_from = {"brick_trace_multi": 595, "esvo_stackless_multi": 455}[kernel]
-    for k in range(1, 800):
-        block = brick_cuda.multi_block(kernel, k)
-        need = 4 * brick_cuda.staged_words(kernel, k)
-        if k < first_form_from:
-            assert block in brick_cuda.STAGED_BLOCKS and block <= last
-            assert block * need <= brick_cuda.SMEM_BLOCK or (
-                block == 32 and 32 * need <= brick_cuda.SMEM_MAX)
-            last = block
-        else:
-            assert block == 0 and 32 * need > brick_cuda.SMEM_MAX
-    # the slots' bytes a ray, as the kernels' source lays them out
-    assert 4 * brick_cuda.staged_words("brick_trace_multi", 4) == 132 + 12 * 4
-    assert 4 * brick_cuda.staged_words("esvo_stackless_multi", 4) == 16 * 4
-    assert 4 * brick_cuda.staged_words("esvo_stackless_multi", 1) == 20
+def staged_bytes(c, k):
+    """A staged block's shared memory at k, as the source lays it out:
+    MULTI_BLOCK rays of brick_multi_words(k) 4-byte words."""
+    words = re.search(r"brick_multi_words\(int k\) \{\s*return ([^;]+);",
+                      open(SOURCE).read()).group(1)
+    return 4 * c["MULTI_BLOCK"] * eval(words, {}, dict(c, k=k))
 
 
-@pytest.mark.parametrize("kernel,k", [("brick_trace_multi", 0), ("esvo_stackless_multi", -1),
-                                      ("brick_trace", 4)])
-def test_multi_block_refuses(kernel, k):
-    with pytest.raises(ValueError):
-        brick_cuda.multi_block(kernel, k)
+@pytest.mark.parametrize("k,staged", [(1, True), (4, True), (117, True), (118, True),
+                                      (594, True), (595, False), (2000, False)])
+def test_multi_block_rule(k, staged):
+    """The main path takes the staged form up to STAGED_MAX_K and the first
+    form above, and the staged form takes k exactly where its block's slots
+    fit in SMEM_MAX bytes, as the source lays them out."""
+    c = source_constants()
+    assert (k <= brick_cuda.STAGED_MAX_K) == staged
+    assert (staged_bytes(c, k) <= c["SMEM_MAX"]) == staged
 
 
-def staged_write_out(segs, counts, k, block, n_stats=5, leaf_base=None):
-    """The staged forms' write-out, as csrc/brick_trace.cu's write_block does
-    it, for every block of a launch: each thread's k slots padded (-1, 0, 0)
-    in the block's staging arrays (slot s of thread t at t * k + s), the
-    thread's segments staged in slot order, then the block's nb * k words
-    written by thread j % block at word b0 * k + j, and the statistics
-    staged over the slots and written the same way. `segs[i]` lists ray i's
-    (id, rank, t_in, t_out); with leaf_base, id is a parent row and the leaf
-    is leaf_base[id] + rank."""
+def test_multi_block_rule_fits_and_switches_once():
+    """STAGED_MAX_K, the staged form's block and its shared memory follow
+    the source's constants: blocks of MULTI_BLOCK threads, the slots past
+    SMEM_STATIC from k = 118 (the launch opts in to more), past SMEM_MAX
+    from k = 595, and the staged row long enough for the statistics that
+    the write-out stages over it."""
+    c = source_constants()
+    assert brick_cuda.BLOCKS["staged"] == c["MULTI_BLOCK"] == 32
+    fits = [k for k in range(1, 800) if staged_bytes(c, k) <= c["SMEM_MAX"]]
+    assert fits == list(range(1, brick_cuda.STAGED_MAX_K + 1))
+    assert min(k for k in fits if staged_bytes(c, k) > c["SMEM_STATIC"]) == 118
+    assert c["PREFIX_ROW_WORDS"] == c["ROW_WORDS"] + 16 == 33
+    assert c["PREFIX_ROW_WORDS"] >= c["N_STATS"] == len(traverse.STAT_NAMES)
+
+
+def staged_write_out(segs, stats, k, block, row_words, n_stats=5):
+    """The staged form's shared memory and write-out for every block of a
+    launch, as csrc/brick_trace.cu's brick_trace_multi_staged_kernel and
+    write_warp do it: each warp's region holds its 32 rays' staged rows
+    (row_words words a lane), then their k leaves, t_in and t_out (32k
+    words each; lane l's slot s at l * k + s), padded (-1, 0, 0) at set-up
+    and filled in slot order by the lanes that have a ray. The warp's rays
+    [w0, w0 + nw), nw = min(32, n - w0) (below 32 in the ragged last warp,
+    at most 0 in a warp past the last ray), own words [w0 k, (w0 + nw) k)
+    of each (N, k) array, written by lane j % 32 at word w0 k + j; count
+    and iters a word a lane below nw; the statistics staged over the rows
+    (lane l's at l * n_stats) and written as the run [w0 n_stats, (w0 + nw)
+    n_stats). Returns the arrays (unwritten words hold 7777 or NaN) and the
+    words each array received."""
     n = len(segs)
     out = {"hit_leaf": np.full(n * k, 7777, np.int32),
            "t_in": np.full(n * k, np.nan, np.float32),
            "t_out": np.full(n * k, np.nan, np.float32),
+           "count": np.full(n, 7777, np.int32),
            "stats": np.full(n * n_stats, 7777, np.int32)}
+    written = {name: np.zeros(a.size, np.int64) for name, a in out.items()}
+    region = 32 * (row_words + 3 * k)
     for b0 in range(0, n, block):
-        nb = min(block, n - b0)
-        s_id = np.full(block * k, -1, np.int32)
-        s_rank = np.zeros(block * k, np.int32)
-        s_tin = np.zeros(block * k, np.float32)
-        s_tout = np.zeros(block * k, np.float32)
-        for tid in range(nb):
-            for slot, (sid, rank, t_in, t_out) in enumerate(segs[b0 + tid]):
-                at = tid * k + slot
-                s_id[at], s_rank[at], s_tin[at], s_tout[at] = sid, rank, t_in, t_out
-        for tid in range(block):                  # every thread of the block
-            for j in range(tid, nb * k, block):
-                leaf = s_id[j]
-                if leaf_base is not None and leaf >= 0:
-                    leaf = leaf_base[leaf] + s_rank[j]
-                out["hit_leaf"][b0 * k + j] = leaf
-                out["t_in"][b0 * k + j] = s_tin[j]
-                out["t_out"][b0 * k + j] = s_tout[j]
-        spare = np.zeros(block * n_stats, np.int32)
-        for tid in range(nb):
-            spare[tid * n_stats:(tid + 1) * n_stats] = counts[b0 + tid]
-        for tid in range(block):
-            for j in range(tid, nb * n_stats, block):
-                out["stats"][b0 * n_stats + j] = spare[j]
-    return {name: a.reshape(n, -1) for name, a in out.items()}
+        smem = np.zeros(block // 32 * region, np.int32)
+        for warp in range(block // 32):
+            w0 = b0 + 32 * warp
+            reg = smem[warp * region:(warp + 1) * region]
+            rows = reg[:32 * row_words]
+            s_leaf = reg[32 * row_words:32 * row_words + 32 * k]
+            s_tin = reg[32 * row_words + 32 * k:32 * row_words + 64 * k].view(np.float32)
+            s_tout = reg[32 * row_words + 64 * k:].view(np.float32)
+            s_leaf[:], s_tin[:], s_tout[:] = -1, 0.0, 0.0
+            for lane in range(32):
+                i = w0 + lane
+                rows[lane * row_words:(lane + 1) * row_words] = 12345  # the walk's rows
+                if i < n:
+                    for slot, (leaf, t_in, t_out) in enumerate(segs[i]):
+                        s_leaf[lane * k + slot] = leaf
+                        s_tin[lane * k + slot], s_tout[lane * k + slot] = t_in, t_out
+            nw = min(32, n - w0)
+            for lane in range(32):
+                for j in range(lane, nw * k, 32):
+                    for name, src in (("hit_leaf", s_leaf), ("t_in", s_tin), ("t_out", s_tout)):
+                        out[name][w0 * k + j] = src[j]
+                        written[name][w0 * k + j] += 1
+                if lane < nw:
+                    out["count"][w0 + lane] = len(segs[w0 + lane])
+                    written["count"][w0 + lane] += 1
+            for lane in range(32):   # after every slot is read
+                rows[lane * n_stats:(lane + 1) * n_stats] = (
+                    stats[w0 + lane] if w0 + lane < n else 0)
+            for lane in range(32):
+                for j in range(lane, nw * n_stats, 32):
+                    out["stats"][w0 * n_stats + j] = rows[j]
+                    written["stats"][w0 * n_stats + j] += 1
+    return {name: a.reshape(n, -1) for name, a in out.items()}, written
 
 
-def slot_by_slot(segs, counts, k, n_stats=5, leaf_base=None):
-    """The first forms' writes: each segment to its (N, k) slot as it is
-    found, then the empty slots padded and the statistics written a ray at
-    a time."""
+def slot_by_slot(segs, stats, k):
+    """The first form's writes: each segment to its (N, k) slot as it is
+    found, then the empty slots padded, the count, and the statistics a ray
+    at a time."""
     n = len(segs)
     hit_leaf = np.empty((n, k), np.int32)
     t_in = np.empty((n, k), np.float32)
     t_out = np.empty((n, k), np.float32)
-    stats = np.empty((n, n_stats), np.int32)
     for i, ray in enumerate(segs):
-        for slot, (sid, rank, a, b) in enumerate(ray):
-            hit_leaf[i, slot] = sid if leaf_base is None else leaf_base[sid] + rank
-            t_in[i, slot], t_out[i, slot] = a, b
+        for slot, (leaf, a, b) in enumerate(ray):
+            hit_leaf[i, slot], t_in[i, slot], t_out[i, slot] = leaf, a, b
         for slot in range(len(ray), k):
             hit_leaf[i, slot], t_in[i, slot], t_out[i, slot] = -1, 0.0, 0.0
-        stats[i] = counts[i]
-    return {"hit_leaf": hit_leaf, "t_in": t_in, "t_out": t_out, "stats": stats}
+    return {"hit_leaf": hit_leaf, "t_in": t_in, "t_out": t_out,
+            "count": np.array([len(r) for r in segs], np.int32)[:, None],
+            "stats": np.asarray(stats, np.int32)}
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("block", [32, 128])
 @pytest.mark.parametrize("k", [1, 4, 7])
-def test_staged_write_out_equals_slot_by_slot(kernel, k):
-    """Ragged per-thread segment lists (0 to k segments a ray) written out
-    as the staged form does, at the rule's block for k and a ray count that
-    leaves a ragged last block, equal the (N, k) arrays written slot by
-    slot; for the stackless trace through (parent, rank) and leaf_base."""
+def test_staged_write_out_equals_slot_by_slot(k, block):
+    """Ragged per-lane segment lists (0 to k segments a ray) staged and
+    written out warp by warp as the staged form does, in blocks of 32 (the
+    launch's) and of 128 (whose last block has a warp past the last ray),
+    with a ragged last warp, equal the (N, k) arrays written slot by slot,
+    every word written once; the statistics, staged over the rows, too."""
+    row_words = source_constants()["PREFIX_ROW_WORDS"]
     rng = np.random.default_rng(k)
-    block = brick_cuda.multi_block(kernel, k)
-    n = 2 * block + 37
-    stackless = kernel == "esvo_stackless_multi"
-    leaf_base = rng.integers(0, 10_000, 500).astype(np.int32) if stackless else None
+    n = 2 * 128 + 37          # a ragged last warp; at 128, a last block of 2 warps
     segs = []
     for _ in range(n):
         count = int(rng.integers(0, k + 1))
         t = np.sort(rng.random(2 * count).astype(np.float32))
-        segs.append([(int(rng.integers(0, 500)), int(rng.integers(0, 8)) if stackless else 0,
-                      t[2 * s], t[2 * s + 1]) for s in range(count)])
-    counts = rng.integers(0, 50, (n, 5)).astype(np.int32)
-    got = staged_write_out(segs, counts, k, block, leaf_base=leaf_base)
-    want = slot_by_slot(segs, counts, k, leaf_base=leaf_base)
-    assert (n % block) != 0
+        segs.append([(int(rng.integers(0, 10_000)), t[2 * s], t[2 * s + 1])
+                     for s in range(count)])
+    stats = rng.integers(0, 50, (n, 5)).astype(np.int32)
+    got, written = staged_write_out(segs, stats, k, block, row_words)
+    want = slot_by_slot(segs, stats, k)
+    assert n % 32 and (block == 32 or n % block < block - 32)
     for name in want:
         np.testing.assert_array_equal(got[name].view(np.int32), want[name].view(np.int32))
+        assert (written[name] == 1).all(), name
 
 
 def c_entry_arity():
@@ -177,14 +191,13 @@ class _Declared:
 
 
 def test_c_entries_are_declared_with_their_arity():
-    """Every C entry point of brick_trace.cu (the staged forms, the first
-    forms and the probe forms of the k-segment traces among them) has
-    ctypes argument types of its own length, the stream included, and a
-    wrapper's Kernel."""
+    """Every C entry point of brick_trace.cu (the k-segment traces' first
+    form and probe forms among them) has ctypes argument types of its own
+    length, the stream included, and a wrapper's Kernel."""
     arity = c_entry_arity()
-    new = {"esvo_stackless_multi_staged", "esvo_stackless_multi_probe",
-           "brick_trace_multi_serial", "brick_trace_multi_probe"}
-    assert new <= set(arity) and len(arity) == 14
+    new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
+           "brick_trace_multi_probe"}
+    assert new <= set(arity) and len(arity) == 13
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -193,9 +206,11 @@ def test_c_entries_are_declared_with_their_arity():
     kernels = {v.name for v in vars(brick_cuda).values()
                if isinstance(v, brick_cuda.Kernel)}
     assert set(arity) <= kernels
-    # the staged forms take k and the block; the first forms k alone
-    assert arity["brick_trace_multi"] == arity["brick_trace_multi_serial"] + 1
-    assert arity["esvo_stackless_multi_staged"] == arity["esvo_stackless_multi"] + 1
+    # both brick forms take the same arguments; a probe form adds its record
+    # (and the brick probe its form)
+    assert arity["brick_trace_multi"] == arity["brick_trace_multi_serial"]
+    assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi"] + 1
+    assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
 
 
 def small_trees():
@@ -215,17 +230,17 @@ def counts():
 
 
 LAUNCHERS = {
-    "staged stackless": lambda svo, bsvo, o, d, k: brick_cuda._stackless_multi_staged_kernel(
-        svo, o, d, k),
     "staged brick": lambda svo, bsvo, o, d, k: brick_cuda._brick_multi_kernel(bsvo, o, d, k),
     "first stackless": lambda svo, bsvo, o, d, k: brick_cuda._stackless_multi_kernel(
         svo, o, d, k),
     "first brick": lambda svo, bsvo, o, d, k: brick_cuda._brick_multi_serial_kernel(
         bsvo, o, d, k),
     "probe stackless": lambda svo, bsvo, o, d, k: brick_cuda.probe_stackless_multi_cuda(
-        svo, o, d, k, "staged"),
+        svo, o, d, k),
     "probe brick first": lambda svo, bsvo, o, d, k: brick_cuda.probe_brick_multi_cuda(
         bsvo, o, d, k, "first"),
+    "probe brick staged": lambda svo, bsvo, o, d, k: brick_cuda.probe_brick_multi_cuda(
+        bsvo, o, d, k, "staged"),
 }
 
 
@@ -247,29 +262,33 @@ def test_multi_launchers_refuse_cpu_tensors_and_k_below_one(which, monkeypatch):
 
 
 def test_probe_forms_refuse_a_form_they_lack(monkeypatch):
-    for kernel in (brick_cuda._BRICK_TRACE_MULTI_PROBE, brick_cuda._ESVO_STACKLESS_MULTI_PROBE):
-        monkeypatch.setattr(kernel, "check", lambda device, specs: None)
-    svo, bsvo, o, d = small_trees()
+    """The brick probe takes its two forms, the staged one up to
+    STAGED_MAX_K."""
+    monkeypatch.setattr(brick_cuda._BRICK_TRACE_MULTI_PROBE, "check",
+                        lambda device, specs: None)
+    _svo, bsvo, o, d = small_trees()
     before = counts()
     for call in (lambda: brick_cuda.probe_brick_multi_cuda(bsvo, o, d, 4, "wide"),
-                 lambda: brick_cuda.probe_stackless_multi_cuda(svo, o, d, 4, "unstaged"),
-                 lambda: brick_cuda.probe_stackless_multi_cuda(svo, o, d, 455, "staged")):
+                 lambda: brick_cuda.probe_brick_multi_cuda(bsvo, o, d, 4, "unstaged"),
+                 lambda: brick_cuda.probe_brick_multi_cuda(bsvo, o, d, 595, "staged")):
         with pytest.raises(ValueError):
             call()
     assert counts() == before
 
 
 def test_forms_off_the_main_path_take_the_plain_version_on_the_cpu():
-    """``trace_multi_cuda_staged`` and ``trace_brick_multi_cuda_serial`` on
-    CPU tensors are the plain versions, statistics included, and launch
+    """``trace_brick_multi_cuda_serial``, like the main paths' wrappers, on
+    CPU tensors is the plain version, statistics included, and launches
     nothing."""
     svo, bsvo, o, d = small_trees()
     before = counts()
     for got, want in (
-            (brick_cuda.trace_multi_cuda_staged(svo, o, d, 3, with_stats=True),
-             traverse.trace_multi(svo, o, d, 3, True)),
             (brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, 3, with_stats=True),
-             brick.trace_brick_multi(bsvo, o, d, 3, True))):
+             brick.trace_brick_multi(bsvo, o, d, 3, True)),
+            (brick_cuda.trace_brick_multi_cuda(bsvo, o, d, 3, with_stats=True),
+             brick.trace_brick_multi(bsvo, o, d, 3, True)),
+            (brick_cuda.trace_multi_cuda(svo, o, d, 3, with_stats=True),
+             traverse.trace_multi(svo, o, d, 3, True))):
         for a, b in zip(dataclasses.astuple(got[0]) + (got[1],),
                         dataclasses.astuple(want[0]) + (want[1],)):
             assert torch.equal(a, b)
@@ -299,13 +318,13 @@ def test_probe_record_layout_has_the_segment_phase():
 
 
 def test_warps_line_reads_the_segment_phase(capsys):
-    """chip_smoke's [warps] reader on a made-up record of two blocks of a
-    staged form at 64 threads: the segment phase's issues a warp, SIMT
+    """chip_smoke's [warps] reader on a made-up record of four blocks of the
+    staged form (32 threads each): the segment phase's issues a warp, SIMT
     efficiency and cycle share come out of their words."""
     import chip_smoke
 
     fields = brick_cuda.PROBE_FIELDS
-    warps, block = 4, 64
+    warps = 4
     rec = np.zeros((warps, len(fields)), np.int64)
     col = {f: i for i, f in enumerate(fields)}
     rec[:, col["start"]], rec[:, col["end"]] = 0, 1000
@@ -316,12 +335,12 @@ def test_warps_line_reads_the_segment_phase(capsys):
     rec[:, col["seg_issues"]], rec[:, col["seg_lanes"]] = 4, 32
     rec[:, col["seg_cycles"]] = 100
     got = chip_smoke.warps_line("brick_trace_multi", "staged", torch.from_numpy(rec),
-                                np.arange(warps * 32), block)
+                                np.arange(warps * 32))
     seg = got["phases"]["seg"]
     assert seg["issues_a_warp"] == 4 and seg["simt"] == 32 / (32 * 4)
     assert seg["cycle_share"] == pytest.approx(0.1)
     assert got["phases"]["step"]["simt"] == 1.0
-    assert "64-thread blocks" in capsys.readouterr().out
+    assert "32-thread blocks" in capsys.readouterr().out
 
 
 def test_prefix_row_leaf_equals_the_plain_lookup():
@@ -352,18 +371,17 @@ def test_prefix_row_leaf_equals_the_plain_lookup():
     np.testing.assert_array_equal(got.reshape(-1), want.numpy())
 
 
-@pytest.mark.parametrize("call,k,entry,block", [
-    ("brick", 4, "brick_trace_multi", 128), ("brick", 54, "brick_trace_multi", 32),
-    ("brick", 595, "brick_trace_multi_serial", None),
-    ("stackless", 4, "esvo_stackless_multi", None),
-    ("stackless", 455, "esvo_stackless_multi", None),
-    ("stackless staged", 25, "esvo_stackless_multi_staged", 64),
+@pytest.mark.parametrize("call,k,entry", [
+    ("brick", 4, "brick_trace_multi"), ("brick", 594, "brick_trace_multi"),
+    ("brick", 595, "brick_trace_multi_serial"),
+    ("stackless", 4, "esvo_stackless_multi"),
+    ("stackless", 595, "esvo_stackless_multi"),
 ])
-def test_main_paths_launch_the_rules_form(call, k, entry, block, monkeypatch):
+def test_main_paths_launch_the_rules_form(call, k, entry, monkeypatch):
     """With the C functions stood in: the brick trace's main path launches
-    its staged form at the rule's block, and its first form where the rule
-    has none; the stackless trace's main path launches its first form
-    (``MAIN_FORMS``) at every k; each counts the kernel it launched."""
+    its staged form up to STAGED_MAX_K and its first form above; the
+    stackless trace's main path its one form at every k; each passes k and
+    counts the kernel it launched."""
     launched = []
     for kernel in vars(brick_cuda).values():
         if isinstance(kernel, brick_cuda.Kernel):
@@ -375,28 +393,10 @@ def test_main_paths_launch_the_rules_form(call, k, entry, block, monkeypatch):
     svo, bsvo, o, d = small_trees()
     before = counts()
     {"brick": lambda: brick_cuda._brick_multi_kernel(bsvo, o, d, k),
-     "stackless": lambda: brick_cuda._stackless_multi_kernel(svo, o, d, k),
-     "stackless staged": lambda: brick_cuda._stackless_multi_staged_kernel(
-         svo, o, d, k)}[call]()
+     "stackless": lambda: brick_cuda._stackless_multi_kernel(svo, o, d, k)}[call]()
     (name, args), = launched
     assert name == entry
-    # (..., k, [block,] six outputs, the stream)
-    if block is None:
-        assert args[-8] == k
-    else:
-        assert args[-9:-7] == (k, block)
+    assert args[-8] == k     # (..., k, six outputs, the stream)
     after = counts()
     changed = {key for b, a in zip(before, after) for key in a if a[key] != b[key]}
     assert changed == {entry}
-    assert brick_cuda.MAIN_FORMS == {"brick_trace_multi": "staged",
-                                     "esvo_stackless_multi": "first"}
-
-
-def test_staged_stackless_form_refuses_a_k_it_has_no_block_for(monkeypatch):
-    monkeypatch.setattr(brick_cuda._ESVO_STACKLESS_MULTI_STAGED, "check",
-                        lambda device, specs: None)
-    svo, _bsvo, o, d = small_trees()
-    before = counts()
-    with pytest.raises(ValueError, match="no staged form"):
-        brick_cuda._stackless_multi_staged_kernel(svo, o, d, 455)
-    assert counts() == before
