@@ -85,26 +85,41 @@ a serial scatter-add, and the gradients against builtin autograd of
 through `render_progressive` with four samples, the brick route on a 1000²
 pinhole and on an orthographic camera, `render.render_image` for a skybox off
 the tile route), `render.render_attachment` and `render.render_bounce`, each
-with the kernels it must launch and no other. One line per phase; any
+with the kernels it must launch and no other. `[cli]` runs the command line,
+`raytracingtest_tpu_torch.cli.main`, in this process on the card: `render` of
+the depth-10 tree (loaded from its npz under the JAX package's cache name) at
+1024² on each branch (the default with four samples, `--skybox procedural`,
+`--lod-coef` c0, `--attachments`, `--specular 0.5 --bounces 3`,
+`--volumetric-k 4`, `--load`), each PNG decoded by this script's own reader and
+equal pixel for pixel to the direct call's image, each branch launching its
+route's kernels and no plain version; `fit` (four 1024² views, four steps, a
+falling loss, a state file that reloads), `info`, `debug` (the probe's leaves
+against `trace_multi_cuda`'s, the overlay against the direct call's pixels) and
+`render` of the three noise scenes built at depth 8. One line per phase; any
 failure raises and the exit code is non-zero.
 The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
 
-from raytracingtest_tpu_torch import _build, diff, render
+from raytracingtest_tpu_torch import _build, cli, diff, render, viz
 from raytracingtest_tpu_torch.config import CameraConfig, RenderConfig
-from raytracingtest_tpu_torch.io import checkpoint
+from raytracingtest_tpu_torch.io import checkpoint, hdr
 from raytracingtest_tpu_torch.models import (
     InverseRenderer, SurfaceRenderer, VolumetricRenderer)
 from raytracingtest_tpu_torch.models import renderers
@@ -815,6 +830,7 @@ def serving(ctx, card):
     if tile_err > 1e-6:
         raise AssertionError(f"the tile route's frame differs from the per-ray "
                              f"frame by {tile_err}")
+    out["surface_ms"] = s_ms
     say(f"[surface] {card}: SurfaceRenderer at depth 10: " + "; ".join(lines)
         + f"; the tile route's frame == the per-ray frame within {tile_err} off "
         f"the {int((~keep).sum())} refereed rays")
@@ -859,6 +875,250 @@ def serving(ctx, card):
         f"{int(same_hit.sum())} rays where the brick and stackless traces hit "
         f"alike, and 3 bounces == 1 bounce bitwise")
     return out
+
+
+def read_png(path):
+    """An 8-bit RGB PNG of unfiltered rows (filter type 0, as cli.py writes
+    them) as an (H, W, 3) uint8 array: this script's own reader, independent
+    of the writer in cli.py; any other form fails."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, bit_depth, color, _comp, _filt, interlace = header
+    if (bit_depth, color, interlace) != (8, 2, 0):
+        raise AssertionError(f"{path}: not 8-bit RGB, non-interlaced: {header}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def png_pixels(img):
+    """The uint8 pixels of a float image as the command line writes them."""
+    return (np.clip(img.detach().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+
+
+TILE_KERNELS = ("tile_candidates", "tile_walk", "esvo_trace")
+
+
+def cli_phase(ctx, card, served):
+    """[cli]: `python -m raytracingtest_tpu_torch.cli`'s commands through
+    cli.main, in this process, on the card: `render` at depth 10 and 1024²
+    on each of its branches (every PNG equal, pixel for pixel, to the direct
+    call's image; each branch launching its route's kernels and no other,
+    and calling no plain version), `fit`, `info`, `debug`, and `render` of
+    the three noise scenes built at depth 8. Returns the launches of the
+    phase by kernel, and its lines' numbers."""
+    dev, host_svo, svo, bsvo = ctx["dev"], ctx["host_svo"], ctx["svo"], ctx["bsvo"]
+    o, d, res, bench_cam = ctx["o"], ctx["d"], ctx["res"], ctx["bench_cam"]
+    depth = str(host_svo.depth)
+    # the noise scenes' depth (the command line's default) and image size
+    s_depth, s_res = 8, 512
+    cdir = os.path.join(_build.BUILD_DIR, "cli")
+    shutil.rmtree(cdir, ignore_errors=True)
+    os.makedirs(cdir)
+    # the depth-10 tree under the JAX package's cache name: the commands
+    # load it instead of building it
+    saved = os.path.join(cdir, f"svo_terrain_d{depth}.npz")
+    shutil.copyfile(ctx["cache"], saved)
+    loaded = {}
+    load_or_build = cli._load_or_build
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = load_or_build(*args, **kw)
+        loaded["s"] = time.perf_counter() - t0
+        return out
+    cli._load_or_build = timed_load
+    total, rows = {}, []
+
+    def command(what, argv, want, allow=()):
+        """Run one command from zeroed counts: (stdout, stderr, launches,
+        wall seconds, load or build seconds)."""
+        out, err = io.StringIO(), io.StringIO()
+
+        def run():
+            try:
+                with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                    cli.main(["--cache-dir", cdir, *argv])
+            except BaseException as e:   # argparse's SystemExit too
+                raise AssertionError(f"cli {what} ({argv}) failed: {e!r}; its "
+                                     f"output: {out.getvalue()}{err.getvalue()}") from e
+        loaded["s"] = None
+        t0 = time.perf_counter()
+        _none, got = expect_launches(f"cli {what}", run, want, allow)
+        wall = time.perf_counter() - t0
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        rows.append(dict(what=what, wall_s=wall, load_s=loaded["s"], launches=got))
+        return out.getvalue(), err.getvalue(), got, wall, loaded["s"]
+
+    cam_args = ["--camera-position", "0.5", "0.85", "-0.6", "--look-at", "0.5",
+                "0.4", "0.5", "--fov", "50"]
+    frame = ["--scene", "terrain", "--depth", depth, "--width", str(res),
+             "--height", str(res), *cam_args]
+    view = CameraConfig(**bench_cam, width=res, height=res)
+    cam = camera.Camera(**bench_cam, width=res, height=res)
+    params = (svo.leaf_albedo, svo.leaf_normal, svo.leaf_density)
+    smodel = SurfaceRenderer(host_svo, device=dev)
+    node_alb, node_nrm = (t.to(dev) for t in lod.compute_node_attributes(host_svo))
+    words = tuple(w.to(dev) for w in codecs.build_attachments(host_svo))
+    direct = {
+        "default": lambda: smodel.render_progressive(view, RenderConfig(samples=4)),
+        "skybox": lambda: smodel.render_progressive(view, RenderConfig(),
+                                                    skybox=hdr.make_sky_hdr()),
+        "lod": lambda: lod.shade_lod(svo, node_alb, node_nrm,
+                                     brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0),
+                                     d),
+        "attachments": lambda: render.render_attachment(svo, *words, o, d),
+        "bounce": lambda: render.render_bounce(bsvo, params[0], params[1], cam,
+                                               specular=0.5, bounces=3, device=dev),
+        "volumetric": lambda: VolumetricRenderer(host_svo, k=4, device=dev).render(
+            view, RenderConfig(volumetric_k=4)),
+        "load": lambda: SurfaceRenderer(checkpoint.load_svo(saved, dev), device=dev
+                                        ).render_progressive(view, RenderConfig()),
+    }
+    branches = [
+        ("default", ["--samples", "4"], dict(shade_fwd=4), TILE_KERNELS),
+        ("skybox", ["--skybox", "procedural"], dict(shade_fwd=1), TILE_KERNELS),
+        ("lod", ["--lod-coef", repr(float(LOD_C0))], dict(brick_trace_lod=1), ()),
+        ("attachments", ["--attachments"], dict(esvo_stackless=1), ()),
+        ("bounce", ["--specular", "0.5", "--bounces", "3"], dict(brick_trace=3), ()),
+        ("volumetric", ["--volumetric-k", "4"],
+         dict(brick_trace_multi=1, composite_fwd=1), ()),
+        ("load", ["--load", saved], dict(shade_fwd=1), TILE_KERNELS),
+    ]
+    rays_line = None
+    for name, extra, want, allow in branches:
+        png = os.path.join(cdir, f"render_{name}.png")
+        argv = ["render", *frame, *extra, "--out", png]
+        if name == "load":
+            argv = ["render", "--width", str(res), "--height", str(res), *cam_args,
+                    *extra, "--out", png]
+        _out, err, got, wall, load_s = command(f"render {name}", argv, want, allow)
+        if allow and not (got.get("tile_walk") and got.get("tile_candidates")):
+            raise AssertionError(f"cli render {name}: launched {got}, not the tile route")
+        with torch.no_grad():
+            want_img = direct[name]()
+        torch.cuda.synchronize()
+        got_px, want_px = read_png(png), png_pixels(want_img.reshape(res, res, 3))
+        if got_px.shape != (res, res, 3) or not np.array_equal(got_px, want_px):
+            bad = int((got_px != want_px).any(-1).sum()) if got_px.shape == want_px.shape else -1
+            raise AssertionError(f"cli render {name}: the PNG differs from the "
+                                 f"direct call's pixels on {bad} pixels")
+        if name == "default":
+            rays_line = next(ln for ln in err.splitlines() if "Mrays/s" in ln)
+        say(f"[cli] {card}: render {name} ({' '.join(extra)}), terrain depth {depth} "
+            f"{res}x{res}, bench.py's camera: {wall:.2f} s of cli.main (load "
+            f"{load_s:.2f} s), launches {got}, no plain call; the PNG (decoded by "
+            f"this script) == the direct call's pixels")
+    surface_ms = served["surface_ms"]["tile route, render_progressive samples=4"]
+    say(f"[cli] {card}: render's default branch (4 samples) under RaysPerSecond: "
+        f"{rays_line} (the first call builds the brick table and the pyramid on "
+        f"the host inside the frame); [surface]'s render_progressive of the same "
+        f"4 samples on a built model, median {surface_ms[0]:.4f} ms (p80 "
+        f"{surface_ms[1]:.4f}) = {4 * res * res / surface_ms[0] / 1e3:.2f} Mrays/s")
+
+    # fit: four posed 1024² views of the depth-10 tree, four tile steps
+    fit_dir = os.path.join(cdir, "fit")
+    _out, err, got, wall, load_s = command(
+        "fit", ["fit", "--scene", "terrain", "--depth", depth, "--views", "4",
+                "--view-resolution", str(res), "--steps", "4", "--out-dir", fit_dir],
+        dict(shade_fwd=8, shade_bwd=4, segment_sum=4), TILE_KERNELS)
+    if not (got.get("esvo_trace", 0) >= 4 and got.get("tile_walk")
+            and got.get("tile_candidates")):
+        raise AssertionError(f"cli fit: launched {got}: not the ESVO synthesis "
+                             f"and the tile step")
+    losses = {int(m.group(1)): float(m.group(2)) for m in
+              re.finditer(r"step +(\d+)  loss ([0-9.e+-]+)", err)}
+    if sorted(losses) != [0, 1, 2, 3] or not losses[3] < losses[0]:
+        raise AssertionError(f"cli fit: losses {losses}, expected a fall from step 0 to 3")
+    state = os.path.join(fit_dir, "fit_state.npz")
+    template = torch.optim.Adam([torch.zeros_like(params[0])], lr=5e-2)
+    fit_params, fit_opt, fit_step = checkpoint.load_train_state(state, template, dev)
+    if (fit_step != 4 or fit_opt is not template or fit_params["albedo"].shape
+            != params[0].shape or float(next(iter(template.state.values()))["step"]) != 4.0):
+        raise AssertionError("cli fit: fit_state.npz does not reload")
+    albedo_err = re.search(r"albedo error\| = ([0-9.]+)", err).group(1)
+    warn = re.search(r"WARNING: (\d+) ray-steps", err)
+    say(f"[cli] {card}: fit terrain depth {depth}, 4 views of {res}x{res}, 4 steps: "
+        f"{wall:.2f} s (load {load_s:.2f} s), loss "
+        + " -> ".join(f"{losses[i]:.4e}" for i in range(4))
+        + f", final mean |albedo error| {albedo_err}, "
+        f"{warn.group(1) if warn else 0} ray-steps on cap-limited hits, launches "
+        f"{got}; fit_state.npz reloads through load_train_state with its Adam state "
+        f"(step 4)")
+
+    # info, and debug's probe and box overlay
+    out, _err, got_i, wall_i, load_i = command(
+        "info", ["info", "--scene", "terrain", "--depth", depth], {})
+    if not out.startswith(f"scene=terrain depth={depth}\n") or (
+            f"nodes={host_svo.n_nodes} leaves={host_svo.n_leaves}") not in out:
+        raise AssertionError(f"cli info: {out!r}")
+    ray = (0.5, 0.85, -0.6, 0.0, -0.45, 1.1)
+    png = os.path.join(cdir, "debug.png")
+    out, _err, got_d, wall_d, load_d = command(
+        "debug", ["debug", "--scene", "terrain", "--depth", depth, "--level", "3",
+                  "--ray", *map(str, ray), "--out", png],
+        dict(esvo_stackless_multi=1, esvo_stackless=1))
+    probe = brick_cuda.trace_multi_cuda(
+        svo, torch.tensor([ray[:3]], device=dev), torch.tensor([ray[3:]], device=dev),
+        k=32)
+    count = int(probe.count[0])
+    want_leaves = probe.hit_leaf[0, :count].tolist()
+    got_leaves = [int(v) for v in re.findall(r"leaf +(\d+)", out)]
+    if not count or got_leaves != want_leaves:
+        raise AssertionError(f"cli debug: probe leaves {got_leaves}, "
+                             f"trace_multi_cuda's {want_leaves}")
+    dcam = camera.Camera(**bench_cam, width=512, height=512)
+    overlay = render.render_image(svo, dcam, device=dev).cpu().numpy().copy()
+    origins, size = viz.node_boxes(host_svo, 3)
+    viz.draw_boxes(overlay, dcam, origins, size, max_boxes=4096)
+    if not np.array_equal(read_png(png), (np.clip(overlay, 0, 1) * 255).astype(np.uint8)):
+        raise AssertionError("cli debug: the overlay PNG differs from the direct call's")
+    say(f"[cli] {card}: info depth {depth}: {wall_i:.2f} s (load {load_i:.2f} s), "
+        f"launches {got_i or 'none'}")
+    say(f"[cli] {card}: debug depth {depth} --level 3 --ray {ray} --out (512x512): "
+        f"{wall_d:.2f} s (load {load_d:.2f} s), launches {got_d}, the probe's "
+        f"{count} leaves == trace_multi_cuda's slots {want_leaves}, the overlay "
+        f"({len(origins)} level-3 boxes) == the direct call's pixels")
+
+    # the noise scenes, built at the command line's default depth
+    small = camera.Camera(**bench_cam, width=s_res, height=s_res)
+    sky_px = png_pixels(sky_color(small.rays(dev)[1]).reshape(s_res, s_res, 3))
+    for scene in ("perlin", "terrain_ref", "simplex_ref"):
+        png = os.path.join(cdir, f"{scene}.png")
+        _out, err, got, wall, build_s = command(
+            f"render {scene}", ["render", "--scene", scene, "--depth", str(s_depth),
+                                "--width", str(s_res), "--height", str(s_res),
+                                "--out", png],
+            dict(shade_fwd=1), TILE_KERNELS)
+        built = re.search(r"built \S+ depth=\d+: (\d+) nodes, (\d+) leaves", err)
+        # a sky pixel: within one level of the gradient at the pixel's center
+        # (the frame's rays are jittered)
+        px = read_png(png)
+        sky = np.all(np.abs(px.astype(np.int32) - sky_px) <= 1, axis=-1)
+        if not built or not (0.001 < sky.mean() < 0.99):
+            raise AssertionError(f"cli render {scene}: {err!r}, sky on "
+                                 f"{sky.mean():.4f} of the image")
+        say(f"[cli] {card}: render {scene} depth {s_depth} {s_res}x{s_res}: built "
+            f"({built.group(1)} nodes, {built.group(2)} leaves) in {build_s:.2f} s, "
+            f"{wall:.2f} s of cli.main, launches {got}, sky on {sky.mean():.4f} of "
+            f"the pixels")
+    cli._load_or_build = load_or_build
+    return dict(launches=total, rows=rows, rays_line=rays_line)
 
 
 def compare_lod(kern, plain, what):
@@ -2799,6 +3059,10 @@ def main():
                      light=light, params=params, res=res, routes=routes, err=err)
     lodded = frame_lod(slice_ctx, card)
     stepped = step_volumetric(slice_ctx, card, served)
+    # ---- 7e. the command line, on the same tree ---------------------------------
+    clied = cli_phase(dict(dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o,
+                           d=d, res=res, bench_cam=bench_cam, cache=cache),
+                      card, served)
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -3745,6 +4009,8 @@ def main():
         plain_ms=sm["composite_bwd_plain"][0], bound_ms=bwd_bound[0],
         bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
         fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
+    for row in kernels:
+        row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]
     kernels[2]["launches_train_step"] = train_launches["tile"]["tile_walk"]
     kernels[4]["launches_train_step"] = train_launches["tile"]["tile_candidates"]

@@ -97,3 +97,31 @@ class Camera:
              + up * (v * tan_half)[..., None])
         d = _normalize(d).reshape(-1, 3)
         return pos.expand(H * W, 3).contiguous(), d
+
+    def project(self, pts, device=None):
+        """World points (N, 3) -> (pixel xy (N, 2) float32, in_front (N,)
+        bool) on `device` (None: the default device): the inverse of
+        ``rays``' pixel mapping, pixel (0, 0)'s center at xy (0, 0)."""
+        device = resolve(device)
+        pts = torch.as_tensor(pts, dtype=_F32, device=device)
+        pos, fwd, right, up = self.basis(device)
+        rel = pts - pos[None, :]
+        # the dot products summed left to right, the same on every device
+        # (numpy's float32 `@` rounds as its BLAS does)
+        z, x, y = ((rel[:, 0] * a[0] + rel[:, 1] * a[1]) + rel[:, 2] * a[2]
+                   for a in (fwd, right, up))
+        aspect = self.width / self.height
+        if self.ortho_height > 0.0:
+            hh = self.ortho_height * 0.5
+            u = x / (aspect * hh)
+            v = y / hh
+            in_front = z > 0.0
+        else:
+            tan_half = float(np.tan(np.radians(self.fov_y_deg) * 0.5))
+            zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+            u = x / (zs * aspect * tan_half)
+            v = y / (zs * tan_half)
+            in_front = z > 1e-6
+        px = (u + 1.0) * 0.5 * self.width - 0.5
+        py = (1.0 - v) * 0.5 * self.height - 0.5
+        return torch.stack([px, py], dim=-1), in_front

@@ -66,6 +66,7 @@ def test_noise_numpy_path_matches_jax_bitwise():
 @pytest.mark.parametrize("name,depth", [
     ("sphere", 5), ("terrain", 5), ("terrain", 6), ("flat_ground", 4),
     ("rotated_cuboid", 5), ("dense_cube", 4), ("simplex", 5),
+    ("perlin", 5), ("perlin", 6), ("terrain_ref", 5), ("simplex_ref", 5),
 ])
 def test_build_svo_matches_jax(name, depth):
     ours = octree.build_svo(get_scene(name), depth)
@@ -80,7 +81,9 @@ def test_build_svo_rejects_depth_zero():
 
 
 def test_scene_lipschitz_matches_jax():
+    from raytracingtest_tpu.scenes import SCENES as JAX_SCENES
     from raytracingtest_tpu_torch.scenes import SCENES
+    assert sorted(SCENES) == sorted(JAX_SCENES) and len(SCENES) == 9
     for name, scene in SCENES.items():
         assert scene.lipschitz == jax_get_scene(name).lipschitz, name
 
@@ -151,11 +154,11 @@ def test_octree_frame_matches_numpy():
 PORT_MODULES = (
     "raytracingtest_tpu_torch", "raytracingtest_tpu_torch._build",
     "raytracingtest_tpu_torch._device", "raytracingtest_tpu_torch._launch",
-    "raytracingtest_tpu_torch.config",
+    "raytracingtest_tpu_torch.cli", "raytracingtest_tpu_torch.config",
     "raytracingtest_tpu_torch.convert",
     "raytracingtest_tpu_torch.diff", "raytracingtest_tpu_torch.render",
     "raytracingtest_tpu_torch.scenes",
-    "raytracingtest_tpu_torch.io.checkpoint",
+    "raytracingtest_tpu_torch.io.checkpoint", "raytracingtest_tpu_torch.io.hdr",
     "raytracingtest_tpu_torch.models",
     "raytracingtest_tpu_torch.models.renderers",
     "raytracingtest_tpu_torch.ops.brick",
@@ -172,7 +175,13 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.tile_cuda",
     "raytracingtest_tpu_torch.ops.traverse",
     "raytracingtest_tpu_torch.ops.traverse_cuda",
+    "raytracingtest_tpu_torch.parallel.multihost",
+    "raytracingtest_tpu_torch.utils.checks",
     "raytracingtest_tpu_torch.utils.noise",
+    "raytracingtest_tpu_torch.utils.opensimplex",
+    "raytracingtest_tpu_torch.utils.perlin",
+    "raytracingtest_tpu_torch.utils.profiling",
+    "raytracingtest_tpu_torch.viz",
 )
 
 
@@ -194,6 +203,7 @@ def test_port_modules_list_is_complete():
                 mod = rel[:-3].replace(os.sep, ".")
                 found.add(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
     found -= {"raytracingtest_tpu_torch.io", "raytracingtest_tpu_torch.ops",
+              "raytracingtest_tpu_torch.parallel",
               "raytracingtest_tpu_torch.utils"}  # empty package markers
     assert found == set(PORT_MODULES)
 
