@@ -95,7 +95,19 @@ equal pixel for pixel to the direct call's image, each branch launching its
 route's kernels and no plain version; `fit` (four 1024² views, four steps, a
 falling loss, a state file that reloads), `info`, `debug` (the probe's leaves
 against `trace_multi_cuda`'s, the overlay against the direct call's pixels) and
-`render` of the three noise scenes built at depth 8. One line per phase; any
+`render` of the three noise scenes built at depth 8. `[build-device]` runs
+bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
+depth-10 tree on the card (kernels `svo_expand`, `svo_compact`, `svo_leaves`,
+`svo_level_up`, `svo_parent_ptr`, over the scene library `csrc/scene.cuh`),
+twice, each build under `expect_launches`; holds its structure bit for bit
+and its attributes to 1e-5 (albedo) and 2e-3 (normal) against the host
+build, the brick frame over it against the host tree's hits bit for bit,
+each kernel against its plain version at its largest call, the octant build
+(`build_svo_device_split`) against the monolithic one, and the nine scenes
+of the library (`scene_eval`) against the host's at 2^20 dyadic centres and
+2^20 random points (parting bits counted, none allowed at the centres);
+and builds the command line's three noise scenes on the card at depth 8,
+held after `[cli]` against its host builds. One line per phase; any
 failure raises and the exit code is non-zero.
 The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
@@ -124,11 +136,11 @@ from raytracingtest_tpu_torch.models import (
     InverseRenderer, SurfaceRenderer, VolumetricRenderer)
 from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import (
-    brick, brick_cuda, brick_dda, camera, codecs, gather, lod, octree, rowread,
-    shade_cuda, tile, tile_cuda, traverse, traverse_cuda)
+    brick, brick_cuda, brick_dda, camera, codecs, gather, lod, octree,
+    octree_cuda, rowread, shade_cuda, tile, tile_cuda, traverse, traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
-from raytracingtest_tpu_torch.scenes import Scene, get_scene
+from raytracingtest_tpu_torch.scenes import SCENES, Scene, get_scene
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
 
@@ -178,16 +190,20 @@ LOD_COEFS = (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0.4", 0.4), ("0", 0.0))
 
 # calls of plain versions that the main path must not make, counted by
 # count_plain_calls()
+# the SVO builder's plain versions, each counted as a plain call
+OCTREE_PLAIN = ("expand_plain", "count_plain", "compact_plain", "leaves_plain",
+                "level_up_plain", "parent_ptr_plain", "scene_eval_plain")
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
                "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
-               "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0}
+               "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0,
+               **{name: 0 for name in OCTREE_PLAIN}}
 # the launch counts of the kernels this checkout adds to the earlier ones'
 MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0,
                   esvo_stackless_lod=0, brick_trace_lod=0)
-# the compositing backward's and the LOD traces' plain calls and launches
-# that the training steps must not make
+# the compositing backward's, the LOD traces' and the SVO builder's plain
+# calls and launches that the training steps must not make
 STEP_ZERO = dict(trace_lod=0, trace_brick_lod=0, composite_bwd_plain=0,
-                 composite_bwd=0)
+                 composite_bwd=0, **{name: 0 for name in OCTREE_PLAIN})
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
 # the brick trace's other forms' and the probe forms'
@@ -323,7 +339,8 @@ def reset_counts():
     tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
-    for counts in (gather.launches, shade_cuda.launches, *BRICK_COUNTS):
+    for counts in (gather.launches, shade_cuda.launches, octree_cuda.launches,
+                   *BRICK_COUNTS):
         for name in counts:
             counts[name] = 0
 
@@ -342,7 +359,8 @@ def count_plain_calls():
                            (shade_cuda, "composite_plain", "composite_plain"),
                            (traverse, "trace_lod", "trace_lod"),
                            (brick, "trace_brick_lod", "trace_brick_lod"),
-                           (shade_cuda, "composite_bwd_plain", "composite_bwd_plain")):
+                           (shade_cuda, "composite_bwd_plain", "composite_bwd_plain"),
+                           *((octree_cuda, name, name) for name in OCTREE_PLAIN)):
         plain = getattr(mod, name)
 
         def counted(*args, _plain=plain, _key=key, **kw):
@@ -539,7 +557,7 @@ def launch_counts():
                 brick_dda16=brick_dda.launches, rowread=rowread.launches,
                 **gather.launches, **brick_cuda.launches,
                 **brick_cuda.form_launches, **brick_cuda.probe_launches,
-                **shade_cuda.launches, **PLAIN_CALLS)
+                **shade_cuda.launches, **octree_cuda.launches, **PLAIN_CALLS)
 
 
 def expect_launches(what, fn, want, allow=()):
@@ -2070,6 +2088,433 @@ def referee(voxels, depth, o, d, answers):
     return verdict
 
 
+BUILD_KERNELS = ("svo_expand", "svo_compact", "svo_leaves", "svo_level_up",
+                 "svo_parent_ptr")
+# operations of one `terrain` evaluation, counted from csrc/scene.cuh: a
+# noise3 is 379 (eight corners of 41: 15 for the hash, 4 for the modulo, 14
+# for the gradient's decode, 8 for its dot with the offset; three fades of
+# 7, seven lerps of 3, 9 for the floors and conversions), fbm3 two noise3s
+# and 7 more an octave, the height 5 more
+OPS_TERRAIN_EVAL = 777
+OPS_ALBEDO = 70          # the palette: three sinf and their scaling
+OPS_EXPAND_CHILD = 12    # a child's coordinates, centre and keep test
+OPS_COMPACT_ROW = 8      # ballot, popc, the warp prefix, the store address
+OPS_LEVEL_UP_ROW = 6     # the two atomics' operands
+OPS_PARENT_ROW = 8       # the masks, popc and the stores' loop
+BUILD_SCENES = ("perlin", "terrain_ref", "simplex_ref")
+BUILD_SCENE_DEPTH = 8
+
+
+def build_launches(depth, chunks=None):
+    """The launches of a build_svo_device of `depth` levels in which no
+    level is empty: an expansion, its compaction, a level-up, a count and
+    a compaction a level (more chunks add an expansion and a compaction
+    each), one leaf test, its compaction and one parent-pointer pass."""
+    extra = 0 if chunks is None else sum(c - 1 for c in chunks)
+    return dict(svo_expand=depth + extra, svo_compact=3 * depth + 1 + extra,
+                svo_leaves=1, svo_level_up=depth, svo_parent_ptr=1)
+
+
+def record_calls():
+    """Wrap octree_cuda's builder functions so that each keeps the arguments
+    of its largest call (by rows) until restore(); returns (the record,
+    restore)."""
+    from raytracingtest_tpu_torch.ops import octree_cuda
+    names = ("expand", "count", "compact", "leaves", "level_up", "parent_ptr")
+    saved = {name: getattr(octree_cuda, name) for name in names}
+    calls = {}
+
+    def wrap(name, fn):
+        def recorded(*args):
+            rows = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+            if name == "level_up":
+                rows = max(rows, args[3])
+            if rows >= calls.get(name, (-1,))[0]:
+                calls[name] = (rows, args)
+            return fn(*args)
+        return recorded
+
+    for name, fn in saved.items():
+        setattr(octree_cuda, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(octree_cuda, name, fn)
+    return calls, restore
+
+
+def bits_apart(a, b):
+    """Float32 values of a and b whose bits differ."""
+    return int((bits(a) != bits(b)).sum())
+
+
+def build_parity(calls, ds, depth):
+    """Each builder kernel against its plain version on the inputs of its
+    largest call of the depth-`depth` build; returns (max abs err by
+    kernel, normals apart, ms of the plain version by kernel)."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    err, plain_ms = {}, {}
+
+    def timed_plain(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def exact(name, got, want, what):
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel != plain on {what}")
+
+    _, args = calls["expand"]
+    got = oc.expand(*args)
+    want, plain_ms["svo_expand"] = timed_plain(oc.expand_plain, ds.scene, *args[1:])
+    exact("svo_expand", got, want, "records, keep flags and counts (f bits)")
+    err["svo_expand"] = 0.0
+    _, args = calls["compact"]
+    got = oc.compact(*args)
+    want, plain_ms["svo_compact"] = timed_plain(oc.compact_plain, *args)
+    exact("svo_compact", got, want, "rows and words")
+    _, args = calls["count"]
+    exact("svo_compact", (oc.count(*args),), (oc.count_plain(*args),),
+          "the count mode's counts")
+    err["svo_compact"] = 0.0
+    _, args = calls["leaves"]
+    got = oc.leaves(*args)
+    want, plain_ms["svo_leaves"] = timed_plain(oc.leaves_plain, ds.scene, *args[1:])
+    exact("svo_leaves", (got[0], got[2]), (want[0], want[2]), "survivors and counts")
+    normals_apart = bits_apart(got[1][:, 3:], want[1][:, 3:])
+    albedo_err = float((got[1][:, :3] - want[1][:, :3]).abs().max()) if got[1].numel() else 0.0
+    normal_err = float((got[1][:, 3:] - want[1][:, 3:]).abs().max()) if got[1].numel() else 0.0
+    if albedo_err > 1e-5 or normal_err > 2e-3:
+        raise AssertionError(f"svo_leaves: albedo {albedo_err}, normal {normal_err} "
+                             f"from the plain version")
+    err["svo_leaves"] = max(albedo_err, normal_err)
+    _, args = calls["level_up"]
+    got = oc.level_up(*args)
+    want, plain_ms["svo_level_up"] = timed_plain(oc.level_up_plain, *args)
+    exact("svo_level_up", got, want, "masks, first children and survivors")
+    err["svo_level_up"] = 0.0
+    _, args = calls["parent_ptr"]
+    got = oc.parent_ptr(*args)
+    want, plain_ms["svo_parent_ptr"] = timed_plain(oc.parent_ptr_plain, *args)
+    exact("svo_parent_ptr", (got,), (want,), "parent rows")
+    err["svo_parent_ptr"] = 0.0
+    torch.cuda.synchronize()
+    return err, normals_apart, plain_ms
+
+
+def build_bounds(calls, n_leaves):
+    """(bound_ms, bound_by) of each builder kernel's largest call, from its
+    inputs and outputs: bytes (each read once, each written once) and
+    operations (OPS_TERRAIN_EVAL a scene evaluation)."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    out = {}
+    _, (dsc, parents, *_rest) = calls["expand"]
+    n = 8 * parents.shape[0]
+    out["svo_expand"] = bound(nbytes(parents) + n * 17 + oc.n_blocks(n) * 4,
+                              n * (OPS_TERRAIN_EVAL + OPS_EXPAND_CHILD))
+    _, (flags, _base, total, src) = calls["compact"]
+    w = 0 if src is None else src.shape[1]
+    out["svo_compact"] = bound(nbytes(flags, _base) + total * (1 + 2 * w) * 4,
+                               flags.shape[0] * OPS_COMPACT_ROW)
+    _, (_dsc, rec, _depth) = calls["leaves"]
+    f0 = rec[:, 3].contiguous().view(torch.float32)
+    solid = int((f0 <= 0).sum())
+    n = rec.shape[0]
+    out["svo_leaves"] = bound(nbytes(rec) + n * 25 + oc.n_blocks(n) * 4,
+                              (6 * solid + 6 * n_leaves) * OPS_TERRAIN_EVAL
+                              + n_leaves * OPS_ALBEDO)
+    _, (rows, par, slot, n_par) = calls["level_up"]
+    m = rows.shape[0]
+    out["svo_level_up"] = bound(m * 12 + n_par * 9, m * OPS_LEVEL_UP_ROW)
+    _, (masks, cb) = calls["parent_ptr"]
+    out["svo_parent_ptr"] = bound(nbytes(masks, cb) + nbytes(masks),
+                                  masks.shape[0] * OPS_PARENT_ROW)
+    return out, dict(solid=solid, leaves=n_leaves)
+
+
+def traced_kernels(fn, runs):
+    """The CUDA kernels' rows of torch.profiler's key averages over `runs`
+    calls of fn(), after five calls in a warm-up cycle whose events are
+    discarded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    # the cycle's own "ProfilerStep" span is mirrored onto the card's
+    # timeline and is no kernel
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def dev_us(e):
+    """A profiler row's own device microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_build(fn):
+    """us of device time by builder kernel (count mode under svo_compact)
+    and in all, and the launches, in one call of fn(); None where the tracer
+    saw no kernel."""
+    rows = traced_kernels(fn, 1)
+    total = sum(dev_us(e) for e in rows)
+    if total <= 0.0:
+        return None
+    by = {k: 0.0 for k in BUILD_KERNELS}
+    count = {k: 0 for k in BUILD_KERNELS}
+    for e in rows:
+        for k in BUILD_KERNELS:
+            if f"{k}_kernel" in e.key or (k == "svo_compact" and "svo_count_kernel" in e.key):
+                by[k] += dev_us(e)
+                count[k] += e.count
+    return dict(us=by, launches=count, total_us=total,
+                n_events=sum(e.count for e in rows))
+
+
+def build_device(ctx, card):
+    """[build-device]: bench.py's BENCH_BUILD=device, build_svo_device of
+    depth-10 `terrain` on the card, twice, through its five kernels and no
+    plain version; its structure against the host build's bit for bit, its
+    attributes to 1e-5 / 2e-3, the brick frame over it against the host
+    tree's hits; each kernel against its plain version; the scene library
+    against the host's scenes at 2^20 dyadic centres and 2^20 random points
+    each; the octant build against the monolithic one; the command line's
+    noise scenes built on the card at depth 8."""
+    from raytracingtest_tpu_torch.ops import octree_cuda, octree_device
+    dev, host_svo = ctx["dev"], ctx["host_svo"]
+    depth = host_svo.depth
+    scene = get_scene("terrain")
+    want = build_launches(depth)
+
+    def build(verbose=False, **kw):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            svo = octree_device.build_svo_device(scene, depth, verbose=verbose,
+                                                 device=dev, **kw)
+        return svo, out.getvalue()
+
+    calls, restore = record_calls()
+    t0 = time.perf_counter()
+    (svo, log), got = expect_launches("build_svo_device terrain d10, first call",
+                                      lambda: build(verbose=True), want)
+    first_s = time.perf_counter() - t0
+    restore()
+    t0 = time.perf_counter()
+    (svo2, log2), _ = expect_launches("build_svo_device terrain d10, second call",
+                                      lambda: build(verbose=True), want)
+    second_s = time.perf_counter() - t0
+    levels = re.findall(r"level (\d+): (\d+) candidates \(([\d.]+)s\)", log2)
+    say(f"[build-device] {card}: build_svo_device(terrain, {depth}) on the card: "
+        f"first call {first_s:.4f} s, second call {second_s:.4f} s (each "
+        f"under expect_launches: {got}, no plain call); second call's levels "
+        "(candidates, s to their compaction's count): "
+        + ", ".join(f"{l}: {n} ({s})" for l, n, s in levels))
+
+    # the structure against the host-built tree, bit for bit
+    host_pptr = torch.from_numpy(octree.compute_parent_ptr(
+        host_svo.masks.numpy(), host_svo.child_base.numpy()))
+    if svo.level_start != host_svo.level_start:
+        raise AssertionError(f"level_start {svo.level_start} != the host's "
+                             f"{host_svo.level_start}")
+    for name, want_t in (("masks", host_svo.masks), ("child_base", host_svo.child_base),
+                         ("leaf_base", host_svo.leaf_base), ("parent_ptr", host_pptr),
+                         ("leaf_density", host_svo.leaf_density)):
+        if not torch.equal(getattr(svo, name).cpu(), want_t):
+            raise AssertionError(f"build_svo_device terrain d10: {name} differs "
+                                 f"from the host build")
+    for field in dataclasses.fields(svo):
+        a, b = getattr(svo, field.name), getattr(svo2, field.name)
+        if isinstance(a, torch.Tensor) and not torch.equal(
+                bits(a) if a.is_floating_point() else a,
+                bits(b) if b.is_floating_point() else b):
+            raise AssertionError(f"two device builds of terrain d10 differ in "
+                                 f"{field.name}")
+    alb_err = float((svo.leaf_albedo.cpu() - host_svo.leaf_albedo).abs().max())
+    nrm_err = float((svo.leaf_normal.cpu() - host_svo.leaf_normal).abs().max())
+    alb_apart = bits_apart(svo.leaf_albedo.cpu(), host_svo.leaf_albedo)
+    nrm_apart = bits_apart(svo.leaf_normal.cpu(), host_svo.leaf_normal)
+    if alb_err > 1e-5 or nrm_err > 2e-3:
+        raise AssertionError(f"device build attributes off: albedo {alb_err}, "
+                             f"normal {nrm_err}")
+    say(f"[build-device] terrain d{depth}: {svo.n_nodes} nodes, {svo.n_leaves} leaves; "
+        "masks, child_base, leaf_base, parent_ptr, leaf_density and level_start "
+        f"== the host build's bit for bit; albedo max abs {alb_err:.3g} "
+        f"({alb_apart} of {svo.leaf_albedo.numel()} values' bits apart: sinf), "
+        f"normal max abs {nrm_err:.3g} ({nrm_apart} values' bits apart); a "
+        "second build == the first bit for bit")
+
+    # the brick frame over the device-built tree
+    bsvo_dev = brick.make_brick_svo(svo).to(dev)
+    o, d = ctx["o"], ctx["d"]
+    res_dev = brick_cuda.trace_brick_cuda(bsvo_dev, o, d)
+    res_host = brick_cuda.trace_brick_cuda(ctx["bsvo"], o, d)
+    torch.cuda.synchronize()
+    if not (torch.equal(res_dev.hit_leaf, res_host.hit_leaf)
+            and torch.equal(bits(res_dev.hit_t), bits(res_host.hit_t))):
+        raise AssertionError("the brick frame over the device-built tree parts "
+                             "from the host tree's")
+    img_dev = diff.render_diff_brick(svo.leaf_albedo, svo.leaf_normal,
+                                     svo.leaf_density, bsvo_dev, o, d, ctx["light"])
+    img_host = diff.render_diff_brick(*ctx["params"], ctx["bsvo"], o, d, ctx["light"])
+    img_err = float((img_dev - img_host).abs().max())
+    if not bool(torch.isfinite(img_dev).all()) or img_err > 1e-4:
+        raise AssertionError(f"the device-built tree's brick frame: max abs {img_err}")
+    say(f"[build-device] the brick frame (render_diff_brick, {o.shape[0]} rays) over the "
+        f"device-built tree: hit_leaf and hit_t == the host tree's bit for bit "
+        f"({int((res_dev.hit_leaf >= 0).sum())} hits); image max abs {img_err:.3g} "
+        "from the host tree's (the albedo's ULPs)")
+
+    # each kernel against its plain version, at the main path's largest call
+    ds = octree_cuda.device_scene(scene, dev)
+    k_err, normals_apart, plain_ms = build_parity(calls, ds, depth)
+    ctx["err"].update(k_err)
+    sizes = {k: v[0] for k, v in calls.items()}
+    say(f"[build-device] the five kernels == their plain versions on the card, "
+        f"on their largest call of the build (rows: {sizes}): bitwise but "
+        f"svo_leaves' attributes (albedo and normal max abs {k_err['svo_leaves']:.3g}, "
+        f"{normals_apart} normal values' bits apart); plain ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+
+    # the kernels' times: each at its largest call, in turns; the library
+    # call beside svo_compact (torch.nonzero of the same flags)
+    oc = octree_cuda
+    flags = calls["compact"][1][0]
+    turns = in_turns({
+        "svo_expand": lambda: oc.expand(*calls["expand"][1]),
+        "svo_compact": lambda: oc.compact(*calls["compact"][1]),
+        "svo_compact_library": lambda: torch.nonzero(flags),
+        "svo_leaves": lambda: oc.leaves(*calls["leaves"][1]),
+        "svo_level_up": lambda: oc.level_up(*calls["level_up"][1]),
+        "svo_parent_ptr": lambda: oc.parent_ptr(*calls["parent_ptr"][1])},
+        rounds=3, reps=10)
+    ms = {k: med_p80(v)[0] for k, v in turns.items()}
+    bounds, data = build_bounds(calls, svo.n_leaves)
+    prof = profile_build(lambda: octree_device.build_svo_device(scene, depth, device=dev))
+    if prof is None:
+        say("[build-device] the profiler saw no kernel of the build; not measured")
+        prof = dict(us={k: None for k in BUILD_KERNELS}, launches={}, total_us=None,
+                    n_events=None)
+    else:
+        say(f"[build-device] {card}: one build traced: {prof['total_us']:.1f} us of "
+            f"kernel time in {prof['n_events']} launches against the second call's "
+            f"{second_s:.4f} s of wall (idle share "
+            f"{1 - prof['total_us'] * 1e-6 / second_s:.4f}); "
+            "the builder's kernels, us a build (launches): " + ", ".join(
+                f"{k} {prof['us'][k]:.1f} ({prof['launches'][k]})" for k in BUILD_KERNELS)
+            + f"; their sum {sum(prof['us'].values()):.1f} us")
+    say(f"[build-device] {card}: each kernel at its largest call, ms in turns "
+        "(bound ms, by): " + ", ".join(
+            f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})" for k in BUILD_KERNELS)
+        + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}; "
+        f"the leaf test's data: {data['solid']} solid candidates, {data['leaves']} leaves "
+        f"({OPS_TERRAIN_EVAL} operations a terrain evaluation)")
+
+    # the scene library against the host's scenes
+    rng = np.random.default_rng(14)
+    n_pts = 1 << 20
+    dyadic = (rng.integers(0, 1 << depth, (3, n_pts)).astype(np.float32)
+              + np.float32(0.5)) * np.float32(2.0 ** -depth)
+    rand = rng.random((3, n_pts), dtype=np.float32) * np.float32(1.2) - np.float32(0.1)
+    apart = {}
+    for name, sc in sorted(SCENES.items()):
+        dsc = octree_cuda.device_scene(sc, dev)
+        row = []
+        for pts in (dyadic, rand):
+            host_f = torch.from_numpy(np.asarray(sc(*pts), np.float32))
+            xyz = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in pts]
+            row.append(bits_apart(octree_cuda.scene_eval(dsc, *xyz).cpu(), host_f))
+        apart[name] = tuple(row)
+    say(f"[build-device] the scene library (scene_eval) against the host scenes, "
+        f"float32 values whose bits part at {n_pts} dyadic centres (level {depth}) "
+        f"and {n_pts} random points in [-0.1, 1.1)^3: " + ", ".join(
+            f"{k} {a}/{b}" for k, (a, b) in apart.items()))
+    if any(a for a, _ in apart.values()):
+        raise AssertionError(f"scene values part at dyadic centres: {apart}")
+
+    # the octant build against the monolithic one
+    t0 = time.perf_counter()
+    split, split_got = expect_launches(
+        "build_svo_device_split terrain d10", lambda: octree_device.build_svo_device_split(
+            scene, depth, split_level=2, device=dev), {}, allow=BUILD_KERNELS)
+    split_s = time.perf_counter() - t0
+    compare_tensors(
+        [getattr(split, f) for f in ("masks", "child_base", "leaf_base", "parent_ptr",
+                                     "leaf_albedo", "leaf_normal", "leaf_density")],
+        [getattr(svo, f) for f in ("masks", "child_base", "leaf_base", "parent_ptr",
+                                   "leaf_albedo", "leaf_normal", "leaf_density")],
+        ("masks", "child_base", "leaf_base", "parent_ptr", "leaf_albedo",
+         "leaf_normal", "leaf_density"), "the octant build against the monolithic one")
+    if split.level_start != svo.level_start:
+        raise AssertionError("the octant build's level_start differs")
+    say(f"[build-device] build_svo_device_split(terrain, {depth}, split_level=2): "
+        f"64 octants in {split_s:.3f} s ({split_got}), == the monolithic build bit "
+        "for bit (every array)")
+
+    # the command line's noise scenes, built on the card at its default depth
+    scene_builds = {}
+    for name in BUILD_SCENES:
+        t0 = time.perf_counter()
+        built, _ = expect_launches(
+            f"build_svo_device {name} d{BUILD_SCENE_DEPTH}",
+            lambda n=name: octree_device.build_svo_device(get_scene(n), BUILD_SCENE_DEPTH,
+                                                          device=dev),
+            build_launches(BUILD_SCENE_DEPTH))
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        octree_device.build_svo_device(get_scene(name), BUILD_SCENE_DEPTH, device=dev)
+        torch.cuda.synchronize()
+        scene_builds[name] = dict(svo=built, first_s=first,
+                                  second_s=time.perf_counter() - t0)
+    say(f"[build-device] {card}: the command line's noise scenes built on the card "
+        f"at depth {BUILD_SCENE_DEPTH} (first call, second call): " + ", ".join(
+            f"{k} {v['first_s']:.4f} / {v['second_s']:.4f} s ({v['svo'].n_nodes} nodes, "
+            f"{v['svo'].n_leaves} leaves)" for k, v in scene_builds.items())
+        + "; against [cli]'s host builds below")
+    return dict(launches=got, first_s=first_s, second_s=second_s, ms=ms,
+                plain_ms=plain_ms, bounds=bounds, prof=prof, scene_apart=apart,
+                scene_builds=scene_builds, levels=levels, split_s=split_s)
+
+
+def check_scene_builds(built, cdir):
+    """The depth-8 noise scenes built on the card against [cli]'s host
+    builds of them (its npz cache): structure bit for bit."""
+    lines = []
+    for name, row in built["scene_builds"].items():
+        path = os.path.join(cdir, f"svo_{name}_d{BUILD_SCENE_DEPTH}.npz")
+        host = checkpoint.load_svo(path, "cpu")
+        svo = row["svo"]
+        for f in ("masks", "child_base", "leaf_base"):
+            if not torch.equal(getattr(svo, f).cpu(), getattr(host, f)):
+                raise AssertionError(f"{name} d{BUILD_SCENE_DEPTH}: {f} of the "
+                                     "device build differs from the host build")
+        if svo.level_start != host.level_start:
+            raise AssertionError(f"{name}: level_start differs")
+        nrm = bits_apart(svo.leaf_normal.cpu(), host.leaf_normal)
+        lines.append(f"{name} ({nrm} normal values' bits apart, max abs "
+                     f"{float((svo.leaf_normal.cpu() - host.leaf_normal).abs().max()):.3g})")
+    say(f"[build-device] depth-{BUILD_SCENE_DEPTH} device builds == [cli]'s host builds "
+        "(masks, child_base, leaf_base, level_start bit for bit): " + ", ".join(lines))
+
+
+def svo_ptxas(log):
+    """(kernel, registers) of each kernel in ptxas's report of
+    svo_build.cu."""
+    return [(m.group(1), int(m.group(2))) for m in re.finditer(
+        r"Compiling entry function '\w*?((?:svo_\w+?|scene_eval)_kernel)\w*'"
+        r".*?Used (\d+) registers", log, re.S)]
+
+
 def main():
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2092,6 +2537,7 @@ def main():
         f"tile_walk (nvcc sm_90a) {secs['tile_walk']:.2f} s, "
         f"shade (nvcc sm_90a) {secs['shade']:.2f} s, "
         f"tile_candidates (nvcc sm_90a) {secs['tile_candidates']:.2f} s, "
+        f"svo_build (nvcc sm_90a) {secs['svo_build']:.2f} s, "
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
@@ -2115,6 +2561,12 @@ def main():
                          _build.build_log("shade"), re.S)
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
         f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
+    svo_regs = svo_ptxas(_build.build_log("svo_build"))
+    if len(svo_regs) != 7:
+        raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
+                             "expected 7 kernels")
+    say("[build] svo_build.cu, ptxas -v (registers): " + ", ".join(
+        f"{k} {r}" for k, r in svo_regs))
 
     # ---- 3. kernels vs plain versions on the card ---------------------------
     count_plain_calls()
@@ -2126,7 +2578,8 @@ def main():
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
-               esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0)
+               esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
+               **{k: 0.0 for k in BUILD_KERNELS})
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
         for n in (1000, 4096):
@@ -2356,6 +2809,10 @@ def main():
     light = torch.tensor([-0.5, -1.0, -0.3], dtype=torch.float32, device=dev)
     params = (svo.leaf_albedo, svo.leaf_normal, svo.leaf_density)
     n_rays = o.shape[0]
+
+    # ---- 4b. the same tree built on the card (bench.py's BENCH_BUILD=device) ---
+    built = build_device(dict(dev=dev, host_svo=host_svo, bsvo=bsvo, o=o, d=d,
+                              light=light, params=params, err=err), card)
 
     # ---- 5. main path, ray by ray ----------------------------------------------
     reset_counts()
@@ -3063,6 +3520,7 @@ def main():
     clied = cli_phase(dict(dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o,
                            d=d, res=res, bench_cam=bench_cam, cache=cache),
                       card, served)
+    check_scene_builds(built, os.path.join(_build.BUILD_DIR, "cli"))
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -3345,33 +3803,12 @@ def main():
     # still shows nothing the pass says so and gives no time (the times
     # taken with CUDA events above stand); that is a fault of the tracing,
     # not of a kernel, whose launch errors the wrappers raise.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    def traced_kernels(fn, runs):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        # the cycle's own "ProfilerStep" span is mirrored onto the card's
-        # timeline and is no kernel
-        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and not e.key.startswith("ProfilerStep")]
-
     def profile_kernels(what, fn, unit, top, launches=None):
         """(us of kernel time a unit, us a launch by kernel, launches a
         unit) of `runs` units of fn(), and a line for each of the `top`
         largest kernels. A pass that sees no kernel, or fewer than nine in
         ten of the `launches` a unit that fn() makes, is repeated with
         more runs."""
-        dev_us = lambda e: getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0))
         for runs in (20, 80, 320):
             rows = sorted(traced_kernels(fn, runs), key=dev_us, reverse=True)
             total_us = sum(dev_us(e) for e in rows) / runs
@@ -4009,6 +4446,19 @@ def main():
         plain_ms=sm["composite_bwd_plain"][0], bound_ms=bwd_bound[0],
         bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
         fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
+    replaces = dict(svo_expand=57, svo_compact=80, svo_leaves=143, svo_level_up=163,
+                    svo_parent_ptr=341)
+    for kname in BUILD_KERNELS:
+        kernels.append(dict(
+            name=kname, route="cuda", source=src + "svo_build.cu",
+            replaces=f"raytracingtest_tpu/ops/octree_device.py:{replaces[kname]}",
+            path="octree_device.build_svo_device (bench.py's BENCH_BUILD=device), "
+                 "terrain depth 10",
+            launches=built["launches"][kname], max_abs_err=err[kname],
+            ms=built["ms"][kname], plain_ms=built["plain_ms"][kname],
+            bound_ms=built["bounds"][kname][0], bound_by=built["bounds"][kname][1],
+            library_ms=built["ms"]["svo_compact_library"] if kname == "svo_compact" else None,
+            us_alone_a_build=built["prof"]["us"][kname]))
     for row in kernels:
         row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (ctypes, plain C interfaces).
 
-Six libraries, each built on first use into
+Seven libraries, each built on first use into
 ``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
@@ -30,7 +30,12 @@ Six libraries, each built on first use into
                      its first form; each with counters too) for volumetric
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
-                     ``brick_trace_lod``).
+                     ``brick_trace_lod``);
+  * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
+                     builder on the card (``svo_expand``, ``svo_compact``,
+                     ``svo_leaves``, ``svo_level_up``, ``svo_parent_ptr``)
+                     over the scene library ``csrc/scene.cuh``, and
+                     ``scene_eval``, that library at given points.
 
 ``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
 ``brick_trace.cu`` share.
@@ -225,6 +230,20 @@ def _declare_brick(lib):
         fn.restype = i
 
 
+def _declare_svo(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = [p] * 5
+    lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
+    lib.svo_compact.argtypes = [p, i, p, p, i, p, p, p, p]
+    lib.svo_leaves.argtypes = [p, i, f, i] + tables + [p, p, p, p]
+    lib.svo_level_up.argtypes = [p, i, p, p, p, p, p]
+    lib.svo_parent_ptr.argtypes = [p, p, i, p, p]
+    lib.scene_eval.argtypes = [p, p, p, i, i] + tables + [p, p]
+    for fn in (lib.svo_expand, lib.svo_compact, lib.svo_leaves,
+               lib.svo_level_up, lib.svo_parent_ptr, lib.scene_eval):
+        fn.restype = i
+
+
 def noise_lib():
     """The host noise library (built with g++ on first call)."""
     return _load("noise", lambda: "g++", NOISE_FLAGS,
@@ -264,6 +283,13 @@ def brick_lib():
                  os.path.join(_CSRC, "brick_trace.cu"), _declare_brick)
 
 
+def svo_lib():
+    """The SVO builder's kernels and the scene library (built with nvcc on
+    first call)."""
+    return _load("svo_build", _nvcc, NVCC_FLAGS,
+                 os.path.join(_CSRC, "svo_build.cu"), _declare_svo)
+
+
 def build_all() -> dict:
     """Build and load every library at once, one thread (and so one
     compiler process) each; returns seconds by library name. The first
@@ -278,7 +304,8 @@ def build_all() -> dict:
 
     libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib,
             "shade": shade_lib, "tile_candidates": candidates_lib,
-            "brick_trace": brick_lib, "noise": noise_lib}
+            "brick_trace": brick_lib, "svo_build": svo_lib,
+            "noise": noise_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -15,6 +15,9 @@ Children are packed in Morton child order (x fastest); child k of node i is
 ``build_svo`` stays a numpy frontier sweep on the host, operation for
 operation the JAX package's, so its arrays are byte-identical to that
 builder's; only the result is handed over as torch tensors.
+``build_from_leaves`` builds the same layout bottom up from leaf
+coordinates (Morton codes, ``ops/morton.py``). The build on the card is
+``ops/octree_device.py``.
 """
 
 from __future__ import annotations
@@ -115,13 +118,111 @@ def _sorted_unique(par):
     return par[starts], starts
 
 
-def build_svo(scene, depth: int) -> SVO:
+def build_from_leaves(leaf_coords, depth: int, albedo=None, normal=None,
+                      density=None) -> SVO:
+    """Packed SVO (CPU tensors) straight from finest-level leaf coordinates,
+    bottom up: each level is one unique-prefix pass over the sorted Morton
+    codes, which gives ``build_svo``'s breadth-first layout bit for bit.
+
+    Attribute arrays (n_leaves, ...) are reordered to Morton leaf order;
+    when omitted, albedo is the position palette, normal +y and density 1.
+    Duplicate or out-of-range coordinates raise ``ValueError``.
+    """
+    from raytracingtest_tpu_torch.ops.morton import morton_encode64
+
+    leaf_coords = np.asarray(leaf_coords, np.int64)
+    n_in = leaf_coords.shape[0]
+    if depth < 1:
+        raise ValueError("depth must be >= 1")
+    if n_in and int(leaf_coords.max()) >= (1 << depth):
+        raise ValueError("leaf coordinate out of range for depth")
+
+    code = morton_encode64(leaf_coords[:, 0], leaf_coords[:, 1],
+                           leaf_coords[:, 2])
+    order = np.argsort(code, kind="stable")
+    code = code[order]
+    if n_in and np.any(code[1:] == code[:-1]):
+        raise ValueError("duplicate leaf coordinates")
+
+    # level l's nodes: the unique (leaf code >> 3 (depth - l)), bottom up
+    codes = [None] * (depth + 1)
+    codes[depth] = code
+    for l in range(depth - 1, -1, -1):
+        parent = codes[l + 1] >> 3
+        keep = np.ones(parent.shape[0], bool)
+        keep[1:] = parent[1:] != parent[:-1]
+        codes[l] = parent[keep]
+    if codes[0].shape[0] == 0:
+        codes[0] = np.zeros(1, np.int64)  # keep an (empty) root
+
+    level_start = np.zeros(depth + 1, np.int64)
+    np.cumsum([c.shape[0] for c in codes[:depth]], out=level_start[1:])
+    n_nodes = int(level_start[-1])
+    masks = np.zeros(n_nodes, np.int32)
+    child_base = np.zeros(n_nodes, np.int32)
+    leaf_base = np.zeros(n_nodes, np.int32)
+
+    for l in range(depth):
+        child = codes[l + 1]
+        if child.shape[0] == 0:
+            continue
+        parent = child >> 3
+        first = np.ones(child.shape[0], bool)
+        first[1:] = parent[1:] != parent[:-1]
+        starts = np.flatnonzero(first)
+        rows = level_start[l] + np.arange(codes[l].shape[0])
+        bits = np.int32(1) << (child & 7).astype(np.int32)
+        vm = np.bitwise_or.reduceat(bits, starts)
+        if l == depth - 1:
+            masks[rows] = (vm << 8) | vm
+            leaf_base[rows] = starts.astype(np.int32)
+        else:
+            masks[rows] = vm << 8
+            child_base[rows] = (level_start[l + 1] + starts).astype(np.int32)
+
+    lc = leaf_coords[order]
+    fin = np.float32(2.0 ** (-depth))
+    px = (lc[:, 0].astype(np.float32) + 0.5) * fin
+    py = (lc[:, 1].astype(np.float32) + 0.5) * fin
+    pz = (lc[:, 2].astype(np.float32) + 0.5) * fin
+    if albedo is not None:
+        alb = np.asarray(albedo, np.float32)[order]
+    else:
+        alb = default_albedo(px, py, pz).astype(np.float32)
+    if normal is not None:
+        nrm = np.asarray(normal, np.float32)[order]
+    else:
+        nrm = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (n_in, 1))
+    den = (np.asarray(density, np.float32)[order] if density is not None
+           else np.ones(n_in, np.float32))
+
+    t = torch.from_numpy
+    return SVO(
+        masks=t(masks), child_base=t(child_base), leaf_base=t(leaf_base),
+        leaf_albedo=t(np.ascontiguousarray(alb)),
+        leaf_normal=t(np.ascontiguousarray(nrm)),
+        leaf_density=t(np.ascontiguousarray(den)),
+        depth=depth, level_start=tuple(int(v) for v in level_start),
+        parent_ptr=t(compute_parent_ptr(masks, child_base)),
+    )
+
+
+def build_svo(scene, depth: int, prune: bool = True,
+              attr_frame=None) -> SVO:
     """Build a packed SVO (CPU tensors) from a signed-density scene.
 
     Host-side numpy frontier build with Lipschitz pruning: an octant is kept
     only if the surface can pass within it. A finest-level voxel is a leaf
     iff its center is solid and one of its six axis neighbours (one voxel
     away) is air; interior nodes exist iff their subtree holds a leaf.
+    ``prune=False`` expands every octant instead (exact, 8^depth work: small
+    depths only).
+
+    ``attr_frame=(world_scene, origin, size)``: `scene` is a chunk-local
+    rescale of a larger world, and leaf attributes (palette albedo,
+    gradient normals) are evaluated at the leaves' world coordinates
+    ``p * size + origin`` on `world_scene`, as a monolithic build of that
+    world would give them.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
@@ -138,8 +239,14 @@ def build_svo(scene, depth: int) -> SVO:
 
     for l in range(1, depth + 1):
         p = coords[l - 1]
+        n_p = p.shape[0]
         # expand: children in Morton child order, parent-major
         cc = (p[:, None, :] * 2 + CHILD_OFFSETS[None, :, :]).reshape(-1, 3)
+        if not prune:
+            coords.append(cc)
+            parent_of.append(np.repeat(np.arange(n_p, dtype=np.int64), 8))
+            slot_of.append(np.tile(np.arange(8, dtype=np.int32), n_p))
+            continue
         half = 2.0 ** (-(l + 1))
         # float32 is exact here: (c + 0.5) * 2^-l is a dyadic rational
         scale_l = np.float32(2.0 ** (-l))
@@ -166,6 +273,8 @@ def build_svo(scene, depth: int) -> SVO:
     px = (cc[:, 0].astype(np.float32) + np.float32(0.5)) * fin32
     py = (cc[:, 1].astype(np.float32) + np.float32(0.5)) * fin32
     pz = (cc[:, 2].astype(np.float32) + np.float32(0.5)) * fin32
+    if f_finest is None:  # prune=False evaluated no level yet
+        f_finest = np.asarray(scene(px, py, pz), np.float32)
     solid = f_finest <= 0.0
     # six-neighbour air probe at one voxel size, for solid voxels only, in
     # one batched scene call
@@ -258,6 +367,11 @@ def build_svo(scene, depth: int) -> SVO:
     # ---- Leaf attributes -------------------------------------------------
     sl = survive[depth]
     lpx, lpy, lpz = px[sl], py[sl], pz[sl]
+    if attr_frame is not None:
+        scene, origin, size = attr_frame
+        lpx = lpx * np.float32(size) + np.float32(origin[0])
+        lpy = lpy * np.float32(size) + np.float32(origin[1])
+        lpz = lpz * np.float32(size) + np.float32(origin[2])
     albedo = default_albedo(lpx, lpy, lpz).astype(np.float32)
     normal = sampler_normal(scene, lpx, lpy, lpz).astype(np.float32)
     density = np.ones(n_leaves, np.float32)

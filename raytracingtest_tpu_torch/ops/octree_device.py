@@ -1,0 +1,297 @@
+"""The SVO builder on the card.
+
+Port of ``raytracingtest_tpu/ops/octree_device.py`` (K7): ``build_svo``'s
+frontier sweep with every phase on the device, driven level by level over
+the kernels of ``ops/octree_cuda.py`` (``csrc/svo_build.cu``):
+
+  A. expansion and Lipschitz pruning, a level at a time (``expand``, then
+     ``compact``), in chunks of ``CHUNK_PARENTS`` parents;
+  B. the exact leaf test at the finest level, with each leaf's attributes
+     (``leaves``, ``compact``);
+  C. upward pruning and the assembly of masks and pointers, bottom up
+     (``level_up``, ``count``, ``compact``; the concatenation in torch);
+  D. parent pointers (``parent_ptr``).
+
+Candidate buffers stay on the device; one scalar a compaction (its kept
+count, which sizes its output) crosses to the host. Every keep and leaf
+decision takes the host builder's float32 operations on the same dyadic
+inputs, and the scenes on the card give the host scenes' bits
+(``csrc/scene.cuh``), so the structure equals ``build_svo``'s bit for bit;
+normals too where the scene's bits agree, and the albedo within a few ULP
+(sinf).
+
+Buffers have exact sizes: the reference's power-of-two buckets (``_bucket``)
+serve XLA's compile cache, and with exact sizes its ``_compact_merged``
+has no padding to drop: the chunks' parts are concatenated. The device is
+the card unless the caller passes ``device="cpu"``, where every function
+takes its plain version.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from raytracingtest_tpu_torch._device import resolve
+from raytracingtest_tpu_torch.ops import octree_cuda
+from raytracingtest_tpu_torch.ops.morton import morton_decode
+from raytracingtest_tpu_torch.ops.octree import SVO, compute_parent_ptr
+
+_SQRT3 = float(np.sqrt(3.0))
+_I32 = torch.int32
+
+# Parents a chunk of the expansion: bounds the eightfold children's working
+# set (8 * CHUNK_PARENTS child records, 2^25 at most, so int32 indices hold)
+CHUNK_PARENTS = 1 << 22
+
+
+def keep_bounds(lipschitz: float, level: int, depth: int):
+    """(upper, lower) bounds of a level's keep test, ``lower <= f <=
+    upper``, as float32 values: the host builder compares a float32 f with
+    the float64 ``L*r + 1e-6`` and ``-(L*(r + 2*finest)) - 1e-6``, which numpy
+    rounds to float32 first."""
+    half = 2.0 ** (-(level + 1))
+    finest = 2.0 ** (-depth)
+    r = _SQRT3 * half
+    return (float(np.float32(lipschitz * r + 1e-6)),
+            float(np.float32(-(lipschitz * (r + 2.0 * finest)) - 1e-6)))
+
+
+def _offsets(counts):
+    """(exclusive scan of the blocks' counts, their total): the one scalar a
+    compaction brings to the host."""
+    inclusive = torch.cumsum(counts, 0, dtype=_I32)
+    total = int(inclusive[-1]) if inclusive.numel() else 0
+    return inclusive - counts, total
+
+
+def _expand_level(ds, records, level, depth, lipschitz):
+    """Expand and prune one level: (records (n, 4) of the kept children, their
+    parent indices, their child slots), parent-major."""
+    hi, lo = keep_bounds(lipschitz, level, depth)
+    n_p = records.shape[0]
+    parts = []
+    for c0 in range(0, max(n_p, 1), CHUNK_PARENTS):
+        rec, keep, counts = octree_cuda.expand(
+            ds, records[c0:c0 + CHUNK_PARENTS], level, hi, lo)
+        base, n = _offsets(counts)
+        rows, words = octree_cuda.compact(keep, base, n, rec)
+        del rec, keep
+        parts.append((words, (rows >> 3) + c0, rows & 7))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(col) for col in zip(*parts))
+
+
+def build_svo_device(scene, depth: int, verbose: bool = False,
+                     root_level: int = 0, root_coord=(0, 0, 0),
+                     device=None) -> SVO:
+    """Build a packed SVO of `scene` on `device` (None: the card); its
+    tensors stay there. The structure equals ``octree.build_svo(scene,
+    depth)``'s bit for bit.
+
+    `root_level`/`root_coord` build the subtree rooted at that world octant
+    (integer coordinates at `root_level`) down to world level `depth`; its
+    dyadic corner keeps every sample position the monolithic build's, so
+    octant builds merge into the monolithic structure
+    (``build_svo_device_split``). The result has depth ``depth -
+    root_level``; leaf attributes are evaluated at world coordinates.
+    `verbose` prints each level's candidates and seconds.
+    """
+    sub_depth = depth - root_level
+    if sub_depth < 1:
+        raise ValueError("depth must be >= root_level + 1")
+    device = resolve(device)
+    ds = octree_cuda.device_scene(scene, device)
+    lipschitz = float(scene.lipschitz)
+
+    # ---- phase A: the downward sweep; list index k is the sub level ------
+    records = torch.tensor([[*root_coord, 0]], dtype=_I32).to(device)
+    pars = [torch.zeros(1, dtype=_I32, device=device)]
+    slots = [torch.zeros(1, dtype=_I32, device=device)]
+    for k in range(1, sub_depth + 1):
+        t0 = time.perf_counter()
+        records, par, slot = _expand_level(ds, records, root_level + k, depth,
+                                           lipschitz)
+        pars.append(par)
+        slots.append(slot)
+        if verbose:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            print(f"# build level {root_level + k}: {par.shape[0]} candidates "
+                  f"({time.perf_counter() - t0:.4f}s)", flush=True)
+
+    # ---- phase B: the leaf test and the leaves' attributes ----------------
+    survive, attrs, counts = octree_cuda.leaves(ds, records, depth)
+    base, n_leaves = _offsets(counts)
+    below, leaf_attrs = octree_cuda.compact(survive, base, n_leaves,
+                                            attrs.view(_I32))
+    leaf_attrs = leaf_attrs.view(torch.float32)
+    del records, survive, attrs
+
+    # ---- phase C: upward pruning, bottom up -------------------------------
+    # nodes[k]: (count_k, 2) [valid mask, rank of the first surviving child
+    # at level k + 1] of level k's surviving candidates, in order
+    nodes = [None] * sub_depth
+    for k in range(sub_depth - 1, -1, -1):
+        rec, surv = octree_cuda.level_up(below, pars[k + 1], slots[k + 1],
+                                         pars[k].shape[0])
+        if k == 0:
+            surv[0] = 1  # the root survives, possibly empty
+        base, n = _offsets(octree_cuda.count(surv))
+        below, nodes[k] = octree_cuda.compact(surv, base, n, rec)
+    del pars, slots, below
+
+    level_start = np.zeros(sub_depth + 1, np.int64)
+    np.cumsum([v.shape[0] for v in nodes], out=level_start[1:])
+    masks, child_base, leaf_base = [], [], []
+    for k, node in enumerate(nodes):
+        vm, first = node[:, 0], node[:, 1]
+        none = first == octree_cuda.BIG
+        zeros = torch.zeros_like(vm)
+        if k == sub_depth - 1:  # every child a leaf
+            masks.append((vm << 8) | vm)
+            child_base.append(zeros)
+            leaf_base.append(first.masked_fill(none, 0))
+        else:
+            masks.append(vm << 8)
+            base_row = int(level_start[k + 1])
+            child_base.append(
+                (first.masked_fill(none, -base_row) + base_row))
+            leaf_base.append(zeros)
+    masks = torch.cat(masks)
+    child_base = torch.cat(child_base)
+
+    # ---- phase D: parent pointers -------------------------------------------
+    return SVO(
+        masks=masks, child_base=child_base, leaf_base=torch.cat(leaf_base),
+        leaf_albedo=leaf_attrs[:, :3].contiguous(),
+        leaf_normal=leaf_attrs[:, 3:].contiguous(),
+        leaf_density=torch.ones(n_leaves, dtype=torch.float32, device=device),
+        depth=sub_depth, level_start=tuple(int(v) for v in level_start),
+        parent_ptr=octree_cuda.parent_ptr(masks, child_base),
+    )
+
+
+def derive_parent_ptr_device(masks, child_base):
+    """Each node row's parent row, on the tensors' device: ``svo_parent_ptr``
+    on the card, ``octree.compute_parent_ptr`` on the CPU."""
+    return octree_cuda.parent_ptr(masks, child_base)
+
+
+def build_svo_device_split(scene, depth: int, split_level: int = 2,
+                           verbose: bool = False, device=None) -> SVO:
+    """``build_svo_device`` octant by octant: the world is split into
+    8^split_level octants, each built with ``build_svo_device(root_level=,
+    root_coord=)``, and the octants are merged on the host in numpy with
+    their pointers rebased. The result equals ``build_svo_device(scene,
+    depth)`` bit for bit (dyadic octant corners keep every sample position);
+    its tensors lie on `device`."""
+    if split_level < 1 or depth <= split_level:
+        raise ValueError("need 1 <= split_level < depth")
+    device = resolve(device)
+    n_oct = 8 ** split_level
+    sub_depth = depth - split_level
+
+    cx, cy, cz = morton_decode(np.arange(n_oct, dtype=np.uint32))
+    subs = {}
+    for o in range(n_oct):  # Morton order
+        sub = build_svo_device(scene, depth, verbose=verbose,
+                               root_level=split_level,
+                               root_coord=(int(cx[o]), int(cy[o]), int(cz[o])),
+                               device=device)
+        if sub.n_leaves > 0:
+            subs[o] = {name: getattr(sub, name).cpu().numpy()
+                       for name in ("masks", "child_base", "leaf_base",
+                                    "leaf_albedo", "leaf_normal")}
+            subs[o]["level_start"] = sub.level_start
+        if verbose:
+            print(f"# octant {o}: {sub.n_nodes} nodes {sub.n_leaves} leaves",
+                  flush=True)
+
+    # ---- top levels 0 .. split_level - 1 over the octants' occupancy ---------
+    occ = [None] * (split_level + 1)
+    occ[split_level] = np.zeros(n_oct, bool)
+    occ[split_level][list(subs)] = True
+    for t in range(split_level - 1, -1, -1):
+        occ[t] = occ[t + 1].reshape(-1, 8).any(axis=1)
+    counts_top = [int(occ[t].sum()) for t in range(split_level + 1)]
+    lvl_counts = counts_top[:split_level] + [
+        sum(s["level_start"][k + 1] - s["level_start"][k] for s in subs.values())
+        for k in range(sub_depth)]
+    level_start = np.zeros(depth + 1, np.int64)
+    np.cumsum(lvl_counts, out=level_start[1:])
+
+    top_masks, top_child = [], []
+    for t in range(split_level):
+        cells = np.flatnonzero(occ[t])
+        child_occ = occ[t + 1].reshape(-1, 8)
+        vm = np.packbits(child_occ[cells], axis=1, bitorder="little")[:, 0]
+        # children are packed parent-major at the next level: a prefix count
+        # over the occupied cells gives each cell's first child
+        child_prefix = np.concatenate(
+            [[0], np.cumsum(child_occ.sum(axis=1))])[cells]
+        top_masks.append(vm.astype(np.int32) << 8)
+        top_child.append((level_start[t + 1] + child_prefix).astype(np.int32))
+    n_top = sum(counts_top[:split_level])
+    if not subs:  # empty world: the root alone
+        top_masks = [np.zeros(1, np.int32)]
+        top_child = [np.zeros(1, np.int32)]
+        n_top = 1
+        level_start[:] = 0
+        level_start[1:] = 1
+
+    # ---- the octants' levels, pointers rebased ---------------------------------
+    order = sorted(subs)
+    leaf_prefix, lvl_prefix = {}, {k: {} for k in range(sub_depth)}
+    acc_leaf, acc_lvl = 0, [0] * sub_depth
+    for o in order:
+        s = subs[o]
+        leaf_prefix[o] = acc_leaf
+        acc_leaf += s["leaf_albedo"].shape[0]
+        for k in range(sub_depth):
+            lvl_prefix[k][o] = acc_lvl[k]
+            acc_lvl[k] += s["level_start"][k + 1] - s["level_start"][k]
+
+    masks_parts, child_parts = list(top_masks), list(top_child)
+    leaf_parts = [np.zeros(n_top, np.int32)]
+    for k in range(sub_depth):
+        for o in order:
+            s = subs[o]
+            lo, hi = s["level_start"][k], s["level_start"][k + 1]
+            m, cb, lb = (s[name][lo:hi] for name in
+                         ("masks", "child_base", "leaf_base"))
+            has_child = ((m >> 8) & ~m & 0xFF) != 0
+            if k < sub_depth - 1:
+                cb = np.where(has_child, cb - s["level_start"][k + 1]
+                              + level_start[split_level + k + 1]
+                              + lvl_prefix[k + 1][o], 0).astype(np.int32)
+            else:
+                cb = np.zeros_like(cb)
+            lb = np.where((m & 0xFF) != 0, lb + leaf_prefix[o],
+                          0).astype(np.int32)
+            masks_parts.append(m)
+            child_parts.append(cb)
+            leaf_parts.append(lb)
+    masks = np.concatenate(masks_parts).astype(np.int32)
+    child_base = np.concatenate(child_parts).astype(np.int32)
+    leaf_base = np.concatenate(leaf_parts).astype(np.int32)
+    if subs:
+        albedo = np.concatenate([subs[o]["leaf_albedo"] for o in order])
+        normal = np.concatenate([subs[o]["leaf_normal"] for o in order])
+    else:
+        albedo = np.zeros((0, 3), np.float32)
+        normal = np.zeros((0, 3), np.float32)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return SVO(
+        masks=t(masks), child_base=t(child_base), leaf_base=t(leaf_base),
+        leaf_albedo=t(albedo), leaf_normal=t(normal),
+        leaf_density=torch.ones(acc_leaf, dtype=torch.float32, device=device),
+        depth=depth, level_start=tuple(int(v) for v in level_start),
+        parent_ptr=t(compute_parent_ptr(masks, child_base)),
+    )

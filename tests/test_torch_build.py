@@ -63,16 +63,57 @@ def test_noise_numpy_path_matches_jax_bitwise():
     assert ours.tobytes() == np.asarray(ref, np.float32).tobytes()
 
 
-@pytest.mark.parametrize("name,depth", [
-    ("sphere", 5), ("terrain", 5), ("terrain", 6), ("flat_ground", 4),
-    ("rotated_cuboid", 5), ("dense_cube", 4), ("simplex", 5),
-    ("perlin", 5), ("perlin", 6), ("terrain_ref", 5), ("simplex_ref", 5),
-])
-def test_build_svo_matches_jax(name, depth):
-    ours = octree.build_svo(get_scene(name), depth)
-    ref = jax_octree.build_svo(jax_get_scene(name), depth).svo
+# a chunk of the world, as stream/clipmap's chunks are built: (origin, size)
+CHUNK = ((0.25, 0.0, 0.5), 0.5)
+
+
+def _chunk_scene(world, origin, size):
+    """The port's twin of stream/clipmap._chunk_scene: `world` restricted to
+    a chunk, in chunk-local [0,1]^3, its density rescaled by 1/size."""
+    from raytracingtest_tpu_torch.scenes import Scene
+    ox, oy, oz = (float(v) for v in origin)
+    s = float(size)
+
+    def fn(x, y, z):
+        return world.fn(np.asarray(x) * s + ox, np.asarray(y) * s + oy,
+                        np.asarray(z) * s + oz) / s
+
+    return Scene(f"{world.name}@{origin}/{size}", fn, world.lipschitz)
+
+
+BUILD_CASES = [
+    ("sphere", 5, {}), ("terrain", 5, {}), ("terrain", 6, {}),
+    ("flat_ground", 4, {}), ("rotated_cuboid", 5, {}), ("dense_cube", 4, {}),
+    ("simplex", 5, {}), ("perlin", 5, {}), ("perlin", 6, {}),
+    ("terrain_ref", 5, {}), ("simplex_ref", 5, {}),
+    ("sphere", 4, {"prune": False}), ("terrain", 5, {"attr_frame": CHUNK}),
+]
+
+
+@pytest.mark.parametrize(
+    "name,depth,options", BUILD_CASES,
+    ids=[f"{n}-{d}" + "".join(f"-{k}" for k in o) for n, d, o in BUILD_CASES])
+def test_build_svo_matches_jax(name, depth, options):
+    scene, ref_scene = get_scene(name), jax_get_scene(name)
+    ours_kw, ref_kw = dict(options), dict(options)
+    if "attr_frame" in options:
+        from raytracingtest_tpu.stream.clipmap import _chunk_scene as jax_chunk
+        origin, size = options["attr_frame"]
+        ours_kw["attr_frame"] = (scene, origin, size)
+        ref_kw["attr_frame"] = (ref_scene, origin, size)
+        scene = _chunk_scene(scene, origin, size)
+        ref_scene = jax_chunk(ref_scene, origin, size)
+    ours = octree.build_svo(scene, depth, **ours_kw)
+    ref = jax_octree.build_svo(ref_scene, depth, **ref_kw).svo
     assert ours.n_leaves > 0
     assert_svo_identical(ours, ref)
+    if options:
+        # the options change the result: prune=False keeps the same tree,
+        # attr_frame moves the attributes off the chunk-local ones
+        plain = octree.build_svo(scene, depth)
+        assert torch.equal(ours.masks, plain.masks)
+        moved = not torch.equal(ours.leaf_albedo, plain.leaf_albedo)
+        assert moved == ("attr_frame" in options)
 
 
 def test_build_svo_rejects_depth_zero():
@@ -168,7 +209,10 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.codecs",
     "raytracingtest_tpu_torch.ops.gather",
     "raytracingtest_tpu_torch.ops.lod",
+    "raytracingtest_tpu_torch.ops.morton",
     "raytracingtest_tpu_torch.ops.octree",
+    "raytracingtest_tpu_torch.ops.octree_cuda",
+    "raytracingtest_tpu_torch.ops.octree_device",
     "raytracingtest_tpu_torch.ops.rowread",
     "raytracingtest_tpu_torch.ops.shade_cuda",
     "raytracingtest_tpu_torch.ops.tile",
