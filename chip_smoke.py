@@ -94,8 +94,13 @@ the depth-10 tree (loaded from its npz under the JAX package's cache name) at
 equal pixel for pixel to the direct call's image, each branch launching its
 route's kernels and no plain version; `fit` (four 1024² views, four steps, a
 falling loss, a state file that reloads), `info`, `debug` (the probe's leaves
-against `trace_multi_cuda`'s, the overlay against the direct call's pixels) and
-`render` of the three noise scenes built at depth 8. `[build-device]` runs
+against `trace_multi_cuda`'s, the overlay against the direct call's pixels),
+`render` of the three noise scenes built at depth 8, `fly` on both paths and a
+scripted `probe`. `[fly]` streams the whole world at depth 10 and holds its
+1024² tile frame against the monolithic one, `tile_candidates_mapped`,
+`clipmap_trace` and `clipmap_trace_brick` against their plain versions on
+that world and on the first two-LOD frame of `cli fly`'s camera path, and
+times that path. `[build-device]` runs
 bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
 depth-10 tree on the card (kernels `svo_expand`, `svo_compact`, `svo_leaves`,
 `svo_level_up`, `svo_parent_ptr`, over the scene library `csrc/scene.cuh`),
@@ -133,7 +138,7 @@ from raytracingtest_tpu_torch import _build, cli, diff, render, viz
 from raytracingtest_tpu_torch.config import CameraConfig, RenderConfig
 from raytracingtest_tpu_torch.io import checkpoint, hdr
 from raytracingtest_tpu_torch.models import (
-    InverseRenderer, SurfaceRenderer, VolumetricRenderer)
+    InverseRenderer, StreamingRenderer, SurfaceRenderer, VolumetricRenderer)
 from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import (
     brick, brick_cuda, brick_dda, camera, codecs, gather, lod, octree,
@@ -141,6 +146,7 @@ from raytracingtest_tpu_torch.ops import (
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import SCENES, Scene, get_scene
+from raytracingtest_tpu_torch.stream import clipmap
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
 
@@ -196,14 +202,18 @@ OCTREE_PLAIN = ("expand_plain", "count_plain", "compact_plain", "leaves_plain",
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
                "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
                "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0,
+               "trace_clipmap_rounds": 0, "remap_ids": 0,
                **{name: 0 for name in OCTREE_PLAIN}}
 # the launch counts of the kernels this checkout adds to the earlier ones'
 MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0,
-                  esvo_stackless_lod=0, brick_trace_lod=0)
-# the compositing backward's, the LOD traces' and the SVO builder's plain
-# calls and launches that the training steps must not make
+                  esvo_stackless_lod=0, brick_trace_lod=0, clipmap_trace=0,
+                  clipmap_trace_brick=0)
+# the compositing backward's, the LOD traces', the SVO builder's and the
+# streamed world's plain calls and launches that the training steps must not
+# make
 STEP_ZERO = dict(trace_lod=0, trace_brick_lod=0, composite_bwd_plain=0,
-                 composite_bwd=0, **{name: 0 for name in OCTREE_PLAIN})
+                 composite_bwd=0, trace_clipmap_rounds=0, remap_ids=0,
+                 **{name: 0 for name in OCTREE_PLAIN})
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
 # the brick trace's other forms' and the probe forms'
@@ -337,6 +347,7 @@ def reset_counts():
         mod.launches = 0
     traverse_cuda.serial_launches = tile_cuda.serial_launches = 0
     tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
+    tile_cuda.candidates_mapped_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
     for counts in (gather.launches, shade_cuda.launches, octree_cuda.launches,
@@ -360,6 +371,8 @@ def count_plain_calls():
                            (traverse, "trace_lod", "trace_lod"),
                            (brick, "trace_brick_lod", "trace_brick_lod"),
                            (shade_cuda, "composite_bwd_plain", "composite_bwd_plain"),
+                           (clipmap, "trace_clipmap_rounds", "trace_clipmap_rounds"),
+                           (tile, "remap_ids", "remap_ids"),
                            *((octree_cuda, name, name) for name in OCTREE_PLAIN)):
         plain = getattr(mod, name)
 
@@ -552,6 +565,7 @@ def launch_counts():
     return dict(esvo_trace=traverse_cuda.launches, tile_walk=tile_cuda.launches,
                 tile_candidates=tile_cuda.candidates_launches,
                 tile_candidates_block=tile_cuda.candidates_block_launches,
+                tile_candidates_mapped=tile_cuda.candidates_mapped_launches,
                 esvo_trace_serial=traverse_cuda.serial_launches,
                 tile_walk_serial=tile_cuda.serial_launches,
                 brick_dda16=brick_dda.launches, rowread=rowread.launches,
@@ -931,6 +945,39 @@ def png_pixels(img):
 TILE_KERNELS = ("tile_candidates", "tile_walk", "esvo_trace")
 
 
+def fly_direct(path, dev, res, frames, hold):
+    """cli fly's kept frames at its defaults, by direct calls: the model
+    frame by frame (tile), or the stitched brick trace and shade_diff with
+    the command's running average (brick); as the strip's uint8 pixels."""
+    sr = StreamingRenderer(get_scene("terrain"), device=dev)
+    light = torch.tensor([-0.5, -1.0, -0.3], device=dev)
+    total, kept, acc, sample, last = frames + hold, [], None, 0, None
+    for f, (pos, look) in enumerate(fly_poses(frames, hold)):
+        sr.update(np.asarray(pos))
+        cam = camera.Camera(position=pos, look_at=look, fov_y_deg=55.0, width=res,
+                            height=res)
+        if path == "tile":
+            px, _un = sr.render(cam)
+        else:
+            if (pos, look) != last:
+                acc, sample, last = None, 0, (pos, look)
+            o, d = cam.rays(dev)
+            clip = sr.clipmap
+            trunk, roots, origins, sizes = clip.master_brick()
+            leaf, *_ = clipmap.trace_clipmap_device_brick(
+                trunk, tuple(clip.octree.root.position), clip.octree.root.size, roots,
+                origins, sizes, clip.chunk_depth, sr.device_bricks, o, d)
+            img = diff.shade_diff(leaf, d, sr.device_arena.leaf_albedo,
+                                  sr.device_arena.leaf_normal, sr.device_arena.leaf_density,
+                                  light, 1.3, 0.08).reshape(res, res, 3)
+            acc = img if sample == 0 else acc + (img - acc) / (sample + 1)
+            sample += 1
+            px = acc
+        if f % max(total // 8, 1) == 0 or f == total - 1:
+            kept.append(png_pixels(px))
+    return np.concatenate(kept, axis=1)
+
+
 def cli_phase(ctx, card, served):
     """[cli]: `python -m raytracingtest_tpu_torch.cli`'s commands through
     cli.main, in this process, on the card: `render` at depth 10 and 1024²
@@ -1135,8 +1182,600 @@ def cli_phase(ctx, card, served):
             f"({built.group(1)} nodes, {built.group(2)} leaves) in {build_s:.2f} s, "
             f"{wall:.2f} s of cli.main, launches {got}, sky on {sky.mean():.4f} of "
             f"the pixels")
+    # fly at its defaults on both paths, a few frames at res²; each strip
+    # against the direct calls' frames
+    fly_frames, fly_hold = 3, 2
+    n_fly = fly_frames + fly_hold
+    for path in ("tile", "brick"):
+        out_dir = os.path.join(cdir, f"fly_{path}")
+        # the default clipmap has two LODs: three phase-1 calls and three
+        # walks each, a frame
+        want = (dict(tile_candidates_mapped=6 * n_fly, tile_walk=6 * n_fly, shade_fwd=n_fly)
+                if path == "tile" else dict(clipmap_trace_brick=n_fly, shade_fwd=n_fly))
+        _out, err, got, wall, _load = command(
+            f"fly --path {path}", ["fly", "--resolution", str(res), "--frames",
+                                   str(fly_frames), "--hold-frames", str(fly_hold),
+                                   "--path", path, "--out-dir", out_dir], want)
+        strip = read_png(os.path.join(out_dir, "fly_strip.png"))
+        direct_strip = fly_direct(path, dev, res, fly_frames, fly_hold)
+        if strip.shape != direct_strip.shape or not np.array_equal(strip, direct_strip):
+            raise AssertionError(f"cli fly --path {path}: the strip differs from the "
+                                 f"direct calls' frames")
+        lines = re.findall(r"update +([\d.]+) ms .*?render +([\d.]+) ms", err)
+        say(f"[cli] {card}: fly --resolution {res} --path {path} at its defaults "
+            f"({fly_frames} frames, {fly_hold} at rest): {wall:.2f} s of cli.main, "
+            f"update / render ms a frame (host clock) "
+            + ", ".join(f"{u} / {r}" for u, r in lines)
+            + f", launches {got}, no plain call; the strip ({strip.shape[1] // res} "
+            f"frames) == the direct calls' pixels")
+
+    # probe, scripted, on the depth-10 tree
+    png = os.path.join(cdir, "probe.png")
+    script = (f"from 0.5 0.85 -0.6; to 0.5 0.4 1.1; insert 0.25 0.25 0.25 0.25; "
+              f"render {png}; quit")
+    out, _err, got_p, wall_p, load_p = command(
+        "probe", ["probe", "--scene", "terrain", "--depth", depth, "--level", "3",
+                  "--commands", script], dict(esvo_stackless_multi=3, esvo_stackless=1))
+    ray_o, ray_t = np.array([0.5, 0.85, -0.6]), np.array([0.5, 0.4, 1.1])
+    ray_d = (ray_t - ray_o) / np.linalg.norm(ray_t - ray_o)   # as the command's
+    probe = brick_cuda.trace_multi_cuda(
+        svo, torch.tensor(ray_o[None], dtype=torch.float32, device=dev),
+        torch.tensor(ray_d[None], dtype=torch.float32, device=dev), k=32)
+    count = int(probe.count[0])
+    got_leaves = [int(v) for v in re.findall(r"leaf +(\d+)", out.split("ray [0.5, 0.85, -0.6] -> [0.5, 0.4, 1.1]")[-1])]
+    if not count or got_leaves != probe.hit_leaf[0, :count].tolist():
+        raise AssertionError(f"cli probe: leaves {got_leaves}, trace_multi_cuda's "
+                             f"{probe.hit_leaf[0, :count].tolist()}")
+    pcam = camera.Camera(**bench_cam, width=512, height=512)
+    overlay = render.render_image(svo, pcam, device=dev).cpu().numpy().copy()
+    viz.draw_boxes(overlay, pcam, *viz.node_boxes(host_svo, 3), max_boxes=4096)
+    viz.draw_boxes(overlay, pcam, np.asarray([(0.25, 0.25, 0.25)], np.float32), 0.25,
+                   color=(1.0, 1.0, 0.2))
+    viz.draw_segment(overlay, pcam, np.asarray([0.5, 0.85, -0.6]), np.asarray([0.5, 0.4, 1.1]))
+    if not np.array_equal(read_png(png), (np.clip(overlay, 0, 1) * 255).astype(np.uint8)):
+        raise AssertionError("cli probe: the overlay PNG differs from the direct call's")
+    say(f"[cli] {card}: probe terrain depth {depth}, scripted (from, to, insert, "
+        f"render 512x512): {wall_p:.2f} s (load {load_p:.2f} s), launches {got_p}, "
+        f"the last probe's {count} leaves == trace_multi_cuda's, the overlay == the "
+        f"direct calls' pixels")
     cli._load_or_build = load_or_build
     return dict(launches=total, rows=rows, rays_line=rays_line)
+
+
+# ---- the streamed world (K8, K10) ---------------------------------------------
+
+# the whole world at the main path's resolution: chunks of 1/8 at depth 7, a
+# ring of radius 4 around the centre, one LOD: one stitched master of depth
+# 10 and top depth 7; and the fly configuration: the same chunks, radius 2,
+# two LODs (LOD 1 at depth 9, top depth 6)
+FLY_PARITY = dict(min_chunk_size=0.125, chunk_depth=7, radius=4, lods=1)
+FLY_TIMING = dict(min_chunk_size=0.125, chunk_depth=7, radius=2, lods=2)
+# cli fly's camera path: frames of motion, then frames at rest
+FLY_FRAMES, FLY_HOLD = 16, 4
+# the stitched traces' arenas: node rows, leaf rows (brick rows: half)
+FLY_ARENA = (2_000_000, 4_000_000)
+# the stitched traces' parity rays: bench.py's camera at 512²
+FLY_PARITY_RES = 512
+# operations of one round of the stitched trace besides its walks: the
+# advanced origin, the two local origins and the box's exit t
+OPS_CLIP_ROUND = 45
+
+
+def fly_poses(frames, hold):
+    """cli fly's camera path: (position, look_at) a frame."""
+    out = []
+    for f in range(frames + hold):
+        u = min(f, frames - 1) / max(frames - 1, 1)
+        out.append(((0.18 + 0.55 * u, 0.72, 0.12 + 0.2 * u),
+                    (0.5 + 0.3 * (u - 0.5), 0.3, 0.6)))
+    return out
+
+
+def arena_leaf_voxels(master, bricks):
+    """(arena leaf rows, their (n, 3) voxel coordinates in the master's
+    world grid): the stitched pyramid's finest cells in morton order are the
+    brickmap's bricks, and a brick's set bits in hierarchical-morton order
+    are its leaves, from its first leaf row on."""
+    td = master.top_depth
+    offs, _ = tile._pyr_layout(td)
+    pyr = master.pyr.cpu().numpy().view(np.uint32)[offs[td]:]
+    shifts = np.arange(32, dtype=np.uint32)
+    cells = np.flatnonzero(((pyr[:, None] >> shifts) & 1).reshape(-1))
+    rows = bricks[master.brickmap.cpu().numpy()[:cells.shape[0]]].view(np.uint32)
+    occ = ((rows[:, :16, None] >> shifts) & 1).reshape(-1, 512).astype(np.int64)
+    brick, bit = np.nonzero(occ)
+    rank = np.cumsum(occ, axis=1)[brick, bit] - 1
+    ids = rows[brick, 16].astype(np.int64) + rank
+    axis = lambda a: ((((bit >> (6 + a)) & 1) << 2) | (((bit >> (3 + a)) & 1) << 1)
+                      | ((bit >> a) & 1))
+    vox = np.stack([c[brick] * 8 + axis(a)
+                    for a, c in enumerate(tile.unmorton3(cells))], axis=1)
+    return ids, vox
+
+
+def voxel_keys(v):
+    v = np.asarray(v, np.int64)
+    return (v[:, 0] << 20) | (v[:, 1] << 10) | v[:, 2]
+
+
+def fly_world(scene, dev, **kw):
+    """A clipmap of `scene` with both arenas on the card."""
+    arena = clipmap.Arena(*FLY_ARENA)
+    barena = clipmap.BrickArena(FLY_ARENA[0], FLY_ARENA[1] // 2)
+    clip = clipmap.Clipmap(scene, arena, brick_arena=barena, **kw)
+    return clip, clipmap.DeviceArena(arena, dev), clipmap.DeviceBrickArena(barena, dev)
+
+
+def stitched_args(clip, dev, brick_arena):
+    """The stitched trace's tables from `clip` on `dev`: (trunk, origin,
+    size, roots, origins, sizes) for the node or the brick arena."""
+    trunk, roots, origins, sizes = clip.master_brick() if brick_arena else clip.master()
+    return (trunk.to(dev), tuple(float(v) for v in clip.octree.root.position),
+            float(clip.octree.root.size), roots.to(dev), origins.to(dev), sizes.to(dev))
+
+
+@contextlib.contextmanager
+def mapped_calls():
+    """The arguments of every brickmap-mode call of tile_cuda.candidates
+    made inside the block, in a list; the calls themselves go on."""
+    calls, kernel = [], tile_cuda.candidates
+
+    def recording(*args, **kw):
+        if kw.get("brickmap") is not None:
+            calls.append((args, kw))
+        return kernel(*args, **kw)
+    tile_cuda.candidates = recording
+    try:
+        yield calls
+    finally:
+        tile_cuda.candidates = kernel
+
+
+def check_mapped(calls, names, err):
+    """Each recorded brickmap-mode call again, held bitwise against
+    candidates_plain followed by remap_ids; its row (name, args, T, K, valid
+    candidates, bound)."""
+    rows = []
+    for (args, kw), cname in zip(calls, names, strict=True):
+        got_c = tile_cuda.candidates(*args, **kw)
+        plain = tile.candidates_plain(*args)
+        plain = (plain[0], tile.remap_ids(plain[1], kw["brickmap"]), plain[2], plain[3])
+        torch.cuda.synchronize()
+        err["tile_candidates_mapped"] = max(err["tile_candidates_mapped"], compare_tensors(
+            got_c, plain, CAND_NAMES, f"tile_candidates_mapped, {cname}"))
+        n_bytes, n_ops, _widths = candidate_work(args)
+        valid = int((got_c[1] >= 0).sum())
+        rows.append(dict(name=cname, args=args, kw=kw, T=args[2].shape[0], K=args[6],
+                         top_depth=args[4], valid=valid,
+                         bound=bound(n_bytes + valid * 4, n_ops)))
+    return rows
+
+
+def live_bytes(clip, brick_arena):
+    """Bytes of the node or the brick arena's rows in use in `clip`."""
+    used = lambda free, cap: cap - sum(n for _, n in free)
+    if brick_arena:
+        ba = clip.brick_arena
+        return (used(ba._free_top, ba.top_capacity) * 12
+                + used(ba._free_bricks, ba.brick_capacity) * 68)
+    return clip.arena.nodes_used * 16
+
+
+def clip_work(live, args, counts, n_rays):
+    """bound() of one stitched trace: bytes, the rays in and the results out,
+    the tables and the `live` bytes of arena rows in use; operations, this
+    run's steps and rounds as trace_clipmap_rounds counted them."""
+    n_bytes = n_rays * (24 + 13) + live + nbytes(*args[3:]) + 4 * nbytes(args[0].masks)
+    n_ops = (counts["steps"] * OPS_ESVO_STEP + counts["dda"] * OPS_DDA_STEP
+             + counts["walks"] * OPS_RAY_SETUP + counts["rounds"] * OPS_CLIP_ROUND)
+    return bound(n_bytes, n_ops)
+
+
+def graph_us(fn, calls=20, reps=5):
+    """Device microseconds of one fn() with no host time between launches:
+    `calls` calls captured into one CUDA graph, the graph replayed between
+    two CUDA events `reps` times; the median replay over `calls`."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / calls)
+    return float(np.median(times))
+
+
+def traced_us(fn, runs, key):
+    """torch.profiler's device microseconds a call of fn() in the kernels
+    whose names hold `key` (all their instantiations), and their launches a
+    call."""
+    rows = [e for e in traced_kernels(fn, runs) if key in e.key]
+    return sum(dev_us(e) for e in rows) / runs, sum(e.count for e in rows) / runs
+
+
+def snapshot(tree):
+    """A copy of an arena's SVO or BrickSVO on the card, which later syncs
+    leave as it is."""
+    return dataclasses.replace(tree, **{
+        f.name: getattr(tree, f.name).clone() for f in dataclasses.fields(tree)
+        if isinstance(getattr(tree, f.name), torch.Tensor)})
+
+
+def fly_k10(fk, kname):
+    """A stitched trace's numbers on the rays of the fly frame that [fly]
+    checks (the CUDA graph's time alone; the tracer drops these kernels'
+    launches), for its entry in the kernels line."""
+    w = fk["fly_work"][kname]
+    return dict(ms_fly_last_pose=med_p80(fk["kern_ms"][kname])[0],
+                fly_check_frame=fk["check_frame"], plain_ms_fly_check=w["plain_ms"],
+                bound_ms_fly_check=w["bound"][0], bound_by_fly_check=w["bound"][1],
+                us_alone_fly_check=w["us_alone"])
+
+
+def fly_phase(ctx, card):
+    """[fly]: the streamed world on the card. The whole world at the main
+    path's resolution (FLY_PARITY) streamed, stitched and traced at 1024²
+    through bench.py's camera against the monolithic depth-10 tile frame;
+    both stitched-trace kernels and the brickmap mode of phase 1 against
+    their plain versions; then cli fly's camera path at 1024² in the fly
+    configuration (FLY_TIMING), timed frame by frame; the first of its
+    frames that holds both LODs has its six phase-1 calls and both
+    stitched traces (two chunk sizes) held against their plain versions;
+    the brick path's frame and the monolithic frame at its last pose.
+    Returns the main path's launches and the kernels' numbers."""
+    dev, host_svo, host_ts, ts = ctx["dev"], ctx["host_svo"], ctx["host_ts"], ctx["ts"]
+    o_t, d_t, corners, grid = ctx["tile_rays"]
+    err, res, bench_cam = ctx["err"], ctx["res"], ctx["bench_cam"]
+    scene = get_scene("terrain")
+    budgets = {k: TILE_BUDGETS[k] for k in ("k_max", "fb_tiles", "fb_k", "fb2_tiles")}
+
+    # ---- the whole world, streamed ------------------------------------------
+    t0 = time.perf_counter()
+    clip, dev_a, dev_b = fly_world(scene, dev, **FLY_PARITY)
+    st = clip.update((0.5, 0.5, 0.5))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans = (dev_a.sync(), dev_b.sync())
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masters = [m.to(dev) for m in clip.master_tile()]
+    stitch_s = time.perf_counter() - t0
+    if len(masters) != 1 or (masters[0].depth, masters[0].top_depth) != (10, 7):
+        raise AssertionError(f"the parity world stitched {[(m.depth, m.top_depth) for m in masters]}")
+    n_leaves = sum(c.n_leaves for c in clip.resident.values())
+    arena_gb = (nbytes(*(getattr(dev_a, n) for n in dev_a.NAMES), dev_a.parent_ptr)
+                + nbytes(*(getattr(dev_b, n) for n in dev_b.NAMES))) / 1e9
+    say(f"[fly] {card}: the whole terrain world streamed at the main path's "
+        f"resolution ({FLY_PARITY}): {st['added']} chunks built on the host in "
+        f"{build_s:.2f} s ({clip.arena.nodes_used} node rows, {n_leaves} leaves, "
+        f"{sum(c.n_bricks for c in clip.resident.values())} bricks), spans "
+        f"{spans} copied to the card in {sync_s:.3f} s, stitched in {stitch_s:.3f} s: "
+        f"one master of depth 10, top depth 7 ({int((masters[0].brickmap >= 0).sum())} "
+        f"bricks in its brickmap); the arenas ({FLY_ARENA[0]} node rows, "
+        f"{FLY_ARENA[1]} leaf rows, {FLY_ARENA[1] // 2} brick rows) hold "
+        f"{arena_gb:.3f} GB on the card")
+
+    # the streamed frame through bench.py's camera, its phase-1 calls kept
+    with mapped_calls() as calls:
+        (leaf, t_w, un), got = expect_launches(
+            "the streamed tile frame", lambda: clipmap.trace_clipmap_tile(
+                masters, dev_b, o_t, d_t, corners, **budgets),
+            dict(tile_candidates_mapped=3, tile_walk=3))
+    mono, mono_un = tile.trace_tile_fb(ts, o_t, d_t, corners, **TILE_BUDGETS)
+    torch.cuda.synchronize()
+
+    # the brickmap mode against its plain version on the frame's three calls
+    mapped = check_mapped(calls, CAND_CALLS, err)
+    say("[fly] tile_candidates_mapped (the brickmap mode) == candidates_plain + "
+        "remap_ids bitwise (codes, ids, t_codes, drop_t bits) on the streamed "
+        "frame's three calls: " + ", ".join(
+            f"{r['name']} T={r['T']} K={r['K']} ({r['valid']} valid candidates)"
+            for r in mapped))
+    # the brickmap mode against the unmapped kernel on the same stitched
+    # pyramid (the same work, one more load a candidate): in turns through
+    # the wrapper, and the kernel alone, from a CUDA graph of 20 calls and
+    # from the tracer (every instantiation summed, with its launches)
+    main_c = mapped[0]
+    cand_fns = {"mapped": lambda: tile_cuda.candidates(*main_c["args"], **main_c["kw"]),
+                "unmapped": lambda: tile_cuda.candidates(*main_c["args"])}
+    cand_turns = in_turns(cand_fns, rounds=3, reps=20)
+    cand_alone = {name: graph_us(fn) for name, fn in cand_fns.items()}
+    cand_traced = {name: traced_us(fn, 20, "tile_candidates_kernel")
+                   for name, fn in cand_fns.items()}
+    say(f"[fly] {card}: tile_candidates_mapped against tile_candidates on the streamed "
+        f"frame's main call (T={main_c['T']}, K={main_c['K']}), in turns: "
+        + ", ".join(f"{k} {med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f}), "
+                    f"{cand_alone[k]:.2f} us alone in a CUDA graph, traced "
+                    f"{cand_traced[k][0]:.2f} us in {cand_traced[k][1]:.2f} launches a call"
+                    for k, v in cand_turns.items()))
+
+    # the streamed frame against the monolithic one: leaves through voxels
+    mono_vox = leaf_voxels(host_ts)
+    ids, vox = arena_leaf_voxels(masters[0], clip.brick_arena.bricks)
+    order = np.argsort(voxel_keys(mono_vox))
+    sorted_keys = voxel_keys(mono_vox)[order]
+    pos = np.searchsorted(sorted_keys, voxel_keys(vox))
+    if (ids.shape[0] != mono_vox.shape[0]
+            or not np.array_equal(sorted_keys[np.minimum(pos, len(order) - 1)], voxel_keys(vox))):
+        raise AssertionError(f"the streamed world holds {ids.shape[0]} leaves, the "
+                             f"monolithic tree {mono_vox.shape[0]}, or other voxels")
+    to_mono = np.full(FLY_ARENA[1], -1, np.int64)
+    to_mono[ids] = order[pos]
+    to_mono_t = torch.from_numpy(to_mono).to(dev)
+    streamed = torch.where(leaf >= 0, to_mono_t[leaf.clamp(min=0).long()], -1)
+    resolved = ~un & ~mono_un
+    differ = resolved & (streamed != mono.hit_leaf)
+    n_differ = int(differ.sum())
+    if int(un.sum()) or n_differ > MAX_DIFFER:
+        raise AssertionError(f"streamed frame: {int(un.sum())} residual rays, "
+                             f"{n_differ} parting from the monolithic frame")
+    o_f, d_f = o_t.reshape(-1, 3), d_t.reshape(-1, 3)
+    verdict = referee(mono_vox, 10, o_f[differ].cpu().numpy(), d_f[differ].cpu().numpy(),
+                      dict(streamed=streamed[differ].cpu().numpy(),
+                           mono=mono.hit_leaf[differ].cpu().numpy()))
+    if not verdict["streamed"].all():
+        raise AssertionError(f"streamed frame: wrong on {int((~verdict['streamed']).sum())} "
+                             f"of the {n_differ} rays where it parts from the monolithic frame")
+    hit = resolved & ~differ & (mono.hit_leaf >= 0)
+    t_apart = hit & (bits(t_w) != bits(mono.hit_t))
+    t_max = float((t_w[hit] - mono.hit_t[hit]).abs().max()) if bool(hit.any()) else 0.0
+    if int(t_apart.sum()) > MAX_DIFFER or t_max > HIT_T_ATOL:
+        raise AssertionError(f"streamed frame: hit_t differs on {int(t_apart.sum())} "
+                             f"rays, by up to {t_max}")
+    mono_rows = mono.hit_leaf[hit].long()
+    rows = leaf[hit].long()
+    attr = max(float((dev_a.leaf_albedo[rows] - ctx["svo"].leaf_albedo[mono_rows]).abs().max()),
+               float((dev_a.leaf_normal[rows] - ctx["svo"].leaf_normal[mono_rows]).abs().max()))
+    if attr > 1e-6:
+        raise AssertionError(f"streamed frame: albedo or normal rows differ by {attr}")
+    say(f"[fly] {card}: the streamed {res}x{res} frame through bench.py's camera "
+        f"(trace_clipmap_tile at bench.py's budgets; launches {got}, no plain call) "
+        f"against the monolithic depth-10 tile frame: {int(hit.sum())} same hits, "
+        f"{n_differ} rays part (the float64 referee: the streamed frame right on "
+        f"all, the monolithic on {int(verdict['mono'].sum())}), hit_t bits apart on "
+        f"{int(t_apart.sum())} hits (max abs {t_max}), albedo and normal rows "
+        f"through the arena within {attr} of the tree's, 0 residual rays")
+
+    # ---- the stitched traces against their plain versions --------------------
+    pcam = camera.Camera(**bench_cam, width=FLY_PARITY_RES, height=FLY_PARITY_RES)
+    po, pd = pcam.rays(dev)
+    work, k10 = {}, {}
+    for kname, brick_arena in (("clipmap_trace", False), ("clipmap_trace_brick", True)):
+        args = stitched_args(clip, dev, brick_arena)
+        tree = dev_b.tree(7) if brick_arena else dev_a.tree(7)
+        for cap in (0, 3):
+            n_max = clipmap.rounds_bound(args[0].depth, cap)
+            got_k = brick_cuda.clipmap_kernel(*args, tree, po, pd, 7, n_max)
+            counts = {}
+            t0 = time.perf_counter()
+            plain = clipmap.trace_clipmap_rounds(*args, tree, po, pd, n_max, counts)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            e = compare_tensors(got_k, plain, ("hit_leaf", "hit_t", "hit_chunk",
+                                               "truncated"), f"{kname} cap {cap}")
+            err[kname] = max(err[kname], e)
+            if cap == 0:
+                work[kname] = dict(
+                    counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
+                    hits=int((got_k[0] >= 0).sum()),
+                    bound=clip_work(live_bytes(clip, brick_arena), args, counts,
+                                    po.shape[0]),
+                    leaf=got_k[0], ms=cuda_ms(lambda: brick_cuda.clipmap_kernel(
+                        *args, tree, po, pd, 7, n_max), 20, 3))
+                if bool(got_k[3].any()):
+                    raise AssertionError(f"{kname}: rays truncated at the rounds' bound")
+            else:
+                k10[kname] = int(got_k[3].sum())
+    # the node arena's stackless walks and the brick arena's brick walks
+    # reach a voxel through other planes, and the stackless walk has its step
+    # bound (F18): rays where they part go to the referee
+    leaf_n, leaf_b = work["clipmap_trace"].pop("leaf"), work["clipmap_trace_brick"].pop("leaf")
+    apart = leaf_n != leaf_b
+    n_apart = int(apart.sum())
+    as_mono = lambda lf: torch.where(lf >= 0, to_mono_t[lf.clamp(min=0).long()], -1)
+    arenas_verdict = referee(mono_vox, 10, po[apart].cpu().numpy(), pd[apart].cpu().numpy(),
+                             dict(node=as_mono(leaf_n[apart]).cpu().numpy(),
+                                  brick=as_mono(leaf_b[apart]).cpu().numpy()))
+    if n_apart > MAX_DIFFER or not arenas_verdict["brick"].all():
+        raise AssertionError(f"the stitched traces through the two arenas part on "
+                             f"{n_apart} rays; the referee finds the brick arena's wrong "
+                             f"on {int((~arenas_verdict['brick']).sum())}")
+    say(f"[fly] clipmap_trace and clipmap_trace_brick == trace_clipmap_rounds "
+        f"bitwise (hit_leaf, hit_t bits, hit_chunk, truncated) on the "
+        f"{po.shape[0]} rays of bench.py's camera at {FLY_PARITY_RES}², at the "
+        f"rounds' bound ({work['clipmap_trace']['n_max']}; none truncated, "
+        f"{work['clipmap_trace']['hits']} hits; the two arenas' traces part on "
+        f"{n_apart} rays, on which the float64 referee finds the brick arena's "
+        f"right on all and the node arena's on {int(arenas_verdict['node'].sum())}) "
+        f"and capped at 3 rounds ({k10} rays truncated); the plain "
+        f"versions took {work['clipmap_trace']['plain_ms']:.1f} and "
+        f"{work['clipmap_trace_brick']['plain_ms']:.1f} ms, the kernels "
+        f"{med_p80(work['clipmap_trace']['ms'])[0]:.4f} and "
+        f"{med_p80(work['clipmap_trace_brick']['ms'])[0]:.4f} ms; work: "
+        + ", ".join(f"{k}: {w['counts']}" for k, w in work.items()))
+
+    # ---- the fly configuration along cli fly's camera path --------------------
+    del clip, dev_a, dev_b, masters
+    poses = fly_poses(FLY_FRAMES, FLY_HOLD)
+    sr = StreamingRenderer(scene, node_capacity=FLY_ARENA[0], leaf_capacity=FLY_ARENA[1],
+                           device=dev, **FLY_TIMING)
+    frames, check = [], None
+    reset_counts()
+    for f, (pos, look) in enumerate(poses):
+        t0 = time.perf_counter()
+        st = sr.update(np.asarray(pos))
+        upd = time.perf_counter() - t0
+        fcam = camera.Camera(position=pos, look_at=look, fov_y_deg=55.0, width=res,
+                             height=res)
+        # the first frame that holds chunks of both LODs (F20: a move of the
+        # fine ring drops the coarse one) keeps its phase-1 calls, its rays
+        # and a copy of its stitched tables for the checks below
+        both = check is None and len({c.size for c in sr.clipmap.resident.values()}) > 1
+        with mapped_calls() if both else contextlib.nullcontext() as calls:
+            t0 = time.perf_counter()
+            _acc, un_n = sr.render(fcam, fetch=False)
+            n_un = int(un_n)
+            ren = time.perf_counter() - t0
+        frames.append(dict(update_ms=upd * 1e3, render_ms=ren * 1e3, residual=n_un, **st))
+        if both:
+            check = dict(frame=f, calls=calls, rays=fcam.rays(dev), n_lods=len(sr._masters),
+                         tables={
+                             "clipmap_trace": (stitched_args(sr.clipmap, dev, False),
+                                               snapshot(sr.device_arena.tree(7)),
+                                               live_bytes(sr.clipmap, False)),
+                             "clipmap_trace_brick": (stitched_args(sr.clipmap, dev, True),
+                                                     snapshot(sr.device_bricks.tree(7)),
+                                                     live_bytes(sr.clipmap, True))})
+    if check is None:
+        raise AssertionError("[fly]: no frame of the camera path held chunks of both LODs")
+    fm = [(m.depth, m.top_depth) for m in sr.clipmap.master_tile()]
+    # the brick path's frame and the node arena's stitched trace at the last pose
+    lo, ld = fcam.rays(dev)
+    clip = sr.clipmap
+    bargs = stitched_args(clip, dev, True)
+    nargs = stitched_args(clip, dev, False)
+    light = ctx["light"]
+
+    def brick_frame():
+        leaf_b, *_ = clipmap.trace_clipmap_device_brick(*bargs, 7, sr.device_bricks,
+                                                        lo, ld)
+        return diff.shade_diff(leaf_b, ld, sr.device_arena.leaf_albedo,
+                               sr.device_arena.leaf_normal, sr.device_arena.leaf_density,
+                               light, 1.3, 0.08)
+
+    def node_frame():
+        leaf_n, *_ = clipmap.trace_clipmap_device(*nargs, 7, sr.device_arena, lo, ld)
+        return leaf_n
+    brick_frame(), node_frame()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    for k in ("tile_candidates_mapped", "tile_walk", "clipmap_trace", "clipmap_trace_brick"):
+        if not launches.get(k):
+            raise AssertionError(f"[fly]'s main path launched no {k}: {launches}")
+    if any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[fly]'s main path called plain versions: {PLAIN_CALLS}")
+
+    # the kernels of that frame against their plain versions: its phase-1
+    # calls (three a LOD, LOD 1 at top depth 6) and both stitched traces over
+    # its two-LOD trunk on its rays
+    fly_mapped = check_mapped(check["calls"], [f"LOD {i} {c}" for i in range(check["n_lods"])
+                                               for c in CAND_CALLS], err)
+    if not any(r["top_depth"] == 6 and r["valid"] for r in fly_mapped):
+        raise AssertionError(f"[fly]: frame {check['frame']}'s top-depth-6 calls hold no "
+                             f"candidate, so the check at that depth holds nothing")
+    co, cd = check["rays"]
+    fly_work = {}
+    for kname, (args, tree, live) in check["tables"].items():
+        n_max = clipmap.rounds_bound(args[0].depth)
+        got_k = brick_cuda.clipmap_kernel(*args, tree, co, cd, 7, n_max)
+        counts = {}
+        t0 = time.perf_counter()
+        plain = clipmap.trace_clipmap_rounds(*args, tree, co, cd, n_max, counts)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err[kname] = max(err[kname], compare_tensors(
+            got_k, plain, ("hit_leaf", "hit_t", "hit_chunk", "truncated"),
+            f"{kname}, fly frame {check['frame']}'s rays"))
+        fly_work[kname] = dict(
+            counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
+            hits=int((got_k[0] >= 0).sum()), truncated=int(got_k[3].sum()),
+            bound=clip_work(live, args, counts, co.shape[0]),
+            us_alone=graph_us(lambda: brick_cuda.clipmap_kernel(
+                *args, tree, co, cd, 7, n_max), calls=5),
+            traced=traced_us(lambda: brick_cuda.clipmap_kernel(
+                *args, tree, co, cd, 7, n_max), 5,
+                f"clipmap_trace_kernel<{str(kname.endswith('brick')).lower()}>"))
+    sizes = sorted(set(check["tables"]["clipmap_trace"][0][5].tolist()))
+    if len(sizes) < 2:
+        raise AssertionError(f"[fly]: frame {check['frame']}'s trunk holds chunks of sizes {sizes}")
+    say(f"[fly] fly frame {check['frame']} (the first with chunks of both LODs) == its "
+        f"plain versions bitwise: tile_candidates_mapped on its {len(fly_mapped)} phase-1 calls ("
+        + ", ".join(f"{r['name']} top depth {r['top_depth']} T={r['T']} K={r['K']} "
+                    f"({r['valid']} valid)" for r in fly_mapped)
+        + f"), and clipmap_trace, clipmap_trace_brick against trace_clipmap_rounds "
+        f"(hit_leaf, hit_t bits, hit_chunk, truncated) on its {co.shape[0]} rays over "
+        f"the two-LOD trunk (depth {check['tables']['clipmap_trace'][0][0].depth}, "
+        f"{len(check['tables']['clipmap_trace'][0][3])} chunks of sizes {sizes}): "
+        + "; ".join(f"{k}: {w['hits']} hits, {w['truncated']} truncated at "
+                    f"{w['n_max']} rounds, plain {w['plain_ms']:.1f} ms, kernel "
+                    f"{w['us_alone']:.2f} us alone in a CUDA graph (traced "
+                    f"{w['traced'][0]:.2f} us in {w['traced'][1]:.2f} launches), work "
+                    f"{w['counts']}" for k, w in fly_work.items()))
+
+    # timings at the last pose: the held frames, the brick path, the monolithic frame
+    def tile_frame():
+        return sr.render(fcam, fetch=False)[0]
+    mono_cam = camera.Camera(position=poses[-1][0], look_at=poses[-1][1], fov_y_deg=55.0,
+                             width=res, height=res)
+    mo, md, mc, _g = tile.tile_rays(mono_cam, dev)
+    params = (ctx["svo"].leaf_albedo, ctx["svo"].leaf_normal, ctx["svo"].leaf_density)
+    t = in_turns({
+        "streamed tile frame": tile_frame,
+        "brick path frame": brick_frame,
+        "monolithic tile frame": lambda: diff.render_diff_tile(
+            *params, ts, mo, md, mc, light, **TILE_BUDGETS),
+    }, rounds=3, reps=10)
+    prof = {}
+    for name, fn in (("streamed tile frame", tile_frame), ("brick path frame", brick_frame),
+                     ("monolithic tile frame", lambda: diff.render_diff_tile(
+                         *params, ts, mo, md, mc, light, **TILE_BUDGETS))):
+        rows = traced_kernels(fn, 10)
+        total = sum(dev_us(e) for e in rows) / 10
+        prof[name] = dict(us=total, n=sum(e.count for e in rows) / 10,
+                          by={e.key: dev_us(e) / 10 for e in rows},
+                          n_by={e.key: e.count / 10 for e in rows})
+    # each kernel alone at the last pose (the fly frame's mapped calls, the
+    # 1024² stitched traces) and its plain version
+    kern_ms = {
+        "clipmap_trace": cuda_ms(lambda: brick_cuda.clipmap_kernel(
+            *nargs, sr.device_arena.tree(7), lo, ld, 7,
+            clipmap.rounds_bound(nargs[0].depth)), 20, 3),
+        "clipmap_trace_brick": cuda_ms(lambda: brick_cuda.clipmap_kernel(
+            *bargs, sr.device_bricks.tree(7), lo, ld, 7,
+            clipmap.rounds_bound(bargs[0].depth)), 20, 3),
+    }
+    plain_ms = {}
+    for kname in ("clipmap_trace", "clipmap_trace_brick"):
+        plain_ms[kname] = work[kname]["plain_ms"]
+        kern_ms[kname + " parity rays"] = work[kname]["ms"]
+    kern_ms["tile_candidates_mapped"] = cand_turns["mapped"]
+    plain_ms["tile_candidates_mapped"] = float(np.median(cuda_ms(
+        lambda: tile.remap_ids(tile.candidates_plain(*main_c["args"])[1],
+                               main_c["kw"]["brickmap"]), 3, 1)))
+    held = [f["render_ms"] for f in frames[FLY_FRAMES:]]
+    moving = [f["render_ms"] for f in frames[1:FLY_FRAMES]]
+    say(f"[fly] {card}: cli fly's camera path at {res}x{res}, {FLY_TIMING} "
+        f"(LOD depth and top depth {fm}), {FLY_FRAMES} frames of motion "
+        f"and {FLY_HOLD} at rest: per frame update ms (host build, sync, stitch) "
+        + ", ".join(f"{f['update_ms']:.1f}" for f in frames)
+        + "; render ms (host clock, to the residual's read) "
+        + ", ".join(f"{f['render_ms']:.2f}" for f in frames)
+        + f"; chunks added {[f['added'] for f in frames]}, evicted "
+        f"{[f['evicted'] for f in frames]}, residual {[f['residual'] for f in frames]}; "
+        f"median render {np.median(held):.3f} ms at rest, {np.median(moving):.3f} ms "
+        f"in motion (the first stitches the pyramids); launches over the path and "
+        f"the two stitched frames {launches}")
+    for name, v in t.items():
+        p = prof[name]
+        idle = "not measured" if p["us"] <= 0 else f"{1 - p['us'] / 1e3 / med_p80(v)[0]:.2f}"
+        say(f"[fly] {card}: {name} at the last pose, in turns: median "
+            f"{med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f}), {p['us']:.1f} us of "
+            f"kernels in {p['n']:.1f} launches a frame (idle {idle}): "
+            + ", ".join(f"{k} {u:.1f}" for k, u in sorted(p["by"].items(), key=lambda x: -x[1])[:6]))
+    return dict(launches=launches, frames=frames, t=t, prof=prof, kern_ms=kern_ms,
+                plain_ms=plain_ms, work=work, mapped=mapped, k10=k10,
+                held_ms=float(np.median(held)), cand_turns=cand_turns,
+                cand_alone=cand_alone, fly_mapped=fly_mapped, fly_work=fly_work,
+                check_frame=check["frame"])
 
 
 def compare_lod(kern, plain, what):
@@ -1509,7 +2148,7 @@ def ptxas_report(log):
         if "Compiling entry function" in line:
             # the mangled name: its length, the name, and a template's
             # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
-            m = re.search(r"\d+((?:brick_trace|esvo_stackless)\w*?_kernel)"
+            m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace)\w*?_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", line)
             name, stores = None, 0
             if m:
@@ -2541,9 +3180,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 16:
+    if len(ptxas) != 18:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 16")
+                             f"expected 18")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -2552,7 +3191,8 @@ def main():
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
         "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
-        "kernels: registers, spill bytes, shared bytes; the staged form's "
+        "kernels, the stitched traces clipmap_trace_kernel<brick arena>: "
+        "registers, spill bytes, shared bytes; the staged form's "
         "slots are dynamic shared memory): "
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
         + f"; the main-path and first-form kernels other than the staged form "
@@ -2579,6 +3219,7 @@ def main():
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
+               tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
                **{k: 0.0 for k in BUILD_KERNELS})
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).to(dev)
@@ -3171,7 +3812,7 @@ def main():
     walks, cands = [], []
     walk_kernel, cand_kernel = tile_cuda.tile_walk, tile_cuda.candidates
     tile_cuda.tile_walk = lambda *args: walks.append(args) or walk_kernel(*args)
-    tile_cuda.candidates = lambda *args: cands.append(args) or cand_kernel(*args)
+    tile_cuda.candidates = lambda *args, **kw: cands.append(args) or cand_kernel(*args, **kw)
     try:
         tile.trace_tile_fb(ts, o_t, d_t, corners, **TILE_BUDGETS)
     finally:
@@ -3521,6 +4162,10 @@ def main():
                            d=d, res=res, bench_cam=bench_cam, cache=cache),
                       card, served)
     check_scene_builds(built, os.path.join(_build.BUILD_DIR, "cli"))
+    # ---- 7f. the streamed world ---------------------------------------------------
+    flown = fly_phase(dict(dev=dev, host_svo=host_svo, host_ts=host_ts, ts=ts, svo=svo,
+                           tile_rays=(o_t, d_t, corners, grid), err=err, res=res,
+                           bench_cam=bench_cam, light=light), card)
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -4459,6 +5104,48 @@ def main():
             bound_ms=built["bounds"][kname][0], bound_by=built["bounds"][kname][1],
             library_ms=built["ms"]["svo_compact_library"] if kname == "svo_compact" else None,
             us_alone_a_build=built["prof"]["us"][kname]))
+    fk = flown
+    streamed = fk["prof"]["streamed tile frame"]
+    brick_prof = fk["prof"]["brick path frame"]
+    # the tracer's device us a frame in every instantiation named `key`,
+    # and the launches of them it saw (it drops some: see [fly])
+    alone_us = lambda p, key: sum(v for k, v in p["by"].items() if key in k)
+    seen = lambda p, key: sum(v for k, v in p["n_by"].items() if key in k)
+    for kname, source, line, path, ms, bnd, extra in (
+            ("tile_candidates_mapped", "tile_candidates.cu", 579,
+             "StreamingRenderer.render / cli fly --path tile: trace_clipmap_tile's "
+             "three phase-1 calls a LOD",
+             fk["kern_ms"]["tile_candidates_mapped"], fk["mapped"][0]["bound"],
+             dict(shape=f"the streamed frame's main call, T={fk['mapped'][0]['T']} "
+                        f"K={fk['mapped'][0]['K']}",
+                  us_alone=fk["cand_alone"]["mapped"],
+                  ms_unmapped_in_turns=med_p80(fk["cand_turns"]["unmapped"])[0],
+                  us_alone_unmapped=fk["cand_alone"]["unmapped"],
+                  us_traced_a_fly_frame=alone_us(streamed, "tile_candidates_kernel"),
+                  launches_traced_a_fly_frame=seen(streamed, "tile_candidates_kernel"),
+                  fly_frame_calls=[dict(call=r["name"], top_depth=r["top_depth"], T=r["T"],
+                                        K=r["K"], valid=r["valid"], bound_ms=r["bound"][0],
+                                        bound_by=r["bound"][1])
+                                   for r in fk["fly_mapped"]])),
+            ("clipmap_trace", "brick_trace.cu", 879,
+             "stream.clipmap.trace_clipmap_device (the node arena)",
+             fk["kern_ms"]["clipmap_trace parity rays"], fk["work"]["clipmap_trace"]["bound"],
+             dict(shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
+                  **fly_k10(fk, "clipmap_trace"))),
+            ("clipmap_trace_brick", "brick_trace.cu", 965,
+             "cli fly --path brick: trace_clipmap_device_brick",
+             fk["kern_ms"]["clipmap_trace_brick parity rays"],
+             fk["work"]["clipmap_trace_brick"]["bound"],
+             dict(shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
+                  **fly_k10(fk, "clipmap_trace_brick"),
+                  us_traced_a_fly_frame=alone_us(brick_prof, "clipmap_trace_kernel"),
+                  launches_traced_a_fly_frame=seen(brick_prof, "clipmap_trace_kernel")))):
+        kernels.append(dict(
+            name=kname, route="cuda", source=src + source,
+            replaces=f"raytracingtest_tpu/stream/clipmap.py:{line}", path=path,
+            launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
+            ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
+            bound_by=bnd[1], library_ms=None, **extra))
     for row in kernels:
         row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]

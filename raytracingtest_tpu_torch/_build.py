@@ -21,7 +21,8 @@ Seven libraries, each built on first use into
                      (``composite_bwd``);
   * ``tile_candidates`` — ``csrc/tile_candidates.cu`` with nvcc for ``sm_90a``:
                      phase 1 of the tile trace, each tile's candidate list,
-                     and its first form;
+                     in its brickmap mode too (the streamed world), and its
+                     first form;
   * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
                      per-ray stackless trace and the per-ray brick trace
                      in its forms, each also with counters, their
@@ -30,7 +31,9 @@ Seven libraries, each built on first use into
                      its first form; each with counters too) for volumetric
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
-                     ``brick_trace_lod``);
+                     ``brick_trace_lod``), and the streamed world's
+                     stitched traces (``clipmap_trace``,
+                     ``clipmap_trace_brick``);
   * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
                      builder on the card (``svo_expand``, ``svo_compact``,
                      ``svo_leaves``, ``svo_level_up``, ``svo_parent_ptr``)
@@ -201,7 +204,10 @@ def _declare_candidates(lib):
     lib.tile_candidates.argtypes = [p, p, p, p, i, i, p, i, i, p, p, p, p, p]
     lib.tile_candidates_block.argtypes = [p, p, p, p, i, i, p, i, p, p, p, p,
                                           p]
-    for fn in (lib.tile_candidates, lib.tile_candidates_block):
+    lib.tile_candidates_mapped.argtypes = [p, p, p, p, p, i, i, p, i, i, p, p,
+                                           p, p, p]
+    for fn in (lib.tile_candidates, lib.tile_candidates_block,
+               lib.tile_candidates_mapped):
         fn.restype = i
 
 
@@ -220,6 +226,9 @@ def _declare_brick(lib):
     f = ctypes.c_float
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
+    for fn in (lib.clipmap_trace, lib.clipmap_trace_brick):
+        fn.argtypes = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 5
+        fn.restype = i
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,

@@ -1,4 +1,4 @@
-"""The command line: render / fit / info / debug.
+"""The command line: render / fit / fly / info / debug / probe.
 
 Port of ``raytracingtest_tpu/cli.py``, with the same subcommands, arguments
 and defaults, and one more global option, ``--device``: the card
@@ -12,13 +12,18 @@ and defaults, and one more global option, ``--device``: the card
   python -m raytracingtest_tpu_torch.cli info --scene sphere --depth 6
   python -m raytracingtest_tpu_torch.cli --device cpu debug --ray \\
       0.1 0.9 0.1 0.5 -0.7 0.5 --out boxes.png
+  python -m raytracingtest_tpu_torch.cli fly --resolution 1024 --path tile
+  python -m raytracingtest_tpu_torch.cli probe --commands \\
+      "from 0.5 0.95 0.5; to 0.5 0.05 0.5; render probe.png; quit"
 
 Builds are cached on disk by (scene, depth) under the JAX package's file
 names; builds are byte-identical in both packages, so one cache serves
 both. PNGs are written with the standard library (8-bit RGB), so rendering
 needs no imaging package; ``--skybox`` reads a Radiance ``.hdr`` or the
 procedural sky without one, and other image files through Pillow where it
-is installed. ``fly`` and ``probe`` are not ported yet.
+is installed. ``fly`` drives the streamed world (``models.StreamingRenderer``;
+``--path brick`` the per-ray stitched trace); ``probe`` is the headless
+probe session, its commands from stdin or ``--commands``.
 """
 
 from __future__ import annotations
@@ -253,6 +258,105 @@ def cmd_fit(args):
     print(f"saved {args.out_dir}/fit_state.npz", file=sys.stderr)
 
 
+def _fence(t):
+    """Wait for the frame `t` by reading one of its values."""
+    t.reshape(-1)[:1].cpu()
+
+
+def cmd_fly(args):
+    """The flythrough of the streamed world: a camera path drives the
+    StreamingRenderer, each frame a clipmap update, a span copy to the
+    device, the stitched pyramids and one tile frame with progressive
+    accumulation. While the camera rests, jittered frames accumulate;
+    motion resets the count. --path brick renders each frame with the
+    per-ray stitched trace (trace_clipmap_device_brick) instead."""
+    from raytracingtest_tpu_torch import diff
+    from raytracingtest_tpu_torch.models import StreamingRenderer
+    from raytracingtest_tpu_torch.ops.camera import Camera
+    from raytracingtest_tpu_torch.scenes import get_scene
+    from raytracingtest_tpu_torch.stream.clipmap import trace_clipmap_device_brick
+
+    device = args.device
+    sr = StreamingRenderer(
+        get_scene(args.scene), min_chunk_size=args.min_chunk,
+        radius=args.radius, lods=args.lods, chunk_depth=args.chunk_depth,
+        node_capacity=args.arena_nodes, leaf_capacity=args.arena_leaves,
+        device=device)
+    light = torch.tensor(_LIGHT, dtype=torch.float32, device=device)
+
+    frames = []
+    os.makedirs(args.out_dir, exist_ok=True)
+    res = args.resolution
+    stats_total = {"update_ms": 0.0, "render_ms": 0.0}
+    acc, sample, last_pose = None, 0, None
+    # a lateral sweep above the terrain looking ahead and down, then
+    # hold_frames at the last pose (the camera rests: accumulation)
+    total = args.frames + args.hold_frames
+    for f in range(total):
+        u = min(f, args.frames - 1) / max(args.frames - 1, 1)
+        pos = np.array([0.18 + 0.55 * u, 0.72, 0.12 + 0.2 * u])
+        look = np.array([0.5 + 0.3 * (u - 0.5), 0.3, 0.6])
+
+        t0 = time.time()
+        st = sr.update(pos)
+        t_update = time.time() - t0
+
+        cam = Camera(position=tuple(pos), look_at=tuple(look), fov_y_deg=55.0,
+                     width=res, height=res)
+        t0 = time.time()
+        keep = (f % max(total // 8, 1) == 0) or f == total - 1
+        if args.path == "tile":
+            if keep or args.save_frames:
+                px, n_un = sr.render(cam)
+            else:
+                _acc, un = sr.render(cam, fetch=False)
+                n_un = int(un)   # a scalar read: the frame is done
+                px = None
+            sample = sr.sample_count
+        else:
+            # the per-ray stitched trace through the brick arena
+            pose = (tuple(pos), tuple(look))
+            if pose != last_pose:
+                acc, sample, last_pose = None, 0, pose
+            o, d = cam.rays(device)
+            clip, devb = sr.clipmap, sr.device_bricks
+            trunk, roots, origins, sizes = clip.master_brick()
+            leaf, _t, _chunk, _trunc = trace_clipmap_device_brick(
+                trunk, tuple(clip.octree.root.position), clip.octree.root.size,
+                roots, origins, sizes, args.chunk_depth, devb, o, d)
+            img = diff.shade_diff(leaf, d, sr.device_arena.leaf_albedo,
+                                  sr.device_arena.leaf_normal,
+                                  sr.device_arena.leaf_density, light, 1.3, 0.08)
+            img = img.reshape(res, res, 3)
+            acc = img if sample == 0 else acc + (img - acc) / (sample + 1)
+            sample += 1
+            _fence(acc)
+            px, n_un = acc, 0
+        t_render = time.time() - t0
+
+        stats_total["update_ms"] += t_update * 1e3
+        stats_total["render_ms"] += t_render * 1e3
+        print(f"frame {f:3d}  update {t_update*1e3:7.1f} ms "
+              f"(+{st['added']}/-{st['evicted']} chunks, "
+              f"{st['resident']} resident, "
+              f"{st['node_spans']}+{st['brick_spans']} spans)  "
+              f"render {t_render*1e3:7.1f} ms  samples {sample}"
+              + (f"  residual {n_un}" if n_un else ""),
+              file=sys.stderr)
+        if px is not None:
+            px = px.reshape(res, res, 3).cpu().numpy()
+            if keep:
+                frames.append(px.copy())
+            if args.save_frames:
+                _save_png(px, os.path.join(args.out_dir, f"fly_{f:03d}.png"))
+
+    _save_png(np.concatenate(frames, axis=1),
+              os.path.join(args.out_dir, "fly_strip.png"))
+    print(f"avg/frame: update+sync+master {stats_total['update_ms']/total:.1f} "
+          f"ms  render {stats_total['render_ms']/total:.1f} ms",
+          file=sys.stderr)
+
+
 def cmd_info(args):
     svo = _load_or_build(args.scene, args.depth, args.cache_dir,
                          getattr(args, "load", ""))
@@ -290,6 +394,119 @@ def cmd_debug(args):
                        max_boxes=args.max_boxes)
         _save_png(img, args.out)
         print(f"wrote {args.out} ({len(origins)} level-{args.level} boxes)")
+
+
+def cmd_probe(args):
+    """The probe session, headless: a ray whose end points move re-probes
+    on each change, cubes insert into and delete from a chunk octree, and
+    a changed scene or depth rebuilds the tree and re-probes. Commands come
+    from stdin, or ';'-separated from --commands:
+
+      from X Y Z | to X Y Z   move a ray end point (re-probes)
+      scene NAME | depth N    rebuild the SVO (re-probes)
+      level N                 the node-box level of the overlay
+      render [PATH]           render + node boxes + the ray -> PNG
+      insert X Y Z S          insert a cube into the chunk octree
+      delete X Y Z S          remove it
+      boxes                   print the inserted cubes
+      probe                   print the current ray's leaf list again
+      quit
+    """
+    from raytracingtest_tpu_torch import viz
+    from raytracingtest_tpu_torch.ops.camera import Camera
+    from raytracingtest_tpu_torch.render import render_image
+    from raytracingtest_tpu_torch.stream.chunk_octree import ChunkOctree
+
+    state = {
+        "scene": args.scene, "depth": args.depth, "level": args.level,
+        "from": np.asarray([0.1, 0.9, 0.1], np.float64),
+        "to": np.asarray([0.9, 0.1, 0.9], np.float64),
+        "svo": None, "host_svo": None,
+    }
+    octree = ChunkOctree(origin=(0.0, 0.0, 0.0), size=1.0)
+    boxes = {}
+
+    def rebuild():
+        state["host_svo"] = _load_or_build(state["scene"], state["depth"],
+                                           args.cache_dir)
+        state["svo"] = state["host_svo"].to(args.device)
+        print(f"svo: {state['scene']} depth={state['depth']} "
+              f"{state['svo'].n_nodes} nodes")
+
+    def probe():
+        d = state["to"] - state["from"]
+        n = np.linalg.norm(d)
+        if n < 1e-12:
+            print("(degenerate ray)")
+            return
+        entries = viz.ray_probe(state["svo"], state["from"], d / n,
+                                max_hits=args.max_hits)
+        print(f"ray {state['from'].tolist()} -> {state['to'].tolist()}")
+        print(viz.format_probe(entries))
+
+    def render(path):
+        cam = Camera(position=tuple(args.camera_position),
+                     look_at=tuple(args.look_at), fov_y_deg=args.fov,
+                     width=args.width, height=args.height)
+        img = render_image(state["svo"], cam, device=args.device).cpu().numpy().copy()
+        origins, size = viz.node_boxes(state["host_svo"], state["level"])
+        viz.draw_boxes(img, cam, origins, size, max_boxes=args.max_boxes)
+        for pos, s in boxes.values():
+            viz.draw_boxes(img, cam, np.asarray([pos], np.float32), float(s),
+                           color=(1.0, 1.0, 0.2))
+        viz.draw_segment(img, cam, state["from"], state["to"])
+        _save_png(img, path)
+
+    rebuild()
+    probe()
+    if args.commands:
+        lines = [c.strip() for c in args.commands.split(";") if c.strip()]
+    else:
+        print("probe> reading commands from stdin (see --help)", file=sys.stderr)
+        lines = (ln.strip() for ln in sys.stdin)
+    for line in lines:
+        if not line or line.startswith("#"):
+            continue
+        cmd, *rest = line.split()
+        try:
+            if cmd == "quit":
+                break
+            elif cmd in ("from", "to"):
+                state[cmd] = np.asarray([float(v) for v in rest[:3]])
+                probe()
+            elif cmd == "scene":
+                state["scene"] = rest[0]
+                rebuild()
+                probe()
+            elif cmd == "depth":
+                state["depth"] = int(rest[0])
+                rebuild()
+                probe()
+            elif cmd == "level":
+                state["level"] = int(rest[0])
+                print(f"level {state['level']}")
+            elif cmd == "render":
+                render(rest[0] if rest else (args.out or "probe.png"))
+            elif cmd == "insert":
+                x, y, z, s = (float(v) for v in rest[:4])
+                octree.add_chunk((x, y, z), s, chunk=(x, y, z, s))
+                boxes[(x, y, z, s)] = ((x, y, z), s)
+                print(f"inserted ({x},{y},{z}) size {s}; {len(boxes)} cubes")
+            elif cmd == "delete":
+                x, y, z, s = (float(v) for v in rest[:4])
+                ok = octree.remove_chunk((x, y, z), s)
+                boxes.pop((x, y, z, s), None)
+                print("removed" if ok else "not found")
+            elif cmd == "boxes":
+                for pos, s in boxes.values():
+                    print(f"cube at {pos} size {s}")
+                print(f"octree root size {octree.root.size}")
+            elif cmd == "probe":
+                probe()
+            else:
+                print(f"? unknown command {cmd!r}")
+        except (ValueError, IndexError) as e:
+            print(f"! {e}")
 
 
 def main(argv=None):
@@ -346,6 +563,29 @@ def main(argv=None):
                     default=os.path.join(tempfile.gettempdir(), "rtt_fit"))
     pf.set_defaults(fn=cmd_fit)
 
+    pfly = sub.add_parser("fly", help="flythrough: streaming clipmap world "
+                          "rendered per frame (Main scene)")
+    pfly.add_argument("--scene", default="terrain")
+    pfly.add_argument("--frames", type=int, default=16)
+    pfly.add_argument("--resolution", type=int, default=256)
+    pfly.add_argument("--min-chunk", type=float, default=0.25)
+    pfly.add_argument("--radius", type=int, default=2)
+    pfly.add_argument("--lods", type=int, default=2)
+    pfly.add_argument("--chunk-depth", type=int, default=5)
+    pfly.add_argument("--arena-nodes", type=int, default=2_000_000)
+    pfly.add_argument("--arena-leaves", type=int, default=4_000_000)
+    pfly.add_argument("--save-frames", action="store_true")
+    pfly.add_argument("--out-dir",
+                      default=os.path.join(tempfile.gettempdir(), "rtt_fly"))
+    pfly.add_argument("--path", choices=["tile", "brick"], default="tile",
+                      help="tile = the stitched pyramids through the tile "
+                      "trace (default); brick = the per-ray two-phase "
+                      "stitched trace")
+    pfly.add_argument("--hold-frames", type=int, default=4,
+                      help="extra frames at the last pose: the camera rests, "
+                      "so jittered samples accumulate")
+    pfly.set_defaults(fn=cmd_fly)
+
     pi = sub.add_parser("info", help="print SVO statistics")
     pi.add_argument("--load", default="",
                     help="inspect a saved SVO checkpoint (.npz)")
@@ -370,6 +610,25 @@ def main(argv=None):
     pd.add_argument("--look-at", type=float, nargs=3, default=[0.5, 0.4, 0.5])
     pd.add_argument("--out", default="")
     pd.set_defaults(fn=cmd_debug)
+
+    pp = sub.add_parser("probe", help="interactive probe session (draggable "
+                        "ray + live chunk-octree insert/delete, headless)")
+    pp.add_argument("--scene", default="sphere")
+    pp.add_argument("--depth", type=int, default=5)
+    pp.add_argument("--level", type=int, default=3)
+    pp.add_argument("--max-hits", type=int, default=32)
+    pp.add_argument("--max-boxes", type=int, default=4096)
+    pp.add_argument("--width", type=int, default=512)
+    pp.add_argument("--height", type=int, default=512)
+    pp.add_argument("--fov", type=float, default=50.0)
+    pp.add_argument("--camera-position", type=float, nargs=3,
+                    default=[0.5, 0.85, -0.6])
+    pp.add_argument("--look-at", type=float, nargs=3, default=[0.5, 0.4, 0.5])
+    pp.add_argument("--out", default="")
+    pp.add_argument("--commands", default="",
+                    help="';'-separated commands (scripted mode); omit to "
+                    "read stdin")
+    pp.set_defaults(fn=cmd_probe)
 
     args = p.parse_args(argv)
     try:

@@ -205,16 +205,17 @@ struct Walk {
   bool popped;   // climbed on the last step: may not re-enter the child
 };
 
-// Mirroring, root-cube entry and the root's first child; returns whether
+// Mirroring, root-cube entry and the first child of a ray whose origin and
+// direction are in registers, starting at node row `root`; returns whether
 // the ray misses the root cube.
-__device__ __forceinline__ bool setup(const float* __restrict__ origin,
-                                      const float* __restrict__ direction,
-                                      int i, Ray& r, Walk& w) {
+__device__ __forceinline__ bool setup_at(const float* __restrict__ o,
+                                         const float* __restrict__ d, int root,
+                                         Ray& r, Walk& w) {
   const float eps = 1.0f / 8388608.0f;  // 2^-S_MAX
   r.om = 7;
   for (int c = 0; c < 3; ++c) {
-    const float oc = origin[(size_t)3 * i + c] + 1.0f;
-    float dc = direction[(size_t)3 * i + c];
+    const float oc = o[c] + 1.0f;
+    float dc = d[c];
     if (fabsf(dc) < eps) dc = dc >= 0.0f ? eps : -eps;
     r.t_coef[c] = -1.0f / fabsf(dc);
     r.t_bias[c] = r.t_coef[c] * oc;
@@ -235,11 +236,18 @@ __device__ __forceinline__ bool setup(const float* __restrict__ origin,
     w.pos[c] = upper ? 1.5f : 1.0f;
     if (upper) w.idx |= 1 << c;
   }
-  w.parent = 0;
+  w.parent = root;
   w.scale = S_MAX - 1;
   w.t_min = t_min;
   w.popped = false;
   return t_min >= r.t_root;
+}
+
+// setup_at for ray i of the arrays, from the root row.
+__device__ __forceinline__ bool setup(const float* __restrict__ origin,
+                                      const float* __restrict__ direction,
+                                      int i, Ray& r, Walk& w) {
+  return setup_at(origin + (size_t)3 * i, direction + (size_t)3 * i, 0, r, w);
 }
 
 // A leaf segment that a step in collect mode records: the parent row of the
@@ -1117,6 +1125,183 @@ brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
   probe.finish(probe_out);
 }
 
+// ---- the streamed world: clipmap_trace, clipmap_trace_brick -----------------
+//
+// The two-phase stitched traversal of a clipmap (raytracingtest_tpu/stream/
+// clipmap.py::_trace_clipmap_jax :879 and _trace_clipmap_brick_jax :965), one
+// thread a ray that runs the rounds itself. A round: o_cur = o + t_off * d;
+// the trunk's stackless walk from (o_cur - org) / size finds the next chunk
+// (a trunk leaf) or ends the ray; the chunk's walk from its root row in the
+// arena, from (o_cur - c_org) / c_size, either hits (hit_t = t_off + t *
+// c_size) or the ray moves past the chunk's box: t_off = t_off + t_exit +
+// 1e-5. At most n_max rounds; a ray still walking after them is truncated.
+// The reference runs the rounds for the batch, but a finished ray changes
+// nothing in a later round, so a ray's own loop gives its bits. Each walk
+// keeps its own bound (esvo_stackless's, or brick_trace's). Arithmetic is in
+// the reference's order, each product rounded on its own (--fmad=false),
+// divisions IEEE.
+
+// The stackless walk of one ray over `tree` from row `root` (stackless_ray
+// without its outputs): the hit's leaf row, or -1; its t in t_hit.
+__device__ __forceinline__ int stackless_walk_from(const Tree& tree,
+                                                   const float o[3],
+                                                   const float d[3], int root,
+                                                   float& t_hit) {
+  Ray r;
+  Walk w;
+  bool done = setup_at(o, d, root, r, w);
+  const int n_max = max_iters_for_depth(tree.depth);
+  int leaf = -1, it = 0;
+  float ht = 0.0f;
+  while (!done && it < n_max) {
+    ++it;
+    int child_shift, leaf_rank;
+    const int what = stackless_step(r, w, tree.masks, tree.child,
+                                    tree.parent_ptr, child_shift, leaf_rank);
+    if (what == STEP_LEAF) {
+      ht = w.t_min;
+      leaf = __ldg(tree.leaf_base + w.parent) + leaf_rank;
+    }
+    done = what != STEP_ON;
+  }
+  t_hit = ht;
+  return leaf;
+}
+
+// The brick trace of one ray over the top tree `tree` from top row `root`
+// (brick_ray's first form, rows read as the DDA needs them, without its
+// outputs): the hit's leaf, or -1; its t in t_hit.
+__device__ __forceinline__ int brick_walk_from(const Tree& tree,
+                                               const float o[3],
+                                               const float d[3], int root,
+                                               float& t_hit) {
+  Ray r;
+  Walk w;
+  bool done = setup_at(o, d, root, r, w);
+  const int depth = tree.depth, top_depth = tree.top_depth;
+  const int n_top = max_iters_for_depth(top_depth);
+  const int n_rounds = 16 * depth + 64;
+  const int vshift = S_MAX - depth;
+  const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
+  const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
+  int flip[3];
+  for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
+  int leaf = -1, rounds = 0;
+  float ht = 0.0f;
+  while (!done && rounds < n_rounds) {
+    ++rounds;
+    int what = STEP_ON, child_shift = 0, leaf_rank = 0;
+    for (int top = 0; top < n_top && what == STEP_ON; ++top)
+      what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                            child_shift, leaf_rank);
+    if (what == STEP_EXIT) break;
+    if (what == STEP_ON) continue;  // the round's step cap
+    const int* row = tree.bricks +
+                     (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
+    auto word = [row](int k) -> int { return __ldg(row + k); };
+    float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
+    float t_cur = w.t_min;
+    rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+    for (int steps = 0; steps < DDA_ROUND_STEPS;) {
+      ++steps;
+      int idx9;
+      const int step = rtt_dda::dda_step(
+          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
+          [&word](int k) { return (uint32_t)word(k); }, idx9);
+      if (step == rtt_dda::DDA_HIT) {
+        leaf = rtt_dda::leaf_of(word, idx9);
+        ht = t_cur;
+        done = true;
+      }
+      if (step == rtt_dda::DDA_EXIT) w.popped = true;
+      if (step != rtt_dda::DDA_STAY) break;
+    }
+    w.t_min = t_cur;
+  }
+  t_hit = ht;
+  return leaf;
+}
+
+// The clipmap's tables: each chunk's root row in the arena, its world
+// corner (3 floats) and size; the trunk's world corner and size; the rounds'
+// bound.
+struct Clip {
+  const int* roots;
+  const float* origins;
+  const float* sizes;
+  float org[3];
+  float size;
+  int n_max;
+};
+struct ClipOut {
+  int* hit_leaf;
+  float* hit_t;
+  int* hit_chunk;
+  unsigned char* truncated;
+};
+
+// One thread a ray: the rounds. BRICK: the chunk's walk is the brick trace
+// through the brick arena (chunks: its top tree and bricks), else the
+// stackless walk through the node arena.
+template <bool BRICK>
+__global__ void __launch_bounds__(BLOCK)
+clipmap_trace_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                     ClipOut out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = rays.origin[(size_t)3 * i + c];
+    d[c] = rays.direction[(size_t)3 * i + c];
+  }
+  float t_off = 0.0f, hit_t = 0.0f;
+  int hit_leaf = -1, hit_chunk = -1;
+  bool done = false;
+  for (int round = 0; round < clip.n_max && !done; ++round) {
+    float o_cur[3], o_trunk[3];
+    for (int c = 0; c < 3; ++c) {
+      o_cur[c] = o[c] + t_off * d[c];
+      o_trunk[c] = (o_cur[c] - clip.org[c]) / clip.size;
+    }
+    float t_unused;
+    const int cid = stackless_walk_from(trunk, o_trunk, d, 0, t_unused);
+    if (cid < 0) {  // the trunk misses: the ray ends
+      done = true;
+      break;
+    }
+    const float c_size = __ldg(clip.sizes + cid);
+    float c_org[3], o_loc[3];
+    for (int c = 0; c < 3; ++c) {
+      c_org[c] = __ldg(clip.origins + (size_t)3 * cid + c);
+      o_loc[c] = (o_cur[c] - c_org[c]) / c_size;
+    }
+    const int root = __ldg(clip.roots + cid);
+    float t2;
+    const int leaf = BRICK ? brick_walk_from(chunks, o_loc, d, root, t2)
+                           : stackless_walk_from(chunks, o_loc, d, root, t2);
+    if (leaf >= 0) {
+      hit_leaf = leaf;
+      hit_t = t_off + t2 * c_size;
+      hit_chunk = cid;
+      done = true;
+      break;
+    }
+    // past the chunk's box: the least far-plane t over the axes
+    float t_exit = INFINITY;
+    for (int c = 0; c < 3; ++c) {
+      const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
+      const float t0 = (c_org[c] - o_cur[c]) / sd;
+      const float t1 = (c_org[c] + c_size - o_cur[c]) / sd;
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
+    t_off = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
+  }
+  out.hit_leaf[i] = hit_leaf;
+  out.hit_t[i] = hit_t;
+  out.hit_chunk[i] = hit_chunk;
+  out.truncated[i] = done ? 0 : 1;
+}
+
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
 
 Out outputs(void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
@@ -1478,4 +1663,72 @@ extern "C" int brick_trace_multi_probe(
       depth, top_depth,
       multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), probe,
       stream);
+}
+
+// The stitched trace of the streamed world (see clipmap_trace_kernel): the
+// trunk (masks, child_base, parent_ptr, leaf_base; trunk_depth), the chunk
+// tables (roots, origins (C, 3), sizes), the trunk's world corner and size,
+// the node arena (masks, child_base, parent_ptr, leaf_base; chunk_depth)
+// and n_max rounds; (n,) hit_leaf, hit_t, hit_chunk and truncated (bytes).
+extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
+                             const void* trunk_parent, const void* trunk_leaf,
+                             const void* roots, const void* origins,
+                             const void* sizes, float org_x, float org_y,
+                             float org_z, float size, const void* masks,
+                             const void* child_base, const void* parent_ptr,
+                             const void* leaf_base, const void* origin,
+                             const void* direction, int n, int trunk_depth,
+                             int chunk_depth, int n_max, void* hit_leaf,
+                             void* hit_t, void* hit_chunk, void* truncated,
+                             void* stream) {
+  if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 1 ||
+      chunk_depth > S_MAX - 1 || n_max < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
+                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
+                     trunk_depth, 0};
+    const Tree chunks{(const int*)masks, (const int*)child_base,
+                      (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                      chunk_depth, 0};
+    const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
+                    {org_x, org_y, org_z}, size, n_max};
+    clipmap_trace_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0,
+                                  (cudaStream_t)stream>>>(
+        trunk, chunks, clip, Rays{(const float*)origin, (const float*)direction, n},
+        ClipOut{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
+                (unsigned char*)truncated});
+  }
+  return (int)cudaGetLastError();
+}
+
+// The same with the chunk's walk through the brick arena (top_masks,
+// top_child, top_parent, bricks; chunk_depth, top depth chunk_depth - 3).
+extern "C" int clipmap_trace_brick(
+    const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
+    const void* trunk_leaf, const void* roots, const void* origins,
+    const void* sizes, float org_x, float org_y, float org_z, float size,
+    const void* top_masks, const void* top_child, const void* top_parent,
+    const void* bricks, const void* origin, const void* direction, int n,
+    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
+    void* hit_chunk, void* truncated, void* stream) {
+  if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 4 ||
+      chunk_depth > S_MAX - 1 || n_max < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
+                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
+                     trunk_depth, 0};
+    const Tree chunks{(const int*)top_masks, (const int*)top_child,
+                      (const int*)top_parent, nullptr, (const int*)bricks,
+                      chunk_depth, chunk_depth - 3};
+    const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
+                    {org_x, org_y, org_z}, size, n_max};
+    clipmap_trace_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0,
+                                 (cudaStream_t)stream>>>(
+        trunk, chunks, clip, Rays{(const float*)origin, (const float*)direction, n},
+        ClipOut{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
+                (unsigned char*)truncated});
+  }
+  return (int)cudaGetLastError();
 }

@@ -17,6 +17,15 @@
 //                    tile that sorts each level's keys, padded with the
 //                    sentinel, in full. Kept as the new form's check and
 //                    yardstick; nothing on the main path launches it.
+//   tile_candidates_mapped  tile_candidates in the brickmap mode, for the
+//                    streamed world (raytracingtest_tpu/stream/clipmap.py::
+//                    _trace_clipmap_tile :579 and _render_clipmap_tile :639,
+//                    through ops/tile.py::_trace_tile_fb :1073 with
+//                    brickmap=, the remap at :880-882 and :1102-1108): a
+//                    stitched pyramid's morton rank indexes `brickmap`, whose
+//                    entry is the brick's row in the arena. The mode is a
+//                    template flag (MAPPED) and `brickmap` the kernel's last
+//                    parameter, so the unmapped instantiation keeps its code.
 //
 // Semantics follow the plain PyTorch version bit for bit
 // (raytracingtest_tpu_torch/ops/tile.py::candidates_plain):
@@ -206,11 +215,14 @@ __device__ __forceinline__ int child_key(const Frustum& f, const Level& v,
   return (q << v.code_bits) | (int)child;
 }
 
-// One entry of a tile's output row from a finest-level key.
+// One entry of a tile's output row from a finest-level key. MAPPED (the
+// brickmap mode): the brick id is brickmap[the morton rank], a row of a
+// streaming arena's bricks.
+template <bool MAPPED = false>
 __device__ __forceinline__ void write_entry(
     int key, const Level& v, const int* __restrict__ cellmap, size_t at,
     int* __restrict__ codes_out, int* __restrict__ ids_out,
-    float* __restrict__ t_out) {
+    float* __restrict__ t_out, const int* __restrict__ brickmap = nullptr) {
   int code = -1, id = -1;
   float t = INFINITY;
   if (key != SENTINEL) {
@@ -219,6 +231,7 @@ __device__ __forceinline__ void write_entry(
     const int cm = (code >> 5) * 2;
     const uint32_t below = (1u << (code & 31)) - 1u;
     id = __ldg(cellmap + cm) + __popc((uint32_t)__ldg(cellmap + cm + 1) & below);
+    if constexpr (MAPPED) id = __ldg(brickmap + id);
   }
   codes_out[at] = code;
   ids_out[at] = id;
@@ -314,11 +327,12 @@ __device__ __forceinline__ void warp_sort(int (&v)[E], int lane) {
 
 // The finest level's row by one warp: the m keys of `keys` (unsorted, m <=
 // 32 * E) sorted and written, padded to k_max.
-template <int E>
+template <int E, bool MAPPED>
 __device__ __forceinline__ void write_row(
     const int* keys, int m, int k_max, const Level& v,
     const int* __restrict__ cellmap, size_t row, int* __restrict__ codes_out,
-    int* __restrict__ ids_out, float* __restrict__ t_out) {
+    int* __restrict__ ids_out, float* __restrict__ t_out,
+    const int* __restrict__ brickmap) {
   const int lane = threadIdx.x & 31;
   int r[E];
 #pragma unroll
@@ -330,18 +344,23 @@ __device__ __forceinline__ void write_row(
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int i = lane * E + e;
-    if (i < k_max) write_entry(r[e], v, cellmap, row + i, codes_out, ids_out, t_out);
+    if (i < k_max)
+      write_entry<MAPPED>(r[e], v, cellmap, row + i, codes_out, ids_out, t_out,
+                          brickmap);
   }
   for (int i = 32 * E + lane; i < k_max; i += 32)
-    write_entry(SENTINEL, v, cellmap, row + i, codes_out, ids_out, t_out);
+    write_entry<MAPPED>(SENTINEL, v, cellmap, row + i, codes_out, ids_out, t_out,
+                        brickmap);
 }
 
 // stage_len: the group's staging words (8 * the widest width above the
 // finest level); kept_len: its kept words (the widest width). At most 64
 // registers a thread, so that an SM holds four blocks: the main call's 512
 // blocks then all run at once, and a block held by one slow tile keeps no
-// other tile waiting for its SM.
-template <int WARPS>
+// other tile waiting for its SM. MAPPED: the brickmap mode (write_entry);
+// `brickmap` is the last parameter, so that the unmapped instantiation keeps
+// its code.
+template <int WARPS, bool MAPPED>
 __global__ void __launch_bounds__(BLOCK, 4)
 tile_candidates_kernel(const int* __restrict__ pyr,
                        const int* __restrict__ cellmap,
@@ -350,7 +369,8 @@ tile_candidates_kernel(const int* __restrict__ pyr,
                        int k_max, Plan plan, int stage_len, int kept_len,
                        int* __restrict__ codes_out, int* __restrict__ ids_out,
                        float* __restrict__ t_out,
-                       float* __restrict__ drop_out) {
+                       float* __restrict__ drop_out,
+                       const int* __restrict__ brickmap) {
   extern __shared__ int smem[];
   constexpr int GROUPS = BLOCK / 32 / WARPS;  // tiles a block
   const int lane = threadIdx.x & 31;
@@ -457,13 +477,17 @@ tile_candidates_kernel(const int* __restrict__ pyr,
     if (warp != 0) return;
     const size_t row = (size_t)tile * k_max;
     if (m <= 32)
-      write_row<1>(keys, m, k_max, v, cellmap, row, codes_out, ids_out, t_out);
+      write_row<1, MAPPED>(keys, m, k_max, v, cellmap, row, codes_out, ids_out,
+                             t_out, brickmap);
     else if (m <= 64)
-      write_row<2>(keys, m, k_max, v, cellmap, row, codes_out, ids_out, t_out);
+      write_row<2, MAPPED>(keys, m, k_max, v, cellmap, row, codes_out, ids_out,
+                             t_out, brickmap);
     else if (m <= 128)
-      write_row<4>(keys, m, k_max, v, cellmap, row, codes_out, ids_out, t_out);
+      write_row<4, MAPPED>(keys, m, k_max, v, cellmap, row, codes_out, ids_out,
+                             t_out, brickmap);
     else
-      write_row<8>(keys, m, k_max, v, cellmap, row, codes_out, ids_out, t_out);
+      write_row<8, MAPPED>(keys, m, k_max, v, cellmap, row, codes_out, ids_out,
+                             t_out, brickmap);
     if (lane == 0) drop_out[tile] = drop;
   }
 }
@@ -574,11 +598,11 @@ bool make_plan(int T, int top_depth, const int* widths, int k_max, Plan& plan) {
   return true;
 }
 
-template <int WARPS>
+template <int WARPS, bool MAPPED>
 int launch_candidates(const void* pyr, const void* cellmap, const void* corners,
                       const void* apex, int T, int top_depth, int k_max,
                       const Plan& plan, void* codes, void* ids, void* t_codes,
-                      void* drop_t, cudaStream_t stream) {
+                      void* drop_t, const void* brickmap, cudaStream_t stream) {
   int stage_len = 0, kept_len = 1;
   for (int l = 1; l <= top_depth; ++l) {
     stage_len = max(stage_len, 8 * plan.width[l - 1]);
@@ -588,14 +612,16 @@ int launch_candidates(const void* pyr, const void* cellmap, const void* corners,
   const size_t bytes = (size_t)GROUPS * (stage_len + kept_len + MISC) * sizeof(int);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tile_candidates_kernel<WARPS>,
+        tile_candidates_kernel<WARPS, MAPPED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  tile_candidates_kernel<WARPS><<<(T + GROUPS - 1) / GROUPS, BLOCK, bytes, stream>>>(
-      (const int*)pyr, (const int*)cellmap, (const float*)corners,
-      (const float*)apex, T, top_depth, k_max, plan, stage_len, kept_len,
-      (int*)codes, (int*)ids, (float*)t_codes, (float*)drop_t);
+  tile_candidates_kernel<WARPS, MAPPED>
+      <<<(T + GROUPS - 1) / GROUPS, BLOCK, bytes, stream>>>(
+          (const int*)pyr, (const int*)cellmap, (const float*)corners,
+          (const float*)apex, T, top_depth, k_max, plan, stage_len, kept_len,
+          (int*)codes, (int*)ids, (float*)t_codes, (float*)drop_t,
+          (const int*)brickmap);
   return (int)cudaGetLastError();
 }
 
@@ -614,10 +640,38 @@ extern "C" int tile_candidates(const void* pyr, const void* cellmap,
   if (T == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   return warps == 1
-             ? launch_candidates<1>(pyr, cellmap, corners, apex, T, top_depth,
-                                    k_max, plan, codes, ids, t_codes, drop_t, st)
-             : launch_candidates<8>(pyr, cellmap, corners, apex, T, top_depth,
-                                    k_max, plan, codes, ids, t_codes, drop_t, st);
+             ? launch_candidates<1, false>(pyr, cellmap, corners, apex, T,
+                                           top_depth, k_max, plan, codes, ids,
+                                           t_codes, drop_t, nullptr, st)
+             : launch_candidates<8, false>(pyr, cellmap, corners, apex, T,
+                                           top_depth, k_max, plan, codes, ids,
+                                           t_codes, drop_t, nullptr, st);
+}
+
+// tile_candidates in the brickmap mode: each brick id is brickmap[the morton
+// rank], a row of a streaming arena's bricks (the reference's remap of
+// _candidates' ids, stream/clipmap.py::_trace_clipmap_tile through
+// ops/tile.py::_trace_tile :880-882 and _trace_tile_fb :1102-1108).
+// `brickmap` holds at least as many ints as the pyramid has occupied cells.
+extern "C" int tile_candidates_mapped(const void* pyr, const void* cellmap,
+                                      const void* brickmap, const void* corners,
+                                      const void* apex, int T, int top_depth,
+                                      const int* widths, int k_max, int warps,
+                                      void* codes, void* ids, void* t_codes,
+                                      void* drop_t, void* stream) {
+  Plan plan;
+  if (!make_plan(T, top_depth, widths, k_max, plan) || (warps != 1 && warps != 8) ||
+      brickmap == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return warps == 1
+             ? launch_candidates<1, true>(pyr, cellmap, corners, apex, T,
+                                          top_depth, k_max, plan, codes, ids,
+                                          t_codes, drop_t, brickmap, st)
+             : launch_candidates<8, true>(pyr, cellmap, corners, apex, T,
+                                          top_depth, k_max, plan, codes, ids,
+                                          t_codes, drop_t, brickmap, st);
 }
 
 extern "C" int tile_candidates_block(const void* pyr, const void* cellmap,

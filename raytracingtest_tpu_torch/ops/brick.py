@@ -411,7 +411,7 @@ def _brick_rounds(bsvo, st, out_names, n_top, n_rounds, dda_round, lod=None):
     return out, stats
 
 
-def trace_brick(bsvo, origin, direction, with_stats=False):
+def trace_brick(bsvo, origin, direction, with_stats=False, root=None):
     """Brick trace of (N, 3) float32 rays through `bsvo`, any N: the plain
     version of the ``brick_trace`` kernel. hit_leaf and hit_t are the
     stackless trace's on the source SVO; hit_parent and hit_child are the
@@ -426,9 +426,13 @@ def trace_brick(bsvo, origin, direction, with_stats=False):
     every iteration of a round's top walk, so these are bounds on each ray:
     the reference's own, which it counts for the whole batch (and its round
     also ends once few rays can still step, ``TOP_DRAIN``), are never
-    looser, and every ray that the reference finishes ends here alike."""
+    looser, and every ray that the reference finishes ends here alike.
+
+    `root` (an int or (N,) int32) starts each ray's top walk at that top
+    row instead of row 0, the reference's ``_trace_brick_core(root=)``: the
+    clipmap's chunk roots in a shared brick arena."""
     depth, top_depth = bsvo.depth, bsvo.top_depth
-    st = walk_state(origin, direction, top_depth)
+    st = walk_state(origin, direction, top_depth, root)
     st["hit_leaf"] = torch.full_like(st["idx"], -1)
     out, stats = _brick_rounds(
         bsvo, st, ("hit_leaf", "hit_t", "hit_parent", "hit_child"),

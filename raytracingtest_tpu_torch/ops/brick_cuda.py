@@ -38,6 +38,11 @@ what each does, and PERF.md what it measured):
     writing each segment as it is found, is also
     ``trace_brick_multi_cuda_serial``, the check and the yardstick.
 
+``clipmap_kernel`` launches the streamed world's stitched trace
+(``clipmap_trace``, or with a brick arena ``clipmap_trace_brick``): the
+rounds of ``stream/clipmap.py``'s ``trace_clipmap_device`` and
+``trace_clipmap_device_brick``, whose plain versions are in that module.
+
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
 and ``probe_brick_multi_cuda`` launch a form with per-warp counters
 (``PROBE_FIELDS``), for measurement only.
@@ -67,7 +72,8 @@ _F32, _I32 = torch.float32, torch.int32
 # path a run took): the main path's, the brick trace's other forms', the
 # probe forms'
 launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
-            "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0}
+            "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0,
+            "clipmap_trace": 0, "clipmap_trace_brick": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
@@ -86,6 +92,8 @@ _BRICK_TRACE_MULTI_SERIAL = Kernel("brick_trace_multi_serial", brick_lib)
 _BRICK_TRACE_MULTI_PROBE = Kernel("brick_trace_multi_probe", brick_lib)
 _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
+_CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
+_CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
 # each form's blocks
@@ -474,3 +482,58 @@ def trace_brick_lod_cuda(bsvo, origin, direction, coef, bias=0.0,
     res, stats = _brick_lod_kernel(bsvo, origin, direction, coef, bias,
                                    with_stats)
     return (res, stats) if with_stats else res
+
+
+def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
+                   direction, chunk_depth, n_max):
+    """Launch ``clipmap_trace`` (`arena` an SVO of the node arena: masks,
+    child_base, parent_ptr, leaf_base) or ``clipmap_trace_brick`` (`arena`
+    a BrickSVO of the brick arena) on (N, 3) float32 CUDA rays in world
+    coordinates: at most `n_max` rounds of the trunk's walk (`trunk` an SVO
+    with parent_ptr; its world corner `org` and size `size`, Python floats
+    rounded to float32 here) and the chunk's walk from roots[chunk] (chunk
+    tables (C,) int32 `roots`, (C, 3) float32 `origins`, (C,) float32
+    `sizes`). Returns (hit_leaf, hit_t, hit_chunk, truncated (bool))."""
+    brick_arena = isinstance(arena, brick.BrickSVO)
+    kernel = _CLIPMAP_TRACE_BRICK if brick_arena else _CLIPMAP_TRACE
+    n, rays = _rays(origin, direction)
+    c = roots.shape[0]
+    trunk_pptr = traverse.parent_ptr_of(trunk)
+    if brick_arena:
+        chunk_tables = (_table("top_masks", arena.top_masks),
+                        _table("top_child", arena.top_child),
+                        _table("top_parent", arena.top_parent),
+                        ("bricks", arena.bricks, _I32, (arena.bricks.shape[0], 17)))
+        chunk_ptrs = (arena.top_masks, arena.top_child, arena.top_parent,
+                      arena.bricks)
+        low = brick.BRICK_LEVELS + 1
+    else:
+        pptr = traverse.parent_ptr_of(arena)
+        chunk_tables = (_table("masks", arena.masks),
+                        _table("child_base", arena.child_base),
+                        _table("parent_ptr", pptr),
+                        _table("leaf_base", arena.leaf_base))
+        chunk_ptrs = (arena.masks, arena.child_base, pptr, arena.leaf_base)
+        low = 1
+    kernel.check(origin.device, rays + chunk_tables + (
+        _table("trunk masks", trunk.masks), _table("trunk child_base", trunk.child_base),
+        _table("trunk parent_ptr", trunk_pptr), _table("trunk leaf_base", trunk.leaf_base),
+        ("roots", roots, _I32, (c,)), ("origins", origins, _F32, (c, 3)),
+        ("sizes", sizes, _F32, (c,))))
+    if not (1 <= trunk.depth <= S_MAX - 1 and low <= chunk_depth <= S_MAX - 1
+            and 0 <= n_max < 2 ** 31):
+        raise ValueError(f"trunk depth {trunk.depth}, chunk depth {chunk_depth}, "
+                         f"{n_max} rounds out of range")
+    dev = origin.device
+    out = (torch.empty(n, dtype=_I32, device=dev), torch.empty(n, dtype=_F32, device=dev),
+           torch.empty(n, dtype=_I32, device=dev),
+           torch.empty(n, dtype=torch.bool, device=dev))
+    f32 = lambda v: float(np.float32(v))
+    kernel(dev, trunk.masks.data_ptr(), trunk.child_base.data_ptr(),
+           trunk_pptr.data_ptr(), trunk.leaf_base.data_ptr(), roots.data_ptr(),
+           origins.data_ptr(), sizes.data_ptr(), *(f32(v) for v in org), f32(size),
+           *(t.data_ptr() for t in chunk_ptrs), origin.data_ptr(),
+           direction.data_ptr(), n, trunk.depth, chunk_depth, n_max,
+           *(t.data_ptr() for t in out))
+    launches["clipmap_trace_brick" if brick_arena else "clipmap_trace"] += 1
+    return out

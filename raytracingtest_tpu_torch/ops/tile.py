@@ -30,9 +30,14 @@ What differs from the reference, and why. Its walker is a lockstep
 tile; the ring (`win`, `loads`, `skips`), the DDA unroll, the chunking
 (`chunk_tiles`, `lane_budget`) and the trip backstop are scheduling for that
 machine and change no hit, so none is an argument here: a GPU block per tile
-runs on its own and waits for no other tile. The streaming `brickmap`
-indirection comes with the streaming slice. uint32 words are int32 bit
+runs on its own and waits for no other tile. uint32 words are int32 bit
 patterns (see ``ops/brick.py``); sort keys stay int32.
+
+The streamed world (``stream/clipmap.py``) traces stitched pyramids whose
+bricks live at any rows of an arena: ``_trace_tile_fb(..., brickmap=)``
+maps each candidate's morton-rank id through `brickmap` in all three
+phase-1 calls, as the reference's does (``remap_ids``; on the card the
+kernel's brickmap mode).
 """
 
 from __future__ import annotations
@@ -256,16 +261,27 @@ def _frustum_planes(corners, apex):
     return nrm * torch.where(sgn == 0, 1.0, sgn)
 
 
-def _candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
-    """Per-tile brick candidates (see ``candidates_plain``). The kernel runs
-    for CUDA tensors, the plain version for CPU tensors."""
+def _candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
+                brickmap=None):
+    """Per-tile brick candidates (see ``candidates_plain``), their ids
+    mapped through `brickmap` when one is given (``remap_ids``). The kernel
+    runs for CUDA tensors, the plain version for CPU tensors."""
     if corners.device.type == "cpu":
-        return candidates_plain(pyr, cellmap, corners, apex, top_depth, caps,
-                                k_max)
+        codes, ids, t_codes, drop_t = candidates_plain(
+            pyr, cellmap, corners, apex, top_depth, caps, k_max)
+        if brickmap is not None:
+            ids = remap_ids(ids, brickmap)
+        return codes, ids, t_codes, drop_t
     from raytracingtest_tpu_torch.ops import tile_cuda
 
     return tile_cuda.candidates(pyr, cellmap, corners, apex, top_depth, caps,
-                                k_max)
+                                k_max, brickmap=brickmap)
+
+
+def remap_ids(ids, brickmap):
+    """Candidate ids (morton ranks of a pyramid's occupied cells, -1 for
+    none) as rows of a streaming arena's bricks: brickmap[id], -1 kept."""
+    return torch.where(ids >= 0, brickmap[torch.clamp(ids, min=0).long()], -1)
 
 
 def candidates_plain(pyr, cellmap, corners, apex, top_depth, caps, k_max):
@@ -540,11 +556,11 @@ def _default_caps(top_depth, k_max):
 
 
 def _trace_tile(pyr, cellmap, bricks, o, d, corners, apex, depth, top_depth,
-                caps, k_max):
+                caps, k_max, brickmap=None):
     T, P = o.shape[0], o.shape[1]
     n = T * P
     codes, ids, t_codes, drop_t = _candidates(pyr, cellmap, corners, apex,
-                                              top_depth, caps, k_max)
+                                              top_depth, caps, k_max, brickmap)
     hit_leaf, hit_t, iters, unresolved = _walk_tiles_chunk(
         bricks, o, d, codes, ids, t_codes, drop_t, depth=depth,
         top_depth=top_depth, k_max=k_max)
@@ -638,7 +654,7 @@ def _unresolved_first(un, n_tiles):
 
 def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
                    top_depth, caps, k_max, fb_tiles, fb_k, fb2_tiles=0,
-                   fb2_split=2):
+                   fb2_split=2, brickmap=None):
     """trace_tile + enlarged-K tile re-walk fallback (+ optional sub-tile
     re-walk for cap-saturated tiles).
 
@@ -652,13 +668,17 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
     budgets are fixed numbers of tiles, walked whether or not that many are
     unresolved, so no step waits for a count from the device.
 
+    `brickmap` (int32): the pyramid's bricks lie at rows brickmap[morton
+    rank] of `bricks` (a streaming arena, ``stream/clipmap.py``); every
+    phase-1 call maps its ids through it.
+
     Returns (TraceResult, residual mask): residual rays are those in
     unresolved tiles beyond the fb/fb2 tile budgets or still cap-limited
     after every pass."""
     T, P = o.shape[0], o.shape[1]
     fb_tiles = min(fb_tiles, T)
     res, unresolved = _trace_tile(pyr, cellmap, bricks, o, d, corners, apex,
-                                  depth, top_depth, caps, k_max)
+                                  depth, top_depth, caps, k_max, brickmap)
     un = unresolved.reshape(T, P)
     hl = res.hit_leaf.reshape(T, P)
     ht = res.hit_t.reshape(T, P)
@@ -671,7 +691,7 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
         caps2 = tuple(min(fb_k, 8 ** l) for l in range(top_depth + 1))
         codes2, ids2, t2, drop2 = _candidates(
             pyr, cellmap, corners[sel_t].contiguous(), apex, top_depth, caps2,
-            fb_k)
+            fb_k, brickmap)
         hit2, t_hit2, _it2, un2 = _walk_tiles_scheduled(
             bricks, o[sel_t], d[sel_t], codes2, ids2, t2, drop2, depth=depth,
             top_depth=top_depth, k_max=fb_k)
@@ -689,7 +709,8 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
                                     fb2_split)
         caps3 = _fb2_caps(top_depth, fb_k)
         codes3, ids3, t3, drop3 = _candidates(pyr, cellmap, c3.contiguous(),
-                                              apex, top_depth, caps3, fb_k)
+                                              apex, top_depth, caps3, fb_k,
+                                              brickmap)
         hit3, t_hit3, _it3, un3 = _walk_tiles_scheduled(
             bricks, o3.contiguous(), d3.contiguous(), codes3, ids3, t3,
             drop3, depth=depth, top_depth=top_depth, k_max=fb_k)

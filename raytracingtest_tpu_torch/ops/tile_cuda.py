@@ -13,7 +13,9 @@ path launches. CUDA tensors go to a kernel; CPU tensors go to the plain
 version, ``tile.walk_plain``. Nothing else picks the path: a build or launch
 failure raises.
 
-``candidates`` launches ``tile_candidates``, which computes what the
+``candidates`` launches ``tile_candidates`` (given a ``brickmap``, its
+brickmap mode ``tile_candidates_mapped``, the streamed world's), which
+computes what the
 reference's ``_candidates`` does and gives the same bits as its plain
 version, ``tile.candidates_plain``: a warp or a block a tile
 (``candidate_warps``), each level's valid keys compacted, the ``width``
@@ -64,11 +66,14 @@ launches = 0
 serial_launches = 0
 candidates_launches = 0
 candidates_block_launches = 0
+# tile_candidates in its brickmap mode (the streamed world's phase 1)
+candidates_mapped_launches = 0
 
 _TILE_WALK = Kernel("tile_walk", tile_lib)
 _TILE_WALK_SERIAL = Kernel("tile_walk_serial", tile_lib)
 _TILE_CANDIDATES = Kernel("tile_candidates", candidates_lib)
 _TILE_CANDIDATES_BLOCK = Kernel("tile_candidates_block", candidates_lib)
+_TILE_CANDIDATES_MAPPED = Kernel("tile_candidates_mapped", candidates_lib)
 
 _slots: dict = {}
 
@@ -252,26 +257,43 @@ def _candidates_check(kernel, pyr, cellmap, corners, apex, top_depth, caps,
 
 
 def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
-               warps=None):
+               warps=None, brickmap=None):
     """Launch ``tile_candidates`` on CUDA tensors: phase 1 for every tile of
     the (T, 4, 3) contiguous `corners` (arguments and results as
     ``tile.candidates_plain``), `warps` warps a tile (None:
     ``candidate_warps`` of the widths). `apex` is the (3,) float32 camera
     position on the card; nothing is read back to the host. top_depth must
-    be 1..10, and k_max and every cap of levels 1..top_depth-1 1..256."""
-    global candidates_launches
+    be 1..10, and k_max and every cap of levels 1..top_depth-1 1..256.
+
+    `brickmap` (int32, at least one entry an occupied cell of the pyramid):
+    the brickmap mode, ``tile_candidates_mapped``, whose ids are
+    ``tile.remap_ids`` of the plain version's, rows of a streaming arena's
+    bricks."""
+    global candidates_launches, candidates_mapped_launches
     if warps is not None and warps not in CANDIDATE_WARPS:
         raise ValueError(f"{warps} warps a tile: the kernel takes one of "
                          f"{CANDIDATE_WARPS}")
-    widths, out = _candidates_check(_TILE_CANDIDATES, pyr, cellmap, corners,
-                                    apex, top_depth, caps, k_max)
+    kernel = _TILE_CANDIDATES if brickmap is None else _TILE_CANDIDATES_MAPPED
+    widths, out = _candidates_check(kernel, pyr, cellmap, corners, apex,
+                                    top_depth, caps, k_max)
     if warps is None:
         warps = candidate_warps(widths)
-    _TILE_CANDIDATES(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
-                     corners.data_ptr(), apex.data_ptr(), corners.shape[0],
-                     top_depth, (ctypes.c_int * len(widths))(*widths), k_max,
-                     warps, *(t.data_ptr() for t in out))
-    candidates_launches += 1
+    plan = (corners.shape[0], top_depth, (ctypes.c_int * len(widths))(*widths),
+            k_max, warps, *(t.data_ptr() for t in out))
+    if brickmap is None:
+        _TILE_CANDIDATES(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
+                         corners.data_ptr(), apex.data_ptr(), *plan)
+        candidates_launches += 1
+    else:
+        if brickmap.dim() != 1 or brickmap.shape[0] < 1:
+            raise ValueError(f"brickmap has shape {tuple(brickmap.shape)}, "
+                             f"expected (n,) with n >= 1")
+        kernel.check(corners.device, (("brickmap", brickmap, _I32,
+                                       (brickmap.shape[0],)),))
+        _TILE_CANDIDATES_MAPPED(corners.device, pyr.data_ptr(),
+                                cellmap.data_ptr(), brickmap.data_ptr(),
+                                corners.data_ptr(), apex.data_ptr(), *plan)
+        candidates_mapped_launches += 1
     return out
 
 

@@ -120,8 +120,10 @@ def ray_setup(origin, direction):
     return t_coef, t_bias, octant_mask, t_min, t_max
 
 
-def init_state(origin, direction, depth) -> TraceState:
-    """Mirroring and cube entry for (N, 3) float32 rays."""
+def init_state(origin, direction, depth, root=None) -> TraceState:
+    """Mirroring and cube entry for (N, 3) float32 rays. `root` (an int or
+    (N,) int32): each ray's root row, where its walk starts (the clipmap's
+    per-ray chunk roots in a shared arena); None is row 0."""
     t_coef, t_bias, octant_mask, t_min, t_max = ray_setup(origin, direction)
     n = t_min.shape[0]
     device = t_min.device
@@ -133,8 +135,10 @@ def init_state(origin, direction, depth) -> TraceState:
 
     zi = torch.zeros(n, dtype=_I32, device=device)
     zf = torch.zeros(n, dtype=_F32, device=device)
+    parent = zi if root is None else zi + torch.as_tensor(root, dtype=_I32,
+                                                           device=device)
     return TraceState(
-        pos=pos, idx=idx, parent=zi, scale=zi + (S_MAX - 1),
+        pos=pos, idx=idx, parent=parent, scale=zi + (S_MAX - 1),
         scale_exp2=zf + 0.5, t_min=t_min, t_max=t_max, h=t_max,
         octant_mask=octant_mask, t_coef=t_coef, t_bias=t_bias,
         done=t_min >= t_max, hit_leaf=zi - 1, hit_t=zf, hit_parent=zi - 1,
@@ -250,10 +254,11 @@ def step(s: TraceState, masks, child_base, leaf_base, depth) -> TraceState:
     )
 
 
-def trace(svo, origin, direction) -> TraceResult:
+def trace(svo, origin, direction, root=None) -> TraceResult:
     """Trace (N, 3) float32 rays through `svo` (tensors on one device);
-    loops until every ray is done or the trip bound is reached."""
-    st = init_state(origin, direction, svo.depth)
+    loops until every ray is done or the trip bound is reached. `root`: the
+    rays' root rows (``init_state``)."""
+    st = init_state(origin, direction, svo.depth, root)
     for _ in range(max_iters_for_depth(svo.depth)):
         if bool(torch.all(st.done)):
             break
@@ -299,10 +304,11 @@ def parent_ptr_of(svo):
     return derive_parent_ptr(svo.masks, svo.child_base)
 
 
-def walk_state(origin, direction, depth):
+def walk_state(origin, direction, depth, root=None):
     """The stackless walk's per-ray registers after cube entry (a dict of
-    tensors): ``init_state`` without the stack."""
-    s = init_state(origin, direction, depth)
+    tensors): ``init_state`` without the stack, each ray at its `root` row
+    (None: row 0)."""
+    s = init_state(origin, direction, depth, root)
     return dict(pos=s.pos, idx=s.idx, parent=s.parent, scale=s.scale,
                 t_min=s.t_min, octant_mask=s.octant_mask, t_coef=s.t_coef,
                 t_bias=s.t_bias, done=s.done, popped=torch.zeros_like(s.done),
@@ -483,11 +489,14 @@ class Compacted:
         return self.out
 
 
-def trace_stackless(svo, origin, direction, with_stats=False):
+def trace_stackless(svo, origin, direction, with_stats=False, root=None):
     """Stackless trace of (N, 3) float32 rays through `svo`, any N: the
     plain version of the ``esvo_stackless`` kernel. Returns a TraceResult,
     or (TraceResult, stats (N, 5) int32; columns ``STAT_NAMES``) with
-    `with_stats`.
+    `with_stats`. `root` (an int or (N,) int32) starts each ray's walk at
+    that row instead of row 0, the reference's ``_trace_core(root=)``: a POP
+    out of the root's cube ends the ray, so `svo` may be an arena of many
+    trees.
 
     Every ray that has not finished takes one step an iteration, for at
     most ``max_iters_for_depth(depth)`` steps, which is the reference's
@@ -495,7 +504,7 @@ def trace_stackless(svo, origin, direction, with_stats=False):
     steps every ray still walking)."""
     masks = svo.masks
     nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
-    walk = Compacted(walk_state(origin, direction, svo.depth),
+    walk = Compacted(walk_state(origin, direction, svo.depth, root),
                      ("hit_parent", "hit_child", "hit_t", "iters", "done"))
     out = _walk(walk, nodes, max_iters_for_depth(svo.depth))
     hit_leaf = resolve_leaf(masks, svo.leaf_base, out["hit_parent"], out["hit_child"])

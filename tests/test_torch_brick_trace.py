@@ -37,6 +37,7 @@ from tests.test_torch_stackless import (
 
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.ops import brick, brick_cuda, traverse
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = [("sphere", 5), ("terrain", 5), ("terrain", 6), ("flat_ground", 4),
           ("rotated_cuboid", 5)]

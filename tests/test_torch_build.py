@@ -22,6 +22,7 @@ from raytracingtest_tpu_torch.ops import camera
 from raytracingtest_tpu_torch.ops import octree
 from raytracingtest_tpu_torch.scenes import get_scene
 from raytracingtest_tpu_torch.utils import noise
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SVO_ARRAYS = ("masks", "child_base", "leaf_base", "leaf_albedo",
               "leaf_normal", "leaf_density", "parent_ptr")
@@ -202,6 +203,7 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.io.checkpoint", "raytracingtest_tpu_torch.io.hdr",
     "raytracingtest_tpu_torch.models",
     "raytracingtest_tpu_torch.models.renderers",
+    "raytracingtest_tpu_torch.models.streaming",
     "raytracingtest_tpu_torch.ops.brick",
     "raytracingtest_tpu_torch.ops.brick_cuda",
     "raytracingtest_tpu_torch.ops.brick_dda",
@@ -220,6 +222,9 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.traverse",
     "raytracingtest_tpu_torch.ops.traverse_cuda",
     "raytracingtest_tpu_torch.parallel.multihost",
+    "raytracingtest_tpu_torch.stream",
+    "raytracingtest_tpu_torch.stream.chunk_octree",
+    "raytracingtest_tpu_torch.stream.clipmap",
     "raytracingtest_tpu_torch.utils.checks",
     "raytracingtest_tpu_torch.utils.noise",
     "raytracingtest_tpu_torch.utils.opensimplex",

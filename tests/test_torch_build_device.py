@@ -22,6 +22,7 @@ from raytracingtest_tpu_torch.ops import octree, octree_cuda, octree_device
 from raytracingtest_tpu_torch.scenes import SCENES, Scene, get_scene
 from raytracingtest_tpu_torch.utils import opensimplex
 from tests.test_torch_build import assert_svo_identical
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 DEVICE_CASES = [("sphere", 5), ("terrain", 6), ("flat_ground", 5), ("sphere", 3)]
 STRUCTURE = ("masks", "child_base", "leaf_base", "parent_ptr")

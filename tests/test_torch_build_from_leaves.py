@@ -12,6 +12,7 @@ from raytracingtest_tpu.ops.octree import build_from_leaves as jax_from_leaves
 from raytracingtest_tpu_torch.ops import octree, traverse
 from raytracingtest_tpu_torch.scenes import get_scene
 from tests.test_torch_build import assert_svo_identical
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("scene,depth", [("sphere", 5), ("terrain", 6)])

@@ -34,6 +34,7 @@ from raytracingtest_tpu.ops import tile as jax_tile
 from raytracingtest_tpu_torch import _build, _launch
 from raytracingtest_tpu_torch.ops import tile, tile_cuda
 from tests.test_torch_tile_trace import INSIDE_CAM, setup
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("codes", "ids", "t_codes", "drop_t")
 SENTINEL = 2 ** 31 - 1
@@ -377,20 +378,22 @@ BAD_ARGUMENTS = [
 ]
 
 
-def refuses(wrapper, what, change, says, monkeypatch):
-    """`change` made to good arguments raises ValueError matching `says`
-    from tile_cuda.`wrapper`, before any library is asked for and with no
-    launch counted. Past the device case the device check is stood in for,
-    so that CPU tensors reach the later ones."""
+def refuses(wrapper, what, change, says, monkeypatch, **extra):
+    """`change` made to good arguments (and `extra`) raises ValueError
+    matching `says` from tile_cuda.`wrapper`, before any library is asked
+    for and with no launch counted. Past the device case the device check is
+    stood in for, so that CPU tensors reach the later ones."""
     if what != "device":
-        for kernel in (tile_cuda._TILE_CANDIDATES, tile_cuda._TILE_CANDIDATES_BLOCK):
+        for kernel in (tile_cuda._TILE_CANDIDATES, tile_cuda._TILE_CANDIDATES_BLOCK,
+                       tile_cuda._TILE_CANDIDATES_MAPPED):
             monkeypatch.setattr(kernel, "check", lambda device, specs:
                                 _launch.check_tensors(device, specs))
-    args = good_args()
+    args = dict(good_args(), **extra)
     for key, fn in change.items():
         args[key] = fn(args)
     counts = lambda: (tile_cuda.candidates_launches,
-                      tile_cuda.candidates_block_launches)
+                      tile_cuda.candidates_block_launches,
+                      tile_cuda.candidates_mapped_launches)
     before, loaded = counts(), set(_build._libs)
     with pytest.raises(ValueError, match=re.escape(says)):
         getattr(tile_cuda, wrapper)(**args)
@@ -403,6 +406,20 @@ def test_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
     """The new form's wrapper, ``candidates``; also a number of warps a tile
     that the kernel has no variant for."""
     refuses("candidates", what, change, says, monkeypatch)
+
+
+@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS + [
+    ("brickmap dtype", dict(brickmap=lambda a: a["brickmap"].long()), "brickmap"),
+    ("brickmap shape", dict(brickmap=lambda a: a["brickmap"][None]),
+     "brickmap has shape (1, 64)"),
+    ("empty brickmap", dict(brickmap=lambda a: a["brickmap"][:0]), "brickmap has shape (0,)")])
+def test_mapped_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
+    """The brickmap mode's wrapper (``candidates`` given a brickmap, kernel
+    ``tile_candidates_mapped``) by the same check, and a brickmap that is not
+    a non-empty 1-D int32 tensor."""
+    refuses("candidates", what, change,
+            says.replace("tile_candidates", "tile_candidates_mapped"), monkeypatch,
+            brickmap=torch.arange(64, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS)

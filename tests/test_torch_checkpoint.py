@@ -15,6 +15,7 @@ from raytracingtest_tpu_torch.io import checkpoint as ckpt
 from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.ops import camera, octree
 from raytracingtest_tpu_torch.scenes import get_scene
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,depth", [("sphere", 5), ("terrain", 6)])

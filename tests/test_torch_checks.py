@@ -12,6 +12,7 @@ import torch
 from raytracingtest_tpu_torch.ops import camera, octree, traverse
 from raytracingtest_tpu_torch.scenes import get_scene
 from raytracingtest_tpu_torch.utils import checks
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

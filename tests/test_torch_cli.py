@@ -17,6 +17,7 @@ from PIL import Image
 from raytracingtest_tpu import cli as jax_cli
 
 from raytracingtest_tpu_torch import cli
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def run(main, argv):

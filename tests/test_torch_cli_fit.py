@@ -18,6 +18,7 @@ from raytracingtest_tpu.io import checkpoint as jax_ckpt
 
 from raytracingtest_tpu_torch import cli
 from raytracingtest_tpu_torch.io import checkpoint as ckpt
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def run(main, argv):

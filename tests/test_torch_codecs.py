@@ -16,6 +16,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.ops import codecs, octree
 from raytracingtest_tpu_torch.scenes import get_scene
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def words(a):

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from raytracingtest_tpu_torch.ops import gather
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def probe_idx(shape, rows):

@@ -34,6 +34,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 from raytracingtest_tpu_torch import convert, diff
 from raytracingtest_tpu_torch.ops import shade_cuda
 from raytracingtest_tpu_torch.render import sky_color
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LIGHT = np.array([-0.5, -1.0, -0.3], np.float32)
 RTOL, ATOL = 1e-5, 1e-7

@@ -8,6 +8,7 @@ import pytest
 from raytracingtest_tpu.io import hdr as jax_hdr
 
 from raytracingtest_tpu_torch.io import hdr
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _image(seed, h=21, w=37):

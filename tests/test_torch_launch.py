@@ -17,6 +17,7 @@ from raytracingtest_tpu_torch import _build, _launch
 from raytracingtest_tpu_torch.ops import (
     brick, brick_cuda, brick_dda, gather, rowread, shade_cuda, tile_cuda,
     traverse, traverse_cuda)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -29,6 +29,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 from raytracingtest_tpu_torch import _build, convert
 from raytracingtest_tpu_torch.ops import brick, brick_cuda, lod, traverse
 from raytracingtest_tpu_torch.render import Light
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CAM = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5), fov_y_deg=50.0)
 RES = 64

@@ -9,6 +9,7 @@ import torch
 from raytracingtest_tpu.ops import morton as jax_morton
 
 from raytracingtest_tpu_torch.ops import morton
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _coords(seed, n, bits, dtype):

@@ -18,6 +18,7 @@ import torch
 from raytracingtest_tpu_torch import _build
 from raytracingtest_tpu_torch.ops import brick, brick_cuda, octree, traverse
 from raytracingtest_tpu_torch.scenes import get_scene
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SOURCE = _build._CSRC + "/brick_trace.cu"
 
@@ -192,12 +193,13 @@ class _Declared:
 
 def test_c_entries_are_declared_with_their_arity():
     """Every C entry point of brick_trace.cu (the k-segment traces' first
-    form and probe forms among them) has ctypes argument types of its own
-    length, the stream included, and a wrapper's Kernel."""
+    form and probe forms among them, and the streamed world's stitched
+    traces) has ctypes argument types of its own length, the stream
+    included, and a wrapper's Kernel."""
     arity = c_entry_arity()
     new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
-           "brick_trace_multi_probe"}
-    assert new <= set(arity) and len(arity) == 13
+           "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick"}
+    assert new <= set(arity) and len(arity) == 15
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -211,6 +213,8 @@ def test_c_entries_are_declared_with_their_arity():
     assert arity["brick_trace_multi"] == arity["brick_trace_multi_serial"]
     assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi"] + 1
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
+    # the stitched traces differ only in the arena their chunk walks read
+    assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
 
 
 def small_trees():

@@ -9,6 +9,7 @@ from raytracingtest_tpu.utils import opensimplex as jax_os
 from raytracingtest_tpu.utils import perlin as jax_perlin
 
 from raytracingtest_tpu_torch.utils import opensimplex, perlin
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _coords(seed, n=4000, lo=-20.0, hi=20.0):

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from raytracingtest_tpu_torch.ops import brick_dda, rowread
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S_MAX = 23
 DEPTH = 10

@@ -14,6 +14,7 @@ from raytracingtest_tpu.utils import profiling as jax_profiling
 
 from raytracingtest_tpu_torch.parallel import multihost
 from raytracingtest_tpu_torch.utils import profiling
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -18,6 +18,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 from raytracingtest_tpu_torch import convert, diff, render
 from raytracingtest_tpu_torch.ops import traverse, traverse_cuda
 from tests.test_traverse import random_rays
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LIGHT = np.array([-0.5, -1.0, -0.3], np.float32)
 

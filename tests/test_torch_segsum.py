@@ -30,6 +30,7 @@ from raytracingtest_tpu import diff as jax_diff
 
 from raytracingtest_tpu_torch import diff
 from raytracingtest_tpu_torch.ops import shade_cuda
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SEG_SHORT = shade_cuda.SEG_SHORT
 

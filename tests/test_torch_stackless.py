@@ -35,6 +35,7 @@ from tests.test_traverse import random_rays
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.io import checkpoint
 from raytracingtest_tpu_torch.ops import brick_cuda, octree, traverse
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = [("sphere", 5), ("terrain", 5), ("terrain", 6), ("flat_ground", 4),
           ("rotated_cuboid", 5)]

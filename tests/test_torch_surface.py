@@ -30,6 +30,7 @@ from raytracingtest_tpu_torch.models import SurfaceRenderer, VolumetricRenderer
 from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import brick, codecs, tile, traverse
 from raytracingtest_tpu_torch.ops.camera import Camera, OctreeFrame
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 PIN = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5), fov_y_deg=50.0)

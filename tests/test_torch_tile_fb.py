@@ -13,6 +13,7 @@ from raytracingtest_tpu_torch.ops import tile
 from tests.test_torch_tile_trace import (
     HIT_T_ATOL, HIT_T_RTOL, SCENES, TINY, assert_equals_per_ray,
     assert_trace_matches, per_ray, setup, tensors)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,depth", SCENES)

@@ -22,6 +22,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 import raytracingtest_tpu_torch as rtt
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.ops import brick, camera, tile
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BENCH_CAM = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
                  fov_y_deg=50.0)

@@ -30,6 +30,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.ops import camera, tile, tile_cuda, traverse
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BENCH_CAM = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
                  fov_y_deg=50.0)
@@ -80,8 +81,16 @@ def assert_trace_matches(ours, ref, what):
     assert bool((ours.hit_parent == -1).all()) and bool((ours.hit_child == 0).all())
 
 
+_per_ray = {}
+
+
 def per_ray(svo, o, d):
-    return traverse.trace(svo, o.reshape(-1, 3), d.reshape(-1, 3))
+    """The per-ray trace of the rays o, d through `svo`, made once for each
+    tree and ray set and shared by the tests that hold a tile trace to it."""
+    key = (id(svo), o.data_ptr(), o.shape, d.data_ptr())
+    if key not in _per_ray:
+        _per_ray[key] = (svo, o, d, traverse.trace(svo, o.reshape(-1, 3), d.reshape(-1, 3)))
+    return _per_ray[key][3]
 
 
 def assert_equals_per_ray(ours, golden, mask=None):

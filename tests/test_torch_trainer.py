@@ -32,6 +32,7 @@ from raytracingtest_tpu_torch.config import CameraConfig
 from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.models.renderers import _accel_of
 from raytracingtest_tpu_torch.ops import camera, shade_cuda, tile_cuda
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LIGHT = (-0.5, -1.0, -0.3)
 CAM = dict(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5), fov_y_deg=50.0)

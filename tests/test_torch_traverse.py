@@ -17,6 +17,7 @@ from tests.test_traverse import random_rays
 
 from raytracingtest_tpu_torch import convert
 from raytracingtest_tpu_torch.ops import traverse, traverse_cuda
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = [("sphere", 5), ("terrain", 5), ("flat_ground", 4),
           ("rotated_cuboid", 5)]

@@ -27,6 +27,7 @@ from raytracingtest_tpu.scenes import get_scene as jax_get_scene
 
 from raytracingtest_tpu_torch import convert, diff
 from raytracingtest_tpu_torch.ops import brick_cuda, shade_cuda
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LIGHT = (-0.5, -1.0, -0.3)
 SCALARS = (1.3, 0.08, 64.0)   # intensity, ambient, density scale

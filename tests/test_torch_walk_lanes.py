@@ -34,6 +34,7 @@ from raytracingtest_tpu_torch.ops.brick_dda import dda_step
 from raytracingtest_tpu_torch.ops.traverse import ray_setup
 from tests.test_torch_tile_trace import (
     HIT_T_ATOL, HIT_T_RTOL, setup, tensors)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 _F32, _I32 = torch.float32, torch.int32
 INF = float("inf")
@@ -150,11 +151,22 @@ def lanes_model(bricks, o, d, codes, ids, t_codes, depth, top_depth, G):
     return (hit_leaf.reshape(T, P), hit_t.reshape(T, P), iters.reshape(T, P)), replaced
 
 
+_args = {}
+
+
 def walk_args(name, depth, shape, res=64):
     """The walker's arguments on a scene: lists of the main walk's shape
     ("main", k_max 48), the fallback's ("fallback", K = 160, every level
     kept), or the main lists with each candidate twice ("doubled") or with
-    each tile's candidates in a seeded random order ("shuffled")."""
+    each tile's candidates in a seeded random order ("shuffled"). Made once
+    a case and shared by the cases of every G."""
+    key = (name, depth, shape, res)
+    if key not in _args:
+        _args[key] = _walk_args(name, depth, shape, res)
+    return _args[key]
+
+
+def _walk_args(name, depth, shape, res):
     _ref_ts, ts, _svo, rays = setup(name, depth, res)
     o, d, corners = tensors(rays)
     td = ts.top_depth
