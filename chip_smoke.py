@@ -112,8 +112,19 @@ each kernel against its plain version at its largest call, the octant build
 of the library (`scene_eval`) against the host's at 2^20 dyadic centres and
 2^20 random points (parting bits counted, none allowed at the centres);
 and builds the command line's three noise scenes on the card at depth 8,
-held after `[cli]` against its host builds. One line per phase; any
-failure raises and the exit code is non-zero.
+held after `[cli]` against its host builds. `[sharded]` runs the sharded
+renderer (`parallel/`) in a real NCCL world of one: the depth-12 terrain
+built on the card octant by octant and split at level 2 (`split_svo`), traced
+at 2048² through bench.py's camera by `make_sharded_trace` (kernel
+`level_round`, mode "sharded", K10b) and `make_exchange_trace` (modes
+"trunk" and "packets", K10c; no ray truncated) and trained one step by
+`make_sharded_fit_step`; each mode held bitwise against `level_round_plain`
+on the path's first call, each path against its plain rounds on a fixed
+subset of 512² of its rays, the trace against `clipmap_trace` on the same
+tables; then on the depth-10 frame `render_sharded` and the three sharded
+train steps against the unsharded ones (bit for bit), and two
+`InverseRenderer(n_devices=1)` steps.
+One line per phase; any failure raises and the exit code is non-zero.
 The last two lines are a JSON record of the kernels and the device. Without
 a CUDA device it fails before printing any result.
 """
@@ -146,6 +157,7 @@ from raytracingtest_tpu_torch.ops import (
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import SCENES, Scene, get_scene
+from raytracingtest_tpu_torch.parallel import level_sharded
 from raytracingtest_tpu_torch.stream import clipmap
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
@@ -202,18 +214,19 @@ OCTREE_PLAIN = ("expand_plain", "count_plain", "compact_plain", "leaves_plain",
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
                "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
                "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0,
-               "trace_clipmap_rounds": 0, "remap_ids": 0,
+               "trace_clipmap_rounds": 0, "remap_ids": 0, "level_round_plain": 0,
                **{name: 0 for name in OCTREE_PLAIN}}
 # the launch counts of the kernels this checkout adds to the earlier ones'
 MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0,
                   esvo_stackless_lod=0, brick_trace_lod=0, clipmap_trace=0,
-                  clipmap_trace_brick=0)
-# the compositing backward's, the LOD traces', the SVO builder's and the
-# streamed world's plain calls and launches that the training steps must not
-# make
+                  clipmap_trace_brick=0, level_round_sharded=0, level_round_trunk=0,
+                  level_round_packets=0)
+# the compositing backward's, the LOD traces', the SVO builder's, the
+# streamed world's and the level-sharded rounds' plain calls and launches that
+# the training steps must not make
 STEP_ZERO = dict(trace_lod=0, trace_brick_lod=0, composite_bwd_plain=0,
                  composite_bwd=0, trace_clipmap_rounds=0, remap_ids=0,
-                 **{name: 0 for name in OCTREE_PLAIN})
+                 level_round_plain=0, **{name: 0 for name in OCTREE_PLAIN})
 STAT = traverse.STAT_NAMES.index
 # the brick and stackless traces' launch counts: the main path's wrapper,
 # the brick trace's other forms' and the probe forms'
@@ -373,6 +386,7 @@ def count_plain_calls():
                            (shade_cuda, "composite_bwd_plain", "composite_bwd_plain"),
                            (clipmap, "trace_clipmap_rounds", "trace_clipmap_rounds"),
                            (tile, "remap_ids", "remap_ids"),
+                           (level_sharded, "level_round_plain", "level_round_plain"),
                            *((octree_cuda, name, name) for name in OCTREE_PLAIN)):
         plain = getattr(mod, name)
 
@@ -485,7 +499,7 @@ def multi_rule_parity(dev, err):
     turns to the first form, on 4,133 rays (a ragged last block and warp)
     of a depth-6 terrain: each form bitwise against the plain version, and
     the main path's wrapper through the form the rule names."""
-    host = octree.build_svo(get_scene("terrain"), 6)
+    host = octree.build_svo(get_scene("terrain"), 6).svo
     bsvo = brick.make_brick_svo(host).to(dev)
     o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4133, 61))
     found = []
@@ -524,7 +538,7 @@ def volumetric_parity(dev, cam, light, err):
     lines, n_cases = [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
                         ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
-        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth).svo
         svo_s, bsvo_s = host.to(dev), brick.make_brick_svo(host).to(dev)
         pset = volume_params(host, dev, depth) if host.n_leaves else None
         found = []
@@ -1809,7 +1823,7 @@ def lod_parity(dev, cam, err):
     lines, n_cases = [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
                         ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
-        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth).svo
         svo_s, bsvo_s = host.to(dev), brick.make_brick_svo(host).to(dev)
         found = []
         for kind, o, d in ray_sets(dev, cam, 4096, depth + 200):
@@ -2148,7 +2162,8 @@ def ptxas_report(log):
         if "Compiling entry function" in line:
             # the mangled name: its length, the name, and a template's
             # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
-            m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace)\w*?_kernel)"
+            m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace|level_round)"
+                          r"\w*?_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", line)
             name, stores = None, 0
             if m:
@@ -2553,7 +2568,7 @@ def candidate_cases(dev, small_cam, inside_cam, horizon_cam):
             ("terrain", 7, small_cam, NARROW),
             ("terrain", 7, horizon_cam, ("bench",) + NARROW)):
         scene = empty if name == "empty" else get_scene(name)
-        ts = tile.make_tile_svo(octree.build_svo(scene, depth)).to(dev)
+        ts = tile.make_tile_svo(octree.build_svo(scene, depth).svo).to(dev)
         o, d, corners, _grid = tile.tile_rays(cam, dev)
         sub = tile._subtile_split(o, d, corners, 2)[2].contiguous()
         where = ("inside the solid" if cam is inside_cam else
@@ -3154,6 +3169,421 @@ def svo_ptxas(log):
         r".*?Used (\d+) registers", log, re.S)]
 
 
+# ---- [sharded]: the sharded renderer in a world of one -----------------------
+
+# the level-sharded world: bench.py's terrain at depth 12 (BASELINE config 5's
+# depth), built on the card octant by octant and split at level 2, traced
+# through bench.py's camera at 2048²; its paths' parity with their plain
+# versions runs on every SHARDED_STRIDE-th ray of every SHARDED_STRIDE-th row
+SHARDED_DEPTH, SHARDED_SPLIT, SHARDED_RES, SHARDED_STRIDE = 12, 2, 2048, 4
+# the TPU sites the level_round modes replace
+LEVEL_REPLACES = {"sharded": "raytracingtest_tpu/parallel/level_sharded.py:327",
+                  "trunk": "raytracingtest_tpu/parallel/level_sharded.py:481",
+                  "packets": "raytracingtest_tpu/parallel/level_sharded.py:481"}
+# the box exit and the carry of one round a ray (the six planes, the
+# minimum, the advance)
+OPS_LEVEL_EXIT = 20
+
+
+@contextlib.contextmanager
+def plain_rounds():
+    """Inside the block the level-sharded loops take level_round's plain
+    version on the card's tensors."""
+    from raytracingtest_tpu_torch.parallel import level_sharded
+    kernel = level_sharded.level_round
+
+    def plain(mode, tb, *args, **kw):
+        return level_sharded.level_round_plain(mode, tb, *args, **kw)
+    level_sharded.level_round = plain
+    try:
+        yield
+    finally:
+        level_sharded.level_round = kernel
+
+
+@contextlib.contextmanager
+def level_calls():
+    """Every call of level_round made inside the block, (mode, tables,
+    args) in a list; the calls themselves go on."""
+    from raytracingtest_tpu_torch.parallel import level_sharded
+    calls, kernel = [], level_sharded.level_round
+
+    def recording(mode, tb, *args, **kw):
+        calls.append((mode, tb, args))
+        return kernel(mode, tb, *args, **kw)
+    level_sharded.level_round = recording
+    try:
+        yield calls
+    finally:
+        level_sharded.level_round = kernel
+
+
+def counted_run(what, fn, kernels):
+    """fn() from zeroed counts; fails unless it launched every kernel of
+    `kernels` and no other, nor called a plain version. Returns (fn()'s
+    result, the launches)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if set(got) != set(kernels):
+        raise AssertionError(f"{what}: launched {got}, expected each of {kernels}")
+    return out, got
+
+
+def level_work(mode, tb, args, counts):
+    """bound() of one level_round call: each input read once (the rays or
+    packets, the trees the mode walks, the octant tables) and each output
+    written once; this call's stackless steps and walks as the plain
+    version counted them, and the box exit a ray that found an octant."""
+    trunk = nbytes(tb.trunk.masks, tb.trunk.child_base, tb.trunk.parent_ptr,
+                   tb.trunk.leaf_base)
+    arena = nbytes(tb.arena.masks, tb.arena.child_base, tb.arena.parent_ptr,
+                   tb.arena.leaf_base)
+    # the trunk mode reads no arena, the packets mode no trunk
+    tables = (nbytes(tb.owner, tb.root, tb.origin) + (arena if mode != "trunk" else 0)
+              + (trunk if mode != "packets" else 0))
+    n = args[0].shape[0]
+    out_bytes = {"sharded": 20, "trunk": 8, "packets": 8}[mode] * n
+    n_bytes = tables + nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + out_bytes
+    n_ops = (counts["steps"] * OPS_ESVO_STEP + counts["walks"] * OPS_RAY_SETUP
+             + (0 if mode == "packets" else n * OPS_LEVEL_EXIT))
+    return bound(n_bytes, n_ops)
+
+
+def path_profile(fn, key=None):
+    """(device us a call in every kernel, launches a call; the same for the
+    kernels whose names hold `key`) over three calls, from torch.profiler,
+    None where it saw no kernel."""
+    rows = traced_kernels(fn, 3)
+    total = sum(dev_us(e) for e in rows) / 3
+    n = sum(e.count for e in rows) / 3
+    if total <= 0.0:
+        return None
+    mine = [e for e in rows if key and key in e.key]
+    return dict(us=total, n=n, key_us=sum(dev_us(e) for e in mine) / 3,
+                key_n=sum(e.count for e in mine) / 3,
+                by={e.key: dev_us(e) / 3 for e in rows})
+
+
+def sharded_phase(ctx, card):
+    """[sharded]: the sharded renderer (parallel/) in a real NCCL world of
+    one on the card. The depth-12 terrain, built on the card octant by
+    octant (build_svo_device_split) and split at level 2 (split_svo, one
+    arena), traced at 2048² through bench.py's camera by make_sharded_trace
+    (K10b: level_round "sharded") and make_exchange_trace (cap_factor 1;
+    K10c: level_round "trunk" and "packets"), and trained one step by
+    make_sharded_fit_step (target 0). Each level_round mode is held bitwise
+    against its plain version on the main path's first call of it (the
+    whole batch), each path against the plain rounds on a fixed subset of
+    its rays, the trace against clipmap_trace on the same tables and the
+    exchange trace. Then the depth-10 frame at 1024²: render_sharded, the
+    three sharded train steps against the unsharded ones (hits, loss and
+    gradients bit for bit expected; F4's 1e-4 required), and two
+    InverseRenderer(n_devices=1) steps. Returns the numbers for the kernels
+    line."""
+    import torch.distributed as dist
+
+    from raytracingtest_tpu_torch.ops import octree_device
+    from raytracingtest_tpu_torch.parallel import level_sharded
+    from raytracingtest_tpu_torch.parallel import render_sharded as rs
+    from raytracingtest_tpu_torch.parallel.mesh import make_mesh
+
+    dev, err, bench_cam = ctx["dev"], ctx["err"], ctx["bench_cam"]
+    mesh = make_mesh(1, dev)
+    if dist.get_backend() != "nccl" or mesh.world != 1:
+        raise AssertionError(f"the world is {dist.get_backend()} of {mesh.world}")
+    out = dict(launches={}, ms={}, prof={}, calls={})
+
+    # ---- the depth-12 world ----------------------------------------------------
+    t0 = time.perf_counter()
+    svo12 = octree_device.build_svo_device_split(
+        get_scene("terrain"), SHARDED_DEPTH, split_level=SHARDED_SPLIT, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls = level_sharded.split_svo(svo12, SHARDED_SPLIT, 1)
+    split_s = time.perf_counter() - t0
+    arena_b = sum(a.nbytes for a in (ls.arena_masks, ls.arena_child, ls.arena_leaf,
+                                     ls.arena_albedo, ls.arena_normal, ls.arena_density))
+    t0 = time.perf_counter()
+    trace = level_sharded.make_sharded_trace(mesh, ls)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tb = trace.tables
+    exchange = level_sharded.make_exchange_trace(mesh, ls, max_rounds=256, cap_factor=1)
+    fit = level_sharded.make_sharded_fit_step(mesh, ls)
+    say(f"[sharded] {card}: a real NCCL world of one; terrain depth "
+        f"{SHARDED_DEPTH}: {svo12.n_nodes} nodes, {svo12.n_leaves} leaves, built on "
+        f"the card octant by octant in {build_s:.2f} s; split at level "
+        f"{SHARDED_SPLIT} on the host in {split_s:.2f} s ({len(ls.octant_root)} "
+        f"octants of sub-depth {ls.sub_depth}; trunk {ls.trunk_masks.shape[0]} rows; "
+        f"the arena {ls.arena_masks.shape[1]} node rows, "
+        f"{ls.arena_albedo.shape[1]} leaf rows, {arena_b / 1e9:.3f} GB), "
+        f"moved to the card in {upload_s:.2f} s")
+    del svo12
+
+    cam = camera.Camera(**bench_cam, width=SHARDED_RES, height=SHARDED_RES)
+    o, d = cam.rays(dev)
+    n = o.shape[0]
+    light = ctx["light"]
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    arena_params = (tb.arena.leaf_albedo, tb.arena.leaf_normal, tb.arena.leaf_density)
+
+    # the three paths, each launching only its kernels
+    with level_calls() as calls:
+        got_tr, launches = counted_run("make_sharded_trace", lambda: trace(o, d),
+                                       {"level_round_sharded"})
+        out["launches"]["sharded trace"], rounds_tr = launches, trace.stats["rounds"]
+        got_ex, launches = counted_run("make_exchange_trace", lambda: exchange(o, d),
+                                       {"level_round_trunk", "level_round_packets"})
+        out["launches"]["exchange trace"], rounds_ex = launches, exchange.stats["rounds"]
+        (loss, grads), launches = counted_run(
+            "make_sharded_fit_step", lambda: fit(*arena_params, o, d, light, target),
+            {"level_round_sharded", "shade_fwd", "shade_bwd", "segment_sum"})
+        out["launches"]["sharded fit"], rounds_fit = launches, fit.stats["rounds"]
+    if (out["launches"]["sharded trace"]["level_round_sharded"] != rounds_tr
+            or out["launches"]["exchange trace"]["level_round_trunk"] != rounds_ex
+            or out["launches"]["exchange trace"]["level_round_packets"] != rounds_ex
+            or out["launches"]["sharded fit"]["level_round_sharded"] != rounds_fit):
+        raise AssertionError(f"rounds {rounds_tr}, {rounds_ex}, {rounds_fit} against "
+                             f"the launches {out['launches']}")
+    leaf, t_hit, owner, trunc = got_tr
+    x_leaf, x_t, x_owner, traced, x_trunc = got_ex
+    n_hit, n_trunc, n_xtrunc = int((leaf >= 0).sum()), int(trunc.sum()), int(x_trunc.sum())
+    if n_xtrunc or n_trunc or n_hit == 0:
+        raise AssertionError(f"{n_hit} hits, {n_trunc} rays truncated by the sharded "
+                             f"trace, {n_xtrunc} by the exchange trace")
+    # the exchange trace is the sharded trace's answer at one rank
+    if not (torch.equal(x_leaf, leaf) and torch.equal(bits(x_t), bits(t_hit))
+            and torch.equal(x_owner, owner) and int(traced) > 0):
+        raise AssertionError("the exchange trace differs from the sharded trace")
+    if not (bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+            and float(sum(g.abs().sum() for g in grads)) > 0):
+        raise AssertionError(f"the sharded fit: loss {float(loss)}, grads not finite or 0")
+    # the same tables through the streamed world's stitched trace: one
+    # chunk an octant, the trunk at corner 0 and size 1
+    n_oct = tb.root.shape[0]
+    sizes = torch.full((n_oct,), tb.size, dtype=torch.float32, device=dev)
+    n_max = level_sharded.rounds_bound(ls.trunk_depth)
+    c_leaf, c_t, c_chunk, c_trunc = brick_cuda.clipmap_kernel(
+        tb.trunk, (0.0, 0.0, 0.0), 1.0, tb.root, tb.origin, sizes, tb.arena, o, d,
+        ls.sub_depth, n_max)
+    torch.cuda.synchronize()
+    if not (torch.equal(c_leaf, leaf) and torch.equal(bits(c_t), bits(t_hit))
+            and torch.equal(c_trunc, trunc)):
+        raise AssertionError(f"clipmap_trace parts from the sharded trace on "
+                             f"{int((c_leaf != leaf).sum())} leaves")
+    say(f"[sharded] the {SHARDED_RES}² rays of bench.py's camera: make_sharded_trace "
+        f"{rounds_tr} rounds (launches {out['launches']['sharded trace']}), "
+        f"make_exchange_trace {rounds_ex} rounds, cap_factor 1 (launches "
+        f"{out['launches']['exchange trace']}, {int(traced)} packets walked), "
+        f"make_sharded_fit_step {rounds_fit} rounds (launches "
+        f"{out['launches']['sharded fit']}, loss {float(loss):.6f}): {n_hit} rays hit, "
+        f"{n_trunc} truncated by the sharded trace and {n_xtrunc} by the exchange "
+        f"trace; the two traces agree bit for bit, and clipmap_trace on the same "
+        f"tables (one chunk an octant) gives their leaves and t bits")
+
+    # each mode against its plain version on the main path's first call
+    first = {}
+    for mode, tbl, args in calls:
+        first.setdefault(mode, (tbl, args))
+    for mode, (tbl, args) in first.items():
+        got = brick_cuda.level_round_kernel(mode, tbl.trunk, tbl.arena, tbl.owner,
+                                            tbl.root, tbl.origin, tbl.size, tbl.rank, *args)
+        counts = {}
+        t0 = time.perf_counter()
+        plain = level_sharded.level_round_plain(mode, tbl, *args, counts=counts)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        names = {"sharded": ("oct_id", "hit", "leaf", "t_hit", "t_next"),
+                 "trunk": ("oct_id", "t_next"), "packets": ("replies",)}[mode]
+        err[f"level_round_{mode}"] = compare_tensors(got, plain, names,
+                                                     f"level_round {mode}")
+        fn = (lambda m=mode, tl=tbl, a=args: brick_cuda.level_round_kernel(
+            m, tl.trunk, tl.arena, tl.owner, tl.root, tl.origin, tl.size, tl.rank, *a))
+        out["calls"][mode] = dict(
+            n=args[0].shape[0], counts=counts, plain_ms=plain_s * 1e3,
+            bound=level_work(mode, tbl, args, counts),
+            ms=cuda_ms(fn, 20, 3), us_alone=graph_us(fn))
+        say(f"[sharded] level_round {mode} == level_round_plain bitwise ("
+            f"{', '.join(names)}) on the main path's first {mode} call, "
+            f"{args[0].shape[0]} {'packets' if mode == 'packets' else 'rays'}: "
+            f"{counts['walks']} walks, {counts['steps']} stackless steps")
+
+    # each path against the plain rounds on the fixed subset of its rays
+    sub = torch.arange(SHARDED_RES, device=dev)[::SHARDED_STRIDE]
+    pick = (sub[:, None] * SHARDED_RES + sub[None, :]).reshape(-1)
+    po, pd = o[pick].contiguous(), d[pick].contiguous()
+    with plain_rounds():
+        t0 = time.perf_counter()
+        p_tr = trace(po, pd)
+        torch.cuda.synchronize()
+        out["ms"]["sharded trace plain"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        p_ex = exchange(po, pd)
+        torch.cuda.synchronize()
+        out["ms"]["exchange trace plain"] = (time.perf_counter() - t0) * 1e3
+        p_fit = fit(*arena_params, po, pd, light, target[pick])
+    k_fit = fit(*arena_params, po, pd, light, target[pick])
+    compare_tensors(tuple(x[pick] for x in got_tr), p_tr,
+                    ("leaf", "t", "owner", "truncated"), "make_sharded_trace, plain rounds")
+    compare_tensors(tuple(x[pick] for x in (x_leaf, x_t, x_owner, x_trunc)),
+                    (p_ex[0], p_ex[1], p_ex[2], p_ex[4]),
+                    ("leaf", "t", "owner", "truncated"), "make_exchange_trace, plain rounds")
+    compare_tensors((k_fit[0], *k_fit[1]), (p_fit[0], *p_fit[1]),
+                    ("loss", "g_albedo", "g_normal", "g_density"),
+                    "make_sharded_fit_step, plain rounds")
+    say(f"[sharded] the paths on the fixed subset of {pick.numel()} rays (every "
+        f"{SHARDED_STRIDE}th ray of every {SHARDED_STRIDE}th row): make_sharded_trace "
+        f"and make_exchange_trace == their plain rounds (leaf, t bits, owner, "
+        f"truncation), make_sharded_fit_step's loss and gradients == the plain "
+        f"rounds' bit for bit")
+
+    # timing: CUDA events a call, and the tracer's kernels
+    paths = {"sharded trace": lambda: trace(o, d),
+             "exchange trace": lambda: exchange(o, d),
+             "sharded fit": lambda: fit(*arena_params, o, d, light, target)}
+    rounds = {"sharded trace": rounds_tr, "exchange trace": rounds_ex,
+              "sharded fit": rounds_fit}
+    for name, fn in paths.items():
+        out["ms"][name] = cuda_ms(fn, 5, 1)
+        out["prof"][name] = path_profile(fn, "level_round_kernel")
+    idle = lambda p, ms: "not measured" if p is None else f"{1 - p['us'] / 1e3 / ms:.2f}"
+    kus = lambda p, k: "not measured" if p is None else f"{p[k]:.1f}"
+    say(f"[sharded] {card}: at {SHARDED_RES}² on the depth-{SHARDED_DEPTH} world, " + "; ".join(
+        f"{name} {med_p80(out['ms'][name])[0]:.3f} ms (p80 "
+        f"{med_p80(out['ms'][name])[1]:.3f}) in {rounds[name]} rounds, "
+        f"{kus(out['prof'][name], 'us')} us of kernels in "
+        f"{kus(out['prof'][name], 'n')} launches ({kus(out['prof'][name], 'key_us')} us "
+        f"in level_round), idle {idle(out['prof'][name], med_p80(out['ms'][name])[0])}"
+        for name in paths) + f"; the plain rounds on the {pick.numel()} subset rays: "
+        f"sharded trace {out['ms']['sharded trace plain']:.1f} ms, exchange trace "
+        f"{out['ms']['exchange trace plain']:.1f} ms")
+    for name in paths:
+        p = out["prof"][name]
+        if p is not None:
+            top = sorted(p["by"].items(), key=lambda kv: -kv[1])[:6]
+            say(f"[sharded] {name}: the kernels by device us a call: " + ", ".join(
+                f"{k[:60]} {v:.1f}" for k, v in top))
+    for mode, c in out["calls"].items():
+        say(f"[bound] level_round {mode}, the first call ({c['n']} "
+            f"{'packets' if mode == 'packets' else 'rays'}; {OPS_ESVO_STEP} operations "
+            f"a stackless step, {OPS_RAY_SETUP} a walk's set-up, {OPS_LEVEL_EXIT} a "
+            f"ray's box exit): {c['counts']['steps']} steps, {c['counts']['walks']} "
+            f"walks, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); "
+            f"{med_p80(c['ms'])[0]:.4f} ms through the wrapper, {c['us_alone']:.2f} us "
+            f"alone in a CUDA graph; plain {c['plain_ms']:.1f} ms")
+
+    # ---- the depth-10 frame, world of one ------------------------------------------
+    svo, bsvo, ts = ctx["svo"], ctx["bsvo"], ctx["ts"]
+    o10, d10 = ctx["o"], ctx["d"]
+    o_t, d_t, corners, _grid = ctx["tile_rays"]
+    params = (svo.leaf_albedo, svo.leaf_normal, svo.leaf_density)
+    img = diff.render_diff(*params, svo, o10, d10, light)
+    tgt = (img * 0.5).contiguous()
+    got_img, launches = counted_run(
+        "render_sharded", lambda: rs.render_sharded(mesh, *params, svo, o10, d10, light),
+        {"esvo_stackless", "shade_fwd"})
+    if not torch.equal(bits(got_img), bits(img)):
+        raise AssertionError("render_sharded differs from the unsharded frame")
+    out["launches"]["render_sharded"] = launches
+
+    def still(p):
+        return torch.optim.SGD([p[k] for k in ("albedo", "normal", "density")], lr=0.0)
+
+    def fresh():
+        return {"albedo": svo.leaf_albedo.clone(), "normal": svo.leaf_normal.clone(),
+                "density": svo.leaf_density.clone()}
+
+    img_t, _res = diff.render_diff_tile(*params, ts, o_t, d_t, corners, light,
+                                        **renderers.TILE_STEP_BUDGETS)
+    tgt_t = (img_t * 0.5).contiguous()
+    steps = {
+        "make_train_step": (
+            {"esvo_stackless", "shade_fwd", "shade_bwd", "segment_sum"},
+            lambda p: rs.make_train_step(mesh)(p, still(p), svo, o10, d10, light, tgt),
+            lambda: diff.loss_and_grads(*params, svo, o10, d10, light, tgt)),
+        "make_train_step_brick": (
+            {"brick_trace", "shade_fwd", "shade_bwd", "segment_sum"},
+            lambda p: rs.make_train_step_brick(mesh)(p, still(p), bsvo, o10, d10, light, tgt),
+            lambda: diff.loss_and_grads_brick(*params, bsvo, o10, d10, light, tgt)),
+        "make_train_step_tile": (
+            {"tile_candidates", "tile_walk", "shade_fwd", "shade_bwd", "segment_sum"},
+            lambda p: rs.make_train_step_tile(mesh, **renderers.TILE_STEP_BUDGETS)(
+                p, still(p), ts, o_t, d_t, corners, light, tgt_t),
+            lambda: diff.loss_and_grads_tile(*params, ts, o_t, d_t, corners, light, tgt_t,
+                                             **renderers.TILE_STEP_BUDGETS)),
+    }
+    def unsharded(one_fn, p):
+        # the unsharded step with the same still optimizer's update, so the
+        # two differ only by the all_reduce and the share's division
+        out_one = one_fn()
+        rs._apply(p, still(p), out_one[1])
+        return out_one
+
+    apart = {}
+    for name, (kernels, sharded_fn, one_fn) in steps.items():
+        p = fresh()
+        res, launches = counted_run(name, lambda f=sharded_fn: f(p), kernels)
+        out["launches"][name] = launches
+        want = one_fn()
+        want_loss = want[0][0] if isinstance(want[0], tuple) else want[0]
+        got = (res[2], *(p[k].grad for k in ("albedo", "normal", "density")))
+        exp = (want_loss, *want[1])
+        diffs = [float((a - b).abs().max()) for a, b in zip(got, exp)]
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, exp))
+        if max(diffs) > 1e-4:
+            raise AssertionError(f"{name}: loss and gradients apart by {diffs}")
+        apart[name] = (same, max(diffs))
+        q = fresh()
+        out["ms"][name] = in_turns({"sharded": lambda f=sharded_fn: f(p),
+                                    "unsharded": lambda f=one_fn: unsharded(f, q)},
+                                   rounds=2, reps=10)
+        out["prof"][name] = {k: path_profile(fn) for k, fn in (
+            ("sharded", lambda f=sharded_fn: f(p)),
+            ("unsharded", lambda f=one_fn: unsharded(f, q)))}
+    say(f"[sharded] {card}: the depth-10 frame at {int(round(o10.shape[0] ** 0.5))}², "
+        f"world of one: "
+        f"render_sharded == the unsharded frame bit for bit (launches "
+        f"{out['launches']['render_sharded']}); " + "; ".join(
+            f"{name} (launches {out['launches'][name]}) against the unsharded step: "
+            f"loss and gradients {'bit for bit' if s else f'within {m}'}, "
+            f"{med_p80(out['ms'][name]['sharded'])[0]:.4f} ms (p80 "
+            f"{med_p80(out['ms'][name]['sharded'])[1]:.4f}) against "
+            f"{med_p80(out['ms'][name]['unsharded'])[0]:.4f} ms (p80 "
+            f"{med_p80(out['ms'][name]['unsharded'])[1]:.4f}) in turns (the same still "
+            f"optimizer's update in both), kernels "
+            f"{kus(out['prof'][name]['sharded'], 'us')} us in "
+            f"{kus(out['prof'][name]['sharded'], 'n')} launches against "
+            f"{kus(out['prof'][name]['unsharded'], 'us')} us in "
+            f"{kus(out['prof'][name]['unsharded'], 'n')}"
+            for name, (s, m) in apart.items()))
+
+    # the trainer, sharded over the world of one
+    model = InverseRenderer(ctx["host_svo"], optimize=("albedo",), n_devices=1, device=dev)
+    if model.mesh is None or model.mesh.world != 1:
+        raise AssertionError("InverseRenderer(n_devices=1) in a world is not sharded")
+    mp, mstate = model.init_params(seed=0)
+    res10 = int(round(o10.shape[0] ** 0.5))
+    view = CameraConfig(**bench_cam, width=res10, height=res10)
+    losses = []
+    for _ in range(2):
+        (mp, mstate, loss_v, resid), launches = counted_run(
+            "InverseRenderer.step_view", lambda: model.step_view(
+                mp, mstate, view, (-0.5, -1.0, -0.3), tgt),
+            {"tile_candidates", "tile_walk", "shade_fwd", "shade_bwd", "segment_sum"})
+        losses.append((float(loss_v), int(resid)))
+    out["launches"]["InverseRenderer.step_view"] = launches
+    if not losses[1][0] < losses[0][0]:
+        raise AssertionError(f"InverseRenderer(n_devices=1): the loss does not fall: {losses}")
+    say(f"[sharded] InverseRenderer(n_devices=1), two step_view steps on the {res10}² "
+        f"view from random albedo: loss, residual {losses} (launches {launches})")
+    dist.destroy_process_group()
+    out.update(rounds=rounds, n_hit=n_hit)
+    return out
+
+
 def main():
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3180,9 +3610,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 18:
+    if len(ptxas) != 21:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 18")
+                             f"expected 21")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -3191,7 +3621,8 @@ def main():
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
         "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
-        "kernels, the stitched traces clipmap_trace_kernel<brick arena>: "
+        "kernels, the stitched traces clipmap_trace_kernel<brick arena>, "
+        "the level-sharded rounds level_round_kernel<mode>: "
         "registers, spill bytes, shared bytes; the staged form's "
         "slots are dynamic shared memory): "
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
@@ -3222,7 +3653,7 @@ def main():
                tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
                **{k: 0.0 for k in BUILD_KERNELS})
     for name, depth in (("sphere", 5), ("terrain", 6)):
-        svo = octree.build_svo(get_scene(name), depth).to(dev)
+        svo = octree.build_svo(get_scene(name), depth).svo.to(dev)
         for n in (1000, 4096):
             o, d = (torch.from_numpy(a).to(dev)
                     for a in random_rays(n, seed=depth + n))
@@ -3275,7 +3706,7 @@ def main():
         + ", ".join(f"{what} ({n})" for (what, _a), n in zip(cand_cases, cand_valid))
         + " (valid candidates in brackets)")
     for name, depth in (("terrain", 6), ("terrain", 7), ("flat_ground", 6)):
-        ts = tile.make_tile_svo(octree.build_svo(get_scene(name), depth)).to(dev)
+        ts = tile.make_tile_svo(octree.build_svo(get_scene(name), depth).svo).to(dev)
         o, d, corners, _grid = tile.tile_rays(small_cam, dev)
         for mode in ("main", "enlarged-K", "sub-tile"):
             args = walk_inputs(ts, o, d, corners, mode)
@@ -3295,7 +3726,7 @@ def main():
     dda_most, parity_lines, n_small = 0, [], 0
     for name, depth in (("sphere", 5), ("terrain", 6), ("terrain", 7),
                         ("flat_ground", 6), ("empty", 5), ("sphere", 4)):
-        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth)
+        host = octree.build_svo(empty if name == "empty" else get_scene(name), depth).svo
         small_svo, small_bsvo = host.to(dev), brick.make_brick_svo(host).to(dev)
         found = []
         for kind, o, d in ray_sets(dev, small_cam, 4096, depth):
@@ -3425,7 +3856,7 @@ def main():
     if os.path.exists(cache):
         host_svo, how = checkpoint.load_svo(cache, "cpu"), "cached"
     else:
-        host_svo, how = octree.build_svo(get_scene("terrain"), depth), "built"
+        host_svo, how = octree.build_svo(get_scene("terrain"), depth).svo, "built"
         checkpoint.save_svo(host_svo, cache)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4166,6 +4597,10 @@ def main():
     flown = fly_phase(dict(dev=dev, host_svo=host_svo, host_ts=host_ts, ts=ts, svo=svo,
                            tile_rays=(o_t, d_t, corners, grid), err=err, res=res,
                            bench_cam=bench_cam, light=light), card)
+    # ---- 7g. the sharded renderer, in a world of one ------------------------------
+    shard = sharded_phase(dict(dev=dev, err=err, bench_cam=bench_cam, light=light,
+                               svo=svo, bsvo=bsvo, ts=ts, o=o, d=d, host_svo=host_svo,
+                               tile_rays=(o_t, d_t, corners, grid)), card)
 
     # ---- 8. timing: both frames within this one call -----------------------
     # 50 samples: the 80th percentile has 10 beyond it
@@ -5146,6 +5581,22 @@ def main():
             launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
             ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
             bound_by=bnd[1], library_ms=None, **extra))
+    for mode, c_tr in (("sharded", "sharded trace"), ("trunk", "exchange trace"),
+                       ("packets", "exchange trace")):
+        kname, c = f"level_round_{mode}", shard["calls"][mode]
+        kernels.append(dict(
+            name=kname, route="cuda", source=src + "brick_trace.cu",
+            replaces=LEVEL_REPLACES[mode],
+            path=(f"parallel.level_sharded.{'make_sharded_trace' if mode == 'sharded' else 'make_exchange_trace'}"
+                  f" on the depth-{SHARDED_DEPTH} terrain split at level {SHARDED_SPLIT}, "
+                  f"{SHARDED_RES}² rays, a NCCL world of one"),
+            launches=shard["launches"][c_tr][kname], max_abs_err=err[kname],
+            ms=med_p80(c["ms"])[0], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+            bound_by=c["bound"][1], library_ms=None, us_alone=c["us_alone"],
+            shape=f"the path's first {mode} call, {c['n']} "
+                  f"{'packets' if mode == 'packets' else 'rays'}",
+            rounds=shard["rounds"][c_tr],
+            launches_fit=shard["launches"]["sharded fit"].get(kname, 0)))
     for row in kernels:
         row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]

@@ -12,7 +12,7 @@ used only when the caller passes ``device="cpu"``.
 
 from raytracingtest_tpu_torch._device import default_device
 from raytracingtest_tpu_torch.ops.camera import Camera
-from raytracingtest_tpu_torch.ops.octree import SVO, build_svo
+from raytracingtest_tpu_torch.ops.octree import SVO, BuildResult, build_svo
 from raytracingtest_tpu_torch.scenes import get_scene
 
-__all__ = ["SVO", "build_svo", "get_scene", "Camera", "default_device"]
+__all__ = ["SVO", "BuildResult", "build_svo", "get_scene", "Camera", "default_device"]

@@ -31,9 +31,10 @@ Seven libraries, each built on first use into
                      its first form; each with counters too) for volumetric
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
-                     ``brick_trace_lod``), and the streamed world's
+                     ``brick_trace_lod``), the streamed world's
                      stitched traces (``clipmap_trace``,
-                     ``clipmap_trace_brick``);
+                     ``clipmap_trace_brick``) and the level-sharded
+                     rounds (``level_round``, three modes);
   * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
                      builder on the card (``svo_expand``, ``svo_compact``,
                      ``svo_leaves``, ``svo_level_up``, ``svo_parent_ptr``)
@@ -229,6 +230,9 @@ def _declare_brick(lib):
     for fn in (lib.clipmap_trace, lib.clipmap_trace_brick):
         fn.argtypes = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 5
         fn.restype = i
+    lib.level_round.argtypes = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3
+                                + [f, i] + [p] * 4 + [i] + [p] * 6)
+    lib.level_round.restype = i
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,

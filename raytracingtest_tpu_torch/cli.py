@@ -59,7 +59,7 @@ def _load_or_build(scene_name: str, depth: int, cache_dir: str,
     if os.path.exists(path):
         return ckpt.load_svo(path, "cpu")
     t0 = time.time()
-    svo = build_svo(get_scene(scene_name), depth)
+    svo = build_svo(get_scene(scene_name), depth).svo
     print(f"built {scene_name} depth={depth}: {svo.n_nodes} nodes, "
           f"{svo.n_leaves} leaves in {time.time()-t0:.1f}s", file=sys.stderr)
     ckpt.save_svo(svo, path)
@@ -194,9 +194,13 @@ def cmd_render(args):
 
 def cmd_fit(args):
     """Inverse-rendering fit: recover voxel albedo from posed target
-    images, on one device."""
+    images, on one device, or with rays sharded over the processes of a
+    ``torch.distributed`` world when the environment configures one
+    (``parallel/multihost.py``): each process trains on its rows, and
+    process 0 writes the checkpoint."""
     from raytracingtest_tpu_torch.parallel import multihost
-    multihost.init_from_env()
+    from raytracingtest_tpu_torch.parallel.mesh import rank_device
+    info = multihost.init_from_env(device=args.device)
 
     from raytracingtest_tpu_torch import diff
     from raytracingtest_tpu_torch.config import CameraConfig
@@ -204,8 +208,14 @@ def cmd_fit(args):
     from raytracingtest_tpu_torch.models import InverseRenderer
     from raytracingtest_tpu_torch.ops.camera import Camera
 
-    device = args.device
+    device = rank_device(args.device) if info["initialized"] else args.device
+    # process 0 builds and caches the tree; the others then load it
+    later = info["initialized"] and info["process_index"] != 0
+    if later:
+        torch.distributed.barrier()
     svo = _load_or_build(args.scene, args.depth, args.cache_dir).to(device)
+    if info["initialized"] and not later:
+        torch.distributed.barrier()
     light = torch.tensor(_LIGHT, dtype=torch.float32, device=device)
     model = InverseRenderer(svo, optimize=("albedo",),
                             learning_rate=args.lr, device=device)
@@ -251,6 +261,8 @@ def cmd_fit(args):
               "hits (raise fb_tiles/fb_k)", file=sys.stderr)
     err = float((params["albedo"] - svo.leaf_albedo).abs().mean())
     print(f"final mean |albedo error| = {err:.4f}", file=sys.stderr)
+    if info["process_index"] != 0:
+        return
     os.makedirs(args.out_dir, exist_ok=True)
     ckpt.save_train_state(os.path.join(args.out_dir, "fit_state.npz"),
                           params, opt_state, step=args.steps,

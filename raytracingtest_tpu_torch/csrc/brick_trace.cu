@@ -1,5 +1,7 @@
 // The per-ray stackless traces for Hopper, sm_90a: six traces that share
-// one stackless step.
+// one stackless step, the streamed world's stitched traces (clipmap_trace,
+// clipmap_trace_brick) and the level-sharded rounds (level_round), which
+// walk from a per-ray root.
 //
 //   esvo_stackless  replaces raytracingtest_tpu/ops/traverse.py::_trace_core
 //                   (:530, driven by trace_jax :639; its step _fast_step
@@ -1302,6 +1304,133 @@ clipmap_trace_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
   out.truncated[i] = done ? 0 : 1;
 }
 
+// ---- the level-sharded renderer: level_round ---------------------------------
+//
+// One round of the level-sharded traces (raytracingtest_tpu/parallel/
+// level_sharded.py): the trunk is the tree's top trunk_depth levels, each of
+// whose leaves is an octant; every octant's subtree lives in one rank's
+// arena, from its root row. One thread a ray, or a packet, in three modes:
+//
+//   LEVEL_SHARDED  replaces _phase_loop_local's round (:353-380; K10b): rays
+//                  replicated on every rank. A ray not done: o_cur = o + t_off
+//                  * d; the trunk's stackless walk from o_cur finds its
+//                  octant or ends the ray; where this rank owns the octant,
+//                  the arena's walk from the octant's root at (o_cur - org) /
+//                  size. A ray of another rank's octant skips that walk (the
+//                  reference walks it and masks the result out).
+//   LEVEL_TRUNK    the trunk half of make_exchange_trace's round (:531-537
+//                  and the advance :615-618; K10c): the rank's own rays.
+//   LEVEL_PACKETS  the owner's half of that round (:576-588; K10c): the arena
+//                  walk of each received packet (8 words: o_cur, d, the
+//                  octant id and the valid flag as int32 bits) from its
+//                  octant's root. An invalid packet is skipped.
+//
+// Outputs a ray (SHARDED, TRUNK): oct_id (-1: done, or the trunk missed) and
+// t_next = t_off + t_exit + 1e-5, the advance past the octant's box (t_off
+// where there is no octant); SHARDED also: hit (1 where this rank's arena
+// stopped the ray), the arena leaf (-1 elsewhere) and t_hit = t_off + t *
+// size (0 elsewhere). A packet's reply (PACKETS): (leaf as int32 bits, t *
+// size), (-1, 0) for a miss or an invalid packet. The rounds' carry (the
+// all_reduce of the hit flags, the exchange, the records) is the caller's.
+// Each walk keeps esvo_stackless's bound; arithmetic is clipmap_trace's, in
+// the reference's order, each product rounded on its own (--fmad=false).
+
+constexpr int LEVEL_SHARDED = 0, LEVEL_TRUNK = 1, LEVEL_PACKETS = 2;
+constexpr int PACKET_WORDS = 8, REPLY_WORDS = 2;
+
+// The octant tables (each octant's owner rank, root row in its owner's
+// arena, octree-space low corner (3 floats)), the octants' common size and
+// this rank.
+struct Octants {
+  const int* owner;
+  const int* root;
+  const float* origin;
+  float size;
+  int rank;
+};
+struct LevelIO {
+  const float* origin;     // (n, 3); PACKETS: the packets (n, 8)
+  const float* direction;  // (n, 3)
+  const float* t_off;      // (n,)
+  const unsigned char* done;
+  int n;
+  int* oct_id;
+  int* hit;
+  int* leaf;               // PACKETS: the replies (n, 2) as floats
+  float* t_hit;
+  float* t_next;
+};
+
+// The arena walk from octant `oct`'s root of a ray at octree-space o_cur:
+// the arena leaf, or -1; t * size of the hit in t_scaled.
+__device__ __forceinline__ int octant_walk(const Tree& arena, const Octants& oc,
+                                           int oct, const float o_cur[3],
+                                           const float d[3], float& t_scaled) {
+  float o_loc[3];
+  for (int c = 0; c < 3; ++c)
+    o_loc[c] = (o_cur[c] - __ldg(oc.origin + (size_t)3 * oct + c)) / oc.size;
+  float t2;
+  const int leaf = stackless_walk_from(arena, o_loc, d, __ldg(oc.root + oct), t2);
+  t_scaled = leaf >= 0 ? t2 * oc.size : 0.0f;
+  return leaf;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK)
+level_round_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= io.n) return;
+  if (MODE == LEVEL_PACKETS) {
+    const float* p = io.origin + (size_t)PACKET_WORDS * i;
+    int leaf = -1;
+    float t = 0.0f;
+    if (__float_as_int(p[7]) != 0) {
+      const float o[3] = {p[0], p[1], p[2]}, d[3] = {p[3], p[4], p[5]};
+      leaf = octant_walk(arena, oc, __float_as_int(p[6]), o, d, t);
+    }
+    float* reply = reinterpret_cast<float*>(io.leaf) + (size_t)REPLY_WORDS * i;
+    reply[0] = __int_as_float(leaf);
+    reply[1] = t;
+    return;
+  }
+  const float t_off = io.t_off[i];
+  int oct = -1, leaf = -1;
+  float t_hit = 0.0f, t_next = t_off;
+  if (!io.done[i]) {
+    float o_cur[3], d[3];
+    for (int c = 0; c < 3; ++c) {
+      d[c] = io.direction[(size_t)3 * i + c];
+      o_cur[c] = io.origin[(size_t)3 * i + c] + t_off * d[c];
+    }
+    float t_unused;
+    oct = stackless_walk_from(trunk, o_cur, d, 0, t_unused);
+    if (oct >= 0) {
+      // past the octant's box: the least far-plane t over the axes
+      float t_exit = INFINITY;
+      for (int c = 0; c < 3; ++c) {
+        const float org = __ldg(oc.origin + (size_t)3 * oct + c);
+        const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
+        const float t0 = (org - o_cur[c]) / sd;
+        const float t1 = (org + oc.size - o_cur[c]) / sd;
+        t_exit = fminf(t_exit, fmaxf(t0, t1));
+      }
+      t_next = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
+      if (MODE == LEVEL_SHARDED && __ldg(oc.owner + oct) == oc.rank) {
+        float t2;
+        leaf = octant_walk(arena, oc, oct, o_cur, d, t2);
+        if (leaf >= 0) t_hit = t_off + t2;
+      }
+    }
+  }
+  io.oct_id[i] = oct;
+  io.t_next[i] = t_next;
+  if (MODE == LEVEL_SHARDED) {
+    io.hit[i] = leaf >= 0 ? 1 : 0;
+    io.leaf[i] = leaf;
+    io.t_hit[i] = t_hit;
+  }
+}
+
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
 
 Out outputs(void* hit_leaf, void* hit_t, void* hit_parent, void* hit_child,
@@ -1729,6 +1858,53 @@ extern "C" int clipmap_trace_brick(
         trunk, chunks, clip, Rays{(const float*)origin, (const float*)direction, n},
         ClipOut{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
                 (unsigned char*)truncated});
+  }
+  return (int)cudaGetLastError();
+}
+
+// One round of the level-sharded traces (see level_round_kernel), `mode`
+// LEVEL_SHARDED, LEVEL_TRUNK or LEVEL_PACKETS: the trunk (masks, child_base,
+// parent_ptr, leaf_base; trunk_depth), this rank's arena (the same four;
+// sub_depth), the octant tables (owner, root, origin (C, 3)), the octants'
+// size and this rank; n rays (origin, direction (n, 3), t_off (n,), done
+// (n,) bytes) or, in LEVEL_PACKETS, n packets at `origin` (n, 8); outputs
+// (n,) oct_id, hit, leaf, t_hit, t_next (LEVEL_TRUNK: oct_id and t_next,
+// the rest may be null) or, in LEVEL_PACKETS, the (n, 2) replies at `leaf`.
+extern "C" int level_round(int mode, const void* trunk_masks,
+                           const void* trunk_child, const void* trunk_parent,
+                           const void* trunk_leaf, int trunk_depth,
+                           const void* masks, const void* child_base,
+                           const void* parent_ptr, const void* leaf_base,
+                           int sub_depth, const void* oct_owner,
+                           const void* oct_root, const void* oct_origin,
+                           float size, int rank, const void* origin,
+                           const void* direction, const void* t_off,
+                           const void* done, int n, void* oct_id, void* hit,
+                           void* leaf, void* t_hit, void* t_next, void* stream) {
+  if (n < 0 || mode < LEVEL_SHARDED || mode > LEVEL_PACKETS || trunk_depth < 1 ||
+      trunk_depth > S_MAX - 1 || sub_depth < 1 || sub_depth > S_MAX - 1)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
+                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
+                     trunk_depth, 0};
+    const Tree arena{(const int*)masks, (const int*)child_base,
+                     (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                     sub_depth, 0};
+    const Octants oc{(const int*)oct_owner, (const int*)oct_root,
+                     (const float*)oct_origin, size, rank};
+    const LevelIO io{(const float*)origin, (const float*)direction,
+                     (const float*)t_off, (const unsigned char*)done, n,
+                     (int*)oct_id, (int*)hit, (int*)leaf, (float*)t_hit,
+                     (float*)t_next};
+    const int blocks = blocks_for(n, BLOCK);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (mode == LEVEL_SHARDED)
+      level_round_kernel<LEVEL_SHARDED><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
+    else if (mode == LEVEL_TRUNK)
+      level_round_kernel<LEVEL_TRUNK><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
+    else
+      level_round_kernel<LEVEL_PACKETS><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
   }
   return (int)cudaGetLastError();
 }

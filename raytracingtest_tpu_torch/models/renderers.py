@@ -10,9 +10,9 @@ Three models over the same packed SVO, each on one device:
   * ``VolumetricRenderer``: the first k leaf segments of each ray,
     composited (``diff.render_volumetric[_brick]``);
   * ``InverseRenderer``, the trainable model: a dictionary of voxel
-    parameters, an Adam optimizer over the trained ones, and a train step.
-
-The sharded (multi-device) step is not ported yet.
+    parameters, an Adam optimizer over the trained ones, and a train step,
+    on one device or with rays sharded over the ranks of a
+    ``torch.distributed`` world (``parallel/render_sharded.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raytracingtest_tpu_torch import diff, render
 from raytracingtest_tpu_torch._device import resolve
@@ -29,6 +30,8 @@ from raytracingtest_tpu_torch.config import CameraConfig, RenderConfig
 from raytracingtest_tpu_torch.ops import brick, tile
 from raytracingtest_tpu_torch.ops.camera import Camera
 from raytracingtest_tpu_torch.ops.octree import SVO
+from raytracingtest_tpu_torch.parallel import render_sharded
+from raytracingtest_tpu_torch.parallel.mesh import make_mesh, ray_sharding
 
 PARAM_NAMES = ("albedo", "normal", "density")
 
@@ -185,12 +188,20 @@ class VolumetricRenderer:
 
 @dataclasses.dataclass
 class InverseRenderer:
-    """Trainable voxel-parameter model with a train step on one device.
+    """Trainable voxel-parameter model with a train step, on one device or
+    sharded.
 
     `device` None means the default device (the card); the SVO is moved
     there. `optimize` names the trained parameters; the others are frozen
-    and never change. `n_devices` other than None or 1 raises: the sharded
-    step is not ported.
+    and never change. With `n_devices` given, or inside a started
+    ``torch.distributed`` world of more than one rank, the model is sharded
+    over the world's ranks (``parallel.mesh.make_mesh(n_devices)``, which
+    raises unless the world has `n_devices` ranks, and starts a world of one
+    where none is started and `n_devices` is 1): each rank trains on its
+    contiguous shard of the rays (``shard_rays``) and the gradients and loss
+    are all-reduced, so every rank's parameters stay equal. Otherwise it
+    trains on one device, with the faster unsharded steps, even inside a
+    world of one.
 
     The parameters are a dictionary of tensors and the optimizer state is a
     ``torch.optim.Adam`` over the trained ones. A step updates both IN
@@ -204,19 +215,25 @@ class InverseRenderer:
     device: Optional[object] = None
 
     def __post_init__(self):
-        if self.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={self.n_devices}: the port trains on one device")
         unknown = set(self.optimize) - set(PARAM_NAMES)
         if unknown or not self.optimize:
             raise ValueError(f"optimize={self.optimize!r}: expected a "
                              f"non-empty subset of {PARAM_NAMES}")
-        self.device = resolve(self.device)
+        sharded = self.n_devices is not None or (
+            dist.is_initialized() and dist.get_world_size() > 1)
+        self.mesh = make_mesh(self.n_devices, self.device) if sharded else None
+        self.device = self.mesh.device if sharded else resolve(self.device)
         self.svo = self.svo.to(self.device)
         # the reference's routes: the tile step for step_view where the
         # tree has the pyramid; `step` through the brick trace where it has
         # bricks, else through the stackless trace
         self._bsvo, self._tsvo = _accel_of(self)
+        if sharded:
+            self._step_tile = render_sharded.make_train_step_tile(
+                self.mesh, **TILE_STEP_BUDGETS)
+            self._step = (render_sharded.make_train_step_brick(self.mesh)
+                          if self._bsvo is not None
+                          else render_sharded.make_train_step(self.mesh))
 
     def init_params(self, seed: int = 0, randomize=("albedo",)):
         """(params, opt_state): the SVO's parameters, those named in
@@ -244,12 +261,27 @@ class InverseRenderer:
                 params[name].grad = g
         opt_state.step()
 
+    def shard_rays(self, o, d, target=None):
+        """This rank's shards of full ray batches (N, 3) (and of the
+        target), on the model's device; on one device, the batches
+        themselves there."""
+        put = ((lambda x: ray_sharding(self.mesh, x)) if self.mesh is not None
+               else (lambda x: torch.as_tensor(x).to(self.device)))
+        if target is None:
+            return put(o), put(d)
+        return put(o), put(d), put(target)
+
     def step(self, params, opt_state, o, d, light, target):
         """One train step on a flat batch of (N, 3) rays against `target`
-        (N, 3), any N, on the reference's route: through the brick trace
+        (N, 3), any N (sharded: this rank's shards, ``shard_rays``), on the
+        reference's route: through the brick trace
         (``diff.loss_and_grads_brick``) when the tree has bricks (depth >=
         4), else through the stackless trace (``diff.loss_and_grads``).
         Returns (params, opt_state, loss)."""
+        if self.mesh is not None:
+            tree = self._bsvo if self._bsvo is not None else self.svo
+            return self._step(params, opt_state, tree, o, d, self._light(light),
+                              target)
         values = tuple(params[name] for name in PARAM_NAMES)
         if self._bsvo is not None:
             loss, grads = diff.loss_and_grads_brick(
@@ -276,12 +308,17 @@ class InverseRenderer:
                 and camera_cfg.width % 16 == 0 and camera_cfg.height % 16 == 0):
             o_t, d_t, corners, grid = tile.tile_rays(cam, self.device)
             target = tile.tile_pixels(target_img, grid)
+            if self.mesh is not None:
+                shard = lambda x: ray_sharding(self.mesh, x)
+                return self._step_tile(params, opt_state, self._tsvo, shard(o_t),
+                                       shard(d_t), shard(corners),
+                                       self._light(light), shard(target))
             (loss, residual), grads = diff.loss_and_grads_tile(
                 *(params[name] for name in PARAM_NAMES), self._tsvo, o_t, d_t,
                 corners, self._light(light), target, **TILE_STEP_BUDGETS)
             self._update(params, opt_state, grads)
             return params, opt_state, loss, residual
-        o, d = cam.rays(self.device)
+        o, d, target_img = self.shard_rays(*cam.rays(self.device), target_img)
         params, opt_state, loss = self.step(params, opt_state, o, d, light,
                                             target_img)
         return params, opt_state, loss, torch.zeros(

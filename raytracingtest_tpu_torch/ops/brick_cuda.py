@@ -43,6 +43,10 @@ what each does, and PERF.md what it measured):
 rounds of ``stream/clipmap.py``'s ``trace_clipmap_device`` and
 ``trace_clipmap_device_brick``, whose plain versions are in that module.
 
+``level_round_kernel`` launches one round of the level-sharded traces
+(``level_round``, in its three modes), whose loops and plain version are in
+``parallel/level_sharded.py``.
+
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
 and ``probe_brick_multi_cuda`` launch a form with per-warp counters
 (``PROBE_FIELDS``), for measurement only.
@@ -73,7 +77,9 @@ _F32, _I32 = torch.float32, torch.int32
 # probe forms'
 launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0,
-            "clipmap_trace": 0, "clipmap_trace_brick": 0}
+            "clipmap_trace": 0, "clipmap_trace_brick": 0,
+            "level_round_sharded": 0, "level_round_trunk": 0,
+            "level_round_packets": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
@@ -94,6 +100,13 @@ _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
+_LEVEL_ROUND = Kernel("level_round", brick_lib)
+
+# level_round's modes (csrc/brick_trace.cu's LEVEL_*) and the words of an
+# exchanged packet (o_cur, d, octant id and valid flag as int32 bits) and of
+# its reply (leaf as int32 bits, t)
+LEVEL_MODES = {"sharded": 0, "trunk": 1, "packets": 2}
+PACKET_WORDS, REPLY_WORDS = 8, 2
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
 # each form's blocks
@@ -536,4 +549,65 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
            direction.data_ptr(), n, trunk.depth, chunk_depth, n_max,
            *(t.data_ptr() for t in out))
     launches["clipmap_trace_brick" if brick_arena else "clipmap_trace"] += 1
+    return out
+
+
+def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
+                       rays, direction=None, t_off=None, done=None):
+    """Launch one round of ``level_round`` in `mode` ("sharded", "trunk" or
+    "packets") on CUDA tensors. `trunk` and `arena` are SVOs (masks,
+    child_base, leaf_base, parent_ptr; depths trunk_depth and sub_depth);
+    `owner`, `root` (C,) int32 and `origin` (C, 3) float32 the octant tables,
+    `size` their size (a Python float, rounded to float32 here), `rank` this
+    rank. "sharded" and "trunk": `rays` (N, 3) float32 origins, `direction`
+    (N, 3), `t_off` (N,) float32 and `done` (N,) bool; returns (oct_id, hit,
+    leaf, t_hit, t_next) ("trunk": (oct_id, t_next)). "packets": `rays` the
+    (M, 8) float32 packets; returns the (M, 2) float32 replies."""
+    code = LEVEL_MODES[mode]
+    dev, n = rays.device, rays.shape[0]
+    c = owner.shape[0]
+    trunk_pptr = traverse.parent_ptr_of(trunk)
+    arena_pptr = traverse.parent_ptr_of(arena)
+    specs = [_table("trunk masks", trunk.masks),
+             _table("trunk child_base", trunk.child_base),
+             _table("trunk parent_ptr", trunk_pptr),
+             _table("trunk leaf_base", trunk.leaf_base),
+             _table("masks", arena.masks), _table("child_base", arena.child_base),
+             _table("parent_ptr", arena_pptr), _table("leaf_base", arena.leaf_base),
+             ("owner", owner, _I32, (c,)), ("root", root, _I32, (c,)),
+             ("origin", origin, _F32, (c, 3))]
+    if mode == "packets":
+        specs.append(("packets", rays, _F32, (n, PACKET_WORDS)))
+    else:
+        specs += [("origin", rays, _F32, (n, 3)), ("direction", direction, _F32, (n, 3)),
+                  ("t_off", t_off, _F32, (n,)), ("done", done, torch.bool, (n,))]
+    _LEVEL_ROUND.check(dev, specs)
+    if not (1 <= trunk.depth <= S_MAX - 1 and 1 <= arena.depth <= S_MAX - 1
+            and n < 2 ** 31):
+        raise ValueError(f"trunk depth {trunk.depth}, arena depth {arena.depth} "
+                         f"or {n} rays out of range")
+    empty = lambda dtype: torch.empty(n, dtype=dtype, device=dev)
+    null = 0
+    if mode == "packets":
+        out = (torch.empty((n, REPLY_WORDS), dtype=_F32, device=dev),)
+        ptrs = (null, null, out[0].data_ptr(), null, null)
+        ray_ptrs = (rays.data_ptr(), null, null, null)
+    else:
+        oct_id, t_next = empty(_I32), empty(_F32)
+        if mode == "sharded":
+            hit, leaf, t_hit = empty(_I32), empty(_I32), empty(_F32)
+            out = (oct_id, hit, leaf, t_hit, t_next)
+            ptrs = tuple(t.data_ptr() for t in out)
+        else:
+            out = (oct_id, t_next)
+            ptrs = (oct_id.data_ptr(), null, null, null, t_next.data_ptr())
+        ray_ptrs = (rays.data_ptr(), direction.data_ptr(), t_off.data_ptr(),
+                    done.data_ptr())
+    _LEVEL_ROUND(dev, code, trunk.masks.data_ptr(), trunk.child_base.data_ptr(),
+                 trunk_pptr.data_ptr(), trunk.leaf_base.data_ptr(), trunk.depth,
+                 arena.masks.data_ptr(), arena.child_base.data_ptr(),
+                 arena_pptr.data_ptr(), arena.leaf_base.data_ptr(), arena.depth,
+                 owner.data_ptr(), root.data_ptr(), origin.data_ptr(),
+                 float(np.float32(size)), int(rank), *ray_ptrs, n, *ptrs)
+    launches["level_round_" + mode] += 1
     return out

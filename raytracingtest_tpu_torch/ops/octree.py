@@ -73,6 +73,21 @@ class SVO:
         return SVO(**moved)
 
 
+@dataclasses.dataclass
+class BuildResult:
+    """``build_svo``'s output: the SVO (CPU tensors) and the host build's
+    numpy by-products. ``frontier_coords`` is the finest level's candidate
+    set (after the Lipschitz pruning, before the leaf test), which
+    ``stream/slices.py`` refines so that an extended build equals a fresh
+    deeper one."""
+
+    svo: SVO
+    leaf_coords: np.ndarray  # int32 [n_leaves, 3] finest-grid coordinates
+    node_coords: list        # per level: int32 [n_l, 3] octant coordinates
+    n_candidates: list       # per level: candidate count (pre-prune)
+    frontier_coords: np.ndarray = None  # int32 [n_cand, 3] finest candidates
+
+
 def default_albedo(px, py, pz):
     """Position-derived rainbow palette, float32 (n, 3)."""
     px = np.asarray(px, np.float32)
@@ -208,8 +223,9 @@ def build_from_leaves(leaf_coords, depth: int, albedo=None, normal=None,
 
 
 def build_svo(scene, depth: int, prune: bool = True,
-              attr_frame=None) -> SVO:
-    """Build a packed SVO (CPU tensors) from a signed-density scene.
+              attr_frame=None) -> BuildResult:
+    """Build a packed SVO (CPU tensors) from a signed-density scene; returns
+    a ``BuildResult`` (its ``.svo``, and the build's coordinates).
 
     Host-side numpy frontier build with Lipschitz pruning: an octant is kept
     only if the surface can pass within it. A finest-level voxel is a leaf
@@ -235,6 +251,7 @@ def build_svo(scene, depth: int, prune: bool = True,
     coords = [np.zeros((1, 3), np.int32)]
     parent_of = [np.zeros((1,), np.int64)]
     slot_of = [np.zeros((1,), np.int32)]
+    n_candidates = [1]
     f_finest = None  # finest-level f(center) values, reused by phase B
 
     for l in range(1, depth + 1):
@@ -246,6 +263,7 @@ def build_svo(scene, depth: int, prune: bool = True,
             coords.append(cc)
             parent_of.append(np.repeat(np.arange(n_p, dtype=np.int64), 8))
             slot_of.append(np.tile(np.arange(8, dtype=np.int32), n_p))
+            n_candidates.append(cc.shape[0])
             continue
         half = 2.0 ** (-(l + 1))
         # float32 is exact here: (c + 0.5) * 2^-l is a dyadic rational
@@ -266,6 +284,7 @@ def build_svo(scene, depth: int, prune: bool = True,
         coords.append(cc)
         parent_of.append(kept >> 3)
         slot_of.append((kept & 7).astype(np.int32))
+        n_candidates.append(cc.shape[0])
 
     # ---- Phase B: exact leaf test at the finest level -------------------
     cc = coords[depth]
@@ -336,6 +355,7 @@ def build_svo(scene, depth: int, prune: bool = True,
     masks = np.zeros(n_nodes, np.int32)
     child_base = np.zeros(n_nodes, np.int32)
     leaf_base = np.zeros(n_nodes, np.int32)
+    node_coords = []
 
     def _first_child_per_parent(n_parents, par, vals):
         # par sorted, vals increasing: a parent's first child is at its
@@ -350,6 +370,7 @@ def build_svo(scene, depth: int, prune: bool = True,
         s = survive[l]
         rows = level_start[l] + new_idx[l][s]
         vm = valid_masks[l][s]
+        node_coords.append(coords[l][s])
         if l == depth - 1:
             masks[rows] = (vm << 8) | vm  # all children are leaves
             sc = survive[depth]
@@ -377,7 +398,7 @@ def build_svo(scene, depth: int, prune: bool = True,
     density = np.ones(n_leaves, np.float32)
 
     t = torch.from_numpy
-    return SVO(
+    svo = SVO(
         masks=t(masks),
         child_base=t(child_base),
         leaf_base=t(leaf_base),
@@ -388,3 +409,6 @@ def build_svo(scene, depth: int, prune: bool = True,
         level_start=tuple(int(v) for v in level_start),
         parent_ptr=t(compute_parent_ptr(masks, child_base)),
     )
+    return BuildResult(svo=svo, leaf_coords=cc[sl].astype(np.int32),
+                       node_coords=node_coords, n_candidates=n_candidates,
+                       frontier_coords=cc.astype(np.int32))

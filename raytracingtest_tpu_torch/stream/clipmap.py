@@ -479,7 +479,7 @@ class Clipmap:
         # attributes at world coordinates: a streamed chunk's are a
         # monolithic build's
         svo = build_svo(_chunk_scene(self.scene, pos, cs), self.chunk_depth,
-                        attr_frame=(self.scene, pos, cs))
+                        attr_frame=(self.scene, pos, cs)).svo
         node_off, leaf_off = self.arena.upload(svo)
         top_off = n_top = brick_off = n_bricks = 0
         cell_occ = None

@@ -31,7 +31,7 @@ def main(label):
     if os.path.exists(cache):
         host = checkpoint.load_svo(cache, "cpu")
     else:
-        host = octree.build_svo(get_scene("terrain"), 10)
+        host = octree.build_svo(get_scene("terrain"), 10).svo
         checkpoint.save_svo(host, cache)
     svo = host.to(dev)
     o, d = camera.Camera(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),

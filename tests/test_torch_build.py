@@ -104,17 +104,47 @@ def test_build_svo_matches_jax(name, depth, options):
         ref_kw["attr_frame"] = (ref_scene, origin, size)
         scene = _chunk_scene(scene, origin, size)
         ref_scene = jax_chunk(ref_scene, origin, size)
-    ours = octree.build_svo(scene, depth, **ours_kw)
+    ours = octree.build_svo(scene, depth, **ours_kw).svo
     ref = jax_octree.build_svo(ref_scene, depth, **ref_kw).svo
     assert ours.n_leaves > 0
     assert_svo_identical(ours, ref)
     if options:
         # the options change the result: prune=False keeps the same tree,
         # attr_frame moves the attributes off the chunk-local ones
-        plain = octree.build_svo(scene, depth)
+        plain = octree.build_svo(scene, depth).svo
         assert torch.equal(ours.masks, plain.masks)
         moved = not torch.equal(ours.leaf_albedo, plain.leaf_albedo)
         assert moved == ("attr_frame" in options)
+
+
+@pytest.mark.parametrize(
+    "name,depth,options", BUILD_CASES,
+    ids=[f"{n}-{d}" + "".join(f"-{k}" for k in o) for n, d, o in BUILD_CASES])
+def test_build_result_matches_jax(name, depth, options):
+    """The rest of the BuildResult, field for field, byte for byte: the
+    finest-grid leaf coordinates, each level's node coordinates, the
+    candidate counts and the finest candidate frontier."""
+    scene, ref_scene = get_scene(name), jax_get_scene(name)
+    ours_kw, ref_kw = dict(options), dict(options)
+    if "attr_frame" in options:
+        from raytracingtest_tpu.stream.clipmap import _chunk_scene as jax_chunk
+        origin, size = options["attr_frame"]
+        ours_kw["attr_frame"] = (scene, origin, size)
+        ref_kw["attr_frame"] = (ref_scene, origin, size)
+        scene = _chunk_scene(scene, origin, size)
+        ref_scene = jax_chunk(ref_scene, origin, size)
+    ours = octree.build_svo(scene, depth, **ours_kw)
+    ref = jax_octree.build_svo(ref_scene, depth, **ref_kw)
+    assert isinstance(ours, octree.BuildResult)
+    for name in ("leaf_coords", "frontier_coords"):
+        a, b = getattr(ours, name), getattr(ref, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+    assert ours.n_candidates == ref.n_candidates
+    assert len(ours.node_coords) == len(ref.node_coords) == depth
+    for a, b in zip(ours.node_coords, ref.node_coords):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert ours.leaf_coords.shape[0] == ours.svo.n_leaves
 
 
 def test_build_svo_rejects_depth_zero():
@@ -140,7 +170,7 @@ def test_load_jax_checkpoint(tmp_path):
 
 
 def test_jax_loads_port_checkpoint(tmp_path):
-    ours = octree.build_svo(get_scene("sphere"), 4)
+    ours = octree.build_svo(get_scene("sphere"), 4).svo
     path = str(tmp_path / "svo.npz")
     ckpt.save_svo(ours, path)
     assert_svo_identical(ours, jax_ckpt.load_svo(path))
@@ -221,10 +251,14 @@ PORT_MODULES = (
     "raytracingtest_tpu_torch.ops.tile_cuda",
     "raytracingtest_tpu_torch.ops.traverse",
     "raytracingtest_tpu_torch.ops.traverse_cuda",
+    "raytracingtest_tpu_torch.parallel.level_sharded",
+    "raytracingtest_tpu_torch.parallel.mesh",
     "raytracingtest_tpu_torch.parallel.multihost",
+    "raytracingtest_tpu_torch.parallel.render_sharded",
     "raytracingtest_tpu_torch.stream",
     "raytracingtest_tpu_torch.stream.chunk_octree",
     "raytracingtest_tpu_torch.stream.clipmap",
+    "raytracingtest_tpu_torch.stream.slices",
     "raytracingtest_tpu_torch.utils.checks",
     "raytracingtest_tpu_torch.utils.noise",
     "raytracingtest_tpu_torch.utils.opensimplex",
@@ -287,7 +321,7 @@ def test_port_never_imports_jax():
 def test_load_svo_without_device_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
-    ours = octree.build_svo(get_scene("sphere"), 4)
+    ours = octree.build_svo(get_scene("sphere"), 4).svo
     path = str(tmp_path / "svo.npz")
     ckpt.save_svo(ours, path)
     with pytest.raises(RuntimeError):

@@ -92,7 +92,7 @@ def test_empty_world_keeps_a_root():
                 octree_device.build_svo_device_split(empty, 4, device="cpu")):
         assert svo.n_nodes == 1 and svo.n_leaves == 0
         assert svo.leaf_albedo.shape == svo.leaf_normal.shape == (0, 3)
-        assert_svo_identical(svo, octree.build_svo(empty, 4))
+        assert_svo_identical(svo, octree.build_svo(empty, 4).svo)
 
 
 def test_rejects_bad_depth():

@@ -27,7 +27,7 @@ def test_matches_jax_on_shuffled_leaves(scene, depth):
                                                **attrs))
     # and the top-down builder's layout, the port's own included
     assert_svo_identical(ours, res.svo)
-    assert_svo_identical(ours, octree.build_svo(get_scene(scene), depth))
+    assert_svo_identical(ours, octree.build_svo(get_scene(scene), depth).svo)
 
 
 def test_default_attributes_match_jax():
@@ -38,7 +38,7 @@ def test_default_attributes_match_jax():
 
 
 def test_traces_as_the_top_down_build():
-    host = octree.build_svo(get_scene("sphere"), 5)
+    host = octree.build_svo(get_scene("sphere"), 5).svo
     res = jrt.build_svo(jrt.get_scene("sphere"), 5)
     ours = octree.build_from_leaves(res.leaf_coords, 5)
     rng = np.random.default_rng(1)

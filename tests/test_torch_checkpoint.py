@@ -20,7 +20,7 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 @pytest.mark.parametrize("name,depth", [("sphere", 5), ("terrain", 6)])
 def test_esvo_binary_identical(tmp_path, name, depth):
-    ours = octree.build_svo(get_scene(name), depth)
+    ours = octree.build_svo(get_scene(name), depth).svo
     ref = jax_octree.build_svo(jax_get_scene(name), depth).svo
     p_ours, p_ref = str(tmp_path / "ours.bin"), str(tmp_path / "ref.bin")
     ckpt.save_esvo_binary(ours, p_ours)
@@ -82,7 +82,7 @@ def test_port_reads_jax_params(tmp_path):
 
 @pytest.fixture(scope="module")
 def fit_setup():
-    svo = octree.build_svo(get_scene("sphere"), 4)
+    svo = octree.build_svo(get_scene("sphere"), 4).svo
     cam = camera.Camera(position=(0.5, 0.6, -1.0), look_at=(0.5, 0.5, 0.5),
                         fov_y_deg=45.0, width=24, height=24)
     o, d = cam.rays("cpu")

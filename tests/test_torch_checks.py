@@ -17,7 +17,7 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 @pytest.fixture(scope="module")
 def setup():
-    svo = octree.build_svo(get_scene("sphere"), 4)
+    svo = octree.build_svo(get_scene("sphere"), 4).svo
     cam = camera.Camera(position=(0.5, 0.6, -1.0), look_at=(0.5, 0.5, 0.5),
                         fov_y_deg=45.0, width=16, height=16)
     o, d = cam.rays("cpu")

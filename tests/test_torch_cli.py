@@ -83,7 +83,7 @@ def test_info_text_equals_jax(tmp_path, cache):
     from raytracingtest_tpu_torch.ops import octree
     from raytracingtest_tpu_torch.scenes import get_scene
     path = str(tmp_path / "perlin_d5.npz")
-    checkpoint.save_svo(octree.build_svo(get_scene("perlin"), 5), path)
+    checkpoint.save_svo(octree.build_svo(get_scene("perlin"), 5).svo, path)
     ours, _ = port(cache, "info", "--load", path)
     theirs, _ = ref(cache, "info", "--load", path)
     assert ours == theirs and ours.startswith(f"scene={path} depth=5")

@@ -90,7 +90,7 @@ def test_child_palette_matches_jax_bitwise():
 @pytest.mark.parametrize("name,depth", [("sphere", 5), ("terrain", 6),
                                         ("flat_ground", 4)])
 def test_build_attachments_matches_jax_bitwise(name, depth):
-    ours = octree.build_svo(get_scene(name), depth)
+    ours = octree.build_svo(get_scene(name), depth).svo
     ref = jax_octree.build_svo(jax_get_scene(name), depth).svo
     wa, wb = codecs.build_attachments(ours)
     ref_a, ref_b = jax_codecs.build_attachments(ref)
@@ -110,7 +110,7 @@ def test_build_attachments_matches_jax_bitwise(name, depth):
 
 @pytest.mark.parametrize("name,depth", [("sphere", 5), ("terrain", 6)])
 def test_esvo_descriptors_match_jax(name, depth):
-    ours = octree.build_svo(get_scene(name), depth)
+    ours = octree.build_svo(get_scene(name), depth).svo
     ref = jax_octree.build_svo(jax_get_scene(name), depth).svo
     packed = codecs.pack_esvo_descriptors(ours)
     same_bits(packed, jax_codecs.pack_esvo_descriptors(ref))

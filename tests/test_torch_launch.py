@@ -277,7 +277,7 @@ def test_first_forms_take_the_plain_version_on_the_cpu():
     got = tile_cuda.tile_walk_serial(*args)
     want = tile.walk_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    svo = octree.build_svo(get_scene("sphere"), 3)
+    svo = octree.build_svo(get_scene("sphere"), 3).svo
     o = np.random.default_rng(0).random((1024, 3), dtype=np.float32) * 0.2 - 0.5
     d = 0.5 - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -307,7 +307,7 @@ def small_trees():
     from raytracingtest_tpu_torch.ops import octree
     from raytracingtest_tpu_torch.scenes import get_scene
 
-    svo = octree.build_svo(get_scene("sphere"), 4)
+    svo = octree.build_svo(get_scene("sphere"), 4).svo
     rng = np.random.default_rng(9)
     v = rng.normal(size=(256, 3))
     o = 0.5 + 2.0 * v / np.linalg.norm(v, axis=1, keepdims=True)

@@ -193,13 +193,14 @@ class _Declared:
 
 def test_c_entries_are_declared_with_their_arity():
     """Every C entry point of brick_trace.cu (the k-segment traces' first
-    form and probe forms among them, and the streamed world's stitched
-    traces) has ctypes argument types of its own length, the stream
-    included, and a wrapper's Kernel."""
+    form and probe forms among them, the streamed world's stitched traces
+    and the level-sharded rounds) has ctypes argument types of its own
+    length, the stream included, and a wrapper's Kernel."""
     arity = c_entry_arity()
     new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
-           "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick"}
-    assert new <= set(arity) and len(arity) == 15
+           "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
+           "level_round"}
+    assert new <= set(arity) and len(arity) == 16
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -218,7 +219,7 @@ def test_c_entries_are_declared_with_their_arity():
 
 
 def small_trees():
-    svo = octree.build_svo(get_scene("sphere"), 4)
+    svo = octree.build_svo(get_scene("sphere"), 4).svo
     rng = np.random.default_rng(5)
     v = rng.normal(size=(200, 3))
     o = 0.5 + 2.0 * v / np.linalg.norm(v, axis=1, keepdims=True)

@@ -84,8 +84,14 @@ def test_init_from_env_single_process(monkeypatch):
 @pytest.mark.parametrize("var,value", [("JAX_COORDINATOR_ADDRESS", "localhost:1234"),
                                        ("RAYT_MULTIHOST", "auto")])
 def test_init_from_env_refuses_a_coordinator(monkeypatch, var, value):
+    """A configured coordinator starts a world (tests/test_torch_multihost.py
+    runs one), on the card unless a device is named: with no card and none
+    named it is refused before any rendezvous, never run on the CPU."""
+    import torch.distributed as dist
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     monkeypatch.delenv("RAYT_MULTIHOST", raising=False)
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         multihost.init_from_env()
+    assert not dist.is_initialized()

@@ -107,7 +107,7 @@ def _chunk_builds(names_positions, depth=4):
         sub = clipmap._chunk_scene(get_scene(name), pos, size)
         ref = jax_cm.build_svo(ref_sub, depth,
                                attr_frame=(jax_get_scene(name), pos, size)).svo
-        ours = octree.build_svo(sub, depth, attr_frame=(get_scene(name), pos, size))
+        ours = octree.build_svo(sub, depth, attr_frame=(get_scene(name), pos, size)).svo
         out.append((ref, ours))
     return out
 
@@ -374,7 +374,7 @@ def test_root_hook_matches_reference(walked):
     np.testing.assert_array_equal(stack.hit_t.numpy(), oracle.hit_t)
 
     # root=None keeps every bit: the same as rooting every ray at row 0
-    svo = octree.build_svo(get_scene("terrain"), 5)
+    svo = octree.build_svo(get_scene("terrain"), 5).svo
     a = traverse.trace_stackless(svo, ot, dt)
     b = traverse.trace_stackless(svo, ot, dt, root=0)
     for name in ("hit_leaf", "hit_t", "hit_parent", "hit_child", "iters"):

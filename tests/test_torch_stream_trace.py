@@ -202,7 +202,7 @@ def test_tile_one_lod_matches_reference_and_monolithic():
                           fov_y_deg=55.0)
     o, d, leaf, t, un = _compare_tile(ours, ref, m, rm, devb, ref_devb, cam, jcam,
                                       "one LOD", fb_tiles=0, fb2_tiles=0)
-    mono = octree.build_svo(get_scene("terrain"), 6)
+    mono = octree.build_svo(get_scene("terrain"), 6).svo
     r = traverse.trace(mono, o.reshape(-1, 3), d.reshape(-1, 3))
     hit = (r.hit_leaf >= 0) & ~un
     assert torch.equal(hit, (leaf >= 0) & ~un) and int(hit.sum()) > 200
@@ -362,7 +362,7 @@ def test_cli_probe_scripted_matches_jax(tmp_path):
                     f"insert 0.25 0.25 0.25 0.25; render {png}; quit"])
     from raytracingtest_tpu_torch import viz
     from raytracingtest_tpu_torch.render import render_image
-    svo = octree.build_svo(get_scene("sphere"), 4)
+    svo = octree.build_svo(get_scene("sphere"), 4).svo
     cam = camera.Camera(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
                         fov_y_deg=50.0, width=48, height=48)
     img = render_image(svo, cam, device="cpu").numpy().copy()

@@ -19,6 +19,7 @@ Tolerances:
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax.numpy as jnp
 
@@ -32,6 +33,7 @@ from raytracingtest_tpu_torch.config import CameraConfig
 from raytracingtest_tpu_torch.models import InverseRenderer
 from raytracingtest_tpu_torch.models.renderers import _accel_of
 from raytracingtest_tpu_torch.ops import camera, shade_cuda, tile_cuda
+from raytracingtest_tpu_torch.parallel.mesh import make_mesh
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LIGHT = (-0.5, -1.0, -0.3)
@@ -171,7 +173,8 @@ def test_step_updates_in_place_and_returns_the_same_objects(scene):
 
 def test_constructor_contract(scene, monkeypatch):
     _ref_svo, svo = scene
-    with pytest.raises(NotImplementedError):
+    # two devices need a world of two ranks (parallel/mesh.py); none is started
+    with pytest.raises(ValueError, match="n_devices=2"):
         InverseRenderer(svo, n_devices=2, device="cpu")
     with pytest.raises(ValueError):
         InverseRenderer(svo, optimize=("colour",), device="cpu")
@@ -179,7 +182,18 @@ def test_constructor_contract(scene, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         InverseRenderer(svo)
-    InverseRenderer(svo, n_devices=1, device="cpu")
+    # n_devices named: the sharded route, over a world of one started here
+    model = InverseRenderer(svo, n_devices=1, device="cpu")
+    try:
+        assert model.mesh is not None and model.mesh.world == 1
+    finally:
+        dist.destroy_process_group()
+    # a world of one started by someone else leaves the default on one device
+    make_mesh(1, "cpu")
+    try:
+        assert InverseRenderer(svo, device="cpu").mesh is None
+    finally:
+        dist.destroy_process_group()
 
 
 def test_accel_cache_is_keyed_by_svo_identity(scene):

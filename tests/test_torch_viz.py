@@ -34,7 +34,7 @@ CAMERAS = [
 
 @pytest.fixture(scope="module")
 def sphere5():
-    return octree.build_svo(get_scene("sphere"), 5)
+    return octree.build_svo(get_scene("sphere"), 5).svo
 
 
 @pytest.mark.parametrize("cam_args", CAMERAS)
