@@ -103,7 +103,8 @@ that world and on the first two-LOD frame of `cli fly`'s camera path, and
 times that path. `[build-device]` runs
 bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
 depth-10 tree on the card (kernels `svo_expand`, `svo_compact`, `svo_leaves`,
-`svo_level_up`, `svo_parent_ptr`, over the scene library `csrc/scene.cuh`),
+`svo_leaf_attrs`, `svo_level_up`, `svo_parent_ptr`, over the scene library
+`csrc/scene.cuh`),
 twice, each build under `expect_launches`; holds its structure bit for bit
 and its attributes to 1e-5 (albedo) and 2e-3 (normal) against the host
 build, the brick frame over it against the host tree's hits bit for bit,
@@ -112,14 +113,21 @@ each kernel against its plain version at its largest call, the octant build
 of the library (`scene_eval`) against the host's at 2^20 dyadic centres and
 2^20 random points (parting bits counted, none allowed at the centres);
 and builds the command line's three noise scenes on the card at depth 8,
-held after `[cli]` against its host builds. `[sharded]` runs the sharded
+held after `[cli]` against its host builds. The leaf test (`svo_leaves` and
+`svo_leaf_attrs`) is held against its first form, `svo_leaves_serial`, on
+every build of the phase, the nine scenes at depths 6 and 8 among them (at
+depth 6 against the plain versions too), with where its probes' values come
+from and the evaluations it makes. `[sharded]` runs the sharded
 renderer (`parallel/`) in a real NCCL world of one: the depth-12 terrain
 built on the card octant by octant and split at level 2 (`split_svo`), traced
 at 2048² through bench.py's camera by `make_sharded_trace` (kernel
 `level_round`, mode "sharded", K10b) and `make_exchange_trace` (modes
 "trunk" and "packets", K10c; no ray truncated) and trained one step by
-`make_sharded_fit_step`; each mode held bitwise against `level_round_plain`
-on the path's first call, each path against its plain rounds on a fixed
+`make_sharded_fit_step`; each round of each mode held bitwise against
+`level_round_plain`, on the main path and in the queued form and the first
+form (`level_round_serial`) alone, with each round's live rays, µs and
+bound, the first form's probe on the first rounds, and both forms' loops
+in turns; each path against its plain rounds on a fixed
 subset of 512² of its rays, the trace against `clipmap_trace` on the same
 tables; then on the depth-10 frame `render_sharded` and the three sharded
 train steps against the unsharded ones (bit for bit), and two
@@ -210,7 +218,8 @@ LOD_COEFS = (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0.4", 0.4), ("0", 0.0))
 # count_plain_calls()
 # the SVO builder's plain versions, each counted as a plain call
 OCTREE_PLAIN = ("expand_plain", "count_plain", "compact_plain", "leaves_plain",
-                "level_up_plain", "parent_ptr_plain", "scene_eval_plain")
+                "leaf_attrs_plain", "leaves_serial_plain", "level_up_plain",
+                "parent_ptr_plain", "scene_eval_plain")
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
                "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
                "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0,
@@ -220,7 +229,7 @@ PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
 MULTI_ZERO = dict(esvo_stackless_multi=0, brick_trace_multi=0,
                   esvo_stackless_lod=0, brick_trace_lod=0, clipmap_trace=0,
                   clipmap_trace_brick=0, level_round_sharded=0, level_round_trunk=0,
-                  level_round_packets=0)
+                  level_round_packets=0, level_queue=0)
 # the compositing backward's, the LOD traces', the SVO builder's, the
 # streamed world's and the level-sharded rounds' plain calls and launches that
 # the training steps must not make
@@ -2162,8 +2171,8 @@ def ptxas_report(log):
         if "Compiling entry function" in line:
             # the mangled name: its length, the name, and a template's
             # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
-            m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace|level_round)"
-                          r"\w*?_kernel)"
+            m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace|level_round"
+                          r"|level_queue)\w*?_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", line)
             name, stores = None, 0
             if m:
@@ -2742,8 +2751,19 @@ def referee(voxels, depth, o, d, answers):
     return verdict
 
 
-BUILD_KERNELS = ("svo_expand", "svo_compact", "svo_leaves", "svo_level_up",
-                 "svo_parent_ptr")
+BUILD_KERNELS = ("svo_expand", "svo_compact", "svo_leaves", "svo_leaf_attrs",
+                 "svo_level_up", "svo_parent_ptr")
+# each builder entry's kernels as torch.profiler names them (svo_leaves:
+# the neighbour table, the test and the needy list's evaluations); the leaf
+# test's first form
+BUILD_PROFILED = {"svo_expand": ("svo_expand_kernel",),
+                  "svo_compact": ("svo_compact_kernel", "svo_count_kernel"),
+                  "svo_leaves": ("svo_leaf_neighbours_kernel", "svo_leaf_test_kernel",
+                                 "svo_leaf_eval_kernel"),
+                  "svo_leaf_attrs": ("svo_leaf_attrs_kernel",),
+                  "svo_level_up": ("svo_level_up_kernel",),
+                  "svo_parent_ptr": ("svo_parent_ptr_kernel",),
+                  "svo_leaves_serial": ("svo_leaves_kernel",)}
 # operations of one `terrain` evaluation, counted from csrc/scene.cuh: a
 # noise3 is 379 (eight corners of 41: 15 for the hash, 4 for the modulo, 14
 # for the gradient's decode, 8 for its dot with the offset; three fades of
@@ -2755,6 +2775,11 @@ OPS_EXPAND_CHILD = 12    # a child's coordinates, centre and keep test
 OPS_COMPACT_ROW = 8      # ballot, popc, the warp prefix, the store address
 OPS_LEVEL_UP_ROW = 6     # the two atomics' operands
 OPS_PARENT_ROW = 8       # the masks, popc and the stores' loop
+# the leaf test's lookups of a solid candidate: the slot, three sibling and
+# three table reads' addresses and compares; and a kept parent's six
+# galloping searches (some 8 steps of a Morton compare, 12 operations each)
+OPS_LEAF_LOOKUP = 40
+OPS_LEAF_NEIGHBOURS = 6 * 8 * 12
 BUILD_SCENES = ("perlin", "terrain_ref", "simplex_ref")
 BUILD_SCENE_DEPTH = 8
 
@@ -2763,10 +2788,11 @@ def build_launches(depth, chunks=None):
     """The launches of a build_svo_device of `depth` levels in which no
     level is empty: an expansion, its compaction, a level-up, a count and
     a compaction a level (more chunks add an expansion and a compaction
-    each), one leaf test, its compaction and one parent-pointer pass."""
+    each), one leaf test, its compaction, the leaves' attributes and one
+    parent-pointer pass."""
     extra = 0 if chunks is None else sum(c - 1 for c in chunks)
     return dict(svo_expand=depth + extra, svo_compact=3 * depth + 1 + extra,
-                svo_leaves=1, svo_level_up=depth, svo_parent_ptr=1)
+                svo_leaves=1, svo_leaf_attrs=1, svo_level_up=depth, svo_parent_ptr=1)
 
 
 def record_calls():
@@ -2774,7 +2800,8 @@ def record_calls():
     of its largest call (by rows) until restore(); returns (the record,
     restore)."""
     from raytracingtest_tpu_torch.ops import octree_cuda
-    names = ("expand", "count", "compact", "leaves", "level_up", "parent_ptr")
+    names = ("expand", "count", "compact", "leaves", "leaf_attrs", "level_up",
+             "parent_ptr")
     saved = {name: getattr(octree_cuda, name) for name in names}
     calls = {}
 
@@ -2800,6 +2827,79 @@ def record_calls():
 def bits_apart(a, b):
     """Float32 values of a and b whose bits differ."""
     return int((bits(a) != bits(b)).sum())
+
+
+# the albedo's tolerance against the host (sinf on the card, numpy's sin
+# there): an ULP of a value in [0.5, 1)
+ALBEDO_ULP = 2.0 ** -24
+
+
+def check_leaf_test(ds, rec, depth, par, parents, full, plain=False, leaves=None):
+    """One leaf test held against its first form on the card (survivors,
+    counts, and the dense pass's attributes at the leaves' rows, all bit
+    for bit) and, with `plain`, against the plain versions (survivors and
+    counts bit for bit, normals bit for bit, albedo within ALBEDO_ULP);
+    `leaves` is the leaf test's wrapper (octree_cuda.leaves).
+    Returns the leaf test's numbers: candidates, solid ones, leaves, the
+    evaluations made (the counting form) and the reference's 6 solid + 6
+    leaves, and the plain versions' ms."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    leaves = oc.leaves if leaves is None else leaves
+    survive, counts, evals = leaves(ds, rec, depth, par, parents, full,
+                                    count_evals=True)
+    again = leaves(ds, rec, depth, par, parents, full)
+    first = oc.leaves_serial(ds, rec, depth)
+    if not (torch.equal(survive, first[0]) and torch.equal(counts, first[2])
+            and torch.equal(again[0], survive) and torch.equal(again[1], counts)):
+        raise AssertionError(f"svo_leaves parts from its first form (depth {depth}, "
+                             f"{rec.shape[0]} candidates)")
+    rows = torch.nonzero(survive).reshape(-1)
+    leaf_rec = rec[rows].contiguous()
+    dense = oc.leaf_attrs(ds, leaf_rec, depth)
+    if not torch.equal(bits(dense), bits(first[1][rows])):
+        raise AssertionError("svo_leaf_attrs parts from the first form's attributes")
+    n_solid = int((rec[:, 3].contiguous().view(torch.float32) <= 0).sum())
+    out = dict(rows=rec.shape[0], solid=n_solid, leaves=int(rows.numel()), evals=evals,
+               ref_evals=6 * n_solid + 6 * int(rows.numel()), albedo_err=0.0,
+               normals_apart=0, plain_ms=None, attrs_plain_ms=None)
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = oc.leaves_plain(ds.scene, rec, depth, par, parents, full)
+        torch.cuda.synchronize()
+        out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want_a = oc.leaf_attrs_plain(ds.scene, leaf_rec, depth)
+        torch.cuda.synchronize()
+        out["attrs_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        out["normals_apart"] = bits_apart(dense[:, 3:], want_a[:, 3:])
+        out["albedo_err"] = (float((dense[:, :3] - want_a[:, :3]).abs().max())
+                             if rows.numel() else 0.0)
+        if not (torch.equal(survive, want[0]) and torch.equal(counts, want[1])):
+            raise AssertionError("svo_leaves parts from its plain version")
+        if out["normals_apart"] or out["albedo_err"] > ALBEDO_ULP:
+            raise AssertionError(f"svo_leaf_attrs: {out['normals_apart']} normal values' "
+                                 f"bits apart, albedo {out['albedo_err']} from the plain "
+                                 "version")
+    return out
+
+
+@contextlib.contextmanager
+def checked_leaf_tests(log, plain=False):
+    """Inside the block every leaf test of a device build also runs
+    check_leaf_test (its launches count too: no expect_launches inside);
+    `log` gains each one's numbers."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    leaves = oc.leaves
+
+    def checking(ds, rec, depth, par, parents, full, **kw):
+        log.append(check_leaf_test(ds, rec, depth, par, parents, full, plain, leaves))
+        return leaves(ds, rec, depth, par, parents, full, **kw)
+    oc.leaves = checking
+    try:
+        yield log
+    finally:
+        oc.leaves = leaves
 
 
 def build_parity(calls, ds, depth):
@@ -2835,16 +2935,21 @@ def build_parity(calls, ds, depth):
           "the count mode's counts")
     err["svo_compact"] = 0.0
     _, args = calls["leaves"]
-    got = oc.leaves(*args)
-    want, plain_ms["svo_leaves"] = timed_plain(oc.leaves_plain, ds.scene, *args[1:])
-    exact("svo_leaves", (got[0], got[2]), (want[0], want[2]), "survivors and counts")
-    normals_apart = bits_apart(got[1][:, 3:], want[1][:, 3:])
-    albedo_err = float((got[1][:, :3] - want[1][:, :3]).abs().max()) if got[1].numel() else 0.0
-    normal_err = float((got[1][:, 3:] - want[1][:, 3:]).abs().max()) if got[1].numel() else 0.0
-    if albedo_err > 1e-5 or normal_err > 2e-3:
-        raise AssertionError(f"svo_leaves: albedo {albedo_err}, normal {normal_err} "
-                             f"from the plain version")
-    err["svo_leaves"] = max(albedo_err, normal_err)
+    first = check_leaf_test(ds, *args[1:], plain=True)
+    plain_ms["svo_leaves"] = first["plain_ms"]
+    plain_ms["svo_leaf_attrs"] = first["attrs_plain_ms"]
+    plain_ms["svo_leaves_serial"] = first["plain_ms"] + first["attrs_plain_ms"]
+    err["svo_leaves"] = 0.0
+    err["svo_leaf_attrs"] = err["svo_leaves_serial"] = first["albedo_err"]
+    normals_apart = first["normals_apart"]
+    # the main path's attributes call: the dense pass over the leaves'
+    # records that the build compacted
+    _, args = calls["leaf_attrs"]
+    got_a = oc.leaf_attrs(*args)
+    want_a = oc.leaf_attrs_plain(ds.scene, *args[1:])
+    if not (torch.equal(bits(got_a[:, 3:]), bits(want_a[:, 3:]))
+            and float((got_a[:, :3] - want_a[:, :3]).abs().max()) <= ALBEDO_ULP):
+        raise AssertionError("svo_leaf_attrs: the build's call parts from its plain version")
     _, args = calls["level_up"]
     got = oc.level_up(*args)
     want, plain_ms["svo_level_up"] = timed_plain(oc.level_up_plain, *args)
@@ -2856,10 +2961,10 @@ def build_parity(calls, ds, depth):
     exact("svo_parent_ptr", (got,), (want,), "parent rows")
     err["svo_parent_ptr"] = 0.0
     torch.cuda.synchronize()
-    return err, normals_apart, plain_ms
+    return err, normals_apart, plain_ms, first
 
 
-def build_bounds(calls, n_leaves):
+def build_bounds(calls, n_leaves, leaf):
     """(bound_ms, bound_by) of each builder kernel's largest call, from its
     inputs and outputs: bytes (each read once, each written once) and
     operations (OPS_TERRAIN_EVAL a scene evaluation)."""
@@ -2873,20 +2978,32 @@ def build_bounds(calls, n_leaves):
     w = 0 if src is None else src.shape[1]
     out["svo_compact"] = bound(nbytes(flags, _base) + total * (1 + 2 * w) * 4,
                                flags.shape[0] * OPS_COMPACT_ROW)
-    _, (_dsc, rec, _depth) = calls["leaves"]
-    f0 = rec[:, 3].contiguous().view(torch.float32)
-    solid = int((f0 <= 0).sum())
-    n = rec.shape[0]
-    out["svo_leaves"] = bound(nbytes(rec) + n * 25 + oc.n_blocks(n) * 4,
-                              (6 * solid + 6 * n_leaves) * OPS_TERRAIN_EVAL
-                              + n_leaves * OPS_ALBEDO)
+    # the leaf test: the candidates' records and parent rows and the kept
+    # parents' records read once, each child record's f word once, the
+    # neighbour table written and read, the flags and counts written; its
+    # lookups, the parents' searches and the evaluations this run made. Its
+    # first form, the reference's count: six evaluations a solid candidate
+    # and six more a leaf (its normal), and the palette.
+    _, (_dsc, rec, _depth, par, parents, full) = calls["leaves"]
+    n, n_par, solid = rec.shape[0], parents.shape[0], leaf["solid"]
+    out["svo_leaves"] = bound(
+        nbytes(rec, par, parents) + full.shape[0] * 4 + 2 * n_par * 6 * 4 + n
+        + oc.n_blocks(n) * 4,
+        solid * OPS_LEAF_LOOKUP + n_par * OPS_LEAF_NEIGHBOURS
+        + leaf["evals"] * OPS_TERRAIN_EVAL)
+    out["svo_leaf_attrs"] = bound(n_leaves * (16 + 24),
+                                  n_leaves * (6 * OPS_TERRAIN_EVAL + OPS_ALBEDO))
+    out["svo_leaves_serial"] = bound(nbytes(rec) + n * 25 + oc.n_blocks(n) * 4,
+                                     (6 * solid + 6 * n_leaves) * OPS_TERRAIN_EVAL
+                                     + n_leaves * OPS_ALBEDO)
     _, (rows, par, slot, n_par) = calls["level_up"]
     m = rows.shape[0]
     out["svo_level_up"] = bound(m * 12 + n_par * 9, m * OPS_LEVEL_UP_ROW)
     _, (masks, cb) = calls["parent_ptr"]
     out["svo_parent_ptr"] = bound(nbytes(masks, cb) + nbytes(masks),
                                   masks.shape[0] * OPS_PARENT_ROW)
-    return out, dict(solid=solid, leaves=n_leaves)
+    return out, dict(solid=solid, leaves=n_leaves, evals=leaf["evals"],
+                     ref_evals=leaf["ref_evals"])
 
 
 def traced_kernels(fn, runs):
@@ -2929,7 +3046,7 @@ def profile_build(fn):
     count = {k: 0 for k in BUILD_KERNELS}
     for e in rows:
         for k in BUILD_KERNELS:
-            if f"{k}_kernel" in e.key or (k == "svo_compact" and "svo_count_kernel" in e.key):
+            if any(name in e.key for name in BUILD_PROFILED[k]):
                 by[k] += dev_us(e)
                 count[k] += e.count
     return dict(us=by, launches=count, total_us=total,
@@ -3031,29 +3148,115 @@ def build_device(ctx, card):
 
     # each kernel against its plain version, at the main path's largest call
     ds = octree_cuda.device_scene(scene, dev)
-    k_err, normals_apart, plain_ms = build_parity(calls, ds, depth)
+    k_err, normals_apart, plain_ms, leaf = build_parity(calls, ds, depth)
     ctx["err"].update(k_err)
     sizes = {k: v[0] for k, v in calls.items()}
-    say(f"[build-device] the five kernels == their plain versions on the card, "
+    say(f"[build-device] the six kernels == their plain versions on the card, "
         f"on their largest call of the build (rows: {sizes}): bitwise but "
-        f"svo_leaves' attributes (albedo and normal max abs {k_err['svo_leaves']:.3g}, "
-        f"{normals_apart} normal values' bits apart); plain ms: "
+        f"svo_leaf_attrs' albedo (max abs {k_err['svo_leaf_attrs']:.3g}; "
+        f"{normals_apart} normal values' bits apart); svo_leaves and "
+        "svo_leaf_attrs == the leaf test's first form (svo_leaves_serial) bit for "
+        "bit (flags, counts, attributes at the leaves' rows); plain ms: "
         + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+
+    # what the leaf test's design rests on, at the main path's call: where
+    # each probe of a solid candidate finds its value, and the warps the
+    # attributes would share with other candidates
+    _, (_dsc, rec, _d, par, parents, full) = calls["leaves"]
+    _src, kind = octree_cuda.leaf_probe_sources(rec, par, parents, depth)
+    solid = rec[:, 3].contiguous().view(torch.float32) <= 0
+    ks = kind[solid]
+    by_kind = {name: int((ks == k).sum()) for name, k in (
+        ("sibling", octree_cuda.SIBLING), ("cousin", octree_cuda.COUSIN),
+        ("evaluate", octree_cuda.EVALUATE))}
+    survive = octree_cuda.leaves(ds, rec, depth, par, parents, full)[0]
+    lanes = torch.zeros(-(-rec.shape[0] // 32) * 32, dtype=torch.bool, device=dev)
+    lanes[:rec.shape[0]] = survive.bool()
+    leaf_warps = int(lanes.view(-1, 32).any(1).sum())
+    leaf.update(probes=6 * leaf["solid"], by_kind=by_kind, warps=lanes.numel() // 32,
+                leaf_warps=leaf_warps)
+    del _src, kind, ks, lanes
+    say(f"[build-device] the leaf test's data (terrain d{depth}): {leaf['rows']} finest "
+        f"candidates, {leaf['solid']} solid, {leaf['leaves']} leaves; of the solid "
+        f"candidates' {leaf['probes']} probes, {by_kind['sibling']} are a sibling's "
+        f"centre, {by_kind['cousin']} the centre of a child of another kept parent, "
+        f"{by_kind['evaluate']} covered by no kept parent; scene evaluations made "
+        f"{leaf['evals']} (counting form) against the reference's 6 solid + 6 leaves = "
+        f"{leaf['ref_evals']}; {leaf_warps} of {leaf['warps']} warps of 32 candidates "
+        f"hold a leaf ({32 * leaf_warps} lanes for {leaf['leaves']} leaves in the first "
+        "form's one pass)")
+
+    # the leaf test on every scene of the library: at depth 6 against the
+    # plain versions and the first form, at depth 8 against the first form;
+    # the octant build's 64 leaf tests against the first form
+    scene_checks = {}
+    for name in sorted(SCENES):
+        for d_, with_plain in ((6, True), (BUILD_SCENE_DEPTH, False)):
+            log = []
+            with checked_leaf_tests(log, plain=with_plain):
+                octree_device.build_svo_device(get_scene(name), d_, device=dev)
+            scene_checks[(name, d_)] = log[0]
+    say("[build-device] svo_leaves and svo_leaf_attrs on the nine scenes == the first "
+        "form (and at depth 6 the plain versions; normals bitwise, albedo within "
+        f"{ALBEDO_ULP:.3g}): evaluations made against the reference's: " + ", ".join(
+            f"{n_} d{d_} {c['evals']}/{c['ref_evals']}"
+            for (n_, d_), c in scene_checks.items()))
 
     # the kernels' times: each at its largest call, in turns; the library
     # call beside svo_compact (torch.nonzero of the same flags)
     oc = octree_cuda
-    flags = calls["compact"][1][0]
+    flags, _base, _total, src = calls["compact"][1]
+    leaf_args = calls["leaves"][1]
+
+    def phase_b(first_form):
+        """The build's phase B: the leaf test, its compaction and the
+        leaves' attributes (the first form: its one pass, and the
+        compaction of its attributes)."""
+        ds_, rec_, d_ = leaf_args[:3]
+        if first_form:
+            surv, attrs, counts = oc.leaves_serial(ds_, rec_, d_)
+            base, tot = octree_device._offsets(counts)
+            return oc.compact(surv, base, tot, attrs.view(torch.int32))
+        surv, counts = oc.leaves(*leaf_args)
+        base, tot = octree_device._offsets(counts)
+        return oc.leaf_attrs(ds_, oc.compact(surv, base, tot, rec_)[1], d_)
+
+    def library_compact():
+        rows = torch.nonzero(flags).reshape(-1)
+        return rows, torch.index_select(src, 0, rows)
+
+    def library_gather():
+        rows = torch.nonzero(flags).reshape(-1)
+        return rows, src[rows]
+
     turns = in_turns({
         "svo_expand": lambda: oc.expand(*calls["expand"][1]),
         "svo_compact": lambda: oc.compact(*calls["compact"][1]),
         "svo_compact_library": lambda: torch.nonzero(flags),
-        "svo_leaves": lambda: oc.leaves(*calls["leaves"][1]),
+        "svo_compact_library_whole": library_compact,
+        "svo_compact_library_gather": library_gather,
+        "svo_leaves": lambda: oc.leaves(*leaf_args),
+        "svo_leaf_attrs": lambda: oc.leaf_attrs(*calls["leaf_attrs"][1]),
+        "svo_leaves_serial": lambda: oc.leaves_serial(*leaf_args[:3]),
+        "phase_b": lambda: phase_b(False),
+        "phase_b_first_form": lambda: phase_b(True),
         "svo_level_up": lambda: oc.level_up(*calls["level_up"][1]),
         "svo_parent_ptr": lambda: oc.parent_ptr(*calls["parent_ptr"][1])},
         rounds=3, reps=10)
     ms = {k: med_p80(v)[0] for k, v in turns.items()}
-    bounds, data = build_bounds(calls, svo.n_leaves)
+    got_rows, got_words = library_compact()
+    want_rows, want_words = oc.compact(*calls["compact"][1])
+    if not (torch.equal(got_rows.to(torch.int32), want_rows)
+            and torch.equal(got_words, want_words)):
+        raise AssertionError("torch.nonzero + index_select parts from svo_compact")
+    leaf_kernels = [(k.replace("(anonymous namespace)::", "").replace("void ", "")
+                     .split("(")[0], us)
+                    for k, us in launches_of(lambda: oc.leaves(*leaf_args))
+                    if "svo_leaf" in k]
+    serial_rows = traced_kernels(lambda: oc.leaves_serial(*leaf_args[:3]), 3)
+    serial_us = sum(dev_us(e) for e in serial_rows
+                    if BUILD_PROFILED["svo_leaves_serial"][0] in e.key) / 3
+    bounds, data = build_bounds(calls, svo.n_leaves, leaf)
     prof = profile_build(lambda: octree_device.build_svo_device(scene, depth, device=dev))
     if prof is None:
         say("[build-device] the profiler saw no kernel of the build; not measured")
@@ -3069,10 +3272,20 @@ def build_device(ctx, card):
             + f"; their sum {sum(prof['us'].values()):.1f} us")
     say(f"[build-device] {card}: each kernel at its largest call, ms in turns "
         "(bound ms, by): " + ", ".join(
-            f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})" for k in BUILD_KERNELS)
-        + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}; "
-        f"the leaf test's data: {data['solid']} solid candidates, {data['leaves']} leaves "
-        f"({OPS_TERRAIN_EVAL} operations a terrain evaluation)")
+            f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})"
+            for k in (*BUILD_KERNELS, "svo_leaves_serial"))
+        + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}, "
+        f"with index_select of the kept rows' words (svo_compact's whole function, "
+        f"== it bitwise) {ms['svo_compact_library_whole']:.4f}, with src[rows] in its "
+        f"place {ms['svo_compact_library_gather']:.4f}; phase B (the leaf "
+        f"test, its compaction, the attributes) {ms['phase_b']:.4f} against the first "
+        f"form's {ms['phase_b_first_form']:.4f}; svo_leaves' kernels, us each: "
+        + ", ".join(f"{k} {us:.1f}" for k, us in leaf_kernels)
+        + f"; svo_leaves_serial {serial_us:.1f} us "
+        f"alone; the leaf test's data: {data['solid']} solid candidates, "
+        f"{data['leaves']} leaves, {data['evals']} evaluations against the "
+        f"reference's {data['ref_evals']} ({OPS_TERRAIN_EVAL} operations a terrain "
+        "evaluation)")
 
     # the scene library against the host's scenes
     rng = np.random.default_rng(14)
@@ -3114,6 +3327,12 @@ def build_device(ctx, card):
     say(f"[build-device] build_svo_device_split(terrain, {depth}, split_level=2): "
         f"64 octants in {split_s:.3f} s ({split_got}), == the monolithic build bit "
         "for bit (every array)")
+    split_log = []
+    with checked_leaf_tests(split_log):
+        octree_device.build_svo_device_split(scene, depth, split_level=2, device=dev)
+    say(f"[build-device] the octant build's {len(split_log)} leaf tests == their "
+        f"first form bit for bit; {sum(c['evals'] for c in split_log)} evaluations "
+        f"against the reference's {sum(c['ref_evals'] for c in split_log)}")
 
     # the command line's noise scenes, built on the card at its default depth
     scene_builds = {}
@@ -3137,7 +3356,9 @@ def build_device(ctx, card):
         + "; against [cli]'s host builds below")
     return dict(launches=got, first_s=first_s, second_s=second_s, ms=ms,
                 plain_ms=plain_ms, bounds=bounds, prof=prof, scene_apart=apart,
-                scene_builds=scene_builds, levels=levels, split_s=split_s)
+                scene_builds=scene_builds, levels=levels, split_s=split_s, leaf=leaf,
+                serial_us=serial_us, scene_checks=scene_checks, leaf_kernels=leaf_kernels,
+                split_checks=len(split_log))
 
 
 def check_scene_builds(built, cdir):
@@ -3192,8 +3413,8 @@ def plain_rounds():
     from raytracingtest_tpu_torch.parallel import level_sharded
     kernel = level_sharded.level_round
 
-    def plain(mode, tb, *args, **kw):
-        return level_sharded.level_round_plain(mode, tb, *args, **kw)
+    def plain(mode, tb, *args, counts=None, **_queue):
+        return level_sharded.level_round_plain(mode, tb, *args, counts=counts)
     level_sharded.level_round = plain
     try:
         yield
@@ -3202,15 +3423,41 @@ def plain_rounds():
 
 
 @contextlib.contextmanager
+def first_form_rounds():
+    """Inside the block the level-sharded loops take level_round's first
+    form (level_round_serial) on the card's tensors, and the sharded loop
+    reads its end as the first form's loop did (no count pass)."""
+    from raytracingtest_tpu_torch.parallel import level_sharded
+    kernel = level_sharded.level_round
+
+    def first(mode, tb, *args, counts=None, **_queue):
+        return brick_cuda.level_round_serial_kernel(
+            mode, tb.trunk, tb.arena, tb.owner, tb.root, tb.origin, tb.size, tb.rank,
+            *args)
+    live = level_sharded._live
+    level_sharded.level_round = first
+    # the sharded loop's end read as it was before the queue: a reduction
+    level_sharded._live = lambda done, _queue: (int((~done).sum()), None)
+    try:
+        yield
+    finally:
+        level_sharded.level_round = kernel
+        level_sharded._live = live
+
+
+@contextlib.contextmanager
 def level_calls():
     """Every call of level_round made inside the block, (mode, tables,
-    args) in a list; the calls themselves go on."""
+    args, the queue's keywords: live, seg; a copy of its outputs) in a
+    list; the calls themselves go on."""
     from raytracingtest_tpu_torch.parallel import level_sharded
     calls, kernel = [], level_sharded.level_round
 
     def recording(mode, tb, *args, **kw):
-        calls.append((mode, tb, args))
-        return kernel(mode, tb, *args, **kw)
+        res = kernel(mode, tb, *args, **kw)
+        calls.append((mode, tb, args, {k: kw[k] for k in ("live", "seg") if k in kw},
+                      tuple(t.clone() for t in res)))
+        return res
     level_sharded.level_round = recording
     try:
         yield calls
@@ -3232,23 +3479,55 @@ def counted_run(what, fn, kernels):
 
 
 def level_work(mode, tb, args, counts):
-    """bound() of one level_round call: each input read once (the rays or
-    packets, the trees the mode walks, the octant tables) and each output
-    written once; this call's stackless steps and walks as the plain
-    version counted them, and the box exit a ray that found an octant."""
+    """bound() of one level_round call: the tables the mode walks, read once
+    at most (a node row's 16 B a step, at most each row once), the live
+    rays' origins and directions (a valid packet's 32 B), each ray's done
+    flag and t_off ("sharded", "trunk"), each output written once; this
+    call's stackless steps and walks as the plain version counted them, and
+    the box exit of a live ray."""
     trunk = nbytes(tb.trunk.masks, tb.trunk.child_base, tb.trunk.parent_ptr,
                    tb.trunk.leaf_base)
     arena = nbytes(tb.arena.masks, tb.arena.child_base, tb.arena.parent_ptr,
                    tb.arena.leaf_base)
     # the trunk mode reads no arena, the packets mode no trunk
-    tables = (nbytes(tb.owner, tb.root, tb.origin) + (arena if mode != "trunk" else 0)
-              + (trunk if mode != "packets" else 0))
+    walked = (arena if mode != "trunk" else 0) + (trunk if mode != "packets" else 0)
     n = args[0].shape[0]
+    if mode == "packets":
+        live = int((args[0][:, 7:8].contiguous().view(torch.int32) != 0).sum())
+        in_bytes = live * 32
+    else:
+        live = int((~args[3]).sum())
+        in_bytes = n * 5 + live * 24
     out_bytes = {"sharded": 20, "trunk": 8, "packets": 8}[mode] * n
-    n_bytes = tables + nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + out_bytes
+    n_bytes = (nbytes(tb.owner, tb.root, tb.origin) + min(counts["steps"] * 16, walked)
+               + in_bytes + out_bytes)
     n_ops = (counts["steps"] * OPS_ESVO_STEP + counts["walks"] * OPS_RAY_SETUP
-             + (0 if mode == "packets" else n * OPS_LEVEL_EXIT))
+             + (0 if mode == "packets" else live * OPS_LEVEL_EXIT))
     return bound(n_bytes, n_ops)
+
+
+def launches_of(fn):
+    """(kernel name, device us) of each launch of one fn() call in launch
+    order, from torch.profiler's events. The tracer drops launches made
+    while it starts, so it sees two calls, a spin kernel between them, and
+    the second call's launches are kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spins = [k for k, e in enumerate(events) if "spin_kernel" in e.name]
+    if not spins:
+        raise AssertionError("launches_of: the tracer dropped its marker")
+    return [(e.name, e.time_range.elapsed_us()) for e in events[spins[-1] + 1:]]
 
 
 def path_profile(fn, key=None):
@@ -3301,6 +3580,16 @@ def sharded_phase(ctx, card):
         get_scene("terrain"), SHARDED_DEPTH, split_level=SHARDED_SPLIT, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    leaf_log = []
+    with checked_leaf_tests(leaf_log):
+        octree_device.build_svo_device_split(
+            get_scene("terrain"), SHARDED_DEPTH, split_level=SHARDED_SPLIT, device=dev)
+    out["leaf_checks"] = dict(tests=len(leaf_log), evals=sum(c["evals"] for c in leaf_log),
+                              ref_evals=sum(c["ref_evals"] for c in leaf_log))
+    say(f"[sharded] the depth-{SHARDED_DEPTH} octant build's {len(leaf_log)} leaf tests "
+        f"(svo_leaves, svo_leaf_attrs) == their first form bit for bit; "
+        f"{out['leaf_checks']['evals']} evaluations against the reference's "
+        f"{out['leaf_checks']['ref_evals']}")
     t0 = time.perf_counter()
     ls = level_sharded.split_svo(svo12, SHARDED_SPLIT, 1)
     split_s = time.perf_counter() - t0
@@ -3333,14 +3622,16 @@ def sharded_phase(ctx, card):
     # the three paths, each launching only its kernels
     with level_calls() as calls:
         got_tr, launches = counted_run("make_sharded_trace", lambda: trace(o, d),
-                                       {"level_round_sharded"})
+                                       {"level_round_sharded", "level_queue"})
         out["launches"]["sharded trace"], rounds_tr = launches, trace.stats["rounds"]
         got_ex, launches = counted_run("make_exchange_trace", lambda: exchange(o, d),
-                                       {"level_round_trunk", "level_round_packets"})
+                                       {"level_round_trunk", "level_round_packets",
+                                        "level_queue"})
         out["launches"]["exchange trace"], rounds_ex = launches, exchange.stats["rounds"]
         (loss, grads), launches = counted_run(
             "make_sharded_fit_step", lambda: fit(*arena_params, o, d, light, target),
-            {"level_round_sharded", "shade_fwd", "shade_bwd", "segment_sum"})
+            {"level_round_sharded", "level_queue", "shade_fwd", "shade_bwd",
+             "segment_sum"})
         out["launches"]["sharded fit"], rounds_fit = launches, fit.stats["rounds"]
     if (out["launches"]["sharded trace"]["level_round_sharded"] != rounds_tr
             or out["launches"]["exchange trace"]["level_round_trunk"] != rounds_ex
@@ -3384,33 +3675,103 @@ def sharded_phase(ctx, card):
         f"trace; the two traces agree bit for bit, and clipmap_trace on the same "
         f"tables (one chunk an octant) gives their leaves and t bits")
 
-    # each mode against its plain version on the main path's first call
-    first = {}
-    for mode, tbl, args in calls:
-        first.setdefault(mode, (tbl, args))
-    for mode, (tbl, args) in first.items():
-        got = brick_cuda.level_round_kernel(mode, tbl.trunk, tbl.arena, tbl.owner,
-                                            tbl.root, tbl.origin, tbl.size, tbl.rank, *args)
+    # every round of the three paths' loops: the queued form (the main
+    # path's) and the first form against the plain version, bit for bit;
+    # each round's live rays or valid packets, µs alone of both forms (the
+    # queued form with its queue's passes), and bound
+    names_of = {"sharded": ("oct_id", "hit", "leaf", "t_hit", "t_next"),
+                "trunk": ("oct_id", "t_next"), "packets": ("replies",)}
+    rounds_of = {"sharded": [], "trunk": [], "packets": []}
+    # the sharded trace's and the exchange trace's rounds (the fit step's
+    # repeat the trace's)
+    for mode, tbl, args, kw, main_out in [c for c in calls if c[0] != "sharded"] + [
+            c for c in calls if c[0] == "sharded"][:rounds_tr]:
+        tables = (tbl.trunk, tbl.arena, tbl.owner, tbl.root, tbl.origin, tbl.size, tbl.rank)
+        fn = (lambda m=mode, t=tables, a=args, k=kw:
+              brick_cuda.level_round_kernel(m, *t, *a, **k))
+        fn_first = (lambda m=mode, t=tables, a=args:
+                    brick_cuda.level_round_serial_kernel(m, *t, *a))
         counts = {}
         t0 = time.perf_counter()
         plain = level_sharded.level_round_plain(mode, tbl, *args, counts=counts)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        names = {"sharded": ("oct_id", "hit", "leaf", "t_hit", "t_next"),
-                 "trunk": ("oct_id", "t_next"), "packets": ("replies",)}[mode]
-        err[f"level_round_{mode}"] = compare_tensors(got, plain, names,
-                                                     f"level_round {mode}")
-        fn = (lambda m=mode, tl=tbl, a=args: brick_cuda.level_round_kernel(
-            m, tl.trunk, tl.arena, tl.owner, tl.root, tl.origin, tl.size, tl.rank, *a))
-        out["calls"][mode] = dict(
-            n=args[0].shape[0], counts=counts, plain_ms=plain_s * 1e3,
-            bound=level_work(mode, tbl, args, counts),
-            ms=cuda_ms(fn, 20, 3), us_alone=graph_us(fn))
-        say(f"[sharded] level_round {mode} == level_round_plain bitwise ("
-            f"{', '.join(names)}) on the main path's first {mode} call, "
-            f"{args[0].shape[0]} {'packets' if mode == 'packets' else 'rays'}: "
-            f"{counts['walks']} walks, {counts['steps']} stackless steps")
+        r = len(rounds_of[mode])
+        # the main path's own outputs (its loop's queue: the passes over the
+        # last round's live rays, the outputs kept), then the form alone
+        compare_tensors(main_out, plain, names_of[mode],
+                        f"level_round {mode} on the main path, round {r + 1}")
+        e1 = compare_tensors(fn(), plain, names_of[mode], f"level_round {mode}, round {r + 1}")
+        e2 = compare_tensors(fn_first(), plain, names_of[mode],
+                             f"level_round_serial {mode}, round {r + 1}")
+        err[f"level_round_{mode}"] = max(err.get(f"level_round_{mode}", 0.0), e1)
+        err["level_round_serial"] = max(err.get("level_round_serial", 0.0), e2)
+        live = (int((args[0][:, 7:8].contiguous().view(torch.int32) != 0).sum())
+                if mode == "packets" else int((~args[3]).sum()))
+        row = dict(n=args[0].shape[0], live=live, counts=counts, plain_ms=plain_s * 1e3,
+                   bound=level_work(mode, tbl, args, counts), us_alone=graph_us(fn),
+                   us_alone_first_form=graph_us(fn_first))
+        if r == 0:
+            row.update(ms=cuda_ms(fn, 20, 3), ms_first_form=cuda_ms(fn_first, 20, 3))
+        rounds_of[mode].append(row)
+    for mode, rows in rounds_of.items():
+        say(f"[sharded] level_round {mode}: every round's call == level_round_plain "
+            f"bitwise ({', '.join(names_of[mode])}), the queued form and the first form "
+            f"(level_round_serial); {card}, round by round (live "
+            f"{'packets' if mode == 'packets' else 'rays'} of {rows[0]['n']}; walks, "
+            "stackless steps; us alone in a CUDA graph, the queued form with its "
+            "queue's passes against the first form; bound us): " + "; ".join(
+                f"{i + 1}: {c['live']}, {c['counts']['walks']}, {c['counts']['steps']}; "
+                f"{c['us_alone']:.1f} against {c['us_alone_first_form']:.1f}; "
+                f"{c['bound'][0] * 1e3:.1f} ({c['bound'][1]})"
+                for i, c in enumerate(rows)))
+    out["calls"] = {mode: rows[0] for mode, rows in rounds_of.items()}
+    out["rounds_of"] = rounds_of
 
+    # the queue alone, on the sharded trace's second round (the first with
+    # done rays): against its plain version and torch.nonzero
+    _m, tbl2, args2, _kw, _o = [c for c in calls if c[0] == "sharded"][1]
+    done2, t_off2 = args2[3], args2[2]
+    queue2, scan2, _outs = brick_cuda.level_queue_kernel("sharded", done2, t_off2)
+    queue2 = queue2[:brick_cuda.live_count(scan2)]
+    t0 = time.perf_counter()
+    want2 = level_sharded.level_queue_plain("sharded", None, done2)
+    torch.cuda.synchronize()
+    queue_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(queue2.long(), want2):
+        raise AssertionError("level_queue parts from level_queue_plain")
+    err["level_queue"] = 0.0
+    q_turns = in_turns({"queue": lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2),
+                        "nonzero": lambda: torch.nonzero(~done2)}, rounds=3, reps=20)
+    n2, live2 = done2.shape[0], queue2.shape[0]
+    out["queue"] = dict(
+        n=n2, live=live2, ms=med_p80(q_turns["queue"])[0],
+        library_ms=med_p80(q_turns["nonzero"])[0], plain_ms=queue_plain_ms,
+        us_alone=graph_us(lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2)),
+        # the flags read twice (the count pass, the place pass), t_off and the
+        # five outputs of a done ray, a live ray's place
+        bound=bound(2 * n2 + (n2 - live2) * 24 + live2 * 4 + 2 * nbytes(
+            torch.empty(-(-n2 // brick_cuda.QBLOCK), dtype=torch.int32)),
+            n2 * OPS_COMPACT_ROW))
+    say(f"[sharded] {card}: level_queue (count pass, scan, place pass) on the sharded "
+        f"trace's round 2, {live2} live of {n2} rays: == level_queue_plain; "
+        f"{out['queue']['ms']:.4f} ms in turns against torch.nonzero's "
+        f"{out['queue']['library_ms']:.4f}; {out['queue']['us_alone']:.1f} us alone; "
+        f"bound {out['queue']['bound'][0] * 1e3:.1f} us ({out['queue']['bound'][1]})")
+
+    # the first form with per-warp counters: the sharded trace's first three
+    # rounds and the exchange's first packets round
+    out["warps"] = {}
+    probed = [c for c in calls if c[0] == "sharded"][:3] + [
+        [c for c in calls if c[0] == "packets"][0]]
+    for k, (mode, tbl, args, _kw, _o) in enumerate(probed):
+        res, record = brick_cuda.probe_level_round(
+            mode, tbl.trunk, tbl.arena, tbl.owner, tbl.root, tbl.origin, tbl.size,
+            tbl.rank, *args)
+        compare_tensors(res, level_sharded.level_round_plain(mode, tbl, *args),
+                        names_of[mode], f"level_round's probe form, {mode}")
+        label = f"level_round {mode} round {k + 1 if mode == 'sharded' else 1}"
+        out["warps"][label] = warps_line(label, "first", record, np.zeros(0))
     # each path against the plain rounds on the fixed subset of its rays
     sub = torch.arange(SHARDED_RES, device=dev)[::SHARDED_STRIDE]
     pick = (sub[:, None] * SHARDED_RES + sub[None, :]).reshape(-1)
@@ -3448,7 +3809,7 @@ def sharded_phase(ctx, card):
               "sharded fit": rounds_fit}
     for name, fn in paths.items():
         out["ms"][name] = cuda_ms(fn, 5, 1)
-        out["prof"][name] = path_profile(fn, "level_round_kernel")
+        out["prof"][name] = path_profile(fn, "level_round_")
     idle = lambda p, ms: "not measured" if p is None else f"{1 - p['us'] / 1e3 / ms:.2f}"
     kus = lambda p, k: "not measured" if p is None else f"{p[k]:.1f}"
     say(f"[sharded] {card}: at {SHARDED_RES}² on the depth-{SHARDED_DEPTH} world, " + "; ".join(
@@ -3466,6 +3827,49 @@ def sharded_phase(ctx, card):
             top = sorted(p["by"].items(), key=lambda kv: -kv[1])[:6]
             say(f"[sharded] {name}: the kernels by device us a call: " + ", ".join(
                 f"{k[:60]} {v:.1f}" for k, v in top))
+    # the loops with the queued form (the main path's) against the same loops
+    # with the first form: wall ms in turns, and each launch's device us from
+    # the tracer (level_round's rounds, the queue's passes)
+    def first_formed(fn):
+        def run():
+            with first_form_rounds():
+                return fn()
+        return run
+
+    out["forms"] = {}
+    for name in ("sharded trace", "exchange trace"):
+        fn = paths[name]
+        if not all(torch.equal(bits(a) if a.is_floating_point() else a,
+                               bits(b) if b.is_floating_point() else b)
+                   for a, b in zip(fn(), first_formed(fn)())):
+            raise AssertionError(f"{name}: the first form's loop parts from the queued one")
+        wall = in_turns({"queued": fn, "first": first_formed(fn)}, rounds=3, reps=3)
+        ev = {form: launches_of(f) for form, f in (("queued", fn),
+                                                   ("first", first_formed(fn)))}
+        rnd = {form: [us for k, us in e if "level_round_" in k] for form, e in ev.items()}
+        queue_us = sum(us for k, us in ev["queued"] if "level_queue_" in k or "DeviceScan" in k)
+        # the queued form's rounds on the main path: each walk with the queue's
+        # passes (count, scan, place) launched since the walk before
+        per_round, acc = [], 0.0
+        for k, us in ev["queued"]:
+            if "level_queue_" in k or "DeviceScan" in k:
+                acc += us
+            elif "level_round_" in k:
+                per_round.append((acc, us))
+                acc = 0.0
+        out["forms"][name] = dict(
+            ms={k: med_p80(v)[0] for k, v in wall.items()}, rounds_us=rnd,
+            queue_us=queue_us, per_round=per_round,
+            all_us={form: sum(us for _, us in e) for form, e in ev.items()})
+        f = out["forms"][name]
+        say(f"[sharded] {card}: {name}, the queued form against the first form in turns: "
+            f"{f['ms']['queued']:.3f} against {f['ms']['first']:.3f} ms; level_round's "
+            f"launches, us each (traced): {[round(x, 1) for x in rnd['queued']]} (sum "
+            f"{sum(rnd['queued']):.1f}, and {queue_us:.1f} in the queue's passes) against "
+            f"{[round(x, 1) for x in rnd['first']]} (sum {sum(rnd['first']):.1f}); every "
+            f"kernel {f['all_us']['queued']:.1f} against {f['all_us']['first']:.1f} us; "
+            "the queued form's rounds as (passes, walk) us: "
+            f"{[(round(a, 1), round(b, 1)) for a, b in per_round]}")
     for mode, c in out["calls"].items():
         say(f"[bound] level_round {mode}, the first call ({c['n']} "
             f"{'packets' if mode == 'packets' else 'rays'}; {OPS_ESVO_STEP} operations "
@@ -3610,9 +4014,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 21:
+    if len(ptxas) != 31:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 21")
+                             f"expected 31")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -3622,7 +4026,9 @@ def main():
         "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
         "kernels, the stitched traces clipmap_trace_kernel<brick arena>, "
-        "the level-sharded rounds level_round_kernel<mode>: "
+        "the level-sharded rounds' first form level_round_kernel<mode>, its "
+        "probe form and its queued form <mode>, and the queue's passes "
+        "level_queue_*_kernel: "
         "registers, spill bytes, shared bytes; the staged form's "
         "slots are dynamic shared memory): "
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
@@ -3633,9 +4039,9 @@ def main():
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
         f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
     svo_regs = svo_ptxas(_build.build_log("svo_build"))
-    if len(svo_regs) != 7:
+    if len(svo_regs) != 12:
         raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
-                             "expected 7 kernels")
+                             "expected 12 kernels")
     say("[build] svo_build.cu, ptxas -v (registers): " + ", ".join(
         f"{k} {r}" for k, r in svo_regs))
 
@@ -4353,7 +4759,7 @@ def main():
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
                                       tile_candidates_block=1, shade_bwd_serial=1,
                                       brick_trace_serial=1, brick_trace_unstaged=1,
-                                      brick_trace_multi_serial=1)
+                                      brick_trace_multi_serial=1, level_round_serial=0)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -4563,7 +4969,7 @@ def main():
                 composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
                 esvo_stackless_probe=0, brick_trace_probe=0,
                 brick_trace_multi_serial=0, esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
-                **MULTI_ZERO, **STEP_ZERO)
+                level_round_serial=0, level_round_probe=0, **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -5526,19 +5932,37 @@ def main():
         plain_ms=sm["composite_bwd_plain"][0], bound_ms=bwd_bound[0],
         bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
         fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
-    replaces = dict(svo_expand=57, svo_compact=80, svo_leaves=143, svo_level_up=163,
-                    svo_parent_ptr=341)
-    for kname in BUILD_KERNELS:
+    replaces = dict(svo_expand=57, svo_compact=80, svo_leaves=143, svo_leaf_attrs=323,
+                    svo_level_up=163, svo_parent_ptr=341, svo_leaves_serial=143)
+    bl = built["leaf"]
+    leaf_extra = dict(
+        svo_leaves=dict(evaluations=bl["evals"], evaluations_reference=bl["ref_evals"],
+                        probes=bl["probes"], probes_by_source=bl["by_kind"],
+                        first_form_ms_in_turns=built["ms"]["svo_leaves_serial"],
+                        phase_b_ms=built["ms"]["phase_b"],
+                        phase_b_first_form_ms=built["ms"]["phase_b_first_form"],
+                        kernels_us=dict(built["leaf_kernels"]),
+                        bound_first_form_ms=built["bounds"]["svo_leaves_serial"][0]),
+        svo_leaf_attrs=dict(leaf_warps_of_the_first_form=bl["leaf_warps"],
+                            warps=bl["warps"]),
+        svo_compact=dict(library_ms_indices_alone=built["ms"]["svo_compact_library"],
+                         library_ms_with_gather=built["ms"]["svo_compact_library_gather"]))
+    for kname in (*BUILD_KERNELS, "svo_leaves_serial"):
+        serial = kname == "svo_leaves_serial"
         kernels.append(dict(
             name=kname, route="cuda", source=src + "svo_build.cu",
             replaces=f"raytracingtest_tpu/ops/octree_device.py:{replaces[kname]}",
-            path="octree_device.build_svo_device (bench.py's BENCH_BUILD=device), "
-                 "terrain depth 10",
-            launches=built["launches"][kname], max_abs_err=err[kname],
+            path=("octree_cuda.leaves_serial (the leaf test's first form, off the "
+                  "main path), at the build's leaf test" if serial else
+                  "octree_device.build_svo_device (bench.py's BENCH_BUILD=device), "
+                  "terrain depth 10"),
+            launches=0 if serial else built["launches"][kname], max_abs_err=err[kname],
             ms=built["ms"][kname], plain_ms=built["plain_ms"][kname],
             bound_ms=built["bounds"][kname][0], bound_by=built["bounds"][kname][1],
-            library_ms=built["ms"]["svo_compact_library"] if kname == "svo_compact" else None,
-            us_alone_a_build=built["prof"]["us"][kname]))
+            library_ms=(built["ms"]["svo_compact_library_whole"]
+                        if kname == "svo_compact" else None),
+            us_alone_a_build=built["serial_us"] if serial else built["prof"]["us"][kname],
+            **leaf_extra.get(kname, {})))
     fk = flown
     streamed = fk["prof"]["streamed tile frame"]
     brick_prof = fk["prof"]["brick path frame"]
@@ -5581,22 +6005,67 @@ def main():
             launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
             ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
             bound_by=bnd[1], library_ms=None, **extra))
+    per_round = lambda rows: [dict(live=r["live"], walks=r["counts"]["walks"],
+                                   steps=r["counts"]["steps"], us_alone=r["us_alone"],
+                                   us_alone_first_form=r["us_alone_first_form"],
+                                   bound_ms=r["bound"][0], bound_by=r["bound"][1])
+                              for r in rows]
+    level_path = (f" on the depth-{SHARDED_DEPTH} terrain split at level {SHARDED_SPLIT}, "
+                  f"{SHARDED_RES}² rays, a NCCL world of one")
     for mode, c_tr in (("sharded", "sharded trace"), ("trunk", "exchange trace"),
                        ("packets", "exchange trace")):
         kname, c = f"level_round_{mode}", shard["calls"][mode]
+        forms = shard["forms"][c_tr]
         kernels.append(dict(
             name=kname, route="cuda", source=src + "brick_trace.cu",
             replaces=LEVEL_REPLACES[mode],
             path=(f"parallel.level_sharded.{'make_sharded_trace' if mode == 'sharded' else 'make_exchange_trace'}"
-                  f" on the depth-{SHARDED_DEPTH} terrain split at level {SHARDED_SPLIT}, "
-                  f"{SHARDED_RES}² rays, a NCCL world of one"),
+                  + level_path + " (the queued form)"),
             launches=shard["launches"][c_tr][kname], max_abs_err=err[kname],
             ms=med_p80(c["ms"])[0], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
             bound_by=c["bound"][1], library_ms=None, us_alone=c["us_alone"],
             shape=f"the path's first {mode} call, {c['n']} "
                   f"{'packets' if mode == 'packets' else 'rays'}",
             rounds=shard["rounds"][c_tr],
-            launches_fit=shard["launches"]["sharded fit"].get(kname, 0)))
+            launches_fit=shard["launches"]["sharded fit"].get(kname, 0),
+            ms_first_form=med_p80(c["ms_first_form"])[0],
+            us_alone_first_form=c["us_alone_first_form"],
+            per_round=per_round(shard["rounds_of"][mode]),
+            main_path_rounds_us=[dict(queue_passes=a, walk=b) for a, b in (
+                forms["per_round"] if mode == "sharded"
+                else forms["per_round"][0 if mode == "trunk" else 1::2])],
+            first_form_rounds_us=(forms["rounds_us"]["first"] if mode == "sharded"
+                                  else forms["rounds_us"]["first"][
+                                      0 if mode == "trunk" else 1::2]),
+            path_ms_in_turns=forms["ms"]))
+    sharded_first = shard["calls"]["sharded"]
+    kernels.append(dict(
+        name="level_round_serial", route="cuda", source=src + "brick_trace.cu",
+        replaces=LEVEL_REPLACES["sharded"],
+        path="brick_cuda.level_round_serial_kernel (the first form, off the main path)"
+             + level_path,
+        launches=0, max_abs_err=err["level_round_serial"],
+        ms=med_p80(sharded_first["ms_first_form"])[0], plain_ms=sharded_first["plain_ms"],
+        bound_ms=sharded_first["bound"][0], bound_by=sharded_first["bound"][1],
+        library_ms=None, us_alone=sharded_first["us_alone_first_form"],
+        shape="the sharded trace's first call",
+        by_mode={mode: dict(ms=med_p80(c["ms_first_form"])[0],
+                            us_alone=c["us_alone_first_form"])
+                 for mode, c in shard["calls"].items()},
+        warps=shard["warps"]))
+    q = shard["queue"]
+    kernels.append(dict(
+        name="level_queue", route="cuda", source=src + "brick_trace.cu",
+        replaces=LEVEL_REPLACES["sharded"],
+        path="the level-sharded loops' rounds (the queue of level_round's queued form)"
+             + level_path,
+        launches=shard["launches"]["sharded trace"]["level_queue"],
+        max_abs_err=err["level_queue"], ms=q["ms"], plain_ms=q["plain_ms"],
+        bound_ms=q["bound"][0], bound_by=q["bound"][1], library_ms=q["library_ms"],
+        us_alone=q["us_alone"],
+        shape=f"the sharded trace's round 2: {q['live']} live of {q['n']} rays",
+        launches_exchange=shard["launches"]["exchange trace"]["level_queue"],
+        us_a_path={name: f["queue_us"] for name, f in shard["forms"].items()}))
     for row in kernels:
         row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]

@@ -230,9 +230,17 @@ def _declare_brick(lib):
     for fn in (lib.clipmap_trace, lib.clipmap_trace_brick):
         fn.argtypes = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 5
         fn.restype = i
-    lib.level_round.argtypes = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3
-                                + [f, i] + [p] * 4 + [i] + [p] * 6)
-    lib.level_round.restype = i
+    # level_round's shared arguments: the trees, the octant tables, the rays
+    # and the five outputs
+    level = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3 + [f, i] + [p] * 4
+             + [i] + [p] * 5)
+    lib.level_round.argtypes = level + [p, p, i, i, i, p]
+    lib.level_round_serial.argtypes = level + [p]
+    lib.level_round_probe.argtypes = level + [p, p]
+    lib.level_queue.argtypes = [i, i, p, p, p, p, i, p, i] + [p] * 8 + [p]
+    for fn in (lib.level_round, lib.level_round_serial, lib.level_round_probe,
+               lib.level_queue):
+        fn.restype = i
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,
@@ -248,12 +256,15 @@ def _declare_svo(lib):
     tables = [p] * 5
     lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
     lib.svo_compact.argtypes = [p, i, p, p, i, p, p, p, p]
-    lib.svo_leaves.argtypes = [p, i, f, i] + tables + [p, p, p, p]
+    lib.svo_leaves.argtypes = [p, i, p, p, i, p, f, i, i] + tables + [p, p, p, p, p]
+    lib.svo_leaf_attrs.argtypes = [p, i, f, i] + tables + [p, p]
+    lib.svo_leaves_serial.argtypes = [p, i, f, i] + tables + [p, p, p, p]
     lib.svo_level_up.argtypes = [p, i, p, p, p, p, p]
     lib.svo_parent_ptr.argtypes = [p, p, i, p, p]
     lib.scene_eval.argtypes = [p, p, p, i, i] + tables + [p, p]
     for fn in (lib.svo_expand, lib.svo_compact, lib.svo_leaves,
-               lib.svo_level_up, lib.svo_parent_ptr, lib.scene_eval):
+               lib.svo_leaf_attrs, lib.svo_leaves_serial, lib.svo_level_up,
+               lib.svo_parent_ptr, lib.scene_eval):
         fn.restype = i
 
 

@@ -1144,18 +1144,23 @@ brick_trace_multi_staged_kernel(Tree tree, Rays rays, MultiOut out,
 // divisions IEEE.
 
 // The stackless walk of one ray over `tree` from row `root` (stackless_ray
-// without its outputs): the hit's leaf row, or -1; its t in t_hit.
-__device__ __forceinline__ int stackless_walk_from(const Tree& tree,
-                                                   const float o[3],
-                                                   const float d[3], int root,
-                                                   float& t_hit) {
+// without its outputs): the hit's leaf row, or -1; its t in t_hit. `probe`
+// (a Probe) sees each step as a step and the set-up as a ray's.
+template <class P>
+__device__ __forceinline__ int stackless_walk_probe(const Tree& tree,
+                                                    const float o[3],
+                                                    const float d[3], int root,
+                                                    float& t_hit, P& probe) {
   Ray r;
   Walk w;
+  long long t = probe.enter(PH_RAY);
   bool done = setup_at(o, d, root, r, w);
+  probe.leave(PH_RAY, t);
   const int n_max = max_iters_for_depth(tree.depth);
   int leaf = -1, it = 0;
   float ht = 0.0f;
   while (!done && it < n_max) {
+    t = probe.enter(PH_STEP);
     ++it;
     int child_shift, leaf_rank;
     const int what = stackless_step(r, w, tree.masks, tree.child,
@@ -1165,9 +1170,18 @@ __device__ __forceinline__ int stackless_walk_from(const Tree& tree,
       leaf = __ldg(tree.leaf_base + w.parent) + leaf_rank;
     }
     done = what != STEP_ON;
+    probe.leave(PH_STEP, t);
   }
   t_hit = ht;
   return leaf;
+}
+
+__device__ __forceinline__ int stackless_walk_from(const Tree& tree,
+                                                   const float o[3],
+                                                   const float d[3], int root,
+                                                   float& t_hit) {
+  Probe<false> probe;
+  return stackless_walk_probe(tree, o, d, root, t_hit, probe);
 }
 
 // The brick trace of one ray over the top tree `tree` from top row `root`
@@ -1363,47 +1377,53 @@ struct LevelIO {
 
 // The arena walk from octant `oct`'s root of a ray at octree-space o_cur:
 // the arena leaf, or -1; t * size of the hit in t_scaled.
+template <class P>
 __device__ __forceinline__ int octant_walk(const Tree& arena, const Octants& oc,
                                            int oct, const float o_cur[3],
-                                           const float d[3], float& t_scaled) {
+                                           const float d[3], float& t_scaled,
+                                           P& probe) {
   float o_loc[3];
   for (int c = 0; c < 3; ++c)
     o_loc[c] = (o_cur[c] - __ldg(oc.origin + (size_t)3 * oct + c)) / oc.size;
   float t2;
-  const int leaf = stackless_walk_from(arena, o_loc, d, __ldg(oc.root + oct), t2);
+  const int leaf = stackless_walk_probe(arena, o_loc, d, __ldg(oc.root + oct),
+                                       t2, probe);
   t_scaled = leaf >= 0 ? t2 * oc.size : 0.0f;
   return leaf;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(BLOCK)
-level_round_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
+// One round of ray (or packet) i in MODE. QUEUED: i came through the
+// queue, so it is live (a ray not done, a valid packet) and its flag is not
+// read again.
+template <int MODE, bool QUEUED, class P>
+__device__ __forceinline__ void level_ray(const Tree& trunk, const Tree& arena,
+                                          const Octants& oc, const LevelIO& io,
+                                          int i, P& probe) {
   if (MODE == LEVEL_PACKETS) {
     const float* p = io.origin + (size_t)PACKET_WORDS * i;
     int leaf = -1;
     float t = 0.0f;
-    if (__float_as_int(p[7]) != 0) {
+    if (QUEUED || __float_as_int(p[7]) != 0) {
       const float o[3] = {p[0], p[1], p[2]}, d[3] = {p[3], p[4], p[5]};
-      leaf = octant_walk(arena, oc, __float_as_int(p[6]), o, d, t);
+      leaf = octant_walk(arena, oc, __float_as_int(p[6]), o, d, t, probe);
     }
     float* reply = reinterpret_cast<float*>(io.leaf) + (size_t)REPLY_WORDS * i;
     reply[0] = __int_as_float(leaf);
     reply[1] = t;
+    probe.ray();
     return;
   }
   const float t_off = io.t_off[i];
   int oct = -1, leaf = -1;
   float t_hit = 0.0f, t_next = t_off;
-  if (!io.done[i]) {
+  if (QUEUED || !io.done[i]) {
     float o_cur[3], d[3];
     for (int c = 0; c < 3; ++c) {
       d[c] = io.direction[(size_t)3 * i + c];
       o_cur[c] = io.origin[(size_t)3 * i + c] + t_off * d[c];
     }
     float t_unused;
-    oct = stackless_walk_from(trunk, o_cur, d, 0, t_unused);
+    oct = stackless_walk_probe(trunk, o_cur, d, 0, t_unused, probe);
     if (oct >= 0) {
       // past the octant's box: the least far-plane t over the axes
       float t_exit = INFINITY;
@@ -1417,7 +1437,7 @@ level_round_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io) {
       t_next = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
       if (MODE == LEVEL_SHARDED && __ldg(oc.owner + oct) == oc.rank) {
         float t2;
-        leaf = octant_walk(arena, oc, oct, o_cur, d, t2);
+        leaf = octant_walk(arena, oc, oct, o_cur, d, t2, probe);
         if (leaf >= 0) t_hit = t_off + t2;
       }
     }
@@ -1429,6 +1449,179 @@ level_round_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io) {
     io.leaf[i] = leaf;
     io.t_hit[i] = t_hit;
   }
+  probe.ray();
+}
+
+// The first form: a thread for each of the n rays or packets, a done ray or
+// an invalid packet skipped inside its warp.
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK)
+level_round_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= io.n) return;
+  Probe<false> probe;
+  level_ray<MODE, false>(trunk, arena, oc, io, i, probe);
+}
+
+// The first form with the counters (the probe layout above): steps are the
+// trunk's and the arena's stackless steps, rays the rays or packets a warp
+// handled, the ray phase the walks' set-ups.
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK)
+level_round_probe_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io,
+                         long long* __restrict__ probe_out) {
+  Probe<true> probe;
+  probe.begin();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < io.n) level_ray<MODE, false>(trunk, arena, oc, io, i, probe);
+  probe.finish(probe_out);
+}
+
+// ---- level_round's queue ------------------------------------------------------
+//
+// The main path's form launches a thread for each live ray or valid packet
+// only, so that a warp's lanes all walk. "sharded" and "trunk": a stable
+// compaction of the rays not done, as svo_compact's (svo_build.cu): the
+// blocks' counts (level_queue_count_kernel), their exclusive scan and total
+// (torch.cumsum outside; the total is the live count that the loop reads on
+// the host, and that sizes the round's grid), and the place pass
+// (level_queue_place_kernel): each live ray's index at its rank (ballot and
+// __popc within the warp, the block's warp prefix in shared memory, the
+// block's offset), and a done ray's outputs written as the first form
+// writes them (oct_id -1, t_next = t_off, no hit). In a loop the passes
+// run over the previous round's queue instead of every ray (a done ray
+// stays done, so the live rays are a subset of it), and the loop keeps the
+// outputs from round to round: a ray's outputs are written as a done ray's
+// once, in the round after it was done, and stay. So a round's passes cost
+// in proportion to the rays it had live. The queue takes the done rays off
+// the walk's warps; it does not shorten a round's longest walks, which set
+// its span (the first form's probe, chip_smoke.py [sharded]).
+// "packets": the exchange lays each peer's packets at the start of that
+// peer's segment of `seg` slots (make_exchange_trace's bucket), so the
+// valid slots of a segment are a prefix; level_queue_packets_kernel finds each segment's count by a
+// search of its flags (a block a segment, QBLOCK samples a step) and writes
+// every slot's reply as an invalid packet's, (-1, 0), which the walk then
+// overwrites for the valid ones. A loop's first round has no done ray and
+// no queue: thread j takes ray j. level_round_queued_kernel: thread j takes
+// the j-th live ray (or the j-th valid slot, counting segment by segment)
+// and runs the first form's round on it, its outputs at the ray's own
+// index; threads past the device-side count return at once (the grid is
+// sized by a bound the host already holds).
+constexpr int QBLOCK = 256;
+
+struct LevelQueue {
+  const int* queue;   // "sharded", "trunk": the live rays in order (null in
+                      // a first round: every ray); "packets": the
+                      // segments' valid counts
+  const int* n_live;  // "sharded", "trunk": the count of live rays
+  int n_seg, seg;     // "packets": the segments and their length
+};
+
+// The ray of the pass's entry j: ray j, or with a previous round's queue
+// (`prev`, its length `*n_prev` on the device) that queue's j-th ray; -1
+// past the end.
+__device__ __forceinline__ int queue_entry(const int* __restrict__ prev,
+                                           const int* __restrict__ n_prev,
+                                           int n, int j) {
+  if (prev == nullptr) return j < n ? j : -1;
+  return j < __ldg(n_prev) ? __ldg(prev + j) : -1;
+}
+
+__global__ void __launch_bounds__(QBLOCK)
+level_queue_count_kernel(const unsigned char* __restrict__ done, int n,
+                         const int* __restrict__ prev,
+                         const int* __restrict__ n_prev,
+                         int* __restrict__ counts) {
+  const int i = queue_entry(prev, n_prev, n, blockIdx.x * QBLOCK + threadIdx.x);
+  const int total = __syncthreads_count(i >= 0 && !done[i]);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(QBLOCK)
+level_queue_place_kernel(const unsigned char* __restrict__ done, int n,
+                         const int* __restrict__ prev,
+                         const int* __restrict__ n_prev,
+                         const int* __restrict__ block_base,
+                         int* __restrict__ queue, LevelIO io) {
+  __shared__ int warp_total[QBLOCK / 32];
+  const int i = queue_entry(prev, n_prev, n, blockIdx.x * QBLOCK + threadIdx.x);
+  const bool live = i >= 0 && !done[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(FULL, live);
+  if (lane == 0) warp_total[warp] = __popc(ballot);
+  __syncthreads();
+  if (i < 0) return;
+  if (!live) {
+    io.oct_id[i] = -1;
+    io.t_next[i] = io.t_off[i];
+    if (MODE == LEVEL_SHARDED) {
+      io.hit[i] = 0;
+      io.leaf[i] = -1;
+      io.t_hit[i] = 0.0f;
+    }
+    return;
+  }
+  int pos = block_base[blockIdx.x] + __popc(ballot & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) pos += warp_total[w];
+  queue[pos] = i;
+}
+
+__global__ void __launch_bounds__(QBLOCK)
+level_queue_packets_kernel(const float* __restrict__ packets, int n, int n_seg,
+                           int seg, float* __restrict__ replies,
+                           int* __restrict__ seg_count) {
+  const int i = blockIdx.x * QBLOCK + threadIdx.x;
+  if (i < n) {
+    replies[(size_t)REPLY_WORDS * i] = __int_as_float(-1);
+    replies[(size_t)REPLY_WORDS * i + 1] = 0.0f;
+  }
+  if (blockIdx.x >= n_seg) return;
+  // segment blockIdx.x: every slot below a is valid; slot b is not, or b is
+  // the segment's end. The bounds are the same in every thread.
+  const float* flags = packets + (size_t)PACKET_WORDS * blockIdx.x * seg + 7;
+  int a = 0, b = seg;
+  while (a < b) {
+    const int step = (b - a + QBLOCK - 1) / QBLOCK;
+    const int x = a + threadIdx.x * step;
+    const bool valid = x < b && __float_as_int(flags[(size_t)PACKET_WORDS * x]) != 0;
+    const int cnt = __syncthreads_count(valid);
+    const int samples = (b - a + step - 1) / step;
+    if (cnt == 0) {
+      b = a;
+    } else {
+      const int next_b = cnt < samples ? a + cnt * step : b;
+      a = a + (cnt - 1) * step + 1;
+      b = next_b;
+    }
+  }
+  if (threadIdx.x == 0) seg_count[blockIdx.x] = a;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK)
+level_round_queued_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io,
+                          LevelQueue q) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int i;
+  if (MODE == LEVEL_PACKETS) {
+    int s = 0, base = 0;
+    for (; s < q.n_seg; ++s) {
+      const int c = __ldg(q.queue + s);
+      if (j < base + c) break;
+      base += c;
+    }
+    if (s == q.n_seg) return;
+    i = s * q.seg + (j - base);
+  } else if (q.queue == nullptr) {  // a first round: every ray live
+    if (j >= io.n) return;
+    i = j;
+  } else {
+    if (j >= __ldg(q.n_live)) return;
+    i = __ldg(q.queue + j);
+  }
+  Probe<false> probe;
+  level_ray<MODE, true>(trunk, arena, oc, io, i, probe);
 }
 
 int blocks_for(int n, int span) { return (int)((n + (long long)span - 1) / span); }
@@ -1870,6 +2063,51 @@ extern "C" int clipmap_trace_brick(
 // (n,) bytes) or, in LEVEL_PACKETS, n packets at `origin` (n, 8); outputs
 // (n,) oct_id, hit, leaf, t_hit, t_next (LEVEL_TRUNK: oct_id and t_next,
 // the rest may be null) or, in LEVEL_PACKETS, the (n, 2) replies at `leaf`.
+namespace {
+
+// The three launches of level_round's first form, probe form and queued
+// form share their arguments: the trees, the octant tables, the rays (or
+// packets) and the outputs.
+struct LevelArgs {
+  Tree trunk, arena;
+  Octants oc;
+  LevelIO io;
+};
+
+bool level_args(int mode, const void* trunk_masks, const void* trunk_child,
+                const void* trunk_parent, const void* trunk_leaf,
+                int trunk_depth, const void* masks, const void* child_base,
+                const void* parent_ptr, const void* leaf_base, int sub_depth,
+                const void* oct_owner, const void* oct_root,
+                const void* oct_origin, float size, int rank,
+                const void* origin, const void* direction, const void* t_off,
+                const void* done, int n, void* oct_id, void* hit, void* leaf,
+                void* t_hit, void* t_next, LevelArgs& a) {
+  if (n < 0 || mode < LEVEL_SHARDED || mode > LEVEL_PACKETS || trunk_depth < 1 ||
+      trunk_depth > S_MAX - 1 || sub_depth < 1 || sub_depth > S_MAX - 1)
+    return false;
+  a.trunk = Tree{(const int*)trunk_masks, (const int*)trunk_child,
+                 (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
+                 trunk_depth, 0};
+  a.arena = Tree{(const int*)masks, (const int*)child_base,
+                 (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                 sub_depth, 0};
+  a.oc = Octants{(const int*)oct_owner, (const int*)oct_root,
+                 (const float*)oct_origin, size, rank};
+  a.io = LevelIO{(const float*)origin, (const float*)direction,
+                 (const float*)t_off, (const unsigned char*)done, n,
+                 (int*)oct_id, (int*)hit, (int*)leaf, (float*)t_hit,
+                 (float*)t_next};
+  return true;
+}
+
+}  // namespace
+
+// The queued form (the main path's): `queue` and `n_live` are the live
+// rays and their count ("sharded", "trunk"; both null in a first round,
+// where no ray is done), or `queue` the n_seg segments' valid counts
+// ("packets", segments of `seg` slots), as level_queue left them; `grid_n`
+// threads, a bound on the live count the caller holds.
 extern "C" int level_round(int mode, const void* trunk_masks,
                            const void* trunk_child, const void* trunk_parent,
                            const void* trunk_leaf, int trunk_depth,
@@ -1880,31 +2118,168 @@ extern "C" int level_round(int mode, const void* trunk_masks,
                            float size, int rank, const void* origin,
                            const void* direction, const void* t_off,
                            const void* done, int n, void* oct_id, void* hit,
-                           void* leaf, void* t_hit, void* t_next, void* stream) {
-  if (n < 0 || mode < LEVEL_SHARDED || mode > LEVEL_PACKETS || trunk_depth < 1 ||
-      trunk_depth > S_MAX - 1 || sub_depth < 1 || sub_depth > S_MAX - 1)
+                           void* leaf, void* t_hit, void* t_next,
+                           const void* queue, const void* n_live, int n_seg,
+                           int seg, int grid_n, void* stream) {
+  LevelArgs a;
+  if (!level_args(mode, trunk_masks, trunk_child, trunk_parent, trunk_leaf,
+                  trunk_depth, masks, child_base, parent_ptr, leaf_base,
+                  sub_depth, oct_owner, oct_root, oct_origin, size, rank,
+                  origin, direction, t_off, done, n, oct_id, hit, leaf, t_hit,
+                  t_next, a) ||
+      grid_n < 0 || n_seg < 0 || seg < 0)
     return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
-                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
-                     trunk_depth, 0};
-    const Tree arena{(const int*)masks, (const int*)child_base,
-                     (const int*)parent_ptr, (const int*)leaf_base, nullptr,
-                     sub_depth, 0};
-    const Octants oc{(const int*)oct_owner, (const int*)oct_root,
-                     (const float*)oct_origin, size, rank};
-    const LevelIO io{(const float*)origin, (const float*)direction,
-                     (const float*)t_off, (const unsigned char*)done, n,
-                     (int*)oct_id, (int*)hit, (int*)leaf, (float*)t_hit,
-                     (float*)t_next};
-    const int blocks = blocks_for(n, BLOCK);
+  if (grid_n > 0) {
+    const LevelQueue q{(const int*)queue, (const int*)n_live, n_seg, seg};
+    const int blocks = blocks_for(grid_n, BLOCK);
     cudaStream_t st = (cudaStream_t)stream;
     if (mode == LEVEL_SHARDED)
-      level_round_kernel<LEVEL_SHARDED><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
+      level_round_queued_kernel<LEVEL_SHARDED><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, q);
     else if (mode == LEVEL_TRUNK)
-      level_round_kernel<LEVEL_TRUNK><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
+      level_round_queued_kernel<LEVEL_TRUNK><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, q);
     else
-      level_round_kernel<LEVEL_PACKETS><<<blocks, BLOCK, 0, st>>>(trunk, arena, oc, io);
+      level_round_queued_kernel<LEVEL_PACKETS><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, q);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The first form, and with `probe` (PROBE_WORDS int64 words a warp of
+// blocks of BLOCK threads) its probe form.
+static int level_round_first(int mode, const void* trunk_masks,
+                             const void* trunk_child, const void* trunk_parent,
+                             const void* trunk_leaf, int trunk_depth,
+                             const void* masks, const void* child_base,
+                             const void* parent_ptr, const void* leaf_base,
+                             int sub_depth, const void* oct_owner,
+                             const void* oct_root, const void* oct_origin,
+                             float size, int rank, const void* origin,
+                             const void* direction, const void* t_off,
+                             const void* done, int n, void* oct_id, void* hit,
+                             void* leaf, void* t_hit, void* t_next,
+                             void* probe, void* stream) {
+  LevelArgs a;
+  if (!level_args(mode, trunk_masks, trunk_child, trunk_parent, trunk_leaf,
+                  trunk_depth, masks, child_base, parent_ptr, leaf_base,
+                  sub_depth, oct_owner, oct_root, oct_origin, size, rank,
+                  origin, direction, t_off, done, n, oct_id, hit, leaf, t_hit,
+                  t_next, a))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int blocks = blocks_for(n, BLOCK);
+    cudaStream_t st = (cudaStream_t)stream;
+    long long* p = (long long*)probe;
+    if (p && mode == LEVEL_SHARDED)
+      level_round_probe_kernel<LEVEL_SHARDED><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, p);
+    else if (p && mode == LEVEL_TRUNK)
+      level_round_probe_kernel<LEVEL_TRUNK><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, p);
+    else if (p)
+      level_round_probe_kernel<LEVEL_PACKETS><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io, p);
+    else if (mode == LEVEL_SHARDED)
+      level_round_kernel<LEVEL_SHARDED><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io);
+    else if (mode == LEVEL_TRUNK)
+      level_round_kernel<LEVEL_TRUNK><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io);
+    else
+      level_round_kernel<LEVEL_PACKETS><<<blocks, BLOCK, 0, st>>>(
+          a.trunk, a.arena, a.oc, a.io);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int level_round_serial(int mode, const void* trunk_masks,
+                                  const void* trunk_child,
+                                  const void* trunk_parent,
+                                  const void* trunk_leaf, int trunk_depth,
+                                  const void* masks, const void* child_base,
+                                  const void* parent_ptr, const void* leaf_base,
+                                  int sub_depth, const void* oct_owner,
+                                  const void* oct_root, const void* oct_origin,
+                                  float size, int rank, const void* origin,
+                                  const void* direction, const void* t_off,
+                                  const void* done, int n, void* oct_id,
+                                  void* hit, void* leaf, void* t_hit,
+                                  void* t_next, void* stream) {
+  return level_round_first(mode, trunk_masks, trunk_child, trunk_parent,
+                           trunk_leaf, trunk_depth, masks, child_base,
+                           parent_ptr, leaf_base, sub_depth, oct_owner,
+                           oct_root, oct_origin, size, rank, origin, direction,
+                           t_off, done, n, oct_id, hit, leaf, t_hit, t_next,
+                           nullptr, stream);
+}
+
+extern "C" int level_round_probe(int mode, const void* trunk_masks,
+                                 const void* trunk_child,
+                                 const void* trunk_parent,
+                                 const void* trunk_leaf, int trunk_depth,
+                                 const void* masks, const void* child_base,
+                                 const void* parent_ptr, const void* leaf_base,
+                                 int sub_depth, const void* oct_owner,
+                                 const void* oct_root, const void* oct_origin,
+                                 float size, int rank, const void* origin,
+                                 const void* direction, const void* t_off,
+                                 const void* done, int n, void* oct_id,
+                                 void* hit, void* leaf, void* t_hit,
+                                 void* t_next, void* probe, void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
+  return level_round_first(mode, trunk_masks, trunk_child, trunk_parent,
+                           trunk_leaf, trunk_depth, masks, child_base,
+                           parent_ptr, leaf_base, sub_depth, oct_owner,
+                           oct_root, oct_origin, size, rank, origin, direction,
+                           t_off, done, n, oct_id, hit, leaf, t_hit, t_next,
+                           probe, stream);
+}
+
+// level_round's queue for a round of `mode` over n rays or packets.
+// "sharded", "trunk": over every ray, or with `prev` over a previous round's
+// queue (its length `n_prev` on the device, at most `grid_n`; grid_n is n
+// without it): with `counts` (ceil(grid_n / QBLOCK) ints), the count pass
+// (each block's live rays); else the place pass from the counts' exclusive
+// scan `block_base`: `queue` and the outputs of the rays found done (the
+// first form's pointers: oct_id and t_next, and for "sharded" hit, leaf and
+// t_hit). "packets": `leaf` is the (n, 2) replies, every one written as an
+// invalid packet's, and `queue` the n_seg = n / seg segments' valid counts.
+extern "C" int level_queue(int mode, int n, const void* done, const void* t_off,
+                           const void* prev, const void* n_prev, int grid_n,
+                           const void* packets, int seg, void* counts,
+                           const void* block_base, void* queue, void* oct_id,
+                           void* hit, void* leaf, void* t_hit, void* t_next,
+                           void* stream) {
+  if (n < 0 || grid_n < 0 || mode < LEVEL_SHARDED || mode > LEVEL_PACKETS ||
+      (mode == LEVEL_PACKETS && (seg < 1 || n % seg != 0)) ||
+      (prev == nullptr) != (n_prev == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || grid_n == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == LEVEL_PACKETS) {
+    const int n_seg = n / seg, blocks = blocks_for(n, QBLOCK);
+    level_queue_packets_kernel<<<blocks > n_seg ? blocks : n_seg, QBLOCK, 0, st>>>(
+        (const float*)packets, n, n_seg, seg, (float*)leaf, (int*)queue);
+    return (int)cudaGetLastError();
+  }
+  const int blocks = blocks_for(prev == nullptr ? n : grid_n, QBLOCK);
+  if (counts != nullptr) {
+    level_queue_count_kernel<<<blocks, QBLOCK, 0, st>>>(
+        (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev,
+        (int*)counts);
+  } else {
+    const LevelIO io{nullptr, nullptr, (const float*)t_off,
+                     (const unsigned char*)done, n, (int*)oct_id, (int*)hit,
+                     (int*)leaf, (float*)t_hit, (float*)t_next};
+    if (mode == LEVEL_SHARDED)
+      level_queue_place_kernel<LEVEL_SHARDED><<<blocks, QBLOCK, 0, st>>>(
+          (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev,
+          (const int*)block_base, (int*)queue, io);
+    else
+      level_queue_place_kernel<LEVEL_TRUNK><<<blocks, QBLOCK, 0, st>>>(
+          (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev,
+          (const int*)block_base, (int*)queue, io);
   }
   return (int)cudaGetLastError();
 }

@@ -19,13 +19,47 @@
 //                  torch.cumsum outside, as jnp.cumsum is in the reference).
 //                  Order is the layout, so it must be stable. Its count mode
 //                  writes the blocks' counts of flags no other kernel counted.
-//   svo_leaves     replaces _leaf_test (:143) and _leaf_attrs (:323), phases B
-//                  and D: a thread per finest candidate. Solid centre and an
-//                  air neighbour among the six one voxel away; for a survivor
-//                  also the palette albedo and the central-difference normal
-//                  (h = 1e-3, six more scene calls), written at the
-//                  candidate's row (zeros elsewhere) for svo_compact to
-//                  gather; the block's survivor count.
+//   svo_leaves     replaces _leaf_test (:143), phase B: a thread per finest
+//                  candidate, the solid centres' air test without the scene
+//                  wherever the expansion already evaluated it. At the finest
+//                  level the probe px +- fin is bit for bit the centre of the
+//                  face neighbour c +- 1 (fin = 2^-depth: both are exact
+//                  float32 values), and svo_expand evaluated the scene there
+//                  (the same scene::eval on the same float32 point: the same
+//                  bits under --fmad=false) for every child of a kept parent,
+//                  kept or not. So the test reads the last level's
+//                  uncompacted records, in three launches. A thread a kept
+//                  parent first finds its three + face neighbours among the
+//                  kept parents, which are in Morton order (candidates are
+//                  parent-major), by a galloping search from its own row,
+//                  and is each one's - neighbour along the same axis
+//                  (svo_leaf_neighbours_kernel: the table). Then a thread a
+//                  finest candidate (svo_leaf_test_kernel): a probe that
+//                  stays inside the candidate's parent is the sibling at
+//                  slot s ^ bit; one that crosses into the next parent is
+//                  that parent's child at slot s ^ bit, through the table.
+//                  Only a probe that no kept parent covers (outside [0,1)^3,
+//                  outside an octant build's octant, or under a pruned
+//                  parent) is left to the scene: a solid candidate whose
+//                  covered probes show no air and which has such a probe
+//                  goes to a needy list, and svo_leaf_eval_kernel evaluates
+//                  its uncovered probes until one shows air, flagging and
+//                  counting it. The test kernel holds no scene code, so its
+//                  registers stay few. The survivor flag and the block's
+//                  survivor count, nothing else: the leaves' attributes are
+//                  svo_leaf_attrs' dense pass. A counting form adds the
+//                  evaluations it made to a 64-bit total.
+//   svo_leaf_attrs replaces _leaf_attrs (:323), phase D: a thread per leaf,
+//                  over the leaves' records as svo_compact packed them, so
+//                  that every lane of a warp holds a leaf: the palette albedo
+//                  and the central-difference normal (h = 1e-3, six scene
+//                  calls), written at the leaf's row.
+//   svo_leaves_serial  the leaf test's first form (phases B and D in one
+//                  pass): a thread per finest candidate, the six probes of a
+//                  solid centre all evaluated as the host does, and a leaf's
+//                  albedo and normal written at the candidate's row (zeros
+//                  elsewhere) for svo_compact to gather; the block's survivor
+//                  count. The new form's yardstick, on no build's path.
 //   svo_level_up   replaces _level_up (:163) and _first_child (:174), phase C:
 //                  a thread per surviving child (svo_compact's rows). It ORs
 //                  1 << slot into its parent's valid mask and takes the
@@ -43,10 +77,12 @@
 //                  against the host's scenes. No build launches it.
 //
 // One thread an element in blocks of 256. What bounds them on this card:
-// svo_expand and svo_leaves the scene's arithmetic (some 780 operations a
-// `terrain` evaluation, scene.cuh) against 16 B read and 17 B written a
-// child (a parent record is read by its eight children through L1); the
-// rest bytes: svo_compact reads a flag and writes (1 + width) words a kept
+// svo_expand, svo_leaf_attrs and svo_leaves_serial the scene's arithmetic
+// (some 780 operations a `terrain` evaluation, scene.cuh) against 16 B read
+// and 17 B written a child (a parent record is read by its eight children
+// through L1); svo_leaves its reads of the uncompacted records and of the
+// parents its searches visit, and the few evaluations left; the rest
+// bytes: svo_compact reads a flag and writes (1 + width) words a kept
 // row, svo_level_up reads three words and makes two integer atomics a
 // survivor, svo_parent_ptr reads two words a node and writes one.
 // The design keeps every candidate array on the card: only the block
@@ -159,6 +195,232 @@ __global__ void __launch_bounds__(BLOCK)
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
 }
 
+// ---- svo_leaves: the leaf test over the expansion's values ----------------
+
+// Whether integer point a precedes b in Morton order (x in bit 0 of each
+// triple, as the candidates are ordered): the axis whose highest differing
+// bit is highest decides, z before y before x on a tie. Coordinates are
+// non-negative.
+__device__ __forceinline__ bool morton_less(int ax, int ay, int az, int bx,
+                                            int by, int bz) {
+  const unsigned dx = ax ^ bx, dy = ay ^ by, dz = az ^ bz;
+  int axis = 2;
+  unsigned m = dz;
+  if (m < dy && m < (m ^ dy)) {
+    axis = 1;
+    m = dy;
+  }
+  if (m < dx && m < (m ^ dx)) axis = 0;
+  return axis == 0 ? ax < bx : (axis == 1 ? ay < by : az < bz);
+}
+
+// The row of the kept parent at (qx, qy, qz) among the n_par kept parents
+// (Morton order), or -1: a galloping search from row p, the parent whose
+// face neighbour q is, forward when q follows it (a + neighbour), backward
+// when it precedes it. A face neighbour is mostly a few rows away.
+__device__ __forceinline__ int find_parent(const int4* __restrict__ parents,
+                                           int n_par, int p, int qx, int qy,
+                                           int qz, bool forward) {
+  auto before = [&](int row) {  // parents[row] precedes q
+    const int4 r = __ldg(parents + row);
+    return morton_less(r.x, r.y, r.z, qx, qy, qz);
+  };
+  auto after = [&](int row) {  // q precedes parents[row]
+    const int4 r = __ldg(parents + row);
+    return morton_less(qx, qy, qz, r.x, r.y, r.z);
+  };
+  int lo, hi;
+  if (forward) {  // parents[p] precedes q
+    lo = p;
+    hi = p + 1;
+    for (int step = 1; hi < n_par && before(hi);) {
+      lo = hi;
+      step <<= 1;
+      hi = p + step;
+    }
+    if (hi > n_par) hi = n_par;
+    // parents[lo] precedes q; hi == n_par or q does not follow parents[hi]
+    while (hi - lo > 1) {
+      const int mid = lo + (hi - lo) / 2;
+      if (before(mid)) lo = mid; else hi = mid;
+    }
+    return (hi < n_par && !after(hi)) ? hi : -1;
+  }
+  hi = p;  // q precedes parents[p]
+  lo = p - 1;
+  for (int step = 1; lo >= 0 && after(lo);) {
+    hi = lo;
+    step <<= 1;
+    lo = p - step;
+  }
+  if (lo < -1) lo = -1;
+  // q precedes parents[hi]; lo == -1 or parents[lo] does not follow q
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (after(mid)) hi = mid; else lo = mid;
+  }
+  return (lo >= 0 && !before(lo)) ? lo : -1;
+}
+
+// Each kept parent's six face neighbours among the kept parents (rows, -1
+// for none: outside the world or pruned), in the probes' order (+x, -x, +y,
+// -y, +z, -z), over a table set to -1 before: a thread searches its parent's
+// three + neighbours, and a neighbour q found along axis a has this parent
+// as its - neighbour along a, so the thread writes that entry of q's too
+// (one writer: q's - neighbour is one parent). The needy list's count is
+// zeroed for the test.
+__global__ void __launch_bounds__(BLOCK)
+    svo_leaf_neighbours_kernel(const int4* __restrict__ parents, int n_par,
+                               int cells, int* __restrict__ table,
+                               int* __restrict__ n_needy) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p == 0) *n_needy = 0;
+  if (p >= n_par) return;
+  const int4 pc = __ldg(parents + p);
+  for (int a = 0; a < 3; ++a) {
+    const int qa = (a == 0 ? pc.x : (a == 1 ? pc.y : pc.z)) + 1;
+    if (qa >= cells) continue;
+    const int q = find_parent(parents, n_par, p, pc.x + (a == 0), pc.y + (a == 1),
+                              pc.z + (a == 2), true);
+    if (q < 0) continue;
+    table[(size_t)6 * p + 2 * a] = q;
+    table[(size_t)6 * q + 2 * a + 1] = p;
+  }
+}
+
+// The axes of candidate c (slot s, parent p) whose crossing probe no kept
+// parent covers, or -1 when a probe that the records cover shows air.
+__device__ __forceinline__ int uncovered_axes(int s, int p,
+                                              const int4* __restrict__ full,
+                                              const int* __restrict__ table) {
+  const int4* kids = full + (size_t)8 * p;
+  // a probe along axis a stays inside the parent on the side of c's low
+  // bit, and crosses into the next parent on the other: three siblings
+  bool air = false;
+  for (int a = 0; a < 3; ++a)
+    air |= __int_as_float(__ldg(&kids[s ^ (1 << a)].w)) > 0.f;
+  int todo = 0;
+  for (int a = 0; a < 3 && !air; ++a) {
+    const int up = (s >> a) & 1;  // the crossing probe goes up
+    const int q = __ldg(table + (size_t)6 * p + 2 * a + (up ? 0 : 1));
+    if (q < 0)
+      todo |= 1 << a;
+    else
+      air = __int_as_float(__ldg(&full[(size_t)8 * q + (s ^ (1 << a))].w)) > 0.f;
+  }
+  return air ? -1 : todo;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+    svo_leaf_test_kernel(const int4* __restrict__ rec, int n,
+                         const int* __restrict__ par,
+                         const int4* __restrict__ full,
+                         const int* __restrict__ table,
+                         unsigned char* __restrict__ survive,
+                         int* __restrict__ counts, int* __restrict__ needy,
+                         int* __restrict__ n_needy) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  int leaf = 0;
+  bool need = false;
+  if (i < n) {
+    const int4 c = __ldg(rec + i);
+    if (__int_as_float(c.w) <= 0.f) {
+      const int s = (c.x & 1) | ((c.y & 1) << 1) | ((c.z & 1) << 2);
+      const int todo = uncovered_axes(s, __ldg(par + i), full, table);
+      leaf = todo < 0;
+      need = todo > 0;
+    }
+    survive[i] = (unsigned char)leaf;
+  }
+  // a solid centre whose covered probes show no air but some probe is not
+  // covered: to the needy list, a warp's at one atomic
+  const unsigned ballot = __ballot_sync(0xffffffffu, need);
+  if (ballot) {
+    const int lane = threadIdx.x & 31;
+    int base = 0;
+    if (lane == __ffs(ballot) - 1) base = atomicAdd(n_needy, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, __ffs(ballot) - 1);
+    if (need) needy[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+  }
+  const int total = __syncthreads_count(leaf);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// The needy candidates: the host's probes where nothing covers them, until
+// one shows air; a new leaf is flagged and counted in its block. COUNT: the
+// evaluations made are summed into *evals. A grid of EVAL_BLOCKS strides
+// over the list.
+constexpr int EVAL_BLOCKS = 1024;
+
+template <bool COUNT>
+__global__ void __launch_bounds__(BLOCK)
+    svo_leaf_eval_kernel(const int4* __restrict__ rec,
+                         const int* __restrict__ par,
+                         const int4* __restrict__ full,
+                         const int* __restrict__ table,
+                         const int* __restrict__ needy,
+                         const int* __restrict__ n_needy, float fin,
+                         int scene_id, scene::Tables tables,
+                         unsigned char* __restrict__ survive,
+                         int* __restrict__ counts,
+                         unsigned long long* __restrict__ evals) {
+  const int m = *n_needy;
+  int made = 0;
+  for (int j = blockIdx.x * BLOCK + threadIdx.x; j < m; j += EVAL_BLOCKS * BLOCK) {
+    const int i = needy[j];
+    const int4 c = __ldg(rec + i);
+    const int s = (c.x & 1) | ((c.y & 1) << 1) | ((c.z & 1) << 2);
+    const int todo = uncovered_axes(s, __ldg(par + i), full, table);
+    const float px = ((float)c.x + 0.5f) * fin;
+    const float py = ((float)c.y + 0.5f) * fin;
+    const float pz = ((float)c.z + 0.5f) * fin;
+    bool air = false;
+    for (int a = 0; a < 3 && !air; ++a) {
+      if (!((todo >> a) & 1)) continue;
+      const float sgn = ((s >> a) & 1) ? fin : -fin;
+      ++made;
+      air = scene::eval(scene_id, a == 0 ? px + sgn : px,
+                        a == 1 ? py + sgn : py, a == 2 ? pz + sgn : pz,
+                        tables) > 0.f;
+    }
+    if (air) {
+      survive[i] = 1;
+      atomicAdd(counts + i / BLOCK, 1);
+    }
+  }
+  if (COUNT) {
+    __shared__ int block_made;
+    if (threadIdx.x == 0) block_made = 0;
+    __syncthreads();
+    if (made) atomicAdd(&block_made, made);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_made)
+      atomicAdd(evals, (unsigned long long)block_made);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+    svo_leaf_attrs_kernel(const int4* __restrict__ leaf_rec, int m, float fin,
+                          int scene_id, scene::Tables tables,
+                          float* __restrict__ attrs) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= m) return;
+  const int4 c = __ldg(leaf_rec + i);
+  const float px = ((float)c.x + 0.5f) * fin;
+  const float py = ((float)c.y + 0.5f) * fin;
+  const float pz = ((float)c.z + 0.5f) * fin;
+  float a[3], nrm[3];
+  scene::default_albedo(px, py, pz, a);
+  scene::sampler_normal(scene_id, px, py, pz, tables, nrm);
+  float* row = attrs + (size_t)i * 6;
+  row[0] = a[0];
+  row[1] = a[1];
+  row[2] = a[2];
+  row[3] = nrm[0];
+  row[4] = nrm[1];
+  row[5] = nrm[2];
+}
+
 __global__ void __launch_bounds__(BLOCK)
     svo_level_up_kernel(const int* __restrict__ rows, int m,
                         const int* __restrict__ par,
@@ -211,7 +473,8 @@ bool bad_scene(int scene_id) {
 
 // Every entry launches on `stream` and returns cudaGetLastError(); one with
 // nothing to do (n == 0) launches nothing. Blocks of BLOCK threads: the
-// blocks' counts of svo_expand, svo_leaves and svo_compact's count mode
+// blocks' counts of svo_expand, svo_leaves, svo_leaves_serial and
+// svo_compact's count mode
 // have ceil(n / BLOCK) entries, and svo_compact reads block_base at the same
 // blocks.
 
@@ -249,7 +512,62 @@ extern "C" int svo_compact(const void* flags, int n, const void* block_base,
   return (int)cudaGetLastError();
 }
 
-extern "C" int svo_leaves(const void* rec, int n, float fin, int scene_id,
+// rec: the n finest candidates; par: each one's parent row among the n_par
+// kept parents `parents` (their records, Morton order); full: the last
+// level's uncompacted child records, 8 a kept parent; cells = 2^depth;
+// scratch: 6 n_par + n + 1 ints (the neighbour table, the needy list and
+// its count). A memset and three launches: the neighbour table, the test
+// over the records, the evaluations of the needy list. evals != null: the
+// counting form.
+extern "C" int svo_leaves(const void* rec, int n, const void* par,
+                          const void* parents, int n_par, const void* full,
+                          float fin, int cells, int scene_id, const void* perm,
+                          const void* perm3d, const void* lut_d,
+                          const void* lut_sb, const void* grads, void* survive,
+                          void* counts, void* scratch, void* evals,
+                          void* stream) {
+  if (n < 0 || n_par < 1 || cells < 2 || bad_scene(scene_id))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const scene::Tables t = make_tables(perm, perm3d, lut_d, lut_sb, grads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* table = (int*)scratch;
+  int* needy = table + (size_t)6 * n_par;
+  int* n_needy = needy + n;
+  const cudaError_t e = cudaMemsetAsync(table, 0xFF, sizeof(int) * 6 * (size_t)n_par, st);
+  if (e != cudaSuccess) return (int)e;
+  svo_leaf_neighbours_kernel<<<blocks_for(n_par), BLOCK, 0, st>>>(
+      (const int4*)parents, n_par, cells / 2, table, n_needy);
+  svo_leaf_test_kernel<<<blocks_for(n), BLOCK, 0, st>>>(
+      (const int4*)rec, n, (const int*)par, (const int4*)full, table,
+      (unsigned char*)survive, (int*)counts, needy, n_needy);
+  if (evals != nullptr)
+    svo_leaf_eval_kernel<true><<<EVAL_BLOCKS, BLOCK, 0, st>>>(
+        (const int4*)rec, (const int*)par, (const int4*)full, table, needy,
+        n_needy, fin, scene_id, t, (unsigned char*)survive, (int*)counts,
+        (unsigned long long*)evals);
+  else
+    svo_leaf_eval_kernel<false><<<EVAL_BLOCKS, BLOCK, 0, st>>>(
+        (const int4*)rec, (const int*)par, (const int4*)full, table, needy,
+        n_needy, fin, scene_id, t, (unsigned char*)survive, (int*)counts,
+        nullptr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int svo_leaf_attrs(const void* leaf_rec, int m, float fin,
+                              int scene_id, const void* perm,
+                              const void* perm3d, const void* lut_d,
+                              const void* lut_sb, const void* grads,
+                              void* attrs, void* stream) {
+  if (m < 0 || bad_scene(scene_id)) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaGetLastError();
+  svo_leaf_attrs_kernel<<<blocks_for(m), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int4*)leaf_rec, m, fin, scene_id,
+      make_tables(perm, perm3d, lut_d, lut_sb, grads), (float*)attrs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int svo_leaves_serial(const void* rec, int n, float fin, int scene_id,
                           const void* perm, const void* perm3d,
                           const void* lut_d, const void* lut_sb,
                           const void* grads, void* survive, void* attrs,

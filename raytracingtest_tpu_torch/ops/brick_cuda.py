@@ -45,7 +45,12 @@ rounds of ``stream/clipmap.py``'s ``trace_clipmap_device`` and
 
 ``level_round_kernel`` launches one round of the level-sharded traces
 (``level_round``, in its three modes), whose loops and plain version are in
-``parallel/level_sharded.py``.
+``parallel/level_sharded.py``: its queued form, a thread a live ray or valid
+packet, after the queue's passes (kernel ``level_queue``; ``level_scan`` is
+the count pass a loop makes before its host read).
+``level_round_serial_kernel`` is its first form, a thread for each ray or
+packet, the check and the yardstick; ``probe_level_round`` the first form
+with per-warp counters.
 
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
 and ``probe_brick_multi_cuda`` launch a form with per-warp counters
@@ -60,6 +65,8 @@ the ray while it was still walking.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,11 +86,12 @@ launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "brick_trace_multi": 0, "esvo_stackless_lod": 0, "brick_trace_lod": 0,
             "clipmap_trace": 0, "clipmap_trace_brick": 0,
             "level_round_sharded": 0, "level_round_trunk": 0,
-            "level_round_packets": 0}
+            "level_round_packets": 0, "level_queue": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
-                 "brick_trace_multi_serial": 0}
+                 "brick_trace_multi_serial": 0, "level_round_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
-                  "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0}
+                  "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
+                  "level_round_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
 _ESVO_STACKLESS_PROBE = Kernel("esvo_stackless_probe", brick_lib)
@@ -101,12 +109,17 @@ _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 _LEVEL_ROUND = Kernel("level_round", brick_lib)
+_LEVEL_ROUND_SERIAL = Kernel("level_round_serial", brick_lib)
+_LEVEL_ROUND_PROBE = Kernel("level_round_probe", brick_lib)
+_LEVEL_QUEUE = Kernel("level_queue", brick_lib)
 
 # level_round's modes (csrc/brick_trace.cu's LEVEL_*) and the words of an
 # exchanged packet (o_cur, d, octant id and valid flag as int32 bits) and of
 # its reply (leaf as int32 bits, t)
 LEVEL_MODES = {"sharded": 0, "trunk": 1, "packets": 2}
 PACKET_WORDS, REPLY_WORDS = 8, 2
+# the queue passes' blocks (csrc/brick_trace.cu's QBLOCK)
+QBLOCK = 256
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
 # each form's blocks
@@ -552,17 +565,11 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
     return out
 
 
-def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
-                       rays, direction=None, t_off=None, done=None):
-    """Launch one round of ``level_round`` in `mode` ("sharded", "trunk" or
-    "packets") on CUDA tensors. `trunk` and `arena` are SVOs (masks,
-    child_base, leaf_base, parent_ptr; depths trunk_depth and sub_depth);
-    `owner`, `root` (C,) int32 and `origin` (C, 3) float32 the octant tables,
-    `size` their size (a Python float, rounded to float32 here), `rank` this
-    rank. "sharded" and "trunk": `rays` (N, 3) float32 origins, `direction`
-    (N, 3), `t_off` (N,) float32 and `done` (N,) bool; returns (oct_id, hit,
-    leaf, t_hit, t_next) ("trunk": (oct_id, t_next)). "packets": `rays` the
-    (M, 8) float32 packets; returns the (M, 2) float32 replies."""
+def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,
+                direction, t_off, done, kernel, out=None):
+    """Check one level_round call's tensors for `kernel`; returns (n, the
+    C arguments before the rays, the ray pointers, the outputs (`out` if
+    given, else new), their pointers)."""
     code = LEVEL_MODES[mode]
     dev, n = rays.device, rays.shape[0]
     c = owner.shape[0]
@@ -581,7 +588,7 @@ def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
     else:
         specs += [("origin", rays, _F32, (n, 3)), ("direction", direction, _F32, (n, 3)),
                   ("t_off", t_off, _F32, (n,)), ("done", done, torch.bool, (n,))]
-    _LEVEL_ROUND.check(dev, specs)
+    kernel.check(dev, specs)
     if not (1 <= trunk.depth <= S_MAX - 1 and 1 <= arena.depth <= S_MAX - 1
             and n < 2 ** 31):
         raise ValueError(f"trunk depth {trunk.depth}, arena depth {arena.depth} "
@@ -593,21 +600,205 @@ def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
         ptrs = (null, null, out[0].data_ptr(), null, null)
         ray_ptrs = (rays.data_ptr(), null, null, null)
     else:
-        oct_id, t_next = empty(_I32), empty(_F32)
+        if out is None:
+            out = tuple(empty(dt) for dt in ((_I32, _I32, _I32, _F32, _F32)
+                                             if mode == "sharded" else (_I32, _F32)))
         if mode == "sharded":
-            hit, leaf, t_hit = empty(_I32), empty(_I32), empty(_F32)
-            out = (oct_id, hit, leaf, t_hit, t_next)
             ptrs = tuple(t.data_ptr() for t in out)
         else:
-            out = (oct_id, t_next)
-            ptrs = (oct_id.data_ptr(), null, null, null, t_next.data_ptr())
+            ptrs = (out[0].data_ptr(), null, null, null, out[1].data_ptr())
         ray_ptrs = (rays.data_ptr(), direction.data_ptr(), t_off.data_ptr(),
                     done.data_ptr())
-    _LEVEL_ROUND(dev, code, trunk.masks.data_ptr(), trunk.child_base.data_ptr(),
-                 trunk_pptr.data_ptr(), trunk.leaf_base.data_ptr(), trunk.depth,
-                 arena.masks.data_ptr(), arena.child_base.data_ptr(),
-                 arena_pptr.data_ptr(), arena.leaf_base.data_ptr(), arena.depth,
-                 owner.data_ptr(), root.data_ptr(), origin.data_ptr(),
-                 float(np.float32(size)), int(rank), *ray_ptrs, n, *ptrs)
-    launches["level_round_" + mode] += 1
+    head = (code, trunk.masks.data_ptr(), trunk.child_base.data_ptr(),
+            trunk_pptr.data_ptr(), trunk.leaf_base.data_ptr(), trunk.depth,
+            arena.masks.data_ptr(), arena.child_base.data_ptr(),
+            arena_pptr.data_ptr(), arena.leaf_base.data_ptr(), arena.depth,
+            owner.data_ptr(), root.data_ptr(), origin.data_ptr(),
+            float(np.float32(size)), int(rank))
+    return n, head, ray_ptrs, out, ptrs
+
+
+class LevelScan(NamedTuple):
+    """The live rays of a round, counted: each block of ``QBLOCK`` entries'
+    count, their exclusive scan and their inclusive scan, whose last entry
+    is the live count (on the device; ``live_count`` reads it)."""
+
+    counts: torch.Tensor
+    base: torch.Tensor
+    inclusive: torch.Tensor
+
+
+class LevelQueue:
+    """One loop's queue across its rounds ("sharded" or "trunk"), on the
+    card: the outputs, kept from round to round (a ray's outputs are written
+    as a done ray's once, in the round after it was done, and stay), and the
+    last round's queue of live rays (None after a first round: every ray),
+    its length on the device and a bound on it that the host holds. A loop
+    makes one and passes it to every round; each round's passes then run
+    over the last round's live rays, not every ray. A new one's first round
+    must have no ray done, as a loop's first round has none: it runs with no
+    queue (thread j, ray j)."""
+
+    def __init__(self):
+        self.out = None
+        self.prev = None
+        self.prev_count = None
+        self.bound = 0
+
+    def entries(self, n):
+        """(prev, its device count, the entries a pass covers) of a round
+        over `n` rays."""
+        if self.prev is None:
+            return None, None, n
+        return self.prev.data_ptr(), self.prev_count.data_ptr(), self.bound
+
+
+def level_scan(done, queue=None):
+    """The count pass of level_round's queue over the (N,) bool `done` of a
+    round ("sharded" or "trunk"), over every ray or over `queue`'s last
+    round's live rays: kernel ``level_queue`` and ``torch.cumsum``; nothing
+    crosses to the host."""
+    dev, n = done.device, done.shape[0]
+    _LEVEL_QUEUE.check(dev, (("done", done, torch.bool, (n,)),))
+    prev, n_prev, grid = (None, None, n) if queue is None else queue.entries(n)
+    counts = torch.zeros(-(-grid // QBLOCK), dtype=_I32, device=dev)
+    if n and grid:
+        _LEVEL_QUEUE(dev, 0, n, done.data_ptr(), None, prev, n_prev, grid, None, 0,
+                     counts.data_ptr(), None, None, None, None, None, None, None)
+        launches["level_queue"] += 1
+    inclusive = torch.cumsum(counts, 0, dtype=_I32)
+    return LevelScan(counts, inclusive - counts, inclusive)
+
+
+def live_count(scan: LevelScan) -> int:
+    """The live rays of a ``level_scan``: one read on the host."""
+    return int(scan.inclusive[-1]) if scan.inclusive.numel() else 0
+
+
+def _level_place(mode, done, t_off, scan, ptrs, queue=None):
+    """The place pass of level_round's queue: the (grid,) int32 queue, its
+    first live-count entries the live rays in order, and the outputs of the
+    rays found done written at the output pointers `ptrs`."""
+    n = done.shape[0]
+    prev, n_prev, grid = (None, None, n) if queue is None else queue.entries(n)
+    out = torch.empty(grid, dtype=_I32, device=done.device)
+    if n and grid:
+        _LEVEL_QUEUE(done.device, LEVEL_MODES[mode], n, done.data_ptr(), t_off.data_ptr(),
+                     prev, n_prev, grid, None, 0, None, scan.base.data_ptr(),
+                     out.data_ptr(), *ptrs)
+        launches["level_queue"] += 1
     return out
+
+
+def level_queue_kernel(mode, done, t_off):
+    """A round's queue alone ("sharded" or "trunk") over every ray, as
+    ``level_round_kernel`` makes it without a loop's ``LevelQueue``, with
+    nothing read on the host: (the (N,) int32 queue, whose first
+    ``live_count(scan)`` entries are the live rays in order; the scan; the
+    outputs with the done rays' written as the first form writes them, the
+    live rays' unset), for checks and timing. Its plain version is
+    ``level_sharded.level_queue_plain``."""
+    dev, n = done.device, done.shape[0]
+    _LEVEL_QUEUE.check(dev, (("done", done, torch.bool, (n,)),
+                             ("t_off", t_off, _F32, (n,))))
+    scan = level_scan(done)
+    out = tuple(torch.empty(n, dtype=dt, device=dev)
+                for dt in ((_I32, _I32, _I32, _F32, _F32) if mode == "sharded"
+                           else (_I32, _F32)))
+    ptrs = (tuple(t.data_ptr() for t in out) if mode == "sharded"
+            else (out[0].data_ptr(), 0, 0, 0, out[1].data_ptr()))
+    return _level_place(mode, done, t_off, scan, ptrs), scan, out
+
+
+def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
+                       rays, direction=None, t_off=None, done=None, live=None,
+                       scan=None, seg=None, queue=None):
+    """Launch one round of ``level_round`` in `mode` ("sharded", "trunk" or
+    "packets") on CUDA tensors, in its queued form: a thread a live ray or
+    valid packet (the first form, a thread for each, is
+    ``level_round_serial_kernel``; they give the same bits). `trunk` and
+    `arena` are SVOs (masks, child_base, leaf_base, parent_ptr; depths
+    trunk_depth and sub_depth); `owner`, `root` (C,) int32 and `origin` (C,
+    3) float32 the octant tables, `size` their size (a Python float, rounded
+    to float32 here), `rank` this rank. "sharded" and "trunk": `rays` (N, 3)
+    float32 origins, `direction` (N, 3), `t_off` (N,) float32 and `done`
+    (N,) bool; returns (oct_id, hit, leaf, t_hit, t_next) ("trunk":
+    (oct_id, t_next)). `queue`, a loop's ``LevelQueue``, runs the round's
+    passes over the last round's live rays and keeps the outputs (the same
+    tensors every round: read them before the next); `scan` is the round's
+    ``level_scan(done, queue)`` if the caller made it (else it is made
+    here). "packets": `rays` the
+    (M, 8) float32 packets, whose valid ones lie at the start of each
+    segment of `seg` slots (M by default), as ``make_exchange_trace``'s
+    bucket lays them out; returns the (M, 2) float32 replies. `live`, a
+    bound on the live rays or valid packets that the caller holds on the
+    host, sizes the grid (N or M by default)."""
+    keep = queue is not None and mode != "packets"
+    n, head, ray_ptrs, out, ptrs = _level_args(
+        mode, trunk, arena, owner, root, origin, size, rank, rays, direction,
+        t_off, done, _LEVEL_ROUND, out=queue.out if keep else None)
+    dev = rays.device
+    grid_n = n if live is None else min(n, int(live))
+    new_queue = None
+    if mode == "packets":
+        seg = n if seg is None else int(seg)
+        if n and (seg < 1 or n % seg):
+            raise ValueError(f"{n} packets are not segments of {seg}")
+        seg_count = torch.empty(n // seg if n else 0, dtype=_I32, device=dev)
+        if n:
+            _LEVEL_QUEUE(dev, LEVEL_MODES[mode], n, None, None, None, None, n,
+                         rays.data_ptr(), seg, None, None, seg_count.data_ptr(),
+                         None, None, out[0].data_ptr(), None, None)
+            launches["level_queue"] += 1
+        queue_ptrs = (seg_count.data_ptr(), None, seg_count.shape[0], seg)
+    elif keep and queue.out is None:  # a loop's first round: no ray done
+        queue_ptrs = (None, None, 0, 0)
+    else:
+        if keep:
+            grid_n = min(grid_n, queue.entries(n)[2])
+        if scan is None:
+            scan = level_scan(done, queue if keep else None)
+        new_queue = _level_place(mode, done, t_off, scan, ptrs, queue if keep else None)
+        queue_ptrs = (new_queue.data_ptr(),
+                      scan.inclusive[-1:].data_ptr() if scan.inclusive.numel() else None,
+                      0, 0)
+    if grid_n and (new_queue is None or new_queue.numel()):
+        _LEVEL_ROUND(dev, *head, *ray_ptrs, n, *ptrs, *queue_ptrs, grid_n)
+        launches["level_round_" + mode] += 1
+    if keep:
+        queue.out = out
+        if new_queue is None:
+            queue.prev, queue.prev_count, queue.bound = None, None, n
+        else:
+            queue.prev, queue.prev_count, queue.bound = (
+                new_queue, scan.inclusive[-1:], grid_n)
+    return out
+
+
+def level_round_serial_kernel(mode, trunk, arena, owner, root, origin, size, rank,
+                              rays, direction=None, t_off=None, done=None):
+    """``level_round``'s first form (a thread for each ray or packet; a done
+    ray or an invalid packet returns inside its warp): the queued form's
+    check and yardstick, on no main path. The arguments and results of
+    ``level_round_kernel`` without the queue's."""
+    n, head, ray_ptrs, out, ptrs = _level_args(
+        mode, trunk, arena, owner, root, origin, size, rank, rays, direction,
+        t_off, done, _LEVEL_ROUND_SERIAL)
+    _LEVEL_ROUND_SERIAL(rays.device, *head, *ray_ptrs, n, *ptrs)
+    form_launches["level_round_serial"] += 1
+    return out
+
+
+def probe_level_round(mode, trunk, arena, owner, root, origin, size, rank,
+                      rays, direction=None, t_off=None, done=None):
+    """``level_round``'s first form with per-warp counters (``PROBE_FIELDS``;
+    "step" a trunk or arena stackless step, "ray" a walk's set-up): (the
+    results of ``level_round_serial_kernel``, record (warps, len(
+    PROBE_FIELDS)) int64), for measurement only."""
+    n, head, ray_ptrs, out, ptrs = _level_args(
+        mode, trunk, arena, owner, root, origin, size, rank, rays, direction,
+        t_off, done, _LEVEL_ROUND_PROBE)
+    record = _probe_record(n, "first", rays.device)
+    _LEVEL_ROUND_PROBE(rays.device, *head, *ray_ptrs, n, *ptrs, record.data_ptr())
+    probe_launches["level_round_probe"] += 1
+    return out, record

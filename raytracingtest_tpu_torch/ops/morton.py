@@ -7,8 +7,9 @@ The 32-bit pair interleaves 10 bits an axis (octree depth <= 10). It takes
 numpy arrays, as the reference's numpy path does (uint32 codes, int32
 coordinates), or torch tensors: torch has no full uint32 arithmetic, so a
 code is carried as an int32 bit pattern and every right shift is masked
-(an int32 shifts in its sign bit). The 64-bit pair (21 bits an axis) is
-host numpy, uint64 codes and int64 coordinates, as the reference has it.
+(an int32 shifts in its sign bit). The 64-bit pair (21 bits an axis) takes
+numpy (uint64 codes and int64 coordinates, as the reference has it); its
+encoder also takes tensors (int64 codes: 63 bits fit).
 """
 
 from __future__ import annotations
@@ -81,14 +82,23 @@ def morton_decode(code):
                  for c in (code, _shr32(code, 1), _shr32(code, 2)))
 
 
+# the spreading shifts and masks of the 64-bit pair, from 21 bits packed to
+# one bit a triple; all below 2^63, so they are int64 values too
+_S64 = (32, 16, 8, 4, 2)
+_M64 = (0x1F00000000FFFF, 0x1F0000FF0000FF, 0x100F00F00F00F00F,
+        0x10C30C30C30C30C3, 0x1249249249249249)
+
+
 def _part1by2_64(v):
+    if isinstance(v, torch.Tensor):
+        v = v.to(torch.int64) & 0x1FFFFF
+        for shift, mask in zip(_S64, _M64):
+            v = (v | (v << shift)) & mask
+        return v
     u = np.uint64
     v = np.asarray(v).astype(np.uint64) & u(0x1FFFFF)
-    v = (v | (v << u(32))) & u(0x1F00000000FFFF)
-    v = (v | (v << u(16))) & u(0x1F0000FF0000FF)
-    v = (v | (v << u(8))) & u(0x100F00F00F00F00F)
-    v = (v | (v << u(4))) & u(0x10C30C30C30C30C3)
-    v = (v | (v << u(2))) & u(0x1249249249249249)
+    for shift, mask in zip(_S64, _M64):
+        v = (v | (v << u(shift))) & u(mask)
     return v
 
 
@@ -104,8 +114,11 @@ def _compact1by2_64(v):
 
 
 def morton_encode64(x, y, z):
-    """64-bit Morton encode of three coordinates of at most 21 bits (host
-    numpy): uint64 codes."""
+    """64-bit Morton encode of three coordinates of at most 21 bits: uint64
+    codes for numpy input, int64 for tensor input (63 bits: the same
+    values)."""
+    if isinstance(x, torch.Tensor):
+        return _part1by2_64(x) | (_part1by2_64(y) << 1) | (_part1by2_64(z) << 2)
     u = np.uint64
     return (_part1by2_64(x) | (_part1by2_64(y) << u(1))
             | (_part1by2_64(z) << u(2)))

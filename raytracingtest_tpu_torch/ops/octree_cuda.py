@@ -8,8 +8,15 @@ Counterpart of the XLA programs of ``raytracingtest_tpu/ops/octree_device.py``
   * ``count`` and ``compact`` (``svo_compact``, count and place modes): the
                     blocks' counts of flagged rows, and a stable compaction
                     of the flagged rows' indices and record words.
-  * ``leaves``      (``svo_leaves``): the finest level's leaf test and, for a
-                    leaf, its albedo and normal.
+  * ``leaves``      (``svo_leaves``): the finest level's leaf test, reading
+                    the last expansion's values where a probe is the centre
+                    of a child of a kept parent (``leaf_probe_sources``
+                    models where each probe's value comes from).
+  * ``leaf_attrs``  (``svo_leaf_attrs``): each leaf's albedo and normal, a
+                    dense pass over the compacted leaves.
+  * ``leaves_serial`` (``svo_leaves_serial``): the leaf test's first form,
+                    every probe evaluated and the attributes in the same
+                    pass; off the build's path.
   * ``level_up``    (``svo_level_up``): each parent's valid mask and first
                     child from its surviving children.
   * ``parent_ptr``  (``svo_parent_ptr``): each node's parent row.
@@ -36,6 +43,7 @@ import torch
 
 from raytracingtest_tpu_torch._build import svo_lib
 from raytracingtest_tpu_torch._launch import Kernel
+from raytracingtest_tpu_torch.ops.morton import morton_encode64
 from raytracingtest_tpu_torch.ops.octree import (
     CHILD_OFFSETS, compute_parent_ptr, default_albedo, sampler_normal)
 from raytracingtest_tpu_torch.utils import opensimplex
@@ -54,11 +62,14 @@ SCENE_IDS = {"flat_ground": 0, "sphere": 1, "simplex": 2, "rotated_cuboid": 3,
 # kernel launches made by this process, by kernel (a launch of either mode
 # of svo_compact counts once)
 launches = {"svo_expand": 0, "svo_compact": 0, "svo_leaves": 0,
-            "svo_level_up": 0, "svo_parent_ptr": 0, "scene_eval": 0}
+            "svo_leaf_attrs": 0, "svo_leaves_serial": 0, "svo_level_up": 0,
+            "svo_parent_ptr": 0, "scene_eval": 0}
 
 _SVO_EXPAND = Kernel("svo_expand", svo_lib)
 _SVO_COMPACT = Kernel("svo_compact", svo_lib)
 _SVO_LEAVES = Kernel("svo_leaves", svo_lib)
+_SVO_LEAF_ATTRS = Kernel("svo_leaf_attrs", svo_lib)
+_SVO_LEAVES_SERIAL = Kernel("svo_leaves_serial", svo_lib)
 _SVO_LEVEL_UP = Kernel("svo_level_up", svo_lib)
 _SVO_PARENT_PTR = Kernel("svo_parent_ptr", svo_lib)
 _SCENE_EVAL = Kernel("scene_eval", svo_lib)
@@ -232,60 +243,185 @@ def compact(flags, block_base, total: int, src=None):
     return rows, words
 
 
-# ---- svo_leaves -------------------------------------------------------------------
+# ---- svo_leaves, svo_leaf_attrs, svo_leaves_serial ------------------------------
 
-def leaves_plain(scene, rec, depth):
-    """Plain version of ``leaves``: ``octree.build_svo``'s phase B and leaf
-    attributes, its scene calls batched as there."""
+# the leaf test's six probes, in the host's order: (axis, sign)
+PROBES = ((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
+# where a probe's value comes from in the new form: the sibling's record, the
+# record of a child of another kept parent, or an evaluation of the scene
+SIBLING, COUSIN, EVALUATE = 0, 1, 2
+
+
+def leaf_probe_sources(rec, par, parents, depth):
+    """A plain model of where ``leaves`` takes each probe's value: (src (n,
+    6) int64, the row of the last level's uncompacted child records whose
+    centre the probe is, -1 where the scene must be evaluated; kind (n, 6)
+    int8, SIBLING, COUSIN or EVALUATE), the probes in ``PROBES`` order. `rec`
+    holds the finest candidates, `par` their parents' rows among the kept
+    parents `parents` (records at depth - 1, Morton order). A probe along
+    axis a is the face neighbour c +- e_a: inside the candidate's own parent
+    on the side of c's low bit (slot s ^ 2^a), else a child of the parent
+    next to it, if that parent was kept (found by ``torch.searchsorted`` on
+    the parents' Morton codes), else outside the world or an octant build's
+    octant, or under a pruned parent."""
+    dev = rec.device
+    n = rec.shape[0]
+    c = rec[:, :3].to(torch.int64)
+    slot = (c[:, 0] & 1) | ((c[:, 1] & 1) << 1) | ((c[:, 2] & 1) << 2)
+    own = par.to(torch.int64)
+    codes = morton_encode64(*parents[:, :3].to(torch.int64).unbind(1))
+    n_par = codes.shape[0]
+    src = torch.full((n, 6), -1, dtype=torch.int64, device=dev)
+    kind = torch.full((n, 6), EVALUATE, dtype=torch.int8, device=dev)
+    for k, (a, sgn) in enumerate(PROBES):
+        nb = c.clone()
+        nb[:, a] += sgn
+        nslot = slot ^ (1 << a)
+        inside = ((c[:, a] & 1) == (1 if sgn < 0 else 0))
+        in_world = (nb[:, a] >= 0) & (nb[:, a] < (1 << depth))
+        want = morton_encode64(*(torch.clamp_min(nb, 0) >> 1).unbind(1))
+        q = torch.searchsorted(codes, want).clamp_max(max(n_par - 1, 0))
+        found = (in_world & ~inside & (codes[q] == want)) if n_par else \
+            torch.zeros(n, dtype=torch.bool, device=dev)
+        src[:, k] = torch.where(inside, 8 * own + nslot,
+                                torch.where(found, 8 * q + nslot, -1))
+        kind[:, k] = torch.where(inside, SIBLING,
+                                 torch.where(found, COUSIN, EVALUATE)).to(torch.int8)
+    return src, kind
+
+
+def _probe_points(r, fin):
+    """The host's six probe points of candidate records `r` (a CPU tensor):
+    (3, 6 m) float32, probe k of every candidate in block k."""
+    px, py, pz = _centres(r[:, :3], fin)
+    m = r.shape[0]
+    q = np.empty((3, 6 * m), np.float32)
+    for k, (ax, sgn) in enumerate(PROBES):
+        off = [px, py, pz]
+        off[ax] = off[ax] + (fin if sgn > 0 else -fin)
+        q[:, k * m:(k + 1) * m] = off
+    return q
+
+
+def leaves_plain(scene, rec, depth, par=None, parents=None, full=None):
+    """Plain version of ``leaves``: ``octree.build_svo``'s phase B, every
+    probe of a solid centre evaluated (the scene calls batched as there);
+    `par`, `parents` and `full` are the kernel's and not needed."""
     dev = rec.device
     r = rec.cpu()
-    n = r.shape[0]
     fin = np.float32(2.0 ** (-depth))
-    px, py, pz = _centres(r[:, :3], fin)
     f0 = r[:, 3].contiguous().numpy().view(np.float32)
-    survive = np.zeros(n, bool)
+    survive = np.zeros(r.shape[0], bool)
     si = np.nonzero(f0 <= 0.0)[0]
     if si.size:
         # the six neighbours one voxel away, of every solid centre, in one
         # scene call
-        sx, sy, sz = px[si], py[si], pz[si]
-        m = si.size
-        q = np.empty((3, 6 * m), np.float32)
-        for k, (ax, sgn) in enumerate(((0, fin), (0, -fin), (1, fin),
-                                       (1, -fin), (2, fin), (2, -fin))):
-            off = [sx, sy, sz]
-            off[ax] = off[ax] + sgn
-            q[:, k * m:(k + 1) * m] = off
+        q = _probe_points(r[torch.from_numpy(si)], fin)
         fq = np.asarray(scene(q[0], q[1], q[2]), np.float32)
-        survive[si] = (fq.reshape(6, m) > 0.0).any(axis=0)
-    attrs = np.zeros((n, 6), np.float32)
-    lx, ly, lz = px[survive], py[survive], pz[survive]
-    attrs[survive, :3] = default_albedo(lx, ly, lz)
-    attrs[survive, 3:] = sampler_normal(scene, lx, ly, lz)
+        survive[si] = (fq.reshape(6, si.size) > 0.0).any(axis=0)
     flags = torch.from_numpy(survive.astype(np.uint8))
-    return (flags.to(dev), torch.from_numpy(attrs).to(dev),
-            count_plain(flags).to(dev))
+    return flags.to(dev), count_plain(flags).to(dev)
 
 
-def leaves(ds: DeviceScene, rec, depth: int):
-    """The leaf test of the (n, 4) finest-level candidate records `rec`
-    (x, y, z at `depth`, f bits of the centre): (survive (n,) uint8: a solid
-    centre with an air neighbour one voxel away; attributes (n, 6) float32,
-    a leaf's albedo and normal, zeros elsewhere; the blocks' leaf counts)."""
+def leaves(ds: DeviceScene, rec, depth: int, par, parents, full,
+           count_evals: bool = False):
+    """The leaf test of the (n, 4) finest-level candidate records `rec` (x,
+    y, z at `depth`, f bits of the centre): (survive (n,) uint8, a solid
+    centre with an air neighbour one voxel away; the blocks' leaf counts).
+    `par` (n,) int32 is each candidate's parent row among the (n_par, 4)
+    kept parents `parents` (records at depth - 1, Morton order), and `full`
+    (8 n_par, 4) the last expansion's records of all their children, whose
+    f the test reads where a probe is such a child's centre. Three kernels
+    behind one entry: each kept parent's neighbours, the test, and the
+    evaluations it could not avoid. `count_evals`: the counting form, which
+    also returns the scene evaluations it made (a Python int; the card
+    only)."""
     if rec.device.type == "cpu":
-        return leaves_plain(ds.scene, rec, depth)
+        return leaves_plain(ds.scene, rec, depth, par, parents, full)
+    dev = rec.device
+    n, n_par = rec.shape[0], parents.shape[0]
+    _check_count(max(n, 8 * n_par), "svo_leaves")
+    _SVO_LEAVES.check(dev, (("rec", rec, _I32, (n, 4)), ("par", par, _I32, (n,)),
+                            ("parents", parents, _I32, (n_par, 4)),
+                            ("full", full, _I32, (8 * n_par, 4))))
+    survive = torch.empty(n, dtype=_U8, device=dev)
+    counts = torch.empty(n_blocks(n), dtype=_I32, device=dev)
+    evals = torch.zeros(1, dtype=torch.int64, device=dev) if count_evals else None
+    if n:
+        # the kept parents' neighbour table, the needy list and its count
+        scratch = torch.empty(6 * n_par + n + 1, dtype=_I32, device=dev)
+        _SVO_LEAVES(dev, rec.data_ptr(), n, par.data_ptr(), parents.data_ptr(),
+                    n_par, full.data_ptr(), float(np.float32(2.0 ** (-depth))),
+                    1 << depth, ds.scene_id, *ds.pointers(), survive.data_ptr(),
+                    counts.data_ptr(), scratch.data_ptr(),
+                    None if evals is None else evals.data_ptr())
+        launches["svo_leaves"] += 1
+    if count_evals:
+        return survive, counts, int(evals)
+    return survive, counts
+
+
+def leaf_attrs_plain(scene, leaf_rec, depth):
+    """Plain version of ``leaf_attrs``: the host builder's palette and
+    normal at the leaves' centres."""
+    r = leaf_rec.cpu()
+    attrs = np.zeros((r.shape[0], 6), np.float32)
+    if r.shape[0]:
+        lx, ly, lz = _centres(r[:, :3], np.float32(2.0 ** (-depth)))
+        attrs[:, :3] = default_albedo(lx, ly, lz)
+        attrs[:, 3:] = sampler_normal(scene, lx, ly, lz)
+    return torch.from_numpy(attrs).to(leaf_rec.device)
+
+
+def leaf_attrs(ds: DeviceScene, leaf_rec, depth: int):
+    """The (m, 6) float32 albedo and normal of the leaves whose (m, 4)
+    records (``compact``'s rows of the candidates) are `leaf_rec`."""
+    if leaf_rec.device.type == "cpu":
+        return leaf_attrs_plain(ds.scene, leaf_rec, depth)
+    dev = leaf_rec.device
+    m = leaf_rec.shape[0]
+    _check_count(m, "svo_leaf_attrs")
+    _SVO_LEAF_ATTRS.check(dev, (("leaf_rec", leaf_rec, _I32, (m, 4)),))
+    attrs = torch.empty((m, 6), dtype=_F32, device=dev)
+    if m:
+        _SVO_LEAF_ATTRS(dev, leaf_rec.data_ptr(), m,
+                        float(np.float32(2.0 ** (-depth))), ds.scene_id,
+                        *ds.pointers(), attrs.data_ptr())
+        launches["svo_leaf_attrs"] += 1
+    return attrs
+
+
+def leaves_serial_plain(scene, rec, depth):
+    """Plain version of ``leaves_serial``: ``leaves_plain``'s flags and
+    counts, and ``leaf_attrs_plain`` at the leaves' rows (zeros
+    elsewhere)."""
+    survive, counts = leaves_plain(scene, rec, depth)
+    rows = torch.nonzero(survive.cpu()).reshape(-1)
+    attrs = torch.zeros((rec.shape[0], 6), dtype=_F32)
+    attrs[rows] = leaf_attrs_plain(scene, rec.cpu()[rows], depth)
+    return survive, attrs.to(rec.device), counts
+
+
+def leaves_serial(ds: DeviceScene, rec, depth: int):
+    """The leaf test's first form (``svo_leaves_serial``), on no build's
+    path: (survive, attributes (n, 6) float32 of each leaf at its
+    candidate's row, zeros elsewhere, the blocks' leaf counts), every probe
+    of a solid centre evaluated."""
+    if rec.device.type == "cpu":
+        return leaves_serial_plain(ds.scene, rec, depth)
     dev = rec.device
     n = rec.shape[0]
-    _check_count(n, "svo_leaves")
-    _SVO_LEAVES.check(dev, (("rec", rec, _I32, (n, 4)),))
+    _check_count(n, "svo_leaves_serial")
+    _SVO_LEAVES_SERIAL.check(dev, (("rec", rec, _I32, (n, 4)),))
     survive = torch.empty(n, dtype=_U8, device=dev)
     attrs = torch.empty((n, 6), dtype=_F32, device=dev)
     counts = torch.empty(n_blocks(n), dtype=_I32, device=dev)
     if n:
-        _SVO_LEAVES(dev, rec.data_ptr(), n, float(np.float32(2.0 ** (-depth))),
-                    ds.scene_id, *ds.pointers(), survive.data_ptr(),
-                    attrs.data_ptr(), counts.data_ptr())
-        launches["svo_leaves"] += 1
+        _SVO_LEAVES_SERIAL(dev, rec.data_ptr(), n,
+                           float(np.float32(2.0 ** (-depth))), ds.scene_id,
+                           *ds.pointers(), survive.data_ptr(), attrs.data_ptr(),
+                           counts.data_ptr())
+        launches["svo_leaves_serial"] += 1
     return survive, attrs, counts
 
 

@@ -6,8 +6,10 @@ the kernels of ``ops/octree_cuda.py`` (``csrc/svo_build.cu``):
 
   A. expansion and Lipschitz pruning, a level at a time (``expand``, then
      ``compact``), in chunks of ``CHUNK_PARENTS`` parents;
-  B. the exact leaf test at the finest level, with each leaf's attributes
-     (``leaves``, ``compact``);
+  B. the exact leaf test at the finest level (``leaves``, which reads the
+     last expansion's records of every child of a kept parent, kept or not,
+     where a probe is such a child's centre), ``compact``, then each leaf's
+     attributes in a dense pass over the leaves (``leaf_attrs``);
   C. upward pruning and the assembly of masks and pointers, bottom up
      (``level_up``, ``count``, ``compact``; the concatenation in torch);
   D. parent pointers (``parent_ptr``).
@@ -67,22 +69,27 @@ def _offsets(counts):
     return inclusive - counts, total
 
 
-def _expand_level(ds, records, level, depth, lipschitz):
+def _expand_level(ds, records, level, depth, lipschitz, keep_full=False):
     """Expand and prune one level: (records (n, 4) of the kept children, their
-    parent indices, their child slots), parent-major."""
+    parent indices, their child slots), parent-major; `keep_full` adds the
+    records of every child, kept or not (8 a parent), which the leaf test
+    reads."""
     hi, lo = keep_bounds(lipschitz, level, depth)
     n_p = records.shape[0]
-    parts = []
+    parts, full = [], []
     for c0 in range(0, max(n_p, 1), CHUNK_PARENTS):
         rec, keep, counts = octree_cuda.expand(
             ds, records[c0:c0 + CHUNK_PARENTS], level, hi, lo)
         base, n = _offsets(counts)
         rows, words = octree_cuda.compact(keep, base, n, rec)
+        if keep_full:
+            full.append(rec)
         del rec, keep
         parts.append((words, (rows >> 3) + c0, rows & 7))
-    if len(parts) == 1:
-        return parts[0]
-    return tuple(torch.cat(col) for col in zip(*parts))
+    out = parts[0] if len(parts) == 1 else tuple(torch.cat(col) for col in zip(*parts))
+    if keep_full:
+        return (*out, full[0] if len(full) == 1 else torch.cat(full))
+    return out
 
 
 def build_svo_device(scene, depth: int, verbose: bool = False,
@@ -113,8 +120,10 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
     slots = [torch.zeros(1, dtype=_I32, device=device)]
     for k in range(1, sub_depth + 1):
         t0 = time.perf_counter()
-        records, par, slot = _expand_level(ds, records, root_level + k, depth,
-                                           lipschitz)
+        parents = records
+        records, par, slot, *full = _expand_level(
+            ds, records, root_level + k, depth, lipschitz,
+            keep_full=k == sub_depth)
         pars.append(par)
         slots.append(slot)
         if verbose:
@@ -123,13 +132,14 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
             print(f"# build level {root_level + k}: {par.shape[0]} candidates "
                   f"({time.perf_counter() - t0:.4f}s)", flush=True)
 
-    # ---- phase B: the leaf test and the leaves' attributes ----------------
-    survive, attrs, counts = octree_cuda.leaves(ds, records, depth)
+    # ---- phase B: the leaf test over the last expansion's values, then the
+    # leaves' attributes in a dense pass over the leaves --------------------
+    survive, counts = octree_cuda.leaves(ds, records, depth, pars[-1], parents,
+                                         full[0])
     base, n_leaves = _offsets(counts)
-    below, leaf_attrs = octree_cuda.compact(survive, base, n_leaves,
-                                            attrs.view(_I32))
-    leaf_attrs = leaf_attrs.view(torch.float32)
-    del records, survive, attrs
+    below, leaf_rec = octree_cuda.compact(survive, base, n_leaves, records)
+    leaf_attrs = octree_cuda.leaf_attrs(ds, leaf_rec, depth)
+    del records, parents, full, survive, leaf_rec
 
     # ---- phase C: upward pruning, bottom up -------------------------------
     # nodes[k]: (count_k, 2) [valid mask, rank of the first surviving child

@@ -30,8 +30,10 @@ rounds of kernel ``level_round`` (``ops/brick_cuda.level_round_kernel``;
     the replies back the same way. It drains until no rank has a pending
     ray.
 
-The loops read their termination on the host each round (``done.all()``,
-or the all-reduced pending count), as the reference's while-loops test it.
+The loops read their termination on the host each round (the live rays,
+or the all-reduced pending count), as the reference's while-loops test it;
+on the card the same read bounds the round's grid: kernel ``level_round``
+walks only the live rays and the valid packets, through a queue.
 """
 
 from __future__ import annotations
@@ -386,9 +388,99 @@ def level_round_plain(mode, tb: RankTables, rays, direction=None, t_off=None,
     return oct_id, hit, leaf, t_hit, t_next
 
 
+def level_queue_plain(mode, rays, done=None, seg=None):
+    """A plain model of the queue of kernel ``level_round``'s queued form:
+    the live rays ("sharded", "trunk": not `done`) or valid packets
+    ("packets") in the order of the kernel's threads, int64. The valid
+    packets must be a prefix of each segment of `seg` slots (all by
+    default), as the exchange's bucket lays them out (``ValueError``
+    otherwise): the kernel counts them by a search that assumes it."""
+    if mode != "packets":
+        return torch.nonzero(~done)[:, 0]
+    n = rays.shape[0]
+    seg = n if seg is None else seg
+    valid = rays[:, 7:8].contiguous().view(_I32)[:, 0] != 0
+    if n:
+        v = valid.view(-1, seg)
+        prefix = (torch.arange(seg, device=rays.device)[None, :]
+                  < v.sum(1, keepdim=True))
+        if not torch.equal(prefix, v):
+            raise ValueError("the valid packets are not a prefix of each "
+                             f"segment of {seg} slots")
+    return torch.nonzero(valid)[:, 0]
+
+
+class LevelQueuePlain:
+    """The state ``level_round_queued_plain`` keeps across a loop's rounds,
+    as ``brick_cuda.LevelQueue`` does on the card: the outputs, and the
+    last round's live rays (None after a first round: every ray)."""
+
+    def __init__(self):
+        self.out = None
+        self.prev = None
+
+
+def level_round_queued_plain(mode, tb: RankTables, rays, direction=None, t_off=None,
+                             done=None, counts=None, live=None, scan=None, seg=None,
+                             queue=None):
+    """A plain model of kernel ``level_round``'s queued form, with
+    ``level_round``'s arguments: the queue (``level_queue_plain``, over the
+    last round's live rays when a loop's `queue` state is given),
+    ``level_round_plain`` over the queued rays or packets alone, their
+    outputs at their own index, and the first form's outputs of a done ray
+    or an invalid packet where the round found them (with `queue`, the
+    outputs are kept from round to round, as the card keeps them). `live`,
+    the grid's bound, must cover the queue; `scan` is the card's and not
+    needed; a new `queue`'s first round (no queue: every ray) must have no
+    ray done."""
+    for key in ("walks", "steps"):
+        if counts is not None:
+            counts.setdefault(key, 0)
+    dev, n = rays.device, rays.shape[0]
+    if mode == "packets":
+        q = level_queue_plain(mode, rays, seg=seg)
+        if live is not None and q.numel() > live:
+            raise ValueError(f"{q.numel()} valid packets past the bound {live}")
+        replies = torch.zeros((n, 2), dtype=_F32, device=dev)
+        replies[:, 0] = torch.full((n,), -1, dtype=_I32, device=dev).view(_F32)
+        if q.numel():
+            (sub,) = level_round_plain(mode, tb, rays[q], counts=counts)
+            replies[q] = sub
+        return (replies,)
+    keep = queue is not None
+    if keep and queue.out is None and bool(done.any()):
+        raise ValueError("a loop's first round with rays done")
+    entries = (torch.arange(n, device=dev) if not keep or queue.prev is None
+               else queue.prev)
+    q = entries[~done[entries]]
+    if live is not None and q.numel() > live:
+        raise ValueError(f"{q.numel()} live rays past the bound {live}")
+    out = queue.out if keep and queue.out is not None else [
+        torch.empty(n, dtype=dt, device=dev)
+        for dt in ((_I32, _I32, _I32, _F32, _F32) if mode == "sharded" else (_I32, _F32))]
+    # the rays this round found done: the first form's outputs
+    gone = entries[done[entries]]
+    out[0][gone] = -1
+    out[-1][gone] = t_off[gone]
+    if mode == "sharded":
+        out[1][gone], out[2][gone], out[3][gone] = 0, -1, 0.0
+    if q.numel():
+        sub = level_round_plain(mode, tb, rays[q], direction[q], t_off[q],
+                                torch.zeros(q.numel(), dtype=torch.bool, device=dev),
+                                counts=counts)
+        for t, v in zip(out, sub):
+            t[q] = v
+    if keep:
+        queue.out, queue.prev = out, q
+    return tuple(out)
+
+
 def level_round(mode, tb: RankTables, rays, direction=None, t_off=None,
-                done=None, counts=None):
-    """One round of `mode`: kernel ``level_round`` on CUDA tensors,
+                done=None, counts=None, live=None, scan=None, seg=None, queue=None):
+    """One round of `mode`: kernel ``level_round`` on CUDA tensors (its
+    queued form: `live` bounds the live rays or valid packets, `scan` is
+    the round's ``brick_cuda.level_scan`` if made, `seg` the packets'
+    segment, `queue` the loop's ``brick_cuda.LevelQueue``),
     ``level_round_plain`` on CPU tensors (`counts` is read only there)."""
     if rays.device.type == "cpu":
         return level_round_plain(mode, tb, rays, direction, t_off, done, counts)
@@ -396,7 +488,31 @@ def level_round(mode, tb: RankTables, rays, direction=None, t_off=None,
 
     return brick_cuda.level_round_kernel(mode, tb.trunk, tb.arena, tb.owner,
                                          tb.root, tb.origin, tb.size, tb.rank,
-                                         rays, direction, t_off, done)
+                                         rays, direction, t_off, done, live=live,
+                                         scan=scan, seg=seg, queue=queue)
+
+
+def _queue_state(device):
+    """A loop's queue state for its rounds: ``brick_cuda.LevelQueue`` on the
+    card, ``LevelQueuePlain`` (the queued form's model keeps it) on the
+    CPU."""
+    if torch.device(device).type == "cpu":
+        return LevelQueuePlain()
+    from raytracingtest_tpu_torch.ops import brick_cuda
+
+    return brick_cuda.LevelQueue()
+
+
+def _live(done, queue):
+    """(the rays not done, read on the host: the round's one read; on the
+    card also the queue's count pass that gave it, over the last round's
+    live rays, else None)."""
+    if done.device.type == "cpu":
+        return int((~done).sum()), None
+    from raytracingtest_tpu_torch.ops import brick_cuda
+
+    scan = brick_cuda.level_scan(done, queue)
+    return brick_cuda.live_count(scan), scan
 
 
 def rounds_bound(trunk_depth: int, max_octants=None) -> int:
@@ -417,13 +533,17 @@ def _phase_loop(mesh: RayMesh, tb: RankTables, o, d, n_max, stats):
     out_leaf = torch.full((n,), -1, dtype=_I32, device=dev)
     out_t = torch.zeros(n, dtype=_F32, device=dev)
     out_owner = torch.full((n,), -1, dtype=_I32, device=dev)
+    queue = _queue_state(dev)
     rounds = 0
     for _ in range(n_max):
-        if bool(done.all()):
+        # the first round has every ray live, and needs no count
+        n_live, scan = (n, None) if rounds == 0 else _live(done, queue)
+        if n_live == 0:
             break
         rounds += 1
         oct_id, hit, leaf, t_hit, t_next = level_round(
-            "sharded", tb, o, d, t_off, done, counts=stats)
+            "sharded", tb, o, d, t_off, done, counts=stats, live=n_live, scan=scan,
+            queue=queue)
         found = oct_id >= 0
         # did any rank's arena stop the ray this round?
         hit_any = all_sum(mesh, hit.clone()) > 0
@@ -559,14 +679,17 @@ def make_exchange_trace(mesh: RayMesh, ls: LevelShardedSVO, max_rounds: int = 64
         out_t = torch.zeros(n, dtype=_F32, device=dev)
         out_owner = torch.full((n,), -1, dtype=_I32, device=dev)
         traced = torch.zeros(1, dtype=torch.int64, device=dev)
+        queue = _queue_state(dev)
         rounds = 0
         for _ in range(max_rounds):
-            pending = all_sum(mesh, (~done).sum().reshape(1))
-            if int(pending) == 0:
+            pending = int(all_sum(mesh, (~done).sum().reshape(1)))
+            if pending == 0:
                 break
             rounds += 1
+            # no rank has more live rays, nor receives more valid packets,
+            # than the world has pending: the bound of both rounds' grids
             oct_id, t_next = level_round("trunk", tb, o, d, t_off, done,
-                                         counts=trace.stats)
+                                         counts=trace.stats, live=pending, queue=queue)
             found = oct_id >= 0
             done = done | ~found
             owner = tb.owner[torch.clamp_min(oct_id, 0).long()]
@@ -587,7 +710,8 @@ def make_exchange_trace(mesh: RayMesh, ls: LevelShardedSVO, max_rounds: int = 64
             dist.all_to_all_single(recv, packets, group=mesh.group)
 
             # the owner's walks; slot j of recv came from rank j // cap
-            (replies,) = level_round("packets", tb, recv, counts=trace.stats)
+            (replies,) = level_round("packets", tb, recv, counts=trace.stats,
+                                     live=pending, seg=cap)
             traced += (recv[:, 7:8].contiguous().view(_I32) != 0).sum()
             back = torch.empty_like(replies)
             dist.all_to_all_single(back, replies, group=mesh.group)

@@ -85,6 +85,16 @@ def test_encode64_matches_jax_and_round_trips(dtype):
         np.testing.assert_array_equal(a, c.astype(np.int64))
 
 
+def test_encode64_tensor_path_matches_the_reference():
+    """The 64-bit encoder on int64 tensors (21 bits an axis, the top
+    included) gives the reference's uint64 codes as int64 values."""
+    x, y, z = _coords(6, 2000, 21, np.int64)
+    got = morton.morton_encode64(*(torch.from_numpy(a) for a in (x, y, z)))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  jax_morton.morton_encode64(x, y, z))
+
+
 def test_morton_order_is_parent_major():
     x, y, z = np.meshgrid(np.arange(4), np.arange(4), np.arange(4),
                           indexing="ij")

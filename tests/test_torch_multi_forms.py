@@ -193,14 +193,15 @@ class _Declared:
 
 def test_c_entries_are_declared_with_their_arity():
     """Every C entry point of brick_trace.cu (the k-segment traces' first
-    form and probe forms among them, the streamed world's stitched traces
-    and the level-sharded rounds) has ctypes argument types of its own
-    length, the stream included, and a wrapper's Kernel."""
+    form and probe forms among them, the streamed world's stitched traces,
+    the level-sharded rounds' queued, first and probe forms and their
+    queue) has ctypes argument types of its own length, the stream
+    included, and a wrapper's Kernel."""
     arity = c_entry_arity()
     new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
            "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
-           "level_round"}
-    assert new <= set(arity) and len(arity) == 16
+           "level_round", "level_round_serial", "level_round_probe", "level_queue"}
+    assert new <= set(arity) and len(arity) == 19
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -216,6 +217,11 @@ def test_c_entries_are_declared_with_their_arity():
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
     # the stitched traces differ only in the arena their chunk walks read
     assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
+    # level_round's queued form adds its queue (the queue, the live count,
+    # the segments, their length, the grid's bound) to the first form's
+    # arguments; the probe form adds its record
+    assert arity["level_round"] == arity["level_round_serial"] + 5
+    assert arity["level_round_probe"] == arity["level_round_serial"] + 1
 
 
 def small_trees():

@@ -129,6 +129,38 @@ def case_level_sharded(rank, world, inputs):
     return out
 
 
+def case_level_queued(rank, world, inputs):
+    """The level-sharded loops twice: with each round through the plain
+    model of kernel level_round's queued form (level_round_queued_plain:
+    the queue, the round over the queued rays alone, the first form's
+    outputs elsewhere) and through the unqueued plain version. The sharded
+    trace of inputs["rays"] and the exchange trace of this rank's shard of
+    inputs["hot"] at cap_factor 1, with their rounds."""
+    from raytracingtest_tpu_torch.ops.octree import build_svo
+    from raytracingtest_tpu_torch.parallel import level_sharded as ls_mod
+    from raytracingtest_tpu_torch.parallel.mesh import make_mesh
+    from raytracingtest_tpu_torch.scenes import get_scene
+
+    mesh = make_mesh(world, "cpu")
+    ls = ls_mod.split_svo(build_svo(get_scene("sphere"), 6), 2, world)
+    o, d = (torch.from_numpy(a) for a in inputs["rays"])
+    ho, hd = (torch.from_numpy(_shard(a, rank, world)) for a in inputs["hot"])
+    out, unqueued = {}, ls_mod.level_round
+    for name, rounds in (("queued", ls_mod.level_round_queued_plain),
+                         ("unqueued", unqueued)):
+        ls_mod.level_round = rounds
+        try:
+            trace = ls_mod.make_sharded_trace(mesh, ls)
+            exchange = ls_mod.make_exchange_trace(mesh, ls, max_rounds=inputs["hot_rounds"],
+                                                  cap_factor=1)
+            out[name] = {"trace": _np(trace(o, d)), "trace_rounds": trace.stats["rounds"],
+                         "exchange": _np(exchange(ho, hd)),
+                         "exchange_rounds": exchange.stats["rounds"]}
+        finally:
+            ls_mod.level_round = unqueued
+    return out
+
+
 def case_level_train(rank, world, inputs):
     """The level-sharded fit step (this rank's loss and arena gradients)
     and the exchange trace of this rank's shard of inputs["xrays"]."""
@@ -325,7 +357,8 @@ def case_multihost(rank, world, inputs):
     return out
 
 
-CASES = {"level_sharded": case_level_sharded, "level_train": case_level_train,
+CASES = {"level_sharded": case_level_sharded, "level_queued": case_level_queued,
+         "level_train": case_level_train,
          "sharding": case_sharding, "sharding_grads": case_sharding_grads,
          "multihost": case_multihost}
 # the cases that start their world from the environment
