@@ -217,7 +217,8 @@ LOD_COEFS = (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0.4", 0.4), ("0", 0.0))
 # calls of plain versions that the main path must not make, counted by
 # count_plain_calls()
 # the SVO builder's plain versions, each counted as a plain call
-OCTREE_PLAIN = ("expand_plain", "count_plain", "compact_plain", "leaves_plain",
+OCTREE_PLAIN = ("columns_plain", "expand_plain", "count_plain", "compact_plain",
+                "leaves_plain",
                 "leaf_attrs_plain", "leaves_serial_plain", "level_up_plain",
                 "parent_ptr_plain", "scene_eval_plain")
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
@@ -247,7 +248,8 @@ EARLIER_REGS = {
     "brick_trace_kernel<false, false, 256>": 59, "brick_trace_kernel<true, false, 256>": 63,
     "brick_trace_kernel<false, false, 128>": 56, "esvo_stackless_kernel<false>": 45,
     "brick_trace_lod_kernel": 64, "esvo_stackless_lod_kernel": 47,
-    "brick_trace_multi_kernel<false>": 56, "esvo_stackless_multi_kernel": 47}
+    "brick_trace_multi_kernel<false>": 56, "esvo_stackless_multi_kernel": 47,
+    "clipmap_trace_kernel<false>": 61, "clipmap_trace_kernel<true>": 64}
 # the k-segment traces' kernels as torch.profiler names them: the brick
 # trace's staged form (its main path's), its first form, and the stackless
 # trace's one form
@@ -1282,6 +1284,12 @@ FLY_PARITY_RES = 512
 # operations of one round of the stitched trace besides its walks: the
 # advanced origin, the two local origins and the box's exit t
 OPS_CLIP_ROUND = 45
+# the stitched traces' outputs; clipmap_trace_brick's main-path form; each
+# stitched trace's main-path kernel as torch.profiler names it
+CLIP_OUTPUTS = ("hit_leaf", "hit_t", "hit_chunk", "truncated")
+CLIP_MAIN = brick_cuda.FORMS["clipmap_trace_brick"][0]
+CLIP_KERNELS = {"clipmap_trace": "clipmap_trace_kernel<false>",
+                "clipmap_trace_brick": "clipmap_trace_brick_kernel"}
 
 
 def fly_poses(frames, hold):
@@ -1431,6 +1439,45 @@ def snapshot(tree):
     return dataclasses.replace(tree, **{
         f.name: getattr(tree, f.name).clone() for f in dataclasses.fields(tree)
         if isinstance(getattr(tree, f.name), torch.Tensor)})
+
+
+def clip_warps_line(kernel, form, record):
+    """[warps] of a stitched brick trace's probe form: each phase's issues a
+    warp, SIMT efficiency and share of warp cycles (brick_cuda.CLIP_PHASES;
+    the round phase's lanes are the rays' rounds), the rounds a ray and a
+    warp's passes through the round loop, warp durations, and the kernel's
+    span and the share of it after 99% of warps ended. Returns the
+    numbers."""
+    block = brick_cuda.BLOCKS[form]
+    r = record.cpu().numpy().astype(np.float64)
+    f = {k: r[:, i] for i, k in enumerate(brick_cuda.CLIP_PROBE_FIELDS)}
+    cycles = f["end"] - f["start"]
+    phases = {}
+    for ph in brick_cuda.CLIP_PHASES:
+        issues = f[f"{ph}_issues"].sum()
+        if issues:
+            phases[ph] = (issues / len(cycles), f[f"{ph}_lanes"].sum() / (32 * issues),
+                          f[f"{ph}_cycles"].sum() / cycles.sum())
+    t0 = f["ns_start"].min()
+    start, end = (f["ns_start"] - t0) / 1e3, (f["ns_end"] - t0) / 1e3
+    dur = end - start
+    span, t99 = float(end.max()), float(np.percentile(end, 99))
+    rays = max(f["rays"].sum(), 1.0)
+    rounds = f["round_lanes"].sum() / rays
+    say(f"[warps] {kernel} {form} ({len(cycles)} warps of {block}-thread blocks): "
+        + "; ".join(f"{ph} {n:.1f} issues a warp, SIMT {e:.3f}, {c:.3f} of warp cycles"
+                    for ph, (n, e, c) in phases.items() if ph != "round")
+        + f"; {rounds:.3f} rounds a ray, {f['round_issues'].mean():.2f} passes through "
+        f"the round loop a warp (its rays' most: {phases['round'][1]:.3f} of its lanes "
+        f"a pass); warp time median {np.median(dur):.2f} us, p99 "
+        f"{np.percentile(dur, 99):.1f}, max {dur.max():.1f}; the kernel spans "
+        f"{span:.1f} us, 99% of warps ended by {t99:.1f} ({(span - t99) / span:.2f} of "
+        "the span after it)")
+    return dict(phases={ph: dict(issues_a_warp=n, simt=e, cycle_share=c)
+                        for ph, (n, e, c) in phases.items()},
+                rounds_a_ray=float(rounds), round_passes_a_warp=float(f["round_issues"].mean()),
+                warp_us_median=float(np.median(dur)), warp_us_p99=float(np.percentile(dur, 99)),
+                warp_us_max=float(dur.max()), span_us=span, t99_us=t99)
 
 
 def fly_k10(fk, kname):
@@ -1586,6 +1633,14 @@ def fly_phase(ctx, card):
             e = compare_tensors(got_k, plain, ("hit_leaf", "hit_t", "hit_chunk",
                                                "truncated"), f"{kname} cap {cap}")
             err[kname] = max(err[kname], e)
+            if brick_arena:  # the first form, against the plain version and the main form
+                first_k = brick_cuda.clipmap_kernel(*args, tree, po, pd, 7, n_max,
+                                                    form="first")
+                err["clipmap_trace_brick_serial"] = max(
+                    err["clipmap_trace_brick_serial"], compare_tensors(
+                        first_k, plain, CLIP_OUTPUTS, f"{kname}'s first form cap {cap}"))
+                compare_tensors(got_k, first_k, CLIP_OUTPUTS,
+                                f"{kname} cap {cap} against its first form")
             if cap == 0:
                 work[kname] = dict(
                     counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
@@ -1596,6 +1651,9 @@ def fly_phase(ctx, card):
                         *args, tree, po, pd, 7, n_max), 20, 3))
                 if bool(got_k[3].any()):
                     raise AssertionError(f"{kname}: rays truncated at the rounds' bound")
+                if brick_arena:
+                    work[kname]["ms_first"] = cuda_ms(lambda: brick_cuda.clipmap_kernel(
+                        *args, tree, po, pd, 7, n_max, form="first"), 20, 3)
             else:
                 k10[kname] = int(got_k[3].sum())
     # the node arena's stackless walks and the brick arena's brick walks
@@ -1612,7 +1670,8 @@ def fly_phase(ctx, card):
         raise AssertionError(f"the stitched traces through the two arenas part on "
                              f"{n_apart} rays; the referee finds the brick arena's wrong "
                              f"on {int((~arenas_verdict['brick']).sum())}")
-    say(f"[fly] clipmap_trace and clipmap_trace_brick == trace_clipmap_rounds "
+    say(f"[fly] clipmap_trace and clipmap_trace_brick (its {CLIP_MAIN} form and its "
+        f"first form) == trace_clipmap_rounds "
         f"bitwise (hit_leaf, hit_t bits, hit_chunk, truncated) on the "
         f"{po.shape[0]} rays of bench.py's camera at {FLY_PARITY_RES}², at the "
         f"rounds' bound ({work['clipmap_trace']['n_max']}; none truncated, "
@@ -1686,6 +1745,10 @@ def fly_phase(ctx, card):
             raise AssertionError(f"[fly]'s main path launched no {k}: {launches}")
     if any(PLAIN_CALLS.values()):
         raise AssertionError(f"[fly]'s main path called plain versions: {PLAIN_CALLS}")
+    off_path = {k: v for k, v in {**brick_cuda.form_launches,
+                                  **brick_cuda.probe_launches}.items() if v}
+    if off_path:
+        raise AssertionError(f"[fly]'s main path launched first or probe forms: {off_path}")
 
     # the kernels of that frame against their plain versions: its phase-1
     # calls (three a LOD, LOD 1 at top depth 6) and both stitched traces over
@@ -1708,15 +1771,32 @@ def fly_phase(ctx, card):
         err[kname] = max(err[kname], compare_tensors(
             got_k, plain, ("hit_leaf", "hit_t", "hit_chunk", "truncated"),
             f"{kname}, fly frame {check['frame']}'s rays"))
-        fly_work[kname] = dict(
+        extra = {}
+        if kname == "clipmap_trace_brick":  # the first form and the forms' probes
+            first_fn = lambda: brick_cuda.clipmap_kernel(*args, tree, co, cd, 7, n_max,
+                                                         form="first")
+            compare_tensors(first_fn(), got_k, CLIP_OUTPUTS,
+                            f"{kname}'s first form, fly frame {check['frame']}")
+            warps = {}
+            for form in ("first", CLIP_MAIN):
+                probed, record = brick_cuda.probe_clipmap_brick(*args, tree, co, cd, 7,
+                                                                n_max, form)
+                compare_tensors(probed, got_k, CLIP_OUTPUTS,
+                                f"{kname}'s {form} probe form, fly frame {check['frame']}")
+                warps[form] = clip_warps_line(kname, form, record)
+            extra = dict(us_alone_first_form=graph_us(first_fn, calls=5), warps=warps,
+                         ms_turns=in_turns({
+                             CLIP_MAIN: lambda: brick_cuda.clipmap_kernel(
+                                 *args, tree, co, cd, 7, n_max),
+                             "first": first_fn}, rounds=3, reps=10))
+        fly_work[kname] = dict(**extra,
             counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
             hits=int((got_k[0] >= 0).sum()), truncated=int(got_k[3].sum()),
             bound=clip_work(live, args, counts, co.shape[0]),
             us_alone=graph_us(lambda: brick_cuda.clipmap_kernel(
                 *args, tree, co, cd, 7, n_max), calls=5),
             traced=traced_us(lambda: brick_cuda.clipmap_kernel(
-                *args, tree, co, cd, 7, n_max), 5,
-                f"clipmap_trace_kernel<{str(kname.endswith('brick')).lower()}>"))
+                *args, tree, co, cd, 7, n_max), 5, CLIP_KERNELS[kname]))
     sizes = sorted(set(check["tables"]["clipmap_trace"][0][5].tolist()))
     if len(sizes) < 2:
         raise AssertionError(f"[fly]: frame {check['frame']}'s trunk holds chunks of sizes {sizes}")
@@ -1730,7 +1810,11 @@ def fly_phase(ctx, card):
         f"{len(check['tables']['clipmap_trace'][0][3])} chunks of sizes {sizes}): "
         + "; ".join(f"{k}: {w['hits']} hits, {w['truncated']} truncated at "
                     f"{w['n_max']} rounds, plain {w['plain_ms']:.1f} ms, kernel "
-                    f"{w['us_alone']:.2f} us alone in a CUDA graph (traced "
+                    f"{w['us_alone']:.2f} us alone in a CUDA graph"
+                    + (f" (its first form {w['us_alone_first_form']:.2f}; in turns "
+                       + ", ".join(f"{f} {med_p80(v)[0]:.4f} ms" for f, v in w["ms_turns"].items())
+                       + ")" if "ms_turns" in w else "")
+                    + f" (traced "
                     f"{w['traced'][0]:.2f} us in {w['traced'][1]:.2f} launches), work "
                     f"{w['counts']}" for k, w in fly_work.items()))
 
@@ -1758,13 +1842,32 @@ def fly_phase(ctx, card):
                           n_by={e.key: e.count / 10 for e in rows})
     # each kernel alone at the last pose (the fly frame's mapped calls, the
     # 1024² stitched traces) and its plain version
+    b_max = clipmap.rounds_bound(bargs[0].depth)
+    last = {form: brick_cuda.clipmap_kernel(*bargs, sr.device_bricks.tree(7), lo, ld, 7,
+                                            b_max, form=form)
+            for form in (CLIP_MAIN, "first")}
+    last_plain = clipmap.trace_clipmap_rounds(*bargs, sr.device_bricks.tree(7), lo, ld,
+                                              b_max)
+    for form, got_l in last.items():
+        err[f"clipmap_trace_brick{'_serial' if form == 'first' else ''}"] = max(
+            err[f"clipmap_trace_brick{'_serial' if form == 'first' else ''}"],
+            compare_tensors(got_l, last_plain, CLIP_OUTPUTS,
+                            f"clipmap_trace_brick's {form} form at the last pose"))
+    last_turns = in_turns({form: (lambda f=form: brick_cuda.clipmap_kernel(
+        *bargs, sr.device_bricks.tree(7), lo, ld, 7, b_max, form=f))
+        for form in (CLIP_MAIN, "first")}, rounds=3, reps=10)
+    say(f"[fly] {card}: clipmap_trace_brick at the fly path's last pose ({lo.shape[0]} "
+        f"rays, {int((last[CLIP_MAIN][0] >= 0).sum())} hits): its {CLIP_MAIN} form and "
+        "its first form == trace_clipmap_rounds bitwise (hit_leaf, hit_t bits, "
+        "hit_chunk, truncated); in turns " + ", ".join(
+            f"{f} {med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f})"
+            for f, v in last_turns.items()))
     kern_ms = {
         "clipmap_trace": cuda_ms(lambda: brick_cuda.clipmap_kernel(
             *nargs, sr.device_arena.tree(7), lo, ld, 7,
             clipmap.rounds_bound(nargs[0].depth)), 20, 3),
-        "clipmap_trace_brick": cuda_ms(lambda: brick_cuda.clipmap_kernel(
-            *bargs, sr.device_bricks.tree(7), lo, ld, 7,
-            clipmap.rounds_bound(bargs[0].depth)), 20, 3),
+        "clipmap_trace_brick": last_turns[CLIP_MAIN],
+        "clipmap_trace_brick_serial": last_turns["first"],
     }
     plain_ms = {}
     for kname in ("clipmap_trace", "clipmap_trace_brick"):
@@ -1795,6 +1898,7 @@ def fly_phase(ctx, card):
             f"kernels in {p['n']:.1f} launches a frame (idle {idle}): "
             + ", ".join(f"{k} {u:.1f}" for k, u in sorted(p["by"].items(), key=lambda x: -x[1])[:6]))
     return dict(launches=launches, frames=frames, t=t, prof=prof, kern_ms=kern_ms,
+                last_pose_hits=int((last[CLIP_MAIN][0] >= 0).sum()),
                 plain_ms=plain_ms, work=work, mapped=mapped, k10=k10,
                 held_ms=float(np.median(held)), cand_turns=cand_turns,
                 cand_alone=cand_alone, fly_mapped=fly_mapped, fly_work=fly_work,
@@ -2751,19 +2855,21 @@ def referee(voxels, depth, o, d, answers):
     return verdict
 
 
-BUILD_KERNELS = ("svo_expand", "svo_compact", "svo_leaves", "svo_leaf_attrs",
+BUILD_KERNELS = ("svo_columns", "svo_expand", "svo_compact", "svo_leaves", "svo_leaf_attrs",
                  "svo_level_up", "svo_parent_ptr")
 # each builder entry's kernels as torch.profiler names them (svo_leaves:
 # the neighbour table, the test and the needy list's evaluations); the leaf
 # test's first form
-BUILD_PROFILED = {"svo_expand": ("svo_expand_kernel",),
+BUILD_PROFILED = {"svo_columns": ("svo_columns_kernel", "svo_column_flags_kernel"),
+                  "svo_expand": ("svo_expand_columns_kernel", "svo_expand_kernel"),
                   "svo_compact": ("svo_compact_kernel", "svo_count_kernel"),
                   "svo_leaves": ("svo_leaf_neighbours_kernel", "svo_leaf_test_kernel",
                                  "svo_leaf_eval_kernel"),
                   "svo_leaf_attrs": ("svo_leaf_attrs_kernel",),
                   "svo_level_up": ("svo_level_up_kernel",),
                   "svo_parent_ptr": ("svo_parent_ptr_kernel",),
-                  "svo_leaves_serial": ("svo_leaves_kernel",)}
+                  "svo_leaves_serial": ("svo_leaves_kernel",),
+                  "svo_expand_serial": ("svo_expand_kernel",)}
 # operations of one `terrain` evaluation, counted from csrc/scene.cuh: a
 # noise3 is 379 (eight corners of 41: 15 for the hash, 4 for the modulo, 14
 # for the gradient's decode, 8 for its dot with the offset; three fades of
@@ -2772,6 +2878,9 @@ BUILD_PROFILED = {"svo_expand": ("svo_expand_kernel",),
 OPS_TERRAIN_EVAL = 777
 OPS_ALBEDO = 70          # the palette: three sinf and their scaling
 OPS_EXPAND_CHILD = 12    # a child's coordinates, centre and keep test
+# the column form's child: those and its py - h (the scene's `y -`); a
+# column's evaluation is OPS_TERRAIN_EVAL
+OPS_EXPAND_COLUMN_CHILD = OPS_EXPAND_CHILD + 1
 OPS_COMPACT_ROW = 8      # ballot, popc, the warp prefix, the store address
 OPS_LEVEL_UP_ROW = 6     # the two atomics' operands
 OPS_PARENT_ROW = 8       # the masks, popc and the stores' loop
@@ -2784,15 +2893,16 @@ BUILD_SCENES = ("perlin", "terrain_ref", "simplex_ref")
 BUILD_SCENE_DEPTH = 8
 
 
-def build_launches(depth, chunks=None):
+def build_launches(depth, chunks=None, heightfield=True):
     """The launches of a build_svo_device of `depth` levels in which no
-    level is empty: an expansion, its compaction, a level-up, a count and
-    a compaction a level (more chunks add an expansion and a compaction
-    each), one leaf test, its compaction, the leaves' attributes and one
-    parent-pointer pass."""
+    level is empty: a heightfield's column pass, an expansion, its
+    compaction, a level-up, a count and a compaction a level (more chunks
+    add an expansion and a compaction each), one leaf test, its compaction,
+    the leaves' attributes and one parent-pointer pass."""
     extra = 0 if chunks is None else sum(c - 1 for c in chunks)
     return dict(svo_expand=depth + extra, svo_compact=3 * depth + 1 + extra,
-                svo_leaves=1, svo_leaf_attrs=1, svo_level_up=depth, svo_parent_ptr=1)
+                svo_leaves=1, svo_leaf_attrs=1, svo_level_up=depth, svo_parent_ptr=1,
+                **({"svo_columns": depth} if heightfield else {}))
 
 
 def record_calls():
@@ -2800,8 +2910,8 @@ def record_calls():
     of its largest call (by rows) until restore(); returns (the record,
     restore)."""
     from raytracingtest_tpu_torch.ops import octree_cuda
-    names = ("expand", "count", "compact", "leaves", "leaf_attrs", "level_up",
-             "parent_ptr")
+    names = ("columns", "expand", "count", "compact", "leaves", "leaf_attrs",
+             "level_up", "parent_ptr")
     saved = {name: getattr(octree_cuda, name) for name in names}
     calls = {}
 
@@ -2832,6 +2942,76 @@ def bits_apart(a, b):
 # the albedo's tolerance against the host (sinf on the card, numpy's sin
 # there): an ULP of a value in [0.5, 1)
 ALBEDO_ULP = 2.0 ** -24
+
+
+def check_expansion(expand, ds, parents, level, hi, lo, cols, plain):
+    """One expansion held bit for bit (records, keep flags, counts) against
+    its first form on the card and, with `plain`, its plain version;
+    `expand` is the wrapper (octree_cuda.expand). Its row: level, parents,
+    the column table's side and form, and the scene evaluations made
+    (columns evaluated for a heightfield, one a child for a 3-D scene)."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    got = expand(ds, parents, level, hi, lo, cols)
+    against = [("its first form", oc.expand_serial(ds, parents, level, hi, lo))]
+    if plain:
+        against.append(("its plain version",
+                        oc.expand_plain(ds.scene, parents, level, hi, lo)))
+    for what, want in against:
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"svo_expand parts from {what} ({ds.scene.name}, level "
+                                 f"{level}, {parents.shape[0]} parents)")
+    n = 8 * parents.shape[0]
+    return dict(level=level, parents=parents.shape[0], children=n,
+                side=None if cols is None else cols.side,
+                flagged=None if cols is None else cols.flagged,
+                evals=n if cols is None else int((~torch.isnan(cols.h)).sum()))
+
+
+@contextlib.contextmanager
+def checked_expansions(log, plain=False):
+    """Inside the block every expansion of a device build also runs
+    check_expansion (its launches count too: no expect_launches inside);
+    `log` gains each one's row."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    expand = oc.expand
+
+    def checking(ds, parents, level, hi, lo, cols=None):
+        log.append(check_expansion(expand, ds, parents, level, hi, lo, cols, plain))
+        return expand(ds, parents, level, hi, lo, cols)
+    oc.expand = checking
+    try:
+        yield log
+    finally:
+        oc.expand = expand
+
+
+@contextlib.contextmanager
+def first_form_expansions():
+    """Inside the block the device build expands through the first form
+    (svo_expand_serial, the scene at every child) and makes no column
+    table."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    columns, expand = oc.columns, oc.expand
+    oc.columns = lambda *a, **k: None
+    oc.expand = lambda ds, parents, level, hi, lo, cols=None: oc.expand_serial(
+        ds, parents, level, hi, lo)
+    try:
+        yield
+    finally:
+        oc.columns, oc.expand = columns, expand
+
+
+def expansion_us(fn):
+    """Device us of each expansion of one fn() (a build), in launch order:
+    (the column pass's us, the expansion's us) a level."""
+    levels, cols = [], 0.0
+    for name, us in launches_of(fn):
+        if "svo_column" in name:
+            cols += us
+        elif "svo_expand" in name:
+            levels.append((cols, us))
+            cols = 0.0
+    return levels
 
 
 def check_leaf_test(ds, rec, depth, par, parents, full, plain=False, leaves=None):
@@ -2921,11 +3101,20 @@ def build_parity(calls, ds, depth):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 raise AssertionError(f"{name}: kernel != plain on {what}")
 
+    _, args = calls["columns"]
+    got = oc.columns(*args)
+    want, plain_ms["svo_columns"] = timed_plain(
+        oc.columns_plain, ds.scene, *args[1:3], (got.x0, got.z0, got.side), got.flagged)
+    exact("svo_columns", (bits(got.h),), (bits(want.h),), "the column table's bits")
+    err["svo_columns"] = 0.0
     _, args = calls["expand"]
     got = oc.expand(*args)
     want, plain_ms["svo_expand"] = timed_plain(oc.expand_plain, ds.scene, *args[1:])
     exact("svo_expand", got, want, "records, keep flags and counts (f bits)")
-    err["svo_expand"] = 0.0
+    exact("svo_expand", got, oc.expand_serial(*args[:5]),
+          "the first form's records, keep flags and counts")
+    plain_ms["svo_expand_serial"] = plain_ms["svo_expand"]
+    err["svo_expand"] = err["svo_expand_serial"] = 0.0
     _, args = calls["compact"]
     got = oc.compact(*args)
     want, plain_ms["svo_compact"] = timed_plain(oc.compact_plain, *args)
@@ -2970,10 +3159,22 @@ def build_bounds(calls, n_leaves, leaf):
     operations (OPS_TERRAIN_EVAL a scene evaluation)."""
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     out = {}
-    _, (dsc, parents, *_rest) = calls["expand"]
+    _, (dsc, parents, _level, _hi, _lo, cols) = calls["expand"]
     n = 8 * parents.shape[0]
-    out["svo_expand"] = bound(nbytes(parents) + n * 17 + oc.n_blocks(n) * 4,
-                              n * (OPS_TERRAIN_EVAL + OPS_EXPAND_CHILD))
+    evals = int((~torch.isnan(cols.h)).sum())
+    outputs = n * 17 + oc.n_blocks(n) * 4
+    # the column pass: its parents (the flagged form) and its table; the
+    # child pass: its parents, the table's evaluated columns and its
+    # outputs; the two as one function (the table inside it), and the
+    # first form, the scene at every child (the reference's count)
+    out["svo_columns"] = bound((nbytes(parents) if cols.flagged else 0) + cols.h.numel() * 4,
+                               evals * OPS_TERRAIN_EVAL)
+    out["svo_expand"] = bound(nbytes(parents) + evals * 4 + outputs,
+                              n * OPS_EXPAND_COLUMN_CHILD)
+    out["svo_expand_function"] = bound(nbytes(parents) + outputs,
+                                       evals * OPS_TERRAIN_EVAL + n * OPS_EXPAND_COLUMN_CHILD)
+    out["svo_expand_serial"] = bound(nbytes(parents) + outputs,
+                                     n * (OPS_TERRAIN_EVAL + OPS_EXPAND_CHILD))
     _, (flags, _base, total, src) = calls["compact"]
     w = 0 if src is None else src.shape[1]
     out["svo_compact"] = bound(nbytes(flags, _base) + total * (1 + 2 * w) * 4,
@@ -3146,6 +3347,38 @@ def build_device(ctx, card):
         f"({int((res_dev.hit_leaf >= 0).sum())} hits); image max abs {img_err:.3g} "
         "from the host tree's (the albedo's ULPs)")
 
+    # every expansion of the build against its first form and its plain
+    # version; each level's evaluations, and its expansion's us alone in
+    # both forms (one build each, every launch traced)
+    exp_log = []
+    with checked_expansions(exp_log, plain=True):
+        checked, _ = build()
+    if not torch.equal(checked.masks, svo.masks):
+        raise AssertionError("the checked build's masks differ")
+    new_us = expansion_us(lambda: build())
+    with first_form_expansions():
+        first_svo, _ = build()
+        first_us = expansion_us(lambda: build())
+    if not torch.equal(first_svo.masks, svo.masks):
+        raise AssertionError("the first form's build differs")
+    if not len(new_us) == len(first_us) == len(exp_log):
+        raise AssertionError(f"expansions traced: {len(new_us)}, {len(first_us)}, "
+                             f"{len(exp_log)} made")
+    expansion = [dict(row, columns_us=c, expand_us=e, first_form_us=f)
+                 for row, (c, e), (_c, f) in zip(exp_log, new_us, first_us)]
+    say(f"[build-device] {card}: svo_expand (the column pass svo_columns, then the "
+        f"children) == its first form (svo_expand_serial) and its plain version bit for "
+        f"bit on all {len(exp_log)} expansions of terrain d{depth}; a level: parents, "
+        "column evaluations (the table's form) against the first form's one a child "
+        "(8 n_p), us alone (column pass + children; first form): " + "; ".join(
+            f"L{r['level']} {r['parents']}, {r['evals']} ({'flagged' if r['flagged'] else 'whole'}"
+            f" {r['side']}²) against {r['children']}, {r['columns_us']:.1f} + "
+            f"{r['expand_us']:.1f}; {r['first_form_us']:.1f}" for r in expansion)
+        + f"; a build {sum(r['columns_us'] + r['expand_us'] for r in expansion):.1f} us "
+        f"against the first form's {sum(r['first_form_us'] for r in expansion):.1f}, "
+        f"{sum(r['evals'] for r in expansion)} evaluations against "
+        f"{sum(r['children'] for r in expansion)}")
+
     # each kernel against its plain version, at the main path's largest call
     ds = octree_cuda.device_scene(scene, dev)
     k_err, normals_apart, plain_ms, leaf = build_parity(calls, ds, depth)
@@ -3189,18 +3422,26 @@ def build_device(ctx, card):
     # the leaf test on every scene of the library: at depth 6 against the
     # plain versions and the first form, at depth 8 against the first form;
     # the octant build's 64 leaf tests against the first form
-    scene_checks = {}
+    scene_checks, scene_expansions = {}, {}
     for name in sorted(SCENES):
         for d_, with_plain in ((6, True), (BUILD_SCENE_DEPTH, False)):
-            log = []
-            with checked_leaf_tests(log, plain=with_plain):
+            log, elog = [], []
+            with checked_leaf_tests(log, plain=with_plain), \
+                    checked_expansions(elog, plain=True):
                 octree_device.build_svo_device(get_scene(name), d_, device=dev)
             scene_checks[(name, d_)] = log[0]
+            scene_expansions[(name, d_)] = elog
     say("[build-device] svo_leaves and svo_leaf_attrs on the nine scenes == the first "
         "form (and at depth 6 the plain versions; normals bitwise, albedo within "
         f"{ALBEDO_ULP:.3g}): evaluations made against the reference's: " + ", ".join(
             f"{n_} d{d_} {c['evals']}/{c['ref_evals']}"
             for (n_, d_), c in scene_checks.items()))
+    say("[build-device] svo_expand on the nine scenes at depths 6 and "
+        f"{BUILD_SCENE_DEPTH} == its first form and its plain version bit for bit on "
+        "every expansion; expansions, scene evaluations against the first form's "
+        "(one a child): " + ", ".join(
+            f"{n_} d{d_} {len(e)}, {sum(r['evals'] for r in e)}/"
+            f"{sum(r['children'] for r in e)}" for (n_, d_), e in scene_expansions.items()))
 
     # the kernels' times: each at its largest call, in turns; the library
     # call beside svo_compact (torch.nonzero of the same flags)
@@ -3229,8 +3470,14 @@ def build_device(ctx, card):
         rows = torch.nonzero(flags).reshape(-1)
         return rows, src[rows]
 
+    col_args, exp_args = calls["columns"][1], calls["expand"][1]
     turns = in_turns({
-        "svo_expand": lambda: oc.expand(*calls["expand"][1]),
+        "svo_columns": lambda: oc.columns(*col_args),
+        "svo_columns_whole": lambda: oc.columns(*col_args, flagged=False),
+        "svo_columns_flagged": lambda: oc.columns(*col_args, flagged=True),
+        "svo_expand": lambda: oc.expand(*exp_args),
+        "svo_expand_function": lambda: oc.expand(*exp_args[:5], oc.columns(*col_args)),
+        "svo_expand_serial": lambda: oc.expand_serial(*exp_args[:5]),
         "svo_compact": lambda: oc.compact(*calls["compact"][1]),
         "svo_compact_library": lambda: torch.nonzero(flags),
         "svo_compact_library_whole": library_compact,
@@ -3271,9 +3518,13 @@ def build_device(ctx, card):
                 f"{k} {prof['us'][k]:.1f} ({prof['launches'][k]})" for k in BUILD_KERNELS)
             + f"; their sum {sum(prof['us'].values()):.1f} us")
     say(f"[build-device] {card}: each kernel at its largest call, ms in turns "
-        "(bound ms, by): " + ", ".join(
+        "(bound ms, by; svo_expand_function is the column pass and the children, "
+        "svo_expand the children alone): " + ", ".join(
             f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})"
-            for k in (*BUILD_KERNELS, "svo_leaves_serial"))
+            for k in (*BUILD_KERNELS, "svo_expand_function", "svo_expand_serial",
+                      "svo_leaves_serial"))
+        + f"; the column pass over the whole square {ms['svo_columns_whole']:.4f}, "
+        f"flagged {ms['svo_columns_flagged']:.4f}"
         + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}, "
         f"with index_select of the kept rows' words (svo_compact's whole function, "
         f"== it bitwise) {ms['svo_compact_library_whole']:.4f}, with src[rows] in its "
@@ -3327,12 +3578,17 @@ def build_device(ctx, card):
     say(f"[build-device] build_svo_device_split(terrain, {depth}, split_level=2): "
         f"64 octants in {split_s:.3f} s ({split_got}), == the monolithic build bit "
         "for bit (every array)")
-    split_log = []
-    with checked_leaf_tests(split_log):
+    split_log, split_exp = [], []
+    with checked_leaf_tests(split_log), checked_expansions(split_exp, plain=True):
         octree_device.build_svo_device_split(scene, depth, split_level=2, device=dev)
+    flagged = [r for r in split_exp if r["flagged"]]
     say(f"[build-device] the octant build's {len(split_log)} leaf tests == their "
         f"first form bit for bit; {sum(c['evals'] for c in split_log)} evaluations "
-        f"against the reference's {sum(c['ref_evals'] for c in split_log)}")
+        f"against the reference's {sum(c['ref_evals'] for c in split_log)}; its "
+        f"{len(split_exp)} expansions == their first form and plain version bit for "
+        f"bit, {sum(r['evals'] for r in split_exp)} column evaluations against "
+        f"{sum(r['children'] for r in split_exp)} children ({len(flagged)} tables "
+        f"flagged, {sum(r['evals'] for r in flagged)} evaluations in them)")
 
     # the command line's noise scenes, built on the card at its default depth
     scene_builds = {}
@@ -3342,7 +3598,8 @@ def build_device(ctx, card):
             f"build_svo_device {name} d{BUILD_SCENE_DEPTH}",
             lambda n=name: octree_device.build_svo_device(get_scene(n), BUILD_SCENE_DEPTH,
                                                           device=dev),
-            build_launches(BUILD_SCENE_DEPTH))
+            build_launches(BUILD_SCENE_DEPTH,
+                           heightfield=name in octree_cuda.HEIGHTFIELDS))
         first = time.perf_counter() - t0
         t0 = time.perf_counter()
         octree_device.build_svo_device(get_scene(name), BUILD_SCENE_DEPTH, device=dev)
@@ -3358,7 +3615,12 @@ def build_device(ctx, card):
                 plain_ms=plain_ms, bounds=bounds, prof=prof, scene_apart=apart,
                 scene_builds=scene_builds, levels=levels, split_s=split_s, leaf=leaf,
                 serial_us=serial_us, scene_checks=scene_checks, leaf_kernels=leaf_kernels,
-                split_checks=len(split_log))
+                split_checks=len(split_log), expansion=expansion,
+                expansions_checked=len(exp_log) + len(split_exp) + sum(
+                    len(e) for e in scene_expansions.values()),
+                split_expansion=dict(evals=sum(r["evals"] for r in split_exp),
+                                     children=sum(r["children"] for r in split_exp),
+                                     flagged_tables=len(flagged)))
 
 
 def check_scene_builds(built, cdir):
@@ -4039,9 +4301,9 @@ def main():
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
         f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
     svo_regs = svo_ptxas(_build.build_log("svo_build"))
-    if len(svo_regs) != 12:
+    if len(svo_regs) != 15:
         raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
-                             "expected 12 kernels")
+                             "expected 15 kernels")
     say("[build] svo_build.cu, ptxas -v (registers): " + ", ".join(
         f"{k} {r}" for k, r in svo_regs))
 
@@ -4057,6 +4319,7 @@ def main():
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
                tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
+               clipmap_trace_brick_serial=0.0, svo_expand_serial=0.0,
                **{k: 0.0 for k in BUILD_KERNELS})
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).svo.to(dev)
@@ -5932,10 +6195,27 @@ def main():
         plain_ms=sm["composite_bwd_plain"][0], bound_ms=bwd_bound[0],
         bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
         fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
-    replaces = dict(svo_expand=57, svo_compact=80, svo_leaves=143, svo_leaf_attrs=323,
-                    svo_level_up=163, svo_parent_ptr=341, svo_leaves_serial=143)
+    replaces = dict(svo_columns=57, svo_expand=57, svo_compact=80, svo_leaves=143,
+                    svo_leaf_attrs=323, svo_level_up=163, svo_parent_ptr=341,
+                    svo_leaves_serial=143, svo_expand_serial=57)
     bl = built["leaf"]
+    bm, bb, ex = built["ms"], built["bounds"], built["expansion"]
     leaf_extra = dict(
+        svo_columns=dict(ms_whole_square_in_turns=bm["svo_columns_whole"],
+                         ms_flagged_in_turns=bm["svo_columns_flagged"]),
+        svo_expand=dict(
+            function_ms_in_turns=bm["svo_expand_function"],
+            function_bound_ms=bb["svo_expand_function"][0],
+            function_bound_by=bb["svo_expand_function"][1],
+            function_us_alone_a_build=sum(r["columns_us"] + r["expand_us"] for r in ex),
+            first_form_ms_in_turns=bm["svo_expand_serial"],
+            first_form_us_alone_a_build=sum(r["first_form_us"] for r in ex),
+            evaluations=sum(r["evals"] for r in ex),
+            evaluations_reference=sum(r["children"] for r in ex),
+            expansions_checked=built["expansions_checked"],
+            per_level=[{k: r[k] for k in ("level", "parents", "side", "flagged", "evals",
+                                           "columns_us", "expand_us", "first_form_us")}
+                       for r in ex]),
         svo_leaves=dict(evaluations=bl["evals"], evaluations_reference=bl["ref_evals"],
                         probes=bl["probes"], probes_by_source=bl["by_kind"],
                         first_form_ms_in_turns=built["ms"]["svo_leaves_serial"],
@@ -5947,13 +6227,18 @@ def main():
                             warps=bl["warps"]),
         svo_compact=dict(library_ms_indices_alone=built["ms"]["svo_compact_library"],
                          library_ms_with_gather=built["ms"]["svo_compact_library_gather"]))
-    for kname in (*BUILD_KERNELS, "svo_leaves_serial"):
-        serial = kname == "svo_leaves_serial"
+    first_forms = {
+        "svo_leaves_serial": ("octree_cuda.leaves_serial (the leaf test's first form, off "
+                              "the main path), at the build's leaf test", built["serial_us"]),
+        "svo_expand_serial": ("octree_cuda.expand_serial (the expansion's first form, off "
+                              "the main path), at the build's level 10",
+                              sum(r["first_form_us"] for r in ex))}
+    for kname in (*BUILD_KERNELS, *first_forms):
+        serial = kname in first_forms
         kernels.append(dict(
             name=kname, route="cuda", source=src + "svo_build.cu",
             replaces=f"raytracingtest_tpu/ops/octree_device.py:{replaces[kname]}",
-            path=("octree_cuda.leaves_serial (the leaf test's first form, off the "
-                  "main path), at the build's leaf test" if serial else
+            path=(first_forms[kname][0] if serial else
                   "octree_device.build_svo_device (bench.py's BENCH_BUILD=device), "
                   "terrain depth 10"),
             launches=0 if serial else built["launches"][kname], max_abs_err=err[kname],
@@ -5961,7 +6246,7 @@ def main():
             bound_ms=built["bounds"][kname][0], bound_by=built["bounds"][kname][1],
             library_ms=(built["ms"]["svo_compact_library_whole"]
                         if kname == "svo_compact" else None),
-            us_alone_a_build=built["serial_us"] if serial else built["prof"]["us"][kname],
+            us_alone_a_build=first_forms[kname][1] if serial else built["prof"]["us"][kname],
             **leaf_extra.get(kname, {})))
     fk = flown
     streamed = fk["prof"]["streamed tile frame"]
@@ -5997,14 +6282,34 @@ def main():
              fk["work"]["clipmap_trace_brick"]["bound"],
              dict(shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
                   **fly_k10(fk, "clipmap_trace_brick"),
-                  us_traced_a_fly_frame=alone_us(brick_prof, "clipmap_trace_kernel"),
-                  launches_traced_a_fly_frame=seen(brick_prof, "clipmap_trace_kernel")))):
+                  us_traced_a_fly_frame=alone_us(brick_prof, CLIP_KERNELS["clipmap_trace_brick"]),
+                  launches_traced_a_fly_frame=seen(brick_prof,
+                                                   CLIP_KERNELS["clipmap_trace_brick"])))):
         kernels.append(dict(
             name=kname, route="cuda", source=src + source,
             replaces=f"raytracingtest_tpu/stream/clipmap.py:{line}", path=path,
             launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
             ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
             bound_by=bnd[1], library_ms=None, **extra))
+    bw = fk["fly_work"]["clipmap_trace_brick"]
+    kernels[-1].update(
+        form=CLIP_MAIN, us_alone_first_form_fly_check=bw["us_alone_first_form"],
+        ms_in_turns_fly_check={f: med_p80(v)[0] for f, v in bw["ms_turns"].items()},
+        ms_last_pose_first_form=med_p80(fk["kern_ms"]["clipmap_trace_brick_serial"])[0],
+        warps_fly_check=bw["warps"])
+    kernels.append(dict(
+        name="clipmap_trace_brick_serial", route="cuda", source=src + "brick_trace.cu",
+        replaces="raytracingtest_tpu/stream/clipmap.py:965",
+        path="brick_cuda.clipmap_kernel(form=\"first\") (the first form, off the main path)",
+        launches=0, max_abs_err=err["clipmap_trace_brick_serial"],
+        ms=med_p80(fk["work"]["clipmap_trace_brick"]["ms_first"])[0],
+        plain_ms=fk["plain_ms"]["clipmap_trace_brick"],
+        bound_ms=fk["work"]["clipmap_trace_brick"]["bound"][0],
+        bound_by=fk["work"]["clipmap_trace_brick"]["bound"][1], library_ms=None,
+        shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
+        us_alone_fly_check=bw["us_alone_first_form"],
+        ms_last_pose=med_p80(fk["kern_ms"]["clipmap_trace_brick_serial"])[0],
+        warps_fly_check=bw["warps"]["first"]))
     per_round = lambda rows: [dict(live=r["live"], walks=r["counts"]["walks"],
                                    steps=r["counts"]["steps"], us_alone=r["us_alone"],
                                    us_alone_first_form=r["us_alone_first_form"],

@@ -227,8 +227,13 @@ def _declare_brick(lib):
     f = ctypes.c_float
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
+    clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4
     for fn in (lib.clipmap_trace, lib.clipmap_trace_brick):
-        fn.argtypes = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 5
+        fn.argtypes = clip + [p]
+        fn.restype = i
+    lib.clipmap_trace_brick_serial.argtypes = [i] + clip + [p]
+    lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
+    for fn in (lib.clipmap_trace_brick_serial, lib.clipmap_trace_brick_probe):
         fn.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays
     # and the five outputs
@@ -254,7 +259,9 @@ def _declare_brick(lib):
 def _declare_svo(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables = [p] * 5
-    lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
+    lib.svo_columns.argtypes = [p, i, i, i, i, f, i, p, p, p]
+    lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, i, i, i, p, p, p, p]
+    lib.svo_expand_serial.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
     lib.svo_compact.argtypes = [p, i, p, p, i, p, p, p, p]
     lib.svo_leaves.argtypes = [p, i, p, p, i, p, f, i, i] + tables + [p, p, p, p, p]
     lib.svo_leaf_attrs.argtypes = [p, i, f, i] + tables + [p, p]
@@ -262,7 +269,8 @@ def _declare_svo(lib):
     lib.svo_level_up.argtypes = [p, i, p, p, p, p, p]
     lib.svo_parent_ptr.argtypes = [p, p, i, p, p]
     lib.scene_eval.argtypes = [p, p, p, i, i] + tables + [p, p]
-    for fn in (lib.svo_expand, lib.svo_compact, lib.svo_leaves,
+    for fn in (lib.svo_columns, lib.svo_expand, lib.svo_expand_serial,
+               lib.svo_compact, lib.svo_leaves,
                lib.svo_leaf_attrs, lib.svo_leaves_serial, lib.svo_level_up,
                lib.svo_parent_ptr, lib.scene_eval):
         fn.restype = i

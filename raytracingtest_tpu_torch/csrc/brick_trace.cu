@@ -179,7 +179,8 @@ constexpr int PREFIX_ROW_WORDS = ROW_WORDS + 16;
 constexpr int DDA_ROUND_STEPS = 30;  // the reference's DDA loop: 26 rounded up to 6s
 constexpr int N_STATS = 5;           // rounds, DDA steps, capped rounds, DDA max, unfinished
 constexpr int STEP_ON = 0, STEP_LEAF = 1, STEP_EXIT = 2;
-constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3;
+constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3,
+              FORM_FLAT = 4;
 constexpr int WIDE_BLOCK = 256;  // the wide form's block
 constexpr int MULTI_BLOCK = 32;  // the staged brick_trace_multi's block
 // shared memory a block: above SMEM_STATIC only after opting in
@@ -431,7 +432,9 @@ __device__ __forceinline__ long long global_ns() {
   return (long long)t;
 }
 
-template <bool ON>
+// NPH phases; a record of 6 + 3 NPH words (PROBE_WORDS at N_PHASES, the
+// layout above; the stitched trace's probe has CP_PHASES).
+template <bool ON, int NPH = N_PHASES>
 struct Probe {  // off: every call compiles to nothing
   __device__ __forceinline__ void begin() {}
   __device__ __forceinline__ long long enter(int) { return 0; }
@@ -445,16 +448,20 @@ __device__ __forceinline__ long long warp_sum(long long x) {
   return x;
 }
 
-template <>
-struct Probe<true> {
-  long long start, ns_start, rays, issues[N_PHASES], lanes[N_PHASES],
-      cycles[N_PHASES];
+template <int NPH>
+struct Probe<true, NPH> {
+  static constexpr int WORDS = PW_PHASES + 3 * NPH + 3;
+  static constexpr int W_SM = PW_PHASES + 3 * NPH;
+  static_assert(NPH != N_PHASES || (WORDS == PROBE_WORDS && W_SM == PW_SM &&
+                                     W_SM + 2 == PW_NS_END),
+                "the record's layout at N_PHASES");
+  long long start, ns_start, rays, issues[NPH], lanes[NPH], cycles[NPH];
 
   __device__ __forceinline__ void begin() {
     ns_start = global_ns();
     start = clock64();
     rays = 0;
-    for (int p = 0; p < N_PHASES; ++p) issues[p] = lanes[p] = cycles[p] = 0;
+    for (int p = 0; p < NPH; ++p) issues[p] = lanes[p] = cycles[p] = 0;
   }
   // The lowest active lane counts the issue and the lanes with it, and
   // reads the clock; the others return -1.
@@ -475,23 +482,23 @@ struct Probe<true> {
     __syncwarp();
     const long long end = clock64();
     const long long ns_end = global_ns();
-    long long v[PROBE_WORDS];
+    long long v[WORDS];
     v[PW_START] = start;
     v[PW_END] = end;
     v[PW_RAYS] = warp_sum(rays);
-    for (int p = 0; p < N_PHASES; ++p) {
+    for (int p = 0; p < NPH; ++p) {
       v[PW_PHASES + 3 * p] = warp_sum(issues[p]);
       v[PW_PHASES + 3 * p + 1] = warp_sum(lanes[p]);
       v[PW_PHASES + 3 * p + 2] = warp_sum(cycles[p]);
     }
     unsigned sm;
     asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    v[PW_SM] = sm;
-    v[PW_NS_START] = ns_start;
-    v[PW_NS_END] = ns_end;
+    v[W_SM] = sm;
+    v[W_SM + 1] = ns_start;
+    v[W_SM + 2] = ns_end;
     if ((threadIdx.x & 31) == 0) {
       const size_t warp = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-      for (int k = 0; k < PROBE_WORDS; ++k) out[warp * PROBE_WORDS + k] = v[k];
+      for (int k = 0; k < WORDS; ++k) out[warp * WORDS + k] = v[k];
     }
   }
 };
@@ -1318,6 +1325,434 @@ clipmap_trace_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
   out.truncated[i] = done ? 0 : 1;
 }
 
+// ---- clipmap_trace_brick's wide form and the stitched trace's probe ----------
+//
+// clipmap_trace_kernel<true> is clipmap_trace_brick's first form (a thread
+// a ray in blocks of 128; both walks set up from o and d each round; the
+// chunk's brick rows read with __ldg as the DDA needs them). Its wide form,
+// clipmap_trace_brick_kernel, the main path's, gives the same bits:
+//   * the direction's constants (t_coef = -1/|d| and the octant mask) are
+//     made once a ray: set-up takes them from d alone, and every walk of a
+//     ray has the same d, so each round's two set-ups keep their bits
+//     without their three divisions each (setup_dir; o_trunk's, o_loc's and
+//     the box exit's divisions stay, as the reference takes them);
+//   * the chunk's brick walk is the wide brick trace's (brick_ray<STAGE>):
+//     blocks of WIDE_BLOCK, a parked ray's 17-word brick row read as
+//     independent loads into its slice of shared memory before its DDA.
+// clipmap_trace_brick_probe_kernel<WIDE> is either form with per-warp counters
+// over CP_PHASES phases (the layout at Probe, NPH = CP_PHASES): a trunk
+// step, a walk's set-up (two a round where the trunk finds a chunk), a
+// chunk's top step, the descent into a brick, a DDA step, the box exit, and
+// a round (entered once a round, so its lanes sum the rays' rounds and its
+// issues count the warp's passes through the round loop).
+constexpr int CP_TRUNK = 0, CP_SETUP = 1, CP_TOP = 2, CP_DESCENT = 3,
+              CP_DDA = 4, CP_EXIT = 5, CP_ROUND = 6, CP_PHASES = 7;
+
+// A ray's direction constants: what setup_at takes from d.
+struct Dir {
+  float t_coef[3];
+  int om;
+};
+
+__device__ __forceinline__ void dir_setup(const float* __restrict__ d, Dir& dr) {
+  const float eps = 1.0f / 8388608.0f;  // 2^-S_MAX
+  dr.om = 7;
+  for (int c = 0; c < 3; ++c) {
+    float dc = d[c];
+    if (fabsf(dc) < eps) dc = dc >= 0.0f ? eps : -eps;
+    dr.t_coef[c] = -1.0f / fabsf(dc);
+    if (dc > 0.0f) dr.om ^= 1 << c;
+  }
+}
+
+// setup_at from the direction's constants: the same operations on the same
+// values, the divisions done once a ray.
+__device__ __forceinline__ bool setup_dir(const float* __restrict__ o,
+                                          const Dir& dr, int root, Ray& r,
+                                          Walk& w) {
+  r.om = dr.om;
+  for (int c = 0; c < 3; ++c) {
+    const float oc = o[c] + 1.0f;
+    r.t_coef[c] = dr.t_coef[c];
+    r.t_bias[c] = r.t_coef[c] * oc;
+    if (!((dr.om >> c) & 1)) r.t_bias[c] = 3.0f * r.t_coef[c] - r.t_bias[c];
+  }
+  float t_min = fmaxf(fmaxf(2.0f * r.t_coef[0] - r.t_bias[0],
+                            2.0f * r.t_coef[1] - r.t_bias[1]),
+                      2.0f * r.t_coef[2] - r.t_bias[2]);
+  r.t_root = fminf(fminf(r.t_coef[0] - r.t_bias[0], r.t_coef[1] - r.t_bias[1]),
+                   r.t_coef[2] - r.t_bias[2]);
+  t_min = fmaxf(t_min, 0.0f);
+  w.idx = 0;
+  for (int c = 0; c < 3; ++c) {
+    const bool upper = 1.5f * r.t_coef[c] - r.t_bias[c] > t_min;
+    w.pos[c] = upper ? 1.5f : 1.0f;
+    if (upper) w.idx |= 1 << c;
+  }
+  w.parent = root;
+  w.scale = S_MAX - 1;
+  w.t_min = t_min;
+  w.popped = false;
+  return t_min >= r.t_root;
+}
+
+// A walk's set-up in either form: WIDE from the ray's constants, else
+// setup_at from d.
+template <bool WIDE>
+__device__ __forceinline__ bool clip_setup(const float* o, const float* d,
+                                           const Dir& dr, int root, Ray& r,
+                                           Walk& w) {
+  if constexpr (WIDE) {
+    return setup_dir(o, dr, root, r, w);
+  } else {
+    return setup_at(o, d, root, r, w);
+  }
+}
+
+// brick_walk_from in either form, with the counters: WIDE stages the
+// parked brick's row in my_row, its slice of shared memory.
+template <bool WIDE, class P>
+__device__ __forceinline__ int clip_brick_walk(const Tree& tree,
+                                               const float o[3],
+                                               const float d[3], const Dir& dr,
+                                               int root, float& t_hit,
+                                               int* __restrict__ my_row,
+                                               P& probe) {
+  Ray r;
+  Walk w;
+  long long t = probe.enter(CP_SETUP);
+  bool done = clip_setup<WIDE>(o, d, dr, root, r, w);
+  probe.leave(CP_SETUP, t);
+  const int depth = tree.depth, top_depth = tree.top_depth;
+  const int n_top = max_iters_for_depth(top_depth);
+  const int n_rounds = 16 * depth + 64;
+  const int vshift = S_MAX - depth;
+  const float vsize = __int_as_float((127 - depth) << 23);      // 2^-depth
+  const float bsize = __int_as_float((127 - top_depth) << 23);  // 2^-top_depth
+  int flip[3];
+  for (int c = 0; c < 3; ++c) flip[c] = ((r.om >> c) & 1) ? 0 : 7;
+  int leaf = -1, rounds = 0;
+  float ht = 0.0f;
+  while (!done && rounds < n_rounds) {
+    ++rounds;
+    int what = STEP_ON, child_shift = 0, leaf_rank = 0;
+    for (int top = 0; top < n_top && what == STEP_ON; ++top) {
+      t = probe.enter(CP_TOP);
+      what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                            child_shift, leaf_rank);
+      probe.leave(CP_TOP, t);
+    }
+    if (what == STEP_EXIT) break;
+    if (what == STEP_ON) continue;  // the round's step cap
+    t = probe.enter(CP_DESCENT);
+    const int* row = tree.bricks +
+                     (size_t)(__ldg(tree.child + w.parent) + leaf_rank) * ROW_WORDS;
+    if constexpr (WIDE) {
+      int v[ROW_WORDS];
+      for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
+      for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
+    }
+    auto word = [row, my_row](int k) -> int {
+      if constexpr (WIDE) {
+        return my_row[k];
+      } else {
+        return __ldg(row + k);
+      }
+    };
+    float bpos[3] = {w.pos[0], w.pos[1], w.pos[2]};
+    float t_cur = w.t_min;
+    rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+    probe.leave(CP_DESCENT, t);
+    for (int steps = 0; steps < DDA_ROUND_STEPS;) {
+      t = probe.enter(CP_DDA);
+      ++steps;
+      int idx9;
+      const int step = rtt_dda::dda_step(
+          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
+          [&word](int k) { return (uint32_t)word(k); }, idx9);
+      if (step == rtt_dda::DDA_HIT) {
+        leaf = rtt_dda::leaf_of(word, idx9);
+        ht = t_cur;
+        done = true;
+      }
+      if (step == rtt_dda::DDA_EXIT) w.popped = true;
+      probe.leave(CP_DDA, t);
+      if (step != rtt_dda::DDA_STAY) break;
+    }
+    w.t_min = t_cur;
+  }
+  t_hit = ht;
+  return leaf;
+}
+
+// Ray i's rounds through the brick arena in either form (clipmap_trace_
+// kernel<true>'s arithmetic), with the counters.
+template <bool WIDE, class P>
+__device__ __forceinline__ void clip_brick_ray(const Tree& trunk,
+                                               const Tree& chunks,
+                                               const Clip& clip,
+                                               const Rays& rays,
+                                               const ClipOut& out, int i,
+                                               int* __restrict__ my_row,
+                                               P& probe) {
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = rays.origin[(size_t)3 * i + c];
+    d[c] = rays.direction[(size_t)3 * i + c];
+  }
+  Dir dr;
+  if constexpr (WIDE) dir_setup(d, dr);
+  float t_off = 0.0f, hit_t = 0.0f;
+  int hit_leaf = -1, hit_chunk = -1;
+  bool done = false;
+  for (int round = 0; round < clip.n_max && !done; ++round) {
+    probe.leave(CP_ROUND, probe.enter(CP_ROUND));
+    float o_cur[3], o_trunk[3];
+    for (int c = 0; c < 3; ++c) {
+      o_cur[c] = o[c] + t_off * d[c];
+      o_trunk[c] = (o_cur[c] - clip.org[c]) / clip.size;
+    }
+    // the trunk's stackless walk (stackless_walk_from)
+    Ray r;
+    Walk w;
+    long long t = probe.enter(CP_SETUP);
+    bool walked = clip_setup<WIDE>(o_trunk, d, dr, 0, r, w);
+    probe.leave(CP_SETUP, t);
+    const int n_trunk = max_iters_for_depth(trunk.depth);
+    int cid = -1;
+    for (int it = 0; !walked && it < n_trunk;) {
+      t = probe.enter(CP_TRUNK);
+      ++it;
+      int child_shift, leaf_rank;
+      const int what = stackless_step(r, w, trunk.masks, trunk.child,
+                                      trunk.parent_ptr, child_shift, leaf_rank);
+      if (what == STEP_LEAF) cid = __ldg(trunk.leaf_base + w.parent) + leaf_rank;
+      walked = what != STEP_ON;
+      probe.leave(CP_TRUNK, t);
+    }
+    if (cid < 0) {  // the trunk misses: the ray ends
+      done = true;
+      break;
+    }
+    const float c_size = __ldg(clip.sizes + cid);
+    float c_org[3], o_loc[3];
+    for (int c = 0; c < 3; ++c) {
+      c_org[c] = __ldg(clip.origins + (size_t)3 * cid + c);
+      o_loc[c] = (o_cur[c] - c_org[c]) / c_size;
+    }
+    float t2;
+    const int leaf = clip_brick_walk<WIDE>(chunks, o_loc, d, dr,
+                                           __ldg(clip.roots + cid), t2, my_row,
+                                           probe);
+    if (leaf >= 0) {
+      hit_leaf = leaf;
+      hit_t = t_off + t2 * c_size;
+      hit_chunk = cid;
+      done = true;
+      break;
+    }
+    // past the chunk's box: the least far-plane t over the axes
+    t = probe.enter(CP_EXIT);
+    float t_exit = INFINITY;
+    for (int c = 0; c < 3; ++c) {
+      const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
+      const float t0 = (c_org[c] - o_cur[c]) / sd;
+      const float t1 = (c_org[c] + c_size - o_cur[c]) / sd;
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
+    t_off = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
+    probe.leave(CP_EXIT, t);
+  }
+  out.hit_leaf[i] = hit_leaf;
+  out.hit_t[i] = hit_t;
+  out.hit_chunk[i] = hit_chunk;
+  out.truncated[i] = done ? 0 : 1;
+  probe.ray();
+}
+
+// clipmap_trace_brick's flat form: one loop whose every turn takes one step
+// of the phase the ray is in, a stackless step of its current walk (the
+// trunk's or the chunk's top tree: one step code over either tree) or a DDA
+// step, and makes the phase's short transitions (a walk's set-up, the
+// descent, the box exit) in the turn that leads to them. A lane that starts
+// its next round or walk does not wait for the warp's slowest walk. Each
+// walk keeps its bounds and each ray its operations, in their order: the
+// same bits as the first form. Set-up once a ray and the staged brick row
+// as in the wide form.
+constexpr int FLAT_TRUNK = 0, FLAT_CHUNK = 1, FLAT_DDA = 2, FLAT_END = 3;
+
+__device__ __forceinline__ void clip_flat_ray(const Tree& trunk,
+                                              const Tree& chunks,
+                                              const Clip& clip,
+                                              const Rays& rays,
+                                              const ClipOut& out, int i,
+                                              int* __restrict__ my_row) {
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = rays.origin[(size_t)3 * i + c];
+    d[c] = rays.direction[(size_t)3 * i + c];
+  }
+  Dir dr;
+  dir_setup(d, dr);
+  const int n_trunk = max_iters_for_depth(trunk.depth);
+  const int n_top = max_iters_for_depth(chunks.top_depth);
+  const int n_rounds = 16 * chunks.depth + 64;
+  const int vshift = S_MAX - chunks.depth;
+  const float vsize = __int_as_float((127 - chunks.depth) << 23);
+  const float bsize = __int_as_float((127 - chunks.top_depth) << 23);
+  int flip[3];
+  for (int c = 0; c < 3; ++c) flip[c] = ((dr.om >> c) & 1) ? 0 : 7;
+
+  float t_off = 0.0f, hit_t = 0.0f;
+  int hit_leaf = -1, hit_chunk = -1;
+  bool done = false;
+  int round = 0, cid = -1, count = 0, rounds = 0;
+  float o_cur[3], c_org[3], c_size = 0.0f, bpos[3], t_cur = 0.0f;
+  const int* row = nullptr;
+  Ray r;
+  Walk w;
+
+  // the next clip round: the trunk's walk from o_cur, or the ray's end
+  auto begin_round = [&]() -> int {
+    if (round >= clip.n_max) return FLAT_END;  // truncated
+    ++round;
+    float o_trunk[3];
+    for (int c = 0; c < 3; ++c) {
+      o_cur[c] = o[c] + t_off * d[c];
+      o_trunk[c] = (o_cur[c] - clip.org[c]) / clip.size;
+    }
+    count = 0;
+    if (setup_dir(o_trunk, dr, 0, r, w)) {  // the trunk misses
+      done = true;
+      return FLAT_END;
+    }
+    return FLAT_TRUNK;
+  };
+  // past the chunk's box, then the next round
+  auto box_exit = [&]() -> int {
+    float t_exit = INFINITY;
+    for (int c = 0; c < 3; ++c) {
+      const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
+      const float t0 = (c_org[c] - o_cur[c]) / sd;
+      const float t1 = (c_org[c] + c_size - o_cur[c]) / sd;
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
+    t_off = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
+    return begin_round();
+  };
+  // the chunk walk's next round of top steps, or its end without a hit
+  auto next_brick_round = [&]() -> int {
+    if (rounds >= n_rounds) return box_exit();
+    ++rounds;
+    count = 0;
+    return FLAT_CHUNK;
+  };
+
+  int phase = begin_round();
+  while (phase != FLAT_END) {
+    if (phase == FLAT_DDA) {
+      ++count;
+      int idx9;
+      const int step = rtt_dda::dda_step(
+          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
+          [my_row](int k) { return (uint32_t)my_row[k]; }, idx9);
+      if (step == rtt_dda::DDA_HIT) {
+        hit_leaf = rtt_dda::leaf_of([my_row](int k) { return my_row[k]; }, idx9);
+        hit_t = t_off + t_cur * c_size;
+        hit_chunk = cid;
+        done = true;
+        break;
+      }
+      if (step == rtt_dda::DDA_EXIT) w.popped = true;
+      if (step != rtt_dda::DDA_STAY || count >= DDA_ROUND_STEPS) {
+        w.t_min = t_cur;
+        phase = next_brick_round();
+      }
+      continue;
+    }
+    // one stackless step of the walk the ray is in
+    const bool in_trunk = phase == FLAT_TRUNK;
+    const Tree& tree = in_trunk ? trunk : chunks;
+    ++count;
+    int child_shift, leaf_rank;
+    const int what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                                    child_shift, leaf_rank);
+    if (in_trunk) {
+      if (what == STEP_LEAF) {  // the next chunk: its walk from its root
+        cid = __ldg(trunk.leaf_base + w.parent) + leaf_rank;
+        c_size = __ldg(clip.sizes + cid);
+        float o_loc[3];
+        for (int c = 0; c < 3; ++c) {
+          c_org[c] = __ldg(clip.origins + (size_t)3 * cid + c);
+          o_loc[c] = (o_cur[c] - c_org[c]) / c_size;
+        }
+        rounds = 0;
+        phase = setup_dir(o_loc, dr, __ldg(clip.roots + cid), r, w)
+                    ? box_exit() : next_brick_round();
+      } else if (what == STEP_EXIT || count >= n_trunk) {  // the trunk misses
+        done = true;
+        phase = FLAT_END;
+      }
+    } else if (what == STEP_LEAF) {  // parked: descend into the brick
+      row = chunks.bricks +
+            (size_t)(__ldg(chunks.child + w.parent) + leaf_rank) * ROW_WORDS;
+      int v[ROW_WORDS];
+      for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
+      for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
+      for (int c = 0; c < 3; ++c) bpos[c] = w.pos[c];
+      t_cur = w.t_min;
+      rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
+      count = 0;
+      phase = FLAT_DDA;
+    } else if (what == STEP_EXIT) {
+      phase = box_exit();
+    } else if (count >= n_top) {  // the round's step cap
+      phase = next_brick_round();
+    }
+  }
+  out.hit_leaf[i] = hit_leaf;
+  out.hit_t[i] = hit_t;
+  out.hit_chunk[i] = hit_chunk;
+  out.truncated[i] = done ? 0 : 1;
+}
+
+__global__ void __launch_bounds__(WIDE_BLOCK)
+clipmap_trace_brick_flat_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                                ClipOut out) {
+  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n)
+    clip_flat_ray(trunk, chunks, clip, rays, out, i, staged + threadIdx.x * ROW_WORDS);
+}
+
+// clipmap_trace_brick's wide form: a thread a ray in blocks of WIDE_BLOCK.
+__global__ void __launch_bounds__(WIDE_BLOCK)
+clipmap_trace_brick_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                           ClipOut out) {
+  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
+  Probe<false, CP_PHASES> probe;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n)
+    clip_brick_ray<true>(trunk, chunks, clip, rays, out, i,
+                         staged + threadIdx.x * ROW_WORDS, probe);
+}
+
+// Either form with the counters: the wide form in its blocks, the first in
+// blocks of BLOCK.
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? WIDE_BLOCK : BLOCK)
+clipmap_trace_brick_probe_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                           ClipOut out, long long* __restrict__ probe_out) {
+  __shared__ int staged[WIDE ? WIDE_BLOCK * ROW_WORDS : 1];
+  Probe<true, CP_PHASES> probe;
+  probe.begin();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n)
+    clip_brick_ray<WIDE>(trunk, chunks, clip, rays, out, i,
+                         staged + (WIDE ? threadIdx.x * ROW_WORDS : 0), probe);
+  probe.finish(probe_out);
+}
+
 // ---- the level-sharded renderer: level_round ---------------------------------
 //
 // One round of the level-sharded traces (raytracingtest_tpu/parallel/
@@ -2025,17 +2460,26 @@ extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
 }
 
 // The same with the chunk's walk through the brick arena (top_masks,
-// top_child, top_parent, bricks; chunk_depth, top depth chunk_depth - 3).
-extern "C" int clipmap_trace_brick(
-    const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
-    const void* trunk_leaf, const void* roots, const void* origins,
-    const void* sizes, float org_x, float org_y, float org_z, float size,
-    const void* top_masks, const void* top_child, const void* top_parent,
-    const void* bricks, const void* origin, const void* direction, int n,
-    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
-    void* hit_chunk, void* truncated, void* stream) {
+// top_child, top_parent, bricks; chunk_depth, top depth chunk_depth - 3), in
+// `form`: FORM_WIDE (clipmap_trace_brick_kernel, the main path's) or
+// FORM_FIRST (clipmap_trace_kernel<true>); with `probe` (CP_PHASES' record,
+// 6 + 3 CP_PHASES int64 words a warp of the form's blocks) the form's probe
+// kernel.
+static int clipmap_brick_launch(int form, const void* trunk_masks,
+                         const void* trunk_child, const void* trunk_parent,
+                         const void* trunk_leaf, const void* roots,
+                         const void* origins, const void* sizes, float org_x,
+                         float org_y, float org_z, float size,
+                         const void* top_masks, const void* top_child,
+                         const void* top_parent, const void* bricks,
+                         const void* origin, const void* direction, int n,
+                         int trunk_depth, int chunk_depth, int n_max,
+                         void* hit_leaf, void* hit_t, void* hit_chunk,
+                         void* truncated, void* probe, void* stream) {
   if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 4 ||
-      chunk_depth > S_MAX - 1 || n_max < 0)
+      chunk_depth > S_MAX - 1 || n_max < 0 ||
+      (form != FORM_FIRST && form != FORM_WIDE && form != FORM_FLAT) ||
+      (form == FORM_FLAT && probe != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
@@ -2046,13 +2490,77 @@ extern "C" int clipmap_trace_brick(
                       chunk_depth, chunk_depth - 3};
     const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
                     {org_x, org_y, org_z}, size, n_max};
-    clipmap_trace_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0,
-                                 (cudaStream_t)stream>>>(
-        trunk, chunks, clip, Rays{(const float*)origin, (const float*)direction, n},
-        ClipOut{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
-                (unsigned char*)truncated});
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const ClipOut out{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
+                      (unsigned char*)truncated};
+    const cudaStream_t st = (cudaStream_t)stream;
+    long long* rec = (long long*)probe;
+    if (form == FORM_FLAT)
+      clipmap_trace_brick_flat_kernel<<<blocks_for(n, WIDE_BLOCK), WIDE_BLOCK, 0,
+                                        st>>>(trunk, chunks, clip, rays, out);
+    else if (form == FORM_WIDE && rec == nullptr)
+      clipmap_trace_brick_kernel<<<blocks_for(n, WIDE_BLOCK), WIDE_BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out);
+    else if (form == FORM_WIDE)
+      clipmap_trace_brick_probe_kernel<true><<<blocks_for(n, WIDE_BLOCK), WIDE_BLOCK, 0,
+                                         st>>>(trunk, chunks, clip, rays, out, rec);
+    else if (rec == nullptr)
+      clipmap_trace_kernel<true><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out);
+    else
+      clipmap_trace_brick_probe_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out, rec);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int clipmap_trace_brick(
+    const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
+    const void* trunk_leaf, const void* roots, const void* origins,
+    const void* sizes, float org_x, float org_y, float org_z, float size,
+    const void* top_masks, const void* top_child, const void* top_parent,
+    const void* bricks, const void* origin, const void* direction, int n,
+    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
+    void* hit_chunk, void* truncated, void* stream) {
+  return clipmap_brick_launch(FORM_WIDE, trunk_masks, trunk_child, trunk_parent, trunk_leaf,
+                              roots, origins, sizes, org_x, org_y, org_z, size,
+                              top_masks, top_child, top_parent, bricks, origin,
+                              direction, n, trunk_depth, chunk_depth, n_max,
+                              hit_leaf, hit_t, hit_chunk, truncated, nullptr, stream);
+}
+
+// clipmap_trace_brick's other forms (FORM_FIRST, the check and the
+// yardstick; FORM_FLAT).
+extern "C" int clipmap_trace_brick_serial(
+    int form, const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
+    const void* trunk_leaf, const void* roots, const void* origins,
+    const void* sizes, float org_x, float org_y, float org_z, float size,
+    const void* top_masks, const void* top_child, const void* top_parent,
+    const void* bricks, const void* origin, const void* direction, int n,
+    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
+    void* hit_chunk, void* truncated, void* stream) {
+  return clipmap_brick_launch(form, trunk_masks, trunk_child, trunk_parent, trunk_leaf,
+                              roots, origins, sizes, org_x, org_y, org_z, size,
+                              top_masks, top_child, top_parent, bricks, origin,
+                              direction, n, trunk_depth, chunk_depth, n_max,
+                              hit_leaf, hit_t, hit_chunk, truncated, nullptr, stream);
+}
+
+// Either form (FORM_FIRST, FORM_WIDE) with the counters at `probe`.
+extern "C" int clipmap_trace_brick_probe(
+    int form, const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
+    const void* trunk_leaf, const void* roots, const void* origins,
+    const void* sizes, float org_x, float org_y, float org_z, float size,
+    const void* top_masks, const void* top_child, const void* top_parent,
+    const void* bricks, const void* origin, const void* direction, int n,
+    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
+    void* hit_chunk, void* truncated, void* probe, void* stream) {
+  if (probe == nullptr || form == FORM_FLAT) return (int)cudaErrorInvalidValue;
+  return clipmap_brick_launch(form, trunk_masks, trunk_child, trunk_parent, trunk_leaf,
+                              roots, origins, sizes, org_x, org_y, org_z, size,
+                              top_masks, top_child, top_parent, bricks, origin,
+                              direction, n, trunk_depth, chunk_depth, n_max,
+                              hit_leaf, hit_t, hit_chunk, truncated, probe, stream);
 }
 
 // One round of the level-sharded traces (see level_round_kernel), `mode`

@@ -287,28 +287,66 @@ __device__ __noinline__ float simplex_ref(float x, float y, float z,
                              (double)(zf * 6.f), t);
 }
 
+// ---- the heightfields: f = y - h(x, z) ------------------------------------
+// flat_ground, simplex, terrain and perlin are heightfields: their noise is
+// taken at y = 0 (scenes.py), so h depends on the column (x, z) alone. Each
+// height is its scene's float32 operations before the final `y -`, in their
+// order, so y - height(id, x, z) is eval's value bit for bit; the builder
+// (svo_build.cu) evaluates h once a column and forms y - h a child. The
+// other ids are 3-D scenes (ops/octree_cuda.py's HEIGHTFIELDS names the
+// four).
+
+constexpr float NOISE_FREQ = 4.f, NOISE_AMP = (float)0.12,
+                NOISE_BASE = (float)0.45, FLAT_HEIGHT = (float)0.30;
+
+__device__ __forceinline__ float simplex_height(float x, float z) {
+  return NOISE_BASE + NOISE_AMP * noise3(x * NOISE_FREQ, 0.f, z * NOISE_FREQ, 0u);
+}
+
+__device__ __forceinline__ float terrain_height(float x, float z) {
+  return NOISE_BASE + NOISE_AMP * fbm3(x * NOISE_FREQ, 0.f, z * NOISE_FREQ, 0u, 2);
+}
+
+__device__ __forceinline__ float perlin_height(float x, float z) {
+  return NOISE_BASE + NOISE_AMP * perlin_fbm3(x * NOISE_FREQ, 0.f, z * NOISE_FREQ, 2);
+}
+
+// h of heightfield `id` (FLAT_GROUND, SIMPLEX, TERRAIN or PERLIN) at column
+// (x, z)
+__device__ __forceinline__ float height(int id, float x, float z) {
+  switch (id) {
+    case FLAT_GROUND:
+      return FLAT_HEIGHT;
+    case SIMPLEX:
+      return simplex_height(x, z);
+    case TERRAIN:
+      return terrain_height(x, z);
+    default:  // PERLIN
+      return perlin_height(x, z);
+  }
+}
+
 // the density of scene `id` at (x, y, z); <= 0 is solid
 __device__ __forceinline__ float eval(int id, float x, float y, float z,
                                       const Tables t) {
-  const float freq = 4.f, amp = (float)0.12, base = (float)0.45;
   switch (id) {
     case FLAT_GROUND:
-      return y - (float)0.30;
+      return y - FLAT_HEIGHT;
     case SPHERE:
       return sqrtf(sq(x - 0.5f) + sq(y - 0.5f) + sq(z - 0.5f)) - (float)0.30;
     case SIMPLEX:
-      return y - (base + amp * noise3(x * freq, 0.f, z * freq, 0u));
+      return y - simplex_height(x, z);
     case ROTATED_CUBOID:
       return rotated_cuboid(x, y, z);
     case TERRAIN:
-      return y - (base + amp * fbm3(x * freq, 0.f, z * freq, 0u, 2));
+      return y - terrain_height(x, z);
     case DENSE_CUBE: {
       const float ax = fabsf(x - 0.5f), ay = fabsf(y - 0.5f),
                   az = fabsf(z - 0.5f);
       return vmax(ax, vmax(ay, az)) - 0.25f;
     }
     case PERLIN:
-      return y - (base + amp * perlin_fbm3(x * freq, 0.f, z * freq, 2));
+      return y - perlin_height(x, z);
     case TERRAIN_REF:
       return terrain_ref(x, y, z, t);
     default:  // SIMPLEX_REF; the wrapper passes only ids below N_SCENES

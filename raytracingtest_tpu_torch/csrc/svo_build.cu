@@ -3,12 +3,30 @@
 // library scene.cuh. ops/octree_device.py (build_svo_device) drives them
 // level by level; ops/octree_cuda.py holds their wrappers and plain versions.
 //
-//   svo_expand     replaces _expand_eval (:57), phase A: a thread per child
-//                  of a parent candidate. The child's coordinates in Morton
-//                  child order (x fastest, parent-major), the scene at its
-//                  centre, the Lipschitz keep test against the level's two
-//                  float32 thresholds, the child's record (x, y, z, f bits)
-//                  and keep flag, and the block's kept count.
+//   svo_columns and svo_expand replace _expand_eval (:57), phase A.
+//                  svo_expand: a thread per child of a parent candidate. The
+//                  child's coordinates in Morton child order (x fastest,
+//                  parent-major), the scene at its centre, the Lipschitz
+//                  keep test against the level's two float32 thresholds,
+//                  the child's record (x, y, z, f bits) and keep flag, and
+//                  the block's kept count. For a heightfield (f = y - h(x,
+//                  z): flat_ground, simplex, terrain, perlin; scene.cuh) the
+//                  scene is not evaluated a child: svo_columns first
+//                  evaluates h once a child column of the level, into a
+//                  dense table over the square of columns the build can
+//                  reach there (the whole world's 2^level wide, an octant
+//                  build's 2^(level - root_level) from its corner), and
+//                  the child's f is py - h[column], the same float32
+//                  operations on the same operands as scene::eval's, so the
+//                  same bits. svo_columns evaluates every column of the
+//                  square, or, in its flagged form, only the columns under
+//                  the parents (each parent flags its column; the wrapper
+//                  takes the flagged form where the parents cannot cover
+//                  the square). A 3-D scene is evaluated a child, by
+//                  svo_expand_kernel.
+//   svo_expand_serial  the expansion's first form: svo_expand_kernel for
+//                  every scene, the scene evaluated at every child (PR 14's
+//                  kernel, its code kept); on no build's path.
 //   svo_compact    replaces _compact (:80), _compact_merged (:94) and every
 //                  jnp.flatnonzero of the assembly and of phase D: a stable
 //                  compaction of the flagged rows, each kept row's index and
@@ -77,10 +95,13 @@
 //                  against the host's scenes. No build launches it.
 //
 // One thread an element in blocks of 256. What bounds them on this card:
-// svo_expand, svo_leaf_attrs and svo_leaves_serial the scene's arithmetic
-// (some 780 operations a `terrain` evaluation, scene.cuh) against 16 B read
-// and 17 B written a child (a parent record is read by its eight children
-// through L1); svo_leaves its reads of the uncompacted records and of the
+// svo_expand_serial, svo_leaf_attrs and svo_leaves_serial the scene's
+// arithmetic (some 780 operations a `terrain` evaluation, scene.cuh; with
+// --fmad=false every add and multiply takes its own issue slot) against
+// 16 B read and 17 B written a child (a parent record is read by its eight
+// children through L1); svo_expand over a heightfield's columns its 17 B
+// written a child (at depth 10, 27.7 M children over at most 2^20 columns,
+// each evaluated once); svo_leaves its reads of the uncompacted records and of the
 // parents its searches visit, and the few evaluations left; the rest
 // bytes: svo_compact reads a flag and writes (1 + width) words a kept
 // row, svo_level_up reads three words and makes two integer atomics a
@@ -118,6 +139,66 @@ __global__ void __launch_bounds__(BLOCK)
     const float py = ((float)cy + 0.5f) * scale;
     const float pz = ((float)cz + 0.5f) * scale;
     const float f = scene::eval(scene_id, px, py, pz, tables);
+    kept = (f <= thr_hi) && (f >= thr_lo);
+    rec[i] = make_int4(cx, cy, cz, __float_as_int(f));
+    keep[i] = (unsigned char)kept;
+  }
+  const int total = __syncthreads_count(kept);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// ---- svo_columns, svo_expand over a heightfield's columns ------------------
+
+// The flagged form's flags: each parent (at level - 1) flags its column of
+// the square's half-resolution grid, (side / 2)^2 bytes zeroed before; its
+// four child columns are then the ones svo_columns evaluates.
+__global__ void __launch_bounds__(BLOCK)
+    svo_column_flags_kernel(const int4* __restrict__ parents, int n_p, int x0,
+                            int z0, int side, unsigned char* __restrict__ flags) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n_p) return;
+  const int4 p = __ldg(parents + i);
+  flags[(size_t)(p.z - (z0 >> 1)) * (side >> 1) + (p.x - (x0 >> 1))] = 1;
+}
+
+// h at each column (x0 + jx, z0 + jz) of the side x side square, row jz;
+// with flags, NaN at the columns no parent flagged.
+__global__ void __launch_bounds__(BLOCK)
+    svo_columns_kernel(int x0, int z0, int side, float scale, int scene_id,
+                       const unsigned char* __restrict__ flags,
+                       float* __restrict__ h) {
+  const int j = blockIdx.x * BLOCK + threadIdx.x;
+  if (j >= side * side) return;
+  const int jx = j & (side - 1), jz = j / side;
+  float v = __int_as_float(0x7fc00000);
+  if (flags == nullptr || flags[(size_t)(jz >> 1) * (side >> 1) + (jx >> 1)]) {
+    // the child centre's x and z, as svo_expand_kernel makes them
+    const float px = ((float)(x0 + jx) + 0.5f) * scale;
+    const float pz = ((float)(z0 + jz) + 0.5f) * scale;
+    v = scene::height(scene_id, px, pz);
+  }
+  h[j] = v;
+}
+
+// svo_expand_kernel over a heightfield's column table h: f = py - h, no
+// scene code.
+__global__ void __launch_bounds__(BLOCK)
+    svo_expand_columns_kernel(const int4* __restrict__ parents, int n,
+                              float scale, float thr_hi, float thr_lo,
+                              const float* __restrict__ h, int x0, int z0,
+                              int side, int4* __restrict__ rec,
+                              unsigned char* __restrict__ keep,
+                              int* __restrict__ counts) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  int kept = 0;
+  if (i < n) {
+    const int4 p = __ldg(parents + (i >> 3));
+    const int s = i & 7;
+    const int cx = p.x * 2 + (s & 1);
+    const int cy = p.y * 2 + ((s >> 1) & 1);
+    const int cz = p.z * 2 + ((s >> 2) & 1);
+    const float py = ((float)cy + 0.5f) * scale;
+    const float f = py - __ldg(h + (size_t)(cz - z0) * side + (cx - x0));
     kept = (f <= thr_hi) && (f >= thr_lo);
     rec[i] = make_int4(cx, cy, cz, __float_as_int(f));
     keep[i] = (unsigned char)kept;
@@ -478,12 +559,67 @@ bool bad_scene(int scene_id) {
 // have ceil(n / BLOCK) entries, and svo_compact reads block_base at the same
 // blocks.
 
+// The heightfield's h at the columns of the side x side square from (x0, z0)
+// at the level whose cells are `scale` wide: every column, or, with `flags`
+// (scratch of (side / 2)^2 bytes), the columns under the n_p parents and NaN
+// elsewhere. side is a power of two from 2; scene_id a heightfield's.
+extern "C" int svo_columns(const void* parents, int n_p, int x0, int z0,
+                           int side, float scale, int scene_id, void* flags,
+                           void* h, void* stream) {
+  const bool heightfield = scene_id == scene::FLAT_GROUND ||
+                           scene_id == scene::SIMPLEX ||
+                           scene_id == scene::TERRAIN || scene_id == scene::PERLIN;
+  if (n_p < 0 || side < 2 || (side & (side - 1)) || side > 32768 ||
+      !heightfield || (x0 & 1) || (z0 & 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (flags != nullptr) {
+    const size_t n_flags = (size_t)(side >> 1) * (side >> 1);
+    const cudaError_t e = cudaMemsetAsync(flags, 0, n_flags, st);
+    if (e != cudaSuccess) return (int)e;
+    if (n_p > 0)
+      svo_column_flags_kernel<<<blocks_for(n_p), BLOCK, 0, st>>>(
+          (const int4*)parents, n_p, x0, z0, side, (unsigned char*)flags);
+  }
+  svo_columns_kernel<<<blocks_for((long long)side * side), BLOCK, 0, st>>>(
+      x0, z0, side, scale, scene_id, (const unsigned char*)flags, (float*)h);
+  return (int)cudaGetLastError();
+}
+
+// h: null for a 3-D scene (the scene evaluated a child, svo_expand_kernel),
+// else svo_columns' table of the side x side square from (x0, z0), which
+// covers every child's column.
 extern "C" int svo_expand(const void* parents, int n_children, float scale,
                           float thr_hi, float thr_lo, int scene_id,
                           const void* perm, const void* perm3d,
                           const void* lut_d, const void* lut_sb,
-                          const void* grads, void* rec, void* keep,
-                          void* counts, void* stream) {
+                          const void* grads, const void* h, int x0, int z0,
+                          int side, void* rec, void* keep, void* counts,
+                          void* stream) {
+  if (n_children < 0 || bad_scene(scene_id)) return (int)cudaErrorInvalidValue;
+  if (n_children == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (h == nullptr)
+    svo_expand_kernel<<<blocks_for(n_children), BLOCK, 0, st>>>(
+        (const int4*)parents, n_children, scale, thr_hi, thr_lo, scene_id,
+        make_tables(perm, perm3d, lut_d, lut_sb, grads), (int4*)rec,
+        (unsigned char*)keep, (int*)counts);
+  else
+    svo_expand_columns_kernel<<<blocks_for(n_children), BLOCK, 0, st>>>(
+        (const int4*)parents, n_children, scale, thr_hi, thr_lo,
+        (const float*)h, x0, z0, side, (int4*)rec, (unsigned char*)keep,
+        (int*)counts);
+  return (int)cudaGetLastError();
+}
+
+// The expansion's first form: the scene evaluated at every child.
+extern "C" int svo_expand_serial(const void* parents, int n_children,
+                                 float scale, float thr_hi, float thr_lo,
+                                 int scene_id, const void* perm,
+                                 const void* perm3d, const void* lut_d,
+                                 const void* lut_sb, const void* grads,
+                                 void* rec, void* keep, void* counts,
+                                 void* stream) {
   if (n_children < 0 || bad_scene(scene_id)) return (int)cudaErrorInvalidValue;
   if (n_children == 0) return (int)cudaGetLastError();
   svo_expand_kernel<<<blocks_for(n_children), BLOCK, 0, (cudaStream_t)stream>>>(

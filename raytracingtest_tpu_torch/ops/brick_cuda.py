@@ -42,6 +42,12 @@ what each does, and PERF.md what it measured):
 (``clipmap_trace``, or with a brick arena ``clipmap_trace_brick``): the
 rounds of ``stream/clipmap.py``'s ``trace_clipmap_device`` and
 ``trace_clipmap_device_brick``, whose plain versions are in that module.
+``clipmap_trace_brick``'s ``wide`` form is the main path's: the direction's
+set-up made once a ray, the chunk's walk the wide brick trace's (blocks of
+256, the parked brick's row staged in shared memory); its ``first`` form
+(``clipmap_kernel(..., form="first")``; one thread a ray in blocks of 128)
+is the check and the yardstick. ``probe_clipmap_brick`` runs either form
+with per-warp counters over ``CLIP_PHASES`` (``CLIP_PROBE_FIELDS``).
 
 ``level_round_kernel`` launches one round of the level-sharded traces
 (``level_round``, in its three modes), whose loops and plain version are in
@@ -88,10 +94,11 @@ launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "level_round_sharded": 0, "level_round_trunk": 0,
             "level_round_packets": 0, "level_queue": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
-                 "brick_trace_multi_serial": 0, "level_round_serial": 0}
+                 "brick_trace_multi_serial": 0, "level_round_serial": 0,
+                 "clipmap_trace_brick_serial": 0, "clipmap_trace_brick_flat": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
-                  "level_round_probe": 0}
+                  "level_round_probe": 0, "clipmap_trace_brick_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
 _ESVO_STACKLESS_PROBE = Kernel("esvo_stackless_probe", brick_lib)
@@ -108,6 +115,8 @@ _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
+_CLIPMAP_TRACE_BRICK_SERIAL = Kernel("clipmap_trace_brick_serial", brick_lib)
+_CLIPMAP_TRACE_BRICK_PROBE = Kernel("clipmap_trace_brick_probe", brick_lib)
 _LEVEL_ROUND = Kernel("level_round", brick_lib)
 _LEVEL_ROUND_SERIAL = Kernel("level_round_serial", brick_lib)
 _LEVEL_ROUND_PROBE = Kernel("level_round_probe", brick_lib)
@@ -126,9 +135,11 @@ QBLOCK = 256
 FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("first",),
          "brick_trace_multi": ("staged", "first"),
-         "esvo_stackless_multi": ("first",)}
-FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
-BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
+         "esvo_stackless_multi": ("first",),
+         "clipmap_trace_brick": ("wide", "first", "flat"),
+         "clipmap_trace": ("first",)}
+FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3, "flat": 4}
+BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32, "flat": 256}
 
 # brick_trace_multi's staged form takes k up to STAGED_MAX_K: a block of
 # 32 rays (csrc/brick_trace.cu's MULTI_BLOCK: the fastest block from k = 8
@@ -147,6 +158,17 @@ PROBE_FIELDS = (("start", "end", "rays")
                 + tuple(f"{ph}_{what}" for ph in PHASES
                         for what in ("issues", "lanes", "cycles"))
                 + ("sm", "ns_start", "ns_end"))
+
+
+# the stitched brick trace's probe record (csrc/brick_trace.cu's CP_*): the
+# same layout over seven phases, a trunk step, a walk's set-up, a chunk's
+# top step, the descent into a brick, a DDA step, the box exit, and a round
+# (its lanes sum the rays' rounds)
+CLIP_PHASES = ("trunk", "setup", "top", "descent", "dda", "exit", "round")
+CLIP_PROBE_FIELDS = (("start", "end", "rays")
+                     + tuple(f"{ph}_{what}" for ph in CLIP_PHASES
+                             for what in ("issues", "lanes", "cycles"))
+                     + ("sm", "ns_start", "ns_end"))
 
 
 def warps_of(n: int, form: str) -> int:
@@ -510,18 +532,11 @@ def trace_brick_lod_cuda(bsvo, origin, direction, coef, bias=0.0,
     return (res, stats) if with_stats else res
 
 
-def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
-                   direction, chunk_depth, n_max):
-    """Launch ``clipmap_trace`` (`arena` an SVO of the node arena: masks,
-    child_base, parent_ptr, leaf_base) or ``clipmap_trace_brick`` (`arena`
-    a BrickSVO of the brick arena) on (N, 3) float32 CUDA rays in world
-    coordinates: at most `n_max` rounds of the trunk's walk (`trunk` an SVO
-    with parent_ptr; its world corner `org` and size `size`, Python floats
-    rounded to float32 here) and the chunk's walk from roots[chunk] (chunk
-    tables (C,) int32 `roots`, (C, 3) float32 `origins`, (C,) float32
-    `sizes`). Returns (hit_leaf, hit_t, hit_chunk, truncated (bool))."""
+def _clip_args(kernel, trunk, org, size, roots, origins, sizes, arena, origin,
+               direction, chunk_depth, n_max):
+    """Check one stitched trace's tensors for `kernel`; returns (its
+    arguments up to the outputs, the outputs)."""
     brick_arena = isinstance(arena, brick.BrickSVO)
-    kernel = _CLIPMAP_TRACE_BRICK if brick_arena else _CLIPMAP_TRACE
     n, rays = _rays(origin, direction)
     c = roots.shape[0]
     trunk_pptr = traverse.parent_ptr_of(trunk)
@@ -555,14 +570,66 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
            torch.empty(n, dtype=_I32, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev))
     f32 = lambda v: float(np.float32(v))
-    kernel(dev, trunk.masks.data_ptr(), trunk.child_base.data_ptr(),
-           trunk_pptr.data_ptr(), trunk.leaf_base.data_ptr(), roots.data_ptr(),
-           origins.data_ptr(), sizes.data_ptr(), *(f32(v) for v in org), f32(size),
-           *(t.data_ptr() for t in chunk_ptrs), origin.data_ptr(),
-           direction.data_ptr(), n, trunk.depth, chunk_depth, n_max,
-           *(t.data_ptr() for t in out))
-    launches["clipmap_trace_brick" if brick_arena else "clipmap_trace"] += 1
+    head = (trunk.masks.data_ptr(), trunk.child_base.data_ptr(), trunk_pptr.data_ptr(),
+            trunk.leaf_base.data_ptr(), roots.data_ptr(), origins.data_ptr(),
+            sizes.data_ptr(), *(f32(v) for v in org), f32(size),
+            *(t.data_ptr() for t in chunk_ptrs), origin.data_ptr(),
+            direction.data_ptr(), n, trunk.depth, chunk_depth, n_max,
+            *(t.data_ptr() for t in out))
+    return head, out
+
+
+def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
+                   direction, chunk_depth, n_max, form=None):
+    """Launch ``clipmap_trace`` (`arena` an SVO of the node arena: masks,
+    child_base, parent_ptr, leaf_base) or ``clipmap_trace_brick`` (`arena`
+    a BrickSVO of the brick arena) on (N, 3) float32 CUDA rays in world
+    coordinates: at most `n_max` rounds of the trunk's walk (`trunk` an SVO
+    with parent_ptr; its world corner `org` and size `size`, Python floats
+    rounded to float32 here) and the chunk's walk from roots[chunk] (chunk
+    tables (C,) int32 `roots`, (C, 3) float32 `origins`, (C,) float32
+    `sizes`). `form`: one of the kernel's FORMS, None for the main path's
+    (``clipmap_trace_brick``'s wide form; its first form, "first", is the
+    check and the yardstick). Returns (hit_leaf, hit_t, hit_chunk,
+    truncated (bool))."""
+    kname = ("clipmap_trace_brick" if isinstance(arena, brick.BrickSVO)
+             else "clipmap_trace")
+    form = FORMS[kname][0] if form is None else form
+    _form(kname, form)
+    main = form == FORMS[kname][0]
+    kernel = (_CLIPMAP_TRACE if kname == "clipmap_trace" else
+              _CLIPMAP_TRACE_BRICK if main else _CLIPMAP_TRACE_BRICK_SERIAL)
+    head, out = _clip_args(kernel, trunk, org, size, roots, origins, sizes, arena,
+                           origin, direction, chunk_depth, n_max)
+    if main:
+        kernel(origin.device, *head)
+        launches[kname] += 1
+    else:
+        kernel(origin.device, FORM_CODES[form], *head)
+        form_launches["clipmap_trace_brick_serial" if form == "first"
+                      else "clipmap_trace_brick_" + form] += 1
     return out
+
+
+def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
+                        direction, chunk_depth, n_max, form):
+    """``clipmap_trace_brick`` in `form` ("wide" or "first") with per-warp
+    counters, on CUDA rays (the arguments of ``clipmap_kernel``, `arena` a
+    BrickSVO). Returns (its results, record (warps, len(CLIP_PROBE_FIELDS))
+    int64), for measurement only."""
+    code = _form("clipmap_trace_brick", form)
+    if form not in ("wide", "first"):
+        raise ValueError(f"probe_clipmap_brick: form {form!r} has no probe")
+    if not isinstance(arena, brick.BrickSVO):
+        raise ValueError("probe_clipmap_brick takes the brick arena")
+    head, out = _clip_args(_CLIPMAP_TRACE_BRICK_PROBE, trunk, org, size, roots,
+                           origins, sizes, arena, origin, direction, chunk_depth,
+                           n_max)
+    record = torch.zeros((warps_of(origin.shape[0], form), len(CLIP_PROBE_FIELDS)),
+                         dtype=torch.int64, device=origin.device)
+    _CLIPMAP_TRACE_BRICK_PROBE(origin.device, code, *head, record.data_ptr())
+    probe_launches["clipmap_trace_brick_probe"] += 1
+    return out, record
 
 
 def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,

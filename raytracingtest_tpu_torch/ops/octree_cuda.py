@@ -3,8 +3,17 @@
 Counterpart of the XLA programs of ``raytracingtest_tpu/ops/octree_device.py``
 (K7), which ``ops/octree_device.py`` drives level by level:
 
+  * ``columns``     (``svo_columns``): a heightfield's h(x, z) once a child
+                    column of the level (``HEIGHTFIELDS``), in a dense table
+                    over the square the build reaches there
+                    (``column_square``); None for a 3-D scene.
   * ``expand``      (``svo_expand``): a level's children, the scene at their
-                    centres and the keep test; records (x, y, z, f bits).
+                    centres (y - h from the column table for a heightfield,
+                    the scene itself for a 3-D scene) and the keep test;
+                    records (x, y, z, f bits).
+  * ``expand_serial`` (``svo_expand_serial``): the expansion's first form,
+                    the scene evaluated at every child; off the build's
+                    path.
   * ``count`` and ``compact`` (``svo_compact``, count and place modes): the
                     blocks' counts of flagged rows, and a stable compaction
                     of the flagged rows' indices and record words.
@@ -37,6 +46,7 @@ and nothing falls back to the host.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,14 +68,20 @@ BIG = 2 ** 31 - 1
 SCENE_IDS = {"flat_ground": 0, "sphere": 1, "simplex": 2, "rotated_cuboid": 3,
              "terrain": 4, "dense_cube": 5, "perlin": 6, "terrain_ref": 7,
              "simplex_ref": 8}
+# the heightfields among them, f = y - h(x, z) (scene.cuh's height): their
+# expansion evaluates h once a column; the others are 3-D scenes
+HEIGHTFIELDS = ("flat_ground", "simplex", "terrain", "perlin")
 
 # kernel launches made by this process, by kernel (a launch of either mode
 # of svo_compact counts once)
-launches = {"svo_expand": 0, "svo_compact": 0, "svo_leaves": 0,
-            "svo_leaf_attrs": 0, "svo_leaves_serial": 0, "svo_level_up": 0,
-            "svo_parent_ptr": 0, "scene_eval": 0}
+launches = {"svo_columns": 0, "svo_expand": 0, "svo_expand_serial": 0,
+            "svo_compact": 0, "svo_leaves": 0, "svo_leaf_attrs": 0,
+            "svo_leaves_serial": 0, "svo_level_up": 0, "svo_parent_ptr": 0,
+            "scene_eval": 0}
 
+_SVO_COLUMNS = Kernel("svo_columns", svo_lib)
 _SVO_EXPAND = Kernel("svo_expand", svo_lib)
+_SVO_EXPAND_SERIAL = Kernel("svo_expand_serial", svo_lib)
 _SVO_COMPACT = Kernel("svo_compact", svo_lib)
 _SVO_LEAVES = Kernel("svo_leaves", svo_lib)
 _SVO_LEAF_ATTRS = Kernel("svo_leaf_attrs", svo_lib)
@@ -147,11 +163,95 @@ def _centres(coords, scale):
             for a in range(3)]
 
 
+# ---- svo_columns ----------------------------------------------------------------
+
+class Columns(NamedTuple):
+    """A heightfield's h at the child columns of a level: `h` (side * side,)
+    float32, column (x0 + jx, z0 + jz) at jz * side + jx, NaN where it was
+    not evaluated; `flagged`: only the columns under the level's parents
+    were."""
+
+    h: torch.Tensor
+    x0: int
+    z0: int
+    side: int
+    flagged: bool
+
+
+def column_square(level: int, root_level: int = 0, root_coord=(0, 0, 0)):
+    """(x0, z0, side): the square of columns at `level` that a build rooted
+    at the cell `root_coord` of `root_level` reaches (the whole world's
+    2^level at root level 0)."""
+    k = level - root_level
+    if k < 1:
+        raise ValueError(f"level {level} is not below the root's {root_level}")
+    return int(root_coord[0]) << k, int(root_coord[2]) << k, 1 << k
+
+
+def _column_flags(parents, x0, z0, side):
+    """The flagged form's columns: (side * side,) bool, the four child
+    columns of each parent's column."""
+    dev = parents.device
+    half = side >> 1
+    flags = torch.zeros(half * half, dtype=torch.bool, device=dev)
+    p = parents[:, :3].long()
+    flags[(p[:, 2] - (z0 >> 1)) * half + (p[:, 0] - (x0 >> 1))] = True
+    j = torch.arange(side * side, device=dev)
+    return flags[(j // side >> 1) * half + ((j % side) >> 1)]
+
+
+def columns_plain(scene, parents, level, square, flagged):
+    """Plain version of ``columns`` at `square` (``column_square``'s): the
+    host scene at y = 0, where a heightfield's f is 0 - h, negated (both
+    exact)."""
+    x0, z0, side = square
+    dev = parents.device
+    todo = (_column_flags(parents.cpu(), x0, z0, side) if flagged
+            else torch.ones(side * side, dtype=torch.bool))
+    j = torch.nonzero(todo).reshape(-1)
+    cols = torch.stack([x0 + j % side, torch.zeros_like(j), z0 + j // side], 1)
+    px, py, pz = _centres(cols, np.float32(2.0 ** (-level)))
+    h = torch.full((side * side,), float("nan"), dtype=_F32)
+    if j.numel():
+        f0 = np.asarray(scene(px, np.zeros_like(py), pz), np.float32)
+        h[j] = torch.from_numpy(-f0)
+    return Columns(h.to(dev), x0, z0, side, flagged)
+
+
+def columns(ds: DeviceScene, parents, level: int, root_level: int = 0,
+            root_coord=(0, 0, 0), flagged=None):
+    """The heightfield's h at the child columns of `level` under the (n_p,
+    4) int32 parents (records at level - 1) of a build rooted at
+    `root_coord` of `root_level`, or None for a 3-D scene. The table covers
+    the square the build reaches (``column_square``): all of it, or, when
+    `flagged` (by default where the parents cannot cover the square, side^2
+    > 4 n_p), the columns under the parents alone."""
+    if ds.scene.name not in HEIGHTFIELDS:
+        return None
+    x0, z0, side = column_square(level, root_level, root_coord)
+    n_p = parents.shape[0]
+    if flagged is None:
+        flagged = side * side > 4 * n_p
+    if parents.device.type == "cpu":
+        return columns_plain(ds.scene, parents, level, (x0, z0, side), flagged)
+    dev = parents.device
+    _check_count(side * side, "svo_columns")
+    _SVO_COLUMNS.check(dev, (("parents", parents, _I32, (n_p, 4)),))
+    h = torch.empty(side * side, dtype=_F32, device=dev)
+    scratch = (torch.empty((side >> 1) ** 2, dtype=_U8, device=dev) if flagged
+               else None)
+    _SVO_COLUMNS(dev, parents.data_ptr(), n_p, x0, z0, side,
+                 float(np.float32(2.0 ** (-level))), ds.scene_id,
+                 None if scratch is None else scratch.data_ptr(), h.data_ptr())
+    launches["svo_columns"] += 1
+    return Columns(h, x0, z0, side, flagged)
+
+
 # ---- svo_expand ---------------------------------------------------------------
 
-def expand_plain(scene, parents, level, thr_hi, thr_lo):
-    """Plain version of ``expand`` (any device; the scene runs on the
-    host)."""
+def expand_plain(scene, parents, level, thr_hi, thr_lo, cols=None):
+    """Plain version of ``expand`` and of ``expand_serial`` (any device; the
+    scene runs on the host at every child; `cols` is the kernel's)."""
     dev = parents.device
     child = (parents[:, None, :3].cpu() * 2
              + torch.from_numpy(CHILD_OFFSETS)[None]).reshape(-1, 3)
@@ -162,28 +262,58 @@ def expand_plain(scene, parents, level, thr_hi, thr_lo):
     return rec.to(dev), keep.to(dev), count_plain(keep).to(dev)
 
 
+def _expand_outputs(parents, kernel):
+    dev = parents.device
+    n_p = parents.shape[0]
+    n = 8 * n_p
+    _check_count(n, kernel.name)
+    kernel.check(dev, (("parents", parents, _I32, (n_p, 4)),))
+    return (n, torch.empty((n, 4), dtype=_I32, device=dev),
+            torch.empty(n, dtype=_U8, device=dev),
+            torch.empty(n_blocks(n), dtype=_I32, device=dev))
+
+
 def expand(ds: DeviceScene, parents, level: int, thr_hi: float,
-           thr_lo: float):
+           thr_lo: float, cols: Columns | None = None):
     """Children of the (n_p, 4) int32 candidate records `parents` (x, y, z
     at level - 1, f bits) at `level`: (records (8 n_p, 4) int32 in Morton
     child order, parent-major, with the scene at each child's centre; keep
     flags (8 n_p,) uint8, thr_lo <= f <= thr_hi in float32; the blocks' kept
-    counts)."""
+    counts). `cols`, the level's ``columns`` (None for a 3-D scene), gives
+    a heightfield's f as py - h."""
     if parents.device.type == "cpu":
-        return expand_plain(ds.scene, parents, level, thr_hi, thr_lo)
+        return expand_plain(ds.scene, parents, level, thr_hi, thr_lo, cols)
     dev = parents.device
-    n_p = parents.shape[0]
-    n = 8 * n_p
-    _check_count(n, "svo_expand")
-    _SVO_EXPAND.check(dev, (("parents", parents, _I32, (n_p, 4)),))
-    rec = torch.empty((n, 4), dtype=_I32, device=dev)
-    keep = torch.empty(n, dtype=_U8, device=dev)
-    counts = torch.empty(n_blocks(n), dtype=_I32, device=dev)
+    n, rec, keep, counts = _expand_outputs(parents, _SVO_EXPAND)
+    if n and (cols is None) != (ds.scene.name not in HEIGHTFIELDS):
+        raise ValueError(f"expand: scene {ds.scene.name!r} with column table "
+                         f"{'none' if cols is None else 'given'}")
+    if cols is not None:
+        _SVO_EXPAND.check(dev, (("columns", cols.h, _F32, (cols.side ** 2,)),))
     if n:
         _SVO_EXPAND(dev, parents.data_ptr(), n, float(np.float32(2.0 ** (-level))),
                     thr_hi, thr_lo, ds.scene_id, *ds.pointers(),
+                    *((None, 0, 0, 0) if cols is None else
+                      (cols.h.data_ptr(), cols.x0, cols.z0, cols.side)),
                     rec.data_ptr(), keep.data_ptr(), counts.data_ptr())
         launches["svo_expand"] += 1
+    return rec, keep, counts
+
+
+def expand_serial(ds: DeviceScene, parents, level: int, thr_hi: float,
+                  thr_lo: float):
+    """The expansion's first form (``svo_expand_serial``), on no build's
+    path: ``expand``'s results with the scene evaluated at every child."""
+    if parents.device.type == "cpu":
+        return expand_plain(ds.scene, parents, level, thr_hi, thr_lo)
+    dev = parents.device
+    n, rec, keep, counts = _expand_outputs(parents, _SVO_EXPAND_SERIAL)
+    if n:
+        _SVO_EXPAND_SERIAL(dev, parents.data_ptr(), n,
+                           float(np.float32(2.0 ** (-level))), thr_hi, thr_lo,
+                           ds.scene_id, *ds.pointers(), rec.data_ptr(),
+                           keep.data_ptr(), counts.data_ptr())
+        launches["svo_expand_serial"] += 1
     return rec, keep, counts
 
 

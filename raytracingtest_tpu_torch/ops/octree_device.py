@@ -4,8 +4,9 @@ Port of ``raytracingtest_tpu/ops/octree_device.py`` (K7): ``build_svo``'s
 frontier sweep with every phase on the device, driven level by level over
 the kernels of ``ops/octree_cuda.py`` (``csrc/svo_build.cu``):
 
-  A. expansion and Lipschitz pruning, a level at a time (``expand``, then
-     ``compact``), in chunks of ``CHUNK_PARENTS`` parents;
+  A. expansion and Lipschitz pruning, a level at a time (a heightfield's
+     ``columns``, then ``expand`` and ``compact``), in chunks of
+     ``CHUNK_PARENTS`` parents;
   B. the exact leaf test at the finest level (``leaves``, which reads the
      last expansion's records of every child of a kept parent, kept or not,
      where a probe is such a child's centre), ``compact``, then each leaf's
@@ -69,17 +70,22 @@ def _offsets(counts):
     return inclusive - counts, total
 
 
-def _expand_level(ds, records, level, depth, lipschitz, keep_full=False):
+def _expand_level(ds, records, level, depth, lipschitz, keep_full=False,
+                  root_level=0, root_coord=(0, 0, 0)):
     """Expand and prune one level: (records (n, 4) of the kept children, their
     parent indices, their child slots), parent-major; `keep_full` adds the
     records of every child, kept or not (8 a parent), which the leaf test
-    reads."""
+    reads. A heightfield's h is evaluated once a column of the level first,
+    over the square of columns the build rooted at `root_coord` of
+    `root_level` reaches (``octree_cuda.columns``)."""
     hi, lo = keep_bounds(lipschitz, level, depth)
     n_p = records.shape[0]
+    cols = (octree_cuda.columns(ds, records, level, root_level, root_coord)
+            if n_p else None)
     parts, full = [], []
     for c0 in range(0, max(n_p, 1), CHUNK_PARENTS):
         rec, keep, counts = octree_cuda.expand(
-            ds, records[c0:c0 + CHUNK_PARENTS], level, hi, lo)
+            ds, records[c0:c0 + CHUNK_PARENTS], level, hi, lo, cols)
         base, n = _offsets(counts)
         rows, words = octree_cuda.compact(keep, base, n, rec)
         if keep_full:
@@ -123,7 +129,8 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         parents = records
         records, par, slot, *full = _expand_level(
             ds, records, root_level + k, depth, lipschitz,
-            keep_full=k == sub_depth)
+            keep_full=k == sub_depth, root_level=root_level,
+            root_coord=root_coord)
         pars.append(par)
         slots.append(slot)
         if verbose:

@@ -200,8 +200,9 @@ def test_c_entries_are_declared_with_their_arity():
     arity = c_entry_arity()
     new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
            "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
-           "level_round", "level_round_serial", "level_round_probe", "level_queue"}
-    assert new <= set(arity) and len(arity) == 19
+           "level_round", "level_round_serial", "level_round_probe", "level_queue",
+           "clipmap_trace_brick_serial", "clipmap_trace_brick_probe"}
+    assert new <= set(arity) and len(arity) == 21
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -217,6 +218,10 @@ def test_c_entries_are_declared_with_their_arity():
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
     # the stitched traces differ only in the arena their chunk walks read
     assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
+    # the stitched brick trace's other forms add the form; its probe the
+    # form and the record
+    assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"] + 1
+    assert arity["clipmap_trace_brick_probe"] == arity["clipmap_trace_brick"] + 2
     # level_round's queued form adds its queue (the queue, the live count,
     # the segments, their length, the grid's bound) to the first form's
     # arguments; the probe form adds its record
