@@ -98,13 +98,15 @@ against `trace_multi_cuda`'s, the overlay against the direct call's pixels),
 `render` of the three noise scenes built at depth 8, `fly` on both paths and a
 scripted `probe`. `[fly]` streams the whole world at depth 10 and holds its
 1024² tile frame against the monolithic one, `tile_candidates_mapped`,
-`clipmap_trace` and `clipmap_trace_brick` against their plain versions on
-that world and on the first two-LOD frame of `cli fly`'s camera path, and
-times that path. `[build-device]` runs
+`clipmap_trace` and `clipmap_trace_brick` (its wide form, the main path's,
+and its first form `clipmap_trace_brick_serial`) against their plain versions
+on that world, on the first two-LOD frame of `cli fly`'s camera path and at
+its last pose, probes both brick forms' warps on that frame (`[warps]`, seven
+phases), and times that path. `[build-device]` runs
 bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
-depth-10 tree on the card (kernels `svo_expand`, `svo_compact`, `svo_leaves`,
-`svo_leaf_attrs`, `svo_level_up`, `svo_parent_ptr`, over the scene library
-`csrc/scene.cuh`),
+depth-10 tree on the card (kernels `svo_columns`, `svo_expand`,
+`svo_compact`, `svo_leaves`, `svo_leaf_attrs`, `svo_level_up`,
+`svo_parent_ptr`, over the scene library `csrc/scene.cuh`),
 twice, each build under `expect_launches`; holds its structure bit for bit
 and its attributes to 1e-5 (albedo) and 2e-3 (normal) against the host
 build, the brick frame over it against the host tree's hits bit for bit,
@@ -117,7 +119,11 @@ held after `[cli]` against its host builds. The leaf test (`svo_leaves` and
 `svo_leaf_attrs`) is held against its first form, `svo_leaves_serial`, on
 every build of the phase, the nine scenes at depths 6 and 8 among them (at
 depth 6 against the plain versions too), with where its probes' values come
-from and the evaluations it makes. `[sharded]` runs the sharded
+from and the evaluations it makes. The expansion (`svo_columns` and
+`svo_expand`) is held bit for bit against its first form,
+`svo_expand_serial`, and its plain version on every expansion of the
+depth-10 build, the nine scenes at depths 6 and 8 and the octant build,
+with each level's evaluations and both forms' µs. `[sharded]` runs the sharded
 renderer (`parallel/`) in a real NCCL world of one: the depth-12 terrain
 built on the card octant by octant and split at level 2 (`split_svo`), traced
 at 2048² through bench.py's camera by `make_sharded_trace` (kernel
@@ -2860,7 +2866,7 @@ BUILD_KERNELS = ("svo_columns", "svo_expand", "svo_compact", "svo_leaves", "svo_
 # each builder entry's kernels as torch.profiler names them (svo_leaves:
 # the neighbour table, the test and the needy list's evaluations); the leaf
 # test's first form
-BUILD_PROFILED = {"svo_columns": ("svo_columns_kernel", "svo_column_flags_kernel"),
+BUILD_PROFILED = {"svo_columns": ("svo_columns_kernel",),
                   "svo_expand": ("svo_expand_columns_kernel", "svo_expand_kernel"),
                   "svo_compact": ("svo_compact_kernel", "svo_count_kernel"),
                   "svo_leaves": ("svo_leaf_neighbours_kernel", "svo_leaf_test_kernel",
@@ -2917,7 +2923,9 @@ def record_calls():
 
     def wrap(name, fn):
         def recorded(*args):
-            rows = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+            # columns takes no tensor: its largest call is its finest level's
+            rows = args[1] if name == "columns" else next(
+                a.shape[0] for a in args if isinstance(a, torch.Tensor))
             if name == "level_up":
                 rows = max(rows, args[3])
             if rows >= calls.get(name, (-1,))[0]:
@@ -2948,8 +2956,8 @@ def check_expansion(expand, ds, parents, level, hi, lo, cols, plain):
     """One expansion held bit for bit (records, keep flags, counts) against
     its first form on the card and, with `plain`, its plain version;
     `expand` is the wrapper (octree_cuda.expand). Its row: level, parents,
-    the column table's side and form, and the scene evaluations made
-    (columns evaluated for a heightfield, one a child for a 3-D scene)."""
+    the column table's side, and the scene evaluations made (its table's
+    columns for a heightfield, one a child for a 3-D scene)."""
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     got = expand(ds, parents, level, hi, lo, cols)
     against = [("its first form", oc.expand_serial(ds, parents, level, hi, lo))]
@@ -2963,8 +2971,7 @@ def check_expansion(expand, ds, parents, level, hi, lo, cols, plain):
     n = 8 * parents.shape[0]
     return dict(level=level, parents=parents.shape[0], children=n,
                 side=None if cols is None else cols.side,
-                flagged=None if cols is None else cols.flagged,
-                evals=n if cols is None else int((~torch.isnan(cols.h)).sum()))
+                evals=n if cols is None else cols.side ** 2)
 
 
 @contextlib.contextmanager
@@ -3104,12 +3111,12 @@ def build_parity(calls, ds, depth):
     _, args = calls["columns"]
     got = oc.columns(*args)
     want, plain_ms["svo_columns"] = timed_plain(
-        oc.columns_plain, ds.scene, *args[1:3], (got.x0, got.z0, got.side), got.flagged)
+        oc.columns_plain, ds.scene, args[1], (got.x0, got.z0, got.side), got.h.device)
     exact("svo_columns", (bits(got.h),), (bits(want.h),), "the column table's bits")
     err["svo_columns"] = 0.0
     _, args = calls["expand"]
     got = oc.expand(*args)
-    want, plain_ms["svo_expand"] = timed_plain(oc.expand_plain, ds.scene, *args[1:])
+    want, plain_ms["svo_expand"] = timed_plain(oc.expand_plain, ds.scene, *args[1:5])
     exact("svo_expand", got, want, "records, keep flags and counts (f bits)")
     exact("svo_expand", got, oc.expand_serial(*args[:5]),
           "the first form's records, keep flags and counts")
@@ -3161,14 +3168,12 @@ def build_bounds(calls, n_leaves, leaf):
     out = {}
     _, (dsc, parents, _level, _hi, _lo, cols) = calls["expand"]
     n = 8 * parents.shape[0]
-    evals = int((~torch.isnan(cols.h)).sum())
+    evals = cols.side ** 2
     outputs = n * 17 + oc.n_blocks(n) * 4
-    # the column pass: its parents (the flagged form) and its table; the
-    # child pass: its parents, the table's evaluated columns and its
-    # outputs; the two as one function (the table inside it), and the
-    # first form, the scene at every child (the reference's count)
-    out["svo_columns"] = bound((nbytes(parents) if cols.flagged else 0) + cols.h.numel() * 4,
-                               evals * OPS_TERRAIN_EVAL)
+    # the column pass: its table; the child pass: its parents, the table
+    # and its outputs; the two as one function (the table inside it), and
+    # the first form, the scene at every child (the reference's count)
+    out["svo_columns"] = bound(evals * 4, evals * OPS_TERRAIN_EVAL)
     out["svo_expand"] = bound(nbytes(parents) + evals * 4 + outputs,
                               n * OPS_EXPAND_COLUMN_CHILD)
     out["svo_expand_function"] = bound(nbytes(parents) + outputs,
@@ -3369,10 +3374,10 @@ def build_device(ctx, card):
     say(f"[build-device] {card}: svo_expand (the column pass svo_columns, then the "
         f"children) == its first form (svo_expand_serial) and its plain version bit for "
         f"bit on all {len(exp_log)} expansions of terrain d{depth}; a level: parents, "
-        "column evaluations (the table's form) against the first form's one a child "
+        "column evaluations (the table's square) against the first form's one a child "
         "(8 n_p), us alone (column pass + children; first form): " + "; ".join(
-            f"L{r['level']} {r['parents']}, {r['evals']} ({'flagged' if r['flagged'] else 'whole'}"
-            f" {r['side']}²) against {r['children']}, {r['columns_us']:.1f} + "
+            f"L{r['level']} {r['parents']}, {r['evals']} ({r['side']}²) against "
+            f"{r['children']}, {r['columns_us']:.1f} + "
             f"{r['expand_us']:.1f}; {r['first_form_us']:.1f}" for r in expansion)
         + f"; a build {sum(r['columns_us'] + r['expand_us'] for r in expansion):.1f} us "
         f"against the first form's {sum(r['first_form_us'] for r in expansion):.1f}, "
@@ -3384,7 +3389,7 @@ def build_device(ctx, card):
     k_err, normals_apart, plain_ms, leaf = build_parity(calls, ds, depth)
     ctx["err"].update(k_err)
     sizes = {k: v[0] for k, v in calls.items()}
-    say(f"[build-device] the six kernels == their plain versions on the card, "
+    say(f"[build-device] the builder's kernels == their plain versions on the card, "
         f"on their largest call of the build (rows: {sizes}): bitwise but "
         f"svo_leaf_attrs' albedo (max abs {k_err['svo_leaf_attrs']:.3g}; "
         f"{normals_apart} normal values' bits apart); svo_leaves and "
@@ -3473,8 +3478,6 @@ def build_device(ctx, card):
     col_args, exp_args = calls["columns"][1], calls["expand"][1]
     turns = in_turns({
         "svo_columns": lambda: oc.columns(*col_args),
-        "svo_columns_whole": lambda: oc.columns(*col_args, flagged=False),
-        "svo_columns_flagged": lambda: oc.columns(*col_args, flagged=True),
         "svo_expand": lambda: oc.expand(*exp_args),
         "svo_expand_function": lambda: oc.expand(*exp_args[:5], oc.columns(*col_args)),
         "svo_expand_serial": lambda: oc.expand_serial(*exp_args[:5]),
@@ -3523,8 +3526,6 @@ def build_device(ctx, card):
             f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})"
             for k in (*BUILD_KERNELS, "svo_expand_function", "svo_expand_serial",
                       "svo_leaves_serial"))
-        + f"; the column pass over the whole square {ms['svo_columns_whole']:.4f}, "
-        f"flagged {ms['svo_columns_flagged']:.4f}"
         + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}, "
         f"with index_select of the kept rows' words (svo_compact's whole function, "
         f"== it bitwise) {ms['svo_compact_library_whole']:.4f}, with src[rows] in its "
@@ -3581,14 +3582,12 @@ def build_device(ctx, card):
     split_log, split_exp = [], []
     with checked_leaf_tests(split_log), checked_expansions(split_exp, plain=True):
         octree_device.build_svo_device_split(scene, depth, split_level=2, device=dev)
-    flagged = [r for r in split_exp if r["flagged"]]
     say(f"[build-device] the octant build's {len(split_log)} leaf tests == their "
         f"first form bit for bit; {sum(c['evals'] for c in split_log)} evaluations "
         f"against the reference's {sum(c['ref_evals'] for c in split_log)}; its "
         f"{len(split_exp)} expansions == their first form and plain version bit for "
         f"bit, {sum(r['evals'] for r in split_exp)} column evaluations against "
-        f"{sum(r['children'] for r in split_exp)} children ({len(flagged)} tables "
-        f"flagged, {sum(r['evals'] for r in flagged)} evaluations in them)")
+        f"{sum(r['children'] for r in split_exp)} children")
 
     # the command line's noise scenes, built on the card at its default depth
     scene_builds = {}
@@ -3619,8 +3618,7 @@ def build_device(ctx, card):
                 expansions_checked=len(exp_log) + len(split_exp) + sum(
                     len(e) for e in scene_expansions.values()),
                 split_expansion=dict(evals=sum(r["evals"] for r in split_exp),
-                                     children=sum(r["children"] for r in split_exp),
-                                     flagged_tables=len(flagged)))
+                                     children=sum(r["children"] for r in split_exp)))
 
 
 def check_scene_builds(built, cdir):
@@ -4276,9 +4274,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 31:
+    if len(ptxas) != 34:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 31")
+                             f"expected 34")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -4287,7 +4285,9 @@ def main():
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
         "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
-        "kernels, the stitched traces clipmap_trace_kernel<brick arena>, "
+        "kernels, the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
+        "the wide form clipmap_trace_brick_kernel and its probe forms "
+        "clipmap_trace_brick_probe_kernel<wide>, "
         "the level-sharded rounds' first form level_round_kernel<mode>, its "
         "probe form and its queued form <mode>, and the queue's passes "
         "level_queue_*_kernel: "
@@ -4301,9 +4301,9 @@ def main():
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
         f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
     svo_regs = svo_ptxas(_build.build_log("svo_build"))
-    if len(svo_regs) != 15:
+    if len(svo_regs) != 14:
         raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
-                             "expected 15 kernels")
+                             "expected 14 kernels")
     say("[build] svo_build.cu, ptxas -v (registers): " + ", ".join(
         f"{k} {r}" for k, r in svo_regs))
 
@@ -5022,7 +5022,8 @@ def main():
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
                                       tile_candidates_block=1, shade_bwd_serial=1,
                                       brick_trace_serial=1, brick_trace_unstaged=1,
-                                      brick_trace_multi_serial=1, level_round_serial=0)
+                                      brick_trace_multi_serial=1, level_round_serial=0,
+                                      clipmap_trace_brick_serial=0)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -5232,7 +5233,8 @@ def main():
                 composite_fwd=0, brick_trace_serial=0, brick_trace_unstaged=0,
                 esvo_stackless_probe=0, brick_trace_probe=0,
                 brick_trace_multi_serial=0, esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
-                level_round_serial=0, level_round_probe=0, **MULTI_ZERO, **STEP_ZERO)
+                level_round_serial=0, level_round_probe=0, clipmap_trace_brick_serial=0,
+                clipmap_trace_brick_probe=0, **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -6201,8 +6203,6 @@ def main():
     bl = built["leaf"]
     bm, bb, ex = built["ms"], built["bounds"], built["expansion"]
     leaf_extra = dict(
-        svo_columns=dict(ms_whole_square_in_turns=bm["svo_columns_whole"],
-                         ms_flagged_in_turns=bm["svo_columns_flagged"]),
         svo_expand=dict(
             function_ms_in_turns=bm["svo_expand_function"],
             function_bound_ms=bb["svo_expand_function"][0],
@@ -6213,7 +6213,7 @@ def main():
             evaluations=sum(r["evals"] for r in ex),
             evaluations_reference=sum(r["children"] for r in ex),
             expansions_checked=built["expansions_checked"],
-            per_level=[{k: r[k] for k in ("level", "parents", "side", "flagged", "evals",
+            per_level=[{k: r[k] for k in ("level", "parents", "side", "evals",
                                            "columns_us", "expand_us", "first_form_us")}
                        for r in ex]),
         svo_leaves=dict(evaluations=bl["evals"], evaluations_reference=bl["ref_evals"],

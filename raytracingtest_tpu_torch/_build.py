@@ -33,11 +33,13 @@ Seven libraries, each built on first use into
                      their LOD forms (``esvo_stackless_lod``,
                      ``brick_trace_lod``), the streamed world's
                      stitched traces (``clipmap_trace``,
-                     ``clipmap_trace_brick``) and the level-sharded
+                     ``clipmap_trace_brick`` in a wide form and its first
+                     form, with counters too) and the level-sharded
                      rounds (``level_round``, three modes);
   * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
-                     builder on the card (``svo_expand``, ``svo_compact``,
-                     ``svo_leaves``, ``svo_level_up``, ``svo_parent_ptr``)
+                     builder on the card (``svo_columns``, ``svo_expand``
+                     and its first form, ``svo_compact``, ``svo_leaves``,
+                     ``svo_level_up``, ``svo_parent_ptr``)
                      over the scene library ``csrc/scene.cuh``, and
                      ``scene_eval``, that library at given points.
 
@@ -228,13 +230,14 @@ def _declare_brick(lib):
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4
-    for fn in (lib.clipmap_trace, lib.clipmap_trace_brick):
+    for fn in (lib.clipmap_trace, lib.clipmap_trace_brick,
+               lib.clipmap_trace_brick_serial):
         fn.argtypes = clip + [p]
         fn.restype = i
-    lib.clipmap_trace_brick_serial.argtypes = [i] + clip + [p]
     lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
-    for fn in (lib.clipmap_trace_brick_serial, lib.clipmap_trace_brick_probe):
-        fn.restype = i
+    lib.clipmap_trace_brick_probe.restype = i
+    lib.clipmap_trace_brick_variant.argtypes = [i] + clip + [p]
+    lib.clipmap_trace_brick_variant.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays
     # and the five outputs
     level = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3 + [f, i] + [p] * 4
@@ -259,7 +262,9 @@ def _declare_brick(lib):
 def _declare_svo(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables = [p] * 5
-    lib.svo_columns.argtypes = [p, i, i, i, i, f, i, p, p, p]
+    lib.svo_columns.argtypes = [i, i, i, f, i, p, p]
+    lib.svo_columns_flagged.argtypes = [p, i, i, i, i, f, i, p, p, p]
+    lib.svo_columns_flagged.restype = i
     lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, i, i, i, p, p, p, p]
     lib.svo_expand_serial.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
     lib.svo_compact.argtypes = [p, i, p, p, i, p, p, p, p]

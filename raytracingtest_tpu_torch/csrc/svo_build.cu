@@ -19,10 +19,11 @@
 //                  the child's f is py - h[column], the same float32
 //                  operations on the same operands as scene::eval's, so the
 //                  same bits. svo_columns evaluates every column of the
-//                  square, or, in its flagged form, only the columns under
-//                  the parents (each parent flags its column; the wrapper
-//                  takes the flagged form where the parents cannot cover
-//                  the square). A 3-D scene is evaluated a child, by
+//                  square: a heightfield's surface crosses every column, so
+//                  the parents cover all or most of it, and a form that
+//                  evaluated only the parents' columns (flags set by each
+//                  parent first) measured slower on every build tried
+//                  (PERF.md). A 3-D scene is evaluated a child, by
 //                  svo_expand_kernel.
 //   svo_expand_serial  the expansion's first form: svo_expand_kernel for
 //                  every scene, the scene evaluated at every child (PR 14's
@@ -149,35 +150,17 @@ __global__ void __launch_bounds__(BLOCK)
 
 // ---- svo_columns, svo_expand over a heightfield's columns ------------------
 
-// The flagged form's flags: each parent (at level - 1) flags its column of
-// the square's half-resolution grid, (side / 2)^2 bytes zeroed before; its
-// four child columns are then the ones svo_columns evaluates.
-__global__ void __launch_bounds__(BLOCK)
-    svo_column_flags_kernel(const int4* __restrict__ parents, int n_p, int x0,
-                            int z0, int side, unsigned char* __restrict__ flags) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n_p) return;
-  const int4 p = __ldg(parents + i);
-  flags[(size_t)(p.z - (z0 >> 1)) * (side >> 1) + (p.x - (x0 >> 1))] = 1;
-}
-
-// h at each column (x0 + jx, z0 + jz) of the side x side square, row jz;
-// with flags, NaN at the columns no parent flagged.
+// h at each column (x0 + jx, z0 + jz) of the side x side square, row jz.
 __global__ void __launch_bounds__(BLOCK)
     svo_columns_kernel(int x0, int z0, int side, float scale, int scene_id,
-                       const unsigned char* __restrict__ flags,
                        float* __restrict__ h) {
   const int j = blockIdx.x * BLOCK + threadIdx.x;
   if (j >= side * side) return;
   const int jx = j & (side - 1), jz = j / side;
-  float v = __int_as_float(0x7fc00000);
-  if (flags == nullptr || flags[(size_t)(jz >> 1) * (side >> 1) + (jx >> 1)]) {
-    // the child centre's x and z, as svo_expand_kernel makes them
-    const float px = ((float)(x0 + jx) + 0.5f) * scale;
-    const float pz = ((float)(z0 + jz) + 0.5f) * scale;
-    v = scene::height(scene_id, px, pz);
-  }
-  h[j] = v;
+  // the child centre's x and z, as svo_expand_kernel makes them
+  const float px = ((float)(x0 + jx) + 0.5f) * scale;
+  const float pz = ((float)(z0 + jz) + 0.5f) * scale;
+  h[j] = scene::height(scene_id, px, pz);
 }
 
 // svo_expand_kernel over a heightfield's column table h: f = py - h, no
@@ -205,6 +188,36 @@ __global__ void __launch_bounds__(BLOCK)
   }
   const int total = __syncthreads_count(kept);
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// The flagged column pass, a measured variant kept in this commit only: each
+// parent (at level - 1) flags its column of the square's half-resolution
+// grid, and h is evaluated at the flagged columns' children alone (NaN
+// elsewhere).
+__global__ void __launch_bounds__(BLOCK)
+    svo_column_flags_kernel(const int4* __restrict__ parents, int n_p, int x0,
+                            int z0, int side, unsigned char* __restrict__ flags) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n_p) return;
+  const int4 p = __ldg(parents + i);
+  flags[(size_t)(p.z - (z0 >> 1)) * (side >> 1) + (p.x - (x0 >> 1))] = 1;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+    svo_columns_flagged_kernel(int x0, int z0, int side, float scale,
+                               int scene_id,
+                               const unsigned char* __restrict__ flags,
+                               float* __restrict__ h) {
+  const int j = blockIdx.x * BLOCK + threadIdx.x;
+  if (j >= side * side) return;
+  const int jx = j & (side - 1), jz = j / side;
+  float v = __int_as_float(0x7fc00000);
+  if (flags[(size_t)(jz >> 1) * (side >> 1) + (jx >> 1)]) {
+    const float px = ((float)(x0 + jx) + 0.5f) * scale;
+    const float pz = ((float)(z0 + jz) + 0.5f) * scale;
+    v = scene::height(scene_id, px, pz);
+  }
+  h[j] = v;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -559,36 +572,42 @@ bool bad_scene(int scene_id) {
 // have ceil(n / BLOCK) entries, and svo_compact reads block_base at the same
 // blocks.
 
-// The heightfield's h at the columns of the side x side square from (x0, z0)
-// at the level whose cells are `scale` wide: every column, or, with `flags`
-// (scratch of (side / 2)^2 bytes), the columns under the n_p parents and NaN
-// elsewhere. side is a power of two from 2; scene_id a heightfield's.
-extern "C" int svo_columns(const void* parents, int n_p, int x0, int z0,
-                           int side, float scale, int scene_id, void* flags,
-                           void* h, void* stream) {
+// The heightfield's h at every column of the side x side square from (x0,
+// z0) at the level whose cells are `scale` wide. side is a power of two from
+// 2; scene_id a heightfield's.
+extern "C" int svo_columns(int x0, int z0, int side, float scale,
+                           int scene_id, void* h, void* stream) {
   const bool heightfield = scene_id == scene::FLAT_GROUND ||
                            scene_id == scene::SIMPLEX ||
                            scene_id == scene::TERRAIN || scene_id == scene::PERLIN;
-  if (n_p < 0 || side < 2 || (side & (side - 1)) || side > 32768 ||
-      !heightfield || (x0 & 1) || (z0 & 1))
+  if (side < 2 || (side & (side - 1)) || side > 32768 || !heightfield)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (flags != nullptr) {
-    const size_t n_flags = (size_t)(side >> 1) * (side >> 1);
-    const cudaError_t e = cudaMemsetAsync(flags, 0, n_flags, st);
-    if (e != cudaSuccess) return (int)e;
-    if (n_p > 0)
-      svo_column_flags_kernel<<<blocks_for(n_p), BLOCK, 0, st>>>(
-          (const int4*)parents, n_p, x0, z0, side, (unsigned char*)flags);
-  }
-  svo_columns_kernel<<<blocks_for((long long)side * side), BLOCK, 0, st>>>(
-      x0, z0, side, scale, scene_id, (const unsigned char*)flags, (float*)h);
+  svo_columns_kernel<<<blocks_for((long long)side * side), BLOCK, 0,
+                       (cudaStream_t)stream>>>(x0, z0, side, scale, scene_id,
+                                               (float*)h);
   return (int)cudaGetLastError();
 }
 
 // h: null for a 3-D scene (the scene evaluated a child, svo_expand_kernel),
 // else svo_columns' table of the side x side square from (x0, z0), which
 // covers every child's column.
+// The flagged column pass (measured variant): flags is scratch of (side /
+// 2)^2 bytes.
+extern "C" int svo_columns_flagged(const void* parents, int n_p, int x0, int z0,
+                                   int side, float scale, int scene_id,
+                                   void* flags, void* h, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e =
+      cudaMemsetAsync(flags, 0, (size_t)(side >> 1) * (side >> 1), st);
+  if (e != cudaSuccess) return (int)e;
+  if (n_p > 0)
+    svo_column_flags_kernel<<<blocks_for(n_p), BLOCK, 0, st>>>(
+        (const int4*)parents, n_p, x0, z0, side, (unsigned char*)flags);
+  svo_columns_flagged_kernel<<<blocks_for((long long)side * side), BLOCK, 0, st>>>(
+      x0, z0, side, scale, scene_id, (const unsigned char*)flags, (float*)h);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int svo_expand(const void* parents, int n_children, float scale,
                           float thr_hi, float thr_lo, int scene_id,
                           const void* perm, const void* perm3d,

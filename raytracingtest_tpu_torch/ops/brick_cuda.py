@@ -95,7 +95,7 @@ launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "level_round_packets": 0, "level_queue": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0, "level_round_serial": 0,
-                 "clipmap_trace_brick_serial": 0, "clipmap_trace_brick_flat": 0}
+                 "clipmap_trace_brick_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
                   "level_round_probe": 0, "clipmap_trace_brick_probe": 0}
@@ -117,6 +117,7 @@ _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 _CLIPMAP_TRACE_BRICK_SERIAL = Kernel("clipmap_trace_brick_serial", brick_lib)
 _CLIPMAP_TRACE_BRICK_PROBE = Kernel("clipmap_trace_brick_probe", brick_lib)
+_CLIPMAP_TRACE_BRICK_VARIANT = Kernel("clipmap_trace_brick_variant", brick_lib)
 _LEVEL_ROUND = Kernel("level_round", brick_lib)
 _LEVEL_ROUND_SERIAL = Kernel("level_round_serial", brick_lib)
 _LEVEL_ROUND_PROBE = Kernel("level_round_probe", brick_lib)
@@ -136,10 +137,10 @@ FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("first",),
          "brick_trace_multi": ("staged", "first"),
          "esvo_stackless_multi": ("first",),
-         "clipmap_trace_brick": ("wide", "first", "flat"),
+         "clipmap_trace_brick": ("wide", "first"),
          "clipmap_trace": ("first",)}
-FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3, "flat": 4}
-BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32, "flat": 256}
+FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
+BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
 
 # brick_trace_multi's staged form takes k up to STAGED_MAX_K: a block of
 # 32 rays (csrc/brick_trace.cu's MULTI_BLOCK: the fastest block from k = 8
@@ -601,13 +602,11 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
               _CLIPMAP_TRACE_BRICK if main else _CLIPMAP_TRACE_BRICK_SERIAL)
     head, out = _clip_args(kernel, trunk, org, size, roots, origins, sizes, arena,
                            origin, direction, chunk_depth, n_max)
+    kernel(origin.device, *head)
     if main:
-        kernel(origin.device, *head)
         launches[kname] += 1
     else:
-        kernel(origin.device, FORM_CODES[form], *head)
-        form_launches["clipmap_trace_brick_serial" if form == "first"
-                      else "clipmap_trace_brick_" + form] += 1
+        form_launches["clipmap_trace_brick_serial"] += 1
     return out
 
 
@@ -618,8 +617,6 @@ def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
     BrickSVO). Returns (its results, record (warps, len(CLIP_PROBE_FIELDS))
     int64), for measurement only."""
     code = _form("clipmap_trace_brick", form)
-    if form not in ("wide", "first"):
-        raise ValueError(f"probe_clipmap_brick: form {form!r} has no probe")
     if not isinstance(arena, brick.BrickSVO):
         raise ValueError("probe_clipmap_brick takes the brick arena")
     head, out = _clip_args(_CLIPMAP_TRACE_BRICK_PROBE, trunk, org, size, roots,
@@ -630,6 +627,19 @@ def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
     _CLIPMAP_TRACE_BRICK_PROBE(origin.device, code, *head, record.data_ptr())
     probe_launches["clipmap_trace_brick_probe"] += 1
     return out, record
+
+
+def clipmap_variant_kernel(variant, trunk, org, size, roots, origins, sizes, arena,
+                           origin, direction, chunk_depth, n_max):
+    """A measured variant of ``clipmap_trace_brick`` (csrc/brick_trace.cu's
+    clipmap_trace_brick_variant: 0 the flat form, 1 the wide form with a
+    node's rows prefetched, 5, 6, 8 the wide form at that many blocks an SM);
+    ``clipmap_kernel``'s arguments and results."""
+    head, out = _clip_args(_CLIPMAP_TRACE_BRICK_VARIANT, trunk, org, size, roots,
+                           origins, sizes, arena, origin, direction, chunk_depth,
+                           n_max)
+    _CLIPMAP_TRACE_BRICK_VARIANT(origin.device, variant, *head)
+    return out
 
 
 def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,

@@ -5,7 +5,7 @@ Counterpart of the XLA programs of ``raytracingtest_tpu/ops/octree_device.py``
 
   * ``columns``     (``svo_columns``): a heightfield's h(x, z) once a child
                     column of the level (``HEIGHTFIELDS``), in a dense table
-                    over the square the build reaches there
+                    over the square of columns the build reaches there
                     (``column_square``); None for a 3-D scene.
   * ``expand``      (``svo_expand``): a level's children, the scene at their
                     centres (y - h from the column table for a heightfield,
@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from raytracingtest_tpu_torch._build import svo_lib
+from raytracingtest_tpu_torch._device import resolve
 from raytracingtest_tpu_torch._launch import Kernel
 from raytracingtest_tpu_torch.ops.morton import morton_encode64
 from raytracingtest_tpu_torch.ops.octree import (
@@ -80,6 +81,7 @@ launches = {"svo_columns": 0, "svo_expand": 0, "svo_expand_serial": 0,
             "scene_eval": 0}
 
 _SVO_COLUMNS = Kernel("svo_columns", svo_lib)
+_SVO_COLUMNS_FLAGGED = Kernel("svo_columns_flagged", svo_lib)
 _SVO_EXPAND = Kernel("svo_expand", svo_lib)
 _SVO_EXPAND_SERIAL = Kernel("svo_expand_serial", svo_lib)
 _SVO_COMPACT = Kernel("svo_compact", svo_lib)
@@ -167,15 +169,12 @@ def _centres(coords, scale):
 
 class Columns(NamedTuple):
     """A heightfield's h at the child columns of a level: `h` (side * side,)
-    float32, column (x0 + jx, z0 + jz) at jz * side + jx, NaN where it was
-    not evaluated; `flagged`: only the columns under the level's parents
-    were."""
+    float32, column (x0 + jx, z0 + jz) at jz * side + jx."""
 
     h: torch.Tensor
     x0: int
     z0: int
     side: int
-    flagged: bool
 
 
 def column_square(level: int, root_level: int = 0, root_coord=(0, 0, 0)):
@@ -188,70 +187,61 @@ def column_square(level: int, root_level: int = 0, root_coord=(0, 0, 0)):
     return int(root_coord[0]) << k, int(root_coord[2]) << k, 1 << k
 
 
-def _column_flags(parents, x0, z0, side):
-    """The flagged form's columns: (side * side,) bool, the four child
-    columns of each parent's column."""
-    dev = parents.device
-    half = side >> 1
-    flags = torch.zeros(half * half, dtype=torch.bool, device=dev)
-    p = parents[:, :3].long()
-    flags[(p[:, 2] - (z0 >> 1)) * half + (p[:, 0] - (x0 >> 1))] = True
-    j = torch.arange(side * side, device=dev)
-    return flags[(j // side >> 1) * half + ((j % side) >> 1)]
-
-
-def columns_plain(scene, parents, level, square, flagged):
+def columns_plain(scene, level, square, device):
     """Plain version of ``columns`` at `square` (``column_square``'s): the
     host scene at y = 0, where a heightfield's f is 0 - h, negated (both
     exact)."""
     x0, z0, side = square
-    dev = parents.device
-    todo = (_column_flags(parents.cpu(), x0, z0, side) if flagged
-            else torch.ones(side * side, dtype=torch.bool))
-    j = torch.nonzero(todo).reshape(-1)
+    j = torch.arange(side * side)
     cols = torch.stack([x0 + j % side, torch.zeros_like(j), z0 + j // side], 1)
     px, py, pz = _centres(cols, np.float32(2.0 ** (-level)))
-    h = torch.full((side * side,), float("nan"), dtype=_F32)
-    if j.numel():
-        f0 = np.asarray(scene(px, np.zeros_like(py), pz), np.float32)
-        h[j] = torch.from_numpy(-f0)
-    return Columns(h.to(dev), x0, z0, side, flagged)
+    f0 = np.asarray(scene(px, np.zeros_like(py), pz), np.float32)
+    return Columns(torch.from_numpy(-f0).to(device), x0, z0, side)
 
 
-def columns(ds: DeviceScene, parents, level: int, root_level: int = 0,
-            root_coord=(0, 0, 0), flagged=None):
-    """The heightfield's h at the child columns of `level` under the (n_p,
-    4) int32 parents (records at level - 1) of a build rooted at
-    `root_coord` of `root_level`, or None for a 3-D scene. The table covers
-    the square the build reaches (``column_square``): all of it, or, when
-    `flagged` (by default where the parents cannot cover the square, side^2
-    > 4 n_p), the columns under the parents alone."""
+def columns(ds: DeviceScene, level: int, root_level: int = 0,
+            root_coord=(0, 0, 0), device=None):
+    """The heightfield's h at every child column of `level` that a build
+    rooted at `root_coord` of `root_level` reaches (``column_square``), on
+    `device` (None: the card), or None for a 3-D scene. (A heightfield's
+    surface crosses every column, so the level's parents cover all or most
+    of the square; evaluating only their columns measured slower, PERF.md.)"""
     if ds.scene.name not in HEIGHTFIELDS:
         return None
-    x0, z0, side = column_square(level, root_level, root_coord)
-    n_p = parents.shape[0]
-    if flagged is None:
-        flagged = side * side > 4 * n_p
-    if parents.device.type == "cpu":
-        return columns_plain(ds.scene, parents, level, (x0, z0, side), flagged)
-    dev = parents.device
+    square = column_square(level, root_level, root_coord)
+    device = resolve(device)
+    if device.type == "cpu":
+        return columns_plain(ds.scene, level, square, device)
+    side = square[2]
     _check_count(side * side, "svo_columns")
-    _SVO_COLUMNS.check(dev, (("parents", parents, _I32, (n_p, 4)),))
-    h = torch.empty(side * side, dtype=_F32, device=dev)
-    scratch = (torch.empty((side >> 1) ** 2, dtype=_U8, device=dev) if flagged
-               else None)
-    _SVO_COLUMNS(dev, parents.data_ptr(), n_p, x0, z0, side,
-                 float(np.float32(2.0 ** (-level))), ds.scene_id,
-                 None if scratch is None else scratch.data_ptr(), h.data_ptr())
+    _SVO_COLUMNS.check(device, ())
+    h = torch.empty(side * side, dtype=_F32, device=device)
+    _SVO_COLUMNS(device, *square, float(np.float32(2.0 ** (-level))), ds.scene_id,
+                 h.data_ptr())
     launches["svo_columns"] += 1
-    return Columns(h, x0, z0, side, flagged)
+    return Columns(h, *square)
+
+
+def columns_flagged(ds: DeviceScene, parents, level: int, square):
+    """A measured variant of ``columns`` (kernel svo_columns_flagged): h at
+    the child columns of the (n_p, 4) parents' columns alone, NaN at the
+    rest of `square` (``column_square``'s), on the parents' CUDA device."""
+    x0, z0, side = square
+    dev = parents.device
+    _SVO_COLUMNS_FLAGGED.check(dev, (("parents", parents, _I32, (parents.shape[0], 4)),))
+    h = torch.empty(side * side, dtype=_F32, device=dev)
+    flags = torch.empty((side >> 1) ** 2, dtype=_U8, device=dev)
+    _SVO_COLUMNS_FLAGGED(dev, parents.data_ptr(), parents.shape[0], x0, z0, side,
+                         float(np.float32(2.0 ** (-level))), ds.scene_id,
+                         flags.data_ptr(), h.data_ptr())
+    return Columns(h, x0, z0, side)
 
 
 # ---- svo_expand ---------------------------------------------------------------
 
-def expand_plain(scene, parents, level, thr_hi, thr_lo, cols=None):
+def expand_plain(scene, parents, level, thr_hi, thr_lo):
     """Plain version of ``expand`` and of ``expand_serial`` (any device; the
-    scene runs on the host at every child; `cols` is the kernel's)."""
+    scene runs on the host at every child)."""
     dev = parents.device
     child = (parents[:, None, :3].cpu() * 2
              + torch.from_numpy(CHILD_OFFSETS)[None]).reshape(-1, 3)
@@ -282,7 +272,7 @@ def expand(ds: DeviceScene, parents, level: int, thr_hi: float,
     counts). `cols`, the level's ``columns`` (None for a 3-D scene), gives
     a heightfield's f as py - h."""
     if parents.device.type == "cpu":
-        return expand_plain(ds.scene, parents, level, thr_hi, thr_lo, cols)
+        return expand_plain(ds.scene, parents, level, thr_hi, thr_lo)
     dev = parents.device
     n, rec, keep, counts = _expand_outputs(parents, _SVO_EXPAND)
     if n and (cols is None) != (ds.scene.name not in HEIGHTFIELDS):

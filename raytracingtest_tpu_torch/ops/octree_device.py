@@ -80,7 +80,7 @@ def _expand_level(ds, records, level, depth, lipschitz, keep_full=False,
     `root_level` reaches (``octree_cuda.columns``)."""
     hi, lo = keep_bounds(lipschitz, level, depth)
     n_p = records.shape[0]
-    cols = (octree_cuda.columns(ds, records, level, root_level, root_coord)
+    cols = (octree_cuda.columns(ds, level, root_level, root_coord, records.device)
             if n_p else None)
     parts, full = [], []
     for c0 in range(0, max(n_p, 1), CHUNK_PARENTS):

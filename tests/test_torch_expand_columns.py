@@ -7,8 +7,9 @@ column and forms y - h a child. Three things hold that up: scene.cuh's
 and the JAX package's ``_expand_eval``'s (the last run without FMA
 instructions, ``XLA_FLAGS=--xla_cpu_max_isa=AVX``, as the card runs without
 contraction); the column square of a whole build and of an octant build
-covers the parents' child columns, and the flagged form evaluates exactly
-those; and ``HEIGHTFIELDS`` names exactly the scenes of that form."""
+is the root cell's columns and holds every child column of the level's
+parents (all of it, in a whole build of a heightfield); and
+``HEIGHTFIELDS`` names exactly the scenes of that form."""
 
 import ctypes
 import json
@@ -156,9 +157,8 @@ def test_column_plain_height_is_the_librarys(scene_lib):
     scene.cuh's height bit for bit over a level-9 square."""
     for name in octree_cuda.HEIGHTFIELDS:
         level = 9
-        parents = torch.tensor([[0, 0, 0, 0]], dtype=torch.int32)
-        cols = octree_cuda.columns_plain(get_scene(name), parents, level,
-                                         octree_cuda.column_square(level), False)
+        cols = octree_cuda.columns_plain(get_scene(name), level,
+                                         octree_cuda.column_square(level), "cpu")
         j = np.arange(cols.side ** 2)
         scale = np.float32(2.0 ** -level)
         px = ((j % cols.side).astype(np.float32) + np.float32(0.5)) * scale
@@ -167,17 +167,16 @@ def test_column_plain_height_is_the_librarys(scene_lib):
         assert np.array_equal(cols.h.numpy().view(np.int32), want.view(np.int32)), name
 
 
-def recorded_columns(monkeypatch, scene, depth, **kw):
-    """A CPU device build of `scene`; each level's call of
-    ``octree_cuda.columns``: (parents, level, its table)."""
+def recorded_expansions(monkeypatch, scene, depth, **kw):
+    """A CPU device build of `scene`; each level's expansion: (parents,
+    level, its column table)."""
     calls = []
-    real = octree_cuda.columns
+    real = octree_cuda.expand
 
-    def recording(ds, parents, level, *args, **kwargs):
-        out = real(ds, parents, level, *args, **kwargs)
-        calls.append((parents, level, out))
-        return out
-    monkeypatch.setattr(octree_cuda, "columns", recording)
+    def recording(ds, parents, level, hi, lo, cols=None):
+        calls.append((parents, level, cols))
+        return real(ds, parents, level, hi, lo, cols)
+    monkeypatch.setattr(octree_cuda, "expand", recording)
     svo = octree_device.build_svo_device(scene, depth, device="cpu", **kw)
     return svo, calls
 
@@ -193,48 +192,27 @@ def child_columns(parents):
 def test_column_square_covers_the_parents_child_columns(monkeypatch, root_level,
                                                         root_coord):
     """At every level of a terrain build (a whole one, and octant builds at
-    root level 2), the square is the root cell's columns at that level, it
-    holds every child column of the level's parents, the flagged form
-    evaluates exactly those columns and the whole form every column of the
-    square; the build takes the flagged form where 4 n_p < side^2."""
+    root level 2), the column table is the root cell's square of columns at
+    that level, and it holds every child column of the level's parents; in
+    the whole build the parents' child columns are the whole square (the
+    surface crosses every column)."""
     scene = get_scene("terrain")
     depth = 7
-    svo, calls = recorded_columns(monkeypatch, scene, depth, root_level=root_level,
-                                  root_coord=root_coord)
+    svo, calls = recorded_expansions(monkeypatch, scene, depth, root_level=root_level,
+                                     root_coord=root_coord)
     assert svo.n_leaves > 0
     assert [lv for _, lv, _ in calls] == list(range(root_level + 1, depth + 1))
     for parents, level, cols in calls:
         k = level - root_level
         assert (cols.x0, cols.z0, cols.side) == (root_coord[0] << k,
                                                  root_coord[2] << k, 1 << k)
-        assert cols.flagged == (cols.side ** 2 > 4 * parents.shape[0])
+        assert cols.h.shape == (cols.side ** 2,) and not bool(torch.isnan(cols.h).any())
+        square = {(cols.x0 + x, cols.z0 + z) for x in range(cols.side)
+                  for z in range(cols.side)}
         want = child_columns(parents)
-        assert all(cols.x0 <= x < cols.x0 + cols.side and cols.z0 <= z < cols.z0 + cols.side
-                   for x, z in want)
-        for flagged in (True, False):
-            t = octree_cuda.columns_plain(scene, parents, level,
-                                          (cols.x0, cols.z0, cols.side), flagged)
-            done = np.flatnonzero(~np.isnan(t.h.numpy()))
-            got = {(cols.x0 + j % cols.side, cols.z0 + j // cols.side) for j in done}
-            assert got == (want if flagged else
-                           {(cols.x0 + x, cols.z0 + z) for x in range(cols.side)
-                            for z in range(cols.side)}), (level, flagged)
-
-
-def test_flagged_form_builds_the_same_tree(monkeypatch):
-    """Octant builds on the flagged form at every level, and on the whole
-    square at every level, give the host build's octant bytes."""
-    scene = get_scene("terrain")
-    real = octree_cuda.columns
-    builds = {}
-    for flagged in (True, False):
-        monkeypatch.setattr(octree_cuda, "columns",
-                            lambda *a, f=flagged, **kw: real(*a, **kw, flagged=f))
-        builds[flagged] = octree_device.build_svo_device(
-            scene, 6, device="cpu", root_level=2, root_coord=(1, 1, 2))
-    for f in ("masks", "child_base", "leaf_base", "leaf_albedo", "leaf_normal"):
-        assert torch.equal(getattr(builds[True], f), getattr(builds[False], f)), f
-    assert builds[True].n_leaves > 0
+        assert want <= square, level
+        if root_level == 0:
+            assert want == square, level
 
 
 def _of_form_y_minus_h(scene):
@@ -262,10 +240,9 @@ def test_heightfield_table_names_the_y_minus_h_scenes():
     check = re.search(r"const bool heightfield = (.*?);", build, re.S).group(1)
     assert {ids[n] for n in re.findall(r"scene::(\w+)", check)} == set(
         octree_cuda.HEIGHTFIELDS)
-    parents = torch.tensor([[0, 0, 0, 0]], dtype=torch.int32)
     for name in SCENES:
         got = octree_cuda.columns(octree_cuda.device_scene(get_scene(name), "cpu"),
-                                  parents, 1)
+                                  1, device="cpu")
         assert (got is None) == (name not in octree_cuda.HEIGHTFIELDS), name
 
 
@@ -276,7 +253,7 @@ def test_first_form_and_new_form_agree_on_the_cpu():
     ds = octree_cuda.device_scene(get_scene("terrain"), "cpu")
     parents = torch.tensor([[1, 1, 2, 0], [2, 1, 2, 0]], dtype=torch.int32)
     hi, lo = octree_device.keep_bounds(ds.scene.lipschitz, 3, 5)
-    cols = octree_cuda.columns(ds, parents, 3)
+    cols = octree_cuda.columns(ds, 3, device="cpu")
     for a, b in zip(octree_cuda.expand(ds, parents, 3, hi, lo, cols),
                     octree_cuda.expand_serial(ds, parents, 3, hi, lo)):
         assert torch.equal(a, b)

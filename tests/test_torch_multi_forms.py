@@ -218,9 +218,9 @@ def test_c_entries_are_declared_with_their_arity():
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
     # the stitched traces differ only in the arena their chunk walks read
     assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
-    # the stitched brick trace's other forms add the form; its probe the
-    # form and the record
-    assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"] + 1
+    # the stitched brick trace's first form takes its wide form's arguments;
+    # its probe adds the form and the record
+    assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"]
     assert arity["clipmap_trace_brick_probe"] == arity["clipmap_trace_brick"] + 2
     # level_round's queued form adds its queue (the queue, the live count,
     # the segments, their length, the grid's bound) to the first form's
