@@ -236,8 +236,6 @@ def _declare_brick(lib):
         fn.restype = i
     lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
     lib.clipmap_trace_brick_probe.restype = i
-    lib.clipmap_trace_brick_variant.argtypes = [i] + clip + [p]
-    lib.clipmap_trace_brick_variant.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays
     # and the five outputs
     level = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3 + [f, i] + [p] * 4
@@ -263,8 +261,6 @@ def _declare_svo(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables = [p] * 5
     lib.svo_columns.argtypes = [i, i, i, f, i, p, p]
-    lib.svo_columns_flagged.argtypes = [p, i, i, i, i, f, i, p, p, p]
-    lib.svo_columns_flagged.restype = i
     lib.svo_expand.argtypes = [p, i, f, f, f, i] + tables + [p, i, i, i, p, p, p, p]
     lib.svo_expand_serial.argtypes = [p, i, f, f, f, i] + tables + [p, p, p, p]
     lib.svo_compact.argtypes = [p, i, p, p, i, p, p, p, p]

@@ -301,7 +301,7 @@ struct LodStep {
 // (fast_step's LOD mode, not with COLLECT): entering a small non-leaf child
 // returns STEP_NODE with its row in ls.node, the walk registers left as
 // they were; entering a leaf child sets ls.big, whether it is small.
-template <bool COLLECT, bool LOD = false, bool PREFETCH = false>
+template <bool COLLECT, bool LOD = false>
 __device__ __forceinline__ int walk_step(
     const Ray& r, Walk& w, const int* __restrict__ masks,
     const int* __restrict__ child, const int* __restrict__ parent_ptr,
@@ -309,11 +309,6 @@ __device__ __forceinline__ int walk_step(
     LodStep* ls = nullptr) {
   static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
   const int desc = __ldg(masks + w.parent);
-  int pf_child = 0, pf_parent = 0;
-  if constexpr (PREFETCH) {  // a measured variant: the rows with the mask
-    pf_child = __ldg(child + w.parent);
-    pf_parent = __ldg(parent_ptr + w.parent);
-  }
   const int vm = (desc >> 8) & 0xFF;
   const int lm = desc & 0xFF;
   const float scale_exp2 = __int_as_float((w.scale - S_MAX + 127) << 23);
@@ -360,11 +355,7 @@ __device__ __forceinline__ int walk_step(
       }
     }
     const float half = scale_exp2 * 0.5f;
-    if constexpr (PREFETCH) {
-      w.parent = pf_child + __popc(vm & ~lm & below);
-    } else {
-      w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
-    }
+    w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
     int idx = 0;
     for (int c = 0; c < 3; ++c) {
       if (half * r.t_coef[c] + tc[c] > w.t_min) {
@@ -399,11 +390,7 @@ __device__ __forceinline__ int walk_step(
   }
   for (int c = 0; c < 3; ++c) w.pos[c] = parent_pos[c];
   w.idx = (psh[0] & 1) | ((psh[1] & 1) << 1) | ((psh[2] & 1) << 2);
-  if constexpr (PREFETCH) {
-    w.parent = pf_parent;
-  } else {
-    w.parent = __ldg(parent_ptr + w.parent);
-  }
+  w.parent = __ldg(parent_ptr + w.parent);
   w.scale += 1;
   w.popped = true;
   return STEP_ON | collected;
@@ -1435,7 +1422,7 @@ __device__ __forceinline__ bool clip_setup(const float* o, const float* d,
 
 // brick_walk_from in either form, with the counters: WIDE stages the
 // parked brick's row in my_row, its slice of shared memory.
-template <bool WIDE, class P, bool PF = false>
+template <bool WIDE, class P>
 __device__ __forceinline__ int clip_brick_walk(const Tree& tree,
                                                const float o[3],
                                                const float d[3], const Dir& dr,
@@ -1462,10 +1449,8 @@ __device__ __forceinline__ int clip_brick_walk(const Tree& tree,
     int what = STEP_ON, child_shift = 0, leaf_rank = 0;
     for (int top = 0; top < n_top && what == STEP_ON; ++top) {
       t = probe.enter(CP_TOP);
-      Seg unused;
-      what = walk_step<false, false, PF>(r, w, tree.masks, tree.child,
-                                         tree.parent_ptr, child_shift, leaf_rank,
-                                         unused);
+      what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
+                            child_shift, leaf_rank);
       probe.leave(CP_TOP, t);
     }
     if (what == STEP_EXIT) break;
@@ -1513,7 +1498,7 @@ __device__ __forceinline__ int clip_brick_walk(const Tree& tree,
 
 // Ray i's rounds through the brick arena in either form (clipmap_trace_
 // kernel<true>'s arithmetic), with the counters.
-template <bool WIDE, class P, bool PF = false>
+template <bool WIDE, class P>
 __device__ __forceinline__ void clip_brick_ray(const Tree& trunk,
                                                const Tree& chunks,
                                                const Clip& clip,
@@ -1550,10 +1535,8 @@ __device__ __forceinline__ void clip_brick_ray(const Tree& trunk,
       t = probe.enter(CP_TRUNK);
       ++it;
       int child_shift, leaf_rank;
-      Seg unused;
-      const int what = walk_step<false, false, PF>(
-          r, w, trunk.masks, trunk.child, trunk.parent_ptr, child_shift,
-          leaf_rank, unused);
+      const int what = stackless_step(r, w, trunk.masks, trunk.child,
+                                      trunk.parent_ptr, child_shift, leaf_rank);
       if (what == STEP_LEAF) cid = __ldg(trunk.leaf_base + w.parent) + leaf_rank;
       walked = what != STEP_ON;
       probe.leave(CP_TRUNK, t);
@@ -1569,9 +1552,9 @@ __device__ __forceinline__ void clip_brick_ray(const Tree& trunk,
       o_loc[c] = (o_cur[c] - c_org[c]) / c_size;
     }
     float t2;
-    const int leaf = clip_brick_walk<WIDE, P, PF>(chunks, o_loc, d, dr,
-                                                  __ldg(clip.roots + cid), t2,
-                                                  my_row, probe);
+    const int leaf = clip_brick_walk<WIDE>(chunks, o_loc, d, dr,
+                                           __ldg(clip.roots + cid), t2, my_row,
+                                           probe);
     if (leaf >= 0) {
       hit_leaf = leaf;
       hit_t = t_off + t2 * c_size;
@@ -2084,188 +2067,6 @@ int launch_brick_multi(int form, const void* top_masks, const void* top_child,
   return (int)cudaGetLastError();
 }
 
-// clipmap_trace_brick's flat form: one loop whose every turn takes one step
-// of the phase the ray is in, a stackless step of its current walk (the
-// trunk's or the chunk's top tree: one step code over either tree) or a DDA
-// step, and makes the phase's short transitions (a walk's set-up, the
-// descent, the box exit) in the turn that leads to them. A lane that starts
-// its next round or walk does not wait for the warp's slowest walk. Each
-// walk keeps its bounds and each ray its operations, in their order: the
-// same bits as the first form. Set-up once a ray and the staged brick row
-// as in the wide form.
-constexpr int FLAT_TRUNK = 0, FLAT_CHUNK = 1, FLAT_DDA = 2, FLAT_END = 3;
-
-__device__ __forceinline__ void clip_flat_ray(const Tree& trunk,
-                                              const Tree& chunks,
-                                              const Clip& clip,
-                                              const Rays& rays,
-                                              const ClipOut& out, int i,
-                                              int* __restrict__ my_row) {
-  float o[3], d[3];
-  for (int c = 0; c < 3; ++c) {
-    o[c] = rays.origin[(size_t)3 * i + c];
-    d[c] = rays.direction[(size_t)3 * i + c];
-  }
-  Dir dr;
-  dir_setup(d, dr);
-  const int n_trunk = max_iters_for_depth(trunk.depth);
-  const int n_top = max_iters_for_depth(chunks.top_depth);
-  const int n_rounds = 16 * chunks.depth + 64;
-  const int vshift = S_MAX - chunks.depth;
-  const float vsize = __int_as_float((127 - chunks.depth) << 23);
-  const float bsize = __int_as_float((127 - chunks.top_depth) << 23);
-  int flip[3];
-  for (int c = 0; c < 3; ++c) flip[c] = ((dr.om >> c) & 1) ? 0 : 7;
-
-  float t_off = 0.0f, hit_t = 0.0f;
-  int hit_leaf = -1, hit_chunk = -1;
-  bool done = false;
-  int round = 0, cid = -1, count = 0, rounds = 0;
-  float o_cur[3], c_org[3], c_size = 0.0f, bpos[3], t_cur = 0.0f;
-  const int* row = nullptr;
-  Ray r;
-  Walk w;
-
-  // the next clip round: the trunk's walk from o_cur, or the ray's end
-  auto begin_round = [&]() -> int {
-    if (round >= clip.n_max) return FLAT_END;  // truncated
-    ++round;
-    float o_trunk[3];
-    for (int c = 0; c < 3; ++c) {
-      o_cur[c] = o[c] + t_off * d[c];
-      o_trunk[c] = (o_cur[c] - clip.org[c]) / clip.size;
-    }
-    count = 0;
-    if (setup_dir(o_trunk, dr, 0, r, w)) {  // the trunk misses
-      done = true;
-      return FLAT_END;
-    }
-    return FLAT_TRUNK;
-  };
-  // past the chunk's box, then the next round
-  auto box_exit = [&]() -> int {
-    float t_exit = INFINITY;
-    for (int c = 0; c < 3; ++c) {
-      const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
-      const float t0 = (c_org[c] - o_cur[c]) / sd;
-      const float t1 = (c_org[c] + c_size - o_cur[c]) / sd;
-      t_exit = fminf(t_exit, fmaxf(t0, t1));
-    }
-    t_off = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
-    return begin_round();
-  };
-  // the chunk walk's next round of top steps, or its end without a hit
-  auto next_brick_round = [&]() -> int {
-    if (rounds >= n_rounds) return box_exit();
-    ++rounds;
-    count = 0;
-    return FLAT_CHUNK;
-  };
-
-  int phase = begin_round();
-  while (phase != FLAT_END) {
-    if (phase == FLAT_DDA) {
-      ++count;
-      int idx9;
-      const int step = rtt_dda::dda_step(
-          bpos, t_cur, r.t_coef, r.t_bias, flip, vshift, vsize, INFINITY,
-          [my_row](int k) { return (uint32_t)my_row[k]; }, idx9);
-      if (step == rtt_dda::DDA_HIT) {
-        hit_leaf = rtt_dda::leaf_of([my_row](int k) { return my_row[k]; }, idx9);
-        hit_t = t_off + t_cur * c_size;
-        hit_chunk = cid;
-        done = true;
-        break;
-      }
-      if (step == rtt_dda::DDA_EXIT) w.popped = true;
-      if (step != rtt_dda::DDA_STAY || count >= DDA_ROUND_STEPS) {
-        w.t_min = t_cur;
-        phase = next_brick_round();
-      }
-      continue;
-    }
-    // one stackless step of the walk the ray is in
-    const bool in_trunk = phase == FLAT_TRUNK;
-    const Tree& tree = in_trunk ? trunk : chunks;
-    ++count;
-    int child_shift, leaf_rank;
-    const int what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
-                                    child_shift, leaf_rank);
-    if (in_trunk) {
-      if (what == STEP_LEAF) {  // the next chunk: its walk from its root
-        cid = __ldg(trunk.leaf_base + w.parent) + leaf_rank;
-        c_size = __ldg(clip.sizes + cid);
-        float o_loc[3];
-        for (int c = 0; c < 3; ++c) {
-          c_org[c] = __ldg(clip.origins + (size_t)3 * cid + c);
-          o_loc[c] = (o_cur[c] - c_org[c]) / c_size;
-        }
-        rounds = 0;
-        phase = setup_dir(o_loc, dr, __ldg(clip.roots + cid), r, w)
-                    ? box_exit() : next_brick_round();
-      } else if (what == STEP_EXIT || count >= n_trunk) {  // the trunk misses
-        done = true;
-        phase = FLAT_END;
-      }
-    } else if (what == STEP_LEAF) {  // parked: descend into the brick
-      row = chunks.bricks +
-            (size_t)(__ldg(chunks.child + w.parent) + leaf_rank) * ROW_WORDS;
-      int v[ROW_WORDS];
-      for (int k = 0; k < ROW_WORDS; ++k) v[k] = __ldg(row + k);
-      for (int k = 0; k < ROW_WORDS; ++k) my_row[k] = v[k];
-      for (int c = 0; c < 3; ++c) bpos[c] = w.pos[c];
-      t_cur = w.t_min;
-      rtt_dda::descend(r.t_coef, r.t_bias, bsize, t_cur, bpos);
-      count = 0;
-      phase = FLAT_DDA;
-    } else if (what == STEP_EXIT) {
-      phase = box_exit();
-    } else if (count >= n_top) {  // the round's step cap
-      phase = next_brick_round();
-    }
-  }
-  out.hit_leaf[i] = hit_leaf;
-  out.hit_t[i] = hit_t;
-  out.hit_chunk[i] = hit_chunk;
-  out.truncated[i] = done ? 0 : 1;
-}
-
-__global__ void __launch_bounds__(WIDE_BLOCK)
-clipmap_trace_brick_flat_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
-                                ClipOut out) {
-  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n)
-    clip_flat_ray(trunk, chunks, clip, rays, out, i, staged + threadIdx.x * ROW_WORDS);
-}
-
-// Measured variants of the wide form, kept in this commit only: PREFETCH
-// (a node's child and parent rows loaded with its mask, at the wide form's
-// own launch bounds), and MINB blocks an SM at least (__launch_bounds__'s
-// second argument).
-__global__ void __launch_bounds__(WIDE_BLOCK)
-clipmap_trace_brick_prefetch_kernel(Tree trunk, Tree chunks, Clip clip,
-                                    Rays rays, ClipOut out) {
-  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
-  Probe<false, CP_PHASES> probe;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n)
-    clip_brick_ray<true, Probe<false, CP_PHASES>, true>(
-        trunk, chunks, clip, rays, out, i, staged + threadIdx.x * ROW_WORDS, probe);
-}
-
-template <bool PREFETCH, int MINB>
-__global__ void __launch_bounds__(WIDE_BLOCK, MINB)
-clipmap_trace_brick_variant_kernel(Tree trunk, Tree chunks, Clip clip,
-                                   Rays rays, ClipOut out) {
-  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
-  Probe<false, CP_PHASES> probe;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n)
-    clip_brick_ray<true, Probe<false, CP_PHASES>, PREFETCH>(
-        trunk, chunks, clip, rays, out, i, staged + threadIdx.x * ROW_WORDS, probe);
-}
-
 }  // namespace
 
 extern "C" int esvo_stackless(const void* masks, const void* child_base,
@@ -2561,41 +2362,6 @@ static int clipmap_brick_launch(int form, const void* trunk_masks,
     else
       clipmap_trace_brick_probe_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
           trunk, chunks, clip, rays, out, rec);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The measured variants: 0 the flat form, 1 the wide form with PREFETCH,
-// 5, 6, 8 the wide form at that many blocks an SM at least.
-extern "C" int clipmap_trace_brick_variant(
-    int variant, const void* trunk_masks, const void* trunk_child, const void* trunk_parent,
-    const void* trunk_leaf, const void* roots, const void* origins,
-    const void* sizes, float org_x, float org_y, float org_z, float size,
-    const void* top_masks, const void* top_child, const void* top_parent,
-    const void* bricks, const void* origin, const void* direction, int n,
-    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
-    void* hit_chunk, void* truncated, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
-                   (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
-                   trunk_depth, 0};
-  const Tree chunks{(const int*)top_masks, (const int*)top_child,
-                    (const int*)top_parent, nullptr, (const int*)bricks,
-                    chunk_depth, chunk_depth - 3};
-  const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
-                  {org_x, org_y, org_z}, size, n_max};
-  const Rays rays{(const float*)origin, (const float*)direction, n};
-  const ClipOut out{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
-                    (unsigned char*)truncated};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int g = blocks_for(n, WIDE_BLOCK);
-  switch (variant) {
-    case 0: clipmap_trace_brick_flat_kernel<<<g, WIDE_BLOCK, 0, st>>>(trunk, chunks, clip, rays, out); break;
-    case 1: clipmap_trace_brick_prefetch_kernel<<<g, WIDE_BLOCK, 0, st>>>(trunk, chunks, clip, rays, out); break;
-    case 5: clipmap_trace_brick_variant_kernel<false, 5><<<g, WIDE_BLOCK, 0, st>>>(trunk, chunks, clip, rays, out); break;
-    case 6: clipmap_trace_brick_variant_kernel<false, 6><<<g, WIDE_BLOCK, 0, st>>>(trunk, chunks, clip, rays, out); break;
-    case 8: clipmap_trace_brick_variant_kernel<false, 8><<<g, WIDE_BLOCK, 0, st>>>(trunk, chunks, clip, rays, out); break;
-    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@
 //                  (PERF.md). A 3-D scene is evaluated a child, by
 //                  svo_expand_kernel.
 //   svo_expand_serial  the expansion's first form: svo_expand_kernel for
-//                  every scene, the scene evaluated at every child (PR 14's
+//                  every scene, the scene evaluated at every child (the first
 //                  kernel, its code kept); on no build's path.
 //   svo_compact    replaces _compact (:80), _compact_merged (:94) and every
 //                  jnp.flatnonzero of the assembly and of phase D: a stable
@@ -188,36 +188,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
   const int total = __syncthreads_count(kept);
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
-// The flagged column pass, a measured variant kept in this commit only: each
-// parent (at level - 1) flags its column of the square's half-resolution
-// grid, and h is evaluated at the flagged columns' children alone (NaN
-// elsewhere).
-__global__ void __launch_bounds__(BLOCK)
-    svo_column_flags_kernel(const int4* __restrict__ parents, int n_p, int x0,
-                            int z0, int side, unsigned char* __restrict__ flags) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n_p) return;
-  const int4 p = __ldg(parents + i);
-  flags[(size_t)(p.z - (z0 >> 1)) * (side >> 1) + (p.x - (x0 >> 1))] = 1;
-}
-
-__global__ void __launch_bounds__(BLOCK)
-    svo_columns_flagged_kernel(int x0, int z0, int side, float scale,
-                               int scene_id,
-                               const unsigned char* __restrict__ flags,
-                               float* __restrict__ h) {
-  const int j = blockIdx.x * BLOCK + threadIdx.x;
-  if (j >= side * side) return;
-  const int jx = j & (side - 1), jz = j / side;
-  float v = __int_as_float(0x7fc00000);
-  if (flags[(size_t)(jz >> 1) * (side >> 1) + (jx >> 1)]) {
-    const float px = ((float)(x0 + jx) + 0.5f) * scale;
-    const float pz = ((float)(z0 + jz) + 0.5f) * scale;
-    v = scene::height(scene_id, px, pz);
-  }
-  h[j] = v;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -591,23 +561,6 @@ extern "C" int svo_columns(int x0, int z0, int side, float scale,
 // h: null for a 3-D scene (the scene evaluated a child, svo_expand_kernel),
 // else svo_columns' table of the side x side square from (x0, z0), which
 // covers every child's column.
-// The flagged column pass (measured variant): flags is scratch of (side /
-// 2)^2 bytes.
-extern "C" int svo_columns_flagged(const void* parents, int n_p, int x0, int z0,
-                                   int side, float scale, int scene_id,
-                                   void* flags, void* h, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e =
-      cudaMemsetAsync(flags, 0, (size_t)(side >> 1) * (side >> 1), st);
-  if (e != cudaSuccess) return (int)e;
-  if (n_p > 0)
-    svo_column_flags_kernel<<<blocks_for(n_p), BLOCK, 0, st>>>(
-        (const int4*)parents, n_p, x0, z0, side, (unsigned char*)flags);
-  svo_columns_flagged_kernel<<<blocks_for((long long)side * side), BLOCK, 0, st>>>(
-      x0, z0, side, scale, scene_id, (const unsigned char*)flags, (float*)h);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int svo_expand(const void* parents, int n_children, float scale,
                           float thr_hi, float thr_lo, int scene_id,
                           const void* perm, const void* perm3d,

@@ -117,7 +117,6 @@ _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 _CLIPMAP_TRACE_BRICK_SERIAL = Kernel("clipmap_trace_brick_serial", brick_lib)
 _CLIPMAP_TRACE_BRICK_PROBE = Kernel("clipmap_trace_brick_probe", brick_lib)
-_CLIPMAP_TRACE_BRICK_VARIANT = Kernel("clipmap_trace_brick_variant", brick_lib)
 _LEVEL_ROUND = Kernel("level_round", brick_lib)
 _LEVEL_ROUND_SERIAL = Kernel("level_round_serial", brick_lib)
 _LEVEL_ROUND_PROBE = Kernel("level_round_probe", brick_lib)
@@ -627,19 +626,6 @@ def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
     _CLIPMAP_TRACE_BRICK_PROBE(origin.device, code, *head, record.data_ptr())
     probe_launches["clipmap_trace_brick_probe"] += 1
     return out, record
-
-
-def clipmap_variant_kernel(variant, trunk, org, size, roots, origins, sizes, arena,
-                           origin, direction, chunk_depth, n_max):
-    """A measured variant of ``clipmap_trace_brick`` (csrc/brick_trace.cu's
-    clipmap_trace_brick_variant: 0 the flat form, 1 the wide form with a
-    node's rows prefetched, 5, 6, 8 the wide form at that many blocks an SM);
-    ``clipmap_kernel``'s arguments and results."""
-    head, out = _clip_args(_CLIPMAP_TRACE_BRICK_VARIANT, trunk, org, size, roots,
-                           origins, sizes, arena, origin, direction, chunk_depth,
-                           n_max)
-    _CLIPMAP_TRACE_BRICK_VARIANT(origin.device, variant, *head)
-    return out
 
 
 def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,

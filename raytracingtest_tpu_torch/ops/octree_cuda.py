@@ -81,7 +81,6 @@ launches = {"svo_columns": 0, "svo_expand": 0, "svo_expand_serial": 0,
             "scene_eval": 0}
 
 _SVO_COLUMNS = Kernel("svo_columns", svo_lib)
-_SVO_COLUMNS_FLAGGED = Kernel("svo_columns_flagged", svo_lib)
 _SVO_EXPAND = Kernel("svo_expand", svo_lib)
 _SVO_EXPAND_SERIAL = Kernel("svo_expand_serial", svo_lib)
 _SVO_COMPACT = Kernel("svo_compact", svo_lib)
@@ -220,21 +219,6 @@ def columns(ds: DeviceScene, level: int, root_level: int = 0,
                  h.data_ptr())
     launches["svo_columns"] += 1
     return Columns(h, *square)
-
-
-def columns_flagged(ds: DeviceScene, parents, level: int, square):
-    """A measured variant of ``columns`` (kernel svo_columns_flagged): h at
-    the child columns of the (n_p, 4) parents' columns alone, NaN at the
-    rest of `square` (``column_square``'s), on the parents' CUDA device."""
-    x0, z0, side = square
-    dev = parents.device
-    _SVO_COLUMNS_FLAGGED.check(dev, (("parents", parents, _I32, (parents.shape[0], 4)),))
-    h = torch.empty(side * side, dtype=_F32, device=dev)
-    flags = torch.empty((side >> 1) ** 2, dtype=_U8, device=dev)
-    _SVO_COLUMNS_FLAGGED(dev, parents.data_ptr(), parents.shape[0], x0, z0, side,
-                         float(np.float32(2.0 ** (-level))), ds.scene_id,
-                         flags.data_ptr(), h.data_ptr())
-    return Columns(h, x0, z0, side)
 
 
 # ---- svo_expand ---------------------------------------------------------------
