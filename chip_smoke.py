@@ -1447,19 +1447,21 @@ def snapshot(tree):
         if isinstance(getattr(tree, f.name), torch.Tensor)})
 
 
-def clip_warps_line(kernel, form, record):
-    """[warps] of a stitched brick trace's probe form: each phase's issues a
-    warp, SIMT efficiency and share of warp cycles (brick_cuda.CLIP_PHASES;
-    the round phase's lanes are the rays' rounds), the rounds a ray and a
-    warp's passes through the round loop, warp durations, and the kernel's
-    span and the share of it after 99% of warps ended. Returns the
-    numbers."""
+def clip_warps_line(kernel, form, record, node=False):
+    """[warps] of a stitched trace's probe form (`node`: the node arena's,
+    brick_cuda.CLIP_NODE_PHASES; else the brick arena's, CLIP_PHASES): each
+    phase's issues a warp, SIMT efficiency and share of warp cycles (the
+    round phase's lanes are the rays' rounds), the rounds a ray and a warp's
+    passes through the round loop, warp durations, and the kernel's span and
+    the share of it after 99% of warps ended. Returns the numbers."""
     block = brick_cuda.BLOCKS[form]
+    fields, names = ((brick_cuda.CLIP_NODE_PROBE_FIELDS, brick_cuda.CLIP_NODE_PHASES)
+                     if node else (brick_cuda.CLIP_PROBE_FIELDS, brick_cuda.CLIP_PHASES))
     r = record.cpu().numpy().astype(np.float64)
-    f = {k: r[:, i] for i, k in enumerate(brick_cuda.CLIP_PROBE_FIELDS)}
+    f = {k: r[:, i] for i, k in enumerate(fields)}
     cycles = f["end"] - f["start"]
     phases = {}
-    for ph in brick_cuda.CLIP_PHASES:
+    for ph in names:
         issues = f[f"{ph}_issues"].sum()
         if issues:
             phases[ph] = (issues / len(cycles), f[f"{ph}_lanes"].sum() / (32 * issues),

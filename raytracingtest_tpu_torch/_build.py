@@ -32,10 +32,11 @@ Seven libraries, each built on first use into
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
                      ``brick_trace_lod``), the streamed world's
-                     stitched traces (``clipmap_trace``,
-                     ``clipmap_trace_brick`` in a wide form and its first
-                     form, with counters too) and the level-sharded
-                     rounds (``level_round``, three modes);
+                     stitched traces (``clipmap_trace`` and
+                     ``clipmap_trace_brick``, each in a wide form and its
+                     first form, with counters too) and the level-sharded
+                     rounds (``level_round``, three modes, and its queue
+                     ``level_queue`` in one pass and its first form);
   * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
                      builder on the card (``svo_columns``, ``svo_expand``
                      and its first form, ``svo_compact``, ``svo_leaves``,
@@ -235,7 +236,9 @@ def _declare_brick(lib):
         fn.argtypes = clip + [p]
         fn.restype = i
     lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
-    lib.clipmap_trace_brick_probe.restype = i
+    lib.clipmap_trace_form.argtypes = [i, i] + clip + [p, p]
+    for fn in (lib.clipmap_trace_brick_probe, lib.clipmap_trace_form):
+        fn.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays
     # and the five outputs
     level = ([i] + [p] * 4 + [i] + [p] * 4 + [i] + [p] * 3 + [f, i] + [p] * 4
@@ -244,8 +247,9 @@ def _declare_brick(lib):
     lib.level_round_serial.argtypes = level + [p]
     lib.level_round_probe.argtypes = level + [p, p]
     lib.level_queue.argtypes = [i, i, p, p, p, p, i, p, i] + [p] * 8 + [p]
+    lib.level_queue_serial.argtypes = [i, i, p, p, p, p, i] + [p] * 8 + [p]
     for fn in (lib.level_round, lib.level_round_serial, lib.level_round_probe,
-               lib.level_queue):
+               lib.level_queue, lib.level_queue_serial):
         fn.restype = i
     for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,

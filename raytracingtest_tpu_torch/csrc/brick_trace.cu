@@ -1609,6 +1609,195 @@ clipmap_trace_brick_probe_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
   probe.finish(probe_out);
 }
 
+// ---- clipmap_trace's wide form and its probe ---------------------------------
+//
+// clipmap_trace_kernel<false> is clipmap_trace's first form (a thread a ray
+// in blocks of 128; both walks set up from o and d each round; o_trunk and
+// o_loc divided by the trunk's and the chunk's size). A round of it takes 18
+// IEEE divisions against some 7.8 stackless steps on fly frame 0. Its wide
+// form, clipmap_trace_wide_kernel, the main path's, gives the same bits:
+//   * the direction's constants are made once a ray (dir_setup, setup_dir,
+//     as clipmap_trace_brick's wide form makes them): each round's two
+//     set-ups keep their bits without their three divisions each;
+//   * o_trunk's and o_loc's divisions by a size that is a normal power of
+//     two whose reciprocal is normal (pow2_reciprocal: the size's bits) are
+//     products with that exact reciprocal: x / 2^k and x * 2^-k are the same
+//     real number, each correctly rounded, so the same float, subnormal
+//     results included. The trunk's size is tested once a ray, a chunk's
+//     each round; another size is divided, as the first form does. The
+//     chunk sizes are min_chunk_size * 2^lod (0.125 and 0.25 on the fly
+//     path) and the trunk's the world's (1);
+//   * the box exit's six divisions by sd stay: sd is the ray's direction,
+//     whose reciprocal is not exact.
+// The first form's kernel keeps its own body (clipmap_trace_kernel,
+// stackless_walk_from), so that its code stays as it was.
+// clipmap_trace_probe_kernel<WIDE> is either form with per-warp counters
+// over CN_PHASES phases (the layout at Probe, NPH = CN_PHASES): a trunk step,
+// a walk's set-up, the origin's scaling (o_cur and o_trunk, then o_loc), a
+// chunk's stackless step, the box exit, and a round (entered once a round,
+// as clipmap_trace_brick's probe enters it).
+constexpr int CN_TRUNK = 0, CN_SETUP = 1, CN_SCALE = 2, CN_STEP = 3,
+              CN_EXIT = 4, CN_ROUND = 5, CN_PHASES = 6;
+constexpr int CLIP_BLOCK = 256;  // the wide form's block, chosen in turns
+
+// Whether `size` is a normal power of two with a normal reciprocal, which
+// it then returns in `inv`: biased exponent e in [1, 253], mantissa 0; the
+// reciprocal's biased exponent is 254 - e.
+__device__ __forceinline__ bool pow2_reciprocal(float size, float& inv) {
+  const int bits = __float_as_int(size);
+  const int e = (bits >> 23) & 0xff;
+  inv = __int_as_float((254 - e) << 23);
+  return (bits & 0x807fffff) == 0 && e >= 1 && e <= 253;
+}
+
+// (x - org) / size in either form: WIDE with the exact reciprocal where
+// `exact` holds.
+template <bool WIDE>
+__device__ __forceinline__ float clip_scale(float x, float org, float size,
+                                            bool exact, float inv) {
+  if constexpr (WIDE) {
+    if (exact) return (x - org) * inv;
+  }
+  return (x - org) / size;
+}
+
+// The stackless walk of either form from node row `root`, with the
+// counters (stackless_walk_probe's arithmetic): the leaf, or -1; its t in
+// t_hit.
+template <bool WIDE, class P>
+__device__ __forceinline__ int clip_node_walk(const Tree& tree, const float o[3],
+                                              const float d[3], const Dir& dr,
+                                              int root, int step_phase,
+                                              float& t_hit, P& probe) {
+  Ray r;
+  Walk w;
+  long long t = probe.enter(CN_SETUP);
+  bool done = clip_setup<WIDE>(o, d, dr, root, r, w);
+  probe.leave(CN_SETUP, t);
+  const int n_max = max_iters_for_depth(tree.depth);
+  int leaf = -1;
+  float ht = 0.0f;
+  for (int it = 0; !done && it < n_max;) {
+    t = probe.enter(step_phase);
+    ++it;
+    int child_shift, leaf_rank;
+    const int what = stackless_step(r, w, tree.masks, tree.child,
+                                    tree.parent_ptr, child_shift, leaf_rank);
+    if (what == STEP_LEAF) {
+      ht = w.t_min;
+      leaf = __ldg(tree.leaf_base + w.parent) + leaf_rank;
+    }
+    done = what != STEP_ON;
+    probe.leave(step_phase, t);
+  }
+  t_hit = ht;
+  return leaf;
+}
+
+// Ray i's rounds through the node arena in either form (clipmap_trace_
+// kernel<false>'s arithmetic), with the counters.
+template <bool WIDE, class P>
+__device__ __forceinline__ void clip_node_ray(const Tree& trunk,
+                                              const Tree& chunks,
+                                              const Clip& clip, const Rays& rays,
+                                              const ClipOut& out, int i,
+                                              P& probe) {
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = rays.origin[(size_t)3 * i + c];
+    d[c] = rays.direction[(size_t)3 * i + c];
+  }
+  Dir dr;
+  float inv_trunk = 0.0f;
+  bool exact_trunk = false;
+  if constexpr (WIDE) {
+    dir_setup(d, dr);
+    exact_trunk = pow2_reciprocal(clip.size, inv_trunk);
+  }
+  float t_off = 0.0f, hit_t = 0.0f;
+  int hit_leaf = -1, hit_chunk = -1;
+  bool done = false;
+  for (int round = 0; round < clip.n_max && !done; ++round) {
+    probe.leave(CN_ROUND, probe.enter(CN_ROUND));
+    long long t = probe.enter(CN_SCALE);
+    float o_cur[3], o_trunk[3];
+    for (int c = 0; c < 3; ++c) {
+      o_cur[c] = o[c] + t_off * d[c];
+      o_trunk[c] = clip_scale<WIDE>(o_cur[c], clip.org[c], clip.size, exact_trunk,
+                                    inv_trunk);
+    }
+    probe.leave(CN_SCALE, t);
+    float t_unused;
+    const int cid = clip_node_walk<WIDE>(trunk, o_trunk, d, dr, 0, CN_TRUNK,
+                                         t_unused, probe);
+    if (cid < 0) {  // the trunk misses: the ray ends
+      done = true;
+      break;
+    }
+    const float c_size = __ldg(clip.sizes + cid);
+    float c_org[3], o_loc[3];
+    t = probe.enter(CN_SCALE);
+    float inv_chunk = 0.0f;
+    bool exact_chunk = false;
+    if constexpr (WIDE) exact_chunk = pow2_reciprocal(c_size, inv_chunk);
+    for (int c = 0; c < 3; ++c) {
+      c_org[c] = __ldg(clip.origins + (size_t)3 * cid + c);
+      o_loc[c] = clip_scale<WIDE>(o_cur[c], c_org[c], c_size, exact_chunk, inv_chunk);
+    }
+    probe.leave(CN_SCALE, t);
+    float t2;
+    const int leaf = clip_node_walk<WIDE>(chunks, o_loc, d, dr,
+                                          __ldg(clip.roots + cid), CN_STEP, t2,
+                                          probe);
+    if (leaf >= 0) {
+      hit_leaf = leaf;
+      hit_t = t_off + t2 * c_size;
+      hit_chunk = cid;
+      done = true;
+      break;
+    }
+    // past the chunk's box: the least far-plane t over the axes
+    t = probe.enter(CN_EXIT);
+    float t_exit = INFINITY;
+    for (int c = 0; c < 3; ++c) {
+      const float sd = fabsf(d[c]) < 1e-12f ? 1e-12f : d[c];
+      const float t0 = (c_org[c] - o_cur[c]) / sd;
+      const float t1 = (c_org[c] + c_size - o_cur[c]) / sd;
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
+    t_off = t_off + fmaxf(t_exit, 0.0f) + 1e-5f;
+    probe.leave(CN_EXIT, t);
+  }
+  out.hit_leaf[i] = hit_leaf;
+  out.hit_t[i] = hit_t;
+  out.hit_chunk[i] = hit_chunk;
+  out.truncated[i] = done ? 0 : 1;
+  probe.ray();
+}
+
+// clipmap_trace's wide form: a thread a ray in blocks of B.
+template <int B>
+__global__ void __launch_bounds__(B)
+clipmap_trace_wide_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                          ClipOut out) {
+  Probe<false, CN_PHASES> probe;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) clip_node_ray<true>(trunk, chunks, clip, rays, out, i, probe);
+}
+
+// Either form with the counters: the wide form in blocks of CLIP_BLOCK, the
+// first in blocks of BLOCK.
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? CLIP_BLOCK : BLOCK)
+clipmap_trace_probe_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
+                           ClipOut out, long long* __restrict__ probe_out) {
+  Probe<true, CN_PHASES> probe;
+  probe.begin();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) clip_node_ray<WIDE>(trunk, chunks, clip, rays, out, i, probe);
+  probe.finish(probe_out);
+}
+
 // ---- the level-sharded renderer: level_round ---------------------------------
 //
 // One round of the level-sharded traces (raytracingtest_tpu/parallel/
@@ -1772,21 +1961,51 @@ level_round_probe_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io,
 //
 // The main path's form launches a thread for each live ray or valid packet
 // only, so that a warp's lanes all walk. "sharded" and "trunk": a stable
-// compaction of the rays not done, as svo_compact's (svo_build.cu): the
-// blocks' counts (level_queue_count_kernel), their exclusive scan and total
-// (torch.cumsum outside; the total is the live count that the loop reads on
-// the host, and that sizes the round's grid), and the place pass
-// (level_queue_place_kernel): each live ray's index at its rank (ballot and
-// __popc within the warp, the block's warp prefix in shared memory, the
-// block's offset), and a done ray's outputs written as the first form
-// writes them (oct_id -1, t_next = t_off, no hit). In a loop the passes
-// run over the previous round's queue instead of every ray (a done ray
-// stays done, so the live rays are a subset of it), and the loop keeps the
-// outputs from round to round: a ray's outputs are written as a done ray's
-// once, in the round after it was done, and stay. So a round's passes cost
-// in proportion to the rays it had live. The queue takes the done rays off
-// the walk's warps; it does not shorten a round's longest walks, which set
-// its span (the first form's probe, chip_smoke.py [sharded]).
+// compaction of the rays not done, the live rays' indices in order, and a
+// done ray's outputs written as the first form writes them (oct_id -1,
+// t_next = t_off, no hit). In a loop the compaction runs over the previous
+// round's queue instead of every ray (a done ray stays done, so the live
+// rays are a subset of it), and the loop keeps the outputs from round to
+// round: a ray's outputs are written as a done ray's once, in the round
+// after it was done, and stay. So a round's queue costs in proportion to
+// the rays it had live. The queue takes the done rays off the walk's warps;
+// it does not shorten a round's longest walks, which set its span (the
+// first form's probe, chip_smoke.py [sharded]).
+//
+// level_queue_lookback_kernel, the main path's, makes a round's queue in
+// one pass: a single-pass scan with decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// NVIDIA 2016). Its bytes are the flags read once, the done rays' t_off and
+// outputs and the live rays' places (PERF.md); its first form made it in
+// five launches and read the flags twice. A block of QBLOCK threads takes a
+// tile of QTILE entries, its tile's index from a ticket (an atomic counter),
+// not from blockIdx, so that a block looks back only at tiles whose blocks
+// already run. Warp w of the tile holds entries w * 512 + k * 32 + lane (k
+// < QITEMS): over every ray the tile's flags come in as one 16-byte load a
+// thread, staged in shared memory; over a queue, entry by entry. A warp
+// writes its done rays' outputs at once, then counts its live rays with
+// __ballot_sync and __popc, a ballot a k. The block's aggregate goes out in
+// its tile's status word (a 64-bit word: the launch's epoch, a flag,
+// aggregate or inclusive prefix, and the value), warp 0 looks back over
+// the words of the tiles before it, 32 at a time, summing aggregates down
+// to the nearest inclusive prefix, and publishes its own inclusive prefix;
+// then each live ray goes to its place, the tile's exclusive prefix plus
+// its warp's and its rank in the warp's ballots. The last tile writes the
+// total to n_live on the device, which level_round_queued_kernel reads and
+// the loop reads once on the host. The status words and the two control
+// words (the next ticket, the epoch) belong to a loop and are zeroed once a
+// loop: each launch tags its words with its epoch, so a word of an earlier
+// launch reads as not yet published, and the block that takes the last
+// ticket resets the ticket and moves the epoch on for the next launch.
+// The queue is the same stable order as the first form's, so every round
+// keeps its bits.
+//
+// The first form, level_queue_serial (kept as it was): the blocks' counts
+// (level_queue_count_kernel), their exclusive scan and total (torch.cumsum
+// outside), and the place pass (level_queue_place_kernel): each live ray's
+// index at its rank (ballot and __popc within the warp, the block's warp
+// prefix in shared memory, the block's offset), the done rays' outputs.
+//
 // "packets": the exchange lays each peer's packets at the start of that
 // peer's segment of `seg` slots (make_exchange_trace's bucket), so the
 // valid slots of a segment are a prefix; level_queue_packets_kernel finds each segment's count by a
@@ -1887,6 +2106,159 @@ level_queue_packets_kernel(const float* __restrict__ packets, int n, int n_seg,
     }
   }
   if (threadIdx.x == 0) seg_count[blockIdx.x] = a;
+}
+
+// level_queue_lookback_kernel's tiles: QITEMS entries a thread, QTILE a
+// block, QWARP a warp
+constexpr int QITEMS = 16, QTILE = QBLOCK * QITEMS, QWARP = 32 * QITEMS;
+// a tile's status word: (epoch << 2 | flag) << 32 | value, the epoch's low
+// 30 bits; flag 0 (or an earlier epoch): not published yet
+constexpr unsigned Q_AGGREGATE = 1, Q_PREFIX = 2, Q_EPOCH_MASK = 0x3fffffffu;
+
+// A loop's status words: ctl[0] the next ticket, ctl[1] the epoch; a word a
+// tile after them.
+struct QueueStatus {
+  unsigned* ctl;
+  unsigned long long* words;
+};
+
+__device__ __forceinline__ void q_publish(unsigned long long* word, unsigned epoch,
+                                          unsigned flag, int value) {
+  *(volatile unsigned long long*)word =
+      ((unsigned long long)((epoch << 2) | flag) << 32) | (unsigned)value;
+}
+
+// The flag of a tile's status word in this launch (0: not published yet),
+// its value in `value`.
+__device__ __forceinline__ unsigned q_read(const unsigned long long* word,
+                                           unsigned epoch, int& value) {
+  const unsigned long long s = *(const volatile unsigned long long*)word;
+  value = (int)(unsigned)s;
+  const unsigned hi = (unsigned)(s >> 32);
+  return (hi >> 2) == epoch ? (hi & 3u) : 0u;
+}
+
+// The one pass (see the section's head): a block a tile of QTILE entries,
+// every ray (prev null) or the last round's queue (its first *n_prev of
+// prev_cap entries); the tiles' status words at qs; the live rays' indices
+// at queue from the tile's exclusive prefix on, the total at n_live (the
+// last tile), a done ray's outputs at io.
+template <int MODE>
+__global__ void __launch_bounds__(QBLOCK)
+level_queue_lookback_kernel(const unsigned char* __restrict__ done, int n,
+                            const int* __restrict__ prev,
+                            const int* __restrict__ n_prev, QueueStatus qs,
+                            int* __restrict__ queue, int* __restrict__ n_live,
+                            LevelIO io) {
+  __shared__ uint4 flags[QBLOCK];  // the tile's flags, over every ray
+  __shared__ int warp_first[QBLOCK / 32];
+  __shared__ int tile_s;
+  __shared__ unsigned epoch_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const unsigned epoch = *(volatile unsigned*)(qs.ctl + 1);
+    __threadfence();
+    const unsigned ticket = atomicAdd(qs.ctl, 1u);
+    if (ticket == gridDim.x - 1) {  // every other block holds its ticket
+      *(volatile unsigned*)qs.ctl = 0u;
+      __threadfence();
+      atomicAdd(qs.ctl + 1, 1u);
+    }
+    tile_s = (int)ticket;
+    epoch_s = epoch & Q_EPOCH_MASK;
+  }
+  __syncthreads();
+  const int tile = tile_s;
+  const unsigned epoch = epoch_s;
+  const long long tile0 = (long long)tile * QTILE;
+  const unsigned char* staged = reinterpret_cast<const unsigned char*>(flags);
+  int m = n;
+  if (prev == nullptr) {  // the tile's flags: one 16-byte load a thread
+    const long long j = tile0 + 16 * threadIdx.x;
+    if (j + 16 <= n && (reinterpret_cast<size_t>(done) & 15) == 0) {
+      flags[threadIdx.x] = __ldg(reinterpret_cast<const uint4*>(done + j));
+    } else {
+      unsigned char* mine = reinterpret_cast<unsigned char*>(flags) + 16 * threadIdx.x;
+      for (int k = 0; k < 16; ++k) mine[k] = j + k < n ? done[j + k] : 1;
+    }
+    __syncthreads();
+  } else {
+    m = __ldg(n_prev);
+  }
+  // pass 1: each entry's ray, a done ray's outputs, the warp's ballots
+  unsigned ballot[QITEMS];
+  int ray[QITEMS];
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < QITEMS; ++k) {
+    const int local = warp * QWARP + k * 32 + lane;
+    const long long e = tile0 + local;
+    int i = -1;
+    bool gone = true;
+    if (e < m) {
+      i = prev == nullptr ? (int)e : __ldg(prev + e);
+      gone = (prev == nullptr ? staged[local] : done[i]) != 0;
+    }
+    ray[k] = i;
+    if (i >= 0 && gone) {
+      io.oct_id[i] = -1;
+      io.t_next[i] = io.t_off[i];
+      if (MODE == LEVEL_SHARDED) {
+        io.hit[i] = 0;
+        io.leaf[i] = -1;
+        io.t_hit[i] = 0.0f;
+      }
+    }
+    ballot[k] = __ballot_sync(FULL, i >= 0 && !gone);
+    count += __popc(ballot[k]);
+  }
+  if (lane == 0) warp_first[warp] = count;
+  __syncthreads();
+  // warp 0: the tile's aggregate, the look-back, the warps' first places
+  if (warp == 0) {
+    const int c = lane < QBLOCK / 32 ? warp_first[lane] : 0;
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int aggregate = __shfl_sync(FULL, incl, 31);
+    if (lane == 0)
+      q_publish(qs.words + tile, epoch, tile == 0 ? Q_PREFIX : Q_AGGREGATE, aggregate);
+    int exclusive = 0;
+    for (int hi = tile - 1; tile > 0; hi -= 32) {
+      // lane l reads tile hi - l's word, once it is published; a tile
+      // before the first is an inclusive prefix of 0
+      const int p = hi - lane;
+      unsigned flag = Q_PREFIX;
+      int value = 0;
+      if (p >= 0) {
+        do {
+          flag = q_read(qs.words + p, epoch, value);
+        } while (flag == 0);
+      }
+      // the nearest inclusive prefix and the aggregates after it
+      const unsigned prefix = __ballot_sync(FULL, flag == Q_PREFIX);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      int add = lane <= stop ? value : 0;
+      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(FULL, add, o);
+      exclusive += add;
+      if (prefix) break;
+    }
+    if (lane == 0 && tile > 0)
+      q_publish(qs.words + tile, epoch, Q_PREFIX, exclusive + aggregate);
+    if (lane < QBLOCK / 32) warp_first[lane] = exclusive + incl - c;
+    if (lane == 0 && tile == (int)gridDim.x - 1) *n_live = exclusive + aggregate;
+  }
+  __syncthreads();
+  // pass 2: each live ray at its place
+  int pos = warp_first[warp];
+#pragma unroll
+  for (int k = 0; k < QITEMS; ++k) {
+    const unsigned b = ballot[k];
+    if ((b >> lane) & 1u) queue[pos + __popc(b & ((1u << lane) - 1u))] = ray[k];
+    pos += __popc(b);
+  }
 }
 
 template <int MODE>
@@ -2283,6 +2655,61 @@ extern "C" int brick_trace_multi_probe(
 // tables (roots, origins (C, 3), sizes), the trunk's world corner and size,
 // the node arena (masks, child_base, parent_ptr, leaf_base; chunk_depth)
 // and n_max rounds; (n,) hit_leaf, hit_t, hit_chunk and truncated (bytes).
+// `form`: FORM_WIDE (clipmap_trace_wide_kernel in blocks of `block`, 128 or
+// 256) or FORM_FIRST (clipmap_trace_kernel<false>); with `probe` (CN_PHASES'
+// record, 6 + 3 CN_PHASES int64 words a warp of the form's blocks) the
+// form's probe kernel.
+static int clipmap_node_launch(int form, int block, const void* trunk_masks,
+                               const void* trunk_child, const void* trunk_parent,
+                               const void* trunk_leaf, const void* roots,
+                               const void* origins, const void* sizes, float org_x,
+                               float org_y, float org_z, float size,
+                               const void* masks, const void* child_base,
+                               const void* parent_ptr, const void* leaf_base,
+                               const void* origin, const void* direction, int n,
+                               int trunk_depth, int chunk_depth, int n_max,
+                               void* hit_leaf, void* hit_t, void* hit_chunk,
+                               void* truncated, void* probe, void* stream) {
+  if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 1 ||
+      chunk_depth > S_MAX - 1 || n_max < 0 ||
+      (form != FORM_FIRST && form != FORM_WIDE) ||
+      (form == FORM_WIDE && block != 128 && block != 256) ||
+      (probe != nullptr && form == FORM_WIDE && block != CLIP_BLOCK))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
+                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
+                     trunk_depth, 0};
+    const Tree chunks{(const int*)masks, (const int*)child_base,
+                      (const int*)parent_ptr, (const int*)leaf_base, nullptr,
+                      chunk_depth, 0};
+    const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
+                    {org_x, org_y, org_z}, size, n_max};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const ClipOut out{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
+                      (unsigned char*)truncated};
+    const cudaStream_t st = (cudaStream_t)stream;
+    long long* rec = (long long*)probe;
+    if (form == FORM_WIDE && rec != nullptr)
+      clipmap_trace_probe_kernel<true><<<blocks_for(n, CLIP_BLOCK), CLIP_BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out, rec);
+    else if (form == FORM_WIDE && block == 128)
+      clipmap_trace_wide_kernel<128><<<blocks_for(n, 128), 128, 0, st>>>(
+          trunk, chunks, clip, rays, out);
+    else if (form == FORM_WIDE)
+      clipmap_trace_wide_kernel<256><<<blocks_for(n, 256), 256, 0, st>>>(
+          trunk, chunks, clip, rays, out);
+    else if (rec != nullptr)
+      clipmap_trace_probe_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out, rec);
+    else
+      clipmap_trace_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
+          trunk, chunks, clip, rays, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The main path's form: the wide form in blocks of CLIP_BLOCK.
 extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
                              const void* trunk_parent, const void* trunk_leaf,
                              const void* roots, const void* origins,
@@ -2294,25 +2721,29 @@ extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
                              int chunk_depth, int n_max, void* hit_leaf,
                              void* hit_t, void* hit_chunk, void* truncated,
                              void* stream) {
-  if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 1 ||
-      chunk_depth > S_MAX - 1 || n_max < 0)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
-                     (const int*)trunk_parent, (const int*)trunk_leaf, nullptr,
-                     trunk_depth, 0};
-    const Tree chunks{(const int*)masks, (const int*)child_base,
-                      (const int*)parent_ptr, (const int*)leaf_base, nullptr,
-                      chunk_depth, 0};
-    const Clip clip{(const int*)roots, (const float*)origins, (const float*)sizes,
-                    {org_x, org_y, org_z}, size, n_max};
-    clipmap_trace_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0,
-                                  (cudaStream_t)stream>>>(
-        trunk, chunks, clip, Rays{(const float*)origin, (const float*)direction, n},
-        ClipOut{(int*)hit_leaf, (float*)hit_t, (int*)hit_chunk,
-                (unsigned char*)truncated});
-  }
-  return (int)cudaGetLastError();
+  return clipmap_node_launch(FORM_WIDE, CLIP_BLOCK, trunk_masks, trunk_child,
+                             trunk_parent, trunk_leaf, roots, origins, sizes, org_x,
+                             org_y, org_z, size, masks, child_base, parent_ptr,
+                             leaf_base, origin, direction, n, trunk_depth,
+                             chunk_depth, n_max, hit_leaf, hit_t, hit_chunk,
+                             truncated, nullptr, stream);
+}
+
+// Either form (FORM_FIRST: clipmap_trace's first form, the check and the
+// yardstick; FORM_WIDE in blocks of `block`), or with `probe` its counters.
+extern "C" int clipmap_trace_form(
+    int form, int block, const void* trunk_masks, const void* trunk_child,
+    const void* trunk_parent, const void* trunk_leaf, const void* roots,
+    const void* origins, const void* sizes, float org_x, float org_y, float org_z,
+    float size, const void* masks, const void* child_base, const void* parent_ptr,
+    const void* leaf_base, const void* origin, const void* direction, int n,
+    int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
+    void* hit_chunk, void* truncated, void* probe, void* stream) {
+  return clipmap_node_launch(form, block, trunk_masks, trunk_child, trunk_parent,
+                             trunk_leaf, roots, origins, sizes, org_x, org_y, org_z,
+                             size, masks, child_base, parent_ptr, leaf_base, origin,
+                             direction, n, trunk_depth, chunk_depth, n_max, hit_leaf,
+                             hit_t, hit_chunk, truncated, probe, stream);
 }
 
 // The same with the chunk's walk through the brick arena (top_masks,
@@ -2595,23 +3026,26 @@ extern "C" int level_round_probe(int mode, const void* trunk_masks,
                            probe, stream);
 }
 
-// level_round's queue for a round of `mode` over n rays or packets.
-// "sharded", "trunk": over every ray, or with `prev` over a previous round's
-// queue (its length `n_prev` on the device, at most `grid_n`; grid_n is n
-// without it): with `counts` (ceil(grid_n / QBLOCK) ints), the count pass
-// (each block's live rays); else the place pass from the counts' exclusive
-// scan `block_base`: `queue` and the outputs of the rays found done (the
-// first form's pointers: oct_id and t_next, and for "sharded" hit, leaf and
-// t_hit). "packets": `leaf` is the (n, 2) replies, every one written as an
-// invalid packet's, and `queue` the n_seg = n / seg segments' valid counts.
+// level_round's queue for a round of `mode` over n rays or packets, the
+// main path's. "sharded", "trunk": the one pass (level_queue_lookback_
+// kernel) over every ray, or with `prev` over a previous round's queue (its
+// length `n_prev` on the device, at most `grid_n`; grid_n is n without
+// it): `status` the loop's status words (int64: the two control words, then
+// a word for each of the ceil(n / QTILE) tiles a round may have, zeroed
+// once a loop), `queue` (ceil(entries / QTILE) * QTILE ints) the live rays
+// in order, `n_live` (one int) their count, and the outputs of the rays
+// found done (the first form's pointers: oct_id and t_next, and for
+// "sharded" hit, leaf and t_hit). "packets": `leaf` is the (n, 2) replies,
+// every one written as an invalid packet's, and `queue` the n_seg = n /
+// seg segments' valid counts.
 extern "C" int level_queue(int mode, int n, const void* done, const void* t_off,
                            const void* prev, const void* n_prev, int grid_n,
-                           const void* packets, int seg, void* counts,
-                           const void* block_base, void* queue, void* oct_id,
-                           void* hit, void* leaf, void* t_hit, void* t_next,
-                           void* stream) {
+                           const void* packets, int seg, void* status,
+                           void* queue, void* n_live, void* oct_id, void* hit,
+                           void* leaf, void* t_hit, void* t_next, void* stream) {
   if (n < 0 || grid_n < 0 || mode < LEVEL_SHARDED || mode > LEVEL_PACKETS ||
       (mode == LEVEL_PACKETS && (seg < 1 || n % seg != 0)) ||
+      (mode != LEVEL_PACKETS && status == nullptr) ||
       (prev == nullptr) != (n_prev == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || grid_n == 0) return (int)cudaGetLastError();
@@ -2622,6 +3056,39 @@ extern "C" int level_queue(int mode, int n, const void* done, const void* t_off,
         (const float*)packets, n, n_seg, seg, (float*)leaf, (int*)queue);
     return (int)cudaGetLastError();
   }
+  const int tiles = blocks_for(prev == nullptr ? n : grid_n, QTILE);
+  const QueueStatus qs{(unsigned*)status, (unsigned long long*)status + 1};
+  const LevelIO io{nullptr, nullptr, (const float*)t_off,
+                   (const unsigned char*)done, n, (int*)oct_id, (int*)hit,
+                   (int*)leaf, (float*)t_hit, (float*)t_next};
+  if (mode == LEVEL_SHARDED)
+    level_queue_lookback_kernel<LEVEL_SHARDED><<<tiles, QBLOCK, 0, st>>>(
+        (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev, qs,
+        (int*)queue, (int*)n_live, io);
+  else
+    level_queue_lookback_kernel<LEVEL_TRUNK><<<tiles, QBLOCK, 0, st>>>(
+        (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev, qs,
+        (int*)queue, (int*)n_live, io);
+  return (int)cudaGetLastError();
+}
+
+// level_round's queue's first form ("sharded", "trunk"), over every ray, or
+// with `prev` over a previous round's queue (its length `n_prev` on the
+// device, at most `grid_n`; grid_n is n without it): with `counts`
+// (ceil(grid_n / QBLOCK) ints), the count pass (each block's live rays);
+// else the place pass from the counts' exclusive scan `block_base`:
+// `queue` and the outputs of the rays found done (as level_queue's).
+extern "C" int level_queue_serial(int mode, int n, const void* done,
+                                  const void* t_off, const void* prev,
+                                  const void* n_prev, int grid_n, void* counts,
+                                  const void* block_base, void* queue, void* oct_id,
+                                  void* hit, void* leaf, void* t_hit, void* t_next,
+                                  void* stream) {
+  if (n < 0 || grid_n < 0 || (mode != LEVEL_SHARDED && mode != LEVEL_TRUNK) ||
+      (prev == nullptr) != (n_prev == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || grid_n == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
   const int blocks = blocks_for(prev == nullptr ? n : grid_n, QBLOCK);
   if (counts != nullptr) {
     level_queue_count_kernel<<<blocks, QBLOCK, 0, st>>>(

@@ -42,21 +42,26 @@ what each does, and PERF.md what it measured):
 (``clipmap_trace``, or with a brick arena ``clipmap_trace_brick``): the
 rounds of ``stream/clipmap.py``'s ``trace_clipmap_device`` and
 ``trace_clipmap_device_brick``, whose plain versions are in that module.
-``clipmap_trace_brick``'s ``wide`` form is the main path's: the direction's
-set-up made once a ray, the chunk's walk the wide brick trace's (blocks of
-256, the parked brick's row staged in shared memory); its ``first`` form
-(``clipmap_kernel(..., form="first")``; one thread a ray in blocks of 128)
-is the check and the yardstick. ``probe_clipmap_brick`` runs either form
-with per-warp counters over ``CLIP_PHASES`` (``CLIP_PROBE_FIELDS``).
+Each has a ``wide`` form on the main path and its ``first`` form
+(``clipmap_kernel(..., form="first")``; one thread a ray in blocks of 128),
+the check and the yardstick. ``clipmap_trace``'s wide form makes the
+direction's set-up once a ray and scales the origin by the exact reciprocal
+of a size that is a power of two; ``clipmap_trace_brick``'s also walks the
+chunk with the wide brick trace's body (blocks of 256, the parked brick's
+row staged in shared memory). ``probe_clipmap`` and ``probe_clipmap_brick``
+run either form with per-warp counters over ``CLIP_NODE_PHASES`` and
+``CLIP_PHASES`` (``CLIP_NODE_PROBE_FIELDS``, ``CLIP_PROBE_FIELDS``).
 
 ``level_round_kernel`` launches one round of the level-sharded traces
 (``level_round``, in its three modes), whose loops and plain version are in
 ``parallel/level_sharded.py``: its queued form, a thread a live ray or valid
-packet, after the queue's passes (kernel ``level_queue``; ``level_scan`` is
-the count pass a loop makes before its host read).
-``level_round_serial_kernel`` is its first form, a thread for each ray or
-packet, the check and the yardstick; ``probe_level_round`` the first form
-with per-warp counters.
+packet, over the round's queue (kernel ``level_queue``: in one pass, a
+stable compaction with decoupled look-back; ``level_queue_build`` is that
+pass as a loop makes it before its host read). ``level_queue_kernel`` runs
+the queue alone in either form, the one pass or its first form (a count
+pass, ``torch.cumsum`` and a place pass). ``level_round_serial_kernel`` is
+the round's first form, a thread for each ray or packet, the check and the
+yardstick; ``probe_level_round`` the first form with per-warp counters.
 
 ``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
 and ``probe_brick_multi_cuda`` launch a form with per-warp counters
@@ -95,10 +100,12 @@ launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
             "level_round_packets": 0, "level_queue": 0}
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0, "level_round_serial": 0,
-                 "clipmap_trace_brick_serial": 0}
+                 "clipmap_trace_brick_serial": 0, "clipmap_trace_serial": 0,
+                 "level_queue_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
-                  "level_round_probe": 0, "clipmap_trace_brick_probe": 0}
+                  "level_round_probe": 0, "clipmap_trace_brick_probe": 0,
+                  "clipmap_trace_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
 _ESVO_STACKLESS_PROBE = Kernel("esvo_stackless_probe", brick_lib)
@@ -114,6 +121,7 @@ _BRICK_TRACE_MULTI_PROBE = Kernel("brick_trace_multi_probe", brick_lib)
 _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
+_CLIPMAP_TRACE_FORM = Kernel("clipmap_trace_form", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 _CLIPMAP_TRACE_BRICK_SERIAL = Kernel("clipmap_trace_brick_serial", brick_lib)
 _CLIPMAP_TRACE_BRICK_PROBE = Kernel("clipmap_trace_brick_probe", brick_lib)
@@ -121,14 +129,17 @@ _LEVEL_ROUND = Kernel("level_round", brick_lib)
 _LEVEL_ROUND_SERIAL = Kernel("level_round_serial", brick_lib)
 _LEVEL_ROUND_PROBE = Kernel("level_round_probe", brick_lib)
 _LEVEL_QUEUE = Kernel("level_queue", brick_lib)
+_LEVEL_QUEUE_SERIAL = Kernel("level_queue_serial", brick_lib)
 
 # level_round's modes (csrc/brick_trace.cu's LEVEL_*) and the words of an
 # exchanged packet (o_cur, d, octant id and valid flag as int32 bits) and of
 # its reply (leaf as int32 bits, t)
 LEVEL_MODES = {"sharded": 0, "trunk": 1, "packets": 2}
 PACKET_WORDS, REPLY_WORDS = 8, 2
-# the queue passes' blocks (csrc/brick_trace.cu's QBLOCK)
+# the queue passes' blocks, and the one pass's tiles (csrc/brick_trace.cu's
+# QBLOCK, QTILE)
 QBLOCK = 256
+QTILE = 16 * QBLOCK
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
 # each form's blocks
@@ -137,7 +148,8 @@ FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "brick_trace_multi": ("staged", "first"),
          "esvo_stackless_multi": ("first",),
          "clipmap_trace_brick": ("wide", "first"),
-         "clipmap_trace": ("first",)}
+         "clipmap_trace": ("wide", "first"),
+         "level_queue": ("one_pass", "first")}
 FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
 BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
 
@@ -169,6 +181,15 @@ CLIP_PROBE_FIELDS = (("start", "end", "rays")
                      + tuple(f"{ph}_{what}" for ph in CLIP_PHASES
                              for what in ("issues", "lanes", "cycles"))
                      + ("sm", "ns_start", "ns_end"))
+# the node arena's stitched probe record (csrc/brick_trace.cu's CN_*): the
+# same layout over six phases, a trunk step, a walk's set-up, the origin's
+# scaling (o_cur and o_trunk, then o_loc), a chunk's stackless step, the box
+# exit, and a round
+CLIP_NODE_PHASES = ("trunk", "setup", "scale", "step", "exit", "round")
+CLIP_NODE_PROBE_FIELDS = (("start", "end", "rays")
+                          + tuple(f"{ph}_{what}" for ph in CLIP_NODE_PHASES
+                                  for what in ("issues", "lanes", "cycles"))
+                          + ("sm", "ns_start", "ns_end"))
 
 
 def warps_of(n: int, form: str) -> int:
@@ -589,24 +610,48 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
     rounded to float32 here) and the chunk's walk from roots[chunk] (chunk
     tables (C,) int32 `roots`, (C, 3) float32 `origins`, (C,) float32
     `sizes`). `form`: one of the kernel's FORMS, None for the main path's
-    (``clipmap_trace_brick``'s wide form; its first form, "first", is the
-    check and the yardstick). Returns (hit_leaf, hit_t, hit_chunk,
-    truncated (bool))."""
+    (each kernel's wide form; its first form, "first", is the check and the
+    yardstick). Returns (hit_leaf, hit_t, hit_chunk, truncated (bool))."""
     kname = ("clipmap_trace_brick" if isinstance(arena, brick.BrickSVO)
              else "clipmap_trace")
     form = FORMS[kname][0] if form is None else form
-    _form(kname, form)
+    code = _form(kname, form)
     main = form == FORMS[kname][0]
-    kernel = (_CLIPMAP_TRACE if kname == "clipmap_trace" else
-              _CLIPMAP_TRACE_BRICK if main else _CLIPMAP_TRACE_BRICK_SERIAL)
+    if kname == "clipmap_trace":
+        kernel = _CLIPMAP_TRACE if main else _CLIPMAP_TRACE_FORM
+    else:
+        kernel = _CLIPMAP_TRACE_BRICK if main else _CLIPMAP_TRACE_BRICK_SERIAL
     head, out = _clip_args(kernel, trunk, org, size, roots, origins, sizes, arena,
                            origin, direction, chunk_depth, n_max)
-    kernel(origin.device, *head)
     if main:
+        kernel(origin.device, *head)
         launches[kname] += 1
+    elif kname == "clipmap_trace":
+        kernel(origin.device, code, BLOCKS[form], *head, None)
+        form_launches["clipmap_trace_serial"] += 1
     else:
+        kernel(origin.device, *head)
         form_launches["clipmap_trace_brick_serial"] += 1
     return out
+
+
+def probe_clipmap(trunk, org, size, roots, origins, sizes, arena, origin,
+                  direction, chunk_depth, n_max, form):
+    """``clipmap_trace`` in `form` ("wide" or "first") with per-warp
+    counters, on CUDA rays (the arguments of ``clipmap_kernel``, `arena` an
+    SVO of the node arena). Returns (its results, record (warps,
+    len(CLIP_NODE_PROBE_FIELDS)) int64), for measurement only."""
+    code = _form("clipmap_trace", form)
+    if isinstance(arena, brick.BrickSVO):
+        raise ValueError("probe_clipmap takes the node arena")
+    head, out = _clip_args(_CLIPMAP_TRACE_FORM, trunk, org, size, roots, origins,
+                           sizes, arena, origin, direction, chunk_depth, n_max)
+    record = torch.zeros((warps_of(origin.shape[0], form),
+                          len(CLIP_NODE_PROBE_FIELDS)),
+                         dtype=torch.int64, device=origin.device)
+    _CLIPMAP_TRACE_FORM(origin.device, code, BLOCKS[form], *head, record.data_ptr())
+    probe_launches["clipmap_trace_probe"] += 1
+    return out, record
 
 
 def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
@@ -681,32 +726,33 @@ def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,
     return n, head, ray_ptrs, out, ptrs
 
 
-class LevelScan(NamedTuple):
-    """The live rays of a round, counted: each block of ``QBLOCK`` entries'
-    count, their exclusive scan and their inclusive scan, whose last entry
-    is the live count (on the device; ``live_count`` reads it)."""
+class RoundQueue(NamedTuple):
+    """A round's queue on the card: ``queue``, whose first ``n_live``
+    entries are the round's live rays in order (int32), and ``n_live``, their
+    count, a (1,) int32 tensor on the device (``live_count`` reads it)."""
 
-    counts: torch.Tensor
-    base: torch.Tensor
-    inclusive: torch.Tensor
+    queue: torch.Tensor
+    n_live: torch.Tensor
 
 
 class LevelQueue:
     """One loop's queue across its rounds ("sharded" or "trunk"), on the
     card: the outputs, kept from round to round (a ray's outputs are written
-    as a done ray's once, in the round after it was done, and stay), and the
+    as a done ray's once, in the round after it was done, and stay), the
     last round's queue of live rays (None after a first round: every ray),
-    its length on the device and a bound on it that the host holds. A loop
-    makes one and passes it to every round; each round's passes then run
-    over the last round's live rays, not every ray. A new one's first round
-    must have no ray done, as a loop's first round has none: it runs with no
-    queue (thread j, ray j)."""
+    its length on the device and a bound on it that the host holds, and the
+    one pass's status words (``status``: zeroed once, when the loop's first
+    queue is made). A loop makes one and passes it to every round; each
+    round's queue then covers the last round's live rays, not every ray. A
+    new one's first round must have no ray done, as a loop's first round
+    has none: it runs with no queue (thread j, ray j)."""
 
     def __init__(self):
         self.out = None
         self.prev = None
         self.prev_count = None
         self.bound = 0
+        self.status = None
 
     def entries(self, n):
         """(prev, its device count, the entries a pass covers) of a round
@@ -715,67 +761,117 @@ class LevelQueue:
             return None, None, n
         return self.prev.data_ptr(), self.prev_count.data_ptr(), self.bound
 
+    def status_words(self, n, device):
+        """The one pass's status words for rounds over `n` rays: the two
+        control words (the next tile's ticket, the launch's epoch) and a
+        word a tile, zeroed on first use."""
+        if self.status is None:
+            self.status = torch.zeros(1 + -(-n // QTILE), dtype=torch.int64,
+                                      device=device)
+        return self.status
 
-def level_scan(done, queue=None):
-    """The count pass of level_round's queue over the (N,) bool `done` of a
-    round ("sharded" or "trunk"), over every ray or over `queue`'s last
-    round's live rays: kernel ``level_queue`` and ``torch.cumsum``; nothing
-    crosses to the host."""
+
+def _out_ptrs(mode, out):
+    """The output pointers a queue writes a done ray's outputs at: oct_id,
+    hit, leaf, t_hit, t_next ("trunk": oct_id and t_next, the rest null)."""
+    if mode == "sharded":
+        return tuple(t.data_ptr() for t in out)
+    return (out[0].data_ptr(), None, None, None, out[1].data_ptr())
+
+
+def _new_outputs(mode, n, device):
+    return tuple(torch.empty(n, dtype=dt, device=device)
+                 for dt in ((_I32, _I32, _I32, _F32, _F32) if mode == "sharded"
+                            else (_I32, _F32)))
+
+
+def _queue_one_pass(mode, done, t_off, ptrs, queue):
+    """level_queue's one pass ("sharded" or "trunk") over every ray, or over
+    `queue`'s last round's live rays: the round's ``RoundQueue`` and the done
+    rays' outputs at `ptrs`, in one launch; nothing crosses to the host."""
     dev, n = done.device, done.shape[0]
-    _LEVEL_QUEUE.check(dev, (("done", done, torch.bool, (n,)),))
-    prev, n_prev, grid = (None, None, n) if queue is None else queue.entries(n)
+    prev, n_prev, grid = queue.entries(n)
+    tiles = -(-grid // QTILE) if n else 0
+    order = torch.empty(tiles * QTILE, dtype=_I32, device=dev)
+    if not tiles:
+        return RoundQueue(order, torch.zeros(1, dtype=_I32, device=dev))
+    n_live = torch.empty(1, dtype=_I32, device=dev)
+    _LEVEL_QUEUE(dev, LEVEL_MODES[mode], n, done.data_ptr(), t_off.data_ptr(), prev,
+                 n_prev, grid, None, 0, queue.status_words(n, dev).data_ptr(),
+                 order.data_ptr(), n_live.data_ptr(), *ptrs)
+    launches["level_queue"] += 1
+    return RoundQueue(order, n_live)
+
+
+def _queue_serial(mode, done, t_off, ptrs, queue):
+    """level_queue's first form: the count pass (kernel
+    ``level_queue_serial``), ``torch.cumsum`` and the place pass (the same
+    kernel), over every ray or over `queue`'s last round's live rays; the
+    same ``RoundQueue`` and outputs as the one pass."""
+    dev, n = done.device, done.shape[0]
+    prev, n_prev, grid = queue.entries(n)
     counts = torch.zeros(-(-grid // QBLOCK), dtype=_I32, device=dev)
+    order = torch.empty(grid, dtype=_I32, device=dev)
     if n and grid:
-        _LEVEL_QUEUE(dev, 0, n, done.data_ptr(), None, prev, n_prev, grid, None, 0,
-                     counts.data_ptr(), None, None, None, None, None, None, None)
-        launches["level_queue"] += 1
+        _LEVEL_QUEUE_SERIAL(dev, LEVEL_MODES[mode], n, done.data_ptr(), None, prev,
+                            n_prev, grid, counts.data_ptr(), None, None,
+                            None, None, None, None, None)
     inclusive = torch.cumsum(counts, 0, dtype=_I32)
-    return LevelScan(counts, inclusive - counts, inclusive)
-
-
-def live_count(scan: LevelScan) -> int:
-    """The live rays of a ``level_scan``: one read on the host."""
-    return int(scan.inclusive[-1]) if scan.inclusive.numel() else 0
-
-
-def _level_place(mode, done, t_off, scan, ptrs, queue=None):
-    """The place pass of level_round's queue: the (grid,) int32 queue, its
-    first live-count entries the live rays in order, and the outputs of the
-    rays found done written at the output pointers `ptrs`."""
-    n = done.shape[0]
-    prev, n_prev, grid = (None, None, n) if queue is None else queue.entries(n)
-    out = torch.empty(grid, dtype=_I32, device=done.device)
     if n and grid:
-        _LEVEL_QUEUE(done.device, LEVEL_MODES[mode], n, done.data_ptr(), t_off.data_ptr(),
-                     prev, n_prev, grid, None, 0, None, scan.base.data_ptr(),
-                     out.data_ptr(), *ptrs)
-        launches["level_queue"] += 1
-    return out
+        _LEVEL_QUEUE_SERIAL(dev, LEVEL_MODES[mode], n, done.data_ptr(), t_off.data_ptr(),
+                            prev, n_prev, grid, None, (inclusive - counts).data_ptr(),
+                            order.data_ptr(), *ptrs)
+        form_launches["level_queue_serial"] += 2
+    return RoundQueue(order, inclusive[-1:] if inclusive.numel()
+                      else torch.zeros(1, dtype=_I32, device=dev))
 
 
-def level_queue_kernel(mode, done, t_off):
-    """A round's queue alone ("sharded" or "trunk") over every ray, as
-    ``level_round_kernel`` makes it without a loop's ``LevelQueue``, with
-    nothing read on the host: (the (N,) int32 queue, whose first
-    ``live_count(scan)`` entries are the live rays in order; the scan; the
-    outputs with the done rays' written as the first form writes them, the
-    live rays' unset), for checks and timing. Its plain version is
-    ``level_sharded.level_queue_plain``."""
+def level_queue_build(mode, done, t_off, queue):
+    """A loop's round queue ("sharded" or "trunk") over the (N,) bool `done`
+    and (N,) float32 `t_off` of the round, over `queue`'s (a
+    ``LevelQueue`` after its first round) last round's live rays: kernel
+    ``level_queue`` in one pass, the done rays' outputs written into
+    ``queue.out``. Returns the ``RoundQueue``; nothing crosses to the
+    host."""
     dev, n = done.device, done.shape[0]
     _LEVEL_QUEUE.check(dev, (("done", done, torch.bool, (n,)),
                              ("t_off", t_off, _F32, (n,))))
-    scan = level_scan(done)
-    out = tuple(torch.empty(n, dtype=dt, device=dev)
-                for dt in ((_I32, _I32, _I32, _F32, _F32) if mode == "sharded"
-                           else (_I32, _F32)))
-    ptrs = (tuple(t.data_ptr() for t in out) if mode == "sharded"
-            else (out[0].data_ptr(), 0, 0, 0, out[1].data_ptr()))
-    return _level_place(mode, done, t_off, scan, ptrs), scan, out
+    if queue.out is None:
+        raise ValueError("a loop's first round has no queue")
+    return _queue_one_pass(mode, done, t_off, _out_ptrs(mode, queue.out), queue)
+
+
+def live_count(rq: RoundQueue) -> int:
+    """The live rays of a round's queue: one read on the host."""
+    return int(rq.n_live)
+
+
+def level_queue_kernel(mode, done, t_off, form=None, queue=None):
+    """A round's queue alone ("sharded" or "trunk"), with nothing read on
+    the host, for checks and timing: over every ray, or over the last
+    round's live rays of `queue` (a ``LevelQueue``, whose status words the
+    one pass uses; its outputs are not touched). `form`: "one_pass" (None:
+    the main path's, kernel ``level_queue``) or "first" (``torch.cumsum``
+    between the two passes of kernel ``level_queue_serial``). Returns (the
+    ``RoundQueue``, the outputs with the done rays' written as the first
+    form of the round writes them, the live rays' unset). Its plain version
+    is ``level_sharded.level_queue_plain``."""
+    form = FORMS["level_queue"][0] if form is None else form
+    if form not in FORMS["level_queue"]:
+        raise ValueError(f"form {form!r}: level_queue has {FORMS['level_queue']}")
+    dev, n = done.device, done.shape[0]
+    kernel = _LEVEL_QUEUE if form == "one_pass" else _LEVEL_QUEUE_SERIAL
+    kernel.check(dev, (("done", done, torch.bool, (n,)),
+                       ("t_off", t_off, _F32, (n,))))
+    queue = LevelQueue() if queue is None else queue
+    out = _new_outputs(mode, n, dev)
+    build = _queue_one_pass if form == "one_pass" else _queue_serial
+    return build(mode, done, t_off, _out_ptrs(mode, out), queue), out
 
 
 def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
                        rays, direction=None, t_off=None, done=None, live=None,
-                       scan=None, seg=None, queue=None):
+                       built=None, seg=None, queue=None):
     """Launch one round of ``level_round`` in `mode` ("sharded", "trunk" or
     "packets") on CUDA tensors, in its queued form: a thread a live ray or
     valid packet (the first form, a thread for each, is
@@ -786,23 +882,22 @@ def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
     to float32 here), `rank` this rank. "sharded" and "trunk": `rays` (N, 3)
     float32 origins, `direction` (N, 3), `t_off` (N,) float32 and `done`
     (N,) bool; returns (oct_id, hit, leaf, t_hit, t_next) ("trunk":
-    (oct_id, t_next)). `queue`, a loop's ``LevelQueue``, runs the round's
-    passes over the last round's live rays and keeps the outputs (the same
-    tensors every round: read them before the next); `scan` is the round's
-    ``level_scan(done, queue)`` if the caller made it (else it is made
-    here). "packets": `rays` the
-    (M, 8) float32 packets, whose valid ones lie at the start of each
-    segment of `seg` slots (M by default), as ``make_exchange_trace``'s
-    bucket lays them out; returns the (M, 2) float32 replies. `live`, a
-    bound on the live rays or valid packets that the caller holds on the
-    host, sizes the grid (N or M by default)."""
+    (oct_id, t_next)). `queue`, a loop's ``LevelQueue``, makes the round's
+    queue over the last round's live rays and keeps the outputs (the same
+    tensors every round: read them before the next); `built` is the round's
+    ``level_queue_build(mode, done, t_off, queue)`` if the caller made it
+    (else the queue is made here, kernel ``level_queue`` in one pass).
+    "packets": `rays` the (M, 8) float32 packets, whose valid ones lie at
+    the start of each segment of `seg` slots (M by default), as
+    ``make_exchange_trace``'s bucket lays them out; returns the (M, 2)
+    float32 replies. `live`, a bound on the live rays or valid packets that
+    the caller holds on the host, sizes the grid (N or M by default)."""
     keep = queue is not None and mode != "packets"
     n, head, ray_ptrs, out, ptrs = _level_args(
         mode, trunk, arena, owner, root, origin, size, rank, rays, direction,
         t_off, done, _LEVEL_ROUND, out=queue.out if keep else None)
     dev = rays.device
     grid_n = n if live is None else min(n, int(live))
-    new_queue = None
     if mode == "packets":
         seg = n if seg is None else int(seg)
         if n and (seg < 1 or n % seg):
@@ -810,31 +905,30 @@ def level_round_kernel(mode, trunk, arena, owner, root, origin, size, rank,
         seg_count = torch.empty(n // seg if n else 0, dtype=_I32, device=dev)
         if n:
             _LEVEL_QUEUE(dev, LEVEL_MODES[mode], n, None, None, None, None, n,
-                         rays.data_ptr(), seg, None, None, seg_count.data_ptr(),
+                         rays.data_ptr(), seg, None, seg_count.data_ptr(), None,
                          None, None, out[0].data_ptr(), None, None)
             launches["level_queue"] += 1
         queue_ptrs = (seg_count.data_ptr(), None, seg_count.shape[0], seg)
+        built = None
     elif keep and queue.out is None:  # a loop's first round: no ray done
         queue_ptrs = (None, None, 0, 0)
+        built = None
     else:
         if keep:
             grid_n = min(grid_n, queue.entries(n)[2])
-        if scan is None:
-            scan = level_scan(done, queue if keep else None)
-        new_queue = _level_place(mode, done, t_off, scan, ptrs, queue if keep else None)
-        queue_ptrs = (new_queue.data_ptr(),
-                      scan.inclusive[-1:].data_ptr() if scan.inclusive.numel() else None,
-                      0, 0)
-    if grid_n and (new_queue is None or new_queue.numel()):
+        if built is None:
+            built = _queue_one_pass(mode, done, t_off, ptrs,
+                                    queue if keep else LevelQueue())
+        queue_ptrs = (built.queue.data_ptr(), built.n_live.data_ptr(), 0, 0)
+    if grid_n and (built is None or built.queue.numel()):
         _LEVEL_ROUND(dev, *head, *ray_ptrs, n, *ptrs, *queue_ptrs, grid_n)
         launches["level_round_" + mode] += 1
     if keep:
         queue.out = out
-        if new_queue is None:
+        if built is None:
             queue.prev, queue.prev_count, queue.bound = None, None, n
         else:
-            queue.prev, queue.prev_count, queue.bound = (
-                new_queue, scan.inclusive[-1:], grid_n)
+            queue.prev, queue.prev_count, queue.bound = built.queue, built.n_live, grid_n
     return out
 
 

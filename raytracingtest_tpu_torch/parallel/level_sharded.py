@@ -388,14 +388,18 @@ def level_round_plain(mode, tb: RankTables, rays, direction=None, t_off=None,
     return oct_id, hit, leaf, t_hit, t_next
 
 
-def level_queue_plain(mode, rays, done=None, seg=None):
+def level_queue_plain(mode, rays, done=None, seg=None, prev=None):
     """A plain model of the queue of kernel ``level_round``'s queued form:
-    the live rays ("sharded", "trunk": not `done`) or valid packets
-    ("packets") in the order of the kernel's threads, int64. The valid
-    packets must be a prefix of each segment of `seg` slots (all by
-    default), as the exchange's bucket lays them out (``ValueError``
-    otherwise): the kernel counts them by a search that assumes it."""
+    the live rays ("sharded", "trunk": not `done`; of the last round's
+    queue `prev` where given, in its order) or valid packets ("packets") in
+    the order of the kernel's threads, int64. The valid packets must be a
+    prefix of each segment of `seg` slots (all by default), as the
+    exchange's bucket lays them out (``ValueError`` otherwise): the kernel
+    counts them by a search that assumes it."""
     if mode != "packets":
+        if prev is not None:
+            prev = prev.long()
+            return prev[~done[prev]]
         return torch.nonzero(~done)[:, 0]
     n = rays.shape[0]
     seg = n if seg is None else seg
@@ -421,7 +425,7 @@ class LevelQueuePlain:
 
 
 def level_round_queued_plain(mode, tb: RankTables, rays, direction=None, t_off=None,
-                             done=None, counts=None, live=None, scan=None, seg=None,
+                             done=None, counts=None, live=None, built=None, seg=None,
                              queue=None):
     """A plain model of kernel ``level_round``'s queued form, with
     ``level_round``'s arguments: the queue (``level_queue_plain``, over the
@@ -430,7 +434,7 @@ def level_round_queued_plain(mode, tb: RankTables, rays, direction=None, t_off=N
     outputs at their own index, and the first form's outputs of a done ray
     or an invalid packet where the round found them (with `queue`, the
     outputs are kept from round to round, as the card keeps them). `live`,
-    the grid's bound, must cover the queue; `scan` is the card's and not
+    the grid's bound, must cover the queue; `built` is the card's and not
     needed; a new `queue`'s first round (no queue: every ray) must have no
     ray done."""
     for key in ("walks", "steps"):
@@ -476,10 +480,10 @@ def level_round_queued_plain(mode, tb: RankTables, rays, direction=None, t_off=N
 
 
 def level_round(mode, tb: RankTables, rays, direction=None, t_off=None,
-                done=None, counts=None, live=None, scan=None, seg=None, queue=None):
+                done=None, counts=None, live=None, built=None, seg=None, queue=None):
     """One round of `mode`: kernel ``level_round`` on CUDA tensors (its
-    queued form: `live` bounds the live rays or valid packets, `scan` is
-    the round's ``brick_cuda.level_scan`` if made, `seg` the packets'
+    queued form: `live` bounds the live rays or valid packets, `built` is
+    the round's ``brick_cuda.level_queue_build`` if made, `seg` the packets'
     segment, `queue` the loop's ``brick_cuda.LevelQueue``),
     ``level_round_plain`` on CPU tensors (`counts` is read only there)."""
     if rays.device.type == "cpu":
@@ -489,7 +493,7 @@ def level_round(mode, tb: RankTables, rays, direction=None, t_off=None,
     return brick_cuda.level_round_kernel(mode, tb.trunk, tb.arena, tb.owner,
                                          tb.root, tb.origin, tb.size, tb.rank,
                                          rays, direction, t_off, done, live=live,
-                                         scan=scan, seg=seg, queue=queue)
+                                         built=built, seg=seg, queue=queue)
 
 
 def _queue_state(device):
@@ -503,16 +507,16 @@ def _queue_state(device):
     return brick_cuda.LevelQueue()
 
 
-def _live(done, queue):
+def _live(done, t_off, queue):
     """(the rays not done, read on the host: the round's one read; on the
-    card also the queue's count pass that gave it, over the last round's
-    live rays, else None)."""
+    card also the round's queue that gave it, made in one pass over the last
+    round's live rays, else None)."""
     if done.device.type == "cpu":
         return int((~done).sum()), None
     from raytracingtest_tpu_torch.ops import brick_cuda
 
-    scan = brick_cuda.level_scan(done, queue)
-    return brick_cuda.live_count(scan), scan
+    built = brick_cuda.level_queue_build("sharded", done, t_off, queue)
+    return brick_cuda.live_count(built), built
 
 
 def rounds_bound(trunk_depth: int, max_octants=None) -> int:
@@ -537,12 +541,12 @@ def _phase_loop(mesh: RayMesh, tb: RankTables, o, d, n_max, stats):
     rounds = 0
     for _ in range(n_max):
         # the first round has every ray live, and needs no count
-        n_live, scan = (n, None) if rounds == 0 else _live(done, queue)
+        n_live, built = (n, None) if rounds == 0 else _live(done, t_off, queue)
         if n_live == 0:
             break
         rounds += 1
         oct_id, hit, leaf, t_hit, t_next = level_round(
-            "sharded", tb, o, d, t_off, done, counts=stats, live=n_live, scan=scan,
+            "sharded", tb, o, d, t_off, done, counts=stats, live=n_live, built=built,
             queue=queue)
         found = oct_id >= 0
         # did any rank's arena stop the ray this round?

@@ -130,7 +130,7 @@ def test_clipmap_kernel_forms_refuse_cpu_tensors(sphere_world, form):
 
 
 @pytest.mark.parametrize("arena,form", [("brick", "flat"), ("brick", "staged"),
-                                        ("node", "wide"), ("node", "probe")])
+                                        ("node", "staged"), ("node", "probe")])
 def test_clipmap_kernel_refuses_a_form_it_lacks(sphere_world, arena, form):
     """A form the kernel does not have, or the probe of the node arena, is
     refused before the tensors are looked at."""

@@ -195,14 +195,15 @@ def test_c_entries_are_declared_with_their_arity():
     """Every C entry point of brick_trace.cu (the k-segment traces' first
     form and probe forms among them, the streamed world's stitched traces,
     the level-sharded rounds' queued, first and probe forms and their
-    queue) has ctypes argument types of its own length, the stream
-    included, and a wrapper's Kernel."""
+    queue in one pass and its first form) has ctypes argument types of its
+    own length, the stream included, and a wrapper's Kernel."""
     arity = c_entry_arity()
     new = {"esvo_stackless_multi_probe", "brick_trace_multi_serial",
            "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
            "level_round", "level_round_serial", "level_round_probe", "level_queue",
-           "clipmap_trace_brick_serial", "clipmap_trace_brick_probe"}
-    assert new <= set(arity) and len(arity) == 21
+           "clipmap_trace_brick_serial", "clipmap_trace_brick_probe",
+           "clipmap_trace_form", "level_queue_serial"}
+    assert new <= set(arity) and len(arity) == 23
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -222,6 +223,11 @@ def test_c_entries_are_declared_with_their_arity():
     # its probe adds the form and the record
     assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"]
     assert arity["clipmap_trace_brick_probe"] == arity["clipmap_trace_brick"] + 2
+    # the node arena's form entry adds the form, the block and the record
+    assert arity["clipmap_trace_form"] == arity["clipmap_trace"] + 3
+    # the queue's first form takes no packets, their segment, status words
+    # nor device count, but the counts and their scan
+    assert arity["level_queue_serial"] == arity["level_queue"] - 2
     # level_round's queued form adds its queue (the queue, the live count,
     # the segments, their length, the grid's bound) to the first form's
     # arguments; the probe form adds its record
