@@ -98,11 +98,12 @@ against `trace_multi_cuda`'s, the overlay against the direct call's pixels),
 `render` of the three noise scenes built at depth 8, `fly` on both paths and a
 scripted `probe`. `[fly]` streams the whole world at depth 10 and holds its
 1024² tile frame against the monolithic one, `tile_candidates_mapped`,
-`clipmap_trace` and `clipmap_trace_brick` (its wide form, the main path's,
-and its first form `clipmap_trace_brick_serial`) against their plain versions
-on that world, on the first two-LOD frame of `cli fly`'s camera path and at
-its last pose, probes both brick forms' warps on that frame (`[warps]`, seven
-phases), and times that path. `[build-device]` runs
+`clipmap_trace` and `clipmap_trace_brick` (each in its wide form, the main
+path's, and its first form, `clipmap_trace_serial` and
+`clipmap_trace_brick_serial`) against their plain versions on that world, on
+the first two-LOD frame of `cli fly`'s camera path and at its last pose,
+probes both forms of both on that frame (`[warps]`, six and seven phases),
+times each form alone and in turns, and times that path. `[build-device]` runs
 bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
 depth-10 tree on the card (kernels `svo_columns`, `svo_expand`,
 `svo_compact`, `svo_leaves`, `svo_leaf_attrs`, `svo_level_up`,
@@ -133,7 +134,10 @@ at 2048² through bench.py's camera by `make_sharded_trace` (kernel
 `level_round_plain`, on the main path and in the queued form and the first
 form (`level_round_serial`) alone, with each round's live rays, µs and
 bound, the first form's probe on the first rounds, and both forms' loops
-in turns; each path against its plain rounds on a fixed
+in turns; the round's queue (`level_queue`, in one pass) and its first form
+(`level_queue_serial`) on every queued round of both traces against
+`level_queue_plain` and the main path's queue, and alone on the sharded
+trace's round 2 against `torch.nonzero`; each path against its plain rounds on a fixed
 subset of 512² of its rays, the trace against `clipmap_trace` on the same
 tables; then on the depth-10 frame `render_sharded` and the three sharded
 train steps against the unsharded ones (bit for bit), and two
@@ -1294,7 +1298,7 @@ OPS_CLIP_ROUND = 45
 # stitched trace's main-path kernel as torch.profiler names it
 CLIP_OUTPUTS = ("hit_leaf", "hit_t", "hit_chunk", "truncated")
 CLIP_MAIN = brick_cuda.FORMS["clipmap_trace_brick"][0]
-CLIP_KERNELS = {"clipmap_trace": "clipmap_trace_kernel<false>",
+CLIP_KERNELS = {"clipmap_trace": "clipmap_trace_wide_kernel",
                 "clipmap_trace_brick": "clipmap_trace_brick_kernel"}
 
 
@@ -1454,7 +1458,7 @@ def clip_warps_line(kernel, form, record, node=False):
     round phase's lanes are the rays' rounds), the rounds a ray and a warp's
     passes through the round loop, warp durations, and the kernel's span and
     the share of it after 99% of warps ended. Returns the numbers."""
-    block = brick_cuda.BLOCKS[form]
+    block = brick_cuda.CLIP_BLOCKS[form] if node else brick_cuda.BLOCKS[form]
     fields, names = ((brick_cuda.CLIP_NODE_PROBE_FIELDS, brick_cuda.CLIP_NODE_PHASES)
                      if node else (brick_cuda.CLIP_PROBE_FIELDS, brick_cuda.CLIP_PHASES))
     r = record.cpu().numpy().astype(np.float64)
@@ -1641,14 +1645,12 @@ def fly_phase(ctx, card):
             e = compare_tensors(got_k, plain, ("hit_leaf", "hit_t", "hit_chunk",
                                                "truncated"), f"{kname} cap {cap}")
             err[kname] = max(err[kname], e)
-            if brick_arena:  # the first form, against the plain version and the main form
-                first_k = brick_cuda.clipmap_kernel(*args, tree, po, pd, 7, n_max,
-                                                    form="first")
-                err["clipmap_trace_brick_serial"] = max(
-                    err["clipmap_trace_brick_serial"], compare_tensors(
-                        first_k, plain, CLIP_OUTPUTS, f"{kname}'s first form cap {cap}"))
-                compare_tensors(got_k, first_k, CLIP_OUTPUTS,
-                                f"{kname} cap {cap} against its first form")
+            # the first form, against the plain version and the main form
+            first_k = brick_cuda.clipmap_kernel(*args, tree, po, pd, 7, n_max, form="first")
+            err[kname + "_serial"] = max(err[kname + "_serial"], compare_tensors(
+                first_k, plain, CLIP_OUTPUTS, f"{kname}'s first form cap {cap}"))
+            compare_tensors(got_k, first_k, CLIP_OUTPUTS,
+                            f"{kname} cap {cap} against its first form")
             if cap == 0:
                 work[kname] = dict(
                     counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
@@ -1659,9 +1661,8 @@ def fly_phase(ctx, card):
                         *args, tree, po, pd, 7, n_max), 20, 3))
                 if bool(got_k[3].any()):
                     raise AssertionError(f"{kname}: rays truncated at the rounds' bound")
-                if brick_arena:
-                    work[kname]["ms_first"] = cuda_ms(lambda: brick_cuda.clipmap_kernel(
-                        *args, tree, po, pd, 7, n_max, form="first"), 20, 3)
+                work[kname]["ms_first"] = cuda_ms(lambda: brick_cuda.clipmap_kernel(
+                    *args, tree, po, pd, 7, n_max, form="first"), 20, 3)
             else:
                 k10[kname] = int(got_k[3].sum())
     # the node arena's stackless walks and the brick arena's brick walks
@@ -1678,8 +1679,8 @@ def fly_phase(ctx, card):
         raise AssertionError(f"the stitched traces through the two arenas part on "
                              f"{n_apart} rays; the referee finds the brick arena's wrong "
                              f"on {int((~arenas_verdict['brick']).sum())}")
-    say(f"[fly] clipmap_trace and clipmap_trace_brick (its {CLIP_MAIN} form and its "
-        f"first form) == trace_clipmap_rounds "
+    say(f"[fly] clipmap_trace and clipmap_trace_brick (each in its {CLIP_MAIN} form and "
+        f"its first form) == trace_clipmap_rounds "
         f"bitwise (hit_leaf, hit_t bits, hit_chunk, truncated) on the "
         f"{po.shape[0]} rays of bench.py's camera at {FLY_PARITY_RES}², at the "
         f"rounds' bound ({work['clipmap_trace']['n_max']}; none truncated, "
@@ -1779,30 +1780,36 @@ def fly_phase(ctx, card):
         err[kname] = max(err[kname], compare_tensors(
             got_k, plain, ("hit_leaf", "hit_t", "hit_chunk", "truncated"),
             f"{kname}, fly frame {check['frame']}'s rays"))
-        extra = {}
-        if kname == "clipmap_trace_brick":  # the first form and the forms' probes
-            first_fn = lambda: brick_cuda.clipmap_kernel(*args, tree, co, cd, 7, n_max,
-                                                         form="first")
-            compare_tensors(first_fn(), got_k, CLIP_OUTPUTS,
-                            f"{kname}'s first form, fly frame {check['frame']}")
-            warps = {}
-            for form in ("first", CLIP_MAIN):
-                probed, record = brick_cuda.probe_clipmap_brick(*args, tree, co, cd, 7,
-                                                                n_max, form)
-                compare_tensors(probed, got_k, CLIP_OUTPUTS,
-                                f"{kname}'s {form} probe form, fly frame {check['frame']}")
-                warps[form] = clip_warps_line(kname, form, record)
-            extra = dict(us_alone_first_form=graph_us(first_fn, calls=5), warps=warps,
-                         ms_turns=in_turns({
-                             CLIP_MAIN: lambda: brick_cuda.clipmap_kernel(
-                                 *args, tree, co, cd, 7, n_max),
-                             "first": first_fn}, rounds=3, reps=10))
+        # the first form and the forms' probes
+        first_fn = lambda: brick_cuda.clipmap_kernel(*args, tree, co, cd, 7, n_max,
+                                                     form="first")
+        main_fn = lambda: brick_cuda.clipmap_kernel(*args, tree, co, cd, 7, n_max)
+        err[kname + "_serial"] = max(err[kname + "_serial"], compare_tensors(
+            first_fn(), plain, CLIP_OUTPUTS,
+            f"{kname}'s first form, fly frame {check['frame']}"))
+        node = kname == "clipmap_trace"
+        warps = {}
+        for form in ("first", CLIP_MAIN):
+            probed, record = (brick_cuda.probe_clipmap if node else
+                              brick_cuda.probe_clipmap_brick)(*args, tree, co, cd, 7,
+                                                              n_max, form)
+            compare_tensors(probed, got_k, CLIP_OUTPUTS,
+                            f"{kname}'s {form} probe form, fly frame {check['frame']}")
+            warps[form] = clip_warps_line(kname, form, record, node=node)
+        # alone: CUDA graphs of 5 calls, the forms in turns
+        alone = {}
+        for form in ("first", CLIP_MAIN, CLIP_MAIN, "first"):
+            alone.setdefault(form, []).append(
+                graph_us(main_fn if form == CLIP_MAIN else first_fn, calls=5))
+        extra = dict(us_alone_first_form=float(np.median(alone["first"])), warps=warps,
+                     alone_in_turns=alone,
+                     ms_turns=in_turns({CLIP_MAIN: main_fn, "first": first_fn},
+                                       rounds=3, reps=10))
         fly_work[kname] = dict(**extra,
             counts=counts, plain_ms=plain_s * 1e3, n_max=n_max,
             hits=int((got_k[0] >= 0).sum()), truncated=int(got_k[3].sum()),
             bound=clip_work(live, args, counts, co.shape[0]),
-            us_alone=graph_us(lambda: brick_cuda.clipmap_kernel(
-                *args, tree, co, cd, 7, n_max), calls=5),
+            us_alone=float(np.median(extra["alone_in_turns"][CLIP_MAIN])),
             traced=traced_us(lambda: brick_cuda.clipmap_kernel(
                 *args, tree, co, cd, 7, n_max), 5, CLIP_KERNELS[kname]))
     sizes = sorted(set(check["tables"]["clipmap_trace"][0][5].tolist()))
@@ -1819,9 +1826,10 @@ def fly_phase(ctx, card):
         + "; ".join(f"{k}: {w['hits']} hits, {w['truncated']} truncated at "
                     f"{w['n_max']} rounds, plain {w['plain_ms']:.1f} ms, kernel "
                     f"{w['us_alone']:.2f} us alone in a CUDA graph"
-                    + (f" (its first form {w['us_alone_first_form']:.2f}; in turns "
-                       + ", ".join(f"{f} {med_p80(v)[0]:.4f} ms" for f, v in w["ms_turns"].items())
-                       + ")" if "ms_turns" in w else "")
+                    + f" (its first form {w['us_alone_first_form']:.2f}; alone in turns "
+                    f"{w['alone_in_turns']}; in turns "
+                    + ", ".join(f"{f} {med_p80(v)[0]:.4f} ms" for f, v in w["ms_turns"].items())
+                    + ")"
                     + f" (traced "
                     f"{w['traced'][0]:.2f} us in {w['traced'][1]:.2f} launches), work "
                     f"{w['counts']}" for k, w in fly_work.items()))
@@ -1850,33 +1858,26 @@ def fly_phase(ctx, card):
                           n_by={e.key: e.count / 10 for e in rows})
     # each kernel alone at the last pose (the fly frame's mapped calls, the
     # 1024² stitched traces) and its plain version
-    b_max = clipmap.rounds_bound(bargs[0].depth)
-    last = {form: brick_cuda.clipmap_kernel(*bargs, sr.device_bricks.tree(7), lo, ld, 7,
-                                            b_max, form=form)
-            for form in (CLIP_MAIN, "first")}
-    last_plain = clipmap.trace_clipmap_rounds(*bargs, sr.device_bricks.tree(7), lo, ld,
-                                              b_max)
-    for form, got_l in last.items():
-        err[f"clipmap_trace_brick{'_serial' if form == 'first' else ''}"] = max(
-            err[f"clipmap_trace_brick{'_serial' if form == 'first' else ''}"],
-            compare_tensors(got_l, last_plain, CLIP_OUTPUTS,
-                            f"clipmap_trace_brick's {form} form at the last pose"))
-    last_turns = in_turns({form: (lambda f=form: brick_cuda.clipmap_kernel(
-        *bargs, sr.device_bricks.tree(7), lo, ld, 7, b_max, form=f))
-        for form in (CLIP_MAIN, "first")}, rounds=3, reps=10)
-    say(f"[fly] {card}: clipmap_trace_brick at the fly path's last pose ({lo.shape[0]} "
-        f"rays, {int((last[CLIP_MAIN][0] >= 0).sum())} hits): its {CLIP_MAIN} form and "
-        "its first form == trace_clipmap_rounds bitwise (hit_leaf, hit_t bits, "
-        "hit_chunk, truncated); in turns " + ", ".join(
-            f"{f} {med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f})"
-            for f, v in last_turns.items()))
-    kern_ms = {
-        "clipmap_trace": cuda_ms(lambda: brick_cuda.clipmap_kernel(
-            *nargs, sr.device_arena.tree(7), lo, ld, 7,
-            clipmap.rounds_bound(nargs[0].depth)), 20, 3),
-        "clipmap_trace_brick": last_turns[CLIP_MAIN],
-        "clipmap_trace_brick_serial": last_turns["first"],
-    }
+    kern_ms, last_hits = {}, {}
+    for kname, targs, ttree in (("clipmap_trace", nargs, sr.device_arena.tree(7)),
+                                ("clipmap_trace_brick", bargs, sr.device_bricks.tree(7))):
+        t_max = clipmap.rounds_bound(targs[0].depth)
+        last_plain = clipmap.trace_clipmap_rounds(*targs, ttree, lo, ld, t_max)
+        for form in (CLIP_MAIN, "first"):
+            key = kname + ("_serial" if form == "first" else "")
+            got_l = brick_cuda.clipmap_kernel(*targs, ttree, lo, ld, 7, t_max, form=form)
+            err[key] = max(err[key], compare_tensors(
+                got_l, last_plain, CLIP_OUTPUTS, f"{kname}'s {form} form at the last pose"))
+        last_turns = in_turns({form: (lambda f=form, a=targs, tr=ttree, m=t_max:
+                                      brick_cuda.clipmap_kernel(*a, tr, lo, ld, 7, m, form=f))
+                               for form in (CLIP_MAIN, "first")}, rounds=3, reps=10)
+        kern_ms[kname], kern_ms[kname + "_serial"] = last_turns[CLIP_MAIN], last_turns["first"]
+        last_hits[kname] = int((last_plain[0] >= 0).sum())
+        say(f"[fly] {card}: {kname} at the fly path's last pose ({lo.shape[0]} rays, "
+            f"{last_hits[kname]} hits): its {CLIP_MAIN} form and its first form == "
+            "trace_clipmap_rounds bitwise (hit_leaf, hit_t bits, hit_chunk, truncated); "
+            "in turns " + ", ".join(f"{f} {med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f})"
+                                    for f, v in last_turns.items()))
     plain_ms = {}
     for kname in ("clipmap_trace", "clipmap_trace_brick"):
         plain_ms[kname] = work[kname]["plain_ms"]
@@ -1906,7 +1907,7 @@ def fly_phase(ctx, card):
             f"kernels in {p['n']:.1f} launches a frame (idle {idle}): "
             + ", ".join(f"{k} {u:.1f}" for k, u in sorted(p["by"].items(), key=lambda x: -x[1])[:6]))
     return dict(launches=launches, frames=frames, t=t, prof=prof, kern_ms=kern_ms,
-                last_pose_hits=int((last[CLIP_MAIN][0] >= 0).sum()),
+                last_pose_hits=last_hits["clipmap_trace_brick"],
                 plain_ms=plain_ms, work=work, mapped=mapped, k10=k10,
                 held_ms=float(np.median(held)), cand_turns=cand_turns,
                 cand_alone=cand_alone, fly_mapped=fly_mapped, fly_work=fly_work,
@@ -3699,7 +3700,7 @@ def first_form_rounds():
     live = level_sharded._live
     level_sharded.level_round = first
     # the sharded loop's end read as it was before the queue: a reduction
-    level_sharded._live = lambda done, _queue: (int((~done).sum()), None)
+    level_sharded._live = lambda done, _t_off, _queue: (int((~done).sum()), None)
     try:
         yield
     finally:
@@ -3710,21 +3711,74 @@ def first_form_rounds():
 @contextlib.contextmanager
 def level_calls():
     """Every call of level_round made inside the block, (mode, tables,
-    args, the queue's keywords: live, seg; a copy of its outputs) in a
-    list; the calls themselves go on."""
+    args, the queue's keywords: live, seg; a copy of its outputs; for a
+    loop's queued round of "sharded" or "trunk", a copy of its queue's state
+    before the call (queue_state) and of the queue the main path made for
+    it (queue, count), else None) in a list; the calls themselves go on."""
     from raytracingtest_tpu_torch.parallel import level_sharded
     calls, kernel = [], level_sharded.level_round
 
     def recording(mode, tb, *args, **kw):
+        q = kw.get("queue")
+        queued = q is not None and mode != "packets" and q.out is not None
+        before = queue_state(q) if queued else None
         res = kernel(mode, tb, *args, **kw)
+        made = (q.prev.clone(), q.prev_count.clone()) if queued else None
         calls.append((mode, tb, args, {k: kw[k] for k in ("live", "seg") if k in kw},
-                      tuple(t.clone() for t in res)))
+                      tuple(t.clone() for t in res), (before, made) if queued else None))
         return res
     level_sharded.level_round = recording
     try:
         yield calls
     finally:
         level_sharded.level_round = kernel
+
+
+def queue_state(q):
+    """A copy of a loop's LevelQueue as a round finds it: its last round's
+    queue, count and bound (None after a first round), new status words."""
+    st = brick_cuda.LevelQueue()
+    if q.prev is not None:
+        st.prev, st.prev_count = q.prev.clone(), q.prev_count.clone()
+    st.bound = q.bound
+    return st
+
+
+def check_queue(mode, args, state, made, err):
+    """One round's queue ("sharded" or "trunk") in both forms, the one pass
+    and level_queue_serial, over the round's state: each form's queue and
+    count against level_queue_plain's and the main path's (`made`) bitwise,
+    and the done rays' outputs against the first form's of the round (oct_id
+    -1, t_next = t_off, no hit). Returns (entries, live)."""
+    _o, _d, t_off, done = args
+    prev = None if state.prev is None else state.prev[:int(state.prev_count)]
+    want = level_sharded.level_queue_plain(mode, None, done, prev=prev)
+    entries = torch.arange(done.shape[0], device=done.device) if prev is None else prev.long()
+    gone = entries[done[entries]]
+    names = (("oct_id", "hit", "leaf", "t_hit", "t_next") if mode == "sharded"
+             else ("oct_id", "t_next"))
+    first_form = {"oct_id": -1, "hit": 0, "leaf": -1, "t_hit": 0.0}
+    for form in brick_cuda.FORMS["level_queue"]:
+        # a copy of the state a form: the one pass moves its status words on
+        st = brick_cuda.LevelQueue()
+        st.prev, st.prev_count, st.bound = state.prev, state.prev_count, state.bound
+        rq, out = brick_cuda.level_queue_kernel(mode, done, t_off, form=form, queue=st)
+        count = brick_cuda.live_count(rq)
+        if count != want.numel() or not torch.equal(rq.queue[:count].long(), want):
+            raise AssertionError(f"level_queue {form}, {mode}: the queue parts from "
+                                 "level_queue_plain")
+        for name, t in zip(names, out):
+            w = t_off[gone] if name == "t_next" else torch.full_like(t[gone], first_form[name])
+            if not torch.equal(bits(t[gone]) if t.is_floating_point() else t[gone],
+                               bits(w) if w.is_floating_point() else w):
+                raise AssertionError(f"level_queue {form}, {mode}: a done ray's {name}")
+    if made is not None:
+        count = int(made[1])
+        if count != want.numel() or not torch.equal(made[0][:count].long(), want):
+            raise AssertionError(f"level_queue, {mode}: the main path's queue parts from "
+                                 "level_queue_plain")
+    err["level_queue"] = err["level_queue_serial"] = 0.0
+    return int(entries.numel()), int(want.numel())
 
 
 def counted_run(what, fn, kernels):
@@ -3946,7 +4000,7 @@ def sharded_phase(ctx, card):
     rounds_of = {"sharded": [], "trunk": [], "packets": []}
     # the sharded trace's and the exchange trace's rounds (the fit step's
     # repeat the trace's)
-    for mode, tbl, args, kw, main_out in [c for c in calls if c[0] != "sharded"] + [
+    for mode, tbl, args, kw, main_out, _queued in [c for c in calls if c[0] != "sharded"] + [
             c for c in calls if c[0] == "sharded"][:rounds_tr]:
         tables = (tbl.trunk, tbl.arena, tbl.owner, tbl.root, tbl.origin, tbl.size, tbl.rank)
         fn = (lambda m=mode, t=tables, a=args, k=kw:
@@ -3990,43 +4044,70 @@ def sharded_phase(ctx, card):
     out["calls"] = {mode: rows[0] for mode, rows in rounds_of.items()}
     out["rounds_of"] = rounds_of
 
-    # the queue alone, on the sharded trace's second round (the first with
-    # done rays): against its plain version and torch.nonzero
-    _m, tbl2, args2, _kw, _o = [c for c in calls if c[0] == "sharded"][1]
+    # the queue: every queued round of both traces in both forms against
+    # level_queue_plain and the main path's; alone on the sharded trace's
+    # second round (the first with done rays, over every ray) against its
+    # first form and torch.nonzero
+    queued = [c for c in calls if c[5] is not None]
+    checked = [(c[0],) + check_queue(c[0], c[2], *c[5], err) for c in (
+        [c for c in queued if c[0] == "sharded"][:rounds_tr - 1]
+        + [c for c in queued if c[0] == "trunk"])]
+    if {m for m, _e, _l in checked} != {"sharded", "trunk"}:
+        raise AssertionError(f"the queue's checks saw the modes {checked}")
+    _m, tbl2, args2, _kw, _o, _q = [c for c in calls if c[0] == "sharded"][1]
     done2, t_off2 = args2[3], args2[2]
-    queue2, scan2, _outs = brick_cuda.level_queue_kernel("sharded", done2, t_off2)
-    queue2 = queue2[:brick_cuda.live_count(scan2)]
     t0 = time.perf_counter()
     want2 = level_sharded.level_queue_plain("sharded", None, done2)
     torch.cuda.synchronize()
     queue_plain_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(queue2.long(), want2):
-        raise AssertionError("level_queue parts from level_queue_plain")
-    err["level_queue"] = 0.0
-    q_turns = in_turns({"queue": lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2),
-                        "nonzero": lambda: torch.nonzero(~done2)}, rounds=3, reps=20)
-    n2, live2 = done2.shape[0], queue2.shape[0]
+    kept = brick_cuda.LevelQueue()  # the one pass's status words, as a loop keeps them
+    q_fns = {"one_pass": lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2,
+                                                               queue=kept),
+             "first": lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2,
+                                                            form="first"),
+             "nonzero": lambda: torch.nonzero(~done2)}
+    q_turns = in_turns(q_fns, rounds=3, reps=20)
+    # alone: a CUDA graph of 20 calls, in turns; torch.nonzero syncs and
+    # cannot be graphed: its kernel events in the tracer
+    q_alone = {}
+    for form in ("one_pass", "first", "first", "one_pass"):
+        q_alone.setdefault(form, []).append(graph_us(q_fns[form]))
+    nz_rows = traced_kernels(q_fns["nonzero"], 20)
+    n2, live2 = done2.shape[0], int(want2.numel())
+    # the flags read (once, or twice by the first form's two passes), t_off
+    # and the five outputs of a done ray, a live ray's place
+    moved = (n2 - live2) * 24 + live2 * 4
     out["queue"] = dict(
-        n=n2, live=live2, ms=med_p80(q_turns["queue"])[0],
+        n=n2, live=live2, ms=med_p80(q_turns["one_pass"])[0],
+        ms_first_form=med_p80(q_turns["first"])[0],
         library_ms=med_p80(q_turns["nonzero"])[0], plain_ms=queue_plain_ms,
-        us_alone=graph_us(lambda: brick_cuda.level_queue_kernel("sharded", done2, t_off2)),
-        # the flags read twice (the count pass, the place pass), t_off and the
-        # five outputs of a done ray, a live ray's place
-        bound=bound(2 * n2 + (n2 - live2) * 24 + live2 * 4 + 2 * nbytes(
-            torch.empty(-(-n2 // brick_cuda.QBLOCK), dtype=torch.int32)),
-            n2 * OPS_COMPACT_ROW))
-    say(f"[sharded] {card}: level_queue (count pass, scan, place pass) on the sharded "
-        f"trace's round 2, {live2} live of {n2} rays: == level_queue_plain; "
-        f"{out['queue']['ms']:.4f} ms in turns against torch.nonzero's "
-        f"{out['queue']['library_ms']:.4f}; {out['queue']['us_alone']:.1f} us alone; "
-        f"bound {out['queue']['bound'][0] * 1e3:.1f} us ({out['queue']['bound'][1]})")
+        us_alone=float(np.median(q_alone["one_pass"])),
+        us_alone_first_form=float(np.median(q_alone["first"])),
+        library_us_alone=sum(dev_us(e) for e in nz_rows) / 20,
+        library_kernels={e.key[:70]: dev_us(e) / 20 for e in nz_rows},
+        bound=bound(n2 + moved, n2 * OPS_COMPACT_ROW),
+        bound_first_form=bound(2 * n2 + moved + 2 * nbytes(
+            torch.empty(-(-n2 // brick_cuda.QBLOCK), dtype=torch.int32)), n2 * OPS_COMPACT_ROW),
+        checked=[dict(mode=m, entries=e, live=lv) for m, e, lv in checked])
+    q = out["queue"]
+    say(f"[sharded] {card}: level_queue on every queued round of both traces ("
+        + ", ".join(f"{m} {lv} of {e}" for m, e, lv in checked) + "): the one pass and "
+        "its first form (count pass, torch.cumsum, place pass) == level_queue_plain and "
+        "the main path's queue bitwise, the done rays' outputs the first form's; on the "
+        f"sharded trace's round 2, {live2} live of {n2} rays: in turns one pass "
+        f"{q['ms']:.4f} ms, first form {q['ms_first_form']:.4f}, torch.nonzero "
+        f"{q['library_ms']:.4f}; alone {q['us_alone']:.1f} us against the first form's "
+        f"{q['us_alone_first_form']:.1f} (CUDA graphs, in turns: {q_alone}) and "
+        f"torch.nonzero's {q['library_us_alone']:.1f} (its kernel events: "
+        f"{q['library_kernels']}); bound {q['bound'][0] * 1e3:.1f} us ({q['bound'][1]}), "
+        f"the first form's {q['bound_first_form'][0] * 1e3:.1f}")
 
     # the first form with per-warp counters: the sharded trace's first three
     # rounds and the exchange's first packets round
     out["warps"] = {}
     probed = [c for c in calls if c[0] == "sharded"][:3] + [
         [c for c in calls if c[0] == "packets"][0]]
-    for k, (mode, tbl, args, _kw, _o) in enumerate(probed):
+    for k, (mode, tbl, args, _kw, _o, _q) in enumerate(probed):
         res, record = brick_cuda.probe_level_round(
             mode, tbl.trunk, tbl.arena, tbl.owner, tbl.root, tbl.origin, tbl.size,
             tbl.rank, *args)
@@ -4098,39 +4179,61 @@ def sharded_phase(ctx, card):
                 return fn()
         return run
 
+    def serial_queued(fn):
+        # the queued rounds over the queue's first form (level_queue_serial)
+        def run():
+            one_pass = brick_cuda._queue_one_pass
+            brick_cuda._queue_one_pass = brick_cuda._queue_serial
+            try:
+                return fn()
+            finally:
+                brick_cuda._queue_one_pass = one_pass
+        return run
+
+    is_queue = lambda k: "level_queue_" in k or "DeviceScan" in k
     out["forms"] = {}
     for name in ("sharded trace", "exchange trace"):
         fn = paths[name]
-        if not all(torch.equal(bits(a) if a.is_floating_point() else a,
-                               bits(b) if b.is_floating_point() else b)
-                   for a, b in zip(fn(), first_formed(fn)())):
-            raise AssertionError(f"{name}: the first form's loop parts from the queued one")
-        wall = in_turns({"queued": fn, "first": first_formed(fn)}, rounds=3, reps=3)
-        ev = {form: launches_of(f) for form, f in (("queued", fn),
-                                                   ("first", first_formed(fn)))}
+        forms = {"queued": fn, "serial queue": serial_queued(fn), "first": first_formed(fn)}
+        for form in ("serial queue", "first"):
+            if not all(torch.equal(bits(a) if a.is_floating_point() else a,
+                                   bits(b) if b.is_floating_point() else b)
+                       for a, b in zip(fn(), forms[form]())):
+                raise AssertionError(f"{name}: the loop with {form} parts from the main path")
+        wall = in_turns(forms, rounds=3, reps=3)
+        ev = {form: launches_of(f) for form, f in forms.items()}
         rnd = {form: [us for k, us in e if "level_round_" in k] for form, e in ev.items()}
-        queue_us = sum(us for k, us in ev["queued"] if "level_queue_" in k or "DeviceScan" in k)
+        queue_us = {form: sum(us for k, us in ev[form] if is_queue(k))
+                    for form in ("queued", "serial queue")}
+        queue_n = {form: sum(1 for k, _us in ev[form] if is_queue(k))
+                   for form in ("queued", "serial queue")}
         # the queued form's rounds on the main path: each walk with the queue's
-        # passes (count, scan, place) launched since the walk before
+        # launches since the walk before
         per_round, acc = [], 0.0
         for k, us in ev["queued"]:
-            if "level_queue_" in k or "DeviceScan" in k:
+            if is_queue(k):
                 acc += us
             elif "level_round_" in k:
                 per_round.append((acc, us))
                 acc = 0.0
         out["forms"][name] = dict(
             ms={k: med_p80(v)[0] for k, v in wall.items()}, rounds_us=rnd,
-            queue_us=queue_us, per_round=per_round,
+            queue_us=queue_us["queued"], queue_launches=queue_n["queued"],
+            queue_us_first_form=queue_us["serial queue"],
+            queue_launches_first_form=queue_n["serial queue"], per_round=per_round,
             all_us={form: sum(us for _, us in e) for form, e in ev.items()})
         f = out["forms"][name]
-        say(f"[sharded] {card}: {name}, the queued form against the first form in turns: "
-            f"{f['ms']['queued']:.3f} against {f['ms']['first']:.3f} ms; level_round's "
-            f"launches, us each (traced): {[round(x, 1) for x in rnd['queued']]} (sum "
-            f"{sum(rnd['queued']):.1f}, and {queue_us:.1f} in the queue's passes) against "
+        say(f"[sharded] {card}: {name} in turns, the main path (level_queue's one pass) "
+            f"{f['ms']['queued']:.3f} ms, with the queue's first form "
+            f"{f['ms']['serial queue']:.3f}, level_round's first form {f['ms']['first']:.3f}; "
+            f"the queue (traced): {queue_us['queued']:.1f} us in {queue_n['queued']} launches "
+            f"against its first form's {queue_us['serial queue']:.1f} in "
+            f"{queue_n['serial queue']} (level_queue and DeviceScan kernels); level_round's "
+            f"launches, us each: {[round(x, 1) for x in rnd['queued']]} (sum "
+            f"{sum(rnd['queued']):.1f}) against the first form's "
             f"{[round(x, 1) for x in rnd['first']]} (sum {sum(rnd['first']):.1f}); every "
-            f"kernel {f['all_us']['queued']:.1f} against {f['all_us']['first']:.1f} us; "
-            "the queued form's rounds as (passes, walk) us: "
+            f"kernel {f['all_us']['queued']:.1f}, {f['all_us']['serial queue']:.1f} and "
+            f"{f['all_us']['first']:.1f} us; the main path's rounds as (queue, walk) us: "
             f"{[(round(a, 1), round(b, 1)) for a, b in per_round]}")
     for mode, c in out["calls"].items():
         say(f"[bound] level_round {mode}, the first call ({c['n']} "
@@ -4276,9 +4379,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 34:
+    if len(ptxas) != 41:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 34")
+                             f"expected 41")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -4288,11 +4391,12 @@ def main():
         "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
         "kernels, the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
-        "the wide form clipmap_trace_brick_kernel and its probe forms "
-        "clipmap_trace_brick_probe_kernel<wide>, "
+        "the wide forms clipmap_trace_brick_kernel and clipmap_trace_wide_kernel and "
+        "their probe forms clipmap_trace_brick_probe_kernel<wide> and "
+        "clipmap_trace_probe_kernel<wide>, "
         "the level-sharded rounds' first form level_round_kernel<mode>, its "
-        "probe form and its queued form <mode>, and the queue's passes "
-        "level_queue_*_kernel: "
+        "probe form and its queued form <mode>, and the queue's kernels "
+        "level_queue_*_kernel (the one pass level_queue_lookback_kernel<mode, over a queue>): "
         "registers, spill bytes, shared bytes; the staged form's "
         "slots are dynamic shared memory): "
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
@@ -4321,7 +4425,8 @@ def main():
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
                tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
-               clipmap_trace_brick_serial=0.0, svo_expand_serial=0.0,
+               clipmap_trace_brick_serial=0.0, clipmap_trace_serial=0.0,
+               svo_expand_serial=0.0,
                **{k: 0.0 for k in BUILD_KERNELS})
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).svo.to(dev)
@@ -6293,25 +6398,27 @@ def main():
             launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
             ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
             bound_by=bnd[1], library_ms=None, **extra))
-    bw = fk["fly_work"]["clipmap_trace_brick"]
-    kernels[-1].update(
-        form=CLIP_MAIN, us_alone_first_form_fly_check=bw["us_alone_first_form"],
-        ms_in_turns_fly_check={f: med_p80(v)[0] for f, v in bw["ms_turns"].items()},
-        ms_last_pose_first_form=med_p80(fk["kern_ms"]["clipmap_trace_brick_serial"])[0],
-        warps_fly_check=bw["warps"])
-    kernels.append(dict(
-        name="clipmap_trace_brick_serial", route="cuda", source=src + "brick_trace.cu",
-        replaces="raytracingtest_tpu/stream/clipmap.py:965",
-        path="brick_cuda.clipmap_kernel(form=\"first\") (the first form, off the main path)",
-        launches=0, max_abs_err=err["clipmap_trace_brick_serial"],
-        ms=med_p80(fk["work"]["clipmap_trace_brick"]["ms_first"])[0],
-        plain_ms=fk["plain_ms"]["clipmap_trace_brick"],
-        bound_ms=fk["work"]["clipmap_trace_brick"]["bound"][0],
-        bound_by=fk["work"]["clipmap_trace_brick"]["bound"][1], library_ms=None,
-        shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
-        us_alone_fly_check=bw["us_alone_first_form"],
-        ms_last_pose=med_p80(fk["kern_ms"]["clipmap_trace_brick_serial"])[0],
-        warps_fly_check=bw["warps"]["first"]))
+    by_name = {row["name"]: row for row in kernels}
+    for kname in ("clipmap_trace", "clipmap_trace_brick"):
+        fw, wk = fk["fly_work"][kname], fk["work"][kname]
+        by_name[kname].update(
+            form=CLIP_MAIN, us_alone_first_form_fly_check=fw["us_alone_first_form"],
+            us_alone_in_turns_fly_check=fw["alone_in_turns"],
+            ms_in_turns_fly_check={f: med_p80(v)[0] for f, v in fw["ms_turns"].items()},
+            ms_last_pose_first_form=med_p80(fk["kern_ms"][kname + "_serial"])[0],
+            warps_fly_check=fw["warps"])
+        kernels.append(dict(
+            name=kname + "_serial", route="cuda", source=src + "brick_trace.cu",
+            replaces=by_name[kname]["replaces"],
+            path="brick_cuda.clipmap_kernel(form=\"first\") (the first form, off the main "
+                 "path)",
+            launches=0, max_abs_err=err[kname + "_serial"],
+            ms=med_p80(wk["ms_first"])[0], plain_ms=fk["plain_ms"][kname],
+            bound_ms=wk["bound"][0], bound_by=wk["bound"][1], library_ms=None,
+            shape=f"{FLY_PARITY_RES}² rays, the whole world at depth 10",
+            us_alone_fly_check=fw["us_alone_first_form"],
+            ms_last_pose=med_p80(fk["kern_ms"][kname + "_serial"])[0],
+            warps_fly_check=fw["warps"]["first"]))
     per_round = lambda rows: [dict(live=r["live"], walks=r["counts"]["walks"],
                                    steps=r["counts"]["steps"], us_alone=r["us_alone"],
                                    us_alone_first_form=r["us_alone_first_form"],
@@ -6364,15 +6471,31 @@ def main():
     kernels.append(dict(
         name="level_queue", route="cuda", source=src + "brick_trace.cu",
         replaces=LEVEL_REPLACES["sharded"],
-        path="the level-sharded loops' rounds (the queue of level_round's queued form)"
-             + level_path,
+        path="the level-sharded loops' rounds (the queue of level_round's queued form: "
+             "the one pass, and the packets' search)" + level_path,
         launches=shard["launches"]["sharded trace"]["level_queue"],
         max_abs_err=err["level_queue"], ms=q["ms"], plain_ms=q["plain_ms"],
         bound_ms=q["bound"][0], bound_by=q["bound"][1], library_ms=q["library_ms"],
-        us_alone=q["us_alone"],
+        us_alone=q["us_alone"], library_us_alone=q["library_us_alone"],
         shape=f"the sharded trace's round 2: {q['live']} live of {q['n']} rays",
         launches_exchange=shard["launches"]["exchange trace"]["level_queue"],
-        us_a_path={name: f["queue_us"] for name, f in shard["forms"].items()}))
+        us_a_path={name: f["queue_us"] for name, f in shard["forms"].items()},
+        launches_traced_a_path={name: f["queue_launches"]
+                                for name, f in shard["forms"].items()},
+        rounds_checked=q["checked"]))
+    kernels.append(dict(
+        name="level_queue_serial", route="cuda", source=src + "brick_trace.cu",
+        replaces=LEVEL_REPLACES["sharded"],
+        path="brick_cuda.level_queue_kernel(form=\"first\") (the queue's first form: count "
+             "pass, torch.cumsum, place pass; off the main path)" + level_path,
+        launches=0, max_abs_err=err["level_queue_serial"], ms=q["ms_first_form"],
+        plain_ms=q["plain_ms"], bound_ms=q["bound_first_form"][0],
+        bound_by=q["bound_first_form"][1], library_ms=q["library_ms"],
+        us_alone=q["us_alone_first_form"],
+        shape=f"the sharded trace's round 2: {q['live']} live of {q['n']} rays",
+        us_a_path={name: f["queue_us_first_form"] for name, f in shard["forms"].items()},
+        launches_traced_a_path={name: f["queue_launches_first_form"]
+                                for name, f in shard["forms"].items()}))
     for row in kernels:
         row["launches_cli"] = clied["launches"].get(row["name"], 0)
     kernels[0]["launches_train_step"] = train_launches["per-ray"]["esvo_trace"]

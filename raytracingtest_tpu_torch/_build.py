@@ -236,7 +236,7 @@ def _declare_brick(lib):
         fn.argtypes = clip + [p]
         fn.restype = i
     lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
-    lib.clipmap_trace_form.argtypes = [i, i] + clip + [p, p]
+    lib.clipmap_trace_form.argtypes = [i] + clip + [p, p]
     for fn in (lib.clipmap_trace_brick_probe, lib.clipmap_trace_form):
         fn.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays

@@ -1,7 +1,7 @@
 // The per-ray stackless traces for Hopper, sm_90a: six traces that share
 // one stackless step, the streamed world's stitched traces (clipmap_trace,
-// clipmap_trace_brick) and the level-sharded rounds (level_round), which
-// walk from a per-ray root.
+// clipmap_trace_brick) and the level-sharded rounds (level_round, and its
+// queue level_queue), which walk from a per-ray root.
 //
 //   esvo_stackless  replaces raytracingtest_tpu/ops/traverse.py::_trace_core
 //                   (:530, driven by trace_jax :639; its step _fast_step
@@ -135,19 +135,21 @@
 //     span. Staging takes the record off the walk; it cannot mend the
 //     divergence.
 //   * clipmap_trace and clipmap_trace_brick, the stitched traces: one thread
-//     a ray running its rounds (see their section below). clipmap_trace_brick
-//     has a wide form on the main path (the direction's set-up once a ray,
-//     the chunk's walk the wide brick trace's) and its first form,
-//     clipmap_trace_kernel<true>, beside it.
+//     a ray running its rounds (see their section below). Each has a wide
+//     form on the main path and its first form (clipmap_trace_kernel<false>,
+//     <true>) beside it: both wide forms make the direction's set-up once a
+//     ray; clipmap_trace's scales the origin by the exact reciprocal of a
+//     power-of-two size, clipmap_trace_brick's walks the chunk with the wide
+//     brick trace's body.
 //   * esvo_stackless_lod and brick_trace_lod: esvo_stackless's and the wide
 //     brick_trace's bodies (stackless_ray, brick_ray) with the step in LOD
 //     mode; the other kernels instantiate the same bodies without it, so
 //     their code and registers are as before (chip_smoke.py's [build]).
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe, the
 //     k-segment traces' esvo_stackless_multi_probe and
-//     brick_trace_multi_probe, of either form, and the stitched brick
-//     trace's clipmap_trace_brick_probe over its own seven phases) are a
-//     form with counters:
+//     brick_trace_multi_probe, of either form, and the stitched traces'
+//     clipmap_trace_brick_probe and clipmap_trace_probe_kernel over their
+//     own seven and six phases) are a form with counters:
 //     each warp writes PROBE_WORDS int64 words (the layout at Probe below),
 //     the issues of each phase (a step, the descent, a DDA step, a ray's
 //     set-up or write, a segment's record; in the staged form the warp's
@@ -1638,7 +1640,9 @@ clipmap_trace_brick_probe_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
 // as clipmap_trace_brick's probe enters it).
 constexpr int CN_TRUNK = 0, CN_SETUP = 1, CN_SCALE = 2, CN_STEP = 3,
               CN_EXIT = 4, CN_ROUND = 5, CN_PHASES = 6;
-constexpr int CLIP_BLOCK = 256;  // the wide form's block, chosen in turns
+// the wide form's block: 128 measured faster than 256 alone (235.1-235.8
+// against 246.3-246.4 us on fly frame 0, PERF.md)
+constexpr int CLIP_BLOCK = 128;
 
 // Whether `size` is a normal power of two with a normal reciprocal, which
 // it then returns in `inv`: biased exponent e in [1, 253], mantissa 0; the
@@ -1775,9 +1779,8 @@ __device__ __forceinline__ void clip_node_ray(const Tree& trunk,
   probe.ray();
 }
 
-// clipmap_trace's wide form: a thread a ray in blocks of B.
-template <int B>
-__global__ void __launch_bounds__(B)
+// clipmap_trace's wide form: a thread a ray in blocks of CLIP_BLOCK.
+__global__ void __launch_bounds__(CLIP_BLOCK)
 clipmap_trace_wide_kernel(Tree trunk, Tree chunks, Clip clip, Rays rays,
                           ClipOut out) {
   Probe<false, CN_PHASES> probe;
@@ -1977,26 +1980,34 @@ level_round_probe_kernel(Tree trunk, Tree arena, Octants oc, LevelIO io,
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
 // NVIDIA 2016). Its bytes are the flags read once, the done rays' t_off and
 // outputs and the live rays' places (PERF.md); its first form made it in
-// five launches and read the flags twice. A block of QBLOCK threads takes a
-// tile of QTILE entries, its tile's index from a ticket (an atomic counter),
-// not from blockIdx, so that a block looks back only at tiles whose blocks
-// already run. Warp w of the tile holds entries w * 512 + k * 32 + lane (k
-// < QITEMS): over every ray the tile's flags come in as one 16-byte load a
-// thread, staged in shared memory; over a queue, entry by entry. A warp
-// writes its done rays' outputs at once, then counts its live rays with
-// __ballot_sync and __popc, a ballot a k. The block's aggregate goes out in
-// its tile's status word (a 64-bit word: the launch's epoch, a flag,
-// aggregate or inclusive prefix, and the value), warp 0 looks back over
-// the words of the tiles before it, 32 at a time, summing aggregates down
-// to the nearest inclusive prefix, and publishes its own inclusive prefix;
-// then each live ray goes to its place, the tile's exclusive prefix plus
-// its warp's and its rank in the warp's ballots. The last tile writes the
-// total to n_live on the device, which level_round_queued_kernel reads and
-// the loop reads once on the host. The status words and the two control
-// words (the next ticket, the epoch) belong to a loop and are zeroed once a
-// loop: each launch tags its words with its epoch, so a word of an earlier
-// launch reads as not yet published, and the block that takes the last
-// ticket resets the ticket and moves the epoch on for the next launch.
+// five launches and read the flags twice. What bounds it at the loops'
+// sizes is the done rays' outputs (five scattered words a ray, the same
+// writes as the first form's place pass) and a block's chain of round trips
+// to memory. A block
+// of QBLOCK threads takes a tile of QTILE entries, its tile's index from a
+// ticket (an atomic counter), not from blockIdx, so that a block looks back
+// only at tiles whose blocks already run. Warp w of the tile holds entries
+// w * 512 + k * 32 + lane (k < QITEMS). Over every ray the tile's flags come
+// in as one 16-byte load a thread, staged in shared memory, and entry by
+// entry a done ray's outputs go out; over a queue (OVER_QUEUE) its entries
+// and then their flags come in, each a batch of loads in flight together.
+// A warp counts its live rays with __ballot_sync and __popc, a ballot a k.
+// The block's aggregate goes out in its tile's status word (a 64-bit word:
+// the launch's epoch, a flag, aggregate or inclusive prefix, and the
+// value); warp 0 looks back over the words of the tiles before it, one a
+// lane, 32 at a time, summing aggregates down to the nearest inclusive
+// prefix (a wider window, 8 words a lane, waits on more tiles: slower,
+// PERF.md), and publishes its own inclusive prefix, while over a
+// queue the other warps write their done rays' outputs; then each live ray
+// goes to its place, the tile's exclusive prefix plus its warp's and its
+// rank in the warp's ballots. The last tile writes the total to n_live on
+// the device, which level_round_queued_kernel reads and the loop reads once
+// on the host. The status words and the control word (the launch's epoch
+// and the next ticket) belong to a loop and are zeroed once a loop: each
+// launch tags its words with its epoch, so a word of an earlier launch
+// reads as not yet published, and the block that takes the last ticket
+// moves the epoch on and the ticket back to 0 for the next launch, in the
+// same word.
 // The queue is the same stable order as the first form's, so every round
 // keeps its bits.
 //
@@ -2115,10 +2126,10 @@ constexpr int QITEMS = 16, QTILE = QBLOCK * QITEMS, QWARP = 32 * QITEMS;
 // 30 bits; flag 0 (or an earlier epoch): not published yet
 constexpr unsigned Q_AGGREGATE = 1, Q_PREFIX = 2, Q_EPOCH_MASK = 0x3fffffffu;
 
-// A loop's status words: ctl[0] the next ticket, ctl[1] the epoch; a word a
-// tile after them.
+// A loop's status words: ctl, the launch's epoch (high 32 bits) and the
+// next tile's ticket (low 32 bits), then a word a tile.
 struct QueueStatus {
-  unsigned* ctl;
+  unsigned long long* ctl;
   unsigned long long* words;
 };
 
@@ -2138,43 +2149,62 @@ __device__ __forceinline__ unsigned q_read(const unsigned long long* word,
   return (hi >> 2) == epoch ? (hi & 3u) : 0u;
 }
 
-// The one pass (see the section's head): a block a tile of QTILE entries,
-// every ray (prev null) or the last round's queue (its first *n_prev of
-// prev_cap entries); the tiles' status words at qs; the live rays' indices
-// at queue from the tile's exclusive prefix on, the total at n_live (the
-// last tile), a done ray's outputs at io.
+// A done ray's outputs, as the first form of the round writes them.
 template <int MODE>
+__device__ __forceinline__ void write_done(const LevelIO& io, int i, float t_off) {
+  io.oct_id[i] = -1;
+  io.t_next[i] = t_off;
+  if (MODE == LEVEL_SHARDED) {
+    io.hit[i] = 0;
+    io.leaf[i] = -1;
+    io.t_hit[i] = 0.0f;
+  }
+}
+
+// The one pass (see the section's head): a block a tile of QTILE entries,
+// every ray or (OVER_QUEUE) the last round's queue (its first *n_prev
+// entries); the tiles' status words at qs; the live rays' indices at queue
+// from the tile's exclusive prefix on, the total at n_live (the last tile),
+// a done ray's outputs at io. A block's chain: its ticket (one atomic that
+// also returns the epoch); over every ray, its flags (one 16-byte load a
+// thread) and, entry by entry, a done ray's outputs and the ballots; over a
+// queue, its entries and their flags (each a batch of loads in flight
+// together) and the ballots; its aggregate out and warp 0's look-back, one
+// word a lane, while over a queue the other warps write their done rays'
+// outputs (their t_off a batch); then the places.
+template <int MODE, bool OVER_QUEUE>
 __global__ void __launch_bounds__(QBLOCK)
 level_queue_lookback_kernel(const unsigned char* __restrict__ done, int n,
                             const int* __restrict__ prev,
                             const int* __restrict__ n_prev, QueueStatus qs,
                             int* __restrict__ queue, int* __restrict__ n_live,
                             LevelIO io) {
-  __shared__ uint4 flags[QBLOCK];  // the tile's flags, over every ray
+  __shared__ uint4 flags[OVER_QUEUE ? 1 : QBLOCK];  // the tile's flags, over every ray
   __shared__ int warp_first[QBLOCK / 32];
   __shared__ int tile_s;
   __shared__ unsigned epoch_s;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    const unsigned epoch = *(volatile unsigned*)(qs.ctl + 1);
-    __threadfence();
-    const unsigned ticket = atomicAdd(qs.ctl, 1u);
-    if (ticket == gridDim.x - 1) {  // every other block holds its ticket
-      *(volatile unsigned*)qs.ctl = 0u;
-      __threadfence();
-      atomicAdd(qs.ctl + 1, 1u);
-    }
+    const unsigned long long got = atomicAdd(qs.ctl, 1ull);
+    const unsigned ticket = (unsigned)got;
+    // the last ticket: every other block holds its own; the epoch moves on
+    // and the ticket returns to 0 for the next launch, in one atomic
+    if (ticket == gridDim.x - 1) atomicAdd(qs.ctl, (1ull << 32) - gridDim.x);
     tile_s = (int)ticket;
-    epoch_s = epoch & Q_EPOCH_MASK;
+    epoch_s = (unsigned)(got >> 32) & Q_EPOCH_MASK;
   }
+  const int m = OVER_QUEUE ? __ldg(n_prev) : n;
   __syncthreads();
   const int tile = tile_s;
   const unsigned epoch = epoch_s;
-  const long long tile0 = (long long)tile * QTILE;
-  const unsigned char* staged = reinterpret_cast<const unsigned char*>(flags);
-  int m = n;
-  if (prev == nullptr) {  // the tile's flags: one 16-byte load a thread
-    const long long j = tile0 + 16 * threadIdx.x;
+  const long long first = (long long)tile * QTILE + warp * QWARP + lane;
+  // entry k of this thread is first + 32 k
+  unsigned ballot[QITEMS];
+  int ray[QITEMS];
+  unsigned gone = 0;  // bit k: entry k is a done ray (over a queue)
+  int count = 0;
+  if constexpr (!OVER_QUEUE) {
+    const long long j = (long long)tile * QTILE + 16 * threadIdx.x;
     if (j + 16 <= n && (reinterpret_cast<size_t>(done) & 15) == 0) {
       flags[threadIdx.x] = __ldg(reinterpret_cast<const uint4*>(done + j));
     } else {
@@ -2182,40 +2212,34 @@ level_queue_lookback_kernel(const unsigned char* __restrict__ done, int n,
       for (int k = 0; k < 16; ++k) mine[k] = j + k < n ? done[j + k] : 1;
     }
     __syncthreads();
-  } else {
-    m = __ldg(n_prev);
-  }
-  // pass 1: each entry's ray, a done ray's outputs, the warp's ballots
-  unsigned ballot[QITEMS];
-  int ray[QITEMS];
-  int count = 0;
+    const unsigned char* staged = reinterpret_cast<const unsigned char*>(flags);
 #pragma unroll
-  for (int k = 0; k < QITEMS; ++k) {
-    const int local = warp * QWARP + k * 32 + lane;
-    const long long e = tile0 + local;
-    int i = -1;
-    bool gone = true;
-    if (e < m) {
-      i = prev == nullptr ? (int)e : __ldg(prev + e);
-      gone = (prev == nullptr ? staged[local] : done[i]) != 0;
+    for (int k = 0; k < QITEMS; ++k) {
+      const long long e = first + 32 * k;
+      ray[k] = e < n ? (int)e : -1;
+      const bool dead = ray[k] >= 0 && staged[warp * QWARP + k * 32 + lane] != 0;
+      if (dead) write_done<MODE>(io, ray[k], io.t_off[ray[k]]);
+      ballot[k] = __ballot_sync(FULL, ray[k] >= 0 && !dead);
+      count += __popc(ballot[k]);
     }
-    ray[k] = i;
-    if (i >= 0 && gone) {
-      io.oct_id[i] = -1;
-      io.t_next[i] = io.t_off[i];
-      if (MODE == LEVEL_SHARDED) {
-        io.hit[i] = 0;
-        io.leaf[i] = -1;
-        io.t_hit[i] = 0.0f;
-      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < QITEMS; ++k) {
+      const long long e = first + 32 * k;
+      ray[k] = e < m ? __ldg(prev + e) : -1;
     }
-    ballot[k] = __ballot_sync(FULL, i >= 0 && !gone);
-    count += __popc(ballot[k]);
+#pragma unroll
+    for (int k = 0; k < QITEMS; ++k)
+      if (ray[k] >= 0 && __ldg(done + ray[k])) gone |= 1u << k;
+#pragma unroll
+    for (int k = 0; k < QITEMS; ++k) {
+      ballot[k] = __ballot_sync(FULL, ray[k] >= 0 && !((gone >> k) & 1u));
+      count += __popc(ballot[k]);
+    }
   }
   if (lane == 0) warp_first[warp] = count;
   __syncthreads();
-  // warp 0: the tile's aggregate, the look-back, the warps' first places
-  if (warp == 0) {
+  if (warp == 0) {  // the tile's aggregate, the look-back, the warps' first places
     const int c = lane < QBLOCK / 32 ? warp_first[lane] : 0;
     int incl = c;
     for (int o = 1; o < 32; o <<= 1) {
@@ -2250,8 +2274,20 @@ level_queue_lookback_kernel(const unsigned char* __restrict__ done, int n,
     if (lane < QBLOCK / 32) warp_first[lane] = exclusive + incl - c;
     if (lane == 0 && tile == (int)gridDim.x - 1) *n_live = exclusive + aggregate;
   }
+  if constexpr (OVER_QUEUE) {  // the done rays' outputs: their t_off a batch
+    if (gone) {
+      float t_was[QITEMS];
+#pragma unroll
+      for (int k = 0; k < QITEMS; ++k)
+        t_was[k] = (gone >> k) & 1u ? __ldg(io.t_off + ray[k]) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < QITEMS; ++k)
+        if ((gone >> k) & 1u) write_done<MODE>(io, ray[k], t_was[k]);
+    }
+  }
   __syncthreads();
-  // pass 2: each live ray at its place
+  // each live ray at its place: the warp's first, the ballots of k before
+  // it, its rank in its own
   int pos = warp_first[warp];
 #pragma unroll
   for (int k = 0; k < QITEMS; ++k) {
@@ -2655,11 +2691,11 @@ extern "C" int brick_trace_multi_probe(
 // tables (roots, origins (C, 3), sizes), the trunk's world corner and size,
 // the node arena (masks, child_base, parent_ptr, leaf_base; chunk_depth)
 // and n_max rounds; (n,) hit_leaf, hit_t, hit_chunk and truncated (bytes).
-// `form`: FORM_WIDE (clipmap_trace_wide_kernel in blocks of `block`, 128 or
-// 256) or FORM_FIRST (clipmap_trace_kernel<false>); with `probe` (CN_PHASES'
-// record, 6 + 3 CN_PHASES int64 words a warp of the form's blocks) the
-// form's probe kernel.
-static int clipmap_node_launch(int form, int block, const void* trunk_masks,
+// `form`: FORM_WIDE (clipmap_trace_wide_kernel) or FORM_FIRST
+// (clipmap_trace_kernel<false>); with `probe` (CN_PHASES' record, 6 + 3
+// CN_PHASES int64 words a warp of the form's blocks) the form's probe
+// kernel.
+static int clipmap_node_launch(int form, const void* trunk_masks,
                                const void* trunk_child, const void* trunk_parent,
                                const void* trunk_leaf, const void* roots,
                                const void* origins, const void* sizes, float org_x,
@@ -2672,9 +2708,7 @@ static int clipmap_node_launch(int form, int block, const void* trunk_masks,
                                void* truncated, void* probe, void* stream) {
   if (n < 0 || trunk_depth < 1 || trunk_depth > S_MAX - 1 || chunk_depth < 1 ||
       chunk_depth > S_MAX - 1 || n_max < 0 ||
-      (form != FORM_FIRST && form != FORM_WIDE) ||
-      (form == FORM_WIDE && block != 128 && block != 256) ||
-      (probe != nullptr && form == FORM_WIDE && block != CLIP_BLOCK))
+      (form != FORM_FIRST && form != FORM_WIDE))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree trunk{(const int*)trunk_masks, (const int*)trunk_child,
@@ -2693,11 +2727,8 @@ static int clipmap_node_launch(int form, int block, const void* trunk_masks,
     if (form == FORM_WIDE && rec != nullptr)
       clipmap_trace_probe_kernel<true><<<blocks_for(n, CLIP_BLOCK), CLIP_BLOCK, 0, st>>>(
           trunk, chunks, clip, rays, out, rec);
-    else if (form == FORM_WIDE && block == 128)
-      clipmap_trace_wide_kernel<128><<<blocks_for(n, 128), 128, 0, st>>>(
-          trunk, chunks, clip, rays, out);
     else if (form == FORM_WIDE)
-      clipmap_trace_wide_kernel<256><<<blocks_for(n, 256), 256, 0, st>>>(
+      clipmap_trace_wide_kernel<<<blocks_for(n, CLIP_BLOCK), CLIP_BLOCK, 0, st>>>(
           trunk, chunks, clip, rays, out);
     else if (rec != nullptr)
       clipmap_trace_probe_kernel<false><<<blocks_for(n, BLOCK), BLOCK, 0, st>>>(
@@ -2721,7 +2752,7 @@ extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
                              int chunk_depth, int n_max, void* hit_leaf,
                              void* hit_t, void* hit_chunk, void* truncated,
                              void* stream) {
-  return clipmap_node_launch(FORM_WIDE, CLIP_BLOCK, trunk_masks, trunk_child,
+  return clipmap_node_launch(FORM_WIDE, trunk_masks, trunk_child,
                              trunk_parent, trunk_leaf, roots, origins, sizes, org_x,
                              org_y, org_z, size, masks, child_base, parent_ptr,
                              leaf_base, origin, direction, n, trunk_depth,
@@ -2730,16 +2761,16 @@ extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
 }
 
 // Either form (FORM_FIRST: clipmap_trace's first form, the check and the
-// yardstick; FORM_WIDE in blocks of `block`), or with `probe` its counters.
+// yardstick; FORM_WIDE), or with `probe` its counters.
 extern "C" int clipmap_trace_form(
-    int form, int block, const void* trunk_masks, const void* trunk_child,
+    int form, const void* trunk_masks, const void* trunk_child,
     const void* trunk_parent, const void* trunk_leaf, const void* roots,
     const void* origins, const void* sizes, float org_x, float org_y, float org_z,
     float size, const void* masks, const void* child_base, const void* parent_ptr,
     const void* leaf_base, const void* origin, const void* direction, int n,
     int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
     void* hit_chunk, void* truncated, void* probe, void* stream) {
-  return clipmap_node_launch(form, block, trunk_masks, trunk_child, trunk_parent,
+  return clipmap_node_launch(form, trunk_masks, trunk_child, trunk_parent,
                              trunk_leaf, roots, origins, sizes, org_x, org_y, org_z,
                              size, masks, child_base, parent_ptr, leaf_base, origin,
                              direction, n, trunk_depth, chunk_depth, n_max, hit_leaf,
@@ -3030,7 +3061,7 @@ extern "C" int level_round_probe(int mode, const void* trunk_masks,
 // main path's. "sharded", "trunk": the one pass (level_queue_lookback_
 // kernel) over every ray, or with `prev` over a previous round's queue (its
 // length `n_prev` on the device, at most `grid_n`; grid_n is n without
-// it): `status` the loop's status words (int64: the two control words, then
+// it): `status` the loop's status words (int64: the control word, then
 // a word for each of the ceil(n / QTILE) tiles a round may have, zeroed
 // once a loop), `queue` (ceil(entries / QTILE) * QTILE ints) the live rays
 // in order, `n_live` (one int) their count, and the outputs of the rays
@@ -3057,18 +3088,25 @@ extern "C" int level_queue(int mode, int n, const void* done, const void* t_off,
     return (int)cudaGetLastError();
   }
   const int tiles = blocks_for(prev == nullptr ? n : grid_n, QTILE);
-  const QueueStatus qs{(unsigned*)status, (unsigned long long*)status + 1};
+  const QueueStatus qs{(unsigned long long*)status, (unsigned long long*)status + 1};
   const LevelIO io{nullptr, nullptr, (const float*)t_off,
                    (const unsigned char*)done, n, (int*)oct_id, (int*)hit,
                    (int*)leaf, (float*)t_hit, (float*)t_next};
-  if (mode == LEVEL_SHARDED)
-    level_queue_lookback_kernel<LEVEL_SHARDED><<<tiles, QBLOCK, 0, st>>>(
-        (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev, qs,
-        (int*)queue, (int*)n_live, io);
+  const unsigned char* flags = (const unsigned char*)done;
+  const int* entries = (const int*)prev;
+  const int* n_entries = (const int*)n_prev;
+  if (mode == LEVEL_SHARDED && prev == nullptr)
+    level_queue_lookback_kernel<LEVEL_SHARDED, false><<<tiles, QBLOCK, 0, st>>>(
+        flags, n, entries, n_entries, qs, (int*)queue, (int*)n_live, io);
+  else if (mode == LEVEL_SHARDED)
+    level_queue_lookback_kernel<LEVEL_SHARDED, true><<<tiles, QBLOCK, 0, st>>>(
+        flags, n, entries, n_entries, qs, (int*)queue, (int*)n_live, io);
+  else if (prev == nullptr)
+    level_queue_lookback_kernel<LEVEL_TRUNK, false><<<tiles, QBLOCK, 0, st>>>(
+        flags, n, entries, n_entries, qs, (int*)queue, (int*)n_live, io);
   else
-    level_queue_lookback_kernel<LEVEL_TRUNK><<<tiles, QBLOCK, 0, st>>>(
-        (const unsigned char*)done, n, (const int*)prev, (const int*)n_prev, qs,
-        (int*)queue, (int*)n_live, io);
+    level_queue_lookback_kernel<LEVEL_TRUNK, true><<<tiles, QBLOCK, 0, st>>>(
+        flags, n, entries, n_entries, qs, (int*)queue, (int*)n_live, io);
   return (int)cudaGetLastError();
 }
 

@@ -152,6 +152,9 @@ FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "level_queue": ("one_pass", "first")}
 FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
 BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
+# clipmap_trace's forms' blocks (csrc/brick_trace.cu's CLIP_BLOCK: its wide
+# form measured faster in blocks of 128 than of 256)
+CLIP_BLOCKS = {"wide": 128, "first": 128}
 
 # brick_trace_multi's staged form takes k up to STAGED_MAX_K: a block of
 # 32 rays (csrc/brick_trace.cu's MULTI_BLOCK: the fastest block from k = 8
@@ -192,12 +195,12 @@ CLIP_NODE_PROBE_FIELDS = (("start", "end", "rays")
                           + ("sm", "ns_start", "ns_end"))
 
 
-def warps_of(n: int, form: str) -> int:
-    """Warps of a launch of `form` over `n` rays: the rows of a probe
-    form's record."""
+def warps_of(n: int, form: str, block=None) -> int:
+    """Warps of a launch of `form` over `n` rays (in blocks of `block`, by
+    default the form's): the rows of a probe form's record."""
     if n < 0 or form not in BLOCKS:
         raise ValueError(f"ray count {n}, form {form!r}")
-    span = BLOCKS[form]
+    span = BLOCKS[form] if block is None else block
     return (n + span - 1) // span * (span // 32)
 
 
@@ -627,7 +630,7 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
         kernel(origin.device, *head)
         launches[kname] += 1
     elif kname == "clipmap_trace":
-        kernel(origin.device, code, BLOCKS[form], *head, None)
+        kernel(origin.device, code, *head, None)
         form_launches["clipmap_trace_serial"] += 1
     else:
         kernel(origin.device, *head)
@@ -646,10 +649,10 @@ def probe_clipmap(trunk, org, size, roots, origins, sizes, arena, origin,
         raise ValueError("probe_clipmap takes the node arena")
     head, out = _clip_args(_CLIPMAP_TRACE_FORM, trunk, org, size, roots, origins,
                            sizes, arena, origin, direction, chunk_depth, n_max)
-    record = torch.zeros((warps_of(origin.shape[0], form),
+    record = torch.zeros((warps_of(origin.shape[0], form, CLIP_BLOCKS[form]),
                           len(CLIP_NODE_PROBE_FIELDS)),
                          dtype=torch.int64, device=origin.device)
-    _CLIPMAP_TRACE_FORM(origin.device, code, BLOCKS[form], *head, record.data_ptr())
+    _CLIPMAP_TRACE_FORM(origin.device, code, *head, record.data_ptr())
     probe_launches["clipmap_trace_probe"] += 1
     return out, record
 
@@ -762,8 +765,8 @@ class LevelQueue:
         return self.prev.data_ptr(), self.prev_count.data_ptr(), self.bound
 
     def status_words(self, n, device):
-        """The one pass's status words for rounds over `n` rays: the two
-        control words (the next tile's ticket, the launch's epoch) and a
+        """The one pass's status words for rounds over `n` rays: the
+        control word (the launch's epoch and the next tile's ticket) and a
         word a tile, zeroed on first use."""
         if self.status is None:
             self.status = torch.zeros(1 + -(-n // QTILE), dtype=torch.int64,

@@ -24,9 +24,24 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 SOURCE = f"{_build._CSRC}/brick_trace.cu"
 
 
-def clip_constants():
+def clip_constants(prefix="CP"):
     src = open(SOURCE).read()
-    return {name: int(v) for name, v in re.findall(r"\b(CP_\w+) = (\d+)", src)}
+    return {name: int(v) for name, v in re.findall(rf"\b({prefix}_\w+) = (\d+)", src)}
+
+
+def pow2_reciprocal(size):
+    """The wide form's test of a size (csrc/brick_trace.cu's
+    pow2_reciprocal) on float32 bits: (whether it takes the product, the
+    reciprocal it multiplies by)."""
+    bits = int(np.float32(size).view(np.int32))
+    e = (bits >> 23) & 0xFF
+    inv = np.int32(((254 - e) << 23) & 0xFFFFFFFF).view(np.float32) if 1 <= e <= 253 else None
+    return (bits & 0x807FFFFF) == 0 and 1 <= e <= 253, inv
+
+
+# the sizes a Clipmap makes: chunks of min_chunk_size * 2^lod (the fly
+# configuration's 0.125 and 0.25 among them) in a world of size 1
+CLIPMAP_SIZES = [0.125 * 2 ** lod for lod in range(4)] + [0.25, 0.5, 1.0]
 
 
 def test_clip_probe_record_layout_names_the_seven_phases():
@@ -170,3 +185,115 @@ def test_plain_route_matches_jax_brick_trace(sphere_world):
                                               5, w["devb"], o, d)
     done = ~capped[3]
     assert torch.equal(capped[0][done], full[0][done])
+
+
+def test_node_probe_record_layout_names_the_six_phases():
+    """CLIP_NODE_PROBE_FIELDS names the node arena's probe record word for
+    word: the phases in CN_* order, then the SM and the global timer (6 + 3
+    x 6 words), in Probe<true, CN_PHASES>'s layout."""
+    c = clip_constants("CN")
+    assert c["CN_PHASES"] == len(brick_cuda.CLIP_NODE_PHASES) == 6
+    for ph in brick_cuda.CLIP_NODE_PHASES:
+        assert brick_cuda.CLIP_NODE_PHASES.index(ph) == c[f"CN_{ph.upper()}"], ph
+    fields = brick_cuda.CLIP_NODE_PROBE_FIELDS
+    assert len(fields) == 6 + 3 * c["CN_PHASES"]
+    base = 3 + 3 * c["CN_SCALE"]
+    assert fields[base:base + 3] == ("scale_issues", "scale_lanes", "scale_cycles")
+    assert fields[:3] == ("start", "end", "rays") and fields[-3:] == ("sm", "ns_start", "ns_end")
+    assert "Probe<true, CN_PHASES> probe;" in open(SOURCE).read()
+
+
+def test_node_warps_line_reads_the_six_phases(capsys):
+    """chip_smoke's [warps] reader on a made-up record of the node arena's
+    probe (two wide-form blocks): the scaling phase's issues, SIMT and cycle
+    share, and the rounds a ray."""
+    import chip_smoke
+
+    fields = brick_cuda.CLIP_NODE_PROBE_FIELDS
+    col = {f: i for i, f in enumerate(fields)}
+    rec = np.zeros((16, len(fields)), np.int64)
+    rec[:, col["end"]] = 1000
+    rec[:, col["ns_end"]] = 4000
+    rec[:, col["rays"]] = 32
+    rec[:, col["scale_issues"]], rec[:, col["scale_lanes"]] = 4, 64
+    rec[:, col["scale_cycles"]] = 100
+    rec[:, col["step_issues"]], rec[:, col["step_lanes"]] = 20, 640
+    rec[:, col["step_cycles"]] = 400
+    rec[:, col["round_issues"]], rec[:, col["round_lanes"]] = 3, 96
+    got = chip_smoke.clip_warps_line("clipmap_trace", "wide", torch.from_numpy(rec),
+                                     node=True)
+    assert got["phases"]["scale"] == dict(issues_a_warp=4, simt=0.5, cycle_share=0.1)
+    assert got["phases"]["step"]["cycle_share"] == pytest.approx(0.4)
+    assert got["rounds_a_ray"] == pytest.approx(3.0)
+    assert "top" not in got["phases"] and "dda" not in got["phases"]
+    assert "scale 4.0 issues a warp" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("form", [None, "wide", "first"])
+def test_node_forms_refuse_cpu_tensors(sphere_world, form):
+    """Each form of ``clipmap_trace`` through ``clipmap_kernel`` (None: the
+    main path's wide form) and its probe take CUDA tensors only and say so
+    before any library is asked for; no launch is counted."""
+    w = sphere_world
+    trunk, roots, origins, sizes = w["ours"].master()
+    tree = clipmap.DeviceArena(w["ours"].arena, "cpu").tree(5)
+    before = (dict(brick_cuda.launches), dict(brick_cuda.form_launches),
+              dict(brick_cuda.probe_launches))
+    loaded = set(_build._libs)
+    with pytest.raises(ValueError, match="kernel takes CUDA tensors"):
+        brick_cuda.clipmap_kernel(trunk, (0.0, 0.0, 0.0), 1.0, roots, origins, sizes,
+                                  tree, w["o"], w["d"], 5, 8, form=form)
+    with pytest.raises(ValueError, match="kernel takes CUDA tensors"):
+        brick_cuda.probe_clipmap(trunk, (0.0, 0.0, 0.0), 1.0, roots, origins, sizes,
+                                 tree, w["o"], w["d"], 5, 8, form or "wide")
+    with pytest.raises(ValueError, match="node arena"):
+        brick_cuda.probe_clipmap(*w["ours"].master_brick()[:1], (0.0, 0.0, 0.0), 1.0,
+                                 *w["ours"].master_brick()[1:], w["devb"].tree(5),
+                                 w["o"], w["d"], 5, 8, "wide")
+    assert set(_build._libs) == loaded
+    assert before == (brick_cuda.launches, brick_cuda.form_launches,
+                      brick_cuda.probe_launches)
+
+
+def test_exact_reciprocal_identity():
+    """x / 2^k and x * 2^-k are the same float32, bit for bit, for every k
+    whose 2^k and 2^-k are normal: random finite bit patterns, subnormals,
+    the smallest and largest normals, +-0 and +-inf; the sizes a Clipmap
+    makes among the k."""
+    rng = np.random.default_rng(19)
+    raw = rng.integers(0, 2 ** 32, size=20000, dtype=np.uint64).astype(np.uint32)
+    x = raw.view(np.float32)
+    x = x[np.isfinite(x)]
+    special = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 1.17549435e-38,
+                        -1.17549435e-38, 5.877472e-39, 3.4028235e38, -3.4028235e38,
+                        1.0, -1.0, 0.1, 1e-5], np.float32)
+    sub = (rng.integers(1, 1 << 23, size=2000, dtype=np.int64).astype(np.int32)
+           .view(np.float32))
+    xs = torch.from_numpy(np.concatenate([x, special, sub, -sub]))
+    ks = list(range(-126, 127))
+    assert all(float(np.log2(s)) in ks for s in CLIPMAP_SIZES)
+    for k in ks:
+        size = torch.tensor(2.0 ** k, dtype=torch.float32)
+        inv = torch.tensor(2.0 ** -k, dtype=torch.float32)
+        assert float(size) == 2.0 ** k and float(inv) == 2.0 ** -k
+        got, want = xs * inv, xs / size
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+
+
+def test_power_of_two_model():
+    """Which sizes the wide form scales by the product: every size a Clipmap
+    makes and every normal power of two whose reciprocal is normal, with that
+    reciprocal exactly; the division for the rest (other sizes, 2^127 and
+    2^-127, whose reciprocals are not normal, subnormals, 0, inf, negative
+    sizes). The model's bit test is the source's."""
+    for size in CLIPMAP_SIZES + [2.0 ** k for k in range(-126, 127)]:
+        exact, inv = pow2_reciprocal(size)
+        assert exact and float(inv) == 1.0 / size, size
+    for size in (0.3, 0.75, 3.0, 1.5, 0.125 * 3, 2.0 ** 127, 2.0 ** -127, 1e-40,
+                 0.0, np.inf, -0.5, -1.0, np.float32(0.1)):
+        assert not pow2_reciprocal(size)[0], size
+    src = open(SOURCE).read()
+    assert "(bits & 0x807fffff) == 0 && e >= 1 && e <= 253" in src
+    assert "inv = __int_as_float((254 - e) << 23);" in src
+    assert "if (exact) return (x - org) * inv;" in src
+    assert "return (x - org) / size;" in src

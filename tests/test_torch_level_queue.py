@@ -9,10 +9,14 @@ traced exactly, and the queued loops' t bit for bit against the unqueued
 ones; t against the reference to rtol 1e-5 / atol 1e-6 (F14).
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from raytracingtest_tpu_torch import _build
 from raytracingtest_tpu_torch.ops import brick_cuda, camera
 from raytracingtest_tpu_torch.ops.octree import build_svo
 from raytracingtest_tpu_torch.parallel import level_sharded
@@ -25,6 +29,7 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 WORLDS = (1, 2, 4)
 QBLOCK = brick_cuda.QBLOCK
+SOURCE = f"{_build._CSRC}/brick_trace.cu"
 HOT_ROUNDS = 80
 
 
@@ -47,6 +52,88 @@ def place_model(done):
                 below = bin(ballot & ((1 << lane) - 1)).count("1")
                 queue[base[b] + below + totals[:w].sum()] = b * QBLOCK + w * 32 + lane
     return queue
+
+
+def lookback_model(done, prev=None, seed=0, block=QBLOCK, items=16, look=1):
+    """level_queue_lookback_kernel in numpy, with its tile's shape (`block`
+    threads of `items` entries each, `look` status words a lane of the
+    look-back reads at a time) as parameters: the entries (every ray, or the
+    last round's queue `prev`) in tiles; warp w of a tile holds entries w *
+    32 items + 32 k + lane; each tile publishes its aggregate (tile 0 its
+    inclusive prefix) in a status word tagged with the launch's epoch, over
+    words an earlier launch left, looks back window by window (lane l reads
+    the words hi - look l - j), and places its live rays from its
+    exclusive prefix, its warp's first place and the ballots. The tiles run
+    their steps in a seeded random order; a look-back that meets an
+    unpublished word waits. Returns (queue, n_live)."""
+    rng = np.random.default_rng(seed)
+    entries = np.arange(done.shape[0]) if prev is None else np.asarray(prev)
+    m = entries.shape[0]
+    tile_n, warp_n = block * items, 32 * items
+    tiles = -(-m // tile_n)
+    if tiles == 0:
+        return np.zeros(0, np.int64), 0
+    epoch = 5
+    # (epoch, flag, value): an earlier launch's words, some of them prefixes
+    words = [(epoch - 1, int(rng.integers(0, 3)), int(rng.integers(0, 1 << 20)))
+             for _ in range(tiles)]
+    ballots, counts = [], []
+    for t in range(tiles):
+        local = np.arange(tile_n).reshape(block // 32, items, 32)
+        e = t * tile_n + local
+        ray = np.where(e < m, entries[np.minimum(e, m - 1)], -1)
+        live = (ray >= 0) & ~done[np.maximum(ray, 0)]
+        ballots.append((ray, live))
+        counts.append(live.sum(axis=(1, 2)))
+    state = ["start"] * tiles
+    progress = [None] * tiles  # (hi, exclusive) of a tile looking back
+    base = [0] * tiles
+    n_live = None
+    while any(st != "done" for st in state):
+        t = int(rng.choice([k for k in range(tiles) if state[k] != "done"]))
+        agg = int(counts[t].sum())
+        if state[t] == "start":
+            words[t] = (epoch, 2 if t == 0 else 1, agg)
+            state[t] = "done" if t == 0 else "looking"
+            progress[t] = (t - 1, 0)
+            continue
+        hi, excl = progress[t]
+        window = [[hi - look * lane - j for j in range(look)] for lane in range(32)]
+        read = [[(2, 0) if p < 0 else (words[p][1] if words[p][0] == epoch else 0,
+                                       words[p][2]) for p in lane] for lane in window]
+        if any(f == 0 for lane in read for f, _ in lane):
+            continue  # a word not yet published: the warp spins
+        sums, found = [], []
+        for lane in read:
+            acc, hit = 0, False
+            for f, v in lane:
+                if not hit:
+                    acc += v
+                hit = hit or f == 2
+            sums.append(acc)
+            found.append(hit)
+        stop = found.index(True) if any(found) else 31
+        excl += sum(sums[:stop + 1])
+        if any(found):
+            words[t] = (epoch, 2, excl + agg)
+            base[t], state[t] = excl, "done"
+        else:
+            progress[t] = (hi - 32 * look, excl)
+    base[0] = 0
+    queue = np.full(tile_n * tiles, -1, np.int64)
+    for t in range(tiles):
+        ray, live = ballots[t]
+        warp_first = base[t] + np.concatenate([[0], np.cumsum(counts[t])[:-1]])
+        for w in range(block // 32):
+            pos = int(warp_first[w])
+            for k in range(items):
+                ballot = sum(1 << lane for lane in range(32) if live[w, k, lane])
+                for lane in np.flatnonzero(live[w, k]):
+                    queue[pos + bin(ballot & ((1 << lane) - 1)).count("1")] = ray[w, k, lane]
+                pos += bin(ballot).count("1")
+        if t == tiles - 1:
+            n_live = base[t] + int(counts[t].sum())
+    return queue[:n_live], n_live
 
 
 def segment_search_model(valid, seg):
@@ -83,18 +170,102 @@ def queued_slots_model(counts, seg, grid_n):
     return np.asarray(out, np.int64)
 
 
+# the look-back model at the kernel's tile and at a small one (tiles of 128
+# entries; a window of 32 words, and of 64 in two words a lane), so that the
+# sizes below span many tiles and windows
+SMALL_TILE = dict(block=64, items=2, look=1)
+SMALL_WIDE = dict(block=64, items=2, look=2)
+
+
+@pytest.mark.parametrize("model,over", [("place", "rays"), ("lookback", "rays"),
+                                        ("lookback", "queue"), ("small", "rays"),
+                                        ("small", "queue")])
 @pytest.mark.parametrize("n,p", [(1, 0.5), (255, 0.3), (256, 1.0), (257, 0.0),
                                  (5000, 0.1), (5000, 0.9)])
-def test_place_pass_is_the_stable_compaction(n, p):
-    """The count and place passes' model gives the rays not done in order,
-    which ``level_queue_plain`` gives too."""
+def test_place_pass_is_the_stable_compaction(n, p, model, over):
+    """The first form's count and place passes' model, and the one pass's
+    look-back model with its tiles finishing in seeded random orders (at
+    the kernel's tile and at a small one), give the rays not done in order,
+    which ``level_queue_plain`` gives too: over every ray, and over a
+    previous round's queue (the look-back models)."""
     rng = np.random.default_rng(n)
     done = rng.random(n) >= p
-    queue = place_model(done)
-    np.testing.assert_array_equal(queue, np.flatnonzero(~done))
+    prev = None
+    if over == "queue":  # a previous round's queue: about half the rays, in order
+        prev = np.flatnonzero(rng.random(n) < 0.5 + 0.5 * (done.mean() < 0.5))
+        if prev.shape[0] == 0:
+            prev = np.arange(n)
+    want = np.flatnonzero(~done) if prev is None else prev[~done[prev]]
+    if model == "place":
+        queue = place_model(done)
+    else:
+        for seed in range(3):
+            queue, count = lookback_model(done, prev, seed=seed,
+                                          **(SMALL_TILE if model == "small" else {}))
+            assert count == want.shape[0]
+            np.testing.assert_array_equal(queue, want)
+    np.testing.assert_array_equal(queue, want)
     np.testing.assert_array_equal(
-        level_sharded.level_queue_plain("sharded", None, torch.from_numpy(done)).numpy(),
+        level_sharded.level_queue_plain(
+            "sharded", None, torch.from_numpy(done),
+            prev=None if prev is None else torch.from_numpy(prev)).numpy(),
         queue)
+
+
+def test_lookback_model_matches_the_source():
+    """The look-back model's tile shape and status word are the kernel's:
+    QITEMS entries a thread in blocks of QBLOCK, one word a lane, and a
+    word's epoch, flag and value where q_publish puts them."""
+    src = open(SOURCE).read()
+    consts = {k: int(v) for k, v in re.findall(r"\b(Q\w+) = (\d+)", src)}
+    params = inspect.signature(lookback_model).parameters
+    assert consts["QBLOCK"] == params["block"].default == brick_cuda.QBLOCK
+    assert consts["QITEMS"] == params["items"].default
+    assert params["look"].default == 1
+    assert "for (int hi = tile - 1; tile > 0; hi -= 32) {" in src
+    assert "const int p = hi - lane;" in src
+    assert brick_cuda.QTILE == consts["QBLOCK"] * consts["QITEMS"]
+    assert "((unsigned long long)((epoch << 2) | flag) << 32) | (unsigned)value" in src
+    assert "Q_AGGREGATE = 1, Q_PREFIX = 2" in src
+    assert "first = (long long)tile * QTILE + warp * QWARP + lane;" in src
+    assert "const long long e = first + 32 * k;" in src
+
+
+def test_one_pass_over_many_tiles():
+    """The small tile's look-back model over 20,000 rays (157 tiles, five
+    windows of one word a lane, three of two) and over a queue of them, in
+    five seeded orders."""
+    rng = np.random.default_rng(7)
+    done = rng.random(20000) < 0.4
+    prev = np.flatnonzero(rng.random(20000) < 0.7)
+    for seed in range(5):
+        for p in (None, prev):
+            want = np.flatnonzero(~done) if p is None else p[~done[p]]
+            for tile in (SMALL_TILE, SMALL_WIDE):
+                queue, count = lookback_model(done, p, seed=seed, **tile)
+                assert count == want.shape[0]
+                np.testing.assert_array_equal(queue, want)
+
+
+@pytest.mark.parametrize("form", [None, "one_pass", "first"])
+def test_queue_forms_refuse_cpu_tensors(form):
+    """The queue alone in each form (None: the one pass, the main path's) and
+    a loop's one pass take CUDA tensors only and say so before any library
+    is asked for; no launch is counted. A form the queue lacks is refused."""
+    done = torch.zeros(100, dtype=torch.bool)
+    t_off = torch.zeros(100)
+    before = (dict(brick_cuda.launches), dict(brick_cuda.form_launches))
+    loaded = set(_build._libs)
+    with pytest.raises(ValueError, match="kernel takes CUDA tensors"):
+        brick_cuda.level_queue_kernel("sharded", done, t_off, form=form)
+    queue = brick_cuda.LevelQueue()
+    queue.out = (torch.zeros(100, dtype=torch.int32), torch.zeros(100))
+    with pytest.raises(ValueError, match="kernel takes CUDA tensors"):
+        brick_cuda.level_queue_build("trunk", done, t_off, queue)
+    with pytest.raises(ValueError, match="form"):
+        brick_cuda.level_queue_kernel("sharded", done, t_off, form="two_pass")
+    assert set(_build._libs) == loaded and queue.status is None
+    assert before == (brick_cuda.launches, brick_cuda.form_launches)
 
 
 @pytest.mark.parametrize("seg", [1, 7, 256, 257, 1000, 70001])

@@ -223,8 +223,8 @@ def test_c_entries_are_declared_with_their_arity():
     # its probe adds the form and the record
     assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"]
     assert arity["clipmap_trace_brick_probe"] == arity["clipmap_trace_brick"] + 2
-    # the node arena's form entry adds the form, the block and the record
-    assert arity["clipmap_trace_form"] == arity["clipmap_trace"] + 3
+    # the node arena's form entry adds the form and the record
+    assert arity["clipmap_trace_form"] == arity["clipmap_trace"] + 2
     # the queue's first form takes no packets, their segment, status words
     # nor device count, but the counts and their scan
     assert arity["level_queue_serial"] == arity["level_queue"] - 2

@@ -9,8 +9,12 @@ and [fly] phases. Run from the root of a checkout on a machine with the card:
                                   # queue launches in both forms
     python3 variants19.py probe   # clipmap_trace's forms bitwise on fly frame 0
                                   # and at the last pose; the probe of each form
-    python3 variants19.py time    # the wide form at blocks of 128 and 256
-                                  # against the first form, in turns and alone
+    python3 variants19.py time    # the wide form against the first form, in
+                                  # turns and alone
+    python3 variants19.py forms   # the one pass's earlier designs and parts
+                                  # (variants19_queue.cu) against the main
+                                  # path's and the first form on the sharded
+                                  # trace's rounds 2, 3 and 7
 
 Each part writes its numbers to chiprun_out/variants19_<part>.json.
 """
@@ -172,6 +176,84 @@ def queue_part(dev, card, out):
     torch.distributed.destroy_process_group()
 
 
+# variants19_queue.cu's forms, by their index in its qexp()
+QUEUE_FORMS = {0: "second design, 8 words a lane", 1: "second design, a word a lane",
+               2: "second design, 2 words a lane", 3: "no outputs, a word a lane",
+               4: "no outputs, 8 words a lane", 5: "8 entries a thread, 8 words a lane",
+               6: "first design"}
+QUEUE_ITEMS = {5: 8}
+
+
+def forms_part(dev, card, out):
+    import ctypes
+    so = os.path.abspath("build/variants19_queue.so")
+    os.makedirs("build", exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           "variants19_queue.cu"], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(proc.stderr[-4000:])
+    lib = ctypes.CDLL(so)
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.qexp.argtypes = [i_, i_, p_, p_, p_, p_, i_, p_, p_, p_] + [p_] * 6
+    lib.qexp.restype = i_
+    mesh = make_mesh(1, dev)
+    svo12 = octree_device.build_svo_device_split(get_scene("terrain"), 12, split_level=2,
+                                                 device=dev)
+    ls = level_sharded.split_svo(svo12, 2, 1)
+    del svo12
+    trace = level_sharded.make_sharded_trace(mesh, ls)
+    o, d = camera.Camera(**BENCH_CAM, width=2048, height=2048).rays(dev)
+    with queue_calls() as calls:
+        trace(o, d)
+    torch.cuda.synchronize()
+    sh = [c for c in calls if c["mode"] == "sharded"]
+    for label, c in (("round 2", sh[1]), ("round 3", sh[2]), ("round 7", sh[6])):
+        _o, _d, t_off, done = c["args"]
+        b = c["before"]
+        n = done.shape[0]
+        prev, pc = b["prev"], b["prev_count"]
+        grid = n if prev is None else b["bound"]
+        entries = torch.arange(n, device=dev) if prev is None else prev[:int(pc)].long()
+        want = entries[~done[entries]]
+        outs = ([torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+                + [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2)])
+        row = {}
+        for v, name in QUEUE_FORMS.items():
+            items = QUEUE_ITEMS.get(v, 16)
+            tiles = -(-grid // (256 * items))
+            status = torch.zeros(1 + tiles, dtype=torch.int64, device=dev)
+            order = torch.empty(tiles * 256 * items, dtype=torch.int32, device=dev)
+            n_live = torch.empty(1, dtype=torch.int32, device=dev)
+
+            def fn(v=v, status=status, order=order, n_live=n_live):
+                err = lib.qexp(v, n, done.data_ptr(), t_off.data_ptr(),
+                               None if prev is None else prev.data_ptr(),
+                               None if prev is None else pc.data_ptr(), grid,
+                               status.data_ptr(), order.data_ptr(), n_live.data_ptr(),
+                               *[t.data_ptr() for t in outs],
+                               torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"qexp {v}: {err}")
+            fn()
+            torch.cuda.synchronize()
+            if int(n_live) != want.numel() or not torch.equal(order[:int(n_live)].long(), want):
+                raise AssertionError(f"{label}: {name} parts from level_queue_plain")
+            row[name] = [cs.graph_us(fn) for _ in range(2)]
+        st = brick_cuda.LevelQueue()
+        if prev is not None:
+            st.prev, st.prev_count, st.bound = prev, pc, grid
+        for form in ("one_pass", "first"):
+            row["main path's " + form if form == "one_pass" else "first form"] = [
+                cs.graph_us(lambda f=form: brick_cuda.level_queue_kernel(
+                    "sharded", done, t_off, form=f, queue=st)) for _ in range(2)]
+        out[label] = dict(n=n, entries=int(entries.numel()), live=int(want.numel()),
+                          us_alone=row)
+        say(f"[forms] {card}: {label}, {want.numel()} live of {entries.numel()} entries, "
+            "us alone in a CUDA graph (twice): " + "; ".join(
+                f"{k} {v[0]:.2f}, {v[1]:.2f}" for k, v in row.items()))
+    torch.distributed.destroy_process_group()
+
+
 def fly_tables(dev):
     """cli fly's camera path in the fly configuration: the stitched node
     arena's tables and rays at the first frame with both LODs and at the
@@ -192,23 +274,13 @@ def fly_tables(dev):
     return frames
 
 
-def wide_at(block, args, tree, o, d, n_max):
-    def run():
-        head, res = brick_cuda._clip_args(brick_cuda._CLIPMAP_TRACE_FORM, *args, tree, o, d,
-                                          7, n_max)
-        brick_cuda._CLIPMAP_TRACE_FORM(o.device, 1, block, *head, None)
-        return res
-    return run
-
-
 def clip_part(dev, card, out, part):
     for label, fr in fly_tables(dev).items():
         args, tree, (o, d) = fr["args"], fr["tree"], fr["rays"]
         n_max = clipmap.rounds_bound(args[0].depth)
         fns = {"first": lambda: brick_cuda.clipmap_kernel(*args, tree, o, d, 7, n_max,
                                                           form="first"),
-               "wide256": wide_at(256, args, tree, o, d, n_max),
-               "wide128": wide_at(128, args, tree, o, d, n_max)}
+               "wide": lambda: brick_cuda.clipmap_kernel(*args, tree, o, d, 7, n_max)}
         row = dict(frame=fr["frame"], sizes=sorted(set(args[5].tolist())),
                    trunk_size=args[2])
         if part == "probe":
@@ -225,17 +297,17 @@ def clip_part(dev, card, out, part):
                 row["warps"][form] = cs.clip_warps_line(f"clipmap_trace ({label})", form,
                                                         record, node=True)
             say(f"[fly] {card}: clipmap_trace on {label} (frame {fr['frame']}, sizes "
-                f"{row['sizes']}, trunk size {args[2]}): first, wide256, wide128 and both "
+                f"{row['sizes']}, trunk size {args[2]}): first, wide and both "
                 f"probes == trace_clipmap_rounds bitwise; {row['hits']} hits; work {counts}")
         else:
             turns = cs.in_turns(fns, rounds=3, reps=10)
             alone = {}
-            for name in ("first", "wide256", "wide128", "wide128", "wide256", "first"):
+            for name in ("first", "wide", "wide", "first"):
                 alone.setdefault(name, []).append(cs.graph_us(fns[name], calls=5))
             row.update(ms={k: cs.med_p80(v)[0] for k, v in turns.items()}, us_alone=alone)
             say(f"[fly] {card}: clipmap_trace on {label}: in turns "
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items())
-                + "; alone in a CUDA graph (first, 256, 128, 128, 256, first) "
+                + "; alone in a CUDA graph (first, wide, wide, first) "
                 + ", ".join(f"{k} {v}" for k, v in alone.items()))
         out[label] = row
 
@@ -257,6 +329,8 @@ def main():
     out = dict(card=card, ptxas=ptx)
     if part == "queue":
         queue_part(dev, card, out)
+    elif part == "forms":
+        forms_part(dev, card, out)
     else:
         clip_part(dev, card, out, part)
     os.makedirs("chiprun_out", exist_ok=True)
