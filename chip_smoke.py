@@ -194,6 +194,11 @@ PEAK_OPS_PER_S = 67e12
 OPS_ESVO_STEP = 40
 OPS_DDA_STEP = 32
 OPS_RAY_SETUP = 40
+# the set-up's two parts: the direction's (a component's clamp of |d| (its
+# absolute value, two compares, a select), -1/|d|, the octant bit's compare
+# and xor), which every walk of a ray shares, and the origin's, a walk's own
+OPS_DIR_SETUP = 21
+OPS_WALK_SETUP = OPS_RAY_SETUP - OPS_DIR_SETUP
 # shading one hit ray forward, and its backward (which repeats the forward);
 # one trip of the loop probe's body (multiply, add, floor, subtract)
 OPS_SHADE_FWD = 45
@@ -252,6 +257,8 @@ STAT = traverse.STAT_NAMES.index
 # the brick trace's other forms' and the probe forms'
 BRICK_COUNTS = (brick_cuda.launches, brick_cuda.form_launches,
                 brick_cuda.probe_launches)
+# the threads of brick_trace_multi's staged form's blocks
+STAGED_BLOCK = brick_cuda.BLOCKS[("brick_trace_multi", "staged")]
 # brick_trace.cu's kernels other than the staged k-segment forms and the
 # probe forms, at their registers as ptxas gave them before the staged form
 EARLIER_REGS = {
@@ -804,7 +811,7 @@ def serving(ctx, card):
         f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
         + f" (bound {traverse.multi_steps_for_depth(10, k)}); both on their main "
         f"paths (the brick trace's staged form in blocks of "
-        f"{brick_cuda.BLOCKS['staged']} threads), and the brick trace's "
+        f"{STAGED_BLOCK} threads), and the brick trace's "
         f"first form, == their plain "
         f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
         f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
@@ -849,7 +856,7 @@ def serving(ctx, card):
         torch.cuda.empty_cache()
     out["ms_by_k"] = by_k
     say(f"[timing-k] {card}: brick_trace_multi's main path (the staged form, "
-        f"blocks of {brick_cuda.BLOCKS['staged']}) == its first form bitwise on "
+        f"blocks of {STAGED_BLOCK}) == its first form bitwise on "
         f"the frame, and in turns, three rounds of 10, median ms (p80): " + "; ".join(
             f"k={kk} {v['staged'][0]:.4f} ({v['staged'][1]:.4f}) against the first "
             f"form's {v['first'][0]:.4f} ({v['first'][1]:.4f})" for kk, v in by_k.items()))
@@ -1405,10 +1412,13 @@ def live_bytes(clip, brick_arena):
 def clip_work(live, args, counts, n_rays):
     """bound() of one stitched trace: bytes, the rays in and the results out,
     the tables and the `live` bytes of arena rows in use; operations, this
-    run's steps and rounds as trace_clipmap_rounds counted them."""
+    run's steps, walks and rounds as trace_clipmap_rounds counted them, the
+    direction's set-up once a ray (every ray walks the trunk at least once)
+    and the origin's once a walk."""
     n_bytes = n_rays * (24 + 13) + live + nbytes(*args[3:]) + 4 * nbytes(args[0].masks)
     n_ops = (counts["steps"] * OPS_ESVO_STEP + counts["dda"] * OPS_DDA_STEP
-             + counts["walks"] * OPS_RAY_SETUP + counts["rounds"] * OPS_CLIP_ROUND)
+             + n_rays * OPS_DIR_SETUP + counts["walks"] * OPS_WALK_SETUP
+             + counts["rounds"] * OPS_CLIP_ROUND)
     return bound(n_bytes, n_ops)
 
 
@@ -1451,16 +1461,17 @@ def snapshot(tree):
         if isinstance(getattr(tree, f.name), torch.Tensor)})
 
 
-def clip_warps_line(kernel, form, record, node=False):
-    """[warps] of a stitched trace's probe form (`node`: the node arena's,
-    brick_cuda.CLIP_NODE_PHASES; else the brick arena's, CLIP_PHASES): each
+def clip_warps_line(kernel, form, record):
+    """[warps] of a stitched trace's probe form (clipmap_trace's phases,
+    brick_cuda.CLIP_NODE_PHASES; clipmap_trace_brick's, CLIP_PHASES): each
     phase's issues a warp, SIMT efficiency and share of warp cycles (the
     round phase's lanes are the rays' rounds), the rounds a ray and a warp's
     passes through the round loop, warp durations, and the kernel's span and
     the share of it after 99% of warps ended. Returns the numbers."""
-    block = brick_cuda.CLIP_BLOCKS[form] if node else brick_cuda.BLOCKS[form]
+    block = brick_cuda.BLOCKS[(kernel, form)]
     fields, names = ((brick_cuda.CLIP_NODE_PROBE_FIELDS, brick_cuda.CLIP_NODE_PHASES)
-                     if node else (brick_cuda.CLIP_PROBE_FIELDS, brick_cuda.CLIP_PHASES))
+                     if kernel == "clipmap_trace"
+                     else (brick_cuda.CLIP_PROBE_FIELDS, brick_cuda.CLIP_PHASES))
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(fields)}
     cycles = f["end"] - f["start"]
@@ -1795,7 +1806,7 @@ def fly_phase(ctx, card):
                                                               n_max, form)
             compare_tensors(probed, got_k, CLIP_OUTPUTS,
                             f"{kname}'s {form} probe form, fly frame {check['frame']}")
-            warps[form] = clip_warps_line(kname, form, record, node=node)
+            warps[form] = clip_warps_line(kname, form, record)
         # alone: CUDA graphs of 5 calls, the forms in turns
         alone = {}
         for form in ("first", CLIP_MAIN, CLIP_MAIN, "first"):
@@ -2309,8 +2320,9 @@ def warps_line(kernel, form, record, iters):
     and share of warp cycles; warp durations; each block's tail; the
     kernel's span and how much of it follows the end of 99 in 100 warps;
     the last warp to end, with its issues against its longest ray's steps.
-    Returns the numbers."""
-    block = brick_cuda.BLOCKS[form]
+    Returns the numbers. `kernel`: its name, or a label that starts with
+    it."""
+    block = brick_cuda.BLOCKS[(kernel.split()[0], form)]
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
     cycles = f["end"] - f["start"]
@@ -3672,17 +3684,20 @@ OPS_LEVEL_EXIT = 20
 @contextlib.contextmanager
 def plain_rounds():
     """Inside the block the level-sharded loops take level_round's plain
-    version on the card's tensors."""
+    version on the card's tensors, and the sharded loop reads its end by a
+    reduction (no queue: the plain rounds keep none)."""
     from raytracingtest_tpu_torch.parallel import level_sharded
-    kernel = level_sharded.level_round
+    kernel, live = level_sharded.level_round, level_sharded._live
 
     def plain(mode, tb, *args, counts=None, **_queue):
         return level_sharded.level_round_plain(mode, tb, *args, counts=counts)
     level_sharded.level_round = plain
+    level_sharded._live = lambda done, _t_off, _queue: (int((~done).sum()), None)
     try:
         yield
     finally:
         level_sharded.level_round = kernel
+        level_sharded._live = live
 
 
 @contextlib.contextmanager
@@ -3817,7 +3832,8 @@ def level_work(mode, tb, args, counts):
     out_bytes = {"sharded": 20, "trunk": 8, "packets": 8}[mode] * n
     n_bytes = (nbytes(tb.owner, tb.root, tb.origin) + min(counts["steps"] * 16, walked)
                + in_bytes + out_bytes)
-    n_ops = (counts["steps"] * OPS_ESVO_STEP + counts["walks"] * OPS_RAY_SETUP
+    n_ops = (counts["steps"] * OPS_ESVO_STEP + live * OPS_DIR_SETUP
+             + counts["walks"] * OPS_WALK_SETUP
              + (0 if mode == "packets" else live * OPS_LEVEL_EXIT))
     return bound(n_bytes, n_ops)
 
@@ -4238,7 +4254,8 @@ def sharded_phase(ctx, card):
     for mode, c in out["calls"].items():
         say(f"[bound] level_round {mode}, the first call ({c['n']} "
             f"{'packets' if mode == 'packets' else 'rays'}; {OPS_ESVO_STEP} operations "
-            f"a stackless step, {OPS_RAY_SETUP} a walk's set-up, {OPS_LEVEL_EXIT} a "
+            f"a stackless step, {OPS_DIR_SETUP} a live ray's direction and "
+            f"{OPS_WALK_SETUP} a walk's set-up, {OPS_LEVEL_EXIT} a "
             f"ray's box exit): {c['counts']['steps']} steps, {c['counts']['walks']} "
             f"walks, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); "
             f"{med_p80(c['ms'])[0]:.4f} ms through the wrapper, {c['us_alone']:.2f} us "
@@ -5130,7 +5147,8 @@ def main():
                                       tile_candidates_block=1, shade_bwd_serial=1,
                                       brick_trace_serial=1, brick_trace_unstaged=1,
                                       brick_trace_multi_serial=1, level_round_serial=0,
-                                      clipmap_trace_brick_serial=0)
+                                      clipmap_trace_brick_serial=0, clipmap_trace_serial=0,
+                                      level_queue_serial=0)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -5341,7 +5359,8 @@ def main():
                 esvo_stackless_probe=0, brick_trace_probe=0,
                 brick_trace_multi_serial=0, esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
                 level_round_serial=0, level_round_probe=0, clipmap_trace_brick_serial=0,
-                clipmap_trace_brick_probe=0, **MULTI_ZERO, **STEP_ZERO)
+                clipmap_trace_brick_probe=0, clipmap_trace_serial=0, level_queue_serial=0,
+                clipmap_trace_probe=0, **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -6227,7 +6246,7 @@ def main():
                  ms=vm[kname][0], us_alone=alone[kname], other_form="first",
                  ms_other_form=vm[kname + "_serial"][0],
                  us_alone_other_form=alone[kname + "_serial"],
-                 staged_block=brick_cuda.BLOCKS["staged"],
+                 staged_block=STAGED_BLOCK,
                  ms_by_k={kk: dict(ms=v["staged"][0], ms_other_form=v["first"][0])
                           for kk, v in served["ms_by_k"].items()},
                  warps={form: served["warps"][(kname, form)]
@@ -6402,7 +6421,10 @@ def main():
     for kname in ("clipmap_trace", "clipmap_trace_brick"):
         fw, wk = fk["fly_work"][kname], fk["work"][kname]
         by_name[kname].update(
-            form=CLIP_MAIN, us_alone_first_form_fly_check=fw["us_alone_first_form"],
+            form=CLIP_MAIN, first_form=kname + "_serial",
+            probe="brick_cuda." + ("probe_clipmap" if kname == "clipmap_trace"
+                                   else "probe_clipmap_brick"),
+            us_alone_first_form_fly_check=fw["us_alone_first_form"],
             us_alone_in_turns_fly_check=fw["alone_in_turns"],
             ms_in_turns_fly_check={f: med_p80(v)[0] for f, v in fw["ms_turns"].items()},
             ms_last_pose_first_form=med_p80(fk["kern_ms"][kname + "_serial"])[0],
@@ -6470,7 +6492,7 @@ def main():
     q = shard["queue"]
     kernels.append(dict(
         name="level_queue", route="cuda", source=src + "brick_trace.cu",
-        replaces=LEVEL_REPLACES["sharded"],
+        replaces=LEVEL_REPLACES["sharded"], form="one pass", first_form="level_queue_serial",
         path="the level-sharded loops' rounds (the queue of level_round's queued form: "
              "the one pass, and the packets' search)" + level_path,
         launches=shard["launches"]["sharded trace"]["level_queue"],

@@ -231,13 +231,12 @@ def _declare_brick(lib):
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4
-    for fn in (lib.clipmap_trace, lib.clipmap_trace_brick,
+    for fn in (lib.clipmap_trace, lib.clipmap_trace_serial, lib.clipmap_trace_brick,
                lib.clipmap_trace_brick_serial):
         fn.argtypes = clip + [p]
         fn.restype = i
-    lib.clipmap_trace_brick_probe.argtypes = [i] + clip + [p, p]
-    lib.clipmap_trace_form.argtypes = [i] + clip + [p, p]
-    for fn in (lib.clipmap_trace_brick_probe, lib.clipmap_trace_form):
+    for fn in (lib.clipmap_trace_probe, lib.clipmap_trace_brick_probe):
+        fn.argtypes = [i] + clip + [p, p]
         fn.restype = i
     # level_round's shared arguments: the trees, the octant tables, the rays
     # and the five outputs

@@ -2760,9 +2760,28 @@ extern "C" int clipmap_trace(const void* trunk_masks, const void* trunk_child,
                              truncated, nullptr, stream);
 }
 
-// Either form (FORM_FIRST: clipmap_trace's first form, the check and the
-// yardstick; FORM_WIDE), or with `probe` its counters.
-extern "C" int clipmap_trace_form(
+// clipmap_trace's first form, the check and the yardstick.
+extern "C" int clipmap_trace_serial(const void* trunk_masks, const void* trunk_child,
+                                    const void* trunk_parent, const void* trunk_leaf,
+                                    const void* roots, const void* origins,
+                                    const void* sizes, float org_x, float org_y,
+                                    float org_z, float size, const void* masks,
+                                    const void* child_base, const void* parent_ptr,
+                                    const void* leaf_base, const void* origin,
+                                    const void* direction, int n, int trunk_depth,
+                                    int chunk_depth, int n_max, void* hit_leaf,
+                                    void* hit_t, void* hit_chunk, void* truncated,
+                                    void* stream) {
+  return clipmap_node_launch(FORM_FIRST, trunk_masks, trunk_child,
+                             trunk_parent, trunk_leaf, roots, origins, sizes, org_x,
+                             org_y, org_z, size, masks, child_base, parent_ptr,
+                             leaf_base, origin, direction, n, trunk_depth,
+                             chunk_depth, n_max, hit_leaf, hit_t, hit_chunk,
+                             truncated, nullptr, stream);
+}
+
+// Either form (FORM_FIRST, FORM_WIDE) with the counters at `probe`.
+extern "C" int clipmap_trace_probe(
     int form, const void* trunk_masks, const void* trunk_child,
     const void* trunk_parent, const void* trunk_leaf, const void* roots,
     const void* origins, const void* sizes, float org_x, float org_y, float org_z,
@@ -2770,6 +2789,7 @@ extern "C" int clipmap_trace_form(
     const void* leaf_base, const void* origin, const void* direction, int n,
     int trunk_depth, int chunk_depth, int n_max, void* hit_leaf, void* hit_t,
     void* hit_chunk, void* truncated, void* probe, void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
   return clipmap_node_launch(form, trunk_masks, trunk_child, trunk_parent,
                              trunk_leaf, roots, origins, sizes, org_x, org_y, org_z,
                              size, masks, child_base, parent_ptr, leaf_base, origin,

@@ -121,7 +121,8 @@ _BRICK_TRACE_MULTI_PROBE = Kernel("brick_trace_multi_probe", brick_lib)
 _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
-_CLIPMAP_TRACE_FORM = Kernel("clipmap_trace_form", brick_lib)
+_CLIPMAP_TRACE_SERIAL = Kernel("clipmap_trace_serial", brick_lib)
+_CLIPMAP_TRACE_PROBE = Kernel("clipmap_trace_probe", brick_lib)
 _CLIPMAP_TRACE_BRICK = Kernel("clipmap_trace_brick", brick_lib)
 _CLIPMAP_TRACE_BRICK_SERIAL = Kernel("clipmap_trace_brick_serial", brick_lib)
 _CLIPMAP_TRACE_BRICK_PROBE = Kernel("clipmap_trace_brick_probe", brick_lib)
@@ -142,7 +143,9 @@ QBLOCK = 256
 QTILE = 16 * QBLOCK
 
 # each kernel's forms, the form numbers in the kernels, and the threads of
-# each form's blocks
+# each kernel's forms' blocks (csrc/brick_trace.cu's BLOCK, WIDE_BLOCK,
+# MULTI_BLOCK and CLIP_BLOCK: clipmap_trace's wide form measured faster in
+# blocks of 128 than of 256)
 FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("first",),
          "brick_trace_multi": ("staged", "first"),
@@ -151,10 +154,13 @@ FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "clipmap_trace": ("wide", "first"),
          "level_queue": ("one_pass", "first")}
 FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
-BLOCKS = {"first": 128, "wide": 256, "unstaged": 256, "staged": 32}
-# clipmap_trace's forms' blocks (csrc/brick_trace.cu's CLIP_BLOCK: its wide
-# form measured faster in blocks of 128 than of 256)
-CLIP_BLOCKS = {"wide": 128, "first": 128}
+BLOCKS = {("brick_trace", "first"): 128, ("brick_trace", "wide"): 256,
+          ("brick_trace", "unstaged"): 256, ("esvo_stackless", "first"): 128,
+          ("brick_trace_multi", "staged"): 32, ("brick_trace_multi", "first"): 128,
+          ("esvo_stackless_multi", "first"): 128,
+          ("clipmap_trace_brick", "wide"): 256, ("clipmap_trace_brick", "first"): 128,
+          ("clipmap_trace", "wide"): 128, ("clipmap_trace", "first"): 128,
+          ("level_round", "first"): 128}
 
 # brick_trace_multi's staged form takes k up to STAGED_MAX_K: a block of
 # 32 rays (csrc/brick_trace.cu's MULTI_BLOCK: the fastest block from k = 8
@@ -195,12 +201,12 @@ CLIP_NODE_PROBE_FIELDS = (("start", "end", "rays")
                           + ("sm", "ns_start", "ns_end"))
 
 
-def warps_of(n: int, form: str, block=None) -> int:
-    """Warps of a launch of `form` over `n` rays (in blocks of `block`, by
-    default the form's): the rows of a probe form's record."""
-    if n < 0 or form not in BLOCKS:
-        raise ValueError(f"ray count {n}, form {form!r}")
-    span = BLOCKS[form] if block is None else block
+def warps_of(n: int, kernel: str, form: str) -> int:
+    """Warps of a launch of `kernel` in `form` over `n` rays: the rows of a
+    probe form's record."""
+    if n < 0 or (kernel, form) not in BLOCKS:
+        raise ValueError(f"ray count {n}, {kernel} form {form!r}")
+    span = BLOCKS[(kernel, form)]
     return (n + span - 1) // span * (span // 32)
 
 
@@ -408,8 +414,8 @@ def _brick_lod_kernel(bsvo, origin, direction, coef, bias=0.0, with_stats=False)
     return TraceResult(*out, hit_node), stats
 
 
-def _probe_record(n, form, device):
-    return torch.zeros((warps_of(n, form), len(PROBE_FIELDS)),
+def _probe_record(n, kernel, form, device):
+    return torch.zeros((warps_of(n, kernel, form), len(PROBE_FIELDS)),
                        dtype=torch.int64, device=device)
 
 
@@ -419,7 +425,7 @@ def probe_stackless_cuda(svo, origin, direction):
     int64."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_PROBE, svo, origin,
                                             direction, True)
-    record = _probe_record(n, "first", origin.device)
+    record = _probe_record(n, "esvo_stackless", "first", origin.device)
     _ESVO_STACKLESS_PROBE(origin.device, *tables, n, svo.depth,
                           *_results(out, stats), record.data_ptr())
     probe_launches["esvo_stackless_probe"] += 1
@@ -432,7 +438,7 @@ def probe_brick_cuda(bsvo, origin, direction, form):
     code = _form("brick_trace", form)
     n, tables, out, stats = _brick_args(_BRICK_TRACE_PROBE, bsvo, origin,
                                         direction, True)
-    record = _probe_record(n, form, origin.device)
+    record = _probe_record(n, "brick_trace", form, origin.device)
     _BRICK_TRACE_PROBE(origin.device, code, *tables, n, bsvo.depth,
                        bsvo.top_depth, *_results(out, stats), record.data_ptr())
     probe_launches["brick_trace_probe"] += 1
@@ -444,7 +450,7 @@ def probe_stackless_multi_cuda(svo, origin, direction, k):
     Returns (MultiTraceResult, stats, record)."""
     n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI_PROBE, svo,
                                             origin, direction, True, k)
-    record = _probe_record(n, "first", origin.device)
+    record = _probe_record(n, "esvo_stackless_multi", "first", origin.device)
     _ESVO_STACKLESS_MULTI_PROBE(origin.device, *tables, n, svo.depth, k,
                                 *_results(out, stats), record.data_ptr())
     probe_launches["esvo_stackless_multi_probe"] += 1
@@ -459,7 +465,7 @@ def probe_brick_multi_cuda(bsvo, origin, direction, k, form):
     code = _form("brick_trace_multi", form)
     if form == "staged" and k > STAGED_MAX_K:
         raise ValueError(f"brick_trace_multi: k = {k} has no staged form")
-    record = _probe_record(n, form, origin.device)
+    record = _probe_record(n, "brick_trace_multi", form, origin.device)
     _BRICK_TRACE_MULTI_PROBE(origin.device, code, *tables, n, bsvo.depth,
                              bsvo.top_depth, k, *_results(out, stats),
                              record.data_ptr())
@@ -618,23 +624,19 @@ def clipmap_kernel(trunk, org, size, roots, origins, sizes, arena, origin,
     kname = ("clipmap_trace_brick" if isinstance(arena, brick.BrickSVO)
              else "clipmap_trace")
     form = FORMS[kname][0] if form is None else form
-    code = _form(kname, form)
+    _form(kname, form)
     main = form == FORMS[kname][0]
-    if kname == "clipmap_trace":
-        kernel = _CLIPMAP_TRACE if main else _CLIPMAP_TRACE_FORM
-    else:
-        kernel = _CLIPMAP_TRACE_BRICK if main else _CLIPMAP_TRACE_BRICK_SERIAL
+    kernel = {("clipmap_trace", True): _CLIPMAP_TRACE,
+              ("clipmap_trace", False): _CLIPMAP_TRACE_SERIAL,
+              ("clipmap_trace_brick", True): _CLIPMAP_TRACE_BRICK,
+              ("clipmap_trace_brick", False): _CLIPMAP_TRACE_BRICK_SERIAL}[(kname, main)]
     head, out = _clip_args(kernel, trunk, org, size, roots, origins, sizes, arena,
                            origin, direction, chunk_depth, n_max)
+    kernel(origin.device, *head)
     if main:
-        kernel(origin.device, *head)
         launches[kname] += 1
-    elif kname == "clipmap_trace":
-        kernel(origin.device, code, *head, None)
-        form_launches["clipmap_trace_serial"] += 1
     else:
-        kernel(origin.device, *head)
-        form_launches["clipmap_trace_brick_serial"] += 1
+        form_launches[kname + "_serial"] += 1
     return out
 
 
@@ -647,12 +649,12 @@ def probe_clipmap(trunk, org, size, roots, origins, sizes, arena, origin,
     code = _form("clipmap_trace", form)
     if isinstance(arena, brick.BrickSVO):
         raise ValueError("probe_clipmap takes the node arena")
-    head, out = _clip_args(_CLIPMAP_TRACE_FORM, trunk, org, size, roots, origins,
+    head, out = _clip_args(_CLIPMAP_TRACE_PROBE, trunk, org, size, roots, origins,
                            sizes, arena, origin, direction, chunk_depth, n_max)
-    record = torch.zeros((warps_of(origin.shape[0], form, CLIP_BLOCKS[form]),
+    record = torch.zeros((warps_of(origin.shape[0], "clipmap_trace", form),
                           len(CLIP_NODE_PROBE_FIELDS)),
                          dtype=torch.int64, device=origin.device)
-    _CLIPMAP_TRACE_FORM(origin.device, code, *head, record.data_ptr())
+    _CLIPMAP_TRACE_PROBE(origin.device, code, *head, record.data_ptr())
     probe_launches["clipmap_trace_probe"] += 1
     return out, record
 
@@ -669,7 +671,8 @@ def probe_clipmap_brick(trunk, org, size, roots, origins, sizes, arena, origin,
     head, out = _clip_args(_CLIPMAP_TRACE_BRICK_PROBE, trunk, org, size, roots,
                            origins, sizes, arena, origin, direction, chunk_depth,
                            n_max)
-    record = torch.zeros((warps_of(origin.shape[0], form), len(CLIP_PROBE_FIELDS)),
+    record = torch.zeros((warps_of(origin.shape[0], "clipmap_trace_brick", form),
+                          len(CLIP_PROBE_FIELDS)),
                          dtype=torch.int64, device=origin.device)
     _CLIPMAP_TRACE_BRICK_PROBE(origin.device, code, *head, record.data_ptr())
     probe_launches["clipmap_trace_brick_probe"] += 1
@@ -731,8 +734,9 @@ def _level_args(mode, trunk, arena, owner, root, origin, size, rank, rays,
 
 class RoundQueue(NamedTuple):
     """A round's queue on the card: ``queue``, whose first ``n_live``
-    entries are the round's live rays in order (int32), and ``n_live``, their
-    count, a (1,) int32 tensor on the device (``live_count`` reads it)."""
+    entries are the round's live rays in order (int32; the one pass keeps
+    the count in its last word), and ``n_live``, their count, a (1,) int32
+    tensor on the device (``live_count`` reads it)."""
 
     queue: torch.Tensor
     n_live: torch.Tensor
@@ -795,15 +799,16 @@ def _queue_one_pass(mode, done, t_off, ptrs, queue):
     dev, n = done.device, done.shape[0]
     prev, n_prev, grid = queue.entries(n)
     tiles = -(-grid // QTILE) if n else 0
-    order = torch.empty(tiles * QTILE, dtype=_I32, device=dev)
     if not tiles:
-        return RoundQueue(order, torch.zeros(1, dtype=_I32, device=dev))
-    n_live = torch.empty(1, dtype=_I32, device=dev)
+        return RoundQueue(torch.empty(0, dtype=_I32, device=dev),
+                          torch.zeros(1, dtype=_I32, device=dev))
+    # the queue and its count in one allocation: the count in the last word
+    order = torch.empty(tiles * QTILE + 1, dtype=_I32, device=dev)
     _LEVEL_QUEUE(dev, LEVEL_MODES[mode], n, done.data_ptr(), t_off.data_ptr(), prev,
                  n_prev, grid, None, 0, queue.status_words(n, dev).data_ptr(),
-                 order.data_ptr(), n_live.data_ptr(), *ptrs)
+                 order.data_ptr(), order.data_ptr() + 4 * tiles * QTILE, *ptrs)
     launches["level_queue"] += 1
-    return RoundQueue(order, n_live)
+    return RoundQueue(order, order[-1:])
 
 
 def _queue_serial(mode, done, t_off, ptrs, queue):
@@ -958,7 +963,7 @@ def probe_level_round(mode, trunk, arena, owner, root, origin, size, rank,
     n, head, ray_ptrs, out, ptrs = _level_args(
         mode, trunk, arena, owner, root, origin, size, rank, rays, direction,
         t_off, done, _LEVEL_ROUND_PROBE)
-    record = _probe_record(n, "first", rays.device)
+    record = _probe_record(n, "level_round", "first", rays.device)
     _LEVEL_ROUND_PROBE(rays.device, *head, *ray_ptrs, n, *ptrs, record.data_ptr())
     probe_launches["level_round_probe"] += 1
     return out, record

@@ -101,8 +101,19 @@ def test_probe_rows_are_the_forms_warps(form, rows):
     """The stitched probe's record has a row for each warp of the form's
     launch: blocks of 256 threads for the wide form, of 128 for the first."""
     n = 4096 if rows > 8 else 100
-    assert brick_cuda.warps_of(n, form) == rows
+    assert brick_cuda.warps_of(n, "clipmap_trace_brick", form) == rows
     assert brick_cuda.FORMS["clipmap_trace_brick"] == ("wide", "first")
+
+
+@pytest.mark.parametrize("form,rows", [("wide", 4096 // 32), ("first", 4096 // 32),
+                                       ("wide", 4), ("first", 4)])
+def test_node_probe_rows_are_the_forms_warps(form, rows):
+    """The node arena's stitched probe has a row for each warp of the form's
+    launch: blocks of 128 threads for both forms (CLIP_BLOCK, BLOCK)."""
+    n = 4096 if rows > 4 else 100
+    assert brick_cuda.warps_of(n, "clipmap_trace", form) == rows
+    block = re.search(r"constexpr int CLIP_BLOCK = (\d+);", open(SOURCE).read())
+    assert brick_cuda.BLOCKS[("clipmap_trace", "wide")] == int(block.group(1))
 
 
 @pytest.fixture(scope="module")
@@ -205,7 +216,7 @@ def test_node_probe_record_layout_names_the_six_phases():
 
 def test_node_warps_line_reads_the_six_phases(capsys):
     """chip_smoke's [warps] reader on a made-up record of the node arena's
-    probe (two wide-form blocks): the scaling phase's issues, SIMT and cycle
+    probe (four wide-form blocks of 128): the scaling phase's issues, SIMT and cycle
     share, and the rounds a ray."""
     import chip_smoke
 
@@ -220,8 +231,7 @@ def test_node_warps_line_reads_the_six_phases(capsys):
     rec[:, col["step_issues"]], rec[:, col["step_lanes"]] = 20, 640
     rec[:, col["step_cycles"]] = 400
     rec[:, col["round_issues"]], rec[:, col["round_lanes"]] = 3, 96
-    got = chip_smoke.clip_warps_line("clipmap_trace", "wide", torch.from_numpy(rec),
-                                     node=True)
+    got = chip_smoke.clip_warps_line("clipmap_trace", "wide", torch.from_numpy(rec))
     assert got["phases"]["scale"] == dict(issues_a_warp=4, simt=0.5, cycle_share=0.1)
     assert got["phases"]["step"]["cycle_share"] == pytest.approx(0.4)
     assert got["rounds_a_ray"] == pytest.approx(3.0)

@@ -399,11 +399,12 @@ def test_probe_record_rows_are_the_launch_warps(n, form, want):
     """A probe record has a row for each warp of the form's launch: blocks
     of 128 threads for the first form, of 256 for the wide forms, of 32 for
     brick_trace_multi's staged form, the last block's idle warps included."""
-    assert brick_cuda.warps_of(n, form) == want
+    kernel = "brick_trace_multi" if form == "staged" else "brick_trace"
+    assert brick_cuda.warps_of(n, kernel, form) == want
     assert len(brick_cuda.PROBE_FIELDS) == 21
 
 
 @pytest.mark.parametrize("n,form", [(10, "serial"), (10, "refill"), (-1, "first")])
 def test_probe_record_refuses_a_form_or_count_it_lacks(n, form):
     with pytest.raises(ValueError):
-        brick_cuda.warps_of(n, form)
+        brick_cuda.warps_of(n, "brick_trace", form)

@@ -61,7 +61,7 @@ def test_multi_block_rule_fits_and_switches_once():
     from k = 595, and the staged row long enough for the statistics that
     the write-out stages over it."""
     c = source_constants()
-    assert brick_cuda.BLOCKS["staged"] == c["MULTI_BLOCK"] == 32
+    assert brick_cuda.BLOCKS[("brick_trace_multi", "staged")] == c["MULTI_BLOCK"] == 32
     fits = [k for k in range(1, 800) if staged_bytes(c, k) <= c["SMEM_MAX"]]
     assert fits == list(range(1, brick_cuda.STAGED_MAX_K + 1))
     assert min(k for k in fits if staged_bytes(c, k) > c["SMEM_STATIC"]) == 118
@@ -202,8 +202,8 @@ def test_c_entries_are_declared_with_their_arity():
            "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
            "level_round", "level_round_serial", "level_round_probe", "level_queue",
            "clipmap_trace_brick_serial", "clipmap_trace_brick_probe",
-           "clipmap_trace_form", "level_queue_serial"}
-    assert new <= set(arity) and len(arity) == 23
+           "clipmap_trace_serial", "clipmap_trace_probe", "level_queue_serial"}
+    assert new <= set(arity) and len(arity) == 24
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -219,12 +219,11 @@ def test_c_entries_are_declared_with_their_arity():
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
     # the stitched traces differ only in the arena their chunk walks read
     assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
-    # the stitched brick trace's first form takes its wide form's arguments;
-    # its probe adds the form and the record
-    assert arity["clipmap_trace_brick_serial"] == arity["clipmap_trace_brick"]
-    assert arity["clipmap_trace_brick_probe"] == arity["clipmap_trace_brick"] + 2
-    # the node arena's form entry adds the form and the record
-    assert arity["clipmap_trace_form"] == arity["clipmap_trace"] + 2
+    # each stitched trace's first form takes its wide form's arguments; its
+    # probe adds the form and the record
+    for kname in ("clipmap_trace", "clipmap_trace_brick"):
+        assert arity[kname + "_serial"] == arity[kname]
+        assert arity[kname + "_probe"] == arity[kname] + 2
     # the queue's first form takes no packets, their segment, status words
     # nor device count, but the counts and their scan
     assert arity["level_queue_serial"] == arity["level_queue"] - 2
