@@ -106,8 +106,8 @@ probes both forms of both on that frame (`[warps]`, six and seven phases),
 times each form alone and in turns, and times that path. `[build-device]` runs
 bench.py's BENCH_BUILD=device, `octree_device.build_svo_device` of the
 depth-10 tree on the card (kernels `svo_columns`, `svo_expand`,
-`svo_compact`, `svo_leaves`, `svo_leaf_attrs`, `svo_level_up`,
-`svo_parent_ptr`, over the scene library `csrc/scene.cuh`),
+`svo_compact`, `svo_leaves`, `svo_leaf_attrs`, `svo_level_pass`, over the
+scene library `csrc/scene.cuh`),
 twice, each build under `expect_launches`; holds its structure bit for bit
 and its attributes to 1e-5 (albedo) and 2e-3 (normal) against the host
 build, the brick frame over it against the host tree's hits bit for bit,
@@ -124,7 +124,13 @@ from and the evaluations it makes. The expansion (`svo_columns` and
 `svo_expand`) is held bit for bit against its first form,
 `svo_expand_serial`, and its plain version on every expansion of the
 depth-10 build, the nine scenes at depths 6 and 8 and the octant build,
-with each level's evaluations and both forms' µs. `[sharded]` runs the sharded
+with each level's evaluations and both forms' µs. The level pass
+(`svo_level_pass`, phases C and D) is held bit for bit against the first
+forms, `svo_level_up` with `svo_compact`'s count and place modes and
+`svo_parent_ptr` over the assembled tree, on every level of the same builds
+and of the depth-12 octant build; phases C and D are timed at level 9's
+call in their forms and against their library pairs, and one build and one
+octant are traced by phase (`build_phases.py`). `[sharded]` runs the sharded
 renderer (`parallel/`) in a real NCCL world of one: the depth-12 terrain
 built on the card octant by octant and split at level 2 (`split_svo`), traced
 at 2048² through bench.py's camera by `make_sharded_trace` (kernel
@@ -171,12 +177,15 @@ from raytracingtest_tpu_torch.models import (
 from raytracingtest_tpu_torch.models import renderers
 from raytracingtest_tpu_torch.ops import (
     brick, brick_cuda, brick_dda, camera, codecs, gather, lod, octree,
-    octree_cuda, rowread, shade_cuda, tile, tile_cuda, traverse, traverse_cuda)
+    octree_cuda, octree_device, rowread, shade_cuda, tile, tile_cuda, traverse,
+    traverse_cuda)
 from raytracingtest_tpu_torch.render import (
     make_gradient_skybox, sky_color, sky_texture)
 from raytracingtest_tpu_torch.scenes import SCENES, Scene, get_scene
 from raytracingtest_tpu_torch.parallel import level_sharded
 from raytracingtest_tpu_torch.stream import clipmap
+
+import build_phases
 
 OUTPUTS = ("hit_leaf", "hit_parent", "hit_child", "iters")
 
@@ -234,8 +243,8 @@ LOD_COEFS = (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0.4", 0.4), ("0", 0.0))
 # the SVO builder's plain versions, each counted as a plain call
 OCTREE_PLAIN = ("columns_plain", "expand_plain", "count_plain", "compact_plain",
                 "leaves_plain",
-                "leaf_attrs_plain", "leaves_serial_plain", "level_up_plain",
-                "parent_ptr_plain", "scene_eval_plain")
+                "leaf_attrs_plain", "leaves_serial_plain", "level_pass_plain",
+                "level_up_plain", "parent_ptr_plain", "scene_eval_plain")
 PLAIN_CALLS = {"candidates_plain": 0, "trace_brick": 0, "trace_stackless": 0,
                "trace_multi": 0, "trace_brick_multi": 0, "composite_plain": 0,
                "trace_lod": 0, "trace_brick_lod": 0, "composite_bwd_plain": 0,
@@ -2877,7 +2886,10 @@ def referee(voxels, depth, o, d, answers):
 
 
 BUILD_KERNELS = ("svo_columns", "svo_expand", "svo_compact", "svo_leaves", "svo_leaf_attrs",
-                 "svo_level_up", "svo_parent_ptr")
+                 "svo_level_pass")
+# the first forms of phases C and D, which the level pass replaced on the
+# build's path: launched in checks and timings only
+BUILD_FIRST_FORMS = ("svo_level_up", "svo_parent_ptr")
 # each builder entry's kernels as torch.profiler names them (svo_leaves:
 # the neighbour table, the test and the needy list's evaluations); the leaf
 # test's first form
@@ -2887,6 +2899,7 @@ BUILD_PROFILED = {"svo_columns": ("svo_columns_kernel",),
                   "svo_leaves": ("svo_leaf_neighbours_kernel", "svo_leaf_test_kernel",
                                  "svo_leaf_eval_kernel"),
                   "svo_leaf_attrs": ("svo_leaf_attrs_kernel",),
+                  "svo_level_pass": ("svo_level_pass_kernel",),
                   "svo_level_up": ("svo_level_up_kernel",),
                   "svo_parent_ptr": ("svo_parent_ptr_kernel",),
                   "svo_leaves_serial": ("svo_leaves_kernel",),
@@ -2904,6 +2917,11 @@ OPS_EXPAND_CHILD = 12    # a child's coordinates, centre and keep test
 OPS_EXPAND_COLUMN_CHILD = OPS_EXPAND_CHILD + 1
 OPS_COMPACT_ROW = 8      # ballot, popc, the warp prefix, the store address
 OPS_LEVEL_UP_ROW = 6     # the two atomics' operands
+# the level pass's survivor: the suffix OR's three steps (two shuffles, a
+# compare, an OR), the next row's lane 0 (two shuffles, a compare, an OR),
+# the head test (two shuffles, a compare, a ballot, a popc) and its ranks
+# (two popcs, two adds, the store addresses)
+OPS_LEVEL_PASS_ROW = 12 + 4 + 5 + 6
 OPS_PARENT_ROW = 8       # the masks, popc and the stores' loop
 # the leaf test's lookups of a solid candidate: the slot, three sibling and
 # three table reads' addresses and compares; and a kept parent's six
@@ -2911,41 +2929,47 @@ OPS_PARENT_ROW = 8       # the masks, popc and the stores' loop
 OPS_LEAF_LOOKUP = 40
 OPS_LEAF_NEIGHBOURS = 6 * 8 * 12
 BUILD_SCENES = ("perlin", "terrain_ref", "simplex_ref")
+# the octant of build_svo_device_split(terrain, 10, 2) that [build-device]
+# traces by phase: the one with the most nodes (build_phases.py finds it)
+PHASE_OCTANT = (2, 1, 3)
 BUILD_SCENE_DEPTH = 8
 
 
 def build_launches(depth, chunks=None, heightfield=True):
     """The launches of a build_svo_device of `depth` levels in which no
-    level is empty: a heightfield's column pass, an expansion, its
-    compaction, a level-up, a count and a compaction a level (more chunks
-    add an expansion and a compaction each), one leaf test, its compaction,
-    the leaves' attributes and one parent-pointer pass."""
+    level is empty: a heightfield's column pass, an expansion and its
+    compaction a level (more chunks add an expansion and a compaction
+    each), one leaf test, its compaction, the leaves' attributes, and one
+    level pass a level (phases C and D: no count, no compaction and no
+    parent-pointer pass)."""
     extra = 0 if chunks is None else sum(c - 1 for c in chunks)
-    return dict(svo_expand=depth + extra, svo_compact=3 * depth + 1 + extra,
-                svo_leaves=1, svo_leaf_attrs=1, svo_level_up=depth, svo_parent_ptr=1,
+    return dict(svo_expand=depth + extra, svo_compact=depth + 1 + extra,
+                svo_leaves=1, svo_leaf_attrs=1, svo_level_pass=depth,
                 **({"svo_columns": depth} if heightfield else {}))
 
 
 def record_calls():
     """Wrap octree_cuda's builder functions so that each keeps the arguments
     of its largest call (by rows) until restore(); returns (the record,
-    restore)."""
+    restore). A call's record is (rows, args), with its keyword arguments
+    as a third item where it has any (the level pass's)."""
     from raytracingtest_tpu_torch.ops import octree_cuda
     names = ("columns", "expand", "count", "compact", "leaves", "leaf_attrs",
-             "level_up", "parent_ptr")
+             "level_up")
     saved = {name: getattr(octree_cuda, name) for name in names}
     calls = {}
 
     def wrap(name, fn):
-        def recorded(*args):
+        def recorded(*args, **kw):
             # columns takes no tensor: its largest call is its finest level's
             rows = args[1] if name == "columns" else next(
                 a.shape[0] for a in args if isinstance(a, torch.Tensor))
-            if name == "level_up":
-                rows = max(rows, args[3])
-            if rows >= calls.get(name, (-1,))[0]:
-                calls[name] = (rows, args)
-            return fn(*args)
+            # the level pass's bound stays n_leaves for a few levels: keep
+            # the first of them, the finest, whose rows are all valid
+            held = calls.get(name, (-1,))[0]
+            if rows > held or (rows == held and name != "level_up"):
+                calls[name] = (rows, args, kw) if kw else (rows, args)
+            return fn(*args, **kw)
         return recorded
 
     for name, fn in saved.items():
@@ -3104,10 +3128,80 @@ def checked_leaf_tests(log, plain=False):
         oc.leaves = leaves
 
 
-def build_parity(calls, ds, depth):
+def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain=False):
+    """One level pass's outputs `out` (octree_cuda.level_up's) held bit for
+    bit against the first forms on the card on the same inputs: svo_level_up,
+    the root's survival, then svo_compact's count and place modes give the
+    surviving parents' masks, first children and indices and their count,
+    and each survivor's parent rank is its parent's place among those
+    indices; with `plain`, against the plain version too. Returns its row:
+    the bound, the valid rows, the surviving parents."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    m = rows.shape[0] if n_rows is None else int(n_rows[0])
+    valid = rows[:m].contiguous()
+    rec, surv = oc.level_up_serial(valid, par, slot, n_par)
+    if root:
+        surv[0] = 1
+    base, n = octree_device._offsets(oc.count(surv))
+    below, nodes = oc.compact(surv, base, n, rec)
+    c = int(out.count[0])
+    what = f"{rows.shape[0]} rows, {m} valid, {n_par} parent candidates"
+    if not (c == n and torch.equal(out.nodes[:c], nodes)
+            and torch.equal(out.below[:c], below)):
+        raise AssertionError(f"svo_level_pass parts from svo_level_up + svo_compact ({what})")
+    if out.ranks is not None:
+        want = torch.searchsorted(below, par[valid.long()]).to(torch.int32)
+        if not torch.equal(out.ranks[:m], want):
+            raise AssertionError(f"svo_level_pass's parent ranks part from the first "
+                                 f"forms' ({what})")
+    if plain:
+        ref = oc.level_pass_plain(rows, par, slot, n_par, n_rows,
+                                  out.ranks is not None, root)
+        if not (torch.equal(ref.count, out.count) and torch.equal(ref.nodes[:c], out.nodes[:c])
+                and torch.equal(ref.below[:c], out.below[:c])
+                and (out.ranks is None or torch.equal(ref.ranks[:m], out.ranks[:m]))):
+            raise AssertionError(f"svo_level_pass parts from its plain version ({what})")
+    return dict(bound=rows.shape[0], rows=m, parents=c)
+
+
+@contextlib.contextmanager
+def checked_level_passes(log, plain=False):
+    """Inside the block every level pass of a device build is held by
+    check_level_pass against the first forms (its launches count too: no
+    expect_launches inside), and every tree the build returns has the
+    parent pointers that svo_parent_ptr (phase D's first form) derives from
+    its masks and child bases; `log` gains a list of each build's passes,
+    finest first."""
+    from raytracingtest_tpu_torch.ops import octree_cuda as oc
+    level_up, build = oc.level_up, octree_device.build_svo_device
+    passes = []
+
+    def checking(rows, par, slot, n_par, n_rows=None, **kw):
+        out = level_up(rows, par, slot, n_par, n_rows, **kw)
+        passes.append(check_level_pass(out, rows, par, slot, n_par, n_rows,
+                                       kw.get("root", False), plain))
+        return out
+
+    def building(*a, **kw):
+        svo = build(*a, **kw)
+        if not torch.equal(svo.parent_ptr, oc.parent_ptr(svo.masks, svo.child_base)):
+            raise AssertionError("the level passes' parent pointers part from "
+                                 "svo_parent_ptr's")
+        log.append(passes[:])
+        passes.clear()
+        return svo
+    oc.level_up, octree_device.build_svo_device = checking, building
+    try:
+        yield log
+    finally:
+        oc.level_up, octree_device.build_svo_device = level_up, build
+
+
+def build_parity(calls, ds, depth, svo):
     """Each builder kernel against its plain version on the inputs of its
-    largest call of the depth-`depth` build; returns (max abs err by
-    kernel, normals apart, ms of the plain version by kernel)."""
+    largest call of the depth-`depth` build (the first forms of phases C and
+    D on the level pass's and on the built tree `svo`); returns (max abs err
+    by kernel, normals apart, ms of the plain version by kernel)."""
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     err, plain_ms = {}, {}
 
@@ -3161,24 +3255,35 @@ def build_parity(calls, ds, depth):
     if not (torch.equal(bits(got_a[:, 3:]), bits(want_a[:, 3:]))
             and float((got_a[:, :3] - want_a[:, :3]).abs().max()) <= ALBEDO_ULP):
         raise AssertionError("svo_leaf_attrs: the build's call parts from its plain version")
-    _, args = calls["level_up"]
-    got = oc.level_up(*args)
-    want, plain_ms["svo_level_up"] = timed_plain(oc.level_up_plain, *args)
+    _, args, kw = calls["level_up"]
+    got = oc.level_up(*args, **kw)
+    check_level_pass(got, *args, root=kw["root"])
+    want, plain_ms["svo_level_pass"] = timed_plain(
+        oc.level_pass_plain, *args, ranks=kw["ranks"], root=kw["root"])
+    c = int(got.count[0])
+    exact("svo_level_pass", (got.count, got.nodes[:c], got.below[:c], got.ranks),
+          (want.count, want.nodes[:c], want.below[:c], want.ranks),
+          "counts, masks, first children, parents and parent ranks")
+    err["svo_level_pass"] = 0.0
+    rows, par, slot, n_par = args[:4]
+    got = oc.level_up_serial(rows, par, slot, n_par)
+    want, plain_ms["svo_level_up"] = timed_plain(oc.level_up_plain, rows, par, slot, n_par)
     exact("svo_level_up", got, want, "masks, first children and survivors")
     err["svo_level_up"] = 0.0
-    _, args = calls["parent_ptr"]
-    got = oc.parent_ptr(*args)
-    want, plain_ms["svo_parent_ptr"] = timed_plain(oc.parent_ptr_plain, *args)
+    got = oc.parent_ptr(svo.masks, svo.child_base)
+    want, plain_ms["svo_parent_ptr"] = timed_plain(oc.parent_ptr_plain, svo.masks,
+                                                   svo.child_base)
     exact("svo_parent_ptr", (got,), (want,), "parent rows")
     err["svo_parent_ptr"] = 0.0
     torch.cuda.synchronize()
     return err, normals_apart, plain_ms, first
 
 
-def build_bounds(calls, n_leaves, leaf):
+def build_bounds(calls, n_leaves, leaf, svo, level_parents):
     """(bound_ms, bound_by) of each builder kernel's largest call, from its
     inputs and outputs: bytes (each read once, each written once) and
-    operations (OPS_TERRAIN_EVAL a scene evaluation)."""
+    operations (OPS_TERRAIN_EVAL a scene evaluation); `level_parents` is the
+    level pass's count of surviving parents at its call."""
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     out = {}
     _, (dsc, parents, _level, _hi, _lo, cols) = calls["expand"]
@@ -3217,10 +3322,22 @@ def build_bounds(calls, n_leaves, leaf):
     out["svo_leaves_serial"] = bound(nbytes(rec) + n * 25 + oc.n_blocks(n) * 4,
                                      (6 * solid + 6 * n_leaves) * OPS_TERRAIN_EVAL
                                      + n_leaves * OPS_ALBEDO)
-    _, (rows, par, slot, n_par) = calls["level_up"]
+    # the level pass at its largest call (level 9's): each survivor's row,
+    # parent and slot read once, its parent rank written, and each surviving
+    # parent's mask, first child and index written; the first form, every
+    # parent candidate's two words and flag written (its fills), and the
+    # count and place passes after it (svo_compact's bound on its flags)
+    _, args, kw = calls["level_up"]
+    rows, par, slot, n_par = args[:4]
     m = rows.shape[0]
+    heads = level_parents
+    out["svo_level_pass"] = bound(m * 12 + m * 4 * kw["ranks"] + heads * 12,
+                                  m * OPS_LEVEL_PASS_ROW)
     out["svo_level_up"] = bound(m * 12 + n_par * 9, m * OPS_LEVEL_UP_ROW)
-    _, (masks, cb) = calls["parent_ptr"]
+    out["level_up_first_form"] = bound(m * 12 + n_par * 9 + n_par + oc.n_blocks(n_par) * 8
+                                       + heads * 12,
+                                       m * OPS_LEVEL_UP_ROW + n_par * OPS_COMPACT_ROW)
+    masks, cb = svo.masks, svo.child_base
     out["svo_parent_ptr"] = bound(nbytes(masks, cb) + nbytes(masks),
                                   masks.shape[0] * OPS_PARENT_ROW)
     return out, dict(solid=solid, leaves=n_leaves, evals=leaf["evals"],
@@ -3276,13 +3393,16 @@ def profile_build(fn):
 
 def build_device(ctx, card):
     """[build-device]: bench.py's BENCH_BUILD=device, build_svo_device of
-    depth-10 `terrain` on the card, twice, through its five kernels and no
+    depth-10 `terrain` on the card, twice, through its six kernels and no
     plain version; its structure against the host build's bit for bit, its
     attributes to 1e-5 / 2e-3, the brick frame over it against the host
-    tree's hits; each kernel against its plain version; the scene library
-    against the host's scenes at 2^20 dyadic centres and 2^20 random points
-    each; the octant build against the monolithic one; the command line's
-    noise scenes built on the card at depth 8."""
+    tree's hits; each kernel against its plain version; every level pass
+    against the first forms of phases C and D (svo_level_up with svo_compact,
+    svo_parent_ptr) on bench.py's build, the nine scenes and the octant
+    build; the build traced by phase; the scene library against the host's
+    scenes at 2^20 dyadic centres and 2^20 random points each; the octant
+    build against the monolithic one; the command line's noise scenes built
+    on the card at depth 8."""
     from raytracingtest_tpu_torch.ops import octree_cuda, octree_device
     dev, host_svo = ctx["dev"], ctx["host_svo"]
     depth = host_svo.depth
@@ -3370,8 +3490,9 @@ def build_device(ctx, card):
     # every expansion of the build against its first form and its plain
     # version; each level's evaluations, and its expansion's us alone in
     # both forms (one build each, every launch traced)
-    exp_log = []
-    with checked_expansions(exp_log, plain=True):
+    exp_log, pass_log = [], []
+    with checked_expansions(exp_log, plain=True), \
+            checked_level_passes(pass_log, plain=True):
         checked, _ = build()
     if not torch.equal(checked.masks, svo.masks):
         raise AssertionError("the checked build's masks differ")
@@ -3399,9 +3520,16 @@ def build_device(ctx, card):
         f"{sum(r['evals'] for r in expansion)} evaluations against "
         f"{sum(r['children'] for r in expansion)}")
 
+    passes = pass_log[0]
+    say(f"[build-device] svo_level_pass == the first forms (svo_level_up, then "
+        f"svo_compact's count and place modes; svo_parent_ptr over the assembled tree) and "
+        f"its plain version bit for bit on all {len(passes)} levels of terrain d{depth}; "
+        "a level (finest first): its bound, valid rows, surviving parents: " + "; ".join(
+            f"{r['bound']}, {r['rows']}, {r['parents']}" for r in passes))
+
     # each kernel against its plain version, at the main path's largest call
     ds = octree_cuda.device_scene(scene, dev)
-    k_err, normals_apart, plain_ms, leaf = build_parity(calls, ds, depth)
+    k_err, normals_apart, plain_ms, leaf = build_parity(calls, ds, depth, svo)
     ctx["err"].update(k_err)
     sizes = {k: v[0] for k, v in calls.items()}
     say(f"[build-device] the builder's kernels == their plain versions on the card, "
@@ -3442,15 +3570,17 @@ def build_device(ctx, card):
     # the leaf test on every scene of the library: at depth 6 against the
     # plain versions and the first form, at depth 8 against the first form;
     # the octant build's 64 leaf tests against the first form
-    scene_checks, scene_expansions = {}, {}
+    scene_checks, scene_expansions, scene_passes = {}, {}, {}
     for name in sorted(SCENES):
         for d_, with_plain in ((6, True), (BUILD_SCENE_DEPTH, False)):
-            log, elog = [], []
+            log, elog, plog = [], [], []
             with checked_leaf_tests(log, plain=with_plain), \
-                    checked_expansions(elog, plain=True):
+                    checked_expansions(elog, plain=True), \
+                    checked_level_passes(plog, plain=with_plain):
                 octree_device.build_svo_device(get_scene(name), d_, device=dev)
             scene_checks[(name, d_)] = log[0]
             scene_expansions[(name, d_)] = elog
+            scene_passes[(name, d_)] = plog[0]
     say("[build-device] svo_leaves and svo_leaf_attrs on the nine scenes == the first "
         "form (and at depth 6 the plain versions; normals bitwise, albedo within "
         f"{ALBEDO_ULP:.3g}): evaluations made against the reference's: " + ", ".join(
@@ -3462,6 +3592,11 @@ def build_device(ctx, card):
         "(one a child): " + ", ".join(
             f"{n_} d{d_} {len(e)}, {sum(r['evals'] for r in e)}/"
             f"{sum(r['children'] for r in e)}" for (n_, d_), e in scene_expansions.items()))
+    say("[build-device] svo_level_pass on the nine scenes at depths 6 and "
+        f"{BUILD_SCENE_DEPTH} == the first forms bit for bit on every level (and at depth 6 "
+        "its plain version), the parent pointers == svo_parent_ptr's; passes, nodes: "
+        + ", ".join(f"{n_} d{d_} {len(p_)}, {sum(r['parents'] for r in p_)}"
+                    for (n_, d_), p_ in scene_passes.items()))
 
     # the kernels' times: each at its largest call, in turns; the library
     # call beside svo_compact (torch.nonzero of the same flags)
@@ -3490,6 +3625,40 @@ def build_device(ctx, card):
         rows = torch.nonzero(flags).reshape(-1)
         return rows, src[rows]
 
+    # phases C and D at level 9's call: the level pass; the first form with
+    # its fills, count, scan and compaction; the library pairs, the first
+    # form's plain body on the card (index_add_ for the masks,
+    # scatter_reduce_ for the first children) and traverse.derive_parent_ptr
+    lu_args, lu_kw = calls["level_up"][1:]
+    rows_c, par_c, slot_c, n_par_c = lu_args[:4]
+
+    def level_first_form():
+        rec, surv = oc.level_up_serial(rows_c, par_c, slot_c, n_par_c)
+        base, n = octree_device._offsets(oc.count(surv))
+        return oc.compact(surv, base, n, rec)
+
+    def level_library():
+        r = rows_c.long()
+        p = par_c[r].long()
+        vm = torch.zeros(n_par_c, dtype=torch.int32, device=dev).index_add_(
+            0, p, torch.ones_like(r, dtype=torch.int32) << slot_c[r])
+        first = torch.full((n_par_c,), oc.BIG, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, p, torch.arange(r.shape[0], dtype=torch.int32, device=dev), "amin")
+        return vm, first
+
+    lib_vm, lib_first = level_library()
+    if not torch.equal(torch.stack([lib_vm, lib_first], 1), oc.level_up_serial(*lu_args[:4])[0]):
+        raise AssertionError("index_add_ + scatter_reduce_ part from svo_level_up")
+    del lib_vm, lib_first
+    level_parents = int(oc.level_up(*lu_args, **lu_kw).count[0])
+    phase_cd = {
+        "svo_level_pass": lambda: oc.level_up(*lu_args, **lu_kw),
+        "level_up_first_form": level_first_form,
+        "svo_level_up": lambda: oc.level_up_serial(*lu_args[:4]),
+        "svo_parent_ptr": lambda: oc.parent_ptr(svo.masks, svo.child_base),
+        "level_up_library": level_library,
+        "parent_ptr_library": lambda: traverse.derive_parent_ptr(svo.masks, svo.child_base)}
+
     col_args, exp_args = calls["columns"][1], calls["expand"][1]
     turns = in_turns({
         "svo_columns": lambda: oc.columns(*col_args),
@@ -3505,8 +3674,7 @@ def build_device(ctx, card):
         "svo_leaves_serial": lambda: oc.leaves_serial(*leaf_args[:3]),
         "phase_b": lambda: phase_b(False),
         "phase_b_first_form": lambda: phase_b(True),
-        "svo_level_up": lambda: oc.level_up(*calls["level_up"][1]),
-        "svo_parent_ptr": lambda: oc.parent_ptr(*calls["parent_ptr"][1])},
+        **phase_cd},
         rounds=3, reps=10)
     ms = {k: med_p80(v)[0] for k, v in turns.items()}
     got_rows, got_words = library_compact()
@@ -3521,7 +3689,35 @@ def build_device(ctx, card):
     serial_rows = traced_kernels(lambda: oc.leaves_serial(*leaf_args[:3]), 3)
     serial_us = sum(dev_us(e) for e in serial_rows
                     if BUILD_PROFILED["svo_leaves_serial"][0] in e.key) / 3
-    bounds, data = build_bounds(calls, svo.n_leaves, leaf)
+    # phases C and D's variants alone: every kernel of one call, its device us
+    cd_us = {}
+    for k, fn in phase_cd.items():
+        ks = launches_of(fn)
+        cd_us[k] = dict(us=sum(us for _, us in ks), launches=len(ks))
+    say(f"[build-device] {card}: phases C and D at level 9's call ({rows_c.shape[0]} "
+        f"survivors, {n_par_c} parent candidates, {level_parents} surviving parents), "
+        "ms in turns, us alone (its kernels' device us in one call, launches): " + ", ".join(
+            f"{k} {ms_:.4f}, {cd_us[k]['us']:.1f} ({cd_us[k]['launches']})"
+            for k, ms_ in ((k, med_p80(turns[k])[0]) for k in phase_cd))
+        + " (level_up_first_form: svo_level_up with its fills, svo_compact's count, "
+        "torch.cumsum, the host read and the place pass; level_up_library: "
+        "index_add_ and scatter_reduce_, the first form's function; parent_ptr_library: "
+        f"traverse.derive_parent_ptr, over the {svo.n_nodes} nodes)")
+    bounds, data = build_bounds(calls, svo.n_leaves, leaf, svo, level_parents)
+    phases = {}
+    for what, fn in (("build", lambda: octree_device.build_svo_device(scene, depth,
+                                                                      device=dev)),
+                     ("octant", lambda: octree_device.build_svo_device(
+                         scene, depth, root_level=2, root_coord=PHASE_OCTANT,
+                         device=dev))):
+        phases[what] = build_phases.phase_rows(build_phases.trace_build(fn))
+        say(f"[build-device] {card}: one {what} traced by phase ("
+            + ("terrain d10" if what == "build" else
+               f"the octant {PHASE_OCTANT} of build_svo_device_split(terrain, 10, 2)")
+            + "; build_phases.py): " + "; ".join(
+                f"{p} {us:.1f} us in {n} launches, {cp} copies and sets, {sy} host syncs "
+                "(" + ", ".join(f"{k} {u:.1f} ({c})" for k, u, c in named[:8]) + ")"
+                for p, (us, n, cp, sy, named) in phases[what].items()))
     prof = profile_build(lambda: octree_device.build_svo_device(scene, depth, device=dev))
     if prof is None:
         say("[build-device] the profiler saw no kernel of the build; not measured")
@@ -3539,8 +3735,8 @@ def build_device(ctx, card):
         "(bound ms, by; svo_expand_function is the column pass and the children, "
         "svo_expand the children alone): " + ", ".join(
             f"{k} {ms[k]:.4f} ({bounds[k][0]:.5f}, {bounds[k][1]})"
-            for k in (*BUILD_KERNELS, "svo_expand_function", "svo_expand_serial",
-                      "svo_leaves_serial"))
+            for k in (*BUILD_KERNELS, *BUILD_FIRST_FORMS, "level_up_first_form",
+                      "svo_expand_function", "svo_expand_serial", "svo_leaves_serial"))
         + f"; torch.nonzero of svo_compact's flags {ms['svo_compact_library']:.4f}, "
         f"with index_select of the kept rows' words (svo_compact's whole function, "
         f"== it bitwise) {ms['svo_compact_library_whole']:.4f}, with src[rows] in its "
@@ -3594,15 +3790,19 @@ def build_device(ctx, card):
     say(f"[build-device] build_svo_device_split(terrain, {depth}, split_level=2): "
         f"64 octants in {split_s:.3f} s ({split_got}), == the monolithic build bit "
         "for bit (every array)")
-    split_log, split_exp = [], []
-    with checked_leaf_tests(split_log), checked_expansions(split_exp, plain=True):
+    split_log, split_exp, split_pass = [], [], []
+    with checked_leaf_tests(split_log), checked_expansions(split_exp, plain=True), \
+            checked_level_passes(split_pass):
         octree_device.build_svo_device_split(scene, depth, split_level=2, device=dev)
     say(f"[build-device] the octant build's {len(split_log)} leaf tests == their "
         f"first form bit for bit; {sum(c['evals'] for c in split_log)} evaluations "
         f"against the reference's {sum(c['ref_evals'] for c in split_log)}; its "
         f"{len(split_exp)} expansions == their first form and plain version bit for "
         f"bit, {sum(r['evals'] for r in split_exp)} column evaluations against "
-        f"{sum(r['children'] for r in split_exp)} children")
+        f"{sum(r['children'] for r in split_exp)} children; its "
+        f"{sum(len(b) for b in split_pass)} level passes in {len(split_pass)} octant "
+        "builds == the first forms bit for bit, each octant's parent pointers == "
+        "svo_parent_ptr's")
 
     # the command line's noise scenes, built on the card at its default depth
     scene_builds = {}
@@ -3627,6 +3827,9 @@ def build_device(ctx, card):
         + "; against [cli]'s host builds below")
     return dict(launches=got, first_s=first_s, second_s=second_s, ms=ms,
                 plain_ms=plain_ms, bounds=bounds, prof=prof, scene_apart=apart,
+                cd_us=cd_us, phases=phases, level_parents=level_parents,
+                passes_checked=len(passes) + sum(len(b) for b in split_pass) + sum(
+                    len(p_) for p_ in scene_passes.values()),
                 scene_builds=scene_builds, levels=levels, split_s=split_s, leaf=leaf,
                 serial_us=serial_us, scene_checks=scene_checks, leaf_kernels=leaf_kernels,
                 split_checks=len(split_log), expansion=expansion,
@@ -3912,8 +4115,8 @@ def sharded_phase(ctx, card):
         get_scene("terrain"), SHARDED_DEPTH, split_level=SHARDED_SPLIT, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    leaf_log = []
-    with checked_leaf_tests(leaf_log):
+    leaf_log, pass_log = [], []
+    with checked_leaf_tests(leaf_log), checked_level_passes(pass_log):
         octree_device.build_svo_device_split(
             get_scene("terrain"), SHARDED_DEPTH, split_level=SHARDED_SPLIT, device=dev)
     out["leaf_checks"] = dict(tests=len(leaf_log), evals=sum(c["evals"] for c in leaf_log),
@@ -3921,7 +4124,9 @@ def sharded_phase(ctx, card):
     say(f"[sharded] the depth-{SHARDED_DEPTH} octant build's {len(leaf_log)} leaf tests "
         f"(svo_leaves, svo_leaf_attrs) == their first form bit for bit; "
         f"{out['leaf_checks']['evals']} evaluations against the reference's "
-        f"{out['leaf_checks']['ref_evals']}")
+        f"{out['leaf_checks']['ref_evals']}; its {sum(len(b) for b in pass_log)} level "
+        f"passes in {len(pass_log)} octant builds == the first forms (svo_level_up, "
+        "svo_compact) bit for bit, each octant's parent pointers == svo_parent_ptr's")
     t0 = time.perf_counter()
     ls = level_sharded.split_svo(svo12, SHARDED_SPLIT, 1)
     split_s = time.perf_counter() - t0
@@ -4424,9 +4629,9 @@ def main():
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
         f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
     svo_regs = svo_ptxas(_build.build_log("svo_build"))
-    if len(svo_regs) != 14:
+    if len(svo_regs) != 15:
         raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
-                             "expected 14 kernels")
+                             "expected 15 kernels")
     say("[build] svo_build.cu, ptxas -v (registers): " + ", ".join(
         f"{k} {r}" for k, r in svo_regs))
 
@@ -4444,7 +4649,7 @@ def main():
                tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
                clipmap_trace_brick_serial=0.0, clipmap_trace_serial=0.0,
                svo_expand_serial=0.0,
-               **{k: 0.0 for k in BUILD_KERNELS})
+               **{k: 0.0 for k in (*BUILD_KERNELS, *BUILD_FIRST_FORMS)})
     for name, depth in (("sphere", 5), ("terrain", 6)):
         svo = octree.build_svo(get_scene(name), depth).svo.to(dev)
         for n in (1000, 4096):
@@ -6324,8 +6529,8 @@ def main():
         bound_by=bwd_bound[1], library_ms=None, us_alone=alone["composite_bwd"],
         fwdbwd_over_fwd=stepped["fwdbwd_over_fwd"]))
     replaces = dict(svo_columns=57, svo_expand=57, svo_compact=80, svo_leaves=143,
-                    svo_leaf_attrs=323, svo_level_up=163, svo_parent_ptr=341,
-                    svo_leaves_serial=143, svo_expand_serial=57)
+                    svo_leaf_attrs=323, svo_level_pass=163, svo_level_up=163,
+                    svo_parent_ptr=341, svo_leaves_serial=143, svo_expand_serial=57)
     bl = built["leaf"]
     bm, bb, ex = built["ms"], built["bounds"], built["expansion"]
     leaf_extra = dict(
@@ -6352,13 +6557,38 @@ def main():
         svo_leaf_attrs=dict(leaf_warps_of_the_first_form=bl["leaf_warps"],
                             warps=bl["warps"]),
         svo_compact=dict(library_ms_indices_alone=built["ms"]["svo_compact_library"],
-                         library_ms_with_gather=built["ms"]["svo_compact_library_gather"]))
+                         library_ms_with_gather=built["ms"]["svo_compact_library_gather"]),
+        svo_level_pass=dict(
+            also_replaces="raytracingtest_tpu/ops/octree_device.py:341",
+            us_alone_at_level_9=built["cd_us"]["svo_level_pass"]["us"],
+            surviving_parents_at_level_9=built["level_parents"],
+            first_form_ms_in_turns=bm["level_up_first_form"],
+            first_form_us_alone_at_level_9=built["cd_us"]["level_up_first_form"]["us"],
+            first_form_launches_at_level_9=built["cd_us"]["level_up_first_form"]["launches"],
+            first_form_bound_ms=bb["level_up_first_form"][0],
+            library_us_alone=built["cd_us"]["level_up_library"]["us"],
+            passes_checked=built["passes_checked"],
+            phases={w: {p: dict(us=r[0], launches=r[1], copies=r[2], host_syncs=r[3])
+                        for p, r in rows.items()} for w, rows in built["phases"].items()}),
+        svo_level_up=dict(us_alone_at_level_9=built["cd_us"]["svo_level_up"]["us"]),
+        svo_parent_ptr=dict(us_alone=built["cd_us"]["svo_parent_ptr"]["us"],
+                            library_us_alone=built["cd_us"]["parent_ptr_library"]["us"]))
     first_forms = {
         "svo_leaves_serial": ("octree_cuda.leaves_serial (the leaf test's first form, off "
                               "the main path), at the build's leaf test", built["serial_us"]),
         "svo_expand_serial": ("octree_cuda.expand_serial (the expansion's first form, off "
                               "the main path), at the build's level 10",
-                              sum(r["first_form_us"] for r in ex))}
+                              sum(r["first_form_us"] for r in ex)),
+        "svo_level_up": ("octree_cuda.level_up_serial (phase C's first form, off the main "
+                         "path), at the build's level 9",
+                         built["cd_us"]["svo_level_up"]["us"]),
+        "svo_parent_ptr": ("octree_cuda.parent_ptr (phase D's first form, off the main "
+                           "path), over the depth-10 tree",
+                           built["cd_us"]["svo_parent_ptr"]["us"])}
+    library = dict(svo_compact=built["ms"]["svo_compact_library_whole"],
+                   svo_level_pass=built["ms"]["level_up_library"],
+                   svo_level_up=built["ms"]["level_up_library"],
+                   svo_parent_ptr=built["ms"]["parent_ptr_library"])
     for kname in (*BUILD_KERNELS, *first_forms):
         serial = kname in first_forms
         kernels.append(dict(
@@ -6370,8 +6600,7 @@ def main():
             launches=0 if serial else built["launches"][kname], max_abs_err=err[kname],
             ms=built["ms"][kname], plain_ms=built["plain_ms"][kname],
             bound_ms=built["bounds"][kname][0], bound_by=built["bounds"][kname][1],
-            library_ms=(built["ms"]["svo_compact_library_whole"]
-                        if kname == "svo_compact" else None),
+            library_ms=library.get(kname),
             us_alone_a_build=first_forms[kname][1] if serial else built["prof"]["us"][kname],
             **leaf_extra.get(kname, {})))
     fk = flown

@@ -40,7 +40,8 @@ Seven libraries, each built on first use into
   * ``svo_build``  — ``csrc/svo_build.cu`` with nvcc for ``sm_90a``: the SVO
                      builder on the card (``svo_columns``, ``svo_expand``
                      and its first form, ``svo_compact``, ``svo_leaves``,
-                     ``svo_level_up``, ``svo_parent_ptr``)
+                     ``svo_level_pass``, and the first forms
+                     ``svo_level_up`` and ``svo_parent_ptr``)
                      over the scene library ``csrc/scene.cuh``, and
                      ``scene_eval``, that library at given points.
 
@@ -270,13 +271,14 @@ def _declare_svo(lib):
     lib.svo_leaves.argtypes = [p, i, p, p, i, p, f, i, i] + tables + [p, p, p, p, p]
     lib.svo_leaf_attrs.argtypes = [p, i, f, i] + tables + [p, p]
     lib.svo_leaves_serial.argtypes = [p, i, f, i] + tables + [p, p, p, p]
+    lib.svo_level_pass.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
     lib.svo_level_up.argtypes = [p, i, p, p, p, p, p]
     lib.svo_parent_ptr.argtypes = [p, p, i, p, p]
     lib.scene_eval.argtypes = [p, p, p, i, i] + tables + [p, p]
     for fn in (lib.svo_columns, lib.svo_expand, lib.svo_expand_serial,
                lib.svo_compact, lib.svo_leaves,
-               lib.svo_leaf_attrs, lib.svo_leaves_serial, lib.svo_level_up,
-               lib.svo_parent_ptr, lib.scene_eval):
+               lib.svo_leaf_attrs, lib.svo_leaves_serial, lib.svo_level_pass,
+               lib.svo_level_up, lib.svo_parent_ptr, lib.scene_eval):
         fn.restype = i
 
 

@@ -79,19 +79,54 @@
 //                  albedo and normal written at the candidate's row (zeros
 //                  elsewhere) for svo_compact to gather; the block's survivor
 //                  count. The new form's yardstick, on no build's path.
-//   svo_level_up   replaces _level_up (:163) and _first_child (:174), phase C:
-//                  a thread per surviving child (svo_compact's rows). It ORs
-//                  1 << slot into its parent's valid mask and takes the
-//                  minimum of its rank for the parent's first child, and marks
-//                  the parent surviving. Integer atomics give the same result
-//                  in any order: a (parent, slot) bit appears once, and the
-//                  minimum rank is the first child because candidates are
+//   svo_level_pass replaces _level_up (:163), _first_child (:174), phase
+//                  C's level counts and jnp.flatnonzero (:255-300) and
+//                  derive_parent_ptr_device (:341): phases C and D in one
+//                  launch a level, over the survivors of the level below
+//                  (`rows`, in order). Candidates are parent-major, so the
+//                  survivors of one parent form one run of at most 8 in
+//                  `rows`: a parent survives where a run begins (its head,
+//                  par[rows[pos]] != par[rows[pos - 1]]), its valid mask is
+//                  the OR of its run's slot bits, its first child's rank is
+//                  the head's position, its row in the level's node list is
+//                  the count of heads before it, and that count is also each
+//                  survivor's parent rank (its parent pointer less the
+//                  level's start). A block takes a tile of LTILE survivors by
+//                  a ticket; warp w holds LITEMS rows of 32 consecutive
+//                  entries, and one more row's first 8 lanes, the entries a
+//                  run that crosses the warp's end may reach. A run's OR is a
+//                  segmented suffix OR within a row (shuffles 1, 2, 4: a run
+//                  is at most 8) and the next row's lane 0 where the run
+//                  crosses into it; heads by ballot and __popc, the block's
+//                  warp prefix in shared memory, the tile's prefix by a
+//                  decoupled look-back (level_queue_lookback_kernel's in
+//                  brick_trace.cu: a status word a tile tagged with the
+//                  launch's epoch, one word a lane; the words zeroed once a
+//                  build). It writes only what survives: each parent's
+//                  (mask, first) and index at its rank, each survivor's
+//                  parent rank, and the level's count, left on the device,
+//                  where the next level's pass reads it: nothing is zeroed
+//                  or filled over the parent candidates, no atomic touches a
+//                  parent, no count or place pass follows and the host reads
+//                  the counts once a build. Threads past the count on the
+//                  device (the grid comes from a bound the host holds)
+//                  return.
+//   svo_level_up   the first form of phase C's level-up (PR 14's kernel,
+//                  its code kept), on no build's path: a thread per
+//                  surviving child (svo_compact's rows). It ORs 1 << slot
+//                  into its parent's valid mask and takes the minimum of its
+//                  rank for the parent's first child, and marks the parent
+//                  surviving; svo_compact then counts and places the
+//                  parents. Integer atomics give the same result in any
+//                  order: a (parent, slot) bit appears once, and the minimum
+//                  rank is the first child because candidates are
 //                  parent-major.
-//   svo_parent_ptr replaces derive_parent_ptr_device (:341): a thread per
-//                  node; a node with non-leaf children writes its own row into
-//                  the rows child_base .. child_base + popc(valid & ~leaf) - 1.
-//                  Every non-root row has one parent and the root points at
-//                  itself, so no scan is needed.
+//   svo_parent_ptr the first form of phase D (PR 14's kernel), on no
+//                  build's path: a thread per node; a node with non-leaf
+//                  children writes its own row into the rows child_base ..
+//                  child_base + popc(valid & ~leaf) - 1. Every non-root row
+//                  has one parent and the root points at itself, so no scan
+//                  is needed.
 //   scene_eval     the scene library at given points: the check of scene.cuh
 //                  against the host's scenes. No build launches it.
 //
@@ -105,10 +140,13 @@
 // each evaluated once); svo_leaves its reads of the uncompacted records and of the
 // parents its searches visit, and the few evaluations left; the rest
 // bytes: svo_compact reads a flag and writes (1 + width) words a kept
-// row, svo_level_up reads three words and makes two integer atomics a
+// row, svo_level_pass reads three words a survivor (its row, and its
+// parent and slot gathered) and writes one a survivor and three a surviving
+// parent, svo_level_up reads three words and makes two integer atomics a
 // survivor, svo_parent_ptr reads two words a node and writes one.
-// The design keeps every candidate array on the card: only the block
-// counts' total crosses to the host, once a compaction, to size its output.
+// The design keeps every candidate array on the card: phases A and B bring
+// the block counts' total to the host once a compaction, to size its
+// output; phase C brings its levels' counts once a build.
 
 #include <cuda_runtime.h>
 
@@ -513,6 +551,185 @@ __global__ void __launch_bounds__(BLOCK)
   for (int j = 0; j < cnt; ++j) pptr[base + j] = i;
 }
 
+// ---- svo_level_pass: phases C and D, one pass a level ------------------------
+
+// svo_level_pass_kernel's tiles: LITEMS rows of 32 entries a warp, LTILE a
+// block
+constexpr int LITEMS = 8, LWARP = 32 * LITEMS, LTILE = BLOCK * LITEMS;
+// a run's length: a parent's children
+constexpr int RUN = 8;
+// "no child": the root's first child when nothing survives
+constexpr int NO_CHILD = 0x7fffffff;
+// a tile's status word: (epoch << 2 | flag) << 32 | value, the epoch's low
+// 30 bits; flag 0 (or an earlier epoch): not published yet
+constexpr unsigned L_AGGREGATE = 1, L_PREFIX = 2, L_EPOCH_MASK = 0x3fffffffu;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void l_publish(unsigned long long* word, unsigned epoch,
+                                          unsigned flag, int value) {
+  *(volatile unsigned long long*)word =
+      ((unsigned long long)((epoch << 2) | flag) << 32) | (unsigned)value;
+}
+
+// The flag of a tile's status word in this launch (0: not published yet),
+// its value in `value`.
+__device__ __forceinline__ unsigned l_read(const unsigned long long* word,
+                                           unsigned epoch, int& value) {
+  const unsigned long long s = *(const volatile unsigned long long*)word;
+  value = (int)(unsigned)s;
+  const unsigned hi = (unsigned)(s >> 32);
+  return (hi >> 2) == epoch ? (hi & 3u) : 0u;
+}
+
+// One level's pass (see the file's head): `rows` the level below's
+// survivors, the first *m_dev of them (m_dev null: all m_bound) valid, in
+// order; par and slot every child candidate's parent and slot. ctl is the
+// control word (the launch's epoch, high 32 bits, and the next ticket) and
+// words a status word a tile. Writes nodes[rank] = (valid mask, first
+// child's position in rows) and below[rank] = the parent's candidate index
+// for each surviving parent, ranks[pos] = each survivor's parent's rank
+// (ranks null: not wanted), *count the surviving parents; `root`: where
+// nothing survives, the root alone, (0, NO_CHILD).
+__global__ void __launch_bounds__(BLOCK)
+    svo_level_pass_kernel(const int* __restrict__ rows, int m_bound,
+                          const int* __restrict__ m_dev,
+                          const int* __restrict__ par,
+                          const int* __restrict__ slot, int root,
+                          unsigned long long* __restrict__ ctl,
+                          unsigned long long* __restrict__ words,
+                          int2* __restrict__ nodes, int* __restrict__ below,
+                          int* __restrict__ ranks, int* __restrict__ count) {
+  __shared__ int warp_first[WARPS];
+  __shared__ int tile_s;
+  __shared__ unsigned epoch_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const unsigned long long got = atomicAdd(ctl, 1ull);
+    const unsigned ticket = (unsigned)got;
+    // the last ticket: every other block holds its own; the epoch moves on
+    // and the ticket returns to 0 for the next launch, in one atomic
+    if (ticket == gridDim.x - 1) atomicAdd(ctl, (1ull << 32) - gridDim.x);
+    tile_s = (int)ticket;
+    epoch_s = (unsigned)(got >> 32) & L_EPOCH_MASK;
+  }
+  const int m = m_dev == nullptr ? m_bound : min(__ldg(m_dev), m_bound);
+  __syncthreads();
+  const int tile = tile_s;
+  const unsigned epoch = epoch_s;
+  if (m <= 0) {  // nothing survives below: no parent, or the root alone
+    if (tile == 0 && threadIdx.x == 0) {
+      if (root) {
+        nodes[0] = make_int2(0, NO_CHILD);
+        below[0] = 0;
+      }
+      *count = root ? 1 : 0;
+    }
+    return;
+  }
+  if ((long long)tile * LTILE >= m) return;  // past the count on the device
+  // row k of this warp: entries wbase + 32 k + lane; row LITEMS, its
+  // first RUN lanes, belongs to the next warp (or tile) and is read only
+  // for the run that may cross into it
+  const int wbase = tile * LTILE + warp * LWARP;
+  int p[LITEMS + 1];
+  unsigned b[LITEMS + 1];
+  {
+    int r[LITEMS + 1];
+#pragma unroll
+    for (int k = 0; k <= LITEMS; ++k) {
+      const int e = wbase + 32 * k + lane;
+      r[k] = (k < LITEMS || lane < RUN) && e < m ? __ldg(rows + e) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k <= LITEMS; ++k) {
+      p[k] = r[k] >= 0 ? __ldg(par + r[k]) : -1;
+      b[k] = r[k] >= 0 ? 1u << __ldg(slot + r[k]) : 0u;
+    }
+  }
+  // the parent of the entry before the warp's first (lane 0 of a warp that
+  // holds a valid entry)
+  int p_before = -1;
+  if (lane == 0 && wbase > 0 && wbase < m) p_before = __ldg(par + __ldg(rows + wbase - 1));
+  // each entry's OR over the rest of its run within its row: a run is at
+  // most RUN long, and an equal parent RUN / 2 lanes on lies in the same run
+#pragma unroll
+  for (int o = 1; o < RUN; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k <= LITEMS; ++k) {
+      const unsigned nb = __shfl_down_sync(FULL, b[k], o);
+      const int np = __shfl_down_sync(FULL, p[k], o);
+      if (lane + o < 32 && np == p[k]) b[k] |= nb;
+    }
+  }
+  // heads: the warp's ballots; a run that reaches a row's end takes the
+  // next row's lane 0, the OR of the run's rest
+  unsigned head[LITEMS];
+  int heads = 0;
+#pragma unroll
+  for (int k = 0; k < LITEMS; ++k) {
+    const int next_p = __shfl_sync(FULL, p[k + 1], 0);
+    const unsigned next_b = __shfl_sync(FULL, b[k + 1], 0);
+    if (p[k] >= 0 && next_p == p[k]) b[k] |= next_b;
+    const int up = __shfl_up_sync(FULL, p[k], 1);
+    const int last = k > 0 ? __shfl_sync(FULL, p[k > 0 ? k - 1 : 0], 31) : p_before;
+    head[k] = __ballot_sync(FULL, p[k] >= 0 && (lane > 0 ? up : last) != p[k]);
+    heads += __popc(head[k]);
+  }
+  if (lane == 0) warp_first[warp] = heads;
+  __syncthreads();
+  if (warp == 0) {  // the tile's aggregate, the look-back, the warps' first ranks
+    const int c = lane < WARPS ? warp_first[lane] : 0;
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int aggregate = __shfl_sync(FULL, incl, 31);
+    if (lane == 0)
+      l_publish(words + tile, epoch, tile == 0 ? L_PREFIX : L_AGGREGATE, aggregate);
+    int exclusive = 0;
+    for (int hi = tile - 1; tile > 0; hi -= 32) {
+      // lane l reads tile hi - l's word, once it is published; a tile
+      // before the first is an inclusive prefix of 0
+      const int q = hi - lane;
+      unsigned flag = L_PREFIX;
+      int value = 0;
+      if (q >= 0) {
+        do {
+          flag = l_read(words + q, epoch, value);
+        } while (flag == 0);
+      }
+      // the nearest inclusive prefix and the aggregates after it
+      const unsigned prefix = __ballot_sync(FULL, flag == L_PREFIX);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      int add = lane <= stop ? value : 0;
+      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(FULL, add, o);
+      exclusive += add;
+      if (prefix) break;
+    }
+    if (lane == 0 && tile > 0)
+      l_publish(words + tile, epoch, L_PREFIX, exclusive + aggregate);
+    if (lane < WARPS) warp_first[lane] = exclusive + incl - c;
+    if (lane == 0 && tile == (m - 1) / LTILE) *count = exclusive + aggregate;
+  }
+  __syncthreads();
+  // each head's parent at its rank, each survivor's parent rank
+  int rank = warp_first[warp];
+  const unsigned below_lane = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < LITEMS; ++k) {
+    const int e = wbase + 32 * k + lane;
+    const int mine = rank + __popc(head[k] & below_lane);
+    const bool is_head = (head[k] >> lane) & 1u;
+    if (is_head) {
+      nodes[mine] = make_int2((int)b[k], e);
+      below[mine] = p[k];
+    }
+    if (ranks != nullptr && p[k] >= 0) ranks[e] = is_head ? mine : mine - 1;
+    rank += __popc(head[k]);
+  }
+}
+
 __global__ void __launch_bounds__(BLOCK)
     scene_eval_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ z, int n, int scene_id,
@@ -686,6 +903,29 @@ extern "C" int svo_leaves_serial(const void* rec, int n, float fin, int scene_id
       (const int4*)rec, n, fin, scene_id,
       make_tables(perm, perm3d, lut_d, lut_sb, grads),
       (unsigned char*)survive, (float*)attrs, (int*)counts);
+  return (int)cudaGetLastError();
+}
+
+// Phases C and D's pass at one level (svo_level_pass_kernel): rows (m
+// ints, m the host's bound) the level below's survivors, the first *n_rows
+// of them valid (n_rows null: all m); par, slot the level below's
+// candidates' parents and slots; root != 0 at the root's level; status
+// (int64) the control word and a word for each of the ceil(m / LTILE)
+// tiles, zeroed once before a build's first pass. Outputs: nodes (min(m,
+// parent candidates), 2) and below at the surviving parents' ranks, ranks
+// (m ints, or null) at the valid rows, count (one int).
+extern "C" int svo_level_pass(const void* rows, int m, const void* n_rows,
+                              const void* par, const void* slot, int root,
+                              void* status, void* nodes, void* below,
+                              void* ranks, void* count, void* stream) {
+  if (m < 0 || m > 0x7fffffff - 2 * LTILE || status == nullptr || count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaGetLastError();
+  unsigned long long* ctl = (unsigned long long*)status;
+  svo_level_pass_kernel<<<(m + LTILE - 1) / LTILE, BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int*)rows, m, (const int*)n_rows, (const int*)par,
+      (const int*)slot, root, ctl, ctl + 1, (int2*)nodes, (int*)below,
+      (int*)ranks, (int*)count);
   return (int)cudaGetLastError();
 }
 

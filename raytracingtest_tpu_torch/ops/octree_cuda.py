@@ -26,9 +26,18 @@ Counterpart of the XLA programs of ``raytracingtest_tpu/ops/octree_device.py``
   * ``leaves_serial`` (``svo_leaves_serial``): the leaf test's first form,
                     every probe evaluated and the attributes in the same
                     pass; off the build's path.
-  * ``level_up``    (``svo_level_up``): each parent's valid mask and first
-                    child from its surviving children.
-  * ``parent_ptr``  (``svo_parent_ptr``): each node's parent row.
+  * ``level_up``    (``svo_level_pass``): phases C and D at one level in one
+                    pass over the surviving children, which are sorted by
+                    parent: each surviving parent's valid mask, first
+                    child's rank and candidate index at its rank, each
+                    child's parent rank, and the count, left on the device.
+  * ``level_up_serial`` (``svo_level_up``): the level-up's first form, each
+                    parent candidate's valid mask and first child and its
+                    survive flag (``count`` and ``compact`` then rank them);
+                    on no build's path.
+  * ``parent_ptr``  (``svo_parent_ptr``): each node's parent row, from the
+                    packed masks and child bases; the first form of phase D,
+                    on no build's path (``derive_parent_ptr_device``).
   * ``scene_eval``  the scene library at given points, the check of
                     ``csrc/scene.cuh``; no build calls it.
 
@@ -36,7 +45,8 @@ CUDA tensors launch the kernels; CPU tensors take the plain versions beside
 them: torch ops around the port's own numpy scene (which batches its scene
 calls as ``octree.build_svo`` does, so it gives that builder's bits),
 ``torch.nonzero`` for the compaction, ``index_add_``/``scatter_reduce_`` for
-the masks and first children, ``octree.compute_parent_ptr``. Every function
+the masks and first children, a run-head scan for the level pass,
+``octree.compute_parent_ptr``. Every function
 returns the same tensors on both paths, the blocks' counts included (blocks
 of ``BLOCK`` rows). The card evaluates a scene by its id in ``scene.cuh``
 (``SCENE_IDS``, by ``Scene.name``); a scene the library lacks raises there,
@@ -77,8 +87,8 @@ HEIGHTFIELDS = ("flat_ground", "simplex", "terrain", "perlin")
 # of svo_compact counts once)
 launches = {"svo_columns": 0, "svo_expand": 0, "svo_expand_serial": 0,
             "svo_compact": 0, "svo_leaves": 0, "svo_leaf_attrs": 0,
-            "svo_leaves_serial": 0, "svo_level_up": 0, "svo_parent_ptr": 0,
-            "scene_eval": 0}
+            "svo_leaves_serial": 0, "svo_level_pass": 0, "svo_level_up": 0,
+            "svo_parent_ptr": 0, "scene_eval": 0}
 
 _SVO_COLUMNS = Kernel("svo_columns", svo_lib)
 _SVO_EXPAND = Kernel("svo_expand", svo_lib)
@@ -87,6 +97,7 @@ _SVO_COMPACT = Kernel("svo_compact", svo_lib)
 _SVO_LEAVES = Kernel("svo_leaves", svo_lib)
 _SVO_LEAF_ATTRS = Kernel("svo_leaf_attrs", svo_lib)
 _SVO_LEAVES_SERIAL = Kernel("svo_leaves_serial", svo_lib)
+_SVO_LEVEL_PASS = Kernel("svo_level_pass", svo_lib)
 _SVO_LEVEL_UP = Kernel("svo_level_up", svo_lib)
 _SVO_PARENT_PTR = Kernel("svo_parent_ptr", svo_lib)
 _SCENE_EVAL = Kernel("scene_eval", svo_lib)
@@ -529,10 +540,133 @@ def leaves_serial(ds: DeviceScene, rec, depth: int):
     return survive, attrs, counts
 
 
+# ---- svo_level_pass ----------------------------------------------------------------
+
+# csrc/svo_build.cu's LTILE: survivors a tile of the level pass
+LEVEL_TILE = 2048
+
+
+class LevelPass(NamedTuple):
+    """One level's pass, at level k from level k + 1's survivors: `nodes`
+    (b, 2) int32, each surviving parent's valid mask and the rank of its
+    first surviving child, in order; `below` (b,) int32, their candidate
+    indices at level k (the next pass's rows); `ranks` (m,) int32, each
+    survivor's parent's rank, or None; `count` (1,) int32, the surviving
+    parents, on the rows' device. Only the first `count` rows of `nodes`
+    and `below`, and the valid rows of `ranks`, are written."""
+
+    nodes: torch.Tensor
+    below: torch.Tensor
+    ranks: torch.Tensor | None
+    count: torch.Tensor
+
+
+def level_pass_status(n: int, device):
+    """The level pass's status words for a build whose first pass reads `n`
+    survivors (the largest of its passes): a control word and a word a
+    tile, int64, zeroed. Made once a build; each launch tags its words with
+    its own epoch."""
+    return torch.zeros(1 + max(-(-n // LEVEL_TILE), 1), dtype=torch.int64,
+                       device=device)
+
+
+def _level_pass_outputs(m, n_par, root, ranks, count, dev):
+    b = max(min(m, n_par), 1 if root else 0)
+    if count is None:
+        count = torch.empty(1, dtype=_I32, device=dev)
+    return (torch.empty((b, 2), dtype=_I32, device=dev),
+            torch.empty(b, dtype=_I32, device=dev),
+            torch.empty(m, dtype=_I32, device=dev) if ranks else None, count)
+
+
+def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
+                     root=False, count=None):
+    """Plain version of ``level_up``: the runs of equal parents among the
+    valid rows, their heads ranked by a cumulative sum (rows past the
+    count, and outputs past the parents, stay zero)."""
+    dev = rows.device
+    m_bound = rows.shape[0]
+    m = m_bound if n_rows is None else min(int(n_rows[0]), m_bound)
+    nodes, below, rank_out, count = _level_pass_outputs(m_bound, n_par, root,
+                                                        ranks, count, dev)
+    nodes.zero_()
+    below.zero_()
+    r = rows[:m].long()
+    p = par[r]
+    head = torch.ones(m, dtype=torch.bool, device=dev)
+    head[1:] = p[1:] != p[:-1]
+    seg = torch.cumsum(head, 0) - 1
+    first = torch.nonzero(head).reshape(-1)
+    c = first.shape[0]
+    # a (parent, slot) bit appears once: the sum is the OR
+    nodes[:c, 0] = torch.zeros(c, dtype=_I32, device=dev).index_add_(
+        0, seg, (torch.ones_like(p) << slot[r]).to(_I32))
+    nodes[:c, 1] = first.to(_I32)
+    below[:c] = p[first]
+    if rank_out is not None:
+        rank_out.zero_()
+        rank_out[:m] = seg.to(_I32)
+    if root and c == 0:  # nothing survives: the root alone, with no child
+        nodes[0] = torch.tensor([0, BIG], dtype=_I32)
+        c = 1
+    count.fill_(c)
+    return LevelPass(nodes, below, rank_out, count)
+
+
+def level_up(rows, par, slot, n_par: int, n_rows=None, ranks: bool = True,
+             root: bool = False, status=None, count=None) -> LevelPass:
+    """Phases C and D at one level: level k's surviving parents from level k
+    + 1's survivors. `rows` (m,) int32 are the survivors' candidate indices
+    in order (``compact``'s, or the last pass's `below`), of which the
+    first `n_rows[0]` are valid ((1,) int32 on the device; None: all m);
+    `par` and `slot` every level k + 1 candidate's parent index and child
+    slot; `n_par` level k's candidates; `ranks`: write each survivor's
+    parent rank (where level k + 1 holds node rows); `root`: level 0, where
+    the root survives with no child, (0, BIG), when nothing survives
+    below. `status` is ``level_pass_status``'s (None: one made for this
+    call) and `count` the (1,) int32 to write the count into (None: a new
+    one). Returns a ``LevelPass``; nothing crosses to the host."""
+    if rows.device.type == "cpu":
+        return level_pass_plain(rows, par, slot, n_par, n_rows, ranks, root, count)
+    dev = rows.device
+    m, n_c = rows.shape[0], par.shape[0]
+    if status is None:
+        status = level_pass_status(m, dev)
+    specs = [("rows", rows, _I32, (m,)), ("par", par, _I32, (n_c,)),
+             ("slot", slot, _I32, (n_c,)),
+             ("status", status, torch.int64, (status.shape[0],))]
+    if n_rows is not None:
+        specs.append(("n_rows", n_rows, _I32, (1,)))
+    if count is not None:
+        specs.append(("count", count, _I32, (1,)))
+    _SVO_LEVEL_PASS.check(dev, specs)
+    _check_count(m + 2 * LEVEL_TILE, "svo_level_pass")
+    if status.shape[0] < 1 + -(-m // LEVEL_TILE):
+        raise ValueError(f"svo_level_pass: {status.shape[0]} status words for "
+                         f"{m} rows")
+    nodes, below, rank_out, count = _level_pass_outputs(m, n_par, root, ranks,
+                                                        count, dev)
+    if m:
+        _SVO_LEVEL_PASS(dev, rows.data_ptr(), m,
+                        None if n_rows is None else n_rows.data_ptr(),
+                        par.data_ptr(), slot.data_ptr(), int(root),
+                        status.data_ptr(), nodes.data_ptr(), below.data_ptr(),
+                        None if rank_out is None else rank_out.data_ptr(),
+                        count.data_ptr())
+        launches["svo_level_pass"] += 1
+    else:  # nothing below, known on the host: no launch
+        count.fill_(1 if root else 0)
+        if root:
+            nodes[0, 0] = 0
+            nodes[0, 1] = BIG
+            below.zero_()
+    return LevelPass(nodes, below, rank_out, count)
+
+
 # ---- svo_level_up -------------------------------------------------------------------
 
 def level_up_plain(rows, par, slot, n_par):
-    """Plain version of ``level_up``."""
+    """Plain version of ``level_up_serial``."""
     dev = rows.device
     r = rows.cpu().long()
     p = par.cpu()[r].long()
@@ -545,13 +679,14 @@ def level_up_plain(rows, par, slot, n_par):
             (vm != 0).to(_U8).to(dev))
 
 
-def level_up(rows, par, slot, n_par: int):
-    """Parents from their surviving children: `rows` (m,) int32 are the
-    surviving children's candidate indices in order (``compact``'s), `par`
-    and `slot` every child candidate's parent index and child slot. Returns
-    ((n_par, 2) int32: each parent's valid mask and the rank in `rows` of
-    its first surviving child, BIG for none; (n_par,) uint8, the parents
-    with a surviving child)."""
+def level_up_serial(rows, par, slot, n_par: int):
+    """The level-up's first form (``svo_level_up``), on no build's path:
+    parents from their surviving children, `rows` (m,) int32 the surviving
+    children's candidate indices in order (``compact``'s), `par` and `slot`
+    every child candidate's parent index and child slot. Returns ((n_par, 2)
+    int32: each parent's valid mask and the rank in `rows` of its first
+    surviving child, BIG for none; (n_par,) uint8, the parents with a
+    surviving child), which ``count`` and ``compact`` then rank."""
     if rows.device.type == "cpu":
         return level_up_plain(rows, par, slot, n_par)
     dev = rows.device
@@ -580,7 +715,8 @@ def parent_ptr_plain(masks, child_base):
 
 def parent_ptr(masks, child_base):
     """Each node row's parent row (the root's is itself) of a builder's
-    packed (n,) int32 `masks` and `child_base`."""
+    packed (n,) int32 `masks` and `child_base`: phase D's first form, on no
+    build's path (the level pass writes the parent ranks)."""
     if masks.device.type == "cpu":
         return parent_ptr_plain(masks, child_base)
     dev = masks.device

@@ -11,12 +11,17 @@ the kernels of ``ops/octree_cuda.py`` (``csrc/svo_build.cu``):
      last expansion's records of every child of a kept parent, kept or not,
      where a probe is such a child's centre), ``compact``, then each leaf's
      attributes in a dense pass over the leaves (``leaf_attrs``);
-  C. upward pruning and the assembly of masks and pointers, bottom up
-     (``level_up``, ``count``, ``compact``; the concatenation in torch);
-  D. parent pointers (``parent_ptr``).
+  C. upward pruning, bottom up, one pass a level (``level_up``): each
+     level's surviving parents, their masks and first children at their
+     ranks, the next level's rows and its count, which stays on the device
+     (the next pass reads it there; the host reads every level's count once,
+     after the last), then the assembly of masks and pointers in torch;
+  D. parent pointers: the same passes' parent ranks, each level's offset
+     added in the assembly.
 
-Candidate buffers stay on the device; one scalar a compaction (its kept
-count, which sizes its output) crosses to the host. Every keep and leaf
+Candidate buffers stay on the device; in phases A and B one scalar a
+compaction (its kept count, which sizes its output) crosses to the host,
+in phase C the levels' counts at once. Every keep and leaf
 decision takes the host builder's float32 operations on the same dyadic
 inputs, and the scenes on the card give the host scenes' bits
 (``csrc/scene.cuh``), so the structure equals ``build_svo``'s bit for bit;
@@ -148,53 +153,79 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
     leaf_attrs = octree_cuda.leaf_attrs(ds, leaf_rec, depth)
     del records, parents, full, survive, leaf_rec
 
-    # ---- phase C: upward pruning, bottom up -------------------------------
-    # nodes[k]: (count_k, 2) [valid mask, rank of the first surviving child
-    # at level k + 1] of level k's surviving candidates, in order
-    nodes = [None] * sub_depth
-    for k in range(sub_depth - 1, -1, -1):
-        rec, surv = octree_cuda.level_up(below, pars[k + 1], slots[k + 1],
-                                         pars[k].shape[0])
-        if k == 0:
-            surv[0] = 1  # the root survives, possibly empty
-        base, n = _offsets(octree_cuda.count(surv))
-        below, nodes[k] = octree_cuda.compact(surv, base, n, rec)
+    # ---- phases C and D: one pass a level, bottom up ---------------------
+    # the pass at level k reads level k + 1's survivors in order (`below`,
+    # its first n_rows valid) and writes nodes[k] ((count_k, 2) [valid mask,
+    # rank of the first surviving child at level k + 1]), the next pass's
+    # rows and each level k + 1 survivor's parent rank (ranks[k + 1], where
+    # level k + 1 holds node rows). Each grid is sized from a bound the host
+    # holds: n_leaves at the last level, then the smaller of that and the
+    # level's candidates; the counts cross to the host once, after the last
+    # level.
+    if n_leaves == 0:  # an empty world: the root alone, with no child
+        masks, child_base, leaf_base, parent_ptr = torch.zeros(
+            (4, 1), dtype=_I32, device=device).unbind()
+        level_start = np.ones(sub_depth + 1, np.int64)
+        level_start[0] = 0
+    else:
+        nodes, ranks = [None] * sub_depth, [None] * (sub_depth + 1)
+        counts = torch.empty(sub_depth, dtype=_I32, device=device)
+        status = octree_cuda.level_pass_status(n_leaves, device)
+        n_rows = None
+        for k in range(sub_depth - 1, -1, -1):
+            nodes[k], below, ranks[k + 1], _ = octree_cuda.level_up(
+                below, pars[k + 1], slots[k + 1], pars[k].shape[0], n_rows,
+                ranks=k + 1 < sub_depth, root=k == 0, status=status,
+                count=counts[k:k + 1])
+            n_rows = counts[k:k + 1]
+        level_counts = counts.tolist()
+        level_start = np.zeros(sub_depth + 1, np.int64)
+        np.cumsum(level_counts, out=level_start[1:])
+        masks, child_base, leaf_base, parent_ptr = _assemble(
+            nodes, ranks, level_counts, [int(v) for v in level_start])
     del pars, slots, below
 
-    level_start = np.zeros(sub_depth + 1, np.int64)
-    np.cumsum([v.shape[0] for v in nodes], out=level_start[1:])
-    masks, child_base, leaf_base = [], [], []
-    for k, node in enumerate(nodes):
-        vm, first = node[:, 0], node[:, 1]
-        none = first == octree_cuda.BIG
-        zeros = torch.zeros_like(vm)
-        if k == sub_depth - 1:  # every child a leaf
-            masks.append((vm << 8) | vm)
-            child_base.append(zeros)
-            leaf_base.append(first.masked_fill(none, 0))
-        else:
-            masks.append(vm << 8)
-            base_row = int(level_start[k + 1])
-            child_base.append(
-                (first.masked_fill(none, -base_row) + base_row))
-            leaf_base.append(zeros)
-    masks = torch.cat(masks)
-    child_base = torch.cat(child_base)
-
-    # ---- phase D: parent pointers -------------------------------------------
     return SVO(
-        masks=masks, child_base=child_base, leaf_base=torch.cat(leaf_base),
+        masks=masks, child_base=child_base, leaf_base=leaf_base,
         leaf_albedo=leaf_attrs[:, :3].contiguous(),
         leaf_normal=leaf_attrs[:, 3:].contiguous(),
         leaf_density=torch.ones(n_leaves, dtype=torch.float32, device=device),
         depth=sub_depth, level_start=tuple(int(v) for v in level_start),
-        parent_ptr=octree_cuda.parent_ptr(masks, child_base),
+        parent_ptr=parent_ptr,
     )
+
+
+def _assemble(nodes, ranks, counts, level_start):
+    """The packed arrays from the level passes' outputs: masks (valid << 8,
+    and | valid at the last level, where every child is a leaf),
+    child_base (the first child's rank plus its level's start), leaf_base
+    (the first leaf's rank at the last level) and parent_ptr (the root's 0,
+    then each level's parent ranks plus its parents' level's start). Every
+    level has a node and every node a child: no row is BIG."""
+    last = len(nodes) - 1
+    rows = torch.cat([node[:c] for node, c in zip(nodes, counts)])
+    valid, first = rows[:, 0], rows[:, 1]
+    masks = valid << 8
+    tail = slice(level_start[last], level_start[last + 1])
+    masks[tail] |= valid[tail]
+    child_base = torch.empty_like(masks)
+    leaf_base = torch.zeros_like(masks)
+    parent_ptr = torch.empty_like(masks)
+    parent_ptr[0] = 0
+    for k in range(last):
+        here = slice(level_start[k], level_start[k + 1])
+        torch.add(first[here], level_start[k + 1], out=child_base[here])
+        below = slice(level_start[k + 1], level_start[k + 2])
+        torch.add(ranks[k + 1][:counts[k + 1]], level_start[k], out=parent_ptr[below])
+    child_base[tail] = 0
+    leaf_base[tail] = first[tail]
+    return masks, child_base, leaf_base, parent_ptr
 
 
 def derive_parent_ptr_device(masks, child_base):
     """Each node row's parent row, on the tensors' device: ``svo_parent_ptr``
-    on the card, ``octree.compute_parent_ptr`` on the CPU."""
+    on the card (phase D's first form; the build takes its parent pointers
+    from the level passes), ``octree.compute_parent_ptr`` on the CPU."""
     return octree_cuda.parent_ptr(masks, child_base)
 
 

@@ -160,10 +160,15 @@ def test_plain_versions_count_as_the_kernels_do():
     # three parents; children of parent 0 and 2 survive, parent 1 none
     par = torch.tensor([0, 0, 1, 2, 2, 2], dtype=torch.int32)
     slot = torch.tensor([1, 5, 0, 0, 3, 7], dtype=torch.int32)
-    rec, surv = octree_cuda.level_up(torch.tensor([0, 1, 4, 5], dtype=torch.int32),
-                                     par, slot, 3)
+    rows = torch.tensor([0, 1, 4, 5], dtype=torch.int32)
+    rec, surv = octree_cuda.level_up_serial(rows, par, slot, 3)
     assert rec.tolist() == [[0b100010, 0], [0, octree_cuda.BIG], [0b10001000, 2]]
     assert surv.tolist() == [1, 0, 1]
+    # the one pass: the surviving parents alone, at their ranks
+    out = octree_cuda.level_up(rows, par, slot, 3)
+    assert out.nodes[:2].tolist() == [[0b100010, 0], [0b10001000, 2]]
+    assert out.below[:2].tolist() == [0, 2]
+    assert out.ranks.tolist() == [0, 0, 1, 1] and out.count.tolist() == [2]
 
 
 def _host_scene_library(tmp_path):

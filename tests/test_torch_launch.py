@@ -15,8 +15,8 @@ import torch
 
 from raytracingtest_tpu_torch import _build, _launch
 from raytracingtest_tpu_torch.ops import (
-    brick, brick_cuda, brick_dda, gather, rowread, shade_cuda, tile_cuda,
-    traverse, traverse_cuda)
+    brick, brick_cuda, brick_dda, gather, octree_cuda, rowread, shade_cuda,
+    tile_cuda, traverse, traverse_cuda)
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -52,6 +52,7 @@ KERNELS = {
     "esvo_stackless_lod": brick_cuda._ESVO_STACKLESS_LOD,
     "brick_trace_lod": brick_cuda._BRICK_TRACE_LOD,
     "composite_bwd": shade_cuda._COMPOSITE_BWD,
+    "svo_level_pass": octree_cuda._SVO_LEVEL_PASS,
 }
 
 
