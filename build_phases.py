@@ -184,6 +184,12 @@ def phase_rows(split):
     return rows
 
 
+def launches_named(split, key):
+    """The device us of each launch whose kernel's name holds `key`, in
+    launch order, over every phase."""
+    return [us for p in PHASES for _, us, name in split[p]["kernels"] if key in name]
+
+
 def wall_seconds(fn, calls=20):
     times = []
     for _ in range(calls):
@@ -201,7 +207,8 @@ def report(label, what, fn):
     fn()
     torch.cuda.synchronize()
     times = wall_seconds(fn)
-    rows = phase_rows(trace_build(fn))
+    split = trace_build(fn)
+    rows = phase_rows(split)
     total_us = sum(r[0] for r in rows.values())
     wall = float(np.median(times))
     print(f"{label} {what}: wall s median {wall:.5f}, min {min(times):.5f}, max "
@@ -214,6 +221,11 @@ def report(label, what, fn):
         print(f"{label}   phase {p}: {us:.1f} us in {n} launches, {copies} copies and "
               f"sets, {syncs} host syncs; " + ", ".join(
                   f"{k} {u:.1f} ({c})" for k, u, c in named), flush=True)
+    for key in ("svo_level_pass", "svo_level_up"):
+        us = launches_named(split, key)
+        if us:
+            print(f"{label}   {key}, each launch (finest level first): "
+                  + ", ".join(f"{u:.1f}" for u in us), flush=True)
     return rows, wall
 
 

@@ -3146,8 +3146,8 @@ def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain
     below, nodes = oc.compact(surv, base, n, rec)
     c = int(out.count[0])
     what = f"{rows.shape[0]} rows, {m} valid, {n_par} parent candidates"
-    if not (c == n and torch.equal(out.nodes[:c], nodes)
-            and torch.equal(out.below[:c], below)):
+    if not (c == n and torch.equal(out.masks[:c], nodes[:, 0])
+            and torch.equal(out.first[:c], nodes[:, 1]) and torch.equal(out.below[:c], below)):
         raise AssertionError(f"svo_level_pass parts from svo_level_up + svo_compact ({what})")
     if out.ranks is not None:
         want = torch.searchsorted(below, par[valid.long()]).to(torch.int32)
@@ -3157,7 +3157,8 @@ def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain
     if plain:
         ref = oc.level_pass_plain(rows, par, slot, n_par, n_rows,
                                   out.ranks is not None, root)
-        if not (torch.equal(ref.count, out.count) and torch.equal(ref.nodes[:c], out.nodes[:c])
+        if not (torch.equal(ref.count, out.count) and torch.equal(ref.masks[:c], out.masks[:c])
+                and torch.equal(ref.first[:c], out.first[:c])
                 and torch.equal(ref.below[:c], out.below[:c])
                 and (out.ranks is None or torch.equal(ref.ranks[:m], out.ranks[:m]))):
             raise AssertionError(f"svo_level_pass parts from its plain version ({what})")
@@ -3261,8 +3262,8 @@ def build_parity(calls, ds, depth, svo):
     want, plain_ms["svo_level_pass"] = timed_plain(
         oc.level_pass_plain, *args, ranks=kw["ranks"], root=kw["root"])
     c = int(got.count[0])
-    exact("svo_level_pass", (got.count, got.nodes[:c], got.below[:c], got.ranks),
-          (want.count, want.nodes[:c], want.below[:c], want.ranks),
+    exact("svo_level_pass", (got.count, got.masks[:c], got.first[:c], got.below[:c], got.ranks),
+          (want.count, want.masks[:c], want.first[:c], want.below[:c], want.ranks),
           "counts, masks, first children, parents and parent ranks")
     err["svo_level_pass"] = 0.0
     rows, par, slot, n_par = args[:4]
@@ -3710,14 +3711,17 @@ def build_device(ctx, card):
                      ("octant", lambda: octree_device.build_svo_device(
                          scene, depth, root_level=2, root_coord=PHASE_OCTANT,
                          device=dev))):
-        phases[what] = build_phases.phase_rows(build_phases.trace_build(fn))
+        split_ = build_phases.trace_build(fn)
+        phases[what] = build_phases.phase_rows(split_)
         say(f"[build-device] {card}: one {what} traced by phase ("
             + ("terrain d10" if what == "build" else
                f"the octant {PHASE_OCTANT} of build_svo_device_split(terrain, 10, 2)")
             + "; build_phases.py): " + "; ".join(
                 f"{p} {us:.1f} us in {n} launches, {cp} copies and sets, {sy} host syncs "
                 "(" + ", ".join(f"{k} {u:.1f} ({c})" for k, u, c in named[:8]) + ")"
-                for p, (us, n, cp, sy, named) in phases[what].items()))
+                for p, (us, n, cp, sy, named) in phases[what].items())
+            + "; svo_level_pass each launch, finest level first: " + ", ".join(
+                f"{u:.1f}" for u in build_phases.launches_named(split_, "svo_level_pass")))
     prof = profile_build(lambda: octree_device.build_svo_device(scene, depth, device=dev))
     if prof is None:
         say("[build-device] the profiler saw no kernel of the build; not measured")

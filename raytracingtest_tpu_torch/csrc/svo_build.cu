@@ -585,11 +585,12 @@ __device__ __forceinline__ unsigned l_read(const unsigned long long* word,
 // survivors, the first *m_dev of them (m_dev null: all m_bound) valid, in
 // order; par and slot every child candidate's parent and slot. ctl is the
 // control word (the launch's epoch, high 32 bits, and the next ticket) and
-// words a status word a tile. Writes nodes[rank] = (valid mask, first
-// child's position in rows) and below[rank] = the parent's candidate index
-// for each surviving parent, ranks[pos] = each survivor's parent's rank
-// (ranks null: not wanted), *count the surviving parents; `root`: where
-// nothing survives, the root alone, (0, NO_CHILD).
+// words a status word a tile. Writes masks[rank] = the valid mask,
+// first[rank] = the first child's position in rows and below[rank] = the
+// parent's candidate index for each surviving parent, ranks[pos] = each
+// survivor's parent's rank (ranks null: not wanted), *count the surviving
+// parents; `root`: where nothing survives, the root alone, mask 0 and first
+// NO_CHILD.
 __global__ void __launch_bounds__(BLOCK)
     svo_level_pass_kernel(const int* __restrict__ rows, int m_bound,
                           const int* __restrict__ m_dev,
@@ -597,7 +598,8 @@ __global__ void __launch_bounds__(BLOCK)
                           const int* __restrict__ slot, int root,
                           unsigned long long* __restrict__ ctl,
                           unsigned long long* __restrict__ words,
-                          int2* __restrict__ nodes, int* __restrict__ below,
+                          int* __restrict__ masks, int* __restrict__ first,
+                          int* __restrict__ below,
                           int* __restrict__ ranks, int* __restrict__ count) {
   __shared__ int warp_first[WARPS];
   __shared__ int tile_s;
@@ -619,7 +621,8 @@ __global__ void __launch_bounds__(BLOCK)
   if (m <= 0) {  // nothing survives below: no parent, or the root alone
     if (tile == 0 && threadIdx.x == 0) {
       if (root) {
-        nodes[0] = make_int2(0, NO_CHILD);
+        masks[0] = 0;
+        first[0] = NO_CHILD;
         below[0] = 0;
       }
       *count = root ? 1 : 0;
@@ -722,7 +725,8 @@ __global__ void __launch_bounds__(BLOCK)
     const int mine = rank + __popc(head[k] & below_lane);
     const bool is_head = (head[k] >> lane) & 1u;
     if (is_head) {
-      nodes[mine] = make_int2((int)b[k], e);
+      masks[mine] = (int)b[k];
+      first[mine] = e;
       below[mine] = p[k];
     }
     if (ranks != nullptr && p[k] >= 0) ranks[e] = is_head ? mine : mine - 1;
@@ -911,21 +915,22 @@ extern "C" int svo_leaves_serial(const void* rec, int n, float fin, int scene_id
 // of them valid (n_rows null: all m); par, slot the level below's
 // candidates' parents and slots; root != 0 at the root's level; status
 // (int64) the control word and a word for each of the ceil(m / LTILE)
-// tiles, zeroed once before a build's first pass. Outputs: nodes (min(m,
-// parent candidates), 2) and below at the surviving parents' ranks, ranks
-// (m ints, or null) at the valid rows, count (one int).
+// tiles, zeroed once before a build's first pass. Outputs: masks, first and
+// below (min(m, parent candidates) ints each) at the surviving parents'
+// ranks, ranks (m ints, or null) at the valid rows, count (one int).
 extern "C" int svo_level_pass(const void* rows, int m, const void* n_rows,
                               const void* par, const void* slot, int root,
-                              void* status, void* nodes, void* below,
-                              void* ranks, void* count, void* stream) {
+                              void* status, void* masks, void* first,
+                              void* below, void* ranks, void* count,
+                              void* stream) {
   if (m < 0 || m > 0x7fffffff - 2 * LTILE || status == nullptr || count == nullptr)
     return (int)cudaErrorInvalidValue;
   if (m == 0) return (int)cudaGetLastError();
   unsigned long long* ctl = (unsigned long long*)status;
   svo_level_pass_kernel<<<(m + LTILE - 1) / LTILE, BLOCK, 0, (cudaStream_t)stream>>>(
       (const int*)rows, m, (const int*)n_rows, (const int*)par,
-      (const int*)slot, root, ctl, ctl + 1, (int2*)nodes, (int*)below,
-      (int*)ranks, (int*)count);
+      (const int*)slot, root, ctl, ctl + 1, (int*)masks, (int*)first,
+      (int*)below, (int*)ranks, (int*)count);
   return (int)cudaGetLastError();
 }
 

@@ -547,15 +547,17 @@ LEVEL_TILE = 2048
 
 
 class LevelPass(NamedTuple):
-    """One level's pass, at level k from level k + 1's survivors: `nodes`
-    (b, 2) int32, each surviving parent's valid mask and the rank of its
-    first surviving child, in order; `below` (b,) int32, their candidate
-    indices at level k (the next pass's rows); `ranks` (m,) int32, each
-    survivor's parent's rank, or None; `count` (1,) int32, the surviving
-    parents, on the rows' device. Only the first `count` rows of `nodes`
-    and `below`, and the valid rows of `ranks`, are written."""
+    """One level's pass, at level k from level k + 1's survivors, each a
+    contiguous int32 tensor: `masks` (b,), each surviving parent's valid
+    mask, in order; `first` (b,), the rank of its first surviving child;
+    `below` (b,), their candidate indices at level k (the next pass's rows);
+    `ranks` (m,), each survivor's parent's rank, or None; `count` (1,), the
+    surviving parents, on the rows' device. Only the first `count` entries
+    of `masks`, `first` and `below`, and the valid rows of `ranks`, are
+    written."""
 
-    nodes: torch.Tensor
+    masks: torch.Tensor
+    first: torch.Tensor
     below: torch.Tensor
     ranks: torch.Tensor | None
     count: torch.Tensor
@@ -571,11 +573,13 @@ def level_pass_status(n: int, device):
 
 
 def _level_pass_outputs(m, n_par, root, ranks, count, dev):
+    """(masks, first, below, ranks or None, count): the first three rows of
+    one allocation."""
     b = max(min(m, n_par), 1 if root else 0)
     if count is None:
         count = torch.empty(1, dtype=_I32, device=dev)
-    return (torch.empty((b, 2), dtype=_I32, device=dev),
-            torch.empty(b, dtype=_I32, device=dev),
+    planes = torch.empty((3, b), dtype=_I32, device=dev)
+    return (*planes.unbind(),
             torch.empty(m, dtype=_I32, device=dev) if ranks else None, count)
 
 
@@ -587,10 +591,10 @@ def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
     dev = rows.device
     m_bound = rows.shape[0]
     m = m_bound if n_rows is None else min(int(n_rows[0]), m_bound)
-    nodes, below, rank_out, count = _level_pass_outputs(m_bound, n_par, root,
-                                                        ranks, count, dev)
-    nodes.zero_()
-    below.zero_()
+    masks, first_out, below, rank_out, count = _level_pass_outputs(
+        m_bound, n_par, root, ranks, count, dev)
+    for t in (masks, first_out, below):
+        t.zero_()
     r = rows[:m].long()
     p = par[r]
     head = torch.ones(m, dtype=torch.bool, device=dev)
@@ -599,18 +603,18 @@ def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
     first = torch.nonzero(head).reshape(-1)
     c = first.shape[0]
     # a (parent, slot) bit appears once: the sum is the OR
-    nodes[:c, 0] = torch.zeros(c, dtype=_I32, device=dev).index_add_(
+    masks[:c] = torch.zeros(c, dtype=_I32, device=dev).index_add_(
         0, seg, (torch.ones_like(p) << slot[r]).to(_I32))
-    nodes[:c, 1] = first.to(_I32)
+    first_out[:c] = first.to(_I32)
     below[:c] = p[first]
     if rank_out is not None:
         rank_out.zero_()
         rank_out[:m] = seg.to(_I32)
     if root and c == 0:  # nothing survives: the root alone, with no child
-        nodes[0] = torch.tensor([0, BIG], dtype=_I32)
+        first_out[0] = BIG
         c = 1
     count.fill_(c)
-    return LevelPass(nodes, below, rank_out, count)
+    return LevelPass(masks, first_out, below, rank_out, count)
 
 
 def level_up(rows, par, slot, n_par: int, n_rows=None, ranks: bool = True,
@@ -644,23 +648,24 @@ def level_up(rows, par, slot, n_par: int, n_rows=None, ranks: bool = True,
     if status.shape[0] < 1 + -(-m // LEVEL_TILE):
         raise ValueError(f"svo_level_pass: {status.shape[0]} status words for "
                          f"{m} rows")
-    nodes, below, rank_out, count = _level_pass_outputs(m, n_par, root, ranks,
-                                                        count, dev)
+    masks, first, below, rank_out, count = _level_pass_outputs(
+        m, n_par, root, ranks, count, dev)
     if m:
         _SVO_LEVEL_PASS(dev, rows.data_ptr(), m,
                         None if n_rows is None else n_rows.data_ptr(),
                         par.data_ptr(), slot.data_ptr(), int(root),
-                        status.data_ptr(), nodes.data_ptr(), below.data_ptr(),
+                        status.data_ptr(), masks.data_ptr(), first.data_ptr(),
+                        below.data_ptr(),
                         None if rank_out is None else rank_out.data_ptr(),
                         count.data_ptr())
         launches["svo_level_pass"] += 1
     else:  # nothing below, known on the host: no launch
         count.fill_(1 if root else 0)
         if root:
-            nodes[0, 0] = 0
-            nodes[0, 1] = BIG
+            masks.zero_()
             below.zero_()
-    return LevelPass(nodes, below, rank_out, count)
+            first.fill_(BIG)
+    return LevelPass(masks, first, below, rank_out, count)
 
 
 # ---- svo_level_up -------------------------------------------------------------------

@@ -155,10 +155,10 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
 
     # ---- phases C and D: one pass a level, bottom up ---------------------
     # the pass at level k reads level k + 1's survivors in order (`below`,
-    # its first n_rows valid) and writes nodes[k] ((count_k, 2) [valid mask,
-    # rank of the first surviving child at level k + 1]), the next pass's
-    # rows and each level k + 1 survivor's parent rank (ranks[k + 1], where
-    # level k + 1 holds node rows). Each grid is sized from a bound the host
+    # its first n_rows valid) and writes level k's surviving parents' valid
+    # masks and first children (the rank of the first surviving child at
+    # level k + 1), the next pass's rows and each level k + 1 survivor's
+    # parent rank (ranks[k + 1], where level k + 1 holds node rows). Each grid is sized from a bound the host
     # holds: n_leaves at the last level, then the smaller of that and the
     # level's candidates; the counts cross to the host once, after the last
     # level.
@@ -168,12 +168,13 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         level_start = np.ones(sub_depth + 1, np.int64)
         level_start[0] = 0
     else:
-        nodes, ranks = [None] * sub_depth, [None] * (sub_depth + 1)
+        valid, first = [None] * sub_depth, [None] * sub_depth
+        ranks = [None] * (sub_depth + 1)
         counts = torch.empty(sub_depth, dtype=_I32, device=device)
         status = octree_cuda.level_pass_status(n_leaves, device)
         n_rows = None
         for k in range(sub_depth - 1, -1, -1):
-            nodes[k], below, ranks[k + 1], _ = octree_cuda.level_up(
+            valid[k], first[k], below, ranks[k + 1], _ = octree_cuda.level_up(
                 below, pars[k + 1], slots[k + 1], pars[k].shape[0], n_rows,
                 ranks=k + 1 < sub_depth, root=k == 0, status=status,
                 count=counts[k:k + 1])
@@ -182,7 +183,7 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         level_start = np.zeros(sub_depth + 1, np.int64)
         np.cumsum(level_counts, out=level_start[1:])
         masks, child_base, leaf_base, parent_ptr = _assemble(
-            nodes, ranks, level_counts, [int(v) for v in level_start])
+            valid, first, ranks, level_counts, [int(v) for v in level_start])
     del pars, slots, below
 
     return SVO(
@@ -195,30 +196,29 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
     )
 
 
-def _assemble(nodes, ranks, counts, level_start):
+def _assemble(valid, first, ranks, counts, level_start):
     """The packed arrays from the level passes' outputs: masks (valid << 8,
     and | valid at the last level, where every child is a leaf),
     child_base (the first child's rank plus its level's start), leaf_base
     (the first leaf's rank at the last level) and parent_ptr (the root's 0,
     then each level's parent ranks plus its parents' level's start). Every
-    level has a node and every node a child: no row is BIG."""
-    last = len(nodes) - 1
-    rows = torch.cat([node[:c] for node, c in zip(nodes, counts)])
-    valid, first = rows[:, 0], rows[:, 1]
-    masks = valid << 8
+    level has a node and every node a child: no first child is BIG."""
+    last = len(valid) - 1
+    masks = torch.cat([v[:c] for v, c in zip(valid, counts)])
+    masks <<= 8
     tail = slice(level_start[last], level_start[last + 1])
-    masks[tail] |= valid[tail]
+    masks[tail] |= valid[last][:counts[last]]
     child_base = torch.empty_like(masks)
     leaf_base = torch.zeros_like(masks)
     parent_ptr = torch.empty_like(masks)
     parent_ptr[0] = 0
     for k in range(last):
         here = slice(level_start[k], level_start[k + 1])
-        torch.add(first[here], level_start[k + 1], out=child_base[here])
         below = slice(level_start[k + 1], level_start[k + 2])
+        torch.add(first[k][:counts[k]], level_start[k + 1], out=child_base[here])
         torch.add(ranks[k + 1][:counts[k + 1]], level_start[k], out=parent_ptr[below])
     child_base[tail] = 0
-    leaf_base[tail] = first[tail]
+    leaf_base[tail] = first[last][:counts[last]]
     return masks, child_base, leaf_base, parent_ptr
 
 

@@ -53,9 +53,14 @@ def first_forms(rows, par, slot, n_par, root=False):
     return nodes, below, below.shape[0], ranks
 
 
+def nodes_of(out, c):
+    """(c, 2) [valid mask, first child] of a LevelPass's first c parents."""
+    return torch.stack([out.masks[:c], out.first[:c]], 1)
+
+
 def assert_pass_equal(out, nodes, below, c, ranks, m):
     assert int(out.count[0]) == c
-    assert torch.equal(out.nodes[:c], nodes) and torch.equal(out.below[:c], below)
+    assert torch.equal(nodes_of(out, c), nodes) and torch.equal(out.below[:c], below)
     if out.ranks is not None:
         assert torch.equal(out.ranks[:m], ranks[:m])
 
@@ -82,7 +87,7 @@ def test_plain_pass_equals_the_first_forms(case, seed):
     n_par = CASES[case]["n_par"]
     out = octree_cuda.level_pass_plain(rows, par, slot, n_par)
     assert_pass_equal(out, *first_forms(rows, par, slot, n_par), rows.shape[0])
-    assert out.nodes.shape == (min(rows.shape[0], n_par), 2)
+    assert out.masks.shape == out.first.shape == (min(rows.shape[0], n_par),)
     assert out.ranks.shape == rows.shape
 
 
@@ -107,12 +112,12 @@ def test_level_with_no_survivor(n_par):
     rows, par, slot = parent_major(n_par, seed=3, keep=0.0)
     assert rows.shape == (0,)
     out = octree_cuda.level_pass_plain(rows, par, slot, n_par)
-    assert out.count.tolist() == [0] and out.nodes.shape == (0, 2)
+    assert out.count.tolist() == [0] and out.masks.shape == (0,)
     if n_par == 1:
         root = octree_cuda.level_pass_plain(rows, par, slot, 1, root=True)
         nodes, below, c, _ = first_forms(rows, par, slot, 1, root=True)
         assert c == 1 and root.count.tolist() == [1]
-        assert root.nodes.tolist() == nodes.tolist() == [[0, octree_cuda.BIG]]
+        assert nodes_of(root, 1).tolist() == nodes.tolist() == [[0, octree_cuda.BIG]]
         assert root.below.tolist() == below.tolist() == [0]
 
 
@@ -126,7 +131,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     want = octree_cuda.level_pass_plain(rows, par, slot, 100)
     assert out.ranks is None and count.tolist() == [-1, int(want.count[0]), -1]
     c = int(want.count[0])
-    assert torch.equal(out.nodes[:c], want.nodes[:c])
+    assert torch.equal(nodes_of(out, c), nodes_of(want, c))
     assert octree_cuda.launches == before
 
 
@@ -167,11 +172,12 @@ def test_passes_assemble_the_first_forms_tree(depth, seed):
     from raytracingtest_tpu_torch.ops.octree_device import _assemble
     pars, slots, leaves = build_levels(depth, seed)
     counts = torch.zeros(depth, dtype=I32)
-    nodes, ranks, ff = [None] * depth, [None] * (depth + 1), [None] * depth
+    valid, first_k, ff = [None] * depth, [None] * depth, [None] * depth
+    ranks = [None] * (depth + 1)
     below, ff_below, n_rows = leaves, leaves, None
     for k in range(depth - 1, -1, -1):
         n_par = pars[k].shape[0]
-        nodes[k], below, ranks[k + 1], _ = octree_cuda.level_pass_plain(
+        valid[k], first_k[k], below, ranks[k + 1], _ = octree_cuda.level_pass_plain(
             below, pars[k + 1], slots[k + 1], n_par, n_rows, ranks=k + 1 < depth,
             root=k == 0, count=counts[k:k + 1])
         n_rows = counts[k:k + 1]
@@ -180,7 +186,8 @@ def test_passes_assemble_the_first_forms_tree(depth, seed):
     level_counts = counts.tolist()
     assert level_counts == [f.shape[0] for f in ff]
     starts = np.concatenate([[0], np.cumsum(level_counts)]).tolist()
-    masks, child_base, leaf_base, pptr = _assemble(nodes, ranks, level_counts, starts)
+    masks, child_base, leaf_base, pptr = _assemble(valid, first_k, ranks, level_counts,
+                                                   starts)
     # the first forms' tree, as the build assembled it before the pass
     vm = torch.cat([f[:, 0] for f in ff])
     first = torch.cat([f[:, 1] for f in ff])
@@ -346,7 +353,7 @@ def test_kernel_model_equals_the_plain_pass(case, shape, seed):
                                                       seed=seed, **SHAPES[shape])
         c = int(want.count[0])
         assert count == c
-        np.testing.assert_array_equal(nodes[:c], want.nodes[:c].numpy())
+        np.testing.assert_array_equal(nodes[:c], nodes_of(want, c).numpy())
         np.testing.assert_array_equal(below[:c], want.below[:c].numpy())
         np.testing.assert_array_equal(ranks[:m], want.ranks[:m].numpy())
 
@@ -357,7 +364,8 @@ def test_kernel_model_with_nothing_below(root):
     nodes, below, _, count = level_pass_model(rows, par, slot, 0, 1, root=root)
     want = octree_cuda.level_pass_plain(rows, par, slot, 1, root=root)
     assert count == int(want.count[0])
-    np.testing.assert_array_equal(nodes, want.nodes.numpy())
+    np.testing.assert_array_equal(nodes, nodes_of(want, 1).numpy() if root else
+                                  np.zeros((0, 2), np.int64))
 
 
 def test_model_shape_is_the_sources():
