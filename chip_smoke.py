@@ -2954,8 +2954,7 @@ def record_calls():
     restore). A call's record is (rows, args), with its keyword arguments
     as a third item where it has any (the level pass's)."""
     from raytracingtest_tpu_torch.ops import octree_cuda
-    names = ("columns", "expand", "count", "compact", "leaves", "leaf_attrs",
-             "level_up")
+    names = ("columns", "expand", "compact", "leaves", "leaf_attrs", "level_up")
     saved = {name: getattr(octree_cuda, name) for name in names}
     calls = {}
 
@@ -3128,7 +3127,7 @@ def checked_leaf_tests(log, plain=False):
         oc.leaves = leaves
 
 
-def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain=False):
+def check_level_pass(out, rows, code, n_par, n_rows=None, root=False, plain=False):
     """One level pass's outputs `out` (octree_cuda.level_up's) held bit for
     bit against the first forms on the card on the same inputs: svo_level_up,
     the root's survival, then svo_compact's count and place modes give the
@@ -3139,6 +3138,7 @@ def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     m = rows.shape[0] if n_rows is None else int(n_rows[0])
     valid = rows[:m].contiguous()
+    par, slot = code >> 3, code & 7
     rec, surv = oc.level_up_serial(valid, par, slot, n_par)
     if root:
         surv[0] = 1
@@ -3155,7 +3155,7 @@ def check_level_pass(out, rows, par, slot, n_par, n_rows=None, root=False, plain
             raise AssertionError(f"svo_level_pass's parent ranks part from the first "
                                  f"forms' ({what})")
     if plain:
-        ref = oc.level_pass_plain(rows, par, slot, n_par, n_rows,
+        ref = oc.level_pass_plain(rows, code, n_par, n_rows,
                                   out.ranks is not None, root)
         if not (torch.equal(ref.count, out.count) and torch.equal(ref.masks[:c], out.masks[:c])
                 and torch.equal(ref.first[:c], out.first[:c])
@@ -3177,9 +3177,9 @@ def checked_level_passes(log, plain=False):
     level_up, build = oc.level_up, octree_device.build_svo_device
     passes = []
 
-    def checking(rows, par, slot, n_par, n_rows=None, **kw):
-        out = level_up(rows, par, slot, n_par, n_rows, **kw)
-        passes.append(check_level_pass(out, rows, par, slot, n_par, n_rows,
+    def checking(rows, code, n_par, n_rows=None, **kw):
+        out = level_up(rows, code, n_par, n_rows, **kw)
+        passes.append(check_level_pass(out, rows, code, n_par, n_rows,
                                        kw.get("root", False), plain))
         return out
 
@@ -3206,10 +3206,10 @@ def build_parity(calls, ds, depth, svo):
     from raytracingtest_tpu_torch.ops import octree_cuda as oc
     err, plain_ms = {}, {}
 
-    def timed_plain(fn, *args):
+    def timed_plain(fn, *args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
@@ -3236,8 +3236,8 @@ def build_parity(calls, ds, depth, svo):
     got = oc.compact(*args)
     want, plain_ms["svo_compact"] = timed_plain(oc.compact_plain, *args)
     exact("svo_compact", got, want, "rows and words")
-    _, args = calls["count"]
-    exact("svo_compact", (oc.count(*args),), (oc.count_plain(*args),),
+    flags = calls["compact"][1][0]
+    exact("svo_compact", (oc.count(flags),), (oc.count_plain(flags),),
           "the count mode's counts")
     err["svo_compact"] = 0.0
     _, args = calls["leaves"]
@@ -3262,11 +3262,14 @@ def build_parity(calls, ds, depth, svo):
     want, plain_ms["svo_level_pass"] = timed_plain(
         oc.level_pass_plain, *args, ranks=kw["ranks"], root=kw["root"])
     c = int(got.count[0])
-    exact("svo_level_pass", (got.count, got.masks[:c], got.first[:c], got.below[:c], got.ranks),
-          (want.count, want.masks[:c], want.first[:c], want.below[:c], want.ranks),
+    exact("svo_level_pass", [t for t in (got.count, got.masks[:c], got.first[:c],
+                                         got.below[:c], got.ranks) if t is not None],
+          [t for t in (want.count, want.masks[:c], want.first[:c], want.below[:c],
+                       want.ranks) if t is not None],
           "counts, masks, first children, parents and parent ranks")
     err["svo_level_pass"] = 0.0
-    rows, par, slot, n_par = args[:4]
+    rows, code, n_par = args[:3]
+    par, slot = code >> 3, code & 7
     got = oc.level_up_serial(rows, par, slot, n_par)
     want, plain_ms["svo_level_up"] = timed_plain(oc.level_up_plain, rows, par, slot, n_par)
     exact("svo_level_up", got, want, "masks, first children and survivors")
@@ -3323,16 +3326,17 @@ def build_bounds(calls, n_leaves, leaf, svo, level_parents):
     out["svo_leaves_serial"] = bound(nbytes(rec) + n * 25 + oc.n_blocks(n) * 4,
                                      (6 * solid + 6 * n_leaves) * OPS_TERRAIN_EVAL
                                      + n_leaves * OPS_ALBEDO)
-    # the level pass at its largest call (level 9's): each survivor's row,
-    # parent and slot read once, its parent rank written, and each surviving
-    # parent's mask, first child and index written; the first form, every
-    # parent candidate's two words and flag written (its fills), and the
-    # count and place passes after it (svo_compact's bound on its flags)
+    # the level pass at its largest call (level 9's): each survivor's row
+    # and code (parent * 8 + slot) read once, its parent rank written, and
+    # each surviving parent's mask, first child and index written; the first
+    # form, each survivor's row, parent and slot, every parent candidate's
+    # two words and flag written (its fills), and the count and place passes
+    # after it (svo_compact's bound on its flags)
     _, args, kw = calls["level_up"]
-    rows, par, slot, n_par = args[:4]
+    rows, _code, n_par = args[:3]
     m = rows.shape[0]
     heads = level_parents
-    out["svo_level_pass"] = bound(m * 12 + m * 4 * kw["ranks"] + heads * 12,
+    out["svo_level_pass"] = bound(m * 8 + m * 4 * kw["ranks"] + heads * 12,
                                   m * OPS_LEVEL_PASS_ROW)
     out["svo_level_up"] = bound(m * 12 + n_par * 9, m * OPS_LEVEL_UP_ROW)
     out["level_up_first_form"] = bound(m * 12 + n_par * 9 + n_par + oc.n_blocks(n_par) * 8
@@ -3631,7 +3635,8 @@ def build_device(ctx, card):
     # form's plain body on the card (index_add_ for the masks,
     # scatter_reduce_ for the first children) and traverse.derive_parent_ptr
     lu_args, lu_kw = calls["level_up"][1:]
-    rows_c, par_c, slot_c, n_par_c = lu_args[:4]
+    rows_c, code_c, n_par_c = lu_args[:3]
+    par_c, slot_c = code_c >> 3, code_c & 7
 
     def level_first_form():
         rec, surv = oc.level_up_serial(rows_c, par_c, slot_c, n_par_c)
@@ -3648,14 +3653,15 @@ def build_device(ctx, card):
         return vm, first
 
     lib_vm, lib_first = level_library()
-    if not torch.equal(torch.stack([lib_vm, lib_first], 1), oc.level_up_serial(*lu_args[:4])[0]):
+    if not torch.equal(torch.stack([lib_vm, lib_first], 1),
+                       oc.level_up_serial(rows_c, par_c, slot_c, n_par_c)[0]):
         raise AssertionError("index_add_ + scatter_reduce_ part from svo_level_up")
     del lib_vm, lib_first
     level_parents = int(oc.level_up(*lu_args, **lu_kw).count[0])
     phase_cd = {
         "svo_level_pass": lambda: oc.level_up(*lu_args, **lu_kw),
         "level_up_first_form": level_first_form,
-        "svo_level_up": lambda: oc.level_up_serial(*lu_args[:4]),
+        "svo_level_up": lambda: oc.level_up_serial(rows_c, par_c, slot_c, n_par_c),
         "svo_parent_ptr": lambda: oc.parent_ptr(svo.masks, svo.child_base),
         "level_up_library": level_library,
         "parent_ptr_library": lambda: traverse.derive_parent_ptr(svo.masks, svo.child_base)}

@@ -91,7 +91,9 @@
 //                  the head's position, its row in the level's node list is
 //                  the count of heads before it, and that count is also each
 //                  survivor's parent rank (its parent pointer less the
-//                  level's start). A block takes a tile of LTILE survivors by
+//                  level's start). A candidate's parent and slot come in
+//                  one word, parent * 8 + slot (its index among the
+//                  expansion's children), one gather a survivor. A block takes a tile of LTILE survivors by
 //                  a ticket; warp w holds LITEMS rows of 32 consecutive
 //                  entries, and one more row's first 8 lanes, the entries a
 //                  run that crosses the warp's end may reach. A run's OR is a
@@ -140,9 +142,9 @@
 // each evaluated once); svo_leaves its reads of the uncompacted records and of the
 // parents its searches visit, and the few evaluations left; the rest
 // bytes: svo_compact reads a flag and writes (1 + width) words a kept
-// row, svo_level_pass reads three words a survivor (its row, and its
-// parent and slot gathered) and writes one a survivor and three a surviving
-// parent, svo_level_up reads three words and makes two integer atomics a
+// row, svo_level_pass reads two words a survivor (its row, and its
+// parent * 8 + slot gathered) and writes one a survivor and three a
+// surviving parent, svo_level_up reads three words and makes two integer atomics a
 // survivor, svo_parent_ptr reads two words a node and writes one.
 // The design keeps every candidate array on the card: phases A and B bring
 // the block counts' total to the host once a compaction, to size its
@@ -583,7 +585,7 @@ __device__ __forceinline__ unsigned l_read(const unsigned long long* word,
 
 // One level's pass (see the file's head): `rows` the level below's
 // survivors, the first *m_dev of them (m_dev null: all m_bound) valid, in
-// order; par and slot every child candidate's parent and slot. ctl is the
+// order; code every child candidate's parent * 8 + slot. ctl is the
 // control word (the launch's epoch, high 32 bits, and the next ticket) and
 // words a status word a tile. Writes masks[rank] = the valid mask,
 // first[rank] = the first child's position in rows and below[rank] = the
@@ -594,8 +596,7 @@ __device__ __forceinline__ unsigned l_read(const unsigned long long* word,
 __global__ void __launch_bounds__(BLOCK)
     svo_level_pass_kernel(const int* __restrict__ rows, int m_bound,
                           const int* __restrict__ m_dev,
-                          const int* __restrict__ par,
-                          const int* __restrict__ slot, int root,
+                          const int* __restrict__ code, int root,
                           unsigned long long* __restrict__ ctl,
                           unsigned long long* __restrict__ words,
                           int* __restrict__ masks, int* __restrict__ first,
@@ -645,14 +646,16 @@ __global__ void __launch_bounds__(BLOCK)
     }
 #pragma unroll
     for (int k = 0; k <= LITEMS; ++k) {
-      p[k] = r[k] >= 0 ? __ldg(par + r[k]) : -1;
-      b[k] = r[k] >= 0 ? 1u << __ldg(slot + r[k]) : 0u;
+      const int c = r[k] >= 0 ? __ldg(code + r[k]) : -8;
+      p[k] = c >> 3;
+      b[k] = r[k] >= 0 ? 1u << (c & 7) : 0u;
     }
   }
   // the parent of the entry before the warp's first (lane 0 of a warp that
   // holds a valid entry)
   int p_before = -1;
-  if (lane == 0 && wbase > 0 && wbase < m) p_before = __ldg(par + __ldg(rows + wbase - 1));
+  if (lane == 0 && wbase > 0 && wbase < m)
+    p_before = __ldg(code + __ldg(rows + wbase - 1)) >> 3;
   // each entry's OR over the rest of its run within its row: a run is at
   // most RUN long, and an equal parent RUN / 2 lanes on lies in the same run
 #pragma unroll
@@ -912,14 +915,14 @@ extern "C" int svo_leaves_serial(const void* rec, int n, float fin, int scene_id
 
 // Phases C and D's pass at one level (svo_level_pass_kernel): rows (m
 // ints, m the host's bound) the level below's survivors, the first *n_rows
-// of them valid (n_rows null: all m); par, slot the level below's
-// candidates' parents and slots; root != 0 at the root's level; status
+// of them valid (n_rows null: all m); code the level below's candidates'
+// parents * 8 + slots; root != 0 at the root's level; status
 // (int64) the control word and a word for each of the ceil(m / LTILE)
 // tiles, zeroed once before a build's first pass. Outputs: masks, first and
 // below (min(m, parent candidates) ints each) at the surviving parents'
 // ranks, ranks (m ints, or null) at the valid rows, count (one int).
 extern "C" int svo_level_pass(const void* rows, int m, const void* n_rows,
-                              const void* par, const void* slot, int root,
+                              const void* code, int root,
                               void* status, void* masks, void* first,
                               void* below, void* ranks, void* count,
                               void* stream) {
@@ -928,9 +931,8 @@ extern "C" int svo_level_pass(const void* rows, int m, const void* n_rows,
   if (m == 0) return (int)cudaGetLastError();
   unsigned long long* ctl = (unsigned long long*)status;
   svo_level_pass_kernel<<<(m + LTILE - 1) / LTILE, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)rows, m, (const int*)n_rows, (const int*)par,
-      (const int*)slot, root, ctl, ctl + 1, (int*)masks, (int*)first,
-      (int*)below, (int*)ranks, (int*)count);
+      (const int*)rows, m, (const int*)n_rows, (const int*)code, root, ctl,
+      ctl + 1, (int*)masks, (int*)first, (int*)below, (int*)ranks, (int*)count);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,7 @@ Counterpart of the XLA programs of ``raytracingtest_tpu/ops/octree_device.py``
                     pass; off the build's path.
   * ``level_up``    (``svo_level_pass``): phases C and D at one level in one
                     pass over the surviving children, which are sorted by
-                    parent: each surviving parent's valid mask, first
+                    parent (each child's parent * 8 + slot one word): each surviving parent's valid mask, first
                     child's rank and candidate index at its rank, each
                     child's parent rank, and the count, left on the device.
   * ``level_up_serial`` (``svo_level_up``): the level-up's first form, each
@@ -583,8 +583,8 @@ def _level_pass_outputs(m, n_par, root, ranks, count, dev):
             torch.empty(m, dtype=_I32, device=dev) if ranks else None, count)
 
 
-def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
-                     root=False, count=None):
+def level_pass_plain(rows, code, n_par, n_rows=None, ranks=True, root=False,
+                     count=None):
     """Plain version of ``level_up``: the runs of equal parents among the
     valid rows, their heads ranked by a cumulative sum (rows past the
     count, and outputs past the parents, stay zero)."""
@@ -595,8 +595,8 @@ def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
         m_bound, n_par, root, ranks, count, dev)
     for t in (masks, first_out, below):
         t.zero_()
-    r = rows[:m].long()
-    p = par[r]
+    c_r = code[rows[:m].long()]
+    p = c_r >> 3
     head = torch.ones(m, dtype=torch.bool, device=dev)
     head[1:] = p[1:] != p[:-1]
     seg = torch.cumsum(head, 0) - 1
@@ -604,7 +604,7 @@ def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
     c = first.shape[0]
     # a (parent, slot) bit appears once: the sum is the OR
     masks[:c] = torch.zeros(c, dtype=_I32, device=dev).index_add_(
-        0, seg, (torch.ones_like(p) << slot[r]).to(_I32))
+        0, seg, (torch.ones_like(p) << (c_r & 7)).to(_I32))
     first_out[:c] = first.to(_I32)
     below[:c] = p[first]
     if rank_out is not None:
@@ -617,27 +617,26 @@ def level_pass_plain(rows, par, slot, n_par, n_rows=None, ranks=True,
     return LevelPass(masks, first_out, below, rank_out, count)
 
 
-def level_up(rows, par, slot, n_par: int, n_rows=None, ranks: bool = True,
+def level_up(rows, code, n_par: int, n_rows=None, ranks: bool = True,
              root: bool = False, status=None, count=None) -> LevelPass:
     """Phases C and D at one level: level k's surviving parents from level k
     + 1's survivors. `rows` (m,) int32 are the survivors' candidate indices
     in order (``compact``'s, or the last pass's `below`), of which the
     first `n_rows[0]` are valid ((1,) int32 on the device; None: all m);
-    `par` and `slot` every level k + 1 candidate's parent index and child
-    slot; `n_par` level k's candidates; `ranks`: write each survivor's
+    `code` every level k + 1 candidate's parent index * 8 + child slot (one
+    word, one gather); `n_par` level k's candidates; `ranks`: write each survivor's
     parent rank (where level k + 1 holds node rows); `root`: level 0, where
     the root survives with no child, (0, BIG), when nothing survives
     below. `status` is ``level_pass_status``'s (None: one made for this
     call) and `count` the (1,) int32 to write the count into (None: a new
     one). Returns a ``LevelPass``; nothing crosses to the host."""
     if rows.device.type == "cpu":
-        return level_pass_plain(rows, par, slot, n_par, n_rows, ranks, root, count)
+        return level_pass_plain(rows, code, n_par, n_rows, ranks, root, count)
     dev = rows.device
-    m, n_c = rows.shape[0], par.shape[0]
+    m, n_c = rows.shape[0], code.shape[0]
     if status is None:
         status = level_pass_status(m, dev)
-    specs = [("rows", rows, _I32, (m,)), ("par", par, _I32, (n_c,)),
-             ("slot", slot, _I32, (n_c,)),
+    specs = [("rows", rows, _I32, (m,)), ("code", code, _I32, (n_c,)),
              ("status", status, torch.int64, (status.shape[0],))]
     if n_rows is not None:
         specs.append(("n_rows", n_rows, _I32, (1,)))
@@ -653,7 +652,7 @@ def level_up(rows, par, slot, n_par: int, n_rows=None, ranks: bool = True,
     if m:
         _SVO_LEVEL_PASS(dev, rows.data_ptr(), m,
                         None if n_rows is None else n_rows.data_ptr(),
-                        par.data_ptr(), slot.data_ptr(), int(root),
+                        code.data_ptr(), int(root),
                         status.data_ptr(), masks.data_ptr(), first.data_ptr(),
                         below.data_ptr(),
                         None if rank_out is None else rank_out.data_ptr(),

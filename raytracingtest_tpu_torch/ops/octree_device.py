@@ -78,13 +78,16 @@ def _offsets(counts):
 def _expand_level(ds, records, level, depth, lipschitz, keep_full=False,
                   root_level=0, root_coord=(0, 0, 0)):
     """Expand and prune one level: (records (n, 4) of the kept children, their
-    parent indices, their child slots), parent-major; `keep_full` adds the
+    codes, parent index * 8 + child slot: each kept child's index among the
+    level's children), parent-major; `keep_full` adds the
     records of every child, kept or not (8 a parent), which the leaf test
     reads. A heightfield's h is evaluated once a column of the level first,
     over the square of columns the build rooted at `root_coord` of
     `root_level` reaches (``octree_cuda.columns``)."""
     hi, lo = keep_bounds(lipschitz, level, depth)
     n_p = records.shape[0]
+    if 8 * n_p >= 2 ** 31:
+        raise ValueError(f"level {level}: {n_p} parents, the codes are int32")
     cols = (octree_cuda.columns(ds, level, root_level, root_coord, records.device)
             if n_p else None)
     parts, full = [], []
@@ -96,7 +99,7 @@ def _expand_level(ds, records, level, depth, lipschitz, keep_full=False,
         if keep_full:
             full.append(rec)
         del rec, keep
-        parts.append((words, (rows >> 3) + c0, rows & 7))
+        parts.append((words, rows + 8 * c0 if c0 else rows))
     out = parts[0] if len(parts) == 1 else tuple(torch.cat(col) for col in zip(*parts))
     if keep_full:
         return (*out, full[0] if len(full) == 1 else torch.cat(full))
@@ -127,27 +130,26 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
 
     # ---- phase A: the downward sweep; list index k is the sub level ------
     records = torch.tensor([[*root_coord, 0]], dtype=_I32).to(device)
-    pars = [torch.zeros(1, dtype=_I32, device=device)]
-    slots = [torch.zeros(1, dtype=_I32, device=device)]
+    # codes[k]: level k's candidates' parent index * 8 + child slot
+    codes = [torch.zeros(1, dtype=_I32, device=device)]
     for k in range(1, sub_depth + 1):
         t0 = time.perf_counter()
         parents = records
-        records, par, slot, *full = _expand_level(
+        records, code, *full = _expand_level(
             ds, records, root_level + k, depth, lipschitz,
             keep_full=k == sub_depth, root_level=root_level,
             root_coord=root_coord)
-        pars.append(par)
-        slots.append(slot)
+        codes.append(code)
         if verbose:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            print(f"# build level {root_level + k}: {par.shape[0]} candidates "
+            print(f"# build level {root_level + k}: {code.shape[0]} candidates "
                   f"({time.perf_counter() - t0:.4f}s)", flush=True)
 
     # ---- phase B: the leaf test over the last expansion's values, then the
     # leaves' attributes in a dense pass over the leaves --------------------
-    survive, counts = octree_cuda.leaves(ds, records, depth, pars[-1], parents,
-                                         full[0])
+    survive, counts = octree_cuda.leaves(ds, records, depth, codes[-1] >> 3,
+                                         parents, full[0])
     base, n_leaves = _offsets(counts)
     below, leaf_rec = octree_cuda.compact(survive, base, n_leaves, records)
     leaf_attrs = octree_cuda.leaf_attrs(ds, leaf_rec, depth)
@@ -175,7 +177,7 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         n_rows = None
         for k in range(sub_depth - 1, -1, -1):
             valid[k], first[k], below, ranks[k + 1], _ = octree_cuda.level_up(
-                below, pars[k + 1], slots[k + 1], pars[k].shape[0], n_rows,
+                below, codes[k + 1], codes[k].shape[0], n_rows,
                 ranks=k + 1 < sub_depth, root=k == 0, status=status,
                 count=counts[k:k + 1])
             n_rows = counts[k:k + 1]
@@ -184,7 +186,7 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         np.cumsum(level_counts, out=level_start[1:])
         masks, child_base, leaf_base, parent_ptr = _assemble(
             valid, first, ranks, level_counts, [int(v) for v in level_start])
-    del pars, slots, below
+    del codes, below
 
     return SVO(
         masks=masks, child_base=child_base, leaf_base=leaf_base,

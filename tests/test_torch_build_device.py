@@ -165,7 +165,7 @@ def test_plain_versions_count_as_the_kernels_do():
     assert rec.tolist() == [[0b100010, 0], [0, octree_cuda.BIG], [0b10001000, 2]]
     assert surv.tolist() == [1, 0, 1]
     # the one pass: the surviving parents alone, at their ranks
-    out = octree_cuda.level_up(rows, par, slot, 3)
+    out = octree_cuda.level_up(rows, par * 8 + slot, 3)
     assert out.masks[:2].tolist() == [0b100010, 0b10001000]
     assert out.first[:2].tolist() == [0, 2]
     assert out.below[:2].tolist() == [0, 2]

@@ -85,7 +85,7 @@ def test_plain_pass_equals_the_first_forms(case, seed):
     + compact_plain's on parent-major inputs, all rows valid."""
     rows, par, slot = parent_major(seed=seed, **CASES[case])
     n_par = CASES[case]["n_par"]
-    out = octree_cuda.level_pass_plain(rows, par, slot, n_par)
+    out = octree_cuda.level_pass_plain(rows, par * 8 + slot, n_par)
     assert_pass_equal(out, *first_forms(rows, par, slot, n_par), rows.shape[0])
     assert out.masks.shape == out.first.shape == (min(rows.shape[0], n_par),)
     assert out.ranks.shape == rows.shape
@@ -99,7 +99,7 @@ def test_plain_pass_reads_only_the_valid_rows(valid):
     junk = rows.clone()
     junk[valid:] = rows.flip(0)[:rows.shape[0] - valid]  # out of order
     n_rows = torch.tensor([valid], dtype=I32)
-    out = octree_cuda.level_pass_plain(junk, par, slot, 2 * TILE, n_rows)
+    out = octree_cuda.level_pass_plain(junk, par * 8 + slot, 2 * TILE, n_rows)
     want = first_forms(rows[:valid], par, slot, 2 * TILE)
     assert_pass_equal(out, *want, valid)
     assert out.ranks.shape == junk.shape
@@ -111,10 +111,10 @@ def test_level_with_no_survivor(n_par):
     the root alone, with no child (BIG), as the first form gives it."""
     rows, par, slot = parent_major(n_par, seed=3, keep=0.0)
     assert rows.shape == (0,)
-    out = octree_cuda.level_pass_plain(rows, par, slot, n_par)
+    out = octree_cuda.level_pass_plain(rows, par * 8 + slot, n_par)
     assert out.count.tolist() == [0] and out.masks.shape == (0,)
     if n_par == 1:
-        root = octree_cuda.level_pass_plain(rows, par, slot, 1, root=True)
+        root = octree_cuda.level_pass_plain(rows, par * 8 + slot, 1, root=True)
         nodes, below, c, _ = first_forms(rows, par, slot, 1, root=True)
         assert c == 1 and root.count.tolist() == [1]
         assert nodes_of(root, 1).tolist() == nodes.tolist() == [[0, octree_cuda.BIG]]
@@ -127,8 +127,8 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     rows, par, slot = parent_major(100, seed=9)
     before = dict(octree_cuda.launches)
     count = torch.full((3,), -1, dtype=I32)
-    out = octree_cuda.level_up(rows, par, slot, 100, count=count[1:2], ranks=False)
-    want = octree_cuda.level_pass_plain(rows, par, slot, 100)
+    out = octree_cuda.level_up(rows, par * 8 + slot, 100, count=count[1:2], ranks=False)
+    want = octree_cuda.level_pass_plain(rows, par * 8 + slot, 100)
     assert out.ranks is None and count.tolist() == [-1, int(want.count[0]), -1]
     c = int(want.count[0])
     assert torch.equal(nodes_of(out, c), nodes_of(want, c))
@@ -178,7 +178,7 @@ def test_passes_assemble_the_first_forms_tree(depth, seed):
     for k in range(depth - 1, -1, -1):
         n_par = pars[k].shape[0]
         valid[k], first_k[k], below, ranks[k + 1], _ = octree_cuda.level_pass_plain(
-            below, pars[k + 1], slots[k + 1], n_par, n_rows, ranks=k + 1 < depth,
+            below, pars[k + 1] * 8 + slots[k + 1], n_par, n_rows, ranks=k + 1 < depth,
             root=k == 0, count=counts[k:k + 1])
         n_rows = counts[k:k + 1]
         ff[k], ff_below, _, _ = first_forms(ff_below, pars[k + 1], slots[k + 1], n_par,
@@ -267,12 +267,12 @@ def shifted(a, o, fill):
     return out
 
 
-def level_pass_model(rows, par, slot, m, n_par, root=False, seed=0,
+def level_pass_model(rows, code, m, n_par, root=False, seed=0,
                      block=BLOCK, items=8, run=8, look=1):
     """svo_level_pass_kernel in numpy, its tile's shape (`block` threads,
     `items` rows of 32 a warp) as parameters: (nodes, below, ranks, count)
-    of the first m rows."""
-    rows, par, slot = (np.asarray(a, np.int64) for a in (rows, par, slot))
+    of the first m rows, each candidate's parent * 8 + slot in `code`."""
+    rows, code = (np.asarray(a, np.int64) for a in (rows, code))
     tile_n, warp_n, warps = block * items, 32 * items, block // 32
     b_out = max(min(rows.shape[0], n_par), 1 if root else 0)
     nodes = np.zeros((b_out, 2), np.int64)
@@ -292,12 +292,13 @@ def level_pass_model(rows, par, slot, m, n_par, root=False, seed=0,
             e = wbase + 32 * k_rows + lane  # (items + 1, 32)
             ok = (e < m) & ((k_rows < items) | (lane < run))
             r = np.where(ok, rows[np.minimum(e, m - 1)], -1)
-            p = np.where(ok, par[np.maximum(r, 0)], -1)
-            b = np.where(ok, 1 << slot[np.maximum(r, 0)], 0)
+            c = np.where(ok, code[np.maximum(r, 0)], -8)
+            p = c >> 3
+            b = np.where(ok, 1 << (c & 7), 0)
             for o in (1, 2, 4):  # a run is at most 8
                 same = shifted(p, o, -2) == p
                 b = b | np.where(same, shifted(b, o, 0), 0)
-            p_before = par[rows[wbase - 1]] if 0 < wbase < m else -1
+            p_before = code[rows[wbase - 1]] >> 3 if 0 < wbase < m else -1
             head = np.zeros((items, 32), bool)
             for k in range(items):
                 # the next row's lane 0 continues the run that reaches the
@@ -348,8 +349,8 @@ def test_kernel_model_equals_the_plain_pass(case, shape, seed):
     n_par = MODEL_CASES[case]["n_par"]
     for m in sorted({rows.shape[0], rows.shape[0] * 2 // 3}):
         n_rows = torch.tensor([m], dtype=I32)
-        want = octree_cuda.level_pass_plain(rows, par, slot, n_par, n_rows)
-        nodes, below, ranks, count = level_pass_model(rows, par, slot, m, n_par,
+        want = octree_cuda.level_pass_plain(rows, par * 8 + slot, n_par, n_rows)
+        nodes, below, ranks, count = level_pass_model(rows, par * 8 + slot, m, n_par,
                                                       seed=seed, **SHAPES[shape])
         c = int(want.count[0])
         assert count == c
@@ -361,8 +362,8 @@ def test_kernel_model_equals_the_plain_pass(case, shape, seed):
 @pytest.mark.parametrize("root", [False, True])
 def test_kernel_model_with_nothing_below(root):
     rows, par, slot = parent_major(1, seed=4, keep=0.0)
-    nodes, below, _, count = level_pass_model(rows, par, slot, 0, 1, root=root)
-    want = octree_cuda.level_pass_plain(rows, par, slot, 1, root=root)
+    nodes, below, _, count = level_pass_model(rows, par * 8 + slot, 0, 1, root=root)
+    want = octree_cuda.level_pass_plain(rows, par * 8 + slot, 1, root=root)
     assert count == int(want.count[0])
     np.testing.assert_array_equal(nodes, nodes_of(want, 1).numpy() if root else
                                   np.zeros((0, 2), np.int64))
