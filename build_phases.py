@@ -97,7 +97,7 @@ def is_sync(name):
 def is_annotation(name):
     """The tracer mirrors the host's ranges onto the card's timeline: no
     kernel."""
-    return name in ("build", "") or name.startswith(("phase ", "ProfilerStep"))
+    return name == "build" or name.startswith(("phase ", "ProfilerStep"))
 
 
 def is_copy(name):

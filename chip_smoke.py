@@ -3127,10 +3127,10 @@ def checked_leaf_tests(log, plain=False):
         oc.leaves = leaves
 
 
-def check_level_pass(out, rows, code, n_par, n_rows=None, root=False, plain=False):
+def check_level_pass(out, rows, code, n_par, n_rows=None, plain=False):
     """One level pass's outputs `out` (octree_cuda.level_up's) held bit for
     bit against the first forms on the card on the same inputs: svo_level_up,
-    the root's survival, then svo_compact's count and place modes give the
+    then svo_compact's count and place modes give the
     surviving parents' masks, first children and indices and their count,
     and each survivor's parent rank is its parent's place among those
     indices; with `plain`, against the plain version too. Returns its row:
@@ -3140,8 +3140,6 @@ def check_level_pass(out, rows, code, n_par, n_rows=None, root=False, plain=Fals
     valid = rows[:m].contiguous()
     par, slot = code >> 3, code & 7
     rec, surv = oc.level_up_serial(valid, par, slot, n_par)
-    if root:
-        surv[0] = 1
     base, n = octree_device._offsets(oc.count(surv))
     below, nodes = oc.compact(surv, base, n, rec)
     c = int(out.count[0])
@@ -3155,8 +3153,7 @@ def check_level_pass(out, rows, code, n_par, n_rows=None, root=False, plain=Fals
             raise AssertionError(f"svo_level_pass's parent ranks part from the first "
                                  f"forms' ({what})")
     if plain:
-        ref = oc.level_pass_plain(rows, code, n_par, n_rows,
-                                  out.ranks is not None, root)
+        ref = oc.level_pass_plain(rows, code, n_par, n_rows, out.ranks is not None)
         if not (torch.equal(ref.count, out.count) and torch.equal(ref.masks[:c], out.masks[:c])
                 and torch.equal(ref.first[:c], out.first[:c])
                 and torch.equal(ref.below[:c], out.below[:c])
@@ -3179,8 +3176,7 @@ def checked_level_passes(log, plain=False):
 
     def checking(rows, code, n_par, n_rows=None, **kw):
         out = level_up(rows, code, n_par, n_rows, **kw)
-        passes.append(check_level_pass(out, rows, code, n_par, n_rows,
-                                       kw.get("root", False), plain))
+        passes.append(check_level_pass(out, rows, code, n_par, n_rows, plain))
         return out
 
     def building(*a, **kw):
@@ -3258,9 +3254,9 @@ def build_parity(calls, ds, depth, svo):
         raise AssertionError("svo_leaf_attrs: the build's call parts from its plain version")
     _, args, kw = calls["level_up"]
     got = oc.level_up(*args, **kw)
-    check_level_pass(got, *args, root=kw["root"])
-    want, plain_ms["svo_level_pass"] = timed_plain(
-        oc.level_pass_plain, *args, ranks=kw["ranks"], root=kw["root"])
+    check_level_pass(got, *args)
+    want, plain_ms["svo_level_pass"] = timed_plain(oc.level_pass_plain, *args,
+                                                   ranks=kw["ranks"])
     c = int(got.count[0])
     exact("svo_level_pass", [t for t in (got.count, got.masks[:c], got.first[:c],
                                          got.below[:c], got.ranks) if t is not None],
@@ -3696,15 +3692,18 @@ def build_device(ctx, card):
     serial_rows = traced_kernels(lambda: oc.leaves_serial(*leaf_args[:3]), 3)
     serial_us = sum(dev_us(e) for e in serial_rows
                     if BUILD_PROFILED["svo_leaves_serial"][0] in e.key) / 3
-    # phases C and D's variants alone: every kernel of one call, its device us
+    # phases C and D's variants alone: every kernel of a call, its device us
+    # (torch.profiler over three calls), and its launches
     cd_us = {}
     for k, fn in phase_cd.items():
-        ks = launches_of(fn)
-        cd_us[k] = dict(us=sum(us for _, us in ks), launches=len(ks))
+        row = path_profile(fn)
+        if row is None:
+            raise AssertionError(f"the profiler saw no kernel of {k}")
+        cd_us[k] = dict(us=row["us"], launches=row["n"])
     say(f"[build-device] {card}: phases C and D at level 9's call ({rows_c.shape[0]} "
         f"survivors, {n_par_c} parent candidates, {level_parents} surviving parents), "
         "ms in turns, us alone (its kernels' device us in one call, launches): " + ", ".join(
-            f"{k} {ms_:.4f}, {cd_us[k]['us']:.1f} ({cd_us[k]['launches']})"
+            f"{k} {ms_:.4f}, {cd_us[k]['us']:.1f} ({cd_us[k]['launches']:g})"
             for k, ms_ in ((k, med_p80(turns[k])[0]) for k in phase_cd))
         + " (level_up_first_form: svo_level_up with its fills, svo_compact's count, "
         "torch.cumsum, the host read and the place pass; level_up_library: "

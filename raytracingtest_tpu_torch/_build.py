@@ -271,7 +271,7 @@ def _declare_svo(lib):
     lib.svo_leaves.argtypes = [p, i, p, p, i, p, f, i, i] + tables + [p, p, p, p, p]
     lib.svo_leaf_attrs.argtypes = [p, i, f, i] + tables + [p, p]
     lib.svo_leaves_serial.argtypes = [p, i, f, i] + tables + [p, p, p, p]
-    lib.svo_level_pass.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p]
+    lib.svo_level_pass.argtypes = [p, i, p, p, p, p, p, p, p, p, p]
     lib.svo_level_up.argtypes = [p, i, p, p, p, p, p]
     lib.svo_parent_ptr.argtypes = [p, p, i, p, p]
     lib.scene_eval.argtypes = [p, p, p, i, i] + tables + [p, p]

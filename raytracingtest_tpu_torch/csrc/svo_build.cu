@@ -93,8 +93,9 @@
 //                  survivor's parent rank (its parent pointer less the
 //                  level's start). A candidate's parent and slot come in
 //                  one word, parent * 8 + slot (its index among the
-//                  expansion's children), one gather a survivor. A block takes a tile of LTILE survivors by
-//                  a ticket; warp w holds LITEMS rows of 32 consecutive
+//                  expansion's children), one gather a survivor. A block
+//                  takes a tile of LTILE survivors by a ticket; warp w
+//                  holds LITEMS rows of 32 consecutive
 //                  entries, and one more row's first 8 lanes, the entries a
 //                  run that crosses the warp's end may reach. A run's OR is a
 //                  segmented suffix OR within a row (shuffles 1, 2, 4: a run
@@ -113,8 +114,8 @@
 //                  the counts once a build. Threads past the count on the
 //                  device (the grid comes from a bound the host holds)
 //                  return.
-//   svo_level_up   the first form of phase C's level-up (PR 14's kernel,
-//                  its code kept), on no build's path: a thread per
+//   svo_level_up   the first form of phase C's level-up (the first
+//                  kernel, its code kept), on no build's path: a thread per
 //                  surviving child (svo_compact's rows). It ORs 1 << slot
 //                  into its parent's valid mask and takes the minimum of its
 //                  rank for the parent's first child, and marks the parent
@@ -123,7 +124,7 @@
 //                  order: a (parent, slot) bit appears once, and the minimum
 //                  rank is the first child because candidates are
 //                  parent-major.
-//   svo_parent_ptr the first form of phase D (PR 14's kernel), on no
+//   svo_parent_ptr the first form of phase D (the first kernel), on no
 //                  build's path: a thread per node; a node with non-leaf
 //                  children writes its own row into the rows child_base ..
 //                  child_base + popc(valid & ~leaf) - 1. Every non-root row
@@ -560,8 +561,6 @@ __global__ void __launch_bounds__(BLOCK)
 constexpr int LITEMS = 8, LWARP = 32 * LITEMS, LTILE = BLOCK * LITEMS;
 // a run's length: a parent's children
 constexpr int RUN = 8;
-// "no child": the root's first child when nothing survives
-constexpr int NO_CHILD = 0x7fffffff;
 // a tile's status word: (epoch << 2 | flag) << 32 | value, the epoch's low
 // 30 bits; flag 0 (or an earlier epoch): not published yet
 constexpr unsigned L_AGGREGATE = 1, L_PREFIX = 2, L_EPOCH_MASK = 0x3fffffffu;
@@ -591,12 +590,11 @@ __device__ __forceinline__ unsigned l_read(const unsigned long long* word,
 // first[rank] = the first child's position in rows and below[rank] = the
 // parent's candidate index for each surviving parent, ranks[pos] = each
 // survivor's parent's rank (ranks null: not wanted), *count the surviving
-// parents; `root`: where nothing survives, the root alone, mask 0 and first
-// NO_CHILD.
+// parents.
 __global__ void __launch_bounds__(BLOCK)
     svo_level_pass_kernel(const int* __restrict__ rows, int m_bound,
                           const int* __restrict__ m_dev,
-                          const int* __restrict__ code, int root,
+                          const int* __restrict__ code,
                           unsigned long long* __restrict__ ctl,
                           unsigned long long* __restrict__ words,
                           int* __restrict__ masks, int* __restrict__ first,
@@ -619,15 +617,8 @@ __global__ void __launch_bounds__(BLOCK)
   __syncthreads();
   const int tile = tile_s;
   const unsigned epoch = epoch_s;
-  if (m <= 0) {  // nothing survives below: no parent, or the root alone
-    if (tile == 0 && threadIdx.x == 0) {
-      if (root) {
-        masks[0] = 0;
-        first[0] = NO_CHILD;
-        below[0] = 0;
-      }
-      *count = root ? 1 : 0;
-    }
+  if (m <= 0) {  // nothing survives below: no parent
+    if (tile == 0 && threadIdx.x == 0) *count = 0;
     return;
   }
   if ((long long)tile * LTILE >= m) return;  // past the count on the device
@@ -916,22 +907,21 @@ extern "C" int svo_leaves_serial(const void* rec, int n, float fin, int scene_id
 // Phases C and D's pass at one level (svo_level_pass_kernel): rows (m
 // ints, m the host's bound) the level below's survivors, the first *n_rows
 // of them valid (n_rows null: all m); code the level below's candidates'
-// parents * 8 + slots; root != 0 at the root's level; status
-// (int64) the control word and a word for each of the ceil(m / LTILE)
-// tiles, zeroed once before a build's first pass. Outputs: masks, first and
-// below (min(m, parent candidates) ints each) at the surviving parents'
-// ranks, ranks (m ints, or null) at the valid rows, count (one int).
+// parents * 8 + slots; status (int64) the control word and a word for each
+// of the ceil(m / LTILE) tiles, zeroed once before a build's first pass.
+// Outputs: masks, first and below (min(m, parent candidates) ints each) at
+// the surviving parents' ranks, ranks (m ints, or null) at the valid rows,
+// count (one int).
 extern "C" int svo_level_pass(const void* rows, int m, const void* n_rows,
-                              const void* code, int root,
-                              void* status, void* masks, void* first,
-                              void* below, void* ranks, void* count,
-                              void* stream) {
+                              const void* code, void* status, void* masks,
+                              void* first, void* below, void* ranks,
+                              void* count, void* stream) {
   if (m < 0 || m > 0x7fffffff - 2 * LTILE || status == nullptr || count == nullptr)
     return (int)cudaErrorInvalidValue;
   if (m == 0) return (int)cudaGetLastError();
   unsigned long long* ctl = (unsigned long long*)status;
   svo_level_pass_kernel<<<(m + LTILE - 1) / LTILE, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)rows, m, (const int*)n_rows, (const int*)code, root, ctl,
+      (const int*)rows, m, (const int*)n_rows, (const int*)code, ctl,
       ctl + 1, (int*)masks, (int*)first, (int*)below, (int*)ranks, (int*)count);
   return (int)cudaGetLastError();
 }

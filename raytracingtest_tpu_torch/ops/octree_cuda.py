@@ -572,10 +572,10 @@ def level_pass_status(n: int, device):
                        device=device)
 
 
-def _level_pass_outputs(m, n_par, root, ranks, count, dev):
+def _level_pass_outputs(m, n_par, ranks, count, dev):
     """(masks, first, below, ranks or None, count): the first three rows of
     one allocation."""
-    b = max(min(m, n_par), 1 if root else 0)
+    b = min(m, n_par)
     if count is None:
         count = torch.empty(1, dtype=_I32, device=dev)
     planes = torch.empty((3, b), dtype=_I32, device=dev)
@@ -583,8 +583,7 @@ def _level_pass_outputs(m, n_par, root, ranks, count, dev):
             torch.empty(m, dtype=_I32, device=dev) if ranks else None, count)
 
 
-def level_pass_plain(rows, code, n_par, n_rows=None, ranks=True, root=False,
-                     count=None):
+def level_pass_plain(rows, code, n_par, n_rows=None, ranks=True, count=None):
     """Plain version of ``level_up``: the runs of equal parents among the
     valid rows, their heads ranked by a cumulative sum (rows past the
     count, and outputs past the parents, stay zero)."""
@@ -592,7 +591,7 @@ def level_pass_plain(rows, code, n_par, n_rows=None, ranks=True, root=False,
     m_bound = rows.shape[0]
     m = m_bound if n_rows is None else min(int(n_rows[0]), m_bound)
     masks, first_out, below, rank_out, count = _level_pass_outputs(
-        m_bound, n_par, root, ranks, count, dev)
+        m_bound, n_par, ranks, count, dev)
     for t in (masks, first_out, below):
         t.zero_()
     c_r = code[rows[:m].long()]
@@ -610,28 +609,26 @@ def level_pass_plain(rows, code, n_par, n_rows=None, ranks=True, root=False,
     if rank_out is not None:
         rank_out.zero_()
         rank_out[:m] = seg.to(_I32)
-    if root and c == 0:  # nothing survives: the root alone, with no child
-        first_out[0] = BIG
-        c = 1
     count.fill_(c)
     return LevelPass(masks, first_out, below, rank_out, count)
 
 
 def level_up(rows, code, n_par: int, n_rows=None, ranks: bool = True,
-             root: bool = False, status=None, count=None) -> LevelPass:
+             status=None, count=None) -> LevelPass:
     """Phases C and D at one level: level k's surviving parents from level k
     + 1's survivors. `rows` (m,) int32 are the survivors' candidate indices
     in order (``compact``'s, or the last pass's `below`), of which the
     first `n_rows[0]` are valid ((1,) int32 on the device; None: all m);
     `code` every level k + 1 candidate's parent index * 8 + child slot (one
-    word, one gather); `n_par` level k's candidates; `ranks`: write each survivor's
-    parent rank (where level k + 1 holds node rows); `root`: level 0, where
-    the root survives with no child, (0, BIG), when nothing survives
-    below. `status` is ``level_pass_status``'s (None: one made for this
-    call) and `count` the (1,) int32 to write the count into (None: a new
-    one). Returns a ``LevelPass``; nothing crosses to the host."""
+    word, one gather); `n_par` level k's candidates; `ranks`: write each
+    survivor's parent rank (where level k + 1 holds node rows). `status` is
+    ``level_pass_status``'s (None: one made for this call) and `count` the
+    (1,) int32 to write the count into (None: a new one). Returns a
+    ``LevelPass``; nothing crosses to the host. Where nothing survives
+    below, no parent survives: the build makes an empty world's root
+    itself."""
     if rows.device.type == "cpu":
-        return level_pass_plain(rows, code, n_par, n_rows, ranks, root, count)
+        return level_pass_plain(rows, code, n_par, n_rows, ranks, count)
     dev = rows.device
     m, n_c = rows.shape[0], code.shape[0]
     if status is None:
@@ -648,22 +645,17 @@ def level_up(rows, code, n_par: int, n_rows=None, ranks: bool = True,
         raise ValueError(f"svo_level_pass: {status.shape[0]} status words for "
                          f"{m} rows")
     masks, first, below, rank_out, count = _level_pass_outputs(
-        m, n_par, root, ranks, count, dev)
+        m, n_par, ranks, count, dev)
     if m:
         _SVO_LEVEL_PASS(dev, rows.data_ptr(), m,
                         None if n_rows is None else n_rows.data_ptr(),
-                        code.data_ptr(), int(root),
-                        status.data_ptr(), masks.data_ptr(), first.data_ptr(),
+                        code.data_ptr(), status.data_ptr(), masks.data_ptr(), first.data_ptr(),
                         below.data_ptr(),
                         None if rank_out is None else rank_out.data_ptr(),
                         count.data_ptr())
         launches["svo_level_pass"] += 1
     else:  # nothing below, known on the host: no launch
-        count.fill_(1 if root else 0)
-        if root:
-            masks.zero_()
-            below.zero_()
-            first.fill_(BIG)
+        count.zero_()
     return LevelPass(masks, first, below, rank_out, count)
 
 

@@ -160,10 +160,11 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
     # its first n_rows valid) and writes level k's surviving parents' valid
     # masks and first children (the rank of the first surviving child at
     # level k + 1), the next pass's rows and each level k + 1 survivor's
-    # parent rank (ranks[k + 1], where level k + 1 holds node rows). Each grid is sized from a bound the host
-    # holds: n_leaves at the last level, then the smaller of that and the
-    # level's candidates; the counts cross to the host once, after the last
-    # level.
+    # parent rank (ranks[k + 1], where level k + 1 holds node rows). Each
+    # grid is sized from a bound the host holds: n_leaves at the last level,
+    # then the smaller of that and the level's candidates; the counts cross
+    # to the host once, after the last level. A leaf below makes every level
+    # hold a node, the root among them.
     if n_leaves == 0:  # an empty world: the root alone, with no child
         masks, child_base, leaf_base, parent_ptr = torch.zeros(
             (4, 1), dtype=_I32, device=device).unbind()
@@ -178,8 +179,7 @@ def build_svo_device(scene, depth: int, verbose: bool = False,
         for k in range(sub_depth - 1, -1, -1):
             valid[k], first[k], below, ranks[k + 1], _ = octree_cuda.level_up(
                 below, codes[k + 1], codes[k].shape[0], n_rows,
-                ranks=k + 1 < sub_depth, root=k == 0, status=status,
-                count=counts[k:k + 1])
+                ranks=k + 1 < sub_depth, status=status, count=counts[k:k + 1])
             n_rows = counts[k:k + 1]
         level_counts = counts.tolist()
         level_start = np.zeros(sub_depth + 1, np.int64)

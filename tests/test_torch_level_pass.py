@@ -40,10 +40,10 @@ def parent_major(n_par, seed, runs=(1, 8), keep=0.6, empty=0.2):
 
 
 def first_forms(rows, par, slot, n_par, root=False):
-    """The first forms' plain versions: level_up_plain, the root's survival,
-    compact_plain of the flags: (nodes, below, count) of the surviving
-    parents, and each survivor's parent rank (its parent's place among
-    them)."""
+    """The first forms' plain versions: level_up_plain, the root's survival
+    (as the build before the pass had it), compact_plain of the flags:
+    (nodes, below, count) of the surviving parents, and each survivor's
+    parent rank (its parent's place among them)."""
     rec, surv = octree_cuda.level_up_plain(rows, par, slot, n_par)
     if root:
         surv[0] = 1
@@ -107,18 +107,16 @@ def test_plain_pass_reads_only_the_valid_rows(valid):
 
 @pytest.mark.parametrize("n_par", [1, 5])
 def test_level_with_no_survivor(n_par):
-    """No survivor below: no parent, count 0; at the root (one candidate)
-    the root alone, with no child (BIG), as the first form gives it."""
+    """No survivor below: no parent, count 0, as the first forms give it
+    (the root's one candidate too: an empty world's root row, (0, BIG) in
+    the first form, is the build's to make, test_empty_world_keeps_a_root)."""
     rows, par, slot = parent_major(n_par, seed=3, keep=0.0)
     assert rows.shape == (0,)
     out = octree_cuda.level_pass_plain(rows, par * 8 + slot, n_par)
     assert out.count.tolist() == [0] and out.masks.shape == (0,)
-    if n_par == 1:
-        root = octree_cuda.level_pass_plain(rows, par * 8 + slot, 1, root=True)
-        nodes, below, c, _ = first_forms(rows, par, slot, 1, root=True)
-        assert c == 1 and root.count.tolist() == [1]
-        assert nodes_of(root, 1).tolist() == nodes.tolist() == [[0, octree_cuda.BIG]]
-        assert root.below.tolist() == below.tolist() == [0]
+    assert first_forms(rows, par, slot, n_par)[2] == 0
+    nodes, below, c, _ = first_forms(rows, par, slot, 1, root=True)
+    assert c == 1 and nodes.tolist() == [[0, octree_cuda.BIG]] and below.tolist() == [0]
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
@@ -179,7 +177,7 @@ def test_passes_assemble_the_first_forms_tree(depth, seed):
         n_par = pars[k].shape[0]
         valid[k], first_k[k], below, ranks[k + 1], _ = octree_cuda.level_pass_plain(
             below, pars[k + 1] * 8 + slots[k + 1], n_par, n_rows, ranks=k + 1 < depth,
-            root=k == 0, count=counts[k:k + 1])
+            count=counts[k:k + 1])
         n_rows = counts[k:k + 1]
         ff[k], ff_below, _, _ = first_forms(ff_below, pars[k + 1], slots[k + 1], n_par,
                                             root=k == 0)
@@ -267,21 +265,19 @@ def shifted(a, o, fill):
     return out
 
 
-def level_pass_model(rows, code, m, n_par, root=False, seed=0,
-                     block=BLOCK, items=8, run=8, look=1):
+def level_pass_model(rows, code, m, n_par, seed=0, block=BLOCK, items=8, run=8,
+                     look=1):
     """svo_level_pass_kernel in numpy, its tile's shape (`block` threads,
     `items` rows of 32 a warp) as parameters: (nodes, below, ranks, count)
     of the first m rows, each candidate's parent * 8 + slot in `code`."""
     rows, code = (np.asarray(a, np.int64) for a in (rows, code))
     tile_n, warp_n, warps = block * items, 32 * items, block // 32
-    b_out = max(min(rows.shape[0], n_par), 1 if root else 0)
+    b_out = min(rows.shape[0], n_par)
     nodes = np.zeros((b_out, 2), np.int64)
     below = np.zeros(b_out, np.int64)
     ranks = np.zeros(rows.shape[0], np.int64)
-    if m == 0:
-        if root:
-            nodes[0] = (0, octree_cuda.BIG)
-        return nodes, below, ranks, 1 if root else 0
+    if m == 0:  # tile 0 writes the count
+        return nodes, below, ranks, 0
     tiles = -(-m // tile_n)
     lane = np.arange(32)
     k_rows = np.arange(items + 1)[:, None]
@@ -359,14 +355,14 @@ def test_kernel_model_equals_the_plain_pass(case, shape, seed):
         np.testing.assert_array_equal(ranks[:m], want.ranks[:m].numpy())
 
 
-@pytest.mark.parametrize("root", [False, True])
-def test_kernel_model_with_nothing_below(root):
-    rows, par, slot = parent_major(1, seed=4, keep=0.0)
-    nodes, below, _, count = level_pass_model(rows, par * 8 + slot, 0, 1, root=root)
-    want = octree_cuda.level_pass_plain(rows, par * 8 + slot, 1, root=root)
-    assert count == int(want.count[0])
-    np.testing.assert_array_equal(nodes, nodes_of(want, 1).numpy() if root else
-                                  np.zeros((0, 2), np.int64))
+@pytest.mark.parametrize("n_par", [1, 5])
+def test_kernel_model_with_nothing_valid(n_par):
+    """A bound above a count of 0 on the device: no parent, count 0."""
+    rows, par, slot = parent_major(n_par, seed=4, keep=1.0, empty=0.0)
+    n_rows = torch.zeros(1, dtype=I32)
+    nodes, below, _, count = level_pass_model(rows, par * 8 + slot, 0, n_par)
+    want = octree_cuda.level_pass_plain(rows, par * 8 + slot, n_par, n_rows)
+    assert count == int(want.count[0]) == 0
 
 
 def test_model_shape_is_the_sources():
