@@ -4050,28 +4050,33 @@ def level_work(mode, tb, args, counts):
     return bound(n_bytes, n_ops)
 
 
-def launches_of(fn):
+def launches_of(fn, attempts=3):
     """(kernel name, device us) of each launch of one fn() call in launch
     order, from torch.profiler's events. The tracer drops launches made
     while it starts, so it sees two calls, a spin kernel between them, and
-    the second call's launches are kept."""
+    the second call's launches are kept. Now and then it loses a whole
+    window, the spin kernel with it: that window is traced again, up to
+    `attempts` windows, each retry said."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(20000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    spins = [k for k, e in enumerate(events) if "spin_kernel" in e.name]
-    if not spins:
-        raise AssertionError("launches_of: the tracer dropped its marker")
-    return [(e.name, e.time_range.elapsed_us()) for e in events[spins[-1] + 1:]]
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        spins = [k for k, e in enumerate(events) if "spin_kernel" in e.name]
+        if spins:
+            return [(e.name, e.time_range.elapsed_us()) for e in events[spins[-1] + 1:]]
+        say(f"[trace] launches_of: the tracer dropped its marker ({len(events)} events "
+            f"seen), window {attempt + 1} of {attempts}")
+    raise AssertionError("launches_of: the tracer dropped its marker")
 
 
 def path_profile(fn, key=None):
