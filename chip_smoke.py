@@ -3694,16 +3694,22 @@ def build_device(ctx, card):
                     if BUILD_PROFILED["svo_leaves_serial"][0] in e.key) / 3
     # phases C and D's variants alone: every kernel of a call, its device us
     # (torch.profiler over three calls), and its launches
+    # (a variant whose kernels the tracer still lost is not measured: the
+    # wrappers raise a launch's errors, and its time in turns stands)
     cd_us = {}
     for k, fn in phase_cd.items():
         row = path_profile(fn)
         if row is None:
-            raise AssertionError(f"the profiler saw no kernel of {k}")
-        cd_us[k] = dict(us=row["us"], launches=row["n"])
+            say(f"[build-device] the profiler saw no kernel of {k} in 3, 12 or 48 "
+                "calls; not measured")
+        cd_us[k] = dict(us=None if row is None else row["us"],
+                        launches=None if row is None else row["n"])
+    alone = lambda r: ("not measured" if r["us"] is None
+                       else f"{r['us']:.1f} ({r['launches']:g})")
     say(f"[build-device] {card}: phases C and D at level 9's call ({rows_c.shape[0]} "
         f"survivors, {n_par_c} parent candidates, {level_parents} surviving parents), "
         "ms in turns, us alone (its kernels' device us in one call, launches): " + ", ".join(
-            f"{k} {ms_:.4f}, {cd_us[k]['us']:.1f} ({cd_us[k]['launches']:g})"
+            f"{k} {ms_:.4f}, {alone(cd_us[k])}"
             for k, ms_ in ((k, med_p80(turns[k])[0]) for k in phase_cd))
         + " (level_up_first_form: svo_level_up with its fills, svo_compact's count, "
         "torch.cumsum, the host read and the place pass; level_up_library: "
@@ -4050,7 +4056,7 @@ def level_work(mode, tb, args, counts):
     return bound(n_bytes, n_ops)
 
 
-def launches_of(fn, attempts=3):
+def launches_of(fn, attempts=5):
     """(kernel name, device us) of each launch of one fn() call in launch
     order, from torch.profiler's events. The tracer drops launches made
     while it starts, so it sees two calls, a spin kernel between them, and
@@ -4081,17 +4087,22 @@ def launches_of(fn, attempts=3):
 
 def path_profile(fn, key=None):
     """(device us a call in every kernel, launches a call; the same for the
-    kernels whose names hold `key`) over three calls, from torch.profiler,
-    None where it saw no kernel."""
-    rows = traced_kernels(fn, 3)
-    total = sum(dev_us(e) for e in rows) / 3
-    n = sum(e.count for e in rows) / 3
-    if total <= 0.0:
+    kernels whose names hold `key`) over three calls, from torch.profiler.
+    Now and then the tracer loses a whole window: a pass in which it saw no
+    kernel is repeated over 12 and then 48 calls, and None is returned where
+    it still saw none."""
+    for runs in (3, 12, 48):
+        rows = traced_kernels(fn, runs)
+        total = sum(dev_us(e) for e in rows) / runs
+        if total > 0.0:
+            break
+    else:
         return None
     mine = [e for e in rows if key and key in e.key]
-    return dict(us=total, n=n, key_us=sum(dev_us(e) for e in mine) / 3,
-                key_n=sum(e.count for e in mine) / 3,
-                by={e.key: dev_us(e) / 3 for e in rows})
+    return dict(us=total, n=sum(e.count for e in rows) / runs,
+                key_us=sum(dev_us(e) for e in mine) / runs,
+                key_n=sum(e.count for e in mine) / runs,
+                by={e.key: dev_us(e) / runs for e in rows})
 
 
 def sharded_phase(ctx, card):
