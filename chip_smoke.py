@@ -63,12 +63,21 @@ ray's k slots staged in its warp's shared memory and written out when the
 warp's walks end, in blocks of 32; the main path's up to
 `brick_cuda.STAGED_MAX_K`) and a first form (one thread a ray in blocks of
 128, each segment written as found; the main path's above it). The
-stackless trace has its first form alone. The first form off the brick
-trace's main path is launched once in `[probes]` and timed in turns against
-it, at k = 4 and, in `[timing-k]`, at larger k. Every form, and every probe
+stackless trace has a patched form (the main path's: warps of 8 x 4 pixel
+patches where the rays are an image, one 16-byte node row read where the
+node changes) and its first form. The first forms off the main paths are
+launched once in `[probes]` and timed in turns against them, the brick
+trace's also at larger k in `[timing-k]`. Every form, and every probe
 form, is held bitwise against the plain versions on the frame, on small
 cases at k = 1, 4, 7 and at the k where the rule changes, on a ragged ray
 count; `[warps]` reads every probe form on the frame.
+`[stackless-forms]` holds the three stackless traces' patched forms
+(`esvo_stackless`, `esvo_stackless_lod`, `esvo_stackless_multi`; the first
+forms are their `_serial` entries) bitwise against their first forms and
+plain versions on two ragged images at every block it sweeps, and on the
+frame times, in turns and alone, and probes the two changes alone and
+together: the first form on the rays taken in the patch order, the patched
+form on the rays in their order and with the image's width.
 `[frame-lod]` renders the frame as `cli render --lod-coef` does at depth 10
 (node attributes on the host, `brick_trace_lod`, `lod.shade_lod`) and through
 `lod.render_lod` (`esvo_stackless_lod`) at four footprint coefficients: the
@@ -268,8 +277,11 @@ BRICK_COUNTS = (brick_cuda.launches, brick_cuda.form_launches,
                 brick_cuda.probe_launches)
 # the threads of brick_trace_multi's staged form's blocks
 STAGED_BLOCK = brick_cuda.BLOCKS[("brick_trace_multi", "staged")]
-# brick_trace.cu's kernels other than the staged k-segment forms and the
-# probe forms, at their registers as ptxas gave them before the staged form
+# brick_trace.cu's kernels other than the staged k-segment forms, the
+# stackless traces' patched forms and the probe forms, at their registers as
+# ptxas gave them before the staged form (the stackless traces' first forms,
+# esvo_stackless_kernel<false>, esvo_stackless_lod_kernel and
+# esvo_stackless_multi_kernel, among them)
 EARLIER_REGS = {
     "brick_trace_kernel<false, false, 256>": 59, "brick_trace_kernel<true, false, 256>": 63,
     "brick_trace_kernel<false, false, 128>": 56, "esvo_stackless_kernel<false>": 45,
@@ -278,21 +290,28 @@ EARLIER_REGS = {
     "clipmap_trace_kernel<false>": 61, "clipmap_trace_kernel<true>": 64}
 # the k-segment traces' kernels as torch.profiler names them: the brick
 # trace's staged form (its main path's), its first form, and the stackless
-# trace's one form
+# trace's patched form (its main path's) and first form
 MULTI_KERNELS = {
     "brick_trace_multi": "brick_trace_multi_staged_kernel<false>",
     "brick_trace_multi_serial": "brick_trace_multi_kernel<false>",
-    "esvo_stackless_multi": "esvo_stackless_multi_kernel"}
+    "esvo_stackless_multi": "esvo_stackless_multi_patched_kernel<false>",
+    "esvo_stackless_multi_serial": "esvo_stackless_multi_kernel"}
 # each form's kernel, as torch.profiler names it, and the main path's form
 FORM_KERNELS = {
     ("brick_trace", "wide"): "brick_trace_kernel<true, false, 256>",
     ("brick_trace", "first"): "brick_trace_kernel<false, false, 128>",
     ("brick_trace", "unstaged"): "brick_trace_kernel<false, false, 256>",
+    ("esvo_stackless", "patched"): "esvo_stackless_patched_kernel<false, false>",
     ("esvo_stackless", "first"): "esvo_stackless_kernel<false>",
 }
-MAIN_FORM = {"brick_trace": "wide", "esvo_stackless": "first"}
+# the LOD stackless trace's forms' kernels (esvo_stackless's forms)
+LOD_KERNELS = {"patched": "esvo_stackless_patched_kernel<false, true>",
+               "first": "esvo_stackless_lod_kernel"}
+MAIN_FORM = {"brick_trace": "wide", "esvo_stackless": "patched"}
 # the err key of a trace_forms entry
 FORM_ERR = {"main": "", "first": "_serial", "unstaged": "_unstaged"}
+# the stackless traces' patched form's blocks that [stackless-forms] sweeps
+PATCH_BLOCKS = (64, 128, 256)
 
 
 def say(*parts):
@@ -489,13 +508,22 @@ def check_composite(seg, d, pset, light, what):
     return e
 
 
-def multi_forms(kname, tree, o, d, k):
+def multi_forms(kname, tree, o, d, k, width=None):
     """form -> (MultiTraceResult, stats) of one k-segment trace on these
-    rays: through the main path's wrapper ("main"), the brick trace also in
-    its first form, and every form the rule gives k in its probe form."""
+    rays: through the main path's wrapper ("main"), also in its first form,
+    and every form the rule gives k in its probe form; the stackless trace's
+    patched form also without `width` (the rays' image width, or None)."""
     if kname == "esvo_stackless_multi":
-        return {"main": brick_cuda._stackless_multi_kernel(tree, o, d, k, True),
-                "first probe": brick_cuda.probe_stackless_multi_cuda(tree, o, d, k)[:2]}
+        out = {"main": brick_cuda._stackless_multi_kernel(tree, o, d, k, True, width),
+               "first": brick_cuda._stackless_multi_kernel(tree, o, d, k, True,
+                                                           form="first"),
+               "first probe": brick_cuda.probe_stackless_multi_cuda(tree, o, d, k)[:2],
+               "patched probe": brick_cuda.probe_stackless_multi_cuda(
+                   tree, o, d, k, "patched", width)[:2]}
+        if width is not None:
+            out["patched, rays in order"] = brick_cuda._stackless_multi_kernel(
+                tree, o, d, k, True)
+        return out
     out = {"main": brick_cuda._brick_multi_kernel(tree, o, d, k, True),
            "first": brick_cuda._brick_multi_serial_kernel(tree, o, d, k, True)}
     for form in brick_cuda.FORMS[kname]:
@@ -516,10 +544,10 @@ MULTI_TIMING_KS = (16, 54, 118, 300, 594)
 MULTI_PARTING, MULTI_UNFINISHED = 15, {"brick_trace_multi": 0, "esvo_stackless_multi": 463}
 
 
-def check_multi_forms(kname, tree, o, d, k, plain, err, what):
+def check_multi_forms(kname, tree, o, d, k, plain, err, what, width=None):
     """Every form of one k-segment trace bitwise against its plain version
     (a (MultiTraceResult, stats) pair); returns the main path's result."""
-    forms = multi_forms(kname, tree, o, d, k)
+    forms = multi_forms(kname, tree, o, d, k, width)
     torch.cuda.synchronize()
     for form, got in forms.items():
         e = multi_compare(got, plain, f"{kname} {form}, {what}")
@@ -584,7 +612,8 @@ def volumetric_parity(dev, cam, light, err):
                 what = f"{name} d{depth} {kind} rays N={o.shape[0]} k={k}"
                 ps = traverse.trace_multi(svo_s, o, d, k, True)
                 pb = brick.trace_brick_multi(bsvo_s, o, d, k, True)
-                ks = check_multi_forms("esvo_stackless_multi", svo_s, o, d, k, ps, err, what)
+                ks = check_multi_forms("esvo_stackless_multi", svo_s, o, d, k, ps, err,
+                                       what, cam.width if kind == "camera" else None)
                 kb = check_multi_forms("brick_trace_multi", bsvo_s, o, d, k, pb, err, what)
                 if pset is not None:
                     for seg in (ks[0], kb[0]):
@@ -598,7 +627,8 @@ def volumetric_parity(dev, cam, light, err):
                              f"{int(apart.sum())} apart")
         lines.append(f"{name} d{depth}: " + ", ".join(found))
     say(f"[parity] esvo_stackless_multi and brick_trace_multi (through their "
-        f"launchers, the brick trace also in its first form, and in every "
+        f"launchers, each also in its first form, the stackless trace's "
+        f"patched form with the camera's width and without, and in every "
         f"probe form) == "
         f"traverse.trace_multi and brick.trace_brick_multi bitwise "
         f"(hit_leaf, t_in and t_out bits, count, iters, statistics) on {n_cases} "
@@ -685,14 +715,14 @@ def serving(ctx, card):
         dict(brick_trace_multi=1, composite_fwd=1))
     vol_flat, vol_flat_launches = expect_launches(
         "diff.render_volumetric (stackless route)", lambda: diff.render_volumetric(
-            *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE),
+            *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE, width=res),
         dict(esvo_stackless_multi=1, composite_fwd=1))
     for what, img_v in (("brick route", vol_img.reshape(-1, 3)), ("stackless route", vol_flat)):
         if img_v.shape != (n_rays, 3) or not bool(torch.isfinite(img_v).all()):
             raise AssertionError(f"volumetric {what}: bad image")
     # each kernel against its plain version on the same card and inputs
     kb = brick_cuda._brick_multi_kernel(bsvo, o, d, k, True)
-    ks = brick_cuda._stackless_multi_kernel(svo, o, d, k, True)
+    ks = brick_cuda._stackless_multi_kernel(svo, o, d, k, True, res)
     t0 = time.perf_counter()
     pb = brick.trace_brick_multi(bsvo, o, d, k, True)
     torch.cuda.synchronize()
@@ -711,17 +741,25 @@ def serving(ctx, card):
     err["brick_trace_multi_serial"] = max(err["brick_trace_multi_serial"], multi_compare(
         brick_cuda._brick_multi_serial_kernel(bsvo, o, d, k, True), pb,
         "brick_trace_multi_serial, terrain d10 frame"))
-    probes = [("brick_trace_multi", form, pb, lambda form=form: brick_cuda.probe_brick_multi_cuda(
+    err["esvo_stackless_multi_serial"] = max(err["esvo_stackless_multi_serial"], multi_compare(
+        brick_cuda._stackless_multi_kernel(svo, o, d, k, True, form="first"), ps,
+        "esvo_stackless_multi_serial, terrain d10 frame"))
+    multi_compare(brick_cuda._stackless_multi_kernel(svo, o, d, k, True), ps,
+                  "esvo_stackless_multi, rays in order, terrain d10 frame")
+    probes = [("brick_trace_multi", form, pb, None, lambda form=form: brick_cuda.probe_brick_multi_cuda(
                   bsvo, o, d, k, form)) for form in brick_cuda.FORMS["brick_trace_multi"]]
-    probes.append(("esvo_stackless_multi", "first", ps,
-                   lambda: brick_cuda.probe_stackless_multi_cuda(svo, o, d, k)))
+    for form in brick_cuda.FORMS["esvo_stackless_multi"]:
+        width = res if form == "patched" else None
+        probes.append(("esvo_stackless_multi", form, ps, width,
+                       lambda form=form, width=width: brick_cuda.probe_stackless_multi_cuda(
+                           svo, o, d, k, form, width)))
     out["warps"] = {}
-    for kname, form, plain_r, probe in probes:
+    for kname, form, plain_r, width, probe in probes:
         got = probe()
         torch.cuda.synchronize()
         multi_compare(got[:2], plain_r, f"{kname} {form} probe, terrain d10 frame")
         out["warps"][(kname, form)] = warps_line(kname, form, got[2],
-                                                 plain_r[0].iters.cpu().numpy())
+                                                 plain_r[0].iters.cpu().numpy(), width)
     say("[warps] the k-segment traces' probe forms (k=4; seg: a segment's "
         "record, its write in the first forms and its stage in shared memory "
         "in the brick trace's staged form, whose warps' write-out is its ray "
@@ -792,12 +830,15 @@ def serving(ctx, card):
     t["vol_brick"] = cuda_ms(lambda: diff.render_volumetric_brick(
         *params, bsvo, o, d, light, k=k, density_scale=DENSITY_SCALE), 50, 3)
     t["vol_flat"] = cuda_ms(lambda: diff.render_volumetric(
-        *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE), 50, 3)
+        *params, svo, o, d, light, k=k, density_scale=DENSITY_SCALE, width=res), 50, 3)
     t.update(in_turns({
         "brick_trace_multi": lambda: brick_cuda.trace_brick_multi_cuda(bsvo, o, d, k),
         "brick_trace_multi_serial": lambda: brick_cuda.trace_brick_multi_cuda_serial(
             bsvo, o, d, k),
-        "esvo_stackless_multi": lambda: brick_cuda.trace_multi_cuda(svo, o, d, k),
+        "esvo_stackless_multi": lambda: brick_cuda.trace_multi_cuda(svo, o, d, k,
+                                                                    width=res),
+        "esvo_stackless_multi_serial": lambda: brick_cuda.trace_multi_cuda_serial(
+            svo, o, d, k),
         "composite_fwd": lambda: shade_cuda.composite_fwd(
             kb[0].hit_leaf, kb[0].t_in, kb[0].t_out, d, *params, light, 1.3,
             0.08, DENSITY_SCALE)}))
@@ -820,7 +861,8 @@ def serving(ctx, card):
         f"(cap {brick.dda_multi_steps(k)}); esvo_stackless_multi: " + seg_line(*ks)
         + f" (bound {traverse.multi_steps_for_depth(10, k)}); both on their main "
         f"paths (the brick trace's staged form in blocks of "
-        f"{STAGED_BLOCK} threads), and the brick trace's "
+        f"{STAGED_BLOCK} threads, the stackless trace's patched form with the "
+        f"image's width and without), and each one's "
         f"first form, == their plain "
         f"versions bitwise (hit_leaf, t bits, count, iters, statistics; plain "
         f"{out['brick_multi_plain_ms']:.1f} and {out['stackless_multi_plain_ms']:.1f} "
@@ -846,7 +888,9 @@ def serving(ctx, card):
         f"{m['brick_trace_multi'][1]:.4f}; the first form "
         f"{m['brick_trace_multi_serial'][0]:.4f}, p80 "
         f"{m['brick_trace_multi_serial'][1]:.4f}), esvo_stackless_multi "
-        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}), "
+        f"{m['esvo_stackless_multi'][0]:.4f} ({m['esvo_stackless_multi'][1]:.4f}; the "
+        f"first form {m['esvo_stackless_multi_serial'][0]:.4f}, p80 "
+        f"{m['esvo_stackless_multi_serial'][1]:.4f}), "
         f"composite_fwd {m['composite_fwd'][0]:.4f} ({m['composite_fwd'][1]:.4f}); "
         f"composite_plain {m['composite_plain'][0]:.4f} (n=10)")
     # the brick trace's main path at larger k (where the staged form opts in
@@ -1970,15 +2014,24 @@ def lod_parity(dev, cam, err):
         found = []
         for kind, o, d in ray_sets(dev, cam, 4096, depth + 200):
             coefs = (c0, 8 * c0, 32 * c0) + ((0.4, 0.0) if kind == "camera" else ())
+            width = cam.width if kind == "camera" else None
             for coef in coefs:
                 what = f"{name} d{depth} {kind} rays N={o.shape[0]} coef {coef:.6g}"
-                ks = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True)
+                ks = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True, width)
                 kb = brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True)
                 ps = traverse.trace_lod(svo_s, o, d, coef, 0.0, True)
                 pb = brick.trace_brick_lod(bsvo_s, o, d, coef, 0.0, True)
+                kf = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True,
+                                                      form="first")
                 torch.cuda.synchronize()
                 err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
                     ks, ps, f"esvo_stackless_lod, {what}"))
+                err["esvo_stackless_lod_serial"] = max(
+                    err["esvo_stackless_lod_serial"],
+                    compare_lod(kf, ps, f"esvo_stackless_lod first form, {what}"))
+                if width is not None:
+                    compare_lod(brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True),
+                                ps, f"esvo_stackless_lod, rays in order, {what}")
                 err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
                     kb, pb, f"brick_trace_lod, {what}"))
                 if coef == 0.0:
@@ -1992,8 +2045,10 @@ def lod_parity(dev, cam, err):
                 if kind == "camera" and coef != 0.0:
                     found.append(f"{lod_ends(*ks)['node']}/{lod_ends(*kb)['node']}")
         lines.append(f"{name} d{depth}: " + ", ".join(found))
-    say(f"[parity] esvo_stackless_lod and brick_trace_lod (through their "
-        f"launchers) == traverse.trace_lod and brick.trace_brick_lod bitwise "
+    say(f"[parity] esvo_stackless_lod (through its launcher in its patched "
+        f"form, with the camera's width and without, and in its first form) "
+        f"and brick_trace_lod (through its launcher) == traverse.trace_lod and "
+        f"brick.trace_brick_lod bitwise "
         f"(hit_leaf, hit_node, hit_t bits, hit_parent, hit_child, iters, "
         f"statistics) on {n_cases} cases (camera rays 128x128 at c0 = "
         f"{c0:.6g}, 8 c0, 32 c0, 0.4 and 0; 4,096 rays from a shell and from "
@@ -2022,7 +2077,7 @@ def frame_lod(ctx, card):
                                        brick_cuda.trace_brick_lod_cuda(bsvo, o, d, coef),
                                        d, light)
     stackless = lambda coef: lod.render_lod(svo, node_alb, node_nrm, o, d, coef,
-                                            light)[0]
+                                            light, width=res)[0]
     img, got_b = expect_launches("the LOD frame (brick route)", lambda: frame(c0),
                                  dict(brick_trace_lod=1))
     img_s, got_s = expect_launches("render_lod (stackless route)", lambda: stackless(c0),
@@ -2037,7 +2092,7 @@ def frame_lod(ctx, card):
     lines = []
     for name, coef in LOD_COEFS:
         kb = brick_cuda._brick_lod_kernel(bsvo, o, d, coef, 0.0, True)
-        ks = brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True)
+        ks = brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True, res)
         torch.cuda.synchronize()
         if name in ("c0", "8c0"):
             t0 = time.perf_counter()
@@ -2051,7 +2106,15 @@ def frame_lod(ctx, card):
                 kb, pb, f"brick_trace_lod, terrain d10 frame, coef {name}"))
             err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
                 ks, ps, f"esvo_stackless_lod, terrain d10 frame, coef {name}"))
-            check = "== its plain version bitwise"
+            err["esvo_stackless_lod_serial"] = max(
+                err["esvo_stackless_lod_serial"], compare_lod(
+                    brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True,
+                                                     form="first"),
+                    ps, f"esvo_stackless_lod first form, terrain d10 frame, coef {name}"))
+            compare_lod(brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True), ps,
+                        f"esvo_stackless_lod, rays in order, terrain d10 frame, coef {name}")
+            check = ("== its plain version bitwise (esvo_stackless_lod in its "
+                     "patched form with the width and without, and its first form)")
         elif name == "0":
             compare_stats(kb, (routes["brick"]["res"], routes["brick"]["stats"]),
                           "brick_trace_lod at 0 against brick_trace, terrain d10 frame")
@@ -2094,11 +2157,15 @@ def frame_lod(ctx, card):
          "frame_8c0": cuda_ms(lambda: frame(8 * c0), 50, 3)}
     t.update(in_turns({
         "brick_trace_lod": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, c0),
-        "esvo_stackless_lod": lambda: brick_cuda.trace_lod_cuda(svo, o, d, c0),
+        "esvo_stackless_lod": lambda: brick_cuda.trace_lod_cuda(svo, o, d, c0, width=res),
         "brick_trace_lod_8c0": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * c0),
-        "esvo_stackless_lod_8c0": lambda: brick_cuda.trace_lod_cuda(svo, o, d, 8 * c0),
+        "esvo_stackless_lod_8c0": lambda: brick_cuda.trace_lod_cuda(svo, o, d, 8 * c0,
+                                                                    width=res),
+        "esvo_stackless_lod_serial": lambda: brick_cuda.trace_lod_cuda_serial(svo, o, d, c0),
+        "esvo_stackless_lod_serial_8c0": lambda: brick_cuda.trace_lod_cuda_serial(
+            svo, o, d, 8 * c0),
         "brick_trace": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
-        "esvo_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)}))
+        "esvo_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d, width=res)}))
     out["ms"] = m = {k: med_p80(v) for k, v in t.items()}
     say(f"[frame-lod] {res}x{res} depth 10, the default Light: node attributes "
         f"of {host_svo.n_nodes} nodes on the host in {attr_s:.2f} s; the frame "
@@ -2116,8 +2183,183 @@ def frame_lod(ctx, card):
         f"{m['brick_trace_lod_8c0'][0]:.4f}) against brick_trace "
         f"{m['brick_trace'][0]:.4f}, esvo_stackless_lod "
         f"{m['esvo_stackless_lod'][0]:.4f} ({m['esvo_stackless_lod'][1]:.4f}; at "
-        f"8 c0 {m['esvo_stackless_lod_8c0'][0]:.4f}) against esvo_stackless "
+        f"8 c0 {m['esvo_stackless_lod_8c0'][0]:.4f}; its first form "
+        f"{m['esvo_stackless_lod_serial'][0]:.4f}, at 8 c0 "
+        f"{m['esvo_stackless_lod_serial_8c0'][0]:.4f}) against esvo_stackless "
         f"{m['esvo_stackless'][0]:.4f}")
+    return out
+
+
+# the ragged images [stackless-forms] holds the patched forms on: neither
+# side a multiple of its patch's
+RAGGED_IMAGES = ((1023, 17), (333, 101))
+
+
+def alone_us(fn, key):
+    """us a launch of the kernel whose name holds `key`, from torch.profiler
+    over 20 calls of fn() (80 if the tracer saw none); None if it never
+    did."""
+    for runs in (20, 80):
+        mine = [e for e in traced_kernels(fn, runs) if key in e.key]
+        n = sum(e.count for e in mine)
+        if n:
+            return sum(dev_us(e) for e in mine) / n
+    return None
+
+
+def unpermute(res, order, n):
+    """A trace's outputs on rays taken in `order` (every ray once), put back
+    at each ray's own index."""
+    back = torch.empty(n, dtype=torch.int64, device=order.device)
+    back[order] = torch.arange(n, device=order.device)
+    fields = {f.name: getattr(res[0], f.name) for f in dataclasses.fields(res[0])}
+    moved = {k: None if v is None else v[back] for k, v in fields.items()}
+    return type(res[0])(**moved), res[1][back]
+
+
+def stackless_forms(ctx, card):
+    """[stackless-forms]: the stackless traces' patched form (warps of 8 x 4
+    pixel patches, one 16-byte node row read where the node changes) against
+    their first form. Parity on two ragged images (each form, the patched
+    one at every block of PATCH_BLOCKS, with the image's width and without,
+    and the probes) against the plain versions; then on the depth-10 frame
+    the two changes alone and together, in turns and alone, with their
+    warps: the first form, the first form on the rays taken in the patch
+    order (patches alone), the patched form on the rays in their order (the
+    row alone) and with the width (both) at each block; the LOD form at c0
+    and 8 c0, and the k-segment form at k = 4. Returns each kernel's
+    variants for the kernels line."""
+    dev, svo, o, d, res = ctx["dev"], ctx["svo"], ctx["o"], ctx["d"], ctx["res"]
+    err, bench_cam = ctx["err"], ctx["bench_cam"]
+    n, k = o.shape[0], VOLUME_K
+    host = octree.build_svo(get_scene("terrain"), 7).svo
+    small = host.to(dev)
+    found = []
+    for w, h in RAGGED_IMAGES:
+        o_r, d_r = camera.Camera(**bench_cam, width=w, height=h).rays(dev)
+        what = f"terrain d7 {w}x{h}"
+        plain = traverse.trace_stackless(small, o_r, d_r, True)
+        got = [brick_cuda._stackless_kernel(small, o_r, d_r, True, w, block=b)
+               for b in PATCH_BLOCKS]
+        got += [brick_cuda._stackless_kernel(small, o_r, d_r, True),
+                brick_cuda.probe_stackless_cuda(small, o_r, d_r, "patched", w)[:2]]
+        first = brick_cuda._stackless_kernel(small, o_r, d_r, True, form="first")
+        torch.cuda.synchronize()
+        for g in got:
+            err["esvo_stackless"] = max(err["esvo_stackless"], compare_stats(
+                g, plain, f"esvo_stackless patched, {what}"))
+        err["esvo_stackless_serial"] = max(err["esvo_stackless_serial"], compare_stats(
+            first, plain, f"esvo_stackless first form, {what}"))
+        c0 = 2.0 * np.tan(np.radians(25.0)) / h
+        for coef in (c0, 8 * c0):
+            pl = traverse.trace_lod(small, o_r, d_r, coef, 0.0, True)
+            for b in PATCH_BLOCKS:
+                err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
+                    brick_cuda._stackless_lod_kernel(small, o_r, d_r, coef, 0.0, True, w,
+                                                     block=b),
+                    pl, f"esvo_stackless_lod patched, {what}, coef {coef:.6g}"))
+            err["esvo_stackless_lod_serial"] = max(
+                err["esvo_stackless_lod_serial"], compare_lod(
+                    brick_cuda._stackless_lod_kernel(small, o_r, d_r, coef, 0.0, True,
+                                                     form="first"),
+                    pl, f"esvo_stackless_lod first form, {what}, coef {coef:.6g}"))
+        for kk in (1, k, 7):
+            pm = traverse.trace_multi(small, o_r, d_r, kk, True)
+            for b in PATCH_BLOCKS:
+                err["esvo_stackless_multi"] = max(err["esvo_stackless_multi"], multi_compare(
+                    brick_cuda._stackless_multi_kernel(small, o_r, d_r, kk, True, w,
+                                                       block=b),
+                    pm, f"esvo_stackless_multi patched, {what}, k={kk}"))
+            multi_compare(brick_cuda.probe_stackless_multi_cuda(
+                small, o_r, d_r, kk, "patched", w)[:2], pm,
+                f"esvo_stackless_multi patched probe, {what}, k={kk}")
+            err["esvo_stackless_multi_serial"] = max(
+                err["esvo_stackless_multi_serial"], multi_compare(
+                    brick_cuda._stackless_multi_kernel(small, o_r, d_r, kk, True,
+                                                       form="first"),
+                    pm, f"esvo_stackless_multi first form, {what}, k={kk}"))
+        found.append(f"{w}x{h} ({brick_cuda.patch_threads(w * h, w) - w * h} idle "
+                     f"lanes, {int((plain[0].hit_leaf >= 0).sum())} hits)")
+    say(f"[parity] the stackless traces' patched forms (esvo_stackless, "
+        f"esvo_stackless_lod at c0 and 8 c0, esvo_stackless_multi at k = 1, 4, "
+        f"7) with the image's width at blocks of {PATCH_BLOCKS}, without it, "
+        f"and their probe forms, and the first forms == the plain versions "
+        f"bitwise on ragged images of terrain d7: " + ", ".join(found))
+
+    # the frame: the two changes alone and together
+    order = brick_cuda.patch_order(n, res).to(dev)
+    if bool((order < 0).any()):
+        raise AssertionError("the frame's patch order has idle lanes")
+    op, dp = o[order].contiguous(), d[order].contiguous()
+    c0 = LOD_C0
+    traces = {
+        "esvo_stackless": dict(
+            kernel=FORM_KERNELS[("esvo_stackless", "patched")],
+            first_kernel=FORM_KERNELS[("esvo_stackless", "first")],
+            call=lambda oo, dd, **kw: brick_cuda._stackless_kernel(svo, oo, dd, True, **kw),
+            probe=lambda oo, dd, form, width: brick_cuda.probe_stackless_cuda(
+                svo, oo, dd, form, width),
+            compare=compare_stats),
+        "esvo_stackless_lod c0": dict(
+            kernel=LOD_KERNELS["patched"], first_kernel=LOD_KERNELS["first"],
+            call=lambda oo, dd, **kw: brick_cuda._stackless_lod_kernel(
+                svo, oo, dd, c0, 0.0, True, **kw), compare=compare_lod),
+        "esvo_stackless_lod 8c0": dict(
+            kernel=LOD_KERNELS["patched"], first_kernel=LOD_KERNELS["first"],
+            call=lambda oo, dd, **kw: brick_cuda._stackless_lod_kernel(
+                svo, oo, dd, 8 * c0, 0.0, True, **kw), compare=compare_lod),
+        "esvo_stackless_multi": dict(
+            kernel=MULTI_KERNELS["esvo_stackless_multi"],
+            first_kernel=MULTI_KERNELS["esvo_stackless_multi_serial"],
+            call=lambda oo, dd, **kw: brick_cuda._stackless_multi_kernel(
+                svo, oo, dd, k, True, **kw),
+            probe=lambda oo, dd, form, width: brick_cuda.probe_stackless_multi_cuda(
+                svo, oo, dd, k, form, width),
+            compare=multi_compare)}
+    out = {}
+    for tname, t in traces.items():
+        call, compare_fn = t["call"], t["compare"]
+        variants = {
+            "first": (lambda: call(o, d, form="first"), t["first_kernel"]),
+            "first, rays in patch order": (lambda: call(op, dp, form="first"),
+                                           t["first_kernel"]),
+            "patched, rays in order": (lambda: call(o, d), t["kernel"]),
+            **{f"patched, blocks of {b}": (lambda b=b: call(o, d, width=res, block=b),
+                                           t["kernel"]) for b in PATCH_BLOCKS}}
+        want = call(o, d, form="first")
+        for name, (fn, _key) in variants.items():
+            got = fn()
+            if name == "first, rays in patch order":
+                got = unpermute(got, order, n)
+            compare_fn(got, want, f"{tname} {name}, terrain d10 frame, against the "
+                                  f"first form")
+        torch.cuda.synchronize()
+        turns = in_turns({name: fn for name, (fn, _key) in variants.items()},
+                         rounds=4, reps=30)
+        rows = {name: dict(ms=med_p80(turns[name]), us_alone=alone_us(fn, key))
+                for name, (fn, key) in variants.items()}
+        if "probe" in t:
+            iters = want[0].iters
+            for name, oo, dd, form, width, it in (
+                    ("first", o, d, "first", None, iters),
+                    ("first, rays in patch order", op, dp, "first", None, iters[order]),
+                    ("patched, rays in order", o, d, "patched", None, iters),
+                    ("patched, blocks of 128", o, d, "patched", res, iters)):
+                rec = t["probe"](oo, dd, form, width)
+                torch.cuda.synchronize()
+                rows[name]["warps"] = warps_line(f"{tname.split()[0]} ({name})", form,
+                                                 rec[2], it.cpu().numpy(), width)
+        out[tname] = rows
+        main_name = f"patched, blocks of {brick_cuda.BLOCKS[('esvo_stackless', 'patched')]}"
+        say(f"[timing] {card}: {tname} on the {res}x{res} depth-10 frame, every "
+            f"variant == the first form bitwise; in turns (four rounds of 30) "
+            f"median ms (p80), and us alone: " + "; ".join(
+                f"{name} {r['ms'][0]:.4f} ({r['ms'][1]:.4f}), {us_or(r['us_alone'])} us"
+                for name, r in rows.items())
+            + f"; the main path's ({main_name}) against the first form "
+            f"{rows[main_name]['ms'][0] / rows['first']['ms'][0]:.3f} in turns")
+    say(f"[profile] {card}: the stackless traces' variants alone are in the "
+        f"[timing] lines above (torch.profiler, 20 calls each)")
     return out
 
 
@@ -2277,18 +2519,27 @@ def route_line(res, stats):
             f"stop unfinished at the route's bound")
 
 
-def trace_forms(bsvo, svo, o, d):
+def trace_forms(bsvo, svo, o, d, width=None):
     """(kernel, form) -> (TraceResult, stats) of brick_trace and
     esvo_stackless on these rays through the main path's wrapper ("main"),
-    the brick trace also in its other forms, and every form in its probe
-    form (form "... probe")."""
+    each also in its other forms, and every form in its probe form (form
+    "... probe"); the stackless trace's patched form over an image `width`
+    wide (None: the rays in their own order) and, with a width, also
+    without it."""
     out = {
         ("brick_trace", "main"): brick_cuda._brick_kernel(bsvo, o, d, True),
         ("brick_trace", "first"): brick_cuda._brick_serial_kernel(bsvo, o, d, True),
         ("brick_trace", "unstaged"): brick_cuda._brick_unstaged_kernel(bsvo, o, d, True),
-        ("esvo_stackless", "main"): brick_cuda._stackless_kernel(svo, o, d, True),
+        ("esvo_stackless", "main"): brick_cuda._stackless_kernel(svo, o, d, True, width),
+        ("esvo_stackless", "first"): brick_cuda._stackless_kernel(svo, o, d, True,
+                                                                  form="first"),
         ("esvo_stackless", "first probe"): brick_cuda.probe_stackless_cuda(
-            svo, o, d)[:2]}
+            svo, o, d)[:2],
+        ("esvo_stackless", "patched probe"): brick_cuda.probe_stackless_cuda(
+            svo, o, d, "patched", width)[:2]}
+    if width is not None:
+        out[("esvo_stackless", "patched, rays in order")] = brick_cuda._stackless_kernel(
+            svo, o, d, True)
     for form in brick_cuda.FORMS["brick_trace"]:
         out[("brick_trace", f"{form} probe")] = brick_cuda.probe_brick_cuda(
             bsvo, o, d, form)[:2]
@@ -2323,15 +2574,17 @@ def ptxas_report(log):
     return rows
 
 
-def warps_line(kernel, form, record, iters):
+def warps_line(kernel, form, record, iters, width=None, block=None):
     """[warps]: one form's per-warp counters on the frame in words: each
     phase's issues a warp, SIMT efficiency (lanes active a issue over 32)
     and share of warp cycles; warp durations; each block's tail; the
     kernel's span and how much of it follows the end of 99 in 100 warps;
     the last warp to end, with its issues against its longest ray's steps.
     Returns the numbers. `kernel`: its name, or a label that starts with
-    it."""
-    block = brick_cuda.BLOCKS[(kernel.split()[0], form)]
+    it; a patched form's launch over an image `width` wide walks its rays
+    in brick_cuda.patch_order, in blocks of `block` (None: its BLOCKS)."""
+    if block is None:
+        block = brick_cuda.BLOCKS[(kernel.split()[0], form)]
     r = record.cpu().numpy().astype(np.float64)
     f = {k: r[:, i] for i, k in enumerate(brick_cuda.PROBE_FIELDS)}
     cycles = f["end"] - f["start"]
@@ -2351,8 +2604,12 @@ def warps_line(kernel, form, record, iters):
     last = int(np.argmax(end))
     steps_total = f["step_issues"][last] + f["dda_issues"][last]
     longest = ""
-    if last * 32 < len(iters):
-        lane_steps = max(int(iters[last * 32:(last + 1) * 32].max()), 1)
+    order = (brick_cuda.patch_order(len(iters), width).numpy() if form == "patched"
+             else np.arange(len(cycles) * 32))
+    lanes = order[last * 32:(last + 1) * 32]
+    lanes = lanes[(lanes >= 0) & (lanes < len(iters))]
+    if len(lanes):
+        lane_steps = max(int(iters[lanes].max()), 1)
         longest = (f", {steps_total:.0f} step and DDA issues for its longest ray's "
                    f"{lane_steps} steps ({steps_total / lane_steps:.2f} issues a step)")
     say(f"[warps] {kernel} {form} ({len(cycles)} warps of {block}-thread "
@@ -4626,18 +4883,21 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 41:
+    if len(ptxas) != 46:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 41")
+                             f"expected 46")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
         raise AssertionError(f"brick_trace.cu's earlier kernels moved: {moved}, "
                              f"expected {EARLIER_REGS}")
     say("[build] brick_trace.cu, ptxas -v (kernel<staged rows, probe, block>, "
-        "esvo_stackless_kernel<probe>, brick_trace_multi's staged and first "
-        "forms <probe>, esvo_stackless_multi and its probe form, the two LOD "
-        "kernels, the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
+        "esvo_stackless_kernel<probe> (its first form), its patched form "
+        "esvo_stackless_patched_kernel<probe, LOD> (LOD: esvo_stackless_lod's), "
+        "brick_trace_multi's staged and first "
+        "forms <probe>, esvo_stackless_multi's first form and its probe form, its "
+        "patched form esvo_stackless_multi_patched_kernel<probe>, the two LOD "
+        "kernels' first forms, the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
         "the wide forms clipmap_trace_brick_kernel and clipmap_trace_wide_kernel and "
         "their probe forms clipmap_trace_brick_probe_kernel<wide> and "
         "clipmap_trace_probe_kernel<wide>, "
@@ -4669,6 +4929,8 @@ def main():
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
+               esvo_stackless_serial=0.0, esvo_stackless_lod_serial=0.0,
+               esvo_stackless_multi_serial=0.0,
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
                tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
@@ -4754,7 +5016,8 @@ def main():
         found = []
         for kind, o, d in ray_sets(dev, small_cam, 4096, depth):
             what = f"{name} d{depth} {kind} rays N={o.shape[0]}"
-            forms = trace_forms(small_bsvo, small_svo, o, d)
+            forms = trace_forms(small_bsvo, small_svo, o, d,
+                                small_cam.width if kind == "camera" else None)
             plain = {"brick_trace": brick.trace_brick(small_bsvo, o, d, True),
                      "esvo_stackless": traverse.trace_stackless(small_svo, o, d, True)}
             torch.cuda.synchronize()
@@ -4779,7 +5042,9 @@ def main():
                       err)
     lod_parity(dev, small_cam, err)
     say(f"[parity] brick_trace (through the main path's wrapper, and in its "
-        f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless, and every "
+        f"forms {brick_cuda.FORMS['brick_trace']}) and esvo_stackless (in its forms "
+        f"{brick_cuda.FORMS['esvo_stackless']}, the patched one with the camera's "
+        f"width and without), and every "
         f"probe form == their plain versions (brick.trace_brick, "
         f"traverse.trace_stackless) bitwise (hit_leaf, hit_t bits, hit_parent, "
         f"hit_child, iters, and the statistics a ray), on {n_small} cases: "
@@ -4954,8 +5219,8 @@ def main():
              lambda: brick_cuda._brick_kernel(bsvo, o, d, True),
              lambda: brick.trace_brick(bsvo, o, d, True)),
             ("plain", "esvo_stackless",
-             lambda: diff.render_diff(*params, svo, o, d, light),
-             lambda: brick_cuda._stackless_kernel(svo, o, d, True),
+             lambda: diff.render_diff(*params, svo, o, d, light, width=res),
+             lambda: brick_cuda._stackless_kernel(svo, o, d, True, res),
              lambda: traverse.trace_stackless(svo, o, d, True))):
         reset_counts()
         img_r = render()
@@ -5033,24 +5298,28 @@ def main():
     # ---- 5d. every form of the two traces on the frame, and their warps -------
     reference = {"brick_trace": (routes["brick"]["res"], routes["brick"]["stats"]),
                  "esvo_stackless": (routes["plain"]["res"], routes["plain"]["stats"])}
-    for (kname, form), got in trace_forms(bsvo, svo, o, d).items():
+    for (kname, form), got in trace_forms(bsvo, svo, o, d, res).items():
         e = compare_stats(got, reference[kname], f"{kname} {form}, terrain d10 frame")
         if form in FORM_ERR:
             err[kname + FORM_ERR[form]] = max(err[kname + FORM_ERR[form]], e)
     torch.cuda.synchronize()
     say(f"[frame-forms] {res}x{res} depth {depth}: brick_trace in its forms "
-        f"{brick_cuda.FORMS['brick_trace']}, esvo_stackless, and every probe form "
+        f"{brick_cuda.FORMS['brick_trace']}, esvo_stackless in its forms "
+        f"{brick_cuda.FORMS['esvo_stackless']} (the patched one with the image's "
+        f"width and without), and every probe form "
         f"== the plain versions bitwise (hit_leaf, hit_t, hit_parent, hit_child, "
         f"iters, statistics)")
     warp_counts = {}
     for kname in ("brick_trace", "esvo_stackless"):
         for form in brick_cuda.FORMS[kname]:
+            width = res if form == "patched" else None
             probe = (brick_cuda.probe_brick_cuda(bsvo, o, d, form) if kname == "brick_trace"
-                     else brick_cuda.probe_stackless_cuda(svo, o, d))
+                     else brick_cuda.probe_stackless_cuda(svo, o, d, form, width))
             torch.cuda.synchronize()
             compare_stats(probe[:2], reference[kname], f"{kname} {form} probe, frame")
             warp_counts[(kname, form)] = warps_line(kname, form, probe[2],
-                                              reference[kname][0].iters.cpu().numpy())
+                                              reference[kname][0].iters.cpu().numpy(),
+                                              width)
     say("[warps] the probe forms' results == the plain versions' bitwise; issue "
         "and lane counts are exact, cycle shares inside divergent code are "
         "approximate (another branch's lanes may run between a phase's two "
@@ -5361,6 +5630,9 @@ def main():
     brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
     brick_cuda._brick_unstaged_kernel(bsvo, o, d)
     brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K)
+    brick_cuda.trace_stackless_cuda_serial(svo, o, d)
+    brick_cuda.trace_lod_cuda_serial(svo, o, d, LOD_C0)
+    brick_cuda.trace_multi_cuda_serial(svo, o, d, VOLUME_K)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
@@ -5378,7 +5650,9 @@ def main():
                                       brick_trace_serial=1, brick_trace_unstaged=1,
                                       brick_trace_multi_serial=1, level_round_serial=0,
                                       clipmap_trace_brick_serial=0, clipmap_trace_serial=0,
-                                      level_queue_serial=0)
+                                      level_queue_serial=0, esvo_stackless_serial=1,
+                                      esvo_stackless_lod_serial=1,
+                                      esvo_stackless_multi_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -5426,7 +5700,7 @@ def main():
                 *params, bsvo, o, d, light, target),
              routes["brick"]["res"].hit_leaf, d, target),
             ("plain", lambda: diff.loss_and_grads(
-                *params, svo, o, d, light, target),
+                *params, svo, o, d, light, target, width=res),
              routes["plain"]["res"].hit_leaf, d, target))
         for path, step, leafs, dirs, tgt in steps:
             reset_counts()
@@ -5590,7 +5864,8 @@ def main():
                 brick_trace_multi_serial=0, esvo_stackless_multi_probe=0, brick_trace_multi_probe=0,
                 level_round_serial=0, level_round_probe=0, clipmap_trace_brick_serial=0,
                 clipmap_trace_brick_probe=0, clipmap_trace_serial=0, level_queue_serial=0,
-                clipmap_trace_probe=0, **MULTI_ZERO, **STEP_ZERO)
+                clipmap_trace_probe=0, esvo_stackless_serial=0, esvo_stackless_lod_serial=0,
+                esvo_stackless_multi_serial=0, **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -5615,6 +5890,7 @@ def main():
                      light=light, params=params, res=res, routes=routes, err=err)
     lodded = frame_lod(slice_ctx, card)
     stepped = step_volumetric(slice_ctx, card, served)
+    patched = stackless_forms(dict(slice_ctx, bench_cam=bench_cam), card)
     # ---- 7e. the command line, on the same tree ---------------------------------
     clied = cli_phase(dict(dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o,
                            d=d, res=res, bench_cam=bench_cam, cache=cache),
@@ -5706,8 +5982,9 @@ def main():
         "brick": (lambda: diff.render_diff_brick(*params, bsvo, o, d, light),
                   lambda: diff.loss_and_grads_brick(*params, bsvo, o, d, light,
                                                     target0)),
-        "plain": (lambda: diff.render_diff(*params, svo, o, d, light),
-                  lambda: diff.loss_and_grads(*params, svo, o, d, light, target0))}
+        "plain": (lambda: diff.render_diff(*params, svo, o, d, light, width=res),
+                  lambda: diff.loss_and_grads(*params, svo, o, d, light, target0,
+                                              width=res))}
     for route, (fwd, fwdbwd) in route_calls.items():
         t[f"{route}_frame"] = cuda_ms(fwd, 50, 3)
         t[f"{route}_step"] = cuda_ms(fwdbwd, 50, 3)
@@ -5718,7 +5995,8 @@ def main():
         "trace_brick": lambda: brick_cuda.trace_brick_cuda(bsvo, o, d),
         "trace_brick_first": lambda: brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
         "trace_brick_unstaged": lambda: brick_cuda._brick_unstaged_kernel(bsvo, o, d),
-        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d)},
+        "trace_stackless": lambda: brick_cuda.trace_stackless_cuda(svo, o, d, width=res),
+        "trace_stackless_first": lambda: brick_cuda.trace_stackless_cuda_serial(svo, o, d)},
         rounds=4)
     t.update({f"{name}_turns": v for name, v in turns.items()})
     t["brick_plain"] = cuda_ms(lambda: brick.trace_brick(bsvo, o, d), 2, 0)
@@ -5853,8 +6131,11 @@ def main():
         f"{m['trace_brick_unstaged_turns'][0]:.4f} "
         f"({m['trace_brick_unstaged_turns'][1]:.4f}), the first form (blocks of "
         f"128) {m['trace_brick_first_turns'][0]:.4f} "
-        f"({m['trace_brick_first_turns'][1]:.4f}); esvo_stackless "
-        f"{m['trace_stackless_turns'][0]:.4f} ({m['trace_stackless_turns'][1]:.4f})"
+        f"({m['trace_brick_first_turns'][1]:.4f}); esvo_stackless through the main "
+        f"path's wrapper (the patched form, the image's width) "
+        f"{m['trace_stackless_turns'][0]:.4f} ({m['trace_stackless_turns'][1]:.4f}), "
+        f"its first form {m['trace_stackless_first_turns'][0]:.4f} "
+        f"({m['trace_stackless_first_turns'][1]:.4f})"
         + f"; their plain versions brick.trace_brick {m['brick_plain'][0]:.1f} ms "
         f"and traverse.trace_stackless {m['stackless_plain'][0]:.1f} ms (n=2)")
     for wname in WALKS:
@@ -5984,13 +6265,14 @@ def main():
             traverse_cuda.trace_cuda_serial(svo, o, d)), "round", 2)
     alone["esvo"] = kernel_us(rows, "esvo_kernel<false>", "esvo_kernel<true>")
     _, rows, _n = profile_kernels(
-        "brick_trace alone in its three forms, and esvo_stackless and "
+        "brick_trace alone in its three forms, esvo_stackless in its two, and "
         "esvo_trace beside them",
         lambda: (brick_cuda.trace_brick_cuda(bsvo, o, d),
                  brick_cuda.trace_brick_cuda_serial(bsvo, o, d),
                  brick_cuda._brick_unstaged_kernel(bsvo, o, d),
-                 brick_cuda.trace_stackless_cuda(svo, o, d),
-                 traverse_cuda.trace_cuda(svo, o, d)), "round", 5, launches=5)
+                 brick_cuda.trace_stackless_cuda(svo, o, d, width=res),
+                 brick_cuda.trace_stackless_cuda_serial(svo, o, d),
+                 traverse_cuda.trace_cuda(svo, o, d)), "round", 6, launches=6)
     for key, name in FORM_KERNELS.items():
         alone[key] = kernel_us(rows, name)[0]
     for kname in ("brick_trace", "esvo_stackless"):
@@ -6057,14 +6339,16 @@ def main():
     kb_seg = served["multi"][0][0]
     _, rows, _n = profile_kernels(
         "brick_trace_multi (in its staged and its first form), "
-        "esvo_stackless_multi and composite_fwd alone",
+        "esvo_stackless_multi (in its patched and its first form) and "
+        "composite_fwd alone",
         lambda: (brick_cuda.trace_brick_multi_cuda(bsvo, o, d, VOLUME_K),
                  brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K),
-                 brick_cuda.trace_multi_cuda(svo, o, d, VOLUME_K),
+                 brick_cuda.trace_multi_cuda(svo, o, d, VOLUME_K, width=res),
+                 brick_cuda.trace_multi_cuda_serial(svo, o, d, VOLUME_K),
                  shade_cuda.composite_fwd(kb_seg.hit_leaf, kb_seg.t_in,
                                           kb_seg.t_out, d, *params, light, 1.3,
                                           0.08, DENSITY_SCALE)),
-        "round", 4, launches=4)
+        "round", 5, launches=5)
     for kname, kernel in MULTI_KERNELS.items():
         alone[kname] = kernel_us(rows, kernel)[0]
     alone["composite_fwd"] = kernel_us(rows, "composite_fwd_kernel")[0]
@@ -6073,14 +6357,16 @@ def main():
             ("brick", lambda: diff.render_volumetric_brick(
                 *params, bsvo, o, d, light, k=VOLUME_K, density_scale=DENSITY_SCALE)),
             ("stackless", lambda: diff.render_volumetric(
-                *params, svo, o, d, light, k=VOLUME_K, density_scale=DENSITY_SCALE))):
+                *params, svo, o, d, light, k=VOLUME_K, density_scale=DENSITY_SCALE,
+                width=res))):
         vol_prof[route] = profile_kernels(f"volumetric frame, {route} route", fn,
                                           "frame", 4)
     vm = served["ms"]
     say(f"[profile] {card}: us alone: brick_trace_multi "
         f"{us_or(alone['brick_trace_multi'])} (staged; the first form "
         f"{us_or(alone['brick_trace_multi_serial'])}), esvo_stackless_multi "
-        f"{us_or(alone['esvo_stackless_multi'])}, composite_fwd "
+        f"{us_or(alone['esvo_stackless_multi'])} (patched; the first form "
+        f"{us_or(alone['esvo_stackless_multi_serial'])}), composite_fwd "
         f"{us_or(alone['composite_fwd'])}; volumetric frames: " + "; ".join(
             f"{route} route {us_or(f_us)} us of kernels in {count(f_n)} launches, "
             f"idle {idle(f_us, vm['vol_brick' if route == 'brick' else 'vol_flat'][0])} "
@@ -6089,20 +6375,26 @@ def main():
     # the LOD traces and composite_bwd alone; the LOD frame's and the
     # volumetric steps' kernel time, for the card's idle share
     _, rows, _n = profile_kernels(
-        "esvo_stackless_lod and brick_trace_lod at c0, and composite_bwd, alone",
-        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, LOD_C0),
+        "esvo_stackless_lod (in its patched and its first form) and "
+        "brick_trace_lod at c0, and composite_bwd, alone",
+        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, LOD_C0, width=res),
+                 brick_cuda.trace_lod_cuda_serial(svo, o, d, LOD_C0),
                  brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0),
-                 shade_cuda.composite_bwd(*stepped["bwd_args"])), "round", 3,
-        launches=3)
-    for kname in ("esvo_stackless_lod", "brick_trace_lod", "composite_bwd"):
+                 shade_cuda.composite_bwd(*stepped["bwd_args"])), "round", 4,
+        launches=4)
+    for kname in ("brick_trace_lod", "composite_bwd"):
         alone[kname] = kernel_us(rows, kname + "_kernel")[0]
+    alone["esvo_stackless_lod"] = kernel_us(rows, LOD_KERNELS["patched"])[0]
+    alone["esvo_stackless_lod_serial"] = kernel_us(rows, LOD_KERNELS["first"])[0]
     _, rows, _n = profile_kernels(
-        "esvo_stackless_lod and brick_trace_lod at 8 c0 alone",
-        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, 8 * LOD_C0),
+        "esvo_stackless_lod (in its two forms) and brick_trace_lod at 8 c0 alone",
+        lambda: (brick_cuda.trace_lod_cuda(svo, o, d, 8 * LOD_C0, width=res),
+                 brick_cuda.trace_lod_cuda_serial(svo, o, d, 8 * LOD_C0),
                  brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * LOD_C0)),
-        "round", 2, launches=2)
-    for kname in ("esvo_stackless_lod", "brick_trace_lod"):
-        alone[kname + " 8c0"] = kernel_us(rows, kname + "_kernel")[0]
+        "round", 3, launches=3)
+    alone["brick_trace_lod 8c0"] = kernel_us(rows, "brick_trace_lod_kernel")[0]
+    alone["esvo_stackless_lod 8c0"] = kernel_us(rows, LOD_KERNELS["patched"])[0]
+    alone["esvo_stackless_lod_serial 8c0"] = kernel_us(rows, LOD_KERNELS["first"])[0]
     slice_prof = {
         "LOD frame (brick_trace_lod, shade_lod) at c0": (profile_kernels(
             "the LOD frame at c0", lambda: lod.shade_lod(
@@ -6115,7 +6407,9 @@ def main():
             stepped["ms"][f"step_{route}"][0])
     say(f"[profile] {card}: us alone: esvo_stackless_lod "
         f"{us_or(alone['esvo_stackless_lod'])} (at 8 c0 "
-        f"{us_or(alone['esvo_stackless_lod 8c0'])}), brick_trace_lod "
+        f"{us_or(alone['esvo_stackless_lod 8c0'])}; the first form "
+        f"{us_or(alone['esvo_stackless_lod_serial'])}, at 8 c0 "
+        f"{us_or(alone['esvo_stackless_lod_serial 8c0'])}), brick_trace_lod "
         f"{us_or(alone['brick_trace_lod'])} (at 8 c0 "
         f"{us_or(alone['brick_trace_lod 8c0'])}), composite_bwd "
         f"{us_or(alone['composite_bwd'])}; " + "; ".join(
@@ -6204,7 +6498,8 @@ def main():
         f"without staged rows {us(alone[('brick_trace', 'unstaged')])}); "
         f"esvo_stackless {s_steps} steps, "
         f"bound {stackless_bound[0]:.5f} ms ({stackless_bound[1]}), "
-        f"{us(alone['esvo_stackless'])} us alone; esvo_trace {esvo_steps} steps, "
+        f"{us(alone['esvo_stackless'])} us alone (first form "
+        f"{us(alone[('esvo_stackless', 'first')])}); esvo_trace {esvo_steps} steps, "
         f"bound {esvo_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
         new_us, first_us, other_us = alone[f"phase1 {cname}"]
@@ -6398,12 +6693,24 @@ def main():
             launches=routes[row["route"]]["launches"], max_abs_err=err[kname],
             ms=m[f"{row['turns']}_turns"][0], us_alone=alone[kname],
             launches_train_step=train_launches[row["route"]][kname],
-            **({} if kname != "brick_trace" else dict(
+            **(dict(ms_first_form=m["trace_stackless_first_turns"][0],
+                    us_alone_first_form=alone[(kname, "first")],
+                    block=brick_cuda.BLOCKS[(kname, "patched")],
+                    variants=patched[kname])
+               if kname != "brick_trace" else dict(
                 ms_first_form=m["trace_brick_first_turns"][0],
                 us_alone_first_form=alone[(kname, "first")],
                 ms_unstaged_form=m["trace_brick_unstaged_turns"][0],
                 us_alone_unstaged_form=alone[(kname, "unstaged")])),
             warps={form: warp_counts[(kname, form)] for form in brick_cuda.FORMS[kname]}))
+        if kname == "esvo_stackless":
+            kernels.append(dict(
+                name="esvo_stackless_serial", **common,
+                path="brick_cuda.trace_stackless_cuda_serial (the first form, off "
+                     "the main path)",
+                launches=first_launches["esvo_stackless_serial"],
+                max_abs_err=err["esvo_stackless_serial"],
+                ms=m["trace_stackless_first_turns"][0], us_alone=alone[(kname, "first")]))
         if kname == "brick_trace":
             kernels += [dict(name=f"brick_trace_{suffix}", **common,
                              path=f"brick_cuda.{call} ({what}, off the main path)",
@@ -6464,11 +6771,22 @@ def main():
                       bound_ms=row["bound"][0], bound_by=row["bound"][1],
                       library_ms=None)
         if kname == "esvo_stackless_multi":
-            kernels.append(dict(
-                name=kname, **common, path=row["path"],
-                launches=served["launches"][kname], max_abs_err=err[kname],
-                ms=vm[kname][0], us_alone=alone[kname],
-                warps=served["warps"][(kname, "first")]))
+            kernels += [
+                dict(name=kname, **common, path=row["path"] + " (the patched form)",
+                     launches=served["launches"][kname], max_abs_err=err[kname],
+                     ms=vm[kname][0], us_alone=alone[kname], other_form="first",
+                     ms_other_form=vm[kname + "_serial"][0],
+                     us_alone_other_form=alone[kname + "_serial"],
+                     block=brick_cuda.BLOCKS[(kname, "patched")],
+                     variants=patched[kname],
+                     warps={form: served["warps"][(kname, form)]
+                            for form in brick_cuda.FORMS[kname]}),
+                dict(name=kname + "_serial", **common,
+                     path="brick_cuda.trace_multi_cuda_serial (the first form, off "
+                          "the main path)",
+                     launches=first_launches[kname + "_serial"],
+                     max_abs_err=err[kname + "_serial"], ms=vm[kname + "_serial"][0],
+                     us_alone=alone[kname + "_serial"])]
             continue
         kernels += [
             dict(name=kname, **common, path=row["path"] + " (the staged form)",
@@ -6534,15 +6852,23 @@ def main():
         f"on {touched_v} leaves, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}), "
         f"{us_or(alone['composite_bwd'])} us alone")
     sm = stepped["ms"]
+    lod_rows["esvo_stackless_lod_serial"] = dict(
+        lod_rows["esvo_stackless_lod"],
+        path="brick_cuda.trace_lod_cuda_serial (the first form, off the main path)")
+    lod_rows["esvo_stackless_lod"]["path"] += " (the patched form)"
     for kname, row in lod_rows.items():
         kernels.append(dict(
             name=kname, route="cuda", source=src + "brick_trace.cu",
             replaces=row["replaces"], path=row["path"],
-            launches=lodded["launches"][kname], max_abs_err=err[kname],
+            launches=(first_launches[kname] if kname.endswith("_serial")
+                      else lodded["launches"][kname]), max_abs_err=err[kname],
             ms=lodded["ms"][kname][0], plain_ms=row["plain_ms"],
             bound_ms=row["bound"][0], bound_by=row["bound"][1], library_ms=None,
             us_alone=alone[kname], coef=LOD_C0, ms_8c0=lodded["ms"][kname + "_8c0"][0],
-            us_alone_8c0=alone[kname + " 8c0"]))
+            us_alone_8c0=alone[kname + " 8c0"],
+            **({} if kname != "esvo_stackless_lod" else dict(
+                variants=patched["esvo_stackless_lod c0"],
+                variants_8c0=patched["esvo_stackless_lod 8c0"]))))
     kernels.append(dict(
         name="composite_bwd", route="cuda", source=src + "shade.cu",
         replaces="raytracingtest_tpu/diff.py:377",

@@ -24,7 +24,8 @@ Seven libraries, each built on first use into
                      in its brickmap mode too (the streamed world), and its
                      first form;
   * ``brick_trace`` — ``csrc/brick_trace.cu`` with nvcc for ``sm_90a``: the
-                     per-ray stackless trace and the per-ray brick trace
+                     per-ray stackless trace (a patched form and its
+                     first form) and the per-ray brick trace
                      in its forms, each also with counters, their
                      k-segment forms (``esvo_stackless_multi``,
                      ``brick_trace_multi``, the latter in a staged form and
@@ -218,18 +219,23 @@ def _declare_candidates(lib):
 
 def _declare_brick(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.esvo_stackless.argtypes = [p] * 6 + [i] * 2 + [p] * 7
-    lib.esvo_stackless_probe.argtypes = [p] * 6 + [i] * 2 + [p] * 8
+    # the stackless traces' patched forms take the node row table, the
+    # image width and the block; their first forms the four arrays
+    lib.esvo_stackless.argtypes = [p] * 3 + [i] * 4 + [p] * 7
+    lib.esvo_stackless_serial.argtypes = [p] * 6 + [i] * 2 + [p] * 7
+    lib.esvo_stackless_probe.argtypes = [i] + [p] * 7 + [i] * 4 + [p] * 8
     for fn in (lib.brick_trace, lib.brick_trace_serial, lib.brick_trace_unstaged):
         fn.argtypes = [p] * 6 + [i] * 3 + [p] * 7
     lib.brick_trace_probe.argtypes = [i] + [p] * 6 + [i] * 3 + [p] * 8
-    lib.esvo_stackless_multi.argtypes = [p] * 6 + [i] * 3 + [p] * 7
-    lib.esvo_stackless_multi_probe.argtypes = [p] * 6 + [i] * 3 + [p] * 8
+    lib.esvo_stackless_multi.argtypes = [p] * 3 + [i] * 5 + [p] * 7
+    lib.esvo_stackless_multi_serial.argtypes = [p] * 6 + [i] * 3 + [p] * 7
+    lib.esvo_stackless_multi_probe.argtypes = [i] + [p] * 7 + [i] * 5 + [p] * 8
     lib.brick_trace_multi.argtypes = [p] * 6 + [i] * 4 + [p] * 7
     lib.brick_trace_multi_serial.argtypes = [p] * 6 + [i] * 4 + [p] * 7
     lib.brick_trace_multi_probe.argtypes = [i] + [p] * 6 + [i] * 4 + [p] * 8
     f = ctypes.c_float
-    lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
+    lib.esvo_stackless_lod.argtypes = [p] * 3 + [i] * 4 + [f] * 2 + [p] * 8
+    lib.esvo_stackless_lod_serial.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4
     for fn in (lib.clipmap_trace, lib.clipmap_trace_serial, lib.clipmap_trace_brick,
@@ -251,13 +257,14 @@ def _declare_brick(lib):
     for fn in (lib.level_round, lib.level_round_serial, lib.level_round_probe,
                lib.level_queue, lib.level_queue_serial):
         fn.restype = i
-    for fn in (lib.esvo_stackless, lib.esvo_stackless_probe, lib.brick_trace,
+    for fn in (lib.esvo_stackless, lib.esvo_stackless_serial,
+               lib.esvo_stackless_probe, lib.brick_trace,
                lib.brick_trace_serial, lib.brick_trace_unstaged,
                lib.brick_trace_probe, lib.esvo_stackless_multi,
-               lib.esvo_stackless_multi_probe,
+               lib.esvo_stackless_multi_serial, lib.esvo_stackless_multi_probe,
                lib.brick_trace_multi, lib.brick_trace_multi_serial,
                lib.brick_trace_multi_probe, lib.esvo_stackless_lod,
-               lib.brick_trace_lod):
+               lib.esvo_stackless_lod_serial, lib.brick_trace_lod):
         fn.restype = i
 
 

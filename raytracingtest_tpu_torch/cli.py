@@ -161,7 +161,7 @@ def cmd_render(args):
             img = lod_mod.shade_lod(svo, node_albedo, node_normal, res, d)
         else:
             img, _ = lod_mod.render_lod(svo, node_albedo, node_normal, o, d,
-                                        args.lod_coef)
+                                        args.lod_coef, width=cam.width)
         img = img.reshape(shape)
     elif args.attachments:
         # shading from the compressed 64-bit attachment words

@@ -188,8 +188,12 @@ constexpr int PREFIX_ROW_WORDS = ROW_WORDS + 16;
 constexpr int DDA_ROUND_STEPS = 30;  // the reference's DDA loop: 26 rounded up to 6s
 constexpr int N_STATS = 5;           // rounds, DDA steps, capped rounds, DDA max, unfinished
 constexpr int STEP_ON = 0, STEP_LEAF = 1, STEP_EXIT = 2;
-constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3;
+constexpr int FORM_FIRST = 0, FORM_WIDE = 1, FORM_UNSTAGED = 2, FORM_STAGED = 3,
+              FORM_PATCHED = 4;
 constexpr int WIDE_BLOCK = 256;  // the wide form's block
+// the stackless traces' patched form: a warp's 8 x 4 pixel patch, and the
+// largest block it is compiled for
+constexpr int PATCH_W = 8, PATCH_H = 4, PATCH_BLOCK_MAX = 256;
 constexpr int MULTI_BLOCK = 32;  // the staged brick_trace_multi's block
 // shared memory a block: above SMEM_STATIC only after opting in
 // (cudaFuncSetAttribute); SMEM_MAX, the most an sm_90 block can have
@@ -303,14 +307,26 @@ struct LodStep {
 // (fast_step's LOD mode, not with COLLECT): entering a small non-leaf child
 // returns STEP_NODE with its row in ls.node, the walk registers left as
 // they were; entering a leaf child sets ls.big, whether it is small.
-template <bool COLLECT, bool LOD = false>
+// ROWS (the stackless traces' patched form): the node's fields come from
+// *row, the current parent's row of the (n_nodes, 4) table `rows` (masks,
+// child_base, parent_ptr, leaf_base), kept in registers; the step reads the
+// next row, one 16-byte load, only where the node changes (a PUSH or a POP),
+// and the three arrays are not read. A recorded segment's `rank` is then the
+// leaf id (the row's leaf_base plus the rank).
+template <bool COLLECT, bool LOD = false, bool ROWS = false>
 __device__ __forceinline__ int walk_step(
     const Ray& r, Walk& w, const int* __restrict__ masks,
     const int* __restrict__ child, const int* __restrict__ parent_ptr,
     int& child_shift, int& leaf_rank, Seg& seg, const Lod* lod = nullptr,
-    LodStep* ls = nullptr) {
+    LodStep* ls = nullptr, int4* row = nullptr,
+    const int4* __restrict__ rows = nullptr) {
   static_assert(!(COLLECT && LOD), "the LOD walk has no collect mode");
-  const int desc = __ldg(masks + w.parent);
+  int desc;
+  if constexpr (ROWS) {
+    desc = row->x;
+  } else {
+    desc = __ldg(masks + w.parent);
+  }
   const int vm = (desc >> 8) & 0xFF;
   const int lm = desc & 0xFF;
   const float scale_exp2 = __int_as_float((w.scale - S_MAX + 127) << 23);
@@ -342,7 +358,11 @@ __device__ __forceinline__ int walk_step(
   if (enter && ((lm >> child_shift) & 1)) {  // a leaf child
     leaf_rank = __popc(vm & lm & below);
     if constexpr (COLLECT) {  // record the segment, then ADVANCE
-      seg = Seg{w.parent, leaf_rank, w.t_min, tv_max};
+      if constexpr (ROWS) {
+        seg = Seg{w.parent, row->w + leaf_rank, w.t_min, tv_max};
+      } else {
+        seg = Seg{w.parent, leaf_rank, w.t_min, tv_max};
+      }
       collected = STEP_COLLECTED;
     } else {  // hit, or park
       if constexpr (LOD) ls->big = tc_max * lod->coef + lod->bias >= scale_exp2;
@@ -352,12 +372,21 @@ __device__ __forceinline__ int walk_step(
   } else if (enter) {  // PUSH
     if constexpr (LOD) {  // or stop at a small child: its size is 2 * half
       if (tc_max * lod->coef + lod->bias >= scale_exp2) {
-        ls->node = __ldg(child + w.parent) + __popc(vm & ~lm & below);
+        if constexpr (ROWS) {
+          ls->node = row->y + __popc(vm & ~lm & below);
+        } else {
+          ls->node = __ldg(child + w.parent) + __popc(vm & ~lm & below);
+        }
         return STEP_NODE;
       }
     }
     const float half = scale_exp2 * 0.5f;
-    w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
+    if constexpr (ROWS) {
+      w.parent = row->y + __popc(vm & ~lm & below);
+      *row = __ldg(rows + w.parent);
+    } else {
+      w.parent = __ldg(child + w.parent) + __popc(vm & ~lm & below);
+    }
     int idx = 0;
     for (int c = 0; c < 3; ++c) {
       if (half * r.t_coef[c] + tc[c] > w.t_min) {
@@ -392,7 +421,12 @@ __device__ __forceinline__ int walk_step(
   }
   for (int c = 0; c < 3; ++c) w.pos[c] = parent_pos[c];
   w.idx = (psh[0] & 1) | ((psh[1] & 1) << 1) | ((psh[2] & 1) << 2);
-  w.parent = __ldg(parent_ptr + w.parent);
+  if constexpr (ROWS) {
+    w.parent = row->z;
+    *row = __ldg(rows + w.parent);
+  } else {
+    w.parent = __ldg(parent_ptr + w.parent);
+  }
   w.scale += 1;
   w.popped = true;
   return STEP_ON | collected;
@@ -572,16 +606,20 @@ struct Slots {
 
 // Ray i's stackless walk over the full tree, at most
 // max_iters_for_depth(depth) steps; LOD: with the footprint stop, its node
-// row written to lod.hit_node.
-template <bool PROBE, bool LOD>
+// row written to lod.hit_node. ROWS: the walk over the node row table
+// `rows` (walk_step's ROWS mode), the root's row read at set-up.
+template <bool PROBE, bool LOD, bool ROWS = false>
 __device__ __forceinline__ void stackless_ray(const Tree& tree,
                                               const Rays& rays, const Out& out,
                                               int i, Probe<PROBE>& probe,
-                                              const Lod* lod) {
+                                              const Lod* lod,
+                                              const int4* __restrict__ rows = nullptr) {
   long long t = probe.enter(PH_RAY);
   Ray r;
   Walk w;
   bool done = setup(rays.origin, rays.direction, i, r, w);
+  int4 row;
+  if constexpr (ROWS) row = __ldg(rows);
   probe.leave(PH_RAY, t);
   const int n_max = max_iters_for_depth(tree.depth);
   int hp = -1, hc = 0, leaf = -1, it = 0, node = -1;
@@ -594,15 +632,21 @@ __device__ __forceinline__ void stackless_ray(const Tree& tree,
     if constexpr (LOD) {
       Seg unused;
       LodStep ls;
-      what = walk_step<false, true>(r, w, tree.masks, tree.child,
-                                    tree.parent_ptr, child_shift, leaf_rank,
-                                    unused, lod, &ls);
+      what = walk_step<false, true, ROWS>(r, w, tree.masks, tree.child,
+                                          tree.parent_ptr, child_shift,
+                                          leaf_rank, unused, lod, &ls, &row,
+                                          rows);
       if (what == STEP_NODE) {
         hp = w.parent;
         hc = child_shift;
         ht = w.t_min;
         node = ls.node;
       }
+    } else if constexpr (ROWS) {
+      Seg unused;
+      what = walk_step<false, false, true>(r, w, nullptr, nullptr, nullptr,
+                                           child_shift, leaf_rank, unused,
+                                           nullptr, nullptr, &row, rows);
     } else {
       what = stackless_step(r, w, tree.masks, tree.child, tree.parent_ptr,
                             child_shift, leaf_rank);
@@ -611,7 +655,11 @@ __device__ __forceinline__ void stackless_ray(const Tree& tree,
       hp = w.parent;
       hc = child_shift;
       ht = w.t_min;
-      leaf = __ldg(tree.leaf_base + hp) + leaf_rank;
+      if constexpr (ROWS) {
+        leaf = row.w + leaf_rank;
+      } else {
+        leaf = __ldg(tree.leaf_base + hp) + leaf_rank;
+      }
     }
     done = what != STEP_ON;
     probe.leave(PH_STEP, t);
@@ -642,6 +690,46 @@ esvo_stackless_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
   Probe<false> probe;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < rays.n) stackless_ray<false, true>(tree, rays, out, i, probe, &lod);
+}
+
+// The patched form's thread order. Without an image (width 0), thread t
+// walks ray t. For an image of `width` columns and n / width rows, rays in
+// row-major order, warp p of the launch walks the p-th 8 x 4 pixel patch,
+// patches in row-major order over the image (ceil(width / 8) a patch row),
+// lane l its pixel (l % 8, l / 8); a lane past the right or bottom edge has
+// no ray (-1). brick_cuda.patch_order is the same map.
+__device__ __forceinline__ int patch_ray(int t, int n, int width) {
+  if (width <= 0) return t < n ? t : -1;
+  const int height = n / width;
+  const int pw = (width + PATCH_W - 1) / PATCH_W;
+  const int p = t >> 5, l = t & 31;
+  const int x = (p % pw) * PATCH_W + (l % PATCH_W);
+  const int y = (p / pw) * PATCH_H + l / PATCH_W;
+  return (x < width && y < height) ? y * width + x : -1;
+}
+
+// The threads a patched launch runs: n, or every lane of the image's patches.
+long long patch_threads(int n, int width) {
+  if (width <= 0) return n;
+  const long long pw = (width + PATCH_W - 1) / PATCH_W;
+  const long long ph = (n / width + PATCH_H - 1) / PATCH_H;
+  return pw * ph * 32;
+}
+
+// The patched form of esvo_stackless (LOD: of esvo_stackless_lod): one
+// thread a ray in the patch order, the walk over the node row table.
+// Compiled for blocks of up to PATCH_BLOCK_MAX threads; launched with the
+// caller's block (brick_cuda.BLOCKS).
+template <bool PROBE, bool LOD>
+__global__ void __launch_bounds__(PATCH_BLOCK_MAX)
+esvo_stackless_patched_kernel(const int4* __restrict__ rows, Tree tree,
+                              Rays rays, int width, Out out, Lod lod,
+                              long long* __restrict__ probe_out) {
+  Probe<PROBE> probe;
+  probe.begin();
+  const int i = patch_ray(blockIdx.x * blockDim.x + threadIdx.x, rays.n, width);
+  if (i >= 0) stackless_ray<PROBE, LOD, true>(tree, rays, out, i, probe, &lod, rows);
+  probe.finish(probe_out);
 }
 
 // ---- brick_trace -----------------------------------------------------------
@@ -953,6 +1041,60 @@ esvo_stackless_multi_probe_kernel(Tree tree, Rays rays, MultiOut out,
   probe.begin();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < rays.n) stackless_multi_ray(tree, rays, out, i, probe);
+  probe.finish(probe_out);
+}
+
+// Ray i of esvo_stackless_multi's patched form: the first form's walk over
+// the node row table (walk_step's ROWS mode), a segment's leaf id taken
+// from the row in registers; PROBE: with the counters.
+template <bool PROBE>
+__device__ __forceinline__ void stackless_multi_rows_ray(
+    const int4* __restrict__ rows, const Rays& rays, int depth,
+    const MultiOut& out, int i, Probe<PROBE>& probe) {
+  long long t = probe.enter(PH_RAY);
+  Ray r;
+  Walk w;
+  bool done = setup(rays.origin, rays.direction, i, r, w);
+  int4 row = __ldg(rows);
+  probe.leave(PH_RAY, t);
+  const int n_max = max_iters_for_depth(depth) + 8 * out.k;
+  int count = 0, it = 0;
+  while (!done && it < n_max) {
+    t = probe.enter(PH_STEP);
+    ++it;
+    int child_shift, leaf_rank;
+    Seg seg;
+    const int what = walk_step<true, false, true>(
+        r, w, nullptr, nullptr, nullptr, child_shift, leaf_rank, seg, nullptr,
+        nullptr, &row, rows);
+    probe.leave(PH_STEP, t);
+    if (what & STEP_COLLECTED) {
+      t = probe.enter(PH_SEG);
+      write_segment(out, i, count, seg.rank, seg.t_in, seg.t_out);
+      done = ++count >= out.k;
+      probe.leave(PH_SEG, t);
+    }
+    done = done || (what & STEP_WHAT) == STEP_EXIT;
+  }
+  t = probe.enter(PH_RAY);
+  finish_multi(out, i, count, it);
+  write_stats(out.stats, i, 0, 0, 0, 0, !done);
+  probe.ray();
+  probe.leave(PH_RAY, t);
+}
+
+// esvo_stackless_multi's patched form: one thread a ray in the patch order
+// (patch_ray), the walk over the node row table; blocks as the caller asks,
+// up to PATCH_BLOCK_MAX.
+template <bool PROBE>
+__global__ void __launch_bounds__(PATCH_BLOCK_MAX)
+esvo_stackless_multi_patched_kernel(const int4* __restrict__ rows, Rays rays,
+                                    int depth, int width, MultiOut out,
+                                    long long* __restrict__ probe_out) {
+  Probe<PROBE> probe;
+  probe.begin();
+  const int i = patch_ray(blockIdx.x * blockDim.x + threadIdx.x, rays.n, width);
+  if (i >= 0) stackless_multi_rows_ray<PROBE>(rows, rays, depth, out, i, probe);
   probe.finish(probe_out);
 }
 
@@ -2355,6 +2497,44 @@ int launch_stackless(const void* masks, const void* child_base,
   return (int)cudaGetLastError();
 }
 
+// A patched launch's arguments: an image width that divides n (0: none),
+// a block of whole warps up to PATCH_BLOCK_MAX, and a grid that int holds.
+bool patched_ok(int n, int depth, int width, int block) {
+  return n >= 0 && depth >= 1 && depth <= S_MAX - 1 && width >= 0 &&
+         (width == 0 || n % width == 0) && block >= 32 &&
+         block <= PATCH_BLOCK_MAX && block % 32 == 0 &&
+         patch_threads(n, width) + block < (1LL << 31);
+}
+
+// One launch of the patched esvo_stackless (LOD: esvo_stackless_lod, which
+// has no probe form) in blocks of `block` threads (probe: with the
+// counters).
+template <bool LOD>
+int launch_stackless_patched(const void* rows, const void* origin,
+                             const void* direction, int n, int depth,
+                             int width, int block, const Out& out,
+                             const Lod& lod, void* probe, void* stream) {
+  if (!patched_ok(n, depth, width, block)) return (int)cudaErrorInvalidValue;
+  const long long threads = patch_threads(n, width);
+  if (threads > 0) {
+    const Tree tree{nullptr, nullptr, nullptr, nullptr, nullptr, depth, 0};
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const int blocks = (int)((threads + block - 1) / block);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int4* r = (const int4*)rows;
+    long long* p = (long long*)probe;
+    if (p) {
+      if constexpr (LOD) return (int)cudaErrorInvalidValue;
+      else esvo_stackless_patched_kernel<true, false><<<blocks, block, 0, s>>>(
+          r, tree, rays, width, out, lod, p);
+    } else {
+      esvo_stackless_patched_kernel<false, LOD><<<blocks, block, 0, s>>>(
+          r, tree, rays, width, out, lod, p);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool STAGE, int B>
 void brick_launch(const Tree& tree, const Rays& rays, const Out& out,
                   long long* p, cudaStream_t s) {
@@ -2442,6 +2622,32 @@ int launch_stackless_multi(const void* masks, const void* child_base,
   return (int)cudaGetLastError();
 }
 
+// One launch of esvo_stackless_multi's patched form in blocks of `block`
+// threads (probe: with the counters).
+int launch_stackless_multi_patched(const void* rows, const void* origin,
+                                   const void* direction, int n, int depth,
+                                   int width, int block, const MultiOut& out,
+                                   void* probe, void* stream) {
+  if (!patched_ok(n, depth, width, block) || out.k < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long threads = patch_threads(n, width);
+  if (threads > 0) {
+    const Rays rays{(const float*)origin, (const float*)direction, n};
+    const int blocks = (int)((threads + block - 1) / block);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int4* r = (const int4*)rows;
+    long long* p = (long long*)probe;
+    if (p) {
+      esvo_stackless_multi_patched_kernel<true><<<blocks, block, 0, s>>>(
+          r, rays, depth, width, out, p);
+    } else {
+      esvo_stackless_multi_patched_kernel<false><<<blocks, block, 0, s>>>(
+          r, rays, depth, width, out, p);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 // One launch of brick_trace_multi in `form` (FORM_FIRST or FORM_STAGED;
 // probe: with the counters).
 int launch_brick_multi(int form, const void* top_masks, const void* top_child,
@@ -2477,33 +2683,58 @@ int launch_brick_multi(int form, const void* top_masks, const void* top_child,
 
 }  // namespace
 
-extern "C" int esvo_stackless(const void* masks, const void* child_base,
-                              const void* parent_ptr, const void* leaf_base,
-                              const void* origin, const void* direction, int n,
-                              int depth, void* hit_leaf, void* hit_t,
-                              void* hit_parent, void* hit_child, void* iters,
-                              void* stats, void* stream) {
+// The patched form, the main path's: the node row table `rows` ((n_nodes,
+// 4) int32: masks, child_base, parent_ptr, leaf_base), rays in the patch
+// order of an image `width` columns wide (0: their own order), blocks of
+// `block` threads.
+extern "C" int esvo_stackless(const void* rows, const void* origin,
+                              const void* direction, int n, int depth,
+                              int width, int block, void* hit_leaf,
+                              void* hit_t, void* hit_parent, void* hit_child,
+                              void* iters, void* stats, void* stream) {
+  return launch_stackless_patched<false>(
+      rows, origin, direction, n, depth, width, block,
+      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats), Lod{},
+      nullptr, stream);
+}
+
+// The first form: one thread a ray in blocks of 128, the three arrays read
+// as the step needs them.
+extern "C" int esvo_stackless_serial(const void* masks, const void* child_base,
+                                     const void* parent_ptr,
+                                     const void* leaf_base, const void* origin,
+                                     const void* direction, int n, int depth,
+                                     void* hit_leaf, void* hit_t,
+                                     void* hit_parent, void* hit_child,
+                                     void* iters, void* stats, void* stream) {
   return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
                           direction, n, depth,
                           outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
                           nullptr, stream);
 }
 
-// With the counters: `probe` holds PROBE_WORDS int64 words for each warp of
-// the launch.
-extern "C" int esvo_stackless_probe(const void* masks, const void* child_base,
+// `form` (FORM_FIRST: the arrays, width 0; FORM_PATCHED: the row table,
+// width and block) with the counters: `probe` holds PROBE_WORDS int64 words
+// for each warp of the launch.
+extern "C" int esvo_stackless_probe(int form, const void* rows,
+                                    const void* masks, const void* child_base,
                                     const void* parent_ptr,
                                     const void* leaf_base, const void* origin,
                                     const void* direction, int n, int depth,
-                                    void* hit_leaf, void* hit_t,
-                                    void* hit_parent, void* hit_child,
-                                    void* iters, void* stats, void* probe,
-                                    void* stream) {
+                                    int width, int block, void* hit_leaf,
+                                    void* hit_t, void* hit_parent,
+                                    void* hit_child, void* iters, void* stats,
+                                    void* probe, void* stream) {
+  const Out out = outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats);
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
-                          direction, n, depth,
-                          outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
-                          probe, stream);
+  if (form == FORM_FIRST && width == 0)
+    return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
+                            direction, n, depth, out, probe, stream);
+  if (form == FORM_PATCHED)
+    return launch_stackless_patched<false>(rows, origin, direction, n, depth,
+                                           width, block, out, Lod{}, probe,
+                                           stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The wide form, the main path's.
@@ -2562,15 +2793,27 @@ extern "C" int brick_trace_probe(int form, const void* top_masks,
                       probe, stream);
 }
 
-// esvo_stackless with the footprint stop coef, bias: hit_node (n,) beside
-// its outputs.
-extern "C" int esvo_stackless_lod(const void* masks, const void* child_base,
-                                  const void* parent_ptr, const void* leaf_base,
-                                  const void* origin, const void* direction,
-                                  int n, int depth, float coef, float bias,
+// esvo_stackless's patched form with the footprint stop coef, bias:
+// hit_node (n,) beside its outputs.
+extern "C" int esvo_stackless_lod(const void* rows, const void* origin,
+                                  const void* direction, int n, int depth,
+                                  int width, int block, float coef, float bias,
                                   void* hit_leaf, void* hit_t, void* hit_parent,
                                   void* hit_child, void* iters, void* hit_node,
                                   void* stats, void* stream) {
+  return launch_stackless_patched<true>(
+      rows, origin, direction, n, depth, width, block,
+      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+      Lod{coef, bias, 0, (int*)hit_node}, nullptr, stream);
+}
+
+// The first form with the footprint stop.
+extern "C" int esvo_stackless_lod_serial(
+    const void* masks, const void* child_base, const void* parent_ptr,
+    const void* leaf_base, const void* origin, const void* direction, int n,
+    int depth, float coef, float bias, void* hit_leaf, void* hit_t,
+    void* hit_parent, void* hit_child, void* iters, void* hit_node,
+    void* stats, void* stream) {
   if (n < 0 || depth < 1 || depth > S_MAX - 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tree tree{(const int*)masks, (const int*)child_base,
@@ -2613,32 +2856,51 @@ extern "C" int brick_trace_lod(const void* top_masks, const void* top_child,
 
 // The first k leaf segments of each ray, the stackless walk over the full
 // tree: (n, k) hit_leaf, t_in, t_out, (n,) count and iters, stats (n, 5) or
-// null. One thread a ray in blocks of 128 (a staged form measured no
-// faster, PERF.md).
-extern "C" int esvo_stackless_multi(const void* masks, const void* child_base,
-                                    const void* parent_ptr,
-                                    const void* leaf_base, const void* origin,
+// null. The patched form, the main path's: the node row table, the rays in
+// the patch order of an image `width` columns wide (0: their own order),
+// blocks of `block` threads.
+extern "C" int esvo_stackless_multi(const void* rows, const void* origin,
                                     const void* direction, int n, int depth,
-                                    int k, void* hit_leaf, void* t_in,
-                                    void* t_out, void* count, void* iters,
-                                    void* stats, void* stream) {
+                                    int width, int block, int k,
+                                    void* hit_leaf, void* t_in, void* t_out,
+                                    void* count, void* iters, void* stats,
+                                    void* stream) {
+  return launch_stackless_multi_patched(
+      rows, origin, direction, n, depth, width, block,
+      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
+      stream);
+}
+
+// The first form: one thread a ray in blocks of 128 writing each segment as
+// it is found (a staged form measured no faster, PERF.md).
+extern "C" int esvo_stackless_multi_serial(
+    const void* masks, const void* child_base, const void* parent_ptr,
+    const void* leaf_base, const void* origin, const void* direction, int n,
+    int depth, int k, void* hit_leaf, void* t_in, void* t_out, void* count,
+    void* iters, void* stats, void* stream) {
   return launch_stackless_multi(
       masks, child_base, parent_ptr, leaf_base, origin, direction, n, depth,
       multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), nullptr,
       stream);
 }
 
-// With the counters.
+// `form` (FORM_FIRST, width 0, or FORM_PATCHED) with the counters.
 extern "C" int esvo_stackless_multi_probe(
-    const void* masks, const void* child_base, const void* parent_ptr,
-    const void* leaf_base, const void* origin, const void* direction, int n,
-    int depth, int k, void* hit_leaf, void* t_in, void* t_out, void* count,
-    void* iters, void* stats, void* probe, void* stream) {
+    int form, const void* rows, const void* masks, const void* child_base,
+    const void* parent_ptr, const void* leaf_base, const void* origin,
+    const void* direction, int n, int depth, int width, int block, int k,
+    void* hit_leaf, void* t_in, void* t_out, void* count, void* iters,
+    void* stats, void* probe, void* stream) {
+  const MultiOut out = multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k);
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_stackless_multi(
-      masks, child_base, parent_ptr, leaf_base, origin, direction, n, depth,
-      multi_outputs(hit_leaf, t_in, t_out, count, iters, stats, k), probe,
-      stream);
+  if (form == FORM_FIRST && width == 0)
+    return launch_stackless_multi(masks, child_base, parent_ptr, leaf_base,
+                                  origin, direction, n, depth, out, probe,
+                                  stream);
+  if (form == FORM_PATCHED)
+    return launch_stackless_multi_patched(rows, origin, direction, n, depth,
+                                          width, block, out, probe, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The first k leaf segments of each ray through the top tree and its

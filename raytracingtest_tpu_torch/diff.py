@@ -168,29 +168,31 @@ def loss_and_grads_cuda(albedo, normal, density, svo, o, d, light_dir,
 
 
 def render_diff(albedo, normal, density, svo, o, d, light_dir,
-                light_intensity=1.3, light_ambient=0.08):
+                light_intensity=1.3, light_ambient=0.08, width=None):
     """Render a flat batch of (N, 3) rays, any N, through the stackless
     trace (kernel ``esvo_stackless`` for CUDA tensors), then shade. Returns
     (N, 3) radiance, differentiable in the three parameter tensors. The SVO's
-    parent_ptr is derived on the fly when it has none; hot paths give it
-    one."""
+    parent_ptr, where it has none, is derived once and kept with the tree
+    (``traverse.parent_ptr_of``). `width`: the rays are a row-major image
+    that wide, which the kernel walks in pixel patches; no output changes."""
     with torch.no_grad():
-        res = brick_cuda.trace_stackless_cuda(svo, o, d)
+        res = brick_cuda.trace_stackless_cuda(svo, o, d, width=width)
     return shade_diff(res.hit_leaf, d, albedo, normal, density,
                       light_dir, light_intensity, light_ambient)
 
 
-def l2_loss(albedo, normal, density, svo, o, d, light_dir, target):
+def l2_loss(albedo, normal, density, svo, o, d, light_dir, target, width=None):
     """Mean squared error of the stackless frame against `target` (N, 3)."""
-    img = render_diff(albedo, normal, density, svo, o, d, light_dir)
+    img = render_diff(albedo, normal, density, svo, o, d, light_dir, width=width)
     return torch.mean((img - target) ** 2)
 
 
-def loss_and_grads(albedo, normal, density, svo, o, d, light_dir, target):
+def loss_and_grads(albedo, normal, density, svo, o, d, light_dir, target,
+                   width=None):
     """One forward + backward step of the stackless frame: (loss,
-    (g_albedo, g_normal, g_density))."""
+    (g_albedo, g_normal, g_density)); `width` as ``render_diff``'s."""
     return _value_and_grads(
-        lambda a, n, s: l2_loss(a, n, s, svo, o, d, light_dir, target),
+        lambda a, n, s: l2_loss(a, n, s, svo, o, d, light_dir, target, width),
         albedo, normal, density)
 
 
@@ -308,16 +310,17 @@ def composite_segments(albedo, normal, density, hit_leaf, t_in, t_out, d,
 
 def render_volumetric(albedo, normal, density, svo, o, d, light_dir, k=4,
                       light_intensity=1.3, light_ambient=0.08,
-                      density_scale=64.0):
+                      density_scale=64.0, width=None):
     """Volumetric render of a flat batch of (N, 3) rays, any N: the first
     `k` leaf segments of each ray through the stackless trace (kernel
     ``esvo_stackless_multi`` for CUDA tensors), then ``composite_segments``.
     Per segment alpha = 1 - exp(-softplus(density) * density_scale *
     length), and the radiance sums the segments' transmitted Lambert
     colours and the sky behind them. Returns (N, 3) radiance,
-    differentiable in the three parameter tensors."""
+    differentiable in the three parameter tensors. `width`: as
+    ``render_diff``'s."""
     with torch.no_grad():
-        res = brick_cuda.trace_multi_cuda(svo, o, d, k)
+        res = brick_cuda.trace_multi_cuda(svo, o, d, k, width=width)
     return composite_segments(albedo, normal, density, res.hit_leaf, res.t_in,
                               res.t_out, d, light_dir, light_intensity,
                               light_ambient, density_scale)

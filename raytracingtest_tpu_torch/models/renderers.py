@@ -132,7 +132,8 @@ class SurfaceRenderer:
             if bsvo is not None:
                 img = diff.render_diff_brick(*params, bsvo, o, d, light, *shading)
             else:
-                img = diff.render_diff(*params, self.svo, o, d, light, *shading)
+                img = diff.render_diff(*params, self.svo, o, d, light, *shading,
+                                       width=camera_cfg.width)
         return img.reshape(shape)
 
     def render_progressive(self, camera_cfg: CameraConfig,
@@ -182,7 +183,8 @@ class VolumetricRenderer:
             if bsvo is not None:
                 img = diff.render_volumetric_brick(*params, bsvo, o, d, light, **kw)
             else:
-                img = diff.render_volumetric(*params, self.svo, o, d, light, **kw)
+                img = diff.render_volumetric(*params, self.svo, o, d, light, **kw,
+                                             width=camera_cfg.width)
         return img.reshape(camera_cfg.height, camera_cfg.width, 3)
 
 
@@ -271,13 +273,15 @@ class InverseRenderer:
             return put(o), put(d)
         return put(o), put(d), put(target)
 
-    def step(self, params, opt_state, o, d, light, target):
+    def step(self, params, opt_state, o, d, light, target, width=None):
         """One train step on a flat batch of (N, 3) rays against `target`
         (N, 3), any N (sharded: this rank's shards, ``shard_rays``), on the
         reference's route: through the brick trace
         (``diff.loss_and_grads_brick``) when the tree has bricks (depth >=
-        4), else through the stackless trace (``diff.loss_and_grads``).
-        Returns (params, opt_state, loss)."""
+        4), else through the stackless trace (``diff.loss_and_grads``; with
+        `width`, the rays are a row-major image that wide, walked in pixel
+        patches, which changes no result). Returns (params, opt_state,
+        loss)."""
         if self.mesh is not None:
             tree = self._bsvo if self._bsvo is not None else self.svo
             return self._step(params, opt_state, tree, o, d, self._light(light),
@@ -288,7 +292,7 @@ class InverseRenderer:
                 *values, self._bsvo, o, d, self._light(light), target)
         else:
             loss, grads = diff.loss_and_grads(
-                *values, self.svo, o, d, self._light(light), target)
+                *values, self.svo, o, d, self._light(light), target, width)
         self._update(params, opt_state, grads)
         return params, opt_state, loss
 
@@ -319,7 +323,8 @@ class InverseRenderer:
             self._update(params, opt_state, grads)
             return params, opt_state, loss, residual
         o, d, target_img = self.shard_rays(*cam.rays(self.device), target_img)
-        params, opt_state, loss = self.step(params, opt_state, o, d, light,
-                                            target_img)
+        params, opt_state, loss = self.step(
+            params, opt_state, o, d, light, target_img,
+            width=camera_cfg.width if self.mesh is None else None)
         return params, opt_state, loss, torch.zeros(
             (), dtype=torch.int64, device=self.device)

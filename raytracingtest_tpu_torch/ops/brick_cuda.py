@@ -19,16 +19,28 @@ path: a build or launch failure raises.
 The kernels' forms give the same results (FORMS; the source's header says
 what each does, and PERF.md what it measured):
 
-  * ``esvo_stackless`` has one form, one thread a ray in blocks of 128:
-    ``trace_stackless_cuda``.
+  * ``esvo_stackless``'s ``patched`` form, the main path's
+    (``trace_stackless_cuda``): one thread a ray in blocks of 128, the walk
+    over the tree's node row table (``traverse.node_rows``: one 16-byte row
+    read where the ray's node changes, kept in registers), and with
+    ``width=`` the rays of a row-major image walked in warps of 8 x 4 pixel
+    patches (``patch_order``); ``width`` changes no output. Its ``first``
+    form, one thread a ray in blocks of 128 reading the masks, child_base,
+    parent_ptr and leaf_base arrays as the step needs them, in the rays' own
+    order, is ``trace_stackless_cuda_serial``, the check and the yardstick.
+    ``esvo_stackless_lod`` has the same two forms of the same body
+    (``trace_lod_cuda``, ``trace_lod_cuda_serial``).
   * ``brick_trace``'s ``wide`` form, the main path's (``trace_brick_cuda``):
     one thread a ray in blocks of 256, a parked ray's brick row staged in
     shared memory. Its ``first`` form, blocks of 128 and rows read as the
     DDA needs them, is ``trace_brick_cuda_serial``, the check and the
     yardstick; ``_brick_unstaged_kernel`` is the wide form without the
     staged row, which splits the wide form's gain between its two changes.
-  * ``esvo_stackless_multi`` has one form, one thread a ray in blocks of
-    128 writing each segment as it is found: ``trace_multi_cuda``.
+  * ``esvo_stackless_multi``'s ``patched`` form, the main path's
+    (``trace_multi_cuda``): ``esvo_stackless``'s patched form in collect
+    mode, a segment's leaf id taken from the row in registers. Its ``first``
+    form, one thread a ray in blocks of 128 writing each segment as it is
+    found, is ``trace_multi_cuda_serial``.
   * ``brick_trace_multi``'s ``staged`` form, the main path's
     (``trace_brick_multi_cuda``): the walk of ``brick_trace``'s wide form in
     collect mode, each ray's k slots staged in its warp's shared memory and
@@ -101,24 +113,28 @@ launches = {"esvo_stackless": 0, "brick_trace": 0, "esvo_stackless_multi": 0,
 form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0, "level_round_serial": 0,
                  "clipmap_trace_brick_serial": 0, "clipmap_trace_serial": 0,
-                 "level_queue_serial": 0}
+                 "level_queue_serial": 0, "esvo_stackless_serial": 0,
+                 "esvo_stackless_lod_serial": 0, "esvo_stackless_multi_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
                   "level_round_probe": 0, "clipmap_trace_brick_probe": 0,
                   "clipmap_trace_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
+_ESVO_STACKLESS_SERIAL = Kernel("esvo_stackless_serial", brick_lib)
 _ESVO_STACKLESS_PROBE = Kernel("esvo_stackless_probe", brick_lib)
 _BRICK_TRACE = Kernel("brick_trace", brick_lib)
 _BRICK_TRACE_SERIAL = Kernel("brick_trace_serial", brick_lib)
 _BRICK_TRACE_UNSTAGED = Kernel("brick_trace_unstaged", brick_lib)
 _BRICK_TRACE_PROBE = Kernel("brick_trace_probe", brick_lib)
 _ESVO_STACKLESS_MULTI = Kernel("esvo_stackless_multi", brick_lib)
+_ESVO_STACKLESS_MULTI_SERIAL = Kernel("esvo_stackless_multi_serial", brick_lib)
 _ESVO_STACKLESS_MULTI_PROBE = Kernel("esvo_stackless_multi_probe", brick_lib)
 _BRICK_TRACE_MULTI = Kernel("brick_trace_multi", brick_lib)
 _BRICK_TRACE_MULTI_SERIAL = Kernel("brick_trace_multi_serial", brick_lib)
 _BRICK_TRACE_MULTI_PROBE = Kernel("brick_trace_multi_probe", brick_lib)
 _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
+_ESVO_STACKLESS_LOD_SERIAL = Kernel("esvo_stackless_lod_serial", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_SERIAL = Kernel("clipmap_trace_serial", brick_lib)
@@ -142,22 +158,26 @@ PACKET_WORDS, REPLY_WORDS = 8, 2
 QBLOCK = 256
 QTILE = 16 * QBLOCK
 
-# each kernel's forms, the form numbers in the kernels, and the threads of
-# each kernel's forms' blocks (csrc/brick_trace.cu's BLOCK, WIDE_BLOCK,
-# MULTI_BLOCK and CLIP_BLOCK: clipmap_trace's wide form measured faster in
-# blocks of 128 than of 256)
+# each kernel's forms (a stackless trace's main path takes its first
+# entry; esvo_stackless_lod has esvo_stackless's), the form numbers in the
+# kernels, and the threads of each kernel's forms' blocks (csrc/
+# brick_trace.cu's BLOCK, WIDE_BLOCK, MULTI_BLOCK and CLIP_BLOCK:
+# clipmap_trace's wide form measured faster in blocks of 128 than of 256;
+# the patched forms take their block at launch, up to PATCH_BLOCK_MAX)
 FORMS = {"brick_trace": ("first", "wide", "unstaged"),
-         "esvo_stackless": ("first",),
+         "esvo_stackless": ("patched", "first"),
          "brick_trace_multi": ("staged", "first"),
-         "esvo_stackless_multi": ("first",),
+         "esvo_stackless_multi": ("patched", "first"),
          "clipmap_trace_brick": ("wide", "first"),
          "clipmap_trace": ("wide", "first"),
          "level_queue": ("one_pass", "first")}
-FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3}
+FORM_CODES = {"first": 0, "wide": 1, "unstaged": 2, "staged": 3, "patched": 4}
 BLOCKS = {("brick_trace", "first"): 128, ("brick_trace", "wide"): 256,
           ("brick_trace", "unstaged"): 256, ("esvo_stackless", "first"): 128,
+          ("esvo_stackless", "patched"): 128,
           ("brick_trace_multi", "staged"): 32, ("brick_trace_multi", "first"): 128,
           ("esvo_stackless_multi", "first"): 128,
+          ("esvo_stackless_multi", "patched"): 128,
           ("clipmap_trace_brick", "wide"): 256, ("clipmap_trace_brick", "first"): 128,
           ("clipmap_trace", "wide"): 128, ("clipmap_trace", "first"): 128,
           ("level_round", "first"): 128}
@@ -201,13 +221,59 @@ CLIP_NODE_PROBE_FIELDS = (("start", "end", "rays")
                           + ("sm", "ns_start", "ns_end"))
 
 
-def warps_of(n: int, kernel: str, form: str) -> int:
-    """Warps of a launch of `kernel` in `form` over `n` rays: the rows of a
-    probe form's record."""
+# the patched forms' pixel patch, a warp's (csrc/brick_trace.cu's PATCH_W,
+# PATCH_H), and the largest block they are compiled for (PATCH_BLOCK_MAX)
+PATCH_W, PATCH_H = 8, 4
+PATCH_BLOCK_MAX = 256
+
+
+def _width(n, width):
+    """`width` as a patched launch takes it: 0 for None (the rays' own
+    order), else an image width that divides the ray count."""
+    if width is None:
+        return 0
+    if int(width) != width or width < 1 or n % width:
+        raise ValueError(f"{n} rays are not a row-major image {width} wide")
+    return int(width)
+
+
+def patch_threads(n: int, width=None) -> int:
+    """The threads a patched launch over `n` rays runs: `n` without a
+    width, else every lane of the image's 8 x 4 patches."""
+    w = _width(n, width)
+    if not w:
+        return n
+    return -(-w // PATCH_W) * -(-(n // w) // PATCH_H) * 32
+
+
+def patch_order(n: int, width=None) -> torch.Tensor:
+    """The patched forms' thread order (csrc/brick_trace.cu's patch_ray):
+    (patch_threads(n, width),) int64, entry t the ray that thread t walks,
+    -1 for a lane with none. Without a width, the identity. For `n` rays of
+    a row-major image `width` wide, warp p walks the p-th 8 x 4 pixel patch
+    (patches in row-major order, ceil(width / 8) a patch row), lane l its
+    pixel (l % 8, l / 8); lanes past the right or bottom edge idle, and
+    every ray is walked once."""
+    w = _width(n, width)
+    t = torch.arange(patch_threads(n, width), dtype=torch.int64)
+    if not w:
+        return t
+    p, lane = t // 32, t % 32
+    pw = -(-w // PATCH_W)
+    x = (p % pw) * PATCH_W + lane % PATCH_W
+    y = (p // pw) * PATCH_H + lane // PATCH_W
+    return torch.where((x < w) & (y < n // w), y * w + x, -1)
+
+
+def warps_of(n: int, kernel: str, form: str, width=None, block=None) -> int:
+    """Warps of a launch of `kernel` in `form` over `n` rays (a patched
+    form's over an image `width` wide, in blocks of `block`, None: its
+    BLOCKS): the rows of a probe form's record."""
     if n < 0 or (kernel, form) not in BLOCKS:
         raise ValueError(f"ray count {n}, {kernel} form {form!r}")
-    span = BLOCKS[(kernel, form)]
-    return (n + span - 1) // span * (span // 32)
+    span = BLOCKS[(kernel, form)] if block is None else block
+    threads = patch_threads(n, width) if form == "patched" else n
+    return (threads + span - 1) // span * (span // 32)
 
 
 def _table(name, t):
@@ -261,43 +327,94 @@ def _check_k(k, n):
         raise ValueError(f"k = {k} segments a ray for {n} rays out of range")
 
 
-def _stackless_args(kernel, svo, origin, direction, with_stats, k=None):
-    """Check a stackless launch (a k-segment one with `k`); returns (n,
-    pointer arguments before the scalars, outputs, stats)."""
+def _block(block):
+    """A patched launch's block: whole warps, up to PATCH_BLOCK_MAX."""
+    if not (32 <= block <= PATCH_BLOCK_MAX and block % 32 == 0):
+        raise ValueError(f"block of {block} threads out of range")
+    return block
+
+
+def _stackless_args(kernel, svo, origin, direction, with_stats, k=None,
+                    form="first", width=None, block=None):
+    """Check a stackless launch in `form` (a k-segment one with `k`);
+    returns (n, the pointer arguments before the scalars, the scalars before
+    k and the LOD constants, outputs, stats). The patched form takes the
+    tree's node row table, the image width (0: none) and the block; the
+    first form the four arrays, each read as the step needs it."""
     n, rays = _rays(origin, direction)
-    parent_ptr = traverse.parent_ptr_of(svo)
-    kernel.check(origin.device, rays + (
-        _table("masks", svo.masks), _table("child_base", svo.child_base),
-        _table("parent_ptr", parent_ptr), _table("leaf_base", svo.leaf_base)))
+    if form == "patched":
+        rows = traverse.node_rows(svo)
+        kernel.check(origin.device, rays + (
+            ("rows", rows, _I32, (svo.masks.shape[0], 4)),))
+        heads = (rows.data_ptr(),)
+    else:
+        parent_ptr = traverse.parent_ptr_of(svo)
+        kernel.check(origin.device, rays + (
+            _table("masks", svo.masks), _table("child_base", svo.child_base),
+            _table("parent_ptr", parent_ptr), _table("leaf_base", svo.leaf_base)))
+        heads = (svo.masks.data_ptr(), svo.child_base.data_ptr(),
+                 parent_ptr.data_ptr(), svo.leaf_base.data_ptr())
     if not 1 <= svo.depth <= S_MAX - 1:
         raise ValueError(f"depth {svo.depth} out of range")
+    scalars = (n, svo.depth)
+    if form == "patched":
+        block = BLOCKS[("esvo_stackless_multi" if k else "esvo_stackless",
+                        form)] if block is None else _block(block)
+        if patch_threads(n, width) + block >= 2 ** 31:
+            raise ValueError(f"{n} rays in patches out of range")
+        scalars += (_width(n, width), block)
+    elif width is not None:
+        raise ValueError("the first form walks the rays in their own order")
     if k is None:
         out, stats = _outputs(n, origin.device, with_stats)
     else:
         _check_k(k, n)
         out, stats = _multi_outputs(n, k, origin.device, with_stats)
-    tables = (svo.masks.data_ptr(), svo.child_base.data_ptr(),
-              parent_ptr.data_ptr(), svo.leaf_base.data_ptr(),
-              origin.data_ptr(), direction.data_ptr())
-    return n, tables, out, stats
+    return n, heads + (origin.data_ptr(), direction.data_ptr()), scalars, out, stats
 
 
-def _stackless_kernel(svo, origin, direction, with_stats=False):
-    """Launch ``esvo_stackless`` on (N, 3) float32 CUDA rays."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS, svo, origin,
-                                            direction, with_stats)
-    _ESVO_STACKLESS(origin.device, *tables, n, svo.depth, *_results(out, stats))
-    launches["esvo_stackless"] += 1
+def _main(kernel, form):
+    """`form` of the stackless `kernel` (None: its main path's), checked,
+    and whether it is the main path's."""
+    form = FORMS[kernel][0] if form is None else form
+    _form(kernel, form)
+    return form, form == FORMS[kernel][0]
+
+
+def _count(name, main):
+    if main:
+        launches[name] += 1
+    else:
+        form_launches[name + "_serial"] += 1
+
+
+def _stackless_kernel(svo, origin, direction, with_stats=False, width=None,
+                      form=None, block=None):
+    """Launch ``esvo_stackless`` in `form` (None: the main path's; the
+    patched form over an image `width` wide, in blocks of `block`) on (N, 3)
+    float32 CUDA rays."""
+    form, main = _main("esvo_stackless", form)
+    kernel = _ESVO_STACKLESS if form == "patched" else _ESVO_STACKLESS_SERIAL
+    n, ptrs, scalars, out, stats = _stackless_args(
+        kernel, svo, origin, direction, with_stats, form=form, width=width,
+        block=block)
+    kernel(origin.device, *ptrs, *scalars, *_results(out, stats))
+    _count("esvo_stackless", main)
     return TraceResult(*out), stats
 
 
-def _stackless_multi_kernel(svo, origin, direction, k, with_stats=False):
-    """Launch ``esvo_stackless_multi`` on (N, 3) float32 CUDA rays."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI, svo, origin,
-                                            direction, with_stats, k)
-    _ESVO_STACKLESS_MULTI(origin.device, *tables, n, svo.depth, k,
-                          *_results(out, stats))
-    launches["esvo_stackless_multi"] += 1
+def _stackless_multi_kernel(svo, origin, direction, k, with_stats=False,
+                            width=None, form=None, block=None):
+    """Launch ``esvo_stackless_multi`` in `form` (None: the main path's) on
+    (N, 3) float32 CUDA rays."""
+    form, main = _main("esvo_stackless_multi", form)
+    kernel = (_ESVO_STACKLESS_MULTI if form == "patched"
+              else _ESVO_STACKLESS_MULTI_SERIAL)
+    n, ptrs, scalars, out, stats = _stackless_args(
+        kernel, svo, origin, direction, with_stats, k, form=form, width=width,
+        block=block)
+    kernel(origin.device, *ptrs, *scalars, k, *_results(out, stats))
+    _count("esvo_stackless_multi", main)
     return MultiTraceResult(*out), stats
 
 
@@ -388,16 +505,19 @@ def _lod_args(coef, bias):
 
 
 def _stackless_lod_kernel(svo, origin, direction, coef, bias=0.0,
-                          with_stats=False):
-    """Launch ``esvo_stackless_lod`` on (N, 3) float32 CUDA rays."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_LOD, svo, origin,
-                                            direction, with_stats)
+                          with_stats=False, width=None, form=None, block=None):
+    """Launch ``esvo_stackless_lod`` in `form` (esvo_stackless's forms; None:
+    the main path's) on (N, 3) float32 CUDA rays."""
+    form, main = _main("esvo_stackless", form)
+    kernel = _ESVO_STACKLESS_LOD if form == "patched" else _ESVO_STACKLESS_LOD_SERIAL
+    n, ptrs, scalars, out, stats = _stackless_args(
+        kernel, svo, origin, direction, with_stats, form=form, width=width,
+        block=block)
     hit_node = torch.empty(n, dtype=_I32, device=origin.device)
-    _ESVO_STACKLESS_LOD(origin.device, *tables, n, svo.depth,
-                        *_lod_args(coef, bias), *(t.data_ptr() for t in out),
-                        hit_node.data_ptr(),
-                        None if stats is None else stats.data_ptr())
-    launches["esvo_stackless_lod"] += 1
+    kernel(origin.device, *ptrs, *scalars, *_lod_args(coef, bias),
+           *(t.data_ptr() for t in out), hit_node.data_ptr(),
+           None if stats is None else stats.data_ptr())
+    _count("esvo_stackless_lod", main)
     return TraceResult(*out, hit_node), stats
 
 
@@ -419,15 +539,35 @@ def _probe_record(n, kernel, form, device):
                        dtype=torch.int64, device=device)
 
 
-def probe_stackless_cuda(svo, origin, direction):
-    """``esvo_stackless`` with per-warp counters, on CUDA rays. Returns
-    (TraceResult, stats, record): record is (warps, len(PROBE_FIELDS))
-    int64."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_PROBE, svo, origin,
-                                            direction, True)
-    record = _probe_record(n, "esvo_stackless", "first", origin.device)
-    _ESVO_STACKLESS_PROBE(origin.device, *tables, n, svo.depth,
-                          *_results(out, stats), record.data_ptr())
+def _probe_stackless_args(kernel, svo, origin, direction, k, form, width, block):
+    """A stackless probe launch's arguments (both forms take the row table
+    and the four arrays, the width and the block) and outputs."""
+    kname = "esvo_stackless_multi" if k else "esvo_stackless"
+    code = _form(kname, form)
+    n, ptrs, scalars, out, stats = _stackless_args(
+        kernel, svo, origin, direction, True, k, form=form, width=width,
+        block=block)
+    if form == "patched":
+        arrays = (svo.masks, svo.child_base, traverse.parent_ptr_of(svo), svo.leaf_base)
+        ptrs = (ptrs[0], *(t.data_ptr() for t in arrays), *ptrs[1:])
+    else:
+        ptrs = (traverse.node_rows(svo).data_ptr(), *ptrs)
+        scalars += (0, BLOCKS[(kname, form)])
+    record = torch.zeros((warps_of(n, kname, form, width, scalars[3]),
+                          len(PROBE_FIELDS)), dtype=torch.int64, device=origin.device)
+    return (code, *ptrs, *scalars), out, stats, record
+
+
+def probe_stackless_cuda(svo, origin, direction, form="first", width=None,
+                         block=None):
+    """``esvo_stackless`` in `form` (the patched one over an image `width`
+    wide, in blocks of `block`) with per-warp counters, on CUDA rays.
+    Returns (TraceResult, stats, record): record is (warps,
+    len(PROBE_FIELDS)) int64."""
+    head, out, stats, record = _probe_stackless_args(
+        _ESVO_STACKLESS_PROBE, svo, origin, direction, None, form, width, block)
+    _ESVO_STACKLESS_PROBE(origin.device, *head, *_results(out, stats),
+                          record.data_ptr())
     probe_launches["esvo_stackless_probe"] += 1
     return TraceResult(*out), stats, record
 
@@ -445,14 +585,14 @@ def probe_brick_cuda(bsvo, origin, direction, form):
     return TraceResult(*out), stats, record
 
 
-def probe_stackless_multi_cuda(svo, origin, direction, k):
-    """``esvo_stackless_multi`` with per-warp counters, on CUDA rays.
-    Returns (MultiTraceResult, stats, record)."""
-    n, tables, out, stats = _stackless_args(_ESVO_STACKLESS_MULTI_PROBE, svo,
-                                            origin, direction, True, k)
-    record = _probe_record(n, "esvo_stackless_multi", "first", origin.device)
-    _ESVO_STACKLESS_MULTI_PROBE(origin.device, *tables, n, svo.depth, k,
-                                *_results(out, stats), record.data_ptr())
+def probe_stackless_multi_cuda(svo, origin, direction, k, form="first",
+                               width=None, block=None):
+    """``esvo_stackless_multi`` in `form` with per-warp counters, on CUDA
+    rays. Returns (MultiTraceResult, stats, record)."""
+    head, out, stats, record = _probe_stackless_args(
+        _ESVO_STACKLESS_MULTI_PROBE, svo, origin, direction, k, form, width, block)
+    _ESVO_STACKLESS_MULTI_PROBE(origin.device, *head, k, *_results(out, stats),
+                                record.data_ptr())
     probe_launches["esvo_stackless_multi_probe"] += 1
     return MultiTraceResult(*out), stats, record
 
@@ -473,13 +613,26 @@ def probe_brick_multi_cuda(bsvo, origin, direction, k, form):
     return MultiTraceResult(*out), stats, record
 
 
-def trace_stackless_cuda(svo, origin, direction, with_stats=False):
+def trace_stackless_cuda(svo, origin, direction, with_stats=False, width=None):
     """The stackless trace of (N, 3) float32 rays in octree-local
     coordinates, any N: the kernel for CUDA tensors, the plain version for
-    CPU tensors. Returns a TraceResult, or (TraceResult, stats)."""
+    CPU tensors. `width`: the rays are a row-major image that wide (N a
+    multiple of it), which the kernel walks in pixel patches; it changes no
+    output, and the plain version has no use for it. Returns a TraceResult,
+    or (TraceResult, stats)."""
+    if origin.device.type == "cpu":
+        _width(origin.shape[0], width)
+        return traverse.trace_stackless(svo, origin, direction, with_stats)
+    res, stats = _stackless_kernel(svo, origin, direction, with_stats, width)
+    return (res, stats) if with_stats else res
+
+
+def trace_stackless_cuda_serial(svo, origin, direction, with_stats=False):
+    """``trace_stackless_cuda`` through the first form of the kernel, in the
+    rays' own order: the same results."""
     if origin.device.type == "cpu":
         return traverse.trace_stackless(svo, origin, direction, with_stats)
-    res, stats = _stackless_kernel(svo, origin, direction, with_stats)
+    res, stats = _stackless_kernel(svo, origin, direction, with_stats, form="first")
     return (res, stats) if with_stats else res
 
 
@@ -503,15 +656,28 @@ def trace_brick_cuda_serial(bsvo, origin, direction, with_stats=False):
     return (res, stats) if with_stats else res
 
 
-def trace_multi_cuda(svo, origin, direction, k=4, with_stats=False):
+def trace_multi_cuda(svo, origin, direction, k=4, with_stats=False, width=None):
     """The first `k` leaf segments of (N, 3) float32 rays in octree-local
     coordinates through `svo`, any N: kernel ``esvo_stackless_multi`` for
     CUDA tensors, the plain version ``traverse.trace_multi`` for CPU
-    tensors. Returns a MultiTraceResult, or (MultiTraceResult, stats (N,
-    5); all zero but `unfinished`)."""
+    tensors. `width`: as ``trace_stackless_cuda``'s. Returns a
+    MultiTraceResult, or (MultiTraceResult, stats (N, 5); all zero but
+    `unfinished`)."""
+    if origin.device.type == "cpu":
+        _width(origin.shape[0], width)
+        return traverse.trace_multi(svo, origin, direction, k, with_stats)
+    res, stats = _stackless_multi_kernel(svo, origin, direction, k, with_stats,
+                                         width)
+    return (res, stats) if with_stats else res
+
+
+def trace_multi_cuda_serial(svo, origin, direction, k=4, with_stats=False):
+    """``trace_multi_cuda`` through the first form of the kernel: the same
+    results."""
     if origin.device.type == "cpu":
         return traverse.trace_multi(svo, origin, direction, k, with_stats)
-    res, stats = _stackless_multi_kernel(svo, origin, direction, k, with_stats)
+    res, stats = _stackless_multi_kernel(svo, origin, direction, k, with_stats,
+                                         form="first")
     return (res, stats) if with_stats else res
 
 
@@ -536,15 +702,29 @@ def trace_brick_multi_cuda_serial(bsvo, origin, direction, k=4, with_stats=False
     return (res, stats) if with_stats else res
 
 
-def trace_lod_cuda(svo, origin, direction, coef, bias=0.0, with_stats=False):
+def trace_lod_cuda(svo, origin, direction, coef, bias=0.0, with_stats=False,
+                   width=None):
     """The LOD stackless trace of (N, 3) float32 rays through `svo`, any N:
     kernel ``esvo_stackless_lod`` for CUDA tensors, the plain version
-    ``traverse.trace_lod`` for CPU tensors. Returns a TraceResult with
-    hit_node, or (TraceResult, stats (N, 5); all zero but `unfinished`)."""
+    ``traverse.trace_lod`` for CPU tensors. `width`: as
+    ``trace_stackless_cuda``'s. Returns a TraceResult with hit_node, or
+    (TraceResult, stats (N, 5); all zero but `unfinished`)."""
+    if origin.device.type == "cpu":
+        _width(origin.shape[0], width)
+        return traverse.trace_lod(svo, origin, direction, coef, bias, with_stats)
+    res, stats = _stackless_lod_kernel(svo, origin, direction, coef, bias,
+                                       with_stats, width)
+    return (res, stats) if with_stats else res
+
+
+def trace_lod_cuda_serial(svo, origin, direction, coef, bias=0.0,
+                          with_stats=False):
+    """``trace_lod_cuda`` through the first form of the kernel: the same
+    results."""
     if origin.device.type == "cpu":
         return traverse.trace_lod(svo, origin, direction, coef, bias, with_stats)
     res, stats = _stackless_lod_kernel(svo, origin, direction, coef, bias,
-                                       with_stats)
+                                       with_stats, form="first")
     return (res, stats) if with_stats else res
 
 

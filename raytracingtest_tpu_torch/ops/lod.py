@@ -74,11 +74,13 @@ def compute_node_attributes(svo):
 
 
 def render_lod(svo, node_albedo, node_normal, o, d, pixel_size_coef,
-               light: Light = Light()):
+               light: Light = Light(), width=None):
     """Forward render of (N, 3) rays with the LOD stop: the LOD stackless
     trace (kernel ``esvo_stackless_lod`` for CUDA tensors), then
-    ``shade_lod``. Returns ((N, 3) radiance, the TraceResult)."""
-    res = brick_cuda.trace_lod_cuda(svo, o, d, pixel_size_coef)
+    ``shade_lod``. `width`: the rays are a row-major image that wide, which
+    the kernel walks in pixel patches; no output changes. Returns ((N, 3)
+    radiance, the TraceResult)."""
+    res = brick_cuda.trace_lod_cuda(svo, o, d, pixel_size_coef, width=width)
     return shade_lod(svo, node_albedo, node_normal, res, d, light), res
 
 

@@ -64,12 +64,15 @@ class SVO:
 
     def to(self, device=None) -> "SVO":
         """Copy of this SVO with every tensor on `device` (None: the
-        default device)."""
+        default device); this SVO itself where every tensor is there
+        already, so that the tables kept with the tree
+        (``traverse.node_rows``) stay with it."""
         device = resolve(device)
-        moved = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        for name, value in moved.items():
-            if isinstance(value, torch.Tensor):
-                moved[name] = value.to(device)
+        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        moved = {name: value.to(device) if isinstance(value, torch.Tensor) else value
+                 for name, value in fields.items()}
+        if all(moved[name] is value for name, value in fields.items()):
+            return self
         return SVO(**moved)
 
 

@@ -4,7 +4,7 @@ Port of ``raytracingtest_tpu/ops/traverse.py``: ``init_state``, ``step``,
 ``trace_numpy`` (the walk with a stack, below), and the stackless walk of the
 reference's XLA path, ``_fast_step`` / ``_trace_core`` / ``trace_jax``, as
 ``fast_step`` / ``trace_stackless`` (the end of the module), with
-``derive_parent_ptr`` and ``parent_ptr_of``; its k-segment walk,
+``derive_parent_ptr``, ``parent_ptr_of`` and ``node_rows``; its k-segment walk,
 ``_trace_multi_core`` / ``trace_multi_jax``, as ``trace_multi`` (the plain
 version of the ``esvo_stackless_multi`` kernel), with ``MultiTraceResult``;
 and its LOD walk, ``_trace_lod_core`` / ``trace_lod_jax``, as ``trace_lod``
@@ -296,12 +296,48 @@ def derive_parent_ptr(masks, child_base):
     return torch.cummax(seed, dim=0).values
 
 
+def _tree_cache(svo):
+    """The tables kept for the tree object `svo` (a dict, empty when new):
+    they live on the object, so another tree, a copy made by ``to()`` or
+    ``dataclasses.replace`` among them, never sees them, and they are made
+    again when a tensor they come from was changed in place (its version
+    counter moved). An object that takes no attribute keeps nothing."""
+    key = tuple((t, None if t is None else t._version)
+                for t in (svo.masks, svo.child_base, svo.leaf_base, svo.parent_ptr))
+    cache = getattr(svo, "_tree_tables", None)
+    if cache is not None and len(cache[0]) == len(key) and all(
+            a is b and va == vb for (a, va), (b, vb) in zip(cache[0], key)):
+        return cache[1]
+    tables = {}
+    try:
+        object.__setattr__(svo, "_tree_tables", (key, tables))
+    except AttributeError:
+        pass
+    return tables
+
+
 def parent_ptr_of(svo):
-    """``svo.parent_ptr``, derived on its device for an SVO built without
-    one."""
+    """``svo.parent_ptr``; for an SVO built without one, derived on its
+    device once and kept with the tree (``_tree_cache``)."""
     if svo.parent_ptr is not None:
         return svo.parent_ptr
-    return derive_parent_ptr(svo.masks, svo.child_base)
+    tables = _tree_cache(svo)
+    if "parent_ptr" not in tables:
+        tables["parent_ptr"] = derive_parent_ptr(svo.masks, svo.child_base)
+    return tables["parent_ptr"]
+
+
+def node_rows(svo):
+    """The stackless walk's node row table of `svo`: (n_nodes, 4) int32 on
+    its device, each row's masks, child_base, parent_ptr and leaf_base,
+    made once a tree and kept with it (``_tree_cache``). The stackless
+    kernels' patched form reads a row as one 16-byte load; the plain walks
+    gather their rows from it."""
+    tables = _tree_cache(svo)
+    if "rows" not in tables:
+        tables["rows"] = torch.stack([svo.masks, svo.child_base, parent_ptr_of(svo),
+                                      svo.leaf_base], dim=1)
+    return tables["rows"]
 
 
 def walk_state(origin, direction, depth, root=None):
@@ -320,9 +356,9 @@ def fast_step(st, nodes, park=False, k=0, lod=None):
     """One step of the stackless walk on the rays of `st` that are walking
     (not done; with `park`, not parked either). Counterpart of
     ``_fast_step`` (with `park`, of ``brick._top_step``; with `k`, of the
-    step of ``_trace_multi_core``). `nodes` (n, 3)
+    step of ``_trace_multi_core``). `nodes` (n, 3) or (n, 4)
     int32 holds each row's (masks, child_base, parent_ptr), and with `k` a
-    fourth column, leaf_base. Returns a new dict.
+    fourth column, leaf_base (``node_rows``). Returns a new dict.
 
     One row a step; no stack: the parent's exit t comes from `pos` rounded
     up to the parent's grid, and POP climbs one level through parent_ptr.
@@ -503,7 +539,7 @@ def trace_stackless(svo, origin, direction, with_stats=False, root=None):
     bound on each ray exactly (its loop checks the batch's step count and
     steps every ray still walking)."""
     masks = svo.masks
-    nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
+    nodes = node_rows(svo)
     walk = Compacted(walk_state(origin, direction, svo.depth, root),
                      ("hit_parent", "hit_child", "hit_t", "iters", "done"))
     out = _walk(walk, nodes, max_iters_for_depth(svo.depth))
@@ -586,8 +622,7 @@ def trace_multi(svo, origin, direction, k=4, with_stats=False):
     still walking, and does not compact, so it is each ray's own bound."""
     if k < 1:
         raise ValueError(f"k = {k}: a ray keeps at least one segment")
-    nodes = torch.stack([svo.masks, svo.child_base, parent_ptr_of(svo),
-                         svo.leaf_base], dim=1)
+    nodes = node_rows(svo)
     walk = Compacted(multi_state(walk_state(origin, direction, svo.depth), k),
                      MULTI_OUTPUTS)
     out = _walk(walk, nodes, multi_steps_for_depth(svo.depth, k), k=k)
@@ -620,7 +655,7 @@ def trace_lod(svo, origin, direction, coef, bias=0.0, with_stats=False):
     `with_stats`. The bound is ``max_iters_for_depth(depth)`` steps a ray,
     the reference's."""
     masks = svo.masks
-    nodes = torch.stack([masks, svo.child_base, parent_ptr_of(svo)], dim=1)
+    nodes = node_rows(svo)
     st = walk_state(origin, direction, svo.depth)
     st["hit_node"] = torch.full_like(st["idx"], -1)
     walk = Compacted(st, ("hit_parent", "hit_child", "hit_t", "hit_node",

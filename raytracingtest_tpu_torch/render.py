@@ -140,11 +140,12 @@ def render_image(svo, camera: Camera, light: Light = Light(),
     """One image on `device` (None: the card), (H, W, 3) float32: the
     camera's rays in octree-local coordinates, the stackless trace, then
     ``shade``. The counterpart of ``render_jax``. `skybox`: an optional (H,
-    W, 3) equirect texture sampled on a miss."""
+    W, 3) equirect texture sampled on a miss. The trace walks the image in
+    pixel patches (``trace_stackless_cuda``'s `width`)."""
     device = resolve(device)
     svo = svo.to(device)
     o, d = _local_rays(camera, frame, device, jitter)
-    res = brick_cuda.trace_stackless_cuda(svo, o, d)
+    res = brick_cuda.trace_stackless_cuda(svo, o, d, width=camera.width)
     img = shade(res.hit_leaf, d, svo.leaf_albedo, svo.leaf_normal, light,
                 skybox)
     return img.reshape(camera.height, camera.width, 3)

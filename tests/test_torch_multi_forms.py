@@ -202,8 +202,10 @@ def test_c_entries_are_declared_with_their_arity():
            "brick_trace_multi_probe", "clipmap_trace", "clipmap_trace_brick",
            "level_round", "level_round_serial", "level_round_probe", "level_queue",
            "clipmap_trace_brick_serial", "clipmap_trace_brick_probe",
-           "clipmap_trace_serial", "clipmap_trace_probe", "level_queue_serial"}
-    assert new <= set(arity) and len(arity) == 24
+           "clipmap_trace_serial", "clipmap_trace_probe", "level_queue_serial",
+           "esvo_stackless_serial", "esvo_stackless_lod_serial",
+           "esvo_stackless_multi_serial"}
+    assert new <= set(arity) and len(arity) == 27
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -215,7 +217,13 @@ def test_c_entries_are_declared_with_their_arity():
     # both brick forms take the same arguments; a probe form adds its record
     # (and the brick probe its form)
     assert arity["brick_trace_multi"] == arity["brick_trace_multi_serial"]
-    assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi"] + 1
+    # a stackless trace's patched form takes the row table for the four
+    # arrays, and the width and the block; its probe takes both forms'
+    # arguments, its form and the record
+    for kname in ("esvo_stackless", "esvo_stackless_lod", "esvo_stackless_multi"):
+        assert arity[kname] == arity[kname + "_serial"] - 3 + 2
+    assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi_serial"] + 5
+    assert arity["esvo_stackless_probe"] == arity["esvo_stackless_serial"] + 5
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
     # the stitched traces differ only in the arena their chunk walks read
     assert arity["clipmap_trace"] == arity["clipmap_trace_brick"]
@@ -401,8 +409,8 @@ def test_prefix_row_leaf_equals_the_plain_lookup():
 def test_main_paths_launch_the_rules_form(call, k, entry, monkeypatch):
     """With the C functions stood in: the brick trace's main path launches
     its staged form up to STAGED_MAX_K and its first form above; the
-    stackless trace's main path its one form at every k; each passes k and
-    counts the kernel it launched."""
+    stackless trace's main path its patched form at every k; each passes k
+    and counts the kernel it launched."""
     launched = []
     for kernel in vars(brick_cuda).values():
         if isinstance(kernel, brick_cuda.Kernel):
