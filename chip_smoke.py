@@ -6762,7 +6762,8 @@ def main():
         f"{us_or(alone['brick_trace_multi'])} us alone; esvo_stackless_multi "
         f"{s_steps_m} steps, bound {multi_rows['esvo_stackless_multi']['bound'][0]:.5f} "
         f"ms ({multi_rows['esvo_stackless_multi']['bound'][1]}), "
-        f"{us_or(alone['esvo_stackless_multi'])} us alone; composite_fwd "
+        f"{us_or(alone['esvo_stackless_multi'])} us alone (first form "
+        f"{us_or(alone['esvo_stackless_multi_serial'])}); composite_fwd "
         f"{n_seg_b} segments on {touched_v} leaves, bound {composite_bound[0]:.5f} "
         f"ms ({composite_bound[1]}), {us_or(alone['composite_fwd'])} us alone")
     for kname, row in multi_rows.items():
@@ -6847,7 +6848,8 @@ def main():
         f"{us_or(alone['brick_trace_lod'])} us alone; esvo_stackless_lod {ls_steps} "
         f"steps, bound {lod_rows['esvo_stackless_lod']['bound'][0]:.5f} ms "
         f"({lod_rows['esvo_stackless_lod']['bound'][1]}), "
-        f"{us_or(alone['esvo_stackless_lod'])} us alone; composite_bwd "
+        f"{us_or(alone['esvo_stackless_lod'])} us alone (first form "
+        f"{us_or(alone['esvo_stackless_lod_serial'])}); composite_bwd "
         f"({OPS_COMPOSITE_BWD_SLOT} operations a valid slot) {n_seg_b} segments "
         f"on {touched_v} leaves, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}), "
         f"{us_or(alone['composite_bwd'])} us alone")

@@ -219,8 +219,9 @@ def _declare_candidates(lib):
 
 def _declare_brick(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    # the stackless traces' patched forms take the node row table, the
-    # image width and the block; their first forms the four arrays
+    # the stackless traces' patched forms take the node row table (the LOD
+    # form the four arrays), the image width and the block; their first
+    # forms the four arrays
     lib.esvo_stackless.argtypes = [p] * 3 + [i] * 4 + [p] * 7
     lib.esvo_stackless_serial.argtypes = [p] * 6 + [i] * 2 + [p] * 7
     lib.esvo_stackless_probe.argtypes = [i] + [p] * 7 + [i] * 4 + [p] * 8
@@ -234,7 +235,7 @@ def _declare_brick(lib):
     lib.brick_trace_multi_serial.argtypes = [p] * 6 + [i] * 4 + [p] * 7
     lib.brick_trace_multi_probe.argtypes = [i] + [p] * 6 + [i] * 4 + [p] * 8
     f = ctypes.c_float
-    lib.esvo_stackless_lod.argtypes = [p] * 3 + [i] * 4 + [f] * 2 + [p] * 8
+    lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     lib.esvo_stackless_lod_serial.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
     lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4

@@ -83,8 +83,22 @@
 // mid-launch and run for 100-400 us while the rest of the card idles.
 //
 // The kernels, one thread a ray each; they compute the same bits:
-//   * esvo_stackless: blocks of 128, rows read through the read-only path
-//     as the step needs them.
+//   * esvo_stackless has two forms. Its first form (esvo_stackless_kernel,
+//     C entry esvo_stackless_serial): blocks of 128, rays in their own
+//     order, the masks, child_base, parent_ptr and leaf_base arrays read
+//     through the read-only path as the step needs them (a PUSH waits on
+//     the parent's masks, then its child_base). Its patched form, the main
+//     path's (esvo_stackless_patched_kernel): the same step in ROWS mode
+//     over the tree's (n_nodes, 4) row table, a node's 16 bytes read as one
+//     load only where the ray's node changes and kept in registers (an
+//     ADVANCE loads nothing, a PUSH or a POP waits on one load), and, for
+//     rays that are a row-major image, warps of 8 x 4 pixel patches
+//     (patch_ray): neighbouring pixels' rays part later than a strip of one
+//     image row does. On the depth-10 frame (PERF.md, chip_smoke.py's
+//     [stackless-forms]) patches raise the step's SIMT efficiency from 0.75
+//     to 0.83 and take about a tenth off the kernel; the row alone gains
+//     little on this trace, whose masks reads mostly hit L1, and the
+//     stragglers' tail stays (a fifth of the span after 99% of the warps).
 //   * brick_trace_serial, the brick trace's first form: the same, each
 //     round a top loop, a three-level descent and a DDA loop.
 //   * brick_trace, its wide form (the main path's): the first form's rounds
@@ -112,9 +126,13 @@
 //     measured fastest (blocks of 128 within 1.2% at k = 4). Above 48 KB
 //     the block opts in to more; where even 32 rays' slots pass SMEM_MAX
 //     (k from 595) brick_cuda's rule takes the first form.
+//   * esvo_stackless_multi's patched form (the main path's,
+//     esvo_stackless_multi_patched_kernel): esvo_stackless's patched form in
+//     collect mode, a segment's leaf id taken from the row in registers (the
+//     record's load gone); patches and the row each take some tenth off.
 //   * The first forms (brick_trace_multi_kernel, the staged form's check
-//     and yardstick; esvo_stackless_multi_kernel, the stackless trace's
-//     one form): one thread a ray in blocks of 128, rows read as the steps
+//     and yardstick; esvo_stackless_multi_kernel, C entry
+//     esvo_stackless_multi_serial): one thread a ray in blocks of 128, rows read as the steps
 //     need them, each segment written to its (N, k) slot as it is found,
 //     three 4-byte stores at a 4k-byte stride from a partly active warp,
 //     and the empty slots padded at the end; the padding grows with k (at
@@ -145,6 +163,12 @@
 //     brick_trace's bodies (stackless_ray, brick_ray) with the step in LOD
 //     mode; the other kernels instantiate the same bodies without it, so
 //     their code and registers are as before (chip_smoke.py's [build]).
+//     esvo_stackless_lod has esvo_stackless's two forms: the first
+//     (esvo_stackless_lod_kernel, C entry esvo_stackless_lod_serial) and
+//     the patched one (esvo_stackless_patched_kernel<probe, true>), whose
+//     walk reads the four arrays: in LOD mode the row table measured slower
+//     than the patches alone, and held to the first form's 48 registers it
+//     spilled and was slower still (PERF.md).
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe, the
 //     k-segment traces' esvo_stackless_multi_probe and
 //     brick_trace_multi_probe, of either form, and the stitched traces'
@@ -717,7 +741,9 @@ long long patch_threads(int n, int width) {
 }
 
 // The patched form of esvo_stackless (LOD: of esvo_stackless_lod): one
-// thread a ray in the patch order, the walk over the node row table.
+// thread a ray in the patch order, the walk over the node row table; the
+// LOD form's walk reads the tree's arrays as the first form's does (its
+// walk over the row table measured slower than the patches alone, PERF.md).
 // Compiled for blocks of up to PATCH_BLOCK_MAX threads; launched with the
 // caller's block (brick_cuda.BLOCKS).
 template <bool PROBE, bool LOD>
@@ -728,7 +754,9 @@ esvo_stackless_patched_kernel(const int4* __restrict__ rows, Tree tree,
   Probe<PROBE> probe;
   probe.begin();
   const int i = patch_ray(blockIdx.x * blockDim.x + threadIdx.x, rays.n, width);
-  if (i >= 0) stackless_ray<PROBE, LOD, true>(tree, rays, out, i, probe, &lod, rows);
+  if (i >= 0) {
+    stackless_ray<PROBE, LOD, !LOD>(tree, rays, out, i, probe, &lod, rows);
+  }
   probe.finish(probe_out);
 }
 
@@ -2510,14 +2538,13 @@ bool patched_ok(int n, int depth, int width, int block) {
 // has no probe form) in blocks of `block` threads (probe: with the
 // counters).
 template <bool LOD>
-int launch_stackless_patched(const void* rows, const void* origin,
-                             const void* direction, int n, int depth,
+int launch_stackless_patched(const void* rows, const Tree& tree,
+                             const void* origin, const void* direction, int n,
                              int width, int block, const Out& out,
                              const Lod& lod, void* probe, void* stream) {
-  if (!patched_ok(n, depth, width, block)) return (int)cudaErrorInvalidValue;
+  if (!patched_ok(n, tree.depth, width, block)) return (int)cudaErrorInvalidValue;
   const long long threads = patch_threads(n, width);
   if (threads > 0) {
-    const Tree tree{nullptr, nullptr, nullptr, nullptr, nullptr, depth, 0};
     const Rays rays{(const float*)origin, (const float*)direction, n};
     const int blocks = (int)((threads + block - 1) / block);
     const cudaStream_t s = (cudaStream_t)stream;
@@ -2693,7 +2720,8 @@ extern "C" int esvo_stackless(const void* rows, const void* origin,
                               void* hit_t, void* hit_parent, void* hit_child,
                               void* iters, void* stats, void* stream) {
   return launch_stackless_patched<false>(
-      rows, origin, direction, n, depth, width, block,
+      rows, Tree{nullptr, nullptr, nullptr, nullptr, nullptr, depth, 0}, origin,
+      direction, n, width, block,
       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats), Lod{},
       nullptr, stream);
 }
@@ -2731,9 +2759,9 @@ extern "C" int esvo_stackless_probe(int form, const void* rows,
     return launch_stackless(masks, child_base, parent_ptr, leaf_base, origin,
                             direction, n, depth, out, probe, stream);
   if (form == FORM_PATCHED)
-    return launch_stackless_patched<false>(rows, origin, direction, n, depth,
-                                           width, block, out, Lod{}, probe,
-                                           stream);
+    return launch_stackless_patched<false>(
+        rows, Tree{nullptr, nullptr, nullptr, nullptr, nullptr, depth, 0},
+        origin, direction, n, width, block, out, Lod{}, probe, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2794,15 +2822,21 @@ extern "C" int brick_trace_probe(int form, const void* top_masks,
 }
 
 // esvo_stackless's patched form with the footprint stop coef, bias:
-// hit_node (n,) beside its outputs.
-extern "C" int esvo_stackless_lod(const void* rows, const void* origin,
-                                  const void* direction, int n, int depth,
-                                  int width, int block, float coef, float bias,
-                                  void* hit_leaf, void* hit_t, void* hit_parent,
+// hit_node (n,) beside its outputs. The rays in the patch order of an image
+// `width` columns wide (0: their own order), blocks of `block` threads; the
+// walk reads the four arrays, as the first form's does.
+extern "C" int esvo_stackless_lod(const void* masks, const void* child_base,
+                                  const void* parent_ptr, const void* leaf_base,
+                                  const void* origin, const void* direction,
+                                  int n, int depth, int width, int block,
+                                  float coef, float bias, void* hit_leaf,
+                                  void* hit_t, void* hit_parent,
                                   void* hit_child, void* iters, void* hit_node,
                                   void* stats, void* stream) {
+  const Tree tree{(const int*)masks, (const int*)child_base,
+                  (const int*)parent_ptr, (const int*)leaf_base, nullptr, depth, 0};
   return launch_stackless_patched<true>(
-      rows, origin, direction, n, depth, width, block,
+      nullptr, tree, origin, direction, n, width, block,
       outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
       Lod{coef, bias, 0, (int*)hit_node}, nullptr, stream);
 }

@@ -29,7 +29,8 @@ what each does, and PERF.md what it measured):
     parent_ptr and leaf_base arrays as the step needs them, in the rays' own
     order, is ``trace_stackless_cuda_serial``, the check and the yardstick.
     ``esvo_stackless_lod`` has the same two forms of the same body
-    (``trace_lod_cuda``, ``trace_lod_cuda_serial``).
+    (``trace_lod_cuda``, ``trace_lod_cuda_serial``); its patched form walks
+    the patches over the four arrays (the row table measured slower there).
   * ``brick_trace``'s ``wide`` form, the main path's (``trace_brick_cuda``):
     one thread a ray in blocks of 256, a parked ray's brick row staged in
     shared memory. Its ``first`` form, blocks of 128 and rows read as the
@@ -335,18 +336,21 @@ def _block(block):
 
 
 def _stackless_args(kernel, svo, origin, direction, with_stats, k=None,
-                    form="first", width=None, block=None):
+                    form="first", width=None, block=None, rows=None):
     """Check a stackless launch in `form` (a k-segment one with `k`);
     returns (n, the pointer arguments before the scalars, the scalars before
     k and the LOD constants, outputs, stats). The patched form takes the
-    tree's node row table, the image width (0: none) and the block; the
-    first form the four arrays, each read as the step needs it."""
+    tree's node row table (unless `rows` is False: the LOD form's), the
+    image width (0: none) and the block; the first form the four arrays,
+    each read as the step needs it."""
     n, rays = _rays(origin, direction)
-    if form == "patched":
-        rows = traverse.node_rows(svo)
+    if rows is None:
+        rows = form == "patched"
+    if rows:
+        table = traverse.node_rows(svo)
         kernel.check(origin.device, rays + (
-            ("rows", rows, _I32, (svo.masks.shape[0], 4)),))
-        heads = (rows.data_ptr(),)
+            ("rows", table, _I32, (svo.masks.shape[0], 4)),))
+        heads = (table.data_ptr(),)
     else:
         parent_ptr = traverse.parent_ptr_of(svo)
         kernel.check(origin.device, rays + (
@@ -512,7 +516,7 @@ def _stackless_lod_kernel(svo, origin, direction, coef, bias=0.0,
     kernel = _ESVO_STACKLESS_LOD if form == "patched" else _ESVO_STACKLESS_LOD_SERIAL
     n, ptrs, scalars, out, stats = _stackless_args(
         kernel, svo, origin, direction, with_stats, form=form, width=width,
-        block=block)
+        block=block, rows=False)
     hit_node = torch.empty(n, dtype=_I32, device=origin.device)
     kernel(origin.device, *ptrs, *scalars, *_lod_args(coef, bias),
            *(t.data_ptr() for t in out), hit_node.data_ptr(),

@@ -218,10 +218,11 @@ def test_c_entries_are_declared_with_their_arity():
     # (and the brick probe its form)
     assert arity["brick_trace_multi"] == arity["brick_trace_multi_serial"]
     # a stackless trace's patched form takes the row table for the four
-    # arrays, and the width and the block; its probe takes both forms'
-    # arguments, its form and the record
-    for kname in ("esvo_stackless", "esvo_stackless_lod", "esvo_stackless_multi"):
+    # arrays (the LOD form keeps the arrays), and the width and the block;
+    # its probe takes both forms' arguments, its form and the record
+    for kname in ("esvo_stackless", "esvo_stackless_multi"):
         assert arity[kname] == arity[kname + "_serial"] - 3 + 2
+    assert arity["esvo_stackless_lod"] == arity["esvo_stackless_lod_serial"] + 2
     assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi_serial"] + 5
     assert arity["esvo_stackless_probe"] == arity["esvo_stackless_serial"] + 5
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2

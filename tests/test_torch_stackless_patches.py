@@ -376,9 +376,10 @@ def test_forms_refuse_bad_forms_and_arguments(what, monkeypatch):
     ("probe multi patched", "esvo_stackless_multi_probe", 9)])
 def test_launchers_pass_the_row_table_width_and_block(call, entry, tail, monkeypatch):
     """With the C functions stood in: the main paths launch the patched
-    entries with the tree's row table, the width and the rule's block; the
-    first forms their `_serial` entries with the four arrays; each counts
-    the launch it made, a first form's as an off-path form's."""
+    entries with the tree's row table (the LOD form with the four arrays),
+    the width and the rule's block; the first forms their `_serial` entries
+    with the four arrays; each counts the launch it made, a first form's as
+    an off-path form's."""
     launched = []
     for kernel in vars(brick_cuda).values():
         if isinstance(kernel, brick_cuda.Kernel):
@@ -393,16 +394,16 @@ def test_launchers_pass_the_row_table_width_and_block(call, entry, tail, monkeyp
     (name, args), = launched
     assert name == entry
     rows = traverse.node_rows(svo).data_ptr()
-    if tail is None:
-        assert args[:4] == (svo.masks.data_ptr(), svo.child_base.data_ptr(),
-                            traverse.parent_ptr_of(svo).data_ptr(),
-                            svo.leaf_base.data_ptr())
-        assert rows not in args
-    else:
+    arrays = (svo.masks.data_ptr(), svo.child_base.data_ptr(),
+              traverse.parent_ptr_of(svo).data_ptr(), svo.leaf_base.data_ptr())
+    if tail is None or entry == "esvo_stackless_lod":
+        assert args[:4] == arrays and rows not in args
+    if tail is not None and entry != "esvo_stackless_lod":
         probe = entry.endswith("_probe")
         assert args[1 if probe else 0] == rows
         if probe:
             assert args[0] == brick_cuda.FORM_CODES["patched"]
+    if tail is not None:
         # (..., n, depth, width, block, ...): the width 12 and the block 128
         assert args[-tail - 4:-tail] == (60, svo.depth, 12, 128)
     after = counts()
