@@ -166,9 +166,8 @@
 //     esvo_stackless_lod has esvo_stackless's two forms: the first
 //     (esvo_stackless_lod_kernel, C entry esvo_stackless_lod_serial) and
 //     the patched one (esvo_stackless_patched_kernel<probe, true>), whose
-//     walk reads the four arrays: in LOD mode the row table measured slower
-//     than the patches alone, and held to the first form's 48 registers it
-//     spilled and was slower still (PERF.md).
+//     walk reads the four arrays: in LOD mode the walk over the row table
+//     measured slower than the patches alone (PERF.md).
 //   * The probe forms (esvo_stackless_probe, brick_trace_probe, the
 //     k-segment traces' esvo_stackless_multi_probe and
 //     brick_trace_multi_probe, of either form, and the stitched traces'
