@@ -97,8 +97,8 @@
 //     image row does. On the depth-10 frame (PERF.md, chip_smoke.py's
 //     [stackless-forms]) patches raise the step's SIMT efficiency from 0.75
 //     to 0.83 and take about a tenth off the kernel; the row alone gains
-//     little on this trace, whose masks reads mostly hit L1, and the
-//     stragglers' tail stays (a fifth of the span after 99% of the warps).
+//     little on this trace, and the stragglers' tail stays (a fifth of the
+//     span after 99% of the warps).
 //   * brick_trace_serial, the brick trace's first form: the same, each
 //     round a top loop, a three-level descent and a DDA loop.
 //   * brick_trace, its wide form (the main path's): the first form's rounds
@@ -129,7 +129,7 @@
 //   * esvo_stackless_multi's patched form (the main path's,
 //     esvo_stackless_multi_patched_kernel): esvo_stackless's patched form in
 //     collect mode, a segment's leaf id taken from the row in registers (the
-//     record's load gone); patches and the row each take some tenth off.
+//     record's load gone); there the patches and the row each gain.
 //   * The first forms (brick_trace_multi_kernel, the staged form's check
 //     and yardstick; esvo_stackless_multi_kernel, C entry
 //     esvo_stackless_multi_serial): one thread a ray in blocks of 128, rows read as the steps
