@@ -78,6 +78,13 @@ plain versions on two ragged images at every block it sweeps, and on the
 frame times, in turns and alone, and probes the two changes alone and
 together: the first form on the rays taken in the patch order, the patched
 form on the rays in their order and with the image's width.
+`[brick-lod-forms]` holds the LOD brick trace's patched form (`brick_trace_lod`'s
+main path: warps of 8 x 4 pixel patches, blocks of 64, 128 or 256) and its
+first form (`brick_trace_lod_serial`) and both probe forms bitwise against
+`brick.trace_brick_lod` on two ragged images, and on the frame against each
+other at c0 and 8 c0 and against `brick_trace` at 0; it times them in turns
+and alone at each block, beside `brick_trace` at 0, and reads both probe
+forms' warps at c0 and 8 c0.
 `[frame-lod]` renders the frame as `cli render --lod-coef` does at depth 10
 (node attributes on the host, `brick_trace_lod`, `lod.shade_lod`) and through
 `lod.render_lod` (`esvo_stackless_lod`) at four footprint coefficients: the
@@ -304,9 +311,12 @@ FORM_KERNELS = {
     ("esvo_stackless", "patched"): "esvo_stackless_patched_kernel<false, false>",
     ("esvo_stackless", "first"): "esvo_stackless_kernel<false>",
 }
-# the LOD stackless trace's forms' kernels (esvo_stackless's forms)
+# the LOD stackless trace's forms' kernels (esvo_stackless's forms), and
+# the LOD brick trace's
 LOD_KERNELS = {"patched": "esvo_stackless_patched_kernel<false, true>",
                "first": "esvo_stackless_lod_kernel"}
+BRICK_LOD_KERNELS = {"patched": "brick_trace_lod_patched_kernel<false>",
+                     "first": "brick_trace_lod_kernel"}
 MAIN_FORM = {"brick_trace": "wide", "esvo_stackless": "patched"}
 # the err key of a trace_forms entry
 FORM_ERR = {"main": "", "first": "_serial", "unstaged": "_unstaged"}
@@ -1140,7 +1150,8 @@ def cli_phase(ctx, card, served):
         "skybox": lambda: smodel.render_progressive(view, RenderConfig(),
                                                     skybox=hdr.make_sky_hdr()),
         "lod": lambda: lod.shade_lod(svo, node_alb, node_nrm,
-                                     brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0),
+                                     brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0,
+                                                                     width=res),
                                      d),
         "attachments": lambda: render.render_attachment(svo, *words, o, d),
         "bounce": lambda: render.render_bounce(bsvo, params[0], params[1], cam,
@@ -2018,11 +2029,16 @@ def lod_parity(dev, cam, err):
             for coef in coefs:
                 what = f"{name} d{depth} {kind} rays N={o.shape[0]} coef {coef:.6g}"
                 ks = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True, width)
-                kb = brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True)
+                kb = brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True, width)
                 ps = traverse.trace_lod(svo_s, o, d, coef, 0.0, True)
                 pb = brick.trace_brick_lod(bsvo_s, o, d, coef, 0.0, True)
                 kf = brick_cuda._stackless_lod_kernel(svo_s, o, d, coef, 0.0, True,
                                                       form="first")
+                kbf = brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True,
+                                                   form="first")
+                probes_b = [brick_cuda.probe_brick_lod_cuda(
+                    bsvo_s, o, d, coef, form, width if form == "patched" else None)
+                    for form in brick_cuda.FORMS["brick_trace_lod"]]
                 torch.cuda.synchronize()
                 err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
                     ks, ps, f"esvo_stackless_lod, {what}"))
@@ -2034,6 +2050,14 @@ def lod_parity(dev, cam, err):
                                 ps, f"esvo_stackless_lod, rays in order, {what}")
                 err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
                     kb, pb, f"brick_trace_lod, {what}"))
+                err["brick_trace_lod_serial"] = max(
+                    err["brick_trace_lod_serial"],
+                    compare_lod(kbf, pb, f"brick_trace_lod first form, {what}"))
+                for form, probe in zip(brick_cuda.FORMS["brick_trace_lod"], probes_b):
+                    compare_lod(probe[:2], pb, f"brick_trace_lod {form} probe, {what}")
+                if width is not None:
+                    compare_lod(brick_cuda._brick_lod_kernel(bsvo_s, o, d, coef, 0.0, True),
+                                pb, f"brick_trace_lod, rays in order, {what}")
                 if coef == 0.0:
                     compare_stats(ks, brick_cuda._stackless_kernel(svo_s, o, d, True),
                                   f"esvo_stackless_lod at 0 against esvo_stackless, {what}")
@@ -2047,8 +2071,9 @@ def lod_parity(dev, cam, err):
         lines.append(f"{name} d{depth}: " + ", ".join(found))
     say(f"[parity] esvo_stackless_lod (through its launcher in its patched "
         f"form, with the camera's width and without, and in its first form) "
-        f"and brick_trace_lod (through its launcher) == traverse.trace_lod and "
-        f"brick.trace_brick_lod bitwise "
+        f"and brick_trace_lod (through its launcher in its patched form, with "
+        f"the camera's width and without, in its first form, and both probe "
+        f"forms) == traverse.trace_lod and brick.trace_brick_lod bitwise "
         f"(hit_leaf, hit_node, hit_t bits, hit_parent, hit_child, iters, "
         f"statistics) on {n_cases} cases (camera rays 128x128 at c0 = "
         f"{c0:.6g}, 8 c0, 32 c0, 0.4 and 0; 4,096 rays from a shell and from "
@@ -2073,9 +2098,12 @@ def frame_lod(ctx, card):
     node_alb, node_nrm = node_alb.to(dev), node_nrm.to(dev)
     light = render.Light()
     c0 = LOD_C0
-    frame = lambda coef: lod.shade_lod(svo, node_alb, node_nrm,
-                                       brick_cuda.trace_brick_lod_cuda(bsvo, o, d, coef),
-                                       d, light)
+    frame = lambda coef: lod.shade_lod(
+        svo, node_alb, node_nrm,
+        brick_cuda.trace_brick_lod_cuda(bsvo, o, d, coef, width=res), d, light)
+    frame_first = lambda coef: lod.shade_lod(
+        svo, node_alb, node_nrm, brick_cuda.trace_brick_lod_cuda_serial(bsvo, o, d, coef),
+        d, light)
     stackless = lambda coef: lod.render_lod(svo, node_alb, node_nrm, o, d, coef,
                                             light, width=res)[0]
     img, got_b = expect_launches("the LOD frame (brick route)", lambda: frame(c0),
@@ -2091,7 +2119,7 @@ def frame_lod(ctx, card):
                light=light)
     lines = []
     for name, coef in LOD_COEFS:
-        kb = brick_cuda._brick_lod_kernel(bsvo, o, d, coef, 0.0, True)
+        kb = brick_cuda._brick_lod_kernel(bsvo, o, d, coef, 0.0, True, res)
         ks = brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True, res)
         torch.cuda.synchronize()
         if name in ("c0", "8c0"):
@@ -2104,6 +2132,10 @@ def frame_lod(ctx, card):
             out["plain_ms"][name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
             err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
                 kb, pb, f"brick_trace_lod, terrain d10 frame, coef {name}"))
+            err["brick_trace_lod_serial"] = max(
+                err["brick_trace_lod_serial"], compare_lod(
+                    brick_cuda._brick_lod_kernel(bsvo, o, d, coef, 0.0, True, form="first"),
+                    pb, f"brick_trace_lod first form, terrain d10 frame, coef {name}"))
             err["esvo_stackless_lod"] = max(err["esvo_stackless_lod"], compare_lod(
                 ks, ps, f"esvo_stackless_lod, terrain d10 frame, coef {name}"))
             err["esvo_stackless_lod_serial"] = max(
@@ -2113,8 +2145,8 @@ def frame_lod(ctx, card):
                     ps, f"esvo_stackless_lod first form, terrain d10 frame, coef {name}"))
             compare_lod(brick_cuda._stackless_lod_kernel(svo, o, d, coef, 0.0, True), ps,
                         f"esvo_stackless_lod, rays in order, terrain d10 frame, coef {name}")
-            check = ("== its plain version bitwise (esvo_stackless_lod in its "
-                     "patched form with the width and without, and its first form)")
+            check = ("== its plain version bitwise (each in its patched form, "
+                     "esvo_stackless_lod's also without the width, and its first form)")
         elif name == "0":
             compare_stats(kb, (routes["brick"]["res"], routes["brick"]["stats"]),
                           "brick_trace_lod at 0 against brick_trace, terrain d10 frame")
@@ -2144,8 +2176,8 @@ def frame_lod(ctx, card):
             check = (f"the two traces part on {out['apart']} of the "
                      f"{int((~cut).sum())} rays the stackless one finishes")
         out["ends"][name] = dict(brick=lod_ends(*kb), stackless=lod_ends(*ks))
-        if name == "c0":
-            out["c0"] = (kb, ks)
+        if name in ("c0", "8c0"):
+            out[name] = (kb, ks)
         words = lambda e: (f"{e['node']} at a node, {e['leaf']} at a leaf, {e['none']} "
                            f"with no hit, {e['cut']} cut at the bound, "
                            f"{e['steps']:.2f} steps a ray")
@@ -2155,10 +2187,18 @@ def frame_lod(ctx, card):
     t = {"frame": cuda_ms(lambda: frame(c0), 50, 3),
          "render_lod": cuda_ms(lambda: stackless(c0), 50, 3),
          "frame_8c0": cuda_ms(lambda: frame(8 * c0), 50, 3)}
+    t.update({f"{key} in turns": v for key, v in in_turns({
+        "frame": lambda: frame(c0), "frame_first": lambda: frame_first(c0)}).items()})
     t.update(in_turns({
-        "brick_trace_lod": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, c0),
+        "brick_trace_lod": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, c0,
+                                                                   width=res),
+        "brick_trace_lod_serial": lambda: brick_cuda.trace_brick_lod_cuda_serial(
+            bsvo, o, d, c0),
+        "brick_trace_lod_serial_8c0": lambda: brick_cuda.trace_brick_lod_cuda_serial(
+            bsvo, o, d, 8 * c0),
         "esvo_stackless_lod": lambda: brick_cuda.trace_lod_cuda(svo, o, d, c0, width=res),
-        "brick_trace_lod_8c0": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * c0),
+        "brick_trace_lod_8c0": lambda: brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * c0,
+                                                                       width=res),
         "esvo_stackless_lod_8c0": lambda: brick_cuda.trace_lod_cuda(svo, o, d, 8 * c0,
                                                                     width=res),
         "esvo_stackless_lod_serial": lambda: brick_cuda.trace_lod_cuda_serial(svo, o, d, c0),
@@ -2175,12 +2215,16 @@ def frame_lod(ctx, card):
         f"{out['plain_ms']['c0'][1]:.1f} ms, n=1)")
     say(f"[frame-lod] {card}: at c0 the frame (brick_trace_lod, shade_lod) "
         f"median {m['frame'][0]:.4f} ms (p80 {m['frame'][1]:.4f}, n=50) = "
-        f"{n_rays / m['frame'][0] / 1e3:.2f} Mrays/s, render_lod median "
+        f"{n_rays / m['frame'][0] / 1e3:.2f} Mrays/s (in turns, three rounds of 50, "
+        f"{m['frame in turns'][0]:.4f} against {m['frame_first in turns'][0]:.4f} with "
+        f"brick_trace_lod's first form), render_lod median "
         f"{m['render_lod'][0]:.4f} ms (p80 {m['render_lod'][1]:.4f}); at 8 c0 the "
         f"frame {m['frame_8c0'][0]:.4f} ms (p80 {m['frame_8c0'][1]:.4f}); in turns, "
         f"three rounds of 50: brick_trace_lod {m['brick_trace_lod'][0]:.4f} ms "
         f"(p80 {m['brick_trace_lod'][1]:.4f}; at 8 c0 "
-        f"{m['brick_trace_lod_8c0'][0]:.4f}) against brick_trace "
+        f"{m['brick_trace_lod_8c0'][0]:.4f}; its first form "
+        f"{m['brick_trace_lod_serial'][0]:.4f}, at 8 c0 "
+        f"{m['brick_trace_lod_serial_8c0'][0]:.4f}) against brick_trace "
         f"{m['brick_trace'][0]:.4f}, esvo_stackless_lod "
         f"{m['esvo_stackless_lod'][0]:.4f} ({m['esvo_stackless_lod'][1]:.4f}; at "
         f"8 c0 {m['esvo_stackless_lod_8c0'][0]:.4f}; its first form "
@@ -2360,6 +2404,136 @@ def stackless_forms(ctx, card):
             f"{rows[main_name]['ms'][0] / rows['first']['ms'][0]:.3f} in turns")
     say(f"[profile] {card}: the stackless traces' variants alone are in the "
         f"[timing] lines above (torch.profiler, 20 calls each)")
+    return out
+
+
+def brick_lod_forms(ctx, card):
+    """[brick-lod-forms]: the LOD brick trace's patched form (warps of 8 x 4
+    pixel patches, blocks of the caller's size, each thread's staged row in
+    dynamic shared memory) against its first form (blocks of 256, the rays
+    in their own order). Parity on two ragged images of terrain d7 (each
+    form, the patched one at every block of PATCH_BLOCKS with the image's
+    width and without, and both probe forms, at 0, c0 and 8 c0 of the
+    image) against the plain version and at 0 against brick_trace; then on
+    the depth-10 frame at c0, 8 c0 and 0 every variant bitwise against the
+    first form (at 0 also against brick_trace's frame), timed in turns and
+    alone: the first form, the first form on the rays taken in the patch
+    order (patches alone), the patched form on the rays in their order and
+    with the width at each block, and at 0 brick_trace beside them (alone:
+    the two changes each alone at c0 only); both probe forms' warps at c0
+    and 8 c0. Returns each coefficient's variants for the kernels line."""
+    t_phase = time.perf_counter()
+    dev, bsvo, o, d, res = ctx["dev"], ctx["bsvo"], ctx["o"], ctx["d"], ctx["res"]
+    err, bench_cam, routes = ctx["err"], ctx["bench_cam"], ctx["routes"]
+    n = o.shape[0]
+    small = brick.make_brick_svo(octree.build_svo(get_scene("terrain"), 7).svo).to(dev)
+    found = []
+    for w, h in RAGGED_IMAGES:
+        o_r, d_r = camera.Camera(**bench_cam, width=w, height=h).rays(dev)
+        c0 = 2.0 * np.tan(np.radians(25.0)) / h
+        stops = []
+        for coef in (0.0, c0, 8 * c0):
+            what = f"terrain d7 {w}x{h}, coef {coef:.6g}"
+            plain = brick.trace_brick_lod(small, o_r, d_r, coef, 0.0, True)
+            got = [brick_cuda._brick_lod_kernel(small, o_r, d_r, coef, 0.0, True, w,
+                                                block=b) for b in PATCH_BLOCKS]
+            got += [brick_cuda._brick_lod_kernel(small, o_r, d_r, coef, 0.0, True),
+                    brick_cuda.probe_brick_lod_cuda(small, o_r, d_r, coef, "patched",
+                                                    w)[:2]]
+            first = [brick_cuda._brick_lod_kernel(small, o_r, d_r, coef, 0.0, True,
+                                                  form="first"),
+                     brick_cuda.probe_brick_lod_cuda(small, o_r, d_r, coef, "first")[:2]]
+            torch.cuda.synchronize()
+            for g in got:
+                err["brick_trace_lod"] = max(err["brick_trace_lod"], compare_lod(
+                    g, plain, f"brick_trace_lod patched, {what}"))
+            for g in first:
+                err["brick_trace_lod_serial"] = max(
+                    err["brick_trace_lod_serial"],
+                    compare_lod(g, plain, f"brick_trace_lod first form, {what}"))
+            if coef == 0.0:
+                compare_stats(got[0], brick_cuda._brick_kernel(small, o_r, d_r, True),
+                              f"brick_trace_lod at 0 against brick_trace, {what}")
+            stops.append(str(int((plain[0].hit_node >= 0).sum())))
+        found.append(f"{w}x{h} ({brick_cuda.patch_threads(w * h, w) - w * h} idle "
+                     f"lanes; rays stopped at a node at 0, c0, 8 c0: {'/'.join(stops)})")
+    say(f"[parity] brick_trace_lod's patched form with the image's width at blocks "
+        f"of {PATCH_BLOCKS} and without it, its first form and both probe forms == "
+        f"brick.trace_brick_lod bitwise (hit_leaf, hit_node, hit_t bits, "
+        f"hit_parent, hit_child, iters, statistics), and at 0 == brick_trace, on "
+        f"ragged images of terrain d7 at 0, c0 and 8 c0 of each image: "
+        + ", ".join(found))
+
+    # the frame: the two forms, patches alone, the row order alone, blocks
+    order = brick_cuda.patch_order(n, res).to(dev)
+    if bool((order < 0).any()):
+        raise AssertionError("the frame's patch order has idle lanes")
+    op, dp = o[order].contiguous(), d[order].contiguous()
+    main_block = brick_cuda.BLOCKS[("brick_trace_lod", "patched")]
+    out = {}
+    for cname, coef in (("c0", LOD_C0), ("8c0", 8 * LOD_C0), ("0", 0.0)):
+        call = lambda oo, dd, coef=coef, **kw: brick_cuda._brick_lod_kernel(
+            bsvo, oo, dd, coef, 0.0, True, **kw)
+        variants = {
+            "first": (lambda call=call: call(o, d, form="first"), BRICK_LOD_KERNELS["first"]),
+            "first, rays in patch order": (lambda call=call: call(op, dp, form="first"),
+                                           BRICK_LOD_KERNELS["first"]),
+            "patched, rays in order": (lambda call=call: call(o, d),
+                                       BRICK_LOD_KERNELS["patched"]),
+            **{f"patched, blocks of {b}": (lambda b=b, call=call: call(o, d, width=res,
+                                                                       block=b),
+                                           BRICK_LOD_KERNELS["patched"])
+               for b in PATCH_BLOCKS}}
+        want = call(o, d, form="first")
+        for name, (fn, _key) in variants.items():
+            got = fn()
+            if name == "first, rays in patch order":
+                got = unpermute(got, order, n)
+            compare_lod(got, want, f"brick_trace_lod {name}, terrain d10 frame, coef "
+                                   f"{cname}, against the first form")
+        if cname == "0":
+            compare_stats(want, (routes["brick"]["res"], routes["brick"]["stats"]),
+                          "brick_trace_lod's first form at 0 against brick_trace, "
+                          "terrain d10 frame")
+            variants["brick_trace"] = (lambda: brick_cuda._brick_kernel(bsvo, o, d, True),
+                                       FORM_KERNELS[("brick_trace", "wide")])
+        torch.cuda.synchronize()
+        turns = in_turns({name: fn for name, (fn, _key) in variants.items()},
+                         rounds=3, reps=30)
+        one_change = ("first, rays in patch order", "patched, rays in order")
+        rows = {name: dict(ms=med_p80(turns[name]),
+                           us_alone=(alone_us(fn, key) if cname == "c0"
+                                     or name not in one_change else None))
+                for name, (fn, key) in variants.items()}
+        if cname != "0":
+            iters = want[0].iters
+            for name, form, width, block in (
+                    ("first", "first", None, None),
+                    (f"patched, blocks of {main_block}", "patched", res, main_block)):
+                rec = brick_cuda.probe_brick_lod_cuda(bsvo, o, d, coef, form, width, block)
+                compare_lod(rec[:2], want, f"brick_trace_lod {form} probe, terrain d10 "
+                                           f"frame, coef {cname}")
+                rows[name]["warps"] = warps_line(f"brick_trace_lod ({name}, coef {cname})",
+                                                 form, rec[2], iters.cpu().numpy(), width,
+                                                 block)
+        out[cname] = rows
+        main_name = f"patched, blocks of {main_block}"
+        say(f"[timing] {card}: brick_trace_lod at coef {cname} on the {res}x{res} "
+            f"depth-10 frame, every variant == the first form bitwise"
+            + (" and == brick_trace" if cname == "0" else "")
+            + "; in turns (three rounds of 30) median ms (p80), and us alone: "
+            + "; ".join(f"{name} {r['ms'][0]:.4f} ({r['ms'][1]:.4f}), "
+                        f"{us_or(r['us_alone'])} us" for name, r in rows.items())
+            + f"; the main path's ({main_name}) against the first form "
+            f"{rows[main_name]['ms'][0] / rows['first']['ms'][0]:.3f} in turns")
+    say(f"[brick-lod-forms] {card}: brick_trace_lod's forms on the {res}x{res} frame "
+        f"(the [timing] and [warps] lines above): us alone, first form / patched at "
+        f"blocks of {' / '.join(str(b) for b in PATCH_BLOCKS)}: " + "; ".join(
+            f"coef {cname} {us_or(rows['first']['us_alone'])} / " + " / ".join(
+                us_or(rows[f'patched, blocks of {b}']['us_alone']) for b in PATCH_BLOCKS)
+            for cname, rows in out.items())
+        + f"; brick_trace at 0 {us_or(out['0']['brick_trace']['us_alone'])} "
+        f"(this phase {time.perf_counter() - t_phase:.1f} s of the host's clock)")
     return out
 
 
@@ -4883,9 +5057,9 @@ def main():
         f"noise (g++) {secs['noise']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
-    if len(ptxas) != 46:
+    if len(ptxas) != 49:
         raise AssertionError(f"ptxas reported {len(ptxas)} brick_trace.cu kernels, "
-                             f"expected 46")
+                             f"expected 49")
     moved = {name: regs for name, regs, _sp, _sm in ptxas
              if name in EARLIER_REGS and regs != EARLIER_REGS[name]}
     if moved or not set(EARLIER_REGS) <= {row[0] for row in ptxas}:
@@ -4897,7 +5071,9 @@ def main():
         "brick_trace_multi's staged and first "
         "forms <probe>, esvo_stackless_multi's first form and its probe form, its "
         "patched form esvo_stackless_multi_patched_kernel<probe>, the two LOD "
-        "kernels' first forms, the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
+        "kernels' first forms, brick_trace_lod's probe form brick_trace_lod_probe_kernel "
+        "and its patched form brick_trace_lod_patched_kernel<probe> (its staged rows "
+        "dynamic shared memory, 68 B a thread), the stitched traces' first forms clipmap_trace_kernel<brick arena>, "
         "the wide forms clipmap_trace_brick_kernel and clipmap_trace_wide_kernel and "
         "their probe forms clipmap_trace_brick_probe_kernel<wide> and "
         "clipmap_trace_probe_kernel<wide>, "
@@ -4930,6 +5106,7 @@ def main():
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
                esvo_stackless_serial=0.0, esvo_stackless_lod_serial=0.0,
+               brick_trace_lod_serial=0.0,
                esvo_stackless_multi_serial=0.0,
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
@@ -5632,6 +5809,7 @@ def main():
     brick_cuda.trace_brick_multi_cuda_serial(bsvo, o, d, VOLUME_K)
     brick_cuda.trace_stackless_cuda_serial(svo, o, d)
     brick_cuda.trace_lod_cuda_serial(svo, o, d, LOD_C0)
+    brick_cuda.trace_brick_lod_cuda_serial(bsvo, o, d, LOD_C0)
     brick_cuda.trace_multi_cuda_serial(svo, o, d, VOLUME_K)
     torch.cuda.synchronize()
     dda_launches, row_launches = brick_dda.launches, rowread.launches
@@ -5652,7 +5830,8 @@ def main():
                                       clipmap_trace_brick_serial=0, clipmap_trace_serial=0,
                                       level_queue_serial=0, esvo_stackless_serial=1,
                                       esvo_stackless_lod_serial=1,
-                                      esvo_stackless_multi_serial=1)
+                                      esvo_stackless_multi_serial=1,
+                                      brick_trace_lod_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
@@ -5865,7 +6044,8 @@ def main():
                 level_round_serial=0, level_round_probe=0, clipmap_trace_brick_serial=0,
                 clipmap_trace_brick_probe=0, clipmap_trace_serial=0, level_queue_serial=0,
                 clipmap_trace_probe=0, esvo_stackless_serial=0, esvo_stackless_lod_serial=0,
-                esvo_stackless_multi_serial=0, **MULTI_ZERO, **STEP_ZERO)
+                esvo_stackless_multi_serial=0, brick_trace_lod_serial=0,
+                brick_trace_lod_probe=0, **MULTI_ZERO, **STEP_ZERO)
     if flat_counts != want:
         raise AssertionError(f"InverseRenderer.step launched {flat_counts}, "
                              f"expected {want}")
@@ -5891,6 +6071,7 @@ def main():
     lodded = frame_lod(slice_ctx, card)
     stepped = step_volumetric(slice_ctx, card, served)
     patched = stackless_forms(dict(slice_ctx, bench_cam=bench_cam), card)
+    brick_lodded = brick_lod_forms(dict(slice_ctx, bench_cam=bench_cam), card)
     # ---- 7e. the command line, on the same tree ---------------------------------
     clied = cli_phase(dict(dev=dev, host_svo=host_svo, svo=svo, bsvo=bsvo, o=o,
                            d=d, res=res, bench_cam=bench_cam, cache=cache),
@@ -6375,31 +6556,35 @@ def main():
     # the LOD traces and composite_bwd alone; the LOD frame's and the
     # volumetric steps' kernel time, for the card's idle share
     _, rows, _n = profile_kernels(
-        "esvo_stackless_lod (in its patched and its first form) and "
-        "brick_trace_lod at c0, and composite_bwd, alone",
+        "esvo_stackless_lod and brick_trace_lod (each in its patched and its "
+        "first form) at c0, and composite_bwd, alone",
         lambda: (brick_cuda.trace_lod_cuda(svo, o, d, LOD_C0, width=res),
                  brick_cuda.trace_lod_cuda_serial(svo, o, d, LOD_C0),
-                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0),
-                 shade_cuda.composite_bwd(*stepped["bwd_args"])), "round", 4,
-        launches=4)
-    for kname in ("brick_trace_lod", "composite_bwd"):
-        alone[kname] = kernel_us(rows, kname + "_kernel")[0]
-    alone["esvo_stackless_lod"] = kernel_us(rows, LOD_KERNELS["patched"])[0]
-    alone["esvo_stackless_lod_serial"] = kernel_us(rows, LOD_KERNELS["first"])[0]
+                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0, width=res),
+                 brick_cuda.trace_brick_lod_cuda_serial(bsvo, o, d, LOD_C0),
+                 shade_cuda.composite_bwd(*stepped["bwd_args"])), "round", 5,
+        launches=5)
+    alone["composite_bwd"] = kernel_us(rows, "composite_bwd_kernel")[0]
+    for kname, kernels_of in (("esvo_stackless_lod", LOD_KERNELS),
+                              ("brick_trace_lod", BRICK_LOD_KERNELS)):
+        alone[kname] = kernel_us(rows, kernels_of["patched"])[0]
+        alone[kname + "_serial"] = kernel_us(rows, kernels_of["first"])[0]
     _, rows, _n = profile_kernels(
-        "esvo_stackless_lod (in its two forms) and brick_trace_lod at 8 c0 alone",
+        "esvo_stackless_lod and brick_trace_lod (each in its two forms) at 8 c0 alone",
         lambda: (brick_cuda.trace_lod_cuda(svo, o, d, 8 * LOD_C0, width=res),
                  brick_cuda.trace_lod_cuda_serial(svo, o, d, 8 * LOD_C0),
-                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * LOD_C0)),
-        "round", 3, launches=3)
-    alone["brick_trace_lod 8c0"] = kernel_us(rows, "brick_trace_lod_kernel")[0]
-    alone["esvo_stackless_lod 8c0"] = kernel_us(rows, LOD_KERNELS["patched"])[0]
-    alone["esvo_stackless_lod_serial 8c0"] = kernel_us(rows, LOD_KERNELS["first"])[0]
+                 brick_cuda.trace_brick_lod_cuda(bsvo, o, d, 8 * LOD_C0, width=res),
+                 brick_cuda.trace_brick_lod_cuda_serial(bsvo, o, d, 8 * LOD_C0)),
+        "round", 4, launches=4)
+    for kname, kernels_of in (("esvo_stackless_lod", LOD_KERNELS),
+                              ("brick_trace_lod", BRICK_LOD_KERNELS)):
+        alone[kname + " 8c0"] = kernel_us(rows, kernels_of["patched"])[0]
+        alone[kname + "_serial 8c0"] = kernel_us(rows, kernels_of["first"])[0]
     slice_prof = {
         "LOD frame (brick_trace_lod, shade_lod) at c0": (profile_kernels(
             "the LOD frame at c0", lambda: lod.shade_lod(
                 svo, lodded["node_alb"], lodded["node_nrm"],
-                brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0), d,
+                brick_cuda.trace_brick_lod_cuda(bsvo, o, d, LOD_C0, width=res), d,
                 lodded["light"]), "frame", 8), lodded["ms"]["frame"][0])}
     for route, fn in stepped["steps"].items():
         slice_prof[f"volumetric step, {route} route"] = (profile_kernels(
@@ -6411,7 +6596,9 @@ def main():
         f"{us_or(alone['esvo_stackless_lod_serial'])}, at 8 c0 "
         f"{us_or(alone['esvo_stackless_lod_serial 8c0'])}), brick_trace_lod "
         f"{us_or(alone['brick_trace_lod'])} (at 8 c0 "
-        f"{us_or(alone['brick_trace_lod 8c0'])}), composite_bwd "
+        f"{us_or(alone['brick_trace_lod 8c0'])}; the first form "
+        f"{us_or(alone['brick_trace_lod_serial'])}, at 8 c0 "
+        f"{us_or(alone['brick_trace_lod_serial 8c0'])}), composite_bwd "
         f"{us_or(alone['composite_bwd'])}; " + "; ".join(
             f"{what} {us_or(p_us)} us of kernels in {count(p_n)} launches, idle "
             f"{idle(p_us, ms)} of its median {ms:.4f} ms"
@@ -6814,27 +7001,36 @@ def main():
         plain_ms=vm["composite_plain"][0], bound_ms=composite_bound[0],
         bound_by=composite_bound[1], library_ms=None,
         us_alone=alone["composite_fwd"]))
-    # the LOD traces at c0: rays, tables and six outputs a ray once; the
-    # top and DDA steps this frame's rays took
-    lb, ls_ = lodded["c0"]
-    lb_dda = int(lb[1][:, STAT("dda_steps")].sum())
-    lb_top = int(lb[0].iters.sum()) - lb_dda
-    ls_steps = int(ls_[0].iters.sum())
+    # the LOD traces at c0 and 8 c0: rays, tables and six outputs a ray
+    # once; the top and DDA steps each coefficient's rays took
+    lod_steps, lod_bounds = {}, {}
+    for cname in ("c0", "8c0"):
+        lb, ls_ = lodded[cname]
+        lb_dda = int(lb[1][:, STAT("dda_steps")].sum())
+        lod_steps[cname] = (int(lb[0].iters.sum()) - lb_dda, lb_dda,
+                            int(ls_[0].iters.sum()))
+        lb_top, lb_dda, ls_steps = lod_steps[cname]
+        lod_bounds[cname] = dict(
+            brick_trace_lod=bound(
+                nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
+                       bsvo.bricks) + n_rays * 6 * 4,
+                lb_top * OPS_ESVO_STEP + lb_dda * OPS_DDA_STEP + n_rays * OPS_RAY_SETUP),
+            esvo_stackless_lod=bound(
+                nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr, svo.leaf_base)
+                + n_rays * 6 * 4, ls_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP))
+    lb_top, lb_dda, ls_steps = lod_steps["c0"]
     lod_rows = dict(
         brick_trace_lod=dict(
             replaces="raytracingtest_tpu/ops/brick.py:789",
             path="the LOD frame of cli render --lod-coef: trace_brick_lod_cuda, "
-                 "lod.shade_lod (the wide form)", plain_ms=lodded["plain_ms"]["c0"][0],
-            bound=bound(nbytes(o, d, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
-                               bsvo.bricks) + n_rays * 6 * 4,
-                        lb_top * OPS_ESVO_STEP + lb_dda * OPS_DDA_STEP
-                        + n_rays * OPS_RAY_SETUP)),
+                 "lod.shade_lod (the patched form)", plain_ms=lodded["plain_ms"]["c0"][0],
+            bound=lod_bounds["c0"]["brick_trace_lod"],
+            bound_8c0=lod_bounds["8c0"]["brick_trace_lod"]),
         esvo_stackless_lod=dict(
             replaces="raytracingtest_tpu/ops/traverse.py:816",
             path="lod.render_lod", plain_ms=lodded["plain_ms"]["c0"][1],
-            bound=bound(nbytes(o, d, svo.masks, svo.child_base, svo.parent_ptr,
-                               svo.leaf_base) + n_rays * 6 * 4,
-                        ls_steps * OPS_ESVO_STEP + n_rays * OPS_RAY_SETUP)))
+            bound=lod_bounds["c0"]["esvo_stackless_lod"],
+            bound_8c0=lod_bounds["8c0"]["esvo_stackless_lod"]))
     # composite_bwd on the brick route's step: the cotangent, segments and
     # rays in, each touched leaf's row once, a 28 B row a slot out
     bwd_bound = bound(
@@ -6849,7 +7045,16 @@ def main():
         f"steps, bound {lod_rows['esvo_stackless_lod']['bound'][0]:.5f} ms "
         f"({lod_rows['esvo_stackless_lod']['bound'][1]}), "
         f"{us_or(alone['esvo_stackless_lod'])} us alone (first form "
-        f"{us_or(alone['esvo_stackless_lod_serial'])}); composite_bwd "
+        f"{us_or(alone['esvo_stackless_lod_serial'])}); at 8 c0 brick_trace_lod "
+        f"{lod_steps['8c0'][0]} top and {lod_steps['8c0'][1]} DDA steps "
+        f"({(lod_steps['8c0'][0] + lod_steps['8c0'][1]) / n_rays:.2f} a ray), bound "
+        f"{lod_rows['brick_trace_lod']['bound_8c0'][0]:.5f} ms "
+        f"({lod_rows['brick_trace_lod']['bound_8c0'][1]}), "
+        f"{us_or(alone['brick_trace_lod 8c0'])} us alone (first form "
+        f"{us_or(alone['brick_trace_lod_serial 8c0'])}), esvo_stackless_lod "
+        f"{lod_steps['8c0'][2]} steps, bound "
+        f"{lod_rows['esvo_stackless_lod']['bound_8c0'][0]:.5f} ms, "
+        f"{us_or(alone['esvo_stackless_lod 8c0'])} us alone; composite_bwd "
         f"({OPS_COMPOSITE_BWD_SLOT} operations a valid slot) {n_seg_b} segments "
         f"on {touched_v} leaves, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}), "
         f"{us_or(alone['composite_bwd'])} us alone")
@@ -6858,6 +7063,9 @@ def main():
         lod_rows["esvo_stackless_lod"],
         path="brick_cuda.trace_lod_cuda_serial (the first form, off the main path)")
     lod_rows["esvo_stackless_lod"]["path"] += " (the patched form)"
+    lod_rows["brick_trace_lod_serial"] = dict(
+        lod_rows["brick_trace_lod"],
+        path="brick_cuda.trace_brick_lod_cuda_serial (the first form, off the main path)")
     for kname, row in lod_rows.items():
         kernels.append(dict(
             name=kname, route="cuda", source=src + "brick_trace.cu",
@@ -6867,10 +7075,15 @@ def main():
             ms=lodded["ms"][kname][0], plain_ms=row["plain_ms"],
             bound_ms=row["bound"][0], bound_by=row["bound"][1], library_ms=None,
             us_alone=alone[kname], coef=LOD_C0, ms_8c0=lodded["ms"][kname + "_8c0"][0],
-            us_alone_8c0=alone[kname + " 8c0"],
+            us_alone_8c0=alone[kname + " 8c0"], bound_ms_8c0=row["bound_8c0"][0],
+            bound_by_8c0=row["bound_8c0"][1],
             **({} if kname != "esvo_stackless_lod" else dict(
                 variants=patched["esvo_stackless_lod c0"],
-                variants_8c0=patched["esvo_stackless_lod 8c0"]))))
+                variants_8c0=patched["esvo_stackless_lod 8c0"])),
+            **({} if kname != "brick_trace_lod" else dict(
+                block=brick_cuda.BLOCKS[("brick_trace_lod", "patched")],
+                variants=brick_lodded["c0"], variants_8c0=brick_lodded["8c0"],
+                variants_0=brick_lodded["0"]))))
     kernels.append(dict(
         name="composite_bwd", route="cuda", source=src + "shade.cu",
         replaces="raytracingtest_tpu/diff.py:377",

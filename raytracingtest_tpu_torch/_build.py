@@ -32,7 +32,9 @@ Seven libraries, each built on first use into
                      its first form; each with counters too) for volumetric
                      rendering and
                      their LOD forms (``esvo_stackless_lod``,
-                     ``brick_trace_lod``), the streamed world's
+                     ``brick_trace_lod``, each a patched form and its first
+                     form, ``brick_trace_lod``'s with counters too), the
+                     streamed world's
                      stitched traces (``clipmap_trace`` and
                      ``clipmap_trace_brick``, each in a wide form and its
                      first form, with counters too) and the level-sharded
@@ -237,7 +239,11 @@ def _declare_brick(lib):
     f = ctypes.c_float
     lib.esvo_stackless_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
     lib.esvo_stackless_lod_serial.argtypes = [p] * 6 + [i] * 2 + [f] * 2 + [p] * 8
-    lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
+    # brick_trace_lod's patched form takes the image width and the block; its
+    # probe both forms' arguments, its form and the record
+    lib.brick_trace_lod.argtypes = [p] * 6 + [i] * 6 + [f] * 2 + [p] * 8
+    lib.brick_trace_lod_serial.argtypes = [p] * 6 + [i] * 4 + [f] * 2 + [p] * 8
+    lib.brick_trace_lod_probe.argtypes = [i] + [p] * 6 + [i] * 6 + [f] * 2 + [p] * 9
     clip = [p] * 7 + [f] * 4 + [p] * 6 + [i] * 4 + [p] * 4
     for fn in (lib.clipmap_trace, lib.clipmap_trace_serial, lib.clipmap_trace_brick,
                lib.clipmap_trace_brick_serial):
@@ -265,7 +271,8 @@ def _declare_brick(lib):
                lib.esvo_stackless_multi_serial, lib.esvo_stackless_multi_probe,
                lib.brick_trace_multi, lib.brick_trace_multi_serial,
                lib.brick_trace_multi_probe, lib.esvo_stackless_lod,
-               lib.esvo_stackless_lod_serial, lib.brick_trace_lod):
+               lib.esvo_stackless_lod_serial, lib.brick_trace_lod,
+               lib.brick_trace_lod_serial, lib.brick_trace_lod_probe):
         fn.restype = i
 
 

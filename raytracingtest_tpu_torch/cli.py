@@ -157,7 +157,8 @@ def cmd_render(args):
             t.to(device) for t in lod_mod.compute_node_attributes(host_svo))
         if svo.depth >= brick_mod.BRICK_LEVELS + 1:
             bsvo = brick_mod.make_brick_svo(host_svo).to(device)
-            res = brick_cuda.trace_brick_lod_cuda(bsvo, o, d, args.lod_coef)
+            res = brick_cuda.trace_brick_lod_cuda(bsvo, o, d, args.lod_coef,
+                                                  width=cam.width)
             img = lod_mod.shade_lod(svo, node_albedo, node_normal, res, d)
         else:
             img, _ = lod_mod.render_lod(svo, node_albedo, node_normal, o, d,

@@ -39,9 +39,9 @@
 // trace also records its parent and slot, as for a leaf); in the brick
 // trace, entering a small brick ends it with hit_node = n_top + the brick's
 // id, the row of the brick's node in the source SVO. A brick larger than
-// the footprint is walked by the exact DDA. brick_trace_lod takes the wide
-// form (blocks of 256, staged brick rows), the brick trace's main-path form,
-// which measured faster than the first form in every run (PERF.md).
+// the footprint is walked by the exact DDA. brick_trace_lod runs the wide
+// form's body (staged brick rows), the brick trace's main-path form, which
+// measured faster than the first form in every run (PERF.md).
 //
 // Semantics follow the plain PyTorch versions bit for bit
 // (raytracingtest_tpu_torch/ops/traverse.py::fast_step, trace_stackless,
@@ -167,9 +167,20 @@
 //     (esvo_stackless_lod_kernel, C entry esvo_stackless_lod_serial) and
 //     the patched one (esvo_stackless_patched_kernel<probe, true>), whose
 //     walk reads the four arrays: in LOD mode the walk over the row table
-//     measured slower than the patches alone (PERF.md).
-//   * The probe forms (esvo_stackless_probe, brick_trace_probe, the
-//     k-segment traces' esvo_stackless_multi_probe and
+//     measured slower than the patches alone (PERF.md). brick_trace_lod
+//     has two forms of one body, brick_ray<staged rows, probe, LOD>: the
+//     first (brick_trace_lod_kernel, C entry brick_trace_lod_serial; blocks
+//     of 256, rays in their own order) and the patched one
+//     (brick_trace_lod_patched_kernel<probe>): the rays in warps of 8 x 4
+//     pixel patches, blocks of the caller's size, each thread's staged row
+//     in dynamic shared memory, 68 bytes a thread. On the depth-10 frame
+//     (PERF.md, chip_smoke.py's [brick-lod-forms]) the patches raise the top
+//     step's SIMT efficiency from 0.57 to 0.68 and the DDA step's from 0.35
+//     to 0.42, and take about a tenth off the kernel at the camera's pixel
+//     footprint but little at 8 times it, where the warp that gathers one
+//     patch's grazing rays, started mid-launch, sets the span.
+//   * The probe forms (esvo_stackless_probe, brick_trace_probe,
+//     brick_trace_lod_probe, the k-segment traces' esvo_stackless_multi_probe and
 //     brick_trace_multi_probe, of either form, and the stitched traces'
 //     clipmap_trace_brick_probe and clipmap_trace_probe_kernel over their
 //     own seven and six phases) are a form with counters:
@@ -959,7 +970,7 @@ brick_trace_kernel(Tree tree, Rays rays, Out out,
   probe.finish(probe_out);
 }
 
-// The wide form with the footprint stop.
+// The wide form with the footprint stop: brick_trace_lod's first form.
 __global__ void __launch_bounds__(WIDE_BLOCK)
 brick_trace_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
   __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
@@ -968,6 +979,40 @@ brick_trace_lod_kernel(Tree tree, Rays rays, Out out, Lod lod) {
   if (i < rays.n)
     brick_ray<true, false, true>(tree, rays, out, i, probe,
                                  staged + threadIdx.x * ROW_WORDS, &lod);
+}
+
+// The first form with the counters.
+__global__ void __launch_bounds__(WIDE_BLOCK)
+brick_trace_lod_probe_kernel(Tree tree, Rays rays, Out out, Lod lod,
+                             long long* __restrict__ probe_out) {
+  __shared__ int staged[WIDE_BLOCK * ROW_WORDS];
+  Probe<true> probe;
+  probe.begin();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n)
+    brick_ray<true, true, true>(tree, rays, out, i, probe,
+                                staged + threadIdx.x * ROW_WORDS, &lod);
+  probe.finish(probe_out);
+}
+
+// brick_trace_lod's patched form, the main path's: the first form's body,
+// one thread a ray in the patch order (patch_ray), a parked ray's brick row
+// staged in the thread's 17 words of the block's dynamic shared memory
+// (blockDim.x * ROW_WORDS words). Compiled for blocks of up to
+// PATCH_BLOCK_MAX threads; launched with the caller's block
+// (brick_cuda.BLOCKS).
+template <bool PROBE>
+__global__ void __launch_bounds__(PATCH_BLOCK_MAX)
+brick_trace_lod_patched_kernel(Tree tree, Rays rays, int width, Out out,
+                               Lod lod, long long* __restrict__ probe_out) {
+  extern __shared__ int smem[];
+  Probe<PROBE> probe;
+  probe.begin();
+  const int i = patch_ray(blockIdx.x * blockDim.x + threadIdx.x, rays.n, width);
+  if (i >= 0)
+    brick_ray<true, PROBE, true>(tree, rays, out, i, probe,
+                                 smem + threadIdx.x * ROW_WORDS, &lod);
+  probe.finish(probe_out);
 }
 
 // ---- the k-segment traces ---------------------------------------------------
@@ -2707,6 +2752,66 @@ int launch_brick_multi(int form, const void* top_masks, const void* top_child,
   return (int)cudaGetLastError();
 }
 
+// A brick tree's tables and depths, as the kernels take them.
+Tree brick_tree(const void* top_masks, const void* top_child,
+                const void* top_parent, const void* bricks, int depth,
+                int top_depth) {
+  return Tree{(const int*)top_masks, (const int*)top_child,
+              (const int*)top_parent, nullptr, (const int*)bricks, depth,
+              top_depth};
+}
+
+// brick_trace_lod's arguments: a ray count, a brick tree's depths (its
+// bricks three levels deep) and its top rows.
+bool brick_lod_ok(int n, const Tree& tree, const Lod& lod) {
+  return n >= 0 && tree.top_depth >= 1 && tree.depth == tree.top_depth + 3 &&
+         tree.depth <= S_MAX - 1 && lod.n_top >= 1;
+}
+
+// One launch of brick_trace_lod's first form in blocks of WIDE_BLOCK
+// (probe: with the counters).
+int launch_brick_lod_first(const Tree& tree, const Rays& rays, const Out& out,
+                           const Lod& lod, void* probe, void* stream) {
+  if (!brick_lod_ok(rays.n, tree, lod)) return (int)cudaErrorInvalidValue;
+  if (rays.n > 0) {
+    const int blocks = blocks_for(rays.n, WIDE_BLOCK);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (probe) {
+      brick_trace_lod_probe_kernel<<<blocks, WIDE_BLOCK, 0, s>>>(
+          tree, rays, out, lod, (long long*)probe);
+    } else {
+      brick_trace_lod_kernel<<<blocks, WIDE_BLOCK, 0, s>>>(tree, rays, out, lod);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of brick_trace_lod's patched form in blocks of `block`
+// threads, block * ROW_WORDS words of dynamic shared memory (probe: with
+// the counters).
+int launch_brick_lod_patched(const Tree& tree, const Rays& rays, int width,
+                             int block, const Out& out, const Lod& lod,
+                             void* probe, void* stream) {
+  if (!brick_lod_ok(rays.n, tree, lod) ||
+      !patched_ok(rays.n, tree.depth, width, block))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = patch_threads(rays.n, width);
+  if (threads > 0) {
+    const int blocks = (int)((threads + block - 1) / block);
+    const size_t bytes = (size_t)block * ROW_WORDS * sizeof(int);
+    const cudaStream_t s = (cudaStream_t)stream;
+    long long* p = (long long*)probe;
+    if (p) {
+      brick_trace_lod_patched_kernel<true><<<blocks, block, bytes, s>>>(
+          tree, rays, width, out, lod, p);
+    } else {
+      brick_trace_lod_patched_kernel<false><<<blocks, block, bytes, s>>>(
+          tree, rays, width, out, lod, p);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The patched form, the main path's: the node row table `rows` ((n_nodes,
@@ -2861,30 +2966,68 @@ extern "C" int esvo_stackless_lod_serial(
   return (int)cudaGetLastError();
 }
 
-// brick_trace's wide form with the footprint stop coef, bias: hit_node (n,)
-// beside its outputs, in the source SVO's rows (n_top: the top tree's rows).
+// brick_trace_lod's patched form, the main path's: brick_trace's wide form
+// with the footprint stop coef, bias, the rays in the patch order of an
+// image `width` columns wide (0: their own order), blocks of `block`
+// threads; hit_node (n,) beside its outputs, in the source SVO's rows
+// (n_top: the top tree's rows).
 extern "C" int brick_trace_lod(const void* top_masks, const void* top_child,
                                const void* top_parent, const void* bricks,
                                const void* origin, const void* direction,
                                int n, int depth, int top_depth, int n_top,
-                               float coef, float bias, void* hit_leaf,
-                               void* hit_t, void* hit_parent, void* hit_child,
-                               void* iters, void* hit_node, void* stats,
-                               void* stream) {
-  if (n < 0 || top_depth < 1 || depth != top_depth + 3 || depth > S_MAX - 1 ||
-      n_top < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const Tree tree{(const int*)top_masks, (const int*)top_child,
-                    (const int*)top_parent, nullptr, (const int*)bricks,
-                    depth, top_depth};
-    const Rays rays{(const float*)origin, (const float*)direction, n};
-    brick_trace_lod_kernel<<<blocks_for(n, WIDE_BLOCK), WIDE_BLOCK, 0,
-                             (cudaStream_t)stream>>>(
-        tree, rays, outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
-        Lod{coef, bias, n_top, (int*)hit_node});
-  }
-  return (int)cudaGetLastError();
+                               int width, int block, float coef, float bias,
+                               void* hit_leaf, void* hit_t, void* hit_parent,
+                               void* hit_child, void* iters, void* hit_node,
+                               void* stats, void* stream) {
+  return launch_brick_lod_patched(
+      brick_tree(top_masks, top_child, top_parent, bricks, depth, top_depth),
+      Rays{(const float*)origin, (const float*)direction, n}, width, block,
+      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+      Lod{coef, bias, n_top, (int*)hit_node}, nullptr, stream);
+}
+
+// The first form: brick_trace's wide form with the footprint stop, one
+// thread a ray in blocks of WIDE_BLOCK, the rays in their own order.
+extern "C" int brick_trace_lod_serial(const void* top_masks, const void* top_child,
+                                      const void* top_parent, const void* bricks,
+                                      const void* origin, const void* direction,
+                                      int n, int depth, int top_depth, int n_top,
+                                      float coef, float bias, void* hit_leaf,
+                                      void* hit_t, void* hit_parent,
+                                      void* hit_child, void* iters,
+                                      void* hit_node, void* stats, void* stream) {
+  return launch_brick_lod_first(
+      brick_tree(top_masks, top_child, top_parent, bricks, depth, top_depth),
+      Rays{(const float*)origin, (const float*)direction, n},
+      outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats),
+      Lod{coef, bias, n_top, (int*)hit_node}, nullptr, stream);
+}
+
+// `form` (FORM_FIRST, width 0 and block WIDE_BLOCK, or FORM_PATCHED) with
+// the counters: `probe` holds PROBE_WORDS int64 words for each warp of the
+// launch.
+extern "C" int brick_trace_lod_probe(int form, const void* top_masks,
+                                     const void* top_child,
+                                     const void* top_parent, const void* bricks,
+                                     const void* origin, const void* direction,
+                                     int n, int depth, int top_depth, int n_top,
+                                     int width, int block, float coef,
+                                     float bias, void* hit_leaf, void* hit_t,
+                                     void* hit_parent, void* hit_child,
+                                     void* iters, void* hit_node, void* stats,
+                                     void* probe, void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
+  const Tree tree = brick_tree(top_masks, top_child, top_parent, bricks, depth,
+                               top_depth);
+  const Rays rays{(const float*)origin, (const float*)direction, n};
+  const Out out = outputs(hit_leaf, hit_t, hit_parent, hit_child, iters, stats);
+  const Lod lod{coef, bias, n_top, (int*)hit_node};
+  if (form == FORM_FIRST && width == 0 && block == WIDE_BLOCK)
+    return launch_brick_lod_first(tree, rays, out, lod, probe, stream);
+  if (form == FORM_PATCHED)
+    return launch_brick_lod_patched(tree, rays, width, block, out, lod, probe,
+                                    stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The first k leaf segments of each ray, the stackless walk over the full

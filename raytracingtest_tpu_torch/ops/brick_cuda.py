@@ -31,6 +31,13 @@ what each does, and PERF.md what it measured):
     ``esvo_stackless_lod`` has the same two forms of the same body
     (``trace_lod_cuda``, ``trace_lod_cuda_serial``); its patched form walks
     the patches over the four arrays (the row table measured slower there).
+  * ``brick_trace_lod``'s ``patched`` form, the main path's
+    (``trace_brick_lod_cuda``): the body of ``brick_trace``'s wide form with
+    the footprint stop (a parked ray's brick row staged in shared memory),
+    one thread a ray in blocks of the caller's size, and with ``width=`` the
+    rays of a row-major image walked in warps of 8 x 4 pixel patches. Its
+    ``first`` form, the same body in blocks of 256 in the rays' own order,
+    is ``trace_brick_lod_cuda_serial``.
   * ``brick_trace``'s ``wide`` form, the main path's (``trace_brick_cuda``):
     one thread a ray in blocks of 256, a parked ray's brick row staged in
     shared memory. Its ``first`` form, blocks of 128 and rows read as the
@@ -76,8 +83,9 @@ pass, ``torch.cumsum`` and a place pass). ``level_round_serial_kernel`` is
 the round's first form, a thread for each ray or packet, the check and the
 yardstick; ``probe_level_round`` the first form with per-warp counters.
 
-``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``
-and ``probe_brick_multi_cuda`` launch a form with per-warp counters
+``probe_stackless_cuda``, ``probe_brick_cuda``, ``probe_stackless_multi_cuda``,
+``probe_brick_multi_cuda`` and ``probe_brick_lod_cuda`` launch a form with
+per-warp counters
 (``PROBE_FIELDS``), for measurement only.
 
 All take any ray count and return a ``TraceResult`` (the k-segment forms a
@@ -115,11 +123,12 @@ form_launches = {"brick_trace_serial": 0, "brick_trace_unstaged": 0,
                  "brick_trace_multi_serial": 0, "level_round_serial": 0,
                  "clipmap_trace_brick_serial": 0, "clipmap_trace_serial": 0,
                  "level_queue_serial": 0, "esvo_stackless_serial": 0,
-                 "esvo_stackless_lod_serial": 0, "esvo_stackless_multi_serial": 0}
+                 "esvo_stackless_lod_serial": 0, "esvo_stackless_multi_serial": 0,
+                 "brick_trace_lod_serial": 0}
 probe_launches = {"esvo_stackless_probe": 0, "brick_trace_probe": 0,
                   "esvo_stackless_multi_probe": 0, "brick_trace_multi_probe": 0,
                   "level_round_probe": 0, "clipmap_trace_brick_probe": 0,
-                  "clipmap_trace_probe": 0}
+                  "clipmap_trace_probe": 0, "brick_trace_lod_probe": 0}
 
 _ESVO_STACKLESS = Kernel("esvo_stackless", brick_lib)
 _ESVO_STACKLESS_SERIAL = Kernel("esvo_stackless_serial", brick_lib)
@@ -137,6 +146,8 @@ _BRICK_TRACE_MULTI_PROBE = Kernel("brick_trace_multi_probe", brick_lib)
 _ESVO_STACKLESS_LOD = Kernel("esvo_stackless_lod", brick_lib)
 _ESVO_STACKLESS_LOD_SERIAL = Kernel("esvo_stackless_lod_serial", brick_lib)
 _BRICK_TRACE_LOD = Kernel("brick_trace_lod", brick_lib)
+_BRICK_TRACE_LOD_SERIAL = Kernel("brick_trace_lod_serial", brick_lib)
+_BRICK_TRACE_LOD_PROBE = Kernel("brick_trace_lod_probe", brick_lib)
 _CLIPMAP_TRACE = Kernel("clipmap_trace", brick_lib)
 _CLIPMAP_TRACE_SERIAL = Kernel("clipmap_trace_serial", brick_lib)
 _CLIPMAP_TRACE_PROBE = Kernel("clipmap_trace_probe", brick_lib)
@@ -159,9 +170,9 @@ PACKET_WORDS, REPLY_WORDS = 8, 2
 QBLOCK = 256
 QTILE = 16 * QBLOCK
 
-# each kernel's forms (a stackless trace's main path takes its first
-# entry; esvo_stackless_lod has esvo_stackless's), the form numbers in the
-# kernels, and the threads of each kernel's forms' blocks (csrc/
+# each kernel's forms (a stackless trace's and the LOD brick trace's main
+# path takes its first entry; esvo_stackless_lod has esvo_stackless's), the
+# form numbers in the kernels, and the threads of each kernel's forms' blocks (csrc/
 # brick_trace.cu's BLOCK, WIDE_BLOCK, MULTI_BLOCK and CLIP_BLOCK:
 # clipmap_trace's wide form measured faster in blocks of 128 than of 256;
 # the patched forms take their block at launch, up to PATCH_BLOCK_MAX)
@@ -169,6 +180,7 @@ FORMS = {"brick_trace": ("first", "wide", "unstaged"),
          "esvo_stackless": ("patched", "first"),
          "brick_trace_multi": ("staged", "first"),
          "esvo_stackless_multi": ("patched", "first"),
+         "brick_trace_lod": ("patched", "first"),
          "clipmap_trace_brick": ("wide", "first"),
          "clipmap_trace": ("wide", "first"),
          "level_queue": ("one_pass", "first")}
@@ -179,6 +191,7 @@ BLOCKS = {("brick_trace", "first"): 128, ("brick_trace", "wide"): 256,
           ("brick_trace_multi", "staged"): 32, ("brick_trace_multi", "first"): 128,
           ("esvo_stackless_multi", "first"): 128,
           ("esvo_stackless_multi", "patched"): 128,
+          ("brick_trace_lod", "patched"): 128, ("brick_trace_lod", "first"): 256,
           ("clipmap_trace_brick", "wide"): 256, ("clipmap_trace_brick", "first"): 128,
           ("clipmap_trace", "wide"): 128, ("clipmap_trace", "first"): 128,
           ("level_round", "first"): 128}
@@ -508,6 +521,12 @@ def _lod_args(coef, bias):
     return float(np.float32(coef)), float(np.float32(bias))
 
 
+def _lod_results(out, hit_node, stats):
+    """The LOD kernels' output pointers: the trace's five, hit_node, stats."""
+    return (*(t.data_ptr() for t in out), hit_node.data_ptr(),
+            None if stats is None else stats.data_ptr())
+
+
 def _stackless_lod_kernel(svo, origin, direction, coef, bias=0.0,
                           with_stats=False, width=None, form=None, block=None):
     """Launch ``esvo_stackless_lod`` in `form` (esvo_stackless's forms; None:
@@ -519,22 +538,45 @@ def _stackless_lod_kernel(svo, origin, direction, coef, bias=0.0,
         block=block, rows=False)
     hit_node = torch.empty(n, dtype=_I32, device=origin.device)
     kernel(origin.device, *ptrs, *scalars, *_lod_args(coef, bias),
-           *(t.data_ptr() for t in out), hit_node.data_ptr(),
-           None if stats is None else stats.data_ptr())
+           *_lod_results(out, hit_node, stats))
     _count("esvo_stackless_lod", main)
     return TraceResult(*out, hit_node), stats
 
 
-def _brick_lod_kernel(bsvo, origin, direction, coef, bias=0.0, with_stats=False):
-    """Launch ``brick_trace_lod`` on (N, 3) float32 CUDA rays."""
-    n, tables, out, stats = _brick_args(_BRICK_TRACE_LOD, bsvo, origin,
-                                        direction, with_stats)
+def _brick_lod_args(kernel, bsvo, origin, direction, with_stats, form, width,
+                    block):
+    """Check a ``brick_trace_lod`` launch in `form`; returns (n, the
+    arguments before coef and bias: the tables, the rays, n, the depths,
+    n_top and, for the patched form, the image width (0: none) and the
+    block; outputs, stats, hit_node)."""
+    n, tables, out, stats = _brick_args(kernel, bsvo, origin, direction,
+                                        with_stats)
+    head = (*tables, n, bsvo.depth, bsvo.top_depth, bsvo.n_top)
+    if form == "patched":
+        block = (BLOCKS[("brick_trace_lod", form)] if block is None
+                 else _block(block))
+        if patch_threads(n, width) + block >= 2 ** 31:
+            raise ValueError(f"{n} rays in patches out of range")
+        head += (_width(n, width), block)
+    elif width is not None or block is not None:
+        raise ValueError(f"the first form walks the rays in their own order, "
+                         f"in blocks of {BLOCKS[('brick_trace_lod', form)]}")
     hit_node = torch.empty(n, dtype=_I32, device=origin.device)
-    _BRICK_TRACE_LOD(origin.device, *tables, n, bsvo.depth, bsvo.top_depth,
-                     bsvo.n_top, *_lod_args(coef, bias),
-                     *(t.data_ptr() for t in out), hit_node.data_ptr(),
-                     None if stats is None else stats.data_ptr())
-    launches["brick_trace_lod"] += 1
+    return n, head, out, stats, hit_node
+
+
+def _brick_lod_kernel(bsvo, origin, direction, coef, bias=0.0, with_stats=False,
+                      width=None, form=None, block=None):
+    """Launch ``brick_trace_lod`` in `form` (None: the main path's; the
+    patched form over an image `width` wide, in blocks of `block`) on (N, 3)
+    float32 CUDA rays."""
+    form, main = _main("brick_trace_lod", form)
+    kernel = _BRICK_TRACE_LOD if form == "patched" else _BRICK_TRACE_LOD_SERIAL
+    _n, head, out, stats, hit_node = _brick_lod_args(
+        kernel, bsvo, origin, direction, with_stats, form, width, block)
+    kernel(origin.device, *head, *_lod_args(coef, bias),
+           *_lod_results(out, hit_node, stats))
+    _count("brick_trace_lod", main)
     return TraceResult(*out, hit_node), stats
 
 
@@ -587,6 +629,25 @@ def probe_brick_cuda(bsvo, origin, direction, form):
                        bsvo.top_depth, *_results(out, stats), record.data_ptr())
     probe_launches["brick_trace_probe"] += 1
     return TraceResult(*out), stats, record
+
+
+def probe_brick_lod_cuda(bsvo, origin, direction, coef, form="first",
+                         width=None, block=None):
+    """``brick_trace_lod`` in `form` (the patched one over an image `width`
+    wide, in blocks of `block`) with per-warp counters, on CUDA rays.
+    Returns (TraceResult, stats, record): record is (warps,
+    len(PROBE_FIELDS)) int64."""
+    code = _form("brick_trace_lod", form)
+    n, head, out, stats, hit_node = _brick_lod_args(
+        _BRICK_TRACE_LOD_PROBE, bsvo, origin, direction, True, form, width, block)
+    if form == "first":
+        head += (0, BLOCKS[("brick_trace_lod", form)])
+    record = torch.zeros((warps_of(n, "brick_trace_lod", form, width, head[-1]),
+                          len(PROBE_FIELDS)), dtype=torch.int64, device=origin.device)
+    _BRICK_TRACE_LOD_PROBE(origin.device, code, *head, *_lod_args(coef, 0.0),
+                           *_lod_results(out, hit_node, stats), record.data_ptr())
+    probe_launches["brick_trace_lod_probe"] += 1
+    return TraceResult(*out, hit_node), stats, record
 
 
 def probe_stackless_multi_cuda(svo, origin, direction, k, form="first",
@@ -733,16 +794,30 @@ def trace_lod_cuda_serial(svo, origin, direction, coef, bias=0.0,
 
 
 def trace_brick_lod_cuda(bsvo, origin, direction, coef, bias=0.0,
-                         with_stats=False):
+                         with_stats=False, width=None):
     """The LOD brick trace of (N, 3) float32 rays through `bsvo`, any N:
     kernel ``brick_trace_lod`` for CUDA tensors, the plain version
     ``brick.trace_brick_lod`` for CPU tensors. hit_node rows are the source
-    SVO's. Returns a TraceResult, or (TraceResult, stats (N, 5))."""
+    SVO's. `width`: as ``trace_stackless_cuda``'s. Returns a TraceResult, or
+    (TraceResult, stats (N, 5))."""
+    if origin.device.type == "cpu":
+        _width(origin.shape[0], width)
+        return brick.trace_brick_lod(bsvo, origin, direction, coef, bias,
+                                     with_stats)
+    res, stats = _brick_lod_kernel(bsvo, origin, direction, coef, bias,
+                                   with_stats, width)
+    return (res, stats) if with_stats else res
+
+
+def trace_brick_lod_cuda_serial(bsvo, origin, direction, coef, bias=0.0,
+                                with_stats=False):
+    """``trace_brick_lod_cuda`` through the first form of the kernel: the
+    same results."""
     if origin.device.type == "cpu":
         return brick.trace_brick_lod(bsvo, origin, direction, coef, bias,
                                      with_stats)
     res, stats = _brick_lod_kernel(bsvo, origin, direction, coef, bias,
-                                   with_stats)
+                                   with_stats, form="first")
     return (res, stats) if with_stats else res
 
 

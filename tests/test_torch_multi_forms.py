@@ -204,8 +204,9 @@ def test_c_entries_are_declared_with_their_arity():
            "clipmap_trace_brick_serial", "clipmap_trace_brick_probe",
            "clipmap_trace_serial", "clipmap_trace_probe", "level_queue_serial",
            "esvo_stackless_serial", "esvo_stackless_lod_serial",
-           "esvo_stackless_multi_serial"}
-    assert new <= set(arity) and len(arity) == 27
+           "esvo_stackless_multi_serial", "brick_trace_lod_serial",
+           "brick_trace_lod_probe"}
+    assert new <= set(arity) and len(arity) == 29
     lib = _Declared()
     _build._declare_brick(lib)
     assert set(lib.fns) == set(arity)
@@ -223,6 +224,10 @@ def test_c_entries_are_declared_with_their_arity():
     for kname in ("esvo_stackless", "esvo_stackless_multi"):
         assert arity[kname] == arity[kname + "_serial"] - 3 + 2
     assert arity["esvo_stackless_lod"] == arity["esvo_stackless_lod_serial"] + 2
+    # the LOD brick trace's patched form adds the width and the block to its
+    # first form's arguments; its probe adds its form and the record
+    assert arity["brick_trace_lod"] == arity["brick_trace_lod_serial"] + 2
+    assert arity["brick_trace_lod_probe"] == arity["brick_trace_lod"] + 2
     assert arity["esvo_stackless_multi_probe"] == arity["esvo_stackless_multi_serial"] + 5
     assert arity["esvo_stackless_probe"] == arity["esvo_stackless_serial"] + 5
     assert arity["brick_trace_multi_probe"] == arity["brick_trace_multi"] + 2
