@@ -39,8 +39,9 @@ form, the walker on each of the frame's three launches and at every number
 of lanes a ray, and each pair is timed in turns. `tile_candidates` (phase 1
 of the tile trace) is held bitwise against `tile.candidates_plain` on each
 of the frame's three calls and on small cases, and timed in turns against
-it; no call of the plain version may happen on the tile frame's or the tile
-step's path. It runs the probe kernels
+it, beside its radix form (`tile_candidates_radix`, off the path; the
+small cases hold it and the brickmap mode's two forms too); no call of the
+plain version may happen on the tile frame's or the tile step's path. It runs the probe kernels
 (`brick_dda16`, `rowread`, `take`, `loop_probe`, and the sorted form of the
 segment sum) at the sizes of the probes they replace, `take` also at the
 main path's size, times the parts of one wrapper's launch path on the
@@ -113,7 +114,12 @@ falling loss, a state file that reloads), `info`, `debug` (the probe's leaves
 against `trace_multi_cuda`'s, the overlay against the direct call's pixels),
 `render` of the three noise scenes built at depth 8, `fly` on both paths and a
 scripted `probe`. `[fly]` streams the whole world at depth 10 and holds its
-1024² tile frame against the monolithic one, `tile_candidates_mapped`,
+1024² tile frame against the monolithic one, `tile_candidates_mapped` (phase
+1's radix form, the main path's, and its first form,
+`tile_candidates_mapped_first`: `[cand-forms]` times both, in turns and
+alone, with the radix form at each number of tiles a warp, on the streamed
+frame's three calls, its main call unmapped and the first two-LOD frame's
+six calls, and `[cand-warps]` reads both probe forms there),
 `clipmap_trace` and `clipmap_trace_brick` (each in its wide form, the main
 path's, and its first form, `clipmap_trace_serial` and
 `clipmap_trace_brick_serial`) against their plain versions on that world, on
@@ -426,7 +432,8 @@ def reset_counts():
         mod.launches = 0
     traverse_cuda.serial_launches = tile_cuda.serial_launches = 0
     tile_cuda.candidates_launches = tile_cuda.candidates_block_launches = 0
-    tile_cuda.candidates_mapped_launches = 0
+    tile_cuda.candidates_mapped_launches = tile_cuda.candidates_mapped_first_launches = 0
+    tile_cuda.candidates_radix_launches = tile_cuda.candidates_probe_launches = 0
     for name in PLAIN_CALLS:
         PLAIN_CALLS[name] = 0
     for counts in (gather.launches, shade_cuda.launches, octree_cuda.launches,
@@ -657,6 +664,9 @@ def launch_counts():
                 tile_candidates=tile_cuda.candidates_launches,
                 tile_candidates_block=tile_cuda.candidates_block_launches,
                 tile_candidates_mapped=tile_cuda.candidates_mapped_launches,
+                tile_candidates_mapped_first=tile_cuda.candidates_mapped_first_launches,
+                tile_candidates_radix=tile_cuda.candidates_radix_launches,
+                tile_candidates_probe=tile_cuda.candidates_probe_launches,
                 esvo_trace_serial=traverse_cuda.serial_launches,
                 tile_walk_serial=tile_cuda.serial_launches,
                 brick_dda16=brick_dda.launches, rowread=rowread.launches,
@@ -1444,22 +1454,162 @@ def mapped_calls():
 
 
 def check_mapped(calls, names, err):
-    """Each recorded brickmap-mode call again, held bitwise against
-    candidates_plain followed by remap_ids; its row (name, args, T, K, valid
-    candidates, bound)."""
+    """Each recorded brickmap-mode call again, in the radix form (the main
+    path's) and in the first form, each held bitwise against
+    candidates_plain followed by remap_ids; its row (name, args, T, K,
+    valid candidates, bound)."""
     rows = []
     for (args, kw), cname in zip(calls, names, strict=True):
         got_c = tile_cuda.candidates(*args, **kw)
+        got_first = tile_cuda.candidates(*args, **kw, form="first")
         plain = tile.candidates_plain(*args)
         plain = (plain[0], tile.remap_ids(plain[1], kw["brickmap"]), plain[2], plain[3])
         torch.cuda.synchronize()
         err["tile_candidates_mapped"] = max(err["tile_candidates_mapped"], compare_tensors(
             got_c, plain, CAND_NAMES, f"tile_candidates_mapped, {cname}"))
+        err["tile_candidates_mapped_first"] = max(
+            err["tile_candidates_mapped_first"], compare_tensors(
+                got_first, plain, CAND_NAMES, f"tile_candidates_mapped_first, {cname}"))
         n_bytes, n_ops, _widths = candidate_work(args)
         valid = int((got_c[1] >= 0).sum())
         rows.append(dict(name=cname, args=args, kw=kw, T=args[2].shape[0], K=args[6],
                          top_depth=args[4], valid=valid,
                          bound=bound(n_bytes + valid * 4, n_ops)))
+    return rows
+
+
+# phase 1's variants that [cand-forms] holds, probes and times: the first form,
+# the radix form (at the rule's tiles a warp) and, at one warp a tile, the
+# radix form at each other tiles a warp
+CAND_VARIANTS = {"first": dict(form="first"), "radix": dict(form="radix"),
+                 **{f"radix, {t} a warp": dict(form="radix", tiles=t)
+                    for t in tile_cuda.CANDIDATE_TILES if t != tile_cuda.PACKED_TILES}}
+def cand_record(row):
+    """A [cand-forms] row for the kernels line: each variant's ms in turns and
+    µs alone, the probe's warps by phase, the bound and the valid candidates."""
+    return dict(bound_ms=row["bound"][0], bound_by=row["bound"][1], valid=row["valid"],
+                **{name: {k: v for k, v in r.items() if k != "turns"}
+                   for name, r in row.items() if isinstance(r, dict)})
+
+
+# the phase-1 probe's phases, as [cand-warps] names them (each level's
+# expansion and selection summed over the levels)
+CAND_PHASES = ("frustum", "expand", "select", "keep", "sort", "write")
+
+
+def cand_warps(what, form, record, warps, T):
+    """[cand-warps]: one phase-1 launch read from its probe form's record
+    (tile_cuda.CAND_PROBE_FIELDS, a row a warp; `warps` warps a tile, or a
+    warp's tiles packed) of T tiles: the kernel's span on the global timer
+    and the share of it after 99% of warps ended, warp times, the slowest
+    warp's group (its first tile, or a packed warp's index) and its cycles by
+    phase, each phase's cycles a warp and share of warp cycles, each level's
+    expansion cycles a warp, and the overflowing levels, their counting
+    passes and the valid keys a tile. Returns the numbers."""
+    r = record.cpu().numpy().astype(np.float64)
+    rows = np.flatnonzero(r[:, tile_cuda.CAND_PROBE_FIELDS.index("ns_start")] > 0)
+    f = {k: r[rows, i] for i, k in enumerate(tile_cuda.CAND_PROBE_FIELDS)}
+    levels = range(1, tile_cuda.TOP_DEPTH_LIMIT + 1)
+    f["expand"] = sum(f[f"expand_l{l}"] for l in levels)
+    f["select"] = sum(f[f"select_l{l}"] for l in levels)
+    cycles = f["end"] - f["start"]
+    t0 = f["ns_start"].min()
+    start, end = (f["ns_start"] - t0) / 1e3, (f["ns_end"] - t0) / 1e3
+    dur = end - start
+    span, t99 = float(end.max()), float(np.percentile(end, 99))
+    slow = int(np.argmax(dur))
+    lead = rows % warps == 0   # a group's counts, once: its first warp
+    over, passes = f["over"][lead].sum(), f["passes"][lead].sum()
+    phases = {ph: (float(f[ph].mean()), float(f[ph].sum() / cycles.sum()))
+              for ph in CAND_PHASES}
+    by_level = {l: float(f[f"expand_l{l}"].mean()) for l in levels
+                if f[f"expand_l{l}"].any()}
+    out = dict(span_us=span, t99_us=t99, tail_share=(span - t99) / span,
+               warp_us_median=float(np.median(dur)),
+               warp_us_p99=float(np.percentile(dur, 99)), warp_us_max=float(dur.max()),
+               slowest_group=int(f["tile"][slow]),
+               slowest_cycles={ph: float(f[ph][slow]) for ph in CAND_PHASES},
+               slowest_levels={l: float(f[f"expand_l{l}"][slow]) for l in by_level},
+               slowest_passes=float(f["passes"][slow]), slowest_valid=float(f["valid"][slow]),
+               cycles_a_warp=float(cycles.mean()), phases=phases,
+               expand_by_level=by_level, over_levels=float(over),
+               groups_over=int((f["over"][lead] > 0).sum()), groups=int(lead.sum()),
+               passes_an_overflow=float(passes / over) if over else 0.0,
+               valid_a_tile=float(f["valid"][lead].sum() / T))
+    say(f"[cand-warps] {what}, {form} ({len(rows)} warps): the kernel spans "
+        f"{span:.2f} us, 99% of warps ended by {t99:.2f} "
+        f"({out['tail_share']:.2f} of the span after it); warp time median "
+        f"{out['warp_us_median']:.2f} us, p99 {out['warp_us_p99']:.2f}, max "
+        f"{out['warp_us_max']:.2f} (group {out['slowest_group']}: "
+        + ", ".join(f"{ph} {c:.0f}" for ph, c in out["slowest_cycles"].items())
+        + " cycles, its levels' expansions "
+        + ", ".join(f"l{l} {c:.0f}" for l, c in out["slowest_levels"].items())
+        + f", {out['slowest_passes']:.0f} passes, {out['slowest_valid']:.0f} valid keys); "
+        f"{out['cycles_a_warp']:.0f} cycles a warp: "
+        + ", ".join(f"{ph} {c:.0f} ({sh:.3f})" for ph, (c, sh) in phases.items())
+        + "; expansion a warp by level "
+        + ", ".join(f"l{l} {c:.0f}" for l, c in by_level.items())
+        + f"; {over:.0f} levels over their width in {out['groups_over']} of "
+        f"{out['groups']} groups, {out['passes_an_overflow']:.1f} counting passes an "
+        f"overflowing level, {out['valid_a_tile']:.2f} valid keys a tile over its levels")
+    return out
+
+
+def cand_forms(calls, names, variants, card, err):
+    """Each recorded phase-1 call (arguments and keywords; the brickmap mode
+    where they hold a brickmap) in each of `variants` (name -> keywords of
+    tile_cuda.candidates: its form, its tiles a warp), and through each
+    variant's probe form, held bitwise against candidates_plain (+
+    remap_ids), with its [cand-warps] line; then the variants timed in turns
+    through the wrapper and alone (CUDA graphs of 20 calls, the variants in
+    turns), beside the call's bound. Returns name -> {variant -> numbers}."""
+    rows = {}
+    for (args, kw), cname in zip(calls, names, strict=True):
+        brickmap = kw.get("brickmap")
+        plain = tile.candidates_plain(*args)
+        if brickmap is not None:
+            plain = (plain[0], tile.remap_ids(plain[1], brickmap), plain[2], plain[3])
+        warps = tile_cuda.candidate_warps(tile_cuda.level_widths(*args[4:7]))
+        row = rows[cname] = {}
+        what = f"{cname} T={args[2].shape[0]} K={args[6]}"
+        # tiles a warp exist at one warp a tile only
+        kept_variants = {n: v for n, v in variants.items() if warps == 1 or "tiles" not in v}
+        for name, vkw in kept_variants.items():
+            got = tile_cuda.candidates(*args, **kw, **vkw)
+            torch.cuda.synchronize()
+            key = ("tile_candidates" + ("_mapped" if brickmap is not None else "")
+                   + {("first", True): "_first", ("radix", False): "_radix"}.get(
+                       (vkw["form"], brickmap is not None), ""))
+            e = compare_tensors(got, plain, CAND_NAMES, f"{key} ({name}), {cname}")
+            err[key] = max(err.get(key, 0.0), e)
+            row[name] = {}
+            probed, record = tile_cuda.probe_candidates(*args, brickmap=brickmap, **vkw)
+            compare_tensors(probed, plain, CAND_NAMES, f"the {name} probe, {cname}")
+            row[name]["warps"] = cand_warps(what, name, record, warps, args[2].shape[0])
+            row[name]["probe_ms"] = float(np.median(cuda_ms(
+                lambda v=vkw: tile_cuda.probe_candidates(*args, brickmap=brickmap, **v),
+                5, 1)))
+        fns = {name: (lambda v=vkw: tile_cuda.candidates(*args, **kw, **v))
+               for name, vkw in kept_variants.items()}
+        turns = in_turns(fns, rounds=3, reps=20)
+        alone = {name: [] for name in fns}
+        for name in (*fns, *reversed(fns)):
+            alone[name].append(graph_us(fns[name]))
+        n_bytes, n_ops, _widths = candidate_work(args)
+        valid = int((plain[1] >= 0).sum())
+        b = bound(n_bytes + (valid * 4 if brickmap is not None else 0), n_ops)
+        for name in fns:
+            row[name].update(ms=med_p80(turns[name])[0], us_alone=float(np.median(alone[name])),
+                             alone_in_turns=alone[name], turns=turns[name])
+        say(f"[cand-forms] {card}: {what} "
+            f"({'brickmap mode' if brickmap is not None else 'unmapped'}, {valid} valid "
+            f"candidates, bound {b[0]:.5f} ms by {b[1]}): "
+            + ", ".join(f"{name} {row[name]['ms']:.4f} ms in turns, "
+                        f"{row[name]['us_alone']:.2f} us alone ("
+                        + ", ".join(f"{u:.2f}" for u in row[name]["alone_in_turns"]) + ")"
+                        for name in fns))
+        row["bound"] = b
+        row["valid"] = valid
     return rows
 
 
@@ -1632,28 +1782,20 @@ def fly_phase(ctx, card):
 
     # the brickmap mode against its plain version on the frame's three calls
     mapped = check_mapped(calls, CAND_CALLS, err)
-    say("[fly] tile_candidates_mapped (the brickmap mode) == candidates_plain + "
-        "remap_ids bitwise (codes, ids, t_codes, drop_t bits) on the streamed "
-        "frame's three calls: " + ", ".join(
+    say("[fly] tile_candidates_mapped (the brickmap mode's radix form, the main "
+        "path's) and tile_candidates_mapped_first (its first form, PR 7's kernel) == "
+        "candidates_plain + remap_ids bitwise (codes, ids, t_codes, drop_t bits) on "
+        "the streamed frame's three calls: " + ", ".join(
             f"{r['name']} T={r['T']} K={r['K']} ({r['valid']} valid candidates)"
             for r in mapped))
-    # the brickmap mode against the unmapped kernel on the same stitched
-    # pyramid (the same work, one more load a candidate): in turns through
-    # the wrapper, and the kernel alone, from a CUDA graph of 20 calls and
-    # from the tracer (every instantiation summed, with its launches)
+    # both forms through their probe forms ([cand-warps]) and timed, in turns
+    # and alone, on the frame's calls, and on its main call unmapped (the same
+    # pyramid; the brickmap mode reads one more word a candidate)
+    cand_parity = cand_forms([(r["args"], r["kw"]) for r in mapped],
+                             [f"parity {c}" for c in CAND_CALLS], CAND_VARIANTS, card, err)
+    cand_parity |= cand_forms([(mapped[0]["args"], {})], ["parity main, unmapped"],
+                              CAND_VARIANTS, card, err)
     main_c = mapped[0]
-    cand_fns = {"mapped": lambda: tile_cuda.candidates(*main_c["args"], **main_c["kw"]),
-                "unmapped": lambda: tile_cuda.candidates(*main_c["args"])}
-    cand_turns = in_turns(cand_fns, rounds=3, reps=20)
-    cand_alone = {name: graph_us(fn) for name, fn in cand_fns.items()}
-    cand_traced = {name: traced_us(fn, 20, "tile_candidates_kernel")
-                   for name, fn in cand_fns.items()}
-    say(f"[fly] {card}: tile_candidates_mapped against tile_candidates on the streamed "
-        f"frame's main call (T={main_c['T']}, K={main_c['K']}), in turns: "
-        + ", ".join(f"{k} {med_p80(v)[0]:.4f} ms (p80 {med_p80(v)[1]:.4f}), "
-                    f"{cand_alone[k]:.2f} us alone in a CUDA graph, traced "
-                    f"{cand_traced[k][0]:.2f} us in {cand_traced[k][1]:.2f} launches a call"
-                    for k, v in cand_turns.items()))
 
     # the streamed frame against the monolithic one: leaves through voxels
     mono_vox = leaf_voxels(host_ts)
@@ -1831,6 +1973,10 @@ def fly_phase(ctx, card):
         raise AssertionError(f"[fly]'s main path called plain versions: {PLAIN_CALLS}")
     off_path = {k: v for k, v in {**brick_cuda.form_launches,
                                   **brick_cuda.probe_launches}.items() if v}
+    off_path |= {k: launches[k] for k in ("tile_candidates_mapped_first",
+                                          "tile_candidates_radix", "tile_candidates_probe",
+                                          "tile_candidates_block", "tile_candidates")
+                 if launches.get(k)}
     if off_path:
         raise AssertionError(f"[fly]'s main path launched first or probe forms: {off_path}")
 
@@ -1842,6 +1988,8 @@ def fly_phase(ctx, card):
     if not any(r["top_depth"] == 6 and r["valid"] for r in fly_mapped):
         raise AssertionError(f"[fly]: frame {check['frame']}'s top-depth-6 calls hold no "
                              f"candidate, so the check at that depth holds nothing")
+    cand_fly = cand_forms(check["calls"], [r["name"] for r in fly_mapped], CAND_VARIANTS,
+                          card, err)
     co, cd = check["rays"]
     fly_work = {}
     for kname, (args, tree, live) in check["tables"].items():
@@ -1957,7 +2105,7 @@ def fly_phase(ctx, card):
     for kname in ("clipmap_trace", "clipmap_trace_brick"):
         plain_ms[kname] = work[kname]["plain_ms"]
         kern_ms[kname + " parity rays"] = work[kname]["ms"]
-    kern_ms["tile_candidates_mapped"] = cand_turns["mapped"]
+    kern_ms["tile_candidates_mapped"] = cand_parity["parity main"]["radix"]["turns"]
     plain_ms["tile_candidates_mapped"] = float(np.median(cuda_ms(
         lambda: tile.remap_ids(tile.candidates_plain(*main_c["args"])[1],
                                main_c["kw"]["brickmap"]), 3, 1)))
@@ -1984,8 +2132,8 @@ def fly_phase(ctx, card):
     return dict(launches=launches, frames=frames, t=t, prof=prof, kern_ms=kern_ms,
                 last_pose_hits=last_hits["clipmap_trace_brick"],
                 plain_ms=plain_ms, work=work, mapped=mapped, k10=k10,
-                held_ms=float(np.median(held)), cand_turns=cand_turns,
-                cand_alone=cand_alone, fly_mapped=fly_mapped, fly_work=fly_work,
+                held_ms=float(np.median(held)), cand_parity=cand_parity,
+                cand_fly=cand_fly, fly_mapped=fly_mapped, fly_work=fly_work,
                 check_frame=check["frame"])
 
 
@@ -2722,15 +2870,15 @@ def trace_forms(bsvo, svo, o, d, width=None):
 
 def ptxas_report(log):
     """(kernel, registers, spill bytes stored, shared bytes) for each
-    kernel of brick_trace.cu's ptxas report, named as torch.profiler names
-    them."""
+    kernel of brick_trace.cu's (or tile_candidates.cu's) ptxas report, named
+    as torch.profiler names them."""
     rows, name, stores = [], None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             # the mangled name: its length, the name, and a template's
             # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
             m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace|level_round"
-                          r"|level_queue)\w*?_kernel)"
+                          r"|level_queue|tile_candidates)\w*?_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", line)
             name, stores = None, 0
             if m:
@@ -3095,22 +3243,37 @@ NARROW = ("narrow", "narrow top")
 
 
 def check_candidates(args, what):
-    """tile_candidates (at the rule's warps a tile and at each of them) and
-    its first form, tile_candidates_block, each bitwise against
-    candidates_plain on the card (codes, ids, t_codes and drop_t bits).
-    Returns the largest float differences of the new and of the first form
-    (0.0 when exact) and the number of valid candidates."""
+    """tile_candidates (at the rule's warps a tile and at each of them), the
+    radix form unmapped and both forms in the brickmap mode (on a seeded
+    permutation of the bricks) at each (the radix form at one warp a tile
+    at each of its tiles a warp), and the first form,
+    tile_candidates_block, each bitwise against candidates_plain (+
+    remap_ids) on the card (codes, ids, t_codes and drop_t bits). Returns
+    the largest float differences (0.0 when exact) by kernel name and the
+    number of valid candidates."""
+    td = args[4]
+    brickmap = torch.randperm(8 ** td, generator=torch.Generator().manual_seed(td)).to(
+        device=args[2].device, dtype=torch.int32)
     kern = tile_cuda.candidates(*args)
-    every = [tile_cuda.candidates(*args, warps=w) for w in tile_cuda.CANDIDATE_WARPS]
+    runs = {(name, w, t): tile_cuda.candidates(*args, warps=w, form=form, tiles=t, **kw)
+            for name, form, kw in (
+                ("tile_candidates", "first", {}), ("tile_candidates_radix", "radix", {}),
+                ("tile_candidates_mapped", "radix", dict(brickmap=brickmap)),
+                ("tile_candidates_mapped_first", "first", dict(brickmap=brickmap)))
+            for w in tile_cuda.CANDIDATE_WARPS
+            for t in (tile_cuda.CANDIDATE_TILES if (form, w) == ("radix", 1) else (1,))}
     first = tile_cuda.candidates_block(*args)
     plain = tile.candidates_plain(*args)
+    mapped = (plain[0], tile.remap_ids(plain[1], brickmap), plain[2], plain[3])
     torch.cuda.synchronize()
-    e_new = compare_tensors(kern, plain, CAND_NAMES, what)
-    for w, got in zip(tile_cuda.CANDIDATE_WARPS, every):
-        e_new = max(e_new, compare_tensors(got, plain, CAND_NAMES,
-                                           f"{what}, {w} warps a tile"))
-    e_first = compare_tensors(first, plain, CAND_NAMES, f"{what}, first form")
-    return e_new, e_first, int((kern[1] >= 0).sum())
+    errs = dict(tile_candidates=compare_tensors(kern, plain, CAND_NAMES, what),
+                tile_candidates_block=compare_tensors(first, plain, CAND_NAMES,
+                                                      f"{what}, first form"))
+    for (name, w, t), got in runs.items():
+        errs[name] = max(errs.get(name, 0.0), compare_tensors(
+            got, mapped if "mapped" in name else plain, CAND_NAMES,
+            f"{what}, {name}, {w} warps a tile, {t} tiles a warp"))
+    return errs, int((kern[1] >= 0).sum())
 
 
 def candidate_cases(dev, small_cam, inside_cam, horizon_cam):
@@ -5085,6 +5248,12 @@ def main():
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
         + f"; the main-path and first-form kernels other than the staged form "
         f"at their registers before ({len(EARLIER_REGS)} kernels)")
+    say("[build] tile_candidates.cu, ptxas -v (PR 7's form tile_candidates_kernel<warps, "
+        "brickmap mode>, the radix form tile_candidates_radix_kernel<warps, brickmap "
+        "mode, tiles a warp>, the probe form tile_candidates_probe_kernel<warps, brickmap "
+        "mode, form, tiles a warp>, the first form tile_candidates_block_kernel): " + "; ".join(
+            f"{k} {r} regs, {sp} spilled" for k, r, sp, _sm in ptxas_report(
+                _build.build_log("tile_candidates"))))
     bwd_regs = re.search(r"composite_bwd_kernel.*?\n.*?Used (\d+) registers",
                          _build.build_log("shade"), re.S)
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
@@ -5110,7 +5279,8 @@ def main():
                esvo_stackless_multi_serial=0.0,
                brick_trace_multi=0.0, brick_trace_multi_serial=0.0, composite_fwd=0.0,
                esvo_stackless_lod=0.0, brick_trace_lod=0.0, composite_bwd=0.0,
-               tile_candidates_mapped=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
+               tile_candidates_mapped=0.0, tile_candidates_mapped_first=0.0,
+               tile_candidates_radix=0.0, clipmap_trace=0.0, clipmap_trace_brick=0.0,
                clipmap_trace_brick_serial=0.0, clipmap_trace_serial=0.0,
                svo_expand_serial=0.0,
                **{k: 0.0 for k in (*BUILD_KERNELS, *BUILD_FIRST_FORMS)})
@@ -5145,9 +5315,9 @@ def main():
     # finest level overflows its width, and which see nothing at the finest
     selection = dict(intermediate=0, finest=0, nothing=0)
     for what, args in cand_cases:
-        e_new, e_first, n_valid = check_candidates(args, f"tile_candidates {what}")
-        err["tile_candidates"] = max(err["tile_candidates"], e_new)
-        err["tile_candidates_block"] = max(err["tile_candidates_block"], e_first)
+        errs, n_valid = check_candidates(args, f"tile_candidates {what}")
+        for name, e in errs.items():
+            err[name] = max(err[name], e)
         cand_valid.append(n_valid)
         if "narrow" in what or "horizon" in what:
             counts, widths = level_counts(args)
@@ -5722,10 +5892,9 @@ def main():
                              f"{len(cands)} phase-1 calls, expected 3 each")
     cand_rows = {}
     for cname, args in zip(CAND_CALLS, cands):
-        e_new, e_first, n_valid = check_candidates(
-            args, f"tile_candidates d10 frame, {cname}")
-        err["tile_candidates"] = max(err["tile_candidates"], e_new)
-        err["tile_candidates_block"] = max(err["tile_candidates_block"], e_first)
+        errs, n_valid = check_candidates(args, f"tile_candidates d10 frame, {cname}")
+        for name, e in errs.items():
+            err[name] = max(err[name], e)
         n_bytes, n_ops, widths = candidate_work(args)
         b = bound(n_bytes, n_ops)
         cand_rows[cname] = dict(
@@ -5803,6 +5972,15 @@ def main():
     traverse_cuda.trace_cuda_serial(svo, o, d)
     tile_cuda.tile_walk_serial(*main_args)
     tile_cuda.candidates_block(*cands[0])
+    # phase 1's other kernels, off every main path: the brickmap mode's first
+    # form (on a seeded permutation of the bricks), the radix form unmapped,
+    # and the probe form
+    probe_brickmap = torch.randperm(
+        8 ** cands[0][4], generator=torch.Generator().manual_seed(0)).to(
+            device=dev, dtype=torch.int32)
+    tile_cuda.candidates(*cands[0], brickmap=probe_brickmap, form="first")
+    tile_cuda.candidates(*cands[0], form="radix")
+    tile_cuda.probe_candidates(*cands[0], form="radix")
     shade_cuda.shade_bwd_serial(g_unit, hit_leaf, d, *params, light, 1.3, 0.08)
     brick_cuda.trace_brick_cuda_serial(bsvo, o, d)
     brick_cuda._brick_unstaged_kernel(bsvo, o, d)
@@ -5816,6 +5994,9 @@ def main():
     first_launches = dict(esvo_trace_serial=traverse_cuda.serial_launches,
                           tile_walk_serial=tile_cuda.serial_launches,
                           tile_candidates_block=tile_cuda.candidates_block_launches,
+                          tile_candidates_mapped_first=tile_cuda.candidates_mapped_first_launches,
+                          tile_candidates_radix=tile_cuda.candidates_radix_launches,
+                          tile_candidates_probe=tile_cuda.candidates_probe_launches,
                           shade_bwd_serial=shade_cuda.launches["shade_bwd_serial"],
                           **brick_cuda.form_launches)
     take_launches = gather.launches["take"]
@@ -5824,7 +6005,10 @@ def main():
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
             or loop_launches != 5 or sorted_launches != 1
             or first_launches != dict(esvo_trace_serial=1, tile_walk_serial=1,
-                                      tile_candidates_block=1, shade_bwd_serial=1,
+                                      tile_candidates_block=1,
+                                      tile_candidates_mapped_first=1,
+                                      tile_candidates_radix=1, tile_candidates_probe=1,
+                                      shade_bwd_serial=1,
                                       brick_trace_serial=1, brick_trace_unstaged=1,
                                       brick_trace_multi_serial=1, level_round_serial=0,
                                       clipmap_trace_brick_serial=0, clipmap_trace_serial=0,
@@ -5834,7 +6018,8 @@ def main():
                                       brick_trace_lod_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
-            or tile_cuda.candidates_launches or shade_cuda.launches["shade_bwd"]):
+            or tile_cuda.candidates_launches or tile_cuda.candidates_mapped_launches
+            or shade_cuda.launches["shade_bwd"]):
         raise AssertionError("the probes did not launch their kernels")
     if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
@@ -6104,6 +6289,8 @@ def main():
         variants[f"phase1 {cname} other"] = (
             lambda a=args, w=other: tile_cuda.candidates(*a, warps=w))
         variants[f"phase1 {cname} first"] = lambda a=args: tile_cuda.candidates_block(*a)
+        variants[f"phase1 {cname} radix"] = (
+            lambda a=args: tile_cuda.candidates(*a, form="radix"))
         variants[f"phase1 {cname} plain"] = lambda a=args: tile.candidates_plain(*a)
     t.update(in_turns(variants, rounds=3, reps=10))
     t["frame_again"] = cuda_ms(lambda: diff.render_diff_cuda(*params, svo, o, d, light), 50, 3)
@@ -6243,6 +6430,8 @@ def main():
             f"{m[f'phase1 {c}'][0]:.4f} ms (p80 {m[f'phase1 {c}'][1]:.4f}), at "
             f"{9 - cand_rows[c]['warps']} {m[f'phase1 {c} other'][0]:.4f}, "
             f"tile_candidates_block {m[f'phase1 {c} first'][0]:.4f}, "
+            f"the radix form (tile_candidates_radix, off the path) "
+            f"{m[f'phase1 {c} radix'][0]:.4f}, "
             f"candidates_plain {m[f'phase1 {c} plain'][0]:.4f}" for c in CAND_CALLS))
     say(f"[timing] {card}: brick_dda16 N={n_dda} median {m['dda'][0]:.4f} ms "
         f"(p80 {m['dda'][1]:.4f}), plain {m['dda_plain'][0]:.4f} ms (n=5); "
@@ -6470,18 +6659,22 @@ def main():
             torch.index_select(big_table, 0, big_idx)), "round", 2)
     # index_select of a 1-D table runs PyTorch's gather kernel
     alone["take"] = kernel_us(rows, "take_kernel", "gather")
-    # phase 1's three calls alone: the rule's variant, the other and the
-    # first form, one call of each a round
+    # phase 1's three calls alone: the rule's variant, the other, the first
+    # form and the radix form (off the path), one call of each a round
     for cname, args in zip(CAND_CALLS, cands):
         warps = cand_rows[cname]["warps"]
+        tiles = tile_cuda.candidate_tiles(cand_rows[cname]["widths"])
         _, rows, _n = profile_kernels(
             f"tile_candidates {cname} alone at {warps} and {9 - warps} warps a "
-            f"tile, and tile_candidates_block", lambda a=args, w=warps: (
+            f"tile, tile_candidates_block and tile_candidates_radix",
+            lambda a=args, w=warps: (
                 tile_cuda.candidates(*a), tile_cuda.candidates(*a, warps=9 - w),
-                tile_cuda.candidates_block(*a)), "round", 3, launches=3)
+                tile_cuda.candidates_block(*a), tile_cuda.candidates(*a, form="radix")),
+            "round", 4, launches=4)
         alone[f"phase1 {cname}"] = kernel_us(
-            rows, f"tile_candidates_kernel<{warps}>",
-            "tile_candidates_block_kernel", f"tile_candidates_kernel<{9 - warps}>")
+            rows, f"tile_candidates_kernel<{warps}, false>",
+            "tile_candidates_block_kernel", f"tile_candidates_kernel<{9 - warps}, false>",
+            f"tile_candidates_radix_kernel<{warps}, false, {tiles}>")
     _, rows, _n = profile_kernels(
         "shade_bwd alone, and shade_bwd_serial", lambda: (
             shade_cuda.shade_bwd(g_step, *shade_args),
@@ -6490,11 +6683,11 @@ def main():
     alone["shade_bwd"] = kernel_us(rows, "shade_bwd_kernel", "shade_bwd_serial_kernel")
     say(f"[profile] {card}: shade_bwd {us_or(alone['shade_bwd'][0])} us alone, "
         f"shade_bwd_serial {us_or(alone['shade_bwd'][1])} us; tile_candidates "
-        f"alone at the rule's warps a tile, at the other, and "
-        f"tile_candidates_block, us: " + "; ".join(
+        f"alone at the rule's warps a tile, at the other, "
+        f"tile_candidates_block, and the radix form, us: " + "; ".join(
             f"{c} " + ", ".join(us_or(x) for x in (
                 alone[f"phase1 {c}"][0], alone[f"phase1 {c}"][2],
-                alone[f"phase1 {c}"][1])) for c in CAND_CALLS))
+                alone[f"phase1 {c}"][1], alone[f"phase1 {c}"][3])) for c in CAND_CALLS))
     idle = lambda us, ms: "not measured" if us is None else f"{1 - us / 1e3 / ms:.2f}"
     count = lambda n: "not measured" if n is None else f"{n:.1f}"
     say(f"[profile] {card}: idle share of the card: tile frame {count(tile_n)} "
@@ -6689,12 +6882,13 @@ def main():
         f"{us(alone[('esvo_stackless', 'first')])}); esvo_trace {esvo_steps} steps, "
         f"bound {esvo_bound[0]:.5f} ms")
     for cname in CAND_CALLS:
-        new_us, first_us, other_us = alone[f"phase1 {cname}"]
+        new_us, first_us, other_us, radix_us = alone[f"phase1 {cname}"]
         cand_rows[cname].update(
             ms=m[f"phase1 {cname}"][0], plain_ms=m[f"phase1 {cname} plain"][0],
             ms_first_form=m[f"phase1 {cname} first"][0],
             ms_other_warps=m[f"phase1 {cname} other"][0], us_alone=new_us,
-            us_alone_first_form=first_us, us_alone_other_warps=other_us)
+            us_alone_first_form=first_us, us_alone_other_warps=other_us,
+            ms_radix=m[f"phase1 {cname} radix"][0], us_alone_radix=radix_us)
     say(f"[bound] tile_candidates, each of the frame's calls (its corners, a "
         f"pyramid word a kept cell, a cellmap row a valid candidate and its "
         f"outputs at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {OPS_CAND_SLOT} "
@@ -6703,9 +6897,11 @@ def main():
             f"{c} {r['bound_ms']:.5f} ms ({r['bound_by']}; {r['bytes'] / 1e6:.3f} "
             f"MB, {r['ops'] / 1e6:.1f} M operations), {us(r['us_alone'])} us "
             f"alone at {r['warps']} warps a tile ({us(r['us_alone_other_warps'])} "
-            f"at {9 - r['warps']}; the first form {us(r['us_alone_first_form'])}), "
+            f"at {9 - r['warps']}; the first form {us(r['us_alone_first_form'])}; "
+            f"the radix form, off the path, {us(r['us_alone_radix'])}), "
             f"{r['ms']:.4f} ms in turns against the first form's "
-            f"{r['ms_first_form']:.4f} and the plain version's {r['plain_ms']:.4f}"
+            f"{r['ms_first_form']:.4f}, the radix form's {r['ms_radix']:.4f} and the "
+            f"plain version's {r['plain_ms']:.4f}"
             for c, r in cand_rows.items()))
     dda_bound = bound(nbytes(*dda_args) + n_dda * 3 * 4, dda_walked * OPS_DDA_STEP)
     row_bound = bound(nbytes(rows8) + 2 * 8 * 128 * 4, 0)
@@ -7183,11 +7379,15 @@ def main():
              fk["kern_ms"]["tile_candidates_mapped"], fk["mapped"][0]["bound"],
              dict(shape=f"the streamed frame's main call, T={fk['mapped'][0]['T']} "
                         f"K={fk['mapped'][0]['K']}",
-                  us_alone=fk["cand_alone"]["mapped"],
-                  ms_unmapped_in_turns=med_p80(fk["cand_turns"]["unmapped"])[0],
-                  us_alone_unmapped=fk["cand_alone"]["unmapped"],
-                  us_traced_a_fly_frame=alone_us(streamed, "tile_candidates_kernel"),
-                  launches_traced_a_fly_frame=seen(streamed, "tile_candidates_kernel"),
+                  form="radix", first_form="tile_candidates_mapped_first",
+                  probe="tile_cuda.probe_candidates",
+                  us_alone=fk["cand_parity"]["parity main"]["radix"]["us_alone"],
+                  ms_first_form=fk["cand_parity"]["parity main"]["first"]["ms"],
+                  us_alone_first_form=fk["cand_parity"]["parity main"]["first"]["us_alone"],
+                  us_traced_a_fly_frame=alone_us(streamed, "tile_candidates_radix_kernel"),
+                  launches_traced_a_fly_frame=seen(streamed, "tile_candidates_radix_kernel"),
+                  calls={name: cand_record(row) for name, row in
+                         (fk["cand_parity"] | fk["cand_fly"]).items()},
                   fly_frame_calls=[dict(call=r["name"], top_depth=r["top_depth"], T=r["T"],
                                         K=r["K"], valid=r["valid"], bound_ms=r["bound"][0],
                                         bound_by=r["bound"][1])
@@ -7212,6 +7412,41 @@ def main():
             launches=fk["launches"].get(kname, 0), max_abs_err=err[kname],
             ms=med_p80(ms)[0], plain_ms=fk["plain_ms"][kname], bound_ms=bnd[0],
             bound_by=bnd[1], library_ms=None, **extra))
+    # phase 1's other kernels: the brickmap mode's first form, the probe form,
+    # the radix form unmapped (on the tile frame's calls, off every path)
+    pm = fk["cand_parity"]["parity main"]
+    k8 = dict(route="cuda", source=src + "tile_candidates.cu",
+              replaces="raytracingtest_tpu/stream/clipmap.py:579",
+              plain_ms=fk["plain_ms"]["tile_candidates_mapped"], bound_ms=pm["bound"][0],
+              bound_by=pm["bound"][1], library_ms=None,
+              shape=f"the streamed frame's main call, T={fk['mapped'][0]['T']} "
+                    f"K={fk['mapped'][0]['K']}")
+    kernels.append(dict(
+        name="tile_candidates_mapped_first",
+        path="tile_cuda.candidates(brickmap=, form=\"first\") (the first form, PR 7's "
+             "kernel, off the main path)",
+        launches=first_launches["tile_candidates_mapped_first"],
+        max_abs_err=err["tile_candidates_mapped_first"], ms=pm["first"]["ms"],
+        us_alone=pm["first"]["us_alone"], **k8))
+    kernels.append(dict(
+        name="tile_candidates_probe",
+        path="tile_cuda.probe_candidates (either form with per-warp counters, for "
+             "measurement only)",
+        launches=first_launches["tile_candidates_probe"], max_abs_err=0.0,
+        ms=pm["radix"]["probe_ms"], ms_first_form=pm["first"]["probe_ms"],
+        warps={form: pm[form]["warps"] for form in ("radix", "first")}, **k8))
+    tm = cand_rows["main"]
+    kernels.append(dict(
+        name="tile_candidates_radix", route="cuda", source=src + "tile_candidates.cu",
+        replaces="raytracingtest_tpu/ops/tile.py:288",
+        path="tile_cuda.candidates(form=\"radix\") (the radix form unmapped, measured on "
+             "the tile frame's calls, off every path)",
+        launches=first_launches["tile_candidates_radix"],
+        max_abs_err=err["tile_candidates_radix"], ms=tm["ms_radix"],
+        plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+        library_ms=None, us_alone=tm["us_alone_radix"],
+        calls={c: dict(ms=r["ms_radix"], us_alone=r["us_alone_radix"])
+               for c, r in cand_rows.items()}))
     by_name = {row["name"]: row for row in kernels}
     for kname in ("clipmap_trace", "clipmap_trace_brick"):
         fw, wk = fk["fly_work"][kname], fk["work"][kname]

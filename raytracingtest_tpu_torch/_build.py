@@ -209,13 +209,17 @@ def _declare_shade(lib):
 
 def _declare_candidates(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tile_candidates.argtypes = [p, p, p, p, i, i, p, i, i, p, p, p, p, p]
-    lib.tile_candidates_block.argtypes = [p, p, p, p, i, i, p, i, p, p, p, p,
-                                          p]
-    lib.tile_candidates_mapped.argtypes = [p, p, p, p, p, i, i, p, i, i, p, p,
-                                           p, p, p]
+    # PR 7's form unmapped and mapped, and the first form, take the warps a
+    # tile; the radix form and the probe also the tiles a warp
+    lib.tile_candidates.argtypes = [p] * 4 + [i, i, p, i, i] + [p] * 5
+    lib.tile_candidates_mapped_first.argtypes = [p] * 5 + [i, i, p, i, i] + [p] * 5
+    lib.tile_candidates_radix.argtypes = [p] * 4 + [i, i, p, i, i, i] + [p] * 5
+    lib.tile_candidates_mapped.argtypes = [p] * 5 + [i, i, p, i, i, i] + [p] * 5
+    lib.tile_candidates_probe.argtypes = [i] + [p] * 5 + [i, i, p, i, i, i] + [p] * 6
+    lib.tile_candidates_block.argtypes = [p] * 4 + [i, i, p, i] + [p] * 5
     for fn in (lib.tile_candidates, lib.tile_candidates_block,
-               lib.tile_candidates_mapped):
+               lib.tile_candidates_mapped, lib.tile_candidates_mapped_first,
+               lib.tile_candidates_radix, lib.tile_candidates_probe):
         fn.restype = i
 
 

@@ -13,16 +13,24 @@ path launches. CUDA tensors go to a kernel; CPU tensors go to the plain
 version, ``tile.walk_plain``. Nothing else picks the path: a build or launch
 failure raises.
 
-``candidates`` launches ``tile_candidates`` (given a ``brickmap``, its
-brickmap mode ``tile_candidates_mapped``, the streamed world's), which
-computes what the
-reference's ``_candidates`` does and gives the same bits as its plain
-version, ``tile.candidates_plain``: a warp or a block a tile
+``candidates`` launches phase 1, which computes what the reference's
+``_candidates`` does and gives the same bits as its plain version,
+``tile.candidates_plain`` (given a ``brickmap``, followed by
+``tile.remap_ids``: the streamed world's brickmap mode). It has two forms
+(``CANDIDATE_FORMS``). The first, PR 7's ``tile_candidates`` (brickmap mode
+``tile_candidates_mapped_first``): a warp or a block a tile
 (``candidate_warps``), each level's valid keys compacted, the ``width``
-smallest selected, and only the finest level's row sorted.
-``candidates_block`` launches the first form, ``tile_candidates_block``, one
-block a tile that sorts each level's keys padded to a power of two: the
-check of the other and its yardstick, which nothing on the main path
+smallest selected by a bitwise search, and only the finest level's row
+sorted; the tile frame's main path. The radix form (``tile_candidates_mapped``,
+unmapped ``tile_candidates_radix``): the same steps with the pyramid's first
+levels in shared memory, a level's words in one round trip, light levels a
+lane a child slot, a radix selection, and ``candidate_tiles`` tiles a warp
+(or a block a tile with its light levels on one warp); the brickmap mode's
+main path. ``probe_candidates`` runs either form with per-warp counters
+(``CAND_PROBE_FIELDS``), for measurement only. ``candidates_block``
+launches the first form of the unmapped kernel, ``tile_candidates_block``,
+one block a tile that sorts each level's keys padded to a power of two: the
+check of the others and their yardstick, which nothing on the main path
 launches. ``tile._candidates`` sends CUDA tensors to ``candidates`` and CPU
 tensors to the plain version.
 """
@@ -59,6 +67,25 @@ TOP_DEPTH_LIMIT = 10
 # while a level expands at most this many child slots
 CANDIDATE_WARPS = (1, 8)
 WARP_SLOTS = 512
+# the radix form's tiles a warp at one warp a tile (csrc/tile_candidates.cu's
+# TILES_A_WARP), and the rule's: two was the fastest or within 1% of it on
+# every call of the streamed frames, four the slowest on the heavy main call
+# (PERF.md, PR 23)
+CANDIDATE_TILES = (1, 2, 4)
+PACKED_TILES = 2
+# phase 1's forms and their codes in the probe (csrc/tile_candidates.cu's
+# FORM_SELECT, FORM_RADIX): "first" is PR 7's kernel (a level's slots 32 at
+# a time, the bitwise search), "radix" the radix form
+CANDIDATE_FORMS = ("radix", "first")
+FORM_CODES = {"first": 0, "radix": 1}
+# a warp's record in the probe form (csrc/tile_candidates.cu's CW_*): int64
+# words, cycles by phase (each level's expansion and selection, levels
+# 1..10), then the selection's passes, the levels that overflowed and the
+# valid keys summed over the levels
+CAND_PROBE_FIELDS = (("tile", "start", "end", "sm", "ns_start", "ns_end", "frustum")
+                     + tuple(f"expand_l{l}" for l in range(1, TOP_DEPTH_LIMIT + 1))
+                     + tuple(f"select_l{l}" for l in range(1, TOP_DEPTH_LIMIT + 1))
+                     + ("keep", "sort", "write", "passes", "over", "valid"))
 
 # kernel launches made by this process: tile_walk, its serial form,
 # tile_candidates and its first form
@@ -66,14 +93,27 @@ launches = 0
 serial_launches = 0
 candidates_launches = 0
 candidates_block_launches = 0
-# tile_candidates in its brickmap mode (the streamed world's phase 1)
+# the radix form in the brickmap mode (the streamed world's phase 1), PR 7's
+# form there (its first form), the radix form unmapped (off every path), and
+# the probe form
 candidates_mapped_launches = 0
+candidates_mapped_first_launches = 0
+candidates_radix_launches = 0
+candidates_probe_launches = 0
 
 _TILE_WALK = Kernel("tile_walk", tile_lib)
 _TILE_WALK_SERIAL = Kernel("tile_walk_serial", tile_lib)
 _TILE_CANDIDATES = Kernel("tile_candidates", candidates_lib)
 _TILE_CANDIDATES_BLOCK = Kernel("tile_candidates_block", candidates_lib)
 _TILE_CANDIDATES_MAPPED = Kernel("tile_candidates_mapped", candidates_lib)
+_TILE_CANDIDATES_MAPPED_FIRST = Kernel("tile_candidates_mapped_first", candidates_lib)
+_TILE_CANDIDATES_RADIX = Kernel("tile_candidates_radix", candidates_lib)
+_TILE_CANDIDATES_PROBE = Kernel("tile_candidates_probe", candidates_lib)
+# (brickmap mode, form) -> its kernel
+_CANDIDATE_KERNELS = {(False, "first"): _TILE_CANDIDATES,
+                      (False, "radix"): _TILE_CANDIDATES_RADIX,
+                      (True, "first"): _TILE_CANDIDATES_MAPPED_FIRST,
+                      (True, "radix"): _TILE_CANDIDATES_MAPPED}
 
 _slots: dict = {}
 
@@ -221,6 +261,31 @@ def candidate_warps(widths):
     return 1 if 8 * max(widths[:-1]) <= WARP_SLOTS else 8
 
 
+def candidate_tiles(widths, warps=None):
+    """Tiles a warp for the radix form from the static `widths` (and the
+    warps a tile, None: ``candidate_warps``): PACKED_TILES at one warp a
+    tile, one for a block a tile."""
+    return PACKED_TILES if (warps or candidate_warps(widths)) == 1 else 1
+
+
+def _layout(form, widths, warps, tiles):
+    """(warps, tiles) of a launch in `form` from the caller's (None: the
+    rules'), checked."""
+    if form not in CANDIDATE_FORMS:
+        raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
+    if warps is not None and warps not in CANDIDATE_WARPS:
+        raise ValueError(f"{warps} warps a tile: the kernel takes one of "
+                         f"{CANDIDATE_WARPS}")
+    warps = candidate_warps(widths) if warps is None else warps
+    if tiles is None:
+        tiles = candidate_tiles(widths, warps) if form == "radix" else 1
+    if tiles not in CANDIDATE_TILES or (tiles != 1 and (form, warps) != ("radix", 1)):
+        raise ValueError(f"{tiles} tiles a warp: the {form} form at {warps} warps "
+                         f"a tile takes " + (f"one of {CANDIDATE_TILES}" if
+                                            (form, warps) == ("radix", 1) else "1"))
+    return warps, tiles
+
+
 def _candidates_check(kernel, pyr, cellmap, corners, apex, top_depth, caps,
                       k_max):
     """The one check of both phase-1 kernels' arguments; returns the
@@ -256,44 +321,61 @@ def _candidates_check(kernel, pyr, cellmap, corners, apex, top_depth, caps,
         torch.empty((T,), dtype=_F32, device=dev))
 
 
+def _brickmap_check(kernel, brickmap, device):
+    if brickmap.dim() != 1 or brickmap.shape[0] < 1:
+        raise ValueError(f"brickmap has shape {tuple(brickmap.shape)}, "
+                         f"expected (n,) with n >= 1")
+    kernel.check(device, (("brickmap", brickmap, _I32, (brickmap.shape[0],)),))
+
+
 def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
-               warps=None, brickmap=None):
-    """Launch ``tile_candidates`` on CUDA tensors: phase 1 for every tile of
-    the (T, 4, 3) contiguous `corners` (arguments and results as
+               warps=None, brickmap=None, form=None, tiles=None):
+    """Launch phase 1 on CUDA tensors: every tile of the (T, 4, 3)
+    contiguous `corners` (arguments and results as
     ``tile.candidates_plain``), `warps` warps a tile (None:
     ``candidate_warps`` of the widths). `apex` is the (3,) float32 camera
     position on the card; nothing is read back to the host. top_depth must
     be 1..10, and k_max and every cap of levels 1..top_depth-1 1..256.
 
     `brickmap` (int32, at least one entry an occupied cell of the pyramid):
-    the brickmap mode, ``tile_candidates_mapped``, whose ids are
-    ``tile.remap_ids`` of the plain version's, rows of a streaming arena's
-    bricks."""
+    the brickmap mode, whose ids are ``tile.remap_ids`` of the plain
+    version's, rows of a streaming arena's bricks.
+
+    `form`, one of CANDIDATE_FORMS (None: the mode's main path, "radix" in
+    the brickmap mode and "first" without): ``tile_candidates_mapped`` and
+    ``tile_candidates_radix`` are the radix form in the two modes,
+    ``tile_candidates_mapped_first`` and ``tile_candidates`` PR 7's. `tiles`:
+    the radix form's tiles a warp at one warp a tile (None:
+    ``candidate_tiles``)."""
     global candidates_launches, candidates_mapped_launches
-    if warps is not None and warps not in CANDIDATE_WARPS:
-        raise ValueError(f"{warps} warps a tile: the kernel takes one of "
-                         f"{CANDIDATE_WARPS}")
-    kernel = _TILE_CANDIDATES if brickmap is None else _TILE_CANDIDATES_MAPPED
+    global candidates_mapped_first_launches, candidates_radix_launches
+    if form is None:
+        form = "first" if brickmap is None else "radix"
+    kernel = _CANDIDATE_KERNELS.get((brickmap is not None, form))
+    if kernel is None:
+        raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
     widths, out = _candidates_check(kernel, pyr, cellmap, corners, apex,
                                     top_depth, caps, k_max)
-    if warps is None:
-        warps = candidate_warps(widths)
-    plan = (corners.shape[0], top_depth, (ctypes.c_int * len(widths))(*widths),
-            k_max, warps, *(t.data_ptr() for t in out))
+    warps, tiles = _layout(form, widths, warps, tiles)
+    head = (corners.shape[0], top_depth, (ctypes.c_int * len(widths))(*widths),
+            k_max, warps) + ((tiles,) if form == "radix" else ())
     if brickmap is None:
-        _TILE_CANDIDATES(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
-                         corners.data_ptr(), apex.data_ptr(), *plan)
-        candidates_launches += 1
+        kernel(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
+               corners.data_ptr(), apex.data_ptr(), *head,
+               *(t.data_ptr() for t in out))
+        if form == "first":
+            candidates_launches += 1
+        else:
+            candidates_radix_launches += 1
     else:
-        if brickmap.dim() != 1 or brickmap.shape[0] < 1:
-            raise ValueError(f"brickmap has shape {tuple(brickmap.shape)}, "
-                             f"expected (n,) with n >= 1")
-        kernel.check(corners.device, (("brickmap", brickmap, _I32,
-                                       (brickmap.shape[0],)),))
-        _TILE_CANDIDATES_MAPPED(corners.device, pyr.data_ptr(),
-                                cellmap.data_ptr(), brickmap.data_ptr(),
-                                corners.data_ptr(), apex.data_ptr(), *plan)
-        candidates_mapped_launches += 1
+        _brickmap_check(kernel, brickmap, corners.device)
+        kernel(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
+               brickmap.data_ptr(), corners.data_ptr(), apex.data_ptr(), *head,
+               *(t.data_ptr() for t in out))
+        if form == "radix":
+            candidates_mapped_launches += 1
+        else:
+            candidates_mapped_first_launches += 1
     return out
 
 
@@ -311,3 +393,31 @@ def candidates_block(pyr, cellmap, corners, apex, top_depth, caps, k_max):
                            *(t.data_ptr() for t in out))
     candidates_block_launches += 1
     return out
+
+
+def probe_candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
+                     form, warps=None, brickmap=None, tiles=None):
+    """``candidates`` in `form` (one of CANDIDATE_FORMS) through its probe
+    form, on CUDA tensors, in the brickmap mode given a `brickmap`: the same
+    four outputs, and a (warps of the launch, len(CAND_PROBE_FIELDS)) int64
+    record, a row a warp (all zeros for a warp without a tile), for
+    measurement only."""
+    global candidates_probe_launches
+    if form not in CANDIDATE_FORMS:
+        raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
+    widths, out = _candidates_check(_TILE_CANDIDATES_PROBE, pyr, cellmap,
+                                    corners, apex, top_depth, caps, k_max)
+    warps, tiles = _layout(form, widths, warps, tiles)
+    if brickmap is not None:
+        _brickmap_check(_TILE_CANDIDATES_PROBE, brickmap, corners.device)
+    T = corners.shape[0]
+    groups, per_block = -(-T // tiles), 8 // warps
+    record = torch.zeros((-(-groups // per_block) * 8, len(CAND_PROBE_FIELDS)),
+                         dtype=torch.int64, device=corners.device)
+    _TILE_CANDIDATES_PROBE(
+        corners.device, FORM_CODES[form], pyr.data_ptr(), cellmap.data_ptr(),
+        None if brickmap is None else brickmap.data_ptr(), corners.data_ptr(),
+        apex.data_ptr(), T, top_depth, (ctypes.c_int * len(widths))(*widths),
+        k_max, warps, tiles, *(t.data_ptr() for t in out), record.data_ptr())
+    candidates_probe_launches += 1
+    return out, record

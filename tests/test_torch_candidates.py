@@ -258,12 +258,48 @@ def warp_sort(keys):
     return keys
 
 
-def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0):
+RADIX_BITS = 8
+
+
+def radix_kth(keys, w):
+    """The radix form's selection (``radix_kth`` in the kernel) of the key of
+    rank w (0-based) among more than w unique keys, and its counting passes:
+    from the highest bit in which the smallest and the largest differ, a
+    histogram of the next RADIX_BITS-bit digit over the keys that share the
+    digits found so far, the bin that holds rank w, until that bin holds
+    one key (then that key) or no bit is left."""
+    keys = np.asarray(keys, np.int64)
+    lo, hi = int(keys.min()), int(keys.max())
+    top = (lo ^ hi).bit_length() - 1
+    hi_bit, prefix, r, passes = top + 1, lo & ~((2 << top) - 1), w, 0
+    while True:
+        shift = max(hi_bit - RADIX_BITS, 0)
+        share = keys[(keys >> hi_bit) == (prefix >> hi_bit)]
+        hist = np.bincount((share >> shift) & ((1 << (hi_bit - shift)) - 1),
+                           minlength=1 << (hi_bit - shift))
+        cum = np.cumsum(hist)
+        d = int(np.searchsorted(cum, r, side="right"))
+        r -= int(cum[d] - hist[d])
+        prefix |= d << shift
+        passes += 1
+        if shift == 0:
+            return prefix, passes
+        if hist[d] == 1:
+            (key,) = keys[(keys >> shift) == (prefix >> shift)]
+            return int(key), passes
+        hi_bit = shift
+
+
+def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0,
+                 kth=None):
     """codes, ids, t_codes, drop_t as the new kernel computes them, and the
     (T, top_depth) valid keys a tile saw at each level. A tile at a time:
     the valid keys compacted, in slot order for one warp a tile and in a
     seeded random order for a block (``tile_cuda.candidate_warps``); the
-    width smallest selected; the finest row sorted in 32 * E registers."""
+    width smallest selected (by `kth`, the key of rank width and its
+    passes: the radix form's ``radix_kth``; None, PR 7's bitwise search);
+    the finest row sorted in 32 * E registers. Also the counting passes of
+    each tile."""
     pyr = pyr.astype(np.int64) & 0xFFFFFFFF
     fr_all = frustum(corners)
     T = corners.shape[0]
@@ -271,6 +307,7 @@ def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0):
     shuffle = tile_cuda.candidate_warps(widths) > 1
     rng = np.random.default_rng(seed)
     rows, drops, counts = [], [], np.zeros((T, top_depth), np.int64)
+    passes = np.zeros(T, np.int64)
     for t in range(T):
         fr = tuple(x[t:t + 1] for x in fr_all)
         kept = np.zeros(1, np.int64)           # level 0: the root
@@ -283,9 +320,14 @@ def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0):
             counts[t, l - 1] = count = staged.size
             w = widths[l]
             if count > w:
-                kth = rank_key(staged, w)
-                drop = min(drop, F32(kth >> 3 * l) * t_scale(l))
-                staged = staged[staged < kth]
+                if kth is None:
+                    key = rank_key(staged, w)
+                    passes[t] += (int(staged.min()) ^ int(staged.max())).bit_length()
+                else:
+                    key, n = kth(staged, w)
+                    passes[t] += n
+                drop = min(drop, F32(key >> 3 * l) * t_scale(l))
+                staged = staged[staged < key]
             kept = staged if l == top_depth else staged & ((1 << 3 * l) - 1)
         m = kept.size
         e = next(e for e in (1, 2, 4, 8) if m <= 32 * e)
@@ -294,7 +336,7 @@ def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0):
                            constant_values=SENTINEL)[:k_max])
         drops.append(drop)
     return (*finest_row(np.stack(rows), top_depth, cellmap, k_max),
-            np.asarray(drops, F32)), counts
+            np.asarray(drops, F32)), counts, passes
 
 
 MODEL_CASES = [
@@ -385,7 +427,10 @@ def refuses(wrapper, what, change, says, monkeypatch, **extra):
     stood in for, so that CPU tensors reach the later ones."""
     if what != "device":
         for kernel in (tile_cuda._TILE_CANDIDATES, tile_cuda._TILE_CANDIDATES_BLOCK,
-                       tile_cuda._TILE_CANDIDATES_MAPPED):
+                       tile_cuda._TILE_CANDIDATES_MAPPED,
+                       tile_cuda._TILE_CANDIDATES_MAPPED_FIRST,
+                       tile_cuda._TILE_CANDIDATES_RADIX,
+                       tile_cuda._TILE_CANDIDATES_PROBE):
             monkeypatch.setattr(kernel, "check", lambda device, specs:
                                 _launch.check_tensors(device, specs))
     args = dict(good_args(), **extra)
@@ -393,19 +438,91 @@ def refuses(wrapper, what, change, says, monkeypatch, **extra):
         args[key] = fn(args)
     counts = lambda: (tile_cuda.candidates_launches,
                       tile_cuda.candidates_block_launches,
-                      tile_cuda.candidates_mapped_launches)
+                      tile_cuda.candidates_mapped_launches,
+                      tile_cuda.candidates_mapped_first_launches,
+                      tile_cuda.candidates_radix_launches,
+                      tile_cuda.candidates_probe_launches)
     before, loaded = counts(), set(_build._libs)
     with pytest.raises(ValueError, match=re.escape(says)):
         getattr(tile_cuda, wrapper)(**args)
     assert counts() == before and set(_build._libs) == loaded
 
 
+FORM_ARGUMENTS = [
+    ("form", dict(form=lambda a: "serial"), "form 'serial': phase 1 has"),
+    ("tiles", dict(form=lambda a: "radix", tiles=lambda a: 3),
+     "3 tiles a warp: the radix form at 1 warps a tile takes one of (1, 2, 4)"),
+    ("tiles, first form", dict(tiles=lambda a: 2),
+     "2 tiles a warp: the first form at 1 warps a tile takes 1"),
+    ("tiles, a block a tile", dict(form=lambda a: "radix", warps=lambda a: 8,
+                                   tiles=lambda a: 2),
+     "2 tiles a warp: the radix form at 8 warps a tile takes 1"),
+]
+
+
 @pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS + [
-    ("warps", dict(warps=lambda a: 3), "3 warps a tile")])
+    ("warps", dict(warps=lambda a: 3), "3 warps a tile")] + FORM_ARGUMENTS)
 def test_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
-    """The new form's wrapper, ``candidates``; also a number of warps a tile
-    that the kernel has no variant for."""
+    """The wrapper of both forms, ``candidates``; also a number of warps a
+    tile that the kernel has no variant for, a form it does not have, and
+    tiles a warp where the form and the warps a tile take none or those."""
     refuses("candidates", what, change, says, monkeypatch)
+
+
+@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS[1:] + FORM_ARGUMENTS[1:] + [
+    ("device", {}, "the tile_candidates_probe kernel takes CUDA tensors"),
+    ("form", dict(form=lambda a: "serial"), "form 'serial': phase 1 has")])
+def test_probe_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
+    """The probe form's wrapper, ``probe_candidates``, by the same checks
+    (its form is a required argument)."""
+    refuses("probe_candidates", what, change, says, monkeypatch,
+            form="first")
+
+
+def test_candidate_tiles_rule():
+    """Two tiles a warp where phase 1 runs a warp a tile (the frames' main
+    calls), one where it runs a block a tile (their fallback calls)."""
+    main = tile_cuda.level_widths(7, tile._default_caps(7, 96), 96)
+    wide = tile_cuda.level_widths(7, tuple(min(160, 8 ** l) for l in range(8)), 160)
+    assert tile_cuda.candidate_warps(main) == 1 and tile_cuda.candidate_tiles(main) == 2
+    assert tile_cuda.candidate_warps(wide) == 8 and tile_cuda.candidate_tiles(wide) == 1
+    assert tile_cuda.candidate_tiles(wide, warps=1) == tile_cuda.PACKED_TILES
+    assert tile_cuda._layout("radix", main, None, None) == (1, 2)
+    assert tile_cuda._layout("first", main, None, None) == (1, 1)
+    assert tile_cuda._layout("radix", wide, None, None) == (8, 1)
+
+
+def test_probe_fields_match_the_kernels_record():
+    """CAND_PROBE_FIELDS in the order of csrc/tile_candidates.cu's CW_*:
+    the tile, clocks and timer, the frustum, a word a level for expansions
+    and for selections, keep, sort, write, and the counts; CW_WORDS words."""
+    src = open(_build._CSRC + "/tile_candidates.cu").read()
+    words = int(eval(re.search(r"CW_WORDS = (CW_VALID \+ 1)", src).group(1).replace(
+        "CW_VALID", str(tile_cuda.CAND_PROBE_FIELDS.index("valid")))))
+    assert words == len(tile_cuda.CAND_PROBE_FIELDS) == 7 + 2 * tile_cuda.TOP_DEPTH_LIMIT + 6
+    assert tile_cuda.CAND_PROBE_FIELDS.index("expand_l1") == 7
+    assert tile_cuda.FORM_CODES == {"first": 0, "radix": 1}
+    assert re.search(r"constexpr int FORM_SELECT = 0, FORM_RADIX = 1;", src)
+    assert re.search(r"constexpr int TILES_A_WARP\[3\] = \{1, 2, 4\};", src)
+    assert tile_cuda.CANDIDATE_TILES == (1, 2, 4)
+
+
+def test_mapped_dispatcher_takes_the_plain_version_on_the_cpu():
+    """``tile._candidates`` with a brickmap on CPU tensors: candidates_plain
+    then remap_ids, and no launch of any form."""
+    ts, corners, apex, caps, k_max = inputs("terrain", 6, "default")
+    brickmap = seeded_brickmap(ts.top_depth)
+    before = (tile_cuda.candidates_mapped_launches,
+              tile_cuda.candidates_mapped_first_launches)
+    got = tile._candidates(ts.pyr, ts.cellmap, corners, apex, ts.top_depth,
+                           caps, k_max, brickmap)
+    want = list(tile.candidates_plain(ts.pyr, ts.cellmap, corners, apex,
+                                      ts.top_depth, caps, k_max))
+    want[1] = tile.remap_ids(want[1], brickmap)
+    assert_bitwise([x.numpy() for x in got], [x.numpy() for x in want], "mapped")
+    assert (tile_cuda.candidates_mapped_launches,
+            tile_cuda.candidates_mapped_first_launches) == before
+    assert int((got[1] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS + [
@@ -460,9 +577,9 @@ def test_select_model_equals_plain_bitwise(name, depth, which, cam):
     want = tile.candidates_plain(ts.pyr, ts.cellmap, corners, apex,
                                  ts.top_depth, caps, k_max)
     widths = tile_cuda.level_widths(ts.top_depth, caps, k_max)
-    got, counts = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
-                               corners.numpy(), apex.numpy(), ts.top_depth,
-                               widths, k_max)
+    got, counts, _passes = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
+                                        corners.numpy(), apex.numpy(), ts.top_depth,
+                                        widths, k_max)
     assert_bitwise(got, [x.numpy() for x in want], f"{name} d{depth} {which}")
     over = counts > np.asarray(widths[1:])
     if which == "narrow":
@@ -481,14 +598,14 @@ def test_select_model_at_exactly_the_width():
     ts, corners, apex, _caps, _k = inputs("terrain", 7, "wide")
     td = ts.top_depth
     free = tile_cuda.level_widths(td, (1, 8, 64, 256, 256), 256)
-    _got, counts = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
-                                corners.numpy(), apex.numpy(), td, free, 256)
+    _got, counts, _passes = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
+                                         corners.numpy(), apex.numpy(), td, free, 256)
     exact = int(counts[:, 2].max())          # level 3's largest count
     caps = (1, 8, 64, exact, 256)
     want = tile.candidates_plain(ts.pyr, ts.cellmap, corners, apex, td, caps, 96)
     widths = tile_cuda.level_widths(td, caps, 96)
-    got, counts = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
-                               corners.numpy(), apex.numpy(), td, widths, 96)
+    got, counts, _passes = select_model(ts.pyr.numpy(), ts.cellmap.numpy(),
+                                        corners.numpy(), apex.numpy(), td, widths, 96)
     assert widths[3] == exact and (counts[:, 2] == exact).any()
     assert not (counts[:, 2] > exact).any()
     assert_bitwise(got, [x.numpy() for x in want], "exactly the width")
@@ -503,3 +620,119 @@ def test_warp_sort_sorts(m):
     keys = np.pad(rng.choice(2 ** 30, m, replace=False), (0, 32 * e - m),
                   constant_values=SENTINEL)
     np.testing.assert_array_equal(warp_sort(rng.permutation(keys)), np.sort(keys))
+
+
+def seeded_brickmap(top_depth):
+    """A brickmap for the brickmap mode: a seeded permutation of every cell
+    of the finest level, so that each brick lands at another row."""
+    rng = np.random.default_rng(top_depth)
+    return torch.from_numpy(rng.permutation(8 ** top_depth).astype(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["unmapped", "mapped"])
+@pytest.mark.parametrize("name,depth,which,cam", SELECT_CASES,
+                         ids=[f"{c[0]}-d{c[1]}-{c[2]}{'-inside' if c[3] is INSIDE_CAM else '-horizon' if c[3] else ''}"
+                              for c in SELECT_CASES])
+def test_radix_model_equals_plain_bitwise(name, depth, which, cam, mode):
+    """The radix form's model (its 8-bit radix selection in the new form's
+    steps) against candidates_plain, and in the brickmap mode against
+    candidates_plain followed by remap_ids: the same bits, with one to four
+    counting passes an overflowing level (8 bits a digit of 30) where the
+    bitwise search takes one a bit below the top differing one."""
+    res = 32 if cam is INSIDE_CAM or name == "empty" else 64
+    ts, corners, apex, caps, k_max = inputs(name, depth, which, res, cam)
+    want = tile.candidates_plain(ts.pyr, ts.cellmap, corners, apex,
+                                 ts.top_depth, caps, k_max)
+    widths = tile_cuda.level_widths(ts.top_depth, caps, k_max)
+    args = (ts.pyr.numpy(), ts.cellmap.numpy(), corners.numpy(), apex.numpy(),
+            ts.top_depth, widths, k_max)
+    got, counts, passes = select_model(*args, kth=radix_kth)
+    _first, _counts, bitwise = select_model(*args)
+    got, want = list(got), [x.numpy() for x in want]
+    if mode == "mapped":
+        brickmap = seeded_brickmap(ts.top_depth)
+        got[1] = tile.remap_ids(torch.from_numpy(got[1]), brickmap).numpy()
+        want[1] = tile.remap_ids(torch.from_numpy(want[1]), brickmap).numpy()
+    assert_bitwise(got, want, f"{name} d{depth} {which} {mode}")
+    over = (counts > np.asarray(widths[1:])).sum(axis=1)
+    assert (passes <= 4 * over).all() and (passes >= over).all()
+    assert (passes <= bitwise).all()
+    if which in NARROW_CASES:
+        assert over.sum() and passes.sum() < bitwise.sum()
+
+
+NARROW_CASES = ("narrow", "narrow top")
+
+
+def test_radix_model_at_exactly_the_width():
+    """A level whose width is some tile's count of valid keys, in the radix
+    form's model: that tile keeps all of them, selects nothing there, and
+    the row has the plain version's bits."""
+    ts, corners, apex, _caps, _k = inputs("terrain", 7, "wide")
+    args = (ts.pyr.numpy(), ts.cellmap.numpy(), corners.numpy(), apex.numpy(),
+            ts.top_depth)
+    free = tile_cuda.level_widths(ts.top_depth, (1, 8, 64, 256, 256), 256)
+    _got, counts, _passes = select_model(*args, free, 256, kth=radix_kth)
+    caps = (1, 8, 64, int(counts[:, 2].max()), 256)
+    widths = tile_cuda.level_widths(ts.top_depth, caps, 96)
+    got, counts, passes = select_model(*args, widths, 96, kth=radix_kth)
+    want = tile.candidates_plain(ts.pyr, ts.cellmap, corners, apex, ts.top_depth,
+                                 caps, 96)
+    assert (counts[:, 2] == widths[3]).any() and not (counts[:, 2] > widths[3]).any()
+    assert_bitwise(got, [x.numpy() for x in want], "radix, exactly the width")
+    # a tile counts passes exactly where one of its levels overflowed
+    over = (counts > np.asarray(widths[1:])).sum(axis=1)
+    np.testing.assert_array_equal(passes == 0, over == 0)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_radix_kth_is_the_key_of_rank_w(seed):
+    """Unique int32 keys below 2^30, as the levels make them (a distance
+    in the high bits, a morton code below), some sharing their high bits
+    down to the last digit: radix_kth returns the key of rank w, as the
+    bitwise search does, in at most four passes (30 bits, 8 a digit)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2, 600))
+    code_bits = 3 * int(rng.integers(1, 11))
+    q = rng.integers(0, 1 << max(0, 30 - code_bits), n) if code_bits < 30 else np.zeros(n, np.int64)
+    keys = np.unique((q << code_bits) | rng.integers(0, 1 << code_bits, n))
+    if seed % 2:   # the top bits shared by all
+        keys = np.unique(keys | (1 << 29))
+    if keys.size < 2:
+        keys = np.array([5, 9])
+    for w in {0, keys.size // 2, keys.size - 2}:
+        key, passes = radix_kth(rng.permutation(keys), w)
+        assert key == np.sort(keys)[w] == rank_key(keys, w)
+        assert 1 <= passes <= 4
+
+
+class _Declared:
+    """Stands in for the loaded library: records what _declare_candidates
+    sets."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+def test_c_entries_are_declared_with_their_arity():
+    """Every C entry point of tile_candidates.cu (PR 7's form in both modes,
+    the radix form in both, the probe form, the block-a-tile first form) has
+    ctypes argument types of its own length, the stream included, and a
+    wrapper's Kernel of its name."""
+    src = open(_build._CSRC + "/tile_candidates.cu").read()
+    arity = {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+             for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', src, re.S)}
+    assert set(arity) == {"tile_candidates", "tile_candidates_radix",
+                          "tile_candidates_mapped", "tile_candidates_mapped_first",
+                          "tile_candidates_probe", "tile_candidates_block"}
+    lib = _Declared()
+    _build._declare_candidates(lib)
+    assert set(lib.fns) == set(arity)
+    for name, n_args in arity.items():
+        assert len(lib.fns[name].argtypes) == n_args, name
+    kernels = {v.name for v in vars(tile_cuda).values()
+               if isinstance(v, _launch.Kernel)}
+    assert set(arity) <= kernels

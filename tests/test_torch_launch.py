@@ -28,6 +28,10 @@ KERNELS = {
     "tile_walk_serial": tile_cuda._TILE_WALK_SERIAL,
     "tile_candidates": tile_cuda._TILE_CANDIDATES,
     "tile_candidates_block": tile_cuda._TILE_CANDIDATES_BLOCK,
+    "tile_candidates_mapped": tile_cuda._TILE_CANDIDATES_MAPPED,
+    "tile_candidates_mapped_first": tile_cuda._TILE_CANDIDATES_MAPPED_FIRST,
+    "tile_candidates_radix": tile_cuda._TILE_CANDIDATES_RADIX,
+    "tile_candidates_probe": tile_cuda._TILE_CANDIDATES_PROBE,
     "brick_dda16": brick_dda._BRICK_DDA16,
     "rowread": rowread._ROWREAD,
     "take": gather._TAKE,
