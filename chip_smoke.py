@@ -117,7 +117,7 @@ scripted `probe`. `[fly]` streams the whole world at depth 10 and holds its
 1024² tile frame against the monolithic one, `tile_candidates_mapped` (phase
 1's radix form, the main path's, and its first form,
 `tile_candidates_mapped_first`: `[cand-forms]` times both, in turns and
-alone, with the radix form at each number of tiles a warp, on the streamed
+alone, on the streamed
 frame's three calls, its main call unmapped and the first two-LOD frame's
 six calls, and `[cand-warps]` reads both probe forms there),
 `clipmap_trace` and `clipmap_trace_brick` (each in its wide form, the main
@@ -1478,12 +1478,8 @@ def check_mapped(calls, names, err):
     return rows
 
 
-# phase 1's variants that [cand-forms] holds, probes and times: the first form,
-# the radix form (at the rule's tiles a warp) and, at one warp a tile, the
-# radix form at each other tiles a warp
-CAND_VARIANTS = {"first": dict(form="first"), "radix": dict(form="radix"),
-                 **{f"radix, {t} a warp": dict(form="radix", tiles=t)
-                    for t in tile_cuda.CANDIDATE_TILES if t != tile_cuda.PACKED_TILES}}
+# phase 1's forms that [cand-forms] holds, probes and times
+CAND_VARIANTS = {"first": dict(form="first"), "radix": dict(form="radix")}
 def cand_record(row):
     """A [cand-forms] row for the kernels line: each variant's ms in turns and
     µs alone, the probe's warps by phase, the bound and the valid candidates."""
@@ -1558,7 +1554,7 @@ def cand_warps(what, form, record, warps, T):
 def cand_forms(calls, names, variants, card, err):
     """Each recorded phase-1 call (arguments and keywords; the brickmap mode
     where they hold a brickmap) in each of `variants` (name -> keywords of
-    tile_cuda.candidates: its form, its tiles a warp), and through each
+    tile_cuda.candidates: its form), and through each
     variant's probe form, held bitwise against candidates_plain (+
     remap_ids), with its [cand-warps] line; then the variants timed in turns
     through the wrapper and alone (CUDA graphs of 20 calls, the variants in
@@ -1572,9 +1568,7 @@ def cand_forms(calls, names, variants, card, err):
         warps = tile_cuda.candidate_warps(tile_cuda.level_widths(*args[4:7]))
         row = rows[cname] = {}
         what = f"{cname} T={args[2].shape[0]} K={args[6]}"
-        # tiles a warp exist at one warp a tile only
-        kept_variants = {n: v for n, v in variants.items() if warps == 1 or "tiles" not in v}
-        for name, vkw in kept_variants.items():
+        for name, vkw in variants.items():
             got = tile_cuda.candidates(*args, **kw, **vkw)
             torch.cuda.synchronize()
             key = ("tile_candidates" + ("_mapped" if brickmap is not None else "")
@@ -1590,7 +1584,7 @@ def cand_forms(calls, names, variants, card, err):
                 lambda v=vkw: tile_cuda.probe_candidates(*args, brickmap=brickmap, **v),
                 5, 1)))
         fns = {name: (lambda v=vkw: tile_cuda.candidates(*args, **kw, **v))
-               for name, vkw in kept_variants.items()}
+               for name, vkw in variants.items()}
         turns = in_turns(fns, rounds=3, reps=20)
         alone = {name: [] for name in fns}
         for name in (*fns, *reversed(fns)):
@@ -1783,7 +1777,7 @@ def fly_phase(ctx, card):
     # the brickmap mode against its plain version on the frame's three calls
     mapped = check_mapped(calls, CAND_CALLS, err)
     say("[fly] tile_candidates_mapped (the brickmap mode's radix form, the main "
-        "path's) and tile_candidates_mapped_first (its first form, PR 7's kernel) == "
+        "path's) and tile_candidates_mapped_first (its first form, the search form) == "
         "candidates_plain + remap_ids bitwise (codes, ids, t_codes, drop_t bits) on "
         "the streamed frame's three calls: " + ", ".join(
             f"{r['name']} T={r['T']} K={r['K']} ({r['valid']} valid candidates)"
@@ -3245,8 +3239,7 @@ NARROW = ("narrow", "narrow top")
 def check_candidates(args, what):
     """tile_candidates (at the rule's warps a tile and at each of them), the
     radix form unmapped and both forms in the brickmap mode (on a seeded
-    permutation of the bricks) at each (the radix form at one warp a tile
-    at each of its tiles a warp), and the first form,
+    permutation of the bricks) at each, and the first form,
     tile_candidates_block, each bitwise against candidates_plain (+
     remap_ids) on the card (codes, ids, t_codes and drop_t bits). Returns
     the largest float differences (0.0 when exact) by kernel name and the
@@ -3255,13 +3248,12 @@ def check_candidates(args, what):
     brickmap = torch.randperm(8 ** td, generator=torch.Generator().manual_seed(td)).to(
         device=args[2].device, dtype=torch.int32)
     kern = tile_cuda.candidates(*args)
-    runs = {(name, w, t): tile_cuda.candidates(*args, warps=w, form=form, tiles=t, **kw)
+    runs = {(name, w): tile_cuda.candidates(*args, warps=w, form=form, **kw)
             for name, form, kw in (
                 ("tile_candidates", "first", {}), ("tile_candidates_radix", "radix", {}),
                 ("tile_candidates_mapped", "radix", dict(brickmap=brickmap)),
                 ("tile_candidates_mapped_first", "first", dict(brickmap=brickmap)))
-            for w in tile_cuda.CANDIDATE_WARPS
-            for t in (tile_cuda.CANDIDATE_TILES if (form, w) == ("radix", 1) else (1,))}
+            for w in tile_cuda.CANDIDATE_WARPS}
     first = tile_cuda.candidates_block(*args)
     plain = tile.candidates_plain(*args)
     mapped = (plain[0], tile.remap_ids(plain[1], brickmap), plain[2], plain[3])
@@ -3269,10 +3261,10 @@ def check_candidates(args, what):
     errs = dict(tile_candidates=compare_tensors(kern, plain, CAND_NAMES, what),
                 tile_candidates_block=compare_tensors(first, plain, CAND_NAMES,
                                                       f"{what}, first form"))
-    for (name, w, t), got in runs.items():
+    for (name, w), got in runs.items():
         errs[name] = max(errs.get(name, 0.0), compare_tensors(
             got, mapped if "mapped" in name else plain, CAND_NAMES,
-            f"{what}, {name}, {w} warps a tile, {t} tiles a warp"))
+            f"{what}, {name}, {w} warps a tile"))
     return errs, int((kern[1] >= 0).sum())
 
 
@@ -5248,7 +5240,7 @@ def main():
         + "; ".join(f"{k} {r} regs, {sp} spilled, {sm} B shared" for k, r, sp, sm in ptxas)
         + f"; the main-path and first-form kernels other than the staged form "
         f"at their registers before ({len(EARLIER_REGS)} kernels)")
-    say("[build] tile_candidates.cu, ptxas -v (PR 7's form tile_candidates_kernel<warps, "
+    say("[build] tile_candidates.cu, ptxas -v (the search form tile_candidates_kernel<warps, "
         "brickmap mode>, the radix form tile_candidates_radix_kernel<warps, brickmap "
         "mode, tiles a warp>, the probe form tile_candidates_probe_kernel<warps, brickmap "
         "mode, form, tiles a warp>, the first form tile_candidates_block_kernel): " + "; ".join(
@@ -6663,7 +6655,7 @@ def main():
     # form and the radix form (off the path), one call of each a round
     for cname, args in zip(CAND_CALLS, cands):
         warps = cand_rows[cname]["warps"]
-        tiles = tile_cuda.candidate_tiles(cand_rows[cname]["widths"])
+        tiles = tile_cuda.tiles_a_warp("radix", warps)
         _, rows, _n = profile_kernels(
             f"tile_candidates {cname} alone at {warps} and {9 - warps} warps a "
             f"tile, tile_candidates_block and tile_candidates_radix",
@@ -7423,8 +7415,8 @@ def main():
                     f"K={fk['mapped'][0]['K']}")
     kernels.append(dict(
         name="tile_candidates_mapped_first",
-        path="tile_cuda.candidates(brickmap=, form=\"first\") (the first form, PR 7's "
-             "kernel, off the main path)",
+        path="tile_cuda.candidates(brickmap=, form=\"first\") (the first form, the search "
+             "form's kernel, off the main path)",
         launches=first_launches["tile_candidates_mapped_first"],
         max_abs_err=err["tile_candidates_mapped_first"], ms=pm["first"]["ms"],
         us_alone=pm["first"]["us_alone"], **k8))

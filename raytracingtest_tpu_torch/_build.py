@@ -209,13 +209,13 @@ def _declare_shade(lib):
 
 def _declare_candidates(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    # PR 7's form unmapped and mapped, and the first form, take the warps a
-    # tile; the radix form and the probe also the tiles a warp
+    # the unmapped entries; the brickmap mode's take the brickmap third and
+    # the probe its form first and its record last
     lib.tile_candidates.argtypes = [p] * 4 + [i, i, p, i, i] + [p] * 5
-    lib.tile_candidates_mapped_first.argtypes = [p] * 5 + [i, i, p, i, i] + [p] * 5
-    lib.tile_candidates_radix.argtypes = [p] * 4 + [i, i, p, i, i, i] + [p] * 5
-    lib.tile_candidates_mapped.argtypes = [p] * 5 + [i, i, p, i, i, i] + [p] * 5
-    lib.tile_candidates_probe.argtypes = [i] + [p] * 5 + [i, i, p, i, i, i] + [p] * 6
+    lib.tile_candidates_radix.argtypes = lib.tile_candidates.argtypes
+    lib.tile_candidates_mapped.argtypes = [p] * 5 + [i, i, p, i, i] + [p] * 5
+    lib.tile_candidates_mapped_first.argtypes = lib.tile_candidates_mapped.argtypes
+    lib.tile_candidates_probe.argtypes = [i] + [p] * 5 + [i, i, p, i, i] + [p] * 6
     lib.tile_candidates_block.argtypes = [p] * 4 + [i, i, p, i] + [p] * 5
     for fn in (lib.tile_candidates, lib.tile_candidates_block,
                lib.tile_candidates_mapped, lib.tile_candidates_mapped_first,

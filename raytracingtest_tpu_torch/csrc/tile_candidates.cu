@@ -26,11 +26,12 @@
 //                    entry is the brick's row in the arena. It runs the radix
 //                    form (below); tile_candidates_radix is the radix form
 //                    unmapped, off every path. tile_candidates_mapped_first is
-//                    its first form, PR 7's kernel in the brickmap mode: the
+//                    its first form, the search form (tile_candidates_kernel's
+//                    bitwise search) in the brickmap mode: the
 //                    mode is a template flag (MAPPED) and `brickmap` the
 //                    kernel's last parameter, so the unmapped instantiation,
 //                    tile_candidates, keeps its code.
-//   tile_candidates_probe  either form, PR 7's or the radix form, in either
+//   tile_candidates_probe  either form, the search form or the radix form, in either
 //                    mode, with a record of each warp's cycles by phase
 //                    (CandProbe), for measurement only.
 //
@@ -60,8 +61,9 @@
 // keys and lowers drop_t by the key of rank width[l] where that is not the
 // sentinel: exactly where more than width[l] keys are valid.
 //
-// tile_candidates: a group of WARPS warps a tile (1, eight tiles a block, or
-// 8, a block a tile; the wrapper picks by ops/tile_cuda.py::candidate_warps).
+// tile_candidates, the search form: a group of WARPS warps a tile (1, eight
+// tiles a block, or 8, a block a tile; the wrapper picks by
+// ops/tile_cuda.py::candidate_warps).
 // Per level:
 //   * compact: the group expands the children of the cells kept so far
 //     (8 * kept slots, not 8 * width[l-1]), and each warp packs the valid
@@ -106,7 +108,6 @@ constexpr int WIDTH_LIMIT = 256;        // k_max and every level's width
 constexpr int SORT_LIMIT = 8 * WIDTH_LIMIT;
 constexpr int BLOCK = 256;
 constexpr int SENTINEL = 0x7fffffff;
-constexpr size_t SMEM_LIMIT = 232448;  // the shared memory a block may opt into
 constexpr unsigned FULL = 0xffffffffu;
 // a group's words of shared memory besides its staging and kept arrays: two
 // level counters, two counters of kept keys, and two rows of eight per-warp
@@ -456,7 +457,7 @@ __device__ __forceinline__ void write_row(
   probe.time(CW_WRITE, t);
 }
 
-// One tile of tile_candidates (the group's), PR 7's design: a level's child
+// One tile of tile_candidates (the group's), the search form: a level's child
 // slots expanded 32 at a time, a pyramid load and a ballot each, and the
 // bitwise search. `smem` is the block's dynamic shared memory: for each
 // group stage_len staging words (8 * the widest width above the finest
@@ -609,7 +610,7 @@ __device__ __forceinline__ void select_tile(
   probe.finish(probe_out);
 }
 
-// PR 7's form: select_tile without the probe. At most 64 registers a thread,
+// The search form: select_tile without the probe. At most 64 registers a thread,
 // so that an SM holds four blocks: the main call's 512 blocks then all run at
 // once, and a block held by one slow tile keeps no other tile waiting for its
 // SM. `brickmap` is the last parameter, so that the unmapped instantiation
@@ -633,7 +634,7 @@ tile_candidates_kernel(const int* __restrict__ pyr,
 }
 
 // ---- the radix form --------------------------------------------------------
-// What the probe form showed PR 7's form spend its time on (chip_smoke.py
+// What the probe form showed the search form spend its time on (chip_smoke.py
 // [cand-warps], on the streamed frames' calls): on the main call a few heavy
 // tiles, whose levels overflow, set the span; the heaviest spends some 34,000
 // cycles in 56 counting passes and 25,000 in expansions of up to 15 chunks of
@@ -642,8 +643,8 @@ tile_candidates_kernel(const int* __restrict__ pyr,
 // levels sets it: some 1,500-3,300 cycles a level, the first levels slowed by
 // every tile reading the same pyramid words at once; and a block a tile (the
 // fallback calls) pays its barriers on every level, even an empty one. The
-// radix form, a block a tile (block_tile) or TILES tiles a warp
-// (packed_tiles; candidate_tiles), gives the same bits:
+// radix form, a block a tile (block_tile) or PACKED_TILES tiles a warp
+// (packed_tiles), gives the same bits:
 //   * the block copies the pyramid's first PREFIX_LEVELS levels (19 words)
 //     into shared memory while it builds its frusta; a deeper level issues
 //     the words of all its kept cells at once (cp.async into shared memory),
@@ -663,7 +664,8 @@ tile_candidates_kernel(const int* __restrict__ pyr,
 //   * a block a tile runs its light levels (up to LIGHT_SLOTS child slots) on
 //     its first warp alone, with one barrier a level, and writes its finest
 //     row by rank (each key's place is the number of keys below it), a thread
-//     an entry, where PR 7's form had one warp sort and write up to 256 keys.
+//     an entry, where the search form has one warp sort and write up to 256
+//     keys.
 // drop_t, the kept set and the row keep their bits.
 constexpr int FORM_SELECT = 0, FORM_RADIX = 1;
 constexpr int RADIX_BITS = 8, RADIX_BINS = 1 << RADIX_BITS;
@@ -1095,6 +1097,10 @@ struct alignas(16) PackedFrustum {
 };
 static_assert(sizeof(PackedFrustum) == FRUSTUM_WORDS * 4, "a frustum's words");
 constexpr int TILES_LIMIT = 4;  // the tag's two bits
+// the tiles a warp the radix form packs at one warp a tile: two were the
+// fastest or within 4% of the fastest on every call of the streamed frames
+// where one and four were measured (PERF.md)
+constexpr int PACKED_TILES = 2;
 // a packed warp's words besides its rows: each slot's kept count, the offset
 // of its keys and its drop_t, for the finest row
 constexpr int PACKED_MISC = 3 * TILES_LIMIT;
@@ -1147,7 +1153,7 @@ __device__ __forceinline__ void packed_tiles(
 
   // the block's pyramid prefix in flight while each warp builds its frusta,
   // a lane a slot
-  for (int i = threadIdx.x; i < n_prefix; i += blockDim.x) copy_async(prefix + i, pyr + i);
+  for (int i = threadIdx.x; i < n_prefix; i += BLOCK) copy_async(prefix + i, pyr + i);
   const int tiles = g < n_warps ? min(TILES, (T - g + n_warps - 1) / n_warps) : 0;
   if (lane < tiles) {
     Frustum f;
@@ -1364,17 +1370,11 @@ __host__ __device__ constexpr int group_words(int stage_len, int kept_len) {
                                       2 * kept_len + RADIX_MISC);
 }
 
-// The blocks an SM holds at once that a kernel's registers must allow: four
-// (64 registers a thread), as PR 7's form; two for four tiles a warp, whose
-// shared memory holds an SM to two blocks of the main call's widths anyway.
-__host__ __device__ constexpr int min_blocks(int warps, int tiles) {
-  return warps == 1 && tiles == 4 ? 2 : 4;
-}
-
-// The radix form: a block a tile (radix_tile) or TILES tiles a warp
-// (packed_tiles) without the probe.
+// The radix form: a block a tile (block_tile) or TILES tiles a warp
+// (packed_tiles) without the probe, at most 64 registers a thread as the
+// search form.
 template <int WARPS, bool MAPPED, int TILES>
-__global__ void __launch_bounds__(BLOCK, min_blocks(WARPS, TILES))
+__global__ void __launch_bounds__(BLOCK, 4)
 tile_candidates_radix_kernel(const int* __restrict__ pyr,
                              const int* __restrict__ cellmap,
                              const float* __restrict__ corners,
@@ -1402,7 +1402,7 @@ tile_candidates_radix_kernel(const int* __restrict__ pyr,
 // The probe form: either form (FORM) with each warp's record (CandProbe)
 // written to `probe_out`, for measurement only.
 template <int WARPS, bool MAPPED, int FORM, int TILES>
-__global__ void __launch_bounds__(BLOCK, min_blocks(WARPS, TILES))
+__global__ void __launch_bounds__(BLOCK, 4)
 tile_candidates_probe_kernel(const int* __restrict__ pyr,
                              const int* __restrict__ cellmap,
                              const float* __restrict__ corners,
@@ -1550,25 +1550,24 @@ void group_lens(const Plan& plan, int top_depth, int& stage_len, int& kept_len) 
   }
 }
 
-// Launches `kernel` on `groups` groups of WARPS warps, `per_block` groups a
-// block (by default BLOCK threads' worth), with `block_words` words of
-// dynamic shared memory a block and `words` more a group.
+// Launches `kernel` on `groups` groups of WARPS warps in blocks of BLOCK
+// threads, with `block_words` words of dynamic shared memory a block and
+// `words` more a group.
 template <int WARPS, typename K, typename... A>
 int launch_groups(K kernel, int words, int block_words, int groups,
-                  int per_block, cudaStream_t stream, A... args) {
-  const size_t bytes = ((size_t)per_block * words + block_words) * sizeof(int);
-  if (bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+                  cudaStream_t stream, A... args) {
+  constexpr int GROUPS = BLOCK / 32 / WARPS;
+  const size_t bytes = ((size_t)GROUPS * words + block_words) * sizeof(int);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<(groups + per_block - 1) / per_block, per_block * 32 * WARPS, bytes,
-           stream>>>(args...);
+  kernel<<<(groups + GROUPS - 1) / GROUPS, BLOCK, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// One form's launch: PR 7's kernel (FORM_SELECT), the radix form's (a block
+// One form's launch: the search form's kernel (FORM_SELECT), the radix form's (a block
 // a tile, or TILES tiles a warp), or with a `probe` record either one's
 // probe form.
 template <int WARPS, bool MAPPED, int FORM, int TILES>
@@ -1582,16 +1581,10 @@ int launch_form(const void* pyr, const void* cellmap, const void* corners,
   const int words = group_words<FORM, WARPS, TILES>(stage_len, kept_len);
   const int n_prefix = FORM == FORM_RADIX ? prefix_words(top_depth) : 0;
   const int groups = (T + TILES - 1) / TILES;
-  // BLOCK threads' worth of groups; a packed warp's block halved until its
-  // shared memory fits (the wide calls' widths at four tiles a warp)
-  int per_block = BLOCK / 32 / WARPS;
-  while (FORM == FORM_RADIX && WARPS == 1 && per_block > 1 &&
-         ((size_t)per_block * words + round4(n_prefix)) * sizeof(int) > SMEM_LIMIT)
-    per_block >>= 1;
   if constexpr (FORM == FORM_SELECT) {
     if (probe == nullptr)
       return launch_groups<WARPS>(
-          tile_candidates_kernel<WARPS, MAPPED>, words, 0, T, per_block, stream,
+          tile_candidates_kernel<WARPS, MAPPED>, words, 0, T, stream,
           (const int*)pyr, (const int*)cellmap, (const float*)corners,
           (const float*)apex, T, top_depth, k_max, plan, stage_len, kept_len,
           (int*)codes, (int*)ids, (float*)t_codes, (float*)drop_t,
@@ -1600,14 +1593,14 @@ int launch_form(const void* pyr, const void* cellmap, const void* corners,
     if (probe == nullptr)
       return launch_groups<WARPS>(
           tile_candidates_radix_kernel<WARPS, MAPPED, TILES>, words,
-          round4(n_prefix), groups, per_block, stream, (const int*)pyr,
+          round4(n_prefix), groups, stream, (const int*)pyr,
           (const int*)cellmap, (const float*)corners, (const float*)apex, T,
           top_depth, k_max, plan, stage_len, kept_len, n_prefix, (int*)codes,
           (int*)ids, (float*)t_codes, (float*)drop_t, (const int*)brickmap);
   }
   return launch_groups<WARPS>(
       tile_candidates_probe_kernel<WARPS, MAPPED, FORM, TILES>, words,
-      round4(n_prefix), groups, per_block, stream, (const int*)pyr, (const int*)cellmap,
+      round4(n_prefix), groups, stream, (const int*)pyr, (const int*)cellmap,
       (const float*)corners, (const float*)apex, T, top_depth, k_max, plan,
       stage_len, kept_len, n_prefix, (int*)codes, (int*)ids, (float*)t_codes,
       (float*)drop_t, (const int*)brickmap, (long long*)probe);
@@ -1616,40 +1609,33 @@ int launch_form(const void* pyr, const void* cellmap, const void* corners,
 using Launch = int (*)(const void*, const void*, const void*, const void*, int,
                        int, int, const Plan&, void*, void*, void*, void*,
                        const void*, void*, cudaStream_t);
-// the radix form's tiles a warp at one warp a tile (a block a tile: one)
-constexpr int TILES_A_WARP[3] = {1, 2, 4};
-// PR 7's form at one and at eight warps a tile
+// the search form at one and at eight warps a tile
 template <bool MAPPED>
 constexpr Launch SELECT_LAUNCH[2] = {launch_form<1, MAPPED, FORM_SELECT, 1>,
                                      launch_form<8, MAPPED, FORM_SELECT, 1>};
-// the radix form at one warp and TILES_A_WARP's tiles, then at eight warps
+// the radix form at one warp (PACKED_TILES tiles a warp) and at eight
 template <bool MAPPED>
-constexpr Launch RADIX_LAUNCH[4] = {
-    launch_form<1, MAPPED, FORM_RADIX, 1>, launch_form<1, MAPPED, FORM_RADIX, 2>,
-    launch_form<1, MAPPED, FORM_RADIX, 4>, launch_form<8, MAPPED, FORM_RADIX, 1>};
+constexpr Launch RADIX_LAUNCH[2] = {launch_form<1, MAPPED, FORM_RADIX, PACKED_TILES>,
+                                    launch_form<8, MAPPED, FORM_RADIX, 1>};
 
 // The C entries' one body: `form` in the brickmap mode where `brickmap` is
-// not null (`mapped`: it must be), `warps` warps a tile (1 or 8) and, in the
-// radix form at one warp, `tiles` tiles a warp (1, 2 or 4; else 1), through
+// not null (`mapped`: it must be), `warps` warps a tile (1 or 8), through
 // the probe form where `probe` is not null.
 int candidates_entry(int form, bool mapped, const void* pyr,
                      const void* cellmap, const void* brickmap,
                      const void* corners, const void* apex, int T,
                      int top_depth, const int* widths, int k_max, int warps,
-                     int tiles, void* codes, void* ids, void* t_codes,
-                     void* drop_t, void* probe, void* stream) {
+                     void* codes, void* ids, void* t_codes, void* drop_t,
+                     void* probe, void* stream) {
   Plan plan;
-  int t = 0;
-  while (t < 3 && TILES_A_WARP[t] != tiles) ++t;
   if (!make_plan(T, top_depth, widths, k_max, plan) || (warps != 1 && warps != 8) ||
-      (form != FORM_SELECT && form != FORM_RADIX) || mapped != (brickmap != nullptr) ||
-      t == 3 || (tiles != 1 && (form != FORM_RADIX || warps != 1)))
+      (form != FORM_SELECT && form != FORM_RADIX) || mapped != (brickmap != nullptr))
     return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaGetLastError();
   const Launch launch =
       form == FORM_SELECT
           ? (mapped ? SELECT_LAUNCH<true> : SELECT_LAUNCH<false>)[warps == 8]
-          : (mapped ? RADIX_LAUNCH<true> : RADIX_LAUNCH<false>)[warps == 8 ? 3 : t];
+          : (mapped ? RADIX_LAUNCH<true> : RADIX_LAUNCH<false>)[warps == 8];
   return launch(pyr, cellmap, corners, apex, T, top_depth, k_max, plan, codes,
                 ids, t_codes, drop_t, brickmap, probe, (cudaStream_t)stream);
 }
@@ -1657,27 +1643,27 @@ int candidates_entry(int form, bool mapped, const void* pyr,
 }  // namespace
 
 // widths: top_depth + 1 ints in host memory (make_plan). warps: the warps a
-// tile, 1 or 8. PR 7's form, unmapped: the tile frame's main path.
+// tile, 1 or 8. The search form, unmapped: the tile frame's main path.
 extern "C" int tile_candidates(const void* pyr, const void* cellmap,
                                const void* corners, const void* apex, int T,
                                int top_depth, const int* widths, int k_max,
                                int warps, void* codes, void* ids,
                                void* t_codes, void* drop_t, void* stream) {
   return candidates_entry(FORM_SELECT, false, pyr, cellmap, nullptr, corners,
-                          apex, T, top_depth, widths, k_max, warps, 1, codes,
-                          ids, t_codes, drop_t, nullptr, stream);
+                          apex, T, top_depth, widths, k_max, warps, codes, ids,
+                          t_codes, drop_t, nullptr, stream);
 }
 
-// The radix form, unmapped: off every path, measured beside PR 7's form.
+// The radix form, unmapped: off every path, measured beside the search form.
 extern "C" int tile_candidates_radix(const void* pyr, const void* cellmap,
                                      const void* corners, const void* apex,
                                      int T, int top_depth, const int* widths,
-                                     int k_max, int warps, int tiles,
-                                     void* codes, void* ids, void* t_codes,
-                                     void* drop_t, void* stream) {
+                                     int k_max, int warps, void* codes,
+                                     void* ids, void* t_codes, void* drop_t,
+                                     void* stream) {
   return candidates_entry(FORM_RADIX, false, pyr, cellmap, nullptr, corners,
-                          apex, T, top_depth, widths, k_max, warps, tiles,
-                          codes, ids, t_codes, drop_t, nullptr, stream);
+                          apex, T, top_depth, widths, k_max, warps, codes, ids,
+                          t_codes, drop_t, nullptr, stream);
 }
 
 // The brickmap mode, the streamed world's phase 1, in the radix form: each
@@ -1690,15 +1676,14 @@ extern "C" int tile_candidates_mapped(const void* pyr, const void* cellmap,
                                       const void* brickmap, const void* corners,
                                       const void* apex, int T, int top_depth,
                                       const int* widths, int k_max, int warps,
-                                      int tiles, void* codes, void* ids,
-                                      void* t_codes, void* drop_t,
-                                      void* stream) {
+                                      void* codes, void* ids, void* t_codes,
+                                      void* drop_t, void* stream) {
   return candidates_entry(FORM_RADIX, true, pyr, cellmap, brickmap, corners,
-                          apex, T, top_depth, widths, k_max, warps, tiles,
-                          codes, ids, t_codes, drop_t, nullptr, stream);
+                          apex, T, top_depth, widths, k_max, warps, codes, ids,
+                          t_codes, drop_t, nullptr, stream);
 }
 
-// The brickmap mode's first form: PR 7's kernel in the brickmap mode, the
+// The brickmap mode's first form: the search form in the brickmap mode, the
 // streamed world's phase 1 before the radix form; checks and probe runs
 // launch it, no main path does.
 extern "C" int tile_candidates_mapped_first(
@@ -1707,25 +1692,26 @@ extern "C" int tile_candidates_mapped_first(
     const int* widths, int k_max, int warps, void* codes, void* ids,
     void* t_codes, void* drop_t, void* stream) {
   return candidates_entry(FORM_SELECT, true, pyr, cellmap, brickmap, corners,
-                          apex, T, top_depth, widths, k_max, warps, 1, codes,
-                          ids, t_codes, drop_t, nullptr, stream);
+                          apex, T, top_depth, widths, k_max, warps, codes, ids,
+                          t_codes, drop_t, nullptr, stream);
 }
 
 // The probe form of `form` (FORM_SELECT, FORM_RADIX), in the brickmap mode
 // where `brickmap` is not null: the outputs and, in `probe`, CW_WORDS int64
-// words for each warp of the launch (ceil(T / (8 / warps)) blocks of 8
-// warps), zeroed by the caller.
+// words for each warp of the launch (blocks of 8 warps: ceil(T / 8) at one
+// warp a tile in the search form, ceil(T / (8 * PACKED_TILES)) in the radix
+// form, T at eight), zeroed by the caller.
 extern "C" int tile_candidates_probe(int form, const void* pyr,
                                      const void* cellmap, const void* brickmap,
                                      const void* corners, const void* apex,
                                      int T, int top_depth, const int* widths,
-                                     int k_max, int warps, int tiles,
-                                     void* codes, void* ids, void* t_codes,
-                                     void* drop_t, void* probe, void* stream) {
+                                     int k_max, int warps, void* codes,
+                                     void* ids, void* t_codes, void* drop_t,
+                                     void* probe, void* stream) {
   if (probe == nullptr) return (int)cudaErrorInvalidValue;
   return candidates_entry(form, brickmap != nullptr, pyr, cellmap, brickmap,
                           corners, apex, T, top_depth, widths, k_max, warps,
-                          tiles, codes, ids, t_codes, drop_t, probe, stream);
+                          codes, ids, t_codes, drop_t, probe, stream);
 }
 
 extern "C" int tile_candidates_block(const void* pyr, const void* cellmap,

@@ -17,14 +17,14 @@ failure raises.
 ``_candidates`` does and gives the same bits as its plain version,
 ``tile.candidates_plain`` (given a ``brickmap``, followed by
 ``tile.remap_ids``: the streamed world's brickmap mode). It has two forms
-(``CANDIDATE_FORMS``). The first, PR 7's ``tile_candidates`` (brickmap mode
+(``CANDIDATE_FORMS``). The first, the search form ``tile_candidates`` (brickmap mode
 ``tile_candidates_mapped_first``): a warp or a block a tile
 (``candidate_warps``), each level's valid keys compacted, the ``width``
 smallest selected by a bitwise search, and only the finest level's row
 sorted; the tile frame's main path. The radix form (``tile_candidates_mapped``,
 unmapped ``tile_candidates_radix``): the same steps with the pyramid's first
 levels in shared memory, a level's words in one round trip, light levels a
-lane a child slot, a radix selection, and ``candidate_tiles`` tiles a warp
+lane a child slot, a radix selection, and ``PACKED_TILES`` tiles a warp
 (or a block a tile with its light levels on one warp); the brickmap mode's
 main path. ``probe_candidates`` runs either form with per-warp counters
 (``CAND_PROBE_FIELDS``), for measurement only. ``candidates_block``
@@ -67,14 +67,11 @@ TOP_DEPTH_LIMIT = 10
 # while a level expands at most this many child slots
 CANDIDATE_WARPS = (1, 8)
 WARP_SLOTS = 512
-# the radix form's tiles a warp at one warp a tile (csrc/tile_candidates.cu's
-# TILES_A_WARP), and the rule's: two was the fastest or within 1% of it on
-# every call of the streamed frames, four the slowest on the heavy main call
-# (PERF.md, PR 23)
-CANDIDATE_TILES = (1, 2, 4)
+# the tiles a warp of the radix form at one warp a tile
+# (csrc/tile_candidates.cu's PACKED_TILES)
 PACKED_TILES = 2
 # phase 1's forms and their codes in the probe (csrc/tile_candidates.cu's
-# FORM_SELECT, FORM_RADIX): "first" is PR 7's kernel (a level's slots 32 at
+# FORM_SELECT, FORM_RADIX): "first" is the search form (a level's slots 32 at
 # a time, the bitwise search), "radix" the radix form
 CANDIDATE_FORMS = ("radix", "first")
 FORM_CODES = {"first": 0, "radix": 1}
@@ -93,7 +90,7 @@ launches = 0
 serial_launches = 0
 candidates_launches = 0
 candidates_block_launches = 0
-# the radix form in the brickmap mode (the streamed world's phase 1), PR 7's
+# the radix form in the brickmap mode (the streamed world's phase 1), the search
 # form there (its first form), the radix form unmapped (off every path), and
 # the probe form
 candidates_mapped_launches = 0
@@ -261,29 +258,19 @@ def candidate_warps(widths):
     return 1 if 8 * max(widths[:-1]) <= WARP_SLOTS else 8
 
 
-def candidate_tiles(widths, warps=None):
-    """Tiles a warp for the radix form from the static `widths` (and the
-    warps a tile, None: ``candidate_warps``): PACKED_TILES at one warp a
-    tile, one for a block a tile."""
-    return PACKED_TILES if (warps or candidate_warps(widths)) == 1 else 1
+def tiles_a_warp(form, warps):
+    """Tiles a warp of a launch in `form` at `warps` warps a tile: the radix
+    form packs PACKED_TILES at one warp a tile; else one."""
+    return PACKED_TILES if (form, warps) == ("radix", 1) else 1
 
 
-def _layout(form, widths, warps, tiles):
-    """(warps, tiles) of a launch in `form` from the caller's (None: the
-    rules'), checked."""
-    if form not in CANDIDATE_FORMS:
-        raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
+def _warps(widths, warps):
+    """The warps a tile of a launch: the caller's, checked, or
+    ``candidate_warps`` of the widths."""
     if warps is not None and warps not in CANDIDATE_WARPS:
         raise ValueError(f"{warps} warps a tile: the kernel takes one of "
                          f"{CANDIDATE_WARPS}")
-    warps = candidate_warps(widths) if warps is None else warps
-    if tiles is None:
-        tiles = candidate_tiles(widths, warps) if form == "radix" else 1
-    if tiles not in CANDIDATE_TILES or (tiles != 1 and (form, warps) != ("radix", 1)):
-        raise ValueError(f"{tiles} tiles a warp: the {form} form at {warps} warps "
-                         f"a tile takes " + (f"one of {CANDIDATE_TILES}" if
-                                            (form, warps) == ("radix", 1) else "1"))
-    return warps, tiles
+    return candidate_warps(widths) if warps is None else warps
 
 
 def _candidates_check(kernel, pyr, cellmap, corners, apex, top_depth, caps,
@@ -329,7 +316,7 @@ def _brickmap_check(kernel, brickmap, device):
 
 
 def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
-               warps=None, brickmap=None, form=None, tiles=None):
+               warps=None, brickmap=None, form=None):
     """Launch phase 1 on CUDA tensors: every tile of the (T, 4, 3)
     contiguous `corners` (arguments and results as
     ``tile.candidates_plain``), `warps` warps a tile (None:
@@ -344,9 +331,7 @@ def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
     `form`, one of CANDIDATE_FORMS (None: the mode's main path, "radix" in
     the brickmap mode and "first" without): ``tile_candidates_mapped`` and
     ``tile_candidates_radix`` are the radix form in the two modes,
-    ``tile_candidates_mapped_first`` and ``tile_candidates`` PR 7's. `tiles`:
-    the radix form's tiles a warp at one warp a tile (None:
-    ``candidate_tiles``)."""
+    ``tile_candidates_mapped_first`` and ``tile_candidates`` the search form's."""
     global candidates_launches, candidates_mapped_launches
     global candidates_mapped_first_launches, candidates_radix_launches
     if form is None:
@@ -356,9 +341,9 @@ def candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
         raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
     widths, out = _candidates_check(kernel, pyr, cellmap, corners, apex,
                                     top_depth, caps, k_max)
-    warps, tiles = _layout(form, widths, warps, tiles)
+    warps = _warps(widths, warps)
     head = (corners.shape[0], top_depth, (ctypes.c_int * len(widths))(*widths),
-            k_max, warps) + ((tiles,) if form == "radix" else ())
+            k_max, warps)
     if brickmap is None:
         kernel(corners.device, pyr.data_ptr(), cellmap.data_ptr(),
                corners.data_ptr(), apex.data_ptr(), *head,
@@ -396,7 +381,7 @@ def candidates_block(pyr, cellmap, corners, apex, top_depth, caps, k_max):
 
 
 def probe_candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
-                     form, warps=None, brickmap=None, tiles=None):
+                     form, warps=None, brickmap=None):
     """``candidates`` in `form` (one of CANDIDATE_FORMS) through its probe
     form, on CUDA tensors, in the brickmap mode given a `brickmap`: the same
     four outputs, and a (warps of the launch, len(CAND_PROBE_FIELDS)) int64
@@ -407,17 +392,17 @@ def probe_candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max,
         raise ValueError(f"form {form!r}: phase 1 has {CANDIDATE_FORMS}")
     widths, out = _candidates_check(_TILE_CANDIDATES_PROBE, pyr, cellmap,
                                     corners, apex, top_depth, caps, k_max)
-    warps, tiles = _layout(form, widths, warps, tiles)
+    warps = _warps(widths, warps)
     if brickmap is not None:
         _brickmap_check(_TILE_CANDIDATES_PROBE, brickmap, corners.device)
     T = corners.shape[0]
-    groups, per_block = -(-T // tiles), 8 // warps
+    groups, per_block = -(-T // tiles_a_warp(form, warps)), 8 // warps
     record = torch.zeros((-(-groups // per_block) * 8, len(CAND_PROBE_FIELDS)),
                          dtype=torch.int64, device=corners.device)
     _TILE_CANDIDATES_PROBE(
         corners.device, FORM_CODES[form], pyr.data_ptr(), cellmap.data_ptr(),
         None if brickmap is None else brickmap.data_ptr(), corners.data_ptr(),
         apex.data_ptr(), T, top_depth, (ctypes.c_int * len(widths))(*widths),
-        k_max, warps, tiles, *(t.data_ptr() for t in out), record.data_ptr())
+        k_max, warps, *(t.data_ptr() for t in out), record.data_ptr())
     candidates_probe_launches += 1
     return out, record

@@ -1,7 +1,7 @@
 """Phase 1 of the tile trace: the dispatcher ``tile._candidates``, the
 contract of the kernels' wrappers ``tile_cuda.candidates`` and
 ``tile_cuda.candidates_block``, the plain version ``tile.candidates_plain``
-against the JAX package's ``_candidates``, and numpy models of the two
+against the JAX package's ``_candidates``, and numpy models of the
 kernels' per-tile algorithms (``csrc/tile_candidates.cu``) held bitwise to
 the plain version.
 
@@ -11,15 +11,19 @@ the kernel's order of sums, the static widths of ``tile_cuda.level_widths``,
 each level's keys padded with the sentinel to a power of two and sorted by
 the kernel's bitonic network, the drop rule, and the row padded to k_max.
 
-The new form's model does what a warp or a block of ``tile_candidates``
+The search form's model does what a warp or a block of ``tile_candidates``
 does: the same keys, compacted to the valid ones (in slot order, as a
 warp's ballots leave them, or shuffled, as a block's atomics may), the key
 of rank ``width`` found by the kernel's bitwise search where a level
 overflows (drop_t from it, the keys below it kept, in any order), and the
 finest level's row sorted by the warp's register network of 32 * E keys.
-The kernels themselves are held to the plain version on the card by
-chip_smoke.py. Every comparison here is exact: integers equal, floats
-equal as bits."""
+The radix form's model takes the same steps with its radix selection
+(``radix_kth``: 8-bit digits, a histogram a pass), in both modes (the
+brickmap mode against ``candidates_plain`` followed by ``remap_ids``). The
+wrappers' refusals, the probe's record layout and the C entries' declared
+arities are checked here too. The kernels themselves are held to the plain
+version on the card by chip_smoke.py. Every comparison here is exact:
+integers equal, floats equal as bits."""
 
 import re
 
@@ -297,7 +301,8 @@ def select_model(pyr, cellmap, corners, apex, top_depth, widths, k_max, seed=0,
     the valid keys compacted, in slot order for one warp a tile and in a
     seeded random order for a block (``tile_cuda.candidate_warps``); the
     width smallest selected (by `kth`, the key of rank width and its
-    passes: the radix form's ``radix_kth``; None, PR 7's bitwise search);
+    passes: the radix form's ``radix_kth``; None, the search form's bitwise
+    search);
     the finest row sorted in 32 * E registers. Also the counting passes of
     each tile."""
     pyr = pyr.astype(np.int64) & 0xFFFFFFFF
@@ -448,30 +453,22 @@ def refuses(wrapper, what, change, says, monkeypatch, **extra):
     assert counts() == before and set(_build._libs) == loaded
 
 
-FORM_ARGUMENTS = [
+WARPS_AND_FORM = [
+    ("warps", dict(warps=lambda a: 3), "3 warps a tile"),
     ("form", dict(form=lambda a: "serial"), "form 'serial': phase 1 has"),
-    ("tiles", dict(form=lambda a: "radix", tiles=lambda a: 3),
-     "3 tiles a warp: the radix form at 1 warps a tile takes one of (1, 2, 4)"),
-    ("tiles, first form", dict(tiles=lambda a: 2),
-     "2 tiles a warp: the first form at 1 warps a tile takes 1"),
-    ("tiles, a block a tile", dict(form=lambda a: "radix", warps=lambda a: 8,
-                                   tiles=lambda a: 2),
-     "2 tiles a warp: the radix form at 8 warps a tile takes 1"),
 ]
 
 
-@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS + [
-    ("warps", dict(warps=lambda a: 3), "3 warps a tile")] + FORM_ARGUMENTS)
+@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS + WARPS_AND_FORM)
 def test_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
     """The wrapper of both forms, ``candidates``; also a number of warps a
-    tile that the kernel has no variant for, a form it does not have, and
-    tiles a warp where the form and the warps a tile take none or those."""
+    tile that the kernels have no variant for, and a form they do not
+    have."""
     refuses("candidates", what, change, says, monkeypatch)
 
 
-@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS[1:] + FORM_ARGUMENTS[1:] + [
-    ("device", {}, "the tile_candidates_probe kernel takes CUDA tensors"),
-    ("form", dict(form=lambda a: "serial"), "form 'serial': phase 1 has")])
+@pytest.mark.parametrize("what,change,says", BAD_ARGUMENTS[1:] + WARPS_AND_FORM + [
+    ("device", {}, "the tile_candidates_probe kernel takes CUDA tensors")])
 def test_probe_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
     """The probe form's wrapper, ``probe_candidates``, by the same checks
     (its form is a required argument)."""
@@ -479,17 +476,15 @@ def test_probe_wrapper_refuses_bad_arguments(what, change, says, monkeypatch):
             form="first")
 
 
-def test_candidate_tiles_rule():
-    """Two tiles a warp where phase 1 runs a warp a tile (the frames' main
-    calls), one where it runs a block a tile (their fallback calls)."""
+def test_tiles_a_warp():
+    """The radix form packs PACKED_TILES tiles a warp where phase 1 runs a
+    warp a tile (the frames' main calls), one where it runs a block a tile
+    (their fallback calls); the search form one always."""
     main = tile_cuda.level_widths(7, tile._default_caps(7, 96), 96)
     wide = tile_cuda.level_widths(7, tuple(min(160, 8 ** l) for l in range(8)), 160)
-    assert tile_cuda.candidate_warps(main) == 1 and tile_cuda.candidate_tiles(main) == 2
-    assert tile_cuda.candidate_warps(wide) == 8 and tile_cuda.candidate_tiles(wide) == 1
-    assert tile_cuda.candidate_tiles(wide, warps=1) == tile_cuda.PACKED_TILES
-    assert tile_cuda._layout("radix", main, None, None) == (1, 2)
-    assert tile_cuda._layout("first", main, None, None) == (1, 1)
-    assert tile_cuda._layout("radix", wide, None, None) == (8, 1)
+    assert tile_cuda.candidate_warps(main) == 1 and tile_cuda.candidate_warps(wide) == 8
+    assert tile_cuda.tiles_a_warp("radix", 1) == tile_cuda.PACKED_TILES == 2
+    assert tile_cuda.tiles_a_warp("radix", 8) == tile_cuda.tiles_a_warp("first", 1) == 1
 
 
 def test_probe_fields_match_the_kernels_record():
@@ -503,8 +498,7 @@ def test_probe_fields_match_the_kernels_record():
     assert tile_cuda.CAND_PROBE_FIELDS.index("expand_l1") == 7
     assert tile_cuda.FORM_CODES == {"first": 0, "radix": 1}
     assert re.search(r"constexpr int FORM_SELECT = 0, FORM_RADIX = 1;", src)
-    assert re.search(r"constexpr int TILES_A_WARP\[3\] = \{1, 2, 4\};", src)
-    assert tile_cuda.CANDIDATE_TILES == (1, 2, 4)
+    assert re.search(rf"constexpr int PACKED_TILES = {tile_cuda.PACKED_TILES};", src)
 
 
 def test_mapped_dispatcher_takes_the_plain_version_on_the_cpu():
@@ -718,7 +712,7 @@ class _Declared:
 
 
 def test_c_entries_are_declared_with_their_arity():
-    """Every C entry point of tile_candidates.cu (PR 7's form in both modes,
+    """Every C entry point of tile_candidates.cu (the search form in both modes,
     the radix form in both, the probe form, the block-a-tile first form) has
     ctypes argument types of its own length, the stream included, and a
     wrapper's Kernel of its name."""
