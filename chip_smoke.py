@@ -44,9 +44,15 @@ small cases hold it and the brickmap mode's two forms too); no call of the
 plain version may happen on the tile frame's or the tile step's path. It runs the probe kernels
 (`brick_dda16`, `rowread`, `take`, `loop_probe`, and the sorted form of the
 segment sum) at the sizes of the probes they replace, `take` also at the
-main path's size, times the parts of one wrapper's launch path on the
-host, and counts the tile frame's and tile step's eager ops on the host by
-group.
+main path's size; `loop_probe` in its ranged form and its first form
+(`loop_probe_serial`), both bitwise against the plain version also on inputs
+outside [0, 1], timed in turns and alone, beside the issue and latency
+floors at the SM clock read under load. `[wrapper]` times the parts of two
+wrappers' launch paths on the host (`rowread_rows`; `take_1d` at the main
+path's size, before and since the launcher `csrc/launch.cpp`) beside
+`index_select`, and the host time of the main path's `shade_fwd` and
+`tile_walk` calls; `[host]` counts the tile frame's and tile step's eager
+ops on the host by group.
 
 The serving renderers: `[frame-volumetric]` drives `VolumetricRenderer.render`
 (k = 4; the brick route: kernels `brick_trace_multi` and `composite_fwd`) and
@@ -230,11 +236,9 @@ OPS_RAY_SETUP = 40
 # and xor), which every walk of a ray shares, and the origin's, a walk's own
 OPS_DIR_SETUP = 21
 OPS_WALK_SETUP = OPS_RAY_SETUP - OPS_DIR_SETUP
-# shading one hit ray forward, and its backward (which repeats the forward);
-# one trip of the loop probe's body (multiply, add, floor, subtract)
+# shading one hit ray forward, and its backward (which repeats the forward)
 OPS_SHADE_FWD = 45
 OPS_SHADE_BWD = 100
-OPS_LOOP_ELEM = 4
 # phase 1 (tile_candidates): the occupancy test of a child slot (its parent
 # from shared memory, the bit of the pyramid word), and the cull and key of
 # an occupied child: unmorton 41, the cell's offset from the apex 12, four
@@ -2864,15 +2868,15 @@ def trace_forms(bsvo, svo, o, d, width=None):
 
 def ptxas_report(log):
     """(kernel, registers, spill bytes stored, shared bytes) for each
-    kernel of brick_trace.cu's (or tile_candidates.cu's) ptxas report, named
-    as torch.profiler names them."""
+    kernel of brick_trace.cu's (or tile_candidates.cu's, or the loop probe's
+    of shade.cu) ptxas report, named as torch.profiler names them."""
     rows, name, stores = [], None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             # the mangled name: its length, the name, and a template's
             # arguments (Lb0E, Lb1E: false, true; Li256E: 256)
             m = re.search(r"\d+((?:brick_trace|esvo_stackless|clipmap_trace|level_round"
-                          r"|level_queue|tile_candidates)\w*?_kernel)"
+                          r"|level_queue|tile_candidates|loop_probe)\w*?_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", line)
             name, stores = None, 0
             if m:
@@ -3191,6 +3195,275 @@ def rowread_rows_old_path(table, idx):
     if err != 0:
         raise RuntimeError(f"rowread launch failed: cudaError {err}")
     return out
+
+
+# ---- the loop probe's two forms and take's launch path (also run alone by
+# gather_probe.py) ----------------------------------------------------------
+
+# a step of the loop probe: its issue slots (multiply, add, floor or the
+# ranged form's 0 or 1, subtract; --fmad=false keeps the first two apart) and
+# the shortest dependent chain that keeps its bits (multiply, add, subtract),
+# each link at the FP32 pipe's latency in cycles
+LOOP_STEP_ISSUES = 4
+LOOP_STEP_CHAIN = 3
+FP32_LATENCY_CYCLES = 4
+H100_SMS, FP32_LANES_AN_SM = 132, 128
+# the timed cases: (trips, gather rows) of the float loop at 8 steps a trip,
+# and "int", the integer loop's 256 trips over 16,384 rows
+LOOP_TIMED = ((64, 0), (2048, 0), (64, 512), (2048, 512), "int")
+
+
+def outside_unit(shape, seed):
+    """float32 values that leave [0, 1]: negative, at and past 2**23, -0.0,
+    NaN, +-inf, the largest and overflowing, tiny, just below 1 and around
+    the ranged form's wrap, the rest over twelve decades of both signs."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 9, shape)).astype(np.float32)
+    special = np.array([-3.7, -0.0, 0.0, 2**23, 2**23 + 1, 2**24 + 3, 3.4e38, -3.4e38,
+                        1e-40, -1e-10, np.nan, np.inf, -np.inf, 1.0, 0.5,
+                        np.nextafter(np.float32(1), np.float32(0)), 0.4999995, 0.49999946,
+                        -0.5, 12345.678], dtype=np.float32)
+    x.reshape(-1)[:special.size] = special
+    return x
+
+
+def loop_inputs(dev):
+    """The probes' inputs (the float loop's (512,128) x over [0, 1] and its
+    (512,128) table; the integer loop's (8,128) indices and (16384,128)
+    table) and ones that leave the ranged form's range: x outside [0, 1], a
+    table of large, negative, infinite and NaN words, indices whose x + k
+    wraps past 2**31 - 1 or lies below zero, and a table of large and
+    negative int32 words whose sums wrap. All from numpy seeds."""
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(8)
+    with np.errstate(over="ignore"):
+        far_table = outside_unit((512, 128), 4) * np.float32(1e6)
+    idx = probe_idx((8, 128), 16384, dev)
+    return dict(
+        x=torch.linspace(0, 1, 512 * 128, device=dev).reshape(512, 128),
+        table=on(rng.random((512, 128), dtype=np.float32)),
+        out_x=on(outside_unit((512, 128), 2)), far_table=on(far_table),
+        int_idx=idx,
+        int_table=torch.arange(16384 * 128, dtype=torch.int32, device=dev).reshape(16384, 128),
+        wrap_idx=torch.cat([2**31 - 1 - probe_idx((4, 128), 300, dev),
+                            -probe_idx((4, 128), 2**31 - 1, dev) - 1]),
+        words=on(np.random.default_rng(3).integers(-2**31, 2**31, (16384, 128))
+                 .astype(np.int32)))
+
+
+def loop_call(inp, case):
+    """The arguments of one loop case for gather.loop_probe and its forms."""
+    if case == "int":
+        return (inp["int_idx"], inp["int_table"], 256, 0, 16384, gather.LOOP_INT)
+    iters, rows = case
+    return (inp["x"], inp["table"], iters, 8, rows, gather.LOOP_FLOAT)
+
+
+def loop_parity(inp, err):
+    """The ranged form (loop_probe) and the first form (loop_probe_serial)
+    bitwise against loop_probe_plain on the probes' cases and on inputs that
+    leave [0, 1]; returns the plain version's ms of each probe case (n=1)."""
+    cases = [(str(c), loop_call(inp, c)) for c in LOOP_TIMED]
+    x, out_x, table, far = inp["x"], inp["out_x"], inp["table"], inp["far_table"]
+    cases += [
+        ("x outside [0, 1], 64 trips", (out_x, table, 64, 8, 0, gather.LOOP_FLOAT)),
+        ("x outside [0, 1], 64 trips, gather", (out_x, table, 64, 8, 512, gather.LOOP_FLOAT)),
+        ("x and the table outside [0, 1], 64 trips, gather",
+         (out_x, far, 64, 8, 512, gather.LOOP_FLOAT)),
+        ("x outside [0, 1], 3 trips of 5 steps, gather of 4 rows",
+         (out_x, far, 3, 5, 4, gather.LOOP_FLOAT)),
+        ("x outside [0, 1], 1 trip of 1 step", (out_x, None, 1, 1, 0, gather.LOOP_FLOAT)),
+        ("x in [0, 1], 7 trips of 13 steps", (x, None, 7, 13, 0, gather.LOOP_FLOAT)),
+        ("the table outside [0, 1], gathers only", (x, far, 9, 0, 512, gather.LOOP_FLOAT)),
+        ("int: x + k wrapping, words whose sums wrap",
+         (inp["wrap_idx"], inp["words"], 256, 0, 16384, gather.LOOP_INT)),
+        ("int: 13 trips, a modulus past the table's rows",
+         (inp["wrap_idx"], inp["words"][:100], 13, 0, 300, gather.LOOP_INT)),
+    ]
+    plain_ms, nans = {}, {}
+    for what, args in cases:
+        got = gather.loop_probe(*args)
+        first = gather.loop_probe_serial(*args)
+        nans[what] = int(torch.isnan(got).sum()) if got.is_floating_point() else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = gather.loop_probe_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms[what] = (time.perf_counter() - t0) * 1e3
+        err["loop_probe"] = max(err["loop_probe"], compare_tensors(
+            (got,), (want,), ("x",), f"loop_probe, {what}"))
+        err["loop_probe_serial"] = max(err["loop_probe_serial"], compare_tensors(
+            (first,), (want,), ("x",), f"loop_probe_serial, {what}"))
+    say(f"[parity] loop_probe (the ranged form) and loop_probe_serial (its first "
+        f"form) == loop_probe_plain bitwise on {len(cases)} cases: float mode "
+        f"(512,128) at 64 and 2048 trips of 8 steps without and with a 512-row "
+        f"gather; integer mode (8,128) summing 256 gathered rows of a "
+        f"(16384,128) table; x outside [0, 1] (negative, 2**23 and past, -0.0, "
+        f"NaN, +-inf, overflowing, just below 1, around the wrap), a table of "
+        f"large, negative, infinite and NaN words ({max(nans.values())} NaN "
+        f"results at most), ragged "
+        f"trips and steps; integer indices wrapping past 2**31 - 1 and below "
+        f"zero, and sums that wrap")
+    return {c: plain_ms[str(c)] for c in LOOP_TIMED}
+
+
+def loop_variants(inp):
+    """name -> a call of each form on each timed case."""
+    out = {}
+    for case in LOOP_TIMED:
+        args = loop_call(inp, case)
+        out[f"loop {case}"] = lambda a=args: gather.loop_probe(*a)
+        out[f"loop_serial {case}"] = lambda a=args: gather.loop_probe_serial(*a)
+    return out
+
+
+def sm_clock_mhz(fn, calls):
+    """(SM clock, its maximum) in MHz as nvidia-smi reads them while `calls`
+    calls of fn() keep the card busy."""
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    read = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    torch.cuda.synchronize()
+    now, peak = (float(v) for v in read.split(","))
+    return now, peak
+
+
+def loop_floors(n, trips, elem, clock_mhz):
+    """The float loop's least time without a gather: the issue floor (every
+    step's LOOP_STEP_ISSUES instructions at FP32_LANES_AN_SM lanes a cycle on
+    every SM) and the latency floor (every trip's steps, one after another,
+    LOOP_STEP_CHAIN links of FP32_LATENCY_CYCLES each), in ms at `clock_mhz`;
+    and which binds."""
+    hz = clock_mhz * 1e6
+    issue = n * trips * elem * LOOP_STEP_ISSUES / (H100_SMS * FP32_LANES_AN_SM * hz) * 1e3
+    latency = trips * elem * LOOP_STEP_CHAIN * FP32_LATENCY_CYCLES / hz * 1e3
+    return dict(issue_ms=issue, latency_ms=latency, bound_ms=max(issue, latency),
+                binds="issue" if issue >= latency else "latency")
+
+
+class CtypesKernel:
+    """``_launch.Kernel``'s call as it stood before the launcher, kept here
+    only to time both paths in one run: the ctypes function itself, the
+    current device through ``torch.cuda.current_device``."""
+
+    def __init__(self, cfn):
+        self._fn = cfn
+        self._raw_stream = torch._C._cuda_getCurrentRawStream
+        self._current_device = torch.cuda.current_device
+
+    def __call__(self, device, *args):
+        index = device.index
+        if index == self._current_device():
+            err = self._fn(*args, self._raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = self._fn(*args, self._raw_stream(index))
+        if err != 0:
+            raise RuntimeError(f"take launch failed: cudaError {err}")
+
+
+OLD_TAKE = {}
+OLD_LAUNCHES = {"take": 0}
+
+
+def take_guards_old(table, idx):
+    """The guards of ``gather._take_kernel`` before this form, 1-D mode."""
+    if table.dtype not in (torch.float32, torch.int32) or table.numel() == 0:
+        raise ValueError("table")
+    if table.dim() != 1:
+        raise ValueError("table")
+    return table.shape[0], 1
+
+
+def take_1d_old_path(table, idx):
+    """``gather.take_1d`` as it stood before this form, kept here only to
+    time both paths in one run: the guards, ``Kernel.check`` of the table
+    against its own dtype and shape, ``torch.empty`` with the device, and the
+    ctypes call through the earlier ``Kernel.__call__``."""
+    if table.device.type == "cpu":
+        raise ValueError("a CPU table")
+    device = table.device
+    if table.dtype not in (torch.float32, torch.int32) or table.numel() == 0:
+        raise ValueError("table")
+    gather._TAKE.check(device, (("table", table, table.dtype, table.shape),
+                                ("indices", idx, torch.int32, idx.shape)))
+    if table.dim() != 1:
+        raise ValueError("table")
+    rows, cols = table.shape[0], 1
+    out = torch.empty(idx.shape, dtype=table.dtype, device=device)
+    kernel = OLD_TAKE.get("kernel") or OLD_TAKE.setdefault(
+        "kernel", CtypesKernel(_build.shade_lib().take))
+    kernel(device, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+           rows, cols, gather.TAKE_1D)
+    OLD_LAUNCHES["take"] += 1
+    return out
+
+
+def host_parts(parts, calls=3000, rounds=3):
+    """name -> the median over `rounds` of host_us(fn, calls), every round
+    timing each part in turn (the host's mood lasts longer than one part)."""
+    samples = {name: [] for name in parts}
+    for _ in range(rounds):
+        for name, fn in parts.items():
+            samples[name].append(host_us(fn, calls))
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def host_us_alone(fn, calls=200):
+    """Median host us of one call of fn() issued to an idle card: for a
+    wrapper whose kernel outlasts its launch, where calls back to back would
+    wait on a full queue."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def take_parts(dev, table, idx):
+    """take_1d's launch path on (table, idx), part by part, before and now,
+    and index_select beside them: host us a call (host_parts)."""
+    gather.take_1d(table, idx)
+    take_1d_old_path(table, idx)
+    kernel, old = gather._TAKE, OLD_TAKE["kernel"]
+    specs = (("table", table, table.dtype, table.shape),
+             ("indices", idx, torch.int32, idx.shape))
+    out = torch.empty_like(idx, dtype=table.dtype)
+    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+            table.shape[0], 1, gather.TAKE_1D)
+    raw, flat = torch._C._cuda_getCurrentRawStream, idx.reshape(-1)
+
+    def count():
+        OLD_LAUNCHES["take"] += 1
+    return host_parts({
+        "an empty call": lambda: None,
+        "guards (before)": lambda: take_guards_old(table, idx),
+        "guards (now)": lambda: gather._take_guards(table, idx, gather.TAKE_1D),
+        "Kernel.check": lambda: kernel.check(dev, specs),
+        "torch.empty (before)": lambda: torch.empty(idx.shape, dtype=table.dtype, device=dev),
+        "Tensor.new_empty": lambda: idx.new_empty(idx.shape, dtype=table.dtype),
+        "torch.empty_like (now)": lambda: torch.empty_like(idx, dtype=table.dtype),
+        "three data_ptr reads": lambda: (table.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "current_device (before)": torch.cuda.current_device,
+        "_cuda_getDevice (now)": torch._C._cuda_getDevice,
+        "raw stream": lambda: raw(0),
+        "ctypes call (before)": lambda: old._fn(*args, raw(0)),
+        "launcher call (now)": lambda: kernel._fn(*args, raw(0)),
+        "Kernel call (before)": lambda: old(dev, *args),
+        "Kernel call (now)": lambda: kernel(dev, *args),
+        "launches counter": count,
+        "take_1d (before)": lambda: take_1d_old_path(table, idx),
+        "take_1d (now)": lambda: gather.take_1d(table, idx),
+        "index_select": lambda: torch.index_select(table, 0, flat),
+    })
 
 
 def dda_inputs(n, seed, dev):
@@ -5209,7 +5482,8 @@ def main():
         f"shade (nvcc sm_90a) {secs['shade']:.2f} s, "
         f"tile_candidates (nvcc sm_90a) {secs['tile_candidates']:.2f} s, "
         f"svo_build (nvcc sm_90a) {secs['svo_build']:.2f} s, "
-        f"noise (g++) {secs['noise']:.2f} s, side by side in "
+        f"noise (g++) {secs['noise']:.2f} s, launch (g++, the launcher "
+        f"extension) {secs['launch']:.2f} s, side by side in "
         f"{time.perf_counter() - t0:.2f} s, into {_build.BUILD_DIR}")
     ptxas = ptxas_report(_build.build_log("brick_trace"))
     if len(ptxas) != 49:
@@ -5249,7 +5523,9 @@ def main():
     bwd_regs = re.search(r"composite_bwd_kernel.*?\n.*?Used (\d+) registers",
                          _build.build_log("shade"), re.S)
     say(f"[build] shade.cu, ptxas -v: composite_bwd_kernel "
-        f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers")
+        f"{bwd_regs.group(1) if bwd_regs else 'not found'} registers; " + "; ".join(
+            f"{k} {r} registers, {sp} spilled"
+            for k, r, sp, _sm in ptxas_report(_build.build_log("shade"))))
     svo_regs = svo_ptxas(_build.build_log("svo_build"))
     if len(svo_regs) != 15:
         raise AssertionError(f"ptxas reported {svo_regs} of svo_build.cu, "
@@ -5262,7 +5538,8 @@ def main():
     err = dict(esvo_trace=0.0, esvo_trace_serial=0.0, tile_walk=0.0,
                tile_walk_serial=0.0, tile_candidates=0.0,
                tile_candidates_block=0.0, brick_dda16=0.0, rowread=0.0,
-               take=0.0, loop_probe=0.0, shade_fwd=0.0, shade_bwd=0.0,
+               take=0.0, loop_probe=0.0, loop_probe_serial=0.0, shade_fwd=0.0,
+               shade_bwd=0.0,
                shade_bwd_serial=0.0, segment_sum=0.0, segment_sum_sorted=0.0,
                brick_trace=0.0, esvo_stackless=0.0, brick_trace_serial=0.0,
                brick_trace_unstaged=0.0, esvo_stackless_multi=0.0,
@@ -5448,33 +5725,9 @@ def main():
         f"int32 and float32 of 16,384 rows; the one-hot product of 4,096 rows; "
         f"along rows for 8 to 16,384 rows; along lanes)")
 
-    loop_x = torch.linspace(0, 1, 512 * 128, device=dev).reshape(512, 128)
-    loop_table = torch.from_numpy(np.random.default_rng(8).random(
-        (512, 128), dtype=np.float32)).to(dev)
-    loop_plain_ms = {}
-    for iters, rows in ((64, 0), (2048, 0), (64, 512), (2048, 512)):
-        got = gather.loop_probe(loop_x, loop_table, iters, 8, rows)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = gather.loop_probe_plain(loop_x, loop_table, iters, 8, rows,
-                                       gather.LOOP_FLOAT)
-        torch.cuda.synchronize()
-        loop_plain_ms[(iters, rows)] = (time.perf_counter() - t0) * 1e3
-        what = f"loop_probe float (512,128), {iters} trips, gather rows {rows}"
-        err["loop_probe"] = max(err["loop_probe"], compare_tensors(
-            (got,), (want,), ("x",), what))
-    int_table = torch.arange(16384 * 128, dtype=torch.int32,
-                             device=dev).reshape(16384, 128)
-    int_idx = probe_idx((8, 128), 16384, dev)
-    got = gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
-    want = gather.loop_probe_plain(int_idx, int_table, 256, 0, 16384,
-                                   gather.LOOP_INT)
-    torch.cuda.synchronize()
-    compare_tensors((got,), (want,), ("acc",), "loop_probe int")
-    say("[parity] loop_probe: kernel == plain bitwise, float mode (512,128) at "
-        "64 and 2048 trips of 8 steps, without and with a 512-row gather each "
-        "trip; integer mode (8,128) summing 256 gathered rows of a "
-        "(16384,128) table")
+    loop_inp = loop_inputs(dev)
+    loop_x, loop_table = loop_inp["x"], loop_inp["table"]
+    loop_plain_ms = loop_parity(loop_inp, err)
 
     # ---- 4. the depth-10 SVO -------------------------------------------------
     depth, res = 10, 1024
@@ -5957,9 +6210,8 @@ def main():
     rowread.rowread_rows(table, rows8)
     for _what, kernel_call, _plain in cases:
         kernel_call()
-    loop_out = [gather.loop_probe(loop_x, loop_table, iters, 8, rows)
-                for iters, rows in loop_plain_ms]
-    gather.loop_probe(int_idx, int_table, 256, 0, 16384, gather.LOOP_INT)
+    loop_out = [gather.loop_probe(*loop_call(loop_inp, case)) for case in LOOP_TIMED]
+    gather.loop_probe_serial(*loop_call(loop_inp, (2048, 0)))
     shade_cuda.segment_sum_sorted(seg_cot, keys, order, n_leaves)
     traverse_cuda.trace_cuda_serial(svo, o, d)
     tile_cuda.tile_walk_serial(*main_args)
@@ -5993,6 +6245,7 @@ def main():
                           **brick_cuda.form_launches)
     take_launches = gather.launches["take"]
     loop_launches = gather.launches["loop_probe"]
+    first_launches["loop_probe_serial"] = gather.launches["loop_probe_serial"]
     sorted_launches = shade_cuda.launches["segment_sum_sorted"]
     if (dda_launches != 1 or row_launches != 3 or take_launches != len(cases)
             or loop_launches != 5 or sorted_launches != 1
@@ -6007,13 +6260,13 @@ def main():
                                       level_queue_serial=0, esvo_stackless_serial=1,
                                       esvo_stackless_lod_serial=1,
                                       esvo_stackless_multi_serial=1,
-                                      brick_trace_lod_serial=1)
+                                      brick_trace_lod_serial=1, loop_probe_serial=1)
             or any(brick_cuda.launches.values())
             or traverse_cuda.launches or tile_cuda.launches
             or tile_cuda.candidates_launches or tile_cuda.candidates_mapped_launches
             or shade_cuda.launches["shade_bwd"]):
         raise AssertionError("the probes did not launch their kernels")
-    if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out):
+    if not all(bool(((x >= 0) & (x < 1.001)).all()) for x in loop_out[:-1]):
         raise AssertionError("loop_probe: a fraction left [0, 1)")
     if not bool(torch.isfinite(dda_out[2]).all()):
         raise AssertionError("brick_dda16: non-finite t_cur")
@@ -6303,6 +6556,7 @@ def main():
         "row_old_path": lambda: rowread_rows_old_path(table, rows8),
         "row": lambda: rowread.rowread_rows(table, rows8),
         "row_library": lambda: torch.index_select(table, 0, rows8),
+        "take_old_path": lambda: take_1d_old_path(take_table, take_idx),
         "take": lambda: gather.take_1d(take_table, take_idx),
         "take_library": lambda: torch.index_select(take_table, 0, take_idx_flat)})
     t.update({f"{name}_turns": v for name, v in turns.items()})
@@ -6314,6 +6568,7 @@ def main():
     err["take"] = max(err["take"], compare_tensors(
         (got,), (big_table[big_idx.long()],), ("take_1d",), "take_1d, full size"))
     turns = in_turns({
+        "take_full_old_path": lambda: take_1d_old_path(big_table, big_idx),
         "take_full": lambda: gather.take_1d(big_table, big_idx),
         "take_full_library": lambda: torch.index_select(big_table, 0, big_idx)})
     t.update({f"{name}_turns": v for name, v in turns.items()})
@@ -6399,12 +6654,12 @@ def main():
     t["take_onehot"] = cuda_ms(lambda: gather.take_onehot(hot_table, hot_idx), 50, 3)
     t["take_onehot_plain"] = cuda_ms(lambda: gather.onehot_take_plain(
         hot_table, hot_idx), 20, 2)
-    for iters, rows in loop_plain_ms:
-        t[f"loop_{iters}_{rows}"] = cuda_ms(lambda: gather.loop_probe(
-            loop_x, loop_table, iters, 8, rows), 20, 2)
+    # both forms of the loop probe in turns, three rounds of 20
+    t.update(in_turns(loop_variants(loop_inp), rounds=3, reps=20))
     m = {k: med_p80(v) for k, v in t.items()}
-    slope = {rows: (m[f"loop_2048_{rows}"][0] - m[f"loop_64_{rows}"][0]) / 1984 * 1e3
-             for rows in (0, 512)}
+    slope = {(form, rows): (m[f"{form} (2048, {rows})"][0]
+                            - m[f"{form} (64, {rows})"][0]) / 1984 * 1e3
+             for form in ("loop", "loop_serial") for rows in (0, 512)}
     say(f"[timing] {card}: per-ray frame median {m['frame'][0]:.4f} ms (p80 "
         f"{m['frame'][1]:.4f}, n=50; again after the tile frame "
         f"{m['frame_again'][0]:.4f}, p80 {m['frame_again'][1]:.4f}) = "
@@ -6434,7 +6689,8 @@ def main():
         f"{m['nothing_turns'][0]:.4f}, rowread rows through the launch path as "
         f"it stood before {m['row_old_path_turns'][0]:.4f}, through the launcher "
         f"{m['row_turns'][0]:.4f}, index_select {m['row_library_turns'][0]:.4f}; "
-        f"take_1d {m['take_turns'][0]:.4f}, its index_select "
+        f"take_1d {m['take_turns'][0]:.4f} (through the launch path as it stood "
+        f"before {m['take_old_path_turns'][0]:.4f}), its index_select "
         f"{m['take_library_turns'][0]:.4f}")
 
     say(f"[timing] {card}: per-ray fwd+bwd step median {m['step'][0]:.4f} ms "
@@ -6465,19 +6721,28 @@ def main():
         f"ms, table[idx] {m['take_plain'][0]:.4f}, index_select "
         f"{m['take_library'][0]:.4f} (n=50); take_onehot (8,128) of 4,096 rows "
         f"{m['take_onehot'][0]:.4f}, one_hot @ table "
-        f"{m['take_onehot_plain'][0]:.4f} (n=20); loop_probe (512,128), 8 steps a "
-        f"trip: 64 trips {m['loop_64_0'][0]:.4f} ms, 2048 trips "
-        f"{m['loop_2048_0'][0]:.4f}, slope {slope[0]:.4f} us a trip; with a "
-        f"512-row gather a trip: {m['loop_64_512'][0]:.4f} and "
-        f"{m['loop_2048_512'][0]:.4f}, slope {slope[512]:.4f} us a trip "
-        f"(n=20); plain loop of 2048 trips {loop_plain_ms[(2048, 0)]:.1f} ms, "
-        f"with the gather {loop_plain_ms[(2048, 512)]:.1f} (n=1)")
+        f"{m['take_onehot_plain'][0]:.4f} (n=20)")
+    say(f"[timing] {card}: loop_probe (512,128), 8 steps a trip, in turns "
+        f"(three rounds of 20), the ranged form against its first form "
+        f"(loop_probe_serial): " + ", ".join(
+            f"{c[0]} trips{' with a 512-row gather a trip' if c[1] else ''} "
+            f"{m[f'loop {c}'][0]:.4f} ms against {m[f'loop_serial {c}'][0]:.4f}"
+            for c in LOOP_TIMED[:4])
+        + f"; slope {slope[('loop', 0)]:.4f} us a trip against "
+        f"{slope[('loop_serial', 0)]:.4f}, with the gather "
+        f"{slope[('loop', 512)]:.4f} against {slope[('loop_serial', 512)]:.4f}; "
+        f"integer mode (8,128), 256 trips {m['loop int'][0]:.4f} against "
+        f"{m['loop_serial int'][0]:.4f}; plain loop of 2048 trips "
+        f"{loop_plain_ms[(2048, 0)]:.1f} ms, with the gather "
+        f"{loop_plain_ms[(2048, 512)]:.1f}, integer {loop_plain_ms['int']:.1f} (n=1)")
 
     say(f"[timing] {card}: esvo_trace {m['esvo_turns'][0]:.4f} ms against its "
         f"first form {m['esvo_first_turns'][0]:.4f} (in turns, three rounds of "
         f"50); take_1d at the main path's size ({big_table.shape[0]} float32 "
         f"entries, {big_idx.shape[0]} int32 indices) {m['take_full_turns'][0]:.4f} "
-        f"ms against index_select {m['take_full_library_turns'][0]:.4f} (in turns)")
+        f"ms (through the launch path as it stood before "
+        f"{m['take_full_old_path_turns'][0]:.4f}) against index_select "
+        f"{m['take_full_library_turns'][0]:.4f} (in turns)")
     for route in route_calls:
         f, st = m[f"{route}_frame"], m[f"{route}_step"]
         say(f"[timing] {card}: BENCH_PATH={route}: fwd median {f[0]:.4f} ms (p80 "
@@ -6511,38 +6776,53 @@ def main():
     # Each part of one rowread_rows call alone, a few thousand calls back to
     # back without waiting for the card (its kernel is shorter than any of
     # them, so the queue never fills), beside the parts the path had before
-    # _launch.py and beside index_select, which does the same in C++.
+    # _launch.py and before the launcher, and beside index_select, which does
+    # the same in C++; three rounds, each part in turn, the median.
     kern = rowread._ROWREAD
     specs = (("table", table, torch.int32, (64, 128)),
              ("indices", rows8, torch.int32, (8,)))
     row_out = torch.empty((8, 128), dtype=torch.int32, device=dev)
     row_fn, raw_stream = kern._fn, torch._C._cuda_getCurrentRawStream
+    row_ctypes = _build.tile_lib().rowread
     row_args = (table.data_ptr(), 64, 128, rowread.MODE_ROWS, None, 0,
                 rows8.data_ptr(), 8, row_out.data_ptr(), 8)
 
     def device_context():
         with torch.cuda.device(dev):
             pass
-    w = {
-        "an empty call": host_us(lambda: None),
-        "checks": host_us(lambda: kern.check(dev, specs)),
-        "library lookup (before)": host_us(_build.tile_lib),
-        "torch.empty": host_us(lambda: torch.empty(
-            (8, 128), dtype=torch.int32, device=dev)),
-        "device context (before)": host_us(device_context),
-        "current_device (now)": host_us(torch.cuda.current_device),
-        "Stream object (before)": host_us(
-            lambda: torch.cuda.current_stream(dev).cuda_stream),
-        "raw stream (now)": host_us(lambda: raw_stream(0)),
-        "bare ctypes call": host_us(lambda: row_fn(*row_args, raw_stream(0))),
-        "launcher call": host_us(lambda: kern(dev, *row_args)),
-        "rowread_rows (before)": host_us(lambda: rowread_rows_old_path(table, rows8)),
-        "rowread_rows (now)": host_us(lambda: rowread.rowread_rows(table, rows8)),
-        "index_select": host_us(lambda: torch.index_select(table, 0, rows8)),
-        "take_1d (now)": host_us(lambda: gather.take_1d(take_table, take_idx)),
-    }
-    say(f"[wrapper] {card}: host us a call, 3000 calls each, not waiting for "
-        f"the card: " + ", ".join(f"{k} {v:.2f}" for k, v in w.items()))
+    w = host_parts({
+        "an empty call": lambda: None,
+        "checks": lambda: kern.check(dev, specs),
+        "library lookup (before)": _build.tile_lib,
+        "torch.empty": lambda: torch.empty((8, 128), dtype=torch.int32, device=dev),
+        "device context (before)": device_context,
+        "current_device (before)": torch.cuda.current_device,
+        "_cuda_getDevice (now)": torch._C._cuda_getDevice,
+        "Stream object (before)": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream (now)": lambda: raw_stream(0),
+        "bare ctypes call (before)": lambda: row_ctypes(*row_args, raw_stream(0)),
+        "bare launcher call (now)": lambda: row_fn(*row_args, raw_stream(0)),
+        "Kernel call (now)": lambda: kern(dev, *row_args),
+        "rowread_rows (before)": lambda: rowread_rows_old_path(table, rows8),
+        "rowread_rows (now)": lambda: rowread.rowread_rows(table, rows8),
+        "index_select": lambda: torch.index_select(table, 0, rows8),
+        "take_1d (8,128) of 16,384 rows (now)": lambda: gather.take_1d(take_table, take_idx),
+    })
+    say(f"[wrapper] {card}: rowread_rows, host us a call, 3000 calls each, not "
+        f"waiting for the card, median of three rounds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in w.items()))
+    w_take = take_parts(dev, big_table, big_idx)
+    say(f"[wrapper] {card}: take_1d at the main path's size ({big_table.shape[0]} "
+        f"float32 entries, {big_idx.shape[0]} int32 indices), its parts before "
+        f"and now, host us a call, 3000 calls each, median of three rounds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in w_take.items()))
+    w_main = {"shade_fwd": host_us_alone(lambda: shade_cuda.shade_fwd(*shade_args)),
+              "tile_walk (the main walk)": host_us_alone(
+                  lambda: tile_cuda.tile_walk(*main_args)),
+              "rowread_rows": host_us_alone(lambda: rowread.rowread_rows(table, rows8))}
+    say(f"[wrapper] {card}: wrappers on the main path, host us of one call issued "
+        f"to an idle card (median of 200): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in w_main.items()))
 
     # profiler passes of 20 runs each: device time by kernel. Only the
     # kernels' own events are summed; an operator's row repeats the time of
@@ -6813,9 +7093,19 @@ def main():
     _, probe_rows, _n = profile_kernels(
         "probe kernels alone (brick_dda16, rowread, take_1d, loop_probe at 2048 "
         "trips, and index_select beside them)", probe_round, "round", 5)
-    alone["loop_probe"] = kernel_us(probe_rows, "loop_probe_kernel")[0]
-    say(f"[profile] {card}: loop_probe (512,128), 2048 trips of 8 steps, "
-        f"{us_or(alone['loop_probe'])} us alone")
+    # the loop probe's two forms alone on each timed case, one call of each a
+    # round (the first form's kernel is loop_probe_kernel)
+    for case in LOOP_TIMED:
+        args = loop_call(loop_inp, case)
+        _, rows, _n = profile_kernels(
+            f"loop_probe {case}, the ranged form and its first form", lambda a=args: (
+                gather.loop_probe(*a), gather.loop_probe_serial(*a)), "round", 2)
+        alone[("loop", case)], alone[("loop_serial", case)] = kernel_us(
+            rows, "loop_probe_ranged_kernel", "loop_probe_kernel")
+    say(f"[profile] {card}: loop_probe (512,128), 8 steps a trip, us alone, the "
+        f"ranged form against its first form: " + ", ".join(
+            f"{c} {us_or(alone[('loop', c)])} against {us_or(alone[('loop_serial', c)])}"
+            for c in LOOP_TIMED))
     # the same kernel in its one-hot mode, on its own so the two do not merge
     profile_kernels("take in its one-hot mode alone", lambda: gather.take_onehot(
         hot_table, hot_idx), "call", 1)
@@ -6917,8 +7207,25 @@ def main():
         f"{m['segment_sum'][0]:.4f} for the sort-free form and "
         f"{m['segment_sorted_whole'][0]:.4f} for the sorted form with its sort")
     take_bound = bound(nbytes(take_table, take_idx) + take_idx.numel() * 4, 0)
-    loop_bound = bound(2 * nbytes(loop_x),
-                       loop_x.numel() * 2048 * 8 * OPS_LOOP_ELEM)
+    # the loop probe's floors at the SM clock that nvidia-smi reads while the
+    # first form runs (the card idles at a lower one); the table's old bound,
+    # its operations at 67 TFLOP/s, beside them
+    clock_now, clock_max = sm_clock_mhz(
+        lambda: gather.loop_probe_serial(*loop_call(loop_inp, (2048, 0))), 1000)
+    floors = loop_floors(loop_x.numel(), 2048, 8, clock_now)
+    loop_old_bound = bound(2 * nbytes(loop_x),
+                           loop_x.numel() * 2048 * 8 * LOOP_STEP_ISSUES)
+    say(f"[bound] {card}: loop_probe (512,128), 2048 trips of 8 steps without a "
+        f"gather, at the SM clock read under load, {clock_now:.0f} MHz (its "
+        f"maximum {clock_max:.0f}): the issue floor {floors['issue_ms']:.5f} ms "
+        f"({LOOP_STEP_ISSUES} FP32 instructions a step, {H100_SMS} SMs of "
+        f"{FP32_LANES_AN_SM} lanes a cycle), the latency floor "
+        f"{floors['latency_ms']:.5f} ms ({LOOP_STEP_CHAIN} dependent FP32 "
+        f"operations a step, {FP32_LATENCY_CYCLES} cycles each): the "
+        f"{floors['binds']} floor binds; the ranged form "
+        f"{us_or(alone[('loop', (2048, 0))])} us alone, its first form "
+        f"{us_or(alone[('loop_serial', (2048, 0))])}; the same operations at "
+        f"{PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s {loop_old_bound[0]:.5f} ms")
     src = "raytracingtest_tpu_torch/csrc/"
     kernels = [
         dict(name="esvo_trace", route="cuda", source=src + "esvo_trace.cu",
@@ -6997,12 +7304,22 @@ def main():
              us_alone_full_size=alone["take"][0],
              library_us_alone_full_size=alone["take"][1],
              bound_ms_full_size=take_full_bound[0]),
-        dict(name="loop_probe", route="cuda", source=src + "shade.cu",
-             replaces="scratch/probe2.py:80", path="gather.loop_probe",
-             launches=loop_launches, max_abs_err=err["loop_probe"],
-             ms=m["loop_2048_0"][0], plain_ms=loop_plain_ms[(2048, 0)],
-             bound_ms=loop_bound[0], bound_by=loop_bound[1], library_ms=None,
-             us_alone=alone["loop_probe"]),
+        *(dict(name=kname, route="cuda", source=src + "shade.cu",
+               replaces="scratch/probe2.py:80", path=path, launches=launches,
+               max_abs_err=err[kname], ms=m[f"{form} (2048, 0)"][0],
+               plain_ms=loop_plain_ms[(2048, 0)], bound_ms=floors["bound_ms"],
+               bound_by="operations", library_ms=None,
+               us_alone=alone[(form, (2048, 0))], floor_binds=floors["binds"],
+               issue_floor_ms=floors["issue_ms"], latency_floor_ms=floors["latency_ms"],
+               sm_clock_mhz=clock_now, bound_ms_at_67_tflops=loop_old_bound[0],
+               **{f"ms {c}": m[f"{form} {c}"][0] for c in LOOP_TIMED},
+               **{f"us_alone {c}": alone[(form, c)] for c in LOOP_TIMED})
+          for kname, form, path, launches in (
+              ("loop_probe", "loop", "gather.loop_probe (the ranged form)",
+               loop_launches),
+              ("loop_probe_serial", "loop_serial",
+               "gather.loop_probe_serial (the first form, off every path)",
+               first_launches["loop_probe_serial"]))),
         dict(name="shade_fwd", route="cuda", source=src + "shade.cu",
              replaces="raytracingtest_tpu/diff.py:35",
              path="diff.loss_and_grads_cuda",

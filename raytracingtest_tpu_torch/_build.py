@@ -1,6 +1,7 @@
-"""Build and load the port's native libraries (ctypes, plain C interfaces).
+"""Build and load the port's native libraries (plain C interfaces) and the
+launcher that calls them.
 
-Seven libraries, each built on first use into
+Eight libraries, each built on first use into
 ``build/raytracingtest_tpu_torch/`` at the root of the checkout:
 
   * ``noise``      — ``csrc/noise.cpp`` with g++, the threaded host noise the
@@ -13,7 +14,7 @@ Seven libraries, each built on first use into
                      walker and its first form, the brick DDA and the row
                      read;
   * ``shade``      — ``csrc/shade.cu`` with nvcc for ``sm_90a``: the gathers,
-                     the loop probe, fused shading, its backward (and that
+                     the loop probe (and its first form), fused shading, its backward (and that
                      backward's first form), the
                      deterministic segment sum (sort-free, and its earlier
                      sorted form) and the emission-absorption compositing of
@@ -46,7 +47,12 @@ Seven libraries, each built on first use into
                      ``svo_level_pass``, and the first forms
                      ``svo_level_up`` and ``svo_parent_ptr``)
                      over the scene library ``csrc/scene.cuh``, and
-                     ``scene_eval``, that library at given points.
+                     ``scene_eval``, that library at given points;
+  * ``launch``     — ``csrc/launch.cpp`` with g++ against this interpreter's
+                     headers: the CPython extension ``rtt_launch`` through
+                     which ``_launch.Kernel`` calls the CUDA libraries' entry
+                     points (their ctypes functions give the address and the
+                     argument types; the call skips ctypes).
 
 ``csrc/brick_dda.cuh`` holds the brick DDA that ``tile_walk.cu`` and
 ``brick_trace.cu`` share.
@@ -69,9 +75,12 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -86,6 +95,10 @@ NOISE_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC",
 # library's build log (build_log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the launcher: a CPython extension for this interpreter (its headers' path,
+# which names its version, is part of the key)
+LAUNCH_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared",
+                "-I" + sysconfig.get_paths()["include"]]
 
 _lock = threading.Lock()      # guards the two tables below
 _build_locks: dict = {}       # one lock a library, so builds run side by side
@@ -149,16 +162,25 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def _load(name: str, compiler_fn, flags: list, source: str, declare):
+def _load(name: str, compiler_fn, flags: list, source: str, declare,
+          opener=ctypes.CDLL):
     with _lock:
         build_lock = _build_locks.setdefault(name, threading.Lock())
     with build_lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_build(name, compiler_fn(), flags, source))
+            lib = opener(_build(name, compiler_fn(), flags, source))
             declare(lib)
             _libs[name] = lib
         return lib
+
+
+def _import_launcher(path: str):
+    loader = importlib.machinery.ExtensionFileLoader("rtt_launch", path)
+    spec = importlib.util.spec_from_file_location("rtt_launch", path, loader=loader)
+    module = importlib.util.module_from_spec(spec)
+    loader.exec_module(module)
+    return module
 
 
 def _declare_noise(lib):
@@ -193,7 +215,8 @@ def _declare_tile(lib):
 def _declare_shade(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.take.argtypes = [p, p, p, i, i, i, i, p]
-    lib.loop_probe.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    for fn in (lib.loop_probe, lib.loop_probe_serial):
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.shade_fwd.argtypes = [p, p, p, p, p, i, p, f, f, p, p, i, p]
     for fn in (lib.shade_bwd, lib.shade_bwd_serial):
         fn.argtypes = [p, p, p, p, p, p, i, p, f, f, p, p, i, p]
@@ -201,9 +224,9 @@ def _declare_shade(lib):
     lib.segment_sum_sorted.argtypes = [p, p, p, i, i, p, p, p, p]
     lib.composite_fwd.argtypes = [p] * 7 + [i, p, f, f, f, i, p, i, p]
     lib.composite_bwd.argtypes = [p] * 8 + [i, p, f, f, f, i, p, i, p]
-    for fn in (lib.take, lib.loop_probe, lib.shade_fwd, lib.shade_bwd,
-               lib.shade_bwd_serial, lib.segment_sum, lib.segment_sum_sorted,
-               lib.composite_fwd, lib.composite_bwd):
+    for fn in (lib.take, lib.loop_probe, lib.loop_probe_serial, lib.shade_fwd,
+               lib.shade_bwd, lib.shade_bwd_serial, lib.segment_sum,
+               lib.segment_sum_sorted, lib.composite_fwd, lib.composite_bwd):
         fn.restype = i
 
 
@@ -347,6 +370,14 @@ def svo_lib():
                  os.path.join(_CSRC, "svo_build.cu"), _declare_svo)
 
 
+def launch_lib():
+    """The launcher, the CPython extension ``rtt_launch`` (built with g++ on
+    first call): ``bind(address, kinds)``."""
+    return _load("launch", lambda: "g++", LAUNCH_FLAGS,
+                 os.path.join(_CSRC, "launch.cpp"), lambda module: None,
+                 _import_launcher)
+
+
 def build_all() -> dict:
     """Build and load every library at once, one thread (and so one
     compiler process) each; returns seconds by library name. The first
@@ -362,7 +393,7 @@ def build_all() -> dict:
     libs = {"esvo_trace": trace_lib, "tile_walk": tile_lib,
             "shade": shade_lib, "tile_candidates": candidates_lib,
             "brick_trace": brick_lib, "svo_build": svo_lib,
-            "noise": noise_lib}
+            "noise": noise_lib, "launch": launch_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in libs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -2,8 +2,11 @@
 
 A ``Kernel`` is made once for each C entry point, when its wrapper's module
 is imported; that builds nothing. Its first launch asks ``_build`` for the
-library (which compiles it if need be) and keeps the ctypes function, with
-its ``argtypes``, for every later one. A wrapper then does three things:
+library (which compiles it if need be) and binds the entry point in the
+launcher (``csrc/launch.cpp``, also built on first use): the ctypes
+function gives its address and, by its ``argtypes``, the kind of each
+argument; the calls then go through the launcher, not ctypes. A wrapper
+then does three things:
 
     kernel.check(device, ((name, tensor, dtype, shape), ...))
     out = torch.empty(...)
@@ -17,12 +20,39 @@ the current stream of the tensors' device (no ``torch.cuda.Stream`` object is
 built), switches the current device only when the tensors lie on another
 one, and raises ``RuntimeError`` on the error code the C function returns; the
 wrapper counts the launch after it. A build that fails raises from
-``_build``; nothing falls back to another path.
+``_build``, the launcher's too; nothing falls back to another path, ctypes
+included.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from raytracingtest_tpu_torch import _build
+
+# the launcher's letter for each argument type the libraries declare
+# (ctypes.c_longlong is ctypes.c_long where the two have one size)
+KINDS = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l",
+         ctypes.c_float: "f"}
+
+
+def kinds(argtypes) -> str:
+    """The launcher's kinds of a ctypes function's `argtypes`."""
+    try:
+        return "".join(KINDS[t] for t in argtypes)
+    except KeyError as missing:
+        raise TypeError(f"the launcher takes no argument of {missing}") from None
+
+
+def bind(cfn):
+    """The launcher's call of the declared ctypes function `cfn` (an entry
+    point returning an int): same arguments, same result."""
+    if cfn.restype is not ctypes.c_int:
+        raise TypeError(f"{cfn.__name__} returns {cfn.restype}, not an int")
+    return _build.launch_lib().bind(ctypes.cast(cfn, ctypes.c_void_p).value,
+                                    kinds(cfn.argtypes))
 
 
 def check_tensors(device, specs) -> None:
@@ -58,9 +88,11 @@ class Kernel:
         check_tensors(device, specs)
 
     def _resolve(self):
-        self._fn = getattr(self._lib_fn(), self.name)
+        self._fn = bind(getattr(self._lib_fn(), self.name))
         self._raw_stream = torch._C._cuda_getCurrentRawStream
-        self._current_device = torch.cuda.current_device
+        # torch.cuda.current_device without its Python wrapper: a kernel's
+        # tensors lie on the card, so CUDA is initialised by now
+        self._current_device = torch._C._cuda_getDevice
         return self._fn
 
     def __call__(self, device, *args) -> None:

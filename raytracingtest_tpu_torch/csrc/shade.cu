@@ -17,7 +17,12 @@
 //                 pallas_loop_slope (:80): a loop of `iters` trips inside one
 //                 kernel, `elem` multiply-add-fract steps a trip, with or
 //                 without a gather each trip (float mode), or a sum of
-//                 gathered rows (integer mode).
+//                 gathered rows (integer mode). Its ranged form: floorf only
+//                 where a step's input may lie outside [0, 1], and the
+//                 integer mode's loads issued eight trips ahead (below).
+//   loop_probe_serial  the first form of loop_probe, floorf in every step
+//                 and one load a trip. Kept as the ranged form's check and
+//                 yardstick; launched once in a probe run.
 //   shade_fwd     replaces raytracingtest_tpu/diff.py::gather_voxel_params
 //                 (:35) with shade_diff (:132): the ray's parameter row and
 //                 Lambert shading over the sky, fused.
@@ -54,9 +59,14 @@
 // the read-only path.
 //
 // What bounds them on this card. take: the launch; its probes move 4 KB.
-// loop_probe: a chain of dependent float32 operations, 4*elem a trip, that
-// no other thread can shorten, so its time is trips times the chain's
-// latency. shade_fwd and shade_bwd: bytes. A ray reads 16 B and one 28 B
+// loop_probe: each element's chain of dependent steps, which no other thread
+// can shorten, and the issue slots of its instructions: at (512, 128) the
+// card holds 65,536 threads, some 4 warps a scheduler, so a step's four
+// instructions (multiply, add, floor, subtract; --fmad=false keeps the first
+// two apart) cost a scheduler 16 issue cycles against a chain of about 12
+// cycles in the ranged form. The first form's chain runs through floorf, an
+// FRND, which neither runs at the FP32 pipe's latency nor at its rate.
+// shade_fwd and shade_bwd: bytes. A ray reads 16 B and one 28 B
 // parameter row scattered over three tensors and writes 12 B (forward) or
 // reads 28 B + 12 B and writes 28 B (backward), against some 40 float
 // operations; reading the three parameter tensors in place saves writing and
@@ -209,6 +219,100 @@ loop_probe_kernel(const void* __restrict__ x, const void* __restrict__ table,
       acc += take_row(t, table_rows, cols, j, lane);
     }
     ((int*)out)[i] = acc;
+  }
+}
+
+// The float step in two forms of the same bits. step_any takes any v: w =
+// v*1.000001 + 0.5 (two roundings), less floorf(w); it leaves v in [0, 1] or
+// NaN (a tiny negative w gives 1.0, an infinity NaN). step_unit takes v in
+// [0, 1] or NaN: there w lies in [0.5, 1.500001], floor(w) is 1 exactly when
+// w >= 1, and w - 1 is exact (Sterbenz), so the step is w less 0 or 1. w is a
+// monotone function of v, and w >= 1 exactly when v >= LOOP_WRAP_AT, so the
+// 0 or 1 comes from v (one FSET) beside the multiply: the step's chain is the
+// multiply, the add and the subtract. A NaN compares false and stays NaN.
+// tests/test_torch_gather.py checks both claims on every float32 in range.
+constexpr float LOOP_WRAP_AT = 0x1.ffffdep-2f;  // 0.4999995f, 0x3effffef
+
+__device__ __forceinline__ float step_any(float v) {
+  v = v * 1.000001f + 0.5f;
+  return v - floorf(v);
+}
+
+__device__ __forceinline__ float step_unit(float v) {
+  float wrap;
+  asm("set.ge.f32.f32 %0, %1, %2;" : "=f"(wrap) : "f"(v), "f"(LOOP_WRAP_AT));
+  return (v * 1.000001f + 0.5f) - wrap;
+}
+
+template <int N>
+__device__ __forceinline__ float steps_unit(float v) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) v = step_unit(v);
+  return v;
+}
+
+// `count` steps of step_unit: eight a trip of the loop, then the rest.
+__device__ __forceinline__ float steps_unit(float v, long long count) {
+  for (; count >= 8; count -= 8) v = steps_unit<8>(v);
+  if (count & 4) v = steps_unit<4>(v);
+  if (count & 2) v = steps_unit<2>(v);
+  if (count & 1) v = step_unit(v);
+  return v;
+}
+
+// (x + k) mod rows, x + k wrapping as the first form's int sum does.
+__device__ __forceinline__ int loop_row(unsigned x, int k, int rows) {
+  const int j = (int)(x + (unsigned)k) % rows;
+  return j < 0 ? j + rows : j;
+}
+
+// loop_probe_kernel's function, bit for bit, in its ranged form. The float
+// loop takes step_any where v may lie outside [0, 1] (the first step, and
+// the first step after each gather: the table may hold anything) and
+// step_unit everywhere else. The integer loop's rows do not depend on the
+// sum: it issues eight trips' loads before it adds them (int32 words, added
+// modulo 2^32 in any order, give the same sum), and it runs in blocks of one
+// warp (launch_loop_probe). The float gather's row depends on v, so its load
+// stays on the chain.
+__global__ void __launch_bounds__(BLOCK)
+loop_probe_ranged_kernel(const void* __restrict__ x,
+                         const void* __restrict__ table, void* __restrict__ out,
+                         int n, int cols, int table_rows, int iters, int elem,
+                         int gather_rows, int mode) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int lane = i % cols;
+  if (mode == LOOP_FLOAT) {
+    const float* t = (const float*)table;
+    float v = ((const float*)x)[i];
+    if (gather_rows > 0) {
+      for (int k = 0; k < iters; ++k) {
+        if (elem > 0) v = steps_unit(step_any(v), elem - 1);
+        const int j = __float_as_int(v) & (gather_rows - 1);
+        v = v + take_row(t, table_rows, cols, j, lane) * 1e-9f;
+      }
+    } else if (iters > 0 && elem > 0) {
+      v = steps_unit(step_any(v), (long long)iters * elem - 1);
+    }
+    ((float*)out)[i] = v;
+  } else {
+    const int* t = (const int*)table;
+    const unsigned base = (unsigned)((const int*)x)[i];
+    unsigned acc = 0;
+    int k = 0;
+    for (; k <= iters - 8; k += 8) {
+      int row[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        row[u] = take_row(t, table_rows, cols, loop_row(base, k + u, gather_rows),
+                          lane);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += (unsigned)row[u];
+    }
+    for (; k < iters; ++k)
+      acc += (unsigned)take_row(t, table_rows, cols,
+                                loop_row(base, k, gather_rows), lane);
+    ((int*)out)[i] = (int)acc;
   }
 }
 
@@ -817,9 +921,10 @@ extern "C" int take(const void* table, const void* idx, void* out, int n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int loop_probe(const void* x, const void* table, void* out, int n,
-                          int cols, int table_rows, int iters, int elem,
-                          int gather_rows, int mode, void* stream) {
+static int launch_loop_probe(bool ranged, const void* x, const void* table,
+                             void* out, int n, int cols, int table_rows,
+                             int iters, int elem, int gather_rows, int mode,
+                             void* stream) {
   if (mode < LOOP_FLOAT || mode > LOOP_INT || cols < 1 || iters < 0 ||
       elem < 0 || gather_rows < 0)
     return (int)cudaErrorInvalidValue;
@@ -827,10 +932,30 @@ extern "C" int loop_probe(const void* x, const void* table, void* out, int n,
       (table == nullptr || table_rows < 1 || gather_rows < 1))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    loop_probe_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+    // the ranged form's integer loop in blocks of one warp: the probe's 1,024
+    // elements then spread over 32 SMs, not 4, and so do their scattered
+    // loads (every lane of a warp reads another row)
+    const int threads = ranged && mode == LOOP_INT ? 32 : BLOCK;
+    auto kernel = ranged ? loop_probe_ranged_kernel : loop_probe_kernel;
+    kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         x, table, out, n, cols, table_rows, iters, elem, gather_rows, mode);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int loop_probe(const void* x, const void* table, void* out, int n,
+                          int cols, int table_rows, int iters, int elem,
+                          int gather_rows, int mode, void* stream) {
+  return launch_loop_probe(true, x, table, out, n, cols, table_rows, iters,
+                           elem, gather_rows, mode, stream);
+}
+
+extern "C" int loop_probe_serial(const void* x, const void* table, void* out,
+                                 int n, int cols, int table_rows, int iters,
+                                 int elem, int gather_rows, int mode,
+                                 void* stream) {
+  return launch_loop_probe(false, x, table, out, n, cols, table_rows, iters,
+                           elem, gather_rows, mode, stream);
 }
 
 extern "C" int shade_fwd(const void* hit_leaf, const void* d,

@@ -13,14 +13,17 @@ a trip of a loop inside a kernel costs:
   * ``take_along_lane``  ``p2c_take_along_lane``: ``out[s,l] = x[s, idx[s,l]]``;
   * ``loop_probe``       ``p1_kernel_loop`` and ``probe2.pallas_loop_slope``
                          (float mode, without and with a gather each trip)
-                         and ``p2e_take_2d_big`` (integer mode).
+                         and ``p2e_take_2d_big`` (integer mode);
+  * ``loop_probe_serial`` the same loop through the kernel's first form.
 
 Two kernels of ``csrc/shade.cu`` serve them, ``take`` (three index modes
 on any 32-bit element, and the one-hot product on float32) and
-``loop_probe``; both read through the row load that
-the shading kernels fetch their parameter rows with. CUDA tensors launch the
-kernel, CPU tensors take the plain version beside it. Indices are clipped to
-the table, in both.
+``loop_probe`` (its ranged form: floor only where a step's input may lie
+outside [0, 1], the integer loop's loads issued eight trips ahead; its
+first form ``loop_probe_serial``, floor in every step); both read through
+the row load that the shading kernels fetch their parameter rows with. CUDA
+tensors launch the kernel, CPU tensors take the plain version beside it.
+Indices are clipped to the table, in both.
 """
 
 from __future__ import annotations
@@ -37,33 +40,45 @@ TAKE_1D, TAKE_ALONG0, TAKE_ALONG_LANE, TAKE_ONEHOT = 0, 1, 2, 3
 LOOP_FLOAT, LOOP_INT = 0, 1
 
 # kernel launches made by this process, by kernel
-launches = {"take": 0, "loop_probe": 0}
+launches = {"take": 0, "loop_probe": 0, "loop_probe_serial": 0}
 
 _TAKE = Kernel("take", shade_lib)
 _LOOP_PROBE = Kernel("loop_probe", shade_lib)
+_LOOP_PROBE_SERIAL = Kernel("loop_probe_serial", shade_lib)
+
+
+def _take_guards(table, idx, mode):
+    """(dtype, shape, indices' shape, rows, cols) of a gather the kernel
+    takes; raises ValueError on any other. One pass: each attribute is read
+    once, and the table's own dtype and shape go on to the check."""
+    dtype, shape, idx_shape = table.dtype, table.shape, idx.shape
+    if dtype not in (_F32, _I32) or table.numel() == 0:
+        raise ValueError(f"table: expected a non-empty float32 or int32 "
+                         f"tensor, got {dtype} {tuple(shape)}")
+    if mode in (TAKE_1D, TAKE_ONEHOT):
+        if len(shape) != 1:
+            raise ValueError(f"table has shape {tuple(shape)}, expected (rows,)")
+        rows, cols = shape[0], 1
+    else:
+        if len(shape) != 2 or len(idx_shape) != 2 or idx_shape[1] != shape[1]:
+            raise ValueError(f"table {tuple(shape)} and indices "
+                             f"{tuple(idx_shape)}: expected (rows, cols) and (n, cols)")
+        if mode == TAKE_ALONG_LANE and idx_shape != shape:
+            raise ValueError("a lane gather takes indices of the table's shape")
+        rows, cols = shape
+    return dtype, shape, idx_shape, rows, cols
 
 
 def _take_kernel(table, idx, mode):
+    dtype, shape, idx_shape, rows, cols = _take_guards(table, idx, mode)
     device = table.device
-    if table.dtype not in (_F32, _I32) or table.numel() == 0:
-        raise ValueError(f"table: expected a non-empty float32 or int32 "
-                         f"tensor, got {table.dtype} {tuple(table.shape)}")
-    _TAKE.check(device, (("table", table, table.dtype, table.shape),
-                         ("indices", idx, _I32, idx.shape)))
-    if mode in (TAKE_1D, TAKE_ONEHOT):
-        if table.dim() != 1:
-            raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows,)")
-        rows, cols = table.shape[0], 1
-    else:
-        if table.dim() != 2 or idx.dim() != 2 or idx.shape[1] != table.shape[1]:
-            raise ValueError(f"table {tuple(table.shape)} and indices "
-                             f"{tuple(idx.shape)}: expected (rows, cols) and (n, cols)")
-        if mode == TAKE_ALONG_LANE and idx.shape != table.shape:
-            raise ValueError("a lane gather takes indices of the table's shape")
-        rows, cols = table.shape
-    out = torch.empty(idx.shape, dtype=table.dtype, device=device)
+    _TAKE.check(device, (("table", table, dtype, shape),
+                         ("indices", idx, _I32, idx_shape)))
+    # the indices' shape, contiguous, on their device: empty_like is the
+    # cheapest call that makes it
+    out = torch.empty_like(idx, dtype=dtype)
     _TAKE(device, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-          idx.numel(), rows, cols, mode)
+          out.numel(), rows, cols, mode)
     launches["take"] += 1
     return out
 
@@ -139,18 +154,17 @@ def loop_probe_plain(x, table, iters, elem, gather_rows, mode):
     return x
 
 
-def _loop_kernel(x, table, iters, elem, gather_rows, mode):
+def _loop_kernel(x, table, iters, elem, gather_rows, mode, kernel=_LOOP_PROBE):
     device = x.device
     specs = [("x", x, _I32 if mode == LOOP_INT else _F32, x.shape)]
     if table is not None:
         specs.append(("table", table, x.dtype, (table.shape[0], x.shape[1])))
-    _LOOP_PROBE.check(device, specs)
+    kernel.check(device, specs)
     out = torch.empty_like(x)
-    _LOOP_PROBE(device, x.data_ptr(), 0 if table is None else table.data_ptr(),
-                out.data_ptr(), x.numel(), x.shape[1],
-                0 if table is None else table.shape[0], iters, elem,
-                gather_rows, mode)
-    launches["loop_probe"] += 1
+    kernel(device, x.data_ptr(), 0 if table is None else table.data_ptr(),
+           out.data_ptr(), x.numel(), x.shape[1],
+           0 if table is None else table.shape[0], iters, elem, gather_rows, mode)
+    launches[kernel.name] += 1
     return out
 
 
@@ -164,6 +178,17 @@ def loop_probe(x, table=None, iters=256, elem=8, gather_rows=0,
     ``(rows, cols)`` `table`. ``LOOP_INT`` (`x` int32): the result is the sum
     over the trips k of ``table[(x + k) mod gather_rows, lane]`` from the
     int32 `table`. Row indices are clipped to the table."""
+    return _loop(_LOOP_PROBE, x, table, iters, elem, gather_rows, mode)
+
+
+def loop_probe_serial(x, table=None, iters=256, elem=8, gather_rows=0,
+                      mode=LOOP_FLOAT):
+    """``loop_probe`` through the kernel's first form (floor in every step,
+    one load a trip), kept as the check and yardstick of its ranged form."""
+    return _loop(_LOOP_PROBE_SERIAL, x, table, iters, elem, gather_rows, mode)
+
+
+def _loop(kernel, x, table, iters, elem, gather_rows, mode):
     if mode not in (LOOP_FLOAT, LOOP_INT) or x.dim() != 2:
         raise ValueError(f"mode {mode} or x of shape {tuple(x.shape)}: expected "
                          f"LOOP_FLOAT or LOOP_INT and a 2-D x")
@@ -181,4 +206,4 @@ def loop_probe(x, table=None, iters=256, elem=8, gather_rows=0,
         table = None
     if x.device.type == "cpu":
         return loop_probe_plain(x, table, iters, elem, gather_rows, mode)
-    return _loop_kernel(x, table, iters, elem, gather_rows, mode)
+    return _loop_kernel(x, table, iters, elem, gather_rows, mode, kernel)

@@ -5,9 +5,15 @@ does with the stream, the device and the error code (against a stand-in for
 the C function); the tile walker's rule for its lanes a ray and the
 checks of its arguments; phase 1's rule for its warps a tile; the brick and
 stackless traces' probe records and the checks of their forms' arguments;
-and the first forms' wrappers on the CPU."""
+and the first forms' wrappers on the CPU. The launcher (``csrc/launch.cpp``)
+builds here too: it calls, with the arguments of every entry point that
+``_build`` declares, a C function of that entry point's parameter types
+that records what it was given."""
 
+import ctypes
 import dataclasses
+import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ KERNELS = {
     "rowread": rowread._ROWREAD,
     "take": gather._TAKE,
     "loop_probe": gather._LOOP_PROBE,
+    "loop_probe_serial": gather._LOOP_PROBE_SERIAL,
     "shade_fwd": shade_cuda._SHADE_FWD,
     "shade_bwd": shade_cuda._SHADE_BWD,
     "shade_bwd_serial": shade_cuda._SHADE_BWD_SERIAL,
@@ -154,6 +161,125 @@ def test_call_switches_device_only_for_another_one(monkeypatch):
     assert entered == [1] and kernel._fn.calls[-1] == (5, 1001)
 
 
+def declared_entry_points():
+    """(library.entry point, argtypes, restype) of every C entry point of the
+    CUDA libraries, from ``_build``'s declarations run on a stand-in."""
+    class StandIn:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, types.SimpleNamespace())
+
+    out = []
+    for lib, declare in (("esvo_trace", _build._declare_trace),
+                         ("tile_walk", _build._declare_tile),
+                         ("shade", _build._declare_shade),
+                         ("tile_candidates", _build._declare_candidates),
+                         ("brick_trace", _build._declare_brick),
+                         ("svo_build", _build._declare_svo)):
+        stand_in = StandIn()
+        declare(stand_in)
+        out += [(f"{lib}.{name}", fn.argtypes, fn.restype)
+                for name, fn in stand_in.fns.items()]
+    return out
+
+
+ENTRY_POINTS = declared_entry_points()
+C_TYPES = {"p": "void*", "i": "int", "l": "long long", "f": "float"}
+
+
+@pytest.fixture(scope="module")
+def echo_lib(tmp_path_factory):
+    """A C library with, for each parameter list of ENTRY_POINTS, a function
+    echo_<kinds> that stores its arguments as doubles in rec[] and returns
+    their count; and echo_pif."""
+    lines = ["#include <stdint.h>", "double rec[64];"]
+    for kinds in sorted({_launch.kinds(a) for _n, a, _r in ENTRY_POINTS} | {"pif"}):
+        params = ", ".join(f"{C_TYPES[c]} a{k}" for k, c in enumerate(kinds))
+        body = " ".join(f"rec[{k}] = (double)" + ("(uintptr_t)" if c == "p" else "")
+                        + f"a{k};" for k, c in enumerate(kinds))
+        lines.append(f"int echo_{kinds}({params}) {{ {body} return {len(kinds)}; }}")
+    src = tmp_path_factory.mktemp("echo") / "echo.c"
+    src.write_text("\n".join(lines) + "\n")
+    so = src.with_suffix(".so")
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", str(so), str(src)],
+                   check=True)
+    return ctypes.CDLL(str(so))
+
+
+def echo(lib, argtypes):
+    fn = getattr(lib, f"echo_{_launch.kinds(argtypes)}")
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def arguments(kinds):
+    """A value of each kind, none repeated: pointers high in the address
+    space (one NULL), negative ints, long longs past 2**32, floats."""
+    return [None if (c, k) == ("p", 1) else {"p": 0x7F00_0000_0000 + 64 * k,
+                                              "i": -1001 * (k + 1), "l": 2**40 + k,
+                                              "f": k + 0.25}[c]
+            for k, c in enumerate(kinds)]
+
+
+@pytest.mark.parametrize("name,argtypes,restype", ENTRY_POINTS,
+                         ids=[e[0] for e in ENTRY_POINTS])
+def test_launcher_passes_every_entry_points_arguments(echo_lib, name, argtypes,
+                                                      restype):
+    """Every argument arrives where the entry point's own type puts it: in
+    the registers and, past them, the stack slots, floats among the others."""
+    assert restype is ctypes.c_int
+    kinds = _launch.kinds(argtypes)
+    values = arguments(kinds)
+    assert _launch.bind(echo(echo_lib, argtypes))(*values) == len(kinds)
+    rec = (ctypes.c_double * 64).in_dll(echo_lib, "rec")
+    assert list(rec[:len(kinds)]) == [float(v or 0) for v in values]
+
+
+def test_launcher_takes_a_buffer_and_refuses_what_ctypes_would_cut(echo_lib):
+    """A pointer may come as a ctypes array, as the phase-1 and row-read
+    wrappers pass their widths and scalars: its address arrives."""
+    argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+    call = _launch.bind(echo(echo_lib, argtypes))
+    widths = (ctypes.c_int * 3)(4, 5, 6)
+    assert call(widths, -3, 0.5) == 3
+    rec = (ctypes.c_double * 64).in_dll(echo_lib, "rec")
+    assert list(rec[:3]) == [ctypes.addressof(widths), -3, 0.5]
+    with pytest.raises(OverflowError, match="argument 1"):
+        call(0, 2**31, 1.0)
+    with pytest.raises(TypeError):
+        call(0, 1)                       # too few
+    with pytest.raises(TypeError):
+        call(0, 1.5, 1.0)                # a float for an int
+    with pytest.raises(TypeError):
+        call("0", 1, 1.0)                # a string for a pointer
+    with pytest.raises(TypeError, match="c_double"):
+        _launch.kinds([ctypes.c_void_p, ctypes.c_double])
+    fn = echo(echo_lib, argtypes)
+    fn.restype = ctypes.c_float
+    with pytest.raises(TypeError, match="not an int"):
+        _launch.bind(fn)
+    module = _build.launch_lib()
+    address = ctypes.cast(fn, ctypes.c_void_p).value
+    with pytest.raises(ValueError, match="at most"):
+        module.bind(address, "f" * (module.MAX_FLOATS + 1))
+    with pytest.raises(ValueError, match="expected p, i, l or f"):
+        module.bind(address, "pd")
+
+
+def test_kernel_launches_through_the_launcher(echo_lib):
+    """``Kernel.__call__`` with the launcher bound in: the stream goes last
+    and the entry point's nonzero return raises."""
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    kernel = wired(0)
+    kernel._fn = _launch.bind(echo(echo_lib, argtypes))
+    with pytest.raises(RuntimeError, match="probe launch failed: cudaError 8"):
+        kernel(torch.device("cuda", 0), 8, 16, 24, 5, 6, 7, 0)
+    rec = (ctypes.c_double * 64).in_dll(echo_lib, "rec")
+    assert list(rec[:8]) == [8, 16, 24, 5, 6, 7, 0, 1000]
+
+
 @pytest.mark.parametrize("call", [
     lambda: rowread._launch(torch.zeros((4, 8), dtype=torch.int32),
                             rowread.MODE_ROWS, 0,
@@ -161,7 +287,10 @@ def test_call_switches_device_only_for_another_one(monkeypatch):
     lambda: gather._take_kernel(torch.zeros(8), torch.zeros(4, dtype=torch.int32),
                                 gather.TAKE_1D),
     lambda: gather._loop_kernel(torch.zeros((2, 8)), None, 1, 1, 0, gather.LOOP_FLOAT),
-], ids=["rowread", "take", "loop_probe"])
+    lambda: gather._loop_kernel(torch.zeros((2, 8), dtype=torch.int32),
+                                torch.zeros((4, 8), dtype=torch.int32), 1, 0, 4,
+                                gather.LOOP_INT, gather._LOOP_PROBE_SERIAL),
+], ids=["rowread", "take", "loop_probe", "loop_probe_serial"])
 def test_kernel_level_calls_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         call()
